@@ -5,9 +5,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` (nvcc, one
    process per source, all at once);
-2. hold each kernel against its plain PyTorch version at the serving
-   path's shapes (Llama-3-8B widths) in bfloat16 and float32, and time
-   kernel, plain version and a PyTorch library yardstick with CUDA
+2. hold each kernel against its plain PyTorch version in bfloat16 and
+   float32 — the serving kernels at the serving path's shapes
+   (Llama-3-8B widths), the flash-attention forward / dq / dk-dv kernels
+   at the training run's shape (B 2, L 4096, 32 / 8 heads, D 128) — and
+   time kernel, plain version and a PyTorch library yardstick with CUDA
    events;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
@@ -15,13 +17,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 4. serve a short float32 run at reduced depth twice — through the
    kernels and through their plain versions — and compare the first
    tick's logits and the token streams;
-5. print the kernels line, the card's name and power limit, and the
+5. train a Llama-3-8B-width model cut to 4 layers in bfloat16 through
+   ``TrainStep`` + ``AdamW(1e-4, multi_precision=True)`` on batches of
+   2 x 4096 tokens from a seeded 4-batch pool: 2 untimed steps, 5 timed
+   ones (tokens/s, ms per step, MFU, peak memory, every loss) and 3
+   under ``torch.profiler`` (one to start it, two read), counting kernel
+   launches;
+6. one float32 forward + backward of a 2-layer full-width model on 1 x
+   1024 tokens through the kernels and through their plain versions:
+   the loss and every parameter's gradient compared;
+7. print the kernels line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
-Any failed comparison or exception exits non-zero before the result
-line. Without a CUDA device, or outside a checkout, it exits non-zero
-and prints no result. ``--layers`` cuts phase 3's depth (widths stay
-full); ``--kernels-only`` stops after phase 2.
+Each path (phases 3 and 5) runs with every launch count set to 0 just
+before it and read just after; a kernel of the path that never launched
+fails the run. Any failed comparison or exception exits non-zero before
+the result line. Without a CUDA device, or outside a checkout, it exits
+non-zero and prints no result. ``--layers`` cuts phase 3's depth (widths
+stay full); ``--kernels-only`` stops after phase 2.
 """
 from __future__ import annotations
 
@@ -37,15 +50,34 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
+PEAK_FLOPS = {"bfloat16": 989.4e12,  # dense tensor-core bf16
               "float32": 67e12}      # float32 outside the tensor cores
 TOL = {"bfloat16": dict(atol=3e-2, rtol=2e-2),
        "float32": dict(atol=1e-4, rtol=1e-4)}
+# K1 outputs are also held row by row, scale-free: the largest over rows
+# of ||kernel - plain|| / ||plain||. A kernel that drops one 64-column kv
+# tile (or q tile, for dk/dv) moves the rows it touches by 10 % or more,
+# a causal edge off by one column the early rows by more; the lse, a log,
+# is held absolutely (one column in 4096 moves it by 2.4e-4). The limits
+# are about 4x and 24x the largest readings of the sound kernels at the
+# training shape on an H100 (bf16 5.0e-3, float32 4.2e-6).
+ROW_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LSE_ATOL = 1e-4
 LOGITS_ATOL = 2e-3                   # f32 kernel path vs plain path
 SEED = 0
 REQUESTS = 10                        # phase 3
 PHASE4_LAYERS = 2
 SLEEP_CYCLES = 50_000_000            # ~25 ms of device time
+ATTN = dict(B=2, L=4096, H=32, Hkv=8, D=128)   # phase 2's K1 shape
+TRAIN = dict(layers=4, batch=2, seq=4096, warm=2, timed=5, profiled=2,
+             pool=4)
+PHASE6 = dict(layers=2, batch=1, seq=1024)
+GRAD_RTOL = 1e-4      # phase 6: max |kernel - plain| / max |plain|
+LOSS_RTOL = 1e-5      # phase 6: the loss
+SERVING_KERNELS = ("ragged_paged_attention", "norm_matmul",
+                   "matmul_residual")
+TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                    "flash_attention_dkv")
 
 
 def log(*a):
@@ -105,6 +137,44 @@ def max_err(torch, got, ref, dtype, what):
     if not ok:
         raise AssertionError(f"{what} [{dtype}] disagrees with its plain "
                              f"version: max_abs_err={err}")
+    return err
+
+
+def row_rel_err(got, ref):
+    """Largest over rows (the last axis) of ||got - ref|| / ||ref||. A row
+    whose reference norm is under a tenth of the median nonzero row's is
+    measured against that tenth: such rows are cancellations (dq's first
+    row is zero in exact arithmetic), whose rounding is not relative to
+    them."""
+    diff = (got.float() - ref.float()).norm(dim=-1)
+    den = ref.float().norm(dim=-1)
+    live = den[den > 0]     # rows no column reaches are zero
+    den = den.clamp_min(0.1 * float(live.median()) if live.numel() else 1.0)
+    return float((diff / den).max())
+
+
+def held_k1(torch, got, ref, dtype, what, fails):
+    """One K1 output against its plain version: lse by LSE_ATOL, the
+    others by TOL and ROW_RTOL. Logs the readings, appends a failure to
+    ``fails`` (so every output is read before the run stops) and returns
+    the max abs error."""
+    g, r = got.float(), ref.float()
+    err = float((g - r).abs().max())
+    if what.endswith("lse"):
+        ok = err <= LSE_ATOL
+        note = f"(atol {LSE_ATOL})"
+    else:
+        rel = row_rel_err(g, r)
+        close = torch.allclose(g, r, **TOL[dtype])
+        ok = close and rel <= ROW_RTOL[dtype]
+        note = (f"row_rel_err={rel:.3e} (limit {ROW_RTOL[dtype]}); "
+                f"allclose(atol {TOL[dtype]['atol']}, rtol "
+                f"{TOL[dtype]['rtol']}) {'ok' if close else 'FAIL'};")
+    ok = ok and bool(torch.isfinite(g).all())
+    log(f"  {what} [{dtype}] max_abs_err={err:.3e} {note} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append(what)
     return err
 
 
@@ -231,6 +301,89 @@ def check_matmul_residual(torch, df, dtype, timing):
     return max(errs), rows
 
 
+def check_flash(torch, F, fa, dtype, timing):
+    """K1f, K1dq and K1dkv at the training run's attention shape, causal:
+    each against its plain version on the same inputs (dq and dk/dv take
+    the plain forward's lse and delta). Timing rows in bfloat16; the
+    library yardstick is ``scaled_dot_product_attention`` (forward for
+    K1f; its forward + backward is printed beside fwd + dq + dkv)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    B, L, H, Hkv, D = (ATTN[k] for k in ("B", "L", "H", "Hkv", "D"))
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(dt)  # noqa
+    q, k, v, do = rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
+        rnd(B, L, H, D)
+    scale = D ** -0.5
+    fails = []
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+    o_p, lse_p = fa.plain_flash_attention_fwd(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    errs = {"flash_attention_fwd": max(
+        held_k1(torch, o, o_p, dtype, "flash_attention_fwd o", fails),
+        held_k1(torch, lse, lse_p, dtype, "flash_attention_fwd lse",
+                fails))}
+    del o, lse
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse_p, delta, scale, True)
+    errs["flash_attention_dq"] = held_k1(
+        torch, fa.flash_attention_dq(*args), fa.plain_flash_attention_dq(
+            *args), dtype, "flash_attention_dq", fails)
+    errs["flash_attention_dkv"] = max(
+        held_k1(torch, a, b, dtype, f"flash_attention_dkv {n}", fails)
+        for n, a, b in zip(("dk", "dv"), fa.flash_attention_dkv(*args),
+                           fa.plain_flash_attention_dkv(*args)))
+    if fails:
+        raise AssertionError(f"[{dtype}] disagree with their plain "
+                             f"versions: {fails}")
+    if not timing:
+        return errs, None
+    # what this run's data needs: causal rows see L (L + 1) / 2 columns
+    pairs = B * H * L * (L + 1) // 2
+    es = q.element_size()
+    qkv = es * (q.numel() + 2 * k.numel())
+    rows = 4 * B * H * L                 # one float32 statistic per row
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    do_t = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), do_t)
+
+    cases = {
+        "flash_attention_fwd": (
+            qkv + es * q.numel() + rows, 4 * D * pairs,
+            lambda: fa.flash_attention_fwd(q, k, v, scale, True),
+            lambda: fa.plain_flash_attention_fwd(q, k, v, scale, True),
+            sdpa),
+        "flash_attention_dq": (
+            qkv + 2 * es * q.numel() + 2 * rows, 6 * D * pairs,
+            lambda: fa.flash_attention_dq(*args),
+            lambda: fa.plain_flash_attention_dq(*args), None),
+        "flash_attention_dkv": (
+            qkv + es * q.numel() + 2 * rows + 2 * es * k.numel(),
+            8 * D * pairs, lambda: fa.flash_attention_dkv(*args),
+            lambda: fa.plain_flash_attention_dkv(*args), None)}
+    slow = dict(reps=2, rounds=3, warmup=1)
+    rows_out = {}
+    with torch.no_grad():
+        for name, (nbytes, flops, kern, plain, lib) in cases.items():
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            rows_out[name] = dict(
+                ms=time_ms(torch, kern, **slow),
+                plain_ms=time_ms(torch, plain, **slow), bound_ms=b_ms,
+                bound_by=b_by,
+                library_ms=time_ms(torch, lib, **slow) if lib else None)
+    lib_fb = time_ms(torch, sdpa_fwd_bwd, **slow)
+    ours = sum(r["ms"] for r in rows_out.values())
+    log(f"  flash attention fwd + dq + dkv: ms={ours:.4f}; library "
+        f"scaled_dot_product_attention fwd + bwd: ms={lib_fb:.4f}")
+    return errs, rows_out
+
+
 def decode_width_times(torch, df):
     """The GEMM kernels at a decode-only tick's width (R = 8 rows, one
     per slot), where the weight bytes bound them; printed, not held."""
@@ -269,29 +422,46 @@ def merge_rows(rows, dtype):
                 library_ms=sum(r["library_ms"] for r in rows))
 
 
+def profiled(torch, step, n, row_limit):
+    """torch.profiler over ``n`` calls of ``step``, after one call that
+    runs while the profiler starts and is not read. Prints the device
+    time by kernel and returns ``(wall_ms, busy_ms)`` of the same ``n``
+    calls: host time from the first call to the device's end (profiler
+    on), and the sum of their kernels' durations (one stream, so they do
+    not overlap; the ``ProfilerStep`` range on the device is no kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.monotonic()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+        prof.step()
+    log(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=row_limit))
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")
+                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    return wall_ms, busy_ms
+
+
 def profile_ticks(torch, engine, skip, n):
     """Where a tick's time goes: torch.profiler over ``n`` engine ticks
     after ``skip`` plain ones, device time by kernel, and the device's
-    busy share of the window's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    idle share of the same ticks' wall time."""
     for _ in range(skip):
         engine.step()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            engine.step()
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.monotonic() - t0)
-    from torch.autograd import DeviceType
-    log(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                  row_limit=15))
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA) / 1e3
+    wall_ms, busy_ms = profiled(torch, engine.step, n, 15)
     log(f"profile: {n} ticks, wall {wall_ms:.3f} ms (profiler on), device "
         f"busy {busy_ms:.3f} ms -> idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -322,6 +492,146 @@ def serve_f32(torch, ServingEngine, ServingConfig, model, prompts):
     return first, [done[r] for r in rids]
 
 
+# ---------------------------------------------------------------- phase 5
+
+def train_run(torch, kernels, LlamaConfig, LlamaForCausalLM, AdamW,
+              TrainStep):
+    """The training path: Llama-3-8B widths at TRAIN["layers"] layers,
+    bfloat16, TrainStep + AdamW(1e-4, multi_precision=True), as the
+    reference's bench.py trains. Returns the path's launch counts."""
+    cfg = LlamaConfig.llama3_8b()
+    cfg.dtype = "bfloat16"
+    cfg.num_hidden_layers = TRAIN["layers"]
+    bsz, seq = TRAIN["batch"], TRAIN["seq"]
+    t0 = time.monotonic()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, lambda out, a, k: out, opt)
+    rng = np.random.RandomState(SEED)
+    pool = []
+    for _ in range(TRAIN["pool"]):
+        ids = rng.randint(0, cfg.vocab_size, (bsz, seq)).astype(np.int64)
+        pool.append(tuple(torch.from_numpy(a).cuda()
+                          for a in (ids, np.roll(ids, -1, axis=1))))
+    torch.cuda.synchronize()
+    log(f"phase 5: Llama-3-8B widths, {cfg.num_hidden_layers} layers, "
+        f"{n_params / 1e9:.3f}B params bf16, batch {bsz} x {seq}, init "
+        f"{time.monotonic() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    it = 0
+
+    def one_step():
+        nonlocal it
+        loss = step(*pool[it % len(pool)])
+        it += 1
+        return loss
+
+    losses = [float(one_step()) for _ in range(TRAIN["warm"])]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = [one_step() for _ in range(TRAIN["timed"])]
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    losses += [float(x) for x in timed]
+    # where a step's time goes, and the device's idle share of the same
+    # steps' wall time
+    n_prof = TRAIN["profiled"]
+    wall_ms, busy_ms = profiled(torch, one_step, n_prof, 20)
+    log(f"phase 5 profile: {n_prof} steps, wall {wall_ms:.3f} ms "
+        f"({wall_ms / n_prof:.3f} ms a step, profiler on), device busy "
+        f"{busy_ms:.3f} ms -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
+    torch.cuda.synchronize()
+    launches = {k: kernels.launch_counts[k] for k in TRAINING_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = bsz * seq * TRAIN["timed"]
+    tok_s = tokens / dt
+    ms_step = 1e3 * dt / TRAIN["timed"]
+    peak_flops = PEAK_FLOPS["bfloat16"]
+    lsh = cfg.num_hidden_layers * seq * cfg.hidden_size
+    # the reference's bench.py formula: every parameter in 6N, attention
+    # as if no column were masked
+    f_ref = 6 * n_params + 12 * lsh
+    # the matmuls the step runs: the input embedding is a gather, and
+    # causal attention computes half the score and PV products
+    f_model = 6 * (n_params - cfg.vocab_size * cfg.hidden_size) + 6 * lsh
+    log(f"phase 5: {TRAIN['timed']} timed steps in {dt:.4f}s -> "
+        f"{ms_step:.3f} ms/step, {tok_s:.1f} tokens/s, "
+        f"MFU {tok_s * f_ref / peak_flops:.4f} (6N + 12 L s h = "
+        f"{f_ref / 1e9:.3f} GFLOP/token), without the input embedding and "
+        f"with causal attention {tok_s * f_model / peak_flops:.4f} "
+        f"(6(N - V h) + 6 L s h = {f_model / 1e9:.3f} GFLOP/token), at "
+        f"{peak_flops / 1e12:.1f} TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; master weights "
+        f"{len(opt._master_weights)}")
+    log(f"phase 5: losses {[round(x, 5) for x in losses]} "
+        f"(steps 1-{TRAIN['warm']} untimed; {n_prof + 1} more steps "
+        f"under the profiler)")
+    log(f"phase 5: kernel launches {launches} over {it} steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want = cfg.num_hidden_layers * it
+    wrong = {k: n for k, n in launches.items() if n != want}
+    if wrong:
+        raise AssertionError(f"training kernels launched {wrong} times, "
+                             f"want {want} each (layers x steps)")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+def train_f32_check(torch, fa, LlamaConfig, LlamaForCausalLM):
+    """Kernel path against plain path on the card, float32: the loss and
+    every parameter's gradient of one forward + backward."""
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = PHASE6["layers"]
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 2)
+    rng = np.random.RandomState(SEED + 2)
+    ids = rng.randint(0, cfg.vocab_size,
+                      (PHASE6["batch"], PHASE6["seq"])).astype(np.int64)
+    ids_t = torch.from_numpy(ids).cuda()
+    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1)).cuda()
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model(ids_t, labels=labels_t)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    patches = [mock.patch.object(fa, "flash_attention_fwd",
+                                 fa.plain_flash_attention_fwd),
+               mock.patch.object(fa, "flash_attention_dq",
+                                 fa.plain_flash_attention_dq),
+               mock.patch.object(fa, "flash_attention_dkv",
+                                 fa.plain_flash_attention_dkv)]
+    for p in patches:
+        p.start()
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        for p in patches:
+            p.stop()
+    lerr = abs(loss_k - loss_p) / abs(loss_p)
+    gerr = {n: float((grads_k[n] - grads_p[n]).abs().max()
+                     / grads_p[n].abs().max().clamp(min=1e-30))
+            for n in grads_p}
+    worst = max(gerr, key=gerr.get)
+    log(f"phase 6: f32, {cfg.num_hidden_layers} layers at full widths, "
+        f"{PHASE6['batch']} x {PHASE6['seq']} tokens: loss kernel "
+        f"{loss_k:.6f} plain {loss_p:.6f} (rel {lerr:.2e}, tol "
+        f"{LOSS_RTOL}); {len(gerr)} gradients, worst {worst} rel "
+        f"{gerr[worst]:.2e} (tol {GRAD_RTOL})")
+    if not lerr <= LOSS_RTOL:
+        raise AssertionError(f"kernel path loss disagrees: {lerr}")
+    bad = {n: e for n, e in gerr.items() if not e <= GRAD_RTOL}
+    if bad:
+        raise AssertionError(f"kernel path gradients disagree: {bad}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -346,17 +656,21 @@ def main(argv=None):
     try:
         import paddle_tpu_torch  # noqa: F401
         from paddle_tpu_torch.inference import ServingConfig, ServingEngine
+        from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.models.llama import (LlamaConfig,
                                                    LlamaForCausalLM)
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.ops.kernels import decode_fused as df
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.ops.kernels import \
             ragged_paged_attention as rpa
     except ImportError as e:
         print(f"chip_smoke: run from the root of a paddle-tpu checkout "
               f"({e})", file=sys.stderr)
         return 2
+    import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -371,14 +685,19 @@ def main(argv=None):
         f"{time.monotonic() - t0:.1f}s (nvcc {_build.nvcc_path()})")
 
     # -- phase 2: kernels vs plain versions -------------------------------
-    log("phase 2: kernels vs plain versions at the serving shapes")
+    log("phase 2: kernels vs plain versions at the serving and training "
+        "shapes")
     table = {}
     for dtype in ("float32", "bfloat16"):
         timing = dtype == "bfloat16"
         e1, r1 = check_ragged(torch, rpa, dtype, timing)
         e2, r2 = check_norm_matmul(torch, df, dtype, timing)
         e3, r3 = check_matmul_residual(torch, df, dtype, timing)
+        e4, r4 = check_flash(torch, F, fa, dtype, timing)
+        torch.cuda.empty_cache()
         if timing:
+            for name, r in r4.items():
+                table[name] = dict(r, max_abs_err=e4[name])
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
             table["norm_matmul"] = dict(merge_rows(r2, dtype),
                                         max_abs_err=e2)
@@ -396,6 +715,9 @@ def main(argv=None):
         log(f"  {name} [bfloat16]: ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={r['library_ms']}")
+    log(f"  bound rates: {HBM_BYTES_PER_S / 1e12} TB/s, bf16 "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12} TFLOP/s (H100 SXM data sheet); "
+        f"card {card}")
     if args.kernels_only:
         log("stopping after phase 2 (--kernels-only)")
         return 1
@@ -451,6 +773,7 @@ def main(argv=None):
         f" p50 {st['ttft_ms']['p50']:.1f} max {st['ttft_ms']['max']:.1f}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"phase 3: kernel launches {launches}")
+    launches = {k: launches[k] for k in SERVING_KERNELS}
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -492,14 +815,35 @@ def main(argv=None):
     if not diverged:
         log(f"phase 4: token streams equal ({sum(map(len, toks_k))} tokens)")
 
-    # -- phase 5: report ---------------------------------------------------
+    del model
+    torch.cuda.empty_cache()
+
+    # -- phase 5: training at Llama-3-8B widths ---------------------------
+    launches.update(train_run(torch, kernels, LlamaConfig, LlamaForCausalLM,
+                              AdamW, TrainStep))
+    torch.cuda.empty_cache()
+
+    # -- phase 6: training kernel path vs plain path, f32 ------------------
+    train_f32_check(torch, fa, LlamaConfig, LlamaForCausalLM)
+
+    # -- phase 7: report ---------------------------------------------------
+    fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     srcs = {"ragged_paged_attention": (
                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:593"),
             "norm_matmul": ("paddle_tpu_torch/csrc/norm_matmul.cu",
                             "paddle_tpu/ops/pallas/decode_fused.py:300"),
             "matmul_residual": ("paddle_tpu_torch/csrc/matmul_residual.cu",
-                                "paddle_tpu/ops/pallas/decode_fused.py:335")}
+                                "paddle_tpu/ops/pallas/decode_fused.py:335"),
+            "flash_attention_fwd": (
+                "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+                f"{fa_src}:164"),
+            "flash_attention_dq": (
+                "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                f"{fa_src}:311"),
+            "flash_attention_dkv": (
+                "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                f"{fa_src}:343")}
     out = []
     for name, (src, rep) in srcs.items():
         r = table[name]

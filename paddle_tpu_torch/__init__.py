@@ -1,19 +1,23 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
 
-This slice serves a Llama causal LM through the ragged serving tick on
-an NVIDIA Hopper GPU: hand-written CUDA kernels for ragged paged
-attention, RMSNorm -> projections and projection -> residual (sources in
+It serves a Llama causal LM through the ragged serving tick and trains
+it through ``jit.TrainStep`` (or ``loss.backward()`` + ``opt.step()``)
+with AdamW on an NVIDIA Hopper GPU: hand-written CUDA kernels for ragged
+paged attention, RMSNorm -> projections, projection -> residual, and
+flash attention's forward, dq and dk/dv passes (sources in
 ``paddle_tpu_torch/csrc``, built with nvcc at first use), plain PyTorch
 for the rest. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, where every kernel's plain PyTorch version runs
 instead. The package imports neither ``jax`` nor ``paddle_tpu``.
 """
-from . import framework, generation, inference, models, nn, ops
+from . import (framework, generation, inference, jit, models, nn, ops,
+               optimizer)
 from .convert import load_jax_params, params_from_jax
 from .framework import generator, resolve_device, seed
 
 __version__ = "0.1.0"
 
-__all__ = ["framework", "generation", "inference", "models", "nn", "ops",
+__all__ = ["framework", "generation", "inference", "jit", "models", "nn",
+           "ops", "optimizer",
            "load_jax_params", "params_from_jax", "generator",
            "resolve_device", "seed"]

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["swiglu", "rope_tables", "rope_rotate"]
+__all__ = ["swiglu", "rope_tables", "rope_rotate", "apply_rope"]
 
 
 def swiglu(x, y=None):
@@ -39,3 +39,9 @@ def rope_rotate(x, c, s):
     s = s.float()
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, cos, sin):
+    """Rope over ``x [B, L, H, D]`` with the tables ``cos``/``sin``
+    ``[L, D/2]`` shared by every row (the reference's ``_apply_rope``)."""
+    return rope_rotate(x, cos[None, :, None, :], sin[None, :, None, :])

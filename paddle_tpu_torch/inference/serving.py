@@ -387,9 +387,11 @@ class ServingEngine:
         if self._tables_dev is None:
             self._tables_dev = torch.from_numpy(self._tables).to(dev)
         meta = (slots[1], slots[2], rows[1], rows[2], int(q_lens.max()))
-        logits, self._pools = self.model(
-            rows[0], self._pools, self._tables_dev, slots[0], meta,
-            last_rows=slots[3], fused=cfg.fused_decode)
+        with torch.no_grad():
+            logits, self._pools = self.model(
+                rows[0], caches=self._pools, block_tables=self._tables_dev,
+                cache_lens=slots[0], ragged_meta=meta, last_rows=slots[3],
+                fused=cfg.fused_decode)
         self.last_logits = logits
         tok = self._select(logits).cpu().numpy()
         self._n_ticks += 1

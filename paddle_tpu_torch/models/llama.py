@@ -1,18 +1,25 @@
-"""Llama causal LM for serving (counterpart of
-``paddle_tpu/models/llama.py``, the ragged serving path).
+"""Llama causal LM (counterpart of ``paddle_tpu/models/llama.py``): the
+dense training forward and the ragged serving path.
 
 Parameter names and layouts follow the reference's ``state_dict()``
 (``llama.layers.{i}.self_attn.q_proj.weight`` ``[in, out]``, ...), so
 weights move across with :func:`paddle_tpu_torch.convert.params_from_jax`.
-The forward takes ONE packed ragged row buffer per serving tick: every
-live query row of every slot (decode rows and prefill-chunk rows),
-partitioned by ``ragged_meta``. Each decoder layer runs either the fused
-decode path (RMSNorm -> q/k/v and RMSNorm -> gate/up through
-``norm_matmul``; O-projection + residual and swiglu -> down-projection
-+ residual through ``matmul_residual``; attention through the ragged
-paged kernel) or the unfused module path; on the CPU the two are
-bitwise equal. The dense training forward and the dense/per-width paged
-decode paths belong to later slices.
+
+``forward`` keeps the reference's keyword signature. With ``caches``
+None it is the dense path over ``input_ids [B, L]``: embedding, decoder
+layers (RMSNorm, q/k/v, rope, causal flash attention through the K1
+kernels, O-projection, residual, RMSNorm, swiglu MLP, residual), final
+norm and LM head; given ``labels`` it returns the
+:class:`LlamaPretrainingCriterion` loss, else the logits. Everything is
+differentiable. With ``caches`` it takes ONE packed ragged row buffer
+per serving tick: every live query row of every slot, partitioned by
+``ragged_meta``. Each decoder layer then runs either the fused decode
+path (RMSNorm -> q/k/v and RMSNorm -> gate/up through ``norm_matmul``;
+O-projection + residual and swiglu -> down-projection + residual through
+``matmul_residual``; attention through the ragged paged kernel) or the
+unfused module path; on the CPU the two are bitwise equal. The serving
+engine calls it under ``torch.no_grad()``. The dense/per-width paged
+decode paths, recompute and attention masks belong to later slices.
 """
 from __future__ import annotations
 
@@ -24,14 +31,17 @@ from torch import nn
 
 from ..framework.place import resolve_device
 from ..framework.random import generator as make_generator
-from ..incubate.nn.functional import rope_rotate, rope_tables, swiglu
+from ..incubate.nn.functional import (apply_rope, rope_rotate, rope_tables,
+                                      swiglu)
 from ..nn import Embedding, Linear, RMSNorm
 from ..ops import paged_attention as _pa
 from ..ops import paged_cache as _pc
+from ..ops.flash_attention import flash_attention_core
 from ..ops.kernels import decode_fused as _df
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP",
-           "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM"]
+           "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -77,7 +87,8 @@ class LlamaConfig:
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention, ragged serving path only."""
+    """GQA attention: dense causal (training) or ragged paged
+    (serving)."""
 
     def __init__(self, config: LlamaConfig, device, dtype):
         super().__init__()
@@ -114,8 +125,20 @@ class LlamaAttention(nn.Module):
             sm_scale=1.0 / math.sqrt(self.head_dim))
         return out.reshape(r, self.num_heads * self.head_dim), (kp, vp)
 
-    def forward(self, h, rope_cos, rope_sin, kv_cache, block_tables,
-                cache_lens, ragged_meta):
+    def forward(self, h, rope_cos, rope_sin, kv_cache=None,
+                block_tables=None, cache_lens=None, ragged_meta=None):
+        if kv_cache is None:
+            # dense causal over h [B, L, hidden]; kv heads stay grouped
+            b, l, _ = h.shape
+            qh = self.q_proj(h).reshape(b, l, self.num_heads, self.head_dim)
+            kh = self.k_proj(h).reshape(b, l, self.num_kv_heads,
+                                        self.head_dim)
+            vh = self.v_proj(h).reshape(b, l, self.num_kv_heads,
+                                        self.head_dim)
+            out = flash_attention_core(apply_rope(qh, rope_cos, rope_sin),
+                                       apply_rope(kh, rope_cos, rope_sin),
+                                       vh, is_causal=True)
+            return self.o_proj(out.reshape(b, l, -1))
         ctx, cache = self.attend_ragged(
             self.q_proj(h), self.k_proj(h), self.v_proj(h), rope_cos,
             rope_sin, kv_cache, block_tables, cache_lens, ragged_meta)
@@ -167,8 +190,13 @@ class LlamaDecoderLayer(nn.Module):
                                   act="swiglu")
         return out, cache
 
-    def forward(self, h, rope_cos, rope_sin, kv_cache, block_tables,
-                cache_lens, ragged_meta, fused=True):
+    def forward(self, h, rope_cos, rope_sin, kv_cache=None,
+                block_tables=None, cache_lens=None, ragged_meta=None,
+                fused=True):
+        if kv_cache is None:             # dense: [B, L, hidden]
+            h = h + self.self_attn(self.input_layernorm(h), rope_cos,
+                                   rope_sin)
+            return h + self.mlp(self.post_attention_layernorm(h))
         if fused:
             return self.forward_decode_fused(h, rope_cos, rope_sin,
                                              kv_cache, block_tables,
@@ -198,8 +226,20 @@ class LlamaModel(nn.Module):
         self.register_buffer("_rope_sin", torch.from_numpy(sin).to(device),
                              persistent=False)
 
-    def forward(self, input_ids, caches, block_tables, cache_lens,
-                ragged_meta, fused=True):
+    def forward(self, input_ids, attention_mask=None, position_ids=None,
+                caches=None, block_tables=None, cache_lens=None,
+                ragged_meta=None, fused=True):
+        if caches is None:
+            if attention_mask is not None or position_ids is not None:
+                raise NotImplementedError(
+                    "LlamaModel: attention_mask / position_ids on the dense "
+                    "path are not ported yet")
+            h = self.embed_tokens(input_ids.long())
+            l = h.shape[1]
+            cos, sin = self._rope_cos[:l], self._rope_sin[:l]
+            for layer in self.layers:
+                h = layer(h, cos, sin)
+            return self.norm(h)
         h = self.embed_tokens(input_ids.reshape(-1).long())
         new_caches = []
         for layer, kv in zip(self.layers, caches):
@@ -210,18 +250,50 @@ class LlamaModel(nn.Module):
         return self.norm(h), new_caches
 
 
+class LlamaPretrainingCriterion(nn.Module):
+    """Masked cross entropy over pre-shifted labels (``labels[t]`` is the
+    target of ``logits[t]``; no internal shift), with the reference's
+    recipe: the row max in the logits dtype (no gradient), the float32
+    upcast only on ``logits - max`` under the exp-sum, the picked logit
+    gathered in the logits dtype, ``ignore_index`` rows masked, and the
+    mean over the rows that count. No full ``log_softmax`` is built."""
+
+    def __init__(self, config: LlamaConfig = None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        m = logits.detach().amax(-1, keepdim=True)
+        zs = (logits - m).float()
+        lse = m[..., 0].float() + torch.log(torch.exp(zs).sum(-1))
+        lb = labels.long()
+        picked = torch.gather(logits, -1, lb.clamp(min=0)[..., None])[
+            ..., 0].float()
+        valid = lb != self.ignore_index
+        loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
+        return loss.sum() / valid.float().sum().clamp(min=1.0)
+
+
 class LlamaForCausalLM(nn.Module):
-    """``forward(input_ids [R], caches, block_tables [S, MB] int32,
-    cache_lens [S] int32, ragged_meta)`` -> ``(logits, caches)``.
-    ``ragged_meta`` is ``(q_lens [S], row_starts [S], row_slot [R],
-    row_pos [R], w_max)``: int32 tensors on the model's device plus a
-    host int bounding ``q_lens``. ``last_rows`` (``[S]`` row indices)
+    """``forward(input_ids, labels=None, attention_mask=None,
+    position_ids=None, caches=None, offset=None, block_tables=None,
+    cache_lens=None, ragged_meta=None, last_rows=None, fused=True)``.
+
+    Dense (``caches`` None): ``input_ids [B, L]`` -> logits
+    ``[B, L, V]``, or the scalar loss when ``labels [B, L]`` is given.
+
+    Ragged serving (``caches`` given): ``input_ids [R]``, ``block_tables
+    [S, MB]`` int32, ``cache_lens [S]`` int32 and ``ragged_meta = (q_lens
+    [S], row_starts [S], row_slot [R], row_pos [R], w_max)`` (int32
+    tensors on the model's device plus a host int bounding ``q_lens``)
+    -> ``(logits, caches)``; ``last_rows`` (``[S]`` row indices)
     restricts the LM head to those rows.
 
     Built on ``device`` (default: cuda; ``"cpu"`` runs the plain
     versions of the kernels) with weights drawn from ``generator`` (or a
     generator seeded with ``seed``), normal(0, initializer_range) for
-    projections and embeddings, ones for norms."""
+    projections and embeddings, ones for norms. Every parameter is
+    trainable."""
 
     def __init__(self, config: LlamaConfig, device=None, seed=0,
                  generator=None):
@@ -232,6 +304,7 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, dev, dtype)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, device=dev, dtype=dtype)
+        self.criterion = LlamaPretrainingCriterion(config)
         self._init_weights(generator if generator is not None
                            else make_generator(seed, dev))
 
@@ -248,18 +321,33 @@ class LlamaForCausalLM(nn.Module):
             else:
                 p.normal_(0.0, std, generator=generator)
 
-    @torch.no_grad()
-    def forward(self, input_ids, caches, block_tables, cache_lens,
-                ragged_meta, last_rows=None, fused=True):
-        h, new_caches = self.llama(input_ids, caches, block_tables,
-                                   cache_lens, ragged_meta, fused=fused)
+    def forward(self, input_ids, labels=None, attention_mask=None,
+                position_ids=None, caches=None, offset=None,
+                block_tables=None, cache_lens=None, ragged_meta=None,
+                last_rows=None, fused=True):
+        if caches is None:
+            h = self.llama(input_ids, attention_mask, position_ids)
+            return self._head_and_loss(h, labels)
+        if offset is not None or attention_mask is not None:
+            raise NotImplementedError(
+                "LlamaForCausalLM: the dense cached decode path (offset, "
+                "attention_mask) is not ported yet")
+        h, new_caches = self.llama(input_ids, caches=caches,
+                                   block_tables=block_tables,
+                                   cache_lens=cache_lens,
+                                   ragged_meta=ragged_meta, fused=fused)
         if last_rows is not None:
             h = h[last_rows.long()]
+        return self._head_and_loss(h, None), new_caches
+
+    def _head_and_loss(self, h, labels):
         if self.lm_head is None:
             logits = h @ self.llama.embed_tokens.weight.t()
         else:
             logits = self.lm_head(h)
-        return logits, new_caches
+        if labels is not None:
+            return self.criterion(logits, labels)
+        return logits
 
     def init_paged_caches(self, num_blocks: int, block_size: int):
         """Zeroed per-layer ``(k_pool, v_pool)``, each

@@ -3,8 +3,8 @@ layout (counterparts of ``paddle_tpu/nn/layer/common.py`` and
 ``norm.py``): ``Linear.weight`` is ``[in, out]`` and the forward is
 ``x @ weight``, so a ``state_dict`` moves between the two
 packages without transposes. Parameters are allocated uninitialised on
-the given device; the model that owns them initialises them from an
-explicit generator."""
+the given device and are trainable; the model that owns them initialises
+them from an explicit generator."""
 from __future__ import annotations
 
 import torch
@@ -22,8 +22,7 @@ class Linear(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=device, dtype=dtype),
-            requires_grad=False)
+            in_features, out_features, device=device, dtype=dtype))
 
     def forward(self, x):
         return x @ self.weight
@@ -34,8 +33,7 @@ class Embedding(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype),
-            requires_grad=False)
+            num_embeddings, embedding_dim, device=device, dtype=dtype))
 
     def forward(self, ids):
         return self.weight[ids]
@@ -47,7 +45,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self._epsilon = float(epsilon)
         self.weight = nn.Parameter(torch.ones(
-            hidden_size, device=device, dtype=dtype), requires_grad=False)
+            hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
         return rms_norm(x, self.weight, self._epsilon)

@@ -1,3 +1,3 @@
-from . import kernels, paged_attention, paged_cache
+from . import flash_attention, kernels, paged_attention, paged_cache
 
-__all__ = ["kernels", "paged_attention", "paged_cache"]
+__all__ = ["flash_attention", "kernels", "paged_attention", "paged_cache"]

@@ -8,7 +8,8 @@ bumped right after each successful launch, so a run can show that its
 main path went through the kernels.
 """
 launch_counts = {"ragged_paged_attention": 0, "norm_matmul": 0,
-                 "matmul_residual": 0}
+                 "matmul_residual": 0, "flash_attention_fwd": 0,
+                 "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
 
 def reset_launch_counts():

@@ -133,7 +133,10 @@ def test_fused_layer_equals_unfused_bitwise_on_cpu():
     outs = {}
     for fused in (True, False):
         ids, pools, tables, base, meta, last = _tick(model, seed=5)
-        logits, pools = model(ids, pools, tables, base, meta, fused=fused)
+        with torch.no_grad():
+            logits, pools = model(ids, caches=pools, block_tables=tables,
+                                  cache_lens=base, ragged_meta=meta,
+                                  fused=fused)
         outs[fused] = (logits, pools)
     torch.testing.assert_close(outs[True][0], outs[False][0], rtol=0,
                                atol=0)

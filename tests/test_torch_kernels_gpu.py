@@ -7,18 +7,38 @@ one (the kernels have no CPU mode). The file imports neither ``jax`` nor
 
 Tolerances: float32 1e-4 (the same products summed in another order);
 bfloat16 2e-2 (one rounding of the output, plus activations rounded to
-bfloat16 at the same places as the plain version)."""
+bfloat16 at the same places as the plain version; the flash forward
+rounds P against a running row max where the plain version uses the
+final one, a difference well inside that bound). The flash attention
+outputs are also held row by row, scale-free, at ``ROW_RTOL``: a dropped
+tile or a shifted causal edge moves whole rows by far more."""
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import paged_cache as tpc
 from paddle_tpu_torch.ops.kernels import decode_fused as df
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+ROW_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _rows_close(got, ref, dtype):
+    """Elementwise at TOL, and each row (the last axis) within ROW_RTOL
+    of its reference's norm; rows under a tenth of the median nonzero
+    row norm (cancellations, as dq's first row) are measured against
+    that tenth."""
+    g, r = got.float(), ref.float()
+    torch.testing.assert_close(g, r, **TOL[dtype])
+    den = r.norm(dim=-1)
+    live = den[den > 0]     # rows no column reaches are zero
+    den = den.clamp_min(0.1 * float(live.median()) if live.numel() else 1.0)
+    rel = float(((g - r).norm(dim=-1) / den).max())
+    assert rel <= ROW_RTOL[dtype], rel
 
 
 @pytest.fixture
@@ -128,6 +148,58 @@ def test_split_k_paths(cuda, rows):
             **TOL["bfloat16"])
 
 
+def _attn_case(seed, B, lq, lk, H, Hkv, D, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa
+    return f(B, lq, H, D), f(B, lk, Hkv, D), f(B, lk, Hkv, D), f(B, lq, H, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim,rep", [(64, 1), (64, 4), (128, 1),
+                                          (128, 4)])
+@pytest.mark.parametrize("lq,lk", [(200, 200), (64, 64), (100, 230)])
+def test_flash_attention_kernels(cuda, dtype, causal, head_dim, rep, lq,
+                                 lk):
+    """K1f, K1dq and K1dkv each against its plain version on the same
+    inputs; lengths off the 64-row tile exercise the tail masks, and
+    lq != lk the top-left causal mask."""
+    q, k, v, do = _attn_case(head_dim + rep + lq, 2, lq, lk, 2 * rep, 2,
+                             head_dim, getattr(torch, dtype), cuda)
+    scale = head_dim ** -0.5
+    n0 = dict(launch_counts)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+    o_p, lse_p = fa.plain_flash_attention_fwd(q, k, v, scale, causal)
+    _rows_close(o, o_p, dtype)
+    torch.testing.assert_close(lse, lse_p, **TOL[dtype])
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse_p, delta, scale, causal)
+    _rows_close(fa.flash_attention_dq(*args),
+                fa.plain_flash_attention_dq(*args), dtype)
+    for a, b in zip(fa.flash_attention_dkv(*args),
+                    fa.plain_flash_attention_dkv(*args)):
+        _rows_close(a, b, dtype)
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert launch_counts[name] == n0[name] + 1
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_matches_plain_path(cuda):
+    """The autograd Function through the kernels on the card against the
+    same Function on CPU copies (the plain versions), float32."""
+    q, k, v, do = _attn_case(5, 2, 130, 130, 8, 2, 64, torch.float32, cuda)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention(*leaves, 0.125, causal=True)
+        o.backward(do.to(dev))
+        outs.append([o.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, **TOL["float32"])
+
+
 @pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 12, device=cuda, dtype=torch.bfloat16)
@@ -144,3 +216,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         rpa.ragged_paged_attention(q, pool, pool, i32.reshape(1, 1), i32,
                                    i32, i32, 1)
+    qa = torch.zeros(1, 8, 4, 96, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(qa, qa, qa, 0.1, True)
+    qa = torch.zeros(1, 8, 3, 64, device=cuda)
+    with pytest.raises(ValueError, match="whole group"):
+        fa.flash_attention_fwd(qa, qa[:, :, :2].contiguous(),
+                               qa[:, :, :2].contiguous(), 0.1, True)

@@ -111,16 +111,19 @@ def test_ragged_forward_matches_reference_logits(jax_model, port_model):
     tmeta = (t(q_lens.astype(np.int32)), t(row_starts), t(row_slot),
              t(row_pos), int(q_lens.max()))
     tpools = [(t(k), t(v)) for k, v in pools]
-    got, _ = port_model(t(ids), tpools, t(tables),
-                        t(base.astype(np.int32)), tmeta)
+    with torch.no_grad():
+        got, _ = port_model(t(ids), caches=tpools, block_tables=t(tables),
+                            cache_lens=t(base.astype(np.int32)),
+                            ragged_meta=tmeta)
+        got_last, _ = port_model(
+            t(ids), caches=[(t(k), t(v)) for k, v in pools],
+            block_tables=t(tables), cache_lens=t(base.astype(np.int32)),
+            ragged_meta=tmeta, last_rows=t(last))
     live = [r for s in range(S)
             for r in range(row_starts[s], row_starts[s] + q_lens[s])]
     np.testing.assert_allclose(got.numpy()[live], want[live], atol=1e-4,
                                rtol=1e-4)
     # the LM head on last_rows only gives the same rows
-    got_last, _ = port_model(t(ids), [(t(k), t(v)) for k, v in pools],
-                             t(tables), t(base.astype(np.int32)), tmeta,
-                             last_rows=t(last))
     np.testing.assert_allclose(got_last.numpy()[:2], want[last[:2]],
                                atol=1e-4, rtol=1e-4)
 

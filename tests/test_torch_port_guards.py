@@ -18,7 +18,9 @@ from paddle_tpu_torch.convert import params_from_jax
 from paddle_tpu_torch.framework import generator, resolve_device
 from paddle_tpu_torch.framework.place import default_device
 from paddle_tpu_torch.inference import ServingConfig, ServingEngine
+from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.optimizer import AdamW
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "flax", "optax")
@@ -52,9 +54,14 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/inference/serving.py",
                  "paddle_tpu_torch/ops/kernels/decode_fused.py",
                  "paddle_tpu_torch/ops/kernels/ragged_paged_attention.py",
+                 "paddle_tpu_torch/ops/kernels/flash_attention.py",
+                 "paddle_tpu_torch/ops/flash_attention.py",
+                 "paddle_tpu_torch/optimizer/optimizer.py",
+                 "paddle_tpu_torch/jit/__init__.py",
                  "chip_smoke.py"):
         assert want in names
-    for cu in ("ragged_paged_attention", "norm_matmul", "matmul_residual"):
+    for cu in ("ragged_paged_attention", "norm_matmul", "matmul_residual",
+               "flash_attention_fwd", "flash_attention_bwd"):
         assert (ROOT / "paddle_tpu_torch" / "csrc" / f"{cu}.cu").exists()
 
 
@@ -68,7 +75,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_fresh_interpreter_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.ops.kernels."
-            "decode_fused, paddle_tpu_torch.inference; "
+            "decode_fused, paddle_tpu_torch.ops.kernels.flash_attention, "
+            "paddle_tpu_torch.inference, paddle_tpu_torch.jit, "
+            "paddle_tpu_torch.optimizer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -119,3 +128,20 @@ def test_engine_refuses_a_model_on_another_device():
         with pytest.raises(ValueError, match="device"):
             ServingEngine(model, ServingConfig(num_slots=1,
                                                max_model_len=32))
+
+
+def test_training_entry_points_raise_without_gpu(no_gpu):
+    """A model on the default device cannot be built without a GPU, so
+    neither can its optimizer or TrainStep; on ``device="cpu"`` the same
+    calls run the plain path."""
+    cfg = LlamaConfig.tiny(vocab=64, hidden=128, layers=1, heads=2,
+                           kv_heads=1, ffn=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainStep(LlamaForCausalLM(cfg), lambda out, a, k: out,
+                  AdamW(1e-4, parameters=LlamaForCausalLM(cfg).parameters()))
+    model = LlamaForCausalLM(cfg, device="cpu")
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, lambda out, a, k: out, opt)
+    assert step.device == torch.device("cpu")
+    ids = np.zeros((1, 8), np.int64)
+    assert np.isfinite(float(step(ids, ids)))
