@@ -7,16 +7,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    process per source, all at once);
 2. hold each kernel against its plain PyTorch version in bfloat16 and
    float32 — the serving kernels at the serving path's shapes
-   (Llama-3-8B widths), the flash-attention forward / dq / dk-dv kernels
-   at the training run's shape (B 2, L 4096, 32 / 8 heads, D 128) — and
-   time kernel, plain version and a PyTorch library yardstick with CUDA
-   events;
+   (Llama-3-8B widths), the paged decode / verify kernels at phase 7's
+   (4 slots, 32 / 8 heads, D 128, tables of 37 blocks, contexts 513..576,
+   a window of 5) and at 8 slots with contexts up to 2048, the
+   flash-attention forward / dq / dk-dv kernels at the training
+   run's shape (B 2, L 4096, 32 / 8 heads, D 128) — and time kernel,
+   plain version and a PyTorch library yardstick with CUDA events;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches;
 4. serve a short float32 run at reduced depth twice — through the
    kernels and through their plain versions — and compare the first
-   tick's logits and the token streams;
+   tick's logits and the token streams (a divergence fails unless the
+   top-2 logit margin of the agreed context, read by a dense forward,
+   is under the logits tolerance);
 5. train a Llama-3-8B-width model cut to 4 layers in bfloat16 through
    ``TrainStep`` + ``AdamW(1e-4, multi_precision=True)`` on batches of
    2 x 4096 tokens from a seeded 4-batch pool: 2 untimed steps, 5 timed
@@ -26,12 +30,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 6. one float32 forward + backward of a 2-layer full-width model on 1 x
    1024 tokens through the kernels and through their plain versions:
    the loss and every parameter's gradient compared;
-7. print the kernels line, the card's name and power limit, and the
+7. ``generate()`` on Llama-3-8B (32 layers, bfloat16, seeded weights):
+   4 prompts of 512 tokens, each repeating a seeded 64-token motif among
+   random tokens, 64 new tokens greedy, five times — the dense cache,
+   the paged cache (K2d), n-gram speculation at gamma 4 (K2v), a
+   2-layer Llama-3-8B-width draft model at gamma 4 (K2d and K2v) and the
+   model drafting for itself at gamma 4, whose windows must accept
+   drafts — printing tokens/s, ms per target forward, tokens emitted per
+   verify and peak memory, then a torch.profiler table and the device's
+   idle share of one more paged run of 16 tokens; each bf16 stream is
+   compared with the dense one (logged: where it first differs and the
+   top-2 margin there), and the self-drafted stream is held against the
+   paged one (a divergence fails unless its top-2 margin is within the
+   largest logit difference of two bf16 recipes, read on the prompts);
+8. float32, 2 layers at full widths: paged and speculative greedy
+   ``generate()`` (n-gram drafts, and the model drafting for itself so
+   that drafts are accepted) through the kernels and through their plain
+   versions; the token streams must be equal (the same margin rule as
+   phase 4), the scores agree within SCORE_ATOL, and the self-drafted
+   run must emit more than one token per verify window;
+9. print the kernels line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
-Each path (phases 3 and 5) runs with every launch count set to 0 just
-before it and read just after; a kernel of the path that never launched
-fails the run. Any failed comparison or exception exits non-zero before
+Each path (phases 3, 5 and each run of phase 7) runs with every launch
+count set to 0 just before it and read just after; a kernel of the path
+that never launched fails the run. Any failed comparison or exception
+exits non-zero before
 the result line. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result. ``--layers`` cuts phase 3's depth (widths
 stay full); ``--kernels-only`` stops after phase 2.
@@ -64,6 +88,10 @@ TOL = {"bfloat16": dict(atol=3e-2, rtol=2e-2),
 ROW_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_ATOL = 1e-4
 LOGITS_ATOL = 2e-3                   # f32 kernel path vs plain path
+# phase 8: summed log-probabilities of 32 greedy tokens, kernel vs plain
+# path (each logit within LOGITS_ATOL moves a log-softmax by at most
+# twice that; the sum over 32 tokens of such errors, far below it)
+SCORE_ATOL = 1e-2
 SEED = 0
 REQUESTS = 10                        # phase 3
 PHASE4_LAYERS = 2
@@ -72,12 +100,23 @@ ATTN = dict(B=2, L=4096, H=32, Hkv=8, D=128)   # phase 2's K1 shape
 TRAIN = dict(layers=4, batch=2, seq=4096, warm=2, timed=5, profiled=2,
              pool=4)
 PHASE6 = dict(layers=2, batch=1, seq=1024)
+# phase 2's K2d / K2v shapes. "generate" is the one phase 7 gives them:
+# 4 slots of a 512-token prompt + 64 new tokens, tables of 37 blocks (the
+# +gamma headroom), contexts 513..580 (windows included); it is timed for
+# the kernels line. "long" holds them at 8 slots and contexts to 2048.
+PAGED = {"generate": dict(S=4, MB=37, lens=[513, 528, 549, 576]),
+         "long": dict(S=8, MB=130, lens=None)}
+PAGED_T = 5                          # K2v's window: gamma 4 + 1
+GENERATE = dict(batch=4, prompt=512, motif=64, new=64, gamma=4,
+                draft_layers=2, profiled_new=16)
+PHASE8 = dict(layers=2, batch=2, prompt=256, motif=32, new=32, gamma=4)
 GRAD_RTOL = 1e-4      # phase 6: max |kernel - plain| / max |plain|
 LOSS_RTOL = 1e-5      # phase 6: the loss
 SERVING_KERNELS = ("ragged_paged_attention", "norm_matmul",
                    "matmul_residual")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                     "flash_attention_dkv")
+GENERATE_KERNELS = ("paged_decode_attention", "paged_verify_attention")
 
 
 def log(*a):
@@ -153,11 +192,11 @@ def row_rel_err(got, ref):
     return float((diff / den).max())
 
 
-def held_k1(torch, got, ref, dtype, what, fails):
-    """One K1 output against its plain version: lse by LSE_ATOL, the
-    others by TOL and ROW_RTOL. Logs the readings, appends a failure to
-    ``fails`` (so every output is read before the run stops) and returns
-    the max abs error."""
+def held_attention(torch, got, ref, dtype, what, fails):
+    """One attention output (K1, K2d, K2v) against its plain version: an
+    lse by LSE_ATOL, the others by TOL and ROW_RTOL. Logs the readings,
+    appends a failure to ``fails`` (so every output is read before the
+    run stops) and returns the max abs error."""
     g, r = got.float(), ref.float()
     err = float((g - r).abs().max())
     if what.endswith("lse"):
@@ -222,6 +261,75 @@ def check_ragged(torch, rpa, dtype, timing):
             *args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return err, row
+
+
+def check_paged(torch, pda, dtype, timing, shape):
+    """K2d and K2v at generate()'s widths (32 / 8 heads, D 128, BS 16, a
+    window of PAGED_T for K2v) and one of the PAGED shapes: slots, table
+    width MB and contexts (each set has one ending on a block boundary).
+    Held elementwise and row by row; timed over enough sets of pools,
+    taken in turn, to fill twice the 50 MB L2, so each call reads its K/V
+    from device memory, as each layer of a decode step does."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    H, Hkv, D, BS, T = 32, 8, 128, 16, PAGED_T
+    S, MB, lens = (PAGED[shape][k] for k in ("S", "MB", "lens"))
+    if lens is None:
+        rng = np.random.RandomState(16)
+        lens = [1, 40 * BS, 2048] + sorted(
+            rng.randint(2, 2048, S - 3).tolist())
+    NB = 1 + S * MB
+    copy_bytes = 2 * NB * BS * Hkv * D * torch.finfo(dt).bits // 8
+    copies = max(3, -(-int(100e6) // copy_bytes)) if timing else 1
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pools = [tuple(torch.randn(NB, BS, Hkv, D, generator=g,
+                               device="cuda").to(dt) for _ in range(2))
+             for _ in range(copies)]
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
+    qs = {"paged_decode_attention": torch.randn(
+              S, H, D, generator=g, device="cuda").to(dt),
+          "paged_verify_attention": torch.randn(
+              S, T, H, D, generator=g, device="cuda").to(dt)}
+    fns = {"paged_decode_attention": (pda.paged_decode_attention,
+                                      pda.plain_paged_decode_attention),
+           "paged_verify_attention": (pda.paged_verify_attention,
+                                      pda.plain_paged_verify_attention)}
+    fails, errs, rows = [], {}, {}
+    for name, (kern, plain) in fns.items():
+        q = qs[name]
+        kp, vp = pools[0]
+        got = kern(q, kp, vp, tables, ctx)
+        ref = plain(q, kp, vp, tables, ctx)
+        torch.cuda.synchronize()
+        errs[name] = held_attention(torch, got, ref, dtype,
+                                    f"{name} {shape}", fails)
+        if not timing:
+            continue
+        tw = q.shape[1] if q.dim() == 4 else 1
+        es = kp.element_size()
+        kv_pos = sum(min(n + tw - 1, MB * BS) for n in lens)
+        nbytes = 2 * kv_pos * Hkv * D * es + 2 * q.numel() * es \
+            + 4 * (tables.numel() + S)
+        vis = sum(n + t for n in lens for t in range(tw))
+        b_ms, b_by = bound(nbytes, 4 * vis * H * D, dtype)
+        turn = iter(range(1 << 30))
+
+        def run(f):
+            kp_i, vp_i = pools[next(turn) % len(pools)]
+            return f(q, kp_i, vp_i, tables, ctx)
+
+        rows[name] = dict(ms=time_ms(torch, lambda: run(kern)),
+                          plain_ms=time_ms(torch, lambda: run(plain)),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"  {name} [{dtype}] {shape}: {S} slots, MB {MB}, contexts "
+            f"{lens}: ms={rows[name]['ms']:.4f} plain_ms="
+            f"{rows[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB; {copies} pool copies)")
+    if fails:
+        raise AssertionError(f"[{dtype}] {shape}: disagree with their plain "
+                             f"versions: {fails}")
+    return errs, rows
 
 
 def check_norm_matmul(torch, df, dtype, timing):
@@ -319,17 +427,19 @@ def check_flash(torch, F, fa, dtype, timing):
     o_p, lse_p = fa.plain_flash_attention_fwd(q, k, v, scale, True)
     torch.cuda.synchronize()
     errs = {"flash_attention_fwd": max(
-        held_k1(torch, o, o_p, dtype, "flash_attention_fwd o", fails),
-        held_k1(torch, lse, lse_p, dtype, "flash_attention_fwd lse",
-                fails))}
+        held_attention(torch, o, o_p, dtype, "flash_attention_fwd o",
+                       fails),
+        held_attention(torch, lse, lse_p, dtype, "flash_attention_fwd lse",
+                       fails))}
     del o, lse
     delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse_p, delta, scale, True)
-    errs["flash_attention_dq"] = held_k1(
+    errs["flash_attention_dq"] = held_attention(
         torch, fa.flash_attention_dq(*args), fa.plain_flash_attention_dq(
             *args), dtype, "flash_attention_dq", fails)
     errs["flash_attention_dkv"] = max(
-        held_k1(torch, a, b, dtype, f"flash_attention_dkv {n}", fails)
+        held_attention(torch, a, b, dtype, f"flash_attention_dkv {n}",
+                       fails)
         for n, a, b in zip(("dk", "dv"), fa.flash_attention_dkv(*args),
                            fa.plain_flash_attention_dkv(*args)))
     if fails:
@@ -478,6 +588,45 @@ def plain_patches(df, rpa):
             mock.patch.object(df, "matmul_residual",
                               df.plain_matmul_residual),
             mock.patch.object(rpa, "ragged_paged_attention", plain_attn)]
+
+
+def top2_margin(torch, model, ids):
+    """The gap between the two largest next-token logits of the dense
+    forward over ``ids`` (1-D), at its last position."""
+    with torch.no_grad():
+        logits = model(torch.as_tensor(np.asarray(ids, np.int64),
+                                       device=model.device)[None])[0, -1]
+    logits = logits.float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def held_streams(torch, model, what, prompts, a, b, fails,
+                 limit=LOGITS_ATOL):
+    """Token streams ``a`` and ``b`` (one per prompt) must be equal; a
+    divergence is tolerated only where the top-2 logit margin of the
+    common context (the prompt and the agreed tokens) is at most
+    ``limit``, a near tie that rounding may break either way. Logs the
+    margin either way; with ``fails`` None it only logs."""
+    diverged = False
+    for i, (x, y) in enumerate(zip(a, b)):
+        x, y = np.asarray(x), np.asarray(y)
+        if np.array_equal(x, y):
+            continue
+        diverged = True
+        j = int(np.argmax(x[:len(y)] != y[:len(x)]))
+        margin = top2_margin(torch, model, np.concatenate(
+            [np.asarray(prompts[i]).reshape(-1), x[:j]]))
+        ok = margin <= limit
+        verdict = "a near tie" if ok else (
+            "FAIL" if fails is not None else "over the limit")
+        log(f"  {what}: stream {i} diverges at token {j} ({x[j]} vs "
+            f"{y[j]}); top-2 logit margin {margin:.3e} (limit "
+            f"{limit:.3e}) {verdict}")
+        if not ok and fails is not None:
+            fails.append(f"{what} stream {i}")
+    if not diverged:
+        log(f"  {what}: streams equal ({sum(map(len, a))} tokens)")
 
 
 def serve_f32(torch, ServingEngine, ServingConfig, model, prompts):
@@ -632,6 +781,204 @@ def train_f32_check(torch, fa, LlamaConfig, LlamaForCausalLM):
         raise AssertionError(f"kernel path gradients disagree: {bad}")
 
 
+# ---------------------------------------------------------- phases 7, 8
+
+def motif_prompts(batch, length, motif, vocab, seed):
+    """Seeded prompts: random tokens with one seeded ``motif``-token run
+    repeated at four places, so prompt lookup has something to find."""
+    rng = np.random.RandomState(seed)
+    run = rng.randint(0, vocab, motif)
+    out = rng.randint(0, vocab, (batch, length))
+    step = length // 4
+    for r in range(batch):
+        for k in range(4):
+            at = k * step + (r * 7) % (step - motif + 1)
+            out[r, at:at + motif] = run
+    return out.astype(np.int64)
+
+
+def logit_noise(torch, model, ids):
+    """The largest |difference|, over rows and vocabulary, between the
+    last-position logits of two bf16 recipes of one forward over ``ids``:
+    the dense forward (K1f attention) and generate()'s cached prefill
+    (float32 scores, weights rounded to bf16 before P @ V). Two bf16
+    paths through the model disagree by up to about this much, so a
+    top-2 margin under it is a near tie they may break either way."""
+    with torch.no_grad():
+        a = model(ids)[:, -1].float()
+        b, _ = model(ids, caches=model.init_caches(*ids.shape), offset=0)
+        return float((a - b[:, -1].float()).abs().max())
+
+
+def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
+    """Phase 7: generate() on the 32-layer bf16 model five ways. Returns
+    ``{run: launch counts}``."""
+    cfg = model.config
+    dcfg = LlamaConfig.llama3_8b()
+    dcfg.dtype = "bfloat16"
+    dcfg.num_hidden_layers = GENERATE["draft_layers"]
+    draft = LlamaForCausalLM(dcfg, device="cuda", seed=SEED + 4)
+    b, new, gamma = GENERATE["batch"], GENERATE["new"], GENERATE["gamma"]
+    prompts = motif_prompts(b, GENERATE["prompt"], GENERATE["motif"],
+                            cfg.vocab_size, SEED + 3)
+    ids = torch.from_numpy(prompts).to(model.device)
+    forwards = []
+    hook = model.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    # "self": the target drafts for itself (K2d drafts, K2v verifies), so
+    # drafts are accepted and windows commit up to gamma + 1 tokens
+    runs = {"dense": dict(cache_impl="dense"),
+            "paged": dict(cache_impl="paged"),
+            "ngram": dict(num_speculative_tokens=gamma),
+            "draft": dict(num_speculative_tokens=gamma, draft_model=draft),
+            "self": dict(num_speculative_tokens=gamma, draft_model=model)}
+    want = {"paged": ("paged_decode_attention",),
+            "ngram": ("paged_verify_attention",),
+            "draft": GENERATE_KERNELS, "self": GENERATE_KERNELS}
+    streams, launches, fails = {}, {}, []
+    for name, kw in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        forwards.clear()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out, scores = model.generate(ids, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        launches[name] = {k: kernels.launch_counts[k]
+                          for k in GENERATE_KERNELS}
+        out = out.cpu().numpy()
+        if out.shape != (b, new) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size \
+                or not torch.isfinite(scores).all():
+            raise AssertionError(f"phase 7 {name}: bad output {out} "
+                                 f"{scores}")
+        streams[name] = out
+        spec = "num_speculative_tokens" in kw
+        # one K2v launch per layer per verify window; the loop runs until
+        # the slowest row is done: (new - 1) tokens after the prefill's
+        # over the windows (1.0: no draft accepted)
+        windows = launches[name]["paged_verify_attention"] \
+            // cfg.num_hidden_layers
+        n_fwd = 1 + windows if spec else len(forwards)
+        per_verify = (new - 1) / max(1, windows)
+        log(f"phase 7 {name}: {b} x {new} tokens in {dt:.3f}s -> "
+            f"{b * new / dt:.1f} tokens/s, {n_fwd} target forwards, "
+            f"{1e3 * dt / n_fwd:.2f} ms per target forward" + (
+                f", {per_verify:.3f} tokens emitted per row per verify "
+                f"({windows} verify forwards)" if spec else "")
+            + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB; launches {launches[name]}")
+        missing = [k for k in want.get(name, ()) if launches[name][k] <= 0]
+        if missing:
+            raise AssertionError(f"phase 7 {name}: kernels never launched: "
+                                 f"{missing}")
+        if name == "self" and not per_verify > 1:
+            fails.append("phase 7 self: no draft accepted")
+    hook.remove()
+    # where a paged generate()'s time goes, and the device's idle share
+    n_new = GENERATE["profiled_new"]
+    wall_ms, busy_ms = profiled(torch, lambda: model.generate(
+        ids, max_new_tokens=n_new, cache_impl="paged"), 1, 15)
+    log(f"phase 7 profile: one paged generate() of {n_new} new tokens "
+        f"(prefill included), wall {wall_ms:.3f} ms (profiler on), device "
+        f"busy {busy_ms:.3f} ms -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
+    del draft
+    noise = logit_noise(torch, model, ids)
+    log(f"phase 7: bf16 logits of two recipes (dense forward vs cached "
+        f"prefill, {b} x {GENERATE['prompt']} tokens) differ by up to "
+        f"{noise:.3e}: the near-tie limit of the bf16 streams")
+    # the bf16 streams against dense, logged; the self-drafted stream
+    # (every token a K2v verify's argmax) held against paged (every token
+    # a K2d step's)
+    for name in ("paged", "ngram", "draft", "self"):
+        held_streams(torch, model, f"phase 7 {name} vs dense", prompts,
+                     streams[name], streams["dense"], None, limit=noise)
+    held_streams(torch, model, "phase 7 self vs paged", prompts,
+                 streams["self"], streams["paged"], fails, limit=noise)
+    if fails:
+        raise AssertionError(f"phase 7 failed: {fails}")
+    return launches
+
+
+def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
+    """Phase 8: paged and speculative greedy generate() (n-gram drafts,
+    and the model drafting for itself) through the kernels and through
+    their plain versions, float32, 2 layers at full widths. Streams must
+    be equal, scores within SCORE_ATOL, and the self-drafted run must
+    accept drafts."""
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = PHASE8["layers"]
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 5)
+    prompts = motif_prompts(PHASE8["batch"], PHASE8["prompt"],
+                            PHASE8["motif"], cfg.vocab_size, SEED + 5)
+    ids = torch.from_numpy(prompts).to(model.device)
+    # "self": the target drafts for itself, so its drafts are accepted
+    # and the verify windows commit up to gamma + 1 tokens each (random
+    # weights accept no n-gram draft)
+    kinds = {"paged": dict(cache_impl="paged"),
+             "spec": dict(num_speculative_tokens=PHASE8["gamma"]),
+             "self": dict(num_speculative_tokens=PHASE8["gamma"],
+                          draft_model=model)}
+    res, windows = {}, None
+    for path in ("kernel", "plain"):
+        patches = [] if path == "kernel" else [
+            mock.patch.object(pda, "paged_decode_attention",
+                              pda.plain_paged_decode_attention),
+            mock.patch.object(pda, "paged_verify_attention",
+                              pda.plain_paged_verify_attention)]
+        for p in patches:
+            p.start()
+        try:
+            for kind, kw in kinds.items():
+                counts0 = dict(pda.launch_counts)
+                out, sc = model.generate(ids, max_new_tokens=PHASE8["new"],
+                                         **kw)
+                n = sum(pda.launch_counts[k] - counts0[k]
+                        for k in GENERATE_KERNELS)
+                if (n > 0) != (path == "kernel"):
+                    raise AssertionError(f"phase 8 {path} {kind}: {n} "
+                                         "kernel launches")
+                if (path, kind) == ("kernel", "self"):
+                    # one K2v launch per layer per verify window
+                    windows = (pda.launch_counts["paged_verify_attention"]
+                               - counts0["paged_verify_attention"]) \
+                        // cfg.num_hidden_layers
+                res[path, kind] = (out.cpu().numpy(), sc.cpu().numpy())
+        finally:
+            for p in patches:
+                p.stop()
+    fails = []
+    for a, b in ((("kernel", "paged"), ("plain", "paged")),
+                 (("kernel", "spec"), ("plain", "spec")),
+                 (("kernel", "self"), ("plain", "self")),
+                 (("kernel", "spec"), ("kernel", "paged")),
+                 (("kernel", "self"), ("kernel", "paged")),
+                 (("plain", "spec"), ("plain", "paged"))):
+        what = f"phase 8 {' '.join(a)} vs {' '.join(b)}"
+        held_streams(torch, model, what, prompts, res[a][0], res[b][0],
+                     fails)
+        if np.array_equal(res[a][0], res[b][0]):
+            err = float(np.abs(res[a][1] - res[b][1]).max())
+            log(f"  {what}: scores max_abs_err={err:.3e} (atol "
+                f"{SCORE_ATOL}) {'ok' if err <= SCORE_ATOL else 'FAIL'}")
+            if not err <= SCORE_ATOL:
+                fails.append(f"{what} scores")
+    # the loop runs until the slowest row is done: (new - 1) tokens after
+    # the prefill's over the windows; 1.0 would mean no draft accepted
+    per_window = (PHASE8["new"] - 1) / max(1, windows)
+    log(f"  phase 8 kernel self: {windows} verify windows, {per_window:.3f}"
+        f" tokens emitted per row per window "
+        f"{'ok' if per_window > 1 else 'FAIL (no draft accepted)'}")
+    if not per_window > 1:
+        fails.append("phase 8 kernel self: no draft accepted")
+    log(f"phase 8: f32, {cfg.num_hidden_layers} layers at full widths, "
+        f"{PHASE8['batch']} prompts of {PHASE8['prompt']} tokens, "
+        f"{PHASE8['new']} new tokens, gamma {PHASE8['gamma']}")
+    if fails:
+        raise AssertionError(f"phase 8 failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -663,6 +1010,7 @@ def main(argv=None):
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.ops.kernels import decode_fused as df
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.ops.kernels import paged_attention as pda
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.ops.kernels import \
             ragged_paged_attention as rpa
@@ -691,6 +1039,8 @@ def main(argv=None):
     for dtype in ("float32", "bfloat16"):
         timing = dtype == "bfloat16"
         e1, r1 = check_ragged(torch, rpa, dtype, timing)
+        e5, r5 = check_paged(torch, pda, dtype, timing, "generate")
+        check_paged(torch, pda, dtype, timing, "long")
         e2, r2 = check_norm_matmul(torch, df, dtype, timing)
         e3, r3 = check_matmul_residual(torch, df, dtype, timing)
         e4, r4 = check_flash(torch, F, fa, dtype, timing)
@@ -699,6 +1049,8 @@ def main(argv=None):
             for name, r in r4.items():
                 table[name] = dict(r, max_abs_err=e4[name])
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
+            for name, r in r5.items():
+                table[name] = dict(r, max_abs_err=e5[name])
             table["norm_matmul"] = dict(merge_rows(r2, dtype),
                                         max_abs_err=e2)
             table["matmul_residual"] = dict(merge_rows(r3, dtype),
@@ -805,15 +1157,11 @@ def main(argv=None):
     if not lerr <= LOGITS_ATOL:
         raise AssertionError(f"kernel path logits disagree with the plain "
                              f"path: {lerr}")
-    diverged = False
-    for i, (a, b) in enumerate(zip(toks_k, toks_p)):
-        if not np.array_equal(a, b):
-            j = int(np.argmax(a != b))
-            log(f"phase 4: request {i} diverges at token {j}: kernel "
-                f"{a[j]} vs plain {b[j]}")
-            diverged = True
-    if not diverged:
-        log(f"phase 4: token streams equal ({sum(map(len, toks_k))} tokens)")
+    fails = []
+    held_streams(torch, model, "phase 4 kernel vs plain", prompts4, toks_k,
+                 toks_p, fails)
+    if fails:
+        raise AssertionError(f"phase 4: token streams diverge: {fails}")
 
     del model
     torch.cuda.empty_cache()
@@ -826,11 +1174,38 @@ def main(argv=None):
     # -- phase 6: training kernel path vs plain path, f32 ------------------
     train_f32_check(torch, fa, LlamaConfig, LlamaForCausalLM)
 
-    # -- phase 7: report ---------------------------------------------------
+    torch.cuda.empty_cache()
+
+    # -- phase 7: generate() at Llama-3-8B widths ---------------------------
+    cfg = LlamaConfig.llama3_8b()
+    cfg.dtype = "bfloat16"
+    t0 = time.monotonic()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 3)
+    torch.cuda.synchronize()
+    log(f"phase 7: Llama-3-8B, {cfg.num_hidden_layers} layers bf16, init "
+        f"{time.monotonic() - t0:.1f}s; {GENERATE['batch']} prompts of "
+        f"{GENERATE['prompt']} tokens, {GENERATE['new']} new, greedy")
+    gen_launches = generate_run(torch, kernels, model, LlamaConfig,
+                                LlamaForCausalLM)
+    for k in GENERATE_KERNELS:
+        launches[k] = sum(r[k] for r in gen_launches.values())
+    del model
+    torch.cuda.empty_cache()
+
+    # -- phase 8: generate() kernel path vs plain path, f32 ----------------
+    generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM)
+
+    # -- phase 9: report ---------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     srcs = {"ragged_paged_attention": (
                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:593"),
+            "paged_decode_attention": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:439"),
+            "paged_verify_attention": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:510"),
             "norm_matmul": ("paddle_tpu_torch/csrc/norm_matmul.cu",
                             "paddle_tpu/ops/pallas/decode_fused.py:300"),
             "matmul_residual": ("paddle_tpu_torch/csrc/matmul_residual.cu",

@@ -1,7 +1,7 @@
 // Shared device helpers of the port's kernels: conversions between the
 // storage types (float, bf16) and the float32 the kernels compute in,
-// and warp reductions. dtype codes passed from Python: 0 = float32,
-// 1 = bfloat16.
+// 16-byte vector loads, and warp reductions. dtype codes passed from
+// Python: 0 = float32, 1 = bfloat16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +33,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_t(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+// 16 bytes of T at src (16-byte aligned) into float32 dst: 4 floats or 8
+// bfloat16 values
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* src, float* dst);
+template <>
+__device__ __forceinline__ void load_vec<float>(const float* src,
+                                                float* dst) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16>(
+    const __nv_bfloat16* src, float* dst) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(h[e]);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

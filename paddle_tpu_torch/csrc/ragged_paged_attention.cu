@@ -65,23 +65,6 @@ __device__ __forceinline__ size_t qv_offset(int row0, int t0, int qv,
   return (size_t)(row0 + t) * H + g * rep + ri;   // in units of vectors
 }
 
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* src, float* dst);
-template <>
-__device__ __forceinline__ void load_vec<float>(const float* src,
-                                                float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-template <>
-__device__ __forceinline__ void load_vec<__nv_bfloat16>(
-    const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(h[e]);
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NW * 32)
     ragged_kernel(const T* __restrict__ q, const T* __restrict__ kp,

@@ -1,18 +1,82 @@
-"""Token selection for serving (counterpart of ``_filter_logits`` and
-``_select_token`` in ``paddle_tpu/generation/__init__.py``).
+"""LLM generation (counterpart of ``paddle_tpu/generation/__init__.py``):
+``GenerationMixin.generate`` over the KV cache, and the token selection
+the serving engine shares with it.
 
-The knobs may be python numbers (one value for the batch) or tensors of
-per-row values (the serving engine's per-slot sampling rows); a
-disabled filter (``top_k == 0``, ``top_p == 1``) masks nothing, so
-uniform per-row knobs give the same logits as the scalar path. Sampling
-draws from an explicit ``torch.Generator``: the same seed gives the same
+``generate()`` prefills the prompt into the cache, then decodes one
+token per step in a host loop of eager PyTorch calls (the reference's
+jitted ``lax.while_loop``), stopping early when every row has emitted
+EOS (checked on the host after each step). Three cache paths, as in the
+reference: the dense ``[B, S, H_kv, D]`` cache (``cached_attention``),
+the paged block pool (K2d each step), and linear-chain speculative
+decoding over the pool (``generation/speculative.py``, K2v verify
+windows). Prompts on the dense path are left-padded to a power-of-two
+bucket with a pad mask and per-row rope positions, as the reference
+does, so the two packages decode the same numbers.
+
+Token selection: the knobs may be python numbers (one value for the
+batch) or tensors of per-row values (the serving engine's per-slot
+sampling rows); a disabled filter (``top_k == 0``, ``top_p == 1``)
+masks nothing, so uniform per-row knobs give the same logits as the
+scalar path. Sampling draws from an explicit ``torch.Generator``
+(``generate()`` seeds one with ``seed``): the same seed gives the same
 tokens on the same device, but not the reference's JAX draws.
+
+Not in this slice (each raises ``NotImplementedError``): beam and
+group-beam search, ``export_generation`` / ``load_generation``, tree
+speculation (``spec_tree``) and int8 KV pools. The reference's env
+switches are not carried over; the port follows their defaults.
 """
 from __future__ import annotations
 
+import inspect
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 
-__all__ = ["_filter_logits", "_select_token"]
+from ..framework.random import generator as make_generator
+from ..ops import paged_cache as _pc
+
+__all__ = ["GenerationConfig", "GenerationMixin", "load_generation",
+           "_filter_logits", "_select_token"]
+
+
+@dataclass
+class GenerationConfig:
+    max_new_tokens: int = 20
+    # greedy_search | sampling (beam_search | group_beam_search: later)
+    decode_strategy: str = "greedy_search"
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    num_beams: int = 1
+    num_beam_groups: int = 1
+    diversity_rate: float = 0.0
+    length_penalty: float = 0.0
+    early_stopping: bool = False
+    eos_token_id: Optional[int] = None
+    pad_token_id: Optional[int] = None
+    seed: Optional[int] = None
+    # dense | paged (the serving block pool, K2d each decode step)
+    cache_impl: str = "dense"
+    kv_block_size: int = 16
+    # None / "auto": pools in the model dtype ("int8": a later slice)
+    kv_cache_dtype: Optional[str] = None
+    # left-pad dense-path prompts up to power-of-two length buckets
+    pad_prompt_to_bucket: bool = True
+    # speculative decoding: gamma drafted tokens verified per step (0 off)
+    num_speculative_tokens: int = 0
+    # longest suffix n-gram the prompt-lookup drafter matches
+    spec_ngram_max: int = 3
+
+
+def _prompt_bucket(n: int, minimum: int = 8) -> int:
+    """Smallest power-of-two bucket >= n (floor ``minimum``)."""
+    b = int(minimum)
+    while b < n:
+        b *= 2
+    return b
 
 
 def _per_row(v, logits):
@@ -73,3 +137,303 @@ def _select_token(logits, generator=None, *, do_sample,
     else:
         tok = torch.argmax(lg, dim=-1)
     return tok, torch.gather(logp, -1, tok[:, None])[:, 0]
+
+
+def _later(what):
+    return NotImplementedError(
+        f"{what} comes with a later slice of the PyTorch port")
+
+
+def _paged_prefill(model, ids, mb, block_size):
+    """Contiguous static block tables ``[B, mb]`` (``generate()`` owns
+    the whole pool; block 0 stays null) and fresh pools holding the
+    prompt's K/V: the prompt prefills through the dense cached path and
+    its K/V scatter into the blocks. Returns ``(logits, tables, pools)``."""
+    b = ids.shape[0]
+    tables = (1 + torch.arange(b * mb, dtype=torch.int32,
+                               device=ids.device)).reshape(b, mb)
+    pools = model.init_paged_caches(1 + b * mb, block_size)
+    logits, dense = model(ids, caches=model.init_caches(*ids.shape),
+                          offset=0)
+    for (kp, vp), (dk, dv) in zip(pools, dense):
+        _pc.write_prefill(kp, vp, tables, dk, dv)
+    return logits, tables, pools
+
+
+def _decode_loop(step, first, caches, max_new, select, eos, pad):
+    """The host loop of both cache paths, from the prefill's ``first =
+    (token [B], logprob [B])``: ``step(i, tok, caches) -> (logits,
+    caches)`` feeds the previous token at step ``i``; the loop ends early
+    once every row has emitted EOS (read on the host each step, which
+    waits for the device; without an EOS (``eos < 0``) nothing is read
+    and the host keeps enqueueing). Returns ``(out [B, max_new] int64,
+    pad-filled after EOS, scores [B])``."""
+    tok, logp = first
+    done = tok == eos
+    out = torch.full((tok.shape[0], max_new), pad, dtype=torch.int64,
+                     device=tok.device)
+    out[:, 0] = torch.where(done, torch.full_like(tok, eos), tok)
+    score = logp
+    i = 1
+    while i < max_new and (eos < 0 or not bool(done.all())):
+        logits, caches = step(i, tok, caches)
+        ntok, logp = select(logits[:, -1, :])
+        ntok = torch.where(done, torch.full_like(ntok, pad), ntok)
+        score = score + torch.where(done, torch.zeros_like(logp), logp)
+        out[:, i] = ntok
+        done = done | (ntok == eos)
+        tok = ntok
+        i += 1
+    return out, score
+
+
+class GenerationMixin:
+    """Adds ``generate()`` to a causal LM module with the cache
+    protocol of :class:`paddle_tpu_torch.models.llama.LlamaForCausalLM`:
+    ``init_caches(batch, max_len)``, ``init_paged_caches(num_blocks,
+    block_size)``, ``forward(ids, caches=..., offset=...)`` (dense) and
+    ``forward(ids, caches=..., block_tables=..., cache_lens=...)``
+    (paged), each returning ``(logits, caches)``."""
+
+    def _check_lengths(self, prompt_len, max_new):
+        max_pos = getattr(getattr(self, "config", None),
+                          "max_position_embeddings", None)
+        if max_pos is not None and prompt_len + max_new > max_pos:
+            raise ValueError(
+                f"prompt ({prompt_len}) + max_new_tokens ({max_new}) "
+                f"exceeds max_position_embeddings ({max_pos})")
+
+    def _bucket_eligible(self):
+        """Prompt bucketing rides the left-padded (mask + per-row rope)
+        path, so the model's forward must accept it. (The reference also
+        excludes capacity-routed MoE; the port has no MoE model yet.)"""
+        sig = inspect.signature(type(self).forward).parameters
+        return "attention_mask" in sig and "position_ids" in sig
+
+    @staticmethod
+    def _resolve_strategy(strategy):
+        if strategy not in ("greedy_search", "sampling", "beam_search",
+                            "group_beam_search"):
+            raise NotImplementedError(
+                f"decode_strategy {strategy!r}; supported: greedy_search, "
+                "sampling, beam_search, group_beam_search")
+        return strategy == "sampling"
+
+    def _run_dense(self, ids, mask, max_new, select, eos, pad):
+        """Prefill into the dense cache at offset 0, then one token per
+        step at ``prompt_len - 1 + i``. With ``mask`` (``[B, prompt]``,
+        left-padded) the pad cache slots are masked and each row's rope
+        positions start at its first real token."""
+        b, prompt_len = ids.shape
+        full_mask = pos0 = n_real = None
+        if mask is not None:
+            full_mask = torch.cat([mask, torch.ones(
+                (b, max_new), dtype=mask.dtype, device=mask.device)], 1)
+            n_real = mask.sum(1)
+            pos0 = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
+        caches = self.init_caches(b, prompt_len + max_new)
+        logits, caches = self(ids, caches=caches, offset=0,
+                              attention_mask=full_mask, position_ids=pos0)
+
+        def step(i, tok, caches):
+            pos = None if mask is None else (n_real + i - 1)[:, None]
+            return self(tok[:, None], caches=caches,
+                        offset=prompt_len - 1 + i,
+                        attention_mask=full_mask, position_ids=pos)
+
+        return _decode_loop(step, select(logits[:, -1, :]), caches, max_new,
+                            select, eos, pad)
+
+    def _run_paged(self, ids, max_new, select, eos, pad, block_size):
+        """The paged twin of :meth:`_run_dense`: the prompt's K/V go into
+        a block pool (:func:`_paged_prefill`) and each decode step writes
+        and attends through the pool (K2d)."""
+        b, prompt_len = ids.shape
+        logits, tables, pools = _paged_prefill(
+            self, ids, _pc.blocks_for(prompt_len + max_new, block_size),
+            block_size)
+
+        def step(i, tok, pools):
+            lens = torch.full((b,), prompt_len - 1 + i, dtype=torch.int32,
+                              device=ids.device)
+            return self(tok[:, None], caches=pools, block_tables=tables,
+                        cache_lens=lens)
+
+        return _decode_loop(step, select(logits[:, -1, :]), pools, max_new,
+                            select, eos, pad)
+
+    @torch.no_grad()
+    def generate(self, input_ids, generation_config: GenerationConfig = None,
+                 max_new_tokens=None, max_length=None,
+                 decode_strategy=None, temperature=None, top_k=None,
+                 top_p=None, num_beams=None, num_beam_groups=None,
+                 diversity_rate=None, length_penalty=None,
+                 early_stopping=None, eos_token_id=None,
+                 pad_token_id=None, seed=None, attention_mask=None,
+                 cache_impl=None, pad_prompt_to_bucket=None,
+                 num_speculative_tokens=None, draft_model=None,
+                 spec_ngram_max=None, spec_tree=None,
+                 kv_cache_dtype=None, **kwargs):
+        """Returns ``(ids, scores)`` on the model's device: generated
+        token ids ``[B, max_new_tokens]`` int64 (pad-filled after EOS)
+        and the summed log-probability of the chosen tokens per row
+        (float32 ``[B]``). ``input_ids`` is ``[B, L]`` or ``[L]`` (a
+        tensor, array or list)."""
+        if kwargs:
+            raise TypeError(
+                f"generate() got unsupported options {sorted(kwargs)}; "
+                "supported: max_new_tokens/max_length, decode_strategy "
+                "(greedy_search|sampling), temperature, top_k, top_p, "
+                "num_beams, eos_token_id, pad_token_id, seed, cache_impl "
+                "(dense|paged), pad_prompt_to_bucket, "
+                "num_speculative_tokens, draft_model, spec_ngram_max")
+        cfg = generation_config or GenerationConfig()
+        if max_length is not None and max_new_tokens is None:
+            max_new_tokens = max_length  # PaddleNLP: length of generation
+        max_new = int(max_new_tokens or cfg.max_new_tokens)
+        strategy = decode_strategy or cfg.decode_strategy
+        do_sample = self._resolve_strategy(strategy)
+        if strategy in ("beam_search", "group_beam_search"):
+            raise _later(f"decode_strategy {strategy!r} (beam search)")
+        temperature = cfg.temperature if temperature is None \
+            else float(temperature)
+        top_k = cfg.top_k if top_k is None else int(top_k)
+        top_p = cfg.top_p if top_p is None else float(top_p)
+        num_beams = cfg.num_beams if num_beams is None else int(num_beams)
+        eos = eos_token_id if eos_token_id is not None else cfg.eos_token_id
+        pad = pad_token_id if pad_token_id is not None else cfg.pad_token_id
+        eos = -1 if eos is None else int(eos)   # -1 never matches
+        pad = (eos if eos >= 0 else 0) if pad is None else int(pad)
+        seed = cfg.seed if seed is None else seed
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        explicit_cache_impl = cache_impl
+        cache_impl = cache_impl or cfg.cache_impl
+        if cache_impl not in ("dense", "paged"):
+            raise ValueError(
+                f"cache_impl {cache_impl!r}; supported: dense, paged")
+        kv_req = kv_cache_dtype if kv_cache_dtype is not None \
+            else cfg.kv_cache_dtype
+        if kv_req not in (None, "auto"):
+            raise _later(f"kv_cache_dtype={kv_req!r} (int8 KV pools)")
+        if spec_tree is not None:
+            raise _later("spec_tree (tree speculation)")
+        if pad_prompt_to_bucket is None:
+            pad_prompt_to_bucket = cfg.pad_prompt_to_bucket
+
+        dev = self.device
+        ids = torch.as_tensor(np.asarray(
+            input_ids.cpu() if torch.is_tensor(input_ids) else input_ids),
+            dtype=torch.int64)
+        if ids.dim() == 1:
+            ids = ids[None]
+        ids = ids.to(dev)
+        b, prompt_len = ids.shape
+        self._check_lengths(prompt_len, max_new)
+
+        mask_np = None
+        if attention_mask is not None:
+            mask_np = np.asarray(attention_mask.cpu()
+                                 if torch.is_tensor(attention_mask)
+                                 else attention_mask)
+            if mask_np.ndim == 1:
+                mask_np = mask_np[None]
+            if tuple(mask_np.shape) != (b, prompt_len):
+                raise ValueError(
+                    f"attention_mask shape {tuple(mask_np.shape)} must "
+                    f"match input_ids shape {(b, prompt_len)}")
+            if (np.diff(mask_np, axis=1) < 0).any() or \
+                    (mask_np[:, -1] != 1).any():
+                raise ValueError(
+                    "attention_mask must be LEFT-padded (each row: 0s "
+                    "then 1s, last column 1)")
+        if num_beams > 1:
+            raise ValueError(
+                f"num_beams={num_beams} requires decode_strategy="
+                "'beam_search' or 'group_beam_search' "
+                f"(got {strategy!r})")
+        if cache_impl == "paged":
+            if attention_mask is not None:
+                raise NotImplementedError(
+                    "cache_impl='paged' with left-padded prompts "
+                    "(attention_mask) — use the dense cache, or the "
+                    "serving engine, which prefills each prompt at its own "
+                    "length")
+            if not hasattr(self, "init_paged_caches"):
+                raise NotImplementedError(
+                    f"{type(self).__name__} does not implement "
+                    "init_paged_caches (paged-KV decode)")
+
+        gen = make_generator(seed, dev) if do_sample else None
+
+        def select(logits):
+            return _select_token(logits, gen, do_sample=do_sample,
+                                 temperature=temperature, top_k=top_k,
+                                 top_p=top_p)
+
+        block_size = int(cfg.kv_block_size)
+        gamma = int(cfg.num_speculative_tokens
+                    if num_speculative_tokens is None
+                    else num_speculative_tokens)
+        if gamma < 0:
+            raise ValueError(
+                f"num_speculative_tokens must be >= 0, got {gamma}")
+        if draft_model is not None and gamma == 0:
+            raise ValueError(
+                "draft_model requires num_speculative_tokens > 0")
+        if gamma:
+            from .speculative import (SpecGenerator, draft_exclusion_reason,
+                                      spec_exclusion_reason)
+            if attention_mask is not None:
+                raise NotImplementedError(
+                    "speculative decoding with left-padded prompts "
+                    "(attention_mask) — pad to equal length, or use "
+                    "the serving engine")
+            if explicit_cache_impl == "dense":
+                raise ValueError(
+                    "num_speculative_tokens requires the paged cache; "
+                    "it cannot run with an explicit cache_impl='dense'")
+            reason = spec_exclusion_reason(self)
+            if reason is None and draft_model is not None:
+                reason = draft_exclusion_reason(self, draft_model)
+            if reason is not None:
+                raise NotImplementedError(
+                    f"speculative decoding unavailable: {reason}")
+            # speculated positions may overhang the final token by up to
+            # gamma: they need room in the rope tables too
+            self._check_lengths(prompt_len, max_new + gamma)
+            runner = SpecGenerator(
+                self, b, prompt_len, max_new, gamma, do_sample=do_sample,
+                temperature=temperature, top_k=top_k, top_p=top_p, eos=eos,
+                pad=pad, block_size=block_size, draft_model=draft_model,
+                ngram_max=int(cfg.spec_ngram_max if spec_ngram_max is None
+                              else spec_ngram_max))
+            out, score = runner.run(ids, gen)
+            return (torch.from_numpy(out).to(dev),
+                    torch.from_numpy(score).to(dev))
+        if cache_impl == "paged":
+            return self._run_paged(ids, max_new, select, eos, pad,
+                                   block_size)
+        # power-of-two prompt bucketing: left-pad the prompt (masked,
+        # per-row rope rebase), as the reference does so that every
+        # length in a bucket reuses one compiled loop
+        if pad_prompt_to_bucket and self._bucket_eligible():
+            pb = _prompt_bucket(prompt_len)
+            if pb != prompt_len:
+                padc = pb - prompt_len
+                ids = torch.cat([torch.full((b, padc), pad, dtype=ids.dtype,
+                                            device=dev), ids], 1)
+                base = mask_np if mask_np is not None \
+                    else np.ones((b, prompt_len), np.int64)
+                mask_np = np.concatenate(
+                    [np.zeros((b, padc), base.dtype), base], axis=1)
+        mask = None if mask_np is None else \
+            torch.from_numpy(mask_np.astype(np.int64)).to(dev)
+        return self._run_dense(ids, mask, max_new, select, eos, pad)
+
+    def export_generation(self, *args, **kwargs):
+        raise _later("export_generation (the AOT-exported decode loop)")
+
+
+def load_generation(path):
+    raise _later("load_generation (the AOT-exported decode loop)")

@@ -1,5 +1,6 @@
 """Llama causal LM (counterpart of ``paddle_tpu/models/llama.py``): the
-dense training forward and the ragged serving path.
+dense training forward, the ragged serving path and the cache paths of
+``generate()``.
 
 Parameter names and layouts follow the reference's ``state_dict()``
 (``llama.layers.{i}.self_attn.q_proj.weight`` ``[in, out]``, ...), so
@@ -11,15 +12,27 @@ layers (RMSNorm, q/k/v, rope, causal flash attention through the K1
 kernels, O-projection, residual, RMSNorm, swiglu MLP, residual), final
 norm and LM head; given ``labels`` it returns the
 :class:`LlamaPretrainingCriterion` loss, else the logits. Everything is
-differentiable. With ``caches`` it takes ONE packed ragged row buffer
-per serving tick: every live query row of every slot, partitioned by
-``ragged_meta``. Each decoder layer then runs either the fused decode
-path (RMSNorm -> q/k/v and RMSNorm -> gate/up through ``norm_matmul``;
-O-projection + residual and swiglu -> down-projection + residual through
-``matmul_residual``; attention through the ragged paged kernel) or the
-unfused module path; on the CPU the two are bitwise equal. The serving
-engine calls it under ``torch.no_grad()``. The dense/per-width paged
-decode paths, recompute and attention masks belong to later slices.
+differentiable. With ``caches`` it runs one of three decode paths:
+
+- ragged (``ragged_meta`` given): ONE packed row buffer per serving
+  tick, every live query row of every slot; each decoder layer runs
+  either the fused decode path (RMSNorm -> q/k/v and RMSNorm -> gate/up
+  through ``norm_matmul``; O-projection + residual and swiglu ->
+  down-projection + residual through ``matmul_residual``; attention
+  through the ragged paged kernel K2r) or the unfused module path; on
+  the CPU the two are bitwise equal;
+- paged (``block_tables`` given): ``input_ids [S, T]``, T tokens per
+  slot written at ``cache_lens + t`` into the shared block pools and
+  attended through K2d (T = 1) or K2v (T > 1);
+- dense cached (neither): ``input_ids [B, L]`` written into the static
+  ``[B, S_max, H_kv, D]`` caches at ``offset``, attended by
+  :func:`cached_attention` under a causal-with-offset mask, with an
+  optional ``[B, S_max]`` pad mask and per-row ``position_ids`` rope.
+
+The serving engine and ``generate()`` call it under ``torch.no_grad()``;
+``generate()`` runs the unfused module path, as the reference does.
+Recompute and attention masks on the dense training path belong to later
+slices.
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ from torch import nn
 
 from ..framework.place import resolve_device
 from ..framework.random import generator as make_generator
+from ..generation import GenerationMixin
 from ..incubate.nn.functional import (apply_rope, rope_rotate, rope_tables,
                                       swiglu)
 from ..nn import Embedding, Linear, RMSNorm
@@ -41,7 +55,7 @@ from ..ops.kernels import decode_fused as _df
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
-           "LlamaPretrainingCriterion"]
+           "LlamaPretrainingCriterion", "cached_attention"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -86,9 +100,52 @@ class LlamaConfig:
         return _DTYPES[self.dtype]
 
 
+def cached_attention(qh, kh, vh, kc, vc, off, head_dim, extra_bias=None):
+    """KV-cache attention step of the dense decode path: write this
+    chunk's heads ``[B, L, H_kv, D]`` into the caches ``[B, S, H_kv, D]``
+    at position ``off`` (in place), then attend ``qh [B, L, H, D]``
+    against the whole cache under a causal-with-offset mask plus an
+    optional additive ``extra_bias`` broadcastable to ``[B, 1, L, S]``
+    (a pad mask, ``-1e9`` past its width). The reference's recipe:
+    float32 scores divided by ``sqrt(head_dim)``, additive ``-1e9``
+    bias, softmax, the weights cast to ``qh``'s dtype before the P @ V
+    product in that dtype, and GQA by grouping the query heads (the
+    cache is never repeated). Returns ``(out [B, L, H, D], kc, vc)``."""
+    b, l, h, d = qh.shape
+    hkv = kc.shape[2]
+    rep = h // hkv
+    size = kc.shape[1]
+    off = max(0, min(int(off), size - l))   # the start a slice update takes
+    kc[:, off:off + l] = kh.to(kc.dtype)
+    vc[:, off:off + l] = vh.to(vc.dtype)
+    dev = qh.device
+    rows = off + torch.arange(l, device=dev)[:, None]
+    cols = torch.arange(size, device=dev)[None, :]
+    bias = torch.where(cols <= rows, 0.0, -1e9)[None, None]   # [1,1,L,S]
+    if extra_bias is not None:
+        pad = size - extra_bias.shape[-1]
+        if pad > 0:
+            extra_bias = torch.nn.functional.pad(extra_bias, (0, pad),
+                                                 value=-1e9)
+        bias = bias + extra_bias                               # [B,1,L,S]
+    q5 = qh.reshape(b, l, hkv, rep, d)
+    scores = torch.einsum("blgrd,bsgd->bgrls", q5.float(),
+                          kc.to(qh.dtype).float()) / math.sqrt(head_dim)
+    scores = scores + bias[:, :, None]
+    w = torch.softmax(scores, dim=-1).to(qh.dtype)
+    out = torch.einsum("bgrls,bsgd->blgrd", w, vc.to(qh.dtype))
+    return out.reshape(b, l, h, d), kc, vc
+
+
+def _apply_rope_rows(x, cos, sin):
+    """Rope with per-row position tables: ``x [B, L, H, D]``,
+    ``cos``/``sin`` ``[B, L, D/2]``."""
+    return rope_rotate(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
 class LlamaAttention(nn.Module):
-    """GQA attention: dense causal (training) or ragged paged
-    (serving)."""
+    """GQA attention: dense causal (training), ragged paged (serving),
+    paged or dense cached (``generate()``)."""
 
     def __init__(self, config: LlamaConfig, device, dtype):
         super().__init__()
@@ -125,23 +182,79 @@ class LlamaAttention(nn.Module):
             sm_scale=1.0 / math.sqrt(self.head_dim))
         return out.reshape(r, self.num_heads * self.head_dim), (kp, vp)
 
+    def _heads(self, q, k, v):
+        b, l = q.shape[0], q.shape[1]
+        return (q.reshape(b, l, self.num_heads, self.head_dim),
+                k.reshape(b, l, self.num_kv_heads, self.head_dim),
+                v.reshape(b, l, self.num_kv_heads, self.head_dim))
+
+    def attend_paged(self, q, k, v, rope_cos, rope_sin, kv_cache,
+                     block_tables, cache_lens):
+        """Rope at positions ``cache_lens + t`` (per slot), the pool
+        write and paged attention (K2d at T = 1, K2v at T > 1), without
+        the O-projection. ``q``/``k``/``v`` are ``[S, T, *]``. Returns
+        ``(ctx [S, T, H * D], (k_pool, v_pool))``."""
+        qh, kh, vh = self._heads(q, k, v)
+        b, l = qh.shape[0], qh.shape[1]
+        pos = cache_lens.long()[:, None] + torch.arange(l, device=q.device)
+        pos = torch.clamp(pos, 0, rope_cos.shape[0] - 1)
+        cos, sin = rope_cos[pos], rope_sin[pos]           # [S, T, D/2]
+        out, kp, vp = _pa.paged_attention_step(
+            _apply_rope_rows(qh, cos, sin), _apply_rope_rows(kh, cos, sin),
+            vh, kv_cache[0], kv_cache[1], block_tables, cache_lens,
+            sm_scale=1.0 / math.sqrt(self.head_dim))
+        return out.reshape(b, l, -1), (kp, vp)
+
+    def attend_cached(self, q, k, v, rope_cos, rope_sin, kv_cache, offset,
+                      attention_mask=None, position_ids=None):
+        """The dense decode path: rope at ``offset + t`` (or at the
+        per-row ``position_ids [B, L]``), the cache write at ``offset``
+        and :func:`cached_attention`, with ``attention_mask [B, S]``
+        masking pad cache slots. Returns ``(ctx [B, L, H * D], (k, v))``."""
+        qh, kh, vh = self._heads(q, k, v)
+        b, l = qh.shape[0], qh.shape[1]
+        off = int(offset)
+        if position_ids is not None:
+            pos = position_ids.long()
+            qh = _apply_rope_rows(qh, rope_cos[pos], rope_sin[pos])
+            kh = _apply_rope_rows(kh, rope_cos[pos], rope_sin[pos])
+        else:
+            start = max(0, min(off, rope_cos.shape[0] - l))
+            cos, sin = rope_cos[start:start + l], rope_sin[start:start + l]
+            qh, kh = apply_rope(qh, cos, sin), apply_rope(kh, cos, sin)
+        extra = None
+        if attention_mask is not None:
+            extra = torch.where(attention_mask > 0, 0.0,
+                                -1e9)[:, None, None, :]
+        out, kc, vc = cached_attention(qh, kh, vh, kv_cache[0], kv_cache[1],
+                                       off, self.head_dim, extra_bias=extra)
+        return out.reshape(b, l, -1), (kc, vc)
+
     def forward(self, h, rope_cos, rope_sin, kv_cache=None,
-                block_tables=None, cache_lens=None, ragged_meta=None):
+                block_tables=None, cache_lens=None, ragged_meta=None,
+                offset=None, attention_mask=None, position_ids=None):
         if kv_cache is None:
             # dense causal over h [B, L, hidden]; kv heads stay grouped
             b, l, _ = h.shape
-            qh = self.q_proj(h).reshape(b, l, self.num_heads, self.head_dim)
-            kh = self.k_proj(h).reshape(b, l, self.num_kv_heads,
-                                        self.head_dim)
-            vh = self.v_proj(h).reshape(b, l, self.num_kv_heads,
-                                        self.head_dim)
+            qh, kh, vh = self._heads(self.q_proj(h), self.k_proj(h),
+                                     self.v_proj(h))
             out = flash_attention_core(apply_rope(qh, rope_cos, rope_sin),
                                        apply_rope(kh, rope_cos, rope_sin),
                                        vh, is_causal=True)
             return self.o_proj(out.reshape(b, l, -1))
-        ctx, cache = self.attend_ragged(
-            self.q_proj(h), self.k_proj(h), self.v_proj(h), rope_cos,
-            rope_sin, kv_cache, block_tables, cache_lens, ragged_meta)
+        q, k, v = self.q_proj(h), self.k_proj(h), self.v_proj(h)
+        if ragged_meta is not None:
+            ctx, cache = self.attend_ragged(q, k, v, rope_cos, rope_sin,
+                                            kv_cache, block_tables,
+                                            cache_lens, ragged_meta)
+        elif block_tables is not None:
+            ctx, cache = self.attend_paged(q, k, v, rope_cos, rope_sin,
+                                           kv_cache, block_tables,
+                                           cache_lens)
+        else:
+            ctx, cache = self.attend_cached(q, k, v, rope_cos, rope_sin,
+                                            kv_cache, offset,
+                                            attention_mask, position_ids)
         return self.o_proj(ctx), cache
 
 
@@ -192,18 +305,21 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, h, rope_cos, rope_sin, kv_cache=None,
                 block_tables=None, cache_lens=None, ragged_meta=None,
-                fused=True):
+                fused=True, offset=None, attention_mask=None,
+                position_ids=None):
         if kv_cache is None:             # dense: [B, L, hidden]
             h = h + self.self_attn(self.input_layernorm(h), rope_cos,
                                    rope_sin)
             return h + self.mlp(self.post_attention_layernorm(h))
-        if fused:
+        if fused and ragged_meta is not None:
             return self.forward_decode_fused(h, rope_cos, rope_sin,
                                              kv_cache, block_tables,
                                              cache_lens, ragged_meta)
         a, cache = self.self_attn(self.input_layernorm(h), rope_cos,
                                   rope_sin, kv_cache, block_tables,
-                                  cache_lens, ragged_meta)
+                                  cache_lens, ragged_meta, offset=offset,
+                                  attention_mask=attention_mask,
+                                  position_ids=position_ids)
         h = h + a
         return h + self.mlp(self.post_attention_layernorm(h)), cache
 
@@ -228,24 +344,28 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, position_ids=None,
                 caches=None, block_tables=None, cache_lens=None,
-                ragged_meta=None, fused=True):
+                ragged_meta=None, fused=True, offset=None):
         if caches is None:
             if attention_mask is not None or position_ids is not None:
                 raise NotImplementedError(
                     "LlamaModel: attention_mask / position_ids on the dense "
-                    "path are not ported yet")
+                    "training path are not ported yet")
             h = self.embed_tokens(input_ids.long())
             l = h.shape[1]
             cos, sin = self._rope_cos[:l], self._rope_sin[:l]
             for layer in self.layers:
                 h = layer(h, cos, sin)
             return self.norm(h)
-        h = self.embed_tokens(input_ids.reshape(-1).long())
+        if ragged_meta is not None:     # one packed row buffer [R]
+            input_ids = input_ids.reshape(-1)
+        h = self.embed_tokens(input_ids.long())
         new_caches = []
         for layer, kv in zip(self.layers, caches):
             h, kv2 = layer(h, self._rope_cos, self._rope_sin, kv,
                            block_tables, cache_lens, ragged_meta,
-                           fused=fused)
+                           fused=fused, offset=offset,
+                           attention_mask=attention_mask,
+                           position_ids=position_ids)
             new_caches.append(kv2)
         return self.norm(h), new_caches
 
@@ -274,20 +394,33 @@ class LlamaPretrainingCriterion(nn.Module):
         return loss.sum() / valid.float().sum().clamp(min=1.0)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(nn.Module, GenerationMixin):
     """``forward(input_ids, labels=None, attention_mask=None,
     position_ids=None, caches=None, offset=None, block_tables=None,
-    cache_lens=None, ragged_meta=None, last_rows=None, fused=True)``.
+    cache_lens=None, ragged_meta=None, last_rows=None, fused=True,
+    return_hidden=False)``.
 
     Dense (``caches`` None): ``input_ids [B, L]`` -> logits
     ``[B, L, V]``, or the scalar loss when ``labels [B, L]`` is given.
 
-    Ragged serving (``caches`` given): ``input_ids [R]``, ``block_tables
-    [S, MB]`` int32, ``cache_lens [S]`` int32 and ``ragged_meta = (q_lens
-    [S], row_starts [S], row_slot [R], row_pos [R], w_max)`` (int32
-    tensors on the model's device plus a host int bounding ``q_lens``)
-    -> ``(logits, caches)``; ``last_rows`` (``[S]`` row indices)
-    restricts the LM head to those rows.
+    Ragged serving (``caches`` and ``ragged_meta`` given): ``input_ids
+    [R]``, ``block_tables [S, MB]`` int32, ``cache_lens [S]`` int32 and
+    ``ragged_meta = (q_lens [S], row_starts [S], row_slot [R], row_pos
+    [R], w_max)`` (int32 tensors on the model's device plus a host int
+    bounding ``q_lens``) -> ``(logits, caches)``; ``last_rows`` (``[S]``
+    row indices) restricts the LM head to those rows.
+
+    Paged (``caches`` the per-layer pools and ``block_tables`` given,
+    no ``ragged_meta``): ``input_ids [S, T]`` at positions ``cache_lens
+    + t`` -> ``(logits [S, T, V], caches)``. Dense cached (``caches``
+    from :meth:`init_caches`): ``input_ids [B, L]`` at ``offset`` (a
+    host int), with optional ``attention_mask [B, S_max]`` and
+    ``position_ids [B, L]`` -> ``(logits [B, L, V], caches)``. Both
+    update the caches in place. ``return_hidden`` makes the logits
+    ``(logits, final hidden state)``.
+
+    :meth:`generate` comes from
+    :class:`paddle_tpu_torch.generation.GenerationMixin`.
 
     Built on ``device`` (default: cuda; ``"cpu"`` runs the plain
     versions of the kernels) with weights drawn from ``generator`` (or a
@@ -324,21 +457,21 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None, attention_mask=None,
                 position_ids=None, caches=None, offset=None,
                 block_tables=None, cache_lens=None, ragged_meta=None,
-                last_rows=None, fused=True):
+                last_rows=None, fused=True, return_hidden=False):
         if caches is None:
             h = self.llama(input_ids, attention_mask, position_ids)
             return self._head_and_loss(h, labels)
-        if offset is not None or attention_mask is not None:
-            raise NotImplementedError(
-                "LlamaForCausalLM: the dense cached decode path (offset, "
-                "attention_mask) is not ported yet")
-        h, new_caches = self.llama(input_ids, caches=caches,
-                                   block_tables=block_tables,
+        h, new_caches = self.llama(input_ids, attention_mask, position_ids,
+                                   caches=caches, block_tables=block_tables,
                                    cache_lens=cache_lens,
-                                   ragged_meta=ragged_meta, fused=fused)
+                                   ragged_meta=ragged_meta, fused=fused,
+                                   offset=offset)
         if last_rows is not None:
             h = h[last_rows.long()]
-        return self._head_and_loss(h, None), new_caches
+        logits = self._head_and_loss(h, None)
+        if return_hidden:
+            return (logits, h), new_caches
+        return logits, new_caches
 
     def _head_and_loss(self, h, labels):
         if self.lm_head is None:
@@ -348,6 +481,16 @@ class LlamaForCausalLM(nn.Module):
         if labels is not None:
             return self.criterion(logits, labels)
         return logits
+
+    def init_caches(self, batch_size: int, max_length: int):
+        """Zeroed per-layer dense ``(k, v)`` caches, each
+        ``[batch_size, max_length, H_kv, D]`` in the model dtype."""
+        cfg = self.config
+        shape = (batch_size, max_length, cfg.num_key_value_heads,
+                 cfg.head_dim)
+        mk = dict(dtype=cfg.torch_dtype, device=self.device)
+        return [(torch.zeros(shape, **mk), torch.zeros(shape, **mk))
+                for _ in range(cfg.num_hidden_layers)]
 
     def init_paged_caches(self, num_blocks: int, block_size: int):
         """Zeroed per-layer ``(k_pool, v_pool)``, each

@@ -7,7 +7,8 @@ launches its kernel for CUDA tensors (or raises); nothing falls back.
 bumped right after each successful launch, so a run can show that its
 main path went through the kernels.
 """
-launch_counts = {"ragged_paged_attention": 0, "norm_matmul": 0,
+launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
+                 "paged_verify_attention": 0, "norm_matmul": 0,
                  "matmul_residual": 0, "flash_attention_fwd": 0,
                  "flash_attention_dq": 0, "flash_attention_dkv": 0}
 

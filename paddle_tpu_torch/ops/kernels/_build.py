@@ -24,8 +24,9 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "nvcc_path", "build_all",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("ragged_paged_attention", "norm_matmul", "matmul_residual",
-           "flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("ragged_paged_attention", "paged_decode_attention",
+           "norm_matmul", "matmul_residual", "flash_attention_fwd",
+           "flash_attention_bwd")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _LOCK = threading.Lock()

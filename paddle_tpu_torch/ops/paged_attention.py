@@ -1,12 +1,16 @@
-"""The ragged serving step's write + attend (counterpart of
-``ragged_attention_step`` in ``paddle_tpu/ops/pallas/paged_attention.py``).
+"""The paged serving steps' write + attend (counterparts of
+``ragged_attention_step`` and ``paged_attention_step`` in
+``paddle_tpu/ops/pallas/paged_attention.py``).
 """
 from __future__ import annotations
 
-from .kernels import ragged_paged_attention as _rpa
-from .paged_cache import write_rows
+import torch
 
-__all__ = ["ragged_attention_step"]
+from .kernels import paged_attention as _pda
+from .kernels import ragged_paged_attention as _rpa
+from .paged_cache import write_decode, write_rows, write_tokens
+
+__all__ = ["ragged_attention_step", "paged_attention_step"]
 
 
 def ragged_attention_step(qh, kh, vh, k_pool, v_pool, block_tables,
@@ -24,4 +28,24 @@ def ragged_attention_step(qh, kh, vh, k_pool, v_pool, block_tables,
     out = _rpa.ragged_paged_attention(
         qh, k_pool, v_pool, block_tables, cache_lens + 1, q_lens,
         row_starts, w_max, sm_scale=sm_scale)
+    return out, k_pool, v_pool
+
+
+def paged_attention_step(qh, kh, vh, k_pool, v_pool, block_tables,
+                         cache_lens, sm_scale=None):
+    """Write this step's K/V (``[S, T, H_kv, D]``) at ``cache_lens[s] +
+    t`` and attend ``qh [S, T, H, D]``: T = 1 is generate()'s paged
+    decode step (K2d), T > 1 the speculative verify window (K2v, token
+    ``t`` sees ``cache_lens + 1 + t`` positions). The pools are updated
+    in place. Returns ``(out [S, T, H, D], k_pool, v_pool)``."""
+    lens = cache_lens.to(torch.int32)
+    if qh.shape[1] == 1:
+        write_decode(k_pool, v_pool, block_tables, lens, kh[:, 0], vh[:, 0])
+        out = _pda.paged_decode_attention(qh[:, 0], k_pool, v_pool,
+                                          block_tables, lens + 1,
+                                          sm_scale=sm_scale)
+        return out[:, None], k_pool, v_pool
+    write_tokens(k_pool, v_pool, block_tables, lens, kh, vh)
+    out = _pda.paged_verify_attention(qh, k_pool, v_pool, block_tables,
+                                      lens + 1, sm_scale=sm_scale)
     return out, k_pool, v_pool

@@ -13,9 +13,11 @@ The host-side :class:`BlockAllocator` is a plain refcounted free list.
 The prefix-cache publishing of the reference (content hashes, LRU
 parking, copy-on-write) belongs to a later slice.
 
-Unlike the reference's pure functions, :func:`write_rows` updates the
-pools in place: a pool is the largest tensor the engine holds and
-PyTorch lets the scatter land without a copy.
+Unlike the reference's pure functions, the writes (:func:`write_prefill`,
+:func:`write_decode`, :func:`write_tokens`, :func:`write_rows`) update
+the pools in place: a pool is the largest tensor the engine holds and
+PyTorch lets the scatter land without a copy. They return the same pool
+tensors.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["NULL_BLOCK", "blocks_for", "BlockAllocator", "init_pool",
-           "write_rows", "ragged_row_meta"]
+           "write_prefill", "write_decode", "write_tokens", "write_rows",
+           "gather_dense", "ragged_row_meta"]
 
 NULL_BLOCK = 0
 
@@ -108,6 +111,65 @@ def init_pool(num_blocks: int, block_size: int, num_kv_heads: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _store(k_pool, v_pool, bi, off, k_rows, v_rows):
+    """The scatter every write funnels through: rows land at
+    ``[bi, off]`` of both pools, cast to the pool dtype, in place."""
+    k_pool[bi, off] = k_rows.to(k_pool.dtype)
+    v_pool[bi, off] = v_rows.to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+def _table_rows(block_tables, blk, mb):
+    """``block_tables[s, blk]`` for ``blk [S, ...]``, with blocks past
+    the table's reach routed to the null block (never clamped onto the
+    slot's last block)."""
+    t = block_tables.long()
+    idx = torch.clamp(blk, 0, mb - 1).reshape(t.shape[0], -1)
+    bi = torch.gather(t, 1, idx).reshape(blk.shape)
+    return torch.where(blk < mb, bi, torch.full_like(bi, NULL_BLOCK))
+
+
+def write_prefill(k_pool, v_pool, block_tables, k_new, v_new, n_real=None):
+    """Scatter a dense prefill's K/V ``[B, P, H_kv, D]`` into the pool
+    (position ``p`` of slot ``b`` through ``block_tables [B, MB]``).
+    Positions ``>= n_real`` (``[B]`` or a scalar; default all ``P``) go
+    to the null block, so a right-padded prompt's tail never lands in
+    live blocks."""
+    b, p = k_new.shape[0], k_new.shape[1]
+    bs, mb = k_pool.shape[1], block_tables.shape[1]
+    pos = torch.arange(p, device=k_new.device)
+    bi = block_tables.long()[:, torch.clamp(pos // bs, max=mb - 1)]
+    if n_real is not None:
+        n = torch.as_tensor(n_real, device=k_new.device).reshape(-1, 1)
+        bi = torch.where(pos[None, :] < n, bi,
+                         torch.full_like(bi, NULL_BLOCK))
+    off = (pos % bs).expand(b, p)
+    return _store(k_pool, v_pool, bi, off, k_new, v_new)
+
+
+def write_decode(k_pool, v_pool, block_tables, cache_lens, k_new, v_new):
+    """Write ONE token per slot (``[S, H_kv, D]``) at position
+    ``cache_lens[s]`` (the valid length before it); positions past the
+    table's reach go to the null block."""
+    bs, mb = k_pool.shape[1], block_tables.shape[1]
+    lens = cache_lens.long()
+    bi = _table_rows(block_tables, lens // bs, mb)
+    return _store(k_pool, v_pool, bi, lens % bs, k_new, v_new)
+
+
+def write_tokens(k_pool, v_pool, block_tables, cache_lens, k_new, v_new):
+    """Append T tokens per slot (``[S, T, H_kv, D]``): token ``t`` of
+    slot ``s`` lands at ``cache_lens[s] + t``. Positions past the
+    table's reach (``MB * block_size`` and on) go to the null block.
+    Rolling back rejected speculated tokens needs no cache edit: the
+    caller keeps its lengths, and the next window overwrites them."""
+    t = k_new.shape[1]
+    bs, mb = k_pool.shape[1], block_tables.shape[1]
+    pos = cache_lens.long()[:, None] + torch.arange(t, device=k_new.device)
+    bi = _table_rows(block_tables, pos // bs, mb)
+    return _store(k_pool, v_pool, bi, pos % bs, k_new, v_new)
+
+
 def write_rows(k_pool, v_pool, block_tables, row_slot, row_pos, k_new,
                v_new):
     """Scatter a ragged batch in place: row ``r`` of ``k_new``/``v_new``
@@ -124,9 +186,16 @@ def write_rows(k_pool, v_pool, block_tables, row_slot, row_pos, k_new,
     bi = torch.where((pos >= 0) & (blk < mb), bi,
                      torch.full_like(bi, NULL_BLOCK))
     off = torch.remainder(pos, bs)
-    k_pool[bi, off] = k_new.to(k_pool.dtype)
-    v_pool[bi, off] = v_new.to(v_pool.dtype)
-    return k_pool, v_pool
+    return _store(k_pool, v_pool, bi, off, k_new, v_new)
+
+
+def gather_dense(pool, block_tables):
+    """``[S, MB * BS, H_kv, D]`` dense view of each slot's blocks
+    (positions past a slot's length read whatever the blocks hold; the
+    caller masks by length)."""
+    s, mb = block_tables.shape
+    g = pool[block_tables.long()]               # [S, MB, BS, H_kv, D]
+    return g.reshape(s, mb * pool.shape[1], pool.shape[2], pool.shape[3])
 
 
 def ragged_row_meta(q_lens, base_lens, total_rows, overflow_pos):

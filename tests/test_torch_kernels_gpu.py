@@ -20,6 +20,7 @@ from paddle_tpu_torch.ops import paged_cache as tpc
 from paddle_tpu_torch.ops.kernels import decode_fused as df
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import launch_counts
+from paddle_tpu_torch.ops.kernels import paged_attention as pda
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
@@ -83,6 +84,65 @@ def test_ragged_paged_attention(cuda, dtype, block_size, head_dim, mb):
     want = rpa.plain_ragged_paged_attention(*args).float().cpu()
     assert launch_counts["ragged_paged_attention"] == n0 + 1
     torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+def _paged_case(seed, lens, T, rep, D, BS, MB, dtype, dev, Hkv=2):
+    """Pools, a random permutation of blocks as the slots' tables and a
+    window of T query tokens per slot."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = len(lens)
+    NB = 1 + S * MB
+    f = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa
+    perm = torch.randperm(NB - 1, generator=g, device=dev) + 1
+    tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
+    ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return (f(S, T, Hkv * rep, D), f(NB, BS, Hkv, D), f(NB, BS, Hkv, D),
+            tables, ctx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim,block_size,mb", [
+    (64, 8, 8), (128, 16, 8), (128, 32, 8), (64, 32, 64), (128, 16, 128)])
+@pytest.mark.parametrize("rep,T", [(1, 1), (4, 1), (8, 1), (1, 8), (4, 5),
+                                   (8, 8), (4, 3)])
+def test_paged_decode_and_verify_attention(cuda, dtype, head_dim,
+                                           block_size, mb, rep, T):
+    """K2v (and K2d at T = 1) against the plain versions: contexts of 1,
+    BS, BS + 1 and MB * BS - T + 1 (the window ends at the table's
+    reach); the long tables split the context over blocks."""
+    lens = [1, block_size, block_size + 1, mb * block_size - T + 1]
+    q, kp, vp, tables, ctx = _paged_case(
+        head_dim + block_size + rep + T, lens, T, rep, head_dim, block_size,
+        mb, getattr(torch, dtype), cuda)
+    n0 = dict(launch_counts)
+    got = pda.paged_verify_attention(q, kp, vp, tables, ctx)
+    want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx)
+    assert launch_counts["paged_verify_attention"] == \
+        n0["paged_verify_attention"] + 1
+    _rows_close(got, want, dtype)
+    if T == 1:
+        got1 = pda.paged_decode_attention(q[:, 0], kp, vp, tables, ctx)
+        assert launch_counts["paged_decode_attention"] == \
+            n0["paged_decode_attention"] + 1
+        _rows_close(got1, want[:, 0], dtype)
+
+
+@pytest.mark.gpu
+def test_paged_attention_empty_context_writes_zero(cuda):
+    """A query that sees no position writes 0: window token 0 of a slot
+    with context 0, and the decode row of that slot (no block read at
+    all), also when the context is split over blocks."""
+    q, kp, vp, tables, ctx = _paged_case(3, [0, 5], 3, 4, 128, 16, 16,
+                                         torch.float32, cuda)
+    got = pda.paged_verify_attention(q, kp, vp, tables, ctx)
+    assert torch.equal(got[0, 0], torch.zeros_like(got[0, 0]))
+    want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx)
+    torch.testing.assert_close(got[:, 1:], want[:, 1:], **TOL["float32"])
+    one = pda.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tables,
+                                     ctx)
+    assert torch.equal(one[0], torch.zeros_like(one[0]))
+    torch.testing.assert_close(one[1], want[1, 0], **TOL["float32"])
 
 
 @pytest.mark.gpu
@@ -219,6 +279,35 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     qa = torch.zeros(1, 8, 4, 96, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(qa, qa, qa, 0.1, True)
+
+    # K2d / K2v: head_dim, block size, window length, group width, dtypes,
+    # int32 metadata and contiguity
+    def paged(T=1, rep=4, D=128, BS=16, dt=torch.float32, pool_dt=None,
+              lens_dt=torch.int32):
+        q = torch.zeros(2, T, 2 * rep, D, device=cuda, dtype=dt)
+        pool = torch.zeros(5, BS, 2, D, device=cuda, dtype=pool_dt or dt)
+        tables = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+        return q, pool, pool, tables, torch.ones(2, dtype=lens_dt,
+                                                 device=cuda)
+    for kw, exc, match in (
+            (dict(D=96), ValueError, "head_dim"),
+            (dict(BS=12), ValueError, "block_size"),
+            (dict(T=17, rep=1), ValueError, "window"),
+            (dict(T=9, rep=8), ValueError, "whole group"),
+            (dict(dt=torch.float16), TypeError, "float32 or"),
+            (dict(pool_dt=torch.bfloat16), TypeError, "share"),
+            (dict(lens_dt=torch.int64), TypeError, "int32")):
+        args = paged(**kw)
+        with pytest.raises(exc, match=match):
+            pda.paged_verify_attention(*args)
+        if args[0].shape[1] == 1:
+            with pytest.raises(exc, match=match):
+                pda.paged_decode_attention(args[0][:, 0], *args[1:])
+    q, kp, vp, tables, ctx = paged(T=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pda.paged_verify_attention(q.transpose(1, 2), kp, vp, tables, ctx)
+    with pytest.raises(ValueError, match="want \\[S, H, D\\]"):
+        pda.paged_decode_attention(q, kp, vp, tables, ctx)
     qa = torch.zeros(1, 8, 3, 64, device=cuda)
     with pytest.raises(ValueError, match="whole group"):
         fa.flash_attention_fwd(qa, qa[:, :, :2].contiguous(),

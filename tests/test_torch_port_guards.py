@@ -58,10 +58,14 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/ops/flash_attention.py",
                  "paddle_tpu_torch/optimizer/optimizer.py",
                  "paddle_tpu_torch/jit/__init__.py",
+                 "paddle_tpu_torch/ops/kernels/paged_attention.py",
+                 "paddle_tpu_torch/generation/__init__.py",
+                 "paddle_tpu_torch/generation/speculative.py",
                  "chip_smoke.py"):
         assert want in names
-    for cu in ("ragged_paged_attention", "norm_matmul", "matmul_residual",
-               "flash_attention_fwd", "flash_attention_bwd"):
+    for cu in ("ragged_paged_attention", "paged_decode_attention",
+               "norm_matmul", "matmul_residual", "flash_attention_fwd",
+               "flash_attention_bwd"):
         assert (ROOT / "paddle_tpu_torch" / "csrc" / f"{cu}.cu").exists()
 
 
@@ -76,6 +80,8 @@ def test_no_jax_or_reference_import(path):
 def test_fresh_interpreter_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.ops.kernels."
             "decode_fused, paddle_tpu_torch.ops.kernels.flash_attention, "
+            "paddle_tpu_torch.ops.kernels.paged_attention, "
+            "paddle_tpu_torch.generation.speculative, "
             "paddle_tpu_torch.inference, paddle_tpu_torch.jit, "
             "paddle_tpu_torch.optimizer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -109,6 +115,9 @@ def test_entry_points_raise_without_gpu(no_gpu):
     model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, ServingConfig(num_slots=1, max_model_len=32))
+    # generate() runs on the model's device: the CPU model decodes there
+    out, _ = model.generate(np.ones((1, 3), np.int64), max_new_tokens=2)
+    assert out.device.type == "cpu" and tuple(out.shape) == (1, 2)
     eng = ServingEngine(model, ServingConfig(num_slots=1, max_model_len=32),
                         device="cpu")
     assert eng.device == torch.device("cpu")
