@@ -11,11 +11,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (4 slots, 32 / 8 heads, D 128, tables of 37 blocks, contexts 513..576,
    a window of 5) and at 8 slots with contexts up to 2048, the
    flash-attention forward / dq / dk-dv kernels at the training
-   run's shape (B 2, L 4096, 32 / 8 heads, D 128) — and time kernel,
-   plain version and a PyTorch library yardstick with CUDA events;
+   run's shape (B 2, L 4096, 32 / 8 heads, D 128), the ragged, decode and
+   verify kernels again at the MoE families' GQA groups (16 / 16 and
+   28 / 4 heads), and the MoE grouped matmuls (K4's gather + swiglu and
+   scatter modes, K5's gmm) at the DeepSeek-MoE-16B decode and prefill
+   ticks, at Qwen2-57B-A14B's widths and at edge routings — and time
+   kernel, plain version and a PyTorch library yardstick with CUDA
+   events;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
-   bfloat16 with seeded random weights, counting kernel launches;
+   bfloat16 with seeded random weights, counting kernel launches, then
+   profile 4 ticks of a second wave (idle share, host scalar reads a
+   tick);
 4. serve a short float32 run at reduced depth twice — through the
    kernels and through their plain versions — and compare the first
    tick's logits and the token streams (a divergence fails unless the
@@ -49,16 +56,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    versions; the token streams must be equal (the same margin rule as
    phase 4), the scores agree within SCORE_ATOL, and the self-drafted
    run must emit more than one token per verify window;
-9. print the kernels line, the card's name and power limit, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+9. DeepSeek-MoE-16B (all 28 layers, bfloat16, dropless, seeded weights)
+   serves phase 3's traffic (K2r and K4 must launch; tokens/s, TTFT,
+   ticks, rows a tick, peak memory, the engine's MoE stats), is profiled
+   over 4 ticks (its host scalar reads a tick may not exceed the Llama
+   engine's), then runs ``generate()`` on 4 motif prompts of 512 tokens,
+   32 new, dense, paged (K2d + K4) and n-gram at gamma 4 (K2v + K4);
+10. float32 DeepSeek-MoE at full widths cut to 3 layers: the engine's
+    first-tick logits and streams and paged ``generate()``'s streams
+    and scores, kernels vs plain versions, and the sorted path
+    (``moe_fused_gmm=False``, K5's gmm) vs the fused one (K4);
+11. Qwen2-MoE at Qwen2-57B-A14B widths cut to 4 layers (bfloat16,
+    dropless) serves 4 requests on the fused path (K2r at GQA group 7,
+    biased q/k/v, K4 at d 3584 / top-8) and on the sorted path (K5);
+12. print the kernels line, the card's name and power limit, and the
+    result line ``{"ok": true, "device": {...}}`` last.
 
-Each path (phases 3, 5 and each run of phase 7) runs with every launch
-count set to 0 just before it and read just after; a kernel of the path
-that never launched fails the run. Any failed comparison or exception
-exits non-zero before
-the result line. Without a CUDA device, or outside a checkout, it exits
-non-zero and prints no result. ``--layers`` cuts phase 3's depth (widths
-stay full); ``--kernels-only`` stops after phase 2.
+Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
+11) runs with every launch count set to 0 just before it and read just
+after; a kernel of the path that never launched fails the run. Any
+failed comparison or exception exits non-zero before the result line.
+Without a CUDA device, or outside a checkout, it exits non-zero and
+prints no result. ``--layers`` cuts phase 3's depth (widths stay full);
+``--kernels-only`` stops after phase 2.
 """
 from __future__ import annotations
 
@@ -94,6 +114,7 @@ LOGITS_ATOL = 2e-3                   # f32 kernel path vs plain path
 SCORE_ATOL = 1e-2
 SEED = 0
 REQUESTS = 10                        # phase 3
+TICK_WINDOW = 4                      # engine ticks profiled in phases 3, 9
 PHASE4_LAYERS = 2
 SLEEP_CYCLES = 50_000_000            # ~25 ms of device time
 ATTN = dict(B=2, L=4096, H=32, Hkv=8, D=128)   # phase 2's K1 shape
@@ -117,6 +138,22 @@ SERVING_KERNELS = ("ragged_paged_attention", "norm_matmul",
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                     "flash_attention_dkv")
 GENERATE_KERNELS = ("paged_decode_attention", "paged_verify_attention")
+# phase 2's K4 / K5 shapes: the DeepSeek-MoE-16B decode tick (8 tokens x
+# top-6) and 136-row prefill tick, and Qwen2-57B-A14B's widths; the edge
+# routings run at the decode tick's widths; the prefill tick is timed for
+# the kernels line
+MOE = {"decode": dict(tokens=8, d=2048, f=1408, e=64, k=6),
+       "prefill": dict(tokens=136, d=2048, f=1408, e=64, k=6),
+       "qwen2": dict(tokens=136, d=3584, f=2560, e=64, k=8)}
+MOE_EDGES = ("one", "sparse", "single")
+MOE_EDGE_SHAPE = "decode"
+MOE_TIMED = "prefill"
+MOE_KERNELS = ("moe_gather_gmm_swiglu", "moe_scatter_gmm")
+# phase 2's attention checks at the MoE families' GQA groups: 1 and 7
+MOE_HEADS = {"deepseek": (16, 16), "qwen2": (28, 4)}
+MOE_GENERATE = dict(batch=4, prompt=512, motif=64, new=32, gamma=4)
+MOE_F32 = dict(layers=3, batch=2, prompt=256, motif=32, new=16)
+QWEN2 = dict(layers=4, requests=4, new=16)
 
 
 def log(*a):
@@ -193,7 +230,7 @@ def row_rel_err(got, ref):
 
 
 def held_attention(torch, got, ref, dtype, what, fails):
-    """One attention output (K1, K2d, K2v) against its plain version: an
+    """One kernel output (K1, K2d, K2v, K4) against its plain version: an
     lse by LSE_ATOL, the others by TOL and ROW_RTOL. Logs the readings,
     appends a failure to ``fails`` (so every output is read before the
     run stops) and returns the max abs error."""
@@ -219,13 +256,13 @@ def held_attention(torch, got, ref, dtype, what, fails):
 
 # ---------------------------------------------------------------- phase 2
 
-def check_ragged(torch, rpa, dtype, timing):
+def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8):
     """K2r at the main path's shape: 8 slots (7 decode rows + a
-    128-row prefill chunk), 8 kv heads x rep 4, D 128, BS 16, contexts
-    up to 2048."""
+    128-row prefill chunk), D 128, BS 16, contexts up to 2048; 32 / 8
+    heads (Llama-3-8B) unless ``heads`` / ``kv_heads`` say otherwise."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(11)
-    S, Hkv, rep, D, BS, MB = 8, 8, 4, 128, 16, 128
+    S, Hkv, rep, D, BS, MB = 8, kv_heads, heads // kv_heads, 128, 16, 128
     NB = 1 + S * MB
     base = [2047, 1500, 900, 300, 64, 1024, 1800, 512]
     q_lens = [1, 1, 1, 1, 1, 1, 1, 128]
@@ -245,7 +282,8 @@ def check_ragged(torch, rpa, dtype, timing):
     got = rpa.ragged_paged_attention(*args, w_max)
     ref = rpa.plain_ragged_paged_attention(*args)
     torch.cuda.synchronize()
-    err = max_err(torch, got, ref, dtype, "ragged_paged_attention")
+    err = max_err(torch, got, ref, dtype,
+                  f"ragged_paged_attention {heads}/{kv_heads} heads")
     if not timing:
         return err, None
     es = kp.element_size()
@@ -263,16 +301,17 @@ def check_ragged(torch, rpa, dtype, timing):
     return err, row
 
 
-def check_paged(torch, pda, dtype, timing, shape):
-    """K2d and K2v at generate()'s widths (32 / 8 heads, D 128, BS 16, a
-    window of PAGED_T for K2v) and one of the PAGED shapes: slots, table
-    width MB and contexts (each set has one ending on a block boundary).
+def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8):
+    """K2d and K2v at generate()'s widths (32 / 8 heads unless ``heads``
+    / ``kv_heads`` say otherwise, D 128, BS 16, a window of PAGED_T for
+    K2v) and one of the PAGED shapes: slots, table width MB and contexts
+    (each set has one ending on a block boundary).
     Held elementwise and row by row; timed over enough sets of pools,
     taken in turn, to fill twice the 50 MB L2, so each call reads its K/V
     from device memory, as each layer of a decode step does."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(16)
-    H, Hkv, D, BS, T = 32, 8, 128, 16, PAGED_T
+    H, Hkv, D, BS, T = heads, kv_heads, 128, 16, PAGED_T
     S, MB, lens = (PAGED[shape][k] for k in ("S", "MB", "lens"))
     if lens is None:
         rng = np.random.RandomState(16)
@@ -303,7 +342,8 @@ def check_paged(torch, pda, dtype, timing, shape):
         ref = plain(q, kp, vp, tables, ctx)
         torch.cuda.synchronize()
         errs[name] = held_attention(torch, got, ref, dtype,
-                                    f"{name} {shape}", fails)
+                                    f"{name} {shape} {H}/{Hkv} heads",
+                                    fails)
         if not timing:
             continue
         tw = q.shape[1] if q.dim() == 4 else 1
@@ -494,6 +534,151 @@ def check_flash(torch, F, fa, dtype, timing):
     return errs, rows_out
 
 
+def moe_routing(torch, tokens, e, k, kind, seed):
+    """``(order, src_rows, group_sizes)`` int32 on the card for ``tokens``
+    x ``k`` (token, slot) pairs: ``random`` gives each token k distinct
+    experts (a router's top-k of random logits), ``one`` sends every pair
+    to one expert, ``sparse`` to three (61 of 64 groups empty, the first
+    and last not), ``single`` all but one pair to one expert and the last
+    pair alone to the last expert (a group of one row). Sorted
+    expert-major and stable, as the dispatch sorts them."""
+    rng = np.random.RandomState(seed)
+    flat = rng.rand(tokens, e).argsort(1)[:, :k].reshape(-1)
+    if kind == "one":
+        flat[:] = e // 3
+    elif kind == "sparse":
+        flat = rng.choice([0, e // 4, e - 1], flat.size)
+    elif kind == "single":
+        flat[:] = 5
+        flat[-1] = e - 1
+    order = np.argsort(flat, kind="stable")
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()  # noqa
+    return i32(order), i32(order // k), i32(np.bincount(flat, minlength=e))
+
+
+def grouped_mm_yardstick(torch, a, b, offs):
+    """``lhs -> torch._grouped_mm(lhs, b, offs=offs)`` (with ``b``
+    column-major if the row-major layout is refused) tried on ``a``, and
+    None; or ``(None, reason)`` where this PyTorch has no such call for
+    these inputs."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm is missing"
+    reason = None
+    for bb in (b, b.transpose(-2, -1).contiguous().transpose(-2, -1)):
+        try:
+            fn(a, bb, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda lhs: fn(lhs, bb, offs=offs)), None
+        except Exception as e:          # the yardstick is optional
+            reason = f"{type(e).__name__}: {str(e)[:160]}"
+    return None, reason
+
+
+def check_moe(torch, mg, dtype, timing):
+    """K4's forward modes and K5's gmm against their plain versions at
+    the MoE paths' shapes (MOE: the DeepSeek-16B decode and prefill
+    ticks, Qwen2-57B widths) and at MOE_EDGES routings, elementwise and
+    row by row. In bfloat16 each is timed at the MOE shapes with CUDA
+    events (every shape's experts hold far more than the 50 MB L2, so
+    each call streams its touched experts' weights from device memory),
+    beside its bound and ``torch._grouped_mm``: one call for K5's gmm,
+    composites for the K4 modes (printed, never in the kernels line).
+    Returns ``(errs, rows)``; ``rows`` holds the MOE_TIMED shape's
+    timings by kernel name."""
+    import torch.nn.functional as F
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    fails, rows = [], {}
+    errs = dict.fromkeys(("moe_gather_gmm_swiglu", "moe_scatter_gmm",
+                          "moe_gmm"), 0.0)
+    weights = {}
+    cases = [(shape, "random") for shape in MOE] + \
+        [(MOE_EDGE_SHAPE, kind) for kind in MOE_EDGES]
+    for i, (shape, kind) in enumerate(cases):
+        c = MOE[shape]
+        tokens, d, f, e, k = (c[n] for n in ("tokens", "d", "f", "e", "k"))
+        if (d, f, e) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[d, f, e] = tuple(
+                (0.02 * torch.randn(*sh, generator=g, device="cuda")).to(dt)
+                for sh in ((e, d, 2 * f), (e, f, d)))
+        gu, dn = weights[d, f, e]
+        x = torch.randn(tokens, d, generator=g, device="cuda").to(dt)
+        order, src, gs = moe_routing(torch, tokens, e, k, kind, 17 + i)
+        xs = x[src.long()].contiguous()
+        h_ref = mg.plain_gather_gmm_swiglu(x, src, gu, gs)
+        label = f"{shape} {kind}: {tokens * k} rows, d {d}, f {f}, e {e}"
+        outs = {"moe_gather_gmm_swiglu": (
+                    lambda: mg.gather_gmm_swiglu(x, src, gu, gs),
+                    lambda: mg.plain_gather_gmm_swiglu(x, src, gu, gs)),
+                "moe_scatter_gmm": (
+                    lambda: mg.scatter_gmm(h_ref, dn, gs, order),
+                    lambda: mg.plain_scatter_gmm(h_ref, dn, gs, order)),
+                "moe_gmm": (lambda: mg.gather_gmm(xs, None, gu, gs),
+                            lambda: mg.plain_gather_gmm(xs, None, gu, gs))}
+        for name, (kern, plain) in outs.items():
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name], held_attention(
+                torch, got, ref, dtype, f"{name} {label}", fails))
+        if not timing or kind != "random":
+            continue
+        es = x.element_size()
+        m = tokens * k
+        touched = int((gs > 0).sum())
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        gm_up, why = grouped_mm_yardstick(torch, xs, gu, offs)
+        gm_dn, _ = grouped_mm_yardstick(torch, h_ref, dn, offs)
+        idx, sidx = order.long(), src.long()
+
+        def silu_up(y):
+            return F.silu(y[:, :f]) * y[:, f:]
+
+        # (bytes, flops, one-call library, composite library)
+        work = {"moe_gather_gmm_swiglu": (
+                    es * (touched * d * 2 * f + tokens * d + m * f)
+                    + 4 * (m + e), 2 * m * d * 2 * f, None,
+                    gm_up and (lambda: silu_up(gm_up(x[sidx])))),
+                "moe_scatter_gmm": (
+                    es * (touched * f * d + m * f + m * d) + 4 * (m + e),
+                    2 * m * f * d, None,
+                    gm_dn and (lambda: (lambda y: torch.empty_like(
+                        y).index_copy_(0, idx, y))(gm_dn(h_ref)))),
+                "moe_gmm": (es * (touched * d * 2 * f + m * d + m * 2 * f)
+                            + 4 * e, 2 * m * d * 2 * f,
+                            gm_up and (lambda: gm_up(xs)), None)}
+        if gm_up is not None:
+            lerr = float((gm_up(xs).float() - mg.plain_gather_gmm(
+                xs, None, gu, gs).float()).abs().max())
+            log(f"  torch._grouped_mm {label}: max_abs_err vs plain "
+                f"{lerr:.3e}")
+        else:
+            log(f"  torch._grouped_mm unavailable: {why}")
+        for name, (nbytes, flops, one, comp) in work.items():
+            kern, plain = outs[name]
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            row = dict(ms=time_ms(torch, kern), plain_ms=time_ms(
+                torch, plain, reps=3, rounds=3, warmup=1), bound_ms=b_ms,
+                bound_by=b_by,
+                library_ms=time_ms(torch, one) if one else None)
+            comp_ms = time_ms(torch, comp) if comp else None
+            log(f"  {name} [{dtype}] {label} ({touched} experts touched): "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.2f} MB) "
+                f"library_ms={row['library_ms']}"
+                + (f" composite library_ms={comp_ms:.4f}"
+                   if comp_ms is not None else ""))
+            if shape == MOE_TIMED:
+                rows[name] = row
+    weights.clear()
+    if fails:
+        raise AssertionError(f"[{dtype}] MoE kernels disagree with their "
+                             f"plain versions: {fails}")
+    return errs, rows
+
+
 def decode_width_times(torch, df):
     """The GEMM kernels at a decode-only tick's width (R = 8 rows, one
     per slot), where the weight bytes bound them; printed, not held."""
@@ -532,13 +717,16 @@ def merge_rows(rows, dtype):
                 library_ms=sum(r["library_ms"] for r in rows))
 
 
-def profiled(torch, step, n, row_limit):
+def profiled(torch, step, n, row_limit, cpu_rows=0):
     """torch.profiler over ``n`` calls of ``step``, after one call that
     runs while the profiler starts and is not read. Prints the device
-    time by kernel and returns ``(wall_ms, busy_ms)`` of the same ``n``
-    calls: host time from the first call to the device's end (profiler
-    on), and the sum of their kernels' durations (one stream, so they do
-    not overlap; the ``ProfilerStep`` range on the device is no kernel)."""
+    time by kernel (and, with ``cpu_rows``, the host time by operator)
+    and returns ``(wall_ms, busy_ms, scalar_reads)`` of
+    the same ``n`` calls: host time from the first call to the device's
+    end (profiler on), the sum of their kernels' durations (one stream,
+    so they do not overlap; the ``ProfilerStep`` range on the device is
+    no kernel), and the count of ``aten::_local_scalar_dense`` (a tensor
+    read back to the host as a scalar, which waits for the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -555,23 +743,16 @@ def profiled(torch, step, n, row_limit):
         prof.step()
     log(prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=row_limit))
+    if cpu_rows:        # where the host's time goes
+        log(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                      row_limit=cpu_rows))
     busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not e.name.startswith("ProfilerStep")
                   and not getattr(e, "is_user_annotation", False)) / 1e3
-    return wall_ms, busy_ms
-
-
-def profile_ticks(torch, engine, skip, n):
-    """Where a tick's time goes: torch.profiler over ``n`` engine ticks
-    after ``skip`` plain ones, device time by kernel, and the device's
-    idle share of the same ticks' wall time."""
-    for _ in range(skip):
-        engine.step()
-    wall_ms, busy_ms = profiled(torch, engine.step, n, 15)
-    log(f"profile: {n} ticks, wall {wall_ms:.3f} ms (profiler on), device "
-        f"busy {busy_ms:.3f} ms -> idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
+    scalar_reads = sum(e.count for e in prof.key_averages()
+                       if e.key == "aten::_local_scalar_dense")
+    return wall_ms, busy_ms, scalar_reads
 
 
 # ---------------------------------------------------------------- phase 4
@@ -688,7 +869,7 @@ def train_run(torch, kernels, LlamaConfig, LlamaForCausalLM, AdamW,
     # where a step's time goes, and the device's idle share of the same
     # steps' wall time
     n_prof = TRAIN["profiled"]
-    wall_ms, busy_ms = profiled(torch, one_step, n_prof, 20)
+    wall_ms, busy_ms, _ = profiled(torch, one_step, n_prof, 20)
     log(f"phase 5 profile: {n_prof} steps, wall {wall_ms:.3f} ms "
         f"({wall_ms / n_prof:.3f} ms a step, profiler on), device busy "
         f"{busy_ms:.3f} ms -> idle share "
@@ -810,6 +991,51 @@ def logit_noise(torch, model, ids):
         return float((a - b[:, -1].float()).abs().max())
 
 
+def generate_once(torch, kernels, model, ids, new, kw, forwards, tag,
+                  counted, want):
+    """One timed ``generate()`` with every launch count set to 0 just
+    before it and read just after: checks the output, logs tokens/s, ms
+    per target forward (``forwards`` collects the model's forward calls),
+    tokens per verify and peak memory, and fails when a kernel of
+    ``want`` never launched. Returns ``(stream, launches of counted,
+    tokens emitted per row per verify)``."""
+    cfg = model.config
+    b = ids.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forwards.clear()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out, scores = model.generate(ids, max_new_tokens=new, **kw)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = {k: kernels.launch_counts[k] for k in counted}
+    out = out.cpu().numpy()
+    if out.shape != (b, new) or out.min() < 0 \
+            or out.max() >= cfg.vocab_size \
+            or not torch.isfinite(scores).all():
+        raise AssertionError(f"{tag}: bad output {out} {scores}")
+    spec = "num_speculative_tokens" in kw
+    # one K2v launch per layer per verify window; the loop runs until the
+    # slowest row is done: (new - 1) tokens after the prefill's over the
+    # windows (1.0: no draft accepted)
+    windows = kernels.launch_counts["paged_verify_attention"] \
+        // cfg.num_hidden_layers
+    n_fwd = 1 + windows if spec else len(forwards)
+    per_verify = (new - 1) / max(1, windows)
+    log(f"{tag}: {b} x {new} tokens in {dt:.3f}s -> "
+        f"{b * new / dt:.1f} tokens/s, {n_fwd} target forwards, "
+        f"{1e3 * dt / n_fwd:.2f} ms per target forward" + (
+            f", {per_verify:.3f} tokens emitted per row per verify "
+            f"({windows} verify forwards)" if spec else "")
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; launches {launches}")
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    return out, launches, per_verify
+
+
 def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
     """Phase 7: generate() on the 32-layer bf16 model five ways. Returns
     ``{run: launch counts}``."""
@@ -836,48 +1062,15 @@ def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
             "draft": GENERATE_KERNELS, "self": GENERATE_KERNELS}
     streams, launches, fails = {}, {}, []
     for name, kw in runs.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        forwards.clear()
-        kernels.reset_launch_counts()
-        t0 = time.monotonic()
-        out, scores = model.generate(ids, max_new_tokens=new, **kw)
-        torch.cuda.synchronize()
-        dt = time.monotonic() - t0
-        launches[name] = {k: kernels.launch_counts[k]
-                          for k in GENERATE_KERNELS}
-        out = out.cpu().numpy()
-        if out.shape != (b, new) or out.min() < 0 \
-                or out.max() >= cfg.vocab_size \
-                or not torch.isfinite(scores).all():
-            raise AssertionError(f"phase 7 {name}: bad output {out} "
-                                 f"{scores}")
-        streams[name] = out
-        spec = "num_speculative_tokens" in kw
-        # one K2v launch per layer per verify window; the loop runs until
-        # the slowest row is done: (new - 1) tokens after the prefill's
-        # over the windows (1.0: no draft accepted)
-        windows = launches[name]["paged_verify_attention"] \
-            // cfg.num_hidden_layers
-        n_fwd = 1 + windows if spec else len(forwards)
-        per_verify = (new - 1) / max(1, windows)
-        log(f"phase 7 {name}: {b} x {new} tokens in {dt:.3f}s -> "
-            f"{b * new / dt:.1f} tokens/s, {n_fwd} target forwards, "
-            f"{1e3 * dt / n_fwd:.2f} ms per target forward" + (
-                f", {per_verify:.3f} tokens emitted per row per verify "
-                f"({windows} verify forwards)" if spec else "")
-            + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-            f" GiB; launches {launches[name]}")
-        missing = [k for k in want.get(name, ()) if launches[name][k] <= 0]
-        if missing:
-            raise AssertionError(f"phase 7 {name}: kernels never launched: "
-                                 f"{missing}")
+        streams[name], launches[name], per_verify = generate_once(
+            torch, kernels, model, ids, new, kw, forwards,
+            f"phase 7 {name}", GENERATE_KERNELS, want.get(name, ()))
         if name == "self" and not per_verify > 1:
             fails.append("phase 7 self: no draft accepted")
     hook.remove()
     # where a paged generate()'s time goes, and the device's idle share
     n_new = GENERATE["profiled_new"]
-    wall_ms, busy_ms = profiled(torch, lambda: model.generate(
+    wall_ms, busy_ms, _ = profiled(torch, lambda: model.generate(
         ids, max_new_tokens=n_new, cache_impl="paged"), 1, 15)
     log(f"phase 7 profile: one paged generate() of {n_new} new tokens "
         f"(prefill included), wall {wall_ms:.3f} ms (profiler on), device "
@@ -979,15 +1172,278 @@ def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
         raise AssertionError(f"phase 8 failed: {fails}")
 
 
+# ------------------------------------------------------- phases 9 to 11
+
+def serving_prompts(vocab, n, seed):
+    """Phase 3's traffic: ``n`` prompts of 64..1024 tokens, seeded."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(64, 1025, size=n)
+    return lens, [rng.randint(0, vocab, size=k) for k in lens]
+
+
+def serve_run(torch, kernels, engine, prompts, lens, tag, want):
+    """Submit every prompt at once and run the engine dry, with every
+    launch count set to 0 just before and read just after. Checks the
+    tokens, logs tokens/s, TTFT, ticks, rows a tick and peak memory, and
+    fails when a kernel of ``want`` never launched. Returns ``(launches,
+    stats, streams in submission order)``."""
+    cfg = engine.model.config
+    max_new = engine.config.max_new_tokens
+    rids = [engine.submit(p) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(kernels.launch_counts)
+    st = engine.stats()
+    if sorted(done) != sorted(rids):
+        raise AssertionError(f"{tag}: {len(done)} of {len(rids)} requests "
+                             "done")
+    for rid, toks in done.items():
+        if len(toks) != max_new or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{tag}: request {rid}: bad tokens {toks}")
+    if not torch.isfinite(engine.last_logits).all():
+        raise AssertionError(f"{tag}: non-finite logits in the last tick")
+    n_tok = sum(len(t) for t in done.values())
+    log(f"{tag}: {len(prompts)} requests, prompt tokens {int(sum(lens))} "
+        f"(lengths {[int(n) for n in lens]}), {n_tok} tokens in {wall:.3f}s "
+        f"-> {n_tok / wall:.2f} tok/s; ticks {st['ticks']}, rows "
+        f"{st['rows_total']} ({st['rows_total'] / st['ticks']:.1f} a tick); "
+        f"TTFT ms mean {st['ttft_ms']['mean']:.1f} p50 "
+        f"{st['ttft_ms']['p50']:.1f} max {st['ttft_ms']['max']:.1f}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{tag}: kernel launches {launches}")
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched on the main "
+                             f"path: {missing}")
+    return launches, st, [done[r] for r in rids]
+
+
+def tick_window(torch, engine, prompts, n, tag):
+    """Where a tick's time goes: a fresh wave of ``prompts``, 4 untimed
+    ticks, then torch.profiler over ``n`` ticks (device time by kernel,
+    host time by operator, the idle share of their wall time, host reads
+    of device scalars a tick), then the wave drained. Returns the scalar
+    reads a tick."""
+    for p in prompts:
+        engine.submit(p)
+    for _ in range(4):
+        engine.step()
+    wall_ms, busy_ms, reads = profiled(torch, engine.step, n, 15,
+                                       cpu_rows=12)
+    engine.run()
+    log(f"{tag} profile: {n} ticks, wall {wall_ms:.3f} ms (profiler on), "
+        f"device busy {busy_ms:.3f} ms -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}; aten::_local_scalar_dense "
+        f"{reads / n:.2f} a tick")
+    return reads / n
+
+
+def moe_serving_phase(torch, kernels, ServingEngine, ServingConfig,
+                      DeepseekMoeForCausalLM, deepseek_moe_16b, llama_reads):
+    """Phase 9: DeepSeek-MoE-16B (all 28 layers, bf16, dropless, seeded
+    weights) serves phase 3's traffic, is profiled over TICK_WINDOW ticks
+    (its scalar reads a tick may not exceed the Llama engine's
+    ``llama_reads``), then runs generate() dense, paged and n-gram.
+    Returns ``(serving launches, {run: generate launches})``."""
+    cfg = deepseek_moe_16b(dropless=True)
+    layers = cfg.num_hidden_layers
+    t0 = time.monotonic()
+    model = DeepseekMoeForCausalLM(cfg, device="cuda", seed=SEED + 6)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 9: DeepSeek-MoE-16B, {layers} layers ({layers - 1} MoE: "
+        f"{cfg.n_routed_experts} experts of ffn "
+        f"{cfg.moe_intermediate_size}, top-{cfg.num_experts_per_tok}, "
+        f"{cfg.n_shared_experts} shared), {n_params / 1e9:.3f}B params "
+        f"bf16, dropless, init {time.monotonic() - t0:.1f}s")
+    lens, prompts = serving_prompts(cfg.vocab_size, REQUESTS, SEED)
+    engine = ServingEngine(model, ServingConfig(
+        num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
+        max_new_tokens=32), device="cuda")
+    launches, st, _ = serve_run(torch, kernels, engine, prompts, lens,
+                                "phase 9 serving",
+                                ("ragged_paged_attention",) + MOE_KERNELS)
+    log(f"phase 9 serving: stats " + json.dumps(
+        {k: st[k] for k in ("moe", "moe_fused_gmm", "moe_dispatches",
+                            "moe_routing_entropy", "moe_expert_load_max")}))
+    reads = tick_window(torch, engine, prompts[:8], TICK_WINDOW, "phase 9")
+    engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+    if reads > llama_reads:
+        raise AssertionError(f"phase 9: {reads} scalar reads a tick, more "
+                             f"than the Llama engine's {llama_reads}")
+
+    b, new, gamma = (MOE_GENERATE[k] for k in ("batch", "new", "gamma"))
+    prompts7 = motif_prompts(b, MOE_GENERATE["prompt"],
+                             MOE_GENERATE["motif"], cfg.vocab_size,
+                             SEED + 3)
+    ids = torch.from_numpy(prompts7).to(model.device)
+    forwards = []
+    hook = model.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    runs = {"dense": dict(cache_impl="dense"),
+            "paged": dict(cache_impl="paged"),
+            "ngram": dict(num_speculative_tokens=gamma)}
+    want = {"dense": MOE_KERNELS,
+            "paged": ("paged_decode_attention",) + MOE_KERNELS,
+            "ngram": ("paged_verify_attention",) + MOE_KERNELS}
+    streams, gen_launches = {}, {}
+    for name, kw in runs.items():
+        streams[name], gen_launches[name], _ = generate_once(
+            torch, kernels, model, ids, new, kw, forwards,
+            f"phase 9 generate {name}", GENERATE_KERNELS + MOE_KERNELS,
+            want[name])
+    hook.remove()
+    noise = logit_noise(torch, model, ids)
+    log(f"phase 9: bf16 logits of two recipes differ by up to {noise:.3e}")
+    for name in ("paged", "ngram"):
+        held_streams(torch, model, f"phase 9 {name} vs dense", prompts7,
+                     streams[name], streams["dense"], None, limit=noise)
+    return launches, gen_launches
+
+
+def plain_moe_patches(df, rpa, mg, pda):
+    """Route an MoE model's kernel calls to the plain versions: phase 4's
+    patches (K2r; K3a / K3b, which MoE layers do not call), K4 / K5, K2d
+    and K2v."""
+    return plain_patches(df, rpa) + [
+        mock.patch.object(mg, n, getattr(mg, "plain_" + n))
+        for n in ("gather_gmm_swiglu", "scatter_gmm", "gather_gmm")] + [
+        mock.patch.object(pda, n, getattr(pda, "plain_" + n))
+        for n in ("paged_decode_attention", "paged_verify_attention")]
+
+
+def patched(patches, fn):
+    for p in patches:
+        p.start()
+    try:
+        return fn()
+    finally:
+        for p in patches:
+            p.stop()
+
+
+def moe_f32_check(torch, kernels, df, rpa, mg, pda, ServingEngine,
+                  ServingConfig, DeepseekMoeForCausalLM, deepseek_moe_16b):
+    """Phase 10: float32 DeepSeek-MoE at full widths cut to 3 layers (two
+    MoE layers after the dense one). The engine's first-tick logits and
+    streams, and paged generate()'s streams and scores, through the
+    kernels and through their plain versions; then the sorted path
+    (``moe_fused_gmm=False``: K5's gmm) against the fused one (K4)."""
+    cfg = deepseek_moe_16b(dtype="float32", dropless=True,
+                           num_hidden_layers=MOE_F32["layers"])
+    model = DeepseekMoeForCausalLM(cfg, device="cuda", seed=SEED + 7)
+    rng = np.random.RandomState(SEED + 7)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (40, 150, 70)]
+    plain = plain_moe_patches(df, rpa, mg, pda)
+    run = lambda: serve_f32(torch, ServingEngine, ServingConfig,  # noqa
+                            model, prompts)
+    fails = []
+    first_k, toks_k = run()
+    first_p, toks_p = patched(plain, run)
+    lerr = float((first_k - first_p).abs().max())
+    log(f"phase 10: f32 DeepSeek-MoE, {cfg.num_hidden_layers} layers at "
+        f"full widths: engine first-tick logits kernel vs plain "
+        f"max_abs_err={lerr:.3e} (atol {LOGITS_ATOL})")
+    if not lerr <= LOGITS_ATOL:
+        fails.append(f"engine logits {lerr}")
+    held_streams(torch, model, "phase 10 engine kernel vs plain", prompts,
+                 toks_k, toks_p, fails)
+
+    ids = torch.from_numpy(motif_prompts(
+        MOE_F32["batch"], MOE_F32["prompt"], MOE_F32["motif"],
+        cfg.vocab_size, SEED + 7)).cuda()
+    gen = lambda: model.generate(ids, max_new_tokens=MOE_F32["new"],  # noqa
+                                 cache_impl="paged")
+    kernels.reset_launch_counts()
+    out_k, sc_k = gen()
+    n_k = dict(kernels.launch_counts)
+    out_p, sc_p = patched(plain, gen)
+    if min(n_k[k] for k in ("paged_decode_attention",) + MOE_KERNELS) <= 0:
+        fails.append(f"paged generate launches {n_k}")
+    out_k, out_p = out_k.cpu().numpy(), out_p.cpu().numpy()
+    held_streams(torch, model, "phase 10 paged generate kernel vs plain",
+                 ids.cpu().numpy(), out_k, out_p, fails)
+    if np.array_equal(out_k, out_p):
+        err = float((sc_k - sc_p).abs().max())
+        log(f"  phase 10 paged generate: scores max_abs_err={err:.3e} "
+            f"(atol {SCORE_ATOL})")
+        if not err <= SCORE_ATOL:
+            fails.append(f"paged generate scores {err}")
+
+    cfg.moe_fused_gmm = False           # the sorted path: K5's gmm
+    kernels.reset_launch_counts()
+    first_s, toks_s = run()
+    n_s = dict(kernels.launch_counts)
+    cfg.moe_fused_gmm = True
+    serr = float((first_s - first_k).abs().max())
+    log(f"phase 10: sorted path (moe_gmm {n_s['moe_gmm']} launches, "
+        f"moe_gather_gmm_swiglu {n_s['moe_gather_gmm_swiglu']}) vs fused: "
+        f"first-tick logits max_abs_err={serr:.3e} (atol {LOGITS_ATOL})")
+    if n_s["moe_gmm"] <= 0 or n_s["moe_gather_gmm_swiglu"] != 0:
+        fails.append(f"sorted path launches {n_s}")
+    if not serr <= LOGITS_ATOL:
+        fails.append(f"sorted vs fused logits {serr}")
+    held_streams(torch, model, "phase 10 engine sorted vs fused", prompts,
+                 toks_s, toks_k, fails)
+    if fails:
+        raise AssertionError(f"phase 10 failed: {fails}")
+
+
+def qwen2_phase(torch, kernels, ServingEngine, ServingConfig,
+                Qwen2MoeConfig, Qwen2MoeForCausalLM):
+    """Phase 11: Qwen2-57B-A14B widths cut to QWEN2["layers"] layers,
+    bf16, dropless: QWEN2["requests"] requests through the engine on the
+    fused path (K2r at GQA group 7, biased q/k/v, K4 at d 3584 / top-8),
+    then again on the sorted path (K5's gmm). Returns ``(fused launches,
+    sorted launches)``."""
+    cfg = Qwen2MoeConfig(dtype="bfloat16", dropless=True,
+                         num_hidden_layers=QWEN2["layers"])
+    t0 = time.monotonic()
+    model = Qwen2MoeForCausalLM(cfg, device="cuda", seed=SEED + 8)
+    torch.cuda.synchronize()
+    attn = model.base.layers[0].self_attn
+    if attn.q_proj.bias is None or attn.num_heads // attn.num_kv_heads != 7:
+        raise AssertionError("phase 11: want biased q/k/v at GQA group 7")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 11: Qwen2-57B-A14B widths, {cfg.num_hidden_layers} of 28 "
+        f"layers, {n_params / 1e9:.3f}B params bf16, dropless, init "
+        f"{time.monotonic() - t0:.1f}s")
+    lens, prompts = serving_prompts(cfg.vocab_size, QWEN2["requests"],
+                                    SEED + 8)
+    scfg = ServingConfig(num_slots=QWEN2["requests"], block_size=16,
+                         max_model_len=2048, prefill_chunk=128,
+                         max_new_tokens=QWEN2["new"])
+    engine = ServingEngine(model, scfg, device="cuda")
+    fused, st, toks_f = serve_run(
+        torch, kernels, engine, prompts, lens, "phase 11 fused",
+        ("ragged_paged_attention",) + MOE_KERNELS)
+    engine.shutdown()
+    cfg.moe_fused_gmm = False
+    engine = ServingEngine(model, scfg, device="cuda")
+    sorted_, _, toks_s = serve_run(
+        torch, kernels, engine, prompts, lens, "phase 11 sorted",
+        ("ragged_paged_attention", "moe_gmm"))
+    engine.shutdown()
+    if sorted_["moe_gather_gmm_swiglu"] or not st["moe_fused_gmm"]:
+        raise AssertionError("phase 11: the fused / sorted selector")
+    held_streams(torch, model, "phase 11 sorted vs fused (bf16)", prompts,
+                 toks_s, toks_f, None)
+    return fused, sorted_
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder layers of phase 3's model (default 32)")
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--verbose-build", action="store_true")
-    ap.add_argument("--profile", type=int, default=0, metavar="TICKS",
-                    help="print a torch.profiler table of TICKS engine "
-                         "ticks of phase 3 (after the first 4 ticks)")
     args = ap.parse_args(argv)
 
     try:
@@ -1004,12 +1460,14 @@ def main(argv=None):
         import paddle_tpu_torch  # noqa: F401
         from paddle_tpu_torch.inference import ServingConfig, ServingEngine
         from paddle_tpu_torch.jit import TrainStep
-        from paddle_tpu_torch.models.llama import (LlamaConfig,
-                                                   LlamaForCausalLM)
+        from paddle_tpu_torch.models import (
+            DeepseekMoeForCausalLM, LlamaConfig, LlamaForCausalLM,
+            Qwen2MoeConfig, Qwen2MoeForCausalLM, deepseek_moe_16b)
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.ops.kernels import decode_fused as df
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.ops.kernels import moe_gmm as mg
         from paddle_tpu_torch.ops.kernels import paged_attention as pda
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.ops.kernels import \
@@ -1045,7 +1503,15 @@ def main(argv=None):
         e3, r3 = check_matmul_residual(torch, df, dtype, timing)
         e4, r4 = check_flash(torch, F, fa, dtype, timing)
         torch.cuda.empty_cache()
+        for heads, kv_heads in MOE_HEADS.values():
+            check_ragged(torch, rpa, dtype, False, heads, kv_heads)
+            check_paged(torch, pda, dtype, False, "generate", heads,
+                        kv_heads)
+        e6, r6 = check_moe(torch, mg, dtype, timing)
+        torch.cuda.empty_cache()
         if timing:
+            for name, r in r6.items():
+                table[name] = dict(r, max_abs_err=e6[name])
             for name, r in r4.items():
                 table[name] = dict(r, max_abs_err=e4[name])
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
@@ -1088,48 +1554,16 @@ def main(argv=None):
     log(f"phase 3: Llama-3-8B widths, {cfg.num_hidden_layers} layers, "
         f"{n_params / 1e9:.2f}B params bf16, "
         f"init {time.monotonic() - t0:.1f}s")
-    rng = np.random.RandomState(SEED)
-    lens = rng.randint(64, 1025, size=REQUESTS)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in lens]
-    max_new = 32
+    lens, prompts = serving_prompts(cfg.vocab_size, REQUESTS, SEED)
     engine = ServingEngine(model, ServingConfig(
         num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
-        max_new_tokens=max_new), device="cuda")
-    for p in prompts:
-        engine.submit(p)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.monotonic()
-    if args.profile:
-        profile_ticks(torch, engine, 4, args.profile)
-    done = engine.run()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = dict(kernels.launch_counts)
-    st = engine.stats()
-    engine.shutdown()
-    if len(done) != len(prompts):
-        raise AssertionError(f"{len(done)} of {len(prompts)} requests done")
-    for rid, toks in done.items():
-        if len(toks) != max_new or toks.min() < 0 \
-                or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {rid}: bad tokens {toks}")
-    if not torch.isfinite(engine.last_logits).all():
-        raise AssertionError("non-finite logits in the last tick")
-    n_tok = sum(len(t) for t in done.values())
-    log(f"phase 3: {len(prompts)} requests, prompt tokens "
-        f"{int(lens.sum())} (lengths {lens.tolist()}), {n_tok} tokens in "
-        f"{wall:.3f}s -> {n_tok / wall:.2f} tok/s; ticks {st['ticks']}, "
-        f"rows {st['rows_total']}; TTFT ms mean {st['ttft_ms']['mean']:.1f}"
-        f" p50 {st['ttft_ms']['p50']:.1f} max {st['ttft_ms']['max']:.1f}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"phase 3: kernel launches {launches}")
+        max_new_tokens=32), device="cuda")
+    launches, _, _ = serve_run(torch, kernels, engine, prompts, lens,
+                               "phase 3", SERVING_KERNELS)
     launches = {k: launches[k] for k in SERVING_KERNELS}
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    llama_reads = tick_window(torch, engine, prompts[:8], TICK_WINDOW,
+                              "phase 3")
+    engine.shutdown()
     del engine, model
     torch.cuda.empty_cache()
 
@@ -1194,8 +1628,32 @@ def main(argv=None):
 
     # -- phase 8: generate() kernel path vs plain path, f32 ----------------
     generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM)
+    torch.cuda.empty_cache()
 
-    # -- phase 9: report ---------------------------------------------------
+    # -- phase 9: DeepSeek-MoE-16B serving and generate() -------------------
+    serve9, gen9 = moe_serving_phase(
+        torch, kernels, ServingEngine, ServingConfig, DeepseekMoeForCausalLM,
+        deepseek_moe_16b, llama_reads)
+    torch.cuda.empty_cache()
+
+    # -- phase 10: MoE kernel path vs plain path, f32 -----------------------
+    moe_f32_check(torch, kernels, df, rpa, mg, pda, ServingEngine,
+                  ServingConfig, DeepseekMoeForCausalLM, deepseek_moe_16b)
+    torch.cuda.empty_cache()
+
+    # -- phase 11: Qwen2-MoE at Qwen2-57B-A14B widths -----------------------
+    fused11, sorted11 = qwen2_phase(torch, kernels, ServingEngine,
+                                    ServingConfig, Qwen2MoeConfig,
+                                    Qwen2MoeForCausalLM)
+    # every main-path run's launches: the Llama and MoE engines, generate()
+    # on both models
+    moe_runs = [serve9, fused11, sorted11] + list(gen9.values())
+    for k in ("ragged_paged_attention",) + GENERATE_KERNELS + MOE_KERNELS \
+            + ("moe_gmm",):
+        launches[k] = launches.get(k, 0) + sum(r.get(k, 0)
+                                               for r in moe_runs)
+
+    # -- phase 12: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     srcs = {"ragged_paged_attention": (
                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -1218,7 +1676,14 @@ def main(argv=None):
                 f"{fa_src}:311"),
             "flash_attention_dkv": (
                 "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                f"{fa_src}:343")}
+                f"{fa_src}:343"),
+            "moe_gather_gmm_swiglu": (
+                "paddle_tpu_torch/csrc/moe_gmm.cu",
+                "paddle_tpu/ops/pallas/moe_gmm.py:320"),
+            "moe_scatter_gmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
+                                "paddle_tpu/ops/pallas/moe_gmm.py:320"),
+            "moe_gmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
+                        "paddle_tpu/distributed/moe.py:485")}
     out = []
     for name, (src, rep) in srcs.items():
         r = table[name]

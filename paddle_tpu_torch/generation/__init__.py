@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..distributed.moe import capacity_routed
 from ..framework.random import generator as make_generator
 from ..ops import paged_cache as _pc
 
@@ -205,10 +206,13 @@ class GenerationMixin:
 
     def _bucket_eligible(self):
         """Prompt bucketing rides the left-padded (mask + per-row rope)
-        path, so the model's forward must accept it. (The reference also
-        excludes capacity-routed MoE; the port has no MoE model yet.)"""
+        path, so the model's forward must accept it; capacity-routed MoE
+        is excluded because pad tokens would compete for expert capacity
+        and perturb the real tokens' outputs."""
         sig = inspect.signature(type(self).forward).parameters
-        return "attention_mask" in sig and "position_ids" in sig
+        if "attention_mask" not in sig or "position_ids" not in sig:
+            return False
+        return not capacity_routed(getattr(self, "config", None))
 
     @staticmethod
     def _resolve_strategy(strategy):

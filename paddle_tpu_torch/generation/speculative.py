@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from . import _filter_logits, _paged_prefill, _select_token
+from ..distributed.moe import capacity_routed
 from ..ops import paged_cache as _pc
 
 __all__ = ["spec_exclusion_reason", "draft_exclusion_reason",
@@ -40,11 +41,16 @@ __all__ = ["spec_exclusion_reason", "draft_exclusion_reason",
 
 def spec_exclusion_reason(model) -> Optional[str]:
     """Why speculative decoding cannot run for ``model`` (None = it can).
-    (The reference also excludes capacity-routed MoE; the port has no
-    MoE model yet.)"""
+    Capacity-routed MoE is excluded: the gamma + 1 window tokens would
+    compete with each other for expert capacity, so the verify logits
+    would differ from sequential decode and acceptance would be
+    unsound."""
     if not hasattr(model, "init_paged_caches"):
         return (f"{type(model).__name__} does not implement "
                 "init_paged_caches (paged-KV decode)")
+    if capacity_routed(getattr(model, "config", None)):
+        return ("capacity-routed MoE: window tokens would compete for "
+                "expert capacity, changing logits vs sequential decode")
     return None
 
 

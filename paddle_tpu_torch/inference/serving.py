@@ -13,6 +13,11 @@ running request never waits for blocks.
 PyTorch runs eagerly, so the port packs exactly the live rows each tick
 (the reference pads to a static width for its one compiled executable).
 
+Mixture-of-Experts models (Qwen2-MoE, DeepSeek-MoE) serve when their
+routing is dropless; ``stats()`` then reports the routing of the tick's
+sparse layers from their device-side expert counts, read back once per
+tick together with the tick's tokens.
+
 Later slices bring speculation, the prefix cache, int8 KV, preemption
 and the host tier, the async tick, multi-LoRA, tensor parallelism,
 health monitoring and the cluster; a config field or argument asking
@@ -20,6 +25,7 @@ for one of them raises ``NotImplementedError`` naming that slice.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -28,6 +34,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..distributed import moe as _moe
 from ..framework.place import resolve_device
 from ..framework.random import generator
 from ..generation import _select_token
@@ -35,6 +42,7 @@ from ..ops import paged_cache as _pc
 from ..ops.kernels import launch_counts
 
 __all__ = ["ServingConfig", "ServingEngine"]
+
 
 # later-slice fields: accepted only at their "off" value
 _LATER = {
@@ -70,6 +78,10 @@ class ServingConfig:
     prefill_chunk: int = 128            # widest prefill rows of one slot
     ragged_prefill_rows: Optional[int] = None   # per-tick prefill budget
     fused_decode: bool = True           # fused norm/projection kernels
+    # MoE routing telemetry (stats()'s moe_routing_entropy /
+    # moe_expert_load_max): each sparse layer's expert counts, read back
+    # with the tick's tokens. False skips the collection.
+    moe_telemetry: bool = True
     # -- later slices: accepted only at their off value ------------------
     num_speculative_tokens: int = 0
     spec_tree: Optional[tuple] = None
@@ -160,6 +172,16 @@ class ServingEngine:
         if model.device.type != dev.type:
             raise ValueError(f"model is on {model.device}, engine on {dev}: "
                              "build the model on the engine's device")
+        # capacity routing would let the packed rows of other slots compete
+        # for an expert's capacity, so a row's logits would depend on the
+        # batch: only dropless MoE serves
+        mcfg = getattr(model, "config", None)
+        if _moe.capacity_routed(mcfg):
+            raise NotImplementedError(
+                "capacity-routed MoE model cannot serve: batched slots' "
+                "tokens would compete for expert capacity, so logits would "
+                "depend on batch composition. Set config.dropless=True "
+                "(grouped dropless routing) to serve this model.")
         max_pos = getattr(model.config, "max_position_embeddings", None)
         if max_pos is not None and cfg.max_model_len > max_pos:
             raise ValueError(f"max_model_len ({cfg.max_model_len}) exceeds "
@@ -210,6 +232,12 @@ class ServingEngine:
         self._n_tokens = 0
         self._n_completed = 0
         self._n_prefill_chunks = 0
+        self._moe = bool(_moe.num_routed_experts(mcfg))
+        self._moe_tap_on = self._moe and bool(cfg.moe_telemetry)
+        self._moe_fused = False         # a tick ran the fused path (K4)
+        self._moe_ent_last = 0.0
+        self._moe_load_max_last = 0.0
+        self._n_moe_dispatches = 0
         self.last_logits = None         # [S, V] of the latest tick
 
     # -- front door ----------------------------------------------------
@@ -305,6 +333,12 @@ class ServingEngine:
             "fused_decode": bool(self.config.fused_decode),
             "device": str(self.device),
             "kernel_launches": dict(launch_counts),
+            # MoE keys are always present (False / 0 for dense models)
+            "moe": self._moe,
+            "moe_fused_gmm": self._moe_fused,
+            "moe_dispatches": self._n_moe_dispatches,
+            "moe_routing_entropy": self._moe_ent_last,
+            "moe_expert_load_max": self._moe_load_max_last,
             "ttft_ms": {
                 "count": int(ttft.size),
                 "mean": float(ttft.mean()) if ttft.size else 0.0,
@@ -387,13 +421,27 @@ class ServingEngine:
         if self._tables_dev is None:
             self._tables_dev = torch.from_numpy(self._tables).to(dev)
         meta = (slots[1], slots[2], rows[1], rows[2], int(q_lens.max()))
-        with torch.no_grad():
+        counts = []                     # each sparse layer's expert counts
+        tap = _moe.serving_stats_tap(counts) if self._moe_tap_on \
+            else contextlib.nullcontext()
+        if self._moe:
+            _moe.MOE_STATS["grouped_mm_kernel"] = None
+        with torch.no_grad(), tap:
             logits, self._pools = self.model(
                 rows[0], caches=self._pools, block_tables=self._tables_dev,
                 cache_lens=slots[0], ragged_meta=meta, last_rows=slots[3],
                 fused=cfg.fused_decode)
         self.last_logits = logits
-        tok = self._select(logits).cpu().numpy()
+        tok = self._select(logits)
+        if counts:      # one read-back for the tokens and the counts
+            flat = torch.cat([tok.long(), torch.stack(counts).reshape(-1)
+                              .long()]).cpu().numpy()
+            tok = flat[:n_slots]
+            self._observe_moe(flat[n_slots:].reshape(len(counts), -1))
+        else:
+            tok = tok.cpu().numpy()
+        if self._moe and _moe.MOE_STATS["grouped_mm_kernel"] == "fused_gmm":
+            self._moe_fused = True
         self._n_ticks += 1
         self._n_rows += total
 
@@ -421,6 +469,19 @@ class ServingEngine:
         return emitted
 
     # -- internals -----------------------------------------------------
+
+    def _observe_moe(self, counts):
+        """Routing of the tick's sparse layers, from their ``[layers, e]``
+        expert counts: per-expert load fractions, their entropy over
+        ``log(e)`` (1 = uniform) and the largest load; ``stats()`` keeps
+        the last layer's."""
+        for c in np.asarray(counts, np.float64):
+            load = c / max(c.sum(), 1.0)
+            nz = load[load > 0]
+            ent = float(-(nz * np.log(nz)).sum())
+            self._moe_ent_last = ent / float(np.log(max(load.size, 2)))
+            self._moe_load_max_last = float(load.max())
+            self._n_moe_dispatches += 1
 
     def _worst_for(self, n_real, max_new) -> int:
         return _pc.blocks_for(int(n_real) + int(max_new), self._bs)

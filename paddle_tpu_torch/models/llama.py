@@ -145,18 +145,21 @@ def _apply_rope_rows(x, cos, sin):
 
 class LlamaAttention(nn.Module):
     """GQA attention: dense causal (training), ragged paged (serving),
-    paged or dense cached (``generate()``)."""
+    paged or dense cached (``generate()``). It takes any config with the
+    Llama attention fields (the MoE families share it); ``qkv_bias``
+    (default False) gives q/k/v their Qwen2 bias."""
 
-    def __init__(self, config: LlamaConfig, device, dtype):
+    def __init__(self, config, device, dtype):
         super().__init__()
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
-        self.head_dim = config.head_dim
+        self.head_dim = config.hidden_size // config.num_attention_heads
         h, hd = config.hidden_size, self.head_dim
         mk = dict(device=device, dtype=dtype)
-        self.q_proj = Linear(h, self.num_heads * hd, **mk)
-        self.k_proj = Linear(h, self.num_kv_heads * hd, **mk)
-        self.v_proj = Linear(h, self.num_kv_heads * hd, **mk)
+        qkv = dict(mk, bias=bool(getattr(config, "qkv_bias", False)))
+        self.q_proj = Linear(h, self.num_heads * hd, **qkv)
+        self.k_proj = Linear(h, self.num_kv_heads * hd, **qkv)
+        self.v_proj = Linear(h, self.num_kv_heads * hd, **qkv)
         self.o_proj = Linear(self.num_heads * hd, h, **mk)
 
     def attend_ragged(self, q, k, v, rope_cos, rope_sin, kv_cache,
@@ -259,10 +262,13 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, device, dtype):
+    """SwiGLU MLP of width ``ffn`` (default ``config.intermediate_size``)."""
+
+    def __init__(self, config: LlamaConfig, device, dtype, ffn=None):
         super().__init__()
         mk = dict(device=device, dtype=dtype)
-        h, f = config.hidden_size, config.intermediate_size
+        h = config.hidden_size
+        f = config.intermediate_size if ffn is None else ffn
         self.gate_proj = Linear(h, f, **mk)
         self.up_proj = Linear(h, f, **mk)
         self.down_proj = Linear(f, h, **mk)
@@ -272,10 +278,16 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device, dtype):
+    """Attention and MLP, each behind an RMSNorm and a residual. The MLP
+    comes from :meth:`make_mlp`; a subclass may return one that gives
+    ``(out, aux)`` with a router aux loss (the MoE blocks), and may turn
+    ``fused_decode`` off to run the serving tick on the module path."""
+    fused_decode = True
+
+    def __init__(self, config: LlamaConfig, device, dtype, layer_idx=0):
         super().__init__()
         self.self_attn = LlamaAttention(config, device, dtype)
-        self.mlp = LlamaMLP(config, device, dtype)
+        self.mlp = self.make_mlp(config, layer_idx, device, dtype)
         mk = dict(device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        config.rms_norm_eps, **mk)
@@ -287,6 +299,11 @@ class LlamaDecoderLayer(nn.Module):
         """The fused decode tick of the reference's
         ``_forward_decode_fused``: four fusion boundaries per layer."""
         attn, mlp = self.self_attn, self.mlp
+        if attn.q_proj.bias is not None:
+            raise NotImplementedError(
+                "the fused decode path with q/k/v biases (K3a's bias "
+                "epilogue) comes with the Qwen2 dense slice of the PyTorch "
+                "port; serve with ServingConfig(fused_decode=False)")
         q, k, v = _df.norm_matmul(
             h, self.input_layernorm.weight,
             [attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight],
@@ -303,15 +320,27 @@ class LlamaDecoderLayer(nn.Module):
                                   act="swiglu")
         return out, cache
 
+    def make_mlp(self, config, layer_idx, device, dtype):
+        return LlamaMLP(config, device, dtype)
+
+    def _mlp_residual(self, h):
+        """``(h + mlp(norm(h)), aux)``; ``aux`` is None for an MLP
+        without a router."""
+        m = self.mlp(self.post_attention_layernorm(h))
+        m, aux = m if isinstance(m, tuple) else (m, None)
+        return h + m, aux
+
     def forward(self, h, rope_cos, rope_sin, kv_cache=None,
                 block_tables=None, cache_lens=None, ragged_meta=None,
                 fused=True, offset=None, attention_mask=None,
                 position_ids=None):
+        """Dense (``kv_cache`` None): ``(h, aux)``; cached: ``(h,
+        cache)``."""
         if kv_cache is None:             # dense: [B, L, hidden]
             h = h + self.self_attn(self.input_layernorm(h), rope_cos,
                                    rope_sin)
-            return h + self.mlp(self.post_attention_layernorm(h))
-        if fused and ragged_meta is not None:
+            return self._mlp_residual(h)
+        if fused and self.fused_decode and ragged_meta is not None:
             return self.forward_decode_fused(h, rope_cos, rope_sin,
                                              kv_cache, block_tables,
                                              cache_lens, ragged_meta)
@@ -320,19 +349,23 @@ class LlamaDecoderLayer(nn.Module):
                                   cache_lens, ragged_meta, offset=offset,
                                   attention_mask=attention_mask,
                                   position_ids=position_ids)
-        h = h + a
-        return h + self.mlp(self.post_attention_layernorm(h)), cache
+        return self._mlp_residual(h + a)[0], cache
 
 
 class LlamaModel(nn.Module):
+    """Embedding, ``layer_cls`` decoder layers, final norm and the rope
+    tables. Dense: ``(h, aux)``, ``aux`` the summed router aux losses
+    (None without a router); cached: ``(h, new_caches)``."""
+    layer_cls = LlamaDecoderLayer
+
     def __init__(self, config: LlamaConfig, device, dtype):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device, dtype)
-             for _ in range(config.num_hidden_layers)])
+            [self.layer_cls(config, device, dtype, layer_idx=i)
+             for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=dtype)
         cos, sin = rope_tables(config.max_position_embeddings,
@@ -348,14 +381,17 @@ class LlamaModel(nn.Module):
         if caches is None:
             if attention_mask is not None or position_ids is not None:
                 raise NotImplementedError(
-                    "LlamaModel: attention_mask / position_ids on the dense "
-                    "training path are not ported yet")
+                    f"{type(self).__name__}: attention_mask / position_ids "
+                    "on the dense training path are not ported yet")
             h = self.embed_tokens(input_ids.long())
             l = h.shape[1]
             cos, sin = self._rope_cos[:l], self._rope_sin[:l]
+            aux_total = None
             for layer in self.layers:
-                h = layer(h, cos, sin)
-            return self.norm(h)
+                h, aux = layer(h, cos, sin)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
+            return self.norm(h), aux_total
         if ragged_meta is not None:     # one packed row buffer [R]
             input_ids = input_ids.reshape(-1)
         h = self.embed_tokens(input_ids.long())
@@ -426,7 +462,14 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
     versions of the kernels) with weights drawn from ``generator`` (or a
     generator seeded with ``seed``), normal(0, initializer_range) for
     projections and embeddings, ones for norms. Every parameter is
-    trainable."""
+    trainable.
+
+    A subclass names its base model's class (``model_cls``) and its
+    ``state_dict`` prefix (``base_prefix``); given ``labels``, a model
+    whose layers report router aux losses adds
+    ``config.router_aux_loss_coef`` times their sum to the loss."""
+    base_prefix = "llama"
+    model_cls = LlamaModel
 
     def __init__(self, config: LlamaConfig, device=None, seed=0,
                  generator=None):
@@ -434,7 +477,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.config = config
         dev = resolve_device(device)
         dtype = config.torch_dtype
-        self.llama = LlamaModel(config, dev, dtype)
+        setattr(self, self.base_prefix, self.model_cls(config, dev, dtype))
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, device=dev, dtype=dtype)
         self.criterion = LlamaPretrainingCriterion(config)
@@ -442,8 +485,12 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                            else make_generator(seed, dev))
 
     @property
+    def base(self) -> LlamaModel:
+        return getattr(self, self.base_prefix)
+
+    @property
     def device(self) -> torch.device:
-        return self.llama.embed_tokens.weight.device
+        return self.base.embed_tokens.weight.device
 
     @torch.no_grad()
     def _init_weights(self, generator):
@@ -459,9 +506,13 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                 block_tables=None, cache_lens=None, ragged_meta=None,
                 last_rows=None, fused=True, return_hidden=False):
         if caches is None:
-            h = self.llama(input_ids, attention_mask, position_ids)
-            return self._head_and_loss(h, labels)
-        h, new_caches = self.llama(input_ids, attention_mask, position_ids,
+            h, aux = self.base(input_ids, attention_mask, position_ids)
+            out = self._head_and_loss(h, labels)
+            coef = getattr(self.config, "router_aux_loss_coef", 0.0)
+            if labels is not None and aux is not None and coef:
+                out = out + coef * aux
+            return out
+        h, new_caches = self.base(input_ids, attention_mask, position_ids,
                                    caches=caches, block_tables=block_tables,
                                    cache_lens=cache_lens,
                                    ragged_meta=ragged_meta, fused=fused,
@@ -475,7 +526,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
 
     def _head_and_loss(self, h, labels):
         if self.lm_head is None:
-            logits = h @ self.llama.embed_tokens.weight.t()
+            logits = h @ self.base.embed_tokens.weight.t()
         else:
             logits = self.lm_head(h)
         if labels is not None:

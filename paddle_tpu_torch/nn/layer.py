@@ -1,7 +1,7 @@
 """The few layers the Llama serving path needs, in Paddle's parameter
 layout (counterparts of ``paddle_tpu/nn/layer/common.py`` and
 ``norm.py``): ``Linear.weight`` is ``[in, out]`` and the forward is
-``x @ weight``, so a ``state_dict`` moves between the two
+``x @ weight`` (plus the ``[out]`` bias where there is one), so a ``state_dict`` moves between the two
 packages without transposes. Parameters are allocated uninitialised on
 the given device and are trainable; the model that owns them initialises
 them from an explicit generator."""
@@ -16,16 +16,21 @@ __all__ = ["Linear", "Embedding", "RMSNorm"]
 
 
 class Linear(nn.Module):
-    """Bias-free projection (every projection of Llama)."""
+    """``x @ weight (+ bias)``; ``bias=True`` adds Paddle's ``[out]``
+    bias (Qwen2's q/k/v), the default is bias-free (every projection of
+    Llama)."""
 
     def __init__(self, in_features, out_features, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bias=False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             in_features, out_features, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(
+            out_features, device=device, dtype=dtype)) if bias else None
 
     def forward(self, x):
-        return x @ self.weight
+        y = x @ self.weight
+        return y if self.bias is None else y + self.bias
 
 
 class Embedding(nn.Module):

@@ -10,7 +10,9 @@ main path went through the kernels.
 launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
                  "paged_verify_attention": 0, "norm_matmul": 0,
                  "matmul_residual": 0, "flash_attention_fwd": 0,
-                 "flash_attention_dq": 0, "flash_attention_dkv": 0}
+                 "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                 "moe_gather_gmm_swiglu": 0, "moe_scatter_gmm": 0,
+                 "moe_gmm": 0}
 
 
 def reset_launch_counts():

@@ -11,7 +11,10 @@ bfloat16 at the same places as the plain version; the flash forward
 rounds P against a running row max where the plain version uses the
 final one, a difference well inside that bound). The flash attention
 outputs are also held row by row, scale-free, at ``ROW_RTOL``: a dropped
-tile or a shifted causal edge moves whole rows by far more."""
+tile or a shifted causal edge moves whole rows by far more. The MoE
+grouped matmuls (K4's forward modes, K5's gmm) are held at the same
+tolerances, and the attention kernels at the GQA groups of the MoE
+families: 1 (DeepSeek, 16 / 16 heads) and 7 (Qwen2-57B, 28 / 4)."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from paddle_tpu_torch.ops import paged_cache as tpc
 from paddle_tpu_torch.ops.kernels import decode_fused as df
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import launch_counts
+from paddle_tpu_torch.ops.kernels import moe_gmm as mg
 from paddle_tpu_torch.ops.kernels import paged_attention as pda
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
 
@@ -312,3 +316,122 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="whole group"):
         fa.flash_attention_fwd(qa, qa[:, :, :2].contiguous(),
                                qa[:, :, :2].contiguous(), 0.1, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,kv_heads", [(16, 16), (28, 4)])
+def test_attention_kernels_at_moe_groups(cuda, dtype, heads, kv_heads):
+    """K2r, K2d and K2v at GQA group 1 and 7 (head_dim 128, BS 16)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(heads)
+    base, q_lens = [0, 300, 1000, 17], [1, 40, 1, 5]
+    args, _ = _ragged_case(rng, base, q_lens, heads, kv_heads, 128, 16,
+                           80, dt, cuda)
+    _rows_close(rpa.ragged_paged_attention(*args, max(q_lens)),
+                rpa.plain_ragged_paged_attention(*args), dtype)
+    lens = [1, 16, 17, 70 * 16 - 4]
+    for T in (1, 5):
+        q, kp, vp, tables, ctx = _paged_case(
+            heads + T, lens, T, heads // kv_heads, 128, 16, 70, dt, cuda,
+            Hkv=kv_heads)
+        want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx)
+        _rows_close(pda.paged_verify_attention(q, kp, vp, tables, ctx),
+                    want, dtype)
+        if T == 1:
+            _rows_close(pda.paged_decode_attention(q[:, 0], kp, vp, tables,
+                                                   ctx), want[:, 0], dtype)
+
+
+def _moe_case(routing, s, d, f, e, k, dt, dev, seed=0):
+    """x, gate_up, down and a stable expert-major sort of top-k picks:
+    ``(order, src_rows, group_sizes)`` as int32 tensors."""
+    rng = np.random.RandomState(seed)
+    if routing == "one":                 # every pair to one expert
+        flat = np.full(s * k, e // 2)
+    elif routing == "sparse":            # most groups empty
+        flat = rng.choice([1, e - 1], s * k)
+    elif routing == "single":            # a group of one row
+        flat = rng.randint(0, e - 1, s * k)
+        flat[s * k // 2] = e - 1
+    else:
+        flat = rng.randint(0, e, s * k)
+    order = np.argsort(flat, kind="stable")
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa
+    f32 = lambda *sh: torch.from_numpy(  # noqa: E731
+        rng.randn(*sh).astype(np.float32)).to(dev, dt)
+    return (f32(s, d), 0.1 * f32(e, d, 2 * f), 0.1 * f32(e, f, d),
+            i32(order), i32(order // k),
+            i32(np.bincount(flat, minlength=e)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("routing,s,d,f,e,k", [
+    ("random", 8, 64, 96, 8, 2), ("random", 40, 128, 64, 16, 6),
+    ("random", 300, 64, 136, 4, 2), ("one", 24, 64, 96, 8, 2),
+    ("sparse", 64, 64, 96, 64, 6), ("single", 16, 128, 64, 8, 2)])
+def test_moe_gmm_modes(cuda, dtype, routing, s, d, f, e, k):
+    """The three modes against their plain versions: few rows a group,
+    top-6 over 16 experts, groups over 64 rows (several chunks a
+    block), every pair to one expert, most groups empty, a group of one
+    row."""
+    x, gu, dn, order, src, gs = _moe_case(routing, s, d, f, e, k,
+                                          getattr(torch, dtype), cuda)
+    n0 = dict(launch_counts)
+    h = mg.gather_gmm_swiglu(x, src, gu, gs)
+    h_ref = mg.plain_gather_gmm_swiglu(x, src, gu, gs)
+    _rows_close(h, h_ref, dtype)
+    ys = mg.scatter_gmm(h_ref, dn, gs, order)
+    _rows_close(ys, mg.plain_scatter_gmm(h_ref, dn, gs, order), dtype)
+    _rows_close(mg.gather_gmm(x, src, gu, gs),
+                mg.plain_gather_gmm(x, src, gu, gs), dtype)
+    xs = x[src.long()].contiguous()
+    _rows_close(mg.gather_gmm(xs, None, dn.transpose(1, 2).contiguous(),
+                              gs),
+                mg.plain_gather_gmm(xs, None, dn.transpose(1, 2), gs),
+                dtype)
+    for name, n in (("moe_gather_gmm_swiglu", 1), ("moe_scatter_gmm", 1),
+                    ("moe_gmm", 2)):
+        assert launch_counts[name] == n0[name] + n
+
+
+@pytest.mark.gpu
+def test_moe_gmm_rows_past_the_groups_are_zero(cuda):
+    x = torch.randn(20, 16, device=cuda)
+    w = torch.randn(3, 16, 8, device=cuda)
+    gs = torch.tensor([4, 0, 9], dtype=torch.int32, device=cuda)
+    out = mg.gather_gmm(x, None, w, gs)
+    torch.testing.assert_close(out, mg.plain_gather_gmm(x, None, w, gs),
+                               **TOL["float32"])
+    assert not out[13:].any()
+
+
+@pytest.mark.gpu
+def test_moe_gmm_refuses_what_the_kernel_does_not_take(cuda):
+    def case(d=16, n=16, e=4, dt=torch.bfloat16, w_dt=None,
+             gs_dt=torch.int32):
+        x = torch.zeros(8, d, device=cuda, dtype=dt)
+        w = torch.zeros(e, d, n, device=cuda, dtype=w_dt or dt)
+        gs = torch.zeros(e, device=cuda, dtype=gs_dt)
+        return x, w, gs
+    for kw, exc, match in (
+            (dict(d=12), ValueError, "multiples of 8"),
+            (dict(n=12), ValueError, "multiples of 8"),
+            (dict(dt=torch.float16), TypeError, "float32 or"),
+            (dict(w_dt=torch.float32), TypeError, "rhs dtype"),
+            (dict(gs_dt=torch.int64), TypeError, "int32"),
+            (dict(e=mg.MAX_EXPERTS + 1), ValueError, "experts")):
+        x, w, gs = case(**kw)
+        with pytest.raises(exc, match=match):
+            mg.gather_gmm(x, None, w, gs)
+    x, w, gs = case()
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        mg.gather_gmm(x, None, w, gs, transpose_rhs=True)
+    with pytest.raises(TypeError, match="out_dtype"):
+        mg.gather_gmm(x, None, w, gs, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="swiglu|multiples of 8"):
+        mg.gather_gmm_swiglu(x, None, w[:, :, :8].contiguous(), gs)
+    with pytest.raises(ValueError, match="dst_rows"):
+        mg.scatter_gmm(x, w, gs, torch.zeros(3, dtype=torch.int32,
+                                             device=cuda))

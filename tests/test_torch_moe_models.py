@@ -1,0 +1,219 @@
+"""The PyTorch port's Qwen2-MoE and DeepSeek-MoE against the JAX package
+on the CPU — the slice as a whole.
+
+Both tiny families get the reference's weights through
+``load_jax_params`` (names and shapes must round-trip). In float32:
+the dense forward's logits within 1e-4 and the loss with the router aux
+term within 1e-5 (the same model summed in another order), dropless and
+capacity-routed; the port ``ServingEngine``'s greedy tokens equal the
+reference engine's; greedy ``generate()`` on the dense cache, the paged
+cache and n-gram speculation at gamma 2 gives the reference's tokens,
+with scores within 1e-4. A capacity-routed model is refused by the
+engine and excluded from prompt bucketing and speculation, the MoE
+``stats()`` keys are present for a dense Llama too, and a q/k/v-biased
+attention serves on the unfused path while the fused one refuses it.
+"""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.inference import ServingConfig as JaxServingConfig
+from paddle_tpu.inference import ServingEngine as JaxServingEngine
+from paddle_tpu.models.deepseek_moe import \
+    DeepseekMoeConfig as JaxDeepseekConfig
+from paddle_tpu.models.deepseek_moe import \
+    DeepseekMoeForCausalLM as JaxDeepseek
+from paddle_tpu.models.qwen2_moe import Qwen2MoeConfig as JaxQwenConfig
+from paddle_tpu.models.qwen2_moe import Qwen2MoeForCausalLM as JaxQwen
+from paddle_tpu_torch.convert import load_jax_params
+from paddle_tpu_torch.distributed import moe
+from paddle_tpu_torch.generation import speculative as spec
+from paddle_tpu_torch.inference import ServingConfig, ServingEngine
+from paddle_tpu_torch.models import (DeepseekMoeConfig,
+                                     DeepseekMoeForCausalLM, LlamaConfig,
+                                     LlamaForCausalLM, Qwen2MoeConfig,
+                                     Qwen2MoeForCausalLM)
+
+FAMILIES = {
+    "qwen2": (JaxQwenConfig, JaxQwen, Qwen2MoeConfig, Qwen2MoeForCausalLM,
+              dict(vocab=128, hidden=64, layers=2, heads=4, kv_heads=2,
+                   moe_ffn=32, shared_ffn=48, experts=4, topk=2)),
+    "deepseek": (JaxDeepseekConfig, JaxDeepseek, DeepseekMoeConfig,
+                 DeepseekMoeForCausalLM,
+                 dict(vocab=128, hidden=64, layers=3, heads=4, kv_heads=4,
+                      moe_ffn=32, dense_ffn=48, experts=8, shared=2,
+                      topk=2)),
+}
+CORE = dict(num_slots=2, block_size=8, max_model_len=96, prefill_chunk=8)
+NEW = 8
+
+
+def _build(family, dropless, seed=7):
+    jcfg_cls, jcls, tcfg_cls, tcls, shape = FAMILIES[family]
+    paddle.seed(seed)
+    jcfg = jcfg_cls.tiny(**shape)
+    jcfg.dropless = dropless
+    ref = jcls(jcfg)
+    ref.eval()
+    tcfg = tcfg_cls.tiny(**shape)
+    tcfg.dropless = dropless
+    port = tcls(tcfg, device="cpu")
+    named = {k: np.asarray(v) for k, v in ref.state_dict().items()}
+    load_jax_params(port, named)
+    return ref, port, named
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def pair(request):
+    """(family, reference, port, named weights): dropless."""
+    return (request.param,) + _build(request.param, True)
+
+
+def _ids(b=2, n=11, seed=0):
+    return np.random.RandomState(seed).randint(1, 128, (b, n)).astype(
+        np.int64)
+
+
+def test_names_and_shapes_round_trip(pair):
+    _, _, port, named = pair
+    own = dict(port.named_parameters())
+    assert set(own) == set(named)
+    for name, p in own.items():
+        assert tuple(p.shape) == named[name].shape, name
+        np.testing.assert_array_equal(p.detach().numpy(), named[name])
+    assert any(n.endswith("experts.gate_up_proj") for n in own)
+
+
+@pytest.mark.parametrize("dropless", [True, False])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_dense_logits_and_loss_match_reference(family, dropless):
+    ref, port, _ = _build(family, dropless, seed=11)
+    ids = _ids(b=3, n=16, seed=1)
+    labels = np.roll(ids, -1, axis=1)
+    want = np.asarray(ref(paddle.to_tensor(ids)).numpy())
+    with torch.no_grad():
+        got = port(torch.from_numpy(ids)).numpy()
+        loss = float(port(torch.from_numpy(ids),
+                          labels=torch.from_numpy(labels)))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    loss_ref = float(ref(paddle.to_tensor(ids),
+                         labels=paddle.to_tensor(labels)).numpy())
+    np.testing.assert_allclose(loss, loss_ref, rtol=1e-5)
+
+
+def _prompts():
+    rng = np.random.RandomState(0)
+    # ragged lengths; 21 > prefill_chunk spans three chunk ticks; four
+    # prompts over two slots exercise admission after a retirement
+    return [rng.randint(1, 128, size=n).tolist() for n in (5, 21, 3, 12)]
+
+
+def test_engine_greedy_streams_match_reference(pair):
+    _, ref, port, _ = pair
+    prompts = _prompts()
+    jeng = JaxServingEngine(ref, JaxServingConfig(
+        **CORE, enable_prefix_cache=False, enable_preemption=False,
+        health=False, async_depth=0))
+    want = jeng.serve(prompts, max_new_tokens=NEW)
+    jeng.shutdown()
+    eng = ServingEngine(port, ServingConfig(**CORE), device="cpu")
+    got = eng.serve(prompts, max_new_tokens=NEW)
+    st = eng.stats()
+    assert eng.shutdown()
+    for i, (x, y) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(x, y, err_msg=f"request {i}")
+    n_sparse = sum(hasattr(lay.mlp, "experts")
+                   for lay in port.base.layers)
+    assert st["moe"] is True and st["moe_fused_gmm"] is True
+    assert st["moe_dispatches"] == n_sparse * st["ticks"]
+    assert 0.0 < st["moe_routing_entropy"] <= 1.0
+    assert 0.0 < st["moe_expert_load_max"] <= 1.0
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "ngram"])
+def test_generate_matches_reference(pair, mode):
+    _, ref, port, _ = pair
+    kw = {"dense": dict(cache_impl="dense"),
+          "paged": dict(cache_impl="paged"),
+          "ngram": dict(num_speculative_tokens=2)}[mode]
+    # a motif repeated, so the n-gram drafter finds continuations
+    motif = np.random.RandomState(3).randint(1, 128, (2, 6))
+    ids = np.tile(motif, (1, 2))[:, :11].astype(np.int64)
+    out_ref, sc_ref = ref.generate(paddle.to_tensor(ids),
+                                   max_new_tokens=NEW, **kw)
+    out, sc = port.generate(torch.from_numpy(ids), max_new_tokens=NEW,
+                            **kw)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(out_ref.numpy()))
+    np.testing.assert_allclose(sc.numpy(), np.asarray(sc_ref.numpy()),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_sorted_path_gives_the_fused_paths_logits(pair):
+    family, _, port, named = pair
+    cfg = FAMILIES[family][2].tiny(**FAMILIES[family][4])
+    cfg.dropless, cfg.moe_fused_gmm = True, False
+    sorted_model = FAMILIES[family][3](cfg, device="cpu")
+    load_jax_params(sorted_model, named)
+    ids = torch.from_numpy(_ids())
+    with torch.no_grad():
+        np.testing.assert_allclose(sorted_model(ids).numpy(),
+                                   port(ids).numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_capacity_routed_moe_is_refused_and_excluded(family):
+    _, port, _ = _build(family, False, seed=3)
+    with pytest.raises(NotImplementedError, match="dropless=True"):
+        ServingEngine(port, ServingConfig(**CORE), device="cpu")
+    assert port._bucket_eligible() is False
+    assert "capacity-routed MoE" in spec.spec_exclusion_reason(port)
+    with pytest.raises(NotImplementedError, match="capacity-routed"):
+        port.generate(torch.from_numpy(_ids()), max_new_tokens=2,
+                      num_speculative_tokens=2)
+    port.config.dropless = True
+    assert port._bucket_eligible() is True
+    assert spec.spec_exclusion_reason(port) is None
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_capacity_routed_reads_both_expert_namings(family):
+    """One helper decides capacity routing for the engine, prompt
+    bucketing and speculation: Qwen2's ``num_experts`` and DeepSeek's
+    ``n_routed_experts`` alike, a dense config never."""
+    cfg = FAMILIES[family][2].tiny(**FAMILIES[family][4])
+    assert moe.num_routed_experts(cfg) == FAMILIES[family][4]["experts"]
+    assert moe.capacity_routed(cfg) is True
+    cfg.dropless = True
+    assert moe.capacity_routed(cfg) is False
+    dense = LlamaConfig.tiny()
+    assert moe.num_routed_experts(dense) == 0
+    assert moe.capacity_routed(dense) is False
+
+
+def test_moe_stats_keys_present_for_a_dense_llama():
+    m = LlamaForCausalLM(LlamaConfig.tiny(vocab=64, hidden=64, layers=1,
+                                          heads=4, kv_heads=2, ffn=64),
+                         device="cpu")
+    eng = ServingEngine(m, ServingConfig(**CORE), device="cpu")
+    eng.serve([[1, 2, 3]], max_new_tokens=2)
+    st = eng.stats()
+    assert (st["moe"], st["moe_fused_gmm"], st["moe_dispatches"],
+            st["moe_routing_entropy"], st["moe_expert_load_max"]) == \
+        (False, False, 0, 0.0, 0.0)
+
+
+def test_biased_attention_refuses_the_fused_decode_path():
+    """q/k/v biases (Qwen2) run on the unfused path; the fused decode
+    path (K3a / K3b) has no bias epilogue yet and says so."""
+    cfg = LlamaConfig.tiny(vocab=64, hidden=64, layers=1, heads=4,
+                           kv_heads=2, ffn=64)
+    cfg.qkv_bias = True
+    m = LlamaForCausalLM(cfg, device="cpu")
+    assert m.llama.layers[0].self_attn.q_proj.bias.shape == (64,)
+    eng = ServingEngine(m, ServingConfig(**CORE, fused_decode=False),
+                        device="cpu")
+    assert len(eng.serve([[1, 2, 3]], max_new_tokens=2)[0]) == 2
+    eng = ServingEngine(m, ServingConfig(**CORE), device="cpu")
+    with pytest.raises(NotImplementedError, match="bias"):
+        eng.serve([[1, 2, 3]], max_new_tokens=2)

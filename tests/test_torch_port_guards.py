@@ -61,11 +61,15 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/ops/kernels/paged_attention.py",
                  "paddle_tpu_torch/generation/__init__.py",
                  "paddle_tpu_torch/generation/speculative.py",
+                 "paddle_tpu_torch/ops/kernels/moe_gmm.py",
+                 "paddle_tpu_torch/distributed/moe.py",
+                 "paddle_tpu_torch/models/qwen2_moe.py",
+                 "paddle_tpu_torch/models/deepseek_moe.py",
                  "chip_smoke.py"):
         assert want in names
     for cu in ("ragged_paged_attention", "paged_decode_attention",
                "norm_matmul", "matmul_residual", "flash_attention_fwd",
-               "flash_attention_bwd"):
+               "flash_attention_bwd", "moe_gmm"):
         assert (ROOT / "paddle_tpu_torch" / "csrc" / f"{cu}.cu").exists()
 
 
