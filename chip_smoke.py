@@ -13,10 +13,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    flash-attention forward / dq / dk-dv kernels at the training
    run's shape (B 2, L 4096, 32 / 8 heads, D 128), the ragged, decode and
    verify kernels again at the MoE families' GQA groups (16 / 16 and
-   28 / 4 heads), and the MoE grouped matmuls (K4's gather + swiglu and
+   28 / 4 heads), the MoE grouped matmuls (K4's gather + swiglu and
    scatter modes, K5's gmm) at the DeepSeek-MoE-16B decode and prefill
-   ticks, at Qwen2-57B-A14B's widths and at edge routings — and time
-   kernel, plain version and a PyTorch library yardstick with CUDA
+   ticks, at Qwen2-57B-A14B's widths and at edge routings, and the MoE
+   backward's modes (K4's transposed gather and scatter, K5's d(lhs) and
+   tgmm) at the phase-12 training shape (2 x 4096 tokens, top-6), at
+   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings — and
+   time kernel, plain version and a PyTorch library yardstick with CUDA
    events;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
@@ -69,12 +72,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 11. Qwen2-MoE at Qwen2-57B-A14B widths cut to 4 layers (bfloat16,
     dropless) serves 4 requests on the fused path (K2r at GQA group 7,
     biased q/k/v, K4 at d 3584 / top-8) and on the sorted path (K5);
-12. print the kernels line, the card's name and power limit, and the
+12. MoE training in bfloat16 through ``TrainStep`` + ``AdamW(1e-4,
+    multi_precision=True)``: DeepSeek-MoE-16B widths cut to 4 layers
+    (1 dense + 3 MoE, dropless) on batches of 2 x 4096 tokens, 2
+    untimed steps, 5 timed (ms per step, trained tokens/s, MFU over
+    active parameters, peak memory, every loss) and 3 under
+    ``torch.profiler``, each K4 mode, the backward's kernels and K1
+    launching the count the layers imply; then 2 steps of the same model
+    on the sorted path (K5), and 2 steps of Qwen2-57B-A14B widths cut to
+    one layer, capacity-routed, on 1 x 4096 tokens (its drop rates read
+    first);
+13. float32 DeepSeek-MoE at full widths cut to 3 layers, one forward +
+    backward on 1 x 1024 tokens: the loss and every gradient through the
+    kernels against the plain versions, and the fused path against the
+    sorted one; every routed expert that received pairs must have a
+    gradient;
+14. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
-11) runs with every launch count set to 0 just before it and read just
-after; a kernel of the path that never launched fails the run. Any
+11, the three runs of phase 12) runs with every launch count set to 0
+just before it and read just after; a kernel of the path that never
+launched fails the run. Any
 failed comparison or exception exits non-zero before the result line.
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result. ``--layers`` cuts phase 3's depth (widths stay full);
@@ -149,11 +168,26 @@ MOE_EDGES = ("one", "sparse", "single")
 MOE_EDGE_SHAPE = "decode"
 MOE_TIMED = "prefill"
 MOE_KERNELS = ("moe_gather_gmm_swiglu", "moe_scatter_gmm")
+# phase 2's shapes of the MoE backward: the phase-12 training steps'
+# (DeepSeek-MoE-16B at 2 x 4096 tokens, top-6) and Qwen2-57B widths at
+# 4096 tokens, top-8; the edge routings run at DeepSeek widths on
+# MOE_BWD_EDGE tokens; the DeepSeek shape is timed for the kernels line
+MOE_BWD = {"deepseek_train": dict(tokens=8192, d=2048, f=1408, e=64, k=6),
+           "qwen2_train": dict(tokens=4096, d=3584, f=2560, e=64, k=8)}
+MOE_BWD_EDGE = 512
+MOE_BWD_TIMED = "deepseek_train"
+MOE_BWD_KERNELS = ("moe_gmm_t", "moe_scatter_gmm_t", "moe_tgmm")
 # phase 2's attention checks at the MoE families' GQA groups: 1 and 7
 MOE_HEADS = {"deepseek": (16, 16), "qwen2": (28, 4)}
 MOE_GENERATE = dict(batch=4, prompt=512, motif=64, new=32, gamma=4)
 MOE_F32 = dict(layers=3, batch=2, prompt=256, motif=32, new=16)
 QWEN2 = dict(layers=4, requests=4, new=16)
+# phase 12: MoE training in bf16 (DeepSeek-MoE-16B widths, then Qwen2-57B
+# widths capacity-routed); phase 13: f32 gradients, kernels vs plain
+MOE_TRAIN = dict(layers=4, batch=2, seq=4096, warm=2, timed=5, profiled=2,
+                 pool=4, sorted_steps=2)
+QWEN2_TRAIN = dict(layers=1, batch=1, seq=4096, steps=2)
+MOE_GRAD = dict(layers=3, batch=1, seq=1024)
 
 
 def log(*a):
@@ -531,6 +565,17 @@ def check_flash(torch, F, fa, dtype, timing):
     ours = sum(r["ms"] for r in rows_out.values())
     log(f"  flash attention fwd + dq + dkv: ms={ours:.4f}; library "
         f"scaled_dot_product_attention fwd + bwd: ms={lib_fb:.4f}")
+    # the backward alone: one autograd call of SDPA's graph (dq, dk and
+    # dv together) against K1dq + K1dkv
+    out_t = sdpa()
+    lib_b = time_ms(torch, lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), do_t, retain_graph=True), **slow)
+    ours_b = rows_out["flash_attention_dq"]["ms"] \
+        + rows_out["flash_attention_dkv"]["ms"]
+    log(f"  flash attention dq + dkv: ms={ours_b:.4f}; library "
+        f"scaled_dot_product_attention backward (dq, dk, dv): "
+        f"ms={lib_b:.4f}")
+    del out_t
     return errs, rows_out
 
 
@@ -676,6 +721,189 @@ def check_moe(torch, mg, dtype, timing):
     if fails:
         raise AssertionError(f"[{dtype}] MoE kernels disagree with their "
                              f"plain versions: {fails}")
+    return errs, rows
+
+
+def library_call(torch, fn, *args):
+    """``fn`` when it runs on ``args`` here, else None and the reason (a
+    PyTorch without the call, or a layout it refuses)."""
+    try:
+        fn(*args)
+        torch.cuda.synchronize()
+        return fn, None
+    except Exception as e:          # the yardstick is optional
+        return None, f"{type(e).__name__}: {str(e)[:160]}"
+
+
+def check_moe_backward(torch, mg, dtype, timing):
+    """The MoE backward's modes against their plain versions at the
+    training shapes (MOE_BWD: DeepSeek-MoE-16B's 2 x 4096 tokens, top-6;
+    Qwen2-57B widths at 4096 tokens, top-8) and at MOE_EDGES routings
+    (MOE_BWD_EDGE tokens at DeepSeek widths), elementwise and row by row:
+    K4's transposed gather (``dh``, ``moe_gmm_t``), K5's d(lhs) on
+    sorted rows (``moe_gmm_t`` without the gather), K4's transposed
+    scatter (``dx``, ``moe_scatter_gmm_t``) and tgmm for d(down) and
+    d(gate_up) (``moe_tgmm``; an empty group must come out zero). In
+    bfloat16 each is timed at the MOE_BWD shapes with CUDA events beside
+    its bound and a library call: ``torch._grouped_mm`` of the
+    transposed weights for d(lhs), of ``lhs.t()`` and ``dy`` with row
+    offsets for tgmm; composites for the gather and scatter modes
+    (printed, never in the kernels line). Returns ``(errs, rows)``;
+    ``rows`` holds MOE_BWD_TIMED's timings by kernel name (tgmm: both
+    products of one layer summed)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    fails, rows = [], {}
+    errs = dict.fromkeys(("moe_gmm_t", "moe_scatter_gmm_t", "moe_tgmm"),
+                         0.0)
+    cases = [(shape, "random") for shape in MOE_BWD] + \
+        [("edge", kind) for kind in MOE_EDGES]
+    weights = {}
+    for i, (shape, kind) in enumerate(cases):
+        c = MOE_BWD[shape] if shape in MOE_BWD else dict(
+            MOE_BWD[MOE_BWD_TIMED], tokens=MOE_BWD_EDGE)
+        tokens, d, f, e, k = (c[n] for n in ("tokens", "d", "f", "e", "k"))
+        m = tokens * k
+        if (d, f, e) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[d, f, e] = tuple(
+                (0.02 * torch.randn(*sh, generator=g, device="cuda")).to(dt)
+                for sh in ((e, d, 2 * f), (e, f, d)))
+        gu, dn = weights[d, f, e]
+        rnd = lambda *sh, sc=1.0: (sc * torch.randn(  # noqa: E731
+            *sh, generator=g, device="cuda")).to(dt)
+        # cotangents are small in training (0.02, as the weights): a sum
+        # of 3072 unit products (the "one" routing's tgmm) reaches ~250,
+        # where float32's own rounding passes TOL's absolute 1e-4
+        x, h = rnd(tokens, d), rnd(m, f)
+        dpair, dgu = rnd(m, d, sc=0.02), rnd(m, 2 * f, sc=0.02)
+        order, src, gs = moe_routing(torch, tokens, e, k, kind, 19 + i)
+        ds = dpair[order.long()].contiguous()
+        xs = x[src.long()].contiguous()
+        label = f"{shape} {kind}: {m} rows, d {d}, f {f}, e {e}"
+        outs = {
+            "moe_gmm_t": (
+                lambda: mg.gather_gmm(dpair, order, dn, gs,
+                                      transpose_rhs=True),
+                lambda: mg.plain_gather_gmm(dpair, order, dn, gs,
+                                            transpose_rhs=True)),
+            "moe_gmm_t sorted (K5 d(lhs))": (
+                lambda: mg.gather_gmm(ds, None, dn, gs, transpose_rhs=True),
+                lambda: mg.plain_gather_gmm(ds, None, dn, gs,
+                                            transpose_rhs=True)),
+            "moe_scatter_gmm_t": (
+                lambda: mg.scatter_gmm(dgu, gu, gs, order,
+                                       transpose_rhs=True),
+                lambda: mg.plain_scatter_gmm(dgu, gu, gs, order,
+                                             transpose_rhs=True)),
+            "moe_tgmm d(down)": (lambda: mg.tgmm(h, ds, gs, e),
+                                 lambda: mg.plain_tgmm(h, ds, gs, e)),
+            "moe_tgmm d(gate_up)": (lambda: mg.tgmm(xs, dgu, gs, e),
+                                    lambda: mg.plain_tgmm(xs, dgu, gs, e))}
+        empty = gs == 0
+        for name, (kern, plain) in outs.items():
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            key = name.split()[0]
+            errs[key] = max(errs[key], held_attention(
+                torch, got, ref, dtype, f"{name} {label}", fails))
+            if key == "moe_tgmm" and got[empty].any():
+                fails.append(f"{name} {label}: an empty group is not zero")
+            del got, ref
+        if not timing or kind != "random":
+            continue
+        es = x.element_size()
+        touched = int((gs > 0).sum())
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        gmm = getattr(torch, "_grouped_mm", None)
+        dn_t = dn.transpose(-2, -1)             # [e, d, f], a view
+        gu_t = gu.transpose(-2, -1)             # [e, 2f, d]
+        idx = order.long()
+
+        def lib(what, fn):
+            if gmm is None:
+                log(f"  {what}: torch._grouped_mm is missing")
+                return None
+            got, why = library_call(torch, fn)
+            if got is None:
+                log(f"  {what}: torch._grouped_mm refused: {why}")
+            return got
+
+        def tg_lib(what, lhs, dy):
+            """tgmm's library call: 2-D x 2-D with offsets over the rows,
+            on the path's ``lhs.t()`` view, else on a prepared row-major
+            copy (said so)."""
+            got = lib(what, lambda: gmm(lhs.t(), dy, offs=offs))
+            if got is None and gmm is not None:
+                lt = lhs.t().contiguous()
+                got = lib(what + " (on a contiguous copy of lhs.t())",
+                          lambda: gmm(lt, dy, offs=offs))
+                if got is not None:
+                    log(f"  {what}: timed on a contiguous copy of lhs.t()")
+            return got
+
+        one_dlhs = lib("d(lhs)", lambda: gmm(ds, dn_t, offs=offs))
+        if one_dlhs is not None:
+            lerr = float((one_dlhs().float() - mg.plain_gather_gmm(
+                ds, None, dn, gs, transpose_rhs=True).float()).abs().max())
+            log(f"  torch._grouped_mm d(lhs) {label}: max_abs_err vs plain "
+                f"{lerr:.3e}")
+        wdn, wgu = es * touched * f * d, es * touched * d * 2 * f
+
+        def tg_work(lhs, dy):
+            kk, nn = lhs.shape[1], dy.shape[1]
+            return (es * (m * kk + m * nn + e * kk * nn) + 4 * e,
+                    2 * m * kk * nn)
+        # (bytes, flops, one-call library, composite library)
+        work = {
+            "moe_gmm_t": (
+                es * (m * d + m * f) + wdn + 4 * (m + e), 2 * m * d * f,
+                None, lib("gather + _grouped_mm", lambda: gmm(
+                    dpair[idx], dn_t, offs=offs))),
+            "moe_gmm_t sorted (K5 d(lhs))": (
+                es * (m * d + m * f) + wdn + 4 * e, 2 * m * d * f,
+                one_dlhs, None),
+            "moe_scatter_gmm_t": (
+                es * (m * 2 * f + m * d) + wgu + 4 * (m + e),
+                2 * m * 2 * f * d, None,
+                lib("_grouped_mm + index_copy", lambda: torch.empty(
+                    m, d, device="cuda", dtype=dt).index_copy_(
+                        0, idx, gmm(dgu, gu_t, offs=offs)))),
+            "moe_tgmm d(down)": tg_work(h, ds) + (
+                tg_lib("tgmm d(down)", h, ds), None),
+            "moe_tgmm d(gate_up)": tg_work(xs, dgu) + (
+                tg_lib("tgmm d(gate_up)", xs, dgu), None)}
+        timed = {}
+        for name, (nbytes, flops, one, comp) in work.items():
+            kern, plain = outs[name]
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            row = dict(ms=time_ms(torch, kern), plain_ms=time_ms(
+                torch, plain, reps=2, rounds=3, warmup=1), bound_ms=b_ms,
+                bound_by=b_by, nbytes=nbytes, flops=flops,
+                library_ms=time_ms(torch, one) if one else None)
+            comp_ms = time_ms(torch, comp) if comp else None
+            log(f"  {name} [{dtype}] {label} ({touched} experts touched): "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.1f} GFLOP) library_ms={row['library_ms']}"
+                + (f" composite library_ms={comp_ms:.4f}"
+                   if comp_ms is not None else ""))
+            timed[name] = row
+        if shape == MOE_BWD_TIMED:
+            rows["moe_gmm_t"] = timed["moe_gmm_t"]
+            rows["moe_scatter_gmm_t"] = timed["moe_scatter_gmm_t"]
+            tg = [timed["moe_tgmm d(down)"], timed["moe_tgmm d(gate_up)"]]
+            rows["moe_tgmm"] = dict(
+                merge_rows([dict(r, library_ms=0.0) for r in tg], dtype),
+                library_ms=None if any(r["library_ms"] is None for r in tg)
+                else sum(r["library_ms"] for r in tg))
+        del x, dpair, dgu, h, ds, xs
+    weights.clear()
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"[{dtype}] MoE backward kernels disagree with "
+                             f"their plain versions: {fails}")
     return errs, rows
 
 
@@ -1438,6 +1666,291 @@ def qwen2_phase(torch, kernels, ServingEngine, ServingConfig,
     return fused, sorted_
 
 
+# ------------------------------------------------------- phases 12, 13
+
+def active_params(model):
+    """``(parameters, active parameters, MoE layers)``: active are all
+    but the routed experts a token is not sent to (``experts - top_k`` of
+    each MoE layer), as the reference's bench.py counts them."""
+    experts = [lay.mlp.experts for lay in model.base.layers
+               if hasattr(lay.mlp, "experts")]
+    k = model.config.num_experts_per_tok
+    n = sum(p.numel() for p in model.parameters())
+    skipped = sum((ex.num_experts - k) * (ex.gate_up_proj.numel()
+                                          + ex.down_proj.numel())
+                  // ex.num_experts for ex in experts)
+    return n, n - skipped, len(experts)
+
+
+def moe_train_steps(torch, kernels, step, pool, n, tag):
+    """``n`` steps of ``step`` over ``pool`` with every launch count set
+    to 0 just before them and read just after; returns (losses, seconds,
+    launches)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    losses = [step(*pool[i % len(pool)]) for i in range(n)]
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    losses = [float(x) for x in losses]
+    launches = dict(kernels.launch_counts)
+    log(f"{tag}: {n} steps in {dt:.4f}s, losses "
+        f"{[round(x, 5) for x in losses]}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite training loss: {losses}")
+    return losses, dt, launches
+
+
+def want_launches(tag, launches, want):
+    """Fail unless each kernel of ``want`` launched exactly that often."""
+    wrong = {k: (launches.get(k, 0), n) for k, n in want.items()
+             if launches.get(k, 0) != n}
+    if wrong:
+        raise AssertionError(f"{tag}: kernel launches (got, want): {wrong}")
+
+
+def moe_train_phase(torch, kernels, DeepseekMoeForCausalLM, deepseek_moe_16b,
+                    Qwen2MoeConfig, Qwen2MoeForCausalLM, AdamW, TrainStep):
+    """Phase 12: MoE training in bfloat16 through TrainStep + AdamW(1e-4,
+    multi_precision=True), as the reference's bench.py trains MoE. (1)
+    DeepSeek-MoE-16B widths at MOE_TRAIN["layers"] layers (the first
+    dense), dropless, on batches of 2 x 4096 tokens: warm-up steps, timed
+    steps (ms per step, tokens/s, MFU over active parameters, peak memory,
+    every loss) and profiled ones (idle share, top device operations),
+    every K4 mode, the backward's kernels and K1 launching the count the
+    layers imply; (2) the same model on the sorted path (K5's gmm,
+    d(lhs) and tgmm); (3) Qwen2-57B-A14B widths cut to one layer,
+    capacity-routed (drop rates read first, as the reference's bench),
+    1 x 4096 tokens: q/k/v biases, the shared-expert gate, GQA group 7
+    in K1's backward. Returns the launches of each run by name."""
+    import gc
+    runs = {}
+    cfg = deepseek_moe_16b(num_hidden_layers=MOE_TRAIN["layers"],
+                           dropless=True)
+    bsz, seq = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    t0 = time.monotonic()
+    model = DeepseekMoeForCausalLM(cfg, device="cuda", seed=SEED + 9)
+    model.train()
+    n_params, active, n_moe = active_params(model)
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, lambda out, a, k: out, opt)
+    rng = np.random.RandomState(SEED + 9)
+    pool = []
+    for _ in range(MOE_TRAIN["pool"]):
+        ids = rng.randint(0, cfg.vocab_size, (bsz, seq)).astype(np.int64)
+        pool.append(tuple(torch.from_numpy(a).cuda()
+                          for a in (ids, np.roll(ids, -1, axis=1))))
+    torch.cuda.synchronize()
+    log(f"phase 12: DeepSeek-MoE-16B widths, {cfg.num_hidden_layers} "
+        f"layers ({n_moe} MoE), {n_params / 1e9:.3f}B params bf16 "
+        f"({active / 1e9:.3f}B active), dropless, batch {bsz} x {seq}, "
+        f"init {time.monotonic() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    it = 0
+
+    def one_step():
+        nonlocal it
+        loss = step(*pool[it % len(pool)])
+        it += 1
+        return loss
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = [float(one_step()) for _ in range(MOE_TRAIN["warm"])]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = [one_step() for _ in range(MOE_TRAIN["timed"])]
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    losses += [float(x) for x in timed]
+    n_prof = MOE_TRAIN["profiled"]
+    wall_ms, busy_ms, _ = profiled(torch, one_step, n_prof, 25)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = bsz * seq * MOE_TRAIN["timed"]
+    tok_s = tokens / dt
+    f_tok = 6 * active + 12 * cfg.num_hidden_layers * seq * cfg.hidden_size
+    log(f"phase 12 profile: {n_prof} steps, wall {wall_ms:.3f} ms "
+        f"({wall_ms / n_prof:.3f} ms a step, profiler on), device busy "
+        f"{busy_ms:.3f} ms -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
+    log(f"phase 12: {MOE_TRAIN['timed']} timed steps in {dt:.4f}s -> "
+        f"{1e3 * dt / MOE_TRAIN['timed']:.3f} ms/step, {tok_s:.1f} "
+        f"trained tokens/s, MFU {tok_s * f_tok / PEAK_FLOPS['bfloat16']:.4f}"
+        f" (6 x active + 12 L s h = {f_tok / 1e9:.3f} GFLOP/token, active "
+        f"= all parameters but the "
+        f"{cfg.n_routed_experts - cfg.num_experts_per_tok} routed experts "
+        f"of each MoE layer a token skips, at "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.1f} TFLOP/s); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"phase 12: losses {[round(x, 5) for x in losses]} (steps "
+        f"1-{MOE_TRAIN['warm']} untimed; {n_prof + 1} more under the "
+        f"profiler); launches over {it} steps "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 12: non-finite loss: {losses}")
+    per_moe = {"moe_gather_gmm_swiglu": 1, "moe_scatter_gmm": 1,
+               "moe_gmm": 1, "moe_gmm_t": 1, "moe_scatter_gmm_t": 1,
+               "moe_tgmm": 2}
+    want = {k: n * n_moe * it for k, n in per_moe.items()}
+    want.update({k: cfg.num_hidden_layers * it for k in TRAINING_KERNELS})
+    want_launches("phase 12 main run", launches, want)
+    runs["main"] = launches
+
+    cfg.moe_fused_gmm = False               # the sorted path: K5
+    n = MOE_TRAIN["sorted_steps"]
+    _, _, sorted_ = moe_train_steps(torch, kernels, step, pool, n,
+                                    "phase 12 sorted path")
+    want = {"moe_gmm": 2 * n_moe * n, "moe_gmm_t": 2 * n_moe * n,
+            "moe_tgmm": 2 * n_moe * n, "moe_gather_gmm_swiglu": 0,
+            "moe_scatter_gmm": 0, "moe_scatter_gmm_t": 0}
+    want_launches("phase 12 sorted path", sorted_, want)
+    runs["sorted"] = sorted_
+    del model, opt, step, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qcfg = Qwen2MoeConfig(dtype="bfloat16",
+                          num_hidden_layers=QWEN2_TRAIN["layers"])
+    t0 = time.monotonic()
+    model = Qwen2MoeForCausalLM(qcfg, device="cuda", seed=SEED + 10)
+    model.train()
+    attn = model.base.layers[0].self_attn
+    if attn.q_proj.bias is None or attn.num_heads // attn.num_kv_heads != 7 \
+            or model.config.dropless:
+        raise AssertionError("phase 12: want a capacity-routed Qwen2-MoE "
+                             "with biased q/k/v at GQA group 7")
+    n_params, _, n_moe_q = active_params(model)
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, lambda out, a, k: out, opt)
+    rng = np.random.RandomState(SEED + 10)
+    ids = rng.randint(0, qcfg.vocab_size,
+                      (QWEN2_TRAIN["batch"], QWEN2_TRAIN["seq"]))
+    pool = [tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                  for a in (ids, np.roll(ids, -1, axis=1)))]
+    drops = model.collect_drop_rates(pool[0][0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 12: Qwen2-57B-A14B widths, {qcfg.num_hidden_layers} of 28 "
+        f"layers, {n_params / 1e9:.3f}B params bf16, capacity "
+        f"{qcfg.capacity_factor}, {QWEN2_TRAIN['batch']} x "
+        f"{QWEN2_TRAIN['seq']} tokens, init {time.monotonic() - t0:.1f}s; "
+        f"drop rates {[round(x, 4) for x in drops]}")
+    n = QWEN2_TRAIN["steps"]
+    _, dt, qwen = moe_train_steps(torch, kernels, step, pool, n,
+                                  "phase 12 Qwen2 capacity-routed")
+    log(f"phase 12 Qwen2: {1e3 * dt / n:.3f} ms/step, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = {k: c * n_moe_q * n for k, c in per_moe.items()}
+    want.update({k: qcfg.num_hidden_layers * n for k in TRAINING_KERNELS})
+    want_launches("phase 12 Qwen2", qwen, want)
+    runs["qwen2"] = qwen
+    if not all(np.isfinite(drops)):
+        raise AssertionError(f"phase 12: drop rates {drops}")
+    del model, opt, step, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def plain_train_patches(fa, mg):
+    """Route the training path's kernel calls (K1, K4, K5) to their
+    plain versions."""
+    return [mock.patch.object(fa, n, getattr(fa, "plain_" + n))
+            for n in ("flash_attention_fwd", "flash_attention_dq",
+                      "flash_attention_dkv")] + [
+        mock.patch.object(mg, n, getattr(mg, "plain_" + n))
+        for n in ("gather_gmm_swiglu", "scatter_gmm", "gather_gmm", "tgmm")]
+
+
+def moe_grad_check(torch, kernels, fa, mg, moe, DeepseekMoeForCausalLM,
+                   deepseek_moe_16b):
+    """Phase 13: float32 DeepSeek-MoE at full widths cut to
+    MOE_GRAD["layers"] layers (one dense, the rest MoE), one forward +
+    backward on MOE_GRAD tokens: the loss and every parameter's gradient
+    through the kernels against the plain versions, and the fused path
+    (K4) against the sorted one (K5), each by LOSS_RTOL and GRAD_RTOL
+    (max |a - b| / max |b|); every routed expert that received pairs has
+    a non-zero gradient in both paths."""
+    cfg = deepseek_moe_16b(dtype="float32", dropless=True,
+                           num_hidden_layers=MOE_GRAD["layers"])
+    model = DeepseekMoeForCausalLM(cfg, device="cuda", seed=SEED + 11)
+    model.train()
+    rng = np.random.RandomState(SEED + 11)
+    ids = rng.randint(0, cfg.vocab_size,
+                      (MOE_GRAD["batch"], MOE_GRAD["seq"])).astype(np.int64)
+    ids_t = torch.from_numpy(ids).cuda()
+    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1)).cuda()
+    experts = [(i, lay.mlp.experts) for i, lay in enumerate(model.base.layers)
+               if hasattr(lay.mlp, "experts")]
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        counts = []
+        with moe.serving_stats_tap(counts):
+            loss = model(ids_t, labels=labels_t)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()},\
+            counts
+
+    def compare(what, a, b):
+        (la, ga, _), (lb, gb, _) = a, b
+        lerr = abs(la - lb) / abs(lb)
+        gerr = {n: float((ga[n] - gb[n]).abs().max()
+                         / gb[n].abs().max().clamp(min=1e-30)) for n in gb}
+        worst = max(gerr, key=gerr.get)
+        log(f"phase 13 {what}: loss {la:.6f} vs {lb:.6f} (rel {lerr:.2e}, "
+            f"tol {LOSS_RTOL}); {len(gerr)} gradients, worst {worst} rel "
+            f"{gerr[worst]:.2e} (tol {GRAD_RTOL})")
+        bad = {n: e for n, e in gerr.items() if not e <= GRAD_RTOL}
+        return ([f"{what} loss {lerr}"] if not lerr <= LOSS_RTOL else []) \
+            + ([f"{what} gradients {bad}"] if bad else [])
+
+    def experts_learn(what, run):
+        _, grads, counts = run
+        fails = []
+        for (i, ex), c in zip(experts, counts):
+            hit = c > 0
+            for name in ("gate_up_proj", "down_proj"):
+                g = getattr(ex, name).grad
+                live = g.flatten(1).abs().amax(1) > 0
+                if not bool(live[hit].all()):
+                    fails.append(f"{what} layer {i} {name}: experts "
+                                 f"{torch.nonzero(hit & ~live).flatten()}"
+                                 " received pairs but no gradient")
+        log(f"phase 13 {what}: {int(sum(int((c > 0).sum()) for c in counts))}"
+            f" routed experts received pairs over {len(counts)} MoE layers;"
+            f" {'all' if not fails else 'NOT all'} have a gradient")
+        return fails
+
+    kernels.reset_launch_counts()
+    fused_k = loss_and_grads()
+    n_k = dict(kernels.launch_counts)
+    fused_p = patched(plain_train_patches(fa, mg), loss_and_grads)
+    cfg.moe_fused_gmm = False
+    kernels.reset_launch_counts()
+    sorted_k = loss_and_grads()
+    n_s = dict(kernels.launch_counts)
+    cfg.moe_fused_gmm = True
+    log(f"phase 13: f32 DeepSeek-MoE, {cfg.num_hidden_layers} layers at "
+        f"full widths ({len(experts)} MoE), {MOE_GRAD['batch']} x "
+        f"{MOE_GRAD['seq']} tokens; launches fused "
+        f"{ {k: v for k, v in n_k.items() if v} }, sorted "
+        f"{ {k: v for k, v in n_s.items() if v} }")
+    fails = compare("fused kernels vs plain", fused_k, fused_p) \
+        + compare("fused vs sorted (kernels)", fused_k, sorted_k) \
+        + experts_learn("fused", fused_k) + experts_learn("sorted", sorted_k)
+    if min(n_k[k] for k in MOE_KERNELS + MOE_BWD_KERNELS) <= 0 \
+            or min(n_s[k] for k in ("moe_gmm", "moe_gmm_t", "moe_tgmm")) <= 0:
+        fails.append(f"launches fused {n_k} sorted {n_s}")
+    del model, fused_k, fused_p, sorted_k
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 13 failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1458,6 +1971,7 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     try:
         import paddle_tpu_torch  # noqa: F401
+        from paddle_tpu_torch.distributed import moe
         from paddle_tpu_torch.inference import ServingConfig, ServingEngine
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.models import (
@@ -1509,9 +2023,12 @@ def main(argv=None):
                         kv_heads)
         e6, r6 = check_moe(torch, mg, dtype, timing)
         torch.cuda.empty_cache()
+        e7, r7 = check_moe_backward(torch, mg, dtype, timing)
         if timing:
             for name, r in r6.items():
                 table[name] = dict(r, max_abs_err=e6[name])
+            for name, r in r7.items():
+                table[name] = dict(r, max_abs_err=e7[name])
             for name, r in r4.items():
                 table[name] = dict(r, max_abs_err=e4[name])
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
@@ -1652,8 +2169,24 @@ def main(argv=None):
             + ("moe_gmm",):
         launches[k] = launches.get(k, 0) + sum(r.get(k, 0)
                                                for r in moe_runs)
+    torch.cuda.empty_cache()
 
-    # -- phase 12: report --------------------------------------------------
+    # -- phase 12: MoE training, bf16 ---------------------------------------
+    train12 = moe_train_phase(torch, kernels, DeepseekMoeForCausalLM,
+                              deepseek_moe_16b, Qwen2MoeConfig,
+                              Qwen2MoeForCausalLM, AdamW, TrainStep)
+    for k in TRAINING_KERNELS + MOE_KERNELS + ("moe_gmm",) \
+            + MOE_BWD_KERNELS:
+        launches[k] = launches.get(k, 0) + sum(r.get(k, 0)
+                                               for r in train12.values())
+    torch.cuda.empty_cache()
+
+    # -- phase 13: MoE training gradients, f32, kernels vs plain ------------
+    moe_grad_check(torch, kernels, fa, mg, moe, DeepseekMoeForCausalLM,
+                   deepseek_moe_16b)
+    torch.cuda.empty_cache()
+
+    # -- phase 14: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     srcs = {"ragged_paged_attention": (
                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -1683,7 +2216,13 @@ def main(argv=None):
             "moe_scatter_gmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
                                 "paddle_tpu/ops/pallas/moe_gmm.py:320"),
             "moe_gmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
-                        "paddle_tpu/distributed/moe.py:485")}
+                        "paddle_tpu/distributed/moe.py:485"),
+            "moe_gmm_t": ("paddle_tpu_torch/csrc/moe_gmm.cu",
+                          "paddle_tpu/ops/pallas/moe_gmm.py:320"),
+            "moe_scatter_gmm_t": ("paddle_tpu_torch/csrc/moe_gmm.cu",
+                                  "paddle_tpu/ops/pallas/moe_gmm.py:320"),
+            "moe_tgmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
+                         "paddle_tpu/distributed/moe.py:512")}
     out = []
     for name, (src, rep) in srcs.items():
         r = table[name]

@@ -1,8 +1,7 @@
-// K4 (forward modes) and K5's forward gmm: a grouped matmul over
-// expert-sorted rows, out[r] = lhs[r] @ rhs[group(r)], where the rows of
-// group g are [offsets[g], offsets[g + 1]) and offsets is the exclusive
-// cumsum of group_sizes [e]. Three modes over one body, each with its own
-// C entry point:
+// K4 and K5: a grouped matmul over expert-sorted rows,
+// out[r] = lhs[r] @ rhs[group(r)], where the rows of group g are
+// [offsets[g], offsets[g + 1]) and offsets is the exclusive cumsum of
+// group_sizes [e]; and its weight gradient tgmm. Entry points:
 //
 // - ptt_moe_gather_gmm_swiglu: the lhs rows are gathered on read,
 //   lhs[r] = x[src_rows[r]] (the MoE dispatch's sort), and the epilogue
@@ -11,19 +10,28 @@
 // - ptt_moe_scatter_gmm: the store is scattered, out[dst_rows[r]] = row r
 //   (the combine's unsort; dst_rows is a permutation, so no atomics);
 // - ptt_moe_gmm: neither (K5's megablox gmm on sorted rows), or the plain
-//   gather when src_rows is given.
+//   gather when src_rows is given;
+// - ptt_moe_gmm_t: the transposed modes of the backward, rhs [e, N, K]
+//   contracted over its last dim, out[r] = lhs[r] @ rhs[g]^T, with the
+//   gather on read (src_rows), the scatter on write (dst_rows) or
+//   neither (K5's d(lhs));
+// - ptt_moe_tgmm: out[g] = lhs[rows of g]^T @ dy[rows of g], [e, K, N]
+//   (K5's tgmm, the weight gradient of both expert matmuls); an empty
+//   group's slice is zeros.
 //
 // Replaces: paddle_tpu/ops/pallas/moe_gmm.py, `kernel` of
 // _call_grouped_32 (via gather_gmm_swiglu, scatter_gmm and gather_gmm,
-// without transpose_rhs), and the stock megablox gmm called from
-// paddle_tpu/distributed/moe.py:_gmm32 (forward only).
+// with and without transpose_rhs), and the stock megablox gmm, its
+// transpose_rhs d(lhs) and tgmm called from paddle_tpu/distributed/moe.py
+// (_gmm32, _mb_bwd_dlhs, _mb_bwd_drhs).
 //
-// What bounds it on the H100: bytes. An MoE layer at serving widths
-// gives each expert a few rows (a decode tick of 8 tokens x top-6 is 48
-// rows over 64 experts), so every touched expert's weights are streamed
-// for ~1-30 rows: far below the ~295 flops per byte that would make the
-// tensor cores the limit. The least time is (touched experts' weight
-// bytes + rows read + rows written) / 3.35 TB/s.
+// What bounds it on the H100: bytes at serving widths, operations at
+// training widths. An MoE layer at serving widths gives each expert a
+// few rows (a decode tick of 8 tokens x top-6 is 48 rows over 64
+// experts), so every touched expert's weights are streamed for ~1-30
+// rows: far below the ~295 flops per byte that would make the tensor
+// cores the limit. A training step of 2 x 4096 tokens gives each expert
+// ~768 rows, and there the products bound it.
 //
 // Design: the TPU kernel walks a CSR list of (group, row tile) visits and
 // revisits a row tile once for every group starting inside it. Here one
@@ -39,20 +47,33 @@
 // 3-stage ring of 64-deep K slices; bfloat16 contracts on the tensor
 // cores (mma.sync m16n8k16, float32 accumulation; fragments and warp
 // layout from mma_gemm.cuh). An expert's weight tile is read again for
-// each chunk of its rows; the L2 cache serves those repeats. The swiglu
-// tile is 64 gate columns beside the same 64 up columns of rhs, so one
-// pass feeds both accumulators; the epilogue stages the float32 tile in
-// shared memory and writes silu(gate) * up, cast once. The scatter
-// epilogue writes row r of the chunk to dst_rows[r]. float32 runs the FMA
-// tile of tile_gemm.cuh (two passes for swiglu). Rows past the last
-// group's end are written as zeros by the last expert's blocks. wgmma,
-// TMA and a split over rows for the decode tick's ~1 row a group come
-// with a later change.
+// each chunk of its rows; the L2 cache serves those repeats (at training
+// row counts, ~12 chunks an expert). The swiglu tile is 64 gate columns
+// beside the same 64 up columns of rhs, so one pass feeds both
+// accumulators; the epilogue stages the float32 tile in shared memory and
+// writes silu(gate) * up, cast once. The scatter epilogue writes row r of
+// the chunk to dst_rows[r]. The transposed modes stage [128 n x 64 k]
+// slices of rhs [e, N, K] (rows of it, 16-byte copies along K) and load
+// the B fragment with ldmatrix without .trans: a row-major [n][k] tile is
+// B in column-major order, which is what the mma's B operand takes.
+// float32 runs the FMA tile of tile_gemm.cuh (two passes for swiglu).
+// Rows past the last group's end are written as zeros by the last
+// expert's blocks.
+//
+// tgmm contracts over rows instead: a block takes a [64 k x 128 n] tile
+// of one expert's output and walks the expert's rows in slices of 64,
+// staging lhs[rows, k-tile] and dy[rows, n-tile] with cp.async (rows
+// outside the group are zero-filled, never read); the A fragment is
+// lhs^T, loaded with ldmatrix.trans from the row-major lhs slice, and B
+// is the dy slice as in the forward. float32 runs a 64 x 64 FMA tile.
+// wgmma, TMA and a split over rows for the decode tick's ~1 row a group
+// come with a later change.
 //
 // Shapes: x [s, K] (gathered) or [m, K]; src_rows / dst_rows [m] int32;
-// rhs [e, K, N] row-major; group_sizes [e] int32, each >= 0, summing to
-// at most m (row ranges are clamped to m); out [m, N] (scatter: indexed
-// by dst_rows) or [m, N / 2] for swiglu. float32 or bfloat16 throughout;
+// rhs [e, K, N] row-major ([e, N, K] transposed); group_sizes [e] int32,
+// each >= 0, summing to at most m (row ranges are clamped to m); out
+// [m, N] (scatter: indexed by dst_rows) or [m, N / 2] for swiglu; tgmm:
+// lhs [m, K], dy [m, N], out [e, K, N]. float32 or bfloat16 throughout;
 // K and N multiples of 8 (N / 2 for swiglu), 16-byte aligned pointers;
 // 1 <= e <= MAX_EXPERTS; any m >= 1.
 #include "mma_gemm.cuh"
@@ -68,7 +89,7 @@ constexpr int SWIGLU_HALF = MMA_BN / 2;  // gate (and up) columns a tile
 struct GroupArgs {
   const void* x;
   const int* src;   // gather indices [m] or null
-  const void* w;    // [e, K, N]
+  const void* w;    // [e, K, N], or [e, N, K] transposed
   const int* gs;    // [e]
   const int* dst;   // scatter indices [m] or null
   void* out;
@@ -106,21 +127,29 @@ __device__ __forceinline__ float silu_f(float g) {
 
 // ---------------------------------------------------------------- bf16
 
-template <int BM>
-__host__ __device__ constexpr size_t ring_bytes() {
-  return sizeof(bf16) *
-         MMA_STAGES * (BM * MMA_LDA + MMA_BK * MMA_LDB);
+// one stage of the weight ring: [MMA_BK k][MMA_LDB] or, transposed,
+// [MMA_BN n][MMA_LDA]
+template <bool TRANS>
+__host__ __device__ constexpr int b_stage() {
+  return TRANS ? MMA_BN * MMA_LDA : MMA_BK * MMA_LDB;
 }
 
-template <int BM>
+template <int BM, bool TRANS>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return sizeof(bf16) * MMA_STAGES * (BM * MMA_LDA + b_stage<TRANS>());
+}
+
+template <int BM, bool TRANS>
 constexpr size_t mma_smem() {
-  return ring_bytes<BM>() + 2 * BM * sizeof(int);
+  return ring_bytes<BM, TRANS>() + 2 * BM * sizeof(int);
 }
 
 // grid (column tiles, experts), MMA_THREADS threads; SWIGLU tiles cover
-// SWIGLU_HALF output columns (gate and up), the others MMA_BN
-template <int BM, bool SWIGLU>
+// SWIGLU_HALF output columns (gate and up), the others MMA_BN; TRANS
+// reads rhs as [e, N, K]
+template <int BM, bool SWIGLU, bool TRANS>
 __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
+  static_assert(!(SWIGLU && TRANS), "swiglu is a forward epilogue");
   using WT = WarpTile<BM>;
   const int g = blockIdx.y;
   const int2 rows = group_rows<MMA_THREADS>(a.gs, g, a.m);
@@ -129,9 +158,9 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16(*As)[BM][MMA_LDA] = reinterpret_cast<bf16(*)[BM][MMA_LDA]>(smem);
-  bf16(*Bs)[MMA_BK][MMA_LDB] = reinterpret_cast<bf16(*)[MMA_BK][MMA_LDB]>(
+  bf16* b_ring = reinterpret_cast<bf16*>(
       smem + sizeof(bf16) * MMA_STAGES * BM * MMA_LDA);
-  int* src_s = reinterpret_cast<int*>(smem + ring_bytes<BM>());
+  int* src_s = reinterpret_cast<int*>(smem + ring_bytes<BM, TRANS>());
   int* dst_s = src_s + BM;
   float(*Cs)[MMA_BN + 4] = reinterpret_cast<float(*)[MMA_BN + 4]>(smem);
 
@@ -164,22 +193,33 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
         cp_async16(&As[st][mm][kk], ok ? x + (size_t)sr * K + k0 + kk : x,
                    ok);
       }
-      for (int i = tid; i < MMA_BK * (MMA_BN / 8); i += MMA_THREADS) {
-        const int kk = i / (MMA_BN / 8), c = (i % (MMA_BN / 8)) * 8;
-        int wc;
-        bool ok;
-        if (SWIGLU) {
-          const bool up = c >= SWIGLU_HALF;
-          const int cc = col0 + (up ? c - SWIGLU_HALF : c);
-          ok = cc < nout;
-          wc = up ? nout + cc : cc;
-        } else {
-          wc = col0 + c;
-          ok = wc < N;
+      bf16* bst = b_ring + st * b_stage<TRANS>();
+      if constexpr (TRANS) {  // [n][k] slice of rhs [e, N, K]
+        for (int i = tid; i < MMA_BN * (MMA_BK / 8); i += MMA_THREADS) {
+          const int n = i / (MMA_BK / 8), kk = (i % (MMA_BK / 8)) * 8;
+          const int wc = col0 + n;
+          const bool ok = wc < N && k0 + kk < K;
+          cp_async16(bst + n * MMA_LDA + kk,
+                     ok ? w + (size_t)wc * K + k0 + kk : w, ok);
         }
-        ok = ok && k0 + kk < K;
-        cp_async16(&Bs[st][kk][c], ok ? w + (size_t)(k0 + kk) * N + wc : w,
-                   ok);
+      } else {                // [k][n] slice of rhs [e, K, N]
+        for (int i = tid; i < MMA_BK * (MMA_BN / 8); i += MMA_THREADS) {
+          const int kk = i / (MMA_BN / 8), c = (i % (MMA_BN / 8)) * 8;
+          int wc;
+          bool ok;
+          if (SWIGLU) {
+            const bool up = c >= SWIGLU_HALF;
+            const int cc = col0 + (up ? c - SWIGLU_HALF : c);
+            ok = cc < nout;
+            wc = up ? nout + cc : cc;
+          } else {
+            wc = col0 + c;
+            ok = wc < N;
+          }
+          ok = ok && k0 + kk < K;
+          cp_async16(bst + kk * MMA_LDB + c,
+                     ok ? w + (size_t)(k0 + kk) * N + wc : w, ok);
+        }
       }
     };
 
@@ -203,7 +243,7 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
       if (it + MMA_STAGES - 1 < nk) issue(it + MMA_STAGES - 1);
       cp_async_commit();
       bf16(*as)[MMA_LDA] = As[it % MMA_STAGES];
-      bf16(*bs)[MMA_LDB] = Bs[it % MMA_STAGES];
+      const bf16* bst = b_ring + (it % MMA_STAGES) * b_stage<TRANS>();
 #pragma unroll
       for (int ks = 0; ks < MMA_BK; ks += 16) {
         uint32_t af[WT::MT][4], bfr[WT::NT][2];
@@ -214,8 +254,13 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
 #pragma unroll
         for (int np = 0; np < WT::NT / 2; ++np) {
           uint32_t bq[4];
-          ldmatrix_x4_trans(bq, &bs[ks + (mi & 1) * 8 + ri]
-                                   [wn * WT::WN + np * 16 + (mi >> 1) * 8]);
+          // matrices (k0-7, n0), (k8-15, n0), (k0-7, n0+8), (k8-15, n0+8)
+          if constexpr (TRANS)  // rows of the [n][k] tile are B's columns
+            ldmatrix_x4(bq, bst + (wn * WT::WN + np * 16 + (mi >> 1) * 8 +
+                                   ri) * MMA_LDA + ks + (mi & 1) * 8);
+          else
+            ldmatrix_x4_trans(bq, bst + (ks + (mi & 1) * 8 + ri) * MMA_LDB +
+                                      wn * WT::WN + np * 16 + (mi >> 1) * 8);
           bfr[2 * np][0] = bq[0];
           bfr[2 * np][1] = bq[1];
           bfr[2 * np + 1][0] = bq[2];
@@ -291,7 +336,7 @@ struct GatherLoad {
 };
 
 // grid (GEMM_BN-column tiles of the output, experts), GEMM_THREADS
-template <int BM, bool SWIGLU>
+template <int BM, bool SWIGLU, bool TRANS>
 __global__ void __launch_bounds__(GEMM_THREADS) moe_gmm_fma(GroupArgs a) {
   constexpr int TM = BM / 16;
   const int g = blockIdx.y;
@@ -306,7 +351,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) moe_gmm_fma(GroupArgs a) {
 
   for (int r0 = rows.x; r0 < rows.y; r0 += BM) {
     float acc[TM][4], up[TM][4];
-    gemm_tile<float, BM>(load, w, rows.y, a.K, a.N, r0, col0, acc);
+    gemm_tile<float, BM, TRANS>(load, w, rows.y, a.K, a.N, r0, col0, acc);
     if (SWIGLU)
       gemm_tile<float, BM>(load, w, rows.y, a.K, a.N, r0, nout + col0, up);
 #pragma unroll
@@ -332,6 +377,174 @@ __global__ void __launch_bounds__(GEMM_THREADS) moe_gmm_fma(GroupArgs a) {
   }
 }
 
+// ---------------------------------------------------------------- tgmm
+
+constexpr int TG_BM = 64;   // k rows of the output tile (bf16)
+constexpr int TG_RS = 64;   // rows of lhs / dy contracted a slice
+constexpr int TG_LDA = TG_BM + 8;
+
+struct TgmmArgs {
+  const void* lhs;  // [m, K]
+  const void* dy;   // [m, N]
+  const int* gs;    // [e]
+  void* out;        // [e, K, N]
+  int m, K, N, e;
+};
+
+constexpr size_t tgmm_smem() {
+  return sizeof(bf16) * MMA_STAGES * TG_RS * (TG_LDA + MMA_LDB);
+}
+
+// grid (N tiles of MMA_BN, K tiles of TG_BM, experts), MMA_THREADS
+__global__ void __launch_bounds__(MMA_THREADS) moe_tgmm_mma(TgmmArgs a) {
+  using WT = WarpTile<TG_BM>;
+  const int g = blockIdx.z;
+  const int2 rows = group_rows<MMA_THREADS>(a.gs, g, a.m);
+  const int K = a.K, N = a.N;
+  const int k0 = blockIdx.y * TG_BM, n0 = blockIdx.x * MMA_BN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / WT::WARPS_N, wn = warp % WT::WARPS_N;
+  const int mi = lane / 8, ri = lane % 8;
+  bf16* out = static_cast<bf16*>(a.out) + (size_t)g * K * N;
+
+  float acc[WT::MT][WT::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < WT::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < WT::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16(*As)[TG_RS][TG_LDA] = reinterpret_cast<bf16(*)[TG_RS][TG_LDA]>(smem);
+  bf16(*Bs)[TG_RS][MMA_LDB] = reinterpret_cast<bf16(*)[TG_RS][MMA_LDB]>(
+      smem + sizeof(bf16) * MMA_STAGES * TG_RS * TG_LDA);
+  const bf16* lhs = static_cast<const bf16*>(a.lhs);
+  const bf16* dy = static_cast<const bf16*>(a.dy);
+  const int ns = (rows.y - rows.x + TG_RS - 1) / TG_RS;
+
+  // slice s: rows [rows.x + s * TG_RS, ...) of lhs[:, k-tile], dy[:, n-tile]
+  auto load_slice = [&](int slice) {
+    const int r0 = rows.x + slice * TG_RS, st = slice % MMA_STAGES;
+    for (int i = tid; i < TG_RS * (TG_BM / 8); i += MMA_THREADS) {
+      const int rr = i / (TG_BM / 8), c = (i % (TG_BM / 8)) * 8;
+      const bool ok = r0 + rr < rows.y && k0 + c < K;
+      cp_async16(&As[st][rr][c],
+                 ok ? lhs + (size_t)(r0 + rr) * K + k0 + c : lhs, ok);
+    }
+    for (int i = tid; i < TG_RS * (MMA_BN / 8); i += MMA_THREADS) {
+      const int rr = i / (MMA_BN / 8), c = (i % (MMA_BN / 8)) * 8;
+      const bool ok = r0 + rr < rows.y && n0 + c < N;
+      cp_async16(&Bs[st][rr][c],
+                 ok ? dy + (size_t)(r0 + rr) * N + n0 + c : dy, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < ns) load_slice(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < ns; ++it) {
+    cp_async_wait<MMA_STAGES - 2>();
+    __syncthreads();
+    if (it + MMA_STAGES - 1 < ns) load_slice(it + MMA_STAGES - 1);
+    cp_async_commit();
+    bf16(*as)[TG_LDA] = As[it % MMA_STAGES];
+    bf16(*bs)[MMA_LDB] = Bs[it % MMA_STAGES];
+#pragma unroll
+    for (int ks = 0; ks < TG_RS; ks += 16) {
+      uint32_t af[WT::MT][4], bfr[WT::NT][2];
+      // A = lhs^T: (m0-7, r0-7), (m8-15, r0-7), (m0-7, r8-15),
+      // (m8-15, r8-15) of the [r][m] slice, transposed on load
+#pragma unroll
+      for (int mt = 0; mt < WT::MT; ++mt)
+        ldmatrix_x4_trans(af[mt], &as[ks + (mi >> 1) * 8 + ri]
+                                     [wm * WT::WM + mt * 16 + (mi & 1) * 8]);
+#pragma unroll
+      for (int np = 0; np < WT::NT / 2; ++np) {
+        uint32_t bq[4];
+        ldmatrix_x4_trans(bq, &bs[ks + (mi & 1) * 8 + ri]
+                                 [wn * WT::WN + np * 16 + (mi >> 1) * 8]);
+        bfr[2 * np][0] = bq[0];
+        bfr[2 * np][1] = bq[1];
+        bfr[2 * np + 1][0] = bq[2];
+        bfr[2 * np + 1][1] = bq[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < WT::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < WT::NT; ++nt)
+          mma_16816(acc[mt][nt], af[mt], bfr[nt]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < WT::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < WT::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        int r, c;
+        mma_store_index<TG_BM>(mt, nt, e, r, c);
+        const int k = k0 + r, n = n0 + c;  // n even; N % 8 == 0
+        if (k < K && n < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)k * N + n) =
+              __floats2bfloat162_rn(acc[mt][nt][e], acc[mt][nt][e + 1]);
+      }
+}
+
+constexpr int TGF_T = 64;   // float32 tile: 64 k x 64 n
+constexpr int TGF_RS = 16;
+
+// grid (N tiles, K tiles, experts) of TGF_T, GEMM_THREADS threads each
+// owning 4 x 4 outputs
+__global__ void __launch_bounds__(GEMM_THREADS) moe_tgmm_fma(TgmmArgs a) {
+  const int g = blockIdx.z;
+  const int2 rows = group_rows<GEMM_THREADS>(a.gs, g, a.m);
+  const int K = a.K, N = a.N;
+  const int k0 = blockIdx.y * TGF_T, n0 = blockIdx.x * TGF_T;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  __shared__ float As[TGF_RS][TGF_T + 4];
+  __shared__ float Bs[TGF_RS][TGF_T + 4];
+  const float* lhs = static_cast<const float*>(a.lhs);
+  const float* dy = static_cast<const float*>(a.dy);
+  float acc[4][4] = {};
+  for (int r0 = rows.x; r0 < rows.y; r0 += TGF_RS) {
+    for (int i = threadIdx.x; i < TGF_RS * TGF_T; i += GEMM_THREADS) {
+      const int rr = i / TGF_T, c = i % TGF_T, r = r0 + rr;
+      As[rr][c] = (r < rows.y && k0 + c < K) ? lhs[(size_t)r * K + k0 + c]
+                                             : 0.f;
+      Bs[rr][c] = (r < rows.y && n0 + c < N) ? dy[(size_t)r * N + n0 + c]
+                                             : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < TGF_RS; ++rr) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[rr][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[rr][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = static_cast<float*>(a.out) + (size_t)g * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (k < K && n < N) out[(size_t)k * N + n] = acc[i][j];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 int tiles(int n, int t) { return (n + t - 1) / t; }
@@ -342,28 +555,28 @@ int chunk_rows(int m, int e) {
   return mean <= 16 ? 16 : (mean <= 32 ? 32 : 64);
 }
 
-template <int BM, bool SWIGLU>
+template <int BM, bool SWIGLU, bool TRANS>
 cudaError_t launch_mma(const GroupArgs& a, cudaStream_t st) {
   const dim3 grid(tiles(a.nout, SWIGLU ? SWIGLU_HALF : MMA_BN), a.e);
-  constexpr size_t smem = mma_smem<BM>();
-  static_assert(BM * (MMA_BN + 4) * sizeof(float) <= ring_bytes<BM>(),
+  constexpr size_t smem = mma_smem<BM, TRANS>();
+  static_assert(BM * (MMA_BN + 4) * sizeof(float) <= ring_bytes<BM, TRANS>(),
                 "the swiglu epilogue tile must fit in the ring");
   cudaError_t err = cudaFuncSetAttribute(
-      moe_gmm_mma<BM, SWIGLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      moe_gmm_mma<BM, SWIGLU, TRANS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  moe_gmm_mma<BM, SWIGLU><<<grid, MMA_THREADS, smem, st>>>(a);
+  moe_gmm_mma<BM, SWIGLU, TRANS><<<grid, MMA_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int BM, bool SWIGLU>
+template <int BM, bool SWIGLU, bool TRANS>
 cudaError_t launch_fma(const GroupArgs& a, cudaStream_t st) {
   const dim3 grid(tiles(a.nout, GEMM_BN), a.e);
-  moe_gmm_fma<BM, SWIGLU><<<grid, GEMM_THREADS, 0, st>>>(a);
+  moe_gmm_fma<BM, SWIGLU, TRANS><<<grid, GEMM_THREADS, 0, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool SWIGLU>
+template <bool SWIGLU, bool TRANS>
 int run(const GroupArgs& a, int dtype, void* stream) {
   if (a.m < 1 || a.K < 1 || a.N < 1 || a.e < 1 || a.e > MAX_EXPERTS ||
       a.K % 8 || a.N % 8 || a.nout % 8 || a.x == nullptr ||
@@ -372,14 +585,14 @@ int run(const GroupArgs& a, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int bm = chunk_rows(a.m, a.e);
   if (dtype == 0) {
-    if (bm == 16) return (int)launch_fma<16, SWIGLU>(a, st);
-    if (bm == 32) return (int)launch_fma<32, SWIGLU>(a, st);
-    return (int)launch_fma<64, SWIGLU>(a, st);
+    if (bm == 16) return (int)launch_fma<16, SWIGLU, TRANS>(a, st);
+    if (bm == 32) return (int)launch_fma<32, SWIGLU, TRANS>(a, st);
+    return (int)launch_fma<64, SWIGLU, TRANS>(a, st);
   }
   if (dtype == 1) {
-    if (bm == 16) return (int)launch_mma<16, SWIGLU>(a, st);
-    if (bm == 32) return (int)launch_mma<32, SWIGLU>(a, st);
-    return (int)launch_mma<64, SWIGLU>(a, st);
+    if (bm == 16) return (int)launch_mma<16, SWIGLU, TRANS>(a, st);
+    if (bm == 32) return (int)launch_mma<32, SWIGLU, TRANS>(a, st);
+    return (int)launch_mma<64, SWIGLU, TRANS>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -394,7 +607,7 @@ extern "C" int ptt_moe_gmm(const void* x, const void* src_rows,
                            void* stream) {
   const GroupArgs a{x, (const int*)src_rows, rhs, (const int*)group_sizes,
                     nullptr, out, m, K, N, N, e};
-  return run<false>(a, dtype, stream);
+  return run<false, false>(a, dtype, stream);
 }
 
 // gather-on-read + swiglu epilogue: rhs [e, K, 2f], out [m, f]
@@ -405,7 +618,7 @@ extern "C" int ptt_moe_gather_gmm_swiglu(const void* x, const void* src_rows,
                                          int dtype, void* stream) {
   const GroupArgs a{x, (const int*)src_rows, rhs, (const int*)group_sizes,
                     nullptr, out, m, K, 2 * f, f, e};
-  return run<true>(a, dtype, stream);
+  return run<true, false>(a, dtype, stream);
 }
 
 // scatter-on-write: x [m, K] sorted rows, rhs [e, K, N], out[dst_rows[r]]
@@ -417,5 +630,45 @@ extern "C" int ptt_moe_scatter_gmm(const void* x, const void* rhs,
   if (dst_rows == nullptr) return (int)cudaErrorInvalidValue;
   const GroupArgs a{x, nullptr, rhs, (const int*)group_sizes,
                     (const int*)dst_rows, out, m, K, N, N, e};
-  return run<false>(a, dtype, stream);
+  return run<false, false>(a, dtype, stream);
+}
+
+// the transposed modes: rhs [e, N, K], out[r] (or out[dst_rows[r]]) =
+// x[src_rows[r] or r] @ rhs[g]^T; src_rows and dst_rows may be null
+extern "C" int ptt_moe_gmm_t(const void* x, const void* src_rows,
+                             const void* rhs, const void* group_sizes,
+                             const void* dst_rows, void* out, int m, int K,
+                             int N, int e, int dtype, void* stream) {
+  const GroupArgs a{x, (const int*)src_rows, rhs, (const int*)group_sizes,
+                    (const int*)dst_rows, out, m, K, N, N, e};
+  return run<false, true>(a, dtype, stream);
+}
+
+// tgmm: lhs [m, K], dy [m, N] sorted rows -> out [e, K, N], out[g] =
+// lhs[rows of g]^T @ dy[rows of g] (zeros for an empty group)
+extern "C" int ptt_moe_tgmm(const void* lhs, const void* dy,
+                            const void* group_sizes, void* out, int m, int K,
+                            int N, int e, int dtype, void* stream) {
+  if (m < 1 || K < 1 || N < 1 || e < 1 || e > MAX_EXPERTS || K % 8 ||
+      N % 8 || lhs == nullptr || dy == nullptr || group_sizes == nullptr ||
+      out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const TgmmArgs a{lhs, dy, (const int*)group_sizes, out, m, K, N, e};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    const dim3 grid(tiles(N, TGF_T), tiles(K, TGF_T), e);
+    moe_tgmm_fma<<<grid, GEMM_THREADS, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (dtype == 1) {
+    constexpr size_t smem = tgmm_smem();
+    cudaError_t err = cudaFuncSetAttribute(
+        moe_tgmm_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(tiles(N, MMA_BN), tiles(K, TG_BM), e);
+    moe_tgmm_mma<<<grid, MMA_THREADS, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }

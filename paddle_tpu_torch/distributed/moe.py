@@ -25,11 +25,21 @@ SwiGLU experts (``gate_up [e, d, 2f]``, ``down [e, f, d]``) -> combine:
   ``silu(g.float()).to(dtype) * u`` (rounded before the product, unlike
   the fused epilogue), ``gmm``, then the unsort — K5's forward gmm.
 
+Both paths train. The fused core is the ``torch.autograd.Function``
+:class:`_FusedMoeCore`, whose backward replays the forward's gather and
+scatter structure (the reference's ``_fused_moe_bwd``): K4's transposed
+gather for d(h), K5's ``tgmm`` for both weight gradients, the forward's
+gather recomputing the gate/up projection, K4's transposed scatter for
+d(x). The sorted path's grouped matmuls go through :class:`_Gmm` (the
+reference's ``_gmm32`` custom VJP): d(lhs) by the transposed gmm, d(rhs)
+by ``tgmm``. On the CPU the same Functions run the plain versions, so
+the structure the CPU tests check is the one the card runs.
+
 Everything stays on the device: nothing here reads a value back to the
-host (no ``bincount``, ``.item()``, ``nonzero`` or mask indexing), so an
-eager forward of many MoE layers never waits on routing. The fused core
-is a ``torch.autograd.Function`` whose backward (K4's transposed modes,
-K5's d(lhs) and ``tgmm``) comes with the MoE training slice.
+host (no ``bincount``, ``.item()``, ``nonzero`` or mask indexing), in the
+forward or in a backward, so an eager step of many MoE layers never
+waits on routing: the kernels find their rows from ``group_sizes`` on
+the device.
 
 ``MOE_STATS`` is a plain dict with the reference's keys:
 ``grouped_mm_calls`` (grouped matmuls run), ``grouped_mm_kernel``
@@ -37,6 +47,9 @@ K5's d(lhs) and ``tgmm``) comes with the MoE training slice.
 ``ep_shard_map_calls`` and ``padded_einsum_calls`` (paths of later
 slices, always 0). :func:`serving_stats_tap` lets the serving engine
 collect each dispatch's per-expert counts on the device during a tick.
+
+:class:`ClipGradForMOEByGlobalNorm` keeps the reference's constructor;
+on one device its norm is the plain global norm.
 
 Not in this slice (each raises ``NotImplementedError``): expert
 parallelism over more than one process, GShard's random second-expert
@@ -51,16 +64,32 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..nn.clip import ClipGradByGlobalNorm as _ClipGradByGlobalNorm
 from ..ops.kernels import moe_gmm as _gmm
 
 __all__ = ["moe_dispatch_combine", "moe_dispatch_combine_dropless",
            "moe_dispatch_combine_grouped", "moe_stats", "reset_moe_stats",
            "serving_stats_tap", "num_routed_experts", "capacity_routed",
-           "MOE_STATS"]
+           "ClipGradForMOEByGlobalNorm", "MOE_STATS"]
 
 MOE_STATS = {"grouped_mm_calls": 0, "grouped_mm_kernel": None,
              "ep_shard_map_calls": 0, "padded_einsum_calls": 0}
 _TAP = threading.local()    # .sinks: lists collecting each dispatch's counts
+
+
+class ClipGradForMOEByGlobalNorm(_ClipGradByGlobalNorm):
+    """MoE-aware global-norm clip with the reference's constructor. The
+    reference splits expert and other parameters so that, under expert
+    parallelism, the expert set's norm can be summed over the MoE group;
+    on one device the stacked experts are whole, so the plain global
+    norm over every gradient is the same quantity (``is_expert_param_func``
+    and ``moe_group`` are kept as metadata)."""
+
+    def __init__(self, clip_norm, is_expert_param_func=None,
+                 moe_group=None, group_name="default_moe_group"):
+        super().__init__(clip_norm, group_name=group_name)
+        self.is_expert_param_func = is_expert_param_func
+        self.moe_group = moe_group
 
 
 def reset_moe_stats():
@@ -141,32 +170,100 @@ def _sort_pairs(flat_e, e):
     return order, rank, counts
 
 
+def _grouped_mm_dlhs(dy, rhs, group_sizes):
+    """d(lhs) of the grouped matmul: ``dy[r] @ rhs[g].T`` on sorted rows
+    (K5's d(lhs), the transposed gmm)."""
+    MOE_STATS["grouped_mm_calls"] += 1
+    return _gmm.gather_gmm(dy, None, rhs, group_sizes, transpose_rhs=True)
+
+
+def _grouped_mm_drhs(lhs, dy, group_sizes, num_groups):
+    """d(rhs) of the grouped matmul: ``lhs[rows of g].T @ dy[rows of g]``
+    for each group (K5's ``tgmm``), ``[e, K, N]``."""
+    MOE_STATS["grouped_mm_calls"] += 1
+    return _gmm.tgmm(lhs, dy, group_sizes, num_groups)
+
+
+class _Gmm(torch.autograd.Function):
+    """The sorted path's grouped matmul ``lhs [m, K] x rhs [e, K, N] ->
+    [m, N]`` over the partition ``gs`` (K5's gmm), with its backward:
+    d(lhs) by the transposed gmm and d(rhs) by ``tgmm``, each cast to its
+    input's dtype (the reference's ``_gmm32`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, gs):
+        ctx.save_for_backward(lhs, rhs, gs)
+        return _gmm.gather_gmm(lhs, None, rhs, gs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lhs, rhs, gs = ctx.saved_tensors
+        dy = dy.contiguous()
+        dlhs = _grouped_mm_dlhs(dy, rhs, gs)
+        drhs = _grouped_mm_drhs(lhs, dy, gs, rhs.shape[0])
+        return dlhs.to(lhs.dtype), drhs.to(rhs.dtype), None
+
+
 class _FusedMoeCore(torch.autograd.Function):
     """``y[s] = sum_k gates[s, k] * swiglu_expert(x[s])`` over the sorted
     partition ``gs`` with the sort fused into the first matmul's load
     (``src_rows = order // k``) and the unsort into the second's store
-    (``order``)."""
+    (``order``). The backward replays that structure (the reference's
+    ``_fused_moe_bwd``, step for step and with its roundings)."""
 
     @staticmethod
     def forward(ctx, x, gate_up, down, gates, order, src_rows, gs, top_k):
         h = _gmm.gather_gmm_swiglu(x, src_rows, gate_up.to(x.dtype), gs)
         ys_tok = _gmm.scatter_gmm(h, down.to(x.dtype), gs, order)
+        ctx.top_k = top_k
+        ctx.save_for_backward(x, gate_up, down, gates, order, src_rows, gs,
+                              h, ys_tok)
         picked = ys_tok.reshape(x.shape[0], top_k, -1)
         return torch.einsum("sk,skd->sd", gates.to(x.dtype), picked)
 
     @staticmethod
     def backward(ctx, dy):
-        raise _later("the backward of the fused MoE grouped matmuls (K4's "
-                     "transposed modes, K5's d(lhs) and tgmm)", "MoE training")
+        x, gate_up, down, gates, order, src_rows, gs, h, ys_tok = \
+            ctx.saved_tensors
+        k = ctx.top_k
+        (s, d), e = x.shape, gate_up.shape[0]
+        dy = dy.contiguous()
+        picked = ys_tok.reshape(s, k, d)
+        dgates = torch.einsum("sd,skd->sk", dy.float(), picked.float())
+        # the token-major pair cotangent; the first backward matmul
+        # gathers it into sorted order on read, as src_rows did forward
+        dpair_tok = (gates.to(dy.dtype)[..., None] * dy[:, None, :]) \
+            .reshape(s * k, d)
+        dh = _gmm.gather_gmm(dpair_tok, order, down.to(dy.dtype), gs,
+                             transpose_rhs=True)
+        ddown = _grouped_mm_drhs(h, dpair_tok[order.long()], gs, e)
+        # the gate/up projection the forward never stored, recomputed
+        gu = _gmm.gather_gmm(x, src_rows, gate_up.to(x.dtype), gs)
+        g_a, u_a = gu.chunk(2, dim=-1)
+        g32 = g_a.float()
+        sig = torch.sigmoid(g32)
+        dh32 = dh.float()
+        dg = dh32 * u_a.float() * sig * (1 + g32 * (1 - sig))
+        du = dh32 * (g32 * sig)
+        dgu = torch.cat([dg, du], dim=-1).to(x.dtype)
+        dguw = _grouped_mm_drhs(x[src_rows.long()], dgu, gs, e)
+        # d(x) leaves the last backward matmul through its scatter store
+        dx_tok = _gmm.scatter_gmm(dgu, gate_up.to(x.dtype), gs, order,
+                                  transpose_rhs=True)
+        dx = dx_tok.reshape(s, k, d).sum(dim=1)
+        return (dx.to(x.dtype), dguw.to(gate_up.dtype),
+                ddown.to(down.dtype), dgates.to(gates.dtype), None, None,
+                None, None)
 
 
 def _expert_swiglu_grouped(xs, gate_up, down, gs, dtype):
-    """The sorted path's expert MLP: two grouped matmuls (K5's gmm) with
-    ``silu(g.float()).to(dtype) * u`` between them."""
-    gu = _gmm.gather_gmm(xs, None, gate_up.to(dtype), gs)
+    """The sorted path's expert MLP: two grouped matmuls (K5's gmm,
+    through :class:`_Gmm`) with ``silu(g.float()).to(dtype) * u`` between
+    them."""
+    gu = _Gmm.apply(xs, gate_up.to(dtype), gs)
     g, u = gu.chunk(2, dim=-1)
     h = F.silu(g.float()).to(dtype) * u
-    return _gmm.gather_gmm(h, None, down.to(dtype), gs)
+    return _Gmm.apply(h, down.to(dtype), gs)
 
 
 def _grouped_dispatch(x, gate_logits, num_expert, top_k, gate_up, down, *,
@@ -180,7 +277,7 @@ def _grouped_dispatch(x, gate_logits, num_expert, top_k, gate_up, down, *,
     if second_expert_policy == "random" and rng_key is not None \
             and top_k >= 2:
         raise _later("GShard random second-expert routing (rng_key)",
-                     "MoE training")
+                     "expert parallelism and gates")
     s, d = x.shape
     e = int(num_expert)
     probs = torch.softmax(gate_logits.float(), dim=-1)
@@ -266,4 +363,4 @@ def moe_dispatch_combine(x, gate_logits, num_expert, top_k=2,
     """The padded ``[e, c, d]`` GShard dispatch with an arbitrary
     ``expert_fn`` (the reference's ``MoELayer`` path)."""
     raise _later("the padded GShard moe_dispatch_combine (expert_fn over "
-                 "[e, c, d] buffers)", "MoE training")
+                 "[e, c, d] buffers)", "expert parallelism and gates")

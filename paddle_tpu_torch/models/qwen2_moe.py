@@ -18,10 +18,11 @@ carries weights across.
 The layer, model and causal LM subclass the Llama ones, so the MoE
 families keep the port's Llama protocol: the dense forward (logits, or
 the criterion plus ``router_aux_loss_coef`` times the summed router aux
-losses given ``labels``; MoE has no backward in this slice), the ragged
-serving tick (``fused`` is accepted and ignored: MoE layers run the
-unfused module path, as in the reference), and the paged and dense
-cached paths of ``generate()``.
+losses given ``labels``, trained through ``TrainStep`` or
+``loss.backward()`` on both MoE paths), the ragged serving tick
+(``fused`` is accepted and ignored: MoE layers run the unfused module
+path, as in the reference), and the paged and dense cached paths of
+``generate()``.
 """
 from __future__ import annotations
 
@@ -106,10 +107,12 @@ class StackedExpertsMLP(nn.Module):
             num_experts, d_ffn, d_model, device=device, dtype=dtype))
 
 
-def _routed(config, num_experts, x2, logits, experts):
-    """The routed experts' output and router aux loss for ``x2 [s, d]``."""
+def _routed(config, num_experts, x2, logits, experts, return_stats=False):
+    """The routed experts' output and router aux loss for ``x2 [s, d]``
+    (and the dispatch's stats with ``return_stats``)."""
     kw = dict(normalize_gates=config.norm_topk_prob,
-              expert_axis=config.expert_axis, fused=config.moe_fused_gmm)
+              expert_axis=config.expert_axis, fused=config.moe_fused_gmm,
+              return_stats=return_stats)
     args = (x2, logits, num_experts, config.num_experts_per_tok,
             experts.gate_up_proj, experts.down_proj)
     if config.dropless:
@@ -119,7 +122,12 @@ def _routed(config, num_experts, x2, logits, experts):
 
 
 class Qwen2MoeSparseBlock(nn.Module):
-    """Router + stacked routed experts + the gated shared expert."""
+    """Router + stacked routed experts + the gated shared expert. With
+    ``_collect_stats`` set (by
+    :meth:`Qwen2MoeForCausalLM.collect_drop_rates`), a forward keeps the
+    dispatch's capacity drop rate in ``drop_rate`` (a device scalar)."""
+    _collect_stats = False
+    drop_rate = None
 
     def __init__(self, config: Qwen2MoeConfig, device=None,
                  dtype=torch.float32):
@@ -137,8 +145,12 @@ class Qwen2MoeSparseBlock(nn.Module):
     def forward(self, x):
         """``(out, aux)`` for ``x [..., d]``."""
         x2 = x.reshape(-1, x.shape[-1])
-        y, aux = _routed(self.config, self.config.num_experts, x2,
-                         self.gate(x2), self.experts)
+        routed = _routed(self.config, self.config.num_experts, x2,
+                         self.gate(x2), self.experts,
+                         return_stats=self._collect_stats)
+        y, aux = routed[:2]
+        if self._collect_stats:
+            self.drop_rate = routed[2]["drop_rate"]
         out = y + self.shared_expert(x2) * torch.sigmoid(
             self.shared_expert_gate(x2))
         return out.reshape(x.shape), aux
@@ -166,3 +178,26 @@ class Qwen2MoeForCausalLM(LlamaForCausalLM):
     ``router_aux_loss_coef`` times the summed router aux losses."""
     base_prefix = "qwen2_moe"
     model_cls = Qwen2MoeModel
+
+    def collect_drop_rates(self, input_ids):
+        """The expert-capacity drop rate of each sparse block over one
+        eager forward of ``input_ids`` in ``eval()`` under ``no_grad``:
+        a list of floats, one per sparse block (0 for a dropless
+        model)."""
+        blocks = [lay.mlp for lay in self.base.layers
+                  if isinstance(lay.mlp, Qwen2MoeSparseBlock)]
+        was_training = self.training
+        self.eval()
+        for b in blocks:
+            b._collect_stats = True
+        try:
+            with torch.no_grad():
+                self(torch.as_tensor(input_ids, device=self.device))
+        finally:
+            for b in blocks:
+                b._collect_stats = False
+            self.train(was_training)
+        rates = [float(b.drop_rate) for b in blocks]
+        for b in blocks:
+            b.drop_rate = None
+        return rates

@@ -6,13 +6,27 @@ launches its kernel for CUDA tensors (or raises); nothing falls back.
 ``launch_counts`` counts kernel launches per wrapper — a plain integer
 bumped right after each successful launch, so a run can show that its
 main path went through the kernels.
+
+A kernel's output written through a raw pointer has no autograd history.
+The wrappers whose kernels have no backward are decorated with
+:func:`no_backward`, so their output never leaves the graph silently:
+with gradients enabled and an input that requires them, the output
+carries a node whose backward raises, on both devices (as
+differentiating a ``pallas_call`` without a VJP fails in JAX). Under
+``torch.no_grad()`` (the serving tick, ``generate()``) the check is all
+they pay.
 """
+import functools
+
+import torch
+
 launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
                  "paged_verify_attention": 0, "norm_matmul": 0,
                  "matmul_residual": 0, "flash_attention_fwd": 0,
                  "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "moe_gather_gmm_swiglu": 0, "moe_scatter_gmm": 0,
-                 "moe_gmm": 0}
+                 "moe_gmm": 0, "moe_gmm_t": 0, "moe_scatter_gmm_t": 0,
+                 "moe_tgmm": 0}
 
 
 def reset_launch_counts():
@@ -20,4 +34,47 @@ def reset_launch_counts():
         launch_counts[k] = 0
 
 
-__all__ = ["launch_counts", "reset_launch_counts"]
+class _NoBackward(torch.autograd.Function):
+    """Runs a kernel wrapper with the graph's inputs; its backward
+    raises naming the kernel."""
+
+    @staticmethod
+    def forward(ctx, name, call, *inputs):
+        ctx.name = name
+        out = call()
+        return tuple(out) if isinstance(out, list) else out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"{ctx.name} has no backward: the kernel is a forward of the "
+            "serving path, or a step of a backward that an autograd "
+            "Function of the port owns")
+
+
+def _tensors(values):
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif isinstance(v, (list, tuple)):
+            yield from _tensors(v)
+
+
+def no_backward(name):
+    """Decorate a kernel wrapper that has no backward (see the module
+    docstring); ``name`` names the kernel in the error."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if torch.is_grad_enabled():
+                inputs = [t for t in _tensors([*args, *kwargs.values()])
+                          if t.requires_grad]
+                if inputs:
+                    return _NoBackward.apply(
+                        name, lambda: fn(*args, **kwargs), *inputs)
+            return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+__all__ = ["launch_counts", "reset_launch_counts", "no_backward"]

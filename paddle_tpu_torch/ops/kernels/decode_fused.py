@@ -23,7 +23,7 @@ import torch
 
 from ...incubate.nn.functional import swiglu
 from ...nn.functional import rms_norm
-from . import _build, launch_counts
+from . import _build, launch_counts, no_backward
 
 __all__ = ["norm_matmul", "matmul_residual", "plain_norm_matmul",
            "plain_matmul_residual"]
@@ -137,6 +137,7 @@ def _check_bf16_vectors(dims, tensors):
         raise ValueError("bfloat16 kernels need 16-byte aligned tensors")
 
 
+@no_backward("norm_matmul (K3a)")
 def norm_matmul(x, gamma, ws, eps):
     """Fused RMSNorm -> 1..3 projections. ``x`` ``[..., d]``, ``gamma``
     ``[d]``, ``ws`` a list of ``[d, n_i]`` weights. Returns a tuple of
@@ -184,6 +185,7 @@ def norm_matmul(x, gamma, ws, eps):
     return tuple(o.reshape(*x.shape[:-1], o.shape[1]) for o in outs)
 
 
+@no_backward("matmul_residual (K3b)")
 def matmul_residual(xs, w, b, residual, act=None):
     """Fused ``residual + act(xs) @ w (+ b)``; ``xs`` holds one input
     ``[..., K]`` (act None) or two (act ``"swiglu"``: gate, up)."""

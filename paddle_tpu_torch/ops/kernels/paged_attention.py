@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, launch_counts, no_backward
 from ..paged_cache import gather_dense
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
@@ -162,6 +162,7 @@ def _launch(entry, q4, k_pool, v_pool, block_tables, context_lens,
     return out
 
 
+@no_backward("paged_decode_attention (K2d)")
 def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                            sm_scale=None):
     """K2d: ``q [S, H, D]`` -> ``[S, H, D]``. CPU tensors take the plain
@@ -179,6 +180,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     return out[:, 0]
 
 
+@no_backward("paged_verify_attention (K2v)")
 def paged_verify_attention(q, k_pool, v_pool, block_tables, context_lens,
                            sm_scale=None):
     """K2v: ``q [S, T, H, D]`` -> ``[S, T, H, D]``. CPU tensors take the

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, launch_counts, no_backward
 
 __all__ = ["ragged_paged_attention", "plain_ragged_paged_attention"]
 
@@ -126,6 +126,7 @@ def _n_split(block_tables, block_size):
     return max(1, min(MAX_SPLITS, -(-reach // SPLIT_POSITIONS)))
 
 
+@no_backward("ragged_paged_attention (K2r)")
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                            q_lens, row_starts, w_max, sm_scale=None):
     """Ragged paged attention. ``w_max`` (a host int) bounds

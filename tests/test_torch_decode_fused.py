@@ -142,3 +142,21 @@ def test_fused_layer_equals_unfused_bitwise_on_cpu():
                                atol=0)
     for (k1, v1), (k2, v2) in zip(outs[True][1], outs[False][1]):
         assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def test_wrappers_raise_on_backward_with_grad_enabled():
+    """K3a / K3b have no backward: called with gradients enabled on an
+    input that requires them, the output's node raises naming the
+    kernel (as differentiating a ``pallas_call`` without a VJP fails);
+    under ``no_grad`` the output carries no node."""
+    rng = np.random.RandomState(5)
+    x = _t(rng.randn(3, 16).astype(np.float32)).requires_grad_()
+    gamma, w = _t(rng.rand(16).astype(np.float32)), _t(
+        rng.randn(16, 16).astype(np.float32))
+    calls = {"norm_matmul": lambda: df.norm_matmul(x, gamma, [w], 1e-6)[0],
+             "matmul_residual": lambda: df.matmul_residual([x], w, None, x)}
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=name):
+            call().sum().backward()
+        with torch.no_grad():
+            assert call().grad_fn is None

@@ -12,9 +12,14 @@ rounds P against a running row max where the plain version uses the
 final one, a difference well inside that bound). The flash attention
 outputs are also held row by row, scale-free, at ``ROW_RTOL``: a dropped
 tile or a shifted causal edge moves whole rows by far more. The MoE
-grouped matmuls (K4's forward modes, K5's gmm) are held at the same
-tolerances, and the attention kernels at the GQA groups of the MoE
-families: 1 (DeepSeek, 16 / 16 heads) and 7 (Qwen2-57B, 28 / 4)."""
+grouped matmuls (K4's forward and transposed modes, K5's gmm, d(lhs) and
+tgmm) are held at the same tolerances, and the attention kernels at the
+GQA groups of the MoE families: 1 (DeepSeek, 16 / 16 heads) and 7
+(Qwen2-57B, 28 / 4). The MoE dispatch's gradients on the card (fused and
+sorted paths) are held against the same dispatch run through the plain
+versions."""
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -426,8 +431,20 @@ def test_moe_gmm_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(exc, match=match):
             mg.gather_gmm(x, None, w, gs)
     x, w, gs = case()
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        mg.gather_gmm(x, None, w, gs, transpose_rhs=True)
+    with pytest.raises(ValueError, match=r"and \[e, N, K\]"):
+        mg.gather_gmm(x, None, w[:, :, :8].contiguous(), gs,
+                      transpose_rhs=True)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mg.scatter_gmm(x, torch.zeros(4, 12, 16, device=cuda,
+                                      dtype=x.dtype), gs,
+                       torch.arange(8, dtype=torch.int32, device=cuda),
+                       transpose_rhs=True)
+    with pytest.raises(TypeError, match="int32"):
+        mg.tgmm(x, x, gs.long(), 4)
+    with pytest.raises(ValueError, match="num_groups"):
+        mg.tgmm(x, x, gs, 5)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mg.tgmm(x[:, :12].contiguous(), x, gs, 4)
     with pytest.raises(TypeError, match="out_dtype"):
         mg.gather_gmm(x, None, w, gs, out_dtype=torch.float32)
     with pytest.raises(ValueError, match="swiglu|multiples of 8"):
@@ -435,3 +452,122 @@ def test_moe_gmm_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="dst_rows"):
         mg.scatter_gmm(x, w, gs, torch.zeros(3, dtype=torch.int32,
                                              device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("routing,s,d,f,e,k", [
+    ("random", 8, 64, 96, 8, 2), ("random", 40, 128, 64, 16, 6),
+    ("random", 300, 64, 136, 4, 2), ("one", 24, 64, 96, 8, 2),
+    ("sparse", 64, 64, 96, 64, 6), ("single", 16, 128, 64, 8, 2)])
+def test_moe_gmm_backward_modes(cuda, dtype, routing, s, d, f, e, k):
+    """The backward's modes against their plain versions: the
+    transposed gather (``dh``), the transposed gmm on sorted rows (K5's
+    d(lhs)), the transposed scatter (``dx``) and tgmm for both weight
+    gradients, over the routings of the forward test (tgmm's empty
+    groups must come out zero)."""
+    dt = getattr(torch, dtype)
+    x, gu, dn, order, src, gs = _moe_case(routing, s, d, f, e, k, dt, cuda)
+    m = s * k
+    g = torch.Generator(device=cuda).manual_seed(s + e)
+    dpair = torch.randn(m, d, generator=g, device=cuda).to(dt)
+    dgu = torch.randn(m, 2 * f, generator=g, device=cuda).to(dt)
+    h = torch.randn(m, f, generator=g, device=cuda).to(dt)
+    xs = x[src.long()].contiguous()
+    n0 = dict(launch_counts)
+    _rows_close(mg.gather_gmm(dpair, order, dn, gs, transpose_rhs=True),
+                mg.plain_gather_gmm(dpair, order, dn, gs,
+                                    transpose_rhs=True), dtype)
+    ds = dpair[order.long()].contiguous()
+    _rows_close(mg.gather_gmm(ds, None, dn, gs, transpose_rhs=True),
+                mg.plain_gather_gmm(ds, None, dn, gs, transpose_rhs=True),
+                dtype)
+    _rows_close(mg.scatter_gmm(dgu, gu, gs, order, transpose_rhs=True),
+                mg.plain_scatter_gmm(dgu, gu, gs, order,
+                                     transpose_rhs=True), dtype)
+    for lhs, dy in ((h, ds), (xs, dgu)):
+        got = mg.tgmm(lhs, dy, gs, e)
+        _rows_close(got, mg.plain_tgmm(lhs, dy, gs, e), dtype)
+        assert not got[gs == 0].any()
+    for name, n in (("moe_gmm_t", 2), ("moe_scatter_gmm_t", 1),
+                    ("moe_tgmm", 2)):
+        assert launch_counts[name] == n0[name] + n
+
+
+@pytest.mark.gpu
+def test_moe_backward_modes_do_not_read_past_the_groups(cuda):
+    """Rows past the groups' sum: the transposed modes write them as
+    zeros, and tgmm never reads them (NaN there changes nothing)."""
+    x = torch.randn(20, 16, device=cuda)
+    dy = torch.randn(20, 24, device=cuda)
+    w = torch.randn(3, 24, 16, device=cuda)
+    gs = torch.tensor([4, 0, 9], dtype=torch.int32, device=cuda)
+    out = mg.gather_gmm(x, None, w, gs, transpose_rhs=True)
+    torch.testing.assert_close(
+        out, mg.plain_gather_gmm(x, None, w, gs, transpose_rhs=True),
+        **TOL["float32"])
+    assert not out[13:].any()
+    for dt in (torch.float32, torch.bfloat16):
+        xn, dn = x.clone().to(dt), dy.clone().to(dt)
+        xn[13:], dn[13:] = float("nan"), float("nan")
+        got = mg.tgmm(xn, dn, gs, 3)
+        assert torch.isfinite(got.float()).all() and not got[1].any()
+        torch.testing.assert_close(
+            got.float(), mg.plain_tgmm(xn[:13], dn[:13], gs, 3).float(),
+            **TOL["float32" if dt == torch.float32 else "bfloat16"])
+
+
+def _plain_gmm_patches():
+    return [mock.patch.object(mg, n, getattr(mg, "plain_" + n))
+            for n in ("gather_gmm_swiglu", "scatter_gmm", "gather_gmm",
+                      "tgmm")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_moe_block_gradients_on_the_card(cuda, fused):
+    """A DeepSeek-MoE block on the card, float32: the output and the
+    gradients of x, the router and both expert stacks through the kernels
+    equal those through the plain versions, and every expert that
+    received pairs has a non-zero gradient (the sorted path's grouped
+    matmuls carry their gradient on the card)."""
+    from paddle_tpu_torch.models.deepseek_moe import (DeepseekMoeBlock,
+                                                      DeepseekMoeConfig)
+    cfg = DeepseekMoeConfig.tiny(hidden=64, moe_ffn=32, experts=8, topk=2)
+    cfg.dropless, cfg.moe_fused_gmm = True, fused
+    torch.manual_seed(0)
+    block = DeepseekMoeBlock(cfg, device=cuda)
+    for p in block.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    x0 = torch.randn(2, 24, 64, device=cuda)
+
+    def run():
+        block.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        y, aux = block(x)
+        (y.pow(2).sum() + aux).backward()
+        return [y.detach(), x.grad] + [p.grad for p in block.parameters()]
+
+    n0 = dict(launch_counts)
+    got = run()
+    want = ("moe_gather_gmm_swiglu", "moe_scatter_gmm", "moe_gmm_t",
+            "moe_scatter_gmm_t") if fused else ("moe_gmm", "moe_gmm_t")
+    for name in want + ("moe_tgmm",):
+        assert launch_counts[name] > n0[name], name
+    patches = _plain_gmm_patches()
+    for p in patches:
+        p.start()
+    try:
+        ref = run()
+    finally:
+        for p in patches:
+            p.stop()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **TOL["float32"])
+    probs = torch.softmax(block.gate(x0.reshape(-1, 64)).float(), -1)
+    hit = torch.zeros(8, dtype=torch.bool, device=cuda)
+    hit[torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :2]
+        .reshape(-1)] = True
+    for grad in (block.experts.gate_up_proj.grad,
+                 block.experts.down_proj.grad):
+        assert bool((grad.flatten(1).abs().amax(1) > 0)[hit].all())

@@ -1,21 +1,32 @@
-"""The PyTorch port's MoE grouped matmuls (K4's forward modes, K5's
-forward gmm) and dispatch against the JAX package on the CPU.
+"""The PyTorch port's MoE grouped matmuls (K4's modes, K5's gmm, d(lhs)
+and tgmm) and dispatch, forward and backward, against the JAX package on
+the CPU.
 
 Kernel level: the port's plain ``gather_gmm_swiglu``, ``scatter_gmm``
-and ``gather_gmm`` (with and without ``src_rows``) against the
-reference's Pallas kernel run in interpret mode, at s 64, d 64, f 128,
-e 8, top-2, over three routings: random picks, picks that leave most
-experts empty, and a 16-row tiling under which groups start mid-tile.
-Tolerances: 1e-5 in float32 (the same products summed in another
-order), 2e-2 in bfloat16 (one rounding of the output to bf16 either
-way).
+and ``gather_gmm`` (with and without ``src_rows``, and the transposed
+modes of the backward) against the reference's Pallas kernel run in
+interpret mode, at s 64, d 64, f 128, e 8, top-2, over three routings:
+random picks, picks that leave most experts empty, and a 16-row tiling
+under which groups start mid-tile; the plain ``tgmm`` and transposed
+gmm on sorted rows against megablox ``tgmm`` / ``gmm(transpose_rhs=True)``
+interpreted, with an empty group and a group of one row. Tolerances:
+1e-5 in float32 (the same products summed in another order), 2e-2 in
+bfloat16 (one rounding of the output to bf16 either way).
 
 Dispatch level: ``moe_dispatch_combine_dropless`` and
 ``moe_dispatch_combine_grouped`` (capacity 1.25) against the
-reference's CPU sorted path, ``y`` and ``aux`` within 1e-5 in float32;
-the port's fused and sorted paths agree; a router tie goes to the lower
-expert index as ``lax.top_k``; the options of later slices raise.
+reference's CPU sorted path, ``y`` and ``aux`` within 1e-5 in float32,
+and the four gradients (x, gate_up, down, router logits) against
+``jax.grad`` of the reference on both of the port's paths, each divided
+by ``max(|ref|, 1)``, within 2e-5 (the reference's own bar for its
+fused VJP); ``_FusedMoeCore``'s backward against the reference's
+``_fused_moe_core`` VJP with the Pallas kernels interpreted; the sorted
+path's graph holds the ``_Gmm`` node; the port's fused and sorted paths
+agree; a router tie goes to the lower expert index as ``lax.top_k``;
+nothing in the dispatch or its backwards reads a value to the host; the
+options of later slices raise.
 """
+import importlib
 import ast
 import inspect
 
@@ -26,12 +37,15 @@ import pytest
 import torch
 
 from paddle_tpu.distributed import moe as JM
+from paddle_tpu.ops.pallas.flash_attention_kernel import disable_x64
 from paddle_tpu.ops.pallas import moe_gmm as JG
 from paddle_tpu_torch.distributed import moe as TM
 from paddle_tpu_torch.ops.kernels import moe_gmm as TG
 
 S, D, F, E, K = 64, 64, 128, 8, 2
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GRAD_TOL = 2e-5         # dispatch gradients over max(|ref|, 1)
+MB = importlib.import_module("jax.experimental.pallas.ops.tpu.megablox.gmm")
 
 
 def _routing(kind, rng):
@@ -91,6 +105,9 @@ def test_plain_modes_match_interpreted_pallas(dtype, routing, tiling):
 
 
 def test_rows_past_the_groups_are_zero_and_transpose_raises():
+    """Rows no group owns come out zero, in the forward and in the
+    transposed modes; tgmm never reads them. (The name is kept from the
+    slice whose transposed modes raised; they now run.)"""
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(10, 16).astype(np.float32))
     w = torch.from_numpy(rng.randn(3, 16, 8).astype(np.float32))
@@ -101,11 +118,72 @@ def test_rows_past_the_groups_are_zero_and_transpose_raises():
     np.testing.assert_allclose(out[2:7].numpy(), (x[2:7] @ w[2]).numpy(),
                                rtol=1e-6, atol=1e-6)
     assert not out[7:].any()
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        TG.gather_gmm(x, None, w, gs, transpose_rhs=True)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        TG.scatter_gmm(x, w, gs, torch.arange(10, dtype=torch.int32),
-                       transpose_rhs=True)
+    wt = w.transpose(1, 2).contiguous()                  # [e, N, K]
+    out_t = TG.gather_gmm(x, None, wt, gs, transpose_rhs=True)
+    np.testing.assert_array_equal(out_t.numpy(), out.numpy())
+    dst = torch.from_numpy(rng.permutation(10).astype(np.int32))
+    out_s = TG.scatter_gmm(x, wt, gs, dst, transpose_rhs=True)
+    np.testing.assert_array_equal(out_s[dst.long()].numpy(), out.numpy())
+    assert not out_s[dst[7:].long()].any()
+    dy = torch.from_numpy(rng.randn(10, 8).astype(np.float32))
+    x_nan, dy_nan = x.clone(), dy.clone()
+    x_nan[7:], dy_nan[7:] = float("nan"), float("nan")
+    dw = TG.tgmm(x_nan, dy_nan, gs, 3)
+    np.testing.assert_allclose(dw[0].numpy(), (x[:2].T @ dy[:2]).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(dw[2].numpy(), (x[2:7].T @ dy[2:7]).numpy(),
+                               rtol=1e-6, atol=1e-5)
+    assert not dw[1].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("routing", ["random", "sparse"])
+def test_plain_transposed_modes_match_interpreted_pallas(dtype, routing):
+    """The backward's K4 modes: ``dh = gather_gmm(dpair, order, down,
+    transpose_rhs=True)`` (and the same on pre-sorted rows, K5's d(lhs))
+    and ``dx_tok = scatter_gmm(dgu, gate_up, order, transpose_rhs=True)``
+    against the Pallas kernel interpreted."""
+    rng = np.random.RandomState(2)
+    guj, gut = _both(0.1 * rng.randn(E, D, 2 * F), dtype)
+    dnj, dnt = _both(0.1 * rng.randn(E, F, D), dtype)
+    dpj, dpt = _both(rng.randn(S * K, D), dtype)
+    dguj, dgut = _both(rng.randn(S * K, 2 * F), dtype)
+    order, _, counts = _routing(routing, rng)
+    gsj, gst = jnp.asarray(counts), torch.from_numpy(counts)
+    ordj, ordt = jnp.asarray(order), torch.from_numpy(order)
+    kw = dict(interpret=True, transpose_rhs=True)
+    _close(TG.gather_gmm(dpt, ordt, dnt, gst, transpose_rhs=True),
+           JG.gather_gmm(dpj, ordj, dnj, gsj, **kw), dtype)
+    dsj, dst = jnp.take(dpj, ordj, axis=0), dpt[ordt.long()]
+    _close(TG.gather_gmm(dst, None, dnt, gst, transpose_rhs=True),
+           JG.gather_gmm(dsj, None, dnj, gsj, **kw), dtype)
+    _close(TG.scatter_gmm(dgut, gut, gst, ordt, transpose_rhs=True),
+           JG.scatter_gmm(dguj, guj, gsj, ordj, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_tgmm_and_dlhs_match_megablox(dtype):
+    """K5's backward kernels: the plain ``tgmm`` against megablox
+    ``tgmm(lhs.T, dy, gs, num_actual_groups=e)`` and the plain transposed
+    gmm on sorted rows against megablox ``gmm(transpose_rhs=True)``,
+    both interpreted, with an empty group and a group of one row."""
+    rng = np.random.RandomState(3)
+    m, k, n = S * K, D, 2 * F
+    counts = np.array([30, 0, 1, 40, 17, 0, 20, 20], np.int32)
+    lj, lt = _both(rng.randn(m, k), dtype)
+    yj, yt = _both(rng.randn(m, n), dtype)
+    wj, wt = _both(0.1 * rng.randn(E, k, n), dtype)   # [e, N, K]
+    gsj, gst = jnp.asarray(counts), torch.from_numpy(counts)
+    kw = dict(preferred_element_type=jnp.dtype(dtype), tiling=(16, 64, 128),
+              interpret=True)
+    got = TG.tgmm(lt, yt, gst, E)
+    assert got.dtype == getattr(torch, dtype) and not got[[1, 5]].any()
+    with disable_x64():         # megablox traces in 32-bit mode
+        want = MB.tgmm(lj.T, yj, gsj, num_actual_groups=E, **kw)
+        want_t = MB.gmm(yj, wj, gsj, transpose_rhs=True, **kw)
+    _close(got, want, dtype)
+    _close(TG.gather_gmm(yt, None, wt, gst, transpose_rhs=True), want_t,
+           dtype)
 
 
 # ------------------------------------------------------------- dispatch
@@ -195,27 +273,153 @@ def test_serving_tap_collects_device_counts():
         sink[0].numpy(), np.bincount(top2.numpy(), minlength=8))
 
 
+def _graph_nodes(t):
+    """Names of the autograd nodes behind ``t``."""
+    seen, stack, names = set(), [t.grad_fn], set()
+    while stack:
+        n = stack.pop()
+        if n is None or n in seen:
+            continue
+        seen.add(n)
+        names.add(type(n).__name__)
+        stack += [m for m, _ in n.next_functions]
+    return names
+
+
+@pytest.mark.parametrize("kind", ["dropless", "grouped"])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("fused", [True, False])
+def test_dispatch_gradients_match_jax_grad(kind, normalize, fused):
+    """d(x), d(gate_up), d(down) and d(router logits) of ``sum(y * y) +
+    aux`` against ``jax.grad`` of the reference; the skew drops pairs
+    under capacity 1.25."""
+    x, logits, gu, dn = _dispatch_case(3, skew=2.0)
+    e, k = 8, 2
+    jfn = getattr(JM, f"moe_dispatch_combine_{kind}")
+    tfn = getattr(TM, f"moe_dispatch_combine_{kind}")
+    extra = {} if kind == "dropless" else dict(capacity_factor=1.25)
+
+    def loss_ref(x, logits, gu, dn):
+        y, aux = jfn(x, logits, e, k, gu, dn, normalize_gates=normalize,
+                     **extra)
+        return jnp.sum(y * y) + aux
+
+    want = jax.grad(loss_ref, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (x, logits, gu, dn)))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (x, logits, gu, dn)]
+    y, aux = tfn(leaves[0], leaves[1], e, k, leaves[2], leaves[3],
+                 normalize_gates=normalize, fused=fused, **extra)
+    assert ("_FusedMoeCoreBackward" if fused else "_GmmBackward") \
+        in _graph_nodes(y)
+    ((y * y).sum() + aux).backward()
+    for name, t, w in zip(("dx", "dlogits", "dgate_up", "ddown"), leaves,
+                          want):
+        scale = max(float(jnp.abs(w).max()), 1.0)
+        np.testing.assert_allclose(t.grad.numpy() / scale,
+                                   np.asarray(w) / scale, atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=name)
+
+
+def test_fused_core_backward_matches_reference_vjp():
+    """``_FusedMoeCore``'s backward against the reference's
+    ``_fused_moe_core`` VJP with its Pallas kernels interpreted (the
+    reference runs them at 128-aligned shapes): d(x), d(gate_up),
+    d(down) and d(gates) for one cotangent."""
+    rng = np.random.RandomState(4)
+    s, d, f, e, k = 128, 128, 128, 8, 2
+    x = rng.randn(s, d).astype(np.float32)
+    gu = (0.1 * rng.randn(e, d, 2 * f)).astype(np.float32)
+    dn = (0.1 * rng.randn(e, f, d)).astype(np.float32)
+    gates = rng.rand(s, k).astype(np.float32)
+    dy = rng.randn(s, d).astype(np.float32)
+    flat = rng.randint(0, e, s * k)
+    flat[:40] = 2                             # one crowded expert
+    flat[flat == 5] = 6                       # and an empty one
+    order = np.argsort(flat, kind="stable").astype(np.int32)
+    src = (order // k).astype(np.int32)
+    gs = np.bincount(flat, minlength=e).astype(np.int32)
+    y_ref, vjp = jax.vjp(
+        lambda *a: JM._fused_moe_core(k, True, *a, jnp.asarray(order),
+                                      jnp.asarray(src), jnp.asarray(gs)),
+        *map(jnp.asarray, (x, gu, dn, gates)))
+    want = vjp(jnp.asarray(dy))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, gu, dn,
+                                                             gates)]
+    y = TM._FusedMoeCore.apply(*leaves, torch.from_numpy(order),
+                               torch.from_numpy(src), torch.from_numpy(gs),
+                               k)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
+                               atol=1e-5, rtol=1e-5)
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    for name, a, b in zip(("dx", "dgate_up", "ddown", "dgates"), got,
+                          want):
+        scale = max(float(jnp.abs(b).max()), 1.0)
+        np.testing.assert_allclose(a.numpy() / scale, np.asarray(b) / scale,
+                                   atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=name)
+    assert not got[1][5].any() and not got[2][5].any()
+
+
 def test_dispatch_reads_nothing_back_to_the_host():
-    """The routing stays on the device: no call in the dispatch reads a
-    value back (``item``, ``tolist``, ``bincount``, ``nonzero``,
+    """The routing stays on the device: no call in the dispatch, nor in
+    the backwards of ``_FusedMoeCore`` and ``_Gmm``, reads a value back
+    (``item``, ``tolist``, ``bincount``, ``nonzero``,
     ``repeat_interleave``) or indexes with a boolean mask."""
-    tree = ast.parse(inspect.getsource(TM))
-    calls = {getattr(n.func, "attr", getattr(n.func, "id", None))
-             for n in ast.walk(tree) if isinstance(n, ast.Call)}
-    assert not calls & {"item", "tolist", "bincount", "nonzero",
-                        "repeat_interleave", "masked_select", "numpy",
-                        "cpu", "one_hot"}
+    banned = {"item", "tolist", "bincount", "nonzero", "repeat_interleave",
+              "masked_select", "numpy", "cpu", "one_hot"}
+    for obj in (TM, TM._FusedMoeCore, TM._Gmm, TM._grouped_mm_dlhs,
+                TM._grouped_mm_drhs):
+        tree = ast.parse(inspect.getsource(obj).lstrip()
+                         if obj is not TM else inspect.getsource(obj))
+        calls = {getattr(n.func, "attr", getattr(n.func, "id", None))
+                 for n in ast.walk(tree) if isinstance(n, ast.Call)}
+        assert not calls & banned, (obj, calls & banned)
+    backward = ast.parse(inspect.getsource(TM._FusedMoeCore))
+    assert any(isinstance(n, ast.FunctionDef) and n.name == "backward"
+               for n in ast.walk(backward))
+
+
+def test_kernel_wrappers_without_backward_raise_on_backward():
+    """Called directly with gradients enabled on an input that requires
+    them, a K4 / K5 wrapper's output carries a node whose backward
+    raises naming the kernel; under ``no_grad`` it carries none."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(6, 8).astype(np.float32))
+    w = torch.from_numpy(rng.randn(2, 8, 16).astype(np.float32)) \
+        .requires_grad_()
+    gs = torch.tensor([4, 2], dtype=torch.int32)
+    rows = torch.arange(6, dtype=torch.int32)
+    calls = {"moe_gmm": lambda: TG.gather_gmm(x, rows, w, gs),
+             "moe_gather_gmm_swiglu": lambda: TG.gather_gmm_swiglu(
+                 x, None, w, gs),
+             "moe_scatter_gmm": lambda: TG.scatter_gmm(x, w, gs, rows),
+             "moe_tgmm": lambda: TG.tgmm(x, w[0, :6], gs, 2)}
+    for name, call in calls.items():
+        out = call()
+        with pytest.raises(NotImplementedError, match=name):
+            out.sum().backward()
+        with torch.no_grad():
+            plain = call()
+        assert plain.grad_fn is None
+        np.testing.assert_array_equal(out.detach().numpy(), plain.numpy())
 
 
 def test_later_slice_options_raise():
+    """Random second-expert routing and the padded dispatch still raise
+    (now naming the slice that brings them); the backward, which raised
+    before this slice, runs."""
     x, logits, gu, dn = (torch.from_numpy(a) for a in _dispatch_case(7))
-    with pytest.raises(NotImplementedError, match="MoE training"):
+    with pytest.raises(NotImplementedError,
+                       match="expert parallelism and gates"):
         TM.moe_dispatch_combine_grouped(
             x, logits, 8, 2, gu, dn, second_expert_policy="random",
             rng_key=0)
-    with pytest.raises(NotImplementedError, match="MoE training"):
+    with pytest.raises(NotImplementedError,
+                       match="expert parallelism and gates"):
         TM.moe_dispatch_combine(x, logits, 8, expert_fn=lambda t: t)
     xg = x.clone().requires_grad_()
     y, _ = TM.moe_dispatch_combine_dropless(xg, logits, 8, 2, gu, dn)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        y.sum().backward()
+    y.sum().backward()
+    assert xg.grad.shape == x.shape and torch.isfinite(xg.grad).all()
+    assert xg.grad.abs().sum() > 0

@@ -12,28 +12,62 @@ with scores within 1e-4. A capacity-routed model is refused by the
 engine and excluded from prompt bucketing and speculation, the MoE
 ``stats()`` keys are present for a dense Llama too, and a q/k/v-biased
 attention serves on the unfused path while the fused one refuses it.
+
+Training, in float32 (Qwen2-MoE capacity-routed, its default and the
+reference bench's; DeepSeek-MoE dropless): the loss (criterion plus
+router aux) within 1e-5 and every parameter's gradient, by the
+reference's name, within 1e-4 of its largest value against the
+reference's ``loss.backward()``, on the fused and the sorted path; three
+``TrainStep`` + AdamW steps against the reference's compiled
+``TrainStep`` (losses rtol 1e-5; parameters at the Llama training test's
+bounds: every element within 5e-5, and all but 1e-4 of the elements
+within 2e-6); three eager steps with ``ClipGradForMOEByGlobalNorm``
+against the reference's eager loop (the same tolerances). Both
+optimizers take ``epsilon=1e-6`` here: Adam's first step moves an
+element by ``lr * g / (|g| + eps)``, so a gradient element near ``eps``
+turns its last-bit rounding (the two packages sum in other orders) into
+a visible part of a step, at a gain of up to ``lr / eps``. These tiny
+MoE models have many such elements (experts that few tokens reach, and
+Qwen2's k_proj bias, whose gradient is zero in exact arithmetic: it adds
+one constant to all of a query's scores), and tensors of 32 to 4096
+elements, so the count of elements past 2e-6 is taken over the whole
+model rather than per tensor, and leaves out the k_proj biases (held to
+the 5e-5 bound only: Adam steps them by their rounding noise, which
+neither package shares);
+``collect_drop_rates`` equal to the reference's on a capacity-routed
+Qwen2-MoE.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.inference import ServingConfig as JaxServingConfig
+from paddle_tpu.distributed.moe import \
+    ClipGradForMOEByGlobalNorm as JaxMoeClip
 from paddle_tpu.inference import ServingEngine as JaxServingEngine
+from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.models.deepseek_moe import \
     DeepseekMoeConfig as JaxDeepseekConfig
 from paddle_tpu.models.deepseek_moe import \
     DeepseekMoeForCausalLM as JaxDeepseek
 from paddle_tpu.models.qwen2_moe import Qwen2MoeConfig as JaxQwenConfig
 from paddle_tpu.models.qwen2_moe import Qwen2MoeForCausalLM as JaxQwen
+from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu_torch.convert import load_jax_params
 from paddle_tpu_torch.distributed import moe
+from paddle_tpu_torch.distributed.moe import ClipGradForMOEByGlobalNorm
 from paddle_tpu_torch.generation import speculative as spec
 from paddle_tpu_torch.inference import ServingConfig, ServingEngine
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.models import (DeepseekMoeConfig,
                                      DeepseekMoeForCausalLM, LlamaConfig,
                                      LlamaForCausalLM, Qwen2MoeConfig,
                                      Qwen2MoeForCausalLM)
+from paddle_tpu_torch.optimizer import AdamW
 
 FAMILIES = {
     "qwen2": (JaxQwenConfig, JaxQwen, Qwen2MoeConfig, Qwen2MoeForCausalLM,
@@ -217,3 +251,124 @@ def test_biased_attention_refuses_the_fused_decode_path():
     eng = ServingEngine(m, ServingConfig(**CORE), device="cpu")
     with pytest.raises(NotImplementedError, match="bias"):
         eng.serve([[1, 2, 3]], max_new_tokens=2)
+
+
+# -- training -----------------------------------------------------------
+
+TRAIN_DROPLESS = {"qwen2": False, "deepseek": True}
+
+
+def _train_batches(n, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(1, 128, (2, 12)).astype(np.int64)
+        out.append((ids, np.roll(ids, -1, axis=1)))
+    return out
+
+
+def _train_pair(family, fused=True):
+    ref, port, _ = _build(family, TRAIN_DROPLESS[family], seed=13)
+    ref.train()
+    port.config.moe_fused_gmm = fused
+    return ref, port
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_grads(family):
+    ref, _ = _train_pair(family)
+    ids, labels = _train_batches(1, seed=5)[0]
+    loss = ref(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+    loss.backward()
+    return float(loss.numpy()), {n: np.asarray(p.grad.numpy())
+                                 for n, p in ref.named_parameters()}
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_loss_and_every_gradient_match_reference(family, fused):
+    loss_ref, grads_ref = _reference_grads(family)
+    _, port = _train_pair(family, fused)
+    ids, labels = _train_batches(1, seed=5)[0]
+    moe.reset_moe_stats()
+    loss = port(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+    loss.backward()
+    assert moe.moe_stats()["grouped_mm_kernel"] == (
+        "fused_gmm" if fused else "gmm")
+    np.testing.assert_allclose(float(loss.detach()), loss_ref, rtol=1e-5)
+    named = dict(port.named_parameters())
+    assert set(named) == set(grads_ref)
+    for name, want in grads_ref.items():
+        got = named[name].grad
+        assert got is not None, name
+        scale = max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * scale,
+                                   rtol=0, err_msg=name)
+    experts = [n for n in named if n.endswith("experts.down_proj")]
+    assert experts and all(named[n].grad.abs().sum() > 0 for n in experts)
+
+
+ADAM = dict(weight_decay=0.01, epsilon=1e-6)
+
+
+def _assert_params_close(port, ref):
+    want = {n: np.asarray(p.numpy()) for n, p in ref.named_parameters()}
+    over = size = 0
+    for name, p in port.named_parameters():
+        d = np.abs(p.detach().numpy() - want[name])
+        assert d.max() <= 5e-5, (name, float(d.max()))
+        if not name.endswith("k_proj.bias"):    # a zero gradient
+            over += int((d > 2e-6).sum())
+            size += d.size
+    assert over <= 1e-4 * size, (over, size)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_train_step_trajectory_matches_reference(family):
+    ref, port = _train_pair(family)
+    opt_r = JaxAdamW(1e-3, parameters=ref.parameters(), **ADAM)
+    opt_p = AdamW(1e-3, parameters=port.parameters(), **ADAM)
+    step_r = JaxTrainStep(ref, lambda out, a, k: out, opt_r)
+    step_p = TrainStep(port, lambda out, a, k: out, opt_p)
+    losses_r, losses_p = [], []
+    for ids, labels in _train_batches(3, seed=6):
+        losses_r.append(float(step_r(paddle.to_tensor(ids),
+                                     paddle.to_tensor(labels)).numpy()))
+        losses_p.append(float(step_p(ids, labels)))
+    np.testing.assert_allclose(losses_p, losses_r, rtol=1e-5)
+    _assert_params_close(port, ref)
+
+
+def test_eager_loop_with_moe_clip_matches_reference():
+    ref, port = _train_pair("deepseek")
+    clip_p = ClipGradForMOEByGlobalNorm(0.5, is_expert_param_func=lambda p:
+                                        p.dim() == 3)
+    assert isinstance(clip_p, ClipGradByGlobalNorm)
+    opt_r = JaxAdamW(1e-3, parameters=ref.parameters(),
+                     grad_clip=JaxMoeClip(0.5), **ADAM)
+    opt_p = AdamW(1e-3, parameters=port.parameters(), grad_clip=clip_p,
+                  **ADAM)
+    for ids, labels in _train_batches(3, seed=7):
+        loss_r = ref(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+        loss_r.backward()
+        opt_r.step()
+        opt_r.clear_grad()
+        loss_p = port(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+        loss_p.backward()
+        opt_p.step()
+        opt_p.clear_grad()
+        np.testing.assert_allclose(float(loss_p.detach()),
+                                   float(loss_r.numpy()), rtol=1e-5)
+    _assert_params_close(port, ref)
+
+
+def test_collect_drop_rates_match_reference():
+    ref, port, _ = _build("qwen2", False, seed=17)
+    # a longer batch, so capacity 1.25 of 4 experts drops pairs
+    ids = np.random.RandomState(9).randint(1, 128, (4, 24)).astype(np.int64)
+    port.train()
+    want = ref.collect_drop_rates(paddle.to_tensor(ids))
+    got = port.collect_drop_rates(ids)
+    assert port.training and len(got) == len(want) == 2
+    np.testing.assert_allclose(got, want, atol=1e-7)
+    assert max(got) > 0

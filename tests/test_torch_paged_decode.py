@@ -192,3 +192,18 @@ def test_cpu_tensors_take_the_plain_versions():
     pda.paged_decode_attention(_t(c["q"][:, 0]), _t(c["kp"]), _t(c["vp"]),
                                _t(c["tables"]), _t(c["lens"]))
     assert launch_counts == n0
+
+
+def test_wrappers_raise_on_backward_with_grad_enabled():
+    """K2d / K2v have no backward: with gradients enabled on a query
+    that requires them, ``backward()`` raises naming the kernel."""
+    rng = np.random.RandomState(6)
+    c = _case(rng, [3, 8], 2, 2, 8)
+    q = _t(c["q"]).requires_grad_()
+    rest = (_t(c["kp"]), _t(c["vp"]), _t(c["tables"]), _t(c["lens"]))
+    with pytest.raises(NotImplementedError, match="paged_verify_attention"):
+        pda.paged_verify_attention(q, *rest).sum().backward()
+    with pytest.raises(NotImplementedError, match="paged_decode_attention"):
+        pda.paged_decode_attention(q[:, 0], *rest).sum().backward()
+    with torch.no_grad():
+        assert pda.paged_verify_attention(q, *rest).grad_fn is None

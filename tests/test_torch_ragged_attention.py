@@ -188,3 +188,16 @@ def test_cpu_tensors_take_the_plain_version():
     n0 = launch_counts["ragged_paged_attention"]
     _port_plain(b)
     assert launch_counts["ragged_paged_attention"] == n0
+
+
+def test_wrapper_raises_on_backward_with_grad_enabled():
+    """K2r has no backward: with gradients enabled on a query that
+    requires them, ``backward()`` raises naming the kernel."""
+    rng = np.random.RandomState(3)
+    b = _batch(rng, base=[3, 8], q_lens=[1, 4], H=4, Hkv=2, D=64)
+    q = _t(b["q"]).requires_grad_()
+    out = rpa.ragged_paged_attention(
+        q, _t(b["kp"]), _t(b["vp"]), _t(b["tables"]), _t(b["ctx"]),
+        _t(b["q_lens"]), _t(b["row_starts"]), b["w_max"])
+    with pytest.raises(NotImplementedError, match="ragged_paged_attention"):
+        out.sum().backward()
