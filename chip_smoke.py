@@ -18,9 +18,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ticks, at Qwen2-57B-A14B's widths and at edge routings, and the MoE
    backward's modes (K4's transposed gather and scatter, K5's d(lhs) and
    tgmm) at the phase-12 training shape (2 x 4096 tokens, top-6), at
-   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings — and
-   time kernel, plain version and a PyTorch library yardstick with CUDA
-   events;
+   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings, and
+   the FlashMask forward / dq / dk-dv kernels (K6) at Llama-3-8B's
+   attention heads (B 1, L 4096, 32 / 8 heads, D 128) under five masks:
+   (a) 8 unequal documents, causal, (b) two bounds per query head,
+   (c) half the rows hidden everywhere (o, dq exactly 0, lse NEG_INF
+   there), (d) nothing hidden beyond causal (equal to K1 causal), (e) a
+   4000-token tail at 8 / 4 heads, D 64 — and time kernel, plain
+   version and a PyTorch library yardstick with CUDA events (K6 on
+   mask (a), against SDPA with the dense boolean mask and K1 causal);
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -87,11 +93,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     kernels against the plain versions, and the fused path against the
     sorted one; every routed expert that received pairs must have a
     gradient;
-14. print the kernels line, the card's name and power limit, and the
+14. (unused);
+15. ``nn.functional.flashmask_attention`` forward + backward in bfloat16
+    on one 16384-token row of 8 equal documents, causal, at Llama-3-8B's
+    attention heads (32 / 8, D 128): K6f, K6dq and K6dkv launch once
+    each and K1 never, q / k / v get finite nonzero gradients, and the
+    output and gradients equal K1 causal run document by document and
+    the plain K6 passes (the lse too);
+    then fwd + bwd ms of K6 and of K1 causal over the whole row, their
+    ratio, the kernels alone, and peak memory; then
+    ``scaled_dot_product_attention`` with a boolean mask and dropout
+    at a small shape (undropped output vs the plain composition, the
+    dropped share within 4 sigma of p, two seeded runs equal);
+16. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
-11, the three runs of phase 12) runs with every launch count set to 0
+11, the three runs of phase 12, phase 15) runs with every launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
 failed comparison or exception exits non-zero before the result line.
@@ -188,6 +206,15 @@ MOE_TRAIN = dict(layers=4, batch=2, seq=4096, warm=2, timed=5, profiled=2,
                  pool=4, sorted_steps=2)
 QWEN2_TRAIN = dict(layers=1, batch=1, seq=4096, steps=2)
 MOE_GRAD = dict(layers=3, batch=1, seq=1024)
+# phase 2's FlashMask shapes: Llama-3-8B's attention heads at L 4096, and
+# a tail length at the reference bench's heads; phase 15's 16k row of 8
+# equal documents (the reference bench's workload at Llama-3-8B's heads)
+# and its small masked-SDPA check
+FLASHMASK = dict(B=1, L=4096, H=32, Hkv=8, D=128)
+FLASHMASK_TAIL = dict(B=1, L=4000, H=8, Hkv=4, D=64, Hm=4)
+FLASHMASK_ROW = dict(B=1, L=16384, H=32, Hkv=8, D=128, docs=8)
+SDPA_MASKED = dict(B=2, L=256, H=8, Hkv=2, D=64, p=0.1)
+FLASHMASK_KERNELS = ("flashmask_fwd", "flashmask_dq", "flashmask_dkv")
 
 
 def log(*a):
@@ -576,6 +603,217 @@ def check_flash(torch, F, fa, dtype, timing):
         f"scaled_dot_product_attention backward (dq, dk, dv): "
         f"ms={lib_b:.4f}")
     del out_t
+    return errs, rows_out
+
+
+def doc_bounds(lengths, causal_only=True):
+    """One-bound FlashMask bounds of documents of ``lengths`` packed in
+    one row (as ``bench.py``'s ``_flashmask_bench`` builds them): column
+    j of the document [a, b) hides rows [b, L), so with causal a token
+    sees its own document's prefix."""
+    edges = np.concatenate([[0], np.cumsum(lengths)])
+    start = np.zeros(int(edges[-1]), np.int32)
+    for a, b in zip(edges[:-1], edges[1:]):
+        start[a:b] = b
+    return start
+
+
+def flashmask_masks(torch, rng):
+    """Phase 2's FlashMask masks at FLASHMASK's shape, each
+    ``(startend_row_indices, causal)`` from the seeded ``rng``."""
+    B, L, H = (FLASHMASK[k] for k in ("B", "L", "H"))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+
+    def unequal_docs(length, n):
+        cuts = np.sort(rng.choice(np.arange(1, length // 64), n - 1,
+                                  replace=False)) * 64
+        return np.diff(np.concatenate([[0], cuts, [length]]))
+    # (a) document-causal, one bound, 8 unequal documents, one mask head
+    a = doc_bounds(unequal_docs(L, 8))[None, None, :, None]
+    # (b) two bounds per query head: the columns of each document hide
+    # the rows from its end for a random span, not causal
+    b = np.zeros((B, H, L, 2), np.int32)
+    for h in range(H):
+        docs = np.diff(np.concatenate([[0], np.sort(rng.choice(
+            np.arange(16, L - 16), 7, replace=False)), [L]]))
+        start = doc_bounds(docs)
+        span = rng.randint(0, L, size=len(docs))
+        b[0, h, :, 0] = start
+        b[0, h, :, 1] = np.minimum(L, start + np.repeat(span, docs))
+    # (c) rows [L/2, L) hidden on every column
+    c = np.full((B, 1, L, 1), L // 2, np.int32)
+    # (d) start = L everywhere: hides nothing beyond causal
+    d = np.full((B, 1, L, 1), L, np.int32)
+    Le = FLASHMASK_TAIL["L"]
+    e = np.stack([doc_bounds(unequal_docs(Le - Le % 64, 8)) for _ in
+                  range(FLASHMASK_TAIL["Hm"])])
+    e = np.concatenate([e, np.full((len(e), Le % 64), Le, np.int32)], 1)
+    return {"a": (t(a), True), "b": (t(b), False), "c": (t(c), False),
+            "d": (t(d), True), "e": (t(e[None, ..., None]), True)}
+
+
+def visible_pairs(torch, start, end, b, h, lq, causal):
+    """The (query row, key column) pairs a FlashMask mask leaves
+    visible, summed over every query head: what the kernels' bounds
+    count. ``start`` / ``end`` [B * Hm, Lk] int32."""
+    s, e = start.long(), end.long().clamp(max=lq)
+    j = torch.arange(start.shape[1], device=start.device)
+    lo = j if causal else torch.zeros_like(j)          # first row seeing j
+    hidden = (e - torch.maximum(s, lo)).clamp(min=0)
+    seen = (lq - lo).clamp(min=0) - hidden
+    return int(seen.sum()) * (h // (start.shape[0] // b))
+
+
+def check_flashmask(torch, F, fa, fm, dtype, timing):
+    """K6f, K6dq and K6dkv against their plain versions at FLASHMASK's
+    shape (Llama-3-8B's heads at L 4096) under masks (a)-(d) of
+    ``flashmask_masks`` and at FLASHMASK_TAIL's under (e), elementwise
+    and row by row; on (c) o and dq must be exactly 0 and lse NEG_INF on
+    the hidden rows, and on (d) K6 must give K1 causal's results. Timing
+    rows in bfloat16 on (a): K6, the operations bound over the visible
+    pairs, the plain versions, SDPA with the dense boolean mask (k / v
+    repeated to the query heads) and K1 causal at the same shape."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(dt)  # noqa
+    masks = flashmask_masks(torch, np.random.RandomState(SEED + 16))
+    fails, errs, keep = [], {}, {}
+    for name, (idx, causal) in masks.items():
+        shape = FLASHMASK_TAIL if name == "e" else FLASHMASK
+        B, L, H, Hkv, D = (shape[k] for k in ("B", "L", "H", "Hkv", "D"))
+        q, k, v, do = rnd(B, L, H, D), rnd(B, L, Hkv, D), \
+            rnd(B, L, Hkv, D), rnd(B, L, H, D)
+        start, end = fm.flashmask_bounds(idx, L, H, Hkv, device="cuda")
+        scale = D ** -0.5
+        tag = f"flashmask ({name})"
+        o, lse, tiles = fm.flashmask_fwd(q, k, v, start, end, scale,
+                                         causal)
+        o_p, lse_p = fm.plain_flashmask_fwd(q, k, v, start, end, scale,
+                                            causal)
+        delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, do, lse_p, delta, start, end, scale, causal)
+        dq = fm.flashmask_dq(*args, tiles=tiles)
+        dkv = fm.flashmask_dkv(*args, tiles=tiles)
+        torch.cuda.synchronize()
+        same = torch.equal(tiles, fm.plain_flashmask_tiles(start, end))
+        log(f"  {tag} tile summary [{dtype}] equals the plain one: "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            fails.append(f"{tag} tiles")
+        e = {"flashmask_fwd": max(
+            held_attention(torch, o, o_p, dtype, f"{tag} fwd o", fails),
+            held_attention(torch, lse, lse_p, dtype, f"{tag} fwd lse",
+                           fails)),
+             "flashmask_dq": held_attention(
+                 torch, dq, fm.plain_flashmask_dq(*args), dtype,
+                 f"{tag} dq", fails),
+             "flashmask_dkv": max(
+                 held_attention(torch, a, b, dtype, f"{tag} dkv {n}", fails)
+                 for n, a, b in zip(("dk", "dv"), dkv,
+                                    fm.plain_flashmask_dkv(*args)))}
+        for kname, err in e.items():
+            errs[kname] = max(errs.get(kname, 0.0), err)
+        if name == "c":
+            h2 = L // 2
+            zero = bool((o[:, h2:] == 0).all()) and bool(
+                (dq[:, h2:] == 0).all()) and bool(
+                (lse[..., h2:] == fa.NEG_INF).all())
+            log(f"  {tag}: o, dq exactly 0 and lse NEG_INF on the hidden "
+                f"rows: {'ok' if zero else 'FAIL'}")
+            if not zero:
+                fails.append(f"{tag} hidden rows")
+        if name == "d":
+            o1, lse1 = fa.flash_attention_fwd(q, k, v, scale, True)
+            held_attention(torch, o, o1, dtype, f"{tag} fwd o vs K1 causal",
+                           fails)
+            held_attention(torch, lse, lse1, dtype,
+                           f"{tag} fwd lse vs K1 causal", fails)
+            k1 = (q, k, v, do, lse_p, delta, scale, True)
+            held_attention(torch, dq, fa.flash_attention_dq(*k1), dtype,
+                           f"{tag} dq vs K1 causal", fails)
+            for n, a, b in zip(("dk", "dv"), dkv, fa.flash_attention_dkv(
+                    *k1)):
+                held_attention(torch, a, b, dtype,
+                               f"{tag} dkv {n} vs K1 causal", fails)
+        if name == "a":
+            keep = dict(q=q, k=k, v=v, do=do, start=start, end=end,
+                        args=args, scale=scale, tiles=tiles)
+        del q, k, v, do, o, o_p, dq, dkv
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"[{dtype}] FlashMask kernels disagree: "
+                             f"{fails}")
+    if not timing:
+        return errs, None
+    q, k, v, do, start, end, args, scale, tiles = (
+        keep[n] for n in ("q", "k", "v", "do", "start", "end", "args",
+                          "scale", "tiles"))
+    B, L, H, Hkv, D = (FLASHMASK[n] for n in ("B", "L", "H", "Hkv", "D"))
+    pairs = visible_pairs(torch, start, end, B, H, L, True)
+    es = q.element_size()
+    qkv = es * (q.numel() + 2 * k.numel())
+    rows = 4 * B * H * L
+    bnds = 4 * (start.numel() + end.numel())
+    # the library yardstick: SDPA with the dense [L, L] boolean mask
+    # (True keeps), k / v repeated to the query heads
+    j = torch.arange(L, device="cuda")
+    hid = (j[:, None] >= start[0][None, :]) & (j[:, None] < end[0][None, :])
+    dense = ~(hid | (j[None, :] > j[:, None]))
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (x.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous()
+              .requires_grad_() for x in (k, v))
+    do_t = do.transpose(1, 2).contiguous()
+    lib_args, lib_kw = (qt, kt, vt), dict(attn_mask=dense)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(*lib_args, **lib_kw)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), lib_args, do_t)
+
+    cases = {
+        "flashmask_fwd": (
+            qkv + es * q.numel() + rows + bnds, 4 * D * pairs,
+            lambda: fm.flashmask_fwd(q, k, v, start, end, scale, True),
+            lambda: fm.plain_flashmask_fwd(q, k, v, start, end, scale,
+                                           True), sdpa),
+        "flashmask_dq": (
+            qkv + 2 * es * q.numel() + 2 * rows + bnds, 6 * D * pairs,
+            lambda: fm.flashmask_dq(*args, tiles=tiles),
+            lambda: fm.plain_flashmask_dq(*args), None),
+        "flashmask_dkv": (
+            qkv + es * q.numel() + 2 * rows + 2 * es * k.numel() + bnds,
+            8 * D * pairs, lambda: fm.flashmask_dkv(*args, tiles=tiles),
+            lambda: fm.plain_flashmask_dkv(*args), None)}
+    slow = dict(reps=2, rounds=3, warmup=1)
+    rows_out = {}
+    with torch.no_grad():
+        for name, (nbytes, flops, kern, plain, lib) in cases.items():
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            rows_out[name] = dict(
+                ms=time_ms(torch, kern, **slow),
+                plain_ms=time_ms(torch, plain, **slow), bound_ms=b_ms,
+                bound_by=b_by,
+                library_ms=time_ms(torch, lib, **slow) if lib else None)
+        k1 = (q, k, v, do, args[4], args[5], scale, True)
+        k1_ms = [time_ms(torch, lambda: fa.flash_attention_fwd(
+                     q, k, v, scale, True), **slow),
+                 time_ms(torch, lambda: fa.flash_attention_dq(*k1), **slow),
+                 time_ms(torch, lambda: fa.flash_attention_dkv(*k1),
+                         **slow)]
+    lib_fb = time_ms(torch, sdpa_fwd_bwd, **slow)
+    ours = sum(r["ms"] for r in rows_out.values())
+    log(f"  flashmask (a) at B {B}, L {L}, {H} / {Hkv} heads, D {D}: "
+        f"{pairs} visible pairs ({pairs / (B * H * L * (L + 1) / 2):.4f} "
+        f"of causal's)")
+    log(f"  flashmask fwd + dq + dkv: ms={ours:.4f}; K1 causal fwd + dq + "
+        f"dkv at the same shape: ms={sum(k1_ms):.4f} ({k1_ms[0]:.4f} + "
+        f"{k1_ms[1]:.4f} + {k1_ms[2]:.4f}); library "
+        f"scaled_dot_product_attention with the dense bool mask "
+        f"(EFFICIENT_ATTENTION backend) fwd + bwd: ms={lib_fb:.4f}")
     return errs, rows_out
 
 
@@ -1951,6 +2189,192 @@ def moe_grad_check(torch, kernels, fa, mg, moe, DeepseekMoeForCausalLM,
         raise AssertionError(f"phase 13 failed: {fails}")
 
 
+def flashmask_phase(torch, kernels, fa, fm, F):
+    """Phase 15: ``nn.functional.flashmask_attention`` forward + backward
+    at Llama-3-8B's attention widths on one 16k row of FLASHMASK_ROW's
+    equal documents, document-causal, bfloat16 (the reference bench's
+    ``_flashmask_bench`` workload). K6f, K6dq and K6dkv must each launch
+    once and K1 never; q, k and v get finite, nonzero gradients; the
+    output and the three gradients equal K1 causal run document by
+    document (doc-causal attention is block-diagonal causal attention)
+    and, with the lse, the plain K6 passes on the same inputs, within
+    bf16's tolerances. Then fwd + bwd times of K6 and of K1 causal
+    over the whole row, their ratio (the tile skip's gain), and peak
+    memory. Last, ``scaled_dot_product_attention`` with a boolean
+    ``attn_mask`` and dropout at a small shape: the undropped output
+    equals the plain composition, the dropped share is within 4 sigma
+    of p, and two runs from one seed agree exactly. Returns the K6
+    launches of the checked run."""
+    from paddle_tpu_torch.framework import random as trandom
+    B, L, H, Hkv, D, n_docs = (FLASHMASK_ROW[k] for k in (
+        "B", "L", "H", "Hkv", "D", "docs"))
+    dtype = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(dtype)  # noqa
+    q, k, v, do = rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
+        rnd(B, L, H, D)
+    docs = [L // n_docs] * n_docs
+    idx = torch.from_numpy(doc_bounds(docs)).cuda()[None, None, :, None] \
+        .expand(B, 1, L, 1).contiguous()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def run(qq, kk, vv):
+        out = F.flashmask_attention(qq, kk, vv, startend_row_indices=idx,
+                                    causal=True)
+        out.backward(do)
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = run(*leaves)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    log(f"phase 15: flashmask_attention fwd + bwd, B {B}, L {L}, {H} / "
+        f"{Hkv} heads, D {D}, bf16, {n_docs} documents of {docs[0]} "
+        f"tokens, causal; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    fails = []
+    want_launches("phase 15", launches, {
+        "flashmask_fwd": 1, "flashmask_dq": 1, "flashmask_dkv": 1,
+        "flash_attention_fwd": 0, "flash_attention_dq": 0,
+        "flash_attention_dkv": 0})
+    grads = [x.grad for x in leaves]
+    for n, gr in zip("qkv", grads):
+        ok = bool(torch.isfinite(gr).all()) and float(gr.abs().max()) > 0
+        log(f"  phase 15 d{n}: finite and nonzero {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"phase 15 d{n}")
+    # K1 causal on each document's slice, concatenated
+    ref = [torch.empty_like(x) for x in (q, q, k, v)]
+    a = 0
+    for n in docs:
+        sl = slice(a, a + n)
+        part = [x[:, sl].clone().requires_grad_() for x in (q, k, v)]
+        o = fa.flash_attention(*part, D ** -0.5, causal=True)
+        o.backward(do[:, sl])
+        for r, x in zip(ref, [o.detach()] + [p.grad for p in part]):
+            r[:, sl] = x
+        a += n
+    for n, got, want in zip(("o", "dq", "dk", "dv"), [out.detach()] + grads,
+                            ref):
+        held_attention(torch, got, want, "bfloat16",
+                       f"phase 15 {n} vs K1 per document", fails)
+    del ref
+    # and against the plain K6 passes on the same inputs: K1 and K6 share
+    # their kernel bodies, so the check above alone would not see a fault
+    # in them; the plain passes build one kv group's [4, L, L] float32
+    # scores at a time
+    start, end = fm.flashmask_bounds(idx, L, H, Hkv)
+    scale = D ** -0.5
+    with torch.no_grad():
+        o, lse, tiles = fm.flashmask_fwd(q, k, v, start, end, scale, True)
+        o_p, lse_p = fm.plain_flashmask_fwd(q, k, v, start, end, scale,
+                                            True)
+        delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        p6 = (q, k, v, do, lse_p, delta, start, end, scale, True)
+        plain = [o_p, lse_p, fm.plain_flashmask_dq(*p6),
+                 *fm.plain_flashmask_dkv(*p6)]
+    for n, got, want in zip(("o", "lse", "dq", "dk", "dv"),
+                            [out.detach(), lse] + grads, plain):
+        held_attention(torch, got, want, "bfloat16",
+                       f"phase 15 vs plain: {n}", fails)
+    del out, o, lse, o_p, lse_p, delta, p6, plain
+    torch.cuda.empty_cache()
+    for x in leaves:
+        x.grad = None
+
+    def k6():
+        run(*leaves)
+
+    def k1():
+        o = fa.flash_attention(*leaves, D ** -0.5, causal=True)
+        o.backward(do)
+
+    k6_ms = time_ms(torch, k6, reps=3, rounds=3, warmup=1)
+    k1_ms = time_ms(torch, k1, reps=2, rounds=3, warmup=1)
+    for x in leaves:
+        x.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k6()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"phase 15: fwd + bwd over the {L}-token row: flashmask "
+        f"ms={k6_ms:.4f}, K1 causal ms={k1_ms:.4f}, speedup "
+        f"{k1_ms / k6_ms:.3f}x; peak memory {peak / 2**30:.3f} GiB above "
+        f"the {base / 2**30:.3f} GiB held before the call")
+    # the same work as kernel launches alone: where the call's time goes
+    pairs = visible_pairs(torch, start, end, B, H, L, True)
+    with torch.no_grad():
+        o, lse, tiles = fm.flashmask_fwd(q, k, v, start, end, scale, True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        m6 = (q, k, v, do, lse, delta, start, end, scale, True)
+        m1 = (q, k, v, do, lse, delta, scale, True)
+        once = dict(reps=1, rounds=3, warmup=1)
+        k6_parts = [time_ms(torch, f, **once) for f in (
+            lambda: fm.flashmask_fwd(q, k, v, start, end, scale, True),
+            lambda: fm.flashmask_dq(*m6, tiles=tiles),
+            lambda: fm.flashmask_dkv(*m6, tiles=tiles))]
+        k1_parts = [time_ms(torch, f, **once) for f in (
+            lambda: fa.flash_attention_fwd(q, k, v, scale, True),
+            lambda: fa.flash_attention_dq(*m1),
+            lambda: fa.flash_attention_dkv(*m1))]
+    b_ms, b_by = bound(0, 18 * D * pairs, "bfloat16")
+    log(f"phase 15: the kernels alone: K6f + K6dq + K6dkv = "
+        f"{' + '.join(f'{t:.4f}' for t in k6_parts)} = "
+        f"{sum(k6_parts):.4f} ms over {pairs} visible pairs (operations "
+        f"bound {b_ms:.4f} ms); K1 causal = "
+        f"{' + '.join(f'{t:.4f}' for t in k1_parts)} = "
+        f"{sum(k1_parts):.4f} ms; kernel speedup "
+        f"{sum(k1_parts) / sum(k6_parts):.3f}x")
+    del o, lse, delta
+    del leaves, q, k, v, do, m6, m1
+    torch.cuda.empty_cache()
+
+    # SDPA with a boolean mask and dropout
+    Bs, Ls, Hs, Hkvs, Ds, p = (SDPA_MASKED[k] for k in (
+        "B", "L", "H", "Hkv", "D", "p"))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    qs = torch.randn(Bs, Ls, Hs, Ds, generator=g, device="cuda")
+    ks, vs = (torch.randn(Bs, Ls, Hkvs, Ds, generator=g, device="cuda")
+              for _ in range(2))
+    mask = torch.rand(Bs, 1, Ls, Ls, generator=g, device="cuda") > 0.3
+    mask[..., 0] = True
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         dropout_p=p, training=False)
+    kr, vr = (x.repeat_interleave(Hs // Hkvs, 2) for x in (ks, vs))
+    logits = torch.einsum("bthd,bshd->bhts", qs, kr) * Ds ** -0.5 \
+        + torch.where(mask, 0.0, -1e9)
+    plain = torch.einsum("bhts,bshd->bthd", torch.softmax(logits, -1), vr)
+    err = float((out - plain).abs().max())
+    trandom.seed(SEED + 17)
+    dropped = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             dropout_p=p)
+    trandom.seed(SEED + 17)
+    again = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                           dropout_p=p)
+    share = float((dropped == 0).float().mean())
+    sigma = (p * (1 - p) / dropped.numel()) ** 0.5
+    same = bool(torch.equal(dropped, again))
+    log(f"phase 15 sdpa: bool attn_mask, B {Bs}, L {Ls}, {Hs} / {Hkvs} "
+        f"heads, D {Ds}, f32: undropped vs plain max_abs_err={err:.3e} "
+        f"(atol {TOL['float32']['atol']}); dropout p {p}: zero share "
+        f"{share:.5f} (4 sigma {4 * sigma:.5f}); two seeded runs equal: "
+        f"{same}")
+    if not err <= TOL["float32"]["atol"]:
+        fails.append("phase 15 sdpa mask")
+    if not abs(share - p) <= 4 * sigma:
+        fails.append("phase 15 sdpa dropout share")
+    if not same:
+        fails.append("phase 15 sdpa dropout seed")
+    if fails:
+        raise AssertionError(f"phase 15 failed: {fails}")
+    return {n: launches[n] for n in FLASHMASK_KERNELS}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1980,7 +2404,9 @@ def main(argv=None):
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.ops.kernels import decode_fused as df
+        from paddle_tpu_torch.nn import functional as PF
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.ops.kernels import flashmask as fm
         from paddle_tpu_torch.ops.kernels import moe_gmm as mg
         from paddle_tpu_torch.ops.kernels import paged_attention as pda
         from paddle_tpu_torch.optimizer import AdamW
@@ -2024,7 +2450,12 @@ def main(argv=None):
         e6, r6 = check_moe(torch, mg, dtype, timing)
         torch.cuda.empty_cache()
         e7, r7 = check_moe_backward(torch, mg, dtype, timing)
+        torch.cuda.empty_cache()
+        e8, r8 = check_flashmask(torch, F, fa, fm, dtype, timing)
+        torch.cuda.empty_cache()
         if timing:
+            for name, r in r8.items():
+                table[name] = dict(r, max_abs_err=e8[name])
             for name, r in r6.items():
                 table[name] = dict(r, max_abs_err=e6[name])
             for name, r in r7.items():
@@ -2186,8 +2617,13 @@ def main(argv=None):
                    deepseek_moe_16b)
     torch.cuda.empty_cache()
 
-    # -- phase 14: report --------------------------------------------------
+    # -- phase 15: FlashMask attention, fwd + bwd at 16k -------------------
+    launches.update(flashmask_phase(torch, kernels, fa, fm, PF))
+    torch.cuda.empty_cache()
+
+    # -- phase 16: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
+    fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (
                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:593"),
@@ -2222,7 +2658,13 @@ def main(argv=None):
             "moe_scatter_gmm_t": ("paddle_tpu_torch/csrc/moe_gmm.cu",
                                   "paddle_tpu/ops/pallas/moe_gmm.py:320"),
             "moe_tgmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
-                         "paddle_tpu/distributed/moe.py:512")}
+                         "paddle_tpu/distributed/moe.py:512"),
+            "flashmask_fwd": ("paddle_tpu_torch/csrc/flashmask_fwd.cu",
+                              f"{fm_src}:202"),
+            "flashmask_dq": ("paddle_tpu_torch/csrc/flashmask_bwd.cu",
+                             f"{fm_src}:253"),
+            "flashmask_dkv": ("paddle_tpu_torch/csrc/flashmask_bwd.cu",
+                              f"{fm_src}:294")}
     out = []
     for name, (src, rep) in srcs.items():
         r = table[name]

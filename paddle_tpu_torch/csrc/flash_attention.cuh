@@ -240,12 +240,36 @@ __device__ __forceinline__ void store_acc_row(bf16* __restrict__ dst,
 }
 
 // shared memory of a tensor-core block: n_tiles [64][D + 8] bf16 tiles
-// plus n_f float32 words
+// plus n_f 4-byte words
 template <int D>
 constexpr size_t mma_smem_bytes(int n_tiles, int n_f) {
   return sizeof(bf16) * (size_t)n_tiles * TILE * (D + 8) +
          sizeof(float) * (size_t)n_f;
 }
+
+// ---------------------------------------------------------------- masks
+//
+// The kernels of flash_attention_fwd.cuh / flash_attention_bwd.cuh take
+// a column-mask policy. NoMask is K1's: every entry point below is a
+// constant, so K1 compiles to the kernels it had before masks existed.
+// ColumnMask (flashmask.cuh) is K6's FlashMask mask: it narrows the
+// walks to the live tiles (live bits, dead q-tile ranges) and adds
+// sees() to each entry's predicate.
+struct NoMask {
+  static constexpr bool kOn = false;
+  static constexpr int kBoundInts = 0;   // staged bounds of one kv tile
+  __host__ __device__ int live_words() const { return 0; }
+  __host__ __device__ int dead_ints(int) const { return 0; }
+  __device__ int row(int, int, int) const { return 0; }
+  __device__ void init_live(unsigned*, int, int, int, int) const {}
+  __device__ int next_live(const unsigned*, int t, int) const { return t; }
+  __device__ void init_dead(int*, int, int, int, int, int, int) const {}
+  __device__ int next_item(const int*, int u, int, int, int) const {
+    return u;
+  }
+  __device__ void stage(int*, int, int) const {}
+  __device__ bool sees(const int*, int, int) const { return true; }
+};
 
 }  // namespace fa
 }  // namespace ptt

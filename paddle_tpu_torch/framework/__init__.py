@@ -1,4 +1,5 @@
 from .place import default_device, resolve_device
-from .random import generator, seed
+from .random import default_generator, generator, seed
 
-__all__ = ["default_device", "resolve_device", "generator", "seed"]
+__all__ = ["default_device", "resolve_device", "default_generator",
+           "generator", "seed"]

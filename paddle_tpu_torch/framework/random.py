@@ -1,8 +1,11 @@
-"""Seeding and explicit random generators.
+"""Seeding, explicit random generators and the default random stream.
 
-The port never draws from PyTorch's global generator on a hot path:
-weight init and sampling each take a ``torch.Generator`` made here, so
-two runs from one seed give the same numbers on the same device.
+The port never draws from PyTorch's global generator: weight init and
+sampling each take a ``torch.Generator`` made here, so two runs from one
+seed give the same numbers on the same device. Dropout draws from the
+default stream of its tensor's device (:func:`default_generator`, the
+counterpart of the reference's ``next_key``) unless the caller passes a
+generator of its own.
 """
 from __future__ import annotations
 
@@ -10,17 +13,20 @@ import torch
 
 from .place import resolve_device
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "default_generator"]
 
 _SEED = 0
+_STREAMS = {}   # torch.device -> its default torch.Generator
 
 
 def seed(value: int) -> int:
     """Set the default seed for generators made without an explicit one
-    (and PyTorch's global seed, for code outside the port)."""
+    (and PyTorch's global seed, for code outside the port), and restart
+    every device's default stream from it."""
     global _SEED
     _SEED = int(value)
     torch.manual_seed(_SEED)
+    _STREAMS.clear()
     return _SEED
 
 
@@ -30,4 +36,18 @@ def generator(seed_value=None, device=None) -> torch.Generator:
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(_SEED if seed_value is None else int(seed_value))
+    return g
+
+
+def default_generator(device) -> torch.Generator:
+    """The default random stream of ``device``: one generator per device,
+    made at first use from the last value given to :func:`seed` and
+    advanced by every draw from it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    g = _STREAMS.get(dev)
+    if g is None:
+        g = _STREAMS[dev] = torch.Generator(device=dev)
+        g.manual_seed(_SEED)
     return g

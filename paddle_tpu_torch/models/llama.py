@@ -380,9 +380,14 @@ class LlamaModel(nn.Module):
                 ragged_meta=None, fused=True, offset=None):
         if caches is None:
             if attention_mask is not None or position_ids is not None:
+                # the reference takes both here and uses neither (its
+                # attention is always plain causal): refuse them rather
+                # than drop them silently
                 raise NotImplementedError(
                     f"{type(self).__name__}: attention_mask / position_ids "
-                    "on the dense training path are not ported yet")
+                    "on the dense path without a cache are ignored by the "
+                    "reference; they are refused here until both packages "
+                    "implement them")
             h = self.embed_tokens(input_ids.long())
             l = h.shape[1]
             cos, sin = self._rope_cos[:l], self._rope_sin[:l]

@@ -26,7 +26,8 @@ launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
                  "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "moe_gather_gmm_swiglu": 0, "moe_scatter_gmm": 0,
                  "moe_gmm": 0, "moe_gmm_t": 0, "moe_scatter_gmm_t": 0,
-                 "moe_tgmm": 0}
+                 "moe_tgmm": 0, "flashmask_fwd": 0, "flashmask_dq": 0,
+                 "flashmask_dkv": 0}
 
 
 def reset_launch_counts():

@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("ragged_paged_attention", "paged_decode_attention",
            "norm_matmul", "matmul_residual", "flash_attention_fwd",
-           "flash_attention_bwd", "moe_gmm")
+           "flash_attention_bwd", "moe_gmm", "flashmask_fwd",
+           "flashmask_bwd")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _LOCK = threading.Lock()

@@ -72,16 +72,14 @@ def _probs(s, lse, vis):
     return p if vis is None else p.masked_fill(~vis, 0.0)
 
 
-def plain_flash_attention_fwd(q, k, v, scale, causal):
-    """The forward's math in float32 torch ops: scores, mask, row max,
-    ``P = exp(S - m)`` rounded to V's dtype for the P V product (the
-    reference's ``p.astype(v.dtype)``), ``o = P V / l`` and
-    ``lse = m + log l``. Returns ``(o, lse)``."""
+def _plain_fwd(q, k, v, scale, vis_of):
+    """The forward of each kv group, its columns masked by ``vis_of(bi,
+    hs)`` (``[Lq, Lk]`` or ``[rep, Lq, Lk]`` bool, or None for all)."""
     b, lq, h, _ = q.shape
-    vis = _visible(lq, k.shape[1], causal, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(b, h, lq, device=q.device, dtype=torch.float32)
     for bi, g, _, hs in _groups(q, k):
+        vis = vis_of(bi, hs)
         _, s = _scores(q, k, bi, g, hs, scale, vis)
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - m)
@@ -96,12 +94,10 @@ def plain_flash_attention_fwd(q, k, v, scale, causal):
     return o, lse
 
 
-def plain_flash_attention_dq(q, k, v, do, lse, delta, scale, causal):
-    """``dq = sum_kv dS K`` with ``dS = P * (dO V^T - delta) * scale``
-    rounded to K's dtype (the reference's ``ds.astype(k.dtype)``)."""
-    vis = _visible(q.shape[1], k.shape[1], causal, q.device)
+def _plain_dq(q, k, v, do, lse, delta, scale, vis_of):
     dq = torch.empty_like(q)
     for bi, g, _, hs in _groups(q, k):
+        vis = vis_of(bi, hs)
         _, s = _scores(q, k, bi, g, hs, scale, vis)
         p = _probs(s, lse[bi, hs], vis)
         dos = do[bi, :, hs].float().transpose(0, 1)
@@ -112,15 +108,12 @@ def plain_flash_attention_dq(q, k, v, do, lse, delta, scale, causal):
     return dq
 
 
-def plain_flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
-    """``dv = sum P^T dO`` and ``dk = sum dS^T Q`` over every query head
-    of each kv group, with P rounded to dO's dtype and dS to Q's before
-    their products. Returns ``(dk, dv)``."""
+def _plain_dkv(q, k, v, do, lse, delta, scale, vis_of):
     lq, lk = q.shape[1], k.shape[1]
-    vis = _visible(lq, lk, causal, q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     for bi, g, rep, hs in _groups(q, k):
+        vis = vis_of(bi, hs)
         qs, s = _scores(q, k, bi, g, hs, scale, vis)
         p = _probs(s, lse[bi, hs], vis)
         dos = do[bi, :, hs].float().transpose(0, 1)
@@ -131,6 +124,34 @@ def plain_flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
         dst = ds.float().permute(2, 0, 1).reshape(lk, rep * lq)
         dk[bi, :, g] = (dst @ qs.reshape(rep * lq, -1)).to(k.dtype)
     return dk, dv
+
+
+def _causal_vis(q, k, causal):
+    vis = _visible(q.shape[1], k.shape[1], causal, q.device)
+    return lambda bi, hs: vis
+
+
+def plain_flash_attention_fwd(q, k, v, scale, causal):
+    """The forward's math in float32 torch ops: scores, mask, row max,
+    ``P = exp(S - m)`` rounded to V's dtype for the P V product (the
+    reference's ``p.astype(v.dtype)``), ``o = P V / l`` and
+    ``lse = m + log l``. Returns ``(o, lse)``."""
+    return _plain_fwd(q, k, v, scale, _causal_vis(q, k, causal))
+
+
+def plain_flash_attention_dq(q, k, v, do, lse, delta, scale, causal):
+    """``dq = sum_kv dS K`` with ``dS = P * (dO V^T - delta) * scale``
+    rounded to K's dtype (the reference's ``ds.astype(k.dtype)``)."""
+    return _plain_dq(q, k, v, do, lse, delta, scale,
+                     _causal_vis(q, k, causal))
+
+
+def plain_flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
+    """``dv = sum P^T dO`` and ``dk = sum dS^T Q`` over every query head
+    of each kv group, with P rounded to dO's dtype and dS to Q's before
+    their products. Returns ``(dk, dv)``."""
+    return _plain_dkv(q, k, v, do, lse, delta, scale,
+                      _causal_vis(q, k, causal))
 
 
 # ---------------------------------------------------------------- kernels

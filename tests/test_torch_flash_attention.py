@@ -114,19 +114,32 @@ def test_flash_attention_core_matches_reference(causal):
 
 
 def test_bias_mask_and_dropout_raise():
-    x = torch.zeros(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError, match="bias"):
-        tfa.flash_attention_core(x, x, x, bias=torch.zeros(1, 1, 4, 4))
-    with pytest.raises(NotImplementedError, match="attn_mask"):
-        tfa.scaled_dot_product_attention(x, x, x,
-                                         attn_mask=torch.ones(4, 4) > 0)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.scaled_dot_product_attention(x, x, x, dropout_p=0.1)
+    """Bias, mask and dropout are ported (``tests/test_torch_flashmask.py``
+    holds them to the reference); what raises now is a bias whose head
+    count does not divide H (the reference repeats a bias by H // heads,
+    so a head count that divides H is taken, as a bias per kv head or per
+    group of query heads). ``mask_to_bias`` turns a bool mask into
+    0 / -1e9 in the asked dtype and passes a float mask through, and
+    ``dropout_p`` does nothing under ``training=False``."""
+    x = torch.randn(1, 4, 2, 64, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="3 heads"):
+        tfa.flash_attention_core(x, x, x, bias=torch.zeros(1, 3, 4, 4))
+    y = torch.randn(1, 4, 4, 64, generator=torch.Generator().manual_seed(1))
+    bias = torch.randn(1, 2, 4, 4, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(
+        tfa.flash_attention_core(y, y, y, bias=bias),
+        tfa.flash_attention_core(y, y, y,
+                                 bias=bias.repeat_interleave(2, dim=1)),
+        rtol=0, atol=0)
     out = tfa.scaled_dot_product_attention(x, x, x, dropout_p=0.1,
                                            training=False)
-    assert out.shape == x.shape
-    bias = tfa.mask_to_bias(torch.tensor([True, False]), torch.float32)
-    assert bias.tolist() == [0.0, -1e9]
+    assert torch.equal(out, tfa.scaled_dot_product_attention(x, x, x))
+    bias = tfa.mask_to_bias(torch.tensor([True, False]), torch.bfloat16)
+    assert bias.dtype == torch.bfloat16
+    assert bias.tolist() == [0.0, torch.tensor(-1e9).bfloat16().item()]
+    f = torch.tensor([0.5, -2.0])
+    assert tfa.mask_to_bias(f, torch.bfloat16) is f
+    assert tfa.mask_to_bias(None, torch.float32) is None
 
 
 def test_apply_rope_matches_reference():

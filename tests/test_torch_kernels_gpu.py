@@ -17,7 +17,10 @@ tgmm) are held at the same tolerances, and the attention kernels at the
 GQA groups of the MoE families: 1 (DeepSeek, 16 / 16 heads) and 7
 (Qwen2-57B, 28 / 4). The MoE dispatch's gradients on the card (fused and
 sorted paths) are held against the same dispatch run through the plain
-versions."""
+versions. The FlashMask kernels (K6f, K6dq, K6dkv) are held the same way
+at the reference's six mask layouts, on fully-masked rows (exact zeros),
+against K1 where no column is masked, and through
+``flashmask_attention``'s gradients against the CPU path."""
 from unittest import mock
 
 import numpy as np
@@ -27,6 +30,7 @@ import torch
 from paddle_tpu_torch.ops import paged_cache as tpc
 from paddle_tpu_torch.ops.kernels import decode_fused as df
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import flashmask as fm
 from paddle_tpu_torch.ops.kernels import launch_counts
 from paddle_tpu_torch.ops.kernels import moe_gmm as mg
 from paddle_tpu_torch.ops.kernels import paged_attention as pda
@@ -571,3 +575,180 @@ def test_moe_block_gradients_on_the_card(cuda, fused):
     for grad in (block.experts.gate_up_proj.grad,
                  block.experts.down_proj.grad):
         assert bool((grad.flatten(1).abs().amax(1) > 0)[hit].all())
+
+
+# ---------------------------------------------------------------- K6
+
+# the six mask layouts of the reference's FlashMask tests:
+# (B, H, Hkv, Hm, bounds, causal)
+FLASHMASK_LAYOUTS = [(2, 4, 2, 2, 1, True), (2, 4, 2, 1, 2, True),
+                     (1, 4, 4, 4, 2, False), (2, 8, 4, 2, 2, True),
+                     (1, 8, 4, 8, 2, True), (2, 4, 2, 4, 1, True)]
+
+
+def _document_bounds(rng, L, n_docs, bounds):
+    """Per-column bounds of a document mask: the columns of a document
+    ending at row e hide rows [e, L), so a token sees its own document."""
+    cuts = np.sort(rng.choice(np.arange(16, L - 16), n_docs - 1,
+                              replace=False))
+    edges = np.concatenate([[0], cuts, [L]])
+    start = np.zeros(L, np.int64)
+    end = np.full(L, L, np.int64)
+    for a, b in zip(edges[:-1], edges[1:]):
+        start[a:b] = b
+    return np.stack([start, end], -1)[..., :bounds]
+
+
+def _flashmask_case(layout, L, D, dtype, dev, seed=0):
+    B, H, Hkv, Hm, bounds, causal = layout
+    q, k, v, do = _attn_case(seed + L + D, B, L, L, H, Hkv, D, dtype, dev)
+    rng = np.random.RandomState(seed)
+    idx = np.stack([np.stack([_document_bounds(rng, L, 4, bounds)
+                              for _ in range(Hm)]) for _ in range(B)])
+    start, end = fm.flashmask_bounds(torch.from_numpy(idx), L, H, Hkv,
+                                     device=dev)
+    return q, k, v, do, start, end, causal
+
+
+def _flashmask_held(q, k, v, do, start, end, causal, dtype):
+    """K6f, K6dq and K6dkv against their plain versions (the backward
+    passes on the plain forward's lse and delta), and K6f's tile summary
+    against the plain one."""
+    scale = q.shape[-1] ** -0.5
+    o, lse, tiles = fm.flashmask_fwd(q, k, v, start, end, scale, causal)
+    o_p, lse_p = fm.plain_flashmask_fwd(q, k, v, start, end, scale, causal)
+    _rows_close(o, o_p, dtype)
+    torch.testing.assert_close(lse, lse_p, **TOL[dtype])
+    assert torch.equal(tiles, fm.plain_flashmask_tiles(start, end))
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse_p, delta, start, end, scale, causal)
+    dq = fm.flashmask_dq(*args, tiles=tiles)
+    _rows_close(dq, fm.plain_flashmask_dq(*args), dtype)
+    for a, b in zip(fm.flashmask_dkv(*args, tiles=tiles),
+                    fm.plain_flashmask_dkv(*args)):
+        _rows_close(a, b, dtype)
+    return o, lse, dq
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("L", [256, 1000])
+@pytest.mark.parametrize("layout", FLASHMASK_LAYOUTS,
+                         ids=lambda t: "-".join(map(str, t)))
+def test_flashmask_kernels(cuda, dtype, head_dim, L, layout):
+    """K6f, K6dq and K6dkv each against its plain version at the
+    reference's six mask layouts (distinct document bounds per batch row
+    and mask head; Hm above, at and below Hkv); L 1000 has a tail tile
+    and document edges off the 64-row tiles. Each launches once."""
+    case = _flashmask_case(layout, L, head_dim, getattr(torch, dtype), cuda)
+    n0 = dict(launch_counts)
+    _flashmask_held(*case, dtype)
+    for name in ("flashmask_fwd", "flashmask_dq", "flashmask_dkv"):
+        assert launch_counts[name] == n0[name] + 1
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert launch_counts[name] == n0[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flashmask_fully_masked_rows(cuda, dtype):
+    """Rows [128, 256) hidden on every column: o and dq exactly 0 there,
+    lse NEG_INF, and the other rows as the plain version's."""
+    q, k, v, do = _attn_case(1, 1, 256, 256, 2, 2, 64,
+                             getattr(torch, dtype), cuda)
+    start = torch.full((1, 256), 128, dtype=torch.int32, device=cuda)
+    end = torch.full_like(start, 256)
+    o, lse, dq = _flashmask_held(q, k, v, do, start, end, False, dtype)
+    assert bool((o[:, 128:] == 0).all()) and bool((o[:, :128] != 0).any())
+    assert bool((lse[..., 128:] == fa.NEG_INF).all())
+    assert bool((dq[:, 128:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flashmask_without_masked_columns_is_k1(cuda, dtype, causal):
+    """start = Lq on every column hides nothing: K6 gives K1's forward,
+    lse and gradients on the same inputs."""
+    q, k, v, do = _attn_case(2, 2, 200, 200, 8, 2, 128,
+                             getattr(torch, dtype), cuda)
+    idx = torch.full((2, 1, 200, 1), 200, dtype=torch.int32)
+    start, end = fm.flashmask_bounds(idx, 200, 8, 2, device=cuda)
+    scale = 128 ** -0.5
+    o6, lse6, tiles = fm.flashmask_fwd(q, k, v, start, end, scale, causal)
+    o1, lse1 = fa.flash_attention_fwd(q, k, v, scale, causal)
+    _rows_close(o6, o1, dtype)
+    torch.testing.assert_close(lse6, lse1, **TOL[dtype])
+    delta = (do.float() * o1.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse1, delta)
+    _rows_close(fm.flashmask_dq(*args, start, end, scale, causal,
+                                tiles=tiles),
+                fa.flash_attention_dq(*args, scale, causal), dtype)
+    for a, b in zip(fm.flashmask_dkv(*args, start, end, scale, causal,
+                                     tiles=tiles),
+                    fa.flash_attention_dkv(*args, scale, causal)):
+        _rows_close(a, b, dtype)
+
+
+@pytest.mark.gpu
+def test_flashmask_attention_gradients_on_the_card(cuda):
+    """``nn.functional.flashmask_attention`` on the card, float32: the
+    output and the q, k and v gradients (through K6's autograd Function)
+    equal the same call on CPU copies (the plain versions), and each
+    leaf's gradient arrives, finite and nonzero."""
+    from paddle_tpu_torch.nn import functional as F
+    q, k, v, do = _attn_case(3, 2, 300, 300, 8, 2, 64, torch.float32, cuda)
+    rng = np.random.RandomState(3)
+    idx = torch.from_numpy(np.stack([
+        np.stack([_document_bounds(rng, 300, 3, 2) for _ in range(4)])
+        for _ in range(2)]).astype(np.int32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        n0 = dict(launch_counts)
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o = F.flashmask_attention(*leaves, startend_row_indices=idx,
+                                  causal=True)
+        o.backward(do.to(dev))
+        outs.append([o.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        launched = {n: launch_counts[n] - n0[n] for n in launch_counts}
+        want = 1 if dev.type == "cuda" else 0
+        assert [launched[n] for n in ("flashmask_fwd", "flashmask_dq",
+                                      "flashmask_dkv")] == [want] * 3
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, **TOL["float32"])
+    for grad in outs[0][1:]:
+        assert bool(torch.isfinite(grad).all()) and bool(grad.abs().max() > 0)
+
+
+@pytest.mark.gpu
+def test_flashmask_refuses_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 64, 4, 96, device=cuda)
+    start = torch.zeros(1, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fm.flashmask_fwd(q, q, q, start, start, 0.1, True)
+    q = torch.zeros(1, 64, 4, 64, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        fm.flashmask_fwd(q, q, q, start.long(), start.long(), 0.1, True)
+    with pytest.raises(ValueError, match="do not divide"):
+        three = torch.zeros(3, 64, dtype=torch.int32, device=cuda)
+        fm.flashmask_fwd(q, q, q, three, three, 0.1, True)
+    with pytest.raises(ValueError, match="Lk"):
+        fm.flashmask_fwd(q, q, q, start[:, :32].contiguous(),
+                         start[:, :32].contiguous(), 0.1, True)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fm.flashmask_fwd(q, q, q, start.cpu(), start.cpu(), 0.1, True)
+    lse = torch.zeros(1, 4, 64, device=cuda)
+    bwd = (q, q, q, q, lse, lse, start, start, 0.1, True)
+    with pytest.raises(ValueError, match="tiles"):
+        fm.flashmask_dq(*bwd, tiles=torch.zeros(1, 2, 2, dtype=torch.int32,
+                                                device=cuda))
+    with pytest.raises(ValueError, match="tiles"):
+        fm.flashmask_dkv(*bwd, tiles=torch.zeros(1, 1, 2, device=cuda))
+    with pytest.raises(ValueError, match="bounds 1 or 2"):
+        fm.flashmask_bounds(torch.zeros(1, 1, 64, 3, dtype=torch.int32),
+                            64, 4, 4)
+    with pytest.raises(ValueError, match="must divide"):
+        fm.flashmask_bounds(torch.zeros(1, 3, 64, 1, dtype=torch.int32),
+                            64, 4, 4)

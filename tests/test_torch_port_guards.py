@@ -65,11 +65,15 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/distributed/moe.py",
                  "paddle_tpu_torch/models/qwen2_moe.py",
                  "paddle_tpu_torch/models/deepseek_moe.py",
+                 "paddle_tpu_torch/ops/kernels/flashmask.py",
+                 "paddle_tpu_torch/nn/functional/common.py",
+                 "paddle_tpu_torch/nn/functional/flash_attention.py",
                  "chip_smoke.py"):
         assert want in names
     for cu in ("ragged_paged_attention", "paged_decode_attention",
                "norm_matmul", "matmul_residual", "flash_attention_fwd",
-               "flash_attention_bwd", "moe_gmm"):
+               "flash_attention_bwd", "moe_gmm", "flashmask_fwd",
+               "flashmask_bwd"):
         assert (ROOT / "paddle_tpu_torch" / "csrc" / f"{cu}.cu").exists()
 
 
@@ -84,6 +88,8 @@ def test_no_jax_or_reference_import(path):
 def test_fresh_interpreter_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.ops.kernels."
             "decode_fused, paddle_tpu_torch.ops.kernels.flash_attention, "
+            "paddle_tpu_torch.ops.kernels.flashmask, "
+            "paddle_tpu_torch.nn.functional, "
             "paddle_tpu_torch.ops.kernels.paged_attention, "
             "paddle_tpu_torch.generation.speculative, "
             "paddle_tpu_torch.inference, paddle_tpu_torch.jit, "
