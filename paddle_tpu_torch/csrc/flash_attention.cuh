@@ -1,9 +1,13 @@
-// Tile helpers shared by flash_attention_fwd.cu (K1f) and
-// flash_attention_bwd.cu (K1dq, K1dkv).
+// Tile helpers shared by flash_attention_fwd.cu (K1f, float32) and
+// flash_attention_bwd.cu (K1dq, K1dkv), and the column-mask policies of
+// K1 and K6. The bf16 forward (K1f, K6f) is the Hopper kernel of
+// flash_attention_fwd_sm90.cuh (wgmma, TMA, warp specialisation) and
+// takes only the constants, row_off, pack_bf16, the quad reductions and
+// the mask policies from here.
 //
-// Every kernel works on 64-row tiles of the [B, L, heads, D] tensors the
-// port passes (Paddle's flash-attention layout: a head's rows are D
-// contiguous elements, H * D apart).
+// Every kernel here works on 64-row tiles of the [B, L, heads, D]
+// tensors the port passes (Paddle's flash-attention layout: a head's
+// rows are D contiguous elements, H * D apart).
 //
 // float32 (CUDA cores): a block of 256 threads stages its tiles in
 // shared memory as float32, rows padded to D + 1 floats so the column
@@ -13,16 +17,18 @@
 // so row reductions are four xor-shuffles. Products run as float32
 // fused multiply-adds.
 //
-// bfloat16 (tensor cores): a block of 4 warps copies its bf16 tiles into
-// shared memory with cp.async (rows padded to D + 8 elements, so the
-// ldmatrix rows hit distinct banks) and each warp owns 16 rows of the
-// 64-row tile: mma.sync m16n8k16 with float32 accumulators, fragments
-// from ldmatrix (see mma_gemm.cuh). A result tile in accumulator layout
-// (thread holds rows g and g + 8, columns 2 tig and 2 tig + 1 of each n8
-// tile, g = lane / 4, tig = lane % 4) becomes the A operand of the next
-// product in registers, rounded to bf16 on the way, which is where the
-// reference casts P and dS to the input dtype. Row reductions are two
-// xor-shuffles over the 4 threads of a row.
+// bfloat16 backward (tensor cores, mma.sync): a block of 4 warps copies
+// its bf16 tiles into shared memory with cp.async (rows padded to D + 8
+// elements, so the ldmatrix rows hit distinct banks) and each warp owns
+// 16 rows of the 64-row tile: mma.sync m16n8k16 with float32
+// accumulators, fragments from ldmatrix (see mma_gemm.cuh). A result
+// tile in accumulator layout (thread holds rows g and g + 8, columns
+// 2 tig and 2 tig + 1 of each n8 tile, g = lane / 4, tig = lane % 4)
+// becomes the A operand of the next product in registers, rounded to
+// bf16 on the way, which is where the reference casts P and dS to the
+// input dtype. Row reductions are two xor-shuffles over the 4 threads of
+// a row. The backward has not moved to wgmma yet; the Hopper pieces of
+// hopper.cuh are what it takes next.
 #pragma once
 
 #include <cstdint>
@@ -261,6 +267,7 @@ struct NoMask {
   __host__ __device__ int live_words() const { return 0; }
   __host__ __device__ int dead_ints(int) const { return 0; }
   __device__ int row(int, int, int) const { return 0; }
+  template <int S = 1>
   __device__ void init_live(unsigned*, int, int, int, int) const {}
   __device__ int next_live(const unsigned*, int t, int) const { return t; }
   __device__ void init_dead(int*, int, int, int, int, int, int) const {}
@@ -268,6 +275,11 @@ struct NoMask {
     return u;
   }
   __device__ void stage(int*, int, int) const {}
+  template <int W>
+  __device__ bool load_bounds(int*, int, int, int, int) const {
+    return false;
+  }
+  template <int W = TILE>
   __device__ bool sees(const int*, int, int) const { return true; }
 };
 

@@ -1,10 +1,19 @@
 // K1f: flash attention forward with the row log-sum-exp,
 // o = softmax(scale * Q K^T + causal) V over [B, L, H, D] (GQA: kv head
-// h / (H / Hkv)). The kernels, their bound and their design are in
-// flash_attention_fwd.cuh; K1f runs them with no column mask.
+// h / (H / Hkv)), run with no column mask.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention_kernel.py, _fwd_kernel
 // (via _fwd / pallas_flash_attention).
+//
+// What bounds it on the H100: operations, 4 D flops a visible pair at
+// the bf16 tensor-core rate. bfloat16 runs the Hopper kernel of
+// flash_attention_fwd_sm90.cuh: wgmma (the only path to that rate), K
+// and V tiles streamed by TMA into a ring that a producer warpgroup
+// keeps full, two consumer warpgroups that take turns on the tensor
+// cores so one's exponentials hide behind the other's products, the
+// per-entry mask only on diagonal and tail tiles, and the longest causal
+// q tiles launched first. float32 runs on the CUDA cores
+// (flash_attention_fwd.cuh), exact to the reference.
 #include "flash_attention_fwd.cuh"
 
 // q, o [B, Lq, H, D]; k, v [B, Lk, Hkv, D]; lse [B, H, Lq] float32.

@@ -6,16 +6,20 @@
 // The tile skip is what makes a document mask cheap. tile_bounds_kernel
 // reduces each 64-column kv tile of each mask row to {max start, min
 // end}, once in the forward's entry; the backward's entries read the
-// summary the forward left. A (q tile, kv tile) pair is dead when
-// max(start) <= q_first and min(end) > q_last, as the TPU kernel's
+// summary the forward left. A (q tile, 64-column kv tile) pair is dead
+// when max(start) <= q_first and min(end) > q_last, as the TPU kernel's
 // _block_live. Then:
 // - the forward and dq blocks (one q tile each) set one live bit per kv
-//   tile in shared memory and walk the set bits only;
+//   tile in shared memory and walk the set bits only; the bf16 forward's
+//   128-column tiles are live when either 64-column half is
+//   (init_live<2>);
 // - the dk/dv block (one kv tile) turns the pair of each query head of
 //   its group into the range [lo, hi) of dead q tiles, which its walk
 //   over (head, q tile) items jumps.
-// The 64 start / end values of the kv tile being computed are staged
-// in shared memory by cp.async beside K and V, and sees() adds
+// The start / end values of the kv tile being computed are staged in
+// shared memory beside K and V (by cp.async in the 64-column kernels,
+// by the bf16 forward's producer warp with load_bounds, which also says
+// whether any column hides a row of the q tile), and sees() adds
 // !(start_j <= i < end_j) to each entry's predicate, so a masked entry
 // is set to exactly NEG_INF (forward) or P = 0 (backward) as the
 // kernels' guards require.
@@ -52,7 +56,9 @@ struct ColumnMask {
   }
 
   // bit t of live (t < n): some row of [q_first, q_last] sees a column
-  // of kv tile t; the caller syncs before reading it
+  // of kv tile t, a tile of S 64-column summary tiles (live iff one of
+  // them is); the caller syncs before reading it
+  template <int S = 1>
   __device__ void init_live(unsigned* live, int mrow, int n, int q_first,
                             int q_last) const {
     const int lane = threadIdx.x % 32;
@@ -60,10 +66,12 @@ struct ColumnMask {
          w += blockDim.x / 32) {
       const int t = w * 32 + lane;
       bool on = false;
-      if (t < n) {
-        const int2 tb = tiles[(size_t)mrow * n_kt + t];
-        on = !(tb.x <= q_first && tb.y > q_last);
-      }
+#pragma unroll
+      for (int u = 0; u < S; ++u)
+        if (t < n && t * S + u < n_kt) {
+          const int2 tb = tiles[(size_t)mrow * n_kt + t * S + u];
+          on |= !(tb.x <= q_first && tb.y > q_last);
+        }
       const unsigned bits = __ballot_sync(FULL_MASK, on);
       if (lane == 0) live[w] = bits;
     }
@@ -119,9 +127,29 @@ struct ColumnMask {
     }
   }
 
-  // row i sees column k0 + jl of the staged tile
+  // bounds of the W columns k0.. of mask row mrow -> bs[0, W) start,
+  // bs[W, 2 W) end (0 past Lk), by the 32 lanes of one warp with plain
+  // loads; returns to every lane whether some column hides a row of
+  // [q_first, q_last] (if not, the tile needs no per-entry mask)
+  template <int W>
+  __device__ bool load_bounds(int* bs, int mrow, int k0, int q_first,
+                              int q_last) const {
+    bool hides = false;
+    for (int r = threadIdx.x % 32; r < W; r += 32) {
+      const bool ok = k0 + r < Lk;
+      const size_t off = (size_t)mrow * Lk + k0 + r;
+      const int s = ok ? start[off] : 0, e = ok ? end[off] : 0;
+      bs[r] = s;
+      bs[W + r] = e;
+      hides |= s < e && s <= q_last && q_first < e;
+    }
+    return __any_sync(FULL_MASK, hides);
+  }
+
+  // row i sees column k0 + jl of the staged tile of W columns
+  template <int W = TILE>
   __device__ bool sees(const int* bs, int jl, int i) const {
-    return !(bs[jl] <= i && i < bs[TILE + jl]);
+    return !(bs[jl] <= i && i < bs[W + jl]);
   }
 };
 

@@ -8,11 +8,16 @@
 // (via _fm_fwd / pallas_flashmask_attention).
 //
 // What bounds it on the H100: operations, over the visible pairs only
-// (4 D flops a pair). The kernel is K1f's (flash_attention_fwd.cuh: its
-// tiles, online softmax and bf16 tensor-core path) run with the
-// ColumnMask policy of flashmask.cuh: a tile-summary pass first, then
-// each q tile walks only the kv tiles it can see, so a document mask
-// costs its documents' pairs and not L^2.
+// (4 D flops a pair). The kernel is K1f's (flash_attention_fwd.cuh; in
+// bf16 the wgmma + TMA kernel of flash_attention_fwd_sm90.cuh) run with
+// the ColumnMask policy of flashmask.cuh: a tile-summary pass first (64
+// columns a tile, which the backward's entries reuse), then each
+// 128-row q tile walks only the 128-column kv tiles it can see (a tile
+// is live if either 64-column half is), so a document mask costs its
+// documents' pairs and not L^2. The producer warp stages each tile's
+// column bounds beside its K copy and flags whether any column hides a
+// row of the q tile; only flagged, diagonal and tail tiles take the
+// per-entry mask.
 #include "flash_attention_fwd.cuh"
 #include "flashmask.cuh"
 
