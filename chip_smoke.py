@@ -579,23 +579,26 @@ def check_flash(torch, F, fa, dtype, timing):
             8 * D * pairs, lambda: fa.flash_attention_dkv(*args),
             lambda: fa.plain_flash_attention_dkv(*args), None)}
     slow = dict(reps=2, rounds=3, warmup=1)
-    # the forward and its yardstick are sub-millisecond: 20 calls a round
+    # the kernels and the forward's yardstick are about a millisecond or
+    # less: 20 calls a round; the plain versions take tens
     fast = dict(reps=20, rounds=5, warmup=3)
     rows_out = {}
     with torch.no_grad():
         for name, (nbytes, flops, kern, plain, lib) in cases.items():
             b_ms, b_by = bound(nbytes, flops, dtype)
-            rep = fast if name == "flash_attention_fwd" else slow
             rows_out[name] = dict(
-                ms=time_ms(torch, kern, **rep),
+                ms=time_ms(torch, kern, **fast),
                 plain_ms=time_ms(torch, plain, **slow), bound_ms=b_ms,
                 bound_by=b_by,
-                library_ms=time_ms(torch, lib, **rep) if lib else None)
+                library_ms=time_ms(torch, lib, **fast) if lib else None)
+        for name, (_, flops, *_) in cases.items():
+            r = rows_out[name]
+            log(f"  {name}: {flops / r['ms'] / 1e9:.1f} TFLOP/s "
+                f"({r['bound_ms'] / r['ms']:.3f} of its {r['bound_by']} "
+                f"bound)")
         fwd = rows_out["flash_attention_fwd"]
         flops = cases["flash_attention_fwd"][1]
-        log(f"  flash_attention_fwd: {flops / fwd['ms'] / 1e9:.1f} TFLOP/s "
-            f"({fwd['bound_ms'] / fwd['ms']:.3f} of its operations bound); "
-            f"SDPA forward {flops / fwd['library_ms'] / 1e9:.1f} TFLOP/s, "
+        log(f"  SDPA forward {flops / fwd['library_ms'] / 1e9:.1f} TFLOP/s, "
             f"served by {sdpa_kernels(torch, sdpa)}")
     lib_fb = time_ms(torch, sdpa_fwd_bwd, **slow)
     ours = sum(r["ms"] for r in rows_out.values())
@@ -604,13 +607,17 @@ def check_flash(torch, F, fa, dtype, timing):
     # the backward alone: one autograd call of SDPA's graph (dq, dk and
     # dv together) against K1dq + K1dkv
     out_t = sdpa()
-    lib_b = time_ms(torch, lambda: torch.autograd.grad(
-        out_t, (qt, kt, vt), do_t, retain_graph=True), **slow)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+
+    lib_b = time_ms(torch, sdpa_bwd, **fast)
     ours_b = rows_out["flash_attention_dq"]["ms"] \
         + rows_out["flash_attention_dkv"]["ms"]
     log(f"  flash attention dq + dkv: ms={ours_b:.4f}; library "
         f"scaled_dot_product_attention backward (dq, dk, dv): "
-        f"ms={lib_b:.4f}")
+        f"ms={lib_b:.4f}, served by {sdpa_kernels(torch, sdpa_bwd)}")
     del out_t
     return errs, rows_out
 
@@ -817,23 +824,22 @@ def check_flashmask(torch, F, fa, fm, dtype, timing):
             8 * D * pairs, lambda: fm.flashmask_dkv(*args, tiles=tiles),
             lambda: fm.plain_flashmask_dkv(*args), None)}
     slow = dict(reps=2, rounds=3, warmup=1)
-    fast = dict(reps=20, rounds=5, warmup=3)     # K6f: sub-millisecond
+    fast = dict(reps=20, rounds=5, warmup=3)     # the kernels: sub-ms
     rows_out = {}
     with torch.no_grad():
         for name, (nbytes, flops, kern, plain, lib) in cases.items():
             b_ms, b_by = bound(nbytes, flops, dtype)
-            rep = fast if name == "flashmask_fwd" else slow
             rows_out[name] = dict(
-                ms=time_ms(torch, kern, **rep),
+                ms=time_ms(torch, kern, **fast),
                 plain_ms=time_ms(torch, plain, **slow), bound_ms=b_ms,
                 bound_by=b_by,
                 library_ms=time_ms(torch, lib, **slow) if lib else None)
         k1 = (q, k, v, do, args[4], args[5], scale, True)
         k1_ms = [time_ms(torch, lambda: fa.flash_attention_fwd(
-                     q, k, v, scale, True), **slow),
-                 time_ms(torch, lambda: fa.flash_attention_dq(*k1), **slow),
+                     q, k, v, scale, True), **fast),
+                 time_ms(torch, lambda: fa.flash_attention_dq(*k1), **fast),
                  time_ms(torch, lambda: fa.flash_attention_dkv(*k1),
-                         **slow)]
+                         **fast)]
     lib_fb = time_ms(torch, sdpa_fwd_bwd, **slow)
     ours = sum(r["ms"] for r in rows_out.values())
     log(f"  flashmask (a) at B {B}, L {L}, {H} / {Hkv} heads, D {D}: "

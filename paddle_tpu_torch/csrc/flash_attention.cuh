@@ -1,9 +1,10 @@
-// Tile helpers shared by flash_attention_fwd.cu (K1f, float32) and
-// flash_attention_bwd.cu (K1dq, K1dkv), and the column-mask policies of
-// K1 and K6. The bf16 forward (K1f, K6f) is the Hopper kernel of
-// flash_attention_fwd_sm90.cuh (wgmma, TMA, warp specialisation) and
-// takes only the constants, row_off, pack_bf16, the quad reductions and
-// the mask policies from here.
+// Tile helpers shared by the float32 kernels of flash_attention_fwd.cuh
+// (K1f) and flash_attention_bwd.cuh (K1dq, K1dkv), and the column-mask
+// policies of K1 and K6. The bf16 kernels (K1f / K6f in
+// flash_attention_fwd_sm90.cuh, K1dq / K1dkv / K6dq / K6dkv in
+// flash_attention_bwd_sm90.cuh: wgmma, TMA, warp specialisation) take
+// only the constants, row_off, pack_bf16, the quad reductions and the
+// mask policies from here.
 //
 // Every kernel here works on 64-row tiles of the [B, L, heads, D]
 // tensors the port passes (Paddle's flash-attention layout: a head's
@@ -16,19 +17,6 @@
 // of each 64-wide result; the 16 threads of a row sit in one half-warp,
 // so row reductions are four xor-shuffles. Products run as float32
 // fused multiply-adds.
-//
-// bfloat16 backward (tensor cores, mma.sync): a block of 4 warps copies
-// its bf16 tiles into shared memory with cp.async (rows padded to D + 8
-// elements, so the ldmatrix rows hit distinct banks) and each warp owns
-// 16 rows of the 64-row tile: mma.sync m16n8k16 with float32
-// accumulators, fragments from ldmatrix (see mma_gemm.cuh). A result
-// tile in accumulator layout (thread holds rows g and g + 8, columns
-// 2 tig and 2 tig + 1 of each n8 tile, g = lane / 4, tig = lane % 4)
-// becomes the A operand of the next product in registers, rounded to
-// bf16 on the way, which is where the reference casts P and dS to the
-// input dtype. Row reductions are two xor-shuffles over the 4 threads of
-// a row. The backward has not moved to wgmma yet; the Hopper pieces of
-// hopper.cuh are what it takes next.
 #pragma once
 
 #include <cstdint>
@@ -147,77 +135,11 @@ constexpr size_t smem_bytes(int n_rows, int n_p) {
                           (size_t)n_p * TILE * PP);
 }
 
-// ---------------------------------------------------------------- mma
-
-constexpr int MW = 4;          // warps per tensor-core block
-constexpr int MT = MW * 32;    // its threads
-
-// rows r0 .. r0 + 63 of head hh -> dst [64][D + 8] bf16 by cp.async
-// (zero-filled past L); the caller commits and waits
-template <int D>
-__device__ __forceinline__ void async_rows(bf16* dst,
-                                           const bf16* __restrict__ src,
-                                           int b, int L, int NH, int hh,
-                                           int r0) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < TILE * CH; i += MT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r0 + r < L;
-    cp_async16(dst + r * (D + 8) + c,
-               ok ? src + row_off<D>(b, r0 + r, L, NH, hh) + c : src, ok);
-  }
-}
-
-// A fragment (m16 x k16) at rows r0.., columns c0.. of a row-major tile
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t,
-                                       int r0, int c0) {
-  const int lane = threadIdx.x % 32, mi = lane / 8, ri = lane % 8;
-  ldmatrix_x4(a, t + (r0 + (mi & 1) * 8 + ri) * LD + c0 + (mi >> 1) * 8);
-}
-
-// B fragments of the n8 tiles n0 and n0 + 8 over k0 .. k0 + 15, from a
-// tile that holds B transposed (rows n, columns k: K in S = Q K^T)
-template <int LD>
-__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* t,
-                                        int n0, int k0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// the same from a tile that holds B itself (rows k, columns n: V in P V)
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* t,
-                                       int k0, int n0) {
-  const int lane = threadIdx.x % 32, mi = lane / 8, ri = lane % 8;
-  ldmatrix_x4_trans(b, t + (k0 + (mi & 1) * 8 + ri) * LD + n0 +
-                           (mi >> 1) * 8);
-}
-
-// c0 += a b(n0), c1 += a b(n0 + 8)
-__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[4]) {
-  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-  mma_16816(c0, a, b0);
-  mma_16816(c1, a, b1);
-}
+// ---------------------------------------------------------------- bf16
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the A operand (k 0..15) made of two accumulator tiles (k 0..7 in c0,
-// k 8..15 in c1), rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // reductions over the 4 threads of an accumulator row
@@ -231,32 +153,10 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(FULL_MASK, v, 2);
 }
 
-// row hr (0: g, 1: g + 8) of a warp's [16 x D] accumulators -> row l
-template <int D>
-__device__ __forceinline__ void store_acc_row(bf16* __restrict__ dst,
-                                              const float (&acc)[D / 8][4],
-                                              int hr, float mul, int b,
-                                              int l, int L, int NH, int hh) {
-  const int tig = threadIdx.x % 4;
-  bf16* o = dst + row_off<D>(b, l, L, NH, hh) + 2 * tig;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-    *reinterpret_cast<__nv_bfloat162*>(o + nt * 8) = __floats2bfloat162_rn(
-        acc[nt][2 * hr] * mul, acc[nt][2 * hr + 1] * mul);
-}
-
-// shared memory of a tensor-core block: n_tiles [64][D + 8] bf16 tiles
-// plus n_f 4-byte words
-template <int D>
-constexpr size_t mma_smem_bytes(int n_tiles, int n_f) {
-  return sizeof(bf16) * (size_t)n_tiles * TILE * (D + 8) +
-         sizeof(float) * (size_t)n_f;
-}
-
 // ---------------------------------------------------------------- masks
 //
-// The kernels of flash_attention_fwd.cuh / flash_attention_bwd.cuh take
-// a column-mask policy. NoMask is K1's: every entry point below is a
+// The kernels of flash_attention_{fwd,bwd}.cuh and of their _sm90
+// headers take a column-mask policy. NoMask is K1's: every entry point below is a
 // constant, so K1 compiles to the kernels it had before masks existed.
 // ColumnMask (flashmask.cuh) is K6's FlashMask mask: it narrows the
 // walks to the live tiles (live bits, dead q-tile ranges) and adds
@@ -270,6 +170,7 @@ struct NoMask {
   template <int S = 1>
   __device__ void init_live(unsigned*, int, int, int, int) const {}
   __device__ int next_live(const unsigned*, int t, int) const { return t; }
+  template <int S = 1>
   __device__ void init_dead(int*, int, int, int, int, int, int) const {}
   __device__ int next_item(const int*, int u, int, int, int) const {
     return u;

@@ -1,6 +1,8 @@
 // K1dq and K1dkv: the FA-2 backward of flash attention (dq pass and
 // dk/dv pass). The kernels, their bound and their design are in
-// flash_attention_bwd.cuh; K1 runs them with no column mask.
+// flash_attention_bwd.cuh (float32) and flash_attention_bwd_sm90.cuh
+// (bf16: wgmma + TMA, warp-specialised); K1 runs them with no column
+// mask.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention_kernel.py, _dq_kernel
 // and _dkv_kernel (via _bwd).

@@ -61,6 +61,20 @@ constexpr int TMA_BM = 128;          // q rows of a block
 constexpr int TMA_BN = 128;          // kv rows of a ring slot
 constexpr int TMA_THREADS = 384;     // producer + two consumer warpgroups
 constexpr int TMA_ATOM = 64;         // bf16 columns of a swizzle atom
+constexpr float LOG2E = 1.4426950408889634f;
+
+// a consumer's 64 x (16 K) accumulator (wgmma layout) -> the bf16 A
+// fragments of its K k16 steps, rounded to nearest even (P for O += P
+// V; P^T, dS^T and dS in the backward)
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K][4],
+                                       const float (&x)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -143,6 +157,57 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
+// The producer of a block that streams K and V tiles of BN rows through
+// two S-slot rings (K's and V's, each slot with a "full" mbarrier that
+// TMA completes and an "empty" one that the 8 consumer warps arrive on):
+// warp 0 of warpgroup 0, all 32 lanes, walks the live kv tiles; for
+// each it waits for the K slot, stages the tile's column bounds and a
+// flag (column mask: does some column hide a row of [q_first, q_last]),
+// loads K, then waits for the V slot and loads V. Item it takes slot
+// it % S in phase it / S. K1f / K6f (BN 128, S 2) and K1dq / K6dq (BN
+// 64) run it; their consumers decide when each slot is released.
+template <int D, int BN, int S, class Mask>
+__device__ __forceinline__ void produce_kv(
+    const CUtensorMap* tk, const CUtensorMap* tv, bf16* Ks, bf16* Vs,
+    uint64_t* k_full, uint64_t* v_full, uint64_t* k_empty,
+    uint64_t* v_empty, int* Bs, const unsigned* live, int n_kt, int hk,
+    int b, int mrow, int q_first, int q_last, const Mask& mask) {
+  using namespace sm90;
+  constexpr int NA = D / TMA_ATOM, ATOM = BN * TMA_ATOM, NBS = 2 * BN + 1;
+  constexpr uint32_t TILE_BYTES = NA * ATOM * sizeof(bf16);
+  const int lane = threadIdx.x % 32;
+  int it = 0;
+  for (int t = mask.next_live(live, 0, n_kt); t < n_kt;
+       t = mask.next_live(live, t + 1, n_kt), ++it) {
+    const int s = it % S, k0 = t * BN;
+    const uint32_t free = ((it / S) & 1) ^ 1;
+    mbar_wait(k_empty + s, free);
+    if (Mask::kOn) {
+      int* bs = Bs + s * NBS;
+      const bool hides =
+          mask.template load_bounds<BN>(bs, mrow, k0, q_first, q_last);
+      if (lane == 0) bs[2 * BN] = hides;
+      __threadfence_block();
+      __syncwarp();
+    }
+    if (lane == 0) {
+      mbar_expect_tx(k_full + s, TILE_BYTES);
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        tma_load_4d(Ks + (s * NA + a) * ATOM, tk, k_full + s, a * TMA_ATOM,
+                    hk, k0, b);
+    }
+    mbar_wait(v_empty + s, free);
+    if (lane == 0) {
+      mbar_expect_tx(v_full + s, TILE_BYTES);
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        tma_load_4d(Vs + (s * NA + a) * ATOM, tv, v_full + s, a * TMA_ATOM,
+                    hk, k0, b);
+    }
+  }
+}
+
 template <int D, class Mask>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -198,8 +263,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
     // ------------------------------------------------------ producer
     regs_dealloc<24>();
     if (__shfl_sync(FULL_MASK, threadIdx.x / 32, 0) == 0) {
-      const int lane = threadIdx.x;
-      if (lane == 0) {
+      if (threadIdx.x == 0) {
         prefetch_tmap(&tq);
         prefetch_tmap(&tk);
         prefetch_tmap(&tv);
@@ -208,36 +272,9 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
         for (int a = 0; a < NA; ++a)
           tma_load_4d(Qs + a * ATOM, &tq, q_full, a * TMA_ATOM, h, q0, b);
       }
-      int it = 0;
-      for (int t = mask.next_live(live, 0, n_kt); t < n_kt;
-           t = mask.next_live(live, t + 1, n_kt), ++it) {
-        const int s = it & 1, k0 = t * BN;
-        const uint32_t free = ((it >> 1) & 1) ^ 1;
-        mbar_wait(k_empty + s, free);
-        if (Mask::kOn) {
-          int* bs = Bs + s * NBS;
-          const bool hides =
-              mask.template load_bounds<BN>(bs, mrow, k0, q0, q_last);
-          if (lane == 0) bs[2 * BN] = hides;
-          __threadfence_block();
-          __syncwarp();
-        }
-        if (lane == 0) {
-          mbar_expect_tx(k_full + s, TILE_BYTES);
-#pragma unroll
-          for (int a = 0; a < NA; ++a)
-            tma_load_4d(Ks + (s * NA + a) * ATOM, &tk, k_full + s,
-                        a * TMA_ATOM, hk, k0, b);
-        }
-        mbar_wait(v_empty + s, free);
-        if (lane == 0) {
-          mbar_expect_tx(v_full + s, TILE_BYTES);
-#pragma unroll
-          for (int a = 0; a < NA; ++a)
-            tma_load_4d(Vs + (s * NA + a) * ATOM, &tv, v_full + s,
-                        a * TMA_ATOM, hk, k0, b);
-        }
-      }
+      produce_kv<D, BN, 2>(&tk, &tv, Ks, Vs, k_full, v_full, k_empty,
+                           v_empty, Bs, live, n_kt, hk, b, mrow, q0, q_last,
+                           mask);
     }
   } else {
     // -------------------------------------------------------- consumers
@@ -269,15 +306,6 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
                     desc_sw128(Vs + s * NA * ATOM + kk * 16 * TMA_ATOM,
                                ATOM * sizeof(bf16), 1024));
     };
-    auto pack_p = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
-    };
     auto softmax = [&](int t, int s) {
       const int k0 = t * BN;
       const int* bs = Bs + s * NBS;
@@ -285,10 +313,6 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
                         (Mask::kOn && bs[2 * BN]);
       softmax_tile<BN>(sc, m, l, alpha, edge, k0, row0, Lk, causal,
                        scale_log2, mask, bs);
-    };
-    auto release = [&](uint64_t* bar) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar);
     };
     const int turn = 1 + c, other = 2 - c;       // named barriers
     mbar_wait(q_full, 0);   // also when no tile is live: Q's copy ends first
@@ -304,8 +328,8 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       wgmma_wait<0>();
       fence_regs(sc);
       softmax(t, 0);
-      release(k_empty);
-      pack_p();
+      warp_arrive(k_empty);
+      pack_a(pa, sc);
       int it = 1;
       for (t = mask.next_live(live, t + 1, n_kt); t < n_kt;
            t = mask.next_live(live, t + 1, n_kt), ++it) {
@@ -322,15 +346,15 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
         wgmma_wait<1>();
         fence_regs(sc);
         softmax(t, s);
-        release(k_empty + s);
+        warp_arrive(k_empty + s);
         wgmma_wait<0>();
         fence_regs(acc);
-        release(v_empty + sp);
+        warp_arrive(v_empty + sp);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
-        pack_p();
+        pack_a(pa, sc);
       }
       const int sp = (it - 1) & 1;
       mbar_wait(v_full + sp, ((it - 1) >> 1) & 1);
@@ -341,7 +365,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       if (c == 0) bar_arrive(other, 256);   // warpgroup 1 ends the turns
       wgmma_wait<0>();
       fence_regs(acc);
-      release(v_empty + sp);
+      warp_arrive(v_empty + sp);
     }
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -381,7 +405,7 @@ cudaError_t launch_fwd_tma(const void* q, const void* k, const void* v,
   dim3 grid(B * H, (Lq + TMA_BM - 1) / TMA_BM);
   fwd_tma_kernel<D, Mask><<<grid, TMA_THREADS, smem, stream>>>(
       tq, tk, tv, (bf16*)o, lse, Lq, Lk, H, Hkv,
-      scale * 1.4426950408889634f, causal, mask);
+      scale * LOG2E, causal, mask);
   return cudaGetLastError();
 }
 

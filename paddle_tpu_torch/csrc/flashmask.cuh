@@ -15,10 +15,12 @@
 //   (init_live<2>);
 // - the dk/dv block (one kv tile) turns the pair of each query head of
 //   its group into the range [lo, hi) of dead q tiles, which its walk
-//   over (head, q tile) items jumps.
+//   over (head, q tile) items jumps; the bf16 dk/dv block's 128-column
+//   kv tiles take the intersection of their halves' ranges
+//   (init_dead<2>).
 // The start / end values of the kv tile being computed are staged in
-// shared memory beside K and V (by cp.async in the 64-column kernels,
-// by the bf16 forward's producer warp with load_bounds, which also says
+// shared memory beside K and V (by cp.async in the float32 kernels, by
+// the bf16 kernels' producer warp with load_bounds, which also says
 // whether any column hides a row of the q tile), and sees() adds
 // !(start_j <= i < end_j) to each entry's predicate, so a masked entry
 // is set to exactly NEG_INF (forward) or P = 0 (backward) as the
@@ -87,19 +89,30 @@ struct ColumnMask {
     return n;
   }
 
-  // dead[2 hi], dead[2 hi + 1]: the q tiles [lo, hi) every row of which
-  // is masked on every column of kv tile kt, for head hi of the group;
-  // the caller syncs before reading them
+  // dead[2 hi], dead[2 hi + 1]: the 64-row q tiles [lo, hi) every row of
+  // which is masked on every column of kv tile kt, a tile of S 64-column
+  // summary tiles, for head hi of the group: the intersection of the
+  // halves' ranges (a range is empty when lo >= hi); the caller syncs
+  // before reading them
+  template <int S = 1>
   __device__ void init_dead(int* dead, int b, int hk, int rep, int H,
                             int kt, int Lq) const {
     const int n_qt = (Lq + TILE - 1) / TILE;
     for (int hi = threadIdx.x; hi < rep; hi += blockDim.x) {
-      const int2 tb = tiles[(size_t)row(b, hk * rep + hi, H) * n_kt + kt];
-      // q0 >= max start  <=>  qt >= ceil(max start / 64)
-      dead[2 * hi] = tb.x <= 0 ? 0
-                                : (int)(((long long)tb.x + TILE - 1) / TILE);
-      // q_last < min end  <=>  qt < floor(min end / 64), or every tile
-      dead[2 * hi + 1] = tb.y >= Lq ? n_qt : (tb.y <= 0 ? 0 : tb.y / TILE);
+      int lo = 0, up = n_qt;
+#pragma unroll
+      for (int u = 0; u < S; ++u) {
+        if (kt * S + u >= n_kt) break;   // no columns there: no limit
+        const int2 tb =
+            tiles[(size_t)row(b, hk * rep + hi, H) * n_kt + kt * S + u];
+        // q0 >= max start  <=>  qt >= ceil(max start / 64)
+        lo = max(lo, tb.x <= 0 ? 0
+                               : (int)(((long long)tb.x + TILE - 1) / TILE));
+        // q_last < min end  <=>  qt < floor(min end / 64), or every tile
+        up = min(up, tb.y >= Lq ? n_qt : (tb.y <= 0 ? 0 : tb.y / TILE));
+      }
+      dead[2 * hi] = lo;
+      dead[2 * hi + 1] = up;
     }
   }
 

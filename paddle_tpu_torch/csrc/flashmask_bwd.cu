@@ -8,12 +8,16 @@
 // caller, as the reference computes it in XLA.
 //
 // What bounds them on the H100: operations over the visible pairs only
-// (6 D flops a pair for dq, 8 D for dk/dv). The kernels are K1's
-// (flash_attention_bwd.cuh) run with the ColumnMask policy of
-// flashmask.cuh: the dq block walks the kv tiles its q tile can see;
-// the dk/dv block, which sums over the query heads of its kv group,
-// jumps each head's range of q tiles hidden from its kv tile and masks
-// each entry by that head's own mask row (the TPU kernel's _m_row).
+// (6 D flops a pair for dq, 8 D for dk/dv). The kernels are K1's run
+// with the ColumnMask policy of flashmask.cuh (in bf16 the wgmma + TMA
+// kernels of flash_attention_bwd_sm90.cuh): the dq block (128 q rows)
+// walks the 64-column kv tiles its q tile can see; the dk/dv block (128
+// kv rows), which sums over the query heads of its kv group, jumps each
+// head's range of 64-row q tiles hidden from both 64-column halves of
+// its kv tile and masks each entry by that head's own mask row (the TPU
+// kernel's _m_row), staged per item by the producer warp with a flag
+// per half, so only tiles that a column partly hides take the per-entry
+// mask.
 #include "flash_attention_bwd.cuh"
 #include "flashmask.cuh"
 

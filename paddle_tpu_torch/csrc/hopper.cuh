@@ -2,7 +2,8 @@
 // kernels: mbarriers, TMA tile loads from a CUtensorMap, wgmma with its
 // shared-memory descriptors, register reallocation between warpgroups
 // (setmaxnreg), named barriers and the proxy fence. K1f / K6f
-// (flash_attention_fwd.cuh) are built from them.
+// (flash_attention_fwd_sm90.cuh) and K1dq / K1dkv / K6dq / K6dkv
+// (flash_attention_bwd_sm90.cuh) are built from them.
 //
 // Shared-memory layout these pieces assume: an operand tile is stored as
 // the TMA box writes it with CU_TENSOR_MAP_SWIZZLE_128B, rows of 64 bf16
@@ -50,6 +51,13 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// one arrival for the calling warp, once all its lanes have got here
+// (a consumer warp releasing a ring slot it has read)
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
 }
 
 // arrive and add `bytes` to the transactions this phase waits for
@@ -148,7 +156,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // d[64 x N] (+)= A B for a k16 slice, float32 accumulators in the wgmma
 // layout: warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8), and
 // d[4 j + e] is column 8 j + 2 (lane % 4) + (e & 1) of row + 8 (e >> 1).
-// wgmma_ss: A and B both K-major in shared memory (descriptors).
+// wgmma_ss: A and B both K-major in shared memory (descriptors); n128
+// (64 accumulators) and n64 (32).
 // wgmma_rs_tb: A from registers (the mma.sync m16n8k16 A fragment of the
 // warp's 16 rows), B MN-major in shared memory (transpose bit set).
 
@@ -175,6 +184,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -222,6 +249,47 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] (+)= A B: A from registers as in wgmma_rs_tb, B K-major
+// in shared memory (no transpose)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// the A fragments of k16 step kk for rows r0 .. r0 + 15 (one warp's) of
+// a 128-byte-swizzled tile of ROWS rows, by ldmatrix: lanes 8 m .. 8 m +
+// 7 address the rows of matrix m (rows + 8 (m & 1), columns + 8 (m >>
+// 1)); a row's 16-byte chunk c sits at chunk c ^ (row % 8)
+template <int ROWS>
+__device__ __forceinline__ void ldsm_a_sw128(uint32_t (&a)[4],
+                                             const void* tile, int r0,
+                                             int kk) {
+  const int lane = threadIdx.x % 32, m = lane / 8;
+  const int r = r0 + (m & 1) * 8 + lane % 8;
+  const int k = kk * 16 + (m >> 1) * 8;                  // column
+  const uint32_t addr = smem_u32(tile) + (k / 64) * ROWS * 128 + r * 128 +
+                        ((((k % 64) / 8) ^ (r % 8)) * 16);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
 }
 
 // ---------------------------------------------------------------- warps

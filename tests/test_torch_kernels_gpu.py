@@ -12,8 +12,8 @@ rounds P against a running row max where the plain version uses the
 final one, a difference well inside that bound). The flash attention
 outputs are also held row by row, scale-free, at ``ROW_RTOL``: a dropped
 tile or a shifted causal edge moves whole rows by far more. Lengths
-cross the bf16 forward's 128-row tiles and wrap its kv ring, and two
-forward launches must agree to the bit. The MoE
+cross the bf16 kernels' 128-row tiles and wrap their rings, and two
+launches of the forward, of dq or of dk/dv must agree to the bit. The MoE
 grouped matmuls (K4's forward and transposed modes, K5's gmm, d(lhs) and
 tgmm) are held at the same tolerances, and the attention kernels at the
 GQA groups of the MoE families: 1 (DeepSeek, 16 / 16 heads) and 7
@@ -283,6 +283,24 @@ def test_flash_attention_forward_is_deterministic(cuda, dtype):
                             getattr(torch, dtype), cuda)
     first = fa.flash_attention_fwd(q, k, v, 0.1, True)
     again = fa.flash_attention_fwd(q, k, v, 0.1, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_is_deterministic(cuda, dtype):
+    """Two launches of dq and of dk/dv on the same inputs give the same
+    gradients to the bit: two passes, no atomics, one walk order (the
+    dk/dv block sums its GQA group itself)."""
+    q, k, v, do = _attn_case(12, 2, 1000, 1000, 8, 2, 128,
+                             getattr(torch, dtype), cuda)
+    o, lse = fa.plain_flash_attention_fwd(q, k, v, 0.1, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, 0.1, True)
+    assert torch.equal(fa.flash_attention_dq(*args),
+                       fa.flash_attention_dq(*args))
+    first, again = fa.flash_attention_dkv(*args), fa.flash_attention_dkv(
+        *args)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -715,6 +733,45 @@ def test_flashmask_documents_split_kv_tiles(cuda, dtype, head_dim, causal):
     n0 = dict(launch_counts)
     _flashmask_held(q, k, v, do, start, end, causal, dtype)
     assert launch_counts["flashmask_fwd"] == n0["flashmask_fwd"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_flashmask_kv_tile_halves_with_different_dead_ranges(
+        cuda, dtype, head_dim):
+    """Documents of 192 rows: a 128-column kv tile holds the last 64
+    columns of one document and the first 64 of the next, so its two
+    64-column halves hide different ranges of q tiles and the dk/dv
+    block may skip only their intersection. dq, dk and dv equal the
+    plain versions'."""
+    L, H, Hkv = 960, 4, 2
+    q, k, v, do = _attn_case(21 + head_dim, 1, L, L, H, Hkv, head_dim,
+                             getattr(torch, dtype), cuda)
+    start = np.repeat(np.arange(192, L + 1, 192), 192).astype(np.int32)
+    idx = torch.from_numpy(start)[None, None, :, None]
+    start, end = fm.flashmask_bounds(idx, L, H, Hkv, device=cuda)
+    n0 = dict(launch_counts)
+    _flashmask_held(q, k, v, do, start, end, True, dtype)
+    assert launch_counts["flashmask_dkv"] == n0["flashmask_dkv"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flashmask_backward_is_deterministic(cuda, dtype):
+    """K6dq and K6dkv twice on the same inputs under a document mask:
+    the same gradients to the bit."""
+    case = _flashmask_case(FLASHMASK_LAYOUTS[3], 1000, 128,
+                           getattr(torch, dtype), cuda)
+    q, k, v, do, start, end, causal = case
+    o, lse, tiles = fm.flashmask_fwd(q, k, v, start, end, 0.1, causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, start, end, 0.1, causal)
+    assert torch.equal(fm.flashmask_dq(*args, tiles=tiles),
+                       fm.flashmask_dq(*args, tiles=tiles))
+    first = fm.flashmask_dkv(*args, tiles=tiles)
+    again = fm.flashmask_dkv(*args, tiles=tiles)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.gpu
