@@ -18,8 +18,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ticks, at Qwen2-57B-A14B's widths and at edge routings, and the MoE
    backward's modes (K4's transposed gather and scatter, K5's d(lhs) and
    tgmm) at the phase-12 training shape (2 x 4096 tokens, top-6), at
-   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings, and
-   the FlashMask forward / dq / dk-dv kernels (K6) at Llama-3-8B's
+   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings (the
+   forward modes' times at both training shapes printed beside them),
+   and the FlashMask forward / dq / dk-dv kernels (K6) at Llama-3-8B's
    attention heads (B 1, L 4096, 32 / 8 heads, D 128) under five masks:
    (a) 8 unequal documents, causal, (b) two bounds per query head,
    (c) half the rows hidden everywhere (o, dq exactly 0, lse NEG_INF
@@ -1022,7 +1023,8 @@ def check_moe_backward(torch, mg, dtype, timing):
     its bound and a library call: ``torch._grouped_mm`` of the
     transposed weights for d(lhs), of ``lhs.t()`` and ``dy`` with row
     offsets for tgmm; composites for the gather and scatter modes
-    (printed, never in the kernels line). Returns ``(errs, rows)``;
+    (printed, never in the kernels line); the forward modes are timed on
+    the same rows (forward_at_training_shape). Returns ``(errs, rows)``;
     ``rows`` holds MOE_BWD_TIMED's timings by kernel name (tgmm: both
     products of one layer summed)."""
     dt = getattr(torch, dtype)
@@ -1164,6 +1166,8 @@ def check_moe_backward(torch, mg, dtype, timing):
                 + (f" composite library_ms={comp_ms:.4f}"
                    if comp_ms is not None else ""))
             timed[name] = row
+        forward_at_training_shape(torch, mg, dtype, label, x, src, xs, h,
+                                  order, gu, dn, gs, offs, touched)
         if shape == MOE_BWD_TIMED:
             rows["moe_gmm_t"] = timed["moe_gmm_t"]
             rows["moe_scatter_gmm_t"] = timed["moe_scatter_gmm_t"]
@@ -1179,6 +1183,43 @@ def check_moe_backward(torch, mg, dtype, timing):
         raise AssertionError(f"[{dtype}] MoE backward kernels disagree with "
                              f"their plain versions: {fails}")
     return errs, rows
+
+
+def forward_at_training_shape(torch, mg, dtype, label, x, src, xs, h, order,
+                              gu, dn, gs, offs, touched):
+    """The forward modes every MoE training step runs on the same rows as
+    its backward (the first matmul's gather + swiglu, the second's
+    scatter, the backward's recompute of the gate / up projection by the
+    gather gmm, and the sorted path's gmm), timed beside their bound and,
+    for the sorted gmm, ``torch._grouped_mm``; printed, not held (phase
+    2's check_moe holds them) and not in the kernels line."""
+    m, d = src.shape[0], x.shape[1]
+    f, es = dn.shape[1], x.element_size()
+    gm, why = grouped_mm_yardstick(torch, xs, gu, offs)
+    wgu, wdn = es * touched * d * 2 * f, es * touched * f * d
+    cases = {"moe_gather_gmm_swiglu": (
+                 lambda: mg.gather_gmm_swiglu(x, src, gu, gs),
+                 es * (x.shape[0] * d + m * f) + wgu + 4 * m,
+                 2 * m * d * 2 * f, None),
+             "moe_scatter_gmm": (
+                 lambda: mg.scatter_gmm(h, dn, gs, order),
+                 es * (m * f + m * d) + wdn + 4 * m, 2 * m * f * d, None),
+             "moe_gmm (recompute, gather)": (
+                 lambda: mg.gather_gmm(x, src, gu, gs),
+                 es * (x.shape[0] * d + m * 2 * f) + wgu + 4 * m,
+                 2 * m * d * 2 * f, None),
+             "moe_gmm sorted (K5 gmm)": (
+                 lambda: mg.gather_gmm(xs, None, gu, gs),
+                 es * (m * d + m * 2 * f) + wgu, 2 * m * d * 2 * f,
+                 gm and (lambda: gm(xs)))}
+    for name, (fn, nbytes, flops, lib) in cases.items():
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        ms = time_ms(torch, fn)
+        lib_ms = time_ms(torch, lib) if lib else None
+        log(f"  forward {name} [{dtype}] {label}: ms={ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) ratio={ms / b_ms:.2f}"
+            + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else
+               (f" (torch._grouped_mm: {why})" if why else "")))
 
 
 def decode_width_times(torch, df):

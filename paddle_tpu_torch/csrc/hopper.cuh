@@ -2,8 +2,9 @@
 // kernels: mbarriers, TMA tile loads from a CUtensorMap, wgmma with its
 // shared-memory descriptors, register reallocation between warpgroups
 // (setmaxnreg), named barriers and the proxy fence. K1f / K6f
-// (flash_attention_fwd_sm90.cuh) and K1dq / K1dkv / K6dq / K6dkv
-// (flash_attention_bwd_sm90.cuh) are built from them.
+// (flash_attention_fwd_sm90.cuh), K1dq / K1dkv / K6dq / K6dkv
+// (flash_attention_bwd_sm90.cuh) and the MoE backward's grouped matmuls
+// (moe_gmm_sm90.cuh) are built from them.
 //
 // Shared-memory layout these pieces assume: an operand tile is stored as
 // the TMA box writes it with CU_TENSOR_MAP_SWIZZLE_128B, rows of 64 bf16
@@ -113,6 +114,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-D or 3-D tensor map, as tma_load_4d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // order this thread's generic-proxy shared-memory accesses before later
 // async-proxy ones (TMA, wgmma) on the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
@@ -156,10 +181,54 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // d[64 x N] (+)= A B for a k16 slice, float32 accumulators in the wgmma
 // layout: warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8), and
 // d[4 j + e] is column 8 j + 2 (lane % 4) + (e & 1) of row + 8 (e >> 1).
-// wgmma_ss: A and B both K-major in shared memory (descriptors); n128
-// (64 accumulators) and n64 (32).
+// wgmma_ss: A and B both K-major in shared memory (descriptors); n256
+// (128 accumulators; TA / TB set the transpose bits, the operand then
+// MN-major, as tgmm's lhs^T and dy), n128 (64) and n64 (32).
 // wgmma_rs_tb: A from registers (the mma.sync m16n8k16 A fragment of the
 // warp's 16 rows), B MN-major in shared memory (transpose bit set).
+
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
 
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
@@ -317,12 +386,14 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 
 // ---------------------------------------------------------------- host
 
-// a 4-D bf16 tensor map over a [B, L, NH, D] tensor: dims (D, NH, L, B)
-// innermost first, box (64, 1, rows, 1), 128-byte swizzle, zeros past
-// the edges. cuTensorMapEncodeTiled comes from the driver through the
-// runtime, so the library links no libcuda.
-inline cudaError_t tmap_rows(CUtensorMap* map, const void* base, int B,
-                             int L, int NH, int D, int rows) {
+// a bf16 tensor map of `rank` (2..5) dims, innermost first: extents
+// `dims`, byte strides of dims 1.. `strides`, box `box`, 128-byte
+// swizzle, zeros past the edges. cuTensorMapEncodeTiled comes from the
+// driver through the runtime, so the library links no libcuda.
+inline cudaError_t tmap_bf16(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dims,
+                             const cuuint64_t* strides,
+                             const cuuint32_t* box) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -343,18 +414,47 @@ inline cudaError_t tmap_rows(CUtensorMap* map, const void* base, int B,
                : nullptr;
   }();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a 4-D map over a [B, L, NH, D] tensor: dims (D, NH, L, B), box (64, 1,
+// rows, 1)
+inline cudaError_t tmap_rows(CUtensorMap* map, const void* base, int B,
+                             int L, int NH, int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH, (cuuint64_t)L,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
                                  (cuuint64_t)L * NH * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tmap_bf16(map, base, 4, dims, strides, box);
+}
+
+// a 2-D map over a row-major [rows, cols] matrix: box (64 columns,
+// box_rows rows)
+inline cudaError_t tmap_2d(CUtensorMap* map, const void* base, int rows,
+                           int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return tmap_bf16(map, base, 2, dims, strides, box);
+}
+
+// a 3-D map over a row-major [n, rows, cols] stack: box (64 columns,
+// box_rows rows, 1)
+inline cudaError_t tmap_3d(CUtensorMap* map, const void* base, int n,
+                           int rows, int cols, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return tmap_bf16(map, base, 3, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -33,41 +33,39 @@
 // cores the limit. A training step of 2 x 4096 tokens gives each expert
 // ~768 rows, and there the products bound it.
 //
-// Design: the TPU kernel walks a CSR list of (group, row tile) visits and
-// revisits a row tile once for every group starting inside it. Here one
-// thread block takes one (column tile, expert): it computes its expert's
-// row range from group_sizes itself (a block-wide sum of the sizes before
-// it, so no host round trip and no second kernel), returns at once for an
-// empty group, and loops over the group's rows in chunks of BM = 16, 32
-// or 64 (picked from the mean group size). A chunk's row indices (source
-// and destination) are staged in shared memory first; the lhs rows then
-// arrive with 16-byte cp.async copies straight from x[src_rows[r]] (so
-// the sorted [m, d] buffer never exists in device memory) and the
-// expert's weight slice with 16-byte cp.async copies, both through a
-// 3-stage ring of 64-deep K slices; bfloat16 contracts on the tensor
-// cores (mma.sync m16n8k16, float32 accumulation; fragments and warp
-// layout from mma_gemm.cuh). An expert's weight tile is read again for
-// each chunk of its rows; the L2 cache serves those repeats (at training
-// row counts, ~12 chunks an expert). The swiglu tile is 64 gate columns
-// beside the same 64 up columns of rhs, so one pass feeds both
-// accumulators; the epilogue stages the float32 tile in shared memory and
-// writes silu(gate) * up, cast once. The scatter epilogue writes row r of
-// the chunk to dst_rows[r]. The transposed modes stage [128 n x 64 k]
-// slices of rhs [e, N, K] (rows of it, 16-byte copies along K) and load
-// the B fragment with ldmatrix without .trans: a row-major [n][k] tile is
-// B in column-major order, which is what the mma's B operand takes.
-// float32 runs the FMA tile of tile_gemm.cuh (two passes for swiglu).
-// Rows past the last group's end are written as zeros by the last
-// expert's blocks.
+// Design of the forward modes (gather + swiglu, scatter, gmm; bf16): the
+// TPU kernel walks a CSR list of (group, row tile) visits and revisits a
+// row tile once for every group starting inside it. Here one thread
+// block takes one (column tile, expert): it computes its expert's row
+// range from group_sizes itself (a block-wide sum of the sizes before
+// it, so no host round trip and no second kernel), returns at once for
+// an empty group, and loops over the group's rows in chunks of BM = 16,
+// 32 or 64 (picked from the mean group size). A chunk's row indices
+// (source and destination) are staged in shared memory first; the lhs
+// rows then arrive with 16-byte cp.async copies straight from
+// x[src_rows[r]] (so the sorted [m, d] buffer never exists in device
+// memory) and the expert's weight slice with 16-byte cp.async copies,
+// both through a 3-stage ring of 64-deep K slices; bfloat16 contracts
+// on the tensor cores (mma.sync m16n8k16, float32 accumulation;
+// fragments and warp layout from mma_gemm.cuh). An expert's weight tile
+// is read again for each chunk of its rows; the L2 cache serves those
+// repeats. At serving widths (a few rows an expert) these modes stream
+// their weights at 1.2-1.5x the bytes bound; at training widths (~768
+// rows an expert) they run at 6-7x the operations bound, where the
+// backward's design below would serve them too. The swiglu tile is 64
+// gate columns beside the same 64 up columns of rhs, so one pass feeds
+// both accumulators; the epilogue stages the float32 tile in shared
+// memory and writes silu(gate) * up, cast once. The scatter epilogue
+// writes row r of the chunk to dst_rows[r]. Rows past the last group's
+// end are written as zeros by the last expert's blocks.
 //
-// tgmm contracts over rows instead: a block takes a [64 k x 128 n] tile
-// of one expert's output and walks the expert's rows in slices of 64,
-// staging lhs[rows, k-tile] and dy[rows, n-tile] with cp.async (rows
-// outside the group are zero-filled, never read); the A fragment is
-// lhs^T, loaded with ldmatrix.trans from the row-major lhs slice, and B
-// is the dy slice as in the forward. float32 runs a 64 x 64 FMA tile.
-// wgmma, TMA and a split over rows for the decode tick's ~1 row a group
-// come with a later change.
+// The backward's bf16 modes, the transposed gmm (sorted, gather and
+// scatter) and tgmm, run the persistent warp-specialised Hopper kernels
+// of moe_gmm_sm90.cuh (wgmma fed by TMA, a device-side tile schedule;
+// operations bound at training widths). float32 runs the FMA tile of
+// tile_gemm.cuh for every mode (two passes for swiglu) and a 64 x 64 FMA
+// tile for tgmm, on the CUDA cores, so the float32 gradient check keeps
+// full float32 products.
 //
 // Shapes: x [s, K] (gathered) or [m, K]; src_rows / dst_rows [m] int32;
 // rhs [e, K, N] row-major ([e, N, K] transposed); group_sizes [e] int32,
@@ -77,13 +75,14 @@
 // K and N multiples of 8 (N / 2 for swiglu), 16-byte aligned pointers;
 // 1 <= e <= MAX_EXPERTS; any m >= 1.
 #include "mma_gemm.cuh"
+#include "moe_gmm_sm90.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 using namespace ptt;
 
-constexpr int MAX_EXPERTS = 1024;
+constexpr int MAX_EXPERTS = moe90::MAX_E;
 constexpr int SWIGLU_HALF = MMA_BN / 2;  // gate (and up) columns a tile
 
 struct GroupArgs {
@@ -127,29 +126,20 @@ __device__ __forceinline__ float silu_f(float g) {
 
 // ---------------------------------------------------------------- bf16
 
-// one stage of the weight ring: [MMA_BK k][MMA_LDB] or, transposed,
-// [MMA_BN n][MMA_LDA]
-template <bool TRANS>
-__host__ __device__ constexpr int b_stage() {
-  return TRANS ? MMA_BN * MMA_LDA : MMA_BK * MMA_LDB;
-}
-
-template <int BM, bool TRANS>
+template <int BM>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return sizeof(bf16) * MMA_STAGES * (BM * MMA_LDA + b_stage<TRANS>());
+  return sizeof(bf16) * MMA_STAGES * (BM * MMA_LDA + MMA_BK * MMA_LDB);
 }
 
-template <int BM, bool TRANS>
+template <int BM>
 constexpr size_t mma_smem() {
-  return ring_bytes<BM, TRANS>() + 2 * BM * sizeof(int);
+  return ring_bytes<BM>() + 2 * BM * sizeof(int);
 }
 
 // grid (column tiles, experts), MMA_THREADS threads; SWIGLU tiles cover
-// SWIGLU_HALF output columns (gate and up), the others MMA_BN; TRANS
-// reads rhs as [e, N, K]
-template <int BM, bool SWIGLU, bool TRANS>
+// SWIGLU_HALF output columns (gate and up), the others MMA_BN
+template <int BM, bool SWIGLU>
 __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
-  static_assert(!(SWIGLU && TRANS), "swiglu is a forward epilogue");
   using WT = WarpTile<BM>;
   const int g = blockIdx.y;
   const int2 rows = group_rows<MMA_THREADS>(a.gs, g, a.m);
@@ -160,7 +150,7 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
   bf16(*As)[BM][MMA_LDA] = reinterpret_cast<bf16(*)[BM][MMA_LDA]>(smem);
   bf16* b_ring = reinterpret_cast<bf16*>(
       smem + sizeof(bf16) * MMA_STAGES * BM * MMA_LDA);
-  int* src_s = reinterpret_cast<int*>(smem + ring_bytes<BM, TRANS>());
+  int* src_s = reinterpret_cast<int*>(smem + ring_bytes<BM>());
   int* dst_s = src_s + BM;
   float(*Cs)[MMA_BN + 4] = reinterpret_cast<float(*)[MMA_BN + 4]>(smem);
 
@@ -193,33 +183,23 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
         cp_async16(&As[st][mm][kk], ok ? x + (size_t)sr * K + k0 + kk : x,
                    ok);
       }
-      bf16* bst = b_ring + st * b_stage<TRANS>();
-      if constexpr (TRANS) {  // [n][k] slice of rhs [e, N, K]
-        for (int i = tid; i < MMA_BN * (MMA_BK / 8); i += MMA_THREADS) {
-          const int n = i / (MMA_BK / 8), kk = (i % (MMA_BK / 8)) * 8;
-          const int wc = col0 + n;
-          const bool ok = wc < N && k0 + kk < K;
-          cp_async16(bst + n * MMA_LDA + kk,
-                     ok ? w + (size_t)wc * K + k0 + kk : w, ok);
+      bf16* bst = b_ring + st * MMA_BK * MMA_LDB;   // [k][n] of rhs
+      for (int i = tid; i < MMA_BK * (MMA_BN / 8); i += MMA_THREADS) {
+        const int kk = i / (MMA_BN / 8), c = (i % (MMA_BN / 8)) * 8;
+        int wc;
+        bool ok;
+        if (SWIGLU) {
+          const bool up = c >= SWIGLU_HALF;
+          const int cc = col0 + (up ? c - SWIGLU_HALF : c);
+          ok = cc < nout;
+          wc = up ? nout + cc : cc;
+        } else {
+          wc = col0 + c;
+          ok = wc < N;
         }
-      } else {                // [k][n] slice of rhs [e, K, N]
-        for (int i = tid; i < MMA_BK * (MMA_BN / 8); i += MMA_THREADS) {
-          const int kk = i / (MMA_BN / 8), c = (i % (MMA_BN / 8)) * 8;
-          int wc;
-          bool ok;
-          if (SWIGLU) {
-            const bool up = c >= SWIGLU_HALF;
-            const int cc = col0 + (up ? c - SWIGLU_HALF : c);
-            ok = cc < nout;
-            wc = up ? nout + cc : cc;
-          } else {
-            wc = col0 + c;
-            ok = wc < N;
-          }
-          ok = ok && k0 + kk < K;
-          cp_async16(bst + kk * MMA_LDB + c,
-                     ok ? w + (size_t)(k0 + kk) * N + wc : w, ok);
-        }
+        ok = ok && k0 + kk < K;
+        cp_async16(bst + kk * MMA_LDB + c,
+                   ok ? w + (size_t)(k0 + kk) * N + wc : w, ok);
       }
     };
 
@@ -243,7 +223,7 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
       if (it + MMA_STAGES - 1 < nk) issue(it + MMA_STAGES - 1);
       cp_async_commit();
       bf16(*as)[MMA_LDA] = As[it % MMA_STAGES];
-      const bf16* bst = b_ring + (it % MMA_STAGES) * b_stage<TRANS>();
+      const bf16* bst = b_ring + (it % MMA_STAGES) * MMA_BK * MMA_LDB;
 #pragma unroll
       for (int ks = 0; ks < MMA_BK; ks += 16) {
         uint32_t af[WT::MT][4], bfr[WT::NT][2];
@@ -255,12 +235,8 @@ __global__ void __launch_bounds__(MMA_THREADS) moe_gmm_mma(GroupArgs a) {
         for (int np = 0; np < WT::NT / 2; ++np) {
           uint32_t bq[4];
           // matrices (k0-7, n0), (k8-15, n0), (k0-7, n0+8), (k8-15, n0+8)
-          if constexpr (TRANS)  // rows of the [n][k] tile are B's columns
-            ldmatrix_x4(bq, bst + (wn * WT::WN + np * 16 + (mi >> 1) * 8 +
-                                   ri) * MMA_LDA + ks + (mi & 1) * 8);
-          else
-            ldmatrix_x4_trans(bq, bst + (ks + (mi & 1) * 8 + ri) * MMA_LDB +
-                                      wn * WT::WN + np * 16 + (mi >> 1) * 8);
+          ldmatrix_x4_trans(bq, bst + (ks + (mi & 1) * 8 + ri) * MMA_LDB +
+                                    wn * WT::WN + np * 16 + (mi >> 1) * 8);
           bfr[2 * np][0] = bq[0];
           bfr[2 * np][1] = bq[1];
           bfr[2 * np + 1][0] = bq[2];
@@ -379,10 +355,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) moe_gmm_fma(GroupArgs a) {
 
 // ---------------------------------------------------------------- tgmm
 
-constexpr int TG_BM = 64;   // k rows of the output tile (bf16)
-constexpr int TG_RS = 64;   // rows of lhs / dy contracted a slice
-constexpr int TG_LDA = TG_BM + 8;
-
 struct TgmmArgs {
   const void* lhs;  // [m, K]
   const void* dy;   // [m, N]
@@ -390,109 +362,6 @@ struct TgmmArgs {
   void* out;        // [e, K, N]
   int m, K, N, e;
 };
-
-constexpr size_t tgmm_smem() {
-  return sizeof(bf16) * MMA_STAGES * TG_RS * (TG_LDA + MMA_LDB);
-}
-
-// grid (N tiles of MMA_BN, K tiles of TG_BM, experts), MMA_THREADS
-__global__ void __launch_bounds__(MMA_THREADS) moe_tgmm_mma(TgmmArgs a) {
-  using WT = WarpTile<TG_BM>;
-  const int g = blockIdx.z;
-  const int2 rows = group_rows<MMA_THREADS>(a.gs, g, a.m);
-  const int K = a.K, N = a.N;
-  const int k0 = blockIdx.y * TG_BM, n0 = blockIdx.x * MMA_BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WT::WARPS_N, wn = warp % WT::WARPS_N;
-  const int mi = lane / 8, ri = lane % 8;
-  bf16* out = static_cast<bf16*>(a.out) + (size_t)g * K * N;
-
-  float acc[WT::MT][WT::NT][4];
-#pragma unroll
-  for (int mt = 0; mt < WT::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < WT::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16(*As)[TG_RS][TG_LDA] = reinterpret_cast<bf16(*)[TG_RS][TG_LDA]>(smem);
-  bf16(*Bs)[TG_RS][MMA_LDB] = reinterpret_cast<bf16(*)[TG_RS][MMA_LDB]>(
-      smem + sizeof(bf16) * MMA_STAGES * TG_RS * TG_LDA);
-  const bf16* lhs = static_cast<const bf16*>(a.lhs);
-  const bf16* dy = static_cast<const bf16*>(a.dy);
-  const int ns = (rows.y - rows.x + TG_RS - 1) / TG_RS;
-
-  // slice s: rows [rows.x + s * TG_RS, ...) of lhs[:, k-tile], dy[:, n-tile]
-  auto load_slice = [&](int slice) {
-    const int r0 = rows.x + slice * TG_RS, st = slice % MMA_STAGES;
-    for (int i = tid; i < TG_RS * (TG_BM / 8); i += MMA_THREADS) {
-      const int rr = i / (TG_BM / 8), c = (i % (TG_BM / 8)) * 8;
-      const bool ok = r0 + rr < rows.y && k0 + c < K;
-      cp_async16(&As[st][rr][c],
-                 ok ? lhs + (size_t)(r0 + rr) * K + k0 + c : lhs, ok);
-    }
-    for (int i = tid; i < TG_RS * (MMA_BN / 8); i += MMA_THREADS) {
-      const int rr = i / (MMA_BN / 8), c = (i % (MMA_BN / 8)) * 8;
-      const bool ok = r0 + rr < rows.y && n0 + c < N;
-      cp_async16(&Bs[st][rr][c],
-                 ok ? dy + (size_t)(r0 + rr) * N + n0 + c : dy, ok);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < MMA_STAGES - 1; ++s) {
-    if (s < ns) load_slice(s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < ns; ++it) {
-    cp_async_wait<MMA_STAGES - 2>();
-    __syncthreads();
-    if (it + MMA_STAGES - 1 < ns) load_slice(it + MMA_STAGES - 1);
-    cp_async_commit();
-    bf16(*as)[TG_LDA] = As[it % MMA_STAGES];
-    bf16(*bs)[MMA_LDB] = Bs[it % MMA_STAGES];
-#pragma unroll
-    for (int ks = 0; ks < TG_RS; ks += 16) {
-      uint32_t af[WT::MT][4], bfr[WT::NT][2];
-      // A = lhs^T: (m0-7, r0-7), (m8-15, r0-7), (m0-7, r8-15),
-      // (m8-15, r8-15) of the [r][m] slice, transposed on load
-#pragma unroll
-      for (int mt = 0; mt < WT::MT; ++mt)
-        ldmatrix_x4_trans(af[mt], &as[ks + (mi >> 1) * 8 + ri]
-                                     [wm * WT::WM + mt * 16 + (mi & 1) * 8]);
-#pragma unroll
-      for (int np = 0; np < WT::NT / 2; ++np) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, &bs[ks + (mi & 1) * 8 + ri]
-                                 [wn * WT::WN + np * 16 + (mi >> 1) * 8]);
-        bfr[2 * np][0] = bq[0];
-        bfr[2 * np][1] = bq[1];
-        bfr[2 * np + 1][0] = bq[2];
-        bfr[2 * np + 1][1] = bq[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < WT::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < WT::NT; ++nt)
-          mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < WT::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < WT::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        int r, c;
-        mma_store_index<TG_BM>(mt, nt, e, r, c);
-        const int k = k0 + r, n = n0 + c;  // n even; N % 8 == 0
-        if (k < K && n < N)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)k * N + n) =
-              __floats2bfloat162_rn(acc[mt][nt][e], acc[mt][nt][e + 1]);
-      }
-}
 
 constexpr int TGF_T = 64;   // float32 tile: 64 k x 64 n
 constexpr int TGF_RS = 16;
@@ -555,17 +424,17 @@ int chunk_rows(int m, int e) {
   return mean <= 16 ? 16 : (mean <= 32 ? 32 : 64);
 }
 
-template <int BM, bool SWIGLU, bool TRANS>
+template <int BM, bool SWIGLU>
 cudaError_t launch_mma(const GroupArgs& a, cudaStream_t st) {
   const dim3 grid(tiles(a.nout, SWIGLU ? SWIGLU_HALF : MMA_BN), a.e);
-  constexpr size_t smem = mma_smem<BM, TRANS>();
-  static_assert(BM * (MMA_BN + 4) * sizeof(float) <= ring_bytes<BM, TRANS>(),
+  constexpr size_t smem = mma_smem<BM>();
+  static_assert(BM * (MMA_BN + 4) * sizeof(float) <= ring_bytes<BM>(),
                 "the swiglu epilogue tile must fit in the ring");
   cudaError_t err = cudaFuncSetAttribute(
-      moe_gmm_mma<BM, SWIGLU, TRANS>,
+      moe_gmm_mma<BM, SWIGLU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  moe_gmm_mma<BM, SWIGLU, TRANS><<<grid, MMA_THREADS, smem, st>>>(a);
+  moe_gmm_mma<BM, SWIGLU><<<grid, MMA_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -590,9 +459,14 @@ int run(const GroupArgs& a, int dtype, void* stream) {
     return (int)launch_fma<64, SWIGLU, TRANS>(a, st);
   }
   if (dtype == 1) {
-    if (bm == 16) return (int)launch_mma<16, SWIGLU, TRANS>(a, st);
-    if (bm == 32) return (int)launch_mma<32, SWIGLU, TRANS>(a, st);
-    return (int)launch_mma<64, SWIGLU, TRANS>(a, st);
+    if constexpr (TRANS) {
+      return (int)moe90::launch_gmm_t(a.x, a.src, a.w, a.gs, a.dst, a.out,
+                                      a.m, a.K, a.N, a.e, st);
+    } else {
+      if (bm == 16) return (int)launch_mma<16, SWIGLU>(a, st);
+      if (bm == 32) return (int)launch_mma<32, SWIGLU>(a, st);
+      return (int)launch_mma<64, SWIGLU>(a, st);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -660,15 +534,8 @@ extern "C" int ptt_moe_tgmm(const void* lhs, const void* dy,
     moe_tgmm_fma<<<grid, GEMM_THREADS, 0, st>>>(a);
     return (int)cudaGetLastError();
   }
-  if (dtype == 1) {
-    constexpr size_t smem = tgmm_smem();
-    cudaError_t err = cudaFuncSetAttribute(
-        moe_tgmm_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(tiles(N, MMA_BN), tiles(K, TG_BM), e);
-    moe_tgmm_mma<<<grid, MMA_THREADS, smem, st>>>(a);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == 1)
+    return (int)moe90::launch_tgmm(lhs, dy, (const int*)group_sizes, out, m,
+                                   K, N, e, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,9 @@ tile or a shifted causal edge moves whole rows by far more. Lengths
 cross the bf16 kernels' 128-row tiles and wrap their rings, and two
 launches of the forward, of dq or of dk/dv must agree to the bit. The MoE
 grouped matmuls (K4's forward and transposed modes, K5's gmm, d(lhs) and
-tgmm) are held at the same tolerances, and the attention kernels at the
+tgmm) are held at the same tolerances, the backward's modes also at
+group sizes, widths and expert counts that cross the bf16 kernels' 128 x
+256 tiles, and to the bit between two launches; the attention kernels at the
 GQA groups of the MoE families: 1 (DeepSeek, 16 / 16 heads) and 7
 (Qwen2-57B, 28 / 4). The MoE dispatch's gradients on the card (fused and
 sorted paths) are held against the same dispatch run through the plain
@@ -400,9 +402,13 @@ def test_attention_kernels_at_moe_groups(cuda, dtype, heads, kv_heads):
 
 def _moe_case(routing, s, d, f, e, k, dt, dev, seed=0):
     """x, gate_up, down and a stable expert-major sort of top-k picks:
-    ``(order, src_rows, group_sizes)`` as int32 tensors."""
+    ``(order, src_rows, group_sizes)`` as int32 tensors. ``routing`` may
+    be a tuple of the e group sizes (summing to s * k), dealt to the
+    pairs in a random order."""
     rng = np.random.RandomState(seed)
-    if routing == "one":                 # every pair to one expert
+    if isinstance(routing, tuple):       # explicit group sizes
+        flat = rng.permutation(np.repeat(np.arange(e), routing))
+    elif routing == "one":               # every pair to one expert
         flat = np.full(s * k, e // 2)
     elif routing == "sparse":            # most groups empty
         flat = rng.choice([1, e - 1], s * k)
@@ -504,18 +510,29 @@ def test_moe_gmm_refuses_what_the_kernel_does_not_take(cuda):
                                              device=cuda))
 
 
+_EDGE_SIZES = (1, 63, 64, 65, 0, 127, 129, 257)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("routing,s,d,f,e,k", [
     ("random", 8, 64, 96, 8, 2), ("random", 40, 128, 64, 16, 6),
     ("random", 300, 64, 136, 4, 2), ("one", 24, 64, 96, 8, 2),
-    ("sparse", 64, 64, 96, 64, 6), ("single", 16, 128, 64, 8, 2)])
+    ("sparse", 64, 64, 96, 64, 6), ("single", 16, 128, 64, 8, 2),
+    (_EDGE_SIZES, sum(_EDGE_SIZES), 64, 96, 8, 1),
+    (_EDGE_SIZES, sum(_EDGE_SIZES), 72, 136, 8, 1),
+    ("random", 300, 72, 136, 1, 2), ("sparse", 64, 64, 96, 1024, 6),
+    ("random", 1, 64, 96, 8, 1)])
 def test_moe_gmm_backward_modes(cuda, dtype, routing, s, d, f, e, k):
     """The backward's modes against their plain versions: the
     transposed gather (``dh``), the transposed gmm on sorted rows (K5's
     d(lhs)), the transposed scatter (``dx``) and tgmm for both weight
     gradients, over the routings of the forward test (tgmm's empty
-    groups must come out zero)."""
+    groups must come out zero), and across the bf16 kernels' tile edges:
+    groups of 1, 63, 64, 65, 0, 127, 129 and 257 rows (unaligned starts,
+    an empty and a one-row group, every group with non-empty
+    neighbours), K 72 and N 136 (no multiple of 64 or 128), one expert,
+    1024 experts of which two are routed to, and a single row."""
     dt = getattr(torch, dtype)
     x, gu, dn, order, src, gs = _moe_case(routing, s, d, f, e, k, dt, cuda)
     m = s * k
@@ -542,6 +559,31 @@ def test_moe_gmm_backward_modes(cuda, dtype, routing, s, d, f, e, k):
     for name, n in (("moe_gmm_t", 2), ("moe_scatter_gmm_t", 1),
                     ("moe_tgmm", 2)):
         assert launch_counts[name] == n0[name] + n
+
+
+@pytest.mark.gpu
+def test_moe_backward_modes_are_deterministic(cuda):
+    """Two launches of each transposed mode and of tgmm give the same
+    bits in bf16 (no atomics; each output tile sums its rows in one
+    block, in order), at groups that span several row tiles."""
+    dt = torch.bfloat16
+    x, gu, dn, order, src, gs = _moe_case("random", 512, 256, 192, 8, 2,
+                                          dt, cuda, seed=3)
+    m = 1024
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dpair = torch.randn(m, 256, generator=g, device=cuda).to(dt)
+    dgu = torch.randn(m, 384, generator=g, device=cuda).to(dt)
+    ds = dpair[order.long()].contiguous()
+    xs = x[src.long()].contiguous()
+    for fn in (lambda: mg.gather_gmm(dpair, order, dn, gs,
+                                     transpose_rhs=True),
+               lambda: mg.gather_gmm(ds, None, dn, gs, transpose_rhs=True),
+               lambda: mg.scatter_gmm(dgu, gu, gs, order,
+                                      transpose_rhs=True),
+               lambda: mg.tgmm(xs, dgu, gs, 8)):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -9,7 +9,8 @@ interpret mode, at s 64, d 64, f 128, e 8, top-2, over three routings:
 random picks, picks that leave most experts empty, and a 16-row tiling
 under which groups start mid-tile; the plain ``tgmm`` and transposed
 gmm on sorted rows against megablox ``tgmm`` / ``gmm(transpose_rhs=True)``
-interpreted, with an empty group and a group of one row. Tolerances:
+interpreted, with an empty group and a group of one row, and again at
+the uneven group sizes of the GPU tests' tile edges. Tolerances:
 1e-5 in float32 (the same products summed in another order), 2e-2 in
 bfloat16 (one rounding of the output to bf16 either way).
 
@@ -180,6 +181,32 @@ def test_plain_tgmm_and_dlhs_match_megablox(dtype):
     assert got.dtype == getattr(torch, dtype) and not got[[1, 5]].any()
     with disable_x64():         # megablox traces in 32-bit mode
         want = MB.tgmm(lj.T, yj, gsj, num_actual_groups=E, **kw)
+        want_t = MB.gmm(yj, wj, gsj, transpose_rhs=True, **kw)
+    _close(got, want, dtype)
+    _close(TG.gather_gmm(yt, None, wt, gst, transpose_rhs=True), want_t,
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_at_uneven_groups_matches_megablox(dtype):
+    """The plain ``tgmm`` and transposed gmm on sorted rows against
+    megablox interpreted at the group sizes the GPU tests cross the
+    kernels' tile edges with: 1, 63, 64, 65, 0, 127, 129 and 257 rows
+    (starts off every tile boundary, an empty and a one-row group, each
+    group between non-empty neighbours), and 14 more to fill 720 rows."""
+    rng = np.random.RandomState(4)
+    counts = np.array([1, 63, 64, 65, 0, 127, 129, 257, 14], np.int32)
+    e, m, k, n = counts.size, int(counts.sum()), 64, 128
+    lj, lt = _both(rng.randn(m, k), dtype)
+    yj, yt = _both(rng.randn(m, n), dtype)
+    wj, wt = _both(0.1 * rng.randn(e, k, n), dtype)   # [e, N, K]
+    gsj, gst = jnp.asarray(counts), torch.from_numpy(counts)
+    kw = dict(preferred_element_type=jnp.dtype(dtype), tiling=(16, 64, 128),
+              interpret=True)
+    got = TG.tgmm(lt, yt, gst, e)
+    assert not got[4].any()
+    with disable_x64():         # megablox traces in 32-bit mode
+        want = MB.tgmm(lj.T, yj, gsj, num_actual_groups=e, **kw)
         want_t = MB.gmm(yj, wj, gsj, transpose_rhs=True, **kw)
     _close(got, want, dtype)
     _close(TG.gather_gmm(yt, None, wt, gst, transpose_rhs=True), want_t,

@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Time versions of the flash-attention kernels against each other in
-one process on one GPU: each argument is a ``csrc`` directory (this
-checkout's ``paddle_tpu_torch/csrc``, or a copy with a change, or a
-parent commit's unpacked with ``git archive``).
+"""Time versions of the Hopper kernels against each other in one process
+on one GPU: each argument is a ``csrc`` directory (this checkout's
+``paddle_tpu_torch/csrc``, or a copy with a change, or a parent commit's
+unpacked with ``git archive``).
 
 Run from the root of a checkout:
 
     python3 tools/flash_variants.py OLD/csrc paddle_tpu_torch/csrc
+    python3 tools/flash_variants.py --only moe OLD/csrc paddle_tpu_torch/csrc
 
 Each directory's ``flash_attention_fwd``, ``flash_attention_bwd``,
-``flashmask_fwd`` and ``flashmask_bwd`` sources are built by ``nvcc``
-into their own libraries under ``build/flash_variants/<i>/`` (with
-``-Xptxas -v``: registers and spills of each Hopper kernel are
-printed), loaded with ctypes, and run on the same bfloat16 inputs: K1f,
-K1dq and K1dkv at ``chip_smoke.py``'s phase-2 shape (B 2, L 4096, 32 / 8
-heads, D 128, causal) and K6f, K6dq and K6dkv at phase 15's 16k row of
-8 documents. Versions are timed in turns, first to last and back (A B
-B A), with ``chip_smoke.time_ms``; cards and neighbours differ between
-calls, so only versions timed in one run compare. Every version's
-outputs are held against the first's: equal to the bit, or their
-largest row-relative difference.
+``flashmask_fwd``, ``flashmask_bwd`` and ``moe_gmm`` sources (``--only
+flash`` or ``--only moe``: one family) are built by ``nvcc`` into their
+own libraries under ``build/flash_variants/<i>/`` (with ``-Xptxas -v``:
+registers and spills of each Hopper kernel are printed), loaded with
+ctypes, and run on the same bfloat16 inputs: K1f, K1dq and K1dkv at
+``chip_smoke.py``'s phase-2 shape (B 2, L 4096, 32 / 8 heads, D 128,
+causal), K6f, K6dq and K6dkv at phase 15's 16k row of 8 documents, and
+the MoE backward's grouped matmuls at ``MOE_BWD_TIMED`` (DeepSeek-MoE-16B
+widths, 2 x 4096 tokens, top-6 of 64 experts): the transposed gather
+(``dh``), the transposed gmm on sorted rows (K5's d(lhs)), the
+transposed scatter (``dx``) and tgmm for d(down) and d(gate_up).
+Versions are timed in turns, first to last and back (A B B A), with
+``chip_smoke.time_ms``; cards and neighbours differ between calls, so
+only versions timed in one run compare. Every version's outputs are held
+against the first's: equal to the bit, or their largest row-relative
+difference.
 """
 import ctypes
 import os
@@ -28,11 +34,26 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "flashmask_fwd",
-           "flashmask_bwd")
+FAMILIES = {"flash": ("flash_attention_fwd", "flash_attention_bwd",
+                      "flashmask_fwd", "flashmask_bwd"),
+            "moe": ("moe_gmm",)}
 
 
-def build(dirs, _build):
+def kernel_name(line):
+    """``name<arguments>`` of a Hopper kernel in a ptxas line, or None."""
+    k = re.search(r"(\w+_tma_kernel)ILi(\d+)ENS0_\d+(\w+?)EE", line)
+    if k:
+        return f"{k[1]}<{k[2]}, {k[3]}>"
+    k = re.search(r"moe90\d+(\w+?_kernel)(?:I(\w+?)E)?E", line)
+    if k:   # Lb1 / Li128: a bool / an int template argument
+        args = re.findall(r"L([bi])(\d+)E", (k[2] or "") + "E")
+        return k[1] + ("<" + ", ".join(
+            ("true" if v == "1" else "false") if t == "b" else v
+            for t, v in args) + ">" if args else "")
+    return None
+
+
+def build(dirs, _build, sources):
     """Compile every source of every directory at once; print ptxas's
     registers and spills of the Hopper kernels."""
     procs = []
@@ -40,7 +61,7 @@ def build(dirs, _build):
         out = os.path.join(os.path.dirname(HERE), "build", "flash_variants",
                            str(i))
         os.makedirs(out, exist_ok=True)
-        for name in SOURCES:
+        for name in sources:
             cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                    "-I", d, "-o", os.path.join(out, f"lib{name}.so"),
@@ -55,22 +76,27 @@ def build(dirs, _build):
             raise RuntimeError(f"nvcc failed for {dirs[i]}/{name}.cu:\n{log}")
         lines = log.splitlines()
         for j, line in enumerate(lines):
-            kern = re.search(r"(\w+_tma_kernel)ILi(\d+)ENS0_\d+(\w+?)EE",
-                             line)
+            if "C7514" in line or "C7512" in line:
+                print(f"  [{i}] {name}: {line.strip()}", flush=True)
+            kern = kernel_name(line)
             if "Compiling entry" in line and kern:
                 info = [re.sub(r".*: *", "", x).strip()
                         for x in lines[j + 1:j + 4]
                         if "spill" in x or "registers" in x]
-                print(f"  [{i}] {kern[1]}<{kern[2]}, {kern[3]}>: "
-                      + "; ".join(info), flush=True)
+                print(f"  [{i}] {kern}: " + "; ".join(info), flush=True)
         libs[i][name] = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
     return libs
 
 
 def bind(lib):
-    """argtypes of the four entry points (see their .cu files)."""
+    """argtypes of the entry points (see their .cu files)."""
     tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if "moe_gmm" in lib:
+        lib["moe_gmm"].ptt_moe_gmm_t.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib["moe_gmm"].ptt_moe_tgmm.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    if "flash_attention_fwd" not in lib:
+        return
     lib["flash_attention_fwd"].ptt_flash_attention_fwd.argtypes = \
         [ptr] * 5 + [i32] * 6 + tail
     lib["flash_attention_bwd"].ptt_flash_attention_dq.argtypes = \
@@ -85,31 +111,12 @@ def bind(lib):
         [ptr] * 11 + [i32] * 7 + tail
 
 
-def main(argv):
-    import torch
-    if not torch.cuda.is_available() or not argv:
-        print("flash_variants: needs a CUDA device and csrc directories",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(HERE))
-    import chip_smoke as cs
-    from paddle_tpu_torch.ops.kernels import _build
-    from paddle_tpu_torch.ops.kernels import flashmask as fm
-
-    print(cs.card_line(), flush=True)
-    libs = build(argv, _build)
-    for lib in libs:
-        bind(lib)
-    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 15)
-
-    def rnd(*sh):
-        return torch.randn(*sh, generator=g, device="cuda").bfloat16()
-
+def flash_kernels(torch, cs, fm, libs, rnd, P, st):
+    """K1 at phase 2's shape and K6 at phase 15's 16k row: per version,
+    {name: (launch, outputs)}."""
     B, L, H, Hkv, D = (cs.ATTN[k] for k in ("B", "L", "H", "Hkv", "D"))
     L6, docs = cs.FLASHMASK_ROW["L"], cs.FLASHMASK_ROW["docs"]
     scale = D ** -0.5
-    st = torch.cuda.current_stream().cuda_stream
-    P = lambda t: t.data_ptr()  # noqa: E731
     # K1 at phase 2's shape
     q, k, v, do = rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
         rnd(B, L, H, D)
@@ -142,30 +149,109 @@ def main(argv):
 
     def kernels(lib):
         a, m = lib["flash_attention_bwd"], lib["flashmask_bwd"]
-        a1 = (P(q), P(k), P(v), P(do), P(lse_k1), P(delta))
-        a6 = (P(q6), P(k6), P(v6), P(do6), P(lse_k6), P(delta6), P(start),
-              P(end), P(tiles))
+        # the launches take the tensors' addresses when they run, so the
+        # tensors live as long as the launches do
+        a1 = lambda: (P(q), P(k), P(v), P(do), P(lse_k1),  # noqa: E731
+                      P(delta))
+        a6 = lambda: (P(q6), P(k6), P(v6), P(do6), P(lse_k6),  # noqa: E731
+                      P(delta6), P(start), P(end), P(tiles))
         d1 = (B, L, L, H, Hkv, D, scale, 1, 1, st)
         d6 = (1, L6, L6, H, Hkv, 1, D, scale, 1, 1, st)
         return {
             "K1f": (lambda: lib["flash_attention_fwd"]
                     .ptt_flash_attention_fwd(P(q), P(k), P(v), P(o), P(lse),
                                              *d1), (o,)),
-            "K1dq": (lambda: a.ptt_flash_attention_dq(*a1, P(dq), *d1),
+            "K1dq": (lambda: a.ptt_flash_attention_dq(*a1(), P(dq), *d1),
                      (dq,)),
-            "K1dkv": (lambda: a.ptt_flash_attention_dkv(*a1, P(dk), P(dv),
+            "K1dkv": (lambda: a.ptt_flash_attention_dkv(*a1(), P(dk), P(dv),
                                                         *d1), (dk, dv)),
             "K6f": (lambda: lib["flashmask_fwd"].ptt_flashmask_fwd(
                 P(q6), P(k6), P(v6), P(start), P(end), P(tiles), P(o6),
                 P(lse6), *d6), (o6,)),
-            "K6dq": (lambda: m.ptt_flashmask_dq(*a6, P(dq6), *d6), (dq6,)),
-            "K6dkv": (lambda: m.ptt_flashmask_dkv(*a6, P(dk6), P(dv6), *d6),
-                      (dk6, dv6))}
+            "K6dq": (lambda: m.ptt_flashmask_dq(*a6(), P(dq6), *d6),
+                     (dq6,)),
+            "K6dkv": (lambda: m.ptt_flashmask_dkv(*a6(), P(dk6), P(dv6),
+                                                  *d6), (dk6, dv6))}
 
-    runs = [kernels(lib) for lib in libs]
+    return [kernels(lib) for lib in libs]
+
+
+def moe_kernels(torch, cs, libs, rnd, P, st):
+    """The MoE backward's bf16 modes at MOE_BWD_TIMED, as phase 2 runs
+    them: per version, {name: (launch, outputs)}."""
+    c = cs.MOE_BWD[cs.MOE_BWD_TIMED]
+    tokens, d, f, e, k = (c[n] for n in ("tokens", "d", "f", "e", "k"))
+    m = tokens * k
+    order, src, gs = cs.moe_routing(torch, tokens, e, k, "random", 19)
+    gu, dn = 0.02 * rnd(e, d, 2 * f), 0.02 * rnd(e, f, d)
+    x, h = rnd(tokens, d), rnd(m, f)
+    dpair, dgu = 0.02 * rnd(m, d), 0.02 * rnd(m, 2 * f)
+    ds = dpair[order.long()].contiguous()
+    xs = x[src.long()].contiguous()
+    dh, dl, dx = (torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+                  for n in (f, f, d))
+    wdn, wgu = (torch.empty(e, a, b, device="cuda", dtype=torch.bfloat16)
+                for a, b in ((f, d), (d, 2 * f)))
+
+    def kernels(lib):
+        g = lib["moe_gmm"]
+        return {
+            "gmm_t gather": (lambda: g.ptt_moe_gmm_t(
+                P(dpair), P(order), P(dn), P(gs), None, P(dh), m, d, f, e, 1,
+                st), (dh,)),
+            "gmm_t sorted": (lambda: g.ptt_moe_gmm_t(
+                P(ds), None, P(dn), P(gs), None, P(dl), m, d, f, e, 1, st),
+                (dl,)),
+            "scatter_gmm_t": (lambda: g.ptt_moe_gmm_t(
+                P(dgu), None, P(gu), P(gs), P(order), P(dx), m, 2 * f, d, e,
+                1, st), (dx,)),
+            "tgmm d(down)": (lambda: g.ptt_moe_tgmm(
+                P(h), P(ds), P(gs), P(wdn), m, f, d, e, 1, st), (wdn,)),
+            "tgmm d(gate_up)": (lambda: g.ptt_moe_tgmm(
+                P(xs), P(dgu), P(gs), P(wgu), m, d, 2 * f, e, 1, st),
+                (wgu,))}
+
+    return [kernels(lib) for lib in libs]
+
+
+def main(argv):
+    import argparse
+
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=sorted(FAMILIES))
+    ap.add_argument("dirs", nargs="+")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("flash_variants: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(HERE))
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flashmask as fm
+
+    families = [args.only] if args.only else sorted(FAMILIES)
+    print(cs.card_line(), flush=True)
+    libs = build(args.dirs, _build,
+                 [n for fam in families for n in FAMILIES[fam]])
+    for lib in libs:
+        bind(lib)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 15)
+
+    def rnd(*sh):
+        return torch.randn(*sh, generator=g, device="cuda").bfloat16()
+
+    st = torch.cuda.current_stream().cuda_stream
+    P = lambda t: t.data_ptr()  # noqa: E731
+    runs = [{} for _ in libs]
+    for fam in families:
+        per = flash_kernels(torch, cs, fm, libs, rnd, P, st) \
+            if fam == "flash" else moe_kernels(torch, cs, libs, rnd, P, st)
+        for run, ks in zip(runs, per):
+            run.update(ks)
     first = {}
     fast = dict(reps=20, rounds=5, warmup=3)
-    order = list(range(len(argv))) + list(reversed(range(len(argv))))
+    order = list(range(len(libs))) + list(reversed(range(len(libs))))
     for i in order:
         times = []
         for name, (fn, outs) in runs[i].items():
@@ -178,7 +264,8 @@ def main(argv):
                 cs.row_rel_err(a, b) for a, b in zip(got, ref))
             times.append(f"{name} {cs.time_ms(torch, fn, **fast):.4f} "
                          f"({diff})")
-        print(f"[{i}] {argv[i]}: " + ", ".join(times) + " ms", flush=True)
+        print(f"[{i}] {args.dirs[i]}: " + ", ".join(times) + " ms",
+              flush=True)
     print(cs.card_line(), flush=True)
     return 0
 
