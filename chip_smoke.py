@@ -18,8 +18,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ticks, at Qwen2-57B-A14B's widths and at edge routings, and the MoE
    backward's modes (K4's transposed gather and scatter, K5's d(lhs) and
    tgmm) at the phase-12 training shape (2 x 4096 tokens, top-6), at
-   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings (the
-   forward modes' times at both training shapes printed beside them),
+   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings, with
+   the four forward modes (K4's gather + swiglu, scatter and the
+   recompute's gather gmm, K5's gmm) held on the same rows (the Hopper
+   body at these widths) and timed at both training shapes beside their
+   bound, ``torch._grouped_mm`` and the K4 modes' composites,
    and the FlashMask forward / dq / dk-dv kernels (K6) at Llama-3-8B's
    attention heads (B 1, L 4096, 32 / 8 heads, D 128) under five masks:
    (a) 8 unequal documents, causal, (b) two bounds per query head,
@@ -1023,15 +1026,20 @@ def check_moe_backward(torch, mg, dtype, timing):
     its bound and a library call: ``torch._grouped_mm`` of the
     transposed weights for d(lhs), of ``lhs.t()`` and ``dy`` with row
     offsets for tgmm; composites for the gather and scatter modes
-    (printed, never in the kernels line); the forward modes are timed on
-    the same rows (forward_at_training_shape). Returns ``(errs, rows)``;
-    ``rows`` holds MOE_BWD_TIMED's timings by kernel name (tgmm: both
-    products of one layer summed)."""
+    (printed, never in the kernels line). The forward modes (K4's gather
+    + swiglu and scatter, the gather gmm of the backward's recompute,
+    K5's gmm on sorted rows) are held on the same rows in every case
+    (held_forward; at these widths bf16 runs them on the Hopper body)
+    and timed at the MOE_BWD shapes (forward_at_training_shape). Returns
+    ``(errs, rows)``; ``errs`` also holds the forward modes' largest
+    errors here; ``rows`` holds MOE_BWD_TIMED's timings by kernel name
+    (tgmm: both products of one layer summed)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(19)
     fails, rows = [], {}
-    errs = dict.fromkeys(("moe_gmm_t", "moe_scatter_gmm_t", "moe_tgmm"),
-                         0.0)
+    errs = dict.fromkeys(("moe_gmm_t", "moe_scatter_gmm_t", "moe_tgmm",
+                          "moe_gather_gmm_swiglu", "moe_scatter_gmm",
+                          "moe_gmm"), 0.0)
     cases = [(shape, "random") for shape in MOE_BWD] + \
         [("edge", kind) for kind in MOE_EDGES]
     weights = {}
@@ -1087,6 +1095,8 @@ def check_moe_backward(torch, mg, dtype, timing):
             if key == "moe_tgmm" and got[empty].any():
                 fails.append(f"{name} {label}: an empty group is not zero")
             del got, ref
+        held_forward(torch, mg, dtype, label, x, src, xs, h, order, gu, dn,
+                     gs, errs, fails)
         if not timing or kind != "random":
             continue
         es = x.element_size()
@@ -1185,41 +1195,85 @@ def check_moe_backward(torch, mg, dtype, timing):
     return errs, rows
 
 
+def forward_calls(mg, x, src, xs, h, order, gu, dn, gs):
+    """``{name: (kernel, plain)}`` of the forward modes every MoE
+    training step runs on one routing: the first matmul's gather +
+    swiglu, the second's scatter, the backward's recompute of the gate /
+    up projection by the gather gmm, and the sorted path's gmm."""
+    return {"moe_gather_gmm_swiglu": (
+                lambda: mg.gather_gmm_swiglu(x, src, gu, gs),
+                lambda: mg.plain_gather_gmm_swiglu(x, src, gu, gs)),
+            "moe_scatter_gmm": (
+                lambda: mg.scatter_gmm(h, dn, gs, order),
+                lambda: mg.plain_scatter_gmm(h, dn, gs, order)),
+            "moe_gmm (recompute, gather)": (
+                lambda: mg.gather_gmm(x, src, gu, gs),
+                lambda: mg.plain_gather_gmm(x, src, gu, gs)),
+            "moe_gmm sorted (K5 gmm)": (
+                lambda: mg.gather_gmm(xs, None, gu, gs),
+                lambda: mg.plain_gather_gmm(xs, None, gu, gs))}
+
+
+def held_forward(torch, mg, dtype, label, x, src, xs, h, order, gu, dn, gs,
+                 errs, fails):
+    """The forward modes of forward_calls against their plain versions,
+    elementwise and row by row; each error goes to its kernel's entry of
+    ``errs``."""
+    for name, (kern, plain) in forward_calls(
+            mg, x, src, xs, h, order, gu, dn, gs).items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        key = name.split()[0]
+        errs[key] = max(errs[key], held_attention(
+            torch, got, ref, dtype, f"forward {name} {label}", fails))
+        del got, ref
+
+
 def forward_at_training_shape(torch, mg, dtype, label, x, src, xs, h, order,
                               gu, dn, gs, offs, touched):
-    """The forward modes every MoE training step runs on the same rows as
-    its backward (the first matmul's gather + swiglu, the second's
-    scatter, the backward's recompute of the gate / up projection by the
-    gather gmm, and the sorted path's gmm), timed beside their bound and,
-    for the sorted gmm, ``torch._grouped_mm``; printed, not held (phase
-    2's check_moe holds them) and not in the kernels line."""
+    """The forward modes of forward_calls on the same rows as the
+    backward, timed beside their bound and a library yardstick: for the
+    sorted gmm ``torch._grouped_mm`` (one call), for K4's modes the
+    composites that compute the same function (the gather, then
+    ``torch._grouped_mm`` and ``silu(gate) * up``; ``torch._grouped_mm``
+    and ``index_copy_`` for the scatter; the gather and
+    ``torch._grouped_mm`` for the recompute); printed, not in the kernels
+    line (held by held_forward)."""
+    import torch.nn.functional as F
     m, d = src.shape[0], x.shape[1]
     f, es = dn.shape[1], x.element_size()
     gm, why = grouped_mm_yardstick(torch, xs, gu, offs)
+    gm_dn, _ = grouped_mm_yardstick(torch, h, dn, offs)
     wgu, wdn = es * touched * d * 2 * f, es * touched * f * d
-    cases = {"moe_gather_gmm_swiglu": (
-                 lambda: mg.gather_gmm_swiglu(x, src, gu, gs),
-                 es * (x.shape[0] * d + m * f) + wgu + 4 * m,
-                 2 * m * d * 2 * f, None),
-             "moe_scatter_gmm": (
-                 lambda: mg.scatter_gmm(h, dn, gs, order),
-                 es * (m * f + m * d) + wdn + 4 * m, 2 * m * f * d, None),
-             "moe_gmm (recompute, gather)": (
-                 lambda: mg.gather_gmm(x, src, gu, gs),
-                 es * (x.shape[0] * d + m * 2 * f) + wgu + 4 * m,
-                 2 * m * d * 2 * f, None),
-             "moe_gmm sorted (K5 gmm)": (
-                 lambda: mg.gather_gmm(xs, None, gu, gs),
-                 es * (m * d + m * 2 * f) + wgu, 2 * m * d * 2 * f,
-                 gm and (lambda: gm(xs)))}
-    for name, (fn, nbytes, flops, lib) in cases.items():
+    idx, sidx = order.long(), src.long()
+    calls = forward_calls(mg, x, src, xs, h, order, gu, dn, gs)
+    # (bytes, flops, one-call library, composite library)
+    work = {"moe_gather_gmm_swiglu": (
+                es * (x.shape[0] * d + m * f) + wgu + 4 * m,
+                2 * m * d * 2 * f, None,
+                gm and (lambda: (lambda y: F.silu(y[:, :f]) * y[:, f:])(
+                    gm(x[sidx])))),
+            "moe_scatter_gmm": (
+                es * (m * f + m * d) + wdn + 4 * m, 2 * m * f * d, None,
+                gm_dn and (lambda: (lambda y: torch.empty_like(
+                    y).index_copy_(0, idx, y))(gm_dn(h)))),
+            "moe_gmm (recompute, gather)": (
+                es * (x.shape[0] * d + m * 2 * f) + wgu + 4 * m,
+                2 * m * d * 2 * f, None, gm and (lambda: gm(x[sidx]))),
+            "moe_gmm sorted (K5 gmm)": (
+                es * (m * d + m * 2 * f) + wgu, 2 * m * d * 2 * f,
+                gm and (lambda: gm(xs)), None)}
+    for name, (nbytes, flops, one, comp) in work.items():
         b_ms, b_by = bound(nbytes, flops, dtype)
-        ms = time_ms(torch, fn)
-        lib_ms = time_ms(torch, lib) if lib else None
+        ms = time_ms(torch, calls[name][0])
+        lib_ms = time_ms(torch, one) if one else None
+        comp_ms = time_ms(torch, comp) if comp else None
         log(f"  forward {name} [{dtype}] {label}: ms={ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) ratio={ms / b_ms:.2f}"
-            + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else
-               (f" (torch._grouped_mm: {why})" if why else "")))
+            + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else "")
+            + (f" composite library_ms={comp_ms:.4f}"
+               if comp_ms is not None else "")
+            + (f" (torch._grouped_mm: {why})" if why else ""))
 
 
 def decode_width_times(torch, df):
@@ -2533,8 +2587,8 @@ def main(argv=None):
         if timing:
             for name, r in r8.items():
                 table[name] = dict(r, max_abs_err=e8[name])
-            for name, r in r6.items():
-                table[name] = dict(r, max_abs_err=e6[name])
+            for name, r in r6.items():   # held at both phase-2 shapes
+                table[name] = dict(r, max_abs_err=max(e6[name], e7[name]))
             for name, r in r7.items():
                 table[name] = dict(r, max_abs_err=e7[name])
             for name, r in r4.items():

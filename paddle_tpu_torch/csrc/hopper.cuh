@@ -3,8 +3,8 @@
 // shared-memory descriptors, register reallocation between warpgroups
 // (setmaxnreg), named barriers and the proxy fence. K1f / K6f
 // (flash_attention_fwd_sm90.cuh), K1dq / K1dkv / K6dq / K6dkv
-// (flash_attention_bwd_sm90.cuh) and the MoE backward's grouped matmuls
-// (moe_gmm_sm90.cuh) are built from them.
+// (flash_attention_bwd_sm90.cuh) and the MoE grouped matmuls of the
+// forward and the backward (moe_gmm_sm90.cuh) are built from them.
 //
 // Shared-memory layout these pieces assume: an operand tile is stored as
 // the TMA box writes it with CU_TENSOR_MAP_SWIZZLE_128B, rows of 64 bf16
@@ -446,13 +446,15 @@ inline cudaError_t tmap_2d(CUtensorMap* map, const void* base, int rows,
 }
 
 // a 3-D map over a row-major [n, rows, cols] stack: box (64 columns,
-// box_rows rows, 1)
+// box_rows rows, 1). `pitch` elements from one row to the next (0: cols),
+// so a map can cover the first `cols` columns of wider rows (the gate or
+// up half of a [e, K, 2f] stack); columns past `cols` read as zeros.
 inline cudaError_t tmap_3d(CUtensorMap* map, const void* base, int n,
-                           int rows, int cols, int box_rows) {
+                           int rows, int cols, int box_rows, int pitch = 0) {
+  const cuuint64_t row = (cuuint64_t)(pitch ? pitch : cols) * 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
+  const cuuint64_t strides[2] = {row, (cuuint64_t)rows * row};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   return tmap_bf16(map, base, 3, dims, strides, box);
 }

@@ -33,39 +33,44 @@
 // cores the limit. A training step of 2 x 4096 tokens gives each expert
 // ~768 rows, and there the products bound it.
 //
-// Design of the forward modes (gather + swiglu, scatter, gmm; bf16): the
-// TPU kernel walks a CSR list of (group, row tile) visits and revisits a
-// row tile once for every group starting inside it. Here one thread
-// block takes one (column tile, expert): it computes its expert's row
-// range from group_sizes itself (a block-wide sum of the sizes before
-// it, so no host round trip and no second kernel), returns at once for
-// an empty group, and loops over the group's rows in chunks of BM = 16,
-// 32 or 64 (picked from the mean group size). A chunk's row indices
-// (source and destination) are staged in shared memory first; the lhs
-// rows then arrive with 16-byte cp.async copies straight from
-// x[src_rows[r]] (so the sorted [m, d] buffer never exists in device
-// memory) and the expert's weight slice with 16-byte cp.async copies,
-// both through a 3-stage ring of 64-deep K slices; bfloat16 contracts
-// on the tensor cores (mma.sync m16n8k16, float32 accumulation;
-// fragments and warp layout from mma_gemm.cuh). An expert's weight tile
-// is read again for each chunk of its rows; the L2 cache serves those
-// repeats. At serving widths (a few rows an expert) these modes stream
-// their weights at 1.2-1.5x the bytes bound; at training widths (~768
-// rows an expert) they run at 6-7x the operations bound, where the
-// backward's design below would serve them too. The swiglu tile is 64
-// gate columns beside the same 64 up columns of rhs, so one pass feeds
-// both accumulators; the epilogue stages the float32 tile in shared
-// memory and writes silu(gate) * up, cast once. The scatter epilogue
-// writes row r of the chunk to dst_rows[r]. Rows past the last group's
-// end are written as zeros by the last expert's blocks.
+// What runs where (bf16): every mode at training widths, and the
+// backward's modes (transposed gmm, tgmm) at any width, run the
+// persistent warp-specialised Hopper kernels of moe_gmm_sm90.cuh (wgmma
+// m64n256k16 fed by TMA, a device-side tile schedule, a swizzled
+// epilogue; see there). The forward modes (gather + swiglu, scatter,
+// gmm) take that body when the mean rows a group, ceil(m / e), is at
+// least SM90_MIN_ROWS, and below it the mma.sync body here, which does
+// the same arithmetic: two hand-written kernels chosen by shape.
 //
-// The backward's bf16 modes, the transposed gmm (sorted, gather and
-// scatter) and tgmm, run the persistent warp-specialised Hopper kernels
-// of moe_gmm_sm90.cuh (wgmma fed by TMA, a device-side tile schedule;
-// operations bound at training widths). float32 runs the FMA tile of
-// tile_gemm.cuh for every mode (two passes for swiglu) and a 64 x 64 FMA
-// tile for tgmm, on the CUDA cores, so the float32 gradient check keeps
-// full float32 products.
+// The mma.sync body (forward modes at few rows a group): the TPU kernel
+// walks a CSR list of (group, row tile) visits and revisits a row tile
+// once for every group starting inside it. Here one thread block takes
+// one (column tile, expert): it computes its expert's row range from
+// group_sizes itself (a block-wide sum of the sizes before it, so no
+// host round trip and no second kernel), returns at once for an empty
+// group, and loops over the group's rows in chunks of BM = 16, 32 or 64
+// (picked from the mean group size). A chunk's row indices (source and
+// destination) are staged in shared memory first; the lhs rows then
+// arrive with 16-byte cp.async copies straight from x[src_rows[r]] (so
+// the sorted [m, d] buffer never exists in device memory) and the
+// expert's weight slice with 16-byte cp.async copies, both through a
+// 3-stage ring of 64-deep K slices; bfloat16 contracts on the tensor
+// cores (mma.sync m16n8k16, float32 accumulation; fragments and warp
+// layout from mma_gemm.cuh). An expert's weight tile is read again for
+// each chunk of its rows; the L2 cache serves those repeats. At serving
+// widths (a few rows an expert) these modes stream their weights at
+// 1.2-1.5x the bytes bound; at training widths they ran at 6-7x the
+// operations bound, which is why the Hopper body takes over there. The
+// swiglu tile is 64 gate columns beside the same 64 up columns of rhs,
+// so one pass feeds both accumulators; the epilogue stages the float32
+// tile in shared memory and writes silu(gate) * up, cast once. The
+// scatter epilogue writes row r of the chunk to dst_rows[r]. Rows past
+// the last group's end are written as zeros by the last expert's
+// blocks.
+//
+// float32 runs the FMA tile of tile_gemm.cuh for every mode (two passes
+// for swiglu) and a 64 x 64 FMA tile for tgmm, on the CUDA cores, so the
+// float32 gradient check keeps full float32 products.
 //
 // Shapes: x [s, K] (gathered) or [m, K]; src_rows / dst_rows [m] int32;
 // rhs [e, K, N] row-major ([e, N, K] transposed); group_sizes [e] int32,
@@ -83,6 +88,16 @@ namespace {
 using namespace ptt;
 
 constexpr int MAX_EXPERTS = moe90::MAX_E;
+// mean rows a group, ceil(m / e), from which the bf16 forward modes run
+// the Hopper body of moe_gmm_sm90.cuh: it was faster at every size swept
+// (9-768 rows a group, PERF.md), and the serving ticks (13 and 17 rows a
+// group at the prefill tick) keep the mma.sync body. A build may set it
+// to time the two bodies against each other (tools/flash_variants.py
+// --sweep).
+#ifndef PTT_MOE_SM90_MIN_ROWS
+#define PTT_MOE_SM90_MIN_ROWS 24
+#endif
+constexpr int SM90_MIN_ROWS = PTT_MOE_SM90_MIN_ROWS;
 constexpr int SWIGLU_HALF = MMA_BN / 2;  // gate (and up) columns a tile
 
 struct GroupArgs {
@@ -459,19 +474,24 @@ int run(const GroupArgs& a, int dtype, void* stream) {
     return (int)launch_fma<64, SWIGLU, TRANS>(a, st);
   }
   if (dtype == 1) {
-    if constexpr (TRANS) {
-      return (int)moe90::launch_gmm_t(a.x, a.src, a.w, a.gs, a.dst, a.out,
-                                      a.m, a.K, a.N, a.e, st);
-    } else {
-      if (bm == 16) return (int)launch_mma<16, SWIGLU>(a, st);
-      if (bm == 32) return (int)launch_mma<32, SWIGLU>(a, st);
-      return (int)launch_mma<64, SWIGLU>(a, st);
+    if (TRANS || (a.m + a.e - 1) / a.e >= SM90_MIN_ROWS) {
+      const int bl = TRANS ? moe90::B_NK
+                           : (SWIGLU ? moe90::B_SWIGLU : moe90::B_KN);
+      return (int)moe90::launch_gmm(bl, a.x, a.src, a.w, a.gs, a.dst, a.out,
+                                    a.m, a.K, a.nout, a.e, st);
     }
+    if (bm == 16) return (int)launch_mma<16, SWIGLU>(a, st);
+    if (bm == 32) return (int)launch_mma<32, SWIGLU>(a, st);
+    return (int)launch_mma<64, SWIGLU>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+// the mean rows a group from which the bf16 forward modes run the Hopper
+// body
+extern "C" int ptt_moe_gmm_sm90_min_rows() { return SM90_MIN_ROWS; }
 
 // K5's forward gmm (src_rows null) or the plain gather gmm: x [m or s, K],
 // rhs [e, K, N], out [m, N]

@@ -1,10 +1,20 @@
-// The bf16 grouped matmuls of the MoE backward for Hopper (sm_90a):
+// The bf16 grouped matmuls of MoE for Hopper (sm_90a), forward and
+// backward, over expert-sorted rows (the rows of group g are [start[g],
+// start[g + 1]) of the exclusive cumsum of group_sizes [e]):
 //
-// - the transposed gmm, out[r] = lhs[r] @ rhs[g]^T with rhs [e, N, K]
-//   (K5's d(lhs) on sorted rows; K4's transposed gather, lhs[r] =
-//   x[src_rows[r]], and transposed scatter, out[dst_rows[r]] = row r);
+// - gmm_kernel, out[r] = lhs[r] @ B[g] in three layouts of B:
+//   - B_KN, rhs [e, K, N] (the forward: K5's gmm on sorted rows, K4's
+//     gather gmm that the backward recomputes, lhs[r] = x[src_rows[r]],
+//     and K4's scatter, out[dst_rows[r]] = row r);
+//   - B_SWIGLU, rhs [e, K, 2f] (K4's gather + swiglu): out[r] =
+//     silu(lhs[r] @ rhs[g][:, :f]) * (lhs[r] @ rhs[g][:, f:]), [m, f];
+//   - B_NK, rhs [e, N, K] contracted over its last dim (the backward:
+//     K5's d(lhs), K4's transposed gather and transposed scatter);
 // - tgmm, out[g] = lhs[rows of g]^T @ dy[rows of g], [e, K, N] (K5's
 //   weight gradient of both expert matmuls).
+//
+// moe_gmm.cu runs every bf16 mode here except the forward modes at few
+// rows a group (serving), which keep its mma.sync body.
 //
 // What bounds them on the H100: operations. A training step of 2 x 4096
 // tokens, top-6 over 64 experts, gives each expert ~768 rows, so every
@@ -17,14 +27,15 @@
 // - One block an SM, 384 threads in three warpgroups. Warpgroup 0
 //   produces (setmaxnreg 24; 56 for the gather's copiers), warpgroups 1
 //   and 2 consume (240; 224), each owning 64 rows of a 128 x 256 output
-//   tile and issuing wgmma m64n256k16 from 128-byte-swizzled shared
-//   memory. 256 columns rather than 128 cut the L2 -> SM bytes a flop by
-//   a quarter (a 128 x 256 x 64 slice is 85 flops a byte, 128 x 128 x 64
-//   64), and ran faster in every mode, even where N = 1408 leaves the
-//   last column tile half empty.
+//   tile (swiglu: 128 x 128 outputs from a 128 x 256 product) and issuing
+//   wgmma m64n256k16 from 128-byte-swizzled shared memory. 256 columns
+//   rather than 128 cut the L2 -> SM bytes a flop by a quarter (a 128 x
+//   256 x 64 slice is 85 flops a byte, 128 x 128 x 64 64), and ran faster
+//   in every backward mode, even where N = 1408 leaves the last column
+//   tile half empty.
 // - The tile schedule is computed on the device: every block scans
-//   group_sizes (e <= 1024) into the groups' first rows and, for the
-//   transposed gmm, each group's tile count, then walks the linear tile
+//   group_sizes (e <= 1024) into the groups' first rows and, for
+//   gmm_kernel, each group's tile count, then walks the linear tile
 //   index t = blockIdx.x, t += gridDim.x, mapping t to (group, column
 //   tile, row tile) by a binary search over the cumulative counts.
 //   Nothing is read back to the host. Row tiles run fastest inside a
@@ -38,16 +49,26 @@
 //   (the 8 consumer warps release it once the wgmma that read it has
 //   been waited for). The ring runs on across tiles, so the producer
 //   loads the next tile while the consumers store this one.
-// - Transposed gmm: B is rhs[g] as it lies, [N, K], K-major (wgmma's
-//   natural B), by TMA from a 3-D map over [e, N, K]; A, sorted or
-//   scatter, by TMA from a 2-D map over lhs [m, K] at the tile's first
-//   row (rows past the group belong to the next one: read, never
-//   stored). Gather: TMA cannot gather rows, so the producer's 128
-//   threads copy x[src_rows[r]] with 16-byte cp.async straight into the
-//   swizzled layout (chunk c of row r at chunk c ^ (r % 8)), wait for
-//   their copies LAG stages later, fence the generic proxy against the
-//   async one that wgmma reads through, and arrive on the stage's "full"
-//   mbarrier (129 arrivals: the 128 copiers and the TMA of B).
+// - gmm_kernel's A, sorted or scatter: by TMA from a 2-D map over lhs
+//   [m, K] at the tile's first row (rows past the group belong to the
+//   next one, or lie past the groups: read, never stored). Gather: TMA
+//   cannot gather rows, so the producer's 128 threads copy x[src_rows[r]]
+//   with 16-byte cp.async straight into the swizzled layout (chunk c of
+//   row r at chunk c ^ (r % 8)), wait for their copies LAG stages later,
+//   fence the generic proxy against the async one that wgmma reads
+//   through, and arrive on the stage's "full" mbarrier (129 arrivals: the
+//   128 copiers and the TMA of B). The sorted [m, K] rows of the gather
+//   never exist in device memory.
+// - gmm_kernel's B: B_NK is rhs[g] as it lies, [N, K], K-major (wgmma's
+//   natural B), one TMA box of 64 x 256 from a 3-D map over [e, N, K].
+//   B_KN is [K, N], MN-major: four 64 x 64 boxes (64 reduction rows, 64
+//   columns) from a 3-D map over [e, K, N], which wgmma reads with the B
+//   transpose bit set (as tgmm reads dy). B_SWIGLU fills the same four
+//   atoms with the tile's 128 gate columns rhs[g][:, c0 : c0 + 128] and
+//   the same 128 up columns rhs[g][:, f + c0 : f + c0 + 128], from two
+//   3-D maps of row pitch 2f over the gate half and the up half, so a
+//   partial tile reads zeros past f and not the other half. Boxes wholly
+//   past the output width are not loaded (their columns are not stored).
 // - tgmm: work items are (group, K tile, N tile) output tiles, the same
 //   count for every group; each contracts its group's rows in 64-row
 //   slices, lhs and dy both by TMA from 2-D maps and both MN-major (the
@@ -57,14 +78,18 @@
 //   sit) are zeroed in both operands by the consumers before the wgmma
 //   that reads the stage. An empty group's tile is zeros. Each tile sums
 //   all its group's rows in one block, in row order: deterministic.
-// - Epilogue: each consumer rounds its 64 x 256 accumulator to bf16 and
-//   sends it out 64 columns at a time through a 64 x 64 swizzled atom of
-//   shared memory, from which its threads store whole 128-byte row
-//   pieces with 16-byte vectors (rows below the group's end; the scatter
-//   mode to out[dst_rows[r]]) and go on to the next tile without waiting
-//   for them. Stored straight from the fragments (4 bytes a thread, eight
-//   16-byte pieces a warp instruction) the epilogue took a quarter of the
-//   transposed gmm's time and two fifths of tgmm's.
+// - Epilogue: swiglu first takes silu(gate) * up in float32 in
+//   registers (gate column c and up column c + 128 of the m64n256
+//   accumulator sit in the same thread, n-chunks j and j + 16), the
+//   reference's rounding. Each consumer then rounds its 64 x 256 (swiglu:
+//   64 x 128) result to bf16 and sends it out 64 columns at a time
+//   through a 64 x 64 swizzled atom of shared memory, from which its
+//   threads store whole 128-byte row pieces with 16-byte vectors (rows
+//   below the group's end; the scatter modes to out[dst_rows[r]]) and go
+//   on to the next tile without waiting for them. Stored straight from
+//   the fragments (4 bytes a thread, eight 16-byte pieces a warp
+//   instruction) the epilogue took a quarter of the transposed gmm's time
+//   and two fifths of tgmm's.
 #pragma once
 
 #include "hopper.cuh"
@@ -84,6 +109,12 @@ constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
 constexpr uint32_t STAGE_BYTES = STAGE_ELEMS * sizeof(bf16);
 constexpr uint32_t B_BYTES = B_ELEMS * sizeof(bf16);
 constexpr int STAGES = 4;
+// how B = rhs[g] lies in gmm_kernel (see the note above)
+constexpr int B_NK = 0, B_KN = 1, B_SWIGLU = 2;
+// output columns of a gmm_kernel tile
+__host__ __device__ constexpr int tile_cols(int bl) {
+  return bl == B_SWIGLU ? BN / 2 : BN;
+}
 // stages a gather copier runs ahead of its arrival: it waits for its
 // copies of stage i only after issuing stage i + LAG, and the consumers
 // hold one stage while waiting for the next, so LAG <= STAGES - 2
@@ -108,6 +139,14 @@ static_assert(SMEM <= 232448, "a block's shared memory");
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
+}
+
+// silu in float32 by the fast intrinsics (a few ulp, far below the bf16
+// output's rounding): IEEE expf and division here cost a fifth of the
+// swiglu mode at training widths (latency chains that two warps a
+// scheduler cannot hide)
+__device__ __forceinline__ float silu(float g) {
+  return __fdividef(g, 1.f + __expf(-g));
 }
 
 // exclusive prefix sums of v(0 .. n-1) into out[0 .. n] (out[n] the
@@ -197,23 +236,25 @@ struct Smem {
   }
 };
 
-// The epilogue of consumer c (128 threads): its 64 x BN accumulator
-// (wgmma layout), rounded to bf16, or (acc null) zeros, goes out 64
-// columns at a time through its 64 x 64 atom of shared memory (chunk j of
-// row r at chunk j ^ (r % 8), so neither the fragment writes nor the row
-// reads conflict), then from there as whole 128-byte row pieces, 16 bytes
-// a thread: dst[k] is where row tid / 8 + 16 k of the consumer's 64 goes
-// (null: not stored), from column n0 on; columns below N. The global
+// The epilogue of consumer c (128 threads): the first COLS columns of its
+// 64 x BN accumulator (wgmma layout), rounded to bf16, or (acc null)
+// zeros, go out 64 columns at a time through its 64 x 64 atom of shared
+// memory (chunk j of row r at chunk j ^ (r % 8), so neither the fragment
+// writes nor the row reads conflict), then from there as whole 128-byte
+// row pieces, 16 bytes a thread: dst[k] is where row tid / 8 + 16 k of
+// the consumer's 64 goes (null: not stored), from column n0 on; columns
+// below N. The global
 // stores are not waited for: the next tile's products run under them.
 // The accumulator lives only inside the branch that ran the products, so
 // no other path merges into its registers.
+template <int COLS = BN>
 __device__ __forceinline__ void store_tile(bf16* atom, bf16* const (&dst)[4],
                                            const float* acc, int n0, int N,
                                            int c) {
   const int tid = threadIdx.x % 128, lane = tid % 32;
   const int r0 = 16 * (tid / 32) + lane / 4, q = lane % 4;
 #pragma unroll
-  for (int p = 0; p < BN / 64; ++p) {
+  for (int p = 0; p < COLS / 64; ++p) {
     sm90::bar_sync(2 + c, 128);   // the last pass's reads are done
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -240,20 +281,21 @@ __device__ __forceinline__ void store_tile(bf16* atom, bf16* const (&dst)[4],
   }
 }
 
-// ---------------------------------------------------------------- gmm_t
+// ---------------------------------------------------------------- gmm
 
-struct TileT {
+struct Tile {
   int g;      // group, or -1 for a tile of rows no group owns
   int row0;   // first row
   int rows;   // rows of the tile that are stored
   int n0;     // first output column
 };
 
-// tile t of the transposed gmm's schedule: groups in order, inside a
-// group column tiles in order and row tiles fastest; then the zero tiles
-__device__ __forceinline__ TileT tile_t(int t, const int* start,
+// tile t of gmm_kernel's schedule (tiles of tn output columns): groups in
+// order, inside a group column tiles in order and row tiles fastest; then
+// the zero tiles
+__device__ __forceinline__ Tile tile_at(int t, const int* start,
                                         const int* cum, int e, int m,
-                                        int n_ct) {
+                                        int tn) {
   int g = -1, row0 = start[e], rows = m - start[e], local = t - cum[e];
   if (t < cum[e]) {   // the last group with cum[g] <= t (it has tiles)
     int lo = 0, hi = e - 1;
@@ -268,24 +310,61 @@ __device__ __forceinline__ TileT tile_t(int t, const int* start,
   }
   const int nrt = cdiv(rows, BM), ct = local / nrt, rt = local - ct * nrt;
   row0 += rt * BM;
-  return TileT{g, row0, min(BM, rows - rt * BM), ct * BN};
+  return Tile{g, row0, min(BM, rows - rt * BM), ct * tn};
+}
+
+// load_b: B's boxes of reduction slice kb of the tile at output column
+// n0 of group g (output width N), into the stage's B at sb on `bar`;
+// b_bytes: the bytes they bring. B_KN and B_SWIGLU skip boxes wholly
+// past N (TMA would fill them with zeros): the stale atoms feed only
+// accumulator columns past N, which are never stored.
+template <int BL>
+__device__ __forceinline__ uint32_t b_bytes(int n0, int N) {
+  if (BL == B_NK) return B_BYTES;
+  const int boxes = min(tile_cols(BL) / 64, cdiv(N - n0, 64));
+  return (BL == B_SWIGLU ? 2 : 1) * boxes * ATOM * sizeof(bf16);
+}
+
+template <int BL>
+__device__ __forceinline__ void load_b(bf16* sb, const CUtensorMap* tb,
+                                       const CUtensorMap* tu, uint64_t* bar,
+                                       int kb, int n0, int g, int N) {
+  using namespace sm90;
+  if (BL == B_NK) {
+    tma_load_3d(sb, tb, bar, kb * BK, n0, g);
+    return;
+  }
+  constexpr int NA = tile_cols(BL) / 64;   // atoms of one map's columns
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    if (n0 + 64 * a < N) {
+      tma_load_3d(sb + a * ATOM, tb, bar, n0 + 64 * a, kb * BK, g);
+      if (BL == B_SWIGLU)   // the up half: accumulator columns 128 on
+        tma_load_3d(sb + (NA + a) * ATOM, tu, bar, n0 + 64 * a, kb * BK,
+                    g);
+    }
+  }
 }
 
 // grid: one block an SM (at most the tiles there can be), THREADS
-// threads, SMEM bytes of shared memory. ta: 2-D map over lhs [m, K], box
-// (64, BM) (unused when GATHER); tb: 3-D map over rhs [e, N, K], box
-// (64, BN, 1)
-template <bool GATHER>
+// threads, SMEM bytes of shared memory. N is the output width (swiglu:
+// f). ta: 2-D map over lhs [m, K], box (64, BM) (unused when GATHER);
+// tb: 3-D map over rhs, B_NK [e, N, K] box (64, BN, 1), B_KN [e, K, N]
+// box (64, 64, 1), B_SWIGLU the gate half of [e, K, 2f] box (64, 64, 1);
+// tu: the up half (B_SWIGLU only)
+template <bool GATHER, int BL>
 __global__ void __launch_bounds__(THREADS, 1)
-    gmm_t_kernel(const __grid_constant__ CUtensorMap ta,
-                 const __grid_constant__ CUtensorMap tb,
-                 const bf16* __restrict__ x, const int* __restrict__ src,
-                 const int* __restrict__ gs, const int* __restrict__ dst,
-                 bf16* __restrict__ out, int m, int K, int N, int e) {
+    gmm_kernel(const __grid_constant__ CUtensorMap ta,
+               const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tu,
+               const bf16* __restrict__ x, const int* __restrict__ src,
+               const int* __restrict__ gs, const int* __restrict__ dst,
+               bf16* __restrict__ out, int m, int K, int N, int e) {
   using namespace sm90;
+  constexpr int TN = tile_cols(BL);
   extern __shared__ unsigned char moe_raw[];
   const Smem sh(moe_raw);
-  const int n_ct = cdiv(N, BN), nk = cdiv(K, BK);
+  const int n_ct = cdiv(N, TN), nk = cdiv(K, BK);
 
   sh.init(GATHER ? 129 : 1);   // gather: 128 copiers + the TMA of B
   group_starts(sh.start, gs, e, m, sh.part);
@@ -305,7 +384,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int tid = threadIdx.x, ch = tid % 8, r_first = tid / 8;
       int it = 0, arrived = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const TileT tl = tile_t(t, sh.start, sh.cum, e, m, n_ct);
+        const Tile tl = tile_at(t, sh.start, sh.cum, e, m, TN);
         if (tl.g < 0) continue;
         int srow[BM / 16];
 #pragma unroll
@@ -318,9 +397,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_wait(sh.empty + s, ((it / STAGES) & 1) ^ 1);
           bf16* st = sh.ring + s * STAGE_ELEMS;
           if (tid == 0) {
-            mbar_expect_tx(sh.full + s, B_BYTES);
-            tma_load_3d(st + A_ELEMS, &tb, sh.full + s, kb * BK, tl.n0,
-                        tl.g);
+            mbar_expect_tx(sh.full + s, b_bytes<BL>(tl.n0, N));
+            load_b<BL>(st + A_ELEMS, &tb, &tu, sh.full + s, kb, tl.n0, tl.g,
+                       N);
           }
           const int k = kb * BK + ch * 8;
 #pragma unroll
@@ -346,18 +425,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     } else if (threadIdx.x == 0) {
       prefetch_tmap(&ta);
       prefetch_tmap(&tb);
+      if (BL == B_SWIGLU) prefetch_tmap(&tu);
       int it = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const TileT tl = tile_t(t, sh.start, sh.cum, e, m, n_ct);
+        const Tile tl = tile_at(t, sh.start, sh.cum, e, m, TN);
         if (tl.g < 0) continue;
+        const uint32_t bytes = A_ELEMS * sizeof(bf16) + b_bytes<BL>(tl.n0, N);
         for (int kb = 0; kb < nk; ++kb, ++it) {
           const int s = it % STAGES;
           mbar_wait(sh.empty + s, ((it / STAGES) & 1) ^ 1);
           bf16* st = sh.ring + s * STAGE_ELEMS;
-          mbar_expect_tx(sh.full + s, STAGE_BYTES);
+          mbar_expect_tx(sh.full + s, bytes);
           tma_load_2d(st, &ta, sh.full + s, kb * BK, tl.row0);
-          tma_load_3d(st + A_ELEMS, &tb, sh.full + s, kb * BK, tl.n0,
-                      tl.g);
+          load_b<BL>(st + A_ELEMS, &tb, &tu, sh.full + s, kb, tl.n0, tl.g, N);
         }
       }
     }
@@ -368,7 +448,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     bf16* atom = sh.stage_out + c * ATOM;
     int it = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const TileT tl = tile_t(t, sh.start, sh.cum, e, m, n_ct);
+      const Tile tl = tile_at(t, sh.start, sh.cum, e, m, TN);
       bf16* rows[4];   // this thread's rows of the epilogue
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -386,10 +466,18 @@ __global__ void __launch_bounds__(THREADS, 1)
           const bf16* st = sh.ring + s * STAGE_ELEMS;
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_ss(acc, desc_sw128(st + 64 * c * 64 + kk * 16, 0, 1024),
-                     desc_sw128(st + A_ELEMS + kk * 16, 0, 1024),
-                     kb > 0 || kk > 0);
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t da =
+                desc_sw128(st + 64 * c * 64 + kk * 16, 0, 1024);
+            if (BL == B_NK)
+              wgmma_ss(acc, da, desc_sw128(st + A_ELEMS + kk * 16, 0, 1024),
+                       kb > 0 || kk > 0);
+            else   // MN-major: 16 reduction rows a step, atoms LBO apart
+              wgmma_ss<0, 1>(acc, da,
+                             desc_sw128(st + A_ELEMS + kk * 16 * 64,
+                                        ATOM * sizeof(bf16), 1024),
+                             kb > 0 || kk > 0);
+          }
           wgmma_commit();
           if (kb > 0) {   // the previous slice's wgmma is done with its stage
             wgmma_wait<1>();
@@ -399,9 +487,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_wait<0>();
         fence_regs(acc);
         warp_arrive(sh.empty + (it - 1) % STAGES);
-        store_tile(atom, rows, acc, tl.n0, N, c);
+        if (BL == B_SWIGLU) {
+          // gate column 8 j + i and up column 128 + 8 j + i: acc[4 j + ..]
+          // and acc[4 (j + 16) + ..], in float32, cast once at the store
+#pragma unroll
+          for (int i = 0; i < BN / 4; ++i)
+            acc[i] = silu(acc[i]) * acc[i + BN / 4];
+        }
+        store_tile<TN>(atom, rows, acc, tl.n0, N, c);
       } else {   // rows no group owns
-        store_tile(atom, rows, nullptr, tl.n0, N, c);
+        store_tile<TN>(atom, rows, nullptr, tl.n0, N, c);
       }
     }
   }
@@ -537,26 +632,43 @@ inline int sm_count() {
   return n;
 }
 
-// x [m, K] (or, gathered, [s, K] read at src_rows), rhs [e, N, K], out
-// [m, N] (or at dst_rows)
-inline cudaError_t launch_gmm_t(const void* x, const int* src,
-                                const void* rhs, const int* gs,
-                                const int* dst, void* out, int m, int K,
-                                int N, int e, cudaStream_t stream) {
-  CUtensorMap ta{}, tb;
-  cudaError_t err = sm90::tmap_3d(&tb, rhs, e, N, K, BN);
+// gmm_kernel with B laid out as `bl`: x [m, K] (or, gathered, [s, K]
+// read at src_rows), rhs [e, N, K] (B_NK), [e, K, N] (B_KN) or [e, K, 2N]
+// (B_SWIGLU), out [m, N] (or at dst_rows)
+inline cudaError_t launch_gmm(int bl, const void* x, const int* src,
+                              const void* rhs, const int* gs, const int* dst,
+                              void* out, int m, int K, int N, int e,
+                              cudaStream_t stream) {
+  CUtensorMap ta{}, tb{}, tu{};
+  cudaError_t err;
+  if (bl == B_NK)
+    err = sm90::tmap_3d(&tb, rhs, e, N, K, BN);
+  else if (bl == B_KN)
+    err = sm90::tmap_3d(&tb, rhs, e, K, N, 64);
+  else {
+    err = sm90::tmap_3d(&tb, rhs, e, K, N, 64, 2 * N);
+    if (err == cudaSuccess)
+      err = sm90::tmap_3d(&tu, static_cast<const bf16*>(rhs) + N, e, K, N,
+                          64, 2 * N);
+  }
   if (err == cudaSuccess && src == nullptr)
     err = sm90::tmap_2d(&ta, x, m, K, BM);
   if (err != cudaSuccess) return err;
-  auto kernel = src ? gmm_t_kernel<true> : gmm_t_kernel<false>;
+  using Kernel = decltype(&gmm_kernel<false, B_NK>);
+  const Kernel kernels[2][3] = {
+      {gmm_kernel<false, B_NK>, gmm_kernel<false, B_KN>,
+       gmm_kernel<false, B_SWIGLU>},
+      {gmm_kernel<true, B_NK>, gmm_kernel<true, B_KN>,
+       gmm_kernel<true, B_SWIGLU>}};
+  const Kernel kernel = kernels[src != nullptr][bl];
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM);
   if (err != cudaSuccess) return err;
   // at most one partial row tile a group beyond m / BM, and the zero tiles
-  const long bound = (long)(cdiv(m, BM) + e + 1) * cdiv(N, BN);
+  const long bound = (long)(cdiv(m, BM) + e + 1) * cdiv(N, tile_cols(bl));
   const int grid = (int)(bound < sm_count() ? bound : sm_count());
-  kernel<<<grid, THREADS, SMEM, stream>>>(ta, tb, (const bf16*)x, src, gs,
+  kernel<<<grid, THREADS, SMEM, stream>>>(ta, tb, tu, (const bf16*)x, src, gs,
                                           dst, (bf16*)out, m, K, N, e);
   return cudaGetLastError();
 }

@@ -25,7 +25,12 @@ count ``m``; rows past the sum come out as zeros):
 The plain versions follow the Pallas body: rows in ``x.dtype``, float32
 accumulation, swiglu in float32 and one cast to ``out_dtype`` at the
 store. ``tiling`` is accepted and ignored (the kernel picks its own
-tiles). CPU tensors take the plain versions; CUDA tensors launch the
+tiles). In bfloat16 the forward modes run one of two CUDA bodies by the
+mean rows a group, ``ceil(m / e)``: the ``mma.sync`` body below
+:data:`SM90_MIN_ROWS` (serving widths, bytes-bound) and the persistent
+wgmma + TMA body of ``csrc/moe_gmm_sm90.cuh`` from it on (training
+widths, operations-bound), where the backward's modes always run. CPU
+tensors take the plain versions; CUDA tensors launch the
 kernel or raise. None of these has a backward of its own: called with
 gradients enabled on an input that requires them, the output carries a
 node whose backward raises (the MoE dispatch differentiates them through
@@ -41,10 +46,14 @@ from . import _build, launch_counts, no_backward
 
 __all__ = ["gather_gmm", "gather_gmm_swiglu", "scatter_gmm", "tgmm",
            "plain_gather_gmm", "plain_gather_gmm_swiglu",
-           "plain_scatter_gmm", "plain_tgmm", "MAX_EXPERTS"]
+           "plain_scatter_gmm", "plain_tgmm", "MAX_EXPERTS",
+           "SM90_MIN_ROWS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_EXPERTS = 1024        # the kernel's MAX_EXPERTS
+# the kernel's SM90_MIN_ROWS: mean rows a group from which the bf16
+# forward modes run the Hopper body (ptt_moe_gmm_sm90_min_rows)
+SM90_MIN_ROWS = 24
 _LIB = None
 
 
@@ -127,9 +136,10 @@ def _lib():
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.ptt_moe_tgmm.argtypes = [ctypes.c_void_p] * 4 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ptt_moe_gmm_sm90_min_rows.argtypes = []
         for fn in (lib.ptt_moe_gmm, lib.ptt_moe_gather_gmm_swiglu,
                    lib.ptt_moe_scatter_gmm, lib.ptt_moe_gmm_t,
-                   lib.ptt_moe_tgmm):
+                   lib.ptt_moe_tgmm, lib.ptt_moe_gmm_sm90_min_rows):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

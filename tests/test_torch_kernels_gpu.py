@@ -426,19 +426,43 @@ def _moe_case(routing, s, d, f, e, k, dt, dev, seed=0):
             i32(np.bincount(flat, minlength=e)))
 
 
+_EDGE_SIZES = (1, 63, 64, 65, 0, 127, 129, 257)
+# the bf16 forward modes run the Hopper body from T_SM90 mean rows a
+# group (ceil(m / e)) on, the mma.sync body below it
+T_SM90 = mg.SM90_MIN_ROWS
+# _EDGE_SIZES and a ninth group that lifts the mean to 128 rows a group;
+# the same edges around the Hopper body's 128-row tiles
+_EDGE_PAST = _EDGE_SIZES + (9 * 128 - sum(_EDGE_SIZES),)
+_EDGE_128 = (1, 127, 128, 129, 0, 255, 257, 513)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("routing,s,d,f,e,k", [
     ("random", 8, 64, 96, 8, 2), ("random", 40, 128, 64, 16, 6),
     ("random", 300, 64, 136, 4, 2), ("one", 24, 64, 96, 8, 2),
-    ("sparse", 64, 64, 96, 64, 6), ("single", 16, 128, 64, 8, 2)])
+    ("sparse", 64, 64, 96, 64, 6), ("single", 16, 128, 64, 8, 2),
+    (_EDGE_PAST, sum(_EDGE_PAST), 64, 96, 9, 1),
+    (_EDGE_128, sum(_EDGE_128), 72, 136, 8, 1),
+    ("one", 512, 64, 96, 8, 2), ("sparse", 256 * T_SM90, 64, 96, 1024, 4),
+    ("random", 512, 1432, 136, 4, 2), ("single", 256, 128, 64, 8, 4),
+    ("random", 4 * T_SM90 - 4, 128, 192, 8, 2),
+    ("random", 4 * T_SM90, 128, 192, 8, 2)])
 def test_moe_gmm_modes(cuda, dtype, routing, s, d, f, e, k):
     """The three modes against their plain versions: few rows a group,
     top-6 over 16 experts, groups over 64 rows (several chunks a
     block), every pair to one expert, most groups empty, a group of one
-    row."""
+    row; then, at T_SM90 mean rows a group or more (bf16: the Hopper body),
+    the backward test's groups of 1, 63, 64, 65, 0, 127, 129 and 257
+    rows and the same edges around 128-row tiles (K 72), every pair to
+    one expert, 1024 experts of which two are routed to, f 136 (a partial
+    swiglu tile of 8 columns, a gmm width of 272) with d 1432 (a
+    scatter width and a depth that are no multiple of 64 or 256), a
+    group of one row; and one routing on each side of T_SM90 at the same
+    widths (T_SM90 - 1: the mma.sync body, T_SM90: the Hopper body)."""
     x, gu, dn, order, src, gs = _moe_case(routing, s, d, f, e, k,
                                           getattr(torch, dtype), cuda)
+    assert mg._lib().ptt_moe_gmm_sm90_min_rows() == T_SM90
     n0 = dict(launch_counts)
     h = mg.gather_gmm_swiglu(x, src, gu, gs)
     h_ref = mg.plain_gather_gmm_swiglu(x, src, gu, gs)
@@ -508,9 +532,6 @@ def test_moe_gmm_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="dst_rows"):
         mg.scatter_gmm(x, w, gs, torch.zeros(3, dtype=torch.int32,
                                              device=cuda))
-
-
-_EDGE_SIZES = (1, 63, 64, 65, 0, 127, 129, 257)
 
 
 @pytest.mark.gpu
@@ -584,6 +605,73 @@ def test_moe_backward_modes_are_deterministic(cuda):
         a, b = fn(), fn()
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+_FWD_MODES = ("swiglu", "scatter", "gather", "sorted")
+
+
+def _forward_mode(mode, x, src, gu, dn, gs, order, h):
+    """``(kernel, plain)`` calls of one forward mode: gather + swiglu
+    (``x`` at ``src``), scatter (``h`` to ``order``), the plain gather
+    gmm, and K5's gmm on the sorted rows ``x[src]``."""
+    if mode == "swiglu":
+        return (lambda: mg.gather_gmm_swiglu(x, src, gu, gs),
+                lambda: mg.plain_gather_gmm_swiglu(x, src, gu, gs))
+    if mode == "scatter":
+        return (lambda: mg.scatter_gmm(h, dn, gs, order),
+                lambda: mg.plain_scatter_gmm(h, dn, gs, order))
+    if mode == "gather":
+        return (lambda: mg.gather_gmm(x, src, gu, gs),
+                lambda: mg.plain_gather_gmm(x, src, gu, gs))
+    xs = x[src.long()].contiguous()
+    return (lambda: mg.gather_gmm(xs, None, gu, gs),
+            lambda: mg.plain_gather_gmm(xs, None, gu, gs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", _FWD_MODES)
+def test_moe_forward_modes_are_deterministic(cuda, mode):
+    """Two launches of each bf16 forward mode on the Hopper body give the
+    same bits, at groups that span several row tiles (128 rows a
+    group)."""
+    dt = torch.bfloat16
+    x, gu, dn, order, src, gs = _moe_case("random", 512, 256, 192, 8, 2,
+                                          dt, cuda, seed=7)
+    h = torch.randn(1024, 192, device=cuda).to(dt)
+    kern, _ = _forward_mode(mode, x, src, gu, dn, gs, order, h)
+    a, b = kern(), kern()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", _FWD_MODES)
+def test_moe_forward_modes_do_not_read_past_the_groups(cuda, mode):
+    """The bf16 forward modes on the Hopper body with 137 rows past the
+    groups' sum (more than a 128-row tile; the last group ends inside a
+    tile): those rows come out zero, and NaN in the rows only they would
+    read (the sorted and scatter inputs past the sum, the x rows that
+    only their src_rows name) does not leak into any output."""
+    dt = torch.bfloat16
+    m, e, past = 1124, 8, 137
+    x, gu, dn, order, src, _ = _moe_case("random", m, 128, 136, e, 1, dt,
+                                         cuda, seed=9)
+    used = m - past
+    gs = torch.full((e,), used // e, dtype=torch.int32, device=cuda)
+    gs[0] += used - int(gs.sum())
+    # rows past the groups gather x rows [used, m), which hold NaN
+    src = torch.cat([torch.randperm(used, device=cuda),
+                     torch.arange(used, m, device=cuda)]).to(torch.int32)
+    x[used:] = float("nan")
+    h = torch.randn(m, 136, device=cuda).to(dt)
+    h[used:] = float("nan")
+    kern, plain = _forward_mode(mode, x, src, gu, dn, gs, order, h)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    past_rows = order[used:].long() if mode == "scatter" else slice(used, m)
+    assert not got[past_rows].any()
+    _rows_close(got, want, "bfloat16")
 
 
 @pytest.mark.gpu

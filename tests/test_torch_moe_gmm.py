@@ -10,7 +10,9 @@ random picks, picks that leave most experts empty, and a 16-row tiling
 under which groups start mid-tile; the plain ``tgmm`` and transposed
 gmm on sorted rows against megablox ``tgmm`` / ``gmm(transpose_rhs=True)``
 interpreted, with an empty group and a group of one row, and again at
-the uneven group sizes of the GPU tests' tile edges. Tolerances:
+the uneven group sizes of the GPU tests' tile edges; the plain forward
+modes against the Pallas kernel interpreted at those group sizes and at
+the same edges around 128-row tiles. Tolerances:
 1e-5 in float32 (the same products summed in another order), 2e-2 in
 bfloat16 (one rounding of the output to bf16 either way).
 
@@ -211,6 +213,42 @@ def test_plain_backward_at_uneven_groups_matches_megablox(dtype):
     _close(got, want, dtype)
     _close(TG.gather_gmm(yt, None, wt, gst, transpose_rhs=True), want_t,
            dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("counts,d,f", [
+    ((1, 63, 64, 65, 0, 127, 129, 257, 14), 64, 96),
+    ((1, 127, 128, 129, 0, 255, 257, 513), 64, 96)])
+def test_plain_forward_at_uneven_groups_matches_interpreted_pallas(
+        dtype, counts, d, f):
+    """The plain forward modes (gather + swiglu, scatter, the plain
+    gather and K5's gmm on sorted rows) against the Pallas kernel
+    interpreted, at the group sizes the GPU tests cross both CUDA bodies'
+    tile edges with: 1, 63, 64, 65, 0, 127, 129 and 257 rows (and 14 to
+    fill 720), and the same edges around 128-row tiles; each group
+    between non-empty neighbours, the rows in a random order. (The
+    ragged widths the GPU tests add, K 72 and f 136, cost the
+    interpreter minutes and change nothing in the plain versions.)"""
+    rng = np.random.RandomState(5)
+    counts = np.asarray(counts, np.int32)
+    e, m = counts.size, int(counts.sum())
+    flat = rng.permutation(np.repeat(np.arange(e), counts))
+    order = np.argsort(flat, kind="stable").astype(np.int32)
+    xj, xt = _both(rng.randn(m, d), dtype)
+    guj, gut = _both(0.1 * rng.randn(e, d, 2 * f), dtype)
+    dnj, dnt = _both(0.1 * rng.randn(e, f, d), dtype)
+    gsj, gst = jnp.asarray(counts), torch.from_numpy(counts)
+    ordj, ordt = jnp.asarray(order), torch.from_numpy(order)
+    h_ref = JG.gather_gmm_swiglu(xj, ordj, guj, gsj, interpret=True)
+    _close(TG.plain_gather_gmm_swiglu(xt, ordt, gut, gst), h_ref, dtype)
+    hj, ht = _both(np.asarray(h_ref, np.float32), dtype)
+    _close(TG.plain_scatter_gmm(ht, dnt, gst, ordt),
+           JG.scatter_gmm(hj, dnj, gsj, ordj, interpret=True), dtype)
+    _close(TG.plain_gather_gmm(xt, ordt, gut, gst),
+           JG.gather_gmm(xj, ordj, guj, gsj, interpret=True), dtype)
+    xsj, xst = jnp.take(xj, ordj, axis=0), xt[ordt.long()]
+    _close(TG.plain_gather_gmm(xst, None, gut, gst),
+           JG.gather_gmm(xsj, None, guj, gsj, interpret=True), dtype)
 
 
 # ------------------------------------------------------------- dispatch

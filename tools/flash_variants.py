@@ -8,6 +8,7 @@ Run from the root of a checkout:
 
     python3 tools/flash_variants.py OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --only moe OLD/csrc paddle_tpu_torch/csrc
+    python3 tools/flash_variants.py --sweep paddle_tpu_torch/csrc
 
 Each directory's ``flash_attention_fwd``, ``flash_attention_bwd``,
 ``flashmask_fwd``, ``flashmask_bwd`` and ``moe_gmm`` sources (``--only
@@ -17,15 +18,24 @@ registers and spills of each Hopper kernel are printed), loaded with
 ctypes, and run on the same bfloat16 inputs: K1f, K1dq and K1dkv at
 ``chip_smoke.py``'s phase-2 shape (B 2, L 4096, 32 / 8 heads, D 128,
 causal), K6f, K6dq and K6dkv at phase 15's 16k row of 8 documents, and
-the MoE backward's grouped matmuls at ``MOE_BWD_TIMED`` (DeepSeek-MoE-16B
-widths, 2 x 4096 tokens, top-6 of 64 experts): the transposed gather
-(``dh``), the transposed gmm on sorted rows (K5's d(lhs)), the
-transposed scatter (``dx``) and tgmm for d(down) and d(gate_up).
-Versions are timed in turns, first to last and back (A B B A), with
-``chip_smoke.time_ms``; cards and neighbours differ between calls, so
-only versions timed in one run compare. Every version's outputs are held
-against the first's: equal to the bit, or their largest row-relative
-difference.
+the MoE grouped matmuls at ``MOE_BWD_TIMED`` (DeepSeek-MoE-16B widths,
+2 x 4096 tokens, top-6 of 64 experts): the forward's gather + swiglu,
+scatter, gather gmm (the backward's recompute) and gmm on sorted rows
+(K5), then the backward's transposed gather (``dh``), transposed gmm on
+sorted rows (K5's d(lhs)), transposed scatter (``dx``) and tgmm for
+d(down) and d(gate_up); and the four forward modes at ``MOE_TIMED``
+(the 136-row prefill tick). Versions are timed in turns, first to last
+and back (A B B A), with ``chip_smoke.time_ms``; cards and neighbours
+differ between calls, so only versions timed in one run compare. Every
+version's outputs are held against the first's: equal to the bit, or
+their largest row-relative difference.
+
+``--sweep DIR`` builds one ``csrc`` directory twice, with the bf16
+forward modes' threshold ``PTT_MOE_SM90_MIN_ROWS`` at 1 (the Hopper body
+at every size) and past any size (the ``mma.sync`` body), and times the
+four forward modes of both at DeepSeek-MoE-16B widths over
+``SWEEP_ROWS`` mean rows a group (A B B A at each), the crossover that
+sets the threshold.
 """
 import ctypes
 import os
@@ -37,6 +47,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FAMILIES = {"flash": ("flash_attention_fwd", "flash_attention_bwd",
                       "flashmask_fwd", "flashmask_bwd"),
             "moe": ("moe_gmm",)}
+SWEEP_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 768)
+SWEEP_BODIES = {"sm90": 1, "mma.sync": 1 << 30}
 
 
 def kernel_name(line):
@@ -53,9 +65,10 @@ def kernel_name(line):
     return None
 
 
-def build(dirs, _build, sources):
-    """Compile every source of every directory at once; print ptxas's
-    registers and spills of the Hopper kernels."""
+def build(dirs, _build, sources, flags=None):
+    """Compile every source of every directory at once (``flags[i]``:
+    extra nvcc flags of directory i); print ptxas's registers and spills
+    of the Hopper kernels."""
     procs = []
     for i, d in enumerate(dirs):
         out = os.path.join(os.path.dirname(HERE), "build", "flash_variants",
@@ -64,6 +77,7 @@ def build(dirs, _build, sources):
         for name in sources:
             cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   *(flags[i] if flags else []),
                    "-I", d, "-o", os.path.join(out, f"lib{name}.so"),
                    os.path.join(d, f"{name}.cu")]
             procs.append((i, name, out, subprocess.Popen(
@@ -93,6 +107,10 @@ def bind(lib):
     tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if "moe_gmm" in lib:
+        g = lib["moe_gmm"]
+        for fn in (g.ptt_moe_gmm, g.ptt_moe_gather_gmm_swiglu,
+                   g.ptt_moe_scatter_gmm):
+            fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib["moe_gmm"].ptt_moe_gmm_t.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib["moe_gmm"].ptt_moe_tgmm.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     if "flash_attention_fwd" not in lib:
@@ -176,10 +194,45 @@ def flash_kernels(torch, cs, fm, libs, rnd, P, st):
     return [kernels(lib) for lib in libs]
 
 
+def forward_modes(torch, cs, rnd, P, st, c, seed, tag=""):
+    """The bf16 forward modes at MoE widths ``c`` on random top-k routing:
+    ``lib -> {name: (launch, outputs)}`` (gather + swiglu, scatter, the
+    gather gmm and the gmm on sorted rows; ``tag`` ends each name)."""
+    tokens, d, f, e, k = (c[n] for n in ("tokens", "d", "f", "e", "k"))
+    m = tokens * k
+    order, src, gs = cs.moe_routing(torch, tokens, e, k, "random", seed)
+    gu, dn = 0.02 * rnd(e, d, 2 * f), 0.02 * rnd(e, f, d)
+    x, h = rnd(tokens, d), rnd(m, f)
+    xs = x[src.long()].contiguous()
+    hs, ys, gg, gl = (torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+                      for n in (f, d, 2 * f, 2 * f))
+
+    def kernels(lib):
+        g = lib["moe_gmm"]
+        return {
+            "swiglu" + tag: (lambda: g.ptt_moe_gather_gmm_swiglu(
+                P(x), P(src), P(gu), P(gs), P(hs), m, d, f, e, 1, st),
+                (hs,)),
+            "scatter" + tag: (lambda: g.ptt_moe_scatter_gmm(
+                P(h), P(dn), P(gs), P(order), P(ys), m, f, d, e, 1, st),
+                (ys,)),
+            "gather" + tag: (lambda: g.ptt_moe_gmm(
+                P(x), P(src), P(gu), P(gs), P(gg), m, d, 2 * f, e, 1, st),
+                (gg,)),
+            "sorted" + tag: (lambda: g.ptt_moe_gmm(
+                P(xs), None, P(gu), P(gs), P(gl), m, d, 2 * f, e, 1, st),
+                (gl,))}
+    return kernels
+
+
 def moe_kernels(torch, cs, libs, rnd, P, st):
-    """The MoE backward's bf16 modes at MOE_BWD_TIMED, as phase 2 runs
-    them: per version, {name: (launch, outputs)}."""
+    """The MoE forward's and backward's bf16 modes at MOE_BWD_TIMED and
+    the forward's at MOE_TIMED (the prefill tick), as phase 2 runs them:
+    per version, {name: (launch, outputs)}."""
     c = cs.MOE_BWD[cs.MOE_BWD_TIMED]
+    fwd = forward_modes(torch, cs, rnd, P, st, c, 19)
+    tick = forward_modes(torch, cs, rnd, P, st, cs.MOE[cs.MOE_TIMED], 17,
+                         " prefill")
     tokens, d, f, e, k = (c[n] for n in ("tokens", "d", "f", "e", "k"))
     m = tokens * k
     order, src, gs = cs.moe_routing(torch, tokens, e, k, "random", 19)
@@ -195,7 +248,8 @@ def moe_kernels(torch, cs, libs, rnd, P, st):
 
     def kernels(lib):
         g = lib["moe_gmm"]
-        return {
+        out = fwd(lib)
+        out.update({
             "gmm_t gather": (lambda: g.ptt_moe_gmm_t(
                 P(dpair), P(order), P(dn), P(gs), None, P(dh), m, d, f, e, 1,
                 st), (dh,)),
@@ -209,9 +263,41 @@ def moe_kernels(torch, cs, libs, rnd, P, st):
                 P(h), P(ds), P(gs), P(wdn), m, f, d, e, 1, st), (wdn,)),
             "tgmm d(gate_up)": (lambda: g.ptt_moe_tgmm(
                 P(xs), P(dgu), P(gs), P(wgu), m, d, 2 * f, e, 1, st),
-                (wgu,))}
+                (wgu,))})
+        out.update(tick(lib))
+        return out
 
     return [kernels(lib) for lib in libs]
+
+
+def sweep(torch, cs, libs, names, rnd, P, st, fast):
+    """The forward modes of each library (the two bodies) at DeepSeek
+    widths over SWEEP_ROWS mean rows a group, A B B A at each size."""
+    c0 = cs.MOE_BWD[cs.MOE_BWD_TIMED]
+    for rows in SWEEP_ROWS:
+        tokens = -(-rows * c0["e"] // c0["k"])
+        c = dict(c0, tokens=tokens)
+        mean = -(-tokens * c["k"] // c["e"])
+        per = forward_modes(torch, cs, rnd, P, st, c, 23)
+        runs = [per(lib) for lib in libs]
+        times = {}
+        for i in list(range(len(libs))) + list(reversed(range(len(libs)))):
+            for name, (fn, outs) in runs[i].items():
+                assert fn() == 0, f"{names[i]} {name} refused its launch"
+                times.setdefault(name, []).append(
+                    (i, cs.time_ms(torch, fn, **fast)))
+        ref = {n: [x.clone() for x in o] for n, (_, o) in runs[0].items()}
+        for name in runs[0]:
+            torch.cuda.synchronize()
+            runs[1][name][0]()
+            torch.cuda.synchronize()
+            err = max(cs.row_rel_err(a, b)
+                      for a, b in zip(runs[1][name][1], ref[name]))
+            ms = ", ".join(f"{names[i]} {t:.4f}" for i, t in times[name])
+            print(f"sweep: {tokens * c['k']} rows, {mean} a group: {name} "
+                  f"{ms} ms (row_rel_err {err:.2e})", flush=True)
+        del runs, per
+        torch.cuda.empty_cache()
 
 
 def main(argv):
@@ -220,8 +306,12 @@ def main(argv):
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=sorted(FAMILIES))
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the forward modes' two bodies (one dir)")
     ap.add_argument("dirs", nargs="+")
     args = ap.parse_args(argv)
+    if args.sweep and len(args.dirs) != 1:
+        ap.error("--sweep takes one csrc directory")
     if not torch.cuda.is_available():
         print("flash_variants: needs a CUDA device", file=sys.stderr)
         return 2
@@ -230,10 +320,16 @@ def main(argv):
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flashmask as fm
 
-    families = [args.only] if args.only else sorted(FAMILIES)
+    families = ["moe"] if args.sweep else \
+        [args.only] if args.only else sorted(FAMILIES)
     print(cs.card_line(), flush=True)
-    libs = build(args.dirs, _build,
-                 [n for fam in families for n in FAMILIES[fam]])
+    dirs, flags = args.dirs, None
+    if args.sweep:
+        dirs = dirs * len(SWEEP_BODIES)
+        flags = [[f"-DPTT_MOE_SM90_MIN_ROWS={v}"]
+                 for v in SWEEP_BODIES.values()]
+    libs = build(dirs, _build,
+                 [n for fam in families for n in FAMILIES[fam]], flags)
     for lib in libs:
         bind(lib)
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 15)
@@ -243,6 +339,11 @@ def main(argv):
 
     st = torch.cuda.current_stream().cuda_stream
     P = lambda t: t.data_ptr()  # noqa: E731
+    fast = dict(reps=20, rounds=5, warmup=3)
+    if args.sweep:
+        sweep(torch, cs, libs, list(SWEEP_BODIES), rnd, P, st, fast)
+        print(cs.card_line(), flush=True)
+        return 0
     runs = [{} for _ in libs]
     for fam in families:
         per = flash_kernels(torch, cs, fm, libs, rnd, P, st) \
@@ -250,7 +351,6 @@ def main(argv):
         for run, ks in zip(runs, per):
             run.update(ks)
     first = {}
-    fast = dict(reps=20, rounds=5, warmup=3)
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
     for i in order:
         times = []
