@@ -7,30 +7,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    process per source, all at once);
 2. hold each kernel against its plain PyTorch version in bfloat16 and
    float32 — the serving kernels at the serving path's shapes
-   (Llama-3-8B widths), the paged decode / verify kernels at phase 7's
-   (4 slots, 32 / 8 heads, D 128, tables of 37 blocks, contexts 513..576,
-   a window of 5) and at 8 slots with contexts up to 2048, the
-   flash-attention forward / dq / dk-dv kernels at the training
-   run's shape (B 2, L 4096, 32 / 8 heads, D 128), the ragged, decode and
-   verify kernels again at the MoE families' GQA groups (16 / 16 and
-   28 / 4 heads), the MoE grouped matmuls (K4's gather + swiglu and
-   scatter modes, K5's gmm) at the DeepSeek-MoE-16B decode and prefill
-   ticks, at Qwen2-57B-A14B's widths and at edge routings, and the MoE
-   backward's modes (K4's transposed gather and scatter, K5's d(lhs) and
-   tgmm) at the phase-12 training shape (2 x 4096 tokens, top-6), at
-   Qwen2-57B widths (4096 tokens, top-8) and at the edge routings, with
-   the four forward modes (K4's gather + swiglu, scatter and the
-   recompute's gather gmm, K5's gmm) held on the same rows (the Hopper
-   body at these widths) and timed at both training shapes beside their
-   bound, ``torch._grouped_mm`` and the K4 modes' composites,
-   and the FlashMask forward / dq / dk-dv kernels (K6) at Llama-3-8B's
+   (Llama-3-8B widths; K3a / K3b also at Qwen2-7B's with q/k/v biases
+   and at GPT's defaults with LayerNorm + beta + bias and tanh-gelu +
+   bias, each case also row by row), the paged decode / verify kernels
+   at phase 7's (4 slots, 32 / 8 heads, D 128, tables of 37 blocks,
+   contexts 513..576, a window of 5) and at 8 slots with contexts up to
+   2048, the flash-attention forward / dq / dk-dv kernels at the
+   training run's shape (B 2, L 4096, 32 / 8 heads, D 128), the ragged,
+   decode and verify kernels again at the MoE families' GQA groups (16 /
+   16 and 28 / 4 heads), the MoE grouped matmuls (K4's gather + swiglu
+   and scatter modes, K5's gmm) at the DeepSeek-MoE-16B decode and
+   prefill ticks, at Qwen2-57B-A14B's widths and at edge routings, and
+   the MoE backward's modes (K4's transposed gather and scatter, K5's
+   d(lhs) and tgmm) at the phase-12 training shape (2 x 4096 tokens,
+   top-6), at Qwen2-57B widths (4096 tokens, top-8) and at the edge
+   routings, with the four forward modes (K4's gather + swiglu, scatter
+   and the recompute's gather gmm, K5's gmm) held on the same rows (the
+   Hopper body at these widths) and timed at both training shapes beside
+   their bound, ``torch._grouped_mm`` and the K4 modes' composites, and
+   the FlashMask forward / dq / dk-dv kernels (K6) at Llama-3-8B's
    attention heads (B 1, L 4096, 32 / 8 heads, D 128) under five masks:
-   (a) 8 unequal documents, causal, (b) two bounds per query head,
-   (c) half the rows hidden everywhere (o, dq exactly 0, lse NEG_INF
-   there), (d) nothing hidden beyond causal (equal to K1 causal), (e) a
-   4000-token tail at 8 / 4 heads, D 64 — and time kernel, plain
-   version and a PyTorch library yardstick with CUDA events (K6 on
-   mask (a), against SDPA with the dense boolean mask and K1 causal);
+   (a) 8 unequal documents, causal, (b) two bounds per query head, (c)
+   half the rows hidden everywhere (o, dq exactly 0, lse NEG_INF there),
+   (d) nothing hidden beyond causal (equal to K1 causal), (e) a
+   4000-token tail at 8 / 4 heads, D 64 — and time kernel, plain version
+   and a PyTorch library yardstick with CUDA events (K6 on mask (a),
+   against SDPA with the dense boolean mask and K1 causal);
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -97,7 +99,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     kernels against the plain versions, and the fused path against the
     sorted one; every routed expert that received pairs must have a
     gradient;
-14. (unused);
+14. dense Qwen2-7B (all 28 layers, bfloat16, seeded weights, q/k/v
+    biases) serves phase 3's traffic through the fused decode tick (K3a
+    and K3b must launch twice a layer a tick: tokens/s, TTFT, idle share
+    over 4 profiled ticks), then a 2-layer float32 model at Qwen2-7B
+    widths is served through the kernels and through their plain
+    versions (phase 4's rule);
 15. ``nn.functional.flashmask_attention`` forward + backward in bfloat16
     on one 16384-token row of 8 equal documents, causal, at Llama-3-8B's
     attention heads (32 / 8, D 128): K6f, K6dq and K6dkv launch once
@@ -113,7 +120,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
-11, the three runs of phase 12, phase 15) runs with every launch count set to 0
+11, the three runs of phase 12, phase 14, phase 15) runs with every
+launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
 failed comparison or exception exits non-zero before the result line.
@@ -174,6 +182,26 @@ GENERATE = dict(batch=4, prompt=512, motif=64, new=64, gamma=4,
 PHASE8 = dict(layers=2, batch=2, prompt=256, motif=32, new=32, gamma=4)
 GRAD_RTOL = 1e-4      # phase 6: max |kernel - plain| / max |plain|
 LOSS_RTOL = 1e-5      # phase 6: the loss
+# phase 2's K3 cases at a prefill tick's rows: Llama-3-8B's (the kernels
+# line's rows, as in earlier runs), Qwen2-7B's (q/k/v biases) and GPT's
+# defaults (LayerNorm + beta + bias, tanh-gelu + bias;
+# paddle_tpu/models/gpt.py:29-32)
+K3_ROWS = 136
+K3A_CASES = {   # label: d, widths, kind, beta, biases
+    "llama qkv": (4096, (4096, 1024, 1024), "rms", False, (False,) * 3),
+    "llama gate/up": (4096, (14336, 14336), "rms", False, (False,) * 2),
+    "qwen2 qkv": (3584, (3584, 512, 512), "rms", False, (True,) * 3),
+    "qwen2 gate/up": (3584, (18944, 18944), "rms", False, (False,) * 2),
+    "gpt qkv": (1024, (3072,), "ln", True, (True,)),
+    "gpt fc1": (1024, (4096,), "ln", True, (True,))}
+K3B_CASES = {   # label: K, N, act, bias
+    "llama o_proj": (4096, 4096, None, False),
+    "llama down": (14336, 4096, "swiglu", False),
+    "qwen2 o_proj": (3584, 3584, None, False),
+    "qwen2 down": (18944, 3584, "swiglu", False),
+    "gpt fc2": (4096, 1024, "gelu_tanh", True)}
+K3_TABLE = {"norm_matmul": ("llama qkv", "llama gate/up"),
+            "matmul_residual": ("llama o_proj", "llama down")}
 SERVING_KERNELS = ("ragged_paged_attention", "norm_matmul",
                    "matmul_residual")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
@@ -295,7 +323,7 @@ def row_rel_err(got, ref):
 
 
 def held_attention(torch, got, ref, dtype, what, fails):
-    """One kernel output (K1, K2d, K2v, K4) against its plain version: an
+    """One kernel output (K1, K2d, K2v, K3, K4) against its plain version: an
     lse by LSE_ATOL, the others by TOL and ROW_RTOL. Logs the readings,
     appends a failure to ``fails`` (so every output is read before the
     run stops) and returns the max abs error."""
@@ -437,80 +465,113 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8):
     return errs, rows
 
 
+def k3_inputs(torch, dt, seed, *shapes, scale=1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [(scale * torch.randn(*s, generator=g, device="cuda")).to(dt)
+            for s in shapes]
+
+
 def check_norm_matmul(torch, df, dtype, timing):
-    """K3a at R=136: d 4096 -> (4096, 1024, 1024) and -> (14336, 14336)."""
+    """K3a at R=136 in every case of K3A_CASES: held elementwise and row
+    by row against its plain version; in bf16 timed beside its bound and
+    the library yardstick (``F.rms_norm`` or ``F.layer_norm``, then
+    ``matmul`` / ``addmm`` a projection). Returns ``(max error, {label:
+    timing row})``."""
     import torch.nn.functional as F
     dt = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(12)
-    R, d, eps = 136, 4096, 1e-6
-    x = torch.randn(R, d, generator=g, device="cuda").to(dt)
-    gamma = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
-    errs, rows = [], []
-    for widths in ((4096, 1024, 1024), (14336, 14336)):
-        ws = [(0.02 * torch.randn(d, n, generator=g, device="cuda")).to(dt)
-              for n in widths]
-        got = df.norm_matmul(x, gamma, ws, eps)
-        ref = df.plain_norm_matmul(x, gamma, ws, eps)
+    R, errs, rows, fails = K3_ROWS, [], {}, []
+    for i, (label, (d, widths, kind, has_beta, has_bias)) in enumerate(
+            K3A_CASES.items()):
+        x, gamma, beta = k3_inputs(torch, dt, 12 + i, (R, d), (d,), (d,))
+        gamma = 1 + 0.1 * gamma
+        beta = 0.1 * beta if has_beta else None
+        ws = k3_inputs(torch, dt, 40 + i, *[(d, n) for n in widths],
+                       scale=0.02)
+        bs = [b if hb else None for b, hb in zip(
+            k3_inputs(torch, dt, 60 + i, *[(n,) for n in widths],
+                      scale=0.1), has_bias)]
+        kw = dict(eps=1e-5 if kind == "ln" else 1e-6, kind=kind)
+        got = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
+        ref = df.plain_norm_matmul(x, gamma, beta, ws, bs, **kw)
         torch.cuda.synchronize()
-        errs.append(max(max_err(torch, a, b, dtype,
-                                f"norm_matmul {d}->{widths}")
+        errs.append(max(held_attention(torch, a, b, dtype,
+                                  f"norm_matmul {label} {d}->{widths}",
+                                  fails)
                         for a, b in zip(got, ref)))
         if not timing:
             continue
         es = x.element_size()
-        nbytes = es * (x.numel() + d + sum(w.numel() for w in ws)
-                       + R * sum(widths))
-        flops = 2 * R * d * sum(widths) + 4 * R * d
+        nbytes = es * (x.numel() + d * (2 if has_beta else 1)
+                       + sum(w.numel() for w in ws) + R * sum(widths)
+                       + sum(b.numel() for b in bs if b is not None))
+        flops = 2 * R * d * sum(widths) + (6 if kind == "ln" else 4) * R * d
         b_ms, b_by = bound(nbytes, flops, dtype)
 
         def library():
-            y = F.rms_norm(x, (d,), gamma, eps)
-            return [torch.matmul(y, w) for w in ws]
+            y = F.rms_norm(x, (d,), gamma, kw["eps"]) if kind == "rms" \
+                else F.layer_norm(x, (d,), gamma, beta, kw["eps"])
+            return [torch.addmm(b, y, w) if b is not None else y @ w
+                    for w, b in zip(ws, bs)]
 
-        rows.append(dict(
-            ms=time_ms(torch, lambda: df.norm_matmul(x, gamma, ws, eps)),
+        rows[label] = dict(
+            ms=time_ms(torch, lambda: df.norm_matmul(x, gamma, beta, ws, bs,
+                                                     **kw)),
             plain_ms=time_ms(torch, lambda: df.plain_norm_matmul(
-                x, gamma, ws, eps)),
+                x, gamma, beta, ws, bs, **kw)),
             library_ms=time_ms(torch, library), bound_ms=b_ms,
-            bound_by=b_by, nbytes=nbytes, flops=flops))
+            bound_by=b_by, nbytes=nbytes, flops=flops)
+        del ws, got, ref
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"K3a disagrees with its plain version: "
+                             f"{fails}")
     return max(errs), rows
 
 
 def check_matmul_residual(torch, df, dtype, timing):
-    """K3b at R=136: 4096 -> 4096 + residual, and swiglu 14336 -> 4096."""
+    """K3b at R=136 in every case of K3B_CASES, held and timed as K3a
+    (yardstick: the activation, then ``addmm`` onto the residual, plus
+    the bias)."""
     import torch.nn.functional as F
     dt = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(13)
-    R, n = 136, 4096
-    res = torch.randn(R, n, generator=g, device="cuda").to(dt)
-    errs, rows = [], []
-    for act, k in ((None, 4096), ("swiglu", 14336)):
-        xs = [torch.randn(R, k, generator=g, device="cuda").to(dt)
-              for _ in range(2 if act else 1)]
-        w = (0.02 * torch.randn(k, n, generator=g, device="cuda")).to(dt)
-        got = df.matmul_residual(xs, w, None, res, act=act)
-        ref = df.plain_matmul_residual(xs, w, None, res, act=act)
+    R, errs, rows, fails = K3_ROWS, [], {}, []
+    for i, (label, (k, n, act, has_bias)) in enumerate(K3B_CASES.items()):
+        gate, up, res, b = k3_inputs(torch, dt, 13 + i, (R, k), (R, k),
+                                     (R, n), (n,))
+        xs = [gate, up] if act == "swiglu" else [gate]
+        (w,) = k3_inputs(torch, dt, 80 + i, (k, n), scale=0.02)
+        b = 0.1 * b if has_bias else None
+        got = df.matmul_residual(xs, w, b, res, act=act)
+        ref = df.plain_matmul_residual(xs, w, b, res, act=act)
         torch.cuda.synchronize()
-        errs.append(max_err(torch, got, ref, dtype,
-                            f"matmul_residual act={act} {k}->{n}"))
+        errs.append(held_attention(torch, got, ref, dtype,
+                              f"matmul_residual {label} act={act} "
+                              f"{k}->{n}", fails))
         if not timing:
             continue
         es = res.element_size()
-        nbytes = es * (sum(x.numel() for x in xs) + w.numel() + 2 * R * n)
+        nbytes = es * (sum(x.numel() for x in xs) + w.numel() + 2 * R * n
+                       + (n if has_bias else 0))
         flops = 2 * R * k * n + (4 * R * k if act else 0)
         b_ms, b_by = bound(nbytes, flops, dtype)
 
         def library():
-            xin = F.silu(xs[0]) * xs[1] if act else xs[0]
-            return torch.addmm(res, xin, w)
+            xin = F.silu(xs[0]) * xs[1] if act == "swiglu" else \
+                F.gelu(xs[0], approximate="tanh") if act else xs[0]
+            return torch.addmm(res if b is None else res + b, xin, w)
 
-        rows.append(dict(
+        rows[label] = dict(
             ms=time_ms(torch, lambda: df.matmul_residual(
-                xs, w, None, res, act=act)),
+                xs, w, b, res, act=act)),
             plain_ms=time_ms(torch, lambda: df.plain_matmul_residual(
-                xs, w, None, res, act=act)),
+                xs, w, b, res, act=act)),
             library_ms=time_ms(torch, library), bound_ms=b_ms,
-            bound_by=b_by, nbytes=nbytes, flops=flops))
+            bound_by=b_by, nbytes=nbytes, flops=flops)
+        del w, got, ref
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"K3b disagrees with its plain version: "
+                             f"{fails}")
     return max(errs), rows
 
 
@@ -1284,10 +1345,12 @@ def decode_width_times(torch, df):
     rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(bf)  # noqa
     x, res = rnd(8, 4096), rnd(8, 4096)
     gamma = rnd(4096)
-    cases = [("norm_matmul qkv", lambda ws: df.norm_matmul(x, gamma, ws, 1e-6),
+    kw = dict(eps=1e-6, kind="rms")
+    cases = [("norm_matmul qkv",
+              lambda ws: df.norm_matmul(x, gamma, None, ws, [None] * 3, **kw),
               [rnd(4096, n) for n in (4096, 1024, 1024)]),
              ("norm_matmul gate/up",
-              lambda ws: df.norm_matmul(x, gamma, ws, 1e-6),
+              lambda ws: df.norm_matmul(x, gamma, None, ws, [None] * 2, **kw),
               [rnd(4096, 14336) for _ in range(2)]),
              ("matmul_residual o_proj",
               lambda ws: df.matmul_residual([x], ws[0], None, res),
@@ -2035,6 +2098,73 @@ def qwen2_phase(torch, kernels, ServingEngine, ServingConfig,
     return fused, sorted_
 
 
+# ---------------------------------------------------------------- phase 14
+
+def qwen2_dense_phase(torch, kernels, df, rpa, ServingEngine, ServingConfig,
+                      Qwen2Config, Qwen2ForCausalLM):
+    """Phase 14: dense Qwen2-7B (all 28 layers, bf16, seeded weights,
+    q/k/v biases) serves phase 3's traffic on the fused decode tick, K3a
+    and K3b each launching twice a layer a tick; profiled over
+    TICK_WINDOW ticks; then a PHASE4_LAYERS-layer float32 model at full
+    widths through the kernels and through their plain versions (phase
+    4's rule). Returns the bf16 run's launches."""
+    cfg = Qwen2Config()
+    cfg.dtype = "bfloat16"
+    t0 = time.monotonic()
+    model = Qwen2ForCausalLM(cfg, device="cuda", seed=SEED + 14)
+    torch.cuda.synchronize()
+    if model.base.layers[0].self_attn.q_proj.bias is None:
+        raise AssertionError("phase 14: want biased q/k/v")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 14: Qwen2-7B, {cfg.num_hidden_layers} layers, "
+        f"{n_params / 1e9:.3f}B params bf16 "
+        f"({2 * n_params / 1e9:.1f} GB), init "
+        f"{time.monotonic() - t0:.1f}s")
+    lens, prompts = serving_prompts(cfg.vocab_size, REQUESTS, SEED)
+    engine = ServingEngine(model, ServingConfig(
+        num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
+        max_new_tokens=32, fused_decode=True), device="cuda")
+    launches, st, _ = serve_run(torch, kernels, engine, prompts, lens,
+                                "phase 14", SERVING_KERNELS)
+    per_tick = 2 * cfg.num_hidden_layers * st["ticks"]
+    log(f"phase 14: K2r {launches['ragged_paged_attention']}, K3a "
+        f"{launches['norm_matmul']}, K3b {launches['matmul_residual']} "
+        f"launches over {st['ticks']} ticks (want {per_tick} each of K3)")
+    for k in ("norm_matmul", "matmul_residual"):
+        if launches[k] != per_tick:
+            raise AssertionError(f"phase 14: {k} launched {launches[k]} "
+                                 f"times, want 2 x {cfg.num_hidden_layers} "
+                                 f"x {st['ticks']} ticks")
+    tick_window(torch, engine, prompts[:8], TICK_WINDOW, "phase 14")
+    engine.shutdown()
+    del engine, model
+    torch.cuda.empty_cache()
+
+    cfg = Qwen2Config()
+    cfg.num_hidden_layers = PHASE4_LAYERS
+    model = Qwen2ForCausalLM(cfg, device="cuda", seed=SEED + 15)
+    rng = np.random.RandomState(SEED + 15)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (40, 150, 70)]
+    first_k, toks_k = serve_f32(torch, ServingEngine, ServingConfig, model,
+                                prompts)
+    first_p, toks_p = patched(plain_patches(df, rpa), lambda: serve_f32(
+        torch, ServingEngine, ServingConfig, model, prompts))
+    lerr = float((first_k - first_p).abs().max())
+    log(f"phase 14: f32, {PHASE4_LAYERS} layers at Qwen2-7B widths: "
+        f"first-tick logits max_abs_err={lerr:.3e} (atol {LOGITS_ATOL})")
+    if not lerr <= LOGITS_ATOL:
+        raise AssertionError(f"phase 14: kernel path logits disagree with "
+                             f"the plain path: {lerr}")
+    fails = []
+    held_streams(torch, model, "phase 14 kernel vs plain", prompts, toks_k,
+                 toks_p, fails)
+    if fails:
+        raise AssertionError(f"phase 14: token streams diverge: {fails}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------- phases 12, 13
 
 def active_params(model):
@@ -2531,7 +2661,8 @@ def main(argv=None):
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.models import (
             DeepseekMoeForCausalLM, LlamaConfig, LlamaForCausalLM,
-            Qwen2MoeConfig, Qwen2MoeForCausalLM, deepseek_moe_16b)
+            Qwen2Config, Qwen2ForCausalLM, Qwen2MoeConfig,
+            Qwen2MoeForCausalLM, deepseek_moe_16b)
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.ops.kernels import decode_fused as df
@@ -2596,17 +2727,17 @@ def main(argv=None):
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
             for name, r in r5.items():
                 table[name] = dict(r, max_abs_err=e5[name])
-            table["norm_matmul"] = dict(merge_rows(r2, dtype),
-                                        max_abs_err=e2)
-            table["matmul_residual"] = dict(merge_rows(r3, dtype),
-                                            max_abs_err=e3)
-            for name, rows in (("norm_matmul", r2),
-                               ("matmul_residual", r3)):
-                for r in rows:
-                    log(f"  {name} shape: ms={r['ms']:.4f} "
-                        f"plain_ms={r['plain_ms']:.4f} "
-                        f"library_ms={r['library_ms']:.4f} "
-                        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            for name, r in (("norm_matmul", r2), ("matmul_residual", r3)):
+                table[name] = dict(merge_rows(
+                    [r[label] for label in K3_TABLE[name]], dtype),
+                    max_abs_err=e2 if name == "norm_matmul" else e3)
+                for label, row in r.items():
+                    log(f"  {name} {label}: ms={row['ms']:.4f} "
+                        f"plain_ms={row['plain_ms']:.4f} "
+                        f"library_ms={row['library_ms']:.4f} "
+                        f"bound_ms={row['bound_ms']:.4f} "
+                        f"({row['bound_by']}) share of bound "
+                        f"{row['bound_ms'] / row['ms']:.3f}")
     decode_width_times(torch, df)
     for name, r in table.items():
         log(f"  {name} [bfloat16]: ms={r['ms']:.4f} "
@@ -2747,6 +2878,12 @@ def main(argv=None):
     moe_grad_check(torch, kernels, fa, mg, moe, DeepseekMoeForCausalLM,
                    deepseek_moe_16b)
     torch.cuda.empty_cache()
+
+    # -- phase 14: dense Qwen2-7B serving, and f32 kernels vs plain ---------
+    serve14 = qwen2_dense_phase(torch, kernels, df, rpa, ServingEngine,
+                                ServingConfig, Qwen2Config, Qwen2ForCausalLM)
+    for k in SERVING_KERNELS:
+        launches[k] += serve14[k]
 
     # -- phase 15: FlashMask attention, fwd + bwd at 16k -------------------
     launches.update(flashmask_phase(torch, kernels, fa, fm, PF))

@@ -1,132 +1,66 @@
-// K3b: (optional swiglu ->) projection -> bias -> residual add, as one
-// kernel: the O-projection + residual and the swiglu -> down-projection
-// + residual of every decoder layer.
+// K3b: (optional activation ->) projection -> bias -> residual add, as
+// one kernel: the O-projection + residual, the swiglu -> down-projection
+// + residual of every Llama / Qwen2 decoder layer, and GPT's tanh-gelu ->
+// second MLP linear + residual.
 //
 // Replaces: paddle_tpu/ops/pallas/decode_fused.py, _mm_res_kernel (via
-// pallas_matmul_residual), activations "none" and "swiglu".
+// pallas_matmul_residual), every activation: none, "swiglu", "gelu_tanh".
 //
 // What bounds it on the H100: at decode widths the weight [K, N]
 // dominates the bytes, so the least time is the weight bytes over
 // 3.35 TB/s; at prefill widths the multiply-adds take over.
 //
-// Design: the grid is (row tiles, column tiles of w); consecutive
-// blocks share a column tile so the weight bytes come from device
-// memory about once. The prologue computes silu(g) * u in float32 (or
-// passes x through) as each K-slice of the tile is staged in shared
-// memory, rounded through the activation dtype where the unfused path
-// rounds, so the activated input never goes to device memory (the
-// bfloat16 prologue computes silu with __expf / __fdividef: the silu is
-// redone for every column tile and sits on each K-slice's critical
-// path). bfloat16 contracts on the tensor cores (mma.sync m16n8k16,
-// float32 accumulation, a cp.async ring for W: mma_gemm.cuh) in row
-// tiles of 16, 48 or 64 rows, whichever pads R least, and splits K over
-// blocks when the tile grid would leave SMs idle (float32 partials,
-// summed by a second kernel that runs the epilogue); float32 runs the
-// FMA tile of tile_gemm.cuh. The epilogue rounds the product, adds the
-// bias and the residual, and stores in the residual's dtype.
+// bfloat16 runs the Hopper body of decode_gemm_sm90.cuh (persistent,
+// stream-K over the weight tiles, wgmma, TMA); swiglu and gelu_tanh first
+// run a pre-pass that activates each element once into a scratch of
+// R x K rows (L2-resident at tick widths: 3.9 MB at R = 136, K = 14336),
+// which the main kernel, launched behind it, reads: applied per column
+// tile in registers instead, the activation ran 32 times an element at
+// Llama-3-8B's down-projection and held it to half the library call's
+// speed. float32 runs the FMA tile of tile_gemm.cuh over a (row tiles,
+// column tiles) grid, the activation applied as each K-slice is staged in
+// shared memory. Both round where the unfused path rounds (the
+// activation in the input dtype; the product, the bias and the residual
+// add each in the output dtype).
 //
 // Shapes: x0 (and x1 for swiglu) [R, K], w [K, N] row-major, bias [N] or
 // null, residual and out [R, N]; float32 or bfloat16 throughout.
 // bfloat16 needs K and N multiples of 8 and 16-byte aligned pointers;
 // float32 takes any sizes.
-#include "mma_gemm.cuh"
+#include <algorithm>
+
+#include "decode_gemm_sm90.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 using namespace ptt;
 
-template <typename T>
-struct PlainLoad {
-  const T* x;
-  int K;
-  __device__ __forceinline__ float operator()(int r, int k, int) const {
-    return to_f<T>(x[(size_t)r * K + k]);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ float silu_mul(float g, float u) {
-  return round_t<T>(round_t<T>(g / (1.f + expf(-g))) * u);
-}
-
-template <typename T>
-struct SwigluLoad {
-  const T* g;
-  const T* u;
-  int K;
+// act: 0 none, 1 swiglu (silu(x0) * x1), 2 gelu_tanh (gelu(x0))
+struct ActLoad {
+  const float* x0;
+  const float* x1;
+  int K, act;
   __device__ __forceinline__ float operator()(int r, int k, int) const {
     const size_t i = (size_t)r * K + k;
-    return silu_mul<T>(to_f<T>(g[i]), to_f<T>(u[i]));
+    const float v = x0[i];
+    if (act == 1) return v / (1.f + expf(-v)) * x1[i];
+    if (act == 2) return dg90::gelu1(v);
+    return v;
   }
 };
 
-// the bfloat16 prologue's silu(g) * u: __expf and __fdividef are off by
-// a few float32 ulp, far below the bfloat16 rounding that follows, and
-// keep the prologue short on the K-slice's critical path
-__device__ __forceinline__ float silu_mul_fast(float g, float u) {
-  return round_t<bf16>(round_t<bf16>(__fdividef(g, 1.f + __expf(-g))) * u);
-}
-
-struct PairFrag {
-  uint4 a, b;
-};
-
-struct PlainLoadBF16 {
-  using Frag = PairFrag;
-  const bf16* x;
-  int K;
-  __device__ __forceinline__ Frag fetch(int r, int k) const {
-    return {*reinterpret_cast<const uint4*>(x + (size_t)r * K + k),
-            make_uint4(0, 0, 0, 0)};
-  }
-  __device__ __forceinline__ uint4 convert(const Frag& f, int, int) const {
-    return f.a;
-  }
-};
-
-struct SwigluLoadBF16 {
-  using Frag = PairFrag;
-  const bf16* g;
-  const bf16* u;
-  int K;
-  __device__ __forceinline__ Frag fetch(int r, int k) const {
-    const size_t i = (size_t)r * K + k;
-    return {*reinterpret_cast<const uint4*>(g + i),
-            *reinterpret_cast<const uint4*>(u + i)};
-  }
-  __device__ __forceinline__ uint4 convert(const Frag& f, int, int) const {
-    float gv[8], uv[8], o[8];
-    unpack8(f.a, gv);
-    unpack8(f.b, uv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = silu_mul_fast(gv[e], uv[e]);
-    return pack8(o);
-  }
-};
-
-// round the product, add bias, add the residual — the unfused order
-template <typename T>
-__device__ __forceinline__ void epilogue(float acc, const T* bias,
-                                         const T* res, T* out, int r, int c,
-                                         int N) {
-  float y = round_t<T>(acc);
-  if (bias != nullptr) y = round_t<T>(y + to_f<T>(bias[c]));
-  const size_t o = (size_t)r * N + c;
-  out[o] = from_f<T>(to_f<T>(res[o]) + y);
-}
-
-template <typename T, int BM, typename ALoad>
+template <int BM>
 __global__ void __launch_bounds__(GEMM_THREADS)
-    matmul_residual_fma(ALoad load, const T* __restrict__ w,
-                        const T* __restrict__ bias,
-                        const T* __restrict__ res, T* __restrict__ out,
-                        int R, int K, int N) {
+    matmul_residual_fma(ActLoad load, const float* __restrict__ w,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ res,
+                        float* __restrict__ out, int R, int K, int N) {
   constexpr int TM = BM / 16;
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * GEMM_BN;
   float acc[TM][4];
-  gemm_tile<T, BM>(load, w, R, K, N, row0, col0, acc);
+  gemm_tile<float, BM>(load, w, R, K, N, row0, col0, acc);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -134,147 +68,71 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx * 4 + j;
-      if (r < R && c < N) epilogue<T>(acc[i][j], bias, res, out, r, c, N);
+      if (r < R && c < N) {   // the unfused order: bias, then residual
+        const size_t o = (size_t)r * N + c;
+        out[o] = res[o] + (bias ? acc[i][j] + bias[c] : acc[i][j]);
+      }
     }
   }
 }
 
-// grid (row tiles, column tiles, K splits); with one split the epilogue
-// runs here, else the tile goes to part[z][r][c] for finish_kernel
-template <int BM, typename ALoad>
-__global__ void __launch_bounds__(MMA_THREADS)
-    matmul_residual_mma(ALoad load, const bf16* __restrict__ w,
-                        const bf16* __restrict__ bias,
-                        const bf16* __restrict__ res, bf16* __restrict__ out,
-                        float* __restrict__ part, int R, int K, int N,
-                        int n_split) {
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * MMA_BN;
-  int k_begin, k_end;
-  split_range(K, n_split, blockIdx.z, k_begin, k_end);
-  float acc[WarpTile<BM>::MT][WarpTile<BM>::NT][4];
-  mma_tile<BM>(load, w, R, K, N, row0, col0, k_begin, k_end, acc);
-#pragma unroll
-  for (int mt = 0; mt < WarpTile<BM>::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < WarpTile<BM>::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        mma_store_index<BM>(mt, nt, e, r, c);
-        r += row0;
-        c += col0;
-        if (r >= R || c >= N) continue;
-        if (n_split == 1)
-          epilogue<bf16>(acc[mt][nt][e], bias, res, out, r, c, N);
-        else
-          part[((size_t)blockIdx.z * R + r) * N + c] = acc[mt][nt][e];
-      }
-}
-
-// sum the K splits, then the epilogue
-__global__ void finish_kernel(const float* __restrict__ part,
-                              const bf16* __restrict__ bias,
-                              const bf16* __restrict__ res,
-                              bf16* __restrict__ out, int R, int N,
-                              int n_split) {
-  const size_t total = (size_t)R * N;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int z = 0; z < n_split; ++z) v += part[(size_t)z * total + i];
-    epilogue<bf16>(v, bias, res, out, (int)(i / N), (int)(i % N), N);
-  }
-}
-
-template <typename T, int BM>
-cudaError_t launch_fma(const void* x0, const void* x1, const void* w,
-                       const void* bias, const void* res, void* out, int R,
-                       int K, int N, int act, cudaStream_t stream) {
-  dim3 grid((R + BM - 1) / BM, (N + GEMM_BN - 1) / GEMM_BN);
-  if (act == 0) {
-    PlainLoad<T> load{(const T*)x0, K};
-    matmul_residual_fma<T, BM><<<grid, GEMM_THREADS, 0, stream>>>(
-        load, (const T*)w, (const T*)bias, (const T*)res, (T*)out, R, K, N);
-  } else {
-    SwigluLoad<T> load{(const T*)x0, (const T*)x1, K};
-    matmul_residual_fma<T, BM><<<grid, GEMM_THREADS, 0, stream>>>(
-        load, (const T*)w, (const T*)bias, (const T*)res, (T*)out, R, K, N);
-  }
-  return cudaGetLastError();
-}
-
-template <int BM, typename ALoad>
-cudaError_t launch_mma(const ALoad& load, const void* w, const void* bias,
-                       const void* res, void* out, float* part, int R, int K,
-                       int N, int n_split, cudaStream_t stream) {
-  dim3 grid((R + BM - 1) / BM, (N + MMA_BN - 1) / MMA_BN, n_split);
-  const bf16* bb = (const bf16*)bias;
-  const bf16* rb = (const bf16*)res;
-  constexpr size_t smem = mma_smem_bytes<BM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      matmul_residual_mma<BM, ALoad>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  matmul_residual_mma<BM><<<grid, MMA_THREADS, smem, stream>>>(
-      load, (const bf16*)w, bb, rb, (bf16*)out, part, R, K, N, n_split);
-  if (n_split > 1) {
-    const size_t total = (size_t)R * N;
-    const int blocks = (int)min((total + 255) / 256, (size_t)4096);
-    finish_kernel<<<blocks, 256, 0, stream>>>(part, bb, rb, (bf16*)out, R,
-                                              N, n_split);
-  }
-  return cudaGetLastError();
-}
-
 template <int BM>
-cudaError_t launch_mma_act(const void* x0, const void* x1, const void* w,
-                           const void* bias, const void* res, void* out,
-                           float* part, int R, int K, int N, int act,
-                           int n_split, cudaStream_t stream) {
-  if (act == 0)
-    return launch_mma<BM>(PlainLoadBF16{(const bf16*)x0, K}, w, bias, res,
-                          out, part, R, K, N, n_split, stream);
-  return launch_mma<BM>(SwigluLoadBF16{(const bf16*)x0, (const bf16*)x1, K},
-                        w, bias, res, out, part, R, K, N, n_split, stream);
+cudaError_t launch_fma(const ActLoad& load, const void* w, const void* bias,
+                       const void* res, void* out, int R, int K, int N,
+                       cudaStream_t stream) {
+  dim3 grid((R + BM - 1) / BM, (N + GEMM_BN - 1) / GEMM_BN);
+  matmul_residual_fma<BM><<<grid, GEMM_THREADS, 0, stream>>>(
+      load, (const float*)w, (const float*)bias, (const float*)res,
+      (float*)out, R, K, N);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// act: 0 = none (x0 only), 1 = swiglu (silu(x0) * x1); part: float32
-// scratch [n_split, R, N] when n_split > 1 (bfloat16 only; float32 takes
-// n_split == 1)
+// act: 0 = none (x0 only), 1 = swiglu (silu(x0) * x1), 2 = gelu_tanh;
+// bfloat16 scratch (none for float32): rows act_cap bf16 (swiglu and
+// gelu_tanh: R x K, the activated rows), ws ws_cap floats, flags
+// flag_cap int32 zeros (decode_gemm_sm90.cuh's plan)
 extern "C" int ptt_matmul_residual(const void* x0, const void* x1,
                                    const void* w, const void* bias,
-                                   const void* res, void* out, void* part,
-                                   int R, int K, int N, int act, int n_split,
-                                   int dtype, void* stream) {
-  if (R < 1 || K < 1 || N < 1 || act < 0 || act > 1 || n_split < 1)
+                                   const void* res, void* out, void* rows,
+                                   void* ws, void* flags, long long act_cap,
+                                   long long ws_cap, long long flag_cap,
+                                   int R, int K, int N, int act, int dtype,
+                                   void* stream) {
+  if (R < 1 || K < 1 || N < 1 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    if (n_split != 1) return (int)cudaErrorInvalidValue;
+    const ActLoad load{(const float*)x0, (const float*)x1, K, act};
     if (R <= 16)
-      return (int)launch_fma<float, 16>(x0, x1, w, bias, res, out, R, K, N,
-                                        act, st);
-    return (int)launch_fma<float, 64>(x0, x1, w, bias, res, out, R, K, N,
-                                      act, st);
+      return (int)launch_fma<16>(load, w, bias, res, out, R, K, N, st);
+    return (int)launch_fma<64>(load, w, bias, res, out, R, K, N, st);
   }
-  if (dtype == 1) {
-    if (K % 8 || N % 8 || (n_split > 1 && part == nullptr))
-      return (int)cudaErrorInvalidValue;
-    float* pp = (float*)part;
-    switch (mma_row_tile(R)) {
-      case 16:
-        return (int)launch_mma_act<16>(x0, x1, w, bias, res, out, pp, R, K,
-                                       N, act, n_split, st);
-      case 48:
-        return (int)launch_mma_act<48>(x0, x1, w, bias, res, out, pp, R, K,
-                                       N, act, n_split, st);
-      default:
-        return (int)launch_mma_act<64>(x0, x1, w, bias, res, out, pp, R, K,
-                                       N, act, n_split, st);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)R * K;
+  if (dtype != 1 || K % 8 || N % 8 || ws == nullptr || flags == nullptr ||
+      (act && (rows == nullptr || (size_t)act_cap < n)))
+    return (int)cudaErrorInvalidValue;
+  dg90::Params p = {};
+  p.R = R;
+  p.K = K;
+  p.nw = 1;
+  p.N[0] = N;
+  p.out[0] = (bf16*)out;
+  p.bias[0] = (const bf16*)bias;
+  p.res = (const bf16*)res;
+  p.ws = (float4*)ws;
+  p.flags = (int*)flags;
+  const void* wp[3] = {w, w, w};
+  dg90::Plan pl;
+  cudaError_t err = dg90::plan(act ? rows : x0, wp, p, (size_t)ws_cap,
+                               (size_t)flag_cap, pl);
+  if (err != cudaSuccess) return (int)err;
+  if (act == 0) return (int)dg90::launch<dg90::A_NONE, false>(pl, p, st);
+  const int blocks = (int)std::min<size_t>((n / 8 + 255) / 256, 4096);
+  dg90::activate<<<blocks, 256, 0, st>>>((const bf16*)x0, (const bf16*)x1,
+                                         (bf16*)rows, n, act == 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)dg90::launch<dg90::A_NONE, true>(pl, p, st);
 }

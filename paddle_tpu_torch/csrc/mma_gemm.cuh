@@ -1,21 +1,8 @@
-// The bfloat16 tile product shared by norm_matmul.cu and
-// matmul_residual.cu: one block of 128 threads (4 warps) computes a
-// [BM x 128] tile of A @ W over a K range on the tensor cores with
-// mma.sync.m16n8k16 (bf16 inputs, float32 accumulation).
-//
-// A [R, K] is produced by the caller's loader 8 elements at a time
-// (fetch: raw 16-byte loads; convert: the norm or activation, rounded
-// to bf16), so an activated A never exists in device memory; it is
-// double-buffered in shared memory through registers, its loads issued
-// two slices ahead of their products. W [K, N] streams through a
-// 3-stage ring of shared tiles filled by cp.async (16 bytes a thread,
-// zero-filled past the edges). Fragments come from ldmatrix (A) and
-// ldmatrix.trans (B); each warp owns a 32 x 64 (or BM x 32) part of the
-// tile. Shared rows are padded by 8 elements so ldmatrix
-// rows hit distinct banks. A block may take a K range only (split-K):
-// the caller then sums the float32 partials.
-//
-// Requires K % 8 == 0 and N % 8 == 0 (checked by the caller).
+// The bfloat16 mma.sync pieces of moe_gmm.cu's serving body (its K4 / K5
+// forward modes below SM90_MIN_ROWS rows a group): the m16n8k16 product
+// (bf16 inputs, float32 accumulation), ldmatrix fragments, cp.async
+// copies, the warp layout of a [BM x 128] tile of 4 warps and its store
+// index. The bf16 type and unpack8 serve the Hopper headers too.
 #pragma once
 
 #include <cstdint>
@@ -81,14 +68,6 @@ __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
   for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(h[e]);
 }
 
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  uint4 v;
-  bf16* h = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16(f[e]);
-  return v;
-}
-
 // Warp layout of a [BM x MMA_BN] tile: 2 x 2 warps of 32 x 64 for
 // BM = 64, 1 x 4 warps of BM x 32 for BM = 16 and 48.
 template <int BM>
@@ -98,19 +77,6 @@ struct WarpTile {
   static constexpr int WM = BM / WARPS_M, WN = MMA_BN / WARPS_N;
   static constexpr int MT = WM / 16, NT = WN / 8;
 };
-
-// rows of a block's tile for R rows: 16 for a narrow tick, else 48 or
-// 64, whichever pads R less (R = 136: three 48-row tiles, not 192 rows)
-inline int mma_row_tile(int R) {
-  if (R <= 16) return 16;
-  return (R + 47) / 48 * 48 < (R + 63) / 64 * 64 ? 48 : 64;
-}
-
-// dynamic shared memory of one block: A double buffer + W ring
-template <int BM>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (2 * BM * MMA_LDA + MMA_STAGES * MMA_BK * MMA_LDB);
-}
 
 // A fragment of one m16 tile (k 0..15 of the slice) from a row-major
 // [m][k] shared tile: lanes 0-7 / 8-15 / 16-23 / 24-31 give the rows of
@@ -125,129 +91,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "r"(a));
 }
 
-// acc[mt][nt][4]: m-tile mt (16 rows) and n-tile nt (8 columns) of this
-// warp's [WM x WN] part; see mma_store_index for the element layout. The
-// block covers K range [k_begin, k_end) and needs mma_smem_bytes<BM>()
-// of dynamic shared memory.
-template <int BM, typename ALoad>
-__device__ __forceinline__ void mma_tile(
-    const ALoad& load, const bf16* __restrict__ w, int R, int K, int N,
-    int row0, int col0, int k_begin, int k_end,
-    float (&acc)[WarpTile<BM>::MT][WarpTile<BM>::NT][4]) {
-  using WT = WarpTile<BM>;
-  constexpr int AV = BM * MMA_BK / 8;              // A vectors per slice
-  constexpr int AV_T = (AV + MMA_THREADS - 1) / MMA_THREADS;
-  constexpr int BV = MMA_BK * MMA_BN / 8;          // W vectors per slice
-  constexpr int BV_T = BV / MMA_THREADS;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  bf16(*As)[BM][MMA_LDA] = reinterpret_cast<bf16(*)[BM][MMA_LDA]>(mma_smem);
-  bf16(*Bs)[MMA_BK][MMA_LDB] = reinterpret_cast<bf16(*)[MMA_BK][MMA_LDB]>(
-      mma_smem + sizeof(bf16) * 2 * BM * MMA_LDA);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WT::WARPS_N, wn = warp % WT::WARPS_N;
-#pragma unroll
-  for (int mt = 0; mt < WT::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < WT::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  using Frag = typename ALoad::Frag;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  const int nk = (k_end - k_begin + MMA_BK - 1) / MMA_BK;
-
-  auto issue_w = [&](int slice) {
-    const int k0 = k_begin + slice * MMA_BK;
-    bf16(*bs)[MMA_LDB] = Bs[slice % MMA_STAGES];
-#pragma unroll
-    for (int j = 0; j < BV_T; ++j) {
-      const int i = tid + j * MMA_THREADS;
-      const int kk = i / (MMA_BN / 8), c = (i % (MMA_BN / 8)) * 8;
-      const int k = k0 + kk;
-      const bool ok = k < k_end && col0 + c < N;
-      cp_async16(&bs[kk][c], ok ? w + (size_t)k * N + col0 + c : w, ok);
-    }
-  };
-  auto fetch_a = [&](int slice, Frag(&fa)[AV_T]) {
-    const int k0 = k_begin + slice * MMA_BK;
-#pragma unroll
-    for (int j = 0; j < AV_T; ++j) {
-      const int i = tid + j * MMA_THREADS;
-      const int m = i / (MMA_BK / 8), k = k0 + (i % (MMA_BK / 8)) * 8;
-      const int r = row0 + m;
-      if (i < AV && r < R && k < k_end) fa[j] = load.fetch(r, k);
-    }
-  };
-  auto stage_a = [&](int slice, const Frag(&fa)[AV_T]) {
-    const int k0 = k_begin + slice * MMA_BK;
-    bf16(*as)[MMA_LDA] = As[slice & 1];
-#pragma unroll
-    for (int j = 0; j < AV_T; ++j) {
-      const int i = tid + j * MMA_THREADS;
-      if (i >= AV) continue;
-      const int m = i / (MMA_BK / 8), kk = (i % (MMA_BK / 8)) * 8;
-      const int r = row0 + m, k = k0 + kk;
-      *reinterpret_cast<uint4*>(&as[m][kk]) =
-          (r < R && k < k_end) ? load.convert(fa[j], m, k) : zero;
-    }
-  };
-  const int mi = lane / 8, ri = lane % 8;
-  // one K-slice; `mine` held slice it (already staged) and takes slice
-  // it + 2, `other` holds slice it + 1, fetched a slice earlier
-  auto step = [&](int it, Frag(&mine)[AV_T], const Frag(&other)[AV_T]) {
-    cp_async_wait<MMA_STAGES - 2>();  // slice it's W has landed
-    __syncthreads();                  // ... for every thread; slice it-1
-                                      // is consumed by every warp
-    if (it + MMA_STAGES - 1 < nk) issue_w(it + MMA_STAGES - 1);
-    cp_async_commit();
-    if (it + 2 < nk) fetch_a(it + 2, mine);
-    bf16(*as)[MMA_LDA] = As[it & 1];
-    bf16(*bs)[MMA_LDB] = Bs[it % MMA_STAGES];
-#pragma unroll
-    for (int ks = 0; ks < MMA_BK; ks += 16) {
-      uint32_t a[WT::MT][4], b[WT::NT][2];
-#pragma unroll
-      for (int mt = 0; mt < WT::MT; ++mt)
-        ldmatrix_x4(a[mt], &as[wm * WT::WM + mt * 16 + (mi & 1) * 8 + ri]
-                             [ks + (mi >> 1) * 8]);
-#pragma unroll
-      for (int np = 0; np < WT::NT / 2; ++np) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, &bs[ks + (mi & 1) * 8 + ri]
-                                 [wn * WT::WN + np * 16 + (mi >> 1) * 8]);
-        b[2 * np][0] = bq[0];
-        b[2 * np][1] = bq[1];
-        b[2 * np + 1][0] = bq[2];
-        b[2 * np + 1][1] = bq[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < WT::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < WT::NT; ++nt)
-          mma_16816(acc[mt][nt], a[mt], b[nt]);
-    }
-    if (it + 1 < nk) stage_a(it + 1, other);
-  };
-
-#pragma unroll
-  for (int s = 0; s < MMA_STAGES - 1; ++s) {
-    if (s < nk) issue_w(s);
-    cp_async_commit();
-  }
-  // A runs two slices ahead in registers (even slices in fa0, odd in
-  // fa1), so a slice's loads have two slices of products to land in
-  Frag fa0[AV_T], fa1[AV_T];
-  fetch_a(0, fa0);
-  if (nk > 1) fetch_a(1, fa1);
-  stage_a(0, fa0);
-  for (int it = 0; it < nk; it += 2) {
-    step(it, fa0, fa1);
-    if (it + 1 < nk) step(it + 1, fa1, fa0);
-  }
-  cp_async_wait<0>();
-}
-
 // Element e (0..3) of acc[mt][nt] sits at tile row wm*WM + mt*16 + g
 // (+8 for e >= 2) and column wn*WN + nt*8 + tig*2 + (e & 1).
 template <int BM>
@@ -258,15 +101,6 @@ __device__ __forceinline__ void mma_store_index(int mt, int nt, int e,
   const int wm = warp / WT::WARPS_N, wn = warp % WT::WARPS_N;
   row = wm * WT::WM + mt * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
   col = wn * WT::WN + nt * 8 + (lane & 3) * 2 + (e & 1);
-}
-
-// K range of split z of n_split over K, in whole MMA_BK slices
-__device__ __forceinline__ void split_range(int K, int n_split, int z,
-                                            int& k_begin, int& k_end) {
-  const int slices = (K + MMA_BK - 1) / MMA_BK;
-  const int per = (slices + n_split - 1) / n_split;
-  k_begin = min(K, z * per * MMA_BK);
-  k_end = min(K, (z + 1) * per * MMA_BK);
 }
 
 }  // namespace ptt

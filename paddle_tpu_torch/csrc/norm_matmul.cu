@@ -1,8 +1,9 @@
-// K3a: RMSNorm fused into the prologue of 1..3 projections that share
-// the normalised rows (q/k/v, or the MLP's gate/up).
+// K3a: a norm of the rows (RMSNorm, or LayerNorm with an optional beta)
+// fused into the prologue of 1..3 projections that share the normalised
+// rows (q/k/v, or the MLP's gate/up), each with an optional bias.
 //
-// Replaces: paddle_tpu/ops/pallas/decode_fused.py, _norm_mm_kernel
-// (via pallas_norm_matmul), the RMSNorm flavour without biases.
+// Replaces: paddle_tpu/ops/pallas/decode_fused.py, _norm_mm_kernel (via
+// pallas_norm_matmul), every mode: kind "rms" / "ln", beta, biases.
 //
 // What bounds it on the H100: at decode widths (R = live rows of one
 // serving tick, up to a few hundred) the weights dominate the bytes
@@ -10,53 +11,53 @@
 // the weight bytes over 3.35 TB/s; at prefill widths the multiply-adds
 // take over.
 //
-// Design: the grid is (row tiles, column tiles of the concatenated
-// column space of all weights); each column tile belongs to one weight.
-// Consecutive blocks share a column tile, so the row tiles of one
-// weight tile meet in L2 and each weight byte comes from device memory
-// about once. A first phase computes each row's RMS statistic in
-// float32 into shared memory. The product loop then stages the
-// normalised rows K-slice by K-slice in shared memory, rounded through
-// the activation dtype and multiplied by gamma exactly as the unfused
-// rms_norm does, so the normalised activation never goes to device
-// memory. bfloat16 runs on the tensor cores (mma.sync m16n8k16, float32
-// accumulation, a cp.async ring for W: mma_gemm.cuh) in row tiles of
-// 16, 48 or 64 rows, whichever pads R least, with its row statistics
-// from a small first kernel into a float32 scratch row (each row's
-// statistic rides with the row's fetch), and splits K over blocks when
-// the tile grid would leave SMs idle (float32 partials, summed and
-// rounded by a third kernel); float32 runs the FMA tile of
-// tile_gemm.cuh. wgmma/TMA come with a later change.
+// bfloat16 runs the Hopper body of decode_gemm_sm90.cuh (persistent,
+// stream-K over the weight tiles, wgmma with A from registers after the
+// norm, TMA), behind a statistics pre-pass. float32 runs the FMA tile of
+// tile_gemm.cuh: the grid is (row tiles, column tiles of the
+// concatenated column space of all weights), a first phase computes each
+// row's statistics into shared memory, and the product loop stages the
+// normalised rows K-slice by K-slice in shared memory, so the normalised
+// activation never goes to device memory.
 //
-// Shapes: x [R, d], gamma [d], w_i [d, n_i] (row-major, Paddle's
-// [in, out] layout), o_i [R, n_i]; float32 or bfloat16 throughout;
-// 1 <= nw <= 3. bfloat16 needs d and every n_i a multiple of 8 and
-// 16-byte aligned pointers; float32 takes any sizes.
-#include "mma_gemm.cuh"
+// Shapes: x [R, d], gamma and beta [d], w_i [d, n_i] (row-major,
+// Paddle's [in, out] layout), b_i [n_i], o_i [R, n_i]; float32 or
+// bfloat16 throughout; 1 <= nw <= 3. bfloat16 needs d and every n_i a
+// multiple of 8 and 16-byte aligned pointers; float32 takes any sizes.
+#include "decode_gemm_sm90.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 using namespace ptt;
 
-// phase 1 of both paths: rstd[m] = 1 / sqrt(mean(x[row0 + m]^2) + eps)
+// each row's rstd (and, for ln, mean) in shared memory, as the plain
+// version computes them: the mean, then the mean square of the centred
+// row (ln) or of the row (rms)
 template <typename T, int BM, int THREADS>
 __device__ __forceinline__ void row_stats(const T* __restrict__ x, int R,
-                                          int d, int row0, float eps,
-                                          float* rstd) {
+                                          int d, int row0, float eps, int ln,
+                                          float* rstd, float* mean) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int m = warp; m < BM; m += THREADS / 32) {
     const int r = row0 + m;
-    float ss = 0.f;
+    float mu = 0.f, ss = 0.f;
     if (r < R) {
       const T* xr = x + (size_t)r * d;
+      if (ln) {
+        for (int k = lane; k < d; k += 32) mu += to_f<T>(xr[k]);
+        mu = warp_sum(mu) / (float)d;
+      }
       for (int k = lane; k < d; k += 32) {
-        const float v = to_f<T>(xr[k]);
+        const float v = to_f<T>(xr[k]) - mu;
         ss = fmaf(v, v, ss);
       }
     }
     ss = warp_sum(ss);
-    if (lane == 0) rstd[m] = rsqrtf(ss / (float)d + eps);
+    if (lane == 0) {
+      rstd[m] = rsqrtf(ss / (float)d + eps);
+      mean[m] = mu;
+    }
   }
   __syncthreads();
 }
@@ -65,18 +66,17 @@ __device__ __forceinline__ void row_stats(const T* __restrict__ x, int R,
 template <typename T>
 struct ColTile {
   const T* w;
+  const T* b;
   T* o;
   int n, col0;
-  __device__ ColTile(int ct, int t0, int t1, int bn, const T* w0,
-                     const T* w1, const T* w2, T* o0, T* o1, T* o2, int n0,
-                     int n1, int n2) {
-    if (ct < t0) {
-      w = w0; o = o0; n = n0; col0 = ct * bn;
-    } else if (ct < t0 + t1) {
-      w = w1; o = o1; n = n1; col0 = (ct - t0) * bn;
-    } else {
-      w = w2; o = o2; n = n2; col0 = (ct - t0 - t1) * bn;
-    }
+  __device__ ColTile(int ct, int t0, int t1, int bn, const T* const* ws,
+                     const T* const* bs, T* const* os, const int* ns) {
+    const int i = ct < t0 ? 0 : (ct < t0 + t1 ? 1 : 2);
+    w = ws[i];
+    b = bs[i];
+    o = os[i];
+    n = ns[i];
+    col0 = (ct - (i > 0 ? t0 : 0) - (i > 1 ? t1 : 0)) * bn;
   }
 };
 
@@ -84,56 +84,41 @@ template <typename T, int BM>
 struct NormLoad {
   const T* x;
   const T* gamma;
+  const T* beta;
   const float* rstd;
+  const float* mean;
   int d;
   __device__ __forceinline__ float operator()(int r, int k, int m) const {
-    const float yn = round_t<T>(to_f<T>(x[(size_t)r * d + k]) * rstd[m]);
-    return round_t<T>(yn * to_f<T>(gamma[k]));
+    const float yn =
+        round_t<T>((to_f<T>(x[(size_t)r * d + k]) - mean[m]) * rstd[m]);
+    const float y = round_t<T>(yn * to_f<T>(gamma[k]));
+    return beta ? round_t<T>(y + to_f<T>(beta[k])) : y;
   }
 };
 
-// the row statistic travels with the row's fetch, so converting waits
-// on no load of its own
-struct NormLoadBF16 {
-  struct Frag {
-    uint4 x, g;
-    float rs;
-  };
-  const bf16* x;
-  const bf16* gamma;
-  const float* rstd;  // [R] in device memory, from row_stats_kernel
-  int d;
-  __device__ __forceinline__ Frag fetch(int r, int k) const {
-    return {*reinterpret_cast<const uint4*>(x + (size_t)r * d + k),
-            *reinterpret_cast<const uint4*>(gamma + k), rstd[r]};
-  }
-  __device__ __forceinline__ uint4 convert(const Frag& f, int, int) const {
-    float xv[8], gv[8], o[8];
-    unpack8(f.x, xv);
-    unpack8(f.g, gv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = round_t<bf16>(xv[e] * f.rs) * gv[e];
-    return pack8(o);  // rounds y * gamma to bf16, as the unfused product
-  }
+struct Weights {
+  const float* w[3];
+  const float* b[3];
+  float* o[3];
+  int n[3];
 };
 
-template <typename T, int BM>
+template <int BM>
 __global__ void __launch_bounds__(GEMM_THREADS)
-    norm_matmul_fma(const T* __restrict__ x, const T* __restrict__ gamma,
-                    const T* __restrict__ w0, const T* __restrict__ w1,
-                    const T* __restrict__ w2, T* __restrict__ o0,
-                    T* __restrict__ o1, T* __restrict__ o2, int R, int d,
-                    int n0, int n1, int n2, int t0, int t1, float eps) {
+    norm_matmul_fma(const float* __restrict__ x,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta, Weights ws, int R, int d,
+                    int t0, int t1, float eps, int ln) {
   constexpr int TM = BM / 16;
-  __shared__ float rstd[BM];
+  __shared__ float rstd[BM], mean[BM];
   const int row0 = blockIdx.x * BM;
-  const ColTile<T> ct(blockIdx.y, t0, t1, GEMM_BN, w0, w1, w2, o0, o1, o2,
-                      n0, n1, n2);
-  row_stats<T, BM, GEMM_THREADS>(x, R, d, row0, eps, rstd);
+  const ColTile<float> ct(blockIdx.y, t0, t1, GEMM_BN, ws.w, ws.b, ws.o,
+                          ws.n);
+  row_stats<float, BM, GEMM_THREADS>(x, R, d, row0, eps, ln, rstd, mean);
 
   float acc[TM][4];
-  NormLoad<T, BM> load{x, gamma, rstd, d};
-  gemm_tile<T, BM>(load, ct.w, R, d, ct.n, row0, ct.col0, acc);
+  NormLoad<float, BM> load{x, gamma, beta, rstd, mean, d};
+  gemm_tile<float, BM>(load, ct.w, R, d, ct.n, row0, ct.col0, acc);
 
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
@@ -143,182 +128,88 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = ct.col0 + tx * 4 + j;
-      if (col < ct.n) ct.o[(size_t)r * ct.n + col] = from_f<T>(acc[i][j]);
+      if (col < ct.n)
+        ct.o[(size_t)r * ct.n + col] = acc[i][j] + (ct.b ? ct.b[col] : 0.f);
     }
-  }
-}
-
-// one warp per row: rstd[r] = 1 / sqrt(mean(x[r]^2) + eps)
-__global__ void __launch_bounds__(128)
-    row_stats_kernel(const bf16* __restrict__ x, float* __restrict__ rstd,
-                     int R, int d, float eps) {
-  const int r = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (r >= R) return;
-  const bf16* xr = x + (size_t)r * d;
-  float ss = 0.f;
-  for (int k = lane * 8; k < d; k += 32 * 8) {
-    float v[8];
-    unpack8(*reinterpret_cast<const uint4*>(xr + k), v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) ss = fmaf(v[e], v[e], ss);
-  }
-  ss = warp_sum(ss);
-  if (lane == 0) rstd[r] = rsqrtf(ss / (float)d + eps);
-}
-
-// grid (row tiles, column tiles, K splits); with one split the tile goes
-// straight to its output, else to part[z][r][c] over the concatenated
-// columns (width ntot) for finish_kernel
-template <int BM>
-__global__ void __launch_bounds__(MMA_THREADS)
-    norm_matmul_mma(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                    const float* __restrict__ rstd,
-                    const bf16* __restrict__ w0, const bf16* __restrict__ w1,
-                    const bf16* __restrict__ w2, bf16* __restrict__ o0,
-                    bf16* __restrict__ o1, bf16* __restrict__ o2,
-                    float* __restrict__ part, int R, int d, int n0, int n1,
-                    int n2, int t0, int t1, int n_split) {
-  const int row0 = blockIdx.x * BM;
-  const ColTile<bf16> ct(blockIdx.y, t0, t1, MMA_BN, w0, w1, w2, o0, o1,
-                         o2, n0, n1, n2);
-  int k_begin, k_end;
-  split_range(d, n_split, blockIdx.z, k_begin, k_end);
-  float acc[WarpTile<BM>::MT][WarpTile<BM>::NT][4];
-  NormLoadBF16 load{x, gamma, rstd, d};
-  mma_tile<BM>(load, ct.w, R, d, ct.n, row0, ct.col0, k_begin, k_end, acc);
-
-  const int ntot = n0 + n1 + n2;
-  const int coff = blockIdx.y < t0 ? 0 : (blockIdx.y < t0 + t1 ? n0
-                                                               : n0 + n1);
-#pragma unroll
-  for (int mt = 0; mt < WarpTile<BM>::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < WarpTile<BM>::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        mma_store_index<BM>(mt, nt, e, r, c);
-        r += row0;
-        c += ct.col0;
-        if (r >= R || c >= ct.n) continue;
-        if (n_split == 1)
-          ct.o[(size_t)r * ct.n + c] = __float2bfloat16(acc[mt][nt][e]);
-        else
-          part[((size_t)blockIdx.z * R + r) * ntot + coff + c] =
-              acc[mt][nt][e];
-      }
-}
-
-// sum the K splits and store each concatenated column in its output
-__global__ void finish_kernel(const float* __restrict__ part,
-                              bf16* __restrict__ o0, bf16* __restrict__ o1,
-                              bf16* __restrict__ o2, int R, int n0, int n1,
-                              int n2, int n_split) {
-  const int ntot = n0 + n1 + n2;
-  const size_t total = (size_t)R * ntot;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int z = 0; z < n_split; ++z) v += part[(size_t)z * total + i];
-    const int r = (int)(i / ntot), c = (int)(i % ntot);
-    if (c < n0)
-      o0[(size_t)r * n0 + c] = __float2bfloat16(v);
-    else if (c < n0 + n1)
-      o1[(size_t)r * n1 + (c - n0)] = __float2bfloat16(v);
-    else
-      o2[(size_t)r * n2 + (c - n0 - n1)] = __float2bfloat16(v);
   }
 }
 
 int tiles(int n, int bn) { return (n + bn - 1) / bn; }
 
-template <typename T, int BM>
-cudaError_t launch_fma(const void* x, const void* gamma, const void* w0,
-                       const void* w1, const void* w2, void* o0, void* o1,
-                       void* o2, int R, int d, int n0, int n1, int n2,
-                       int nw, float eps, cudaStream_t stream) {
-  const int t0 = tiles(n0, GEMM_BN);
-  const int t1 = nw > 1 ? tiles(n1, GEMM_BN) : 0;
-  const int t2 = nw > 2 ? tiles(n2, GEMM_BN) : 0;
-  dim3 grid((R + BM - 1) / BM, t0 + t1 + t2);
-  norm_matmul_fma<T, BM><<<grid, GEMM_THREADS, 0, stream>>>(
-      (const T*)x, (const T*)gamma, (const T*)w0, (const T*)w1,
-      (const T*)w2, (T*)o0, (T*)o1, (T*)o2, R, d, n0, n1, n2, t0, t1, eps);
-  return cudaGetLastError();
-}
-
 template <int BM>
-cudaError_t launch_mma(const void* x, const void* gamma, const void* w0,
-                       const void* w1, const void* w2, void* o0, void* o1,
-                       void* o2, float* rstd, float* part, int R, int d,
-                       int n0, int n1, int n2, int nw, int n_split, float eps,
-                       cudaStream_t stream) {
-  const int t0 = tiles(n0, MMA_BN);
-  const int t1 = nw > 1 ? tiles(n1, MMA_BN) : 0;
-  const int t2 = nw > 2 ? tiles(n2, MMA_BN) : 0;
-  if (nw < 2) n1 = 0;
-  if (nw < 3) n2 = 0;
-  row_stats_kernel<<<(R + 3) / 4, 128, 0, stream>>>((const bf16*)x, rstd,
-                                                     R, d, eps);
-  dim3 grid((R + BM - 1) / BM, t0 + t1 + t2, n_split);
-  constexpr size_t smem = mma_smem_bytes<BM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      norm_matmul_mma<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  norm_matmul_mma<BM><<<grid, MMA_THREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)gamma, rstd, (const bf16*)w0,
-      (const bf16*)w1, (const bf16*)w2, (bf16*)o0, (bf16*)o1, (bf16*)o2,
-      part, R, d, n0, n1, n2, t0, t1, n_split);
-  if (n_split > 1) {
-    const size_t total = (size_t)R * (n0 + n1 + n2);
-    const int blocks = (int)min((total + 255) / 256, (size_t)4096);
-    finish_kernel<<<blocks, 256, 0, stream>>>(part, (bf16*)o0, (bf16*)o1,
-                                              (bf16*)o2, R, n0, n1, n2,
-                                              n_split);
-  }
+cudaError_t launch_fma(const void* x, const void* gamma, const void* beta,
+                       const Weights& ws, int R, int d, int nw, float eps,
+                       int ln, cudaStream_t stream) {
+  const int t0 = tiles(ws.n[0], GEMM_BN);
+  const int t1 = nw > 1 ? tiles(ws.n[1], GEMM_BN) : 0;
+  const int t2 = nw > 2 ? tiles(ws.n[2], GEMM_BN) : 0;
+  dim3 grid((R + BM - 1) / BM, t0 + t1 + t2);
+  norm_matmul_fma<BM><<<grid, GEMM_THREADS, 0, stream>>>(
+      (const float*)x, (const float*)gamma, (const float*)beta, ws, R, d,
+      t0, t1, eps, ln);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// rstd: float32 scratch [R] (bfloat16 only); part: float32 scratch
-// [n_split, R, n0 + n1 + n2] when n_split > 1 (bfloat16 only; float32
-// takes n_split == 1)
+// kind: 0 = rms, 1 = ln (beta optional); w / b / o: nw weights [d, n_i],
+// biases [n_i] or null, outputs [R, n_i]. bfloat16 scratch (none for
+// float32): stats float2 [R], ws ws_cap floats, flags flag_cap int32
+// zeros (decode_gemm_sm90.cuh's plan).
 extern "C" int ptt_norm_matmul(const void* x, const void* gamma,
-                               const void* w0, const void* w1,
-                               const void* w2, void* o0, void* o1, void* o2,
-                               void* rstd, void* part, int R, int d, int n0,
-                               int n1, int n2, int nw, int n_split,
-                               float eps, int dtype, void* stream) {
-  if (nw < 1 || nw > 3 || R < 1 || d < 1 || n_split < 1)
+                               const void* beta, const void* w0,
+                               const void* w1, const void* w2, const void* b0,
+                               const void* b1, const void* b2, void* o0,
+                               void* o1, void* o2, void* stats, void* ws,
+                               void* flags, long long ws_cap,
+                               long long flag_cap, int R, int d, int n0,
+                               int n1, int n2, int nw, int kind, float eps,
+                               int dtype, void* stream) {
+  if (nw < 1 || nw > 3 || R < 1 || d < 1 || kind < 0 || kind > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const void* w[3] = {w0, w1, w2};
+  const void* b[3] = {b0, b1, b2};
+  void* o[3] = {o0, o1, o2};
+  const int n[3] = {n0, nw > 1 ? n1 : 0, nw > 2 ? n2 : 0};
   if (dtype == 0) {
-    if (n_split != 1) return (int)cudaErrorInvalidValue;
-    if (R <= 16)
-      return (int)launch_fma<float, 16>(x, gamma, w0, w1, w2, o0, o1, o2, R,
-                                        d, n0, n1, n2, nw, eps, st);
-    return (int)launch_fma<float, 64>(x, gamma, w0, w1, w2, o0, o1, o2, R,
-                                      d, n0, n1, n2, nw, eps, st);
-  }
-  if (dtype == 1) {
-    if (d % 8 || n0 % 8 || (nw > 1 && n1 % 8) || (nw > 2 && n2 % 8) ||
-        rstd == nullptr || (n_split > 1 && part == nullptr))
-      return (int)cudaErrorInvalidValue;
-    float* rs = (float*)rstd;
-    float* pp = (float*)part;
-    switch (mma_row_tile(R)) {
-      case 16:
-        return (int)launch_mma<16>(x, gamma, w0, w1, w2, o0, o1, o2, rs, pp,
-                                   R, d, n0, n1, n2, nw, n_split, eps, st);
-      case 48:
-        return (int)launch_mma<48>(x, gamma, w0, w1, w2, o0, o1, o2, rs, pp,
-                                   R, d, n0, n1, n2, nw, n_split, eps, st);
-      default:
-        return (int)launch_mma<64>(x, gamma, w0, w1, w2, o0, o1, o2, rs, pp,
-                                   R, d, n0, n1, n2, nw, n_split, eps, st);
+    Weights wt;
+    for (int i = 0; i < 3; ++i) {
+      wt.w[i] = (const float*)w[i];
+      wt.b[i] = i < nw ? (const float*)b[i] : nullptr;
+      wt.o[i] = (float*)o[i];
+      wt.n[i] = n[i];
     }
+    if (R <= 16)
+      return (int)launch_fma<16>(x, gamma, beta, wt, R, d, nw, eps, kind, st);
+    return (int)launch_fma<64>(x, gamma, beta, wt, R, d, nw, eps, kind, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || d % 8 || stats == nullptr || ws == nullptr ||
+      flags == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < nw; ++i)
+    if (n[i] < 1 || n[i] % 8) return (int)cudaErrorInvalidValue;
+  dg90::Params p = {};
+  p.R = R;
+  p.K = d;
+  p.nw = nw;
+  for (int i = 0; i < 3; ++i) {
+    p.N[i] = n[i];
+    p.out[i] = (bf16*)o[i];
+    p.bias[i] = i < nw ? (const bf16*)b[i] : nullptr;
+  }
+  p.gamma = (const bf16*)gamma;
+  p.beta = kind == 1 ? (const bf16*)beta : nullptr;
+  p.stats = (const float2*)stats;
+  p.ws = (float4*)ws;
+  p.flags = (int*)flags;
+  dg90::Plan pl;
+  cudaError_t err = dg90::plan(x, w, p, (size_t)ws_cap, (size_t)flag_cap, pl);
+  if (err != cudaSuccess) return (int)err;
+  dg90::row_stats<<<dg90::cdiv(R, 4), 128, 0, st>>>(
+      (const bf16*)x, (float2*)stats, R, d, eps, kind);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)(kind == 0 ? dg90::launch<dg90::A_RMS, false>(pl, p, st)
+                         : dg90::launch<dg90::A_LN, false>(pl, p, st));
 }

@@ -1,8 +1,11 @@
 from .deepseek_moe import (DeepseekMoeConfig, DeepseekMoeForCausalLM,
                            deepseek_moe_16b)
 from .llama import LlamaConfig, LlamaForCausalLM
+from .qwen2 import (Qwen2Config, Qwen2ForCausalLM, Qwen2Model,
+                    Qwen2PretrainingCriterion)
 from .qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "Qwen2MoeConfig",
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "Qwen2Config", "Qwen2Model",
+           "Qwen2ForCausalLM", "Qwen2PretrainingCriterion", "Qwen2MoeConfig",
            "Qwen2MoeForCausalLM", "DeepseekMoeConfig",
            "DeepseekMoeForCausalLM", "deepseek_moe_16b"]

@@ -297,27 +297,26 @@ class LlamaDecoderLayer(nn.Module):
     def forward_decode_fused(self, h, rope_cos, rope_sin, kv_cache,
                              block_tables, cache_lens, ragged_meta):
         """The fused decode tick of the reference's
-        ``_forward_decode_fused``: four fusion boundaries per layer."""
+        ``_forward_decode_fused``: four fusion boundaries per layer, each
+        projection's bias (Qwen2's q/k/v) in its kernel's epilogue."""
         attn, mlp = self.self_attn, self.mlp
-        if attn.q_proj.bias is not None:
-            raise NotImplementedError(
-                "the fused decode path with q/k/v biases (K3a's bias "
-                "epilogue) comes with the Qwen2 dense slice of the PyTorch "
-                "port; serve with ServingConfig(fused_decode=False)")
         q, k, v = _df.norm_matmul(
-            h, self.input_layernorm.weight,
+            h, self.input_layernorm.weight, None,
             [attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight],
-            self.input_layernorm._epsilon)
+            [attn.q_proj.bias, attn.k_proj.bias, attn.v_proj.bias],
+            eps=self.input_layernorm._epsilon, kind="rms")
         ctx, cache = attn.attend_ragged(q, k, v, rope_cos, rope_sin,
                                         kv_cache, block_tables, cache_lens,
                                         ragged_meta)
-        h = _df.matmul_residual([ctx], attn.o_proj.weight, None, h)
+        h = _df.matmul_residual([ctx], attn.o_proj.weight, attn.o_proj.bias,
+                                h)
         g, u = _df.norm_matmul(
-            h, self.post_attention_layernorm.weight,
+            h, self.post_attention_layernorm.weight, None,
             [mlp.gate_proj.weight, mlp.up_proj.weight],
-            self.post_attention_layernorm._epsilon)
-        out = _df.matmul_residual([g, u], mlp.down_proj.weight, None, h,
-                                  act="swiglu")
+            [mlp.gate_proj.bias, mlp.up_proj.bias],
+            eps=self.post_attention_layernorm._epsilon, kind="rms")
+        out = _df.matmul_residual([g, u], mlp.down_proj.weight,
+                                  mlp.down_proj.bias, h, act="swiglu")
         return out, cache
 
     def make_mlp(self, config, layer_idx, device, dtype):

@@ -1,60 +1,86 @@
 """K3a / K3b — the fused decode-tick kernels (``csrc/norm_matmul.cu``,
-``csrc/matmul_residual.cu``) and their plain PyTorch versions.
+``csrc/matmul_residual.cu``, both on the Hopper body of
+``csrc/decode_gemm_sm90.cuh`` in bfloat16) and their plain PyTorch
+versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/decode_fused.py``:
 
-- :func:`norm_matmul` — RMSNorm over ``[..., d]`` rows fused into 1..3
-  projections ``[d, n_i]`` that share the normalised rows (q/k/v, or the
-  MLP's gate/up). The normalised activation never reaches device memory.
+- :func:`norm_matmul` — a norm over ``[..., d]`` rows (``kind="rms"``,
+  or ``"ln"`` with an optional ``beta``) fused into 1..3 projections
+  ``[d, n_i]`` that share the normalised rows (q/k/v, or the MLP's
+  gate/up), each with an optional bias. The normalised activation never
+  reaches device memory.
 - :func:`matmul_residual` — ``residual + act(xs) @ w (+ b)`` with act
-  ``None`` (the O-projection) or ``"swiglu"`` (``silu(g) * u`` into the
-  down-projection).
+  ``None`` (the O-projection), ``"swiglu"`` (``silu(g) * u`` into the
+  down-projection) or ``"gelu_tanh"`` (GPT's second MLP linear). On the
+  card the activation runs once an element into a per-stream scratch of
+  ``[R, K]`` rows that the projection reads (kept out of the product's
+  column tiles, which would each redo it).
 
-The plain versions are op for op the unfused decoder layer (the
-reference's ``_xla_*`` recipes), so a CPU model with fusion on is
-bitwise the same model with fusion off. CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise.
+The plain versions are op for op the reference's ``_xla_norm_matmul`` /
+``_xla_matmul_residual`` (the unfused module path), so a CPU model with
+fusion on is bitwise the same model with fusion off. CPU tensors take
+the plain version; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ...incubate.nn.functional import swiglu
-from ...nn.functional import rms_norm
 from . import _build, launch_counts, no_backward
 
 __all__ = ["norm_matmul", "matmul_residual", "plain_norm_matmul",
            "plain_matmul_residual"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ACTS = {None: 0, "swiglu": 1}
+_KINDS = {"rms": 0, "ln": 1}
+_ACTS = {None: 0, "swiglu": 1, "gelu_tanh": 2}
+# the Hopper body's schedule (csrc/decode_gemm_sm90.cuh): 128-column
+# tiles, row blocks of at most MAX_MG x 64 rows, MAX_MG flags a segment,
+# and a workspace of MAX_MG x 16 x 128 float4 partials a block (one block
+# an SM at most)
+_BN, _MAX_MG = 128, 3
 _LIBS = {}
-_SMS = {}
+_SCRATCH = {}
 
 
-def plain_norm_matmul(x, gamma, ws, eps):
-    """The unfused recipe: ``rms_norm`` (float32 statistic, cast to the
-    activation dtype, then times gamma) followed by each ``y @ w``."""
-    y = rms_norm(x, gamma, eps)
-    return tuple(y @ w for w in ws)
+def plain_norm_matmul(x, gamma, beta, ws, bs, *, eps, kind):
+    """The unfused recipe of ``_xla_norm_matmul``: the norm's statistics
+    in float32, the normalised rows cast to the activation dtype BEFORE
+    the gamma multiply, then beta, then each ``y @ w (+ b)``."""
+    xf = x.float()
+    if kind == "rms":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    elif kind == "ln":
+        m = torch.mean(xf, dim=-1, keepdim=True)
+        v = torch.mean((xf - m) * (xf - m), dim=-1, keepdim=True)
+        y = ((xf - m) * torch.rsqrt(v + eps)).to(x.dtype)
+    else:
+        raise ValueError(f"kind {kind!r}: 'rms' or 'ln'")
+    y = y * gamma
+    if beta is not None:
+        y = y + beta
+    return tuple(y @ w + b if b is not None else y @ w
+                 for w, b in zip(ws, bs))
 
 
-def plain_matmul_residual(xs, w, b, residual, act=None):
-    """The unfused recipe: the activation, the projection, the bias, then
-    ``residual + y`` in the decoder layer's order."""
+def plain_matmul_residual(xs, w, b, residual, *, act=None):
+    """The unfused recipe of ``_xla_matmul_residual``: the activation,
+    the projection, the bias, then ``residual + y`` in the decoder
+    layer's order."""
     if act == "swiglu":
         xin = swiglu(xs[0], xs[1])
+    elif act == "gelu_tanh":
+        xin = F.gelu(xs[0], approximate="tanh")
     elif act is None:
         xin = xs[0]
     else:
-        raise NotImplementedError(
-            f"act {act!r}: the port takes None or 'swiglu' (gelu_tanh "
-            "comes with the GPT slice)")
-    y = xin @ w
-    if b is not None:
-        y = y + b
+        raise ValueError(f"act {act!r}: None, 'swiglu' or 'gelu_tanh'")
+    y = xin @ w + b if b is not None else xin @ w
     return residual + y
 
 
@@ -62,17 +88,59 @@ def _lib(name):
     lib = _LIBS.get(name)
     if lib is None:
         lib = _build.load(name)
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "norm_matmul":
             fn = lib.ptt_norm_matmul
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [ptr] * 15 + [i64] * 2 + [i32] * 7 \
+                + [ctypes.c_float, i32, ptr]
         else:
             fn = lib.ptt_matmul_residual
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-                + [ctypes.c_void_p]
+            fn.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 5 + [ptr]
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+class _Scratch:
+    """The bfloat16 body's scratch for one stream of one device: the
+    stream-K partials (one slot a block, one block an SM at most), the
+    segments' flags (zeros; each call leaves them zero), K3a's row
+    statistics and K3b's activated rows. Calls on one stream run one
+    after another, so they share it."""
+
+    def __init__(self, device):
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        mk = dict(device=device)
+        self.ws = torch.empty(sms * _MAX_MG * 16 * 128 * 4,
+                              dtype=torch.float32, **mk)
+        self.flags = torch.zeros(0, dtype=torch.int32, **mk)
+        self.stats = torch.empty(0, dtype=torch.float32, **mk)
+        self.rows = torch.empty(0, dtype=torch.bfloat16, **mk)
+
+    def take(self, rows, col_tiles, stats=0, act=0):
+        """Grow the flags to ``rows`` rows over ``col_tiles`` column
+        tiles, the statistics to ``stats`` floats and the activated rows
+        to ``act`` elements."""
+        n = col_tiles * -(-rows // (_MAX_MG * 64)) * _MAX_MG
+        if self.flags.numel() < n:
+            self.flags = torch.zeros(n, device=self.ws.device,
+                                     dtype=torch.int32)
+        if self.stats.numel() < stats:
+            self.stats = torch.empty(stats, device=self.ws.device,
+                                     dtype=torch.float32)
+        if self.rows.numel() < act:
+            self.rows = torch.empty(act, device=self.ws.device,
+                                    dtype=torch.bfloat16)
+        return self
+
+
+def _scratch(device, stream, rows, widths, **need):
+    """The scratch of ``stream`` (a handle) on ``device``, grown to
+    ``need`` (see :meth:`_Scratch.take`)."""
+    s = _SCRATCH.get((device, stream))
+    if s is None:
+        s = _SCRATCH[(device, stream)] = _Scratch(device)
+    return s.take(rows, sum(-(-int(n) // _BN) for n in widths), **need)
 
 
 def _check_same(ref, named):
@@ -92,44 +160,9 @@ def _check_same(ref, named):
                         "bfloat16")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _k_splits(device, dtype, rows, k, widths):
-    """K splits of the bfloat16 kernels: enough to give every SM two
-    blocks when the (row tiles x 128-column tiles) grid alone would not,
-    at most 8 and at least 512 of K per split; float32 never splits."""
-    if dtype != torch.bfloat16:
-        return 1
-    col_tiles = sum(-(-int(n) // 128) for n in widths)
-    blocks = -(-rows // _row_tile(rows)) * col_tiles
-    want = 2 * _sm_count(device)
-    if blocks >= want:
-        return 1
-    return max(1, min(-(-want // blocks), k // 512, 8))
-
-
-def _row_tile(rows):
-    """Rows of the bfloat16 kernels' block tile (``mma_row_tile`` in
-    ``csrc/mma_gemm.cuh``): 16, or 48 / 64, whichever pads less."""
-    if rows <= 16:
-        return 16
-    return 48 if -(-rows // 48) * 48 < -(-rows // 64) * 64 else 64
-
-
-def _sm_count(device):
-    n = _SMS.get(device)
-    if n is None:
-        n = _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return n
-
-
-def _check_bf16_vectors(dims, tensors):
-    """The bfloat16 tensor-core path reads 8 elements (16 bytes) at a
-    time: every inner dimension a multiple of 8, every base pointer
-    16-byte aligned."""
+def _check_bf16(dims, tensors):
+    """The bfloat16 body reads by TMA and in 16-byte vectors: every row
+    width a multiple of 8, every base pointer 16-byte aligned."""
     if any(int(n) % 8 for n in dims):
         raise ValueError(f"bfloat16 kernels need dims that are multiples "
                          f"of 8, got {tuple(int(n) for n in dims)}")
@@ -137,47 +170,62 @@ def _check_bf16_vectors(dims, tensors):
         raise ValueError("bfloat16 kernels need 16-byte aligned tensors")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _vector(name, t, n):
+    if t is not None and t.shape != (n,):
+        raise ValueError(f"{name} {tuple(t.shape)}, want ({n},)")
+
+
 @no_backward("norm_matmul (K3a)")
-def norm_matmul(x, gamma, ws, eps):
-    """Fused RMSNorm -> 1..3 projections. ``x`` ``[..., d]``, ``gamma``
-    ``[d]``, ``ws`` a list of ``[d, n_i]`` weights. Returns a tuple of
-    ``[..., n_i]``."""
+def norm_matmul(x, gamma, beta, ws, bs, *, eps, kind):
+    """Fused norm -> 1..3 projections. ``x`` ``[..., d]``, ``gamma`` and
+    ``beta`` (``kind="ln"`` only; None for none) ``[d]``, ``ws`` a list of
+    ``[d, n_i]`` weights and ``bs`` their biases ``[n_i]`` (None
+    entries allowed). Returns a tuple of ``[..., n_i]``."""
+    ws, bs = list(ws), list(bs)
+    if kind not in _KINDS:
+        raise ValueError(f"kind {kind!r}: 'rms' or 'ln'")
+    if beta is not None and kind != "ln":
+        raise ValueError("beta belongs to kind='ln'")
+    if not 1 <= len(ws) <= 3 or len(bs) != len(ws):
+        raise ValueError(f"norm_matmul takes 1..3 weights and as many "
+                         f"biases, got {len(ws)} and {len(bs)}")
     if x.device.type == "cpu":
-        return plain_norm_matmul(x, gamma, ws, eps)
+        return plain_norm_matmul(x, gamma, beta, ws, bs, eps=eps, kind=kind)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    ws = list(ws)
-    if not 1 <= len(ws) <= 3:
-        raise ValueError(f"norm_matmul takes 1..3 weights, got {len(ws)}")
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    _check_same(x2, [("x", x2), ("gamma", gamma)]
-                + [(f"w{i}", w) for i, w in enumerate(ws)])
-    if gamma.shape != (d,):
-        raise ValueError(f"gamma {tuple(gamma.shape)}, want ({d},)")
-    for i, w in enumerate(ws):
+    _check_same(x2, [("x", x2), ("gamma", gamma), ("beta", beta)]
+                + [(f"w{i}", w) for i, w in enumerate(ws)]
+                + [(f"b{i}", b) for i, b in enumerate(bs)])
+    _vector("gamma", gamma, d)
+    _vector("beta", beta, d)
+    for i, (w, b) in enumerate(zip(ws, bs)):
         if w.dim() != 2 or w.shape[0] != d:
             raise ValueError(f"w{i} {tuple(w.shape)}, want [{d}, n]")
+        _vector(f"b{i}", b, w.shape[1])
     r = x2.shape[0]
-    outs = [torch.empty(r, w.shape[1], device=x.device, dtype=x.dtype)
-            for w in ws]
-    if x.dtype == torch.bfloat16:
-        _check_bf16_vectors([d] + [w.shape[1] for w in ws],
-                            [x2, gamma, *ws])
+    widths = [w.shape[1] for w in ws]
+    outs = [torch.empty(r, n, device=x.device, dtype=x.dtype)
+            for n in widths]
     if r == 0:
         return tuple(o.reshape(*x.shape[:-1], o.shape[1]) for o in outs)
     ptr = [w.data_ptr() for w in ws] + [None] * (3 - len(ws))
+    bptr = [_ptr(b) for b in bs] + [None] * (3 - len(ws))
     optr = [o.data_ptr() for o in outs] + [None] * (3 - len(ws))
-    ns = [w.shape[1] for w in ws] + [0] * (3 - len(ws))
-    splits = _k_splits(x.device, x.dtype, r, d, ns)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    rstd = torch.empty(r, **f32) if x.dtype == torch.bfloat16 else None
-    part = torch.empty(splits * r * sum(ns), **f32) if splits > 1 else None
+    ns = widths + [0] * (3 - len(ws))
+    sc, stream = None, torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        _check_bf16([d] + widths, [x2, gamma, beta, *ws, *bs])
+        sc = _scratch(x.device, stream, r, widths, stats=2 * r)
     rc = _lib("norm_matmul").ptt_norm_matmul(
-        x2.data_ptr(), gamma.data_ptr(), *ptr, *optr,
-        rstd.data_ptr() if rstd is not None else None,
-        part.data_ptr() if part is not None else None, r, d, *ns, len(ws),
-        splits, float(eps), _DTYPES[x.dtype], _stream(x))
+        x2.data_ptr(), gamma.data_ptr(), _ptr(beta), *ptr, *bptr, *optr,
+        *_scratch_args(sc, "stats"), r, d, *ns, len(ws), _KINDS[kind],
+        float(eps), _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"norm_matmul kernel launch failed "
                            f"(cudaError {rc})")
@@ -185,17 +233,30 @@ def norm_matmul(x, gamma, ws, eps):
     return tuple(o.reshape(*x.shape[:-1], o.shape[1]) for o in outs)
 
 
+def _scratch_args(sc, first):
+    """The bfloat16 body's scratch (nulls for float32): the pointers of
+    ``first`` (``"stats"``, K3a's, or ``"rows"``, K3b's), the partials
+    and the flags, then the capacities (the rows' first)."""
+    rows = first == "rows"
+    if sc is None:
+        return [None] * 3 + [0] * (3 if rows else 2)
+    head = getattr(sc, first)
+    caps = [sc.ws.numel(), sc.flags.numel()]
+    return [head.data_ptr(), sc.ws.data_ptr(), sc.flags.data_ptr()] + (
+        [head.numel()] + caps if rows else caps)
+
+
 @no_backward("matmul_residual (K3b)")
-def matmul_residual(xs, w, b, residual, act=None):
+def matmul_residual(xs, w, b, residual, *, act=None):
     """Fused ``residual + act(xs) @ w (+ b)``; ``xs`` holds one input
-    ``[..., K]`` (act None) or two (act ``"swiglu"``: gate, up)."""
+    ``[..., K]`` (act None or ``"gelu_tanh"``) or two (act ``"swiglu"``:
+    gate, up)."""
     if act not in _ACTS:
-        raise NotImplementedError(
-            f"act {act!r}: the port takes None or 'swiglu'")
+        raise ValueError(f"act {act!r}: None, 'swiglu' or 'gelu_tanh'")
     xs = list(xs)
-    if len(xs) != (2 if act == "swiglu" else 1):
-        raise ValueError(f"act {act!r} takes {2 if act else 1} inputs, "
-                         f"got {len(xs)}")
+    want = 2 if act == "swiglu" else 1
+    if len(xs) != want:
+        raise ValueError(f"act {act!r} takes {want} inputs, got {len(xs)}")
     if residual.device.type == "cpu":
         return plain_matmul_residual(xs, w, b, residual, act=act)
     if residual.device.type != "cuda":
@@ -208,24 +269,22 @@ def matmul_residual(xs, w, b, residual, act=None):
                 + [("w", w), ("bias", b), ("residual", res2)])
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"w {tuple(w.shape)}, want [{k}, n]")
-    if b is not None and b.shape != (n,):
-        raise ValueError(f"bias {tuple(b.shape)}, want ({n},)")
+    _vector("bias", b, n)
     r = res2.shape[0]
     if any(x.shape[0] != r for x in x2):
         raise ValueError("inputs and residual must have the same rows")
     out = torch.empty_like(res2)
-    if res2.dtype == torch.bfloat16:
-        _check_bf16_vectors([k, n], [*x2, w, res2])
     if r == 0:
         return out.reshape(residual.shape)
-    splits = _k_splits(res2.device, res2.dtype, r, k, [n])
-    part = torch.empty(splits * r * n, device=res2.device,
-                       dtype=torch.float32) if splits > 1 else None
+    sc, stream = None, torch.cuda.current_stream(res2.device).cuda_stream
+    if res2.dtype == torch.bfloat16:
+        _check_bf16([k, n], [*x2, w, b, res2])
+        sc = _scratch(res2.device, stream, r, [n], act=r * k if act else 0)
     rc = _lib("matmul_residual").ptt_matmul_residual(
-        x2[0].data_ptr(), x2[1].data_ptr() if act else None, w.data_ptr(),
-        b.data_ptr() if b is not None else None, res2.data_ptr(),
-        out.data_ptr(), part.data_ptr() if part is not None else None, r, k,
-        n, _ACTS[act], splits, _DTYPES[res2.dtype], _stream(res2))
+        x2[0].data_ptr(), x2[1].data_ptr() if act == "swiglu" else None,
+        w.data_ptr(), _ptr(b), res2.data_ptr(), out.data_ptr(),
+        *_scratch_args(sc, "rows"), r, k, n, _ACTS[act],
+        _DTYPES[res2.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"matmul_residual kernel launch failed "
                            f"(cudaError {rc})")

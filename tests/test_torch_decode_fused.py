@@ -1,6 +1,8 @@
 """The PyTorch port's fused decode-tick functions (K3a norm_matmul, K3b
 matmul_residual), held against the JAX package's Pallas kernels run in
-interpret mode, plus the port's own fused == unfused pin.
+interpret mode in every mode (rms and ln with beta, per-projection
+biases, None, swiglu and gelu_tanh), plus the port's own fused ==
+unfused pin for Llama and for Qwen2's biased q/k/v.
 
 Tolerances: 1e-5 absolute in float32 against the interpreted kernels
 (the same float32 products summed in another order); the fused decoder
@@ -15,6 +17,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import decode_fused as jdf
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models.qwen2 import Qwen2Config, Qwen2ForCausalLM
 from paddle_tpu_torch.ops import paged_cache as tpc
 from paddle_tpu_torch.ops.kernels import decode_fused as df
 from paddle_tpu_torch.ops.kernels import launch_counts
@@ -37,20 +40,56 @@ def test_norm_matmul_matches_interpreted_kernel(rows, widths):
     want = jdf.pallas_norm_matmul(
         jnp.asarray(x), jnp.asarray(g), None, [jnp.asarray(w) for w in ws],
         [None] * len(ws), eps=1e-6, kind="rms", interpret=True)
-    got = df.norm_matmul(_t(x), _t(g), [_t(w) for w in ws], 1e-6)
+    got = df.norm_matmul(_t(x), _t(g), None, [_t(w) for w in ws],
+                         [None] * len(ws), eps=1e-6, kind="rms")
     assert len(got) == len(widths)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
                                    rtol=ATOL)
 
 
-@pytest.mark.parametrize("act", [None, "swiglu"])
+# kind, beta, widths, biases present: LayerNorm with beta; RMSNorm with
+# some projections biased; Qwen2's biased q/k/v (GQA widths)
+NORM_MODES = {
+    "ln_beta": ("ln", True, (128, 64), (False, False)),
+    "ln_beta_bias": ("ln", True, (192,), (True,)),
+    "mixed_bias": ("rms", False, (128, 64, 64), (True, False, True)),
+    "qwen2_qkv": ("rms", False, (128, 32, 32), (True, True, True)),
+}
+
+
+@pytest.mark.parametrize("rows", [3, 24])
+@pytest.mark.parametrize("mode", list(NORM_MODES))
+def test_norm_matmul_modes_match_interpreted_kernel(mode, rows):
+    kind, has_beta, widths, has_bias = NORM_MODES[mode]
+    rng = np.random.RandomState(rows + len(mode))
+    d = 64
+    x = (rng.randn(rows, d) + 0.5).astype(np.float32)
+    g = (1 + 0.1 * rng.randn(d)).astype(np.float32)
+    beta = (0.1 * rng.randn(d)).astype(np.float32) if has_beta else None
+    ws = [(rng.randn(d, n) / 8).astype(np.float32) for n in widths]
+    bs = [(rng.randn(n) / 4).astype(np.float32) if hb else None
+          for n, hb in zip(widths, has_bias)]
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    want = jdf.pallas_norm_matmul(
+        jnp.asarray(x), jnp.asarray(g), j(beta), [j(w) for w in ws],
+        [j(b) for b in bs], eps=1e-5, kind=kind, interpret=True)
+    t = lambda a: None if a is None else _t(a)  # noqa: E731
+    got = df.norm_matmul(_t(x), _t(g), t(beta), [_t(w) for w in ws],
+                         [t(b) for b in bs], eps=1e-5, kind=kind)
+    assert len(got) == len(widths)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=ATOL)
+
+
+@pytest.mark.parametrize("act", [None, "swiglu", "gelu_tanh"])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_matmul_residual_matches_interpreted_kernel(act, with_bias):
     rng = np.random.RandomState(3 + with_bias)
     for rows in (2, 24):
         xs = [(rng.randn(rows, 256) / 8).astype(np.float32)
-              for _ in range(2 if act else 1)]
+              for _ in range(2 if act == "swiglu" else 1)]
         w = (rng.randn(256, 128) / 8).astype(np.float32)
         b = (rng.randn(128) / 8).astype(np.float32) if with_bias else None
         res = rng.randn(rows, 128).astype(np.float32)
@@ -67,36 +106,59 @@ def test_matmul_residual_matches_interpreted_kernel(act, with_bias):
 
 def test_plain_versions_follow_the_reference_recipes():
     """The plain versions restate ``_xla_norm_matmul`` /
-    ``_xla_matmul_residual`` (same roundings, same op order)."""
+    ``_xla_matmul_residual`` (same roundings, same op order) in every
+    mode."""
     rng = np.random.RandomState(9)
     x = rng.randn(5, 64).astype(np.float32)
     g = rng.randn(64).astype(np.float32)
+    beta = rng.randn(64).astype(np.float32)
     ws = [rng.randn(64, 32).astype(np.float32) for _ in range(3)]
-    want = jdf._xla_norm_matmul(jnp.asarray(x), jnp.asarray(g), None,
-                                [jnp.asarray(w) for w in ws], [None] * 3,
-                                eps=1e-5, kind="rms")
-    got = df.plain_norm_matmul(_t(x), _t(g), [_t(w) for w in ws], 1e-5)
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
-                                   rtol=1e-5)
+    bs = [rng.randn(32).astype(np.float32), None,
+          rng.randn(32).astype(np.float32)]
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    t = lambda a: None if a is None else _t(a)  # noqa: E731
+    for kind, bt, bias in (("rms", None, [None] * 3), ("ln", beta, bs),
+                           ("ln", None, bs), ("rms", None, bs)):
+        want = jdf._xla_norm_matmul(jnp.asarray(x), jnp.asarray(g), j(bt),
+                                    [jnp.asarray(w) for w in ws],
+                                    [j(b) for b in bias], eps=1e-5,
+                                    kind=kind)
+        got = df.plain_norm_matmul(_t(x), _t(g), t(bt), [_t(w) for w in ws],
+                                   [t(b) for b in bias], eps=1e-5,
+                                   kind=kind)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                       rtol=1e-5)
     gu = [rng.randn(5, 32).astype(np.float32) for _ in range(2)]
     res = rng.randn(5, 64).astype(np.float32)
     w = rng.randn(32, 64).astype(np.float32)
-    want = jdf._xla_matmul_residual([jnp.asarray(a) for a in gu],
-                                    jnp.asarray(w), None, jnp.asarray(res),
-                                    act="swiglu")
-    got = df.plain_matmul_residual([_t(a) for a in gu], _t(w), None,
-                                   _t(res), act="swiglu")
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
-                               rtol=1e-6)
+    b = rng.randn(64).astype(np.float32)
+    for act, xs, bias in (("swiglu", gu, None), ("gelu_tanh", gu[:1], b),
+                          ("gelu_tanh", gu[:1], None), (None, gu[:1], b)):
+        want = jdf._xla_matmul_residual([jnp.asarray(a) for a in xs],
+                                        jnp.asarray(w), j(bias),
+                                        jnp.asarray(res), act=act)
+        got = df.plain_matmul_residual([_t(a) for a in xs], _t(w), t(bias),
+                                       _t(res), act=act)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-6)
 
 
 def test_unsupported_inputs_raise():
     x = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="swiglu"):
-        df.matmul_residual([x], torch.zeros(8, 8), None, x, act="gelu_tanh")
+    w = torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="gelu_tanh"):
+        df.matmul_residual([x], w, None, x, act="relu")
     with pytest.raises(ValueError, match="inputs"):
-        df.matmul_residual([x], torch.zeros(8, 8), None, x, act="swiglu")
+        df.matmul_residual([x], w, None, x, act="swiglu")
+    with pytest.raises(ValueError, match="inputs"):
+        df.matmul_residual([x, x], w, None, x, act="gelu_tanh")
+    with pytest.raises(ValueError, match="'rms' or 'ln'"):
+        df.norm_matmul(x, x[0], None, [w], [None], eps=1e-6, kind="l2")
+    with pytest.raises(ValueError, match="beta"):
+        df.norm_matmul(x, x[0], x[0], [w], [None], eps=1e-6, kind="rms")
+    with pytest.raises(ValueError, match="biases"):
+        df.norm_matmul(x, x[0], None, [w, w], [None], eps=1e-6, kind="rms")
 
 
 def _tick(model, seed):
@@ -122,14 +184,12 @@ def _tick(model, seed):
             _t(last))
 
 
-def test_fused_layer_equals_unfused_bitwise_on_cpu():
-    cfg = LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=4,
-                           kv_heads=2, ffn=256)
-    model = LlamaForCausalLM(cfg, device="cpu", seed=3)
+def _fused_equals_unfused(model):
     with torch.no_grad():        # norm weights away from 1 for coverage
         for name, p in model.named_parameters():
-            if "norm" in name:
-                p.normal_(1.0, 0.1, generator=torch.Generator().manual_seed(1))
+            if "norm" in name or name.endswith("bias"):
+                p.normal_(1.0 if "norm" in name else 0.0, 0.1,
+                          generator=torch.Generator().manual_seed(1))
     outs = {}
     for fused in (True, False):
         ids, pools, tables, base, meta, last = _tick(model, seed=5)
@@ -144,6 +204,21 @@ def test_fused_layer_equals_unfused_bitwise_on_cpu():
         assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
+def test_fused_layer_equals_unfused_bitwise_on_cpu():
+    cfg = LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=4,
+                           kv_heads=2, ffn=256)
+    _fused_equals_unfused(LlamaForCausalLM(cfg, device="cpu", seed=3))
+
+
+def test_biased_fused_layer_equals_unfused_bitwise_on_cpu():
+    """Qwen2's q/k/v biases ride K3a's epilogue on the fused path."""
+    cfg = Qwen2Config.tiny(vocab=128, hidden=256, layers=2, heads=4,
+                           kv_heads=2, ffn=256)
+    model = Qwen2ForCausalLM(cfg, device="cpu", seed=3)
+    assert model.base.layers[0].self_attn.q_proj.bias is not None
+    _fused_equals_unfused(model)
+
+
 def test_wrappers_raise_on_backward_with_grad_enabled():
     """K3a / K3b have no backward: called with gradients enabled on an
     input that requires them, the output's node raises naming the
@@ -153,7 +228,8 @@ def test_wrappers_raise_on_backward_with_grad_enabled():
     x = _t(rng.randn(3, 16).astype(np.float32)).requires_grad_()
     gamma, w = _t(rng.rand(16).astype(np.float32)), _t(
         rng.randn(16, 16).astype(np.float32))
-    calls = {"norm_matmul": lambda: df.norm_matmul(x, gamma, [w], 1e-6)[0],
+    calls = {"norm_matmul": lambda: df.norm_matmul(
+                 x, gamma, None, [w], [None], eps=1e-6, kind="rms")[0],
              "matmul_residual": lambda: df.matmul_residual([x], w, None, x)}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=name):

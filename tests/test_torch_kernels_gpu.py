@@ -173,8 +173,10 @@ def test_norm_matmul(cuda, dtype, rows):
     ws = [(0.05 * torch.randn(256, n, generator=g, device=cuda)).to(dt)
           for n in (256, 64, 96)]
     n0 = launch_counts["norm_matmul"]
-    for a, b in zip(df.norm_matmul(x, gamma, ws, 1e-6),
-                    df.plain_norm_matmul(x, gamma, ws, 1e-6)):
+    kw = dict(eps=1e-6, kind="rms")
+    for a, b in zip(df.norm_matmul(x, gamma, None, ws, [None] * 3, **kw),
+                    df.plain_norm_matmul(x, gamma, None, ws, [None] * 3,
+                                         **kw)):
         torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
     assert launch_counts["norm_matmul"] == n0 + 1
 
@@ -200,29 +202,103 @@ def test_matmul_residual(cuda, dtype, rows):
     assert launch_counts["matmul_residual"] == n0 + 4
 
 
+# Every mode of K3a / K3b at the rows of a decode tick (1, 8), the
+# prefill tick (136: three of the bf16 body's m64 row groups), and past
+# its 256-row blocks (300: two blocks of three groups; 1024: four of
+# four), over K = 320 (five 64-deep slices) and widths that end inside a
+# 128-column tile and inside its second 64-column box.
+K3_ROWS = [1, 8, 136, 300, 1024]
+NORM_MODES = {   # kind, beta, widths, biases
+    "rms": ("rms", False, (256, 64, 96), (False, False, False)),
+    "rms_bias": ("rms", False, (256, 64, 96), (True, False, True)),
+    "ln": ("ln", False, (200,), (False,)),
+    "ln_beta_bias": ("ln", True, (384, 200), (True, True)),
+}
+
+
+def _k3_inputs(seed, dt, dev, *shapes):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(*s, generator=g, device=dev).to(dt) for s in shapes]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [5, 70])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", K3_ROWS)
+@pytest.mark.parametrize("mode", list(NORM_MODES))
+def test_norm_matmul_modes(cuda, dtype, rows, mode):
+    """Each mode against its plain version, row by row; two calls give
+    the same bits (the stream-K partials are summed in order of K); the
+    launch count moves by one a call."""
+    kind, has_beta, widths, has_bias = NORM_MODES[mode]
+    dt, d = getattr(torch, dtype), 320
+    x, gamma, beta = _k3_inputs(rows, dt, cuda, (rows, d), (d,), (d,))
+    x, gamma, beta = x + 0.5, 1 + 0.1 * gamma, 0.1 * beta if has_beta \
+        else None
+    ws = [0.05 * w for w in _k3_inputs(rows + 1, dt, cuda,
+                                       *[(d, n) for n in widths])]
+    bs = [b if hb else None for b, hb in zip(
+        _k3_inputs(rows + 2, dt, cuda, *[(n,) for n in widths]), has_bias)]
+    kw = dict(eps=1e-5, kind=kind)
+    n0 = launch_counts["norm_matmul"]
+    got = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
+    again = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
+    assert launch_counts["norm_matmul"] == n0 + 2
+    for a, b, c in zip(got, df.plain_norm_matmul(x, gamma, beta, ws, bs,
+                                                 **kw), again):
+        _rows_close(a, b, dtype)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", K3_ROWS)
+@pytest.mark.parametrize("act", [None, "swiglu", "gelu_tanh"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_matmul_residual_modes(cuda, dtype, rows, act, with_bias):
+    dt, k, n = getattr(torch, dtype), 320, 200
+    gate, up, res, w, b = _k3_inputs(rows + 3, dt, cuda, (rows, k),
+                                     (rows, k), (rows, n), (k, n), (n,))
+    xs = [gate, up] if act == "swiglu" else [gate]
+    w, b = 0.05 * w, b if with_bias else None
+    n0 = launch_counts["matmul_residual"]
+    got = df.matmul_residual(xs, w, b, res, act=act)
+    again = df.matmul_residual(xs, w, b, res, act=act)
+    assert launch_counts["matmul_residual"] == n0 + 2
+    _rows_close(got, df.plain_matmul_residual(xs, w, b, res, act=act),
+                dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [5, 70, 300])
 def test_split_k_paths(cuda, rows):
-    """Narrow grids over a long K: the bfloat16 kernels split K over
-    blocks and sum float32 partials in a second kernel."""
-    g = torch.Generator(device="cuda").manual_seed(7 + rows)
+    """Few column tiles over a long K: the bfloat16 body cuts each
+    segment of 32 slices into pieces of MIN_PER = 4 slices on as many
+    blocks, and the first piece sums the others' float32 partials in
+    order of K (every mode's epilogue after it)."""
     bf = torch.bfloat16
-    x = torch.randn(rows, 2048, generator=g, device=cuda).to(bf)
-    gamma = torch.randn(2048, generator=g, device=cuda).to(bf)
-    ws = [(0.03 * torch.randn(2048, n, generator=g, device=cuda)).to(bf)
-          for n in (64, 128)]
-    assert df._k_splits(x.device, bf, rows, 2048, [64, 128]) > 1
-    for a, b in zip(df.norm_matmul(x, gamma, ws, 1e-6),
-                    df.plain_norm_matmul(x, gamma, ws, 1e-6)):
-        torch.testing.assert_close(a.float(), b.float(), **TOL["bfloat16"])
-    w = (0.03 * torch.randn(2048, 64, generator=g, device=cuda)).to(bf)
-    res = torch.randn(rows, 64, generator=g, device=cuda).to(bf)
-    bias = torch.randn(64, generator=g, device=cuda).to(bf)
-    for act, xs in ((None, [x]), ("swiglu", [x, x.flip(0).contiguous()])):
-        torch.testing.assert_close(
-            df.matmul_residual(xs, w, bias, res, act=act).float(),
-            df.plain_matmul_residual(xs, w, bias, res, act=act).float(),
-            **TOL["bfloat16"])
+    x, gamma, beta, res = _k3_inputs(7 + rows, bf, cuda, (rows, 2048),
+                                     (2048,), (2048,), (rows, 64))
+    ws = [0.03 * w for w in _k3_inputs(8 + rows, bf, cuda, (2048, 64),
+                                       (2048, 128))]
+    bias, b1 = _k3_inputs(9 + rows, bf, cuda, (64,), (128,))
+    for kind, bt in (("rms", None), ("ln", beta)):
+        kw = dict(eps=1e-6, kind=kind)
+        got = df.norm_matmul(x, gamma, bt, ws, [None, b1], **kw)
+        for a, b, c in zip(got, df.plain_norm_matmul(x, gamma, bt, ws,
+                                                     [None, b1], **kw),
+                           df.norm_matmul(x, gamma, bt, ws, [None, b1],
+                                          **kw)):
+            _rows_close(a, b, "bfloat16")
+            assert torch.equal(a, c)
+    w = 0.03 * _k3_inputs(10 + rows, bf, cuda, (2048, 64))[0]
+    for act, xs in ((None, [x]), ("swiglu", [x, x.flip(0).contiguous()]),
+                    ("gelu_tanh", [x])):
+        got = df.matmul_residual(xs, w, bias, res, act=act)
+        _rows_close(got, df.plain_matmul_residual(xs, w, bias, res,
+                                                  act=act), "bfloat16")
+        assert torch.equal(got, df.matmul_residual(xs, w, bias, res,
+                                                   act=act))
 
 
 def _attn_case(seed, B, lq, lk, H, Hkv, D, dtype, dev):
@@ -325,12 +401,30 @@ def test_flash_attention_autograd_matches_plain_path(cuda):
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 12, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
-        df.norm_matmul(x, x[0], [torch.zeros(12, 8, device=cuda,
-                                             dtype=torch.bfloat16)], 1e-6)
+        df.norm_matmul(x, x[0], None, [torch.zeros(
+            12, 8, device=cuda, dtype=torch.bfloat16)], [None], eps=1e-6,
+            kind="rms")
+    h = torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        df.matmul_residual([h], torch.zeros(16, 12, device=cuda,
+                                            dtype=torch.bfloat16), None,
+                           torch.zeros(4, 12, device=cuda,
+                                       dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="aligned"):
+        big = torch.zeros(5, 16, device=cuda, dtype=torch.bfloat16)
+        df.matmul_residual([big.reshape(-1)[4:68].reshape(4, 16)],
+                           torch.zeros(16, 16, device=cuda,
+                                       dtype=torch.bfloat16), None, h)
+    with pytest.raises(ValueError, match=r"want \(16,\)"):
+        df.matmul_residual([h], torch.zeros(16, 16, device=cuda,
+                                            dtype=torch.bfloat16),
+                           torch.zeros(8, device=cuda,
+                                       dtype=torch.bfloat16), h)
     with pytest.raises(TypeError, match="float32 or"):
-        h = torch.zeros(4, 8, device=cuda, dtype=torch.float16)
-        df.matmul_residual([h], torch.zeros(8, 8, device=cuda,
-                                            dtype=torch.float16), None, h)
+        h16 = torch.zeros(4, 8, device=cuda, dtype=torch.float16)
+        df.matmul_residual([h16], torch.zeros(8, 8, device=cuda,
+                                              dtype=torch.float16), None,
+                           h16)
     q = torch.zeros(2, 4, 96, device=cuda)
     pool = torch.zeros(3, 8, 2, 96, device=cuda)
     i32 = torch.zeros(1, dtype=torch.int32, device=cuda)

@@ -238,19 +238,25 @@ def test_moe_stats_keys_present_for_a_dense_llama():
 
 
 def test_biased_attention_refuses_the_fused_decode_path():
-    """q/k/v biases (Qwen2) run on the unfused path; the fused decode
-    path (K3a / K3b) has no bias epilogue yet and says so."""
+    """q/k/v biases (Qwen2) no longer send the engine off the fused
+    decode path: K3a carries them in its epilogue, and the fused tick
+    serves the unfused path's tokens."""
     cfg = LlamaConfig.tiny(vocab=64, hidden=64, layers=1, heads=4,
                            kv_heads=2, ffn=64)
     cfg.qkv_bias = True
     m = LlamaForCausalLM(cfg, device="cpu")
     assert m.llama.layers[0].self_attn.q_proj.bias.shape == (64,)
-    eng = ServingEngine(m, ServingConfig(**CORE, fused_decode=False),
-                        device="cpu")
-    assert len(eng.serve([[1, 2, 3]], max_new_tokens=2)[0]) == 2
-    eng = ServingEngine(m, ServingConfig(**CORE), device="cpu")
-    with pytest.raises(NotImplementedError, match="bias"):
-        eng.serve([[1, 2, 3]], max_new_tokens=2)
+    with torch.no_grad():
+        m.llama.layers[0].self_attn.q_proj.bias.normal_(
+            0.0, 0.5, generator=torch.Generator().manual_seed(2))
+    streams = {}
+    for fused in (False, True):
+        eng = ServingEngine(m, ServingConfig(**CORE, fused_decode=fused),
+                            device="cpu")
+        streams[fused] = eng.serve([[1, 2, 3]], max_new_tokens=2)
+        eng.shutdown()
+    assert len(streams[True][0]) == 2
+    np.testing.assert_array_equal(streams[True][0], streams[False][0])
 
 
 # -- training -----------------------------------------------------------

@@ -20,6 +20,7 @@ from paddle_tpu_torch.framework.place import default_device
 from paddle_tpu_torch.inference import ServingConfig, ServingEngine
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models.qwen2 import Qwen2Config, Qwen2ForCausalLM
 from paddle_tpu_torch.optimizer import AdamW
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -64,6 +65,7 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/ops/kernels/moe_gmm.py",
                  "paddle_tpu_torch/distributed/moe.py",
                  "paddle_tpu_torch/models/qwen2_moe.py",
+                 "paddle_tpu_torch/models/qwen2.py",
                  "paddle_tpu_torch/models/deepseek_moe.py",
                  "paddle_tpu_torch/ops/kernels/flashmask.py",
                  "paddle_tpu_torch/nn/functional/common.py",
@@ -93,7 +95,7 @@ def test_fresh_interpreter_import_pulls_in_no_jax():
             "paddle_tpu_torch.ops.kernels.paged_attention, "
             "paddle_tpu_torch.generation.speculative, "
             "paddle_tpu_torch.inference, paddle_tpu_torch.jit, "
-            "paddle_tpu_torch.optimizer; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.models; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -120,6 +122,9 @@ def test_entry_points_raise_without_gpu(no_gpu):
         generator(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         LlamaForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Qwen2ForCausalLM(Qwen2Config.tiny(vocab=64, hidden=64, layers=1,
+                                          heads=2, kv_heads=1, ffn=64))
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"w": np.zeros(2, np.float32)})
     model = LlamaForCausalLM(cfg, device="cpu")

@@ -8,6 +8,7 @@ Run from the root of a checkout:
 
     python3 tools/flash_variants.py OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --only moe OLD/csrc paddle_tpu_torch/csrc
+    python3 tools/flash_variants.py --only k3 OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --sweep paddle_tpu_torch/csrc
 
 Each directory's ``flash_attention_fwd``, ``flash_attention_bwd``,
@@ -24,7 +25,14 @@ scatter, gather gmm (the backward's recompute) and gmm on sorted rows
 (K5), then the backward's transposed gather (``dh``), transposed gmm on
 sorted rows (K5's d(lhs)), transposed scatter (``dx``) and tgmm for
 d(down) and d(gate_up); and the four forward modes at ``MOE_TIMED``
-(the 136-row prefill tick). Versions are timed in turns, first to last
+(the 136-row prefill tick). ``--only k3``: the fused decode-tick
+projections (``norm_matmul`` K3a into q/k/v and into gate/up,
+``matmul_residual`` K3b from the O-projection and from swiglu into the
+down-projection) at Llama-3-8B and Qwen2-7B widths and R = 8, 136 and
+512 rows, through either entry point: a tree with
+``decode_gemm_sm90.cuh`` has the Hopper body's, an older one the
+``mma.sync`` body's (K splits chosen as its wrapper chose them). Versions
+are timed in turns, first to last
 and back (A B B A), with ``chip_smoke.time_ms``; cards and neighbours
 differ between calls, so only versions timed in one run compare. Every
 version's outputs are held against the first's: equal to the bit, or
@@ -46,7 +54,11 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 FAMILIES = {"flash": ("flash_attention_fwd", "flash_attention_bwd",
                       "flashmask_fwd", "flashmask_bwd"),
-            "moe": ("moe_gmm",)}
+            "moe": ("moe_gmm",),
+            "k3": ("norm_matmul", "matmul_residual")}
+K3_ROWS = (8, 136, 512)
+K3_WIDTHS = {"llama": (4096, 1024, 14336),    # d, k / v width, ffn
+             "qwen2": (3584, 512, 18944)}
 SWEEP_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 768)
 SWEEP_BODIES = {"sm90": 1, "mma.sync": 1 << 30}
 
@@ -56,6 +68,9 @@ def kernel_name(line):
     k = re.search(r"(\w+_tma_kernel)ILi(\d+)ENS0_\d+(\w+?)EE", line)
     if k:
         return f"{k[1]}<{k[2]}, {k[3]}>"
+    k = re.search(r"dg90\d+decode_gemmILi(\d)ELi(\d)ELb(\d)E", line)
+    if k:   # row groups, prologue, rows from the pre-pass
+        return f"decode_gemm<{k[1]}, {k[2]}, {'true' if k[3] == '1' else 'false'}>"
     k = re.search(r"moe90\d+(\w+?_kernel)(?:I(\w+?)E)?E", line)
     if k:   # Lb1 / Li128: a bool / an int template argument
         args = re.findall(r"L([bi])(\d+)E", (k[2] or "") + "E")
@@ -102,10 +117,22 @@ def build(dirs, _build, sources, flags=None):
     return libs
 
 
-def bind(lib):
-    """argtypes of the entry points (see their .cu files)."""
+def bind(lib, d):
+    """argtypes of the entry points (see their .cu files of ``d``)."""
     tail = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if "norm_matmul" in lib:
+        lib["sm90"] = os.path.exists(os.path.join(d, "decode_gemm_sm90.cuh"))
+        nm, mr = lib["norm_matmul"].ptt_norm_matmul, \
+            lib["matmul_residual"].ptt_matmul_residual
+        if lib["sm90"]:
+            i64 = ctypes.c_longlong
+            nm.argtypes = [ptr] * 15 + [i64] * 2 + [i32] * 7 + \
+                [ctypes.c_float, i32, ptr]
+            mr.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 5 + [ptr]
+        else:
+            nm.argtypes = [ptr] * 10 + [i32] * 7 + [ctypes.c_float, i32, ptr]
+            mr.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     if "moe_gmm" in lib:
         g = lib["moe_gmm"]
         for fn in (g.ptt_moe_gmm, g.ptt_moe_gather_gmm_swiglu,
@@ -270,6 +297,77 @@ def moe_kernels(torch, cs, libs, rnd, P, st):
     return [kernels(lib) for lib in libs]
 
 
+def mma_splits(torch, rows, k, widths):
+    """K splits of the mma.sync body, as its wrapper chose them: enough
+    for two blocks an SM over (row tiles x 128-column tiles), at most 8
+    and at least 512 of K a split."""
+    tiles = sum(-(-n // 128) for n in widths)
+    rt = 16 if rows <= 16 else (48 if -(-rows // 48) * 48 <
+                                -(-rows // 64) * 64 else 64)
+    blocks = -(-rows // rt) * tiles
+    want = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    return 1 if blocks >= want else max(1, min(-(-want // blocks), k // 512,
+                                              8))
+
+
+def k3_kernels(torch, cs, libs, rnd, P, st):
+    """K3a and K3b at K3_WIDTHS and K3_ROWS, bf16, rms without biases
+    (what both bodies take): per version, {name: (launch, outputs)}."""
+    f32 = dict(device="cuda", dtype=torch.float32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ws = torch.empty(sms * 4 * 32 * 128 * 4, **f32)   # any body's partials
+    flags = torch.zeros(1 << 16, device="cuda", dtype=torch.int32)
+    rows = torch.empty(max(K3_ROWS) * max(w[2] for w in K3_WIDTHS.values()),
+                       device="cuda", dtype=torch.bfloat16)   # any scratch
+    cases = []
+    for model, (d, kv, ffn) in K3_WIDTHS.items():
+        gamma = 1 + 0.1 * rnd(d)
+        qkv = [0.02 * rnd(d, n) for n in (d, kv, kv)]
+        gu = [0.02 * rnd(d, ffn) for _ in range(2)]
+        wo, wd = 0.02 * rnd(d, d), 0.02 * rnd(ffn, d)
+        for r in K3_ROWS:
+            x, res, g, u = rnd(r, d), rnd(r, d), rnd(r, ffn), rnd(r, ffn)
+            for tag, w3 in (("qkv", qkv), ("gate/up", gu)):
+                cases.append((f"K3a {tag} {model} R={r}", "nm", x, gamma,
+                              w3, None, d))
+            cases.append((f"K3b o {model} R={r}", "mr", [x], res, [wo],
+                          None, d))
+            cases.append((f"K3b down {model} R={r}", "mr", [g, u], res,
+                          [wd], "swiglu", ffn))
+
+    def call(lib, kind, a, b, w, fn_act, k):
+        r = a.shape[0] if kind == "nm" else b.shape[0]
+        widths = [t.shape[1] for t in w]
+        outs = [torch.empty(r, n, device="cuda", dtype=torch.bfloat16)
+                for n in widths]
+        pw = [P(t) for t in w] + [None] * (3 - len(w))
+        po = [P(t) for t in outs] + [None] * (3 - len(w))
+        ns = widths + [0] * (3 - len(w))
+        if lib["sm90"]:   # the scratch's addresses taken as the launch runs
+            if kind == "nm":
+                return (lambda: lib["norm_matmul"].ptt_norm_matmul(
+                    P(a), P(b), None, *pw, None, None, None, *po, P(rows),
+                    P(ws), P(flags), ws.numel(), flags.numel(), r, k, *ns,
+                    len(w), 0, 1e-6, 1, st)), outs
+            return (lambda: lib["matmul_residual"].ptt_matmul_residual(
+                P(a[0]), P(a[-1]) if fn_act else None, P(w[0]), None, P(b),
+                P(outs[0]), P(rows), P(ws), P(flags), rows.numel(), ws.numel(),
+                flags.numel(), r, k, ns[0], 1 if fn_act else 0, 1, st)), outs
+        n_split = mma_splits(torch, r, k, widths)
+        part = torch.empty(n_split * r * sum(widths), **f32)
+        if kind == "nm":
+            return (lambda: lib["norm_matmul"].ptt_norm_matmul(
+                P(a), P(b), *pw, *po, P(rows), P(part), r, k, *ns, len(w),
+                n_split, 1e-6, 1, st)), outs
+        return (lambda: lib["matmul_residual"].ptt_matmul_residual(
+            P(a[0]), P(a[-1]) if fn_act else None, P(w[0]), None, P(b),
+            P(outs[0]), P(part), r, k, ns[0], 1 if fn_act else 0, n_split, 1,
+            st)), outs
+
+    return [{name: call(lib, kind, a, b, w, fn_act, k)
+             for name, kind, a, b, w, fn_act, k in cases} for lib in libs]
+
+
 def sweep(torch, cs, libs, names, rnd, P, st, fast):
     """The forward modes of each library (the two bodies) at DeepSeek
     widths over SWEEP_ROWS mean rows a group, A B B A at each size."""
@@ -330,8 +428,8 @@ def main(argv):
                  for v in SWEEP_BODIES.values()]
     libs = build(dirs, _build,
                  [n for fam in families for n in FAMILIES[fam]], flags)
-    for lib in libs:
-        bind(lib)
+    for lib, d in zip(libs, dirs):
+        bind(lib, d)
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 15)
 
     def rnd(*sh):
@@ -346,8 +444,10 @@ def main(argv):
         return 0
     runs = [{} for _ in libs]
     for fam in families:
-        per = flash_kernels(torch, cs, fm, libs, rnd, P, st) \
-            if fam == "flash" else moe_kernels(torch, cs, libs, rnd, P, st)
+        per = {"flash": lambda: flash_kernels(torch, cs, fm, libs, rnd, P,
+                                              st),
+               "moe": lambda: moe_kernels(torch, cs, libs, rnd, P, st),
+               "k3": lambda: k3_kernels(torch, cs, libs, rnd, P, st)}[fam]()
         for run, ks in zip(runs, per):
             run.update(ks)
     first = {}

@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Phase 3 of ``chip_smoke.py`` (Llama-3-8B widths, 32 layers, bf16, 10
+requests of 64..1024 prompt tokens, 32 new, 8 slots) for two checkouts
+in turns, each in a process of its own, on one GPU:
+
+    python3 tools/serving_ab.py OLD_CHECKOUT .
+
+``OLD_CHECKOUT`` is a parent's tree unpacked with ``git archive`` (it
+needs ``chip_smoke.py`` and ``paddle_tpu_torch``) under the ignored
+``build/``. Each run builds its checkout's kernels, serves the traffic
+once to warm up, once measured (tokens/s, TTFT) and profiles 4 ticks of
+a second wave (device time, idle share), all through the checkout's own
+``chip_smoke`` functions. The order is A B B A, ``--pairs`` times (the
+host's speed drifts within a call, so only neighbouring runs compare).
+"""
+import argparse
+import subprocess
+import sys
+
+RUN = r'''
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from paddle_tpu_torch.inference import ServingConfig, ServingEngine
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import _build
+_build.build_all()
+cfg = LlamaConfig.llama3_8b()
+cfg.dtype = "bfloat16"
+model = LlamaForCausalLM(cfg, device="cuda", seed=cs.SEED)
+lens, prompts = cs.serving_prompts(cfg.vocab_size, cs.REQUESTS, cs.SEED)
+for tag in ("warm-up", "phase 3"):
+    engine = ServingEngine(model, ServingConfig(
+        num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
+        max_new_tokens=32), device="cuda")
+    cs.serve_run(torch, kernels, engine, prompts, lens, tag,
+                 cs.SERVING_KERNELS)
+    if tag == "warm-up":
+        engine.shutdown()
+cs.tick_window(torch, engine, prompts[:8], cs.TICK_WINDOW, "phase 3")
+engine.shutdown()
+'''
+
+
+def main(argv):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="A B B A rounds (default 2)")
+    ap.add_argument("old")
+    ap.add_argument("new")
+    args = ap.parse_args(argv)
+    trees = [args.old, args.new]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    for i in [0, 1, 1, 0] * args.pairs:
+        r = subprocess.run([sys.executable, "-c", RUN], cwd=trees[i],
+                           capture_output=True, text=True, timeout=900)
+        out = r.stdout + r.stderr
+        print(f"[{i}] {trees[i]} rc {r.returncode}", flush=True)
+        if r.returncode:
+            print(out[-3000:], flush=True)
+            return 1
+        for line in out.splitlines():
+            if line.startswith("phase 3") and "launches" not in line:
+                print("   ", line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
