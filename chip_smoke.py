@@ -9,30 +9,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    float32 — the serving kernels at the serving path's shapes
    (Llama-3-8B widths; K3a / K3b also at Qwen2-7B's with q/k/v biases
    and at GPT's defaults with LayerNorm + beta + bias and tanh-gelu +
-   bias, each case also row by row), the paged decode / verify kernels
-   at phase 7's (4 slots, 32 / 8 heads, D 128, tables of 37 blocks,
+   bias, each case also row by row), the ragged kernel at two ticks of 8
+   slots with contexts up to 2048 (7 decode rows + a 128-row prefill
+   chunk, and one row a slot), the paged decode / verify kernels at
+   phase 7's (4 slots, 32 / 8 heads, D 128, tables of 37 blocks,
    contexts 513..576, a window of 5) and at 8 slots with contexts up to
-   2048, the flash-attention forward / dq / dk-dv kernels at the
-   training run's shape (B 2, L 4096, 32 / 8 heads, D 128), the ragged,
-   decode and verify kernels again at the MoE families' GQA groups (16 /
-   16 and 28 / 4 heads), the MoE grouped matmuls (K4's gather + swiglu
-   and scatter modes, K5's gmm) at the DeepSeek-MoE-16B decode and
-   prefill ticks, at Qwen2-57B-A14B's widths and at edge routings, and
-   the MoE backward's modes (K4's transposed gather and scatter, K5's
-   d(lhs) and tgmm) at the phase-12 training shape (2 x 4096 tokens,
-   top-6), at Qwen2-57B widths (4096 tokens, top-8) and at the edge
-   routings, with the four forward modes (K4's gather + swiglu, scatter
-   and the recompute's gather gmm, K5's gmm) held on the same rows (the
-   Hopper body at these widths) and timed at both training shapes beside
-   their bound, ``torch._grouped_mm`` and the K4 modes' composites, and
-   the FlashMask forward / dq / dk-dv kernels (K6) at Llama-3-8B's
-   attention heads (B 1, L 4096, 32 / 8 heads, D 128) under five masks:
-   (a) 8 unequal documents, causal, (b) two bounds per query head, (c)
-   half the rows hidden everywhere (o, dq exactly 0, lse NEG_INF there),
-   (d) nothing hidden beyond causal (equal to K1 causal), (e) a
-   4000-token tail at 8 / 4 heads, D 64 — and time kernel, plain version
-   and a PyTorch library yardstick with CUDA events (K6 on mask (a),
-   against SDPA with the dense boolean mask and K1 causal);
+   2048, each also row by row and timed cold (pools copied past the L2,
+   taken in turn), the flash-attention forward / dq / dk-dv kernels at
+   the training run's shape (B 2, L 4096, 32 / 8 heads, D 128), the
+   ragged, decode and verify kernels again at the MoE families' GQA
+   groups (16 / 16 and 28 / 4 heads, timed too), the MoE grouped matmuls
+   (K4's gather + swiglu and scatter modes, K5's gmm) at the
+   DeepSeek-MoE-16B decode and prefill ticks, at Qwen2-57B-A14B's widths
+   and at edge routings, and the MoE backward's modes (K4's transposed
+   gather and scatter, K5's d(lhs) and tgmm) at the phase-12 training
+   shape (2 x 4096 tokens, top-6), at Qwen2-57B widths (4096 tokens,
+   top-8) and at the edge routings, with the four forward modes (K4's
+   gather + swiglu, scatter and the recompute's gather gmm, K5's gmm)
+   held on the same rows (the Hopper body at these widths) and timed at
+   both training shapes beside their bound, ``torch._grouped_mm`` and
+   the K4 modes' composites, and the FlashMask forward / dq / dk-dv
+   kernels (K6) at Llama-3-8B's attention heads (B 1, L 4096, 32 / 8
+   heads, D 128) under five masks: (a) 8 unequal documents, causal, (b)
+   two bounds per query head, (c) half the rows hidden everywhere (o, dq
+   exactly 0, lse NEG_INF there), (d) nothing hidden beyond causal
+   (equal to K1 causal), (e) a 4000-token tail at 8 / 4 heads, D 64 —
+   and time kernel, plain version and a PyTorch library yardstick with
+   CUDA events (K6 on mask (a), against SDPA with the dense boolean mask
+   and K1 causal);
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -170,6 +174,9 @@ ATTN = dict(B=2, L=4096, H=32, Hkv=8, D=128)   # phase 2's K1 shape
 TRAIN = dict(layers=4, batch=2, seq=4096, warm=2, timed=5, profiled=2,
              pool=4)
 PHASE6 = dict(layers=2, batch=1, seq=1024)
+# phase 2's K2r ticks: the slots' rows (contexts 65..2048); "prefill" is
+# the kernels line's
+RAGGED_TICKS = {"prefill": [1, 1, 1, 1, 1, 1, 1, 128], "decode": [1] * 8}
 # phase 2's K2d / K2v shapes. "generate" is the one phase 7 gives them:
 # 4 slots of a 512-token prompt + 64 new tokens, tables of 37 blocks (the
 # +gamma headroom), contexts 513..580 (windows included); it is timed for
@@ -293,22 +300,6 @@ def bound(nbytes, flops, dtype):
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
-def max_err(torch, got, ref, dtype, what):
-    g, r = got.float(), ref.float()
-    if not torch.isfinite(g).all():
-        raise AssertionError(f"{what}: kernel output not finite")
-    err = float((g - r).abs().max())
-    tol = TOL[dtype]
-    ok = torch.allclose(g, r, **tol)
-    log(f"  {what} [{dtype}] max_abs_err={err:.3e} "
-        f"(atol={tol['atol']}, rtol={tol['rtol']}) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{what} [{dtype}] disagrees with its plain "
-                             f"version: max_abs_err={err}")
-    return err
-
-
 def row_rel_err(got, ref):
     """Largest over rows (the last axis) of ||got - ref|| / ||ref||. A row
     whose reference norm is under a tenth of the median nonzero row's is
@@ -350,48 +341,74 @@ def held_attention(torch, got, ref, dtype, what, fails):
 # ---------------------------------------------------------------- phase 2
 
 def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8):
-    """K2r at the main path's shape: 8 slots (7 decode rows + a
-    128-row prefill chunk), D 128, BS 16, contexts up to 2048; 32 / 8
-    heads (Llama-3-8B) unless ``heads`` / ``kv_heads`` say otherwise."""
+    """K2r at the main path's shapes: 8 slots, D 128, BS 16, contexts up
+    to 2048, as two serving ticks: RAGGED_TICKS["prefill"] (7 decode rows
+    + a 128-row prefill chunk, the kernels line's) and ["decode"] (one
+    row a slot, w_max 1); 32 / 8 heads (Llama-3-8B) unless ``heads`` /
+    ``kv_heads`` say otherwise. Held elementwise and row by row; timed
+    over enough sets of pools, taken in turn, to fill twice the 50 MB L2,
+    so each call reads its K/V from device memory, as each layer of a
+    tick does. Returns the largest error and ``{tick: row}``."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(11)
     S, Hkv, rep, D, BS, MB = 8, kv_heads, heads // kv_heads, 128, 16, 128
     NB = 1 + S * MB
     base = [2047, 1500, 900, 300, 64, 1024, 1800, 512]
-    q_lens = [1, 1, 1, 1, 1, 1, 1, 128]
-    kp = torch.randn(NB, BS, Hkv, D, generator=g, device="cuda").to(dt)
-    vp = torch.randn(NB, BS, Hkv, D, generator=g, device="cuda").to(dt)
+    copy_bytes = 2 * NB * BS * Hkv * D * torch.finfo(dt).bits // 8
+    copies = max(3, -(-int(100e6) // copy_bytes)) if timing else 1
+    pools = [tuple(torch.randn(NB, BS, Hkv, D, generator=g,
+                               device="cuda").to(dt) for _ in range(2))
+             for _ in range(copies)]
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
-    R = sum(q_lens)
-    q = torch.randn(R, Hkv * rep, D, generator=g, device="cuda").to(dt)
-    starts = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
     ctx = torch.tensor([b + 1 for b in base], dtype=torch.int32,
                        device="cuda")
-    ql = torch.tensor(q_lens, dtype=torch.int32, device="cuda")
-    rs = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    w_max = max(q_lens)
-    args = (q, kp, vp, tables, ctx, ql, rs)
-    got = rpa.ragged_paged_attention(*args, w_max)
-    ref = rpa.plain_ragged_paged_attention(*args)
-    torch.cuda.synchronize()
-    err = max_err(torch, got, ref, dtype,
-                  f"ragged_paged_attention {heads}/{kv_heads} heads")
-    if not timing:
-        return err, None
-    es = kp.element_size()
-    kv_pos = sum(b + n for b, n in zip(base, q_lens))
-    nbytes = 2 * kv_pos * Hkv * D * es + 2 * q.numel() * es \
-        + 4 * (tables.numel() + 3 * S)
-    vis = sum(b + 1 + t for b, n in zip(base, q_lens) for t in range(n))
-    flops = 4 * vis * Hkv * rep * D
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    row = dict(ms=time_ms(torch, lambda: rpa.ragged_paged_attention(
-        *args, w_max)),
-        plain_ms=time_ms(torch, lambda: rpa.plain_ragged_paged_attention(
-            *args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    return err, row
+    fails, errs, rows = [], [], {}
+    for tick, q_lens in RAGGED_TICKS.items():
+        R = sum(q_lens)
+        q = torch.randn(R, Hkv * rep, D, generator=g, device="cuda").to(dt)
+        starts = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
+        ql = torch.tensor(q_lens, dtype=torch.int32, device="cuda")
+        rs = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        w_max = max(q_lens)
+        kp, vp = pools[0]
+        args = (q, kp, vp, tables, ctx, ql, rs)
+        got = rpa.ragged_paged_attention(*args, w_max)
+        ref = rpa.plain_ragged_paged_attention(*args)
+        torch.cuda.synchronize()
+        errs.append(held_attention(
+            torch, got, ref, dtype,
+            f"ragged_paged_attention {tick} tick {heads}/{kv_heads} heads",
+            fails))
+        if not timing:
+            continue
+        es = kp.element_size()
+        kv_pos = sum(b + n for b, n in zip(base, q_lens))
+        nbytes = 2 * kv_pos * Hkv * D * es + 2 * q.numel() * es \
+            + 4 * (tables.numel() + 3 * S)
+        vis = sum(b + 1 + t for b, n in zip(base, q_lens) for t in range(n))
+        b_ms, b_by = bound(nbytes, 4 * vis * Hkv * rep * D, dtype)
+        turn = iter(range(1 << 30))
+
+        def run(f, *extra):
+            kp_i, vp_i = pools[next(turn) % len(pools)]
+            return f(q, kp_i, vp_i, tables, ctx, ql, rs, *extra)
+
+        rows[tick] = dict(
+            ms=time_ms(torch, lambda: run(rpa.ragged_paged_attention,
+                                          w_max)),
+            plain_ms=time_ms(torch, lambda: run(
+                rpa.plain_ragged_paged_attention)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"  ragged_paged_attention [{dtype}] {tick} tick, "
+            f"{heads}/{kv_heads} heads, {R} rows: "
+            f"ms={rows[tick]['ms']:.4f} plain_ms="
+            f"{rows[tick]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB; {copies} pool copies)")
+    if fails:
+        raise AssertionError(f"[{dtype}] disagrees with its plain version: "
+                             f"{fails}")
+    return max(errs), rows
 
 
 def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8):
@@ -2699,6 +2716,7 @@ def main(argv=None):
     for dtype in ("float32", "bfloat16"):
         timing = dtype == "bfloat16"
         e1, r1 = check_ragged(torch, rpa, dtype, timing)
+        r1 = r1.get("prefill")
         e5, r5 = check_paged(torch, pda, dtype, timing, "generate")
         check_paged(torch, pda, dtype, timing, "long")
         e2, r2 = check_norm_matmul(torch, df, dtype, timing)
@@ -2706,8 +2724,8 @@ def main(argv=None):
         e4, r4 = check_flash(torch, F, fa, dtype, timing)
         torch.cuda.empty_cache()
         for heads, kv_heads in MOE_HEADS.values():
-            check_ragged(torch, rpa, dtype, False, heads, kv_heads)
-            check_paged(torch, pda, dtype, False, "generate", heads,
+            check_ragged(torch, rpa, dtype, timing, heads, kv_heads)
+            check_paged(torch, pda, dtype, timing, "generate", heads,
                         kv_heads)
         e6, r6 = check_moe(torch, mg, dtype, timing)
         torch.cuda.empty_cache()

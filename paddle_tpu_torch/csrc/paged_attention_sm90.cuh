@@ -1,0 +1,651 @@
+// The bf16 body of the paged attention kernels for Hopper (sm_90a),
+// included by ragged_paged_attention.cu (K2r) and
+// paged_decode_attention.cu (K2d, K2v):
+//
+//   out[row, h] = softmax(scale * q[row, h] K^T) V over the positions
+//   < ctx[s] + t of slot s's pages of the pool [NB, BS, Hkv, D] (kv head
+//   h / rep), for row t of slot s: the ragged rows of a serving tick
+//   (K2r: slot s owns rows starts[s] .. starts[s] + q_lens[s]), or a
+//   window of TW tokens a slot of q [S, TW, H, D] (K2v; K2d is TW = 1).
+//
+// Replaces: paddle_tpu/ops/pallas/paged_attention.py, _ragged_kernel
+// (call :593) and _decode_kernel (calls :439, t_q 1, and :510, t_q T),
+// floating-point pools without the tree mask.
+//
+// What bounds it on the H100: bytes. A decode row reads a page's K and V
+// (2 x BS x D x 2 bytes a kv head) for rep query heads: ~rep flops a
+// byte, far under the ~295 where the tensor cores become the limit. A
+// prefill chunk's tile of 64 query vectors does 64 flops a byte, under
+// it too, so the least time is the live K/V bytes (+ q and out) over
+// 3.35 TB/s, and the work is to keep every SM's share of those bytes in
+// flight and to read each page once per tile of query vectors.
+//
+// Design (persistent, warp-specialised; hopper.cuh's pieces):
+// - Query vectors of a kv group are packed into the M dimension of the
+//   tensor-core products: a tile is up to 64 (window row t, query head r
+//   of the group) pairs, row-major in t, so TQ = 64 / rep rows (16 at
+//   rep 4, 9 at rep 7 with one dead vector, 64 at rep 1) share each page
+//   read. A work item is (slot, kv head, tile, split of the positions).
+// - Splits: a slot whose live rows fit one tile (decode rows, verify
+//   windows) has its visible positions cut into splits of k stages, so
+//   a long context is read by many SMs at once; a slot of several tiles
+//   (a prefill chunk) is not split: its tiles x kv heads already spread
+//   it. k is the fewest stages a split for which all items fit one wave
+//   of the grid (two blocks an SM), found by every block from q_lens and
+//   ctx by bisection: the work ends after one item a block whatever the
+//   contexts, with the shortest splits that allows. Each split's
+//   (m, l, unnormalised o) goes to the caller's scratch, a record an
+//   item; the split that finishes last (an arrival counter a (slot, kv
+//   head), in the scratch, which it resets) merges them all, its own
+//   too, in split order (two calls give the same bits), a thread a
+//   (query vector, 4 columns) with four splits' loads in flight. No
+//   block waits on another; one launch a call.
+// - Schedule: persistent blocks; items are ordered slot by slot, slots
+//   by descending live rows (prefill tiles before decode splits), and
+//   dealt to the blocks in a snake (block b takes items b, 2G - 1 - b,
+//   2G + b, ...) where they exceed a wave, so a block that took a heavy
+//   item early takes a light one late. Every block derives the same list
+//   in shared memory; nothing is read on the host.
+// - A producer warp streams each item's positions in stages of 64
+//   through a ring of STAGES slots (2 at D 128, 4 at D 64: with Q, two
+//   blocks fill an SM's shared memory; at 168 registers a thread, the
+//   most that two blocks of 5 warps leave each, a consumer holds S, P
+//   and O but not Q) ("full" mbarriers completed by TMA,
+//   "empty" ones by the 4 consumer warps): for each stage, 64 / BS pages
+//   read from the slot's table row by as many lanes, each lane issuing
+//   its page's K and V as D / 64 TMA boxes (64 columns, 1 kv head, BS
+//   rows) of a 4-D map over the pool, 128-byte swizzled. A page is BS x
+//   128 bytes, a whole number of 1024-byte swizzle groups, so the pages
+//   of a stage compose into the K-major tile that wgmma reads. A page
+//   past the item's last visible position is never read: it is loaded
+//   at block coordinate NB, past the pool, which TMA fills with zeros
+//   (so V's rows there are finite zeros under a zero P). On an H100 a
+//   stage took as long with one block an SM and a six-stage ring, with
+//   two consumer warpgroups taking turns on stages, and with S issued
+//   beside the last stage's P V; it grew with the TMA boxes a stage
+//   (BS 8 slowest), so this design keeps the simplest of them.
+// - The consumer warpgroup stages the tile's Q in shared memory once an
+//   item (swizzled as TMA would put it; dead vectors zero) and for each
+//   stage: S = Q K^T by wgmma m64n64k16 (both K-major), the online softmax
+//   in registers in the log2 domain, masked only on stages that reach
+//   past the tile's first row's bound (row t's bound is min(ctx + t,
+//   MB * BS); a masked entry is exactly NEG_INF and its P exactly 0), P
+//   rounded to bf16 in registers (the TPU kernel's p.astype(v.dtype))
+//   as the A operand of O += P V by wgmma m64n{D}k16 with V read through
+//   the descriptor's transpose bit. A vector that sees no position
+//   writes 0.
+// - Host: the pool's tensor maps are kept by address and shape, the SM
+//   count and the kernel's attribute asked once a device.
+#pragma once
+
+#include <algorithm>
+#include <mutex>
+
+#include "flash_attention_fwd_sm90.cuh"
+#include "hopper.cuh"
+
+namespace ptt {
+namespace pa90 {
+// internal to each source that includes it: the host statics below (the
+// shared-memory attribute's bit, the map cache) must be per library, as
+// each library has its own copy of the kernel
+namespace {
+
+using bf16 = __nv_bfloat16;
+using fa::NEG_INF;
+
+constexpr int BN = 64;            // positions of a stage
+constexpr int MQ = 64;            // query vectors of a tile
+constexpr int THREADS = 160;      // consumer warpgroup + producer warp
+constexpr int BLOCKS_PER_SM = 2;
+constexpr int MAX_SLOTS = 512;    // slots a call (the shared slot tables)
+constexpr int ATOM_BYTES = BN * 64 * 2;   // 64 positions x 64 columns
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int D>
+struct Cfg {
+  static constexpr int NA = D / 64;                      // column atoms
+  static constexpr int Q_BYTES = NA * ATOM_BYTES;         // 64 vectors
+  static constexpr int STAGE_BYTES = 2 * NA * ATOM_BYTES;   // K then V
+  static constexpr int STAGES = 65536 / STAGE_BYTES;     // 2 at D 128
+  static constexpr size_t SMEM = 1024 + Q_BYTES +
+                                 (size_t)STAGES * STAGE_BYTES +
+                                 2 * STAGES * sizeof(uint64_t) +
+                                 sizeof(int) * (4 * MAX_SLOTS + 3);
+  static_assert(STAGES >= 2, "a ring of two stages at least");
+  static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 233472,
+                "two blocks an SM");
+};
+
+struct Params {
+  const bf16* q;
+  bf16* out;
+  const int* tables;    // [S, MB]
+  const int* ctx;       // [S]: positions row 0 of the slot sees
+  const int* qlens;     // [S] or null: every slot has TW rows
+  const int* starts;    // [S] or null: slot s's rows start at s * TW
+  float* part;          // split partials: part_items records of NV vectors
+  int* counters;        // [S * Hkv] zeros; each call leaves them zero
+  int S, H, Hkv, rep, BS, MB, NB;
+  int w_max;            // rows a slot at most (TW for K2v / K2d)
+  int TQ, NV;           // rows a tile; vectors a split partial holds
+  int part_items;       // items whose partials the scratch holds
+  float scale_log2;
+};
+
+// one work item, derived alike by the producer and the consumers
+struct Item {
+  int s, first, g, split, ns, t0, nrows, row0, ctx, lo, hi, nst;
+};
+
+// the slot's live rows, clamped to w_max
+__device__ __forceinline__ int slot_rows(const Params& p, int s) {
+  const int n = p.qlens ? p.qlens[s] : p.w_max;
+  return max(0, min(n, p.w_max));
+}
+
+// visible positions of the last of rows t < t1 of a slot (the table's
+// reach at most)
+__device__ __forceinline__ int visible(const Params& p, int ctx, int t1) {
+  return max(0, min(ctx + t1 - 1, p.MB * p.BS));
+}
+
+// splits of a slot of ql rows at k stages a split: one unless its rows
+// fit one tile
+__device__ __forceinline__ int slot_splits(const Params& p, int ql, int ctx,
+                                           int k) {
+  return ql <= p.TQ ? max(1, cdiv(cdiv(visible(p, ctx, ql), BN), k)) : 1;
+}
+
+// items of a slot: a kv head's tiles, or a one-tile slot's splits
+__device__ __forceinline__ int slot_items(const Params& p, int ql, int ctx,
+                                          int k) {
+  return ql > 0 ? p.Hkv * cdiv(ql, p.TQ) * slot_splits(p, ql, ctx, k) : 0;
+}
+
+// the items of all slots at k stages a split (warp-uniform: the lanes
+// take the slots in turn and sum)
+__device__ __forceinline__ int all_items(const Params& p, const int* s_ql,
+                                         const int* s_ctx, int k) {
+  int n = 0;
+  for (int s = threadIdx.x % 32; s < p.S; s += 32)
+    n += slot_items(p, s_ql[s], s_ctx[s], k);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    n += __shfl_xor_sync(FULL_MASK, n, off);
+  return n;
+}
+
+__device__ __forceinline__ Item item_of(const Params& p, int i,
+                                        const int* s_pre, const int* s_ord,
+                                        const int* s_ql, const int* s_ctx,
+                                        int k) {
+  int lo = 0, hi = p.S;   // the rank r with s_pre[r] <= i < s_pre[r + 1]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (s_pre[mid] <= i) lo = mid;
+    else hi = mid;
+  }
+  Item w;
+  w.s = s_ord[lo];
+  w.first = s_pre[lo];
+  const int local = i - w.first;
+  const int ql = s_ql[w.s];
+  w.ctx = s_ctx[w.s];
+  w.row0 = p.starts ? p.starts[w.s] : w.s * p.w_max;
+  w.ns = slot_splits(p, ql, w.ctx, k);
+  w.g = local % p.Hkv;
+  const int rest = local / p.Hkv;
+  w.split = rest % w.ns;
+  w.t0 = (rest / w.ns) * p.TQ;
+  const int t1 = min(w.t0 + p.TQ, ql);
+  w.nrows = t1 - w.t0;
+  const int vis = visible(p, w.ctx, t1);
+  w.lo = w.ns == 1 ? 0 : w.split * k * BN;
+  w.hi = w.ns == 1 ? vis : min(w.lo + k * BN, vis);
+  w.nst = w.hi > w.lo ? cdiv(w.hi - w.lo, BN) : 0;
+  return w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+    paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const Params p) {
+  using namespace sm90;
+  using C = Cfg<D>;
+  constexpr int NA = C::NA, STAGES = C::STAGES;
+  extern __shared__ unsigned char pa_raw[];
+  unsigned char* base = pa_raw + ((1024 - (smem_u32(pa_raw) & 1023)) & 1023);
+  unsigned char* qs = base;     // Q: [NA][64 vectors][64 columns]
+  unsigned char* ring = qs + C::Q_BYTES;   // [STAGES][K atoms, V atoms]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  int* s_ql = reinterpret_cast<int*>(empty + STAGES);   // [MAX_SLOTS]
+  int* s_ctx = s_ql + MAX_SLOTS;                        // [MAX_SLOTS]
+  int* s_ord = s_ctx + MAX_SLOTS;                       // [MAX_SLOTS]
+  int* s_pre = s_ord + MAX_SLOTS;                       // [MAX_SLOTS + 1]
+  int* s_last = s_pre + MAX_SLOTS + 1;                  // the merge flag
+  int* s_k = s_last + 1;                                // stages a split
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);   // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  // the item list: slots ranked by descending rows (ties by index), the
+  // items of each slot counted into a prefix over the ranks
+  for (int s = tid; s < p.S; s += THREADS) {
+    s_ql[s] = slot_rows(p, s);
+    s_ctx[s] = p.ctx[s];
+  }
+  __syncthreads();
+  for (int s = tid; s < p.S; s += THREADS) {
+    int r = s;
+    if (p.qlens) {
+      const int q = s_ql[s];
+      r = 0;
+      for (int u = 0; u < p.S; ++u) {
+        const int qu = s_ql[u];
+        r += qu > q || (qu == q && u < s);
+      }
+    }
+    s_ord[r] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the split: the fewest stages k a split whose items all fit one
+    // wave of the grid (and the scratch); none fit: no split
+    const int cap = min((int)gridDim.x, p.part_items);
+    int lo = 1, hi = cdiv(p.MB * p.BS, BN);
+    if (all_items(p, s_ql, s_ctx, hi) > cap) lo = hi;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (all_items(p, s_ql, s_ctx, mid) <= cap) hi = mid;
+      else lo = mid + 1;
+    }
+    const int k = lo;
+    if (lane == 0) *s_k = k;
+    int run = 0;
+    if (lane == 0) s_pre[0] = 0;
+    for (int r0 = 0; r0 < p.S; r0 += 32) {
+      const int r = r0 + lane;
+      int n = 0;
+      if (r < p.S) {
+        const int s = s_ord[r];
+        n = slot_items(p, s_ql[s], s_ctx[s], k);
+      }
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(FULL_MASK, n, off);
+        if (lane >= off) n += v;
+      }
+      if (r < p.S) s_pre[r + 1] = run + n;
+      run += __shfl_sync(FULL_MASK, n, 31);
+    }
+  }
+  __syncthreads();
+  const int total = s_pre[p.S], k_split = *s_k;
+  const int G = gridDim.x, b = blockIdx.x;
+  auto item_index = [&](int k) {   // the snake: b, 2G - 1 - b, 2G + b, ..
+    return k * G + ((k & 1) ? G - 1 - b : b);
+  };
+
+  if (warp == 4) {
+    // ------------------------------------------------------ producer
+    const int per = BN / p.BS;   // pages a stage
+    if (lane == 0) {
+      prefetch_tmap(&tk);
+      prefetch_tmap(&tv);
+    }
+    int it = 0;
+    for (int k = 0;; ++k) {
+      const int i = item_index(k);
+      if (i >= total) break;
+      const Item w = item_of(p, i, s_pre, s_ord, s_ql, s_ctx, k_split);
+      const int* trow = p.tables + (size_t)w.s * p.MB;
+      const int live = cdiv(w.hi, p.BS);   // pages holding positions < hi
+      for (int st = 0; st < w.nst; ++st, ++it) {
+        const int slot = it % STAGES;
+        mbar_wait(empty + slot, ((it / STAGES) & 1) ^ 1);
+        const int j = (w.lo + st * BN) / p.BS + lane;
+        const int page = lane < per && j < live ? trow[j] : p.NB;
+        if (lane == 0) mbar_expect_tx(full + slot, C::STAGE_BYTES);
+        __syncwarp();
+        if (lane < per) {
+          unsigned char* kd = ring + slot * C::STAGE_BYTES + lane * p.BS * 128;
+#pragma unroll
+          for (int a = 0; a < NA; ++a) {
+            tma_load_4d(kd + a * ATOM_BYTES, &tk, full + slot, a * 64, w.g,
+                        0, page);
+            tma_load_4d(kd + (NA + a) * ATOM_BYTES, &tv, full + slot, a * 64,
+                        w.g, 0, page);
+          }
+        }
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers
+    const int tig = lane % 4;
+    const int v0 = 16 * warp + lane / 4;   // this thread's vectors v0, v0 + 8
+    int it = 0;
+    for (int k = 0;; ++k) {
+      const int i = item_index(k);
+      if (i >= total) break;
+      const Item w = item_of(p, i, s_pre, s_ord, s_ql, s_ctx, k_split);
+      const int nq = w.nrows * p.rep;
+      const int mbs = p.MB * p.BS;
+      // the tile's Q into shared memory (swizzled as TMA would put it;
+      // dead vectors zero), once the last item's products are done
+      bar_sync(1, 128);
+      for (int c = tid; c < MQ * D / 8; c += 128) {
+        const int v = c / (D / 8), cc = c % (D / 8);
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (v < nq) {
+          const size_t vec = (size_t)(w.row0 + w.t0 + v / p.rep) * p.H +
+                             w.g * p.rep + v % p.rep;
+          x = *reinterpret_cast<const uint4*>(p.q + vec * D + cc * 8);
+        }
+        *reinterpret_cast<uint4*>(qs + (cc / 8) * ATOM_BYTES + v * 128 +
+                                  (((cc % 8) ^ (v % 8)) * 16)) = x;
+      }
+      fence_proxy_async();
+      bar_sync(1, 128);
+      int bound[2];   // this thread's rows' visible positions
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int v = v0 + 8 * hr;
+        bound[hr] = v < nq ? min(w.ctx + w.t0 + v / p.rep, mbs) : 0;
+      }
+      const int bmin = min(w.ctx + w.t0, mbs);   // the tile's first row's
+      float acc[D / 2];
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+      for (int st = 0; st < w.nst; ++st, ++it) {
+        const int slot = it % STAGES;
+        const unsigned char* ks = ring + slot * C::STAGE_BYTES;
+        const unsigned char* vs = ks + NA * ATOM_BYTES;
+        mbar_wait(full + slot, (it / STAGES) & 1);
+        float sc[BN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(sc,
+                   desc_sw128(qs + (kk / 4) * ATOM_BYTES + (kk % 4) * 32, 0,
+                              1024),
+                   desc_sw128(ks + (kk / 4) * ATOM_BYTES + (kk % 4) * 32, 0,
+                              1024),
+                   kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        // the online softmax of the stage's 64 columns (log2 domain)
+        const int c0 = w.lo + st * BN;
+        const bool edge = c0 + BN > bmin;
+        float alpha[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float mx = NEG_INF;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = sc[4 * j + 2 * hr + e];
+              x = !edge || c0 + 8 * j + 2 * tig + e < bound[hr]
+                      ? x * p.scale_log2
+                      : NEG_INF;
+              mx = fmaxf(mx, x);
+            }
+          const float m_new = fmaxf(m[hr], fa::quad_max(mx));
+          alpha[hr] = fa::ex2(m[hr] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = sc[4 * j + 2 * hr + e];
+              x = x == NEG_INF ? 0.f : fa::ex2(x - m_new);
+              sum += x;
+            }
+          l[hr] = alpha[hr] * l[hr] + sum;
+          m[hr] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
+        uint32_t pa[BN / 16][4];   // P as bf16 A fragments
+        fa::pack_a(pa, sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs_tb(acc, pa[kk],
+                      desc_sw128(vs + kk * 16 * 128, ATOM_BYTES, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        warp_arrive(empty + slot);
+      }
+      float lt[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) lt[hr] = fa::quad_sum(l[hr]);
+      if (w.ns == 1) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int v = v0 + 8 * hr;
+          if (v >= nq) continue;
+          const float mul = lt[hr] == 0.f ? 1.f : 1.f / lt[hr];
+          bf16* dst = p.out +
+                      ((size_t)(w.row0 + w.t0 + v / p.rep) * p.H +
+                       w.g * p.rep + v % p.rep) * D +
+                      2 * tig;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * hr] * mul,
+                                      acc[4 * j + 2 * hr + 1] * mul);
+        }
+        continue;
+      }
+      // a split: its partial, then the arrival; the last merges
+      // split j's partial: the record of item first + j * Hkv + g
+      const size_t per_split = (size_t)p.Hkv * p.NV;
+      const size_t tile0 = ((size_t)w.first + w.g) * p.NV;
+      float* part_m = p.part + (size_t)p.part_items * p.NV * D;
+      float* part_l = part_m + (size_t)p.part_items * p.NV;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int v = v0 + 8 * hr;
+        if (v >= nq) continue;
+        const size_t pv = w.split * per_split + tile0 + v;
+        float* dst = p.part + pv * D + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+        if (tig == 0) {
+          part_m[pv] = m[hr];
+          part_l[pv] = lt[hr];
+        }
+      }
+      __threadfence();
+      bar_sync(1, 128);
+      if (tid == 0) {
+        int* cnt = p.counters + (size_t)w.s * p.Hkv + w.g;
+        const bool last = atomicAdd(cnt, 1) == w.ns - 1;
+        if (last) *cnt = 0;
+        *s_last = last;
+      }
+      bar_sync(1, 128);
+      if (!*s_last) continue;
+      __threadfence();
+      // the last split merges every split's partial, its own too, in
+      // split order (two calls give the same bits): a thread a (vector,
+      // 4 columns), four splits' loads in flight
+      constexpr int CH = D / 4;
+      for (int u = tid; u < nq * CH; u += 128) {
+        const int v = u / CH, c = u % CH;
+        float mx = NEG_INF, sum = 0.f;
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int j = 0; j < w.ns; ++j) {
+          const size_t pv = j * per_split + tile0 + v;
+          const float mj = __ldcg(part_m + pv), lj = __ldcg(part_l + pv);
+          const float4 x =
+              __ldcg(reinterpret_cast<const float4*>(p.part + pv * D) + c);
+          const float m_new = fmaxf(mx, mj);
+          const float a = fa::ex2(mx - m_new), bj = fa::ex2(mj - m_new);
+          sum = sum * a + bj * lj;
+          o.x = o.x * a + bj * x.x;
+          o.y = o.y * a + bj * x.y;
+          o.z = o.z * a + bj * x.z;
+          o.w = o.w * a + bj * x.w;
+          mx = m_new;
+        }
+        const float mul = sum == 0.f ? 1.f : 1.f / sum;
+        bf16* dst = p.out +
+                    ((size_t)(w.row0 + w.t0 + v / p.rep) * p.H +
+                     w.g * p.rep + v % p.rep) * D + 4 * c;
+        uint2 pk;
+        pk.x = fa::pack_bf16(o.x * mul, o.y * mul);
+        pk.y = fa::pack_bf16(o.z * mul, o.w * mul);
+        *reinterpret_cast<uint2*>(dst) = pk;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// the current device (dev) and its SMs, asked of the runtime once a device
+inline int sm_count(int& dev) {
+  static int sms[64] = {};
+  dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 1;
+  if (dev < 64 && sms[dev] > 0) return sms[dev];
+  int n = 1;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 1;
+  if (dev < 64) sms[dev] = n;
+  return n;
+}
+
+// the 4-D map of a pool [NB, BS, Hkv, D] (dims D, Hkv, BS, NB; box 64
+// columns x 1 head x BS rows x 1 page), through a direct-mapped cache
+// keyed by address and shape: a model has a pool pair a layer, and the
+// pools stay put from tick to tick
+inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
+                            int BS, int Hkv, int D) {
+  struct Entry {
+    const void* base;
+    int NB, BS, Hkv, D;
+    CUtensorMap map;
+  };
+  static Entry cache[1024];
+  static std::mutex lock;
+  const size_t slot = (reinterpret_cast<uintptr_t>(pool) >> 8) % 1024;
+  std::lock_guard<std::mutex> hold(lock);
+  Entry& e = cache[slot];
+  if (e.base != pool || e.NB != NB || e.BS != BS || e.Hkv != Hkv ||
+      e.D != D) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
+                                (cuuint64_t)BS, (cuuint64_t)NB};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                   (cuuint64_t)Hkv * D * 2,
+                                   (cuuint64_t)BS * Hkv * D * 2};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)BS, 1};
+    const cudaError_t err = sm90::tmap_bf16(&e.map, pool, 4, dims, strides,
+                                            box);
+    if (err != cudaSuccess) {
+      e.base = nullptr;
+      return err;
+    }
+    e.base = pool;
+    e.NB = NB;
+    e.BS = BS;
+    e.Hkv = Hkv;
+    e.D = D;
+  }
+  *map = e.map;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
+                     cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tk, tv;
+  cudaError_t err = pool_map(&tk, kp, p.NB, p.BS, p.Hkv, D);
+  if (err == cudaSuccess) err = pool_map(&tv, vp, p.NB, p.BS, p.Hkv, D);
+  if (err != cudaSuccess) return err;
+  int dev;
+  const int sms = sm_count(dev);
+  static unsigned long long ready = 0;   // the attribute set, a bit a device
+  if (dev >= 64 || !(ready >> dev & 1)) {
+    err = cudaFuncSetAttribute(paged_attention_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  // a wave of blocks, fewer if the call cannot have that many items (a
+  // slot has at most a stage's items a kv head, or its tiles)
+  const long most =
+      (long)p.S * p.Hkv *
+      std::max(cdiv(p.MB * p.BS, BN), cdiv(p.w_max, p.TQ));
+  const int grid = (int)std::min<long>(most, (long)BLOCKS_PER_SM * sms);
+  paged_attention_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tk, tv, p);
+  return cudaGetLastError();
+}
+
+// the body for bf16 q / pools / out: checks what it takes and launches
+// (w_max rows a slot at most; part holds part_items x NV x (D + 2)
+// floats, NV = min(TQ, w_max) x rep: splits are taken only while every
+// item has a record, and a wave of the grid, 2 x SMs blocks, needs no
+// more)
+inline cudaError_t launch(const void* q, const void* kp, const void* vp,
+                          const int* tables, const int* ctx,
+                          const int* qlens, const int* starts, void* out,
+                          float* part, int* counters, int S, int H, int Hkv,
+                          int D, int BS, int MB, int NB, int w_max,
+                          int part_items, float scale, cudaStream_t stream) {
+  if (S < 1 || S > MAX_SLOTS || Hkv < 1 || H % Hkv != 0 ||
+      H / Hkv > MQ || (BS != 8 && BS != 16 && BS != 32) || MB < 1 ||
+      NB < 1 || w_max < 1 || part_items < 0 ||
+      (part_items > 0 && (part == nullptr || counters == nullptr)) ||
+      (D != 64 && D != 128))
+    return cudaErrorInvalidValue;
+  Params p;
+  p.q = (const bf16*)q;
+  p.out = (bf16*)out;
+  p.tables = tables;
+  p.ctx = ctx;
+  p.qlens = qlens;
+  p.starts = starts;
+  p.part = part;
+  p.counters = counters;
+  p.S = S;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.rep = H / Hkv;
+  p.BS = BS;
+  p.MB = MB;
+  p.NB = NB;
+  p.w_max = w_max;
+  p.TQ = MQ / p.rep;
+  p.NV = std::min(p.TQ, w_max) * p.rep;
+  p.part_items = part_items;
+  p.scale_log2 = scale * fa::LOG2E;
+  return D == 64 ? launch_d<64>(kp, vp, p, stream)
+                 : launch_d<128>(kp, vp, p, stream);
+}
+
+}  // namespace
+}  // namespace pa90
+}  // namespace ptt

@@ -8,42 +8,47 @@
 // pallas_paged_verify_attention (K2v, t_q = T, linear chain, without the
 // tree mask), floating-point pools.
 //
+// bfloat16 runs the Hopper body of paged_attention_sm90.cuh (K2r's, a
+// window of T rows a slot: wgmma over a TMA page ring, the split merge
+// in the same launch); float32 runs the CUDA-core body below.
+//
 // What bounds it on the H100: bytes. Each live K/V block of a slot is
 // read once per kv head; per position a query vector does 4 * D flops,
 // far below the card's ~295 flops per byte, so the least time is
 // (live K/V bytes + q + out) / 3.35 TB/s.
 //
-// Design: two kernels, decode_kernel (K2d, the window of one token fixed
-// at compile time) and verify_kernel (K2v), over one body; each has its
-// own C entry point. One thread block per (slot, kv head, split of the
-// slot's context). The block takes every query vector of its kv group
-// -- the T window tokens x the rep query heads, <= 64, staged in shared
-// memory from the [S, T, H, D] layout as it lies -- so each K/V block is
-// read once per group, as the TPU grid does. Decode has only S x Hkv
-// such groups (64 at 8 slots of Llama-3-8B, on 132 SMs), so the context
-// is cut into n_split ranges of blocks (the caller picks n_split to put
-// about 8 blocks on each SM); each split writes its unnormalised
-// (m, l, acc) to scratch and a second kernel merges the splits with the
-// online-softmax rescale (one warp per query vector, a lane per split).
-// Within a split the block walks blocks j while j * BS < lens + T - 1
-// (later blocks are never read), 32 / BS blocks a step. A step stages
-// its 32 columns of K and V in shared memory, each thread issuing all of
-// its 16-byte loads before storing any; rows are padded by four floats,
-// so lane c reads K row c in 16-byte pieces without bank conflicts.
-// Each warp owns every fourth query vector and keeps its m, l and a D/32
-// slice of acc (dims lane * D/32 ..) in float32 registers: lane c scores
-// column c, the warp reduces max and sum, and every lane accumulates its
-// slice of P @ V, reading each V row's slice in one piece. Window token
-// t sees columns < lens + t. P is rounded to the K/V dtype before P @ V
-// (the TPU kernel's p.astype(v.dtype)); the sum l and the accumulation
-// stay float32. A query vector that sees no column (l == 0) writes 0.
+// float32 design: two kernels, decode_kernel (K2d, the window of one token
+// fixed at compile time) and verify_kernel (K2v), over one body; each has
+// its own C entry point. One thread block per (slot, kv head, split of the
+// slot's context). The block takes every query vector of its kv group -- the
+// T window tokens x the rep query heads, <= 64, staged in shared memory from
+// the [S, T, H, D] layout as it lies -- so each K/V block is read once per
+// group, as the TPU grid does. Decode has only S x Hkv such groups (64 at 8
+// slots of Llama-3-8B, on 132 SMs), so the context is cut into n_split
+// ranges of blocks (the caller picks n_split to put about 8 blocks on each
+// SM); each split writes its unnormalised (m, l, acc) to scratch and a
+// second kernel merges the splits with the online-softmax rescale (one warp
+// per query vector, a lane per split). Within a split the block walks blocks
+// j while j * BS < lens + T - 1 (later blocks are never read), 32 / BS
+// blocks a step. A step stages its 32 columns of K and V in shared memory,
+// each thread issuing all of its 16-byte loads before storing any; rows are
+// padded by four floats, so lane c reads K row c in 16-byte pieces without
+// bank conflicts. Each warp owns every fourth query vector and keeps its m,
+// l and a D/32 slice of acc (dims lane * D/32 ..) in float32 registers: lane
+// c scores column c, the warp reduces max and sum, and every lane
+// accumulates its slice of P @ V, reading each V row's slice in one piece.
+// Window token t sees columns < lens + t. P is rounded to the K/V dtype
+// before P @ V (the TPU kernel's p.astype(v.dtype)); the sum l and the
+// accumulation stay float32. A query vector that sees no column (l == 0)
+// writes 0.
 //
 // Shapes: q and out [S, T, H, D]; pools [NB, BS, Hkv, D]; tables
 // [S, MB], context_lens [S] int32; H = rep * Hkv with T * rep <= 64,
-// T <= 16; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16.
-// Scratch (float32, from the caller): n_split * S * T * H * (D + 2),
-// n_split <= 16.
+// T <= 16; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16
+// (bfloat16: S <= 512). Scratch (float32, from the caller): float32
+// n_split * S * T * H * (D + 2), n_split <= 16; bfloat16 as K2r's.
 #include "common.cuh"
+#include "paged_attention_sm90.cuh"
 
 namespace {
 
@@ -59,24 +64,14 @@ constexpr int MAX_BS = 32;    // columns staged a step: 32 / BS blocks
 constexpr int MAX_SPLITS = 16;
 constexpr float MASKED = -1e30f;
 
-// 16 bytes of T held in registers -> float32: 4 floats, or 8 bfloat16
-// values (a bfloat16 is the high half of the float it widens to)
+// 16 bytes of T held in registers -> float32 (the float32 body's 4
+// floats)
 template <typename T>
 __device__ __forceinline__ void unpack16(const uint4& v, float* dst);
 template <>
 __device__ __forceinline__ void unpack16<float>(const uint4& v, float* dst) {
   dst[0] = __uint_as_float(v.x); dst[1] = __uint_as_float(v.y);
   dst[2] = __uint_as_float(v.z); dst[3] = __uint_as_float(v.w);
-}
-template <>
-__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& v,
-                                                        float* dst) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    dst[2 * e] = __uint_as_float(w[e] << 16);
-    dst[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-  }
 }
 
 // DL consecutive floats of shared memory (DL * 4-byte aligned) in one read
@@ -358,53 +353,51 @@ cudaError_t dispatch_d(bool decode, const void* q, const void* kp,
 }
 
 int run(bool decode, const void* q, const void* kp, const void* vp,
-        const void* tables, const void* ctx, void* out, void* part, int S,
-        int TW, int H, int Hkv, int D, int BS, int MB, int n_split,
-        float scale, int dtype, void* stream) {
+        const void* tables, const void* ctx, void* out, void* part,
+        void* counters, int S, int TW, int H, int Hkv, int D, int BS, int MB,
+        int NB, int n_split, float scale, int dtype, void* stream) {
   if (S < 1 || TW < 1 || TW > MAX_T || (decode && TW != 1) || Hkv < 1 ||
-      H % Hkv != 0 || TW * (H / Hkv) > MAX_Q || BS < 1 || BS > MAX_BS ||
-      MAX_BS % BS || MB < 1 || n_split < 1 || n_split > MAX_SPLITS ||
-      (n_split > 1 && part == nullptr))
+      H % Hkv != 0 || TW * (H / Hkv) > MAX_Q)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* tb = (const int*)tables;
   const int* cl = (const int*)ctx;
   float* pp = (float*)part;
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(decode, q, kp, vp, tb, cl, out, pp, S, TW, H,
-                            Hkv, D, BS, MB, n_split, scale, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(decode, q, kp, vp, tb, cl, out, pp, S,
-                                    TW, H, Hkv, D, BS, MB, n_split, scale,
-                                    st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (dtype == 1)   // the ragged body, TW rows a slot
+    return (int)pa90::launch(q, kp, vp, tb, cl, nullptr, nullptr, out, pp,
+                             (int*)counters, S, H, Hkv, D, BS, MB, NB, TW,
+                             n_split, scale, st);
+  if (dtype != 0 || BS < 1 || BS > MAX_BS || MAX_BS % BS || MB < 1 ||
+      n_split < 1 || n_split > MAX_SPLITS ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_d<float>(decode, q, kp, vp, tb, cl, out, pp, S, TW,
+                                H, Hkv, D, BS, MB, n_split, scale, st);
 }
 
 }  // namespace
 
-// K2d: q and out [S, 1, H, D] (the decode step's [S, H, D]); part:
-// float32 scratch of n_split * S * H * (D + 2) floats (unused and may be
-// null when n_split == 1)
+// K2d: q and out [S, 1, H, D] (the decode step's [S, H, D]). float32:
+// part is scratch of n_split * S * H * (D + 2) floats (unused and may be
+// null when n_split == 1), counters unused; bfloat16: as K2r's
+// (ragged_paged_attention.cu) with w_max = 1.
 extern "C" int ptt_paged_decode_attention(
     const void* q, const void* kp, const void* vp, const void* tables,
-    const void* ctx, void* out, void* part, int S, int T, int H, int Hkv,
-    int D, int BS, int MB, int n_split, float scale, int dtype,
-    void* stream) {
-  return run(true, q, kp, vp, tables, ctx, out, part, S, T, H, Hkv, D, BS,
-             MB, n_split, scale, dtype, stream);
+    const void* ctx, void* out, void* part, void* counters, int S, int T,
+    int H, int Hkv, int D, int BS, int MB, int NB, int n_split, float scale,
+    int dtype, void* stream) {
+  return run(true, q, kp, vp, tables, ctx, out, part, counters, S, T, H,
+             Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
 }
 
-// K2v: q and out [S, T, H, D], 1 <= T <= 16; part: float32 scratch of
-// n_split * S * T * H * (D + 2) floats (unused and may be null when
-// n_split == 1)
+// K2v: q and out [S, T, H, D], 1 <= T <= 16. float32: part is scratch
+// of n_split * S * T * H * (D + 2) floats (unused and may be null when
+// n_split == 1); bfloat16: as K2r's with w_max = T.
 extern "C" int ptt_paged_verify_attention(
     const void* q, const void* kp, const void* vp, const void* tables,
-    const void* ctx, void* out, void* part, int S, int T, int H, int Hkv,
-    int D, int BS, int MB, int n_split, float scale, int dtype,
-    void* stream) {
-  return run(false, q, kp, vp, tables, ctx, out, part, S, T, H, Hkv, D,
-             BS, MB, n_split, scale, dtype, stream);
+    const void* ctx, void* out, void* part, void* counters, int S, int T,
+    int H, int Hkv, int D, int BS, int MB, int NB, int n_split, float scale,
+    int dtype, void* stream) {
+  return run(false, q, kp, vp, tables, ctx, out, part, counters, S, T, H,
+             Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
 }

@@ -7,17 +7,21 @@
 // (via pallas_ragged_paged_attention), floating-point pools without the
 // tree mask.
 //
+// bfloat16 runs the Hopper body of paged_attention_sm90.cuh (wgmma over
+// a TMA page ring, the split merge in the same launch); float32 runs the
+// CUDA-core body below.
+//
 // What bounds it on the H100: bytes. Each live K/V block of a slot is
 // read once per kv head, and per read block a row does 4 * D flops per
 // position, far below the card's ~295 flops per byte; the least time is
 // (live K/V bytes + q + out) / 3.35 TB/s.
 //
-// Design: one thread block per (slot, kv head, tile of <= 16 window rows
-// of that slot, split of the slot's context). A block whose tile starts
-// at or past q_lens[s], or whose split starts past the tile's last
-// visible block, returns at once; the others read their own q_lens,
-// row_starts, context_lens and block-table row. The block takes the
-// tile's rows x the rep query heads of its kv group together (<= 64
+// float32 design: one thread block per (slot, kv head, tile of <= 16
+// window rows of that slot, split of the slot's context). A block whose
+// tile starts at or past q_lens[s], or whose split starts past the
+// tile's last visible block, returns at once; the others read their own
+// q_lens, row_starts, context_lens and block-table row. The block takes
+// the tile's rows x the rep query heads of its kv group together (<= 64
 // query vectors, staged in shared memory), so each K/V block is read
 // once per kv group and split, as the TPU grid does. It walks its
 // split's blocks j (while j * BS < lens[s] + t_last), 32 / BS blocks a
@@ -40,11 +44,13 @@
 //
 // Shapes: q and out [R, H, D]; pools [NB, BS, Hkv, D]; tables [S, MB],
 // context_lens / q_lens / row_starts [S] int32; H = rep * Hkv with
-// rep <= 64; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16.
-// Rows outside every slot's [row_starts, row_starts + q_lens) are not
-// written. Scratch (float32, from the caller): n_split * R * H * (D + 2),
-// n_split <= 32.
+// rep <= 64; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16
+// (bfloat16: S <= 512). Rows outside every slot's [row_starts,
+// row_starts + q_lens) are not written. Scratch (float32, from the
+// caller): float32 n_split * R * H * (D + 2), n_split <= 32; bfloat16
+// below.
 #include "common.cuh"
+#include "paged_attention_sm90.cuh"
 
 namespace {
 
@@ -287,33 +293,36 @@ cudaError_t dispatch_d(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// part: float32 scratch of n_split * R * H * (D + 2) floats (unused and
-// may be null when n_split == 1)
+// float32: part is scratch of n_split * R * H * (D + 2) floats (unused
+// and may be null when n_split == 1), counters unused. bfloat16: n_split
+// is the split records part holds, each NV * (D + 2) floats, NV =
+// min(64 / rep, w_max) * rep (2 x SMs records take every split the body
+// makes; 0: none), counters S * Hkv zeros, left zero.
 extern "C" int ptt_ragged_paged_attention(
     const void* q, const void* kp, const void* vp, const void* tables,
     const void* ctx, const void* qlens, const void* starts, void* out,
-    void* part, int R, int S, int H, int Hkv, int D, int BS, int MB,
-    int w_max, int n_split, float scale, int dtype, void* stream) {
-  if (S < 1 || R < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > MAX_Q ||
-      BS < 1 || BS > MAX_BS || MAX_BS % BS || w_max < 1 || n_split < 1 ||
-      n_split > MAX_SPLITS ||
-      (n_split > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
+    void* part, void* counters, int R, int S, int H, int Hkv, int D, int BS,
+    int MB, int NB, int w_max, int n_split, float scale, int dtype,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int* tb = (const int*)tables;
   const int* cl = (const int*)ctx;
   const int* qls = (const int*)qlens;
   const int* rs = (const int*)starts;
   float* pp = (float*)part;
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(q, kp, vp, tb, cl, qls, rs, out, pp, R, S, H,
-                            Hkv, D, BS, MB, w_max, n_split, scale, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(q, kp, vp, tb, cl, qls, rs, out, pp, R,
-                                    S, H, Hkv, D, BS, MB, w_max, n_split,
-                                    scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (dtype == 1) {
+    if (R < 1 || qls == nullptr || rs == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return (int)pa90::launch(q, kp, vp, tb, cl, qls, rs, out, pp,
+                             (int*)counters, S, H, Hkv, D, BS, MB, NB, w_max,
+                             n_split, scale, st);
+  }
+  if (dtype != 0 || S < 1 || R < 1 || Hkv < 1 || H % Hkv != 0 ||
+      H / Hkv > MAX_Q || BS < 1 || BS > MAX_BS || MAX_BS % BS || w_max < 1 ||
+      n_split < 1 || n_split > MAX_SPLITS ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_d<float>(q, kp, vp, tb, cl, qls, rs, out, pp, R, S,
+                                H, Hkv, D, BS, MB, w_max, n_split, scale,
+                                st);
 }

@@ -1,6 +1,7 @@
 """K2d and K2v — paged decode and speculative-verify attention: the CUDA
-kernels (``csrc/paged_decode_attention.cu``) and their plain PyTorch
-versions.
+kernels (``csrc/paged_decode_attention.cu``; bfloat16 runs K2r's Hopper
+body of ``csrc/paged_attention_sm90.cuh`` with a window of T rows a
+slot, its scratch kept as K2r's) and their plain PyTorch versions.
 
 Counterparts of ``pallas_paged_attention`` (K2d: one query token per
 slot, ``q [S, H, D]``) and ``pallas_paged_verify_attention`` (K2v: a
@@ -26,6 +27,8 @@ import torch
 
 from . import _build, launch_counts, no_backward
 from ..paged_cache import gather_dense
+from .ragged_paged_attention import (SM90_MAX_SLOTS, sm_count, sm90_scratch,
+                                     sm90_scratch_sizes)
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
            "plain_paged_decode_attention", "plain_paged_verify_attention"]
@@ -34,6 +37,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 MAX_Q = 64                # query vectors (T * rep) one block holds
 MAX_T = 16
+# float32: the context's split over SMs
 SPLIT_POSITIONS = 64      # fewest context positions worth a split
 MAX_SPLITS = 16           # the kernel's MAX_SPLITS; it refuses more
 BLOCKS_PER_SM = 8
@@ -75,7 +79,7 @@ def _lib():
         lib = _build.load("paged_decode_attention")
         for fn in (lib.ptt_paged_decode_attention,
                    lib.ptt_paged_verify_attention):
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -123,17 +127,19 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
         raise ValueError("block_tables must be [S, MB] and context_lens [S]")
     if any(x.data_ptr() % 16 for x in (q4, k_pool, v_pool)):
         raise ValueError("q and the pools must be 16-byte aligned")
+    if q4.dtype == torch.bfloat16 and s > SM90_MAX_SLOTS:
+        raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
+                         f"{SM90_MAX_SLOTS}")
 
 
 def _n_split(q4, block_tables, block_size):
-    """Context splits per (slot, kv head): about BLOCKS_PER_SM blocks on
-    each of the card's SMs (a block waits on its loads most of the time,
-    so many in flight hide that), each split at least SPLIT_POSITIONS of
-    the table's reach, at most MAX_SPLITS."""
+    """float32: context splits per (slot, kv head): about BLOCKS_PER_SM
+    blocks on each of the card's SMs (a block waits on its loads most of
+    the time, so many in flight hide that), each split at least
+    SPLIT_POSITIONS of the table's reach, at most MAX_SPLITS."""
     s, hkv = q4.shape[0], q4.shape[2]
     reach = block_tables.shape[1] * block_size
-    sms = torch.cuda.get_device_properties(q4.device).multi_processor_count
-    want = -(-BLOCKS_PER_SM * sms // max(1, s * hkv))
+    want = -(-BLOCKS_PER_SM * sm_count(q4.device) // max(1, s * hkv))
     return max(1, min(MAX_SPLITS, reach // SPLIT_POSITIONS, want))
 
 
@@ -141,22 +147,28 @@ def _launch(entry, q4, k_pool, v_pool, block_tables, context_lens,
             sm_scale):
     _check(q4, k_pool, v_pool, block_tables, context_lens)
     s, t, h, d = q4.shape
-    _, bs, hkv, _ = k_pool.shape
+    nb, bs, hkv, _ = k_pool.shape
     mb = block_tables.shape[1]
     out = torch.empty_like(q4)
     if s == 0:
         return out
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    n_split = _n_split(q4, block_tables, bs)
-    part = torch.empty(n_split * q4.numel() // d * (d + 2),
-                       device=q4.device, dtype=torch.float32) \
-        if n_split > 1 else None
     stream = torch.cuda.current_stream(q4.device).cuda_stream
+    if q4.dtype == torch.bfloat16:
+        n_split, floats, counters = sm90_scratch_sizes(
+            s, hkv, h // hkv, t, d, sm_count(q4.device))
+        part, cnt = sm90_scratch(q4.device, stream, floats, counters)
+    else:
+        n_split, cnt = _n_split(q4, block_tables, bs), None
+        part = torch.empty(n_split * q4.numel() // d * (d + 2),
+                           device=q4.device, dtype=torch.float32) \
+            if n_split > 1 else None
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     rc = getattr(_lib(), entry)(
         q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, s, t, h, hkv, d, bs,
-        mb, n_split, float(scale), _DTYPES[q4.dtype], stream)
+        ptr(part), ptr(cnt), s, t, h, hkv, d, bs, mb, nb, n_split,
+        float(scale), _DTYPES[q4.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed (cudaError {rc})")
     return out

@@ -1,5 +1,6 @@
 """K2r — ragged paged attention: the CUDA kernel
-(``csrc/ragged_paged_attention.cu``) and its plain PyTorch version.
+(``csrc/ragged_paged_attention.cu``; bfloat16 runs the Hopper body of
+``csrc/paged_attention_sm90.cuh``) and its plain PyTorch version.
 
 Counterpart of ``pallas_ragged_paged_attention`` /
 ``_xla_ragged_paged`` in ``paddle_tpu/ops/pallas/paged_attention.py``.
@@ -19,12 +20,19 @@ import torch
 
 from . import _build, launch_counts, no_backward
 
-__all__ = ["ragged_paged_attention", "plain_ragged_paged_attention"]
+__all__ = ["ragged_paged_attention", "plain_ragged_paged_attention",
+           "sm90_scratch_sizes", "sm90_scratch", "sm_count"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
-SPLIT_POSITIONS = 256     # context positions per split of a long row
+SPLIT_POSITIONS = 256     # float32: context positions per split of a row
 MAX_SPLITS = 8
+# the bfloat16 body's (csrc/paged_attention_sm90.cuh): query vectors a
+# tile, blocks an SM, slots a call
+SM90_TILE = 64
+SM90_BLOCKS_PER_SM = 2
+SM90_MAX_SLOTS = 512
+_SCRATCH = {}
 
 
 def plain_ragged_paged_attention(q, k_pool, v_pool, block_tables,
@@ -61,12 +69,45 @@ def plain_ragged_paged_attention(q, k_pool, v_pool, block_tables,
     return out
 
 
+def sm90_scratch_sizes(slots, kv_heads, rep, w_max, head_dim, sms):
+    """``(records, partial floats, counters)`` of the bfloat16 body for
+    ``slots`` slots of at most ``w_max`` rows on a card of ``sms`` SMs:
+    the body splits decode rows and windows only while every item fits
+    one wave of its grid (SM90_BLOCKS_PER_SM blocks an SM), each split
+    item's record holding (m, l, o) of a tile's ``min(SM90_TILE // rep,
+    w_max) * rep`` query vectors; one arrival counter a (slot, kv
+    head)."""
+    records = SM90_BLOCKS_PER_SM * sms
+    nv = min(SM90_TILE // rep, w_max) * rep
+    return records, records * nv * (head_dim + 2), slots * kv_heads
+
+
+def sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def sm90_scratch(device, stream, floats, counters):
+    """The bfloat16 body's scratch of ``stream`` (a handle) on
+    ``device``, grown to ``floats`` partial floats and ``counters``
+    arrival counters (zeros: every call leaves them zero). Calls on one
+    stream run one after another, so they share it."""
+    sc = _SCRATCH.get((device, stream))
+    if sc is None or sc[0].numel() < floats or sc[1].numel() < counters:
+        old = (0, 0) if sc is None else (sc[0].numel(), sc[1].numel())
+        sc = _SCRATCH[(device, stream)] = (
+            torch.empty(max(floats, old[0], 1), device=device,
+                        dtype=torch.float32),
+            torch.zeros(max(counters, old[1], 1), device=device,
+                        dtype=torch.int32))
+    return sc
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         lib = _build.load("ragged_paged_attention")
         fn = lib.ptt_ragged_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -117,6 +158,9 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
         raise ValueError("context_lens, q_lens and row_starts must be [S]")
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError("q and the pools must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and s > SM90_MAX_SLOTS:
+        raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
+                         f"{SM90_MAX_SLOTS}")
 
 
 def _n_split(block_tables, block_size):
@@ -130,9 +174,8 @@ def _n_split(block_tables, block_size):
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                            q_lens, row_starts, w_max, sm_scale=None):
     """Ragged paged attention. ``w_max`` (a host int) bounds
-    ``q_lens``: the kernel's grid covers ``ceil(w_max / TQ)`` row tiles
-    per slot. CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    ``q_lens``: the kernel attends at most ``w_max`` rows a slot. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return plain_ragged_paged_attention(
             q, k_pool, v_pool, block_tables, context_lens, q_lens,
@@ -149,16 +192,22 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     if w_max <= 0 or r == 0:
         return out
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    n_split = _n_split(block_tables, bs)
-    part = torch.empty(n_split * r * h * (d + 2), device=q.device,
-                       dtype=torch.float32) if n_split > 1 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        n_split, floats, counters = sm90_scratch_sizes(
+            s, hkv, h // hkv, w_max, d, sm_count(q.device))
+        part, cnt = sm90_scratch(q.device, stream, floats, counters)
+    else:
+        n_split, cnt = _n_split(block_tables, bs), None
+        part = torch.empty(n_split * r * h * (d + 2), device=q.device,
+                           dtype=torch.float32) if n_split > 1 else None
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = _lib().ptt_ragged_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(),
-        q_lens.data_ptr(), row_starts.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, r, s, h, hkv, d, bs,
-        mb, w_max, n_split, float(scale), _DTYPES[q.dtype], stream)
+        q_lens.data_ptr(), row_starts.data_ptr(), out.data_ptr(), ptr(part),
+        ptr(cnt), r, s, h, hkv, d, bs, mb, nb, w_max, n_split, float(scale),
+        _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed "
                            f"(cudaError {rc})")

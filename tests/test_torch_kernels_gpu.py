@@ -97,10 +97,55 @@ def test_ragged_paged_attention(cuda, dtype, block_size, head_dim, mb):
     args, starts = _ragged_case(rng, base, q_lens, 8, 2, head_dim,
                                 block_size, mb, getattr(torch, dtype), cuda)
     n0 = launch_counts["ragged_paged_attention"]
-    got = rpa.ragged_paged_attention(*args, max(q_lens)).float().cpu()
-    want = rpa.plain_ragged_paged_attention(*args).float().cpu()
+    got = rpa.ragged_paged_attention(*args, max(q_lens))
+    want = rpa.plain_ragged_paged_attention(*args)
     assert launch_counts["ragged_paged_attention"] == n0 + 1
-    torch.testing.assert_close(got, want, **TOL[dtype])
+    _rows_close(got, want, dtype)
+
+
+def _live(out, q_lens, starts):
+    """The rows of ``out`` that belong to a slot (the kernel leaves the
+    others unwritten)."""
+    return torch.cat([out[s0:s0 + n] for s0, n in zip(starts, q_lens)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+def test_ragged_paged_attention_edges(cuda, dtype, rep):
+    """A 128-row prefill chunk at context 600 (past 512: tiles of many
+    stages), a slot of no rows (every tile dead), decode rows whose
+    context ends on a page boundary and one position past it, a window
+    of 5 starting on a boundary, and a decode row at context 2000 (the
+    bfloat16 body's splits), at GQA groups 1, 4 and 7; rows held
+    elementwise and row by row."""
+    rng = np.random.RandomState(70 + rep)
+    base = [599, 300, 639, 640, 159, 1999]
+    q_lens = [128, 0, 1, 1, 5, 1]
+    args, starts = _ragged_case(rng, base, q_lens, 2 * rep, 2, 128, 16,
+                                128, getattr(torch, dtype), cuda)
+    got = rpa.ragged_paged_attention(*args, max(q_lens))
+    want = rpa.plain_ragged_paged_attention(*args)
+    _rows_close(_live(got, q_lens, starts), _live(want, q_lens, starts),
+                dtype)
+
+
+@pytest.mark.gpu
+def test_ragged_paged_attention_bf16_splits_are_deterministic(cuda):
+    """Two launches of the bfloat16 body over split decode rows give the
+    same bits (the splits are merged in split order), and leave the
+    scratch's arrival counters at zero."""
+    rng = np.random.RandomState(9)
+    base, q_lens = [2047, 1023, 100, 511], [1, 3, 1, 1]
+    args, _ = _ragged_case(rng, base, q_lens, 32, 8, 128, 16, 128,
+                           torch.bfloat16, cuda)
+    a = rpa.ragged_paged_attention(*args, max(q_lens))
+    b = rpa.ragged_paged_attention(*args, max(q_lens))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    stream = torch.cuda.current_stream().cuda_stream
+    _, counters = rpa._SCRATCH[(args[0].device, stream)]
+    assert int(counters.abs().sum()) == 0
 
 
 def _paged_case(seed, lens, T, rep, D, BS, MB, dtype, dev, Hkv=2):
@@ -122,7 +167,7 @@ def _paged_case(seed, lens, T, rep, D, BS, MB, dtype, dev, Hkv=2):
 @pytest.mark.parametrize("head_dim,block_size,mb", [
     (64, 8, 8), (128, 16, 8), (128, 32, 8), (64, 32, 64), (128, 16, 128)])
 @pytest.mark.parametrize("rep,T", [(1, 1), (4, 1), (8, 1), (1, 8), (4, 5),
-                                   (8, 8), (4, 3)])
+                                   (8, 8), (4, 3), (7, 1), (7, 5)])
 def test_paged_decode_and_verify_attention(cuda, dtype, head_dim,
                                            block_size, mb, rep, T):
     """K2v (and K2d at T = 1) against the plain versions: contexts of 1,
@@ -160,6 +205,25 @@ def test_paged_attention_empty_context_writes_zero(cuda):
                                      ctx)
     assert torch.equal(one[0], torch.zeros_like(one[0]))
     torch.testing.assert_close(one[1], want[1, 0], **TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_paged_attention_empty_context_writes_zero_bf16(cuda):
+    """The bfloat16 body as the test above: window token 0 of a slot
+    with context 0 and its decode row write 0 (the decode row reads no
+    page: its item has no stage), beside a slot whose context is split."""
+    q, kp, vp, tables, ctx = _paged_case(4, [0, 600], 3, 4, 128, 16, 40,
+                                         torch.bfloat16, cuda)
+    got = pda.paged_verify_attention(q, kp, vp, tables, ctx)
+    assert torch.equal(got[0, 0], torch.zeros_like(got[0, 0]))
+    want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx)
+    _rows_close(got[:, 1:], want[:, 1:], "bfloat16")
+    one = pda.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tables,
+                                     ctx)
+    assert torch.equal(one[0], torch.zeros_like(one[0]))
+    want1 = pda.plain_paged_decode_attention(q[:, 0].contiguous(), kp, vp,
+                                             tables, ctx)
+    _rows_close(one[1:], want1[1:], "bfloat16")
 
 
 @pytest.mark.gpu

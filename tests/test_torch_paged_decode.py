@@ -207,3 +207,32 @@ def test_wrappers_raise_on_backward_with_grad_enabled():
         pda.paged_decode_attention(q[:, 0], *rest).sum().backward()
     with torch.no_grad():
         assert pda.paged_verify_attention(q, *rest).grad_fn is None
+
+
+@pytest.mark.parametrize("T,rep", [(1, 4), (1, 7), (5, 4), (5, 7), (3, 1)])
+def test_plain_decode_and_verify_match_interpreted_kernel_bf16(T, rep):
+    """bfloat16 pools and queries (the generate() dtype): the plain K2d /
+    K2v against the interpreted kernels at atol = rtol = 2e-2 (both round
+    P and the output to bfloat16, against running and final row maxima;
+    N(0, 1) inputs differ by about one bfloat16 ulp of the output)."""
+    rng = np.random.RandomState(200 + 10 * T + rep)
+    lens = [1, 16, 2 * 16 + 3, 5 * 16 - T + 1]
+    c = _case(rng, lens, T, rep, 16)
+    bf = {k: c[k].astype(jnp.bfloat16) for k in ("q", "kp", "vp")}
+    args = (jnp.asarray(bf["kp"]), jnp.asarray(bf["vp"]),
+            *_jnp(c, "tables", "lens"))
+    tt = lambda k: _t(c[k]).to(torch.bfloat16)  # noqa: E731
+    if T == 1:
+        want = jpa.pallas_paged_attention(jnp.asarray(bf["q"][:, 0]), *args,
+                                          interpret=True)
+        got = pda.paged_decode_attention(tt("q")[:, 0], tt("kp"), tt("vp"),
+                                         _t(c["tables"]), _t(c["lens"]))
+    else:
+        want = jpa.pallas_paged_verify_attention(jnp.asarray(bf["q"]), *args,
+                                                 interpret=True)
+        got = pda.paged_verify_attention(tt("q"), tt("kp"), tt("vp"),
+                                         _t(c["tables"]), _t(c["lens"]))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               rtol=2e-2, atol=2e-2)

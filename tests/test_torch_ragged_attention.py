@@ -201,3 +201,41 @@ def test_wrapper_raises_on_backward_with_grad_enabled():
         _t(b["q_lens"]), _t(b["row_starts"]), b["w_max"])
     with pytest.raises(NotImplementedError, match="ragged_paged_attention"):
         out.sum().backward()
+
+
+@pytest.mark.parametrize("rep,block_size", [(1, 8), (4, 16), (7, 16)])
+def test_plain_ragged_matches_interpreted_kernel_bf16(rep, block_size):
+    """bfloat16 pools and rows (the serving dtype): the plain K2r against
+    the interpreted kernel at atol = rtol = 2e-2 (both round the output
+    to bfloat16, the kernel also P before P @ V; N(0, 1) inputs differ by
+    about one bfloat16 ulp of the output). A decode row, a window, a
+    multi-block chunk and a zero-row slot; GQA groups 1, 4 and 7."""
+    rng = np.random.RandomState(40 + rep)
+    b = _batch(rng, base=[5, 15, 0, 24], q_lens=[1, 3, 0, 12], H=2 * rep,
+               Hkv=2, D=64, BS=block_size, MB=6, extra_rows=2)
+    bf = {k: (b[k].astype(jnp.bfloat16) if k in ("q", "kp", "vp")
+              else b[k]) for k in b}
+    want = np.asarray(_jax_kernel(bf)).astype(np.float32)
+    got = rpa.ragged_paged_attention(
+        _t(b["q"], torch.bfloat16), _t(b["kp"], torch.bfloat16),
+        _t(b["vp"], torch.bfloat16), _t(b["tables"]), _t(b["ctx"]),
+        _t(b["q_lens"]), _t(b["row_starts"]), b["w_max"])
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    for s, rows in _live_rows(b):
+        np.testing.assert_allclose(got[rows], want[rows], rtol=2e-2,
+                                   atol=2e-2, err_msg=f"slot {s}")
+
+
+@pytest.mark.parametrize("slots,kv_heads,rep,w_max,d,sms,want", [
+    (8, 8, 4, 128, 128, 132, (264, 264 * 64 * 130, 64)),
+    (8, 8, 4, 1, 128, 132, (264, 264 * 4 * 130, 64)),
+    (4, 4, 7, 5, 128, 132, (264, 264 * 35 * 130, 16)),
+    (2, 16, 1, 300, 64, 114, (228, 228 * 64 * 66, 32)),
+    (3, 1, 64, 9, 64, 1, (2, 2 * 64 * 66, 3))])
+def test_sm90_scratch_sizes(slots, kv_heads, rep, w_max, d, sms, want):
+    """The bfloat16 body's scratch: a split record a block of one wave
+    (two blocks an SM), each (m, l, o) of min(64 // rep, w_max) * rep
+    query vectors, and an arrival counter a (slot, kv head)."""
+    assert rpa.sm90_scratch_sizes(slots, kv_heads, rep, w_max, d,
+                                  sms) == want

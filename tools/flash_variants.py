@@ -9,6 +9,7 @@ Run from the root of a checkout:
     python3 tools/flash_variants.py OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --only moe OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --only k3 OLD/csrc paddle_tpu_torch/csrc
+    python3 tools/flash_variants.py --only paged OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --sweep paddle_tpu_torch/csrc
 
 Each directory's ``flash_attention_fwd``, ``flash_attention_bwd``,
@@ -31,7 +32,17 @@ projections (``norm_matmul`` K3a into q/k/v and into gate/up,
 down-projection) at Llama-3-8B and Qwen2-7B widths and R = 8, 136 and
 512 rows, through either entry point: a tree with
 ``decode_gemm_sm90.cuh`` has the Hopper body's, an older one the
-``mma.sync`` body's (K splits chosen as its wrapper chose them). Versions
+``mma.sync`` body's (K splits chosen as its wrapper chose them). ``--only
+paged``: the paged attention kernels, cold (their pools copied past the
+50 MB L2 and taken in turn, as ``chip_smoke.py``'s phase 2 times them):
+K2r at both of phase 2's ticks (``RAGGED_TICKS``: 7 decode rows + a
+128-row chunk, and one row a slot) and its chunk alone (``PAGED_CHUNKS``),
+K2v (T 5) and K2d at phase 7's shape (``PAGED["generate"]``), and K2d at
+contexts of 64 (one stage an item: a call's fixed cost), Llama-3-8B's 32
+/ 8 heads, through either
+tree's entry points (a tree with ``paged_attention_sm90.cuh`` takes the
+Hopper body's scratch and counters; an older one its own split count, as
+its wrapper chose it). Versions
 are timed in turns, first to last
 and back (A B B A), with ``chip_smoke.time_ms``; cards and neighbours
 differ between calls, so only versions timed in one run compare. Every
@@ -51,15 +62,21 @@ import re
 import subprocess
 import sys
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 FAMILIES = {"flash": ("flash_attention_fwd", "flash_attention_bwd",
                       "flashmask_fwd", "flashmask_bwd"),
             "moe": ("moe_gmm",),
-            "k3": ("norm_matmul", "matmul_residual")}
+            "k3": ("norm_matmul", "matmul_residual"),
+            "paged": ("ragged_paged_attention", "paged_decode_attention")}
 K3_ROWS = (8, 136, 512)
 K3_WIDTHS = {"llama": (4096, 1024, 14336),    # d, k / v width, ffn
              "qwen2": (3584, 512, 18944)}
 SWEEP_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 768)
+# --only paged: the prefill chunk of phase 2's tick alone (slot 7, context
+# 513) and in slot 0 (context 2048): rows a slot
+PAGED_CHUNKS = {"chunk 513": [0] * 7 + [128], "chunk 2048": [128] + [0] * 7}
 SWEEP_BODIES = {"sm90": 1, "mma.sync": 1 << 30}
 
 
@@ -71,6 +88,9 @@ def kernel_name(line):
     k = re.search(r"dg90\d+decode_gemmILi(\d)ELi(\d)ELb(\d)E", line)
     if k:   # row groups, prologue, rows from the pre-pass
         return f"decode_gemm<{k[1]}, {k[2]}, {'true' if k[3] == '1' else 'false'}>"
+    k = re.search(r"paged_attention_kernelILi(\d+)E", line)
+    if k:   # head_dim
+        return f"paged_attention_kernel<{k[1]}>"
     k = re.search(r"moe90\d+(\w+?_kernel)(?:I(\w+?)E)?E", line)
     if k:   # Lb1 / Li128: a bool / an int template argument
         args = re.findall(r"L([bi])(\d+)E", (k[2] or "") + "E")
@@ -133,6 +153,16 @@ def bind(lib, d):
         else:
             nm.argtypes = [ptr] * 10 + [i32] * 7 + [ctypes.c_float, i32, ptr]
             mr.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    if "ragged_paged_attention" in lib:
+        lib["sm90"] = os.path.exists(
+            os.path.join(d, "paged_attention_sm90.cuh"))
+        n = 1 if lib["sm90"] else 0   # the counters and NB arguments
+        lib["ragged_paged_attention"].ptt_ragged_paged_attention.argtypes = \
+            [ptr] * (9 + n) + [i32] * (9 + n) + tail[:1] + tail[2:]
+        for fn in (lib["paged_decode_attention"].ptt_paged_decode_attention,
+                   lib["paged_decode_attention"].ptt_paged_verify_attention):
+            fn.argtypes = [ptr] * (7 + n) + [i32] * (8 + n) + tail[:1] + \
+                tail[2:]
     if "moe_gmm" in lib:
         g = lib["moe_gmm"]
         for fn in (g.ptt_moe_gmm, g.ptt_moe_gather_gmm_swiglu,
@@ -368,6 +398,108 @@ def k3_kernels(torch, cs, libs, rnd, P, st):
              for name, kind, a, b, w, fn_act, k in cases} for lib in libs]
 
 
+def paged_kernels(torch, cs, libs, rnd, P, st):
+    """K2r at phase 2's two ticks, K2v and K2d at phase 7's shape, bf16,
+    32 / 8 heads, D 128, BS 16, cold: per version, {name: (launch,
+    outputs)}. The pools are copies of one pool (so every copy gives the
+    same outputs), enough to fill twice the L2, taken in turn."""
+    H, Hkv, D, BS = 32, 8, 128, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    i32 = dict(device="cuda", dtype=torch.int32)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+
+    def pools_for(S, MB):
+        NB = 1 + S * MB
+        k, v = rnd(NB, BS, Hkv, D), rnd(NB, BS, Hkv, D)
+        copies = max(3, -(-int(100e6) // (2 * k.numel() * 2)))
+        perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+        tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
+        return [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)
+                           ], tables, NB
+
+    # the Hopper body's scratch: a split record (64 query vectors) a block
+    # (two an SM at most) and one a (slot, kv head); its counters (zeros)
+    records = 2 * sms + 8 * Hkv
+    part = torch.empty(records * 64 * (D + 2), device="cuda")
+    cnt = torch.zeros(8 * Hkv + 2, **i32)
+    cases = []
+    S, MB = 8, 128
+    pools, tables, NB = pools_for(S, MB)
+    ctx = torch.tensor([b + 1 for b in (2047, 1500, 900, 300, 64, 1024,
+                                        1800, 512)], **i32)
+    # phase 2's two ticks, and the prefill chunk alone at its context and
+    # at 2048 (a tile's stages at 64 live rows)
+    ticks = dict(cs.RAGGED_TICKS, **PAGED_CHUNKS)
+    for tick, q_lens in ticks.items():
+        R = sum(q_lens)
+        q = rnd(R, H, D)
+        starts = torch.tensor([0] + list(np.cumsum(q_lens)[:-1]), **i32)
+        cases.append((f"K2r {tick} tick", "ragged", q, pools, tables, ctx,
+                      (torch.tensor(q_lens, **i32), starts, max(q_lens)),
+                      NB))
+    c = cs.PAGED["generate"]
+    pools, tables, NB = pools_for(c["S"], c["MB"])
+    lens = torch.tensor(c["lens"], **i32)
+    for name, T in (("K2v", cs.PAGED_T), ("K2d", 1)):
+        cases.append((f"{name} generate", name, rnd(c["S"], T, H, D), pools,
+                      tables, lens, (), NB))
+    # K2d at one stage an item: a call's fixed cost
+    pools, tables, NB = pools_for(c["S"], c["MB"])
+    cases.append(("K2d one stage", "K2d", rnd(c["S"], 1, H, D), pools,
+                  tables, torch.full((c["S"],), 64, **i32), (), NB))
+
+    def call(lib, kind, q, pools, tables, ctx, extra, NB):
+        out = torch.empty_like(q)
+        turn = iter(range(1 << 30))
+        S, MB = tables.shape
+        scale = D ** -0.5
+        new = lib["sm90"]
+        reach = MB * BS
+
+        def pool():
+            return pools[next(turn) % len(pools)]
+
+        if kind == "ragged":
+            ql, starts, w_max = extra
+            fn = lib["ragged_paged_attention"].ptt_ragged_paged_attention
+            R = q.shape[0]
+            n_split = records if new else min(8, -(-reach // 256))
+            old_part = None if new else torch.empty(
+                n_split * R * H * (D + 2), device="cuda")
+
+            def go():
+                kp, vp = pool()
+                head = (P(q), P(kp), P(vp), P(tables), P(ctx), P(ql),
+                        P(starts), P(out))
+                if new:
+                    return fn(*head, P(part), P(cnt), R, S, H, Hkv, D, BS,
+                              MB, NB, w_max, n_split, scale, 1, st)
+                return fn(*head, P(old_part), R, S, H, Hkv, D, BS, MB,
+                          w_max, n_split, scale, 1, st)
+            return go, (out,)
+        m = lib["paged_decode_attention"]
+        fn = m.ptt_paged_verify_attention if kind == "K2v" else \
+            m.ptt_paged_decode_attention
+        T = q.shape[1]
+        n_split = records if new else max(1, min(
+            16, reach // 64, -(-8 * sms // (S * Hkv))))
+        old_part = None if new else torch.empty(
+            n_split * q.numel() // D * (D + 2), device="cuda")
+
+        def go():
+            kp, vp = pool()
+            head = (P(q), P(kp), P(vp), P(tables), P(ctx), P(out))
+            if new:
+                return fn(*head, P(part), P(cnt), S, T, H, Hkv, D, BS, MB,
+                          NB, n_split, scale, 1, st)
+            return fn(*head, P(old_part), S, T, H, Hkv, D, BS, MB, n_split,
+                      scale, 1, st)
+        return go, (out,)
+
+    return [{name: call(lib, *rest) for name, *rest in cases}
+            for lib in libs]
+
+
 def sweep(torch, cs, libs, names, rnd, P, st, fast):
     """The forward modes of each library (the two bodies) at DeepSeek
     widths over SWEEP_ROWS mean rows a group, A B B A at each size."""
@@ -447,7 +579,9 @@ def main(argv):
         per = {"flash": lambda: flash_kernels(torch, cs, fm, libs, rnd, P,
                                               st),
                "moe": lambda: moe_kernels(torch, cs, libs, rnd, P, st),
-               "k3": lambda: k3_kernels(torch, cs, libs, rnd, P, st)}[fam]()
+               "k3": lambda: k3_kernels(torch, cs, libs, rnd, P, st),
+               "paged": lambda: paged_kernels(torch, cs, libs, rnd, P,
+                                              st)}[fam]()
         for run, ks in zip(runs, per):
             run.update(ks)
     first = {}
