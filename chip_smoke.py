@@ -36,7 +36,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (equal to K1 causal), (e) a 4000-token tail at 8 / 4 heads, D 64 —
    and time kernel, plain version and a PyTorch library yardstick with
    CUDA events (K6 on mask (a), against SDPA with the dense boolean mask
-   and K1 causal);
+   and K1 causal); and the ragged, decode and verify kernels again on
+   int8 pools (``QuantKV``: int8 pages, a float32 scale a position and
+   kv head) at both ticks, phase 7's shape and both MoE GQA groups,
+   float32 (the FMA bodies) and bfloat16 (the Hopper body's int8 mode),
+   timed cold beside a bound of 2 x (D + 4) bytes a position-head;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -120,11 +124,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     ``scaled_dot_product_attention`` with a boolean mask and dropout
     at a small shape (undropped output vs the plain composition, the
     dropped share within 4 sigma of p, two seeded runs equal);
-16. print the kernels line, the card's name and power limit, and the
+16. int8 KV pools: phase 3's engine and traffic (Llama-3-8B, 32 layers,
+    bf16, phase 3's seeded weights) with ``kv_cache_dtype="int8"``
+    (K2r's int8 mode must launch: tokens/s, TTFT, ticks, rows a tick,
+    the idle share of 4 profiled ticks, pool bytes at most 0.55x the
+    bf16 engine's, each stream's match with phase 3's, its first
+    divergence and top-2 margin logged), ``generate()`` at phase 7's
+    shape on int8 pools, paged (K2d) and n-gram (K2v), and a 2-layer
+    float32 model at full widths on int8 pools, paged and self-drafted
+    ``generate()`` and the engine through the kernels and through their
+    plain versions (phase 4's rule);
+17. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
-11, the three runs of phase 12, phase 14, phase 15) runs with every
+11, the three runs of phase 12, phase 14, phase 15, each run of phase
+16) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -214,6 +229,13 @@ SERVING_KERNELS = ("ragged_paged_attention", "norm_matmul",
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                     "flash_attention_dkv")
 GENERATE_KERNELS = ("paged_decode_attention", "paged_verify_attention")
+# phase 16: the K2 kernels on int8 pools (their launches counted apart)
+INT8_KERNELS = ("ragged_paged_attention_int8", "paged_decode_attention_int8",
+                "paged_verify_attention_int8")
+INT8_POOL_RATIO = 0.55               # int8 pool bytes / bf16's, at most
+# phase 16, f32: the first layer's scales in two paths' pools (absmax /
+# 127 of rows that agree within float32 rounding), relative
+INT8_SCALE_RTOL = 1e-4
 # phase 2's K4 / K5 shapes: the DeepSeek-MoE-16B decode tick (8 tokens x
 # top-6) and 136-row prefill tick, and Qwen2-57B-A14B's widths; the edge
 # routings run at the decode tick's widths; the prefill tick is timed for
@@ -340,25 +362,45 @@ def held_attention(torch, got, ref, dtype, what, fails):
 
 # ---------------------------------------------------------------- phase 2
 
-def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8):
+def kv_pools(torch, g, shape, dt, int8, timing):
+    """Random K/V pool pairs of ``shape`` [NB, BS, Hkv, D] in ``dt``, or
+    int8 QuantKV pairs (random rows quantized as the write path does):
+    one, or with ``timing`` enough copies to fill twice the 50 MB L2, so
+    calls taken in turn read their K/V from device memory."""
+    from paddle_tpu_torch.ops.paged_cache import QuantKV, kv_quantize
+    nb, bs, hkv, d = shape
+    pos_bytes = d + 4 if int8 else d * torch.finfo(dt).bits // 8
+    copies = max(3, -(-int(100e6) // (2 * nb * bs * hkv * pos_bytes))) \
+        if timing else 1
+    pools = []
+    for _ in range(copies):
+        kv = [torch.randn(*shape, generator=g, device="cuda")
+              for _ in range(2)]
+        pools.append(tuple(QuantKV(*kv_quantize(x)) if int8 else x.to(dt)
+                           for x in kv))
+    return pools, pos_bytes
+
+
+def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
+                 int8=False):
     """K2r at the main path's shapes: 8 slots, D 128, BS 16, contexts up
     to 2048, as two serving ticks: RAGGED_TICKS["prefill"] (7 decode rows
     + a 128-row prefill chunk, the kernels line's) and ["decode"] (one
     row a slot, w_max 1); 32 / 8 heads (Llama-3-8B) unless ``heads`` /
-    ``kv_heads`` say otherwise. Held elementwise and row by row; timed
-    over enough sets of pools, taken in turn, to fill twice the 50 MB L2,
-    so each call reads its K/V from device memory, as each layer of a
-    tick does. Returns the largest error and ``{tick: row}``."""
+    ``kv_heads`` say otherwise; ``int8``: on int8 pools. Held elementwise
+    and row by row; timed over enough sets of pools, taken in turn, to
+    fill twice the 50 MB L2, so each call reads its K/V from device
+    memory, as each layer of a tick does. Returns the largest error and
+    ``{tick: row}``."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(11)
     S, Hkv, rep, D, BS, MB = 8, kv_heads, heads // kv_heads, 128, 16, 128
     NB = 1 + S * MB
     base = [2047, 1500, 900, 300, 64, 1024, 1800, 512]
-    copy_bytes = 2 * NB * BS * Hkv * D * torch.finfo(dt).bits // 8
-    copies = max(3, -(-int(100e6) // copy_bytes)) if timing else 1
-    pools = [tuple(torch.randn(NB, BS, Hkv, D, generator=g,
-                               device="cuda").to(dt) for _ in range(2))
-             for _ in range(copies)]
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+                                timing)
+    copies = len(pools)
+    name = "ragged_paged_attention" + ("_int8" if int8 else "")
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
     ctx = torch.tensor([b + 1 for b in base], dtype=torch.int32,
@@ -378,13 +420,12 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8):
         torch.cuda.synchronize()
         errs.append(held_attention(
             torch, got, ref, dtype,
-            f"ragged_paged_attention {tick} tick {heads}/{kv_heads} heads",
-            fails))
+            f"{name} {tick} tick {heads}/{kv_heads} heads", fails))
         if not timing:
             continue
-        es = kp.element_size()
+        es = q.element_size()
         kv_pos = sum(b + n for b, n in zip(base, q_lens))
-        nbytes = 2 * kv_pos * Hkv * D * es + 2 * q.numel() * es \
+        nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
             + 4 * (tables.numel() + 3 * S)
         vis = sum(b + 1 + t for b, n in zip(base, q_lens) for t in range(n))
         b_ms, b_by = bound(nbytes, 4 * vis * Hkv * rep * D, dtype)
@@ -400,7 +441,7 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8):
             plain_ms=time_ms(torch, lambda: run(
                 rpa.plain_ragged_paged_attention)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  ragged_paged_attention [{dtype}] {tick} tick, "
+        log(f"  {name} [{dtype}] {tick} tick, "
             f"{heads}/{kv_heads} heads, {R} rows: "
             f"ms={rows[tick]['ms']:.4f} plain_ms="
             f"{rows[tick]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
@@ -411,11 +452,13 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8):
     return max(errs), rows
 
 
-def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8):
+def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
+                int8=False):
     """K2d and K2v at generate()'s widths (32 / 8 heads unless ``heads``
     / ``kv_heads`` say otherwise, D 128, BS 16, a window of PAGED_T for
     K2v) and one of the PAGED shapes: slots, table width MB and contexts
-    (each set has one ending on a block boundary).
+    (each set has one ending on a block boundary); ``int8``: on int8
+    pools, the rows named ``<kernel>_int8``.
     Held elementwise and row by row; timed over enough sets of pools,
     taken in turn, to fill twice the 50 MB L2, so each call reads its K/V
     from device memory, as each layer of a decode step does."""
@@ -428,12 +471,11 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8):
         lens = [1, 40 * BS, 2048] + sorted(
             rng.randint(2, 2048, S - 3).tolist())
     NB = 1 + S * MB
-    copy_bytes = 2 * NB * BS * Hkv * D * torch.finfo(dt).bits // 8
-    copies = max(3, -(-int(100e6) // copy_bytes)) if timing else 1
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    pools = [tuple(torch.randn(NB, BS, Hkv, D, generator=g,
-                               device="cuda").to(dt) for _ in range(2))
-             for _ in range(copies)]
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+                                timing)
+    copies = len(pools)
+    sfx = "_int8" if int8 else ""
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
     qs = {"paged_decode_attention": torch.randn(
@@ -451,15 +493,15 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8):
         got = kern(q, kp, vp, tables, ctx)
         ref = plain(q, kp, vp, tables, ctx)
         torch.cuda.synchronize()
-        errs[name] = held_attention(torch, got, ref, dtype,
-                                    f"{name} {shape} {H}/{Hkv} heads",
-                                    fails)
+        errs[name + sfx] = held_attention(
+            torch, got, ref, dtype, f"{name}{sfx} {shape} {H}/{Hkv} heads",
+            fails)
         if not timing:
             continue
         tw = q.shape[1] if q.dim() == 4 else 1
-        es = kp.element_size()
+        es = q.element_size()
         kv_pos = sum(min(n + tw - 1, MB * BS) for n in lens)
-        nbytes = 2 * kv_pos * Hkv * D * es + 2 * q.numel() * es \
+        nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
             + 4 * (tables.numel() + S)
         vis = sum(n + t for n in lens for t in range(tw))
         b_ms, b_by = bound(nbytes, 4 * vis * H * D, dtype)
@@ -469,13 +511,14 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8):
             kp_i, vp_i = pools[next(turn) % len(pools)]
             return f(q, kp_i, vp_i, tables, ctx)
 
-        rows[name] = dict(ms=time_ms(torch, lambda: run(kern)),
-                          plain_ms=time_ms(torch, lambda: run(plain)),
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  {name} [{dtype}] {shape}: {S} slots, MB {MB}, contexts "
-            f"{lens}: ms={rows[name]['ms']:.4f} plain_ms="
-            f"{rows[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
-            f"{nbytes / 1e6:.2f} MB; {copies} pool copies)")
+        r = rows[name + sfx] = dict(
+            ms=time_ms(torch, lambda: run(kern)),
+            plain_ms=time_ms(torch, lambda: run(plain)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"  {name}{sfx} [{dtype}] {shape}: {S} slots, MB {MB}, contexts "
+            f"{lens}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.2f} MB; {copies} "
+            f"pool copies)")
     if fails:
         raise AssertionError(f"[{dtype}] {shape}: disagree with their plain "
                              f"versions: {fails}")
@@ -1487,13 +1530,19 @@ def held_streams(torch, model, what, prompts, a, b, fails,
         log(f"  {what}: streams equal ({sum(map(len, a))} tokens)")
 
 
-def serve_f32(torch, ServingEngine, ServingConfig, model, prompts):
+def serve_f32(torch, ServingEngine, ServingConfig, model, prompts,
+              after_first=None, **kw):
+    """The short float32 run of phases 4 and 16: the first tick's logits
+    and the streams (``after_first(engine)`` runs after the first tick;
+    ``kw`` goes to the config)."""
     eng = ServingEngine(model, ServingConfig(
         num_slots=2, block_size=16, max_model_len=512, prefill_chunk=128,
-        max_new_tokens=8), device="cuda")
+        max_new_tokens=8, **kw), device="cuda")
     rids = [eng.submit(p) for p in prompts]
     eng.step()
     first = eng.last_logits.float().clone()
+    if after_first is not None:
+        after_first(eng)
     done = eng.run()
     eng.shutdown()
     return first, [done[r] for r in rids]
@@ -1693,10 +1742,11 @@ def generate_once(torch, kernels, model, ids, new, kw, forwards, tag,
             or not torch.isfinite(scores).all():
         raise AssertionError(f"{tag}: bad output {out} {scores}")
     spec = "num_speculative_tokens" in kw
-    # one K2v launch per layer per verify window; the loop runs until the
-    # slowest row is done: (new - 1) tokens after the prefill's over the
-    # windows (1.0: no draft accepted)
-    windows = kernels.launch_counts["paged_verify_attention"] \
+    # one K2v launch per layer per verify window (on bf16 or int8 pools);
+    # the loop runs until the slowest row is done: (new - 1) tokens after
+    # the prefill's over the windows (1.0: no draft accepted)
+    windows = (kernels.launch_counts["paged_verify_attention"]
+               + kernels.launch_counts["paged_verify_attention_int8"]) \
         // cfg.num_hidden_layers
     n_fwd = 1 + windows if spec else len(forwards)
     per_verify = (new - 1) / max(1, windows)
@@ -2653,6 +2703,197 @@ def flashmask_phase(torch, kernels, fa, fm, F):
     return {n: launches[n] for n in FLASHMASK_KERNELS}
 
 
+# ---------------------------------------------------------------- phase 16
+
+def int8_pool_diff(a, b):
+    """Two per-layer int8 pool lists: the largest difference of a stored
+    value in int8 steps, the share of values that differ, and each
+    layer's largest relative difference of a scale."""
+    steps, n, ndiff, srel = 0, 0, 0, []
+    for kv_a, kv_b in zip(a, b):
+        srel.append(0.0)
+        for x, y in zip(kv_a, kv_b):
+            d = (x.data.int() - y.data.int()).abs()
+            steps = max(steps, int(d.max()))
+            ndiff += int((d > 0).sum())
+            n += d.numel()
+            srel[-1] = max(srel[-1], float(
+                ((x.scale - y.scale).abs()
+                 / y.scale.abs().clamp_min(1e-30)).max()))
+    return steps, ndiff / max(n, 1), srel
+
+
+def match_rate(a, b):
+    """Share of equal tokens, position by position, over streams a, b."""
+    tot = hit = 0
+    for x, y in zip(a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        n = min(len(x), len(y))
+        tot += max(len(x), len(y))
+        hit += int((x[:n] == y[:n]).sum())
+    return hit / max(tot, 1)
+
+
+def int8_phase(torch, kernels, df, rpa, pda, ServingEngine, ServingConfig,
+               LlamaConfig, LlamaForCausalLM, bf16_streams, bf16_pool_bytes):
+    """Phase 16: int8 KV pools on the main paths. Phase 3's engine
+    (Llama-3-8B, all 32 layers, bf16, phase 3's seeded weights and
+    traffic) with ``kv_cache_dtype="int8"``: tokens/s, TTFT, ticks, rows
+    a tick, a profiled tick window's idle share, its pool bytes against
+    the bf16 engine's (at most INT8_POOL_RATIO) and each stream's match
+    with phase 3's bf16 streams (first divergence and its top-2 margin
+    logged, not held: random weights have small margins); K2r must
+    launch on int8 pools only. Then ``generate()`` at phase 7's shape on
+    int8 pools, paged (K2d) and n-gram (K2v). Then float32, PHASE8's
+    2 layers at full widths on int8 pools: paged and self-drafted
+    speculative ``generate()`` and the engine, through the kernels (the
+    FMA bodies' int8 mode) and through their plain versions; the streams
+    must be equal (phase 4's margin rule). The two paths quantize K/V
+    rows that differ in their last float32 bits, so a value within that
+    of a rounding boundary is stored one int8 step apart; the layers
+    after the first read such values, so their rows, and the logits,
+    move by more than LOGITS_ATOL: the engine's pools after the first
+    tick must agree within one int8 step, the first layer's scales (its
+    rows read no int8 value) within INT8_SCALE_RTOL; the later layers'
+    scales and the first tick's logits are logged. The bf16
+    streams' divergences are read against the logit difference of two
+    bf16 recipes of this model (phase 7's limit). Returns ``{run:
+    launch counts}``."""
+    cfg = LlamaConfig.llama3_8b()
+    cfg.dtype = "bfloat16"
+    t0 = time.monotonic()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    log(f"phase 16: Llama-3-8B, {cfg.num_hidden_layers} layers bf16 "
+        f"(phase 3's weights), int8 KV pools; init "
+        f"{time.monotonic() - t0:.1f}s")
+    lens, prompts = serving_prompts(cfg.vocab_size, REQUESTS, SEED)
+    engine = ServingEngine(model, ServingConfig(
+        num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
+        max_new_tokens=32, kv_cache_dtype="int8"), device="cuda")
+    runs, fails = {}, []
+    runs["serve"], st, streams = serve_run(
+        torch, kernels, engine, prompts, lens, "phase 16 int8 serving",
+        ("ragged_paged_attention_int8", "norm_matmul", "matmul_residual"))
+    if runs["serve"]["ragged_paged_attention"]:
+        fails.append("phase 16 serving launched K2r on bf16 pools")
+    ratio = st["kv_pool_bytes"] / bf16_pool_bytes
+    log(f"phase 16 int8 serving: kv_cache_dtype {st['kv_cache_dtype']}, "
+        f"pool bytes {st['kv_pool_bytes']} against the bf16 engine's "
+        f"{bf16_pool_bytes}: {ratio:.4f} (limit {INT8_POOL_RATIO}); "
+        f"kv_bytes_per_step of the last tick {st['kv_bytes_per_step']}")
+    if not ratio <= INT8_POOL_RATIO:
+        fails.append(f"phase 16 pool bytes ratio {ratio}")
+    log(f"phase 16 int8 serving: token match rate against phase 3's bf16 "
+        f"streams {match_rate(streams, bf16_streams):.4f} over "
+        f"{sum(map(len, streams))} tokens; per stream "
+        f"{[round(match_rate([a], [b]), 4) for a, b in zip(streams, bf16_streams)]}")
+    tick_window(torch, engine, prompts[:8], TICK_WINDOW, "phase 16")
+    engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+
+    b, new, gamma = GENERATE["batch"], GENERATE["new"], GENERATE["gamma"]
+    prompts7 = motif_prompts(b, GENERATE["prompt"], GENERATE["motif"],
+                             cfg.vocab_size, SEED + 3)
+    ids = torch.from_numpy(prompts7).to(model.device)
+    noise = logit_noise(torch, model, ids)
+    log(f"phase 16: bf16 logits of two recipes differ by up to {noise:.3e}"
+        ": the near-tie limit of the streams read below")
+    held_streams(torch, model, "phase 16 int8 vs bf16 pools", prompts,
+                 streams, bf16_streams, None, limit=noise)
+    forwards = []
+    hook = model.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    gen = {}
+    for name, kw, want in (
+            ("paged", dict(cache_impl="paged"),
+             ("paged_decode_attention_int8",)),
+            ("ngram", dict(num_speculative_tokens=gamma),
+             ("paged_verify_attention_int8",))):
+        gen[name], runs[name], _ = generate_once(
+            torch, kernels, model, ids, new, dict(kw, kv_cache_dtype="int8"),
+            forwards, f"phase 16 generate {name} int8",
+            GENERATE_KERNELS + INT8_KERNELS, want)
+        if any(runs[name][k] for k in GENERATE_KERNELS):
+            fails.append(f"phase 16 generate {name}: a K2 kernel launched "
+                         "on bf16 pools")
+    hook.remove()
+    held_streams(torch, model, "phase 16 generate ngram vs paged (int8)",
+                 prompts7, gen["ngram"], gen["paged"], None, limit=noise)
+    del model, ids
+    torch.cuda.empty_cache()
+
+    # float32 on int8 pools: the FMA bodies against the plain versions
+    cfg8 = LlamaConfig.llama3_8b()
+    cfg8.num_hidden_layers = PHASE8["layers"]
+    model = LlamaForCausalLM(cfg8, device="cuda", seed=SEED + 5)
+    prompts8 = motif_prompts(PHASE8["batch"], PHASE8["prompt"],
+                             PHASE8["motif"], cfg8.vocab_size, SEED + 5)
+    ids = torch.from_numpy(prompts8).to(model.device)
+    rng = np.random.RandomState(SEED + 1)
+    prompts4 = [rng.randint(0, cfg8.vocab_size, size=n)
+                for n in (40, 150, 70)]
+    kinds = {"paged": dict(cache_impl="paged"),
+             "self": dict(num_speculative_tokens=PHASE8["gamma"],
+                          draft_model=model)}
+    res = {}
+    for path in ("kernel", "plain"):
+        patches = [] if path == "kernel" else plain_patches(df, rpa) + [
+            mock.patch.object(pda, "paged_decode_attention",
+                              pda.plain_paged_decode_attention),
+            mock.patch.object(pda, "paged_verify_attention",
+                              pda.plain_paged_verify_attention)]
+        for p in patches:
+            p.start()
+        try:
+            kernels.reset_launch_counts()
+            for kind, kw in kinds.items():
+                out, _ = model.generate(ids, max_new_tokens=PHASE8["new"],
+                                        kv_cache_dtype="int8", **kw)
+                res[path, kind] = out.cpu().numpy()
+            snap = []
+            res[path, "engine"] = serve_f32(
+                torch, ServingEngine, ServingConfig, model, prompts4,
+                after_first=lambda eng: snap.extend(
+                    tuple(type(p)(p.data.clone(), p.scale.clone())
+                          for p in kv) for kv in eng._pools),
+                kv_cache_dtype="int8")
+            res[path, "pools"] = snap
+            n = {k: kernels.launch_counts[k] for k in INT8_KERNELS}
+        finally:
+            for p in patches:
+                p.stop()
+        if (min(n.values()) > 0) != (path == "kernel") \
+                or (path == "plain" and max(n.values()) > 0):
+            fails.append(f"phase 16 f32 {path}: launches {n}")
+        log(f"phase 16 f32 int8 pools, {path} path: launches {n}")
+    steps, share, srel = int8_pool_diff(res["kernel", "pools"],
+                                        res["plain", "pools"])
+    lerr = float((res["kernel", "engine"][0]
+                  - res["plain", "engine"][0]).abs().max())
+    log(f"phase 16 f32 int8 pools: the engine's pools after the first tick,"
+        f" kernel vs plain path: stored values at most {steps} int8 step(s)"
+        f" apart (limit 1), {share:.3e} of them differ; the first layer's "
+        f"scales within {srel[0]:.3e} (rtol {INT8_SCALE_RTOL}), the later "
+        f"layers' {[f'{x:.3e}' for x in srel[1:]]}; first-tick logits "
+        f"max_abs_err={lerr:.3e}")
+    if not (steps <= 1 and srel[0] <= INT8_SCALE_RTOL):
+        fails.append(f"phase 16 f32 engine pools {steps} {srel}")
+    held_streams(torch, model, "phase 16 f32 int8 engine kernel vs plain",
+                 prompts4, res["kernel", "engine"][1],
+                 res["plain", "engine"][1], fails)
+    for kind in kinds:
+        held_streams(torch, model,
+                     f"phase 16 f32 int8 generate {kind} kernel vs plain",
+                     prompts8, res["kernel", kind], res["plain", kind],
+                     fails)
+    del model
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 16 failed: {fails}")
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2719,6 +2960,15 @@ def main(argv=None):
         r1 = r1.get("prefill")
         e5, r5 = check_paged(torch, pda, dtype, timing, "generate")
         check_paged(torch, pda, dtype, timing, "long")
+        # int8 pools: the same ticks, phase 7's shape, both GQA groups
+        e1q, r1q = check_ragged(torch, rpa, dtype, timing, int8=True)
+        e5q, r5q = check_paged(torch, pda, dtype, timing, "generate",
+                               int8=True)
+        for heads, kv_heads in MOE_HEADS.values():
+            check_ragged(torch, rpa, dtype, timing, heads, kv_heads,
+                         int8=True)
+            check_paged(torch, pda, dtype, timing, "generate", heads,
+                        kv_heads, int8=True)
         e2, r2 = check_norm_matmul(torch, df, dtype, timing)
         e3, r3 = check_matmul_residual(torch, df, dtype, timing)
         e4, r4 = check_flash(torch, F, fa, dtype, timing)
@@ -2743,8 +2993,10 @@ def main(argv=None):
             for name, r in r4.items():
                 table[name] = dict(r, max_abs_err=e4[name])
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
-            for name, r in r5.items():
-                table[name] = dict(r, max_abs_err=e5[name])
+            table["ragged_paged_attention_int8"] = dict(r1q["prefill"],
+                                                        max_abs_err=e1q)
+            for name, r in list(r5.items()) + list(r5q.items()):
+                table[name] = dict(r, max_abs_err={**e5, **e5q}[name])
             for name, r in (("norm_matmul", r2), ("matmul_residual", r3)):
                 table[name] = dict(merge_rows(
                     [r[label] for label in K3_TABLE[name]], dtype),
@@ -2786,9 +3038,11 @@ def main(argv=None):
     engine = ServingEngine(model, ServingConfig(
         num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
         max_new_tokens=32), device="cuda")
-    launches, _, _ = serve_run(torch, kernels, engine, prompts, lens,
-                               "phase 3", SERVING_KERNELS)
+    launches, st3, streams3 = serve_run(torch, kernels, engine, prompts,
+                                        lens, "phase 3", SERVING_KERNELS)
     launches = {k: launches[k] for k in SERVING_KERNELS}
+    log(f"phase 3: kv_cache_dtype {st3['kv_cache_dtype']}, pool bytes "
+        f"{st3['kv_pool_bytes']}")
     llama_reads = tick_window(torch, engine, prompts[:8], TICK_WINDOW,
                               "phase 3")
     engine.shutdown()
@@ -2907,7 +3161,14 @@ def main(argv=None):
     launches.update(flashmask_phase(torch, kernels, fa, fm, PF))
     torch.cuda.empty_cache()
 
-    # -- phase 16: report --------------------------------------------------
+    # -- phase 16: int8 KV pools: serving, generate(), f32 check ----------
+    int8_runs = int8_phase(torch, kernels, df, rpa, pda, ServingEngine,
+                           ServingConfig, LlamaConfig, LlamaForCausalLM,
+                           streams3, st3["kv_pool_bytes"])
+    for k in INT8_KERNELS:
+        launches[k] = sum(r[k] for r in int8_runs.values())
+
+    # -- phase 17: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (
@@ -2917,6 +3178,15 @@ def main(argv=None):
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:439"),
             "paged_verify_attention": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:510"),
+            "ragged_paged_attention_int8": (
+                "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:593"),
+            "paged_decode_attention_int8": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:439"),
+            "paged_verify_attention_int8": (
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:510"),
             "norm_matmul": ("paddle_tpu_torch/csrc/norm_matmul.cu",

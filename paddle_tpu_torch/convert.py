@@ -4,7 +4,9 @@
 model's ``state_dict()`` holds, converted with ``np.asarray`` by the
 caller — and returns torch tensors under the same names. Both packages
 keep Paddle's layouts (``Linear.weight`` is ``[in, out]``), so nothing is
-transposed.
+transposed. ``pool_from_jax`` carries one half of a reference paged KV
+pool (a floating array, or a ``QuantKV`` of int8 data and float32
+scales) into the port's layout, which is the same.
 """
 from __future__ import annotations
 
@@ -12,8 +14,9 @@ import numpy as np
 import torch
 
 from .framework.place import resolve_device
+from .ops.paged_cache import QuantKV
 
-__all__ = ["params_from_jax", "load_jax_params"]
+__all__ = ["params_from_jax", "load_jax_params", "pool_from_jax"]
 
 
 def params_from_jax(named_numpy: dict, device=None, dtype=None) -> dict:
@@ -48,3 +51,16 @@ def load_jax_params(model, named_numpy: dict) -> dict:
                                  f"reference, {tuple(p.shape)} in the port")
             p.copy_(t.to(p.dtype))
     return sd
+
+
+def pool_from_jax(pool, device=None):
+    """One pool half of the reference: an array (anything
+    ``np.asarray`` takes) -> a tensor of its dtype, or a ``QuantKV``
+    (anything with ``data`` and ``scale``) -> the port's
+    :class:`~paddle_tpu_torch.ops.paged_cache.QuantKV`, on ``device``
+    (default: cuda)."""
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev)  # noqa
+    if hasattr(pool, "scale"):
+        return QuantKV(t(pool.data), t(pool.scale))
+    return t(pool)

@@ -1,11 +1,14 @@
 // Shared device helpers of the port's kernels: conversions between the
-// storage types (float, bf16) and the float32 the kernels compute in,
-// 16-byte vector loads, and warp reductions. dtype codes passed from
-// Python: 0 = float32, 1 = bfloat16.
+// storage types (float, bf16, int8 with a scale) and the float32 the
+// kernels compute in, 16-byte vector loads, and warp reductions. dtype
+// codes passed from Python: 0 = float32, 1 = bfloat16.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 namespace ptt {
 
@@ -53,6 +56,42 @@ __device__ __forceinline__ void load_vec<__nv_bfloat16>(
 #pragma unroll
   for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(h[e]);
 }
+
+// four consecutive elements of a KV pool row held in registers between
+// their load and their use: float32 pools as 16 bytes; int8 pools as 4
+// bytes and the row's scale, dequantized as the reference does (int8 ->
+// float32, times the scale)
+template <typename KV>
+struct Kv4;
+template <>
+struct Kv4<float> {
+  uint4 raw;
+  // p: the elements (16-byte aligned); the scale row is not read
+  __device__ __forceinline__ void load(const float* p, const float*,
+                                       size_t) {
+    raw = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void to_f(float* dst) const {
+    dst[0] = __uint_as_float(raw.x); dst[1] = __uint_as_float(raw.y);
+    dst[2] = __uint_as_float(raw.z); dst[3] = __uint_as_float(raw.w);
+  }
+};
+template <>
+struct Kv4<int8_t> {
+  uint32_t raw;
+  float s;
+  // p: the elements (4-byte aligned); scale[row]: their row's scale
+  __device__ __forceinline__ void load(const int8_t* p, const float* scale,
+                                       size_t row) {
+    raw = *reinterpret_cast<const uint32_t*>(p);
+    s = scale[row];
+  }
+  __device__ __forceinline__ void to_f(float* dst) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dst[e] = (float)(int8_t)((raw >> (8 * e)) & 0xff) * s;
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -81,6 +81,11 @@
 
 namespace ptt {
 namespace dg90 {
+// internal to each source that includes it (norm_matmul.cu and
+// matmul_residual.cu): the host statics below (the SM counts, the map
+// cache, the shared-memory attribute's bits) must be per library, as each
+// library has its own copy of the kernels
+namespace {
 
 constexpr int BN = 128;         // output columns of a tile
 constexpr int BK = 64;          // reduction depth of a slice
@@ -672,5 +677,6 @@ inline cudaError_t plan(const void* x, const void* const* w, Params& p,
   return err;
 }
 
+}  // namespace
 }  // namespace dg90
 }  // namespace ptt

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialised
 // kernels: mbarriers, TMA tile loads from a CUtensorMap, wgmma with its
 // shared-memory descriptors, register reallocation between warpgroups
-// (setmaxnreg), named barriers and the proxy fence. K1f / K6f
+// (setmaxnreg), named barriers, the proxy fence and cp.async copies that
+// arrive on an mbarrier. K1f / K6f
 // (flash_attention_fwd_sm90.cuh), K1dq / K1dkv / K6dq / K6dkv
 // (flash_attention_bwd_sm90.cuh) and the MoE grouped matmuls of the
 // forward and the backward (moe_gmm_sm90.cuh) are built from them.
@@ -172,6 +173,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // async-proxy ones (TMA, wgmma) on the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4 bytes from global src to shared dst by cp.async, or 4 zero bytes
+// when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// an arrival on `bar` once every cp.async this thread issued before it
+// has landed (counted in the barrier's expected arrivals: no increment)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -416,14 +435,16 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 
 // ---------------------------------------------------------------- host
 
-// a bf16 tensor map of `rank` (2..5) dims, innermost first: extents
-// `dims`, byte strides of dims 1.. `strides`, box `box`, 128-byte
-// swizzle, zeros past the edges. cuTensorMapEncodeTiled comes from the
-// driver through the runtime, so the library links no libcuda.
-inline cudaError_t tmap_bf16(CUtensorMap* map, const void* base, int rank,
-                             const cuuint64_t* dims,
-                             const cuuint64_t* strides,
-                             const cuuint32_t* box) {
+// a tensor map of elements of `type` over `rank` (2..5) dims, innermost
+// first: extents `dims`, byte strides of dims 1.. `strides`, box `box`,
+// shared-memory layout `swizzle`, zeros past the edges.
+// cuTensorMapEncodeTiled comes from the driver through the runtime, so
+// the library links no libcuda.
+inline cudaError_t tmap_encode(CUtensorMap* map, CUtensorMapDataType type,
+                               CUtensorMapSwizzle swizzle, const void* base,
+                               int rank, const cuuint64_t* dims,
+                               const cuuint64_t* strides,
+                               const cuuint32_t* box) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
       const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -446,11 +467,21 @@ inline cudaError_t tmap_bf16(CUtensorMap* map, const void* base, int rank,
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint32_t step[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, rank, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a bf16 tensor map (tmap_encode's arguments) with the 128-byte swizzle
+// the wgmma descriptors read
+inline cudaError_t tmap_bf16(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dims,
+                             const cuuint64_t* strides,
+                             const cuuint32_t* box) {
+  return tmap_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                     box);
 }
 
 // a 4-D map over a [B, L, NH, D] tensor: dims (D, NH, L, B), box (64, 1,

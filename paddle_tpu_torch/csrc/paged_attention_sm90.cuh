@@ -10,7 +10,9 @@
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _ragged_kernel
 // (call :593) and _decode_kernel (calls :439, t_q 1, and :510, t_q T),
-// floating-point pools without the tree mask.
+// without the tree mask: floating-point pools, and the `quantized` mode
+// (int8 pools with a float32 scale a position and kv head, dequantized
+// tile by tile by _dequant_tile, :184).
 //
 // What bounds it on the H100: bytes. A decode row reads a page's K and V
 // (2 x BS x D x 2 bytes a kv head) for rep query heads: ~rep flops a
@@ -74,8 +76,29 @@
 //   as the A operand of O += P V by wgmma m64n{D}k16 with V read through
 //   the descriptor's transpose bit. A vector that sees no position
 //   writes 0.
-// - Host: the pool's tensor maps are kept by address and shape, the SM
-//   count and the kernel's attribute asked once a device.
+// - Host: the pool's tensor maps are kept by address, shape and element
+//   type, the SM count and the kernel's attribute asked once a device.
+//
+// int8 pools (Q8): a position-head costs 2 x (D + 4) bytes (264 at D 128,
+// against 512 in bf16), so the bound halves. int8 values are exact in
+// bf16 and the scales factor out of both products, so the tensor cores
+// still take bf16:
+// - each page's K and V land by TMA as int8 rows (a UINT8 map, no
+//   swizzle: D bytes a row), and their 64 + 64 scales by cp.async from
+//   the producer's lanes, arriving on the stage's full barrier (a page
+//   past the item's last position: zeros, its scales never read); this
+//   takes any Hkv (a TMA box of one head's scales would be 4 bytes wide);
+// - the consumer warpgroup converts the stage's int8 K and V into one
+//   bf16 tile in the atom layout above (16 values a thread a step), copies
+//   the scales beside it and frees the stage; then fence.proxy.async, a
+//   consumer-only named barrier, and the same wgmma products;
+// - S's column c is multiplied by K's scale of position c in the
+//   softmax; V's scale folds into P before P V (P' = P x vs; l sums P).
+//   The reference keeps P in float32 through P V: P' goes as hi + lo
+//   bf16 halves (P_SPLIT: two P V products, ~2^-17 relative; rounded
+//   once, ~2^-9, was 2-9 % faster and ~3x further from the float32
+//   recipe on an H100). Ring: 3 stages at D 128, 4 at D 64; with Q and
+//   the converted tile two blocks still fit an SM.
 #pragma once
 
 #include <algorithm>
@@ -100,16 +123,28 @@ constexpr int THREADS = 160;      // consumer warpgroup + producer warp
 constexpr int BLOCKS_PER_SM = 2;
 constexpr int MAX_SLOTS = 512;    // slots a call (the shared slot tables)
 constexpr int ATOM_BYTES = BN * 64 * 2;   // 64 positions x 64 columns
+// int8 pools: P V as two products of P's bf16 hi and lo halves (true),
+// or of P rounded to bf16 once (false)
+constexpr bool P_SPLIT = true;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <int D>
+// D: the head dim; Q8: int8 pools
+template <int D, bool Q8>
 struct Cfg {
   static constexpr int NA = D / 64;                      // column atoms
   static constexpr int Q_BYTES = NA * ATOM_BYTES;         // 64 vectors
-  static constexpr int STAGE_BYTES = 2 * NA * ATOM_BYTES;   // K then V
-  static constexpr int STAGES = 65536 / STAGE_BYTES;     // 2 at D 128
-  static constexpr size_t SMEM = 1024 + Q_BYTES +
+  static constexpr int KV8_BYTES = BN * D;        // a stage's int8 K (V)
+  // bf16: K then V atoms; int8: K then V int8 rows, then K's 64 scales
+  // and V's
+  static constexpr int STAGE_BYTES =
+      Q8 ? 2 * KV8_BYTES + 2 * BN * 4 : 2 * NA * ATOM_BYTES;
+  static constexpr uint32_t TX_BYTES = Q8 ? 2 * KV8_BYTES : STAGE_BYTES;
+  // int8: the converted bf16 K and V atoms and the stage's scales
+  static constexpr int CONV_BYTES = Q8 ? 2 * NA * ATOM_BYTES + 2 * BN * 4 : 0;
+  static constexpr int STAGES = Q8 ? (D == 128 ? 3 : 4)
+                                   : 65536 / STAGE_BYTES;   // 2 at D 128
+  static constexpr size_t SMEM = 1024 + Q_BYTES + CONV_BYTES +
                                  (size_t)STAGES * STAGE_BYTES +
                                  2 * STAGES * sizeof(uint64_t) +
                                  sizeof(int) * (4 * MAX_SLOTS + 3);
@@ -121,6 +156,8 @@ struct Cfg {
 struct Params {
   const bf16* q;
   bf16* out;
+  const float* kscale;  // int8 pools: [NB, BS, Hkv] each
+  const float* vscale;
   const int* tables;    // [S, MB]
   const int* ctx;       // [S]: positions row 0 of the slot sees
   const int* qlens;     // [S] or null: every slot has TW rows
@@ -208,18 +245,54 @@ __device__ __forceinline__ Item item_of(const Params& p, int i,
   return w;
 }
 
+// int8 pools: a stage's int8 K and V rows ([64][D] each) into the bf16
+// atoms of conv (K's, then V's; swizzled as TMA puts a bf16 tile), a
+// 16-byte chunk (16 values, exact in bf16) a thread a step, and its 128
+// scales beside them (at conv + 2 x NA atoms)
 template <int D>
+__device__ __forceinline__ void convert_stage(const unsigned char* st,
+                                              unsigned char* conv, int tid) {
+  constexpr int NA = D / 64, CH = D / 16;   // 16-byte chunks of a row
+#pragma unroll
+  for (int u = tid; u < 2 * BN * CH; u += 128) {
+    const int kv = u / (BN * CH), r = (u / CH) % BN, c = u % CH;
+    const uint4 x = *reinterpret_cast<const uint4*>(st + (size_t)u * 16);
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+    uint32_t o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t b = w[i / 2] >> (16 * (i % 2));
+      o[i] = fa::pack_bf16((float)(int8_t)(b & 0xff),
+                           (float)(int8_t)((b >> 8) & 0xff));
+    }
+    // columns 16 c .. 16 c + 15: 8-column chunks 2 (c % 4) and + 1 of
+    // atom c / 4, each at its chunk XOR the row mod 8
+    unsigned char* row = conv + (kv * NA + c / 4) * ATOM_BYTES + r * 128;
+    const int ch = 2 * (c % 4);
+    *reinterpret_cast<uint4*>(row + ((ch ^ (r % 8)) * 16)) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(row + (((ch + 1) ^ (r % 8)) * 16)) =
+        make_uint4(o[4], o[5], o[6], o[7]);
+  }
+  reinterpret_cast<float*>(conv + 2 * NA * ATOM_BYTES)[tid] =
+      reinterpret_cast<const float*>(st + 2 * BN * D)[tid];
+}
+
+template <int D, bool Q8>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const Params p) {
   using namespace sm90;
-  using C = Cfg<D>;
+  using C = Cfg<D, Q8>;
   constexpr int NA = C::NA, STAGES = C::STAGES;
+  static_assert(2 * BN == 128, "a consumer thread a scale");
   extern __shared__ unsigned char pa_raw[];
   unsigned char* base = pa_raw + ((1024 - (smem_u32(pa_raw) & 1023)) & 1023);
   unsigned char* qs = base;     // Q: [NA][64 vectors][64 columns]
-  unsigned char* ring = qs + C::Q_BYTES;   // [STAGES][K atoms, V atoms]
+  unsigned char* conv = qs + C::Q_BYTES;   // int8: the converted stage
+  const float* csc = reinterpret_cast<const float*>(conv + 2 * NA * ATOM_BYTES);
+  unsigned char* ring = conv + C::CONV_BYTES;   // [STAGES][stage]
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE_BYTES);
   uint64_t* empty = full + STAGES;
   int* s_ql = reinterpret_cast<int*>(empty + STAGES);   // [MAX_SLOTS]
@@ -232,7 +305,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + s, 1);
+      // int8: + a cp.async arrival of each producer lane
+      mbar_init(full + s, Q8 ? 33 : 1);
       mbar_init(empty + s, 4);   // lane 0 of each consumer warp
     }
     fence_barrier_init();
@@ -314,16 +388,40 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         mbar_wait(empty + slot, ((it / STAGES) & 1) ^ 1);
         const int j = (w.lo + st * BN) / p.BS + lane;
         const int page = lane < per && j < live ? trow[j] : p.NB;
-        if (lane == 0) mbar_expect_tx(full + slot, C::STAGE_BYTES);
+        unsigned char* stage = ring + slot * C::STAGE_BYTES;
+        if constexpr (Q8) {
+          // the scales of the stage's positions lane and lane + 32, K's
+          // and V's (zeros on a page past the item's last position)
+          float* sc = reinterpret_cast<float*>(stage + 2 * C::KV8_BYTES);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = lane + 32 * h;
+            const int pg = __shfl_sync(FULL_MASK, page, c / p.BS);
+            const bool ok = pg < p.NB;
+            const size_t at =
+                ok ? ((size_t)pg * p.BS + c % p.BS) * p.Hkv + w.g : 0;
+            cp_async4(sc + c, p.kscale + at, ok);
+            cp_async4(sc + BN + c, p.vscale + at, ok);
+          }
+          cp_async_mbar_arrive(full + slot);
+        }
+        if (lane == 0) mbar_expect_tx(full + slot, C::TX_BYTES);
         __syncwarp();
         if (lane < per) {
-          unsigned char* kd = ring + slot * C::STAGE_BYTES + lane * p.BS * 128;
+          if constexpr (Q8) {   // a page's D-byte rows, K's and V's
+            tma_load_4d(stage + lane * p.BS * D, &tk, full + slot, 0, w.g, 0,
+                        page);
+            tma_load_4d(stage + C::KV8_BYTES + lane * p.BS * D, &tv,
+                        full + slot, 0, w.g, 0, page);
+          } else {
+            unsigned char* kd = stage + lane * p.BS * 128;
 #pragma unroll
-          for (int a = 0; a < NA; ++a) {
-            tma_load_4d(kd + a * ATOM_BYTES, &tk, full + slot, a * 64, w.g,
-                        0, page);
-            tma_load_4d(kd + (NA + a) * ATOM_BYTES, &tv, full + slot, a * 64,
-                        w.g, 0, page);
+            for (int a = 0; a < NA; ++a) {
+              tma_load_4d(kd + a * ATOM_BYTES, &tk, full + slot, a * 64, w.g,
+                          0, page);
+              tma_load_4d(kd + (NA + a) * ATOM_BYTES, &tv, full + slot,
+                          a * 64, w.g, 0, page);
+            }
           }
         }
       }
@@ -368,9 +466,19 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
       float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
       for (int st = 0; st < w.nst; ++st, ++it) {
         const int slot = it % STAGES;
-        const unsigned char* ks = ring + slot * C::STAGE_BYTES;
+        const unsigned char* ks = Q8 ? conv : ring + slot * C::STAGE_BYTES;
         const unsigned char* vs = ks + NA * ATOM_BYTES;
         mbar_wait(full + slot, (it / STAGES) & 1);
+        if constexpr (Q8) {
+          // once the last stage's products are done with the tile: the
+          // stage converted into it, the stage freed, the tile published
+          // to the tensor cores
+          bar_sync(1, 128);
+          convert_stage<D>(ring + slot * C::STAGE_BYTES, conv, tid);
+          warp_arrive(empty + slot);
+          fence_proxy_async();
+          bar_sync(1, 128);
+        }
         float sc[BN / 2];
         wgmma_fence();
 #pragma unroll
@@ -387,6 +495,19 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         // the online softmax of the stage's 64 columns (log2 domain)
         const int c0 = w.lo + st * BN;
         const bool edge = c0 + BN > bmin;
+        // int8: this thread's columns' K scales times the softmax scale
+        float kmul[BN / 8][2];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          if constexpr (Q8) {
+            const float2 k2 =
+                *reinterpret_cast<const float2*>(csc + 8 * j + 2 * tig);
+            kmul[j][0] = k2.x * p.scale_log2;
+            kmul[j][1] = k2.y * p.scale_log2;
+          } else {
+            kmul[j][0] = kmul[j][1] = p.scale_log2;
+          }
+        }
         float alpha[2];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
@@ -397,7 +518,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
             for (int e = 0; e < 2; ++e) {
               float& x = sc[4 * j + 2 * hr + e];
               x = !edge || c0 + 8 * j + 2 * tig + e < bound[hr]
-                      ? x * p.scale_log2
+                      ? x * kmul[j][e]
                       : NEG_INF;
               mx = fmaxf(mx, x);
             }
@@ -419,17 +540,41 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         for (int j = 0; j < D / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
+        if constexpr (Q8) {   // P' = P x V's scale of the column
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const float2 v2 =
+                *reinterpret_cast<const float2*>(csc + BN + 8 * j + 2 * tig);
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              sc[4 * j + 2 * hr] *= v2.x;
+              sc[4 * j + 2 * hr + 1] *= v2.y;
+            }
+          }
+        }
         uint32_t pa[BN / 16][4];   // P as bf16 A fragments
         fa::pack_a(pa, sc);
+        constexpr bool SPLIT = Q8 && P_SPLIT;
+        uint32_t pl[SPLIT ? BN / 16 : 1][4];   // int8: P' - bf16(P')
+        if constexpr (SPLIT) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            sc[i] -= __bfloat162float(__float2bfloat16_rn(sc[i]));
+          fa::pack_a(pl, sc);
+        }
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk)
+        for (int kk = 0; kk < BN / 16; ++kk) {
           wgmma_rs_tb(acc, pa[kk],
                       desc_sw128(vs + kk * 16 * 128, ATOM_BYTES, 1024));
+          if constexpr (SPLIT)
+            wgmma_rs_tb(acc, pl[kk],
+                        desc_sw128(vs + kk * 16 * 128, ATOM_BYTES, 1024));
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
-        warp_arrive(empty + slot);
+        if constexpr (!Q8) warp_arrive(empty + slot);
       }
       float lt[2];
 #pragma unroll
@@ -536,32 +681,39 @@ inline int sm_count(int& dev) {
   return n;
 }
 
-// the 4-D map of a pool [NB, BS, Hkv, D] (dims D, Hkv, BS, NB; box 64
-// columns x 1 head x BS rows x 1 page), through a direct-mapped cache
-// keyed by address and shape: a model has a pool pair a layer, and the
-// pools stay put from tick to tick
+// the 4-D map of a pool [NB, BS, Hkv, D] (dims D, Hkv, BS, NB), through a
+// direct-mapped cache keyed by address, shape and element type (a model
+// has a pool pair a layer, and the pools stay put from tick to tick; an
+// int8 pool may take the address a bf16 pool of its shape once had).
+// bf16: box 64 columns x 1 head x BS rows x 1 page, 128-byte swizzle;
+// int8 (Q8): box D columns (D bytes) x 1 x BS x 1, rows as they lie.
 inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
-                            int BS, int Hkv, int D) {
+                            int BS, int Hkv, int D, bool q8) {
   struct Entry {
     const void* base;
-    int NB, BS, Hkv, D;
+    int NB, BS, Hkv, D, es;
     CUtensorMap map;
   };
   static Entry cache[1024];
   static std::mutex lock;
+  const int es = q8 ? 1 : 2;   // bytes an element
   const size_t slot = (reinterpret_cast<uintptr_t>(pool) >> 8) % 1024;
   std::lock_guard<std::mutex> hold(lock);
   Entry& e = cache[slot];
   if (e.base != pool || e.NB != NB || e.BS != BS || e.Hkv != Hkv ||
-      e.D != D) {
+      e.D != D || e.es != es) {
     const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
                                 (cuuint64_t)BS, (cuuint64_t)NB};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                   (cuuint64_t)Hkv * D * 2,
-                                   (cuuint64_t)BS * Hkv * D * 2};
-    const cuuint32_t box[4] = {64, 1, (cuuint32_t)BS, 1};
-    const cudaError_t err = sm90::tmap_bf16(&e.map, pool, 4, dims, strides,
-                                            box);
+    const cuuint64_t strides[3] = {(cuuint64_t)D * es,
+                                   (cuuint64_t)Hkv * D * es,
+                                   (cuuint64_t)BS * Hkv * D * es};
+    const cuuint32_t box[4] = {q8 ? (cuuint32_t)D : 64u, 1, (cuuint32_t)BS,
+                               1};
+    const cudaError_t err =
+        q8 ? sm90::tmap_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                               CU_TENSOR_MAP_SWIZZLE_NONE, pool, 4, dims,
+                               strides, box)
+           : sm90::tmap_bf16(&e.map, pool, 4, dims, strides, box);
     if (err != cudaSuccess) {
       e.base = nullptr;
       return err;
@@ -571,24 +723,25 @@ inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
     e.BS = BS;
     e.Hkv = Hkv;
     e.D = D;
+    e.es = es;
   }
   *map = e.map;
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, bool Q8>
 cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
                      cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, Q8>;
   CUtensorMap tk, tv;
-  cudaError_t err = pool_map(&tk, kp, p.NB, p.BS, p.Hkv, D);
-  if (err == cudaSuccess) err = pool_map(&tv, vp, p.NB, p.BS, p.Hkv, D);
+  cudaError_t err = pool_map(&tk, kp, p.NB, p.BS, p.Hkv, D, Q8);
+  if (err == cudaSuccess) err = pool_map(&tv, vp, p.NB, p.BS, p.Hkv, D, Q8);
   if (err != cudaSuccess) return err;
   int dev;
   const int sms = sm_count(dev);
   static unsigned long long ready = 0;   // the attribute set, a bit a device
   if (dev >= 64 || !(ready >> dev & 1)) {
-    err = cudaFuncSetAttribute(paged_attention_kernel<D>,
+    err = cudaFuncSetAttribute(paged_attention_kernel<D, Q8>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
     if (err != cudaSuccess) return err;
@@ -600,16 +753,19 @@ cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
       (long)p.S * p.Hkv *
       std::max(cdiv(p.MB * p.BS, BN), cdiv(p.w_max, p.TQ));
   const int grid = (int)std::min<long>(most, (long)BLOCKS_PER_SM * sms);
-  paged_attention_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(tk, tv, p);
+  paged_attention_kernel<D, Q8>
+      <<<grid, THREADS, C::SMEM, stream>>>(tk, tv, p);
   return cudaGetLastError();
 }
 
-// the body for bf16 q / pools / out: checks what it takes and launches
-// (w_max rows a slot at most; part holds part_items x NV x (D + 2)
-// floats, NV = min(TQ, w_max) x rep: splits are taken only while every
-// item has a record, and a wave of the grid, 2 x SMs blocks, needs no
-// more)
+// the body for bf16 q / out over bf16 pools, or int8 pools (kp / vp int8
+// data, ks / vs their float32 scales [NB, BS, Hkv]; both null for bf16):
+// checks what it takes and launches (w_max rows a slot at most; part
+// holds part_items x NV x (D + 2) floats, NV = min(TQ, w_max) x rep:
+// splits are taken only while every item has a record, and a wave of the
+// grid, 2 x SMs blocks, needs no more)
 inline cudaError_t launch(const void* q, const void* kp, const void* vp,
+                          const float* ks, const float* vs,
                           const int* tables, const int* ctx,
                           const int* qlens, const int* starts, void* out,
                           float* part, int* counters, int S, int H, int Hkv,
@@ -619,11 +775,13 @@ inline cudaError_t launch(const void* q, const void* kp, const void* vp,
       H / Hkv > MQ || (BS != 8 && BS != 16 && BS != 32) || MB < 1 ||
       NB < 1 || w_max < 1 || part_items < 0 ||
       (part_items > 0 && (part == nullptr || counters == nullptr)) ||
-      (D != 64 && D != 128))
+      (D != 64 && D != 128) || (ks == nullptr) != (vs == nullptr))
     return cudaErrorInvalidValue;
   Params p;
   p.q = (const bf16*)q;
   p.out = (bf16*)out;
+  p.kscale = ks;
+  p.vscale = vs;
   p.tables = tables;
   p.ctx = ctx;
   p.qlens = qlens;
@@ -642,8 +800,11 @@ inline cudaError_t launch(const void* q, const void* kp, const void* vp,
   p.NV = std::min(p.TQ, w_max) * p.rep;
   p.part_items = part_items;
   p.scale_log2 = scale * fa::LOG2E;
-  return D == 64 ? launch_d<64>(kp, vp, p, stream)
-                 : launch_d<128>(kp, vp, p, stream);
+  if (ks != nullptr)
+    return D == 64 ? launch_d<64, true>(kp, vp, p, stream)
+                   : launch_d<128, true>(kp, vp, p, stream);
+  return D == 64 ? launch_d<64, false>(kp, vp, p, stream)
+                 : launch_d<128, false>(kp, vp, p, stream);
 }
 
 }  // namespace

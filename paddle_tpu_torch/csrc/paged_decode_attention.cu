@@ -6,7 +6,8 @@
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _decode_kernel
 // via pallas_paged_attention (K2d, t_q = 1) and via
 // pallas_paged_verify_attention (K2v, t_q = T, linear chain, without the
-// tree mask), floating-point pools.
+// tree mask): floating pools and int8 pools (the `quantized` mode: int8
+// K/V pages and a float32 scale a position and kv head).
 //
 // bfloat16 runs the Hopper body of paged_attention_sm90.cuh (K2r's, a
 // window of T rows a slot: wgmma over a TMA page ring, the split merge
@@ -40,12 +41,16 @@
 // Window token t sees columns < lens + t. P is rounded to the K/V dtype
 // before P @ V (the TPU kernel's p.astype(v.dtype)); the sum l and the
 // accumulation stay float32. A query vector that sees no column (l == 0)
-// writes 0.
+// writes 0. int8 pools: each 4 values are loaded with their row's scale
+// and staged as int8 -> float32 times the scale (the reference's
+// dequantization), so everything after is the float32 recipe, P unrounded
+// (the TPU kernel's float32 dequantized V).
 //
 // Shapes: q and out [S, T, H, D]; pools [NB, BS, Hkv, D]; tables
 // [S, MB], context_lens [S] int32; H = rep * Hkv with T * rep <= 64,
 // T <= 16; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16
-// (bfloat16: S <= 512). Scratch (float32, from the caller): float32
+// (bfloat16: S <= 512); pools of q's dtype, or int8 with float32 scales
+// [NB, BS, Hkv] (bfloat16 q: the Hopper body's int8 mode). Scratch (float32, from the caller): float32
 // n_split * S * T * H * (D + 2), n_split <= 16; bfloat16 as K2r's.
 #include "common.cuh"
 #include "paged_attention_sm90.cuh"
@@ -63,16 +68,6 @@ constexpr int MAX_BS = 32;    // columns staged a step: 32 / BS blocks
 // gives each split one lane, so it could take up to 32
 constexpr int MAX_SPLITS = 16;
 constexpr float MASKED = -1e30f;
-
-// 16 bytes of T held in registers -> float32 (the float32 body's 4
-// floats)
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& v, float* dst);
-template <>
-__device__ __forceinline__ void unpack16<float>(const uint4& v, float* dst) {
-  dst[0] = __uint_as_float(v.x); dst[1] = __uint_as_float(v.y);
-  dst[2] = __uint_as_float(v.z); dst[3] = __uint_as_float(v.w);
-}
 
 // DL consecutive floats of shared memory (DL * 4-byte aligned) in one read
 template <int DL>
@@ -96,16 +91,18 @@ __device__ __forceinline__ int live_blocks(int lens, int TW, int BS,
 
 // the body of both kernels: one (slot, kv head, split) block over a
 // window of TW tokens
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __device__ __forceinline__ void attend_group(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ tables,
+    const T* __restrict__ q, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ tables,
     const int* __restrict__ ctx_lens, T* __restrict__ out,
     float* __restrict__ part, int S, int TW, int H, int Hkv, int BS, int MB,
     int rep, int n_split, float scale) {
   constexpr int DL = D / 32;
   constexpr int DP = D + 4;   // K/V row stride: 16-byte rows, no conflicts
   constexpr int VEC = 16 / sizeof(T);
+  static_assert(VEC == 4, "the float32 body: 4 elements a chunk (Kv4)");
   const int s = blockIdx.x, g = blockIdx.y, split = blockIdx.z;
   const int lens = ctx_lens[s];
   const int nblk = live_blocks(lens, TW, BS, MB);
@@ -138,23 +135,23 @@ __device__ __forceinline__ void attend_group(
     for (int e = 0; e < DL; ++e) acc[qi][e] = 0.f;
   }
 
-  // a step's 32 columns of K and V are LOADS 16-byte chunks a thread:
+  // a step's 32 columns of K and V are LOADS 4-element chunks a thread:
   // all of them are loaded into registers before any is stored, so the
   // loads of a step are in flight together
   constexpr int LOADS = MAX_BS * (D / VEC) / (NW * 32);
   const int JB = 32 / BS;
   for (int j = j0; j < j1; j += JB) {
     const int nchunks = min(JB, j1 - j) * BS * (D / VEC);
-    uint4 kraw[LOADS], vraw[LOADS];
+    Kv4<KV> kraw[LOADS], vraw[LOADS];
 #pragma unroll
     for (int u = 0; u < LOADS; ++u) {
       const int i = tid + u * NW * 32;
       if (i < nchunks) {
         const int c = i / (D / VEC), dd = (i % (D / VEC)) * VEC;
         const size_t b = (size_t)trow[j + c / BS];
-        const size_t off = ((b * BS + c % BS) * Hkv + g) * D + dd;
-        kraw[u] = *reinterpret_cast<const uint4*>(kp + off);
-        vraw[u] = *reinterpret_cast<const uint4*>(vp + off);
+        const size_t row = (b * BS + c % BS) * Hkv + g;   // scale row
+        kraw[u].load(kp + row * D + dd, ks, row);
+        vraw[u].load(vp + row * D + dd, vs, row);
       }
     }
     const int ncols = nchunks / (D / VEC);   // columns staged this step
@@ -165,8 +162,8 @@ __device__ __forceinline__ void attend_group(
       if (i < nchunks) {
         const int c = i / (D / VEC), dd = (i % (D / VEC)) * VEC;
         float kf[VEC], vf[VEC];
-        unpack16<T>(kraw[u], kf);
-        unpack16<T>(vraw[u], vf);
+        kraw[u].to_f(kf);
+        vraw[u].to_f(vf);
         float4* kd = reinterpret_cast<float4*>(k_s + c * DP + dd);
         float4* vd = reinterpret_cast<float4*>(v_s + c * DP + dd);
 #pragma unroll
@@ -206,7 +203,8 @@ __device__ __forceinline__ void attend_group(
         const float p = live ? expf(sc - m_new) : 0.f;
         const float alpha = expf(m[qi] - m_new);
         l[qi] = alpha * l[qi] + warp_sum(p);
-        const float pr = round_t<T>(p);   // P in the K/V dtype
+        // P in the K/V dtype; float32 for int8 pools (dequantized V)
+        const float pr = round_t<T>(p);
 #pragma unroll
         for (int e = 0; e < DL; ++e) acc[qi][e] *= alpha;
         for (int c = 0; c < ncols; ++c) {
@@ -248,27 +246,31 @@ __device__ __forceinline__ void attend_group(
 }
 
 // K2d: one query token per slot (the window of one, known here)
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(NW * 32)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                  const T* __restrict__ vp, const int* __restrict__ tables,
+    decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                  const KV* __restrict__ vp, const float* __restrict__ ks,
+                  const float* __restrict__ vs,
+                  const int* __restrict__ tables,
                   const int* __restrict__ ctx_lens, T* __restrict__ out,
                   float* __restrict__ part, int S, int TW, int H, int Hkv,
                   int BS, int MB, int rep, int n_split, float scale) {
-  attend_group<T, D>(q, kp, vp, tables, ctx_lens, out, part, S, 1, H, Hkv,
-                     BS, MB, rep, n_split, scale);
+  attend_group<T, KV, D>(q, kp, vp, ks, vs, tables, ctx_lens, out, part, S,
+                         1, H, Hkv, BS, MB, rep, n_split, scale);
 }
 
 // K2v: a window of TW tokens per slot
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(NW * 32)
-    verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                  const T* __restrict__ vp, const int* __restrict__ tables,
+    verify_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                  const KV* __restrict__ vp, const float* __restrict__ ks,
+                  const float* __restrict__ vs,
+                  const int* __restrict__ tables,
                   const int* __restrict__ ctx_lens, T* __restrict__ out,
                   float* __restrict__ part, int S, int TW, int H, int Hkv,
                   int BS, int MB, int rep, int n_split, float scale) {
-  attend_group<T, D>(q, kp, vp, tables, ctx_lens, out, part, S, TW, H, Hkv,
-                     BS, MB, rep, n_split, scale);
+  attend_group<T, KV, D>(q, kp, vp, ks, vs, tables, ctx_lens, out, part, S,
+                         TW, H, Hkv, BS, MB, rep, n_split, scale);
 }
 
 // merge the splits of each query vector: one warp per vector, lane sp
@@ -312,23 +314,23 @@ __global__ void __launch_bounds__(NW * 32)
   for (int e = 0; e < DL; ++e) o[lane + 32 * e] = from_f<T>(acc[e] * inv);
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 cudaError_t launch(bool decode, const void* q, const void* kp,
-                   const void* vp, const int* tables, const int* ctx,
-                   void* out, float* part, int S, int TW, int H, int Hkv,
-                   int BS, int MB, int n_split, float scale,
-                   cudaStream_t stream) {
+                   const void* vp, const float* ks, const float* vs,
+                   const int* tables, const int* ctx, void* out, float* part,
+                   int S, int TW, int H, int Hkv, int BS, int MB, int n_split,
+                   float scale, cudaStream_t stream) {
   const int rep = H / Hkv;
   const int nq = TW * rep;
-  auto kernel = decode ? &decode_kernel<T, D> : &verify_kernel<T, D>;
+  auto kernel = decode ? &decode_kernel<T, KV, D> : &verify_kernel<T, KV, D>;
   const size_t smem_max = sizeof(float) * (2 * MAX_BS * (D + 4) + MAX_Q * D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * (2 * MAX_BS * (D + 4) + nq * D);
   kernel<<<dim3(S, Hkv, n_split), NW * 32, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, tables, ctx, (T*)out, part, S,
-      TW, H, Hkv, BS, MB, rep, n_split, scale);
+      (const T*)q, (const KV*)kp, (const KV*)vp, ks, vs, tables, ctx,
+      (T*)out, part, S, TW, H, Hkv, BS, MB, rep, n_split, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   merge_kernel<T, D>
@@ -337,67 +339,81 @@ cudaError_t launch(bool decode, const void* q, const void* kp,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t dispatch_d(bool decode, const void* q, const void* kp,
-                       const void* vp, const int* tables, const int* ctx,
-                       void* out, float* part, int S, int TW, int H, int Hkv,
-                       int D, int BS, int MB, int n_split, float scale,
+                       const void* vp, const float* ks, const float* vs,
+                       const int* tables, const int* ctx, void* out,
+                       float* part, int S, int TW, int H, int Hkv, int D,
+                       int BS, int MB, int n_split, float scale,
                        cudaStream_t stream) {
   if (D == 64)
-    return launch<T, 64>(decode, q, kp, vp, tables, ctx, out, part, S, TW, H,
-                         Hkv, BS, MB, n_split, scale, stream);
+    return launch<T, KV, 64>(decode, q, kp, vp, ks, vs, tables, ctx, out,
+                             part, S, TW, H, Hkv, BS, MB, n_split, scale,
+                             stream);
   if (D == 128)
-    return launch<T, 128>(decode, q, kp, vp, tables, ctx, out, part, S, TW,
-                          H, Hkv, BS, MB, n_split, scale, stream);
+    return launch<T, KV, 128>(decode, q, kp, vp, ks, vs, tables, ctx, out,
+                              part, S, TW, H, Hkv, BS, MB, n_split, scale,
+                              stream);
   return cudaErrorInvalidValue;
 }
 
 int run(bool decode, const void* q, const void* kp, const void* vp,
-        const void* tables, const void* ctx, void* out, void* part,
-        void* counters, int S, int TW, int H, int Hkv, int D, int BS, int MB,
-        int NB, int n_split, float scale, int dtype, void* stream) {
+        const void* ks, const void* vs, const void* tables, const void* ctx,
+        void* out, void* part, void* counters, int S, int TW, int H, int Hkv,
+        int D, int BS, int MB, int NB, int n_split, float scale, int dtype,
+        void* stream) {
   if (S < 1 || TW < 1 || TW > MAX_T || (decode && TW != 1) || Hkv < 1 ||
-      H % Hkv != 0 || TW * (H / Hkv) > MAX_Q)
+      H % Hkv != 0 || TW * (H / Hkv) > MAX_Q ||
+      (ks == nullptr) != (vs == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* tb = (const int*)tables;
   const int* cl = (const int*)ctx;
   float* pp = (float*)part;
+  const float* ksf = (const float*)ks;
+  const float* vsf = (const float*)vs;
   if (dtype == 1)   // the ragged body, TW rows a slot
-    return (int)pa90::launch(q, kp, vp, tb, cl, nullptr, nullptr, out, pp,
-                             (int*)counters, S, H, Hkv, D, BS, MB, NB, TW,
-                             n_split, scale, st);
+    return (int)pa90::launch(q, kp, vp, ksf, vsf, tb, cl, nullptr, nullptr,
+                             out, pp, (int*)counters, S, H, Hkv, D, BS, MB,
+                             NB, TW, n_split, scale, st);
   if (dtype != 0 || BS < 1 || BS > MAX_BS || MAX_BS % BS || MB < 1 ||
       n_split < 1 || n_split > MAX_SPLITS ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch_d<float>(decode, q, kp, vp, tb, cl, out, pp, S, TW,
-                                H, Hkv, D, BS, MB, n_split, scale, st);
+  if (ks != nullptr)
+    return (int)dispatch_d<float, int8_t>(decode, q, kp, vp, ksf, vsf, tb,
+                                          cl, out, pp, S, TW, H, Hkv, D, BS,
+                                          MB, n_split, scale, st);
+  return (int)dispatch_d<float, float>(decode, q, kp, vp, nullptr, nullptr,
+                                       tb, cl, out, pp, S, TW, H, Hkv, D, BS,
+                                       MB, n_split, scale, st);
 }
 
 }  // namespace
 
-// K2d: q and out [S, 1, H, D] (the decode step's [S, H, D]). float32:
-// part is scratch of n_split * S * H * (D + 2) floats (unused and may be
-// null when n_split == 1), counters unused; bfloat16: as K2r's
-// (ragged_paged_attention.cu) with w_max = 1.
+// K2d: q and out [S, 1, H, D] (the decode step's [S, H, D]); kp / vp
+// pools of q's dtype (ks, vs null) or int8 pools with their float32
+// scales ks / vs [NB, BS, Hkv]. float32: part is scratch of n_split * S *
+// H * (D + 2) floats (unused and may be null when n_split == 1),
+// counters unused; bfloat16: as K2r's (ragged_paged_attention.cu) with
+// w_max = 1.
 extern "C" int ptt_paged_decode_attention(
-    const void* q, const void* kp, const void* vp, const void* tables,
-    const void* ctx, void* out, void* part, void* counters, int S, int T,
-    int H, int Hkv, int D, int BS, int MB, int NB, int n_split, float scale,
-    int dtype, void* stream) {
-  return run(true, q, kp, vp, tables, ctx, out, part, counters, S, T, H,
-             Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables, const void* ctx, void* out,
+    void* part, void* counters, int S, int T, int H, int Hkv, int D, int BS,
+    int MB, int NB, int n_split, float scale, int dtype, void* stream) {
+  return run(true, q, kp, vp, ks, vs, tables, ctx, out, part, counters, S,
+             T, H, Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
 }
 
-// K2v: q and out [S, T, H, D], 1 <= T <= 16. float32: part is scratch
-// of n_split * S * T * H * (D + 2) floats (unused and may be null when
-// n_split == 1); bfloat16: as K2r's with w_max = T.
+// K2v: q and out [S, T, H, D], 1 <= T <= 16; pools as K2d's. float32:
+// part is scratch of n_split * S * T * H * (D + 2) floats (unused and may
+// be null when n_split == 1); bfloat16: as K2r's with w_max = T.
 extern "C" int ptt_paged_verify_attention(
-    const void* q, const void* kp, const void* vp, const void* tables,
-    const void* ctx, void* out, void* part, void* counters, int S, int T,
-    int H, int Hkv, int D, int BS, int MB, int NB, int n_split, float scale,
-    int dtype, void* stream) {
-  return run(false, q, kp, vp, tables, ctx, out, part, counters, S, T, H,
-             Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables, const void* ctx, void* out,
+    void* part, void* counters, int S, int T, int H, int Hkv, int D, int BS,
+    int MB, int NB, int n_split, float scale, int dtype, void* stream) {
+  return run(false, q, kp, vp, ks, vs, tables, ctx, out, part, counters, S,
+             T, H, Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
 }

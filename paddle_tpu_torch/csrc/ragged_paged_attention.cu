@@ -4,8 +4,9 @@
 // pool in one call.
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _ragged_kernel
-// (via pallas_ragged_paged_attention), floating-point pools without the
-// tree mask.
+// (via pallas_ragged_paged_attention), without the tree mask: floating
+// pools and int8 pools (the `quantized` mode: int8 K/V pages and a float32
+// scale a position and kv head, dequantized as they are read).
 //
 // bfloat16 runs the Hopper body of paged_attention_sm90.cuh (wgmma over
 // a TMA page ring, the split merge in the same launch); float32 runs the
@@ -45,7 +46,10 @@
 // Shapes: q and out [R, H, D]; pools [NB, BS, Hkv, D]; tables [S, MB],
 // context_lens / q_lens / row_starts [S] int32; H = rep * Hkv with
 // rep <= 64; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16
-// (bfloat16: S <= 512). Rows outside every slot's [row_starts,
+// (bfloat16: S <= 512); pools of q's dtype, or int8 with scales
+// [NB, BS, Hkv] (float32 q: this body reads each 4 int8 values with their
+// scale and stages them in float32, the reference's recipe; bfloat16 q:
+// the Hopper body's int8 mode). Rows outside every slot's [row_starts,
 // row_starts + q_lens) are not written. Scratch (float32, from the
 // caller): float32 n_split * R * H * (D + 2), n_split <= 32; bfloat16
 // below.
@@ -71,10 +75,12 @@ __device__ __forceinline__ size_t qv_offset(int row0, int t0, int qv,
   return (size_t)(row0 + t) * H + g * rep + ri;   // in units of vectors
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(NW * 32)
-    ragged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                  const T* __restrict__ vp, const int* __restrict__ tables,
+    ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                  const KV* __restrict__ vp, const float* __restrict__ ks,
+                  const float* __restrict__ vs,
+                  const int* __restrict__ tables,
                   const int* __restrict__ ctx_lens,
                   const int* __restrict__ qlens,
                   const int* __restrict__ starts, T* __restrict__ out,
@@ -83,6 +89,7 @@ __global__ void __launch_bounds__(NW * 32)
   constexpr int DL = D / 32;
   constexpr int DP = D + 1;
   constexpr int VEC = 16 / sizeof(T);
+  static_assert(VEC == 4, "the float32 body: 4 elements a chunk (Kv4)");
   const int s = blockIdx.x, g = blockIdx.y;
   const int tile = blockIdx.z / n_split, split = blockIdx.z % n_split;
   const int ql = qlens[s];
@@ -128,10 +135,13 @@ __global__ void __launch_bounds__(NW * 32)
     for (int i = tid; i < ncols * (D / VEC); i += NW * 32) {
       const int c = i / (D / VEC), dd = (i % (D / VEC)) * VEC;
       const size_t b = (size_t)trow[j + c / BS];
-      const size_t off = ((b * BS + c % BS) * Hkv + g) * D + dd;
+      const size_t row = (b * BS + c % BS) * Hkv + g;   // scale row
+      Kv4<KV> kr, vr;
+      kr.load(kp + row * D + dd, ks, row);
+      vr.load(vp + row * D + dd, vs, row);
       float kv[VEC], vv[VEC];
-      load_vec<T>(kp + off, kv);
-      load_vec<T>(vp + off, vv);
+      kr.to_f(kv);
+      vr.to_f(vv);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         k_s[c * DP + dd + e] = kv[e];
@@ -247,8 +257,9 @@ __global__ void __launch_bounds__(NW * 32)
   for (int e = 0; e < DL; ++e) o[lane + 32 * e] = from_f<T>(acc[e] * inv);
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const float* ks, const float* vs,
                    const int* tables, const int* ctx, const int* qlens,
                    const int* starts, void* out, float* part, int R, int S,
                    int H, int Hkv, int BS, int MB, int w_max, int n_split,
@@ -259,11 +270,12 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   dim3 grid(S, Hkv, n_tiles * n_split);
   const size_t smem = sizeof(float) * (MAX_Q * D + 2 * MAX_BS * (D + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ragged_kernel<T, KV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ragged_kernel<T, D><<<grid, NW * 32, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, tables, ctx, qlens, starts,
+  ragged_kernel<T, KV, D><<<grid, NW * 32, smem, stream>>>(
+      (const T*)q, (const KV*)kp, (const KV*)vp, ks, vs, tables, ctx, qlens,
+      starts,
       (T*)out, part, R, H, Hkv, BS, MB, rep, TQ, n_split, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
@@ -273,33 +285,36 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t dispatch_d(const void* q, const void* kp, const void* vp,
-                       const int* tables, const int* ctx, const int* qlens,
-                       const int* starts, void* out, float* part, int R,
-                       int S, int H, int Hkv, int D, int BS, int MB,
-                       int w_max, int n_split, float scale,
-                       cudaStream_t stream) {
+                       const float* ks, const float* vs, const int* tables,
+                       const int* ctx, const int* qlens, const int* starts,
+                       void* out, float* part, int R, int S, int H, int Hkv,
+                       int D, int BS, int MB, int w_max, int n_split,
+                       float scale, cudaStream_t stream) {
   if (D == 64)
-    return launch<T, 64>(q, kp, vp, tables, ctx, qlens, starts, out, part,
-                         R, S, H, Hkv, BS, MB, w_max, n_split, scale,
-                         stream);
+    return launch<T, KV, 64>(q, kp, vp, ks, vs, tables, ctx, qlens, starts,
+                             out, part, R, S, H, Hkv, BS, MB, w_max, n_split,
+                             scale, stream);
   if (D == 128)
-    return launch<T, 128>(q, kp, vp, tables, ctx, qlens, starts, out, part,
-                          R, S, H, Hkv, BS, MB, w_max, n_split, scale,
-                          stream);
+    return launch<T, KV, 128>(q, kp, vp, ks, vs, tables, ctx, qlens, starts,
+                              out, part, R, S, H, Hkv, BS, MB, w_max,
+                              n_split, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// float32: part is scratch of n_split * R * H * (D + 2) floats (unused
-// and may be null when n_split == 1), counters unused. bfloat16: n_split
-// is the split records part holds, each NV * (D + 2) floats, NV =
-// min(64 / rep, w_max) * rep (2 x SMs records take every split the body
-// makes; 0: none), counters S * Hkv zeros, left zero.
+// kp / vp: pools of q's dtype (ks, vs null), or int8 pools with their
+// float32 scales ks / vs [NB, BS, Hkv]. float32: part is scratch of
+// n_split * R * H * (D + 2) floats (unused and may be null when n_split
+// == 1), counters unused. bfloat16: n_split is the split records part
+// holds, each NV * (D + 2) floats, NV = min(64 / rep, w_max) * rep (2 x
+// SMs records take every split the body makes; 0: none), counters S *
+// Hkv zeros, left zero.
 extern "C" int ptt_ragged_paged_attention(
-    const void* q, const void* kp, const void* vp, const void* tables,
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables,
     const void* ctx, const void* qlens, const void* starts, void* out,
     void* part, void* counters, int R, int S, int H, int Hkv, int D, int BS,
     int MB, int NB, int w_max, int n_split, float scale, int dtype,
@@ -310,10 +325,13 @@ extern "C" int ptt_ragged_paged_attention(
   const int* qls = (const int*)qlens;
   const int* rs = (const int*)starts;
   float* pp = (float*)part;
+  const float* ksf = (const float*)ks;
+  const float* vsf = (const float*)vs;
+  if ((ks == nullptr) != (vs == nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (R < 1 || qls == nullptr || rs == nullptr)
       return (int)cudaErrorInvalidValue;
-    return (int)pa90::launch(q, kp, vp, tb, cl, qls, rs, out, pp,
+    return (int)pa90::launch(q, kp, vp, ksf, vsf, tb, cl, qls, rs, out, pp,
                              (int*)counters, S, H, Hkv, D, BS, MB, NB, w_max,
                              n_split, scale, st);
   }
@@ -322,7 +340,11 @@ extern "C" int ptt_ragged_paged_attention(
       n_split < 1 || n_split > MAX_SPLITS ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch_d<float>(q, kp, vp, tb, cl, qls, rs, out, pp, R, S,
-                                H, Hkv, D, BS, MB, w_max, n_split, scale,
-                                st);
+  if (ks != nullptr)
+    return (int)dispatch_d<float, int8_t>(q, kp, vp, ksf, vsf, tb, cl, qls,
+                                          rs, out, pp, R, S, H, Hkv, D, BS,
+                                          MB, w_max, n_split, scale, st);
+  return (int)dispatch_d<float, float>(q, kp, vp, nullptr, nullptr, tb, cl,
+                                       qls, rs, out, pp, R, S, H, Hkv, D, BS,
+                                       MB, w_max, n_split, scale, st);
 }

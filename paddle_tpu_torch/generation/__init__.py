@@ -21,10 +21,14 @@ scalar path. Sampling draws from an explicit ``torch.Generator``
 (``generate()`` seeds one with ``seed``): the same seed gives the same
 tokens on the same device, but not the reference's JAX draws.
 
+``kv_cache_dtype="int8"`` keeps the paged cache (and both models' pools
+under speculation) in int8 with a float32 scale a position and kv head;
+it selects the paged cache, and refuses an explicit dense one.
+
 Not in this slice (each raises ``NotImplementedError``): beam and
-group-beam search, ``export_generation`` / ``load_generation``, tree
-speculation (``spec_tree``) and int8 KV pools. The reference's env
-switches are not carried over; the port follows their defaults.
+group-beam search, ``export_generation`` / ``load_generation`` and tree
+speculation (``spec_tree``). The reference's env switches are not
+carried over; the port follows their defaults.
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ class GenerationConfig:
     # dense | paged (the serving block pool, K2d each decode step)
     cache_impl: str = "dense"
     kv_block_size: int = 16
-    # None / "auto": pools in the model dtype ("int8": a later slice)
+    # None / "auto": pools in the model dtype; "int8": int8 pools (paged)
     kv_cache_dtype: Optional[str] = None
     # left-pad dense-path prompts up to power-of-two length buckets
     pad_prompt_to_bucket: bool = True
@@ -145,15 +149,17 @@ def _later(what):
         f"{what} comes with a later slice of the PyTorch port")
 
 
-def _paged_prefill(model, ids, mb, block_size):
+def _paged_prefill(model, ids, mb, block_size, kv_cache_dtype=None):
     """Contiguous static block tables ``[B, mb]`` (``generate()`` owns
     the whole pool; block 0 stays null) and fresh pools holding the
-    prompt's K/V: the prompt prefills through the dense cached path and
-    its K/V scatter into the blocks. Returns ``(logits, tables, pools)``."""
+    prompt's K/V (int8 pools with ``kv_cache_dtype="int8"``): the prompt
+    prefills through the dense cached path and its K/V scatter into the
+    blocks. Returns ``(logits, tables, pools)``."""
     b = ids.shape[0]
     tables = (1 + torch.arange(b * mb, dtype=torch.int32,
                                device=ids.device)).reshape(b, mb)
-    pools = model.init_paged_caches(1 + b * mb, block_size)
+    kw = {"kv_cache_dtype": kv_cache_dtype} if kv_cache_dtype else {}
+    pools = model.init_paged_caches(1 + b * mb, block_size, **kw)
     logits, dense = model(ids, caches=model.init_caches(*ids.shape),
                           offset=0)
     for (kp, vp), (dk, dv) in zip(pools, dense):
@@ -248,14 +254,15 @@ class GenerationMixin:
         return _decode_loop(step, select(logits[:, -1, :]), caches, max_new,
                             select, eos, pad)
 
-    def _run_paged(self, ids, max_new, select, eos, pad, block_size):
+    def _run_paged(self, ids, max_new, select, eos, pad, block_size,
+                   kv_cache_dtype=None):
         """The paged twin of :meth:`_run_dense`: the prompt's K/V go into
         a block pool (:func:`_paged_prefill`) and each decode step writes
         and attends through the pool (K2d)."""
         b, prompt_len = ids.shape
         logits, tables, pools = _paged_prefill(
             self, ids, _pc.blocks_for(prompt_len + max_new, block_size),
-            block_size)
+            block_size, kv_cache_dtype)
 
         def step(i, tok, pools):
             lens = torch.full((b,), prompt_len - 1 + i, dtype=torch.int32,
@@ -318,8 +325,15 @@ class GenerationMixin:
                 f"cache_impl {cache_impl!r}; supported: dense, paged")
         kv_req = kv_cache_dtype if kv_cache_dtype is not None \
             else cfg.kv_cache_dtype
-        if kv_req not in (None, "auto"):
-            raise _later(f"kv_cache_dtype={kv_req!r} (int8 KV pools)")
+        # an int8 pool needs the paged cache: an explicit request rides it,
+        # and an explicit dense cache with it is refused
+        kv_dtype = _pc.resolve_kv_cache_dtype(kv_req)
+        if kv_dtype is not None:
+            if explicit_cache_impl == "dense":
+                raise ValueError(
+                    "kv_cache_dtype requires the paged cache; it cannot "
+                    "run with an explicit cache_impl='dense'")
+            cache_impl = "paged"
         if spec_tree is not None:
             raise _later("spec_tree (tree speculation)")
         if pad_prompt_to_bucket is None:
@@ -411,13 +425,14 @@ class GenerationMixin:
                 temperature=temperature, top_k=top_k, top_p=top_p, eos=eos,
                 pad=pad, block_size=block_size, draft_model=draft_model,
                 ngram_max=int(cfg.spec_ngram_max if spec_ngram_max is None
-                              else spec_ngram_max))
+                              else spec_ngram_max),
+                kv_cache_dtype=kv_dtype)
             out, score = runner.run(ids, gen)
             return (torch.from_numpy(out).to(dev),
                     torch.from_numpy(score).to(dev))
         if cache_impl == "paged":
             return self._run_paged(ids, max_new, select, eos, pad,
-                                   block_size)
+                                   block_size, kv_dtype)
         # power-of-two prompt bucketing: left-pad the prompt (masked,
         # per-row rope rebase), as the reference does so that every
         # length in a bucket reuses one compiled loop

@@ -233,13 +233,14 @@ class SpecGenerator:
 
     def __init__(self, model, b, prompt_len, max_new, gamma, *, do_sample,
                  temperature, top_k, top_p, eos, pad, block_size,
-                 draft_model=None, ngram_max=3):
+                 draft_model=None, ngram_max=3, kv_cache_dtype=None):
         self.model, self.draft_model = model, draft_model
         self.b, self.max_new, self.gamma = b, int(max_new), int(gamma)
         self.prompt_len = int(prompt_len)
         self.eos, self.pad = int(eos), int(pad)
         self.ngram_max = int(ngram_max)
         self.block_size = int(block_size)
+        self.kv_cache_dtype = kv_cache_dtype    # both models' pools
         self.mb = _pc.blocks_for(prompt_len + max_new + gamma, block_size)
         knobs = dict(do_sample=do_sample, temperature=temperature,
                      top_k=top_k, top_p=top_p)
@@ -259,13 +260,15 @@ class SpecGenerator:
         b, g, eos = self.b, self.gamma, self.eos
         dev = ids.device
         logits, tables, pools = _paged_prefill(self.model, ids, self.mb,
-                                               self.block_size)
+                                               self.block_size,
+                                               self.kv_cache_dtype)
         tok0, logp0 = self._select(logits[:, -1, :], generator)
         del logits
         dpools = None
         if self.draft_model is not None:
             _, _, dpools = _paged_prefill(self.draft_model, ids, self.mb,
-                                          self.block_size)
+                                          self.block_size,
+                                          self.kv_cache_dtype)
         tok0 = tok0.cpu().numpy()
         emitted = [[int(t)] for t in tok0]
         scores = [float(v) for v in logp0.cpu().numpy()]

@@ -18,8 +18,16 @@ routing is dropless; ``stats()`` then reports the routing of the tick's
 sparse layers from their device-side expert counts, read back once per
 tick together with the tick's tokens.
 
-Later slices bring speculation, the prefix cache, int8 KV, preemption
-and the host tier, the async tick, multi-LoRA, tensor parallelism,
+``ServingConfig(kv_cache_dtype="int8")`` serves from int8 pools
+(:class:`~paddle_tpu_torch.ops.paged_cache.QuantKV`: ~0.53x the bf16
+pool's bytes): each tick's K/V rows are quantized as they are stored,
+and K2r reads the int8 pages. ``stats()`` reports ``kv_cache_dtype``,
+``kv_pool_bytes`` (data and scales, every layer) and
+``kv_bytes_per_step`` (the last tick's attended positions times the
+bytes a cached position costs), whatever the pool.
+
+Later slices bring speculation, the prefix cache, preemption and the
+host tier, the async tick, multi-LoRA, tensor parallelism,
 health monitoring and the cluster; a config field or argument asking
 for one of them raises ``NotImplementedError`` naming that slice.
 """
@@ -51,7 +59,6 @@ _LATER = {
     "enable_prefix_cache": (False, "the prefix cache"),
     "chunked_prefill": (True, "bucketed (unchunked) prefill"),
     "ragged_batch": (True, "the per-width executable path"),
-    "kv_cache_dtype": (None, "the int8 KV pool"),
     "enable_preemption": (False, "preemption and the host KV tier"),
     "async_depth": (None, "the async tick pipeline"),
     "lora_rank": (0, "multi-LoRA serving"),
@@ -82,13 +89,15 @@ class ServingConfig:
     # moe_expert_load_max): each sparse layer's expert counts, read back
     # with the tick's tokens. False skips the collection.
     moe_telemetry: bool = True
+    # KV-pool storage: None / "auto" = the model dtype; "int8" = int8
+    # data + a float32 absmax scale a (block, position, kv head)
+    kv_cache_dtype: Optional[str] = None
     # -- later slices: accepted only at their off value ------------------
     num_speculative_tokens: int = 0
     spec_tree: Optional[tuple] = None
     enable_prefix_cache: bool = False
     chunked_prefill: bool = True
     ragged_batch: bool = True
-    kv_cache_dtype: Optional[str] = None
     enable_preemption: bool = False
     async_depth: Optional[int] = None
     lora_rank: int = 0
@@ -104,6 +113,7 @@ class ServingConfig:
                     f"ServingConfig({name}={v!r}) asks for {what}, which "
                     "comes with a later slice of the PyTorch port; this "
                     "engine serves the core ragged tick only")
+        _pc.resolve_kv_cache_dtype(self.kv_cache_dtype)   # ValueError
         if self.decode_strategy not in ("greedy_search", "sampling"):
             raise NotImplementedError(
                 f"decode_strategy {self.decode_strategy!r}; supported: "
@@ -213,7 +223,16 @@ class ServingEngine:
         # pad rows (none today: the port packs live rows only) would park
         # past every table's reach, where writes null-route
         self._overflow = self._mb * self._bs
-        self._pools = model.init_paged_caches(nb, self._bs)
+        self._kv_dtype = _pc.resolve_kv_cache_dtype(cfg.kv_cache_dtype)
+        kw = {"kv_cache_dtype": self._kv_dtype} if self._kv_dtype else {}
+        self._pools = model.init_paged_caches(nb, self._bs, **kw)
+        k0 = self._pools[0][0]
+        self._kv_dtype_name = self._kv_dtype or str(k0.dtype).replace(
+            "torch.", "")
+        self._kv_pool_bytes = _pc.pool_bytes(self._pools)
+        # bytes one cached position costs over every layer's K and V
+        self._kv_pos_bytes = self._kv_pool_bytes / float(nb * self._bs)
+        self._kv_step_bytes_last = 0
         self._tables = np.zeros((cfg.num_slots, self._mb), np.int32)
         self._tables_dev = None
         self._slots: List[Optional[_Slot]] = [None] * cfg.num_slots
@@ -339,6 +358,10 @@ class ServingEngine:
             "moe_dispatches": self._n_moe_dispatches,
             "moe_routing_entropy": self._moe_ent_last,
             "moe_expert_load_max": self._moe_load_max_last,
+            # the KV pool's keys are present whatever its dtype
+            "kv_cache_dtype": self._kv_dtype_name,
+            "kv_pool_bytes": self._kv_pool_bytes,
+            "kv_bytes_per_step": self._kv_step_bytes_last,
             "ttft_ms": {
                 "count": int(ttft.size),
                 "mean": float(ttft.mean()) if ttft.size else 0.0,
@@ -444,6 +467,10 @@ class ServingEngine:
             self._moe_fused = True
         self._n_ticks += 1
         self._n_rows += total
+        # packed row t of slot s attends base[s] + t + 1 positions
+        self._kv_step_bytes_last = int(
+            (int((q_lens * base).sum())
+             + int((q_lens * (q_lens + 1) // 2).sum())) * self._kv_pos_bytes)
 
         # -- commit decode rows ------------------------------------------
         for i in active:

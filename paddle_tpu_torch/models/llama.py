@@ -547,12 +547,17 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         return [(torch.zeros(shape, **mk), torch.zeros(shape, **mk))
                 for _ in range(cfg.num_hidden_layers)]
 
-    def init_paged_caches(self, num_blocks: int, block_size: int):
+    def init_paged_caches(self, num_blocks: int, block_size: int,
+                          kv_cache_dtype=None):
         """Zeroed per-layer ``(k_pool, v_pool)``, each
-        ``[num_blocks, block_size, H_kv, D]`` in the model dtype (block
-        0 is the null block)."""
+        ``[num_blocks, block_size, H_kv, D]`` (block 0 is the null
+        block): in the model dtype, or with ``kv_cache_dtype="int8"``
+        int8 :class:`~paddle_tpu_torch.ops.paged_cache.QuantKV` pools
+        (data + a float32 scale a position and kv head)."""
         cfg = self.config
+        dtype = "int8" if _pc.resolve_kv_cache_dtype(kv_cache_dtype) \
+            else cfg.torch_dtype
         return [_pc.init_pool(num_blocks, block_size,
                               cfg.num_key_value_heads, cfg.head_dim,
-                              cfg.torch_dtype, self.device)
+                              dtype, self.device)
                 for _ in range(cfg.num_hidden_layers)]

@@ -16,7 +16,12 @@ The plain versions are the reference's gather fallbacks
 gather of every slot's blocks, float32 scores times the scale, an
 additive ``-1e9`` bias past the bound, softmax, the weights cast to
 ``q``'s dtype before the P @ V product in that dtype. That recipe is
-what makes paged greedy decoding give the dense path's tokens.
+what makes paged greedy decoding give the dense path's tokens. With
+int8 pools (two :class:`~paddle_tpu_torch.ops.paged_cache.QuantKV`) the
+recipe is the reference's quantized one: the gather dequantizes to
+float32 and everything stays float32 through both products (P is not
+rounded); the kernels' launches are then counted as
+``paged_decode_attention_int8`` / ``paged_verify_attention_int8``.
 """
 from __future__ import annotations
 
@@ -26,8 +31,9 @@ import math
 import torch
 
 from . import _build, launch_counts, no_backward
-from ..paged_cache import gather_dense
-from .ragged_paged_attention import (SM90_MAX_SLOTS, sm_count, sm90_scratch,
+from ..paged_cache import QuantKV, gather_dense
+from .ragged_paged_attention import (SM90_MAX_SLOTS, pool_operands,
+                                     sm_count, sm90_scratch,
                                      sm90_scratch_sizes)
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
@@ -51,17 +57,19 @@ def plain_paged_verify_attention(q, k_pool, v_pool, block_tables,
     hkv = k_pool.shape[2]
     rep = h // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    # int8 pools: float32 through both products (the reference's recipe)
+    ad = torch.float32 if isinstance(k_pool, QuantKV) else q.dtype
     k = gather_dense(k_pool, block_tables)          # [S, L, Hkv, D]
     v = gather_dense(v_pool, block_tables)
     q6 = q.reshape(s, t, hkv, rep, d)
     scores = torch.einsum("stgrd,slgd->sgtrl", q6.float(),
-                          k.to(q.dtype).float()) * scale
+                          k.to(ad).float()) * scale
     pos = torch.arange(k.shape[1], device=q.device)
     bound = context_lens.long()[:, None] + torch.arange(t, device=q.device)
     allow = pos[None, None, :] < bound[:, :, None]            # [S, T, L]
     bias = torch.where(allow, 0.0, -1e9)
-    w = torch.softmax(scores + bias[:, None, :, None, :], dim=-1).to(q.dtype)
-    out = torch.einsum("sgtrl,slgd->stgrd", w, v.to(q.dtype))
+    w = torch.softmax(scores + bias[:, None, :, None, :], dim=-1).to(ad)
+    out = torch.einsum("sgtrl,slgd->stgrd", w, v.to(ad))
     return out.to(q.dtype).reshape(s, t, h, d)
 
 
@@ -79,7 +87,7 @@ def _lib():
         lib = _build.load("paged_decode_attention")
         for fn in (lib.ptt_paged_decode_attention,
                    lib.ptt_paged_verify_attention):
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -87,10 +95,10 @@ def _lib():
 
 
 def _check(q4, k_pool, v_pool, block_tables, context_lens):
-    """Raise on what the kernels do not take; ``q4`` is ``[S, T, H, D]``."""
+    """Raise on what the kernels do not take; ``q4`` is ``[S, T, H, D]``.
+    Returns the pool operands (:func:`pool_operands`)."""
     dev = q4.device
-    for name, t in (("q", q4), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables),
+    for name, t in (("q", q4), ("block_tables", block_tables),
                     ("context_lens", context_lens)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
@@ -99,18 +107,16 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
     if q4.dtype not in _DTYPES:
         raise TypeError(f"q dtype {q4.dtype}: the kernel takes float32 or "
                         "bfloat16")
-    if k_pool.dtype != q4.dtype or v_pool.dtype != q4.dtype:
-        raise TypeError("pools must share q's dtype (quantized pools come "
-                        "with a later port slice)")
+    kd, vd, ks, vs = pool_operands(q4, k_pool, v_pool)
     for name, t in (("block_tables", block_tables),
                     ("context_lens", context_lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError(f"pools {tuple(k_pool.shape)} / "
-                         f"{tuple(v_pool.shape)}: want [NB, BS, Hkv, D]")
+    if kd.dim() != 4 or kd.shape != vd.shape:
+        raise ValueError(f"pools {tuple(kd.shape)} / "
+                         f"{tuple(vd.shape)}: want [NB, BS, Hkv, D]")
     s, t, h, d = q4.shape
-    _, bs, hkv, d2 = k_pool.shape
+    _, bs, hkv, d2 = kd.shape
     if d2 != d or d not in (64, 128):
         raise ValueError(f"head_dim {d} (pool {d2}): the kernel takes 64 "
                          "or 128")
@@ -125,11 +131,12 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
     if block_tables.dim() != 2 or block_tables.shape[0] != s \
             or tuple(context_lens.shape) != (s,):
         raise ValueError("block_tables must be [S, MB] and context_lens [S]")
-    if any(x.data_ptr() % 16 for x in (q4, k_pool, v_pool)):
-        raise ValueError("q and the pools must be 16-byte aligned")
+    if q4.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     if q4.dtype == torch.bfloat16 and s > SM90_MAX_SLOTS:
         raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
                          f"{SM90_MAX_SLOTS}")
+    return kd, vd, ks, vs
 
 
 def _n_split(q4, block_tables, block_size):
@@ -143,11 +150,13 @@ def _n_split(q4, block_tables, block_size):
     return max(1, min(MAX_SPLITS, reach // SPLIT_POSITIONS, want))
 
 
-def _launch(entry, q4, k_pool, v_pool, block_tables, context_lens,
-            sm_scale):
-    _check(q4, k_pool, v_pool, block_tables, context_lens)
+def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
+            context_lens, sm_scale):
+    """Check and launch; a launch adds one to ``launch_counts[counter]``
+    (``counter + "_int8"`` on int8 pools)."""
+    kd, vd, ks, vs = _check(q4, k_pool, v_pool, block_tables, context_lens)
     s, t, h, d = q4.shape
-    nb, bs, hkv, _ = k_pool.shape
+    nb, bs, hkv, _ = kd.shape
     mb = block_tables.shape[1]
     out = torch.empty_like(q4)
     if s == 0:
@@ -165,12 +174,13 @@ def _launch(entry, q4, k_pool, v_pool, block_tables, context_lens,
             if n_split > 1 else None
     ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     rc = getattr(_lib(), entry)(
-        q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q4.data_ptr(), kd.data_ptr(), vd.data_ptr(), ptr(ks), ptr(vs),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         ptr(part), ptr(cnt), s, t, h, hkv, d, bs, mb, nb, n_split,
         float(scale), _DTYPES[q4.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed (cudaError {rc})")
+    launch_counts[counter + ("_int8" if ks is not None else "")] += 1
     return out
 
 
@@ -186,10 +196,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
         raise ValueError(f"unsupported device {q.device}")
     if q.dim() != 3:
         raise ValueError(f"q {tuple(q.shape)}: want [S, H, D]")
-    out = _launch("ptt_paged_decode_attention", q[:, None], k_pool, v_pool,
-                  block_tables, context_lens, sm_scale)
-    launch_counts["paged_decode_attention"] += 1
-    return out[:, 0]
+    return _launch("ptt_paged_decode_attention", "paged_decode_attention",
+                   q[:, None], k_pool, v_pool, block_tables, context_lens,
+                   sm_scale)[:, 0]
 
 
 @no_backward("paged_verify_attention (K2v)")
@@ -204,7 +213,5 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, context_lens,
         raise ValueError(f"unsupported device {q.device}")
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}: want [S, T, H, D]")
-    out = _launch("ptt_paged_verify_attention", q, k_pool, v_pool,
-                  block_tables, context_lens, sm_scale)
-    launch_counts["paged_verify_attention"] += 1
-    return out
+    return _launch("ptt_paged_verify_attention", "paged_verify_attention",
+                   q, k_pool, v_pool, block_tables, context_lens, sm_scale)

@@ -10,6 +10,14 @@ q_lens[s]``, and its row ``t`` attends the first ``context_lens[s] + t``
 positions of the slot's blocks in the pool ``[NB, BS, H_kv, D]``.
 Rows that belong to no slot are left unwritten by the kernel (zero in
 the plain version): callers read live rows only.
+
+The pools are floating tensors of ``q``'s dtype, or a pair of
+:class:`~paddle_tpu_torch.ops.paged_cache.QuantKV` (int8 pages and a
+float32 scale a position and kv head), which the kernel dequantizes as
+it reads them; its launches are then counted as
+``ragged_paged_attention_int8``. The int8 recipe is the reference's
+(``_dequant_tile``): ``q`` in float32, each page int8 -> float32 times
+its scale, both products in float32 with P not rounded.
 """
 from __future__ import annotations
 
@@ -19,9 +27,11 @@ import math
 import torch
 
 from . import _build, launch_counts, no_backward
+from ..paged_cache import QuantKV, kv_dequantize
 
 __all__ = ["ragged_paged_attention", "plain_ragged_paged_attention",
-           "sm90_scratch_sizes", "sm90_scratch", "sm_count"]
+           "sm90_scratch_sizes", "sm90_scratch", "sm_count",
+           "pool_operands"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -55,8 +65,8 @@ def plain_ragged_paged_attention(q, k_pool, v_pool, block_tables,
         r0 = rs[s]
         nb = min(-(-(cl[s] + n - 1) // bs), block_tables.shape[1])
         ids = block_tables[s, :nb].long()
-        ks = k_pool[ids].reshape(nb * bs, hkv, d).float()
-        vs = v_pool[ids].reshape(nb * bs, hkv, d).float()
+        ks = _pages(k_pool, ids).reshape(nb * bs, hkv, d)
+        vs = _pages(v_pool, ids).reshape(nb * bs, hkv, d)
         qs = q[r0:r0 + n].float().reshape(n, hkv, rep, d)
         sc = torch.einsum("tgrd,lgd->tgrl", qs, ks) * scale
         cols = torch.arange(nb * bs, device=q.device)
@@ -67,6 +77,13 @@ def plain_ragged_paged_attention(q, k_pool, v_pool, block_tables,
         o = torch.einsum("tgrl,lgd->tgrd", w, vs)
         out[r0:r0 + n] = o.reshape(n, h, d).to(q.dtype)
     return out
+
+
+def _pages(pool, ids):
+    """The pages ``ids`` of a pool in float32 (an int8 pool dequantized)."""
+    if isinstance(pool, QuantKV):
+        return kv_dequantize(pool.data[ids], pool.scale[ids])
+    return pool[ids].float()
 
 
 def sm90_scratch_sizes(slots, kv_heads, rep, w_max, head_dim, sms):
@@ -107,18 +124,57 @@ def _lib():
     if _LIB is None:
         lib = _build.load("ragged_paged_attention")
         fn = lib.ptt_ragged_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
+def pool_operands(q, k_pool, v_pool):
+    """The kernels' pool operands ``(k data, v data, k scale, v scale)``:
+    floating pools of ``q``'s dtype (scales None), or two int8
+    :class:`QuantKV` of the same shape (int8 data, float32 scales
+    ``[NB, BS, Hkv]``); each on ``q``'s device, contiguous and 16-byte
+    aligned. Raises on anything else, mixed pools included."""
+    quant = isinstance(k_pool, QuantKV)
+    if quant != isinstance(v_pool, QuantKV):
+        raise TypeError("mixed pools: K and V must both be int8 QuantKV "
+                        "pools or both floating")
+    if quant:
+        kd, vd, ks, vs = k_pool.data, v_pool.data, k_pool.scale, \
+            v_pool.scale
+        if kd.dtype != torch.int8 or vd.dtype != torch.int8 \
+                or ks.dtype != torch.float32 or vs.dtype != torch.float32:
+            raise TypeError("int8 pools hold int8 data and float32 scales")
+        if kd.dim() != 4 or tuple(ks.shape) != tuple(kd.shape[:3]) \
+                or tuple(vs.shape) != tuple(vd.shape[:3]):
+            raise ValueError(f"int8 pools: data {tuple(kd.shape)} / "
+                             f"{tuple(vd.shape)} want [NB, BS, Hkv, D], "
+                             f"scales {tuple(ks.shape)} / "
+                             f"{tuple(vs.shape)} want [NB, BS, Hkv]")
+    else:
+        kd, vd, ks, vs = k_pool, v_pool, None, None
+        if kd.dtype != q.dtype or vd.dtype != q.dtype:
+            raise TypeError(f"pools {kd.dtype} / {vd.dtype}: floating "
+                            f"pools must share q's dtype ({q.dtype})")
+    for name, t in (("k_pool", kd), ("v_pool", vd), ("k_scale", ks),
+                    ("v_scale", vs)):
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return kd, vd, ks, vs
+
+
 def _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
            row_starts):
     dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables),
+    for name, t in (("block_tables", block_tables),
                     ("context_lens", context_lens), ("q_lens", q_lens),
                     ("row_starts", row_starts)):
         if t.device != dev:
@@ -130,20 +186,18 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
     if q.dtype not in _DTYPES:
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
                         "bfloat16")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("pools must share q's dtype (quantized pools come "
-                        "with a later port slice)")
+    kd, vd, ks, vs = pool_operands(q, k_pool, v_pool)
     for name, t in (("block_tables", block_tables),
                     ("context_lens", context_lens), ("q_lens", q_lens),
                     ("row_starts", row_starts)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+    if q.dim() != 3 or kd.dim() != 4 or kd.shape != vd.shape:
         raise ValueError(f"shapes: q {tuple(q.shape)} (want [R, H, D]), "
-                         f"pools {tuple(k_pool.shape)} / "
-                         f"{tuple(v_pool.shape)} (want [NB, BS, Hkv, D])")
+                         f"pools {tuple(kd.shape)} / "
+                         f"{tuple(vd.shape)} (want [NB, BS, Hkv, D])")
     r, h, d = q.shape
-    _, bs, hkv, d2 = k_pool.shape
+    _, bs, hkv, d2 = kd.shape
     s = block_tables.shape[0]
     if d2 != d or d not in (64, 128):
         raise ValueError(f"head_dim {d} (pool {d2}): the kernel takes 64 "
@@ -156,11 +210,12 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
     if not (context_lens.shape == q_lens.shape == row_starts.shape
             == (s,)):
         raise ValueError("context_lens, q_lens and row_starts must be [S]")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError("q and the pools must be 16-byte aligned")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     if q.dtype == torch.bfloat16 and s > SM90_MAX_SLOTS:
         raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
                          f"{SM90_MAX_SLOTS}")
+    return kd, vd, ks, vs
 
 
 def _n_split(block_tables, block_size):
@@ -182,10 +237,10 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
             row_starts, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
-           row_starts)
+    kd, vd, ks, vs = _check(q, k_pool, v_pool, block_tables, context_lens,
+                            q_lens, row_starts)
     r, h, d = q.shape
-    nb, bs, hkv, _ = k_pool.shape
+    nb, bs, hkv, _ = kd.shape
     s, mb = block_tables.shape
     w_max = int(w_max)
     out = torch.empty_like(q)
@@ -203,7 +258,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                            dtype=torch.float32) if n_split > 1 else None
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     rc = _lib().ptt_ragged_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), kd.data_ptr(), vd.data_ptr(), ptr(ks), ptr(vs),
         block_tables.data_ptr(), context_lens.data_ptr(),
         q_lens.data_ptr(), row_starts.data_ptr(), out.data_ptr(), ptr(part),
         ptr(cnt), r, s, h, hkv, d, bs, mb, nb, w_max, n_split, float(scale),
@@ -211,5 +266,6 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed "
                            f"(cudaError {rc})")
-    launch_counts["ragged_paged_attention"] += 1
+    launch_counts["ragged_paged_attention_int8" if ks is not None
+                  else "ragged_paged_attention"] += 1
     return out

@@ -9,6 +9,12 @@ row of block ids (its block table). Position ``p`` of a slot lives at
 block: inactive slots point at it and pad rows write into it, so no
 read or write ever leaves the pool.
 
+A pool half is a floating tensor in the model dtype, or a
+:class:`QuantKV`: int8 data plus one float32 absmax scale a (block,
+position, kv head), quantized on store (:func:`kv_quantize`) in the one
+scatter every write goes through and dequantized by the attention
+kernels as they read it.
+
 The host-side :class:`BlockAllocator` is a plain refcounted free list.
 The prefix-cache publishing of the reference (content hashes, LRU
 parking, copy-on-write) belongs to a later slice.
@@ -24,9 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["NULL_BLOCK", "blocks_for", "BlockAllocator", "init_pool",
-           "write_prefill", "write_decode", "write_tokens", "write_rows",
-           "gather_dense", "ragged_row_meta"]
+__all__ = ["NULL_BLOCK", "blocks_for", "BlockAllocator", "QuantKV",
+           "kv_quantize", "kv_dequantize", "resolve_kv_cache_dtype",
+           "pool_bytes", "init_pool", "write_prefill", "write_decode",
+           "write_tokens", "write_rows", "gather_dense", "ragged_row_meta"]
 
 NULL_BLOCK = 0
 
@@ -34,6 +41,90 @@ NULL_BLOCK = 0
 def blocks_for(n_tokens: int, block_size: int) -> int:
     """Blocks needed to hold ``n_tokens`` cache positions."""
     return -(-int(n_tokens) // int(block_size))
+
+
+class QuantKV:
+    """One half (K or V) of an int8 pool: ``data`` int8 ``[NB, BS, H_kv,
+    D]`` and ``scale`` float32 ``[NB, BS, H_kv]`` (symmetric absmax / 127
+    a position and kv head). ``shape`` / ``dtype`` / ``ndim`` mirror the
+    data, so shape logic written for a floating pool reads it unchanged;
+    ``nbytes`` counts data and scales."""
+
+    __slots__ = ("data", "scale")
+
+    def __init__(self, data, scale):
+        self.data = data
+        self.scale = scale
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def ndim(self):
+        return self.data.dim()
+
+    @property
+    def nbytes(self):
+        return _nbytes(self.data) + _nbytes(self.scale)
+
+    def __repr__(self):
+        return (f"QuantKV(data={tuple(self.data.shape)} int8, "
+                f"scale={tuple(self.scale.shape)})")
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def kv_quantize(x):
+    """Symmetric absmax int8 quantization of K/V rows over the head dim:
+    ``x [..., D]`` -> ``(int8 [..., D], float32 scale [...])`` with
+    ``scale = absmax * float32(1 / 127)``; an all-zero row stores scale 0
+    (and dequantizes to exact zeros). ``torch.round`` rounds half to
+    even, as the reference's ``jnp.round``, so both store the same
+    bytes."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) * _INV127.to(xf.device)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xf / safe[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(data, scale, dtype=torch.float32):
+    """``int8 [..., D] * float32 scale [...]`` -> ``dtype [..., D]``: the
+    int8 value made float32, times its scale, then cast (the recipe of
+    the kernels and of the plain versions)."""
+    return (data.float() * scale[..., None]).to(dtype)
+
+
+def resolve_kv_cache_dtype(requested=None):
+    """``"int8"`` for an int8 pool, None for a pool in the model dtype.
+    ``requested`` is ``ServingConfig.kv_cache_dtype`` /
+    ``generate(kv_cache_dtype=)``: None or ``"auto"`` (the model dtype)
+    or ``"int8"``; anything else raises ``ValueError``."""
+    if requested is None or requested == "auto":
+        return None
+    if str(requested).lower() == "int8":
+        return "int8"
+    raise ValueError(
+        f"kv_cache_dtype {requested!r}; supported: None/'auto' (pool in "
+        "the model dtype) or 'int8' (quantized pool)")
+
+
+def pool_bytes(pools) -> int:
+    """Bytes of a per-layer ``[(k, v), ...]`` pool list (an int8 pool
+    counts its data and its scales)."""
+    return sum((kp.nbytes if isinstance(kp, QuantKV) else _nbytes(kp))
+               + (vp.nbytes if isinstance(vp, QuantKV) else _nbytes(vp))
+               for kp, vp in pools)
 
 
 class BlockAllocator:
@@ -101,21 +192,38 @@ class BlockAllocator:
 def init_pool(num_blocks: int, block_size: int, num_kv_heads: int,
               head_dim: int, dtype, device) -> tuple:
     """Zeroed ``(k_pool, v_pool)``, each
-    ``[num_blocks, block_size, H_kv, D]`` (floating pools only)."""
-    if not dtype.is_floating_point:
-        raise NotImplementedError(
-            f"pool dtype {dtype}: quantized (int8) pools come with a "
-            "later port slice")
+    ``[num_blocks, block_size, H_kv, D]``: floating tensors of ``dtype``,
+    or, for ``dtype="int8"``, two :class:`QuantKV` (int8 data, float32
+    scales ``[NB, BS, H_kv]``; zero scales dequantize to exact zeros)."""
     shape = (num_blocks, block_size, num_kv_heads, head_dim)
+    if dtype == "int8":
+        return tuple(QuantKV(torch.zeros(shape, dtype=torch.int8,
+                                         device=device),
+                             torch.zeros(shape[:3], dtype=torch.float32,
+                                         device=device))
+                     for _ in range(2))
+    if not dtype.is_floating_point:
+        raise ValueError(f"pool dtype {dtype}: a floating dtype or 'int8'")
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _store_half(pool, bi, off, rows):
+    if isinstance(pool, QuantKV):
+        q, s = kv_quantize(rows)
+        pool.data[bi, off] = q
+        pool.scale[bi, off] = s
+    else:
+        pool[bi, off] = rows.to(pool.dtype)
+
+
 def _store(k_pool, v_pool, bi, off, k_rows, v_rows):
     """The scatter every write funnels through: rows land at
-    ``[bi, off]`` of both pools, cast to the pool dtype, in place."""
-    k_pool[bi, off] = k_rows.to(k_pool.dtype)
-    v_pool[bi, off] = v_rows.to(v_pool.dtype)
+    ``[bi, off]`` of both pools, in place, cast to the pool dtype or, in
+    an int8 pool, quantized with their scales at the same indices (so
+    the null routing decided upstream covers both)."""
+    _store_half(k_pool, bi, off, k_rows)
+    _store_half(v_pool, bi, off, v_rows)
     return k_pool, v_pool
 
 
@@ -192,9 +300,14 @@ def write_rows(k_pool, v_pool, block_tables, row_slot, row_pos, k_new,
 def gather_dense(pool, block_tables):
     """``[S, MB * BS, H_kv, D]`` dense view of each slot's blocks
     (positions past a slot's length read whatever the blocks hold; the
-    caller masks by length)."""
+    caller masks by length). An int8 pool comes back dequantized to
+    float32."""
     s, mb = block_tables.shape
-    g = pool[block_tables.long()]               # [S, MB, BS, H_kv, D]
+    t = block_tables.long()
+    if isinstance(pool, QuantKV):
+        g = kv_dequantize(pool.data[t], pool.scale[t])
+    else:
+        g = pool[t]                             # [S, MB, BS, H_kv, D]
     return g.reshape(s, mb * pool.shape[1], pool.shape[2], pool.shape[3])
 
 

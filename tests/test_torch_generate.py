@@ -236,6 +236,16 @@ def test_draft_vocab_mismatch_raises(target):
     dict(kv_cache_dtype="int8")], ids=["beam", "group_beam", "spec_tree",
                                        "int8_kv"])
 def test_later_slice_options_raise(target, kw):
+    if "kv_cache_dtype" in kw:
+        # int8 pools are ported: the option runs on the paged cache, and
+        # only an explicit dense cache with it is refused
+        out, _ = target[1].generate(np.ones((1, 4), np.int64),
+                                    max_new_tokens=2, **kw)
+        assert tuple(out.shape) == (1, 2)
+        with pytest.raises(ValueError, match="paged cache"):
+            target[1].generate(np.ones((1, 4), np.int64), max_new_tokens=2,
+                               cache_impl="dense", **kw)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         target[1].generate(np.ones((1, 4), np.int64), max_new_tokens=2,
                            **kw)

@@ -24,7 +24,12 @@ sorted paths) are held against the same dispatch run through the plain
 versions. The FlashMask kernels (K6f, K6dq, K6dkv) are held the same way
 at the reference's six mask layouts, on fully-masked rows (exact zeros),
 against K1 where no column is masked, and through
-``flashmask_attention``'s gradients against the CPU path."""
+``flashmask_attention``'s gradients against the CPU path. The paged
+attention kernels (K2r, K2d, K2v) are also held on int8 pools, where
+their plain versions keep float32 through both products: float32 at
+1e-4, bfloat16 at 2e-2 (the output's rounding; the Hopper body's P V
+takes P as two bf16 halves); an int8 pool at the address a bf16 pool of
+its shape once had gets its own tensor map."""
 from unittest import mock
 
 import numpy as np
@@ -224,6 +229,156 @@ def test_paged_attention_empty_context_writes_zero_bf16(cuda):
     want1 = pda.plain_paged_decode_attention(q[:, 0].contiguous(), kp, vp,
                                              tables, ctx)
     _rows_close(one[1:], want1[1:], "bfloat16")
+
+
+def _int8(pool):
+    """A floating pool quantized into an int8 QuantKV (the write path's
+    quantization)."""
+    return tpc.QuantKV(*tpc.kv_quantize(pool))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_size,head_dim,mb,rep", [
+    (8, 64, 8, 4), (16, 128, 8, 1), (32, 128, 8, 4), (16, 128, 128, 7),
+    (8, 128, 64, 4), (16, 64, 128, 2)])
+def test_ragged_paged_attention_int8(cuda, dtype, block_size, head_dim, mb,
+                                     rep):
+    """K2r on int8 pools (the float32 body reads int8 pages with their
+    scales; bfloat16 runs the Hopper body's int8 mode): a 2-page chunk,
+    decode rows at the reach's edge, a window, a slot of no rows and a
+    long decode row (splits), held elementwise and row by row; the
+    launch counts as ragged_paged_attention_int8."""
+    rng = np.random.RandomState(300 + block_size + head_dim + mb + rep)
+    reach = block_size * mb
+    base = [0, reach // 3, reach - 1, 5, 7, reach - 40]
+    q_lens = [1, 2 * block_size, 1, 3, 0, 1]
+    args, starts = _ragged_case(rng, base, q_lens, 2 * rep, 2, head_dim,
+                                block_size, mb, getattr(torch, dtype), cuda)
+    q, kp, vp = args[:3]
+    k8, v8 = _int8(kp.float()), _int8(vp.float())
+    n0 = dict(launch_counts)
+    got = rpa.ragged_paged_attention(q, k8, v8, *args[3:], max(q_lens))
+    want = rpa.plain_ragged_paged_attention(q, k8, v8, *args[3:])
+    assert launch_counts["ragged_paged_attention_int8"] == \
+        n0["ragged_paged_attention_int8"] + 1
+    assert launch_counts["ragged_paged_attention"] == \
+        n0["ragged_paged_attention"]
+    _rows_close(_live(got, q_lens, starts), _live(want, q_lens, starts),
+                dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim,block_size,mb", [
+    (64, 8, 8), (128, 16, 8), (128, 32, 8), (64, 32, 64), (128, 16, 128)])
+@pytest.mark.parametrize("rep,T", [(1, 1), (4, 1), (7, 1), (4, 5), (8, 8),
+                                   (7, 5)])
+def test_paged_decode_and_verify_attention_int8(cuda, dtype, head_dim,
+                                                block_size, mb, rep, T):
+    """K2v (and K2d at T = 1) on int8 pools against the plain versions'
+    float32 recipe, at the contexts of the floating test."""
+    lens = [1, block_size, block_size + 1, mb * block_size - T + 1]
+    q, kp, vp, tables, ctx = _paged_case(
+        500 + head_dim + block_size + rep + T, lens, T, rep, head_dim,
+        block_size, mb, getattr(torch, dtype), cuda)
+    k8, v8 = _int8(kp.float()), _int8(vp.float())
+    n0 = dict(launch_counts)
+    got = pda.paged_verify_attention(q, k8, v8, tables, ctx)
+    want = pda.plain_paged_verify_attention(q, k8, v8, tables, ctx)
+    assert launch_counts["paged_verify_attention_int8"] == \
+        n0["paged_verify_attention_int8"] + 1
+    _rows_close(got, want, dtype)
+    if T == 1:
+        got1 = pda.paged_decode_attention(q[:, 0], k8, v8, tables, ctx)
+        assert launch_counts["paged_decode_attention_int8"] == \
+            n0["paged_decode_attention_int8"] + 1
+        assert launch_counts["paged_decode_attention"] == \
+            n0["paged_decode_attention"]
+        _rows_close(got1, want[:, 0], dtype)
+
+
+@pytest.mark.gpu
+def test_int8_bf16_body_is_deterministic_and_writes_zero(cuda):
+    """The Hopper body's int8 mode: two launches over split decode rows
+    give the same bits and leave the arrival counters at zero; a window
+    token that sees no position, and the decode row of that slot, write
+    0."""
+    q, kp, vp, tables, ctx = _paged_case(6, [0, 1500, 700], 3, 4, 128, 16,
+                                         128, torch.bfloat16, cuda)
+    k8, v8 = _int8(kp.float()), _int8(vp.float())
+    a = pda.paged_verify_attention(q, k8, v8, tables, ctx)
+    b = pda.paged_verify_attention(q, k8, v8, tables, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a[0, 0], torch.zeros_like(a[0, 0]))
+    _rows_close(a[:, 1:], pda.plain_paged_verify_attention(
+        q, k8, v8, tables, ctx)[:, 1:], "bfloat16")
+    one = pda.paged_decode_attention(q[:, 0].contiguous(), k8, v8, tables,
+                                     ctx)
+    assert torch.equal(one[0], torch.zeros_like(one[0]))
+    stream = torch.cuda.current_stream().cuda_stream
+    _, counters = rpa._SCRATCH[(q.device, stream)]
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_int8_pool_at_a_bf16_pools_address_gets_its_own_map(cuda):
+    """The Hopper body keeps its pools' tensor maps by address, shape and
+    element type: an int8 pool placed where a bf16 pool of the same
+    shape was (one buffer, viewed both ways) is read as int8."""
+    NB, BS, Hkv, D, S, MB = 33, 16, 2, 128, 4, 8
+    g = torch.Generator(device=cuda).manual_seed(8)
+    bufs = [torch.empty(NB * BS * Hkv * D * 2, dtype=torch.uint8,
+                        device=cuda) for _ in "kv"]
+    bf = [b.view(torch.bfloat16).view(NB, BS, Hkv, D) for b in bufs]
+    for t in bf:
+        t.copy_(torch.randn(NB, BS, Hkv, D, generator=g, device=cuda))
+    q = torch.randn(S, 8, D, generator=g, device=cuda).bfloat16()
+    perm = torch.randperm(NB - 1, generator=g, device=cuda) + 1
+    tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
+    ctx = torch.tensor([1, 17, 100, 128], dtype=torch.int32, device=cuda)
+    got = pda.paged_decode_attention(q, bf[0], bf[1], tables, ctx)
+    _rows_close(got, pda.plain_paged_decode_attention(
+        q, bf[0], bf[1], tables, ctx), "bfloat16")
+    pools = []
+    for b in bufs:      # int8 data at the bf16 pool's address
+        data, scale = tpc.kv_quantize(torch.randn(
+            NB, BS, Hkv, D, generator=g, device=cuda))
+        view = b[:data.numel()].view(torch.int8).view(NB, BS, Hkv, D)
+        view.copy_(data)
+        assert view.data_ptr() == b.data_ptr()
+        pools.append(tpc.QuantKV(view, scale))
+    torch.cuda.synchronize()
+    got = pda.paged_decode_attention(q, pools[0], pools[1], tables, ctx)
+    _rows_close(got, pda.plain_paged_decode_attention(
+        q, pools[0], pools[1], tables, ctx), "bfloat16")
+
+
+@pytest.mark.gpu
+def test_int8_wrappers_refuse_mixed_and_malformed_pools(cuda):
+    q = torch.zeros(2, 8, 128, device=cuda, dtype=torch.bfloat16)
+    fp = torch.zeros(5, 16, 2, 128, device=cuda, dtype=torch.bfloat16)
+    k8 = _int8(fp.float())
+    tables = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    ctx = torch.ones(2, dtype=torch.int32, device=cuda)
+    ql = torch.ones(2, dtype=torch.int32, device=cuda)
+    starts = torch.arange(2, dtype=torch.int32, device=cuda)
+    for kp, vp, exc, match in (
+            (k8, fp, TypeError, "mixed pools"),
+            (fp, k8, TypeError, "mixed pools"),
+            (k8, tpc.QuantKV(k8.data, k8.scale.double()), TypeError,
+             "float32 scales"),
+            (k8, tpc.QuantKV(k8.data, k8.scale[:, :8]), ValueError,
+             r"\[NB, BS, Hkv\]"),
+            (k8, tpc.QuantKV(k8.data, k8.scale.transpose(0, 1)
+                             .contiguous().transpose(0, 1)), ValueError,
+             "contiguous")):
+        with pytest.raises(exc, match=match):
+            pda.paged_decode_attention(q, kp, vp, tables, ctx)
+        with pytest.raises(exc, match=match):
+            rpa.ragged_paged_attention(q, kp, vp, tables, ctx, ql, starts,
+                                       1)
 
 
 @pytest.mark.gpu

@@ -214,6 +214,13 @@ def test_submit_validation(port_model):
     ("async_depth", 1), ("lora_rank", 8), ("tp_degree", 2),
     ("health", True), ("ragged_batch", False), ("role", "prefill")])
 def test_later_slice_features_raise(field, value):
+    if field == "kv_cache_dtype":
+        # int8 pools are ported: the config takes them, and only a pool
+        # dtype the engine does not know raises
+        assert ServingConfig(**{field: value}).kv_cache_dtype == value
+        with pytest.raises(ValueError, match="kv_cache_dtype"):
+            ServingConfig(kv_cache_dtype="fp8")
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingConfig(**{field: value})
 

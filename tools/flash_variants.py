@@ -39,7 +39,8 @@ K2r at both of phase 2's ticks (``RAGGED_TICKS``: 7 decode rows + a
 128-row chunk, and one row a slot) and its chunk alone (``PAGED_CHUNKS``),
 K2v (T 5) and K2d at phase 7's shape (``PAGED["generate"]``), and K2d at
 contexts of 64 (one stage an item: a call's fixed cost), Llama-3-8B's 32
-/ 8 heads, through either
+/ 8 heads, and, where every tree takes int8 pools, the two ticks, K2v
+and K2d again on int8 pools (the bf16 pools quantized), through either
 tree's entry points (a tree with ``paged_attention_sm90.cuh`` takes the
 Hopper body's scratch and counters; an older one its own split count, as
 its wrapper chose it). Versions
@@ -85,12 +86,14 @@ def kernel_name(line):
     k = re.search(r"(\w+_tma_kernel)ILi(\d+)ENS0_\d+(\w+?)EE", line)
     if k:
         return f"{k[1]}<{k[2]}, {k[3]}>"
-    k = re.search(r"dg90\d+decode_gemmILi(\d)ELi(\d)ELb(\d)E", line)
+    k = re.search(r"dg90\d+(?:_GLOBAL__N_1\d+)?decode_gemmILi(\d)ELi(\d)"
+                  r"ELb(\d)E", line)
     if k:   # row groups, prologue, rows from the pre-pass
         return f"decode_gemm<{k[1]}, {k[2]}, {'true' if k[3] == '1' else 'false'}>"
-    k = re.search(r"paged_attention_kernelILi(\d+)E", line)
-    if k:   # head_dim
-        return f"paged_attention_kernel<{k[1]}>"
+    k = re.search(r"paged_attention_kernelILi(\d+)E(?:Lb(\d)E)?", line)
+    if k:   # head_dim, int8 pools
+        return f"paged_attention_kernel<{k[1]}" + (
+            f", {'true' if k[2] == '1' else 'false'}>" if k[2] else ">")
     k = re.search(r"moe90\d+(\w+?_kernel)(?:I(\w+?)E)?E", line)
     if k:   # Lb1 / Li128: a bool / an int template argument
         args = re.findall(r"L([bi])(\d+)E", (k[2] or "") + "E")
@@ -156,13 +159,16 @@ def bind(lib, d):
     if "ragged_paged_attention" in lib:
         lib["sm90"] = os.path.exists(
             os.path.join(d, "paged_attention_sm90.cuh"))
+        with open(os.path.join(d, "ragged_paged_attention.cu")) as f:
+            lib["q8"] = "const void* ks" in f.read()   # int8 pools
         n = 1 if lib["sm90"] else 0   # the counters and NB arguments
+        n8 = 2 if lib["q8"] else 0    # the scale pointers
         lib["ragged_paged_attention"].ptt_ragged_paged_attention.argtypes = \
-            [ptr] * (9 + n) + [i32] * (9 + n) + tail[:1] + tail[2:]
+            [ptr] * (9 + n + n8) + [i32] * (9 + n) + tail[:1] + tail[2:]
         for fn in (lib["paged_decode_attention"].ptt_paged_decode_attention,
                    lib["paged_decode_attention"].ptt_paged_verify_attention):
-            fn.argtypes = [ptr] * (7 + n) + [i32] * (8 + n) + tail[:1] + \
-                tail[2:]
+            fn.argtypes = [ptr] * (7 + n + n8) + [i32] * (8 + n) + \
+                tail[:1] + tail[2:]
     if "moe_gmm" in lib:
         g = lib["moe_gmm"]
         for fn in (g.ptt_moe_gmm, g.ptt_moe_gather_gmm_swiglu,
@@ -402,11 +408,16 @@ def paged_kernels(torch, cs, libs, rnd, P, st):
     """K2r at phase 2's two ticks, K2v and K2d at phase 7's shape, bf16,
     32 / 8 heads, D 128, BS 16, cold: per version, {name: (launch,
     outputs)}. The pools are copies of one pool (so every copy gives the
-    same outputs), enough to fill twice the L2, taken in turn."""
+    same outputs), enough to fill twice the L2, taken in turn. Where every
+    version takes int8 pools, the same cases again on int8 pools (the
+    bf16 pools quantized)."""
     H, Hkv, D, BS = 32, 8, 128, 16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     i32 = dict(device="cuda", dtype=torch.int32)
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+
+    from paddle_tpu_torch.ops.paged_cache import kv_quantize
+    int8 = all(lib["q8"] for lib in libs)
 
     def pools_for(S, MB):
         NB = 1 + S * MB
@@ -416,6 +427,16 @@ def paged_kernels(torch, cs, libs, rnd, P, st):
         tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
         return [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)
                            ], tables, NB
+
+    def int8_pools(pools):
+        """(data, scale) pairs of the first pool, quantized, as many
+        copies as fill twice the L2 (a position-head is D + 4 bytes)."""
+        (k, v), n = pools[0], pools[0][0].numel()
+        kq, vq = kv_quantize(k), kv_quantize(v)
+        copies = max(3, -(-int(100e6) // (2 * (n + 4 * n // D))))
+        return [(kq, vq)] + [(tuple(x.clone() for x in kq),
+                              tuple(x.clone() for x in vq))
+                             for _ in range(copies - 1)]
 
     # the Hopper body's scratch: a split record (64 query vectors) a block
     # (two an SM at most) and one a (slot, kv head); its counters (zeros)
@@ -437,12 +458,18 @@ def paged_kernels(torch, cs, libs, rnd, P, st):
         cases.append((f"K2r {tick} tick", "ragged", q, pools, tables, ctx,
                       (torch.tensor(q_lens, **i32), starts, max(q_lens)),
                       NB))
+        if int8 and tick in cs.RAGGED_TICKS:
+            cases.append((f"K2r {tick} tick int8", "ragged", q,
+                          int8_pools(pools), tables, ctx, cases[-1][6], NB))
     c = cs.PAGED["generate"]
     pools, tables, NB = pools_for(c["S"], c["MB"])
     lens = torch.tensor(c["lens"], **i32)
     for name, T in (("K2v", cs.PAGED_T), ("K2d", 1)):
         cases.append((f"{name} generate", name, rnd(c["S"], T, H, D), pools,
                       tables, lens, (), NB))
+        if int8:
+            cases.append((f"{name} generate int8", name, cases[-1][2],
+                          int8_pools(pools), tables, lens, (), NB))
     # K2d at one stage an item: a call's fixed cost
     pools, tables, NB = pools_for(c["S"], c["MB"])
     cases.append(("K2d one stage", "K2d", rnd(c["S"], 1, H, D), pools,
@@ -457,7 +484,12 @@ def paged_kernels(torch, cs, libs, rnd, P, st):
         reach = MB * BS
 
         def pool():
-            return pools[next(turn) % len(pools)]
+            """(k, v, k scale, v scale) of the next pool (scales None for
+            bf16); a tree without int8 pools takes no scale arguments."""
+            kp, vp = pools[next(turn) % len(pools)]
+            if isinstance(kp, tuple):
+                return kp[0], vp[0], P(kp[1]), P(vp[1])
+            return (kp, vp) + ((None, None) if lib["q8"] else ())
 
         if kind == "ragged":
             ql, starts, w_max = extra
@@ -468,8 +500,8 @@ def paged_kernels(torch, cs, libs, rnd, P, st):
                 n_split * R * H * (D + 2), device="cuda")
 
             def go():
-                kp, vp = pool()
-                head = (P(q), P(kp), P(vp), P(tables), P(ctx), P(ql),
+                kp, vp, *sc = pool()
+                head = (P(q), P(kp), P(vp), *sc, P(tables), P(ctx), P(ql),
                         P(starts), P(out))
                 if new:
                     return fn(*head, P(part), P(cnt), R, S, H, Hkv, D, BS,
@@ -487,8 +519,8 @@ def paged_kernels(torch, cs, libs, rnd, P, st):
             n_split * q.numel() // D * (D + 2), device="cuda")
 
         def go():
-            kp, vp = pool()
-            head = (P(q), P(kp), P(vp), P(tables), P(ctx), P(out))
+            kp, vp, *sc = pool()
+            head = (P(q), P(kp), P(vp), *sc, P(tables), P(ctx), P(out))
             if new:
                 return fn(*head, P(part), P(cnt), S, T, H, Hkv, D, BS, MB,
                           NB, n_split, scale, 1, st)
