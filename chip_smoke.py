@@ -40,7 +40,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    int8 pools (``QuantKV``: int8 pages, a float32 scale a position and
    kv head) at both ticks, phase 7's shape and both MoE GQA groups,
    float32 (the FMA bodies) and bfloat16 (the Hopper body's int8 mode),
-   timed cold beside a bound of 2 x (D + 4) bytes a position-head;
+   timed cold beside a bound of 2 x (D + 4) bytes a position-head; and
+   K2v's token-tree mode at phase 7's shape, fp and int8 pools, GQA
+   groups 4, 1 and 7: the branching tree (0, 0, 1, 2, 3, 4, 5) (T 8)
+   against the plain version's tree mask, the chain (0, 1, 2, 3) equal to
+   linear K2v bit for bit, timed cold beside linear K2v at T 8;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -64,9 +68,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    4 prompts of 512 tokens, each repeating a seeded 64-token motif among
    random tokens, 64 new tokens greedy, five times — the dense cache,
    the paged cache (K2d), n-gram speculation at gamma 4 (K2v), a
-   2-layer Llama-3-8B-width draft model at gamma 4 (K2d and K2v) and the
+   2-layer Llama-3-8B-width draft model at gamma 4 (K2d and K2v), the
    model drafting for itself at gamma 4, whose windows must accept
-   drafts — printing tokens/s, ms per target forward, tokens emitted per
+   drafts, and tree speculation (K2v's tree mode) with the chain
+   (0, 1, 2, 3), whose stream and tokens per verify must equal the n-gram
+   run's, and the branching tree (0, 0, 1, 2, 3, 4, 5) at gamma 7, whose
+   stream is held against the paged one by the near-tie rule below —
+   printing tokens/s, ms per target forward, tokens emitted per
    verify and peak memory, then a torch.profiler table and the device's
    idle share of one more paged run of 16 tokens; each bf16 stream is
    compared with the dense one (logged: where it first differs and the
@@ -74,11 +82,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    paged one (a divergence fails unless its top-2 margin is within the
    largest logit difference of two bf16 recipes, read on the prompts);
 8. float32, 2 layers at full widths: paged and speculative greedy
-   ``generate()`` (n-gram drafts, and the model drafting for itself so
-   that drafts are accepted) through the kernels and through their plain
-   versions; the token streams must be equal (the same margin rule as
-   phase 4), the scores agree within SCORE_ATOL, and the self-drafted
-   run must emit more than one token per verify window;
+   ``generate()`` (n-gram drafts, the model drafting for itself so
+   that drafts are accepted, and the branching tree) through the kernels
+   and through their plain versions; the token streams must be equal (the
+   same margin rule as phase 4), the scores agree within SCORE_ATOL, and
+   the self-drafted run must emit more than one token per verify window;
+   then two hand-built tree verifies whose windows make the accepted path
+   leave the spine (and, second, take the whole chain): the emitted
+   tokens, the pools equal to the window's rows moved by the path, and
+   to sequential decoding's where rope positions allow;
 9. DeepSeek-MoE-16B (all 28 layers, bfloat16, dropless, seeded weights)
    serves phase 3's traffic (K2r and K4 must launch; tokens/s, TTFT,
    ticks, rows a tick, peak memory, the engine's MoE stats), is profiled
@@ -130,10 +142,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     the idle share of 4 profiled ticks, pool bytes at most 0.55x the
     bf16 engine's, each stream's match with phase 3's, its first
     divergence and top-2 margin logged), ``generate()`` at phase 7's
-    shape on int8 pools, paged (K2d) and n-gram (K2v), and a 2-layer
-    float32 model at full widths on int8 pools, paged and self-drafted
-    ``generate()`` and the engine through the kernels and through their
-    plain versions (phase 4's rule);
+    shape on int8 pools, paged (K2d), n-gram (K2v) and the branching tree
+    (K2v's tree mode), and a 2-layer float32 model at full widths on int8
+    pools, paged, self-drafted and tree ``generate()`` and the engine
+    through the kernels and through their plain versions (phase 4's
+    rule);
 17. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -228,10 +241,20 @@ SERVING_KERNELS = ("ragged_paged_attention", "norm_matmul",
                    "matmul_residual")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                     "flash_attention_dkv")
-GENERATE_KERNELS = ("paged_decode_attention", "paged_verify_attention")
+GENERATE_KERNELS = ("paged_decode_attention", "paged_verify_attention",
+                    "paged_verify_attention_tree")
 # phase 16: the K2 kernels on int8 pools (their launches counted apart)
 INT8_KERNELS = ("ragged_paged_attention_int8", "paged_decode_attention_int8",
-                "paged_verify_attention_int8")
+                "paged_verify_attention_int8",
+                "paged_verify_attention_tree_int8")
+# K2v's tree mode (phases 2, 7, 8, 16): a chain at gamma 4 (the linear
+# bound itself) and a branching tree at gamma 7 (spine 1-3-5-7, branch
+# 2-4-6)
+CHAIN_TREE = (0, 1, 2, 3)
+BRANCH_TREE = (0, 0, 1, 2, 3, 4, 5)
+# phase 8's hand-built tree verifies: the accepted root paths (off the
+# spine, and the whole chain)
+TREE_PATHS = {BRANCH_TREE: (0, 2, 4, 6), CHAIN_TREE: (0, 1, 2, 3, 4)}
 INT8_POOL_RATIO = 0.55               # int8 pool bytes / bf16's, at most
 # phase 16, f32: the first layer's scales in two paths' pools (absmax /
 # 127 of rows that agree within float32 rounding), relative
@@ -522,6 +545,82 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
     if fails:
         raise AssertionError(f"[{dtype}] {shape}: disagree with their plain "
                              f"versions: {fails}")
+    return errs, rows
+
+
+def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
+                     int8=False):
+    """K2v's tree mode at phase 7's shape (PAGED["generate"]: 4 slots,
+    tables of 37 blocks, contexts 513..576; D 128, BS 16): BRANCH_TREE
+    (T 8) held against the plain version's tree mask, elementwise and row
+    by row, and CHAIN_TREE (T 4) equal to linear K2v bit for bit; 32 / 8
+    heads unless ``heads`` / ``kv_heads`` say otherwise; ``int8``: on int8
+    pools (the rows named ``*_int8``). With ``timing``, the tree mode is
+    timed cold beside linear K2v at the same T in this call, with the
+    bound of the same bytes. Returns ``(errors, rows)``."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    H, Hkv, D, BS = heads, kv_heads, 128, 16
+    S, MB, lens = (PAGED["generate"][k] for k in ("S", "MB", "lens"))
+    NB = 1 + S * MB
+    ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+                                timing)
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
+    name = "paged_verify_attention_tree" + ("_int8" if int8 else "")
+    kp, vp = pools[0]
+    fails, errs, rows = [], {}, {}
+    T = len(BRANCH_TREE) + 1
+    q = torch.randn(S, T, H, D, generator=g, device="cuda").to(dt)
+    n0 = pda.launch_counts[name]
+    got = pda.paged_verify_attention(q, kp, vp, tables, ctx,
+                                     tree_anc=BRANCH_TREE)
+    if pda.launch_counts[name] != n0 + 1:
+        fails.append(f"{name}: the tree mode did not launch")
+    ref = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
+                                           tree_anc=BRANCH_TREE)
+    torch.cuda.synchronize()
+    errs[name] = held_attention(
+        torch, got, ref, dtype, f"{name} generate {H}/{Hkv} heads, tree "
+        f"{BRANCH_TREE}", fails)
+    qc = q[:, :len(CHAIN_TREE) + 1].contiguous()
+    lin = pda.paged_verify_attention(qc, kp, vp, tables, ctx, tree_anc=None)
+    chain = pda.paged_verify_attention(qc, kp, vp, tables, ctx,
+                                       tree_anc=CHAIN_TREE)
+    same = bool(torch.equal(lin, chain))
+    verdict = "bitwise equal" if same else "FAIL: they differ"
+    log(f"  {name} [{dtype}] chain {CHAIN_TREE} against linear K2v at T "
+        f"{qc.shape[1]}, {H}/{Hkv} heads: {verdict}")
+    if not same:
+        fails.append(f"{name} chain != linear")
+    if timing:
+        es = q.element_size()
+        kv_pos = sum(min(n + T - 1, MB * BS) for n in lens)
+        nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
+            + 4 * (tables.numel() + S + T)
+        vis = sum(n + t for n in lens for t in range(T))
+        b_ms, b_by = bound(nbytes, 4 * vis * H * D, dtype)
+        turn = iter(range(1 << 30))
+
+        def run(f, **kw):
+            kp_i, vp_i = pools[next(turn) % len(pools)]
+            return f(q, kp_i, vp_i, tables, ctx, **kw)
+
+        r = rows[name] = dict(
+            ms=time_ms(torch, lambda: run(pda.paged_verify_attention,
+                                          tree_anc=BRANCH_TREE)),
+            plain_ms=time_ms(torch, lambda: run(
+                pda.plain_paged_verify_attention, tree_anc=BRANCH_TREE)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        lin_ms = time_ms(torch, lambda: run(pda.paged_verify_attention,
+                                            tree_anc=None))
+        log(f"  {name} [{dtype}] generate, {H}/{Hkv} heads, T {T}: "
+            f"ms={r['ms']:.4f} (linear K2v at T {T}: {lin_ms:.4f}) "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB; {len(pools)} pool copies)")
+    if fails:
+        raise AssertionError(f"[{dtype}] tree mode: {fails}")
     return errs, rows
 
 
@@ -1742,12 +1841,14 @@ def generate_once(torch, kernels, model, ids, new, kw, forwards, tag,
             or not torch.isfinite(scores).all():
         raise AssertionError(f"{tag}: bad output {out} {scores}")
     spec = "num_speculative_tokens" in kw
-    # one K2v launch per layer per verify window (on bf16 or int8 pools);
+    # one K2v launch per layer per verify window (on bf16 or int8 pools,
+    # linear or tree);
     # the loop runs until the slowest row is done: (new - 1) tokens after
     # the prefill's over the windows (1.0: no draft accepted)
-    windows = (kernels.launch_counts["paged_verify_attention"]
-               + kernels.launch_counts["paged_verify_attention_int8"]) \
-        // cfg.num_hidden_layers
+    windows = sum(kernels.launch_counts[k] for k in (
+        "paged_verify_attention", "paged_verify_attention_int8",
+        "paged_verify_attention_tree",
+        "paged_verify_attention_tree_int8")) // cfg.num_hidden_layers
     n_fwd = 1 + windows if spec else len(forwards)
     per_verify = (new - 1) / max(1, windows)
     log(f"{tag}: {b} x {new} tokens in {dt:.3f}s -> "
@@ -1779,21 +1880,43 @@ def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
     hook = model.register_forward_pre_hook(lambda m, a: forwards.append(1))
     # "self": the target drafts for itself (K2d drafts, K2v verifies), so
     # drafts are accepted and windows commit up to gamma + 1 tokens
+    # "chain" / "tree": n-gram drafts filling CHAIN_TREE (gamma 4, the
+    # linear n-gram run's windows) and BRANCH_TREE (gamma 7), verified by
+    # K2v's tree mode
     runs = {"dense": dict(cache_impl="dense"),
             "paged": dict(cache_impl="paged"),
             "ngram": dict(num_speculative_tokens=gamma),
             "draft": dict(num_speculative_tokens=gamma, draft_model=draft),
-            "self": dict(num_speculative_tokens=gamma, draft_model=model)}
+            "self": dict(num_speculative_tokens=gamma, draft_model=model),
+            "chain": dict(num_speculative_tokens=len(CHAIN_TREE),
+                          spec_tree=CHAIN_TREE),
+            "tree": dict(num_speculative_tokens=len(BRANCH_TREE),
+                         spec_tree=BRANCH_TREE)}
+    linear = ("paged_decode_attention", "paged_verify_attention")
     want = {"paged": ("paged_decode_attention",),
             "ngram": ("paged_verify_attention",),
-            "draft": GENERATE_KERNELS, "self": GENERATE_KERNELS}
-    streams, launches, fails = {}, {}, []
+            "draft": linear, "self": linear,
+            "chain": ("paged_verify_attention_tree",),
+            "tree": ("paged_verify_attention_tree",)}
+    streams, launches, per_verify, fails = {}, {}, {}, []
     for name, kw in runs.items():
-        streams[name], launches[name], per_verify = generate_once(
+        streams[name], launches[name], per_verify[name] = generate_once(
             torch, kernels, model, ids, new, kw, forwards,
             f"phase 7 {name}", GENERATE_KERNELS, want.get(name, ()))
-        if name == "self" and not per_verify > 1:
+        if name == "self" and not per_verify[name] > 1:
             fails.append("phase 7 self: no draft accepted")
+        if name in ("chain", "tree") \
+                and launches[name]["paged_verify_attention"]:
+            fails.append(f"phase 7 {name}: linear K2v launched")
+    # a chain tree is the linear n-gram path: the same windows, tokens
+    same = np.array_equal(streams["chain"], streams["ngram"]) \
+        and per_verify["chain"] == per_verify["ngram"]
+    log(f"  phase 7 chain {CHAIN_TREE} vs ngram gamma {gamma}: streams "
+        f"{'equal' if np.array_equal(streams['chain'], streams['ngram']) else 'DIFFER'}"
+        f", tokens per verify {per_verify['chain']:.4f} / "
+        f"{per_verify['ngram']:.4f} {'ok' if same else 'FAIL'}")
+    if not same:
+        fails.append("phase 7 chain tree != linear n-gram")
     hook.remove()
     # where a paged generate()'s time goes, and the device's idle share
     n_new = GENERATE["profiled_new"]
@@ -1816,9 +1939,87 @@ def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
                      streams[name], streams["dense"], None, limit=noise)
     held_streams(torch, model, "phase 7 self vs paged", prompts,
                  streams["self"], streams["paged"], fails, limit=noise)
+    held_streams(torch, model, "phase 7 tree vs paged", prompts,
+                 streams["tree"], streams["paged"], fails, limit=noise)
     if fails:
         raise AssertionError(f"phase 7 failed: {fails}")
     return launches
+
+
+def tree_verify_check(torch, model, ids, tree, path, fails):
+    """One hand-built tree verify (``build_tree_verify_step``, greedy)
+    through the kernels whose window is built a depth at a time so that
+    ``path`` is its greedy root path (off the spine: the spine's head
+    carries a wrong token). The emitted tokens must be the path's and its
+    last node's argmax; the pools after it must be the window's rows moved
+    by the path (``permute_window``), bit for bit; and those of sequential
+    paged decoding of the emitted tokens within float32's TOL where rope
+    positions allow: every layer for a chain, layer 0's V off the spine
+    (the model ropes window node j at lens + j, as the reference does)."""
+    from paddle_tpu_torch.generation import _paged_prefill
+    from paddle_tpu_torch.generation import speculative as spec
+    from paddle_tpu_torch.ops import paged_cache as pc
+    from paddle_tpu_torch.ops.kernels import paged_attention as pda
+    bs, (b, P), t = 16, ids.shape, len(tree) + 1
+    mb = pc.blocks_for(P + t, bs)
+    lens = torch.full((b,), P, dtype=torch.int32, device=ids.device)
+    vocab = model.config.vocab_size
+
+    def window(toks):
+        _, tables, pools = _paged_prefill(model, ids, mb, bs)
+        with pda.spec_tree_scope(tree):
+            logits, pools = model(toks, caches=pools, block_tables=tables,
+                                  cache_lens=lens)
+        return logits, tables, pools
+
+    with torch.no_grad():
+        logits, _, _ = _paged_prefill(model, ids, mb, bs)
+        toks = (torch.arange(t, device=ids.device)[None, :] * 7 + 3
+                + torch.arange(b, device=ids.device)[:, None]) % vocab
+        toks[:, 0] = logits[:, -1].argmax(-1)
+        for d in range(1, len(path)):
+            logits, _, _ = window(toks)
+            toks[:, path[d]] = logits[:, path[d - 1]].argmax(-1)
+            if d == 1 and path[1] != 1:
+                toks[:, 1] = (toks[:, path[1]] + 1) % vocab
+        logits, tables, wpools = window(toks)
+        bonus = logits[:, path[-1]].argmax(-1)
+        verify = spec.build_tree_verify_step(spec._paged_step(model),
+                                             parents=tree, do_sample=False)
+        _, tables, pools = _paged_prefill(model, ids, mb, bs)
+        out, accept, _, pools = verify(pools, tables, lens, toks)
+        _, _, seq = _paged_prefill(model, ids, mb, bs)
+        for j, i in enumerate(path):
+            _, seq = model(toks[:, i:i + 1], caches=seq, block_tables=tables,
+                           cache_lens=lens + j)
+    n_acc = len(path) - 1
+    want = torch.cat([toks[:, list(path[1:])], bonus[:, None]], 1)
+    ok_tok = torch.equal(out[:, :n_acc + 1], want) \
+        and bool(accept[:, :n_acc].all()) and not bool(accept[:, n_acc:].any())
+    src = torch.tensor([P + i for i in path], device=ids.device)
+    moved = all(torch.equal(pc.gather_dense(a, tables)[:, :P],
+                            pc.gather_dense(w, tables)[:, :P])
+                and torch.equal(pc.gather_dense(a, tables)[:, P:P + n_acc + 1],
+                                pc.gather_dense(w, tables)[:, src])
+                for kv, wkv in zip(pools, wpools) for a, w in zip(kv, wkv))
+    chain = tuple(path[1:]) == tuple(range(1, len(path)))
+    halves = [(li, h) for li in range(len(seq)) for h in (0, 1)] if chain \
+        else [(0, 1)]
+    keep = P + n_acc + 1
+    err, close = 0.0, True
+    for li, h in halves:
+        a = pc.gather_dense(pools[li][h], tables)[:, :keep]
+        w = pc.gather_dense(seq[li][h], tables)[:, :keep]
+        err = max(err, float((a - w).abs().max()))
+        close = close and torch.allclose(a, w, **TOL["float32"])
+    ok = ok_tok and moved and close
+    log(f"  phase 8 tree verify {tree}, path {path}: tokens "
+        f"{'ok' if ok_tok else 'FAIL'}; pools = window rows moved by the "
+        f"path {'bitwise' if moved else 'FAIL'}; against sequential decode "
+        f"({'every layer' if chain else 'layer 0 V'}) max_abs_err "
+        f"{err:.3e} {'ok' if close else 'FAIL'}")
+    if not ok:
+        fails.append(f"phase 8 tree verify {tree}")
 
 
 def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
@@ -1839,7 +2040,9 @@ def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
     kinds = {"paged": dict(cache_impl="paged"),
              "spec": dict(num_speculative_tokens=PHASE8["gamma"]),
              "self": dict(num_speculative_tokens=PHASE8["gamma"],
-                          draft_model=model)}
+                          draft_model=model),
+             "tree": dict(num_speculative_tokens=len(BRANCH_TREE),
+                          spec_tree=BRANCH_TREE)}
     res, windows = {}, None
     for path in ("kernel", "plain"):
         patches = [] if path == "kernel" else [
@@ -1859,6 +2062,11 @@ def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
                 if (n > 0) != (path == "kernel"):
                     raise AssertionError(f"phase 8 {path} {kind}: {n} "
                                          "kernel launches")
+                if (path, kind) == ("kernel", "tree") and not (
+                        pda.launch_counts["paged_verify_attention_tree"]
+                        > counts0["paged_verify_attention_tree"]):
+                    raise AssertionError("phase 8 kernel tree: the tree "
+                                         "mode never launched")
                 if (path, kind) == ("kernel", "self"):
                     # one K2v launch per layer per verify window
                     windows = (pda.launch_counts["paged_verify_attention"]
@@ -1872,6 +2080,7 @@ def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
     for a, b in ((("kernel", "paged"), ("plain", "paged")),
                  (("kernel", "spec"), ("plain", "spec")),
                  (("kernel", "self"), ("plain", "self")),
+                 (("kernel", "tree"), ("plain", "tree")),
                  (("kernel", "spec"), ("kernel", "paged")),
                  (("kernel", "self"), ("kernel", "paged")),
                  (("plain", "spec"), ("plain", "paged"))):
@@ -1892,6 +2101,14 @@ def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
         f"{'ok' if per_window > 1 else 'FAIL (no draft accepted)'}")
     if not per_window > 1:
         fails.append("phase 8 kernel self: no draft accepted")
+    # the tree stream against the paged one, logged: a branch node sits at
+    # its window position, not its depth, in the rope (the reference's
+    # recipe), so an accepted branch may part it from sequential decoding
+    held_streams(torch, model, "phase 8 kernel tree vs kernel paged",
+                 prompts, res["kernel", "tree"][0],
+                 res["kernel", "paged"][0], None)
+    for tree, path in TREE_PATHS.items():
+        tree_verify_check(torch, model, ids, tree, path, fails)
     log(f"phase 8: f32, {cfg.num_hidden_layers} layers at full widths, "
         f"{PHASE8['batch']} prompts of {PHASE8['prompt']} tokens, "
         f"{PHASE8['new']} new tokens, gamma {PHASE8['gamma']}")
@@ -2809,7 +3026,10 @@ def int8_phase(torch, kernels, df, rpa, pda, ServingEngine, ServingConfig,
             ("paged", dict(cache_impl="paged"),
              ("paged_decode_attention_int8",)),
             ("ngram", dict(num_speculative_tokens=gamma),
-             ("paged_verify_attention_int8",))):
+             ("paged_verify_attention_int8",)),
+            ("tree", dict(num_speculative_tokens=len(BRANCH_TREE),
+                          spec_tree=BRANCH_TREE),
+             ("paged_verify_attention_tree_int8",))):
         gen[name], runs[name], _ = generate_once(
             torch, kernels, model, ids, new, dict(kw, kv_cache_dtype="int8"),
             forwards, f"phase 16 generate {name} int8",
@@ -2818,8 +3038,10 @@ def int8_phase(torch, kernels, df, rpa, pda, ServingEngine, ServingConfig,
             fails.append(f"phase 16 generate {name}: a K2 kernel launched "
                          "on bf16 pools")
     hook.remove()
-    held_streams(torch, model, "phase 16 generate ngram vs paged (int8)",
-                 prompts7, gen["ngram"], gen["paged"], None, limit=noise)
+    for name in ("ngram", "tree"):
+        held_streams(torch, model,
+                     f"phase 16 generate {name} vs paged (int8)", prompts7,
+                     gen[name], gen["paged"], None, limit=noise)
     del model, ids
     torch.cuda.empty_cache()
 
@@ -2835,7 +3057,9 @@ def int8_phase(torch, kernels, df, rpa, pda, ServingEngine, ServingConfig,
                 for n in (40, 150, 70)]
     kinds = {"paged": dict(cache_impl="paged"),
              "self": dict(num_speculative_tokens=PHASE8["gamma"],
-                          draft_model=model)}
+                          draft_model=model),
+             "tree": dict(num_speculative_tokens=len(BRANCH_TREE),
+                          spec_tree=BRANCH_TREE)}
     res = {}
     for path in ("kernel", "plain"):
         patches = [] if path == "kernel" else plain_patches(df, rpa) + [
@@ -2960,6 +3184,14 @@ def main(argv=None):
         r1 = r1.get("prefill")
         e5, r5 = check_paged(torch, pda, dtype, timing, "generate")
         check_paged(torch, pda, dtype, timing, "long")
+        # K2v's tree mode: fp and int8 pools, GQA groups 4, 1 and 7 (timed
+        # in float32 too: the FMA body's reading)
+        e5t, r5t = check_paged_tree(torch, pda, dtype, True)
+        e5tq, r5tq = check_paged_tree(torch, pda, dtype, True, int8=True)
+        for heads, kv_heads in MOE_HEADS.values():
+            for int8 in (False, True):
+                check_paged_tree(torch, pda, dtype, False, heads, kv_heads,
+                                 int8=int8)
         # int8 pools: the same ticks, phase 7's shape, both GQA groups
         e1q, r1q = check_ragged(torch, rpa, dtype, timing, int8=True)
         e5q, r5q = check_paged(torch, pda, dtype, timing, "generate",
@@ -2995,8 +3227,10 @@ def main(argv=None):
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
             table["ragged_paged_attention_int8"] = dict(r1q["prefill"],
                                                         max_abs_err=e1q)
-            for name, r in list(r5.items()) + list(r5q.items()):
-                table[name] = dict(r, max_abs_err={**e5, **e5q}[name])
+            for name, r in list(r5.items()) + list(r5q.items()) \
+                    + list(r5t.items()) + list(r5tq.items()):
+                table[name] = dict(r, max_abs_err={**e5, **e5q, **e5t,
+                                                   **e5tq}[name])
             for name, r in (("norm_matmul", r2), ("matmul_residual", r3)):
                 table[name] = dict(merge_rows(
                     [r[label] for label in K3_TABLE[name]], dtype),
@@ -3187,6 +3421,12 @@ def main(argv=None):
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:439"),
             "paged_verify_attention_int8": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:510"),
+            "paged_verify_attention_tree": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:510"),
+            "paged_verify_attention_tree_int8": (
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:510"),
             "norm_matmul": ("paddle_tpu_torch/csrc/norm_matmul.cu",

@@ -9,10 +9,26 @@
 //   window of TW tokens a slot of q [S, TW, H, D] (K2v; K2d is TW = 1).
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _ragged_kernel
-// (call :593) and _decode_kernel (calls :439, t_q 1, and :510, t_q T),
-// without the tree mask: floating-point pools, and the `quantized` mode
-// (int8 pools with a float32 scale a position and kv head, dequantized
-// tile by tile by _dequant_tile, :184).
+// (call :593, without its tree mask) and _decode_kernel (calls :439, t_q
+// 1, and :510, t_q T, with its tree mask, :255-270): floating-point pools,
+// and the `quantized` mode (int8 pools with a float32 scale a position and
+// kv head, dequantized tile by tile by _dequant_tile, :184).
+//
+// K2v's tree mode (tree_bits): window row t keeps column c iff c < ctx
+// (the committed prefix and the root) or bit c - ctx of its ancestor mask
+// is set. A node's ancestors have ids of at most its own, so the mask is
+// a subset of the linear bound c < ctx + t: the visible positions, stages
+// and splits stay the linear window's. The masks ride in Params (32
+// words, no global read; copied to shared memory at constant offsets).
+// With the tile's Q, each query vector's (lo, mask) is staged in shared
+// memory: lo the row's bound (linear) or ctx (tree), the mask its
+// ancestors cut at the table's reach. On an edge stage a linear row keeps
+// c < lo, a tree row c < lo or bit c - lo of its mask; with a tree every
+// stage past ctx is an edge stage. The three paths (tree edge, linear
+// edge, no edge) are uniform branches. On an H100: the two rows' bound
+// and mask held in registers for the whole item made ptxas spill at D
+// 128; one predicate for both modes, or one that must prove a no-edge
+// stage unmasked, cost the linear kernels 9-74 % (PERF.md).
 //
 // What bounds it on the H100: bytes. A decode row reads a page's K and V
 // (2 x BS x D x 2 bytes a kv head) for rep query heads: ~rep flops a
@@ -123,6 +139,7 @@ constexpr int THREADS = 160;      // consumer warpgroup + producer warp
 constexpr int BLOCKS_PER_SM = 2;
 constexpr int MAX_SLOTS = 512;    // slots a call (the shared slot tables)
 constexpr int ATOM_BYTES = BN * 64 * 2;   // 64 positions x 64 columns
+constexpr int MAX_TREE = 32;      // tree-mode window rows (32 mask bits)
 // int8 pools: P V as two products of P's bf16 hi and lo halves (true),
 // or of P rounded to bf16 once (false)
 constexpr bool P_SPLIT = true;
@@ -147,7 +164,8 @@ struct Cfg {
   static constexpr size_t SMEM = 1024 + Q_BYTES + CONV_BYTES +
                                  (size_t)STAGES * STAGE_BYTES +
                                  2 * STAGES * sizeof(uint64_t) +
-                                 sizeof(int) * (4 * MAX_SLOTS + 3);
+                                 sizeof(int) *
+                                     (4 * MAX_SLOTS + 3 + 2 * MQ + MAX_TREE);
   static_assert(STAGES >= 2, "a ring of two stages at least");
   static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 233472,
                 "two blocks an SM");
@@ -169,6 +187,8 @@ struct Params {
   int TQ, NV;           // rows a tile; vectors a split partial holds
   int part_items;       // items whose partials the scratch holds
   float scale_log2;
+  int tree;             // K2v's tree mode: row t's ancestors in tree_bits[t]
+  uint32_t tree_bits[MAX_TREE];
 };
 
 // one work item, derived alike by the producer and the consumers
@@ -301,6 +321,11 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   int* s_pre = s_ord + MAX_SLOTS;                       // [MAX_SLOTS + 1]
   int* s_last = s_pre + MAX_SLOTS + 1;                  // the merge flag
   int* s_k = s_last + 1;                                // stages a split
+  // a tile's query vectors: visible below s_lo[v], and from there on the
+  // bits of s_anc[v] (the linear bound: no bit; a tree's ancestors)
+  int* s_lo = s_k + 1;                                  // [MQ]
+  uint32_t* s_anc = reinterpret_cast<uint32_t*>(s_lo + MQ);   // [MQ]
+  uint32_t* s_tree = s_anc + MQ;                  // [MAX_TREE]: p.tree_bits
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (tid == 0) {
@@ -317,6 +342,11 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     s_ql[s] = slot_rows(p, s);
     s_ctx[s] = p.ctx[s];
   }
+  // the tree masks, each read at a constant offset: indexing the
+  // parameter array by a register would take its address
+#pragma unroll
+  for (int t = 0; t < MAX_TREE; ++t)
+    if (tid == t) s_tree[t] = p.tree_bits[t];
   __syncthreads();
   for (int s = tid; s < p.S; s += THREADS) {
     int r = s;
@@ -451,15 +481,24 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         *reinterpret_cast<uint4*>(qs + (cc / 8) * ATOM_BYTES + v * 128 +
                                   (((cc % 8) ^ (v % 8)) * 16)) = x;
       }
+      if (tid < MQ) {   // vector tid's mask (dead vectors see nothing)
+        const int t = w.t0 + tid / p.rep;
+        int lo = 0;
+        uint32_t anc = 0u;
+        if (tid < nq && p.tree) {
+          lo = min(w.ctx, mbs);
+          anc = s_tree[t & (MAX_TREE - 1)];
+          if (mbs - lo < 32) anc &= (1u << (mbs - lo)) - 1u;
+        } else if (tid < nq) {
+          lo = min(w.ctx + t, mbs);
+        }
+        s_lo[tid] = lo;
+        s_anc[tid] = anc;
+      }
       fence_proxy_async();
       bar_sync(1, 128);
-      int bound[2];   // this thread's rows' visible positions
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int v = v0 + 8 * hr;
-        bound[hr] = v < nq ? min(w.ctx + w.t0 + v / p.rep, mbs) : 0;
-      }
-      const int bmin = min(w.ctx + w.t0, mbs);   // the tile's first row's
+      // masked from the tile's first row's bound on; a tree's from ctx on
+      const int bmin = min(p.tree ? w.ctx : w.ctx + w.t0, mbs);
       float acc[D / 2];
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
@@ -511,17 +550,42 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         float alpha[2];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
+          // three uniform paths: a tree's edge stage, a linear edge stage,
+          // a stage every column of which is visible
           float mx = NEG_INF;
+          const int lo = s_lo[v0 + 8 * hr];
+          if (edge && p.tree) {
+            const uint32_t anc = s_anc[v0 + 8 * hr];
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j)
+            for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float& x = sc[4 * j + 2 * hr + e];
-              x = !edge || c0 + 8 * j + 2 * tig + e < bound[hr]
-                      ? x * kmul[j][e]
-                      : NEG_INF;
-              mx = fmaxf(mx, x);
-            }
+              for (int e = 0; e < 2; ++e) {
+                float& x = sc[4 * j + 2 * hr + e];
+                const int rel = c0 + 8 * j + 2 * tig + e - lo;
+                x = rel < 0 || (rel < 32 && ((anc >> (rel & 31)) & 1u))
+                        ? x * kmul[j][e]
+                        : NEG_INF;
+                mx = fmaxf(mx, x);
+              }
+          } else if (edge) {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& x = sc[4 * j + 2 * hr + e];
+                x = c0 + 8 * j + 2 * tig + e < lo ? x * kmul[j][e] : NEG_INF;
+                mx = fmaxf(mx, x);
+              }
+          } else {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& x = sc[4 * j + 2 * hr + e];
+                x *= kmul[j][e];
+                mx = fmaxf(mx, x);
+              }
+          }
           const float m_new = fmaxf(m[hr], fa::quad_max(mx));
           alpha[hr] = fa::ex2(m[hr] - m_new);
           float sum = 0.f;
@@ -763,15 +827,19 @@ cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
 // checks what it takes and launches (w_max rows a slot at most; part
 // holds part_items x NV x (D + 2) floats, NV = min(TQ, w_max) x rep:
 // splits are taken only while every item has a record, and a wave of the
-// grid, 2 x SMs blocks, needs no more)
+// grid, 2 x SMs blocks, needs no more). tree_bits (host, w_max <= 32
+// words, or null): K2v's tree mode, row t of every slot masked by
+// tree_bits[t]
 inline cudaError_t launch(const void* q, const void* kp, const void* vp,
                           const float* ks, const float* vs,
                           const int* tables, const int* ctx,
                           const int* qlens, const int* starts, void* out,
                           float* part, int* counters, int S, int H, int Hkv,
                           int D, int BS, int MB, int NB, int w_max,
-                          int part_items, float scale, cudaStream_t stream) {
+                          int part_items, float scale, cudaStream_t stream,
+                          const uint32_t* tree_bits = nullptr) {
   if (S < 1 || S > MAX_SLOTS || Hkv < 1 || H % Hkv != 0 ||
+      (tree_bits != nullptr && (w_max > MAX_TREE || qlens != nullptr)) ||
       H / Hkv > MQ || (BS != 8 && BS != 16 && BS != 32) || MB < 1 ||
       NB < 1 || w_max < 1 || part_items < 0 ||
       (part_items > 0 && (part == nullptr || counters == nullptr)) ||
@@ -800,6 +868,9 @@ inline cudaError_t launch(const void* q, const void* kp, const void* vp,
   p.NV = std::min(p.TQ, w_max) * p.rep;
   p.part_items = part_items;
   p.scale_log2 = scale * fa::LOG2E;
+  p.tree = tree_bits != nullptr;
+  for (int t = 0; t < MAX_TREE; ++t)
+    p.tree_bits[t] = p.tree && t < w_max ? tree_bits[t] : 0u;
   if (ks != nullptr)
     return D == 64 ? launch_d<64, true>(kp, vp, p, stream)
                    : launch_d<128, true>(kp, vp, p, stream);

@@ -5,9 +5,10 @@
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _decode_kernel
 // via pallas_paged_attention (K2d, t_q = 1) and via
-// pallas_paged_verify_attention (K2v, t_q = T, linear chain, without the
-// tree mask): floating pools and int8 pools (the `quantized` mode: int8
-// K/V pages and a float32 scale a position and kv head).
+// pallas_paged_verify_attention (K2v, t_q = T: the linear chain, and the
+// token-tree mask of tree_bits, :255-270): floating pools and int8 pools
+// (the `quantized` mode: int8 K/V pages and a float32 scale a position and
+// kv head).
 //
 // bfloat16 runs the Hopper body of paged_attention_sm90.cuh (K2r's, a
 // window of T rows a slot: wgmma over a TMA page ring, the split merge
@@ -38,7 +39,11 @@
 // l and a D/32 slice of acc (dims lane * D/32 ..) in float32 registers: lane
 // c scores column c, the warp reduces max and sum, and every lane
 // accumulates its slice of P @ V, reading each V row's slice in one piece.
-// Window token t sees columns < lens + t. P is rounded to the K/V dtype
+// Window token t sees columns < lens + t; in the tree mode
+// (ptt_paged_verify_attention_tree) only those < lens and, of the window,
+// its ancestors: bit c - lens of its mask (TreeBits, a kernel argument).
+// The mask is a subset of the linear bound (a node's ancestors have
+// smaller ids), so the blocks walked stay the same. P is rounded to the K/V dtype
 // before P @ V (the TPU kernel's p.astype(v.dtype)); the sum l and the
 // accumulation stay float32. A query vector that sees no column (l == 0)
 // writes 0. int8 pools: each 4 values are loaded with their row's scale
@@ -47,9 +52,11 @@
 // (the TPU kernel's float32 dequantized V).
 //
 // Shapes: q and out [S, T, H, D]; pools [NB, BS, Hkv, D]; tables
-// [S, MB], context_lens [S] int32; H = rep * Hkv with T * rep <= 64,
-// T <= 16; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16
-// (bfloat16: S <= 512); pools of q's dtype, or int8 with float32 scales
+// [S, MB], context_lens [S] int32; H = rep * Hkv, T <= 32 (a tree's 31
+// drafts and its root), float32 with T * rep <= 64; D in {64, 128}; BS in
+// {8, 16, 32}; float32 or bfloat16 (bfloat16: S <= 512, rep <= 64, a
+// window of more than 64 / rep rows in several tiles); pools of q's dtype,
+// or int8 with float32 scales
 // [NB, BS, Hkv] (bfloat16 q: the Hopper body's int8 mode). Scratch (float32, from the caller): float32
 // n_split * S * T * H * (D + 2), n_split <= 16; bfloat16 as K2r's.
 #include "common.cuh"
@@ -62,7 +69,7 @@ using namespace ptt;
 constexpr int NW = 4;         // warps per block
 constexpr int MAX_Q = 64;     // query vectors per block
 constexpr int QW = MAX_Q / NW;
-constexpr int MAX_T = 16;
+constexpr int MAX_T = 32;     // the 32 bits of a tree row's mask
 constexpr int MAX_BS = 32;    // columns staged a step: 32 / BS blocks
 // the wrapper's MAX_SPLITS (ops/kernels/paged_attention.py); the merge
 // gives each split one lane, so it could take up to 32
@@ -83,6 +90,11 @@ __device__ __forceinline__ void read_dl<2>(const float* p, float* dst) {
   dst[0] = v.x; dst[1] = v.y;
 }
 
+// K2v's tree mode: window row t's ancestor mask (bit j - 1: node j)
+struct TreeBits {
+  uint32_t bits[MAX_T];
+};
+
 // blocks slot s reads: those holding positions < lens + T - 1
 __device__ __forceinline__ int live_blocks(int lens, int TW, int BS,
                                            int MB) {
@@ -98,7 +110,7 @@ __device__ __forceinline__ void attend_group(
     const float* __restrict__ vs, const int* __restrict__ tables,
     const int* __restrict__ ctx_lens, T* __restrict__ out,
     float* __restrict__ part, int S, int TW, int H, int Hkv, int BS, int MB,
-    int rep, int n_split, float scale) {
+    int rep, int n_split, float scale, const uint32_t* anc_bits) {
   constexpr int DL = D / 32;
   constexpr int DP = D + 4;   // K/V row stride: 16-byte rows, no conflicts
   constexpr int VEC = 16 / sizeof(T);
@@ -181,7 +193,11 @@ __device__ __forceinline__ void attend_group(
     for (int qi = 0; qi < QW; ++qi) {
       const int qv = warp + qi * NW;
       if (qv < nq) {  // uniform across the warp
-        const bool live = lane < ncols && col < lens + qv / rep;
+        // the row's ancestor mask (no tree: all ones, the linear bound)
+        const uint32_t anc = anc_bits ? anc_bits[qv / rep] : ~0u;
+        const int rel = col - lens;
+        const bool live = lane < ncols && col < lens + qv / rep &&
+                          (rel < 0 || (anc >> (rel & 31)) & 1u);
         float sc = MASKED;
         if (live) {
           // 16-byte reads: q broadcast, lane c's K row (rows 4 floats
@@ -245,7 +261,8 @@ __device__ __forceinline__ void attend_group(
   }
 }
 
-// K2d: one query token per slot (the window of one, known here)
+// K2d: one query token per slot (the window of one, known here); tree is
+// unused (verify_kernel's signature)
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(NW * 32)
     decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
@@ -254,13 +271,14 @@ __global__ void __launch_bounds__(NW * 32)
                   const int* __restrict__ tables,
                   const int* __restrict__ ctx_lens, T* __restrict__ out,
                   float* __restrict__ part, int S, int TW, int H, int Hkv,
-                  int BS, int MB, int rep, int n_split, float scale) {
+                  int BS, int MB, int rep, int n_split, float scale,
+                  const __grid_constant__ TreeBits tree) {
   attend_group<T, KV, D>(q, kp, vp, ks, vs, tables, ctx_lens, out, part, S,
-                         1, H, Hkv, BS, MB, rep, n_split, scale);
+                         1, H, Hkv, BS, MB, rep, n_split, scale, nullptr);
 }
 
-// K2v: a window of TW tokens per slot
-template <typename T, typename KV, int D>
+// K2v: a window of TW tokens per slot; TREE: masked by tree.bits
+template <typename T, typename KV, int D, bool TREE>
 __global__ void __launch_bounds__(NW * 32)
     verify_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                   const KV* __restrict__ vp, const float* __restrict__ ks,
@@ -268,9 +286,11 @@ __global__ void __launch_bounds__(NW * 32)
                   const int* __restrict__ tables,
                   const int* __restrict__ ctx_lens, T* __restrict__ out,
                   float* __restrict__ part, int S, int TW, int H, int Hkv,
-                  int BS, int MB, int rep, int n_split, float scale) {
+                  int BS, int MB, int rep, int n_split, float scale,
+                  const __grid_constant__ TreeBits tree) {
   attend_group<T, KV, D>(q, kp, vp, ks, vs, tables, ctx_lens, out, part, S,
-                         TW, H, Hkv, BS, MB, rep, n_split, scale);
+                         TW, H, Hkv, BS, MB, rep, n_split, scale,
+                         TREE ? tree.bits : nullptr);
 }
 
 // merge the splits of each query vector: one warp per vector, lane sp
@@ -319,10 +339,16 @@ cudaError_t launch(bool decode, const void* q, const void* kp,
                    const void* vp, const float* ks, const float* vs,
                    const int* tables, const int* ctx, void* out, float* part,
                    int S, int TW, int H, int Hkv, int BS, int MB, int n_split,
-                   float scale, cudaStream_t stream) {
+                   float scale, cudaStream_t stream,
+                   const uint32_t* tree_bits) {
   const int rep = H / Hkv;
   const int nq = TW * rep;
-  auto kernel = decode ? &decode_kernel<T, KV, D> : &verify_kernel<T, KV, D>;
+  TreeBits tree = {};
+  for (int t = 0; tree_bits != nullptr && t < TW; ++t)
+    tree.bits[t] = tree_bits[t];
+  auto kernel = decode ? &decode_kernel<T, KV, D>
+                : tree_bits != nullptr ? &verify_kernel<T, KV, D, true>
+                                       : &verify_kernel<T, KV, D, false>;
   const size_t smem_max = sizeof(float) * (2 * MAX_BS * (D + 4) + MAX_Q * D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
@@ -330,7 +356,7 @@ cudaError_t launch(bool decode, const void* q, const void* kp,
   const size_t smem = sizeof(float) * (2 * MAX_BS * (D + 4) + nq * D);
   kernel<<<dim3(S, Hkv, n_split), NW * 32, smem, stream>>>(
       (const T*)q, (const KV*)kp, (const KV*)vp, ks, vs, tables, ctx,
-      (T*)out, part, S, TW, H, Hkv, BS, MB, rep, n_split, scale);
+      (T*)out, part, S, TW, H, Hkv, BS, MB, rep, n_split, scale, tree);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   merge_kernel<T, D>
@@ -345,15 +371,15 @@ cudaError_t dispatch_d(bool decode, const void* q, const void* kp,
                        const int* tables, const int* ctx, void* out,
                        float* part, int S, int TW, int H, int Hkv, int D,
                        int BS, int MB, int n_split, float scale,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const uint32_t* tree_bits) {
   if (D == 64)
     return launch<T, KV, 64>(decode, q, kp, vp, ks, vs, tables, ctx, out,
                              part, S, TW, H, Hkv, BS, MB, n_split, scale,
-                             stream);
+                             stream, tree_bits);
   if (D == 128)
     return launch<T, KV, 128>(decode, q, kp, vp, ks, vs, tables, ctx, out,
                               part, S, TW, H, Hkv, BS, MB, n_split, scale,
-                              stream);
+                              stream, tree_bits);
   return cudaErrorInvalidValue;
 }
 
@@ -361,9 +387,9 @@ int run(bool decode, const void* q, const void* kp, const void* vp,
         const void* ks, const void* vs, const void* tables, const void* ctx,
         void* out, void* part, void* counters, int S, int TW, int H, int Hkv,
         int D, int BS, int MB, int NB, int n_split, float scale, int dtype,
-        void* stream) {
+        void* stream, const uint32_t* tree_bits) {
   if (S < 1 || TW < 1 || TW > MAX_T || (decode && TW != 1) || Hkv < 1 ||
-      H % Hkv != 0 || TW * (H / Hkv) > MAX_Q ||
+      H % Hkv != 0 || (decode && tree_bits != nullptr) ||
       (ks == nullptr) != (vs == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -375,18 +401,19 @@ int run(bool decode, const void* q, const void* kp, const void* vp,
   if (dtype == 1)   // the ragged body, TW rows a slot
     return (int)pa90::launch(q, kp, vp, ksf, vsf, tb, cl, nullptr, nullptr,
                              out, pp, (int*)counters, S, H, Hkv, D, BS, MB,
-                             NB, TW, n_split, scale, st);
-  if (dtype != 0 || BS < 1 || BS > MAX_BS || MAX_BS % BS || MB < 1 ||
+                             NB, TW, n_split, scale, st, tree_bits);
+  if (dtype != 0 || TW * (H / Hkv) > MAX_Q || BS < 1 || BS > MAX_BS ||
+      MAX_BS % BS || MB < 1 ||
       n_split < 1 || n_split > MAX_SPLITS ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   if (ks != nullptr)
     return (int)dispatch_d<float, int8_t>(decode, q, kp, vp, ksf, vsf, tb,
                                           cl, out, pp, S, TW, H, Hkv, D, BS,
-                                          MB, n_split, scale, st);
+                                          MB, n_split, scale, st, tree_bits);
   return (int)dispatch_d<float, float>(decode, q, kp, vp, nullptr, nullptr,
                                        tb, cl, out, pp, S, TW, H, Hkv, D, BS,
-                                       MB, n_split, scale, st);
+                                       MB, n_split, scale, st, tree_bits);
 }
 
 }  // namespace
@@ -403,10 +430,11 @@ extern "C" int ptt_paged_decode_attention(
     void* part, void* counters, int S, int T, int H, int Hkv, int D, int BS,
     int MB, int NB, int n_split, float scale, int dtype, void* stream) {
   return run(true, q, kp, vp, ks, vs, tables, ctx, out, part, counters, S,
-             T, H, Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
+             T, H, Hkv, D, BS, MB, NB, n_split, scale, dtype, stream,
+             nullptr);
 }
 
-// K2v: q and out [S, T, H, D], 1 <= T <= 16; pools as K2d's. float32:
+// K2v: q and out [S, T, H, D], 1 <= T <= 32; pools as K2d's. float32:
 // part is scratch of n_split * S * T * H * (D + 2) floats (unused and may
 // be null when n_split == 1); bfloat16: as K2r's with w_max = T.
 extern "C" int ptt_paged_verify_attention(
@@ -415,5 +443,22 @@ extern "C" int ptt_paged_verify_attention(
     void* part, void* counters, int S, int T, int H, int Hkv, int D, int BS,
     int MB, int NB, int n_split, float scale, int dtype, void* stream) {
   return run(false, q, kp, vp, ks, vs, tables, ctx, out, part, counters, S,
-             T, H, Hkv, D, BS, MB, NB, n_split, scale, dtype, stream);
+             T, H, Hkv, D, BS, MB, NB, n_split, scale, dtype, stream,
+             nullptr);
+}
+
+// K2v's tree mode: as ptt_paged_verify_attention, every slot's window row t
+// masked by tree_bits[t] (host memory, T words: row t's ancestors, bit
+// j - 1 for window node j; tree_ancestor_bits of ops/kernels/
+// paged_attention.py).
+extern "C" int ptt_paged_verify_attention_tree(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables, const void* ctx, void* out,
+    void* part, void* counters, int S, int T, int H, int Hkv, int D, int BS,
+    int MB, int NB, int n_split, float scale, int dtype, void* stream,
+    const uint32_t* tree_bits) {
+  if (tree_bits == nullptr) return (int)cudaErrorInvalidValue;
+  return run(false, q, kp, vp, ks, vs, tables, ctx, out, part, counters, S,
+             T, H, Hkv, D, BS, MB, NB, n_split, scale, dtype, stream,
+             tree_bits);
 }

@@ -7,9 +7,11 @@ token per step in a host loop of eager PyTorch calls (the reference's
 jitted ``lax.while_loop``), stopping early when every row has emitted
 EOS (checked on the host after each step). Three cache paths, as in the
 reference: the dense ``[B, S, H_kv, D]`` cache (``cached_attention``),
-the paged block pool (K2d each step), and linear-chain speculative
-decoding over the pool (``generation/speculative.py``, K2v verify
-windows). Prompts on the dense path are left-padded to a power-of-two
+the paged block pool (K2d each step), and speculative decoding over the
+pool (``generation/speculative.py``, K2v verify windows): a linear chain
+of drafts, or with ``spec_tree`` (a parent tuple of gamma nodes) a token
+tree that the n-gram drafter fills and one K2v window in tree mode
+verifies. Prompts on the dense path are left-padded to a power-of-two
 bucket with a pad mask and per-row rope positions, as the reference
 does, so the two packages decode the same numbers.
 
@@ -26,9 +28,9 @@ under speculation) in int8 with a float32 scale a position and kv head;
 it selects the paged cache, and refuses an explicit dense one.
 
 Not in this slice (each raises ``NotImplementedError``): beam and
-group-beam search, ``export_generation`` / ``load_generation`` and tree
-speculation (``spec_tree``). The reference's env switches are not
-carried over; the port follows their defaults.
+group-beam search, and ``export_generation`` / ``load_generation``. The
+reference's env switches are not carried over; the port follows their
+defaults.
 """
 from __future__ import annotations
 
@@ -297,7 +299,8 @@ class GenerationMixin:
                 "(greedy_search|sampling), temperature, top_k, top_p, "
                 "num_beams, eos_token_id, pad_token_id, seed, cache_impl "
                 "(dense|paged), pad_prompt_to_bucket, "
-                "num_speculative_tokens, draft_model, spec_ngram_max")
+                "num_speculative_tokens, draft_model, spec_ngram_max, "
+                "spec_tree, kv_cache_dtype")
         cfg = generation_config or GenerationConfig()
         if max_length is not None and max_new_tokens is None:
             max_new_tokens = max_length  # PaddleNLP: length of generation
@@ -334,8 +337,6 @@ class GenerationMixin:
                     "kv_cache_dtype requires the paged cache; it cannot "
                     "run with an explicit cache_impl='dense'")
             cache_impl = "paged"
-        if spec_tree is not None:
-            raise _later("spec_tree (tree speculation)")
         if pad_prompt_to_bucket is None:
             pad_prompt_to_bucket = cfg.pad_prompt_to_bucket
 
@@ -399,6 +400,15 @@ class GenerationMixin:
         if draft_model is not None and gamma == 0:
             raise ValueError(
                 "draft_model requires num_speculative_tokens > 0")
+        if spec_tree is not None:
+            spec_tree = tuple(int(p) for p in spec_tree)
+            if gamma == 0:
+                raise ValueError(
+                    "spec_tree requires num_speculative_tokens > 0")
+            if len(spec_tree) != gamma:
+                raise ValueError(
+                    f"spec_tree has {len(spec_tree)} nodes; must equal "
+                    f"num_speculative_tokens={gamma}")
         if gamma:
             from .speculative import (SpecGenerator, draft_exclusion_reason,
                                       spec_exclusion_reason)
@@ -426,7 +436,7 @@ class GenerationMixin:
                 pad=pad, block_size=block_size, draft_model=draft_model,
                 ngram_max=int(cfg.spec_ngram_max if spec_ngram_max is None
                               else spec_ngram_max),
-                kv_cache_dtype=kv_dtype)
+                kv_cache_dtype=kv_dtype, spec_tree=spec_tree)
             out, score = runner.run(ids, gen)
             return (torch.from_numpy(out).to(dev),
                     torch.from_numpy(score).to(dev))

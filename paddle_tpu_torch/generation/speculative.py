@@ -1,5 +1,5 @@
-"""Speculative decoding over the paged KV cache, linear chain
-(counterpart of ``paddle_tpu/generation/speculative.py``).
+"""Speculative decoding over the paged KV cache, a linear chain or a
+token tree (counterpart of ``paddle_tpu/generation/speculative.py``).
 
 A drafter proposes ``gamma`` tokens and the target model verifies the
 window ``[cur, d_1..d_gamma]`` in ONE multi-token paged forward (K2v),
@@ -19,8 +19,17 @@ both run through the same ``_filter_logits`` pipeline. Rejected tokens
 are rolled back by not advancing the slot's length: the next window
 overwrites them (``paged_cache.write_tokens``).
 
-Tree speculation (``spec_tree``, ``ngram_propose_topk`` and the tree
-verify mask) comes with a later slice.
+Tree speculation (``spec_tree``, a parent tuple): the n-gram drafter
+proposes several head-distinct continuations (:func:`ngram_propose_topk`)
+that fill the tree's chains (:func:`tree_chain_layout`,
+:func:`tree_fill_from_chains`); one target forward verifies the whole
+tree, K2v masking each row by its ancestor path (``spec_tree_scope``);
+:func:`accept_tree_from_filtered` accepts the longest root path (greedy,
+or sequential sibling rejection when sampling), and ``permute_window``
+moves the accepted nodes' K/V onto the linear tail. A node is roped at
+its window position, not its depth, as in the reference, so the cache
+is a sequential decode's along a chain only. A chain tree
+``tuple(range(gamma))`` is the linear path, token for token.
 """
 from __future__ import annotations
 
@@ -32,11 +41,14 @@ import torch
 from . import _filter_logits, _paged_prefill, _select_token
 from ..distributed.moe import capacity_routed
 from ..ops import paged_cache as _pc
+from ..ops.kernels.paged_attention import spec_tree_scope, tree_ancestor_bits
 
 __all__ = ["spec_exclusion_reason", "draft_exclusion_reason",
-           "ngram_propose", "build_draft_loop", "accept_from_filtered",
-           "build_verify_step", "leading_accepts", "commit_window",
-           "SpecGenerator"]
+           "ngram_propose", "ngram_propose_topk", "tree_ancestor_bits",
+           "tree_chain_layout", "tree_fill_from_chains", "build_draft_loop",
+           "accept_from_filtered", "accept_tree_from_filtered",
+           "build_verify_step", "build_tree_verify_step", "leading_accepts",
+           "commit_window", "SpecGenerator"]
 
 
 def spec_exclusion_reason(model) -> Optional[str]:
@@ -72,8 +84,21 @@ def ngram_propose(history, gamma: int, max_ngram: int = 3) -> List[int]:
     propose the ``gamma`` tokens that followed it; pad a short
     continuation by repeating its last token, and repeat the last
     history token when nothing matches."""
+    return ngram_propose_topk(history, gamma, 1, max_ngram)[0]
+
+
+def ngram_propose_topk(history, gamma: int, n_chains: int,
+                       max_ngram: int = 3) -> List[List[int]]:
+    """The top-``n_chains`` continuations of the current suffix, found in
+    :func:`ngram_propose`'s order (longest suffix first, most recent
+    occurrence first), so ``chains[0]`` is its proposal. Chains are
+    deduplicated by their first token (two sharing a head would fill the
+    same depth-1 node); missing chains are the repeat-last-token
+    fallback."""
     n = len(history)
     g = int(gamma)
+    chains: List[List[int]] = []
+    seen = set()
     for k in range(min(int(max_ngram), n - 1), 0, -1):
         suf = history[n - k:]
         for start in range(n - k - 1, -1, -1):
@@ -81,8 +106,65 @@ def ngram_propose(history, gamma: int, max_ngram: int = 3) -> List[int]:
                 out = list(history[start + k: start + k + g])
                 while len(out) < g:
                     out.append(out[-1])
-                return out
-    return [history[-1]] * g
+                if out[0] in seen:
+                    continue
+                seen.add(out[0])
+                chains.append(out)
+                if len(chains) == int(n_chains):
+                    return chains
+    fb = [history[-1]] * g
+    if not chains:
+        chains.append(fb)
+    while len(chains) < int(n_chains):
+        chains.append(list(fb))
+    return chains
+
+
+def tree_chain_layout(parents):
+    """The static layout of a token tree (``parents[k]`` is node ``k +
+    1``'s parent, node 0 the root): ``(depth, leaf_of, n_leaves,
+    max_depth)``. ``depth[i]`` is node ``i``'s depth; ``leaf_of[i]`` the
+    chain (order among leaves, in depth-first first-child order, so the
+    root's spine is chain 0) of node ``i``'s first-child-descendant
+    leaf, whose tokens fill node ``i``; ``n_leaves`` the chains a drafter
+    proposes and ``max_depth`` their length. A chain tree has one leaf:
+    the drafter is :func:`ngram_propose`."""
+    tree_ancestor_bits(parents)          # validates
+    parents = tuple(int(p) for p in parents)
+    t = len(parents) + 1
+    depth = [0] * t
+    children: List[List[int]] = [[] for _ in range(t)]
+    for k, p in enumerate(parents):
+        depth[k + 1] = depth[p] + 1
+        children[p].append(k + 1)
+    chain_of = {}
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        if not children[i] and i > 0:
+            chain_of[i] = len(chain_of)
+        stack.extend(reversed(children[i]))
+
+    def first_leaf(i):
+        while children[i]:
+            i = children[i][0]
+        return i
+
+    leaf_of = tuple(chain_of[first_leaf(i)] for i in range(t))
+    return tuple(depth), leaf_of, len(chain_of), max(depth)
+
+
+def tree_fill_from_chains(parents, chains) -> List[int]:
+    """The ``gamma`` draft tokens in node order: node ``k + 1`` (depth
+    ``d``, chain ``c`` of :func:`tree_chain_layout`) takes
+    ``chains[c][d - 1]``."""
+    depth, leaf_of, n_leaves, _ = tree_chain_layout(parents)
+    if len(chains) < n_leaves:
+        raise ValueError(
+            f"tree has {n_leaves} chains but only {len(chains)} "
+            "candidate lists were drafted")
+    return [int(chains[leaf_of[k + 1]][depth[k + 1] - 1])
+            for k in range(len(parents))]
 
 
 def build_draft_loop(draft_step, *, gamma, do_sample, temperature=1.0,
@@ -166,6 +248,102 @@ def accept_from_filtered(f, toks, dq, generator, *, gamma, do_sample):
     return out, accept, torch.gather(logp, -1, out[..., None])[..., 0]
 
 
+def accept_tree_from_filtered(f, toks, parents, generator, *, do_sample):
+    """Token-tree acceptance on already-filtered target logits ``f [S,
+    T, V]`` (every window node's; node 0 the committed root) for the
+    window ``toks [S, T]`` of tree ``parents``: the longest accepted
+    root path, walked one depth at a time. Greedy: advance to the child
+    whose token is the current node's argmax (ties to the lowest node
+    id). Sampled: sequential sibling rejection, visiting the current
+    node's children in node order and accepting child ``i`` iff ``u_i *
+    (1 - rejected siblings' p) < p(x_i)`` (one uniform a node, each node
+    visited at most once; a duplicate of a rejected sibling's token has
+    no mass left); when every child is rejected the bonus is drawn from
+    ``p`` with the rejected siblings' tokens zeroed, and a path that
+    reaches a leaf draws it from the leaf's ``p``. Draws come from
+    ``generator``.
+
+    Returns ``(out [S, T], accept [S, T - 1], picked_logp [S, T], path
+    [S, T], n_acc [S])``: ``out`` / ``accept`` keep the linear contract
+    (``accept`` has ``n_acc`` leading Trues; the host emits ``out[s,
+    :n_acc + 1]``), ``path[s, j]`` is the accepted node at depth ``j``
+    (``path[s, 0] = 0``), the permutation ``permute_window`` compacts
+    the K/V window with."""
+    s, t, v = f.shape
+    parents = tuple(int(p) for p in parents)
+    if len(parents) != t - 1:
+        raise ValueError(
+            f"spec tree has {len(parents) + 1} nodes but the verify "
+            f"window carries {t} rows")
+    dev = f.device
+    par = torch.tensor((-1,) + parents, device=dev)
+    toks = toks.long()
+    rows = torch.arange(s, device=dev)
+    iota_t = torch.arange(t, device=dev)
+    logp = torch.log_softmax(f, dim=-1)
+    cur = torch.zeros(s, dtype=torch.int64, device=dev)
+    alive = torch.ones(s, dtype=torch.bool, device=dev)
+    n_acc = torch.zeros(s, dtype=torch.int64, device=dev)
+    path = torch.zeros((s, t), dtype=torch.int64, device=dev)
+    if not do_sample:
+        gt = torch.argmax(f, dim=-1)                        # [S, T]
+        for d in range(1, t):
+            m = (par[None, :] == cur[:, None]) \
+                & (toks == gt[rows, cur][:, None]) & alive[:, None]
+            step = m.any(dim=1)
+            cur = torch.where(step, torch.argmax(m.int(), dim=1), cur)
+            path[:, d] = cur
+            n_acc += step
+            alive = step
+        bonus = gt[rows, cur]
+    else:
+        p = torch.softmax(f, dim=-1)                        # [S, T, V]
+        u = torch.rand((s, t), generator=generator, device=dev)
+        bonus = torch.zeros(s, dtype=torch.int64, device=dev)
+        for d in range(1, t):
+            p_cur = p[rows, cur]                            # [S, V]
+            acc_d = torch.zeros(s, dtype=torch.bool, device=dev)
+            chosen = cur
+            rej_mass = torch.zeros(s, device=dev)
+            rej_nodes = torch.zeros((s, t), dtype=torch.bool, device=dev)
+            for i in range(1, t):
+                cand = alive & (par[i] == cur) & ~acc_d
+                ti = toks[:, i]
+                dup = ((toks == ti[:, None]) & rej_nodes).any(dim=1)
+                pi = torch.where(dup, 0.0, p_cur[rows, ti])
+                acc_i = cand & (u[:, i] * (1.0 - rej_mass) < pi)
+                chosen = torch.where(acc_i, i, chosen)
+                acc_d = acc_d | acc_i
+                newly = cand & ~acc_i
+                rej_mass = rej_mass + torch.where(newly, pi, 0.0)
+                rej_nodes[:, i] = newly
+            # the residual: p with the rejected siblings' tokens zeroed,
+            # renormalized (all mass rejected: p itself)
+            hit = torch.zeros((s, v), device=dev).scatter_add_(
+                1, toks, rej_nodes.float()) > 0
+            res = torch.where(hit, 0.0, p_cur)
+            rs = res.sum(-1, keepdim=True)
+            res = torch.where(rs > 0.0, res / torch.clamp(rs, min=1e-37),
+                              p_cur)
+            bonus = torch.where(alive & ~acc_d,
+                                _categorical(res, generator), bonus)
+            cur = torch.where(acc_d, chosen, cur)
+            path[:, d] = cur
+            n_acc += acc_d
+            alive = alive & acc_d
+        # a path that never stopped: the bonus from its last node's p
+        bonus = torch.where(alive, _categorical(p[rows, cur], generator),
+                            bonus)
+    # the linear contract: out[s, j] continues the sequence after j
+    # accepted drafts (the path's next token, then the bonus)
+    nxt = torch.cat([torch.gather(toks, 1, path)[:, 1:], bonus[:, None]], 1)
+    out = torch.where(iota_t[None, :] < n_acc[:, None], nxt, bonus[:, None])
+    accept = iota_t[None, :t - 1] < n_acc[:, None]
+    # out[s, j] was chosen from node path[s, j]'s distribution
+    picked = logp[rows[:, None], path, out]
+    return out, accept, picked, path, n_acc
+
+
 def build_verify_step(model_step, *, gamma, do_sample, temperature=1.0,
                       top_k=0, top_p=1.0):
     """The fixed-gamma verify step: ``verify(pools, tables, lens, toks,
@@ -182,6 +360,41 @@ def build_verify_step(model_step, *, gamma, do_sample, temperature=1.0,
                            top_p=top_p)
         out, accept, picked = accept_from_filtered(
             f, toks, dq, generator, gamma=gamma, do_sample=do_sample)
+        return out, accept, picked, pools
+
+    return verify
+
+
+def build_tree_verify_step(model_step, *, parents, do_sample,
+                           temperature=1.0, top_k=0, top_p=1.0):
+    """The tree twin of :func:`build_verify_step`: ``verify(pools,
+    tables, lens, toks, dq=None, generator=None) -> (out, accept, logp,
+    pools)`` runs ONE target forward over the window ``toks [S, gamma +
+    1]`` (nodes in order) inside ``spec_tree_scope(parents)``, so K2v
+    masks each row by its ancestor path; filters the logits, accepts
+    with :func:`accept_tree_from_filtered`, and moves the accepted
+    nodes' K/V onto the linear tail of every layer's pools
+    (``permute_window``), where committing ``lens += n_acc + 1`` exposes
+    them in order. Tree drafts are one-hot: ``dq`` must be
+    None."""
+    parents = tuple(int(p) for p in parents)
+    tree_ancestor_bits(parents)          # validates
+
+    def verify(pools, tables, lens, toks, dq=None, generator=None):
+        if dq is not None:
+            raise ValueError("tree drafts are one-hot: no dq")
+        with spec_tree_scope(parents):
+            logits, pools = model_step(toks, pools, tables, lens)
+        f = _filter_logits(logits, do_sample=do_sample,
+                           temperature=temperature, top_k=top_k,
+                           top_p=top_p)
+        out, accept, picked, path, n_acc = accept_tree_from_filtered(
+            f, toks, parents, generator, do_sample=do_sample)
+        # permute_window on every layer, its addresses worked out once
+        moves = _pc.window_moves(pools[0][0].shape[1], tables, lens, path,
+                                 n_acc + 1)
+        for kp, vp in pools:
+            _pc.move_rows(kp, vp, moves)
         return out, accept, picked, pools
 
     return verify
@@ -224,16 +437,32 @@ class SpecGenerator:
     gamma)``: the paged layout of the plain paged loop (generate() owns
     the whole pool, contiguous block tables, prefill through the dense
     cached path scattered into the blocks), then per iteration: draft
-    gamma tokens (n-gram on the host, or the draft model's loop), verify
-    the window in one target forward, and commit 1..gamma+1 tokens per
-    row by advancing its length; the rejected tail is rolled back by not
+    gamma tokens (n-gram on the host, the draft model's loop, or with
+    ``spec_tree`` the n-gram chains filling the tree), verify the window
+    in one target forward, and commit 1..gamma+1 tokens per row by
+    advancing its length; the rejected tail is rolled back by not
     advancing over it. The block tables carry ``gamma`` positions of
     headroom: the last window may overhang the final token by that
     much."""
 
     def __init__(self, model, b, prompt_len, max_new, gamma, *, do_sample,
                  temperature, top_k, top_p, eos, pad, block_size,
-                 draft_model=None, ngram_max=3, kv_cache_dtype=None):
+                 draft_model=None, ngram_max=3, kv_cache_dtype=None,
+                 spec_tree=None):
+        if spec_tree is not None:
+            spec_tree = tuple(int(p) for p in spec_tree)
+            if len(spec_tree) != int(gamma):
+                raise ValueError(
+                    f"spec_tree has {len(spec_tree)} draft nodes but "
+                    f"num_speculative_tokens={int(gamma)}")
+            if draft_model is not None:
+                raise ValueError(
+                    "spec_tree drafts via n-gram top-k chains; a separate "
+                    "draft_model only produces linear chains — drop one "
+                    "of the two")
+            (_, _, self._tree_chains,
+             self._tree_max_depth) = tree_chain_layout(spec_tree)
+        self.spec_tree = spec_tree
         self.model, self.draft_model = model, draft_model
         self.b, self.max_new, self.gamma = b, int(max_new), int(gamma)
         self.prompt_len = int(prompt_len)
@@ -245,8 +474,10 @@ class SpecGenerator:
         knobs = dict(do_sample=do_sample, temperature=temperature,
                      top_k=top_k, top_p=top_p)
         self._select = lambda lg, gen: _select_token(lg, gen, **knobs)
-        self._verify = build_verify_step(_paged_step(model), gamma=gamma,
-                                         **knobs)
+        self._verify = build_verify_step(
+            _paged_step(model), gamma=gamma, **knobs) \
+            if spec_tree is None else build_tree_verify_step(
+                _paged_step(model), parents=spec_tree, **knobs)
         self._dloop = None if draft_model is None else build_draft_loop(
             _paged_step(draft_model), gamma=gamma, want_probs=do_sample,
             **knobs)
@@ -284,7 +515,16 @@ class SpecGenerator:
             toks[:, 0] = cur
             lens_t = torch.from_numpy(lens).to(dev)
             dq = None
-            if self._dloop is None:
+            if self.spec_tree is not None:
+                for r in range(b):
+                    toks[r, 1:] = self.pad if done[r] else \
+                        tree_fill_from_chains(self.spec_tree,
+                                              ngram_propose_topk(
+                                                  hist[r],
+                                                  self._tree_max_depth,
+                                                  self._tree_chains,
+                                                  self.ngram_max))
+            elif self._dloop is None:
                 for r in range(b):
                     toks[r, 1:] = ngram_propose(hist[r], g, self.ngram_max) \
                         if not done[r] else self.pad

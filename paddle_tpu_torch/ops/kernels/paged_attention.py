@@ -5,11 +5,23 @@ slot, its scratch kept as K2r's) and their plain PyTorch versions.
 
 Counterparts of ``pallas_paged_attention`` (K2d: one query token per
 slot, ``q [S, H, D]``) and ``pallas_paged_verify_attention`` (K2v: a
-window of T query tokens per slot, ``q [S, T, H, D]``, linear chain) in
+window of T query tokens per slot, ``q [S, T, H, D]``, a linear chain or
+a token tree) in
 ``paddle_tpu/ops/pallas/paged_attention.py``. Both attend each slot's
 blocks of the pool ``[NB, BS, H_kv, D]`` through ``block_tables [S, MB]``;
 window token ``t`` of slot ``s`` sees the first ``context_lens[s] + t``
 positions. A row that sees no position is 0.
+
+K2v's token-tree mode (``tree_anc``, the reference's ``tree_bits``):
+window node ``j`` sits at cache position ``context_lens - 1 + j``, and
+row ``t`` sees the committed prefix and root (``col < context_lens``)
+plus exactly its own ancestors in the window
+(:func:`tree_ancestor_bits`). The ancestors of node ``t`` have ids of at
+most ``t``, so the tree mask is a subset of the linear bound; a chain
+tree ``tuple(range(gamma))`` is the linear bound itself. The wrapper
+reads the ambient :func:`spec_tree_scope` by default, so model forwards
+stay untouched; its launches are counted as
+``paged_verify_attention_tree`` (``_tree_int8`` on int8 pools).
 
 The plain versions are the reference's gather fallbacks
 (``_xla_paged_attention`` / ``_xla_paged_verify``) op for op: the dense
@@ -25,8 +37,10 @@ rounded); the kernels' launches are then counted as
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -37,22 +51,93 @@ from .ragged_paged_attention import (SM90_MAX_SLOTS, pool_operands,
                                      sm90_scratch_sizes)
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
-           "plain_paged_decode_attention", "plain_paged_verify_attention"]
+           "plain_paged_decode_attention", "plain_paged_verify_attention",
+           "tree_ancestor_bits", "spec_tree_scope"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
-MAX_Q = 64                # query vectors (T * rep) one block holds
-MAX_T = 16
+# The shapes the kernels take. Both bodies: a window of at most MAX_T
+# tokens (a tree's 31 drafts + the root fill the 32 ancestor bits) and a
+# GQA group of at most MAX_Q query heads. float32 (the FMA body): one
+# block holds a kv group's T * group <= MAX_Q query vectors. bfloat16
+# (the Hopper body): a window of more than MAX_Q // group rows takes
+# several 64-vector tiles, so it has no such product bound.
+MAX_Q = 64
+MAX_T = 32
 # float32: the context's split over SMs
 SPLIT_POSITIONS = 64      # fewest context positions worth a split
 MAX_SPLITS = 16           # the kernel's MAX_SPLITS; it refuses more
 BLOCKS_PER_SM = 8
 
 
+def tree_ancestor_bits(parents) -> tuple:
+    """Per-node inclusive ancestor bitmasks of a speculative token tree.
+    ``parents[k]`` names node ``k + 1``'s parent (``parents[k] in [0,
+    k]``: nodes in topological order, node 0 the committed root); the
+    chain is ``tuple(range(gamma))``. Bit ``j - 1`` of ``bits[t]`` is set
+    iff window node ``j >= 1`` is an ancestor of node ``t`` or ``t``
+    itself: the columns row ``t`` may attend to beyond the committed
+    prefix. A chain gives ``bits[t] = (1 << t) - 1``, the linear bound.
+    Raises ``ValueError`` past 31 draft nodes or on a parent that is not
+    an earlier node."""
+    parents = tuple(int(p) for p in parents)
+    if len(parents) > 31:
+        raise ValueError(
+            f"spec tree supports at most 31 draft nodes (int32 "
+            f"ancestor bitmask), got {len(parents)}")
+    bits = [0]
+    for k, p in enumerate(parents):
+        if not 0 <= p <= k:
+            raise ValueError(
+                f"spec_tree[{k}] = {p}: node {k + 1}'s parent must be "
+                f"an earlier node (0..{k})")
+        bits.append(bits[p] | (1 << k))
+    return tuple(bits)
+
+
+_SPEC_TREE = threading.local()    # a scope a thread
+_AMBIENT = object()               # "read the ambient scope"
+
+
+@contextlib.contextmanager
+def spec_tree_scope(tree_anc):
+    """Arm the token-tree verify mask for the calls inside the scope:
+    :func:`paged_verify_attention` (and the paged attention step above
+    it) read it when they run, so model forwards stay untouched.
+    ``tree_anc`` is the parent tuple (None disarms). Thread-local: a
+    tree verify on one thread never arms another's."""
+    prev = _tree_ctx()
+    _SPEC_TREE.tree = None if tree_anc is None \
+        else tuple(int(p) for p in tree_anc)
+    try:
+        yield
+    finally:
+        _SPEC_TREE.tree = prev
+
+
+def _tree_ctx():
+    """The innermost :func:`spec_tree_scope`'s parent tuple, or None."""
+    return getattr(_SPEC_TREE, "tree", None)
+
+
+def window_tree(tree_anc, t):
+    """The tree a window of ``t`` rows carries: ``tree_anc``, read from
+    the ambient scope when it is the default, or None where its length
+    + 1 is not ``t`` (not a verify window: the linear bound stands)."""
+    if tree_anc is _AMBIENT:
+        tree_anc = _tree_ctx()
+    if tree_anc is not None and len(tree_anc) + 1 != t:
+        return None
+    return tree_anc
+
+
 def plain_paged_verify_attention(q, k_pool, v_pool, block_tables,
-                                 context_lens, sm_scale=None):
+                                 context_lens, sm_scale=None,
+                                 tree_anc=None):
     """``q [S, T, H, D]`` -> ``[S, T, H, D]``; token ``t`` sees
-    ``context_lens + t`` positions."""
+    ``context_lens + t`` positions, or with ``tree_anc`` (a parent tuple
+    of T - 1 nodes) the committed prefix and its ancestors in the window
+    (the reference's ``_xla_paged_verify`` tree mask, op for op)."""
     s, t, h, d = q.shape
     hkv = k_pool.shape[2]
     rep = h // hkv
@@ -65,8 +150,19 @@ def plain_paged_verify_attention(q, k_pool, v_pool, block_tables,
     scores = torch.einsum("stgrd,slgd->sgtrl", q6.float(),
                           k.to(ad).float()) * scale
     pos = torch.arange(k.shape[1], device=q.device)
-    bound = context_lens.long()[:, None] + torch.arange(t, device=q.device)
+    lens = context_lens.long()
+    bound = lens[:, None] + torch.arange(t, device=q.device)
     allow = pos[None, None, :] < bound[:, :, None]            # [S, T, L]
+    if tree_anc is not None:
+        bits = tree_ancestor_bits(tree_anc)
+        if len(bits) != t:
+            raise ValueError(
+                f"spec tree has {len(bits)} nodes but the verify window "
+                f"carries {t} rows")
+        bits_a = torch.tensor(bits, dtype=torch.int64, device=q.device)
+        rel = pos[None, None, :] - lens[:, None, None]
+        bit = (bits_a[None, :, None] >> torch.clamp(rel, 0, 31)) & 1
+        allow = (rel < 0) | (bit > 0)
     bias = torch.where(allow, 0.0, -1e9)
     w = torch.softmax(scores + bias[:, None, :, None, :], dim=-1).to(ad)
     out = torch.einsum("sgtrl,slgd->stgrd", w, v.to(ad))
@@ -85,11 +181,16 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = _build.load("paged_decode_attention")
+        args = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         for fn in (lib.ptt_paged_decode_attention,
                    lib.ptt_paged_verify_attention):
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = args
             fn.restype = ctypes.c_int
+        # + the window's T ancestor bitmasks (a host array)
+        lib.ptt_paged_verify_attention_tree.argtypes = args \
+            + [ctypes.POINTER(ctypes.c_uint32)]
+        lib.ptt_paged_verify_attention_tree.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -125,9 +226,12 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
     if not 1 <= t <= MAX_T:
         raise ValueError(f"window of {t} tokens: the kernel takes 1.."
                          f"{MAX_T}")
-    if h % hkv or t * (h // hkv) > MAX_Q:
-        raise ValueError(f"{h} query heads over {hkv} kv heads at T {t}: "
-                         f"need a whole group with T * group <= {MAX_Q}")
+    if h % hkv or h // hkv > MAX_Q:
+        raise ValueError(f"{h} query heads over {hkv} kv heads: need a "
+                         f"whole group of at most {MAX_Q}")
+    if q4.dtype == torch.float32 and t * (h // hkv) > MAX_Q:
+        raise ValueError(f"{h // hkv} query heads a kv head at T {t}: the "
+                         f"float32 kernel takes T * group <= {MAX_Q}")
     if block_tables.dim() != 2 or block_tables.shape[0] != s \
             or tuple(context_lens.shape) != (s,):
         raise ValueError("block_tables must be [S, MB] and context_lens [S]")
@@ -151,9 +255,15 @@ def _n_split(q4, block_tables, block_size):
 
 
 def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
-            context_lens, sm_scale):
+            context_lens, sm_scale, tree_anc=None):
     """Check and launch; a launch adds one to ``launch_counts[counter]``
-    (``counter + "_int8"`` on int8 pools)."""
+    (``counter + "_int8"`` on int8 pools). ``tree_anc``: K2v's tree mode
+    (a parent tuple of T - 1 nodes), counted as ``counter + "_tree"``."""
+    tree = ()
+    if tree_anc is not None:
+        bits = tree_ancestor_bits(tree_anc)
+        entry, counter = entry + "_tree", counter + "_tree"
+        tree = ((ctypes.c_uint32 * len(bits))(*bits),)
     kd, vd, ks, vs = _check(q4, k_pool, v_pool, block_tables, context_lens)
     s, t, h, d = q4.shape
     nb, bs, hkv, _ = kd.shape
@@ -177,7 +287,7 @@ def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
         q4.data_ptr(), kd.data_ptr(), vd.data_ptr(), ptr(ks), ptr(vs),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         ptr(part), ptr(cnt), s, t, h, hkv, d, bs, mb, nb, n_split,
-        float(scale), _DTYPES[q4.dtype], stream)
+        float(scale), _DTYPES[q4.dtype], stream, *tree)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed (cudaError {rc})")
     launch_counts[counter + ("_int8" if ks is not None else "")] += 1
@@ -203,15 +313,21 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
 
 @no_backward("paged_verify_attention (K2v)")
 def paged_verify_attention(q, k_pool, v_pool, block_tables, context_lens,
-                           sm_scale=None):
-    """K2v: ``q [S, T, H, D]`` -> ``[S, T, H, D]``. CPU tensors take the
+                           sm_scale=None, tree_anc=_AMBIENT):
+    """K2v: ``q [S, T, H, D]`` -> ``[S, T, H, D]``. ``tree_anc`` (a
+    parent tuple) masks every slot's window by ancestor path; by default
+    it is read from the ambient :func:`spec_tree_scope`, and a tree whose
+    length + 1 is not T leaves the linear bound. CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""
-    if q.device.type == "cpu":
-        return plain_paged_verify_attention(q, k_pool, v_pool, block_tables,
-                                            context_lens, sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}: want [S, T, H, D]")
+    tree_anc = window_tree(tree_anc, q.shape[1])
+    if q.device.type == "cpu":
+        return plain_paged_verify_attention(q, k_pool, v_pool, block_tables,
+                                            context_lens, sm_scale=sm_scale,
+                                            tree_anc=tree_anc)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     return _launch("ptt_paged_verify_attention", "paged_verify_attention",
-                   q, k_pool, v_pool, block_tables, context_lens, sm_scale)
+                   q, k_pool, v_pool, block_tables, context_lens, sm_scale,
+                   tree_anc)

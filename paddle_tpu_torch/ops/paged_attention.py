@@ -36,8 +36,10 @@ def paged_attention_step(qh, kh, vh, k_pool, v_pool, block_tables,
     """Write this step's K/V (``[S, T, H_kv, D]``) at ``cache_lens[s] +
     t`` and attend ``qh [S, T, H, D]``: T = 1 is generate()'s paged
     decode step (K2d), T > 1 the speculative verify window (K2v, token
-    ``t`` sees ``cache_lens + 1 + t`` positions). The pools are updated
-    in place. Returns ``(out [S, T, H, D], k_pool, v_pool)``."""
+    ``t`` sees ``cache_lens + 1 + t`` positions, or, inside a
+    ``spec_tree_scope`` of T - 1 nodes, the prefix and its ancestors in
+    the window). The pools are updated in place. Returns ``(out [S, T,
+    H, D], k_pool, v_pool)``."""
     lens = cache_lens.to(torch.int32)
     if qh.shape[1] == 1:
         write_decode(k_pool, v_pool, block_tables, lens, kh[:, 0], vh[:, 0])
@@ -46,6 +48,7 @@ def paged_attention_step(qh, kh, vh, k_pool, v_pool, block_tables,
                                           sm_scale=sm_scale)
         return out[:, None], k_pool, v_pool
     write_tokens(k_pool, v_pool, block_tables, lens, kh, vh)
-    out = _pda.paged_verify_attention(qh, k_pool, v_pool, block_tables,
-                                      lens + 1, sm_scale=sm_scale)
+    out = _pda.paged_verify_attention(
+        qh, k_pool, v_pool, block_tables, lens + 1, sm_scale=sm_scale,
+        tree_anc=_pda.window_tree(_pda._tree_ctx(), qh.shape[1]))
     return out, k_pool, v_pool

@@ -33,7 +33,8 @@ import torch
 __all__ = ["NULL_BLOCK", "blocks_for", "BlockAllocator", "QuantKV",
            "kv_quantize", "kv_dequantize", "resolve_kv_cache_dtype",
            "pool_bytes", "init_pool", "write_prefill", "write_decode",
-           "write_tokens", "write_rows", "gather_dense", "ragged_row_meta"]
+           "write_tokens", "write_rows", "permute_window", "window_moves",
+           "move_rows", "gather_dense", "ragged_row_meta"]
 
 NULL_BLOCK = 0
 
@@ -295,6 +296,56 @@ def write_rows(k_pool, v_pool, block_tables, row_slot, row_pos, k_new,
                      torch.full_like(bi, NULL_BLOCK))
     off = torch.remainder(pos, bs)
     return _store(k_pool, v_pool, bi, off, k_new, v_new)
+
+
+def permute_window(k_pool, v_pool, block_tables, cache_lens, perm, n_keep):
+    """Tree-acceptance K/V compaction, in place: after a tree verify,
+    slot ``s``'s accepted root path lies at the window positions
+    ``cache_lens[s] + perm[s, j]``; move each onto ``cache_lens[s] + j``
+    (``j < n_keep[s]``), so the accepted tokens' rows lie in order, as
+    sequential decoding would put them. ``perm [S, T]`` is a root path in node
+    order (``perm[s, j] >= j``), ``n_keep [S]`` the positions to keep (0
+    skips the slot). Every source row is gathered into a fresh tensor
+    before any write, so overlapping moves cannot clobber each other;
+    positions past ``n_keep`` (and slots with ``n_keep == 0``) go to the
+    null block. An int8 pool moves data and scales. Returns the (same)
+    pools."""
+    return move_rows(k_pool, v_pool, window_moves(
+        k_pool.shape[1], block_tables, cache_lens, perm, n_keep))
+
+
+def window_moves(block_size, block_tables, cache_lens, perm, n_keep):
+    """The pool addresses of :func:`permute_window`'s moves, ``(source
+    blocks, source offsets, destination blocks, destination offsets)``,
+    each ``[S, T]``; one set serves every layer's pools."""
+    bs, mb = int(block_size), block_tables.shape[1]
+    lens = cache_lens.long()
+    tables = block_tables.long()
+    t = perm.shape[1]
+    j = torch.arange(t, device=lens.device)[None, :]
+    keep = j < torch.as_tensor(n_keep, device=lens.device).long() \
+        .reshape(-1, 1)
+
+    def addr(pos):
+        blk = torch.div(pos, bs, rounding_mode="floor")
+        bi = torch.gather(tables, 1, torch.clamp(blk, 0, mb - 1))
+        bi = torch.where(keep & (pos >= 0) & (blk < mb), bi,
+                         torch.full_like(bi, NULL_BLOCK))
+        return bi, torch.remainder(pos, bs)
+
+    return addr(lens[:, None] + perm.long()) + addr(lens[:, None] + j)
+
+
+def move_rows(k_pool, v_pool, moves):
+    """Apply :func:`window_moves`' moves to one layer's pools, in place
+    (the gather is a fresh tensor, written after it is whole). Returns
+    the pools."""
+    sbi, soff, dbi, doff = moves
+    for pool in (k_pool, v_pool):
+        for x in ((pool.data, pool.scale) if isinstance(pool, QuantKV)
+                  else (pool,)):
+            x[dbi, doff] = x[sbi, soff]
+    return k_pool, v_pool
 
 
 def gather_dense(pool, block_tables):

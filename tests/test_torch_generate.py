@@ -10,7 +10,8 @@ model, a prompt that bucketing left-pads and a caller's left-padded
 mask; the port's dense, paged and speculative greedy streams must agree
 with each other, as the reference pins for its own. The option guards
 raise as the reference's do, and each option of a later slice raises
-``NotImplementedError``. Sampling cannot be compared across packages
+``NotImplementedError`` (the options ported since, int8 pools and tree
+speculation, run instead). Sampling cannot be compared across packages
 (the RNG streams differ): the port's rejection sampling is held to the
 filtered target distribution by a chi-square test instead.
 """
@@ -236,6 +237,12 @@ def test_draft_vocab_mismatch_raises(target):
     dict(kv_cache_dtype="int8")], ids=["beam", "group_beam", "spec_tree",
                                        "int8_kv"])
 def test_later_slice_options_raise(target, kw):
+    if "spec_tree" in kw:
+        # tree speculation is ported: the option runs on the paged cache
+        out, sc = target[1].generate(np.ones((1, 4), np.int64),
+                                     max_new_tokens=2, **kw)
+        assert tuple(out.shape) == (1, 2) and tuple(sc.shape) == (1,)
+        return
     if "kv_cache_dtype" in kw:
         # int8 pools are ported: the option runs on the paged cache, and
         # only an explicit dense cache with it is refused

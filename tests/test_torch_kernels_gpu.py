@@ -654,8 +654,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(qa, qa, qa, 0.1, True)
 
-    # K2d / K2v: head_dim, block size, window length, group width, dtypes,
-    # int32 metadata and contiguity
+    # K2d / K2v: head_dim, block size, window length (32 at most), group
+    # width (64 at most; float32: T x group too), dtypes, int32 metadata
+    # and contiguity
     def paged(T=1, rep=4, D=128, BS=16, dt=torch.float32, pool_dt=None,
               lens_dt=torch.int32):
         q = torch.zeros(2, T, 2 * rep, D, device=cuda, dtype=dt)
@@ -666,8 +667,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     for kw, exc, match in (
             (dict(D=96), ValueError, "head_dim"),
             (dict(BS=12), ValueError, "block_size"),
-            (dict(T=17, rep=1), ValueError, "window"),
-            (dict(T=9, rep=8), ValueError, "whole group"),
+            (dict(T=33, rep=1), ValueError, "window"),
+            (dict(T=1, rep=65), ValueError, "whole group"),
+            (dict(T=9, rep=8), ValueError, "T \\* group"),
             (dict(dt=torch.float16), TypeError, "float32 or"),
             (dict(pool_dt=torch.bfloat16), TypeError, "share"),
             (dict(lens_dt=torch.int64), TypeError, "int32")):
@@ -1303,3 +1305,107 @@ def test_flashmask_refuses_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="must divide"):
         fm.flashmask_bounds(torch.zeros(1, 3, 64, 1, dtype=torch.int32),
                             64, 4, 4)
+
+
+# K2v's token-tree mode: BRANCHY's spine 1-3-5-7 and branch 2-4-6 (T 8);
+# TREE32 a seeded tree of 31 drafts (T 32, the 32 ancestor bits)
+BRANCHY = (0, 0, 1, 2, 3, 4, 5)
+TREE32 = tuple(int(np.random.RandomState(32).randint(0, k + 1))
+               for k in range(31))
+
+
+def _tree_case(seed, tree, rep, block_size, mb, dtype, pool, dev):
+    T = len(tree) + 1
+    lens = [1, block_size, block_size + 1, mb * block_size - T + 1]
+    q, kp, vp, tables, ctx = _paged_case(seed, lens, T, rep, 128,
+                                         block_size, mb,
+                                         getattr(torch, dtype), dev)
+    if pool == "int8":
+        kp, vp = _int8(kp.float()), _int8(vp.float())
+    return q, kp, vp, tables, ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+@pytest.mark.parametrize("block_size,mb", [(8, 8), (16, 8), (32, 8),
+                                           (16, 64)])
+def test_paged_verify_tree_attention(cuda, dtype, pool, rep, block_size, mb):
+    """K2v's tree mode against the plain version's tree mask: float32 (the
+    FMA body), bfloat16 (the Hopper body) and int8 pools (both bodies' int8
+    modes), GQA groups 1, 4 and 7, block sizes 8, 16 and 32, contexts of 1,
+    BS, BS + 1 and one whose window ends at the table's reach; the long
+    table splits the context. A tree launch counts as
+    paged_verify_attention_tree(_int8), never as the linear K2v."""
+    q, kp, vp, tables, ctx = _tree_case(700 + rep + block_size + mb, BRANCHY,
+                                        rep, block_size, mb, dtype, pool,
+                                        cuda)
+    sfx = "_int8" if pool == "int8" else ""
+    n0 = dict(launch_counts)
+    got = pda.paged_verify_attention(q, kp, vp, tables, ctx,
+                                     tree_anc=BRANCHY)
+    assert launch_counts["paged_verify_attention_tree" + sfx] == \
+        n0["paged_verify_attention_tree" + sfx] + 1
+    assert launch_counts["paged_verify_attention" + sfx] == \
+        n0["paged_verify_attention" + sfx]
+    want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
+                                            tree_anc=BRANCHY)
+    _rows_close(got, want, dtype)
+    lin = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx)
+    assert not torch.allclose(got.float(), lin.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("rep,T", [(1, 4), (4, 5), (7, 8), (4, 16)])
+def test_chain_tree_equals_linear_verify_bitwise(cuda, dtype, pool, rep, T):
+    """A chain tree's mask is the linear bound: the tree mode's output
+    equals linear K2v's bit for bit, in both bodies and on int8 pools,
+    over a split context too."""
+    chain = tuple(range(T - 1))
+    if dtype == "float32" and T * rep > pda.MAX_Q:
+        pytest.skip("past the float32 body's T * group bound")
+    q, kp, vp, tables, ctx = _tree_case(800 + rep + T, chain, rep, 16, 64,
+                                        dtype, pool, cuda)
+    lin = pda.paged_verify_attention(q, kp, vp, tables, ctx, tree_anc=None)
+    tree = pda.paged_verify_attention(q, kp, vp, tables, ctx,
+                                      tree_anc=chain)
+    assert torch.equal(lin, tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rep", [("bfloat16", 1), ("bfloat16", 4),
+                                       ("bfloat16", 7), ("float32", 1),
+                                       ("float32", 2)])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_paged_verify_tree_of_31_drafts(cuda, dtype, rep, pool):
+    """The largest tree (31 drafts, T 32: every ancestor bit): the Hopper
+    body takes it at any group, in several 64-vector tiles; the float32
+    body while T * group <= 64."""
+    q, kp, vp, tables, ctx = _tree_case(900 + rep, TREE32, rep, 16, 8,
+                                        dtype, pool, cuda)
+    got = pda.paged_verify_attention(q, kp, vp, tables, ctx,
+                                     tree_anc=TREE32)
+    want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
+                                            tree_anc=TREE32)
+    _rows_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_paged_verify_tree_refusals(cuda):
+    """What the derived limits refuse: the float32 body past T * group
+    64 (a 31-draft tree at group 4), a tree past 31 drafts, and a window
+    past 32 rows."""
+    q, kp, vp, tables, ctx = _tree_case(5, TREE32, 4, 16, 8, "float32", "fp",
+                                        cuda)
+    with pytest.raises(ValueError, match="T \\* group"):
+        pda.paged_verify_attention(q, kp, vp, tables, ctx, tree_anc=TREE32)
+    q33 = torch.cat([q, q[:, :1]], 1).bfloat16()
+    with pytest.raises(ValueError, match="31 draft nodes"):
+        pda.paged_verify_attention(q33, kp.bfloat16(), vp.bfloat16(), tables,
+                                   ctx, tree_anc=TREE32 + (0,))
+    with pytest.raises(ValueError, match="window of 33"):
+        pda.paged_verify_attention(q33, kp.bfloat16(), vp.bfloat16(), tables,
+                                   ctx, tree_anc=None)
