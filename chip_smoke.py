@@ -44,7 +44,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    K2v's token-tree mode at phase 7's shape, fp and int8 pools, GQA
    groups 4, 1 and 7: the branching tree (0, 0, 1, 2, 3, 4, 5) (T 8)
    against the plain version's tree mask, the chain (0, 1, 2, 3) equal to
-   linear K2v bit for bit, timed cold beside linear K2v at T 8;
+   linear K2v bit for bit, timed cold beside linear K2v at T 8; and K2r's
+   per-slot tree mode at a speculating tick (8 slots: 7 flagged T 8
+   windows at contexts up to 2048 and an unflagged 128-row prefill
+   chunk), bf16 and float32, fp and int8 pools, GQA groups 4, 1 and 7:
+   the branching tree against the plain version's mask, the chain of T 8
+   equal to linear K2r bit for bit, timed cold beside linear K2r on the
+   same tick;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -147,12 +153,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     pools, paged, self-drafted and tree ``generate()`` and the engine
     through the kernels and through their plain versions (phase 4's
     rule);
-17. print the kernels line, the card's name and power limit, and the
+17. speculative decoding in the engine: phase 3's model, weights and
+    traffic served five times — linear n-gram at gamma 4 (K2r), the
+    model drafting for itself at gamma 4 (K2r and K2d; the mean accepted
+    length must exceed 1; 4 profiled ticks: device time, idle share),
+    the chain tree (0, 1, 2, 3) (stream and tokens a verify equal to the
+    n-gram run's; K2r's tree mode), the branching tree at gamma 7, and
+    draft heads (seeded float32 weights) on the depth-2 tree (0, 0, 1,
+    1) — each with tokens/s, TTFT, ticks, rows a tick, accepted length,
+    acceptance rate and peak memory, each stream held against phase 3's
+    by phase 7's near-tie rule; the branching tree on int8 pools (K2r's
+    tree mode on int8 pools); then 2 float32 layers at full widths served
+    linear, self-drafted, tree and heads through the kernels and through
+    their plain versions (phase 4's rule);
+18. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
-11, the three runs of phase 12, phase 14, phase 15, each run of phase
-16) runs with every
+11, the three runs of phase 12, phase 14, phase 15, each run of phases
+16 and 17) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -252,10 +271,31 @@ INT8_KERNELS = ("ragged_paged_attention_int8", "paged_decode_attention_int8",
 # 2-4-6)
 CHAIN_TREE = (0, 1, 2, 3)
 BRANCH_TREE = (0, 0, 1, 2, 3, 4, 5)
+# phase 2's K2r tree tick: 7 slots verify a T 8 tree window at contexts
+# up to 2048 (flagged), one carries a 128-row prefill chunk (unflagged);
+# CHAIN7 is the chain of the same T
+RAGGED_TREE_TICK = dict(base=[2040, 1500, 900, 300, 64, 1024, 1800, 512],
+                        q_lens=[8] * 7 + [128], flags=[1] * 7 + [0])
+CHAIN7 = tuple(range(7))
 # phase 8's hand-built tree verifies: the accepted root paths (off the
 # spine, and the whole chain)
 TREE_PATHS = {BRANCH_TREE: (0, 2, 4, 6), CHAIN_TREE: (0, 1, 2, 3, 4)}
 INT8_POOL_RATIO = 0.55               # int8 pool bytes / bf16's, at most
+# phase 17: phase 3's engine speculating, each run with the kernels it
+# must launch; the heads' depth-2 tree keeps its two float32 [4096,
+# 128256] heads at 4.2 GB
+SPEC_RUNS = {
+    "ngram": (dict(num_speculative_tokens=4), ("ragged_paged_attention",)),
+    "self": (dict(num_speculative_tokens=4, drafter="model"),
+             ("ragged_paged_attention", "paged_decode_attention")),
+    "chain": (dict(num_speculative_tokens=4, spec_tree=CHAIN_TREE),
+              ("ragged_paged_attention_tree",)),
+    "tree": (dict(num_speculative_tokens=7, spec_tree=BRANCH_TREE),
+             ("ragged_paged_attention_tree",)),
+    "heads": (dict(num_speculative_tokens=4, spec_tree=(0, 0, 1, 1),
+                   drafter="heads"), ("ragged_paged_attention_tree",))}
+SPEC_KERNELS = ("ragged_paged_attention_tree",
+                "ragged_paged_attention_tree_int8")
 # phase 16, f32: the first layer's scales in two paths' pools (absmax /
 # 127 of rows that agree within float32 rounding), relative
 INT8_SCALE_RTOL = 1e-4
@@ -621,6 +661,97 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
             f"{nbytes / 1e6:.2f} MB; {len(pools)} pool copies)")
     if fails:
         raise AssertionError(f"[{dtype}] tree mode: {fails}")
+    return errs, rows
+
+
+def check_ragged_tree(torch, rpa, dtype, timing, heads=32, kv_heads=8,
+                      int8=False):
+    """K2r's tree mode at a speculating engine's tick (RAGGED_TREE_TICK: 8
+    slots, D 128, BS 16, tables of 128 blocks; 7 slots verify a T 8
+    BRANCH_TREE window at contexts up to 2048, flagged, and one carries a
+    128-row prefill chunk, unflagged): held against the plain version's
+    per-slot tree mask, elementwise and row by row; CHAIN7 (T 8) equal to
+    linear K2r bit for bit; 32 / 8 heads unless ``heads`` / ``kv_heads``
+    say otherwise; ``int8``: on int8 pools (the rows named ``*_int8``).
+    With ``timing``, the tree mode is timed cold beside linear K2r on the
+    same layout in this call, with the bound of the same bytes (the mask
+    is a subset of the linear bound). Returns ``(errors, rows)``."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    S, Hkv, rep, D, BS, MB = 8, kv_heads, heads // kv_heads, 128, 16, 128
+    NB = 1 + S * MB
+    base, q_lens, flags = (RAGGED_TREE_TICK[k]
+                           for k in ("base", "q_lens", "flags"))
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+                                timing)
+    name = "ragged_paged_attention_tree" + ("_int8" if int8 else "")
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32,  # noqa: E731
+                                 device="cuda")
+    ctx, ql, fl = i32([b + 1 for b in base]), i32(q_lens), i32(flags)
+    starts = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
+    rs = i32(starts.tolist())
+    R, w_max = sum(q_lens), max(q_lens)
+    q = torch.randn(R, Hkv * rep, D, generator=g, device="cuda").to(dt)
+    kp, vp = pools[0]
+    args = (q, kp, vp, tables, ctx, ql, rs)
+    fails, errs, rows = [], {}, {}
+    n0 = rpa.launch_counts[name]
+    t_rows = len(BRANCH_TREE) + 1       # a flagged slot's rows: T 8
+    got = rpa.ragged_paged_attention(*args, w_max, tree_anc=BRANCH_TREE,
+                                     tree_slots=fl, tree_rows=t_rows)
+    if rpa.launch_counts[name] != n0 + 1:
+        fails.append(f"{name}: the tree mode did not launch")
+    ref = rpa.plain_ragged_paged_attention(*args, tree_anc=BRANCH_TREE,
+                                           tree_slots=fl)
+    torch.cuda.synchronize()
+    errs[name] = held_attention(
+        torch, got, ref, dtype, f"{name} spec tick {heads}/{kv_heads} "
+        f"heads, tree {BRANCH_TREE}", fails)
+    lin = rpa.ragged_paged_attention(*args, w_max)
+    chain = rpa.ragged_paged_attention(*args, w_max, tree_anc=CHAIN7,
+                                       tree_slots=fl, tree_rows=t_rows)
+    same = bool(torch.equal(lin, chain))
+    log(f"  {name} [{dtype}] chain {CHAIN7} against linear K2r on the same "
+        f"tick, {heads}/{kv_heads} heads: "
+        f"{'bitwise equal' if same else 'FAIL: they differ'}")
+    if not same:
+        fails.append(f"{name} chain != linear")
+    if timing:
+        es = q.element_size()
+        kv_pos = sum(b + n for b, n in zip(base, q_lens))
+        nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
+            + 4 * (tables.numel() + 4 * S)
+        vis = sum(b + 1 + t for b, n in zip(base, q_lens) for t in range(n))
+        b_ms, b_by = bound(nbytes, 4 * vis * Hkv * rep * D, dtype)
+        turn = iter(range(1 << 30))
+
+        def run(f, *extra, **kw):
+            kp_i, vp_i = pools[next(turn) % len(pools)]
+            return f(q, kp_i, vp_i, tables, ctx, ql, rs, *extra, **kw)
+
+        tree_kw = dict(tree_anc=BRANCH_TREE, tree_slots=fl, tree_rows=t_rows)
+        # the tree instance with no slot flagged: linear K2r's mask
+        kws = (dict(), tree_kw, dict(tree_kw, tree_slots=torch.zeros_like(fl)))
+        # linear, tree, unflagged, unflagged, tree, linear on the same pool
+        # copies: a drift of the card's clock falls on each alike
+        ab = [time_ms(torch, lambda: run(rpa.ragged_paged_attention, w_max,
+                                         **kws[k]))
+              for k in (0, 1, 2, 2, 1, 0)]
+        r = rows[name] = dict(
+            ms=(ab[1] + ab[4]) / 2,
+            plain_ms=time_ms(torch, lambda: run(
+                rpa.plain_ragged_paged_attention, **tree_kw)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"  {name} [{dtype}] spec tick, {heads}/{kv_heads} heads, "
+            f"{R} rows: ms={r['ms']:.4f} (timed linear K2r, tree, the tree "
+            f"instance with no slot flagged, the same, tree, linear: "
+            + " ".join(f"{t:.4f}" for t in ab) + f") plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB; {len(pools)} pool copies)")
+    if fails:
+        raise AssertionError(f"[{dtype}] K2r tree mode: {fails}")
     return errs, rows
 
 
@@ -1580,10 +1711,12 @@ def plain_patches(df, rpa):
     """Route the model's kernel calls to the plain versions (phase 4's
     reference run on the card)."""
     def plain_attn(q, k_pool, v_pool, tables, ctx, q_lens, starts, w_max,
-                   sm_scale=None):
+                   sm_scale=None, tree_anc=None, tree_slots=None,
+                   tree_rows=None):
         return rpa.plain_ragged_paged_attention(
             q, k_pool, v_pool, tables, ctx, q_lens, starts,
-            sm_scale=sm_scale)
+            sm_scale=sm_scale, tree_anc=tree_anc, tree_slots=tree_slots,
+            tree_rows=tree_rows)
     return [mock.patch.object(df, "norm_matmul", df.plain_norm_matmul),
             mock.patch.object(df, "matmul_residual",
                               df.plain_matmul_residual),
@@ -1630,13 +1763,15 @@ def held_streams(torch, model, what, prompts, a, b, fails,
 
 
 def serve_f32(torch, ServingEngine, ServingConfig, model, prompts,
-              after_first=None, **kw):
-    """The short float32 run of phases 4 and 16: the first tick's logits
-    and the streams (``after_first(engine)`` runs after the first tick;
-    ``kw`` goes to the config)."""
+              after_first=None, draft_model=None, spec_heads=None, **kw):
+    """The short float32 run of phases 4, 16 and 17: the first tick's
+    logits and the streams (``after_first(engine)`` runs after the first
+    tick; ``kw`` goes to the config, ``draft_model`` / ``spec_heads`` to
+    the engine)."""
     eng = ServingEngine(model, ServingConfig(
         num_slots=2, block_size=16, max_model_len=512, prefill_chunk=128,
-        max_new_tokens=8, **kw), device="cuda")
+        max_new_tokens=8, **kw), device="cuda", draft_model=draft_model,
+        spec_heads=spec_heads)
     rids = [eng.submit(p) for p in prompts]
     eng.step()
     first = eng.last_logits.float().clone()
@@ -3118,6 +3253,154 @@ def int8_phase(torch, kernels, df, rpa, pda, ServingEngine, ServingConfig,
     return runs
 
 
+# ---------------------------------------------------------------- phase 17
+
+def spec_serve_run(torch, kernels, engine, prompts, lens, tag, want):
+    """``serve_run`` of a speculating engine, its speculation stats
+    logged beside the serving metrics."""
+    launches, st, streams = serve_run(torch, kernels, engine, prompts, lens,
+                                      tag, want)
+    log(f"{tag}: spec_mean_accepted_len "
+        f"{st['spec_mean_accepted_len']:.4f}, spec_acceptance_rate "
+        f"{st['spec_acceptance_rate']:.4f} (proposed "
+        f"{st['spec_tokens_proposed']}, accepted "
+        f"{st['spec_tokens_accepted']}), spec_tree_nodes "
+        f"{st['spec_tree_nodes']}")
+    return launches, st, streams
+
+
+def spec_serving_phase(torch, kernels, df, rpa, pda, ServingEngine,
+                       ServingConfig, LlamaConfig, LlamaForCausalLM, layers,
+                       streams3):
+    """Phase 17: speculative decoding in the engine. Phase 3's model
+    (Llama-3-8B at ``layers`` layers, bf16, phase 3's seeded weights)
+    serves phase 3's traffic five times (SPEC_RUNS): linear n-gram at
+    gamma 4 (K2r), the model drafting for itself at gamma 4 (K2r and
+    K2d; the mean accepted length must exceed 1), the chain tree (its
+    stream and tokens a verify must equal the n-gram run's; K2r's tree
+    mode), the branching tree at gamma 7, and draft heads (the
+    reference's seeded float32 weights) on a depth-2 tree; each run's
+    tokens/s, TTFT, ticks, rows a tick, accepted length, acceptance rate
+    and peak memory, each stream held against phase 3's by the near-tie
+    rule (the logit difference of two bf16 recipes); 4 profiled ticks of
+    the self-drafted engine (device time, idle share). Then the branching
+    tree on int8 pools (K2r's tree mode on int8 pools). Then float32,
+    PHASE4_LAYERS layers at full widths: linear, self-drafted, tree and
+    heads engines through the kernels and through their plain versions
+    (phase 4's rule). Returns ``{run: launch counts}``."""
+    cfg = LlamaConfig.llama3_8b()
+    cfg.dtype = "bfloat16"
+    cfg.num_hidden_layers = layers
+    t0 = time.monotonic()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    log(f"phase 17: Llama-3-8B, {layers} layers bf16 (phase 3's weights), "
+        f"speculative serving; init {time.monotonic() - t0:.1f}s")
+    lens, prompts = serving_prompts(cfg.vocab_size, REQUESTS, SEED)
+    ids7 = torch.from_numpy(motif_prompts(
+        GENERATE["batch"], GENERATE["prompt"], GENERATE["motif"],
+        cfg.vocab_size, SEED + 3)).to(model.device)
+    noise = logit_noise(torch, model, ids7)
+    del ids7
+    log(f"phase 17: bf16 logits of two recipes differ by up to {noise:.3e}"
+        ": the near-tie limit of the streams held below")
+    base = dict(num_slots=8, block_size=16, max_model_len=2048,
+                prefill_chunk=128, max_new_tokens=32)
+    runs, stats, streams, fails = {}, {}, {}, []
+    for name, (kw, want) in SPEC_RUNS.items():
+        engine = ServingEngine(model, ServingConfig(**base, **kw),
+                               device="cuda",
+                               draft_model=model if name == "self" else None)
+        runs[name], stats[name], streams[name] = spec_serve_run(
+            torch, kernels, engine, prompts, lens, f"phase 17 {name}", want)
+        if name == "self":
+            tick_window(torch, engine, prompts[:8], TICK_WINDOW,
+                        "phase 17 self")
+            if not stats[name]["spec_mean_accepted_len"] > 1.0:
+                fails.append("phase 17 self: no draft accepted")
+        if "spec_tree" in kw:
+            # a tick with no verifying slot (prefill rows only) runs
+            # linear K2r: no row of it is a tree row
+            log(f"  phase 17 {name}: K2r tree mode "
+                f"{runs[name]['ragged_paged_attention_tree']} launches, "
+                f"linear {runs[name]['ragged_paged_attention']} (ticks "
+                "that verify no window)")
+        held_streams(torch, model, f"phase 17 {name} vs phase 3", prompts,
+                     streams[name], streams3, fails, limit=noise)
+        engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) for a, b in
+               zip(streams["chain"], streams["ngram"]))
+    per = [stats[n]["spec_mean_accepted_len"] for n in ("chain", "ngram")]
+    log(f"  phase 17 chain {CHAIN_TREE} vs ngram gamma 4: streams "
+        f"{'equal' if same else 'DIFFER'}; tokens a verify {per[0]:.4f} / "
+        f"{per[1]:.4f}")
+    if not same or per[0] != per[1]:
+        fails.append("phase 17 chain tree != linear n-gram")
+
+    engine = ServingEngine(model, ServingConfig(
+        **base, kv_cache_dtype="int8", **SPEC_RUNS["tree"][0]),
+        device="cuda")
+    runs["tree_int8"], _, st_q = spec_serve_run(
+        torch, kernels, engine, prompts, lens, "phase 17 tree int8",
+        ("ragged_paged_attention_tree_int8",))
+    if runs["tree_int8"]["ragged_paged_attention_tree"]:
+        fails.append("phase 17 tree int8: the tree mode ran on bf16 pools")
+    held_streams(torch, model, "phase 17 tree int8 vs phase 3", prompts,
+                 st_q, streams3, None, limit=noise)
+    engine.shutdown()
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # float32, full widths: every drafter through the kernels and through
+    # their plain versions
+    cfg4 = LlamaConfig.llama3_8b()
+    cfg4.num_hidden_layers = PHASE4_LAYERS
+    model = LlamaForCausalLM(cfg4, device="cuda", seed=SEED + 1)
+    rng = np.random.RandomState(SEED + 1)
+    prompts4 = [rng.randint(0, cfg4.vocab_size, size=n)
+                for n in (40, 150, 70)]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    heads = [torch.randn(cfg4.hidden_size, cfg4.vocab_size, generator=g,
+                         device="cuda") * 0.02 for _ in range(2)]
+    kinds = {"ngram": dict(num_speculative_tokens=4),
+             "self": dict(num_speculative_tokens=4, drafter="model"),
+             "tree": SPEC_RUNS["tree"][0],
+             "heads": SPEC_RUNS["heads"][0]}
+    res = {}
+    for path in ("kernel", "plain"):
+        patches = [] if path == "kernel" else plain_patches(df, rpa) + [
+                mock.patch.object(pda, n, getattr(pda, "plain_" + n))
+                for n in ("paged_decode_attention", "paged_verify_attention")]
+        for p in patches:
+            p.start()
+        try:
+            for kind, kw in kinds.items():
+                res[path, kind] = serve_f32(
+                    torch, ServingEngine, ServingConfig, model, prompts4,
+                    draft_model=model if kind == "self" else None,
+                    spec_heads=heads if kind == "heads" else None, **kw)
+        finally:
+            for p in patches:
+                p.stop()
+    for kind in kinds:
+        lerr = float((res["kernel", kind][0]
+                      - res["plain", kind][0]).abs().max())
+        log(f"phase 17 f32 {kind}: first-tick logits max_abs_err="
+            f"{lerr:.3e} (atol {LOGITS_ATOL})")
+        if not lerr <= LOGITS_ATOL:
+            fails.append(f"phase 17 f32 {kind} logits {lerr}")
+        held_streams(torch, model, f"phase 17 f32 {kind} kernel vs plain",
+                     prompts4, res["kernel", kind][1], res["plain", kind][1],
+                     fails)
+    del model, heads
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 17 failed: {fails}")
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -3192,6 +3475,14 @@ def main(argv=None):
             for int8 in (False, True):
                 check_paged_tree(torch, pda, dtype, False, heads, kv_heads,
                                  int8=int8)
+        # K2r's tree mode: fp and int8 pools, GQA groups 4, 1 and 7 (timed
+        # in float32 too)
+        e1t, r1t = check_ragged_tree(torch, rpa, dtype, True)
+        e1tq, r1tq = check_ragged_tree(torch, rpa, dtype, True, int8=True)
+        for heads, kv_heads in MOE_HEADS.values():
+            for int8 in (False, True):
+                check_ragged_tree(torch, rpa, dtype, False, heads, kv_heads,
+                                  int8=int8)
         # int8 pools: the same ticks, phase 7's shape, both GQA groups
         e1q, r1q = check_ragged(torch, rpa, dtype, timing, int8=True)
         e5q, r5q = check_paged(torch, pda, dtype, timing, "generate",
@@ -3228,9 +3519,10 @@ def main(argv=None):
             table["ragged_paged_attention_int8"] = dict(r1q["prefill"],
                                                         max_abs_err=e1q)
             for name, r in list(r5.items()) + list(r5q.items()) \
-                    + list(r5t.items()) + list(r5tq.items()):
-                table[name] = dict(r, max_abs_err={**e5, **e5q, **e5t,
-                                                   **e5tq}[name])
+                    + list(r5t.items()) + list(r5tq.items()) \
+                    + list(r1t.items()) + list(r1tq.items()):
+                table[name] = dict(r, max_abs_err={
+                    **e5, **e5q, **e5t, **e5tq, **e1t, **e1tq}[name])
             for name, r in (("norm_matmul", r2), ("matmul_residual", r3)):
                 table[name] = dict(merge_rows(
                     [r[label] for label in K3_TABLE[name]], dtype),
@@ -3401,8 +3693,18 @@ def main(argv=None):
                            streams3, st3["kv_pool_bytes"])
     for k in INT8_KERNELS:
         launches[k] = sum(r[k] for r in int8_runs.values())
+    torch.cuda.empty_cache()
 
-    # -- phase 17: report --------------------------------------------------
+    # -- phase 17: speculative serving, and f32 kernels vs plain ----------
+    spec_runs = spec_serving_phase(torch, kernels, df, rpa, pda,
+                                   ServingEngine, ServingConfig, LlamaConfig,
+                                   LlamaForCausalLM, args.layers, streams3)
+    for k in SPEC_KERNELS:
+        launches[k] = sum(r[k] for r in spec_runs.values())
+    for k in SERVING_KERNELS + ("paged_decode_attention",):
+        launches[k] += sum(r[k] for r in spec_runs.values())
+
+    # -- phase 18: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (
@@ -3415,6 +3717,12 @@ def main(argv=None):
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:510"),
             "ragged_paged_attention_int8": (
+                "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:593"),
+            "ragged_paged_attention_tree": (
+                "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:593"),
+            "ragged_paged_attention_tree_int8": (
                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:593"),
             "paged_decode_attention_int8": (

@@ -107,4 +107,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// the tree mode of the paged attention kernels: window row t's ancestor
+// mask (bit j - 1: window node j), passed by value as a kernel argument
+struct TreeBits {
+  uint32_t bits[32];
+};
+
 }  // namespace ptt

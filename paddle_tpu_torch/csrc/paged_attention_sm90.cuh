@@ -9,26 +9,35 @@
 //   window of TW tokens a slot of q [S, TW, H, D] (K2v; K2d is TW = 1).
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _ragged_kernel
-// (call :593, without its tree mask) and _decode_kernel (calls :439, t_q
-// 1, and :510, t_q T, with its tree mask, :255-270): floating-point pools,
-// and the `quantized` mode (int8 pools with a float32 scale a position and
-// kv head, dequantized tile by tile by _dequant_tile, :184).
+// (call :593, with its per-slot tree mask, :339-355) and _decode_kernel
+// (calls :439, t_q 1, and :510, t_q T, with its tree mask, :255-270):
+// floating-point pools, and the `quantized` mode (int8 pools with a
+// float32 scale a position and kv head, dequantized tile by tile by
+// _dequant_tile, :184).
 //
-// K2v's tree mode (tree_bits): window row t keeps column c iff c < ctx
-// (the committed prefix and the root) or bit c - ctx of its ancestor mask
-// is set. A node's ancestors have ids of at most its own, so the mask is
-// a subset of the linear bound c < ctx + t: the visible positions, stages
-// and splits stay the linear window's. The masks ride in Params (32
-// words, no global read; copied to shared memory at constant offsets).
-// With the tile's Q, each query vector's (lo, mask) is staged in shared
-// memory: lo the row's bound (linear) or ctx (tree), the mask its
-// ancestors cut at the table's reach. On an edge stage a linear row keeps
-// c < lo, a tree row c < lo or bit c - lo of its mask; with a tree every
-// stage past ctx is an edge stage. The three paths (tree edge, linear
-// edge, no edge) are uniform branches. On an H100: the two rows' bound
-// and mask held in registers for the whole item made ptxas spill at D
-// 128; one predicate for both modes, or one that must prove a no-edge
-// stage unmasked, cost the linear kernels 9-74 % (PERF.md).
+// The tree mode (tree_bits, T masks): row t < T of a tree slot keeps
+// column c iff c < ctx (the committed prefix and the root) or bit c - ctx
+// of its ancestor mask is set. K2v's windows are all tree slots; in K2r
+// a slot is one iff its flag (tslots[s] > 0, the reference's tree_ref) is
+// set, so one launch mixes tree windows with linear prefill chunks and
+// their trickle rows. A node's ancestors have ids of at most its own, so
+// the mask is a subset of the linear bound c < ctx + t: the visible
+// positions, stages and splits stay the linear window's. The masks ride
+// in Params (32 words, no global read; copied to shared memory at
+// constant offsets). With the tile's Q, each query vector's (lo, mask) is
+// staged in shared memory: lo the row's bound (linear) or ctx (tree), the
+// mask its ancestors cut at the table's reach; the slot's flag is read
+// there once, and whether the item holds tree rows is a word of shared
+// memory, so no register carries it across the stages. On an edge stage
+// a linear row keeps c < lo, a tree row c < lo or bit c - lo of its mask;
+// in a tree item every stage past ctx is an edge stage. The three paths
+// (tree edge, linear edge, no edge) are uniform branches. The tree mode is
+// a template instance of its own (TREE), so linear launches run a body
+// without any of it. On an H100: the two rows' bound and mask held in
+// registers for the whole item made ptxas spill at D 128; one predicate
+// for both modes, or one that must prove a no-edge stage unmasked, cost
+// the linear kernels 9-74 %; the tree paths compiled into the linear
+// body, 1-4 % (PERF.md).
 //
 // What bounds it on the H100: bytes. A decode row reads a page's K and V
 // (2 x BS x D x 2 bytes a kv head) for rep query heads: ~rep flops a
@@ -165,7 +174,7 @@ struct Cfg {
                                  (size_t)STAGES * STAGE_BYTES +
                                  2 * STAGES * sizeof(uint64_t) +
                                  sizeof(int) *
-                                     (4 * MAX_SLOTS + 3 + 2 * MQ + MAX_TREE);
+                                     (4 * MAX_SLOTS + 4 + 2 * MQ + MAX_TREE);
   static_assert(STAGES >= 2, "a ring of two stages at least");
   static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 233472,
                 "two blocks an SM");
@@ -187,8 +196,9 @@ struct Params {
   int TQ, NV;           // rows a tile; vectors a split partial holds
   int part_items;       // items whose partials the scratch holds
   float scale_log2;
-  int tree;             // K2v's tree mode: row t's ancestors in tree_bits[t]
-  uint32_t tree_bits[MAX_TREE];
+  int tree;             // tree mode: rows t < tree of a tree slot masked by
+  uint32_t tree_bits[MAX_TREE];   // row t's ancestors tree_bits[t]
+  const int* tslots;    // [S] or null: the tree slots (> 0); null: all
 };
 
 // one work item, derived alike by the producer and the consumers
@@ -298,7 +308,8 @@ __device__ __forceinline__ void convert_stage(const unsigned char* st,
       reinterpret_cast<const float*>(st + 2 * BN * D)[tid];
 }
 
-template <int D, bool Q8>
+// TREE: the tree mode's instance (p.tree rows of a tree slot masked)
+template <int D, bool Q8, bool TREE>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -321,9 +332,10 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   int* s_pre = s_ord + MAX_SLOTS;                       // [MAX_SLOTS + 1]
   int* s_last = s_pre + MAX_SLOTS + 1;                  // the merge flag
   int* s_k = s_last + 1;                                // stages a split
+  int* s_titem = s_k + 1;                // the item holds tree rows
   // a tile's query vectors: visible below s_lo[v], and from there on the
   // bits of s_anc[v] (the linear bound: no bit; a tree's ancestors)
-  int* s_lo = s_k + 1;                                  // [MQ]
+  int* s_lo = s_titem + 1;                              // [MQ]
   uint32_t* s_anc = reinterpret_cast<uint32_t*>(s_lo + MQ);   // [MQ]
   uint32_t* s_tree = s_anc + MQ;                  // [MAX_TREE]: p.tree_bits
 
@@ -346,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   // parameter array by a register would take its address
 #pragma unroll
   for (int t = 0; t < MAX_TREE; ++t)
-    if (tid == t) s_tree[t] = p.tree_bits[t];
+    if (TREE && tid == t) s_tree[t] = p.tree_bits[t];
   __syncthreads();
   for (int s = tid; s < p.S; s += THREADS) {
     int r = s;
@@ -481,11 +493,16 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         *reinterpret_cast<uint4*>(qs + (cc / 8) * ATOM_BYTES + v * 128 +
                                   (((cc % 8) ^ (v % 8)) * 16)) = x;
       }
+      // the item's tree rows: a tree slot's first p.tree rows (none when
+      // the slot is not flagged)
+      const int trows =
+          TREE && (p.tslots == nullptr || p.tslots[w.s] > 0) ? p.tree : 0;
+      if (TREE && tid == 0) *s_titem = trows > w.t0;
       if (tid < MQ) {   // vector tid's mask (dead vectors see nothing)
         const int t = w.t0 + tid / p.rep;
         int lo = 0;
         uint32_t anc = 0u;
-        if (tid < nq && p.tree) {
+        if (tid < nq && t < trows) {
           lo = min(w.ctx, mbs);
           anc = s_tree[t & (MAX_TREE - 1)];
           if (mbs - lo < 32) anc &= (1u << (mbs - lo)) - 1u;
@@ -498,7 +515,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
       fence_proxy_async();
       bar_sync(1, 128);
       // masked from the tile's first row's bound on; a tree's from ctx on
-      const int bmin = min(p.tree ? w.ctx : w.ctx + w.t0, mbs);
+      const int bmin = min(TREE && *s_titem ? w.ctx : w.ctx + w.t0, mbs);
       float acc[D / 2];
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
@@ -554,7 +571,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
           // a stage every column of which is visible
           float mx = NEG_INF;
           const int lo = s_lo[v0 + 8 * hr];
-          if (edge && p.tree) {
+          if (TREE && edge && *s_titem) {
             const uint32_t anc = s_anc[v0 + 8 * hr];
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j)
@@ -793,7 +810,7 @@ inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
   return cudaSuccess;
 }
 
-template <int D, bool Q8>
+template <int D, bool Q8, bool TREE>
 cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
                      cudaStream_t stream) {
   using C = Cfg<D, Q8>;
@@ -805,7 +822,7 @@ cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
   const int sms = sm_count(dev);
   static unsigned long long ready = 0;   // the attribute set, a bit a device
   if (dev >= 64 || !(ready >> dev & 1)) {
-    err = cudaFuncSetAttribute(paged_attention_kernel<D, Q8>,
+    err = cudaFuncSetAttribute(paged_attention_kernel<D, Q8, TREE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
     if (err != cudaSuccess) return err;
@@ -817,7 +834,7 @@ cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
       (long)p.S * p.Hkv *
       std::max(cdiv(p.MB * p.BS, BN), cdiv(p.w_max, p.TQ));
   const int grid = (int)std::min<long>(most, (long)BLOCKS_PER_SM * sms);
-  paged_attention_kernel<D, Q8>
+  paged_attention_kernel<D, Q8, TREE>
       <<<grid, THREADS, C::SMEM, stream>>>(tk, tv, p);
   return cudaGetLastError();
 }
@@ -827,9 +844,11 @@ cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
 // checks what it takes and launches (w_max rows a slot at most; part
 // holds part_items x NV x (D + 2) floats, NV = min(TQ, w_max) x rep:
 // splits are taken only while every item has a record, and a wave of the
-// grid, 2 x SMs blocks, needs no more). tree_bits (host, w_max <= 32
-// words, or null): K2v's tree mode, row t of every slot masked by
-// tree_bits[t]
+// grid, 2 x SMs blocks, needs no more). tree_bits (host, tree_t <= 32
+// words, or null): the tree mode, row t < tree_t of a tree slot masked by
+// tree_bits[t]; tree_t 0 means w_max (K2v: every row of a window), and
+// the tree slots are those of tree_slots[s] > 0 (device [S]; null: every
+// slot). K2v's windows (qlens null) must fit the tree.
 inline cudaError_t launch(const void* q, const void* kp, const void* vp,
                           const float* ks, const float* vs,
                           const int* tables, const int* ctx,
@@ -837,9 +856,14 @@ inline cudaError_t launch(const void* q, const void* kp, const void* vp,
                           float* part, int* counters, int S, int H, int Hkv,
                           int D, int BS, int MB, int NB, int w_max,
                           int part_items, float scale, cudaStream_t stream,
-                          const uint32_t* tree_bits = nullptr) {
+                          const uint32_t* tree_bits = nullptr,
+                          int tree_t = 0,
+                          const int* tree_slots = nullptr) {
+  if (tree_bits != nullptr && tree_t == 0) tree_t = w_max;
   if (S < 1 || S > MAX_SLOTS || Hkv < 1 || H % Hkv != 0 ||
-      (tree_bits != nullptr && (w_max > MAX_TREE || qlens != nullptr)) ||
+      (tree_bits != nullptr &&
+       (tree_t < 1 || tree_t > MAX_TREE ||
+        (qlens == nullptr && w_max > tree_t))) ||
       H / Hkv > MQ || (BS != 8 && BS != 16 && BS != 32) || MB < 1 ||
       NB < 1 || w_max < 1 || part_items < 0 ||
       (part_items > 0 && (part == nullptr || counters == nullptr)) ||
@@ -868,14 +892,19 @@ inline cudaError_t launch(const void* q, const void* kp, const void* vp,
   p.NV = std::min(p.TQ, w_max) * p.rep;
   p.part_items = part_items;
   p.scale_log2 = scale * fa::LOG2E;
-  p.tree = tree_bits != nullptr;
+  p.tree = tree_bits != nullptr ? tree_t : 0;
   for (int t = 0; t < MAX_TREE; ++t)
-    p.tree_bits[t] = p.tree && t < w_max ? tree_bits[t] : 0u;
+    p.tree_bits[t] = t < p.tree ? tree_bits[t] : 0u;
+  p.tslots = tree_bits != nullptr ? tree_slots : nullptr;
   if (ks != nullptr)
-    return D == 64 ? launch_d<64, true>(kp, vp, p, stream)
-                   : launch_d<128, true>(kp, vp, p, stream);
-  return D == 64 ? launch_d<64, false>(kp, vp, p, stream)
-                 : launch_d<128, false>(kp, vp, p, stream);
+    return p.tree ? (D == 64 ? launch_d<64, true, true>(kp, vp, p, stream)
+                             : launch_d<128, true, true>(kp, vp, p, stream))
+                  : (D == 64 ? launch_d<64, true, false>(kp, vp, p, stream)
+                             : launch_d<128, true, false>(kp, vp, p, stream));
+  return p.tree ? (D == 64 ? launch_d<64, false, true>(kp, vp, p, stream)
+                           : launch_d<128, false, true>(kp, vp, p, stream))
+                : (D == 64 ? launch_d<64, false, false>(kp, vp, p, stream)
+                           : launch_d<128, false, false>(kp, vp, p, stream));
 }
 
 }  // namespace

@@ -90,10 +90,8 @@ __device__ __forceinline__ void read_dl<2>(const float* p, float* dst) {
   dst[0] = v.x; dst[1] = v.y;
 }
 
-// K2v's tree mode: window row t's ancestor mask (bit j - 1: node j)
-struct TreeBits {
-  uint32_t bits[MAX_T];
-};
+static_assert(sizeof(TreeBits) == MAX_T * sizeof(uint32_t),
+              "a mask a window row");
 
 // blocks slot s reads: those holding positions < lens + T - 1
 __device__ __forceinline__ int live_blocks(int lens, int TW, int BS,

@@ -4,9 +4,15 @@
 // pool in one call.
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _ragged_kernel
-// (via pallas_ragged_paged_attention), without the tree mask: floating
-// pools and int8 pools (the `quantized` mode: int8 K/V pages and a float32
-// scale a position and kv head, dequantized as they are read).
+// (via pallas_ragged_paged_attention, :593): floating pools and int8 pools
+// (the `quantized` mode: int8 K/V pages and a float32 scale a position and
+// kv head, dequantized as they are read), linear or with the per-slot
+// token-tree mask (tree_bits + tree_ref, :339-355; the entry
+// ptt_ragged_paged_attention_tree): row t < T of a slot flagged in
+// tree_slots keeps the columns below lens[s] and, of the window, its
+// ancestors (bit c - lens[s] of its mask); other rows and slots keep the
+// linear bound. The mask is a subset of the linear bound, so the blocks a
+// tile reads and its splits are the linear ones.
 //
 // bfloat16 runs the Hopper body of paged_attention_sm90.cuh (wgmma over
 // a TMA page ring, the split merge in the same launch); float32 runs the
@@ -75,7 +81,7 @@ __device__ __forceinline__ size_t qv_offset(int row0, int t0, int qv,
   return (size_t)(row0 + t) * H + g * rep + ri;   // in units of vectors
 }
 
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, bool TREE>
 __global__ void __launch_bounds__(NW * 32)
     ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                   const KV* __restrict__ vp, const float* __restrict__ ks,
@@ -85,7 +91,9 @@ __global__ void __launch_bounds__(NW * 32)
                   const int* __restrict__ qlens,
                   const int* __restrict__ starts, T* __restrict__ out,
                   float* __restrict__ part, int R, int H, int Hkv, int BS,
-                  int MB, int rep, int TQ, int n_split, float scale) {
+                  int MB, int rep, int TQ, int n_split, float scale,
+                  const int* __restrict__ tslots, int tree_t,
+                  const __grid_constant__ TreeBits tree) {
   constexpr int DL = D / 32;
   constexpr int DP = D + 1;
   constexpr int VEC = 16 / sizeof(T);
@@ -105,6 +113,8 @@ __global__ void __launch_bounds__(NW * 32)
   const int nq = (t1 - t0) * rep;
   const int row0 = starts[s];
   const int* trow = tables + (size_t)s * MB;
+  // the slot's tree rows (TREE: its first tree_t when it is flagged)
+  const int trows = TREE && (tslots == nullptr || tslots[s] > 0) ? tree_t : 0;
 
   extern __shared__ float smem[];
   float* q_s = smem;                 // [MAX_Q][D]
@@ -150,12 +160,19 @@ __global__ void __launch_bounds__(NW * 32)
     }
     __syncthreads();
     const int col = j * BS + lane;
+    // only a step that reaches past lens holds window columns, where a
+    // tree row's mask applies
+    const int srows = j * BS + ncols > lens ? trows : 0;
 #pragma unroll
     for (int qi = 0; qi < QW; ++qi) {
       const int qv = warp + qi * NW;
       if (qv < nq) {  // uniform across the warp
-        const int ctx_row = lens + t0 + qv / rep;
-        const bool live = lane < ncols && col < ctx_row;
+        const int t = t0 + qv / rep;
+        // a tree row: the prefix, then its ancestors (all ones: linear)
+        const uint32_t anc = t < srows ? tree.bits[t] : ~0u;
+        const int rel = col - lens;
+        const bool live = lane < ncols && col < lens + t &&
+                          (rel < 0 || (anc >> (rel & 31)) & 1u);
         float sc = MASKED;
         if (live) {
           const float* qr = q_s + qv * D;
@@ -263,20 +280,27 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* tables, const int* ctx, const int* qlens,
                    const int* starts, void* out, float* part, int R, int S,
                    int H, int Hkv, int BS, int MB, int w_max, int n_split,
-                   float scale, cudaStream_t stream) {
+                   float scale, cudaStream_t stream,
+                   const uint32_t* tree_bits, int tree_t,
+                   const int* tree_slots) {
   const int rep = H / Hkv;
   const int TQ = max(1, min(16, MAX_Q / rep));
   const int n_tiles = (w_max + TQ - 1) / TQ;
   dim3 grid(S, Hkv, n_tiles * n_split);
   const size_t smem = sizeof(float) * (MAX_Q * D + 2 * MAX_BS * (D + 1));
+  TreeBits tree = {};
+  for (int t = 0; tree_bits != nullptr && t < tree_t; ++t)
+    tree.bits[t] = tree_bits[t];
+  auto kernel = tree_bits != nullptr ? &ragged_kernel<T, KV, D, true>
+                                     : &ragged_kernel<T, KV, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel<T, KV, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ragged_kernel<T, KV, D><<<grid, NW * 32, smem, stream>>>(
+  kernel<<<grid, NW * 32, smem, stream>>>(
       (const T*)q, (const KV*)kp, (const KV*)vp, ks, vs, tables, ctx, qlens,
       starts,
-      (T*)out, part, R, H, Hkv, BS, MB, rep, TQ, n_split, scale);
+      (T*)out, part, R, H, Hkv, BS, MB, rep, TQ, n_split, scale, tree_slots,
+      tree_bits != nullptr ? tree_t : 0, tree);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   merge_kernel<T, D>
@@ -291,16 +315,60 @@ cudaError_t dispatch_d(const void* q, const void* kp, const void* vp,
                        const int* ctx, const int* qlens, const int* starts,
                        void* out, float* part, int R, int S, int H, int Hkv,
                        int D, int BS, int MB, int w_max, int n_split,
-                       float scale, cudaStream_t stream) {
+                       float scale, cudaStream_t stream,
+                       const uint32_t* tree_bits, int tree_t,
+                       const int* tree_slots) {
   if (D == 64)
     return launch<T, KV, 64>(q, kp, vp, ks, vs, tables, ctx, qlens, starts,
                              out, part, R, S, H, Hkv, BS, MB, w_max, n_split,
-                             scale, stream);
+                             scale, stream, tree_bits, tree_t, tree_slots);
   if (D == 128)
     return launch<T, KV, 128>(q, kp, vp, ks, vs, tables, ctx, qlens, starts,
                               out, part, R, S, H, Hkv, BS, MB, w_max,
-                              n_split, scale, stream);
+                              n_split, scale, stream, tree_bits, tree_t,
+                              tree_slots);
   return cudaErrorInvalidValue;
+}
+
+int run(const void* q, const void* kp, const void* vp, const void* ks,
+        const void* vs, const void* tables, const void* ctx,
+        const void* qlens, const void* starts, void* out, void* part,
+        void* counters, int R, int S, int H, int Hkv, int D, int BS, int MB,
+        int NB, int w_max, int n_split, float scale, int dtype, void* stream,
+        const uint32_t* tree_bits, int tree_t, const int* tree_slots) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* tb = (const int*)tables;
+  const int* cl = (const int*)ctx;
+  const int* qls = (const int*)qlens;
+  const int* rs = (const int*)starts;
+  float* pp = (float*)part;
+  const float* ksf = (const float*)ks;
+  const float* vsf = (const float*)vs;
+  if ((ks == nullptr) != (vs == nullptr) ||
+      (tree_bits != nullptr && (tree_t < 1 || tree_t > 32)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (R < 1 || qls == nullptr || rs == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return (int)pa90::launch(q, kp, vp, ksf, vsf, tb, cl, qls, rs, out, pp,
+                             (int*)counters, S, H, Hkv, D, BS, MB, NB, w_max,
+                             n_split, scale, st, tree_bits, tree_t,
+                             tree_slots);
+  }
+  if (dtype != 0 || S < 1 || R < 1 || Hkv < 1 || H % Hkv != 0 ||
+      H / Hkv > MAX_Q || BS < 1 || BS > MAX_BS || MAX_BS % BS || w_max < 1 ||
+      n_split < 1 || n_split > MAX_SPLITS ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (ks != nullptr)
+    return (int)dispatch_d<float, int8_t>(q, kp, vp, ksf, vsf, tb, cl, qls,
+                                          rs, out, pp, R, S, H, Hkv, D, BS,
+                                          MB, w_max, n_split, scale, st,
+                                          tree_bits, tree_t, tree_slots);
+  return (int)dispatch_d<float, float>(q, kp, vp, nullptr, nullptr, tb, cl,
+                                       qls, rs, out, pp, R, S, H, Hkv, D, BS,
+                                       MB, w_max, n_split, scale, st,
+                                       tree_bits, tree_t, tree_slots);
 }
 
 }  // namespace
@@ -319,32 +387,26 @@ extern "C" int ptt_ragged_paged_attention(
     void* part, void* counters, int R, int S, int H, int Hkv, int D, int BS,
     int MB, int NB, int w_max, int n_split, float scale, int dtype,
     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int* tb = (const int*)tables;
-  const int* cl = (const int*)ctx;
-  const int* qls = (const int*)qlens;
-  const int* rs = (const int*)starts;
-  float* pp = (float*)part;
-  const float* ksf = (const float*)ks;
-  const float* vsf = (const float*)vs;
-  if ((ks == nullptr) != (vs == nullptr)) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    if (R < 1 || qls == nullptr || rs == nullptr)
-      return (int)cudaErrorInvalidValue;
-    return (int)pa90::launch(q, kp, vp, ksf, vsf, tb, cl, qls, rs, out, pp,
-                             (int*)counters, S, H, Hkv, D, BS, MB, NB, w_max,
-                             n_split, scale, st);
-  }
-  if (dtype != 0 || S < 1 || R < 1 || Hkv < 1 || H % Hkv != 0 ||
-      H / Hkv > MAX_Q || BS < 1 || BS > MAX_BS || MAX_BS % BS || w_max < 1 ||
-      n_split < 1 || n_split > MAX_SPLITS ||
-      (n_split > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (ks != nullptr)
-    return (int)dispatch_d<float, int8_t>(q, kp, vp, ksf, vsf, tb, cl, qls,
-                                          rs, out, pp, R, S, H, Hkv, D, BS,
-                                          MB, w_max, n_split, scale, st);
-  return (int)dispatch_d<float, float>(q, kp, vp, nullptr, nullptr, tb, cl,
-                                       qls, rs, out, pp, R, S, H, Hkv, D, BS,
-                                       MB, w_max, n_split, scale, st);
+  return run(q, kp, vp, ks, vs, tables, ctx, qlens, starts, out, part,
+             counters, R, S, H, Hkv, D, BS, MB, NB, w_max, n_split, scale,
+             dtype, stream, nullptr, 0, nullptr);
+}
+
+// the tree mode: as ptt_ragged_paged_attention, with row t < tree_t
+// (1..32) of each slot s whose tree_slots[s] > 0 (device int32 [S]; null:
+// every slot) masked by tree_bits[t] (host memory, tree_t words: row t's
+// ancestors, bit j - 1 for window node j; tree_ancestor_bits of
+// ops/kernels/paged_attention.py); the other rows keep the linear bound.
+extern "C" int ptt_ragged_paged_attention_tree(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables,
+    const void* ctx, const void* qlens, const void* starts, void* out,
+    void* part, void* counters, int R, int S, int H, int Hkv, int D, int BS,
+    int MB, int NB, int w_max, int n_split, float scale, int dtype,
+    void* stream, const uint32_t* tree_bits, int tree_t,
+    const void* tree_slots) {
+  if (tree_bits == nullptr) return (int)cudaErrorInvalidValue;
+  return run(q, kp, vp, ks, vs, tables, ctx, qlens, starts, out, part,
+             counters, R, S, H, Hkv, D, BS, MB, NB, w_max, n_split, scale,
+             dtype, stream, tree_bits, tree_t, (const int*)tree_slots);
 }

@@ -168,7 +168,7 @@ def tree_fill_from_chains(parents, chains) -> List[int]:
 
 
 def build_draft_loop(draft_step, *, gamma, do_sample, temperature=1.0,
-                     top_k=0, top_p=1.0, want_probs):
+                     top_k=0, top_p=1.0, want_probs, slot_params=False):
     """The draft model's proposal loop: ``gamma + 1`` single-token
     decode steps; the last only writes the last draft token's K/V, so a
     fully accepted window leaves the draft cache without a gap.
@@ -177,9 +177,20 @@ def build_draft_loop(draft_step, *, gamma, do_sample, temperature=1.0,
     Returns ``loop(pools, tables, lens, cur, generator) -> (proposals
     [S, gamma], q_probs [S, gamma, V] or None, pools)``; ``q_probs`` are
     the draft distributions after the shared temperature / top-k / top-p
-    pipeline (``want_probs``: rejection sampling needs them)."""
+    pipeline (``want_probs``: rejection sampling needs them).
+    ``slot_params`` (the serving engine's per-slot knobs): the loop takes
+    ``loop(pools, tables, lens, cur, samp, generator)`` with ``samp [S,
+    3]`` = (temperature, top_k, top_p) a slot, and the keyword knobs are
+    ignored; the engine's verify filters the target's logits with the same
+    values, so rejection sampling stays sound."""
 
-    def loop(pools, tables, lens, cur, generator=None):
+    def loop(pools, tables, lens, cur, *rest):
+        if slot_params:
+            samp, generator = (rest + (None,))[:2]
+            t_, k_, p_ = samp[:, 0], samp[:, 1], samp[:, 2]
+        else:
+            generator = rest[0] if rest else None
+            t_, k_, p_ = temperature, top_k, top_p
         tok, l = cur, lens
         props, qs = [], []
         for i in range(gamma + 1):
@@ -187,8 +198,7 @@ def build_draft_loop(draft_step, *, gamma, do_sample, temperature=1.0,
             if i == gamma:
                 break
             f = _filter_logits(logits[:, -1, :], do_sample=do_sample,
-                               temperature=temperature, top_k=top_k,
-                               top_p=top_p)
+                               temperature=t_, top_k=k_, top_p=p_)
             if do_sample:
                 tok = torch.multinomial(torch.softmax(f, -1), 1,
                                         generator=generator)[:, 0]

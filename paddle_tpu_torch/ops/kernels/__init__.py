@@ -21,6 +21,8 @@ import functools
 import torch
 
 launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
+                 "ragged_paged_attention_tree": 0,
+                 "ragged_paged_attention_tree_int8": 0,
                  "paged_verify_attention": 0,
                  "ragged_paged_attention_int8": 0,
                  "paged_decode_attention_int8": 0,

@@ -48,7 +48,7 @@ from . import _build, launch_counts, no_backward
 from ..paged_cache import QuantKV, gather_dense
 from .ragged_paged_attention import (SM90_MAX_SLOTS, pool_operands,
                                      sm_count, sm90_scratch,
-                                     sm90_scratch_sizes)
+                                     sm90_scratch_sizes, tree_ancestor_bits)
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
            "plain_paged_decode_attention", "plain_paged_verify_attention",
@@ -70,54 +70,39 @@ MAX_SPLITS = 16           # the kernel's MAX_SPLITS; it refuses more
 BLOCKS_PER_SM = 8
 
 
-def tree_ancestor_bits(parents) -> tuple:
-    """Per-node inclusive ancestor bitmasks of a speculative token tree.
-    ``parents[k]`` names node ``k + 1``'s parent (``parents[k] in [0,
-    k]``: nodes in topological order, node 0 the committed root); the
-    chain is ``tuple(range(gamma))``. Bit ``j - 1`` of ``bits[t]`` is set
-    iff window node ``j >= 1`` is an ancestor of node ``t`` or ``t``
-    itself: the columns row ``t`` may attend to beyond the committed
-    prefix. A chain gives ``bits[t] = (1 << t) - 1``, the linear bound.
-    Raises ``ValueError`` past 31 draft nodes or on a parent that is not
-    an earlier node."""
-    parents = tuple(int(p) for p in parents)
-    if len(parents) > 31:
-        raise ValueError(
-            f"spec tree supports at most 31 draft nodes (int32 "
-            f"ancestor bitmask), got {len(parents)}")
-    bits = [0]
-    for k, p in enumerate(parents):
-        if not 0 <= p <= k:
-            raise ValueError(
-                f"spec_tree[{k}] = {p}: node {k + 1}'s parent must be "
-                f"an earlier node (0..{k})")
-        bits.append(bits[p] | (1 << k))
-    return tuple(bits)
-
-
 _SPEC_TREE = threading.local()    # a scope a thread
 _AMBIENT = object()               # "read the ambient scope"
 
 
 @contextlib.contextmanager
-def spec_tree_scope(tree_anc):
+def spec_tree_scope(tree_anc, tree_slots=None, tree_rows=None):
     """Arm the token-tree verify mask for the calls inside the scope:
-    :func:`paged_verify_attention` (and the paged attention step above
-    it) read it when they run, so model forwards stay untouched.
-    ``tree_anc`` is the parent tuple (None disarms). Thread-local: a
-    tree verify on one thread never arms another's."""
-    prev = _tree_ctx()
-    _SPEC_TREE.tree = None if tree_anc is None \
-        else tuple(int(p) for p in tree_anc)
+    :func:`paged_verify_attention` and the ragged attention step (and the
+    paged attention step above K2v) read it when they run, so model
+    forwards stay untouched. ``tree_anc`` is the parent tuple (None
+    disarms); ``tree_slots`` an optional int32 ``[S]`` tensor on the
+    attention's device naming the slots whose rows are a tree window
+    (``> 0``) in a ragged tick, whose other slots (prefill chunks and
+    their trickle rows) keep the linear bound; None: every slot.
+    ``tree_rows`` (a host int) bounds the flagged slots' rows in a ragged
+    tick (None: the tick's ``w_max``). K2v masks every window by the tree
+    whatever the flags. Thread-local: a tree verify on one thread never
+    arms another's."""
+    prev = getattr(_SPEC_TREE, "ctx", None)
+    _SPEC_TREE.ctx = (None if tree_anc is None
+                      else tuple(int(p) for p in tree_anc), tree_slots,
+                      tree_rows)
     try:
         yield
     finally:
-        _SPEC_TREE.tree = prev
+        _SPEC_TREE.ctx = prev
 
 
 def _tree_ctx():
-    """The innermost :func:`spec_tree_scope`'s parent tuple, or None."""
-    return getattr(_SPEC_TREE, "tree", None)
+    """``(parent tuple, tree slots, tree rows)`` of the innermost
+    :func:`spec_tree_scope`, or ``(None, None, None)`` outside one."""
+    ctx = getattr(_SPEC_TREE, "ctx", None)
+    return (None, None, None) if ctx is None else ctx
 
 
 def window_tree(tree_anc, t):
@@ -125,7 +110,7 @@ def window_tree(tree_anc, t):
     the ambient scope when it is the default, or None where its length
     + 1 is not ``t`` (not a verify window: the linear bound stands)."""
     if tree_anc is _AMBIENT:
-        tree_anc = _tree_ctx()
+        tree_anc = _tree_ctx()[0]
     if tree_anc is not None and len(tree_anc) + 1 != t:
         return None
     return tree_anc

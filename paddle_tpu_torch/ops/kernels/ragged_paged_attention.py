@@ -18,6 +18,17 @@ it reads them; its launches are then counted as
 ``ragged_paged_attention_int8``. The int8 recipe is the reference's
 (``_dequant_tile``): ``q`` in float32, each page int8 -> float32 times
 its scale, both products in float32 with P not rounded.
+
+The token-tree mode (``tree_anc``, a parent tuple of T - 1 nodes, with
+``tree_slots``, int32 flags ``[S]``; the reference's ``tree_bits`` and
+``tree_ref``): row ``t < T`` of a slot flagged ``> 0`` sees the
+positions below ``context_lens[s]`` (the committed prefix and the root)
+and, of its window, exactly its ancestors (:func:`tree_ancestor_bits`);
+unflagged slots (prefill chunks and their trickle rows) keep the linear
+bound in the same launch. The mask is a subset of the linear bound, and
+a chain tree ``tuple(range(T - 1))`` is the linear bound itself. Its
+launches are counted as ``ragged_paged_attention_tree`` (``_tree_int8``
+on int8 pools).
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ from ..paged_cache import QuantKV, kv_dequantize
 
 __all__ = ["ragged_paged_attention", "plain_ragged_paged_attention",
            "sm90_scratch_sizes", "sm90_scratch", "sm_count",
-           "pool_operands"]
+           "pool_operands", "tree_ancestor_bits"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -45,18 +56,67 @@ SM90_MAX_SLOTS = 512
 _SCRATCH = {}
 
 
+def tree_ancestor_bits(parents) -> tuple:
+    """Per-node inclusive ancestor bitmasks of a speculative token tree.
+    ``parents[k]`` names node ``k + 1``'s parent (``parents[k] in [0,
+    k]``: nodes in topological order, node 0 the committed root); the
+    chain is ``tuple(range(gamma))``. Bit ``j - 1`` of ``bits[t]`` is set
+    iff window node ``j >= 1`` is an ancestor of node ``t`` or ``t``
+    itself: the columns row ``t`` may attend to beyond the committed
+    prefix. A chain gives ``bits[t] = (1 << t) - 1``, the linear bound.
+    Raises ``ValueError`` past 31 draft nodes or on a parent that is not
+    an earlier node."""
+    parents = tuple(int(p) for p in parents)
+    if len(parents) > 31:
+        raise ValueError(
+            f"spec tree supports at most 31 draft nodes (int32 "
+            f"ancestor bitmask), got {len(parents)}")
+    bits = [0]
+    for k, p in enumerate(parents):
+        if not 0 <= p <= k:
+            raise ValueError(
+                f"spec_tree[{k}] = {p}: node {k + 1}'s parent must be "
+                f"an earlier node (0..{k})")
+        bits.append(bits[p] | (1 << k))
+    return tuple(bits)
+
+
+def _tree_rows_fit(rows, t):
+    """Raise unless ``rows`` (a host int: the most rows a flagged slot
+    has) fits the tree's ``t`` nodes."""
+    if rows > t:
+        raise ValueError(
+            f"a tree slot has {rows} rows but the tree has {t} nodes: a "
+            "flagged slot's rows must fit its tree window")
+
+
 def plain_ragged_paged_attention(q, k_pool, v_pool, block_tables,
                                  context_lens, q_lens, row_starts,
-                                 sm_scale=None):
+                                 sm_scale=None, tree_anc=None,
+                                 tree_slots=None, tree_rows=None):
     """Dense per-row masked softmax over each slot's gathered blocks:
     scores, softmax and the P @ V product in float32, output in ``q``'s
-    dtype."""
+    dtype. ``tree_anc`` / ``tree_slots``: the tree mode (module
+    docstring), the reference's ``_xla_ragged_paged`` tree mask op for
+    op: ``rel = col - context_lens[s]``, kept iff ``rel < 0`` or bit
+    ``rel`` of the row's ancestor mask. Raises, as the kernel's wrapper
+    does, when ``tree_rows`` exceeds the tree's nodes, and also when a
+    flagged slot's ``q_lens`` does."""
+    bits = None
+    ql = q_lens.tolist()
+    if tree_anc is not None:
+        bits = tree_ancestor_bits(tree_anc)
+        flags = [True] * block_tables.shape[0] if tree_slots is None \
+            else [int(f) > 0 for f in tree_slots.tolist()]
+        if tree_rows is not None:
+            _tree_rows_fit(int(tree_rows), len(bits))
+        _tree_rows_fit(max([n for n, f in zip(ql, flags) if f], default=0),
+                       len(bits))
     r, h, d = q.shape
     bs, hkv = k_pool.shape[1], k_pool.shape[2]
     rep = h // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     out = torch.zeros_like(q)
-    ql = q_lens.tolist()
     rs = row_starts.tolist()
     cl = context_lens.tolist()
     for s, n in enumerate(ql):
@@ -72,6 +132,14 @@ def plain_ragged_paged_attention(q, k_pool, v_pool, block_tables,
         cols = torch.arange(nb * bs, device=q.device)
         bound = cl[s] + torch.arange(n, device=q.device)
         allow = cols[None, :] < bound[:, None]                # [n, L]
+        if bits is not None and flags[s]:
+            nt = min(n, len(bits))
+            bits_a = torch.tensor(bits[:nt], dtype=torch.int64,
+                                  device=q.device)
+            rel = cols[None, :] - cl[s]
+            bit = (bits_a[:, None] >> torch.clamp(rel, 0, 31)) & 1
+            allow = allow.clone()
+            allow[:nt] = (rel < 0) | (bit > 0)
         sc = sc.masked_fill(~allow[:, None, None, :], float("-inf"))
         w = torch.softmax(sc, dim=-1)
         o = torch.einsum("tgrl,lgd->tgrd", w, vs)
@@ -127,6 +195,11 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        # + the tree's masks (a host array), their count and the flags
+        tr = lib.ptt_ragged_paged_attention_tree
+        tr.argtypes = fn.argtypes + [ctypes.POINTER(ctypes.c_uint32),
+                                     ctypes.c_int, ctypes.c_void_p]
+        tr.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -227,18 +300,39 @@ def _n_split(block_tables, block_size):
 
 @no_backward("ragged_paged_attention (K2r)")
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
-                           q_lens, row_starts, w_max, sm_scale=None):
+                           q_lens, row_starts, w_max, sm_scale=None,
+                           tree_anc=None, tree_slots=None, tree_rows=None):
     """Ragged paged attention. ``w_max`` (a host int) bounds
-    ``q_lens``: the kernel attends at most ``w_max`` rows a slot. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    ``q_lens``: the kernel attends at most ``w_max`` rows a slot.
+    ``tree_anc`` / ``tree_slots``: the tree mode (module docstring), with
+    ``tree_rows`` (a host int, ``w_max`` when None) bounding the rows of
+    the flagged slots; raises past 31 drafts, or when ``tree_rows``
+    exceeds the tree's nodes. Row ``t >= T`` of a flagged slot would
+    keep the linear bound. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     if q.device.type == "cpu":
         return plain_ragged_paged_attention(
             q, k_pool, v_pool, block_tables, context_lens, q_lens,
-            row_starts, sm_scale=sm_scale)
+            row_starts, sm_scale=sm_scale, tree_anc=tree_anc,
+            tree_slots=tree_slots, tree_rows=tree_rows)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     kd, vd, ks, vs = _check(q, k_pool, v_pool, block_tables, context_lens,
                             q_lens, row_starts)
+    tree = ()
+    if tree_anc is not None:
+        bits = tree_ancestor_bits(tree_anc)
+        if tree_slots is not None:
+            if tree_slots.device != q.device or tree_slots.dtype \
+                    != torch.int32 or tuple(tree_slots.shape) \
+                    != (block_tables.shape[0],) \
+                    or not tree_slots.is_contiguous():
+                raise ValueError("tree_slots must be a contiguous int32 "
+                                 "[S] on q's device")
+        _tree_rows_fit(int(w_max if tree_rows is None else tree_rows),
+                       len(bits))
+        tree = ((ctypes.c_uint32 * len(bits))(*bits), len(bits),
+                None if tree_slots is None else tree_slots.data_ptr())
     r, h, d = q.shape
     nb, bs, hkv, _ = kd.shape
     s, mb = block_tables.shape
@@ -257,15 +351,14 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         part = torch.empty(n_split * r * h * (d + 2), device=q.device,
                            dtype=torch.float32) if n_split > 1 else None
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    rc = _lib().ptt_ragged_paged_attention(
+    name = "ragged_paged_attention" + ("_tree" if tree else "")
+    rc = getattr(_lib(), "ptt_" + name)(
         q.data_ptr(), kd.data_ptr(), vd.data_ptr(), ptr(ks), ptr(vs),
         block_tables.data_ptr(), context_lens.data_ptr(),
         q_lens.data_ptr(), row_starts.data_ptr(), out.data_ptr(), ptr(part),
         ptr(cnt), r, s, h, hkv, d, bs, mb, nb, w_max, n_split, float(scale),
-        _DTYPES[q.dtype], stream)
+        _DTYPES[q.dtype], stream, *tree)
     if rc != 0:
-        raise RuntimeError(f"ragged_paged_attention kernel launch failed "
-                           f"(cudaError {rc})")
-    launch_counts["ragged_paged_attention_int8" if ks is not None
-                  else "ragged_paged_attention"] += 1
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
+    launch_counts[name + ("_int8" if ks is not None else "")] += 1
     return out

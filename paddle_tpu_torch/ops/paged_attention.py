@@ -15,19 +15,31 @@ __all__ = ["ragged_attention_step", "paged_attention_step"]
 
 def ragged_attention_step(qh, kh, vh, k_pool, v_pool, block_tables,
                           cache_lens, q_lens, row_starts, row_slot,
-                          row_pos, w_max, sm_scale=None):
+                          row_pos, w_max, sm_scale=None,
+                          tree_anc=_pda._AMBIENT, tree_slots=_pda._AMBIENT,
+                          tree_rows=_pda._AMBIENT):
     """Scatter this tick's per-row K/V (``[R, H_kv, D]``) into the pools
     at ``(row_slot, row_pos)`` — pad rows go to the null block — then
     attend each packed query row against its slot's blocks.
     ``cache_lens[s]`` is slot ``s``'s valid length before this tick's
     first row, so the attention sees ``cache_lens + 1`` positions at the
     slot's first row (the row itself included). ``w_max`` (host int)
-    bounds ``q_lens``. The pools are updated in place. Returns
-    ``(out [R, H, D], k_pool, v_pool)``."""
+    bounds ``q_lens``. ``tree_anc`` / ``tree_slots`` / ``tree_rows``
+    (K2r's tree mode) default to the ambient ``spec_tree_scope`` and are
+    passed on explicitly (None: linear). The pools are updated in place.
+    Returns ``(out [R, H, D], k_pool, v_pool)``."""
+    amb = _pda._tree_ctx()
+    if tree_anc is _pda._AMBIENT:
+        tree_anc = amb[0]
+    if tree_slots is _pda._AMBIENT:
+        tree_slots = amb[1] if tree_anc is not None else None
+    if tree_rows is _pda._AMBIENT:
+        tree_rows = amb[2] if tree_anc is not None else None
     write_rows(k_pool, v_pool, block_tables, row_slot, row_pos, kh, vh)
     out = _rpa.ragged_paged_attention(
         qh, k_pool, v_pool, block_tables, cache_lens + 1, q_lens,
-        row_starts, w_max, sm_scale=sm_scale)
+        row_starts, w_max, sm_scale=sm_scale, tree_anc=tree_anc,
+        tree_slots=tree_slots, tree_rows=tree_rows)
     return out, k_pool, v_pool
 
 
@@ -50,5 +62,5 @@ def paged_attention_step(qh, kh, vh, k_pool, v_pool, block_tables,
     write_tokens(k_pool, v_pool, block_tables, lens, kh, vh)
     out = _pda.paged_verify_attention(
         qh, k_pool, v_pool, block_tables, lens + 1, sm_scale=sm_scale,
-        tree_anc=_pda.window_tree(_pda._tree_ctx(), qh.shape[1]))
+        tree_anc=_pda.window_tree(_pda._tree_ctx()[0], qh.shape[1]))
     return out, k_pool, v_pool

@@ -29,7 +29,12 @@ attention kernels (K2r, K2d, K2v) are also held on int8 pools, where
 their plain versions keep float32 through both products: float32 at
 1e-4, bfloat16 at 2e-2 (the output's rounding; the Hopper body's P V
 takes P as two bf16 halves); an int8 pool at the address a bf16 pool of
-its shape once had gets its own tensor map."""
+its shape once had gets its own tensor map. K2v's and K2r's token-tree
+modes are held against the plain versions' masks (K2r's flagged windows
+beside an unflagged 128-row chunk in one launch), a chain tree equals
+the linear kernel bit for bit, and a float32 speculative engine on the
+card streams the tokens of the same engine run through the plain
+versions."""
 from unittest import mock
 
 import numpy as np
@@ -1409,3 +1414,190 @@ def test_paged_verify_tree_refusals(cuda):
     with pytest.raises(ValueError, match="window of 33"):
         pda.paged_verify_attention(q33, kp.bfloat16(), vp.bfloat16(), tables,
                                    ctx, tree_anc=None)
+
+
+# K2r's per-slot tree mode: tree windows beside an unflagged 128-row chunk
+# and an unflagged trickle slot in one launch
+
+
+def _ragged_tree_case(seed, tree, rep, block_size, dtype, pool, dev):
+    """Slots: tree windows at contexts 1, BS + 1 and one ending at the
+    table's reach (a split context), a 128-row chunk at context 600, an
+    8-row trickle slot and a slot of no rows; the windows are flagged."""
+    T = len(tree) + 1
+    mb = 1024 // block_size
+    base = [0, block_size, 1024 - T, 599, 40, 7]
+    q_lens = [T, T, T, 128, 8, 0]
+    flags = [1, 1, 1, 0, 0, 1]
+    rng = np.random.RandomState(seed)
+    args, starts = _ragged_case(rng, base, q_lens, 2 * rep, 2, 128,
+                                block_size, mb, getattr(torch, dtype), dev)
+    if pool == "int8":
+        args = args[:1] + (_int8(args[1].float()), _int8(args[2].float())) \
+            + args[3:]
+    return args, starts, q_lens, torch.tensor(flags, dtype=torch.int32,
+                                              device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+@pytest.mark.parametrize("block_size", [8, 16, 32])
+def test_ragged_tree_attention(cuda, dtype, pool, rep, block_size):
+    """K2r's tree mode against the plain version's per-slot tree mask:
+    float32 (the FMA body), bfloat16 (the Hopper body) and int8 pools
+    (both bodies' int8 modes), GQA groups 1, 4 and 7, block sizes 8, 16
+    and 32, with a split context and a 128-row chunk in the launch. A
+    tree launch counts as ragged_paged_attention_tree(_int8), never as
+    linear K2r; the unflagged slots' rows are linear K2r's."""
+    args, starts, q_lens, flags = _ragged_tree_case(
+        1000 + rep + block_size, BRANCHY, rep, block_size, dtype, pool, cuda)
+    sfx = "_int8" if pool == "int8" else ""
+    n0 = dict(launch_counts)
+    got = rpa.ragged_paged_attention(*args, max(q_lens), tree_anc=BRANCHY,
+                                     tree_slots=flags, tree_rows=8)
+    assert launch_counts["ragged_paged_attention_tree" + sfx] == \
+        n0["ragged_paged_attention_tree" + sfx] + 1
+    assert launch_counts["ragged_paged_attention" + sfx] == \
+        n0["ragged_paged_attention" + sfx]
+    want = rpa.plain_ragged_paged_attention(*args, tree_anc=BRANCHY,
+                                            tree_slots=flags)
+    _rows_close(_live(got, q_lens, starts), _live(want, q_lens, starts),
+                dtype)
+    lin = rpa.ragged_paged_attention(*args, max(q_lens))
+    for s in (3, 4):            # the chunk and the trickle slot: linear
+        s0, n = int(starts[s]), q_lens[s]
+        assert torch.equal(got[s0:s0 + n], lin[s0:s0 + n])
+    s0 = int(starts[0])
+    assert not torch.allclose(got[s0:s0 + 8].float(),
+                              lin[s0:s0 + 8].float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+def test_chain_tree_equals_linear_ragged_bitwise(cuda, dtype, pool, rep):
+    """A chain tree's mask is the linear bound: K2r's tree mode equals
+    linear K2r bit for bit, in both bodies and on int8 pools, with a
+    split context and a chunk in the launch."""
+    chain = (0, 1, 2, 3, 4, 5, 6)
+    args, starts, q_lens, flags = _ragged_tree_case(
+        1100 + rep, chain, rep, 16, dtype, pool, cuda)
+    lin = rpa.ragged_paged_attention(*args, max(q_lens))
+    tree = rpa.ragged_paged_attention(*args, max(q_lens), tree_anc=chain,
+                                      tree_slots=flags, tree_rows=8)
+    assert torch.equal(_live(lin, q_lens, starts),
+                       _live(tree, q_lens, starts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("rep", [1, 4, 7])
+def test_ragged_tree_of_31_drafts(cuda, dtype, pool, rep):
+    """The largest tree (31 drafts, T 32: every ancestor bit) in K2r,
+    beside the chunk: both bodies take it at any group, in tiles."""
+    args, starts, q_lens, flags = _ragged_tree_case(
+        1200 + rep, TREE32, rep, 16, dtype, pool, cuda)
+    got = rpa.ragged_paged_attention(*args, max(q_lens), tree_anc=TREE32,
+                                     tree_slots=flags, tree_rows=32)
+    want = rpa.plain_ragged_paged_attention(*args, tree_anc=TREE32,
+                                            tree_slots=flags)
+    _rows_close(_live(got, q_lens, starts), _live(want, q_lens, starts),
+                dtype)
+
+
+@pytest.mark.gpu
+def test_ragged_tree_refusals(cuda):
+    """A bound of the flagged slots' rows past the tree's nodes (the
+    default, w_max, with the chunk flagged or every slot flagged; an
+    explicit tree_rows), a tree past 31 drafts, and flags that are not an
+    int32 [S] on q's device."""
+    args, starts, q_lens, flags = _ragged_tree_case(
+        7, BRANCHY, 4, 16, "bfloat16", "fp", cuda)
+    w = max(q_lens)
+    on_chunk = flags.clone()
+    on_chunk[3] = 1
+    with pytest.raises(ValueError, match="tree slot has 128 rows"):
+        rpa.ragged_paged_attention(*args, w, tree_anc=BRANCHY,
+                                   tree_slots=on_chunk)
+    with pytest.raises(ValueError, match="tree slot has 128 rows"):
+        rpa.ragged_paged_attention(*args, w, tree_anc=BRANCHY)
+    with pytest.raises(ValueError, match="tree slot has 9 rows"):
+        rpa.ragged_paged_attention(*args, w, tree_anc=BRANCHY,
+                                   tree_slots=flags, tree_rows=9)
+    with pytest.raises(ValueError, match="31 draft nodes"):
+        rpa.ragged_paged_attention(*args, w, tree_anc=TREE32 + (0,),
+                                   tree_slots=flags)
+    for bad in (flags.long(), flags.cpu(), flags[:5]):
+        with pytest.raises(ValueError, match="tree_slots"):
+            rpa.ragged_paged_attention(*args, w, tree_anc=BRANCHY,
+                                       tree_slots=bad, tree_rows=8)
+
+
+def _plain_serving_patches():
+    """Route the serving path's kernels (K2r, K2d, K2v, K3a, K3b) to their
+    plain versions."""
+    def plain_attn(q, k_pool, v_pool, tables, ctx, q_lens, starts, w_max,
+                   sm_scale=None, tree_anc=None, tree_slots=None,
+                   tree_rows=None):
+        return rpa.plain_ragged_paged_attention(
+            q, k_pool, v_pool, tables, ctx, q_lens, starts,
+            sm_scale=sm_scale, tree_anc=tree_anc, tree_slots=tree_slots,
+            tree_rows=tree_rows)
+    return [mock.patch.object(rpa, "ragged_paged_attention", plain_attn),
+            mock.patch.object(df, "norm_matmul", df.plain_norm_matmul),
+            mock.patch.object(df, "matmul_residual",
+                              df.plain_matmul_residual)] + [
+        mock.patch.object(pda, n, getattr(pda, "plain_" + n))
+        for n in ("paged_decode_attention", "paged_verify_attention")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["tree", "self_draft"])
+def test_speculative_engine_on_the_card(cuda, spec):
+    """A float32 tiny Llama served speculatively on the card (a branching
+    tree through K2r's tree mode; the model drafting for itself through
+    K2d, so windows are accepted) gives the token streams of the same
+    engine run through the plain versions."""
+    from paddle_tpu_torch.inference import ServingConfig, ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig.tiny(vocab=512, hidden=256,
+                                              heads=4, kv_heads=2),
+                             device=cuda, seed=3)
+    rng = np.random.RandomState(4)
+    motif = rng.randint(1, 512, 8).tolist()
+    prompts = [motif * 4 + rng.randint(1, 512, n).tolist()
+               for n in (3, 40, 150, 9)]
+    kw = dict(num_speculative_tokens=7, spec_tree=BRANCHY) \
+        if spec == "tree" else dict(num_speculative_tokens=4,
+                                    drafter="model")
+
+    def serve():
+        eng = ServingEngine(model, ServingConfig(
+            num_slots=3, block_size=16, max_model_len=512,
+            prefill_chunk=128, **kw), device=cuda,
+            draft_model=model if spec == "self_draft" else None)
+        out = eng.serve(prompts, max_new_tokens=24)
+        st = eng.stats()
+        eng.shutdown()
+        return out, st
+
+    n0 = dict(launch_counts)
+    got, st = serve()
+    want_counter = "ragged_paged_attention_tree" if spec == "tree" \
+        else "paged_decode_attention"
+    assert launch_counts[want_counter] > n0[want_counter]
+    for p in _plain_serving_patches():
+        p.start()
+    try:
+        want, st_p = serve()
+    finally:
+        mock.patch.stopall()
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
+    assert st["spec_tokens_accepted"] == st_p["spec_tokens_accepted"]
+    if spec == "self_draft":
+        assert st["spec_mean_accepted_len"] > 1.0

@@ -214,6 +214,14 @@ def test_submit_validation(port_model):
     ("async_depth", 1), ("lora_rank", 8), ("tp_degree", 2),
     ("health", True), ("ragged_batch", False), ("role", "prefill")])
 def test_later_slice_features_raise(field, value):
+    if field == "num_speculative_tokens":
+        # speculation is ported: the config takes it, and only what the
+        # reference refuses raises
+        cfg = ServingConfig(**{field: value})
+        assert cfg.num_speculative_tokens == value and cfg.drafter == "ngram"
+        with pytest.raises(ValueError, match="num_speculative_tokens"):
+            ServingConfig(num_speculative_tokens=-1)
+        return
     if field == "kv_cache_dtype":
         # int8 pools are ported: the config takes them, and only a pool
         # dtype the engine does not know raises
@@ -226,9 +234,19 @@ def test_later_slice_features_raise(field, value):
 
 
 def test_draft_model_raises(port_model):
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # the reference's rule: a draft model needs speculation with
+    # drafter='model', and drafter='model' needs a draft model
+    with pytest.raises(ValueError, match="draft_model requires"):
         ServingEngine(port_model, ServingConfig(**CORE), device="cpu",
                       draft_model=port_model)
+    with pytest.raises(ValueError, match="draft_model requires"):
+        ServingEngine(port_model, ServingConfig(
+            **CORE, num_speculative_tokens=2), device="cpu",
+            draft_model=port_model)
+    with pytest.raises(ValueError, match="requires a draft_model"):
+        ServingEngine(port_model, ServingConfig(
+            **CORE, num_speculative_tokens=2, drafter="model"),
+            device="cpu")
 
 
 def test_allocator_drains_after_serving(port_model):

@@ -90,10 +90,11 @@ def kernel_name(line):
                   r"ELb(\d)E", line)
     if k:   # row groups, prologue, rows from the pre-pass
         return f"decode_gemm<{k[1]}, {k[2]}, {'true' if k[3] == '1' else 'false'}>"
-    k = re.search(r"paged_attention_kernelILi(\d+)E(?:Lb(\d)E)?", line)
-    if k:   # head_dim, int8 pools
-        return f"paged_attention_kernel<{k[1]}" + (
-            f", {'true' if k[2] == '1' else 'false'}>" if k[2] else ">")
+    k = re.search(r"paged_attention_kernelILi(\d+)E((?:Lb\dE)*)", line)
+    if k:   # head_dim, then int8 pools and the tree mode where present
+        flags = ["true" if b == "1" else "false"
+                 for b in re.findall(r"Lb(\d)E", k[2])]
+        return f"paged_attention_kernel<{', '.join([k[1]] + flags)}>"
     k = re.search(r"moe90\d+(\w+?_kernel)(?:I(\w+?)E)?E", line)
     if k:   # Lb1 / Li128: a bool / an int template argument
         args = re.findall(r"L([bi])(\d+)E", (k[2] or "") + "E")
