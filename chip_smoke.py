@@ -50,7 +50,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    chunk), bf16 and float32, fp and int8 pools, GQA groups 4, 1 and 7:
    the branching tree against the plain version's mask, the chain of T 8
    equal to linear K2r bit for bit, timed cold beside linear K2r on the
-   same tick;
+   same tick; and the K2 kernels with a bfloat16 query over float32 pools
+   (GPT's serving mode, ``*_f32pool``) at phase 18's shapes (16 / 16
+   heads, D 64): K2r at a serving tick, a decode tick and a tree tick,
+   K2d, K2v and K2v's tree mode at its ``generate()`` shape, each against
+   its plain version and bit for bit against the float32 kernel on the
+   widened query, timed cold; and K1 at GPT's training shape (B 8, L
+   1024, 16 / 16 heads, D 64) in both dtypes;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -166,12 +172,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     tree mode on int8 pools); then 2 float32 layers at full widths served
     linear, self-drafted, tree and heads through the kernels and through
     their plain versions (phase 4's rule);
-18. print the kernels line, the card's name and power limit, and the
+18. GPT at ``GPTConfig()``'s widths and all 24 layers (354.9 M
+    parameters, seeded weights cast to bf16, float32 pools as the
+    reference's): (a) the fused engine serves phase 3's traffic with
+    prompts cut to 960 tokens (K3a ``ln``, K3b ``act=None`` and
+    ``gelu_tanh`` twice a layer a tick, K2r's ``_f32pool`` mode a layer a
+    tick; tokens/s, TTFT, ticks, rows a tick, idle share and host scalar
+    reads over 4 profiled ticks, peak memory), its streams held against
+    the unfused engine and the engine through the plain versions by the
+    bf16 near-tie rule; (b) the same on int8 pools (K2r's Q8 body at D
+    64; pool bytes against the float32 pools'); (c) the model drafting
+    for itself at gamma 4 and the chain tree in the engine; (d)
+    ``generate()`` on 4 motif prompts of 512, 64 new: paged, n-gram and
+    the chain tree (K2d, K2v and K2v's tree mode in the new mode); (e)
+    ``TrainStep`` + AdamW on 8 x 1024 tokens with dropout 0.1 (ms a step,
+    tokens/s, MFU, idle share, peak memory, K1 at D 64 a layer a step,
+    falling losses), then 2 float32 layers' loss and gradients through K1
+    against its plain versions; the phase's seconds;
+19. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
-16 and 17) runs with every
+16, 17 and 18) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -221,9 +244,15 @@ ATTN = dict(B=2, L=4096, H=32, Hkv=8, D=128)   # phase 2's K1 shape
 TRAIN = dict(layers=4, batch=2, seq=4096, warm=2, timed=5, profiled=2,
              pool=4)
 PHASE6 = dict(layers=2, batch=1, seq=1024)
-# phase 2's K2r ticks: the slots' rows (contexts 65..2048); "prefill" is
-# the kernels line's
+# phase 2's K2r ticks at each model's widths: head_dim D, tables of MB
+# blocks of 16, the 8 slots' contexts (base + the rows) and two ticks'
+# rows a slot; "prefill" (7 decode rows + a 128-row chunk) is the kernels
+# line's. Llama-3-8B: contexts 65..2048; GPT: within its 1024 positions
 RAGGED_TICKS = {"prefill": [1, 1, 1, 1, 1, 1, 1, 128], "decode": [1] * 8}
+RAGGED = {"llama": dict(D=128, MB=128, ticks=RAGGED_TICKS,
+                        base=[2047, 1500, 900, 300, 64, 1024, 1800, 512]),
+          "gpt": dict(D=64, MB=64, ticks=RAGGED_TICKS,
+                      base=[959, 700, 500, 300, 64, 900, 800, 512])}
 # phase 2's K2d / K2v shapes. "generate" is the one phase 7 gives them:
 # 4 slots of a 512-token prompt + 64 new tokens, tables of 37 blocks (the
 # +gamma headroom), contexts 513..580 (windows included); it is timed for
@@ -253,6 +282,7 @@ K3B_CASES = {   # label: K, N, act, bias
     "llama down": (14336, 4096, "swiglu", False),
     "qwen2 o_proj": (3584, 3584, None, False),
     "qwen2 down": (18944, 3584, "swiglu", False),
+    "gpt out_proj": (1024, 1024, None, True),
     "gpt fc2": (4096, 1024, "gelu_tanh", True)}
 K3_TABLE = {"norm_matmul": ("llama qkv", "llama gate/up"),
             "matmul_residual": ("llama o_proj", "llama down")}
@@ -271,16 +301,39 @@ INT8_KERNELS = ("ragged_paged_attention_int8", "paged_decode_attention_int8",
 # 2-4-6)
 CHAIN_TREE = (0, 1, 2, 3)
 BRANCH_TREE = (0, 0, 1, 2, 3, 4, 5)
-# phase 2's K2r tree tick: 7 slots verify a T 8 tree window at contexts
-# up to 2048 (flagged), one carries a 128-row prefill chunk (unflagged);
-# CHAIN7 is the chain of the same T
-RAGGED_TREE_TICK = dict(base=[2040, 1500, 900, 300, 64, 1024, 1800, 512],
-                        q_lens=[8] * 7 + [128], flags=[1] * 7 + [0])
+# phase 2's K2r tree ticks: 7 slots verify a T 8 tree window (flagged),
+# one carries a 128-row prefill chunk (unflagged), at contexts up to 2048
+# (Llama-3-8B) or within GPT's 1024 positions; CHAIN7 is the chain of the
+# same T
+RAGGED_TREE = {
+    "llama": dict(D=128, MB=128, q_lens=[8] * 7 + [128], flags=[1] * 7 + [0],
+                  base=[2040, 1500, 900, 300, 64, 1024, 1800, 512]),
+    "gpt": dict(D=64, MB=64, q_lens=[8] * 7 + [128], flags=[1] * 7 + [0],
+                base=[1000, 700, 500, 300, 64, 900, 800, 512])}
 CHAIN7 = tuple(range(7))
 # phase 8's hand-built tree verifies: the accepted root paths (off the
 # spine, and the whole chain)
 TREE_PATHS = {BRANCH_TREE: (0, 2, 4, 6), CHAIN_TREE: (0, 1, 2, 3, 4)}
 INT8_POOL_RATIO = 0.55               # int8 pool bytes / bf16's, at most
+# phase 18: GPT at GPTConfig()'s widths and depth (24 layers, hidden 1024,
+# 16 heads of 64, ffn 4096, vocab 50304, 1024 positions), bf16 weights over
+# float32 pools. Serving: phase 3's engine settings and traffic, prompts
+# cut to GPT_PROMPT_MAX so prompt + 32 new + a gamma-4 window fit the
+# positions; generate(): GENERATE's 4 motif prompts of 512, 64 new;
+# training: 8 x 1024 tokens, hidden dropout 0.1 (the config's).
+GPT_HEADS = 16
+GPT_PROMPT_MAX = 960
+GPT_MAX_LEN = 1016                    # + gamma 4 = the 1024 positions
+GPT_TRAIN = dict(batch=8, seq=1024, warm=2, timed=5, profiled=2)
+GPT_GRAD = dict(layers=2, batch=1, seq=1024)
+GPT_ATTN = dict(B=8, L=1024, H=16, Hkv=16, D=64)   # its K1 shape
+GPT_SERVING_KERNELS = ("ragged_paged_attention_f32pool", "norm_matmul",
+                       "matmul_residual")
+F32POOL_KERNELS = ("ragged_paged_attention_f32pool",
+                   "ragged_paged_attention_tree_f32pool",
+                   "paged_decode_attention_f32pool",
+                   "paged_verify_attention_f32pool",
+                   "paged_verify_attention_tree_f32pool")
 # phase 17: phase 3's engine speculating, each run with the kernels it
 # must launch; the heads' depth-2 tree keeps its two float32 [4096,
 # 128256] heads at 4.2 GB
@@ -444,32 +497,63 @@ def kv_pools(torch, g, shape, dt, int8, timing):
     return pools, pos_bytes
 
 
-def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
-                 int8=False):
-    """K2r at the main path's shapes: 8 slots, D 128, BS 16, contexts up
-    to 2048, as two serving ticks: RAGGED_TICKS["prefill"] (7 decode rows
-    + a 128-row prefill chunk, the kernels line's) and ["decode"] (one
-    row a slot, w_max 1); 32 / 8 heads (Llama-3-8B) unless ``heads`` /
-    ``kv_heads`` say otherwise; ``int8``: on int8 pools. Held elementwise
-    and row by row; timed over enough sets of pools, taken in turn, to
-    fill twice the 50 MB L2, so each call reads its K/V from device
-    memory, as each layer of a tick does. Returns the largest error and
-    ``{tick: row}``."""
+def k2_mode(torch, dtype, int8, f32pool):
+    """A phase-2 K2 case's types: (q's dtype, the pools' dtype, the
+    counter suffix, the bound's operation type). ``f32pool``: a bfloat16
+    q over float32 pools (the FMA bodies' ``*_f32pool`` mode, GPT's
+    serving under a bfloat16 model; float32 operations on the CUDA
+    cores); ``int8``: int8 pools."""
     dt = getattr(torch, dtype)
+    if f32pool:
+        assert dtype == "bfloat16" and not int8
+        return dt, torch.float32, "_f32pool", "float32"
+    return dt, dt, "_int8" if int8 else "", dtype
+
+
+def held_f32pool(torch, got, wide, what, fails):
+    """The ``*_f32pool`` mode is the float32 body with bfloat16 loads of
+    q and stores of the output: its output must equal the float32
+    kernel's on the widened q, rounded, bit for bit."""
+    same = bool(torch.equal(got, wide.to(torch.bfloat16)))
+    log(f"  {what}: against the float32 kernel on the widened q, rounded: "
+        f"{'bitwise equal' if same else 'FAIL: they differ'}")
+    if not same:
+        fails.append(f"{what} != the float32 kernel")
+
+
+def launched(counts, name, n0, fails):
+    if counts[name] != n0 + 1:
+        fails.append(f"{name}: did not launch")
+
+
+def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
+                 int8=False, model="llama", f32pool=False):
+    """K2r at a serving tick of ``model``'s (RAGGED: 8 slots, BS 16, its
+    head_dim, table width and contexts): the ticks' "prefill" (7 decode
+    rows + a 128-row prefill chunk, the kernels line's) and "decode" (one
+    row a slot, w_max 1); 32 / 8 heads (Llama-3-8B) unless ``heads`` /
+    ``kv_heads`` say otherwise; ``int8``: on int8 pools; ``f32pool``: a
+    bfloat16 q over float32 pools, also held bit for bit against the
+    float32 kernel on the widened q. Held elementwise and row by row;
+    timed over enough sets of pools, taken in turn, to fill twice the 50
+    MB L2, so each call reads its K/V from device memory, as each layer
+    of a tick does. Returns the largest error and ``{tick: row}``."""
+    dt, pool_dt, sfx, op_dt = k2_mode(torch, dtype, int8, f32pool)
     g = torch.Generator(device="cuda").manual_seed(11)
-    S, Hkv, rep, D, BS, MB = 8, kv_heads, heads // kv_heads, 128, 16, 128
+    shape = RAGGED[model]
+    S, Hkv, rep, BS = 8, kv_heads, heads // kv_heads, 16
+    D, MB, base = shape["D"], shape["MB"], shape["base"]
     NB = 1 + S * MB
-    base = [2047, 1500, 900, 300, 64, 1024, 1800, 512]
-    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), pool_dt, int8,
                                 timing)
     copies = len(pools)
-    name = "ragged_paged_attention" + ("_int8" if int8 else "")
+    name = "ragged_paged_attention" + sfx
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
     ctx = torch.tensor([b + 1 for b in base], dtype=torch.int32,
                        device="cuda")
     fails, errs, rows = [], [], {}
-    for tick, q_lens in RAGGED_TICKS.items():
+    for tick, q_lens in shape["ticks"].items():
         R = sum(q_lens)
         q = torch.randn(R, Hkv * rep, D, generator=g, device="cuda").to(dt)
         starts = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
@@ -478,12 +562,16 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
         w_max = max(q_lens)
         kp, vp = pools[0]
         args = (q, kp, vp, tables, ctx, ql, rs)
+        n0 = rpa.launch_counts[name]
         got = rpa.ragged_paged_attention(*args, w_max)
+        launched(rpa.launch_counts, name, n0, fails)
         ref = rpa.plain_ragged_paged_attention(*args)
         torch.cuda.synchronize()
-        errs.append(held_attention(
-            torch, got, ref, dtype,
-            f"{name} {tick} tick {heads}/{kv_heads} heads", fails))
+        what = f"{name} {model} {tick} tick {heads}/{kv_heads} heads D {D}"
+        errs.append(held_attention(torch, got, ref, dtype, what, fails))
+        if f32pool:
+            held_f32pool(torch, got, rpa.ragged_paged_attention(
+                q.float(), *args[1:], w_max), what, fails)
         if not timing:
             continue
         es = q.element_size()
@@ -491,7 +579,7 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
         nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
             + 4 * (tables.numel() + 3 * S)
         vis = sum(b + 1 + t for b, n in zip(base, q_lens) for t in range(n))
-        b_ms, b_by = bound(nbytes, 4 * vis * Hkv * rep * D, dtype)
+        b_ms, b_by = bound(nbytes, 4 * vis * Hkv * rep * D, op_dt)
         turn = iter(range(1 << 30))
 
         def run(f, *extra):
@@ -504,8 +592,8 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
             plain_ms=time_ms(torch, lambda: run(
                 rpa.plain_ragged_paged_attention)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  {name} [{dtype}] {tick} tick, "
-            f"{heads}/{kv_heads} heads, {R} rows: "
+        log(f"  {name} [{dtype}] {model} {tick} tick, "
+            f"{heads}/{kv_heads} heads D {D}, {R} rows: "
             f"ms={rows[tick]['ms']:.4f} plain_ms="
             f"{rows[tick]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
             f"{nbytes / 1e6:.2f} MB; {copies} pool copies)")
@@ -516,18 +604,20 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
 
 
 def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
-                int8=False):
+                int8=False, head_dim=128, f32pool=False):
     """K2d and K2v at generate()'s widths (32 / 8 heads unless ``heads``
-    / ``kv_heads`` say otherwise, D 128, BS 16, a window of PAGED_T for
-    K2v) and one of the PAGED shapes: slots, table width MB and contexts
-    (each set has one ending on a block boundary); ``int8``: on int8
-    pools, the rows named ``<kernel>_int8``.
+    / ``kv_heads`` say otherwise, ``head_dim``, BS 16, a window of
+    PAGED_T for K2v) and one of the PAGED shapes: slots, table width MB
+    and contexts (each set has one ending on a block boundary);
+    ``int8``: on int8 pools, the rows named ``<kernel>_int8``;
+    ``f32pool``: a bfloat16 q over float32 pools (``<kernel>_f32pool``),
+    also held bit for bit against the float32 kernel on the widened q.
     Held elementwise and row by row; timed over enough sets of pools,
     taken in turn, to fill twice the 50 MB L2, so each call reads its K/V
     from device memory, as each layer of a decode step does."""
-    dt = getattr(torch, dtype)
+    dt, pool_dt, sfx, op_dt = k2_mode(torch, dtype, int8, f32pool)
     g = torch.Generator(device="cuda").manual_seed(16)
-    H, Hkv, D, BS, T = heads, kv_heads, 128, 16, PAGED_T
+    H, Hkv, D, BS, T = heads, kv_heads, head_dim, 16, PAGED_T
     S, MB, lens = (PAGED[shape][k] for k in ("S", "MB", "lens"))
     if lens is None:
         rng = np.random.RandomState(16)
@@ -535,10 +625,9 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
             rng.randint(2, 2048, S - 3).tolist())
     NB = 1 + S * MB
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), pool_dt, int8,
                                 timing)
     copies = len(pools)
-    sfx = "_int8" if int8 else ""
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
     qs = {"paged_decode_attention": torch.randn(
@@ -553,12 +642,17 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
     for name, (kern, plain) in fns.items():
         q = qs[name]
         kp, vp = pools[0]
+        n0 = pda.launch_counts[name + sfx]
         got = kern(q, kp, vp, tables, ctx)
+        launched(pda.launch_counts, name + sfx, n0, fails)
         ref = plain(q, kp, vp, tables, ctx)
         torch.cuda.synchronize()
-        errs[name + sfx] = held_attention(
-            torch, got, ref, dtype, f"{name}{sfx} {shape} {H}/{Hkv} heads",
-            fails)
+        what = f"{name}{sfx} {shape} {H}/{Hkv} heads D {D}"
+        errs[name + sfx] = held_attention(torch, got, ref, dtype, what,
+                                          fails)
+        if f32pool:
+            held_f32pool(torch, got, kern(q.float(), kp, vp, tables, ctx),
+                         what, fails)
         if not timing:
             continue
         tw = q.shape[1] if q.dim() == 4 else 1
@@ -567,7 +661,7 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
         nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
             + 4 * (tables.numel() + S)
         vis = sum(n + t for n in lens for t in range(tw))
-        b_ms, b_by = bound(nbytes, 4 * vis * H * D, dtype)
+        b_ms, b_by = bound(nbytes, 4 * vis * H * D, op_dt)
         turn = iter(range(1 << 30))
 
         def run(f):
@@ -578,10 +672,10 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
             ms=time_ms(torch, lambda: run(kern)),
             plain_ms=time_ms(torch, lambda: run(plain)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  {name}{sfx} [{dtype}] {shape}: {S} slots, MB {MB}, contexts "
-            f"{lens}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.2f} MB; {copies} "
-            f"pool copies)")
+        log(f"  {name}{sfx} [{dtype}] {shape}: {S} slots, MB {MB}, "
+            f"{H}/{Hkv} heads D {D}, contexts {lens}: ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+            f"{nbytes / 1e6:.2f} MB; {copies} pool copies)")
     if fails:
         raise AssertionError(f"[{dtype}] {shape}: disagree with their plain "
                              f"versions: {fails}")
@@ -589,26 +683,29 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
 
 
 def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
-                     int8=False):
+                     int8=False, head_dim=128, f32pool=False):
     """K2v's tree mode at phase 7's shape (PAGED["generate"]: 4 slots,
-    tables of 37 blocks, contexts 513..576; D 128, BS 16): BRANCH_TREE
-    (T 8) held against the plain version's tree mask, elementwise and row
-    by row, and CHAIN_TREE (T 4) equal to linear K2v bit for bit; 32 / 8
-    heads unless ``heads`` / ``kv_heads`` say otherwise; ``int8``: on int8
-    pools (the rows named ``*_int8``). With ``timing``, the tree mode is
-    timed cold beside linear K2v at the same T in this call, with the
-    bound of the same bytes. Returns ``(errors, rows)``."""
-    dt = getattr(torch, dtype)
+    tables of 37 blocks, contexts 513..576; ``head_dim``, BS 16):
+    BRANCH_TREE (T 8) held against the plain version's tree mask,
+    elementwise and row by row, and CHAIN_TREE (T 4) equal to linear K2v
+    bit for bit; 32 / 8 heads unless ``heads`` / ``kv_heads`` say
+    otherwise; ``int8``: on int8 pools (the rows named ``*_int8``);
+    ``f32pool``: a bfloat16 q over float32 pools (``*_f32pool``), also
+    held bit for bit against the float32 kernel on the widened q. With
+    ``timing``, the tree mode is timed cold beside linear K2v at the same
+    T in this call, with the bound of the same bytes. Returns ``(errors,
+    rows)``."""
+    dt, pool_dt, sfx, op_dt = k2_mode(torch, dtype, int8, f32pool)
     g = torch.Generator(device="cuda").manual_seed(17)
-    H, Hkv, D, BS = heads, kv_heads, 128, 16
+    H, Hkv, D, BS = heads, kv_heads, head_dim, 16
     S, MB, lens = (PAGED["generate"][k] for k in ("S", "MB", "lens"))
     NB = 1 + S * MB
     ctx = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), pool_dt, int8,
                                 timing)
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
-    name = "paged_verify_attention_tree" + ("_int8" if int8 else "")
+    name = "paged_verify_attention_tree" + sfx
     kp, vp = pools[0]
     fails, errs, rows = [], {}, {}
     T = len(BRANCH_TREE) + 1
@@ -616,14 +713,16 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
     n0 = pda.launch_counts[name]
     got = pda.paged_verify_attention(q, kp, vp, tables, ctx,
                                      tree_anc=BRANCH_TREE)
-    if pda.launch_counts[name] != n0 + 1:
-        fails.append(f"{name}: the tree mode did not launch")
+    launched(pda.launch_counts, name, n0, fails)
     ref = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
                                            tree_anc=BRANCH_TREE)
     torch.cuda.synchronize()
-    errs[name] = held_attention(
-        torch, got, ref, dtype, f"{name} generate {H}/{Hkv} heads, tree "
-        f"{BRANCH_TREE}", fails)
+    what = f"{name} generate {H}/{Hkv} heads D {D}, tree {BRANCH_TREE}"
+    errs[name] = held_attention(torch, got, ref, dtype, what, fails)
+    if f32pool:
+        held_f32pool(torch, got, pda.paged_verify_attention(
+            q.float(), kp, vp, tables, ctx, tree_anc=BRANCH_TREE), what,
+            fails)
     qc = q[:, :len(CHAIN_TREE) + 1].contiguous()
     lin = pda.paged_verify_attention(qc, kp, vp, tables, ctx, tree_anc=None)
     chain = pda.paged_verify_attention(qc, kp, vp, tables, ctx,
@@ -631,7 +730,7 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
     same = bool(torch.equal(lin, chain))
     verdict = "bitwise equal" if same else "FAIL: they differ"
     log(f"  {name} [{dtype}] chain {CHAIN_TREE} against linear K2v at T "
-        f"{qc.shape[1]}, {H}/{Hkv} heads: {verdict}")
+        f"{qc.shape[1]}, {H}/{Hkv} heads D {D}: {verdict}")
     if not same:
         fails.append(f"{name} chain != linear")
     if timing:
@@ -640,7 +739,7 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
         nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
             + 4 * (tables.numel() + S + T)
         vis = sum(n + t for n in lens for t in range(T))
-        b_ms, b_by = bound(nbytes, 4 * vis * H * D, dtype)
+        b_ms, b_by = bound(nbytes, 4 * vis * H * D, op_dt)
         turn = iter(range(1 << 30))
 
         def run(f, **kw):
@@ -655,7 +754,7 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
         lin_ms = time_ms(torch, lambda: run(pda.paged_verify_attention,
                                             tree_anc=None))
-        log(f"  {name} [{dtype}] generate, {H}/{Hkv} heads, T {T}: "
+        log(f"  {name} [{dtype}] generate, {H}/{Hkv} heads D {D}, T {T}: "
             f"ms={r['ms']:.4f} (linear K2v at T {T}: {lin_ms:.4f}) "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
             f"{nbytes / 1e6:.2f} MB; {len(pools)} pool copies)")
@@ -665,26 +764,29 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
 
 
 def check_ragged_tree(torch, rpa, dtype, timing, heads=32, kv_heads=8,
-                      int8=False):
-    """K2r's tree mode at a speculating engine's tick (RAGGED_TREE_TICK: 8
-    slots, D 128, BS 16, tables of 128 blocks; 7 slots verify a T 8
-    BRANCH_TREE window at contexts up to 2048, flagged, and one carries a
-    128-row prefill chunk, unflagged): held against the plain version's
-    per-slot tree mask, elementwise and row by row; CHAIN7 (T 8) equal to
-    linear K2r bit for bit; 32 / 8 heads unless ``heads`` / ``kv_heads``
-    say otherwise; ``int8``: on int8 pools (the rows named ``*_int8``).
-    With ``timing``, the tree mode is timed cold beside linear K2r on the
-    same layout in this call, with the bound of the same bytes (the mask
-    is a subset of the linear bound). Returns ``(errors, rows)``."""
-    dt = getattr(torch, dtype)
+                      int8=False, model="llama", f32pool=False):
+    """K2r's tree mode at a speculating engine's tick of ``model``'s
+    (RAGGED_TREE: 8 slots, BS 16, its head_dim and table width; 7 slots
+    verify a T 8 BRANCH_TREE window, flagged, and one carries a 128-row
+    prefill chunk, unflagged): held against the plain version's per-slot
+    tree mask, elementwise and row by row; CHAIN7 (T 8) equal to linear
+    K2r bit for bit; 32 / 8 heads unless ``heads`` / ``kv_heads`` say
+    otherwise; ``int8``: on int8 pools (the rows named ``*_int8``);
+    ``f32pool``: a bfloat16 q over float32 pools (``*_f32pool``), also
+    held bit for bit against the float32 kernel on the widened q. With
+    ``timing``, the tree mode is timed cold beside linear K2r on the same
+    layout in this call, with the bound of the same bytes (the mask is a
+    subset of the linear bound). Returns ``(errors, rows)``."""
+    dt, pool_dt, sfx, op_dt = k2_mode(torch, dtype, int8, f32pool)
     g = torch.Generator(device="cuda").manual_seed(19)
-    S, Hkv, rep, D, BS, MB = 8, kv_heads, heads // kv_heads, 128, 16, 128
+    shape = RAGGED_TREE[model]
+    S, Hkv, rep, BS = 8, kv_heads, heads // kv_heads, 16
+    D, MB = shape["D"], shape["MB"]
     NB = 1 + S * MB
-    base, q_lens, flags = (RAGGED_TREE_TICK[k]
-                           for k in ("base", "q_lens", "flags"))
-    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), dt, int8,
+    base, q_lens, flags = (shape[k] for k in ("base", "q_lens", "flags"))
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), pool_dt, int8,
                                 timing)
-    name = "ragged_paged_attention_tree" + ("_int8" if int8 else "")
+    name = "ragged_paged_attention_tree" + sfx
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
     i32 = lambda a: torch.tensor(a, dtype=torch.int32,  # noqa: E731
@@ -699,22 +801,24 @@ def check_ragged_tree(torch, rpa, dtype, timing, heads=32, kv_heads=8,
     fails, errs, rows = [], {}, {}
     n0 = rpa.launch_counts[name]
     t_rows = len(BRANCH_TREE) + 1       # a flagged slot's rows: T 8
-    got = rpa.ragged_paged_attention(*args, w_max, tree_anc=BRANCH_TREE,
-                                     tree_slots=fl, tree_rows=t_rows)
-    if rpa.launch_counts[name] != n0 + 1:
-        fails.append(f"{name}: the tree mode did not launch")
+    tree_kw = dict(tree_anc=BRANCH_TREE, tree_slots=fl, tree_rows=t_rows)
+    got = rpa.ragged_paged_attention(*args, w_max, **tree_kw)
+    launched(rpa.launch_counts, name, n0, fails)
     ref = rpa.plain_ragged_paged_attention(*args, tree_anc=BRANCH_TREE,
                                            tree_slots=fl)
     torch.cuda.synchronize()
-    errs[name] = held_attention(
-        torch, got, ref, dtype, f"{name} spec tick {heads}/{kv_heads} "
-        f"heads, tree {BRANCH_TREE}", fails)
+    what = (f"{name} {model} spec tick {heads}/{kv_heads} heads D {D}, "
+            f"tree {BRANCH_TREE}")
+    errs[name] = held_attention(torch, got, ref, dtype, what, fails)
+    if f32pool:
+        held_f32pool(torch, got, rpa.ragged_paged_attention(
+            q.float(), *args[1:], w_max, **tree_kw), what, fails)
     lin = rpa.ragged_paged_attention(*args, w_max)
     chain = rpa.ragged_paged_attention(*args, w_max, tree_anc=CHAIN7,
                                        tree_slots=fl, tree_rows=t_rows)
     same = bool(torch.equal(lin, chain))
     log(f"  {name} [{dtype}] chain {CHAIN7} against linear K2r on the same "
-        f"tick, {heads}/{kv_heads} heads: "
+        f"tick, {heads}/{kv_heads} heads D {D}: "
         f"{'bitwise equal' if same else 'FAIL: they differ'}")
     if not same:
         fails.append(f"{name} chain != linear")
@@ -724,14 +828,13 @@ def check_ragged_tree(torch, rpa, dtype, timing, heads=32, kv_heads=8,
         nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
             + 4 * (tables.numel() + 4 * S)
         vis = sum(b + 1 + t for b, n in zip(base, q_lens) for t in range(n))
-        b_ms, b_by = bound(nbytes, 4 * vis * Hkv * rep * D, dtype)
+        b_ms, b_by = bound(nbytes, 4 * vis * Hkv * rep * D, op_dt)
         turn = iter(range(1 << 30))
 
         def run(f, *extra, **kw):
             kp_i, vp_i = pools[next(turn) % len(pools)]
             return f(q, kp_i, vp_i, tables, ctx, ql, rs, *extra, **kw)
 
-        tree_kw = dict(tree_anc=BRANCH_TREE, tree_slots=fl, tree_rows=t_rows)
         # the tree instance with no slot flagged: linear K2r's mask
         kws = (dict(), tree_kw, dict(tree_kw, tree_slots=torch.zeros_like(fl)))
         # linear, tree, unflagged, unflagged, tree, linear on the same pool
@@ -744,10 +847,10 @@ def check_ragged_tree(torch, rpa, dtype, timing, heads=32, kv_heads=8,
             plain_ms=time_ms(torch, lambda: run(
                 rpa.plain_ragged_paged_attention, **tree_kw)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  {name} [{dtype}] spec tick, {heads}/{kv_heads} heads, "
-            f"{R} rows: ms={r['ms']:.4f} (timed linear K2r, tree, the tree "
-            f"instance with no slot flagged, the same, tree, linear: "
-            + " ".join(f"{t:.4f}" for t in ab) + f") plain_ms="
+        log(f"  {name} [{dtype}] {model} spec tick, {heads}/{kv_heads} "
+            f"heads D {D}, {R} rows: ms={r['ms']:.4f} (timed linear K2r, "
+            f"tree, the tree instance with no slot flagged, the same, tree, "
+            f"linear: " + " ".join(f"{t:.4f}" for t in ab) + f") plain_ms="
             f"{r['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
             f"{nbytes / 1e6:.2f} MB; {len(pools)} pool copies)")
     if fails:
@@ -865,15 +968,17 @@ def check_matmul_residual(torch, df, dtype, timing):
     return max(errs), rows
 
 
-def check_flash(torch, F, fa, dtype, timing):
-    """K1f, K1dq and K1dkv at the training run's attention shape, causal:
-    each against its plain version on the same inputs (dq and dk/dv take
-    the plain forward's lse and delta). Timing rows in bfloat16; the
-    library yardstick is ``scaled_dot_product_attention`` (forward for
-    K1f; its forward + backward is printed beside fwd + dq + dkv)."""
+def check_flash(torch, F, fa, dtype, timing, shape=ATTN):
+    """K1f, K1dq and K1dkv at the training run's attention shape (or
+    ``shape``: phase 18's GPT at D 64), causal: each against its plain
+    version on the same inputs (dq and dk/dv take the plain forward's lse
+    and delta). Timing rows in bfloat16; the library yardstick is
+    ``scaled_dot_product_attention`` (forward for K1f; its forward +
+    backward is printed beside fwd + dq + dkv)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(15)
-    B, L, H, Hkv, D = (ATTN[k] for k in ("B", "L", "H", "Hkv", "D"))
+    B, L, H, Hkv, D = (shape[k] for k in ("B", "L", "H", "Hkv", "D"))
+    log(f"  K1 at B {B}, L {L}, {H}/{Hkv} heads, D {D} [{dtype}]")
     rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(dt)  # noqa
     q, k, v, do = rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
         rnd(B, L, H, D)
@@ -948,7 +1053,11 @@ def check_flash(torch, F, fa, dtype, timing):
                 library_ms=time_ms(torch, lib, **fast) if lib else None)
         for name, (_, flops, *_) in cases.items():
             r = rows_out[name]
-            log(f"  {name}: {flops / r['ms'] / 1e9:.1f} TFLOP/s "
+            lib = "" if r["library_ms"] is None \
+                else f" library_ms={r['library_ms']:.4f}"
+            log(f"  {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.4f}{lib}; "
+                f"{flops / r['ms'] / 1e9:.1f} TFLOP/s "
                 f"({r['bound_ms'] / r['ms']:.3f} of its {r['bound_by']} "
                 f"bound)")
         fwd = rows_out["flash_attention_fwd"]
@@ -1980,10 +2089,9 @@ def generate_once(torch, kernels, model, ids, new, kw, forwards, tag,
     # linear or tree);
     # the loop runs until the slowest row is done: (new - 1) tokens after
     # the prefill's over the windows (1.0: no draft accepted)
-    windows = sum(kernels.launch_counts[k] for k in (
-        "paged_verify_attention", "paged_verify_attention_int8",
-        "paged_verify_attention_tree",
-        "paged_verify_attention_tree_int8")) // cfg.num_hidden_layers
+    windows = sum(n for k, n in kernels.launch_counts.items()
+                  if k.startswith("paged_verify_attention")) \
+        // cfg.num_hidden_layers
     n_fwd = 1 + windows if spec else len(forwards)
     per_verify = (new - 1) / max(1, windows)
     log(f"{tag}: {b} x {new} tokens in {dt:.3f}s -> "
@@ -3401,6 +3509,304 @@ def spec_serving_phase(torch, kernels, df, rpa, pda, ServingEngine,
     return runs
 
 
+# ---------------------------------------------------------------- phase 18
+
+def gpt_train(torch, kernels, fa, GPTConfig, GPTForCausalLM, AdamW,
+              TrainStep):
+    """Phase 18 (e): GPT at GPTConfig()'s widths and 24 layers in bf16
+    through TrainStep + AdamW(1e-4, multi_precision=True) on one seeded
+    batch of GPT_TRAIN's 8 x 1024 tokens, hidden dropout 0.1 (live in
+    train()): ms a step, trained tokens/s, MFU over bench.py:141's 6N +
+    12 L s h, the idle share of 2 profiled steps, peak memory, K1
+    launches a step (one each of K1f, K1dq, K1dkv a layer) and every
+    loss (finite, the last under the first). Then GPT_GRAD's 2 layers at
+    full widths in float32, dropout 0: the loss and every gradient
+    through the K1 kernels (D 64) against their plain versions. Returns
+    the bf16 run's launches."""
+    cfg = GPTConfig()
+    bsz, seq = GPT_TRAIN["batch"], GPT_TRAIN["seq"]
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED + 19).to(
+        torch.bfloat16)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, lambda out, a, k: out, opt)
+    ids = np.random.RandomState(SEED + 19).randint(0, cfg.vocab_size,
+                                                   (bsz, seq))
+    batch = tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                  for a in (ids, np.roll(ids, -1, axis=1)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses = [float(step(*batch)) for _ in range(GPT_TRAIN["warm"])]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = [step(*batch) for _ in range(GPT_TRAIN["timed"])]
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    losses += [float(x) for x in timed]
+    n_prof = GPT_TRAIN["profiled"]
+    wall_ms, busy_ms, _ = profiled(torch, lambda: losses.append(
+        float(step(*batch))), n_prof, 12)
+    torch.cuda.synchronize()
+    n_steps = len(losses)
+    launches = {k: kernels.launch_counts[k] for k in TRAINING_KERNELS}
+    tok_s = bsz * seq * GPT_TRAIN["timed"] / dt
+    f_tok = 6 * n_params + 12 * cfg.num_hidden_layers * seq \
+        * cfg.hidden_size
+    log(f"phase 18 (e) training: GPT {cfg.num_hidden_layers} layers, "
+        f"{n_params / 1e6:.1f}M params bf16, batch {bsz} x {seq}, dropout "
+        f"{cfg.hidden_dropout_prob}: {GPT_TRAIN['timed']} timed steps in "
+        f"{dt:.4f}s -> {1e3 * dt / GPT_TRAIN['timed']:.3f} ms/step, "
+        f"{tok_s:.1f} tokens/s, MFU {tok_s * f_tok / PEAK_FLOPS['bfloat16']:.4f}"
+        f" (6N + 12 L s h = {f_tok / 1e9:.3f} GFLOP/token at "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.1f} TFLOP/s); profile of {n_prof} "
+        f"steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms -> "
+        f"idle share {max(0.0, 1 - busy_ms / wall_ms):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"phase 18 (e): losses {[round(x, 5) for x in losses]}; K1 "
+        f"launches {launches} over {n_steps} steps "
+        f"({ {k: n / n_steps for k, n in launches.items()} } a step)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 18 training: losses not finite and "
+                             f"falling: {losses}")
+    want = cfg.num_hidden_layers * n_steps
+    wrong = {k: n for k, n in launches.items() if n != want}
+    if wrong:
+        raise AssertionError(f"phase 18 training: K1 launched {wrong} "
+                             f"times, want {want} each (layers x steps)")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+
+    # float32, 2 layers at full widths: K1 at D 64 against plain
+    cfg = GPTConfig(num_hidden_layers=GPT_GRAD["layers"],
+                    hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED + 20)
+    with torch.no_grad():       # biases that count
+        g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        for n, p in model.named_parameters():
+            if n.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g,
+                                          device="cuda"))
+    ids = np.random.RandomState(SEED + 20).randint(
+        0, cfg.vocab_size, (GPT_GRAD["batch"], GPT_GRAD["seq"]))
+    ids_t = torch.from_numpy(ids.astype(np.int64)).cuda()
+    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1).astype(
+        np.int64)).cuda()
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model(ids_t, labels=labels_t)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = loss_and_grads()
+    ran = {k: kernels.launch_counts[k] for k in TRAINING_KERNELS}
+    loss_p, grads_p = patched([mock.patch.object(fa, n, getattr(
+        fa, "plain_" + n)) for n in TRAINING_KERNELS], loss_and_grads)
+    lerr = abs(loss_k - loss_p) / abs(loss_p)
+    gerr = {n: float((grads_k[n] - grads_p[n]).abs().max()
+                     / grads_p[n].abs().max().clamp(min=1e-30))
+            for n in grads_p}
+    worst = max(gerr, key=gerr.get)
+    log(f"phase 18 (e) f32, {cfg.num_hidden_layers} layers at full widths, "
+        f"{GPT_GRAD['batch']} x {GPT_GRAD['seq']} tokens, K1 at D 64 "
+        f"({ran}): loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel "
+        f"{lerr:.2e}, tol {LOSS_RTOL}); {len(gerr)} gradients, worst {worst}"
+        f" rel {gerr[worst]:.2e} (tol {GRAD_RTOL})")
+    bad = {n: e for n, e in gerr.items() if not e <= GRAD_RTOL}
+    if not lerr <= LOSS_RTOL or bad or min(ran.values()) <= 0:
+        raise AssertionError(f"phase 18 f32 training: loss {lerr}, "
+                             f"gradients {bad}, launches {ran}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
+              ServingConfig, GPTConfig, GPTForCausalLM, AdamW, TrainStep):
+    """Phase 18: GPT at GPTConfig()'s widths, all 24 layers, seeded
+    weights cast to bf16 (the reference's ``Layer.bfloat16()``), over
+    float32 pools as the reference's. (a) the fused engine serves phase
+    3's traffic (GPT_PROMPT_MAX-token prompts at most): K3a ``ln``, K3b
+    (``act=None`` and ``gelu_tanh``) twice a layer a tick and K2r's
+    bf16-q-over-f32-pool mode a layer a tick; tokens/s, TTFT, ticks,
+    rows a tick, peak memory, the idle share and host scalar reads over
+    4 profiled ticks; the streams held against the unfused engine and
+    the engine with its kernels routed to their plain versions by the
+    near-tie rule (the logit difference of two bf16 recipes). (b) the
+    same on int8 pools (K2r's Q8 body at D 64): pool bytes against the
+    float32 pools', the streams' match with (a) (logged), the streams
+    held against the int8 engine routed to the plain versions. (c)
+    speculating: the model drafting for itself at gamma 4 (K2r, K2d in
+    the new mode; accepted length above 1) and the chain tree (K2r's
+    tree mode), each stream held against (a). (d) ``generate()`` on 4 motif prompts of
+    512, 64 new: paged (K2d), n-gram at gamma 4 (K2v) and the chain tree
+    (K2v's tree mode), all in the new mode; the chain's stream equal to
+    n-gram's. (e) training (:func:`gpt_train`). Returns every run's
+    launches."""
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    log(f"phase 18: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        "allocated by earlier phases (inside every peak below)")
+    cfg = GPTConfig()
+    t0 = time.monotonic()
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED + 18).to(
+        torch.bfloat16)
+    model.eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 18: GPT (GPTConfig(): vocab {cfg.vocab_size}, hidden "
+        f"{cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+        f"{cfg.num_attention_heads} heads of {cfg.head_dim}, ffn "
+        f"{cfg.intermediate_size}, {cfg.max_position_embeddings} "
+        f"positions), {n_params / 1e6:.1f}M params bf16, float32 pools; "
+        f"init {time.monotonic() - t0:.1f}s")
+    lens, prompts = serving_prompts(cfg.vocab_size, REQUESTS, SEED)
+    lens = np.minimum(lens, GPT_PROMPT_MAX)
+    prompts = [p[:GPT_PROMPT_MAX] for p in prompts]
+    ids = torch.from_numpy(motif_prompts(
+        GENERATE["batch"], GENERATE["prompt"], GENERATE["motif"],
+        cfg.vocab_size, SEED + 18)).to(model.device)
+    noise = logit_noise(torch, model, ids)
+    log(f"phase 18: bf16 logits of two recipes differ by up to {noise:.3e}"
+        ": the near-tie limit of the streams held below")
+    base = dict(num_slots=8, block_size=16, max_model_len=GPT_MAX_LEN,
+                prefill_chunk=128, max_new_tokens=32)
+    layers = cfg.num_hidden_layers
+    runs, fails = {}, []
+
+    def serve(tag, want, draft=None, **kw):
+        engine = ServingEngine(model, ServingConfig(**base, **kw),
+                               device="cuda", draft_model=draft)
+        runs[tag], st, streams = serve_run(torch, kernels, engine, prompts,
+                                           lens, f"phase 18 {tag}", want)
+        return engine, st, streams
+
+    # (a) the fused engine, against unfused and plain
+    engine, st_a, streams_a = serve("serve", GPT_SERVING_KERNELS)
+    la = runs["serve"]
+    per_tick = layers * st_a["ticks"]
+    log(f"phase 18 (a): K2r f32pool {la['ragged_paged_attention_f32pool']},"
+        f" K3a {la['norm_matmul']}, K3b {la['matmul_residual']} launches "
+        f"over {st_a['ticks']} ticks (want {per_tick}, {2 * per_tick}, "
+        f"{2 * per_tick}); kv_cache_dtype {st_a['kv_cache_dtype']}, pool "
+        f"bytes {st_a['kv_pool_bytes']}")
+    if la["ragged_paged_attention_f32pool"] != per_tick \
+            or la["norm_matmul"] != 2 * per_tick \
+            or la["matmul_residual"] != 2 * per_tick \
+            or la["ragged_paged_attention"]:
+        fails.append("phase 18 (a): launches off the fused tick's count")
+    tick_window(torch, engine, prompts[:8], TICK_WINDOW, "phase 18 (a)")
+    engine.shutdown()
+    del engine
+    # the unfused engine is a comparison: its launches are not the path's
+    engine, _, streams_u = serve("unfused",
+                                 ("ragged_paged_attention_f32pool",),
+                                 fused_decode=False)
+    engine.shutdown()
+    unfused = runs.pop("unfused")
+    if unfused["norm_matmul"] or unfused["matmul_residual"]:
+        fails.append("phase 18 unfused: K3 launched")
+    held_streams(torch, model, "phase 18 (a) fused vs unfused", prompts,
+                 streams_a, streams_u, fails, limit=noise)
+    eng = ServingEngine(model, ServingConfig(**base), device="cuda")
+    streams_p = patched(plain_patches(df, rpa), lambda: eng.serve(
+        prompts, max_new_tokens=base["max_new_tokens"]))
+    eng.shutdown()
+    del eng
+    held_streams(torch, model, "phase 18 (a) kernels vs plain", prompts,
+                 streams_a, streams_p, fails, limit=noise)
+    torch.cuda.empty_cache()
+
+    # (b) int8 pools
+    engine, st_b, streams_b = serve(
+        "int8", ("ragged_paged_attention_int8", "norm_matmul",
+                 "matmul_residual"), kv_cache_dtype="int8")
+    engine.shutdown()
+    ratio = st_b["kv_pool_bytes"] / st_a["kv_pool_bytes"]
+    log(f"phase 18 (b) int8 pools: pool bytes {st_b['kv_pool_bytes']} = "
+        f"{ratio:.4f} x the float32 pools' (want (D + 4) / 4D = "
+        f"{(cfg.head_dim + 4) / (4 * cfg.head_dim):.4f}); streams match (a)"
+        f" at {match_rate(streams_b, streams_a):.4f} of tokens")
+    if runs["int8"]["ragged_paged_attention_f32pool"] \
+            or abs(ratio - (cfg.head_dim + 4) / (4 * cfg.head_dim)) > 1e-3:
+        fails.append("phase 18 (b): not on int8 pools")
+    # int8 against float32 pools is another cache: logged, not held;
+    # the int8 engine's kernels are held against their plain versions on
+    # the same int8 pools (a comparison run: not the path's launches)
+    held_streams(torch, model, "phase 18 (b) int8 vs (a)", prompts,
+                 streams_b, streams_a, None, limit=noise)
+    eng = ServingEngine(model, ServingConfig(**base, kv_cache_dtype="int8"),
+                        device="cuda")
+    streams_bp = patched(plain_patches(df, rpa), lambda: eng.serve(
+        prompts, max_new_tokens=base["max_new_tokens"]))
+    eng.shutdown()
+    del eng
+    held_streams(torch, model, "phase 18 (b) int8 kernels vs plain",
+                 prompts, streams_b, streams_bp, fails, limit=noise)
+    torch.cuda.empty_cache()
+
+    # (c) speculating: the model drafting for itself, and the chain tree
+    spec = {"self": (dict(num_speculative_tokens=4, drafter="model"),
+                     ("ragged_paged_attention_f32pool",
+                      "paged_decode_attention_f32pool")),
+            "chain": (dict(num_speculative_tokens=len(CHAIN_TREE),
+                           spec_tree=CHAIN_TREE),
+                      ("ragged_paged_attention_tree_f32pool",))}
+    for name, (kw, want) in spec.items():
+        engine, st, streams = serve(name, want, draft=model if name == "self"
+                                    else None, **kw)
+        log(f"phase 18 (c) {name}: spec_mean_accepted_len "
+            f"{st['spec_mean_accepted_len']:.4f}, spec_acceptance_rate "
+            f"{st['spec_acceptance_rate']:.4f}")
+        if name == "self" and not st["spec_mean_accepted_len"] > 1.0:
+            fails.append("phase 18 (c) self: no draft accepted")
+        held_streams(torch, model, f"phase 18 (c) {name} vs (a)", prompts,
+                     streams, streams_a, fails, limit=noise)
+        engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+
+    # (d) generate()
+    forwards = []
+    hook = model.register_forward_pre_hook(lambda m, a: forwards.append(1))
+    gen = {"paged": (dict(cache_impl="paged"),
+                     ("paged_decode_attention_f32pool",)),
+           "ngram": (dict(num_speculative_tokens=GENERATE["gamma"]),
+                     ("paged_verify_attention_f32pool",)),
+           "chain": (dict(num_speculative_tokens=len(CHAIN_TREE),
+                          spec_tree=CHAIN_TREE),
+                     ("paged_verify_attention_tree_f32pool",))}
+    gstreams, per = {}, {}
+    for name, (kw, want) in gen.items():
+        gstreams[name], runs["generate " + name], per[name] = generate_once(
+            torch, kernels, model, ids, GENERATE["new"], kw, forwards,
+            f"phase 18 (d) {name}", list(kernels.launch_counts), want)
+    hook.remove()
+    same = np.array_equal(gstreams["chain"], gstreams["ngram"]) \
+        and per["chain"] == per["ngram"]
+    log(f"  phase 18 (d) chain {CHAIN_TREE} vs n-gram gamma "
+        f"{GENERATE['gamma']}: {'equal' if same else 'DIFFER'}")
+    if not same:
+        fails.append("phase 18 (d): chain tree != linear n-gram")
+    held_streams(torch, model, "phase 18 (d) ngram vs paged",
+                 ids.cpu().numpy(),
+                 gstreams["ngram"], gstreams["paged"], fails, limit=noise)
+    del model, ids
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 18 failed: {fails}")
+
+    # (e) training
+    runs["train"] = gpt_train(torch, kernels, fa, GPTConfig, GPTForCausalLM,
+                              AdamW, TrainStep)
+    log(f"phase 18: {time.monotonic() - t_phase:.1f}s")
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -3426,8 +3832,8 @@ def main(argv=None):
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.models import (
             DeepseekMoeForCausalLM, LlamaConfig, LlamaForCausalLM,
-            Qwen2Config, Qwen2ForCausalLM, Qwen2MoeConfig,
-            Qwen2MoeForCausalLM, deepseek_moe_16b)
+            GPTConfig, GPTForCausalLM, Qwen2Config, Qwen2ForCausalLM,
+            Qwen2MoeConfig, Qwen2MoeForCausalLM, deepseek_moe_16b)
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.ops.kernels import decode_fused as df
@@ -3492,6 +3898,10 @@ def main(argv=None):
                          int8=True)
             check_paged(torch, pda, dtype, timing, "generate", heads,
                         kv_heads, int8=True)
+        # GPT's serving on int8 pools (phase 18 (b)): K2r at its tick, 16 /
+        # 16 heads of 64
+        check_ragged(torch, rpa, dtype, timing, GPT_HEADS, GPT_HEADS,
+                     int8=True, model="gpt")
         e2, r2 = check_norm_matmul(torch, df, dtype, timing)
         e3, r3 = check_matmul_residual(torch, df, dtype, timing)
         e4, r4 = check_flash(torch, F, fa, dtype, timing)
@@ -3534,6 +3944,26 @@ def main(argv=None):
                         f"bound_ms={row['bound_ms']:.4f} "
                         f"({row['bound_by']}) share of bound "
                         f"{row['bound_ms'] / row['ms']:.3f}")
+    # the K2 kernels' bf16-q-over-f32-pool mode and K1 at phase 18's
+    # shapes (GPT, 16 / 16 heads of 64): K2r at its serving and tree
+    # ticks, K2d / K2v / K2v's tree mode at generate()'s shape
+    gpt = dict(heads=GPT_HEADS, kv_heads=GPT_HEADS, f32pool=True)
+    e9, r9 = check_ragged(torch, rpa, "bfloat16", True, model="gpt", **gpt)
+    table["ragged_paged_attention_f32pool"] = dict(r9["prefill"],
+                                                   max_abs_err=e9)
+    for errs, rows in (
+            check_ragged_tree(torch, rpa, "bfloat16", True, model="gpt",
+                              **gpt),
+            check_paged(torch, pda, "bfloat16", True, "generate",
+                        head_dim=64, **gpt),
+            check_paged_tree(torch, pda, "bfloat16", True, head_dim=64,
+                             **gpt)):
+        for name, r in rows.items():
+            table[name] = dict(r, max_abs_err=errs[name])
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        check_flash(torch, F, fa, dtype, dtype == "bfloat16", shape=GPT_ATTN)
+    torch.cuda.empty_cache()
     decode_width_times(torch, df)
     for name, r in table.items():
         log(f"  {name} [bfloat16]: ms={r['ms']:.4f} "
@@ -3703,8 +4133,19 @@ def main(argv=None):
         launches[k] = sum(r[k] for r in spec_runs.values())
     for k in SERVING_KERNELS + ("paged_decode_attention",):
         launches[k] += sum(r[k] for r in spec_runs.values())
+    torch.cuda.empty_cache()
 
-    # -- phase 18: report --------------------------------------------------
+    # -- phase 18: GPT serving, speculation, generate(), training ---------
+    gpt_runs = gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
+                         ServingConfig, GPTConfig, GPTForCausalLM, AdamW,
+                         TrainStep)
+    for k in F32POOL_KERNELS + ("ragged_paged_attention_int8",
+                                "norm_matmul", "matmul_residual") \
+            + TRAINING_KERNELS:
+        launches[k] = launches.get(k, 0) + sum(r.get(k, 0)
+                                               for r in gpt_runs.values())
+
+    # -- phase 19: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (
@@ -3735,6 +4176,21 @@ def main(argv=None):
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:510"),
             "paged_verify_attention_tree_int8": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:510"),
+            "ragged_paged_attention_f32pool": (
+                "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:593"),
+            "ragged_paged_attention_tree_f32pool": (
+                "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:593"),
+            "paged_decode_attention_f32pool": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:439"),
+            "paged_verify_attention_f32pool": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:510"),
+            "paged_verify_attention_tree_f32pool": (
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:510"),
             "norm_matmul": ("paddle_tpu_torch/csrc/norm_matmul.cu",

@@ -1,10 +1,11 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
 
-It serves a Llama causal LM through the ragged serving tick, generates
-with ``model.generate()`` (dense cache, paged cache, speculative
-decoding with an n-gram drafter or a draft model) and trains it through
-``jit.TrainStep`` (or ``loss.backward()`` + ``opt.step()``) with AdamW
-on an NVIDIA Hopper GPU: hand-written CUDA kernels for ragged, decode
+It serves causal LMs (Llama, Qwen2, the MoE families and GPT) through
+the ragged serving tick, generates with ``model.generate()`` (dense
+cache, paged cache, speculative decoding with an n-gram drafter, a
+draft model or a token tree) and trains them through ``jit.TrainStep``
+(or ``loss.backward()`` + ``opt.step()``) with AdamW on an NVIDIA
+Hopper GPU: hand-written CUDA kernels for ragged, decode
 and verify paged attention, RMSNorm -> projections, projection ->
 residual, and flash attention's forward, dq and dk/dv passes (sources in
 ``paddle_tpu_torch/csrc``, built with nvcc at first use), plain PyTorch

@@ -3,8 +3,10 @@
 ``params_from_jax`` takes ``{name: numpy array}`` — what the reference
 model's ``state_dict()`` holds, converted with ``np.asarray`` by the
 caller — and returns torch tensors under the same names. Both packages
-keep Paddle's layouts (``Linear.weight`` is ``[in, out]``), so nothing is
-transposed. ``pool_from_jax`` carries one half of a reference paged KV
+keep Paddle's layouts (``Linear.weight`` is ``[in, out]``) and the
+reference's parameter names for every ported model (Llama, Qwen2, the
+MoE families, and GPT's LayerNorm weights and biases, projection biases
+and learned position table), so nothing is renamed or transposed. ``pool_from_jax`` carries one half of a reference paged KV
 pool (a floating array, or a ``QuantKV`` of int8 data and float32
 scales) into the port's layout, which is the same.
 """

@@ -14,8 +14,10 @@
 // linear bound. The mask is a subset of the linear bound, so the blocks a
 // tile reads and its splits are the linear ones.
 //
-// bfloat16 runs the Hopper body of paged_attention_sm90.cuh (wgmma over
-// a TMA page ring, the split merge in the same launch); float32 runs the
+// bfloat16 over bfloat16 or int8 pools runs the Hopper body of
+// paged_attention_sm90.cuh (wgmma over a TMA page ring, the split merge in
+// the same launch); float32, and a bfloat16 q over float32 pools (dtype
+// code 2: GPT's pools stay float32 under a bfloat16 model), run the
 // CUDA-core body below.
 //
 // What bounds it on the H100: bytes. Each live K/V block of a slot is
@@ -49,16 +51,23 @@
 // same online-softmax rescaling (one warp per query vector, a lane per
 // split's (m, l), so no warp walks vectors or splits one by one).
 //
+// The bfloat16-q-over-float32-pool mode is the TPU kernel's on such
+// inputs: q is read as bfloat16 and widened to float32 in shared memory,
+// the scores, the online softmax, P (float32, as v.dtype) and the P @ V
+// product against the float32 V all stay float32, and only the output is
+// rounded to bfloat16.
+//
 // Shapes: q and out [R, H, D]; pools [NB, BS, Hkv, D]; tables [S, MB],
 // context_lens / q_lens / row_starts [S] int32; H = rep * Hkv with
 // rep <= 64; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16
-// (bfloat16: S <= 512); pools of q's dtype, or int8 with scales
+// (bfloat16: S <= 512); pools of q's dtype, float32 pools under a
+// bfloat16 q (dtype 2), or int8 with scales
 // [NB, BS, Hkv] (float32 q: this body reads each 4 int8 values with their
 // scale and stages them in float32, the reference's recipe; bfloat16 q:
 // the Hopper body's int8 mode). Rows outside every slot's [row_starts,
 // row_starts + q_lens) are not written. Scratch (float32, from the
 // caller): float32 n_split * R * H * (D + 2), n_split <= 32; bfloat16
-// below.
+// below; dtype 2 as float32.
 #include "common.cuh"
 #include "paged_attention_sm90.cuh"
 
@@ -96,8 +105,8 @@ __global__ void __launch_bounds__(NW * 32)
                   const __grid_constant__ TreeBits tree) {
   constexpr int DL = D / 32;
   constexpr int DP = D + 1;
-  constexpr int VEC = 16 / sizeof(T);
-  static_assert(VEC == 4, "the float32 body: 4 elements a chunk (Kv4)");
+  constexpr int QVEC = 16 / sizeof(T);  // q: 16-byte loads of T
+  constexpr int VEC = 4;                // K / V: 4 elements a chunk (Kv4)
   const int s = blockIdx.x, g = blockIdx.y;
   const int tile = blockIdx.z / n_split, split = blockIdx.z % n_split;
   const int ql = qlens[s];
@@ -122,8 +131,8 @@ __global__ void __launch_bounds__(NW * 32)
   float* v_s = k_s + MAX_BS * DP;    // [MAX_BS][D + 1]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int i = tid; i < nq * (D / VEC); i += NW * 32) {
-    const int qv = i / (D / VEC), dd = (i % (D / VEC)) * VEC;
+  for (int i = tid; i < nq * (D / QVEC); i += NW * 32) {
+    const int qv = i / (D / QVEC), dd = (i % (D / QVEC)) * QVEC;
     load_vec<T>(q + qv_offset(row0, t0, qv, rep, g, H) * D + dd,
                 q_s + qv * D + dd);
   }
@@ -355,11 +364,18 @@ int run(const void* q, const void* kp, const void* vp, const void* ks,
                              n_split, scale, st, tree_bits, tree_t,
                              tree_slots);
   }
-  if (dtype != 0 || S < 1 || R < 1 || Hkv < 1 || H % Hkv != 0 ||
+  if ((dtype != 0 && dtype != 2) || S < 1 || R < 1 || Hkv < 1 ||
+      H % Hkv != 0 ||
       H / Hkv > MAX_Q || BS < 1 || BS > MAX_BS || MAX_BS % BS || w_max < 1 ||
       n_split < 1 || n_split > MAX_SPLITS ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (dtype == 2) {   // bfloat16 q and out over float32 pools
+    if (ks != nullptr) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_d<__nv_bfloat16, float>(
+        q, kp, vp, nullptr, nullptr, tb, cl, qls, rs, out, pp, R, S, H, Hkv,
+        D, BS, MB, w_max, n_split, scale, st, tree_bits, tree_t, tree_slots);
+  }
   if (ks != nullptr)
     return (int)dispatch_d<float, int8_t>(q, kp, vp, ksf, vsf, tb, cl, qls,
                                           rs, out, pp, R, S, H, Hkv, D, BS,
@@ -373,8 +389,10 @@ int run(const void* q, const void* kp, const void* vp, const void* ks,
 
 }  // namespace
 
-// kp / vp: pools of q's dtype (ks, vs null), or int8 pools with their
-// float32 scales ks / vs [NB, BS, Hkv]. float32: part is scratch of
+// dtype: 0 float32, 1 bfloat16, 2 bfloat16 q and out over float32 pools.
+// kp / vp: pools of q's dtype (ks, vs null; float32 for dtype 2), or int8
+// pools with their float32 scales ks / vs [NB, BS, Hkv] (dtype 0 or 1).
+// float32 and dtype 2: part is scratch of
 // n_split * R * H * (D + 2) floats (unused and may be null when n_split
 // == 1), counters unused. bfloat16: n_split is the split records part
 // holds, each NV * (D + 2) floats, NV = min(64 / rep, w_max) * rep (2 x

@@ -1,5 +1,6 @@
-"""Mixture-of-Experts dispatch of the port (one device; expert
-parallelism comes with a later slice)."""
-from . import moe
+"""Distributed pieces of the port on one device: Mixture-of-Experts
+dispatch (expert parallelism comes with a later slice) and the
+degree-1 tensor-parallel layers of ``fleet``."""
+from . import fleet, moe
 
-__all__ = ["moe"]
+__all__ = ["fleet", "moe"]

@@ -212,15 +212,19 @@ class GenerationMixin:
                 f"prompt ({prompt_len}) + max_new_tokens ({max_new}) "
                 f"exceeds max_position_embeddings ({max_pos})")
 
+    def _takes_pad_mask(self):
+        """Whether the model's forward takes ``attention_mask`` and
+        ``position_ids`` (GPT's, as the reference's, takes neither)."""
+        sig = inspect.signature(type(self).forward).parameters
+        return "attention_mask" in sig and "position_ids" in sig
+
     def _bucket_eligible(self):
         """Prompt bucketing rides the left-padded (mask + per-row rope)
         path, so the model's forward must accept it; capacity-routed MoE
         is excluded because pad tokens would compete for expert capacity
         and perturb the real tokens' outputs."""
-        sig = inspect.signature(type(self).forward).parameters
-        if "attention_mask" not in sig or "position_ids" not in sig:
-            return False
-        return not capacity_routed(getattr(self, "config", None))
+        return self._takes_pad_mask() and not capacity_routed(
+            getattr(self, "config", None))
 
     @staticmethod
     def _resolve_strategy(strategy):
@@ -244,14 +248,19 @@ class GenerationMixin:
             n_real = mask.sum(1)
             pos0 = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
         caches = self.init_caches(b, prompt_len + max_new)
-        logits, caches = self(ids, caches=caches, offset=0,
-                              attention_mask=full_mask, position_ids=pos0)
+        # the pad mask and positions go only to a forward that takes them
+        # (GPT's takes neither)
+        def pad_kw(pos):
+            return {} if mask is None else dict(attention_mask=full_mask,
+                                                position_ids=pos)
+
+        logits, caches = self(ids, caches=caches, offset=0, **pad_kw(pos0))
 
         def step(i, tok, caches):
-            pos = None if mask is None else (n_real + i - 1)[:, None]
             return self(tok[:, None], caches=caches,
                         offset=prompt_len - 1 + i,
-                        attention_mask=full_mask, position_ids=pos)
+                        **pad_kw(None if mask is None
+                                 else (n_real + i - 1)[:, None]))
 
         return _decode_loop(step, select(logits[:, -1, :]), caches, max_new,
                             select, eos, pad)
@@ -352,6 +361,11 @@ class GenerationMixin:
 
         mask_np = None
         if attention_mask is not None:
+            if not self._takes_pad_mask():
+                raise NotImplementedError(
+                    f"{type(self).__name__} does not support left-padded "
+                    "generation (its forward lacks attention_mask/"
+                    "position_ids kwargs)")
             mask_np = np.asarray(attention_mask.cpu()
                                  if torch.is_tensor(attention_mask)
                                  else attention_mask)
@@ -428,7 +442,8 @@ class GenerationMixin:
                 raise NotImplementedError(
                     f"speculative decoding unavailable: {reason}")
             # speculated positions may overhang the final token by up to
-            # gamma: they need room in the rope tables too
+            # gamma: they need room in the position tables too (rope, or
+            # GPT's learned positions)
             self._check_lengths(prompt_len, max_new + gamma)
             runner = SpecGenerator(
                 self, b, prompt_len, max_new, gamma, do_sample=do_sample,

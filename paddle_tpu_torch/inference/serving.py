@@ -344,11 +344,14 @@ class ServingEngine:
         self._slot_props = {}           # slot -> next tick's head drafts
         if self._tree is not None and cfg.drafter == "heads":
             self._init_heads(model, spec_heads, dev)
-        self._draft = draft_model.eval() if gamma and \
+        draft = self._draft = draft_model.eval() if gamma and \
             cfg.drafter == "model" else None
-        self._dloop = None if self._draft is None else \
+        # the loop closes over the draft model, not the engine: a closure
+        # over ``self`` would hold the engine, its pools and the draft's
+        # in a reference cycle until the collector ran
+        self._dloop = None if draft is None else \
             _spec.build_draft_loop(
-                lambda ids, pools, tables, lens: self._draft(
+                lambda ids, pools, tables, lens: draft(
                     ids, caches=pools, block_tables=tables,
                     cache_lens=lens),
                 gamma=gamma, do_sample=self._do_sample,

@@ -1,6 +1,6 @@
 from . import functional
 from .clip import ClipGradByGlobalNorm
-from .layer import Embedding, Linear, RMSNorm
+from .layer import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "Embedding", "Linear",
-           "RMSNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout", "Embedding",
+           "LayerNorm", "Linear", "RMSNorm"]

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm"]
+__all__ = ["rms_norm", "layer_norm"]
 
 
 def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6):
@@ -16,4 +16,25 @@ def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6):
     out = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight
+    return out
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` axes (an int or a
+    list) with the reference recipe: mean and biased variance in
+    float32, the normalised rows cast back to the activation dtype, then
+    ``* weight`` and ``+ bias`` in that dtype. K3a's plain ``kind="ln"``
+    (``ops/kernels/decode_fused.py``) runs this function, so the fused
+    and unfused decode ticks are bitwise one model on the CPU."""
+    n = 1 if isinstance(normalized_shape, int) else len(normalized_shape)
+    axes = tuple(range(x.dim() - n, x.dim()))
+    xf = x.float()
+    m = torch.mean(xf, dim=axes, keepdim=True)
+    v = torch.mean((xf - m) * (xf - m), dim=axes, keepdim=True)
+    out = ((xf - m) * torch.rsqrt(v + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
     return out

@@ -28,7 +28,12 @@ launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
                  "paged_decode_attention_int8": 0,
                  "paged_verify_attention_int8": 0,
                  "paged_verify_attention_tree": 0,
-                 "paged_verify_attention_tree_int8": 0, "norm_matmul": 0,
+                 "paged_verify_attention_tree_int8": 0,
+                 "ragged_paged_attention_f32pool": 0,
+                 "ragged_paged_attention_tree_f32pool": 0,
+                 "paged_decode_attention_f32pool": 0,
+                 "paged_verify_attention_f32pool": 0,
+                 "paged_verify_attention_tree_f32pool": 0, "norm_matmul": 0,
                  "matmul_residual": 0, "flash_attention_fwd": 0,
                  "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "moe_gather_gmm_swiglu": 0, "moe_scatter_gmm": 0,

@@ -27,9 +27,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from ...incubate.nn.functional import swiglu
+from ...nn.functional.activation import gelu
+from ...nn.functional.norm import layer_norm, rms_norm
 from . import _build, launch_counts, no_backward
 
 __all__ = ["norm_matmul", "matmul_residual", "plain_norm_matmul",
@@ -48,22 +49,19 @@ _SCRATCH = {}
 
 
 def plain_norm_matmul(x, gamma, beta, ws, bs, *, eps, kind):
-    """The unfused recipe of ``_xla_norm_matmul``: the norm's statistics
-    in float32, the normalised rows cast to the activation dtype BEFORE
-    the gamma multiply, then beta, then each ``y @ w (+ b)``."""
-    xf = x.float()
+    """The unfused recipe of ``_xla_norm_matmul``: the norm of the
+    module path (:func:`~paddle_tpu_torch.nn.functional.rms_norm` or
+    :func:`~paddle_tpu_torch.nn.functional.layer_norm`: statistics in
+    float32, the normalised rows cast to the activation dtype BEFORE the
+    gamma multiply, then beta), then each ``y @ w (+ b)``."""
     if kind == "rms":
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+        if beta is not None:
+            raise ValueError("beta belongs to kind='ln'")
+        y = rms_norm(x, gamma, eps)
     elif kind == "ln":
-        m = torch.mean(xf, dim=-1, keepdim=True)
-        v = torch.mean((xf - m) * (xf - m), dim=-1, keepdim=True)
-        y = ((xf - m) * torch.rsqrt(v + eps)).to(x.dtype)
+        y = layer_norm(x, x.shape[-1], gamma, beta, eps)
     else:
         raise ValueError(f"kind {kind!r}: 'rms' or 'ln'")
-    y = y * gamma
-    if beta is not None:
-        y = y + beta
     return tuple(y @ w + b if b is not None else y @ w
                  for w, b in zip(ws, bs))
 
@@ -75,7 +73,7 @@ def plain_matmul_residual(xs, w, b, residual, *, act=None):
     if act == "swiglu":
         xin = swiglu(xs[0], xs[1])
     elif act == "gelu_tanh":
-        xin = F.gelu(xs[0], approximate="tanh")
+        xin = gelu(xs[0], approximate=True)
     elif act is None:
         xin = xs[0]
     else:

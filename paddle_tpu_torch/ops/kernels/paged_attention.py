@@ -34,6 +34,17 @@ recipe is the reference's quantized one: the gather dequantizes to
 float32 and everything stays float32 through both products (P is not
 rounded); the kernels' launches are then counted as
 ``paged_decode_attention_int8`` / ``paged_verify_attention_int8``.
+
+A bfloat16 ``q`` over float32 pools (GPT's: the reference keeps its
+pools float32 whatever the model's dtype) runs the FMA body with the
+TPU kernel's recipe on those inputs: float32 scores, softmax and P (the
+kernel casts P to V's dtype, float32) into the product with the float32
+V, the output rounded to bfloat16; its launches are counted as
+``paged_decode_attention_f32pool`` / ``paged_verify_attention_f32pool``
+(``paged_verify_attention_tree_f32pool`` in the tree mode). The plain
+versions hold that recipe in this case (the products in the pool's
+dtype), where the reference's gather fallback rounds K, V and P to the
+query's dtype.
 """
 from __future__ import annotations
 
@@ -46,8 +57,8 @@ import torch
 
 from . import _build, launch_counts, no_backward
 from ..paged_cache import QuantKV, gather_dense
-from .ragged_paged_attention import (SM90_MAX_SLOTS, pool_operands,
-                                     sm_count, sm90_scratch,
+from .ragged_paged_attention import (SM90_MAX_SLOTS, dtype_code,
+                                     pool_operands, sm_count, sm90_scratch,
                                      sm90_scratch_sizes, tree_ancestor_bits)
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
@@ -58,8 +69,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 # The shapes the kernels take. Both bodies: a window of at most MAX_T
 # tokens (a tree's 31 drafts + the root fill the 32 ancestor bits) and a
-# GQA group of at most MAX_Q query heads. float32 (the FMA body): one
-# block holds a kv group's T * group <= MAX_Q query vectors. bfloat16
+# GQA group of at most MAX_Q query heads. float32, or a bfloat16 q over
+# float32 pools (the FMA body): one block holds a kv group's T * group <= MAX_Q query vectors. bfloat16
 # (the Hopper body): a window of more than MAX_Q // group rows takes
 # several 64-vector tiles, so it has no such product bound.
 MAX_Q = 64
@@ -127,8 +138,10 @@ def plain_paged_verify_attention(q, k_pool, v_pool, block_tables,
     hkv = k_pool.shape[2]
     rep = h // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    # int8 pools: float32 through both products (the reference's recipe)
-    ad = torch.float32 if isinstance(k_pool, QuantKV) else q.dtype
+    # the products' dtype: the pool's (q's own, or float32 pools under a
+    # bfloat16 q: the kernel's recipe); int8 pools: float32 through both
+    # products (the reference's recipe)
+    ad = torch.float32 if isinstance(k_pool, QuantKV) else k_pool.dtype
     k = gather_dense(k_pool, block_tables)          # [S, L, Hkv, D]
     v = gather_dense(v_pool, block_tables)
     q6 = q.reshape(s, t, hkv, rep, d)
@@ -214,15 +227,17 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
     if h % hkv or h // hkv > MAX_Q:
         raise ValueError(f"{h} query heads over {hkv} kv heads: need a "
                          f"whole group of at most {MAX_Q}")
-    if q4.dtype == torch.float32 and t * (h // hkv) > MAX_Q:
+    code = dtype_code(q4, kd)[0]
+    if code != 1 and t * (h // hkv) > MAX_Q:
         raise ValueError(f"{h // hkv} query heads a kv head at T {t}: the "
-                         f"float32 kernel takes T * group <= {MAX_Q}")
+                         "FMA body (float32, or a bfloat16 q over float32 "
+                         f"pools) takes T * group <= {MAX_Q}")
     if block_tables.dim() != 2 or block_tables.shape[0] != s \
             or tuple(context_lens.shape) != (s,):
         raise ValueError("block_tables must be [S, MB] and context_lens [S]")
     if q4.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
-    if q4.dtype == torch.bfloat16 and s > SM90_MAX_SLOTS:
+    if code == 1 and s > SM90_MAX_SLOTS:
         raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
                          f"{SM90_MAX_SLOTS}")
     return kd, vd, ks, vs
@@ -258,7 +273,8 @@ def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
         return out
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
-    if q4.dtype == torch.bfloat16:
+    code, mode = dtype_code(q4, kd)
+    if code == 1:
         n_split, floats, counters = sm90_scratch_sizes(
             s, hkv, h // hkv, t, d, sm_count(q4.device))
         part, cnt = sm90_scratch(q4.device, stream, floats, counters)
@@ -272,10 +288,10 @@ def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
         q4.data_ptr(), kd.data_ptr(), vd.data_ptr(), ptr(ks), ptr(vs),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         ptr(part), ptr(cnt), s, t, h, hkv, d, bs, mb, nb, n_split,
-        float(scale), _DTYPES[q4.dtype], stream, *tree)
+        float(scale), code, stream, *tree)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed (cudaError {rc})")
-    launch_counts[counter + ("_int8" if ks is not None else "")] += 1
+    launch_counts[counter + ("_int8" if ks is not None else mode)] += 1
     return out
 
 

@@ -11,13 +11,24 @@ positions of the slot's blocks in the pool ``[NB, BS, H_kv, D]``.
 Rows that belong to no slot are left unwritten by the kernel (zero in
 the plain version): callers read live rows only.
 
-The pools are floating tensors of ``q``'s dtype, or a pair of
+The pools are floating tensors of ``q``'s dtype, float32 pools under a
+bfloat16 ``q`` (GPT's: the reference keeps its pools float32 whatever
+the model's dtype), or a pair of
 :class:`~paddle_tpu_torch.ops.paged_cache.QuantKV` (int8 pages and a
 float32 scale a position and kv head), which the kernel dequantizes as
 it reads them; its launches are then counted as
 ``ragged_paged_attention_int8``. The int8 recipe is the reference's
 (``_dequant_tile``): ``q`` in float32, each page int8 -> float32 times
 its scale, both products in float32 with P not rounded.
+
+A bfloat16 ``q`` over float32 pools runs the TPU kernel's recipe on
+those inputs: the scores ``q . k`` in float32 times the scale, the
+online softmax in float32, P kept float32 (the kernel casts it to V's
+dtype) into the product with the float32 V, and only the output rounded
+to bfloat16. Its launches are counted as
+``ragged_paged_attention_f32pool`` (``_tree_f32pool`` in the tree mode).
+The plain version holds that recipe too; the reference's XLA fallback
+(``_xla_ragged_paged``) differs from it, rounding P to ``q``'s dtype.
 
 The token-tree mode (``tree_anc``, a parent tuple of T - 1 nodes, with
 ``tree_slots``, int32 flags ``[S]``; the reference's ``tree_bits`` and
@@ -42,9 +53,10 @@ from ..paged_cache import QuantKV, kv_dequantize
 
 __all__ = ["ragged_paged_attention", "plain_ragged_paged_attention",
            "sm90_scratch_sizes", "sm90_scratch", "sm_count",
-           "pool_operands", "tree_ancestor_bits"]
+           "pool_operands", "dtype_code", "tree_ancestor_bits"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+F32_POOL = 2    # the C entries' dtype code of a bfloat16 q over f32 pools
 _LIB = None
 SPLIT_POSITIONS = 256     # float32: context positions per split of a row
 MAX_SPLITS = 8
@@ -95,8 +107,9 @@ def plain_ragged_paged_attention(q, k_pool, v_pool, block_tables,
                                  sm_scale=None, tree_anc=None,
                                  tree_slots=None, tree_rows=None):
     """Dense per-row masked softmax over each slot's gathered blocks:
-    scores, softmax and the P @ V product in float32, output in ``q``'s
-    dtype. ``tree_anc`` / ``tree_slots``: the tree mode (module
+    scores, softmax and the P @ V product in float32 (the pages read as
+    float32: a float32 pool as it is, so a bfloat16 ``q`` over float32
+    pools keeps the kernel's recipe), output in ``q``'s dtype. ``tree_anc`` / ``tree_slots``: the tree mode (module
     docstring), the reference's ``_xla_ragged_paged`` tree mask op for
     op: ``rel = col - context_lens[s]``, kept iff ``rel < 0`` or bit
     ``rel`` of the row's ancestor mask. Raises, as the kernel's wrapper
@@ -206,10 +219,11 @@ def _lib():
 
 def pool_operands(q, k_pool, v_pool):
     """The kernels' pool operands ``(k data, v data, k scale, v scale)``:
-    floating pools of ``q``'s dtype (scales None), or two int8
-    :class:`QuantKV` of the same shape (int8 data, float32 scales
-    ``[NB, BS, Hkv]``); each on ``q``'s device, contiguous and 16-byte
-    aligned. Raises on anything else, mixed pools included."""
+    floating pools of ``q``'s dtype or, under a bfloat16 ``q``, float32
+    pools (scales None), or two int8 :class:`QuantKV` of the same shape
+    (int8 data, float32 scales ``[NB, BS, Hkv]``); each on ``q``'s
+    device, contiguous and 16-byte aligned. Raises on anything else,
+    mixed pools included."""
     quant = isinstance(k_pool, QuantKV)
     if quant != isinstance(v_pool, QuantKV):
         raise TypeError("mixed pools: K and V must both be int8 QuantKV "
@@ -228,9 +242,12 @@ def pool_operands(q, k_pool, v_pool):
                              f"{tuple(vs.shape)} want [NB, BS, Hkv]")
     else:
         kd, vd, ks, vs = k_pool, v_pool, None, None
-        if kd.dtype != q.dtype or vd.dtype != q.dtype:
+        want = torch.float32 if q.dtype == torch.bfloat16 \
+            and kd.dtype == torch.float32 else q.dtype
+        if kd.dtype != want or vd.dtype != want:
             raise TypeError(f"pools {kd.dtype} / {vd.dtype}: floating "
-                            f"pools must share q's dtype ({q.dtype})")
+                            f"pools must share q's dtype ({q.dtype}), or "
+                            "be float32 pools under a bfloat16 q")
     for name, t in (("k_pool", kd), ("v_pool", vd), ("k_scale", ks),
                     ("v_scale", vs)):
         if t is None:
@@ -242,6 +259,16 @@ def pool_operands(q, k_pool, v_pool):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     return kd, vd, ks, vs
+
+
+def dtype_code(q, kd):
+    """The C entries' dtype code and the launch counter's suffix for ``q``
+    over pool data ``kd`` (:func:`pool_operands`): 0 float32, 1 bfloat16
+    (bfloat16 or int8 pools: the Hopper body), F32_POOL a bfloat16 q
+    over float32 pools (the FMA body, counted as ``*_f32pool``)."""
+    if q.dtype == torch.bfloat16 and kd.dtype == torch.float32:
+        return F32_POOL, "_f32pool"
+    return _DTYPES[q.dtype], ""
 
 
 def _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
@@ -285,7 +312,7 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
         raise ValueError("context_lens, q_lens and row_starts must be [S]")
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
-    if q.dtype == torch.bfloat16 and s > SM90_MAX_SLOTS:
+    if dtype_code(q, kd)[0] == 1 and s > SM90_MAX_SLOTS:
         raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
                          f"{SM90_MAX_SLOTS}")
     return kd, vd, ks, vs
@@ -342,7 +369,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         return out
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if q.dtype == torch.bfloat16:
+    code, mode = dtype_code(q, kd)
+    if code == 1:
         n_split, floats, counters = sm90_scratch_sizes(
             s, hkv, h // hkv, w_max, d, sm_count(q.device))
         part, cnt = sm90_scratch(q.device, stream, floats, counters)
@@ -357,8 +385,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         block_tables.data_ptr(), context_lens.data_ptr(),
         q_lens.data_ptr(), row_starts.data_ptr(), out.data_ptr(), ptr(part),
         ptr(cnt), r, s, h, hkv, d, bs, mb, nb, w_max, n_split, float(scale),
-        _DTYPES[q.dtype], stream, *tree)
+        code, stream, *tree)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
-    launch_counts[name + ("_int8" if ks is not None else "")] += 1
+    launch_counts[name + ("_int8" if ks is not None else mode)] += 1
     return out

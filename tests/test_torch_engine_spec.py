@@ -16,6 +16,9 @@ block pressure, a draft model, chain and branching trees, draft heads
 with seeded and given weights, int8 pools) with the reference's
 speculation counters.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -390,6 +393,31 @@ def test_streamed_tokens_equal_returned(models):
         assert seen[r] == done[r].tolist()
     assert sum(map(len, seen.values())) == eng.stats()["tokens_total"]
     eng.shutdown()
+
+
+@pytest.mark.parametrize("run", ["draft", "self_draft", "ngram", "heads"])
+def test_dropped_engine_frees_its_pools_without_the_collector(models, run):
+    """An engine is in no reference cycle (a drafting engine's draft loop
+    closes over the draft model, not the engine): once the caller drops
+    it, it and its pools, the draft's too, go at once, with the cyclic
+    collector off, so a card's memory comes back without ``gc``."""
+    port, port_draft = models[2], models[3]
+    eng = ServingEngine(port, ServingConfig(**CORE, **RUNS[run]),
+                        device="cpu", draft_model={
+                            "draft": port_draft, "self_draft": port}.get(run))
+    eng.serve(_prompts(), max_new_tokens=6)
+    assert eng.shutdown()
+    held = [weakref.ref(eng), weakref.ref(eng._pools[0][0])]
+    if eng._dpools is not None:
+        held.append(weakref.ref(eng._dpools[0][0]))
+    assert len(held) == (3 if "draft" in run else 2)
+    gc.collect()
+    gc.disable()
+    try:
+        del eng
+        assert [r() is None for r in held] == [True] * len(held)
+    finally:
+        gc.enable()
 
 
 def test_sampling_engines_are_seeded_and_counts_consistent(models):

@@ -34,7 +34,10 @@ modes are held against the plain versions' masks (K2r's flagged windows
 beside an unflagged 128-row chunk in one launch), a chain tree equals
 the linear kernel bit for bit, and a float32 speculative engine on the
 card streams the tokens of the same engine run through the plain
-versions."""
+versions. A bfloat16 query over float32 pools (GPT's serving mode) runs
+K2r, K2d and K2v's FMA bodies at head_dim 64 and 128, linear and tree,
+held against the plain versions at 2e-2 and, bit for bit, against the
+float32 kernels on the widened query with the output rounded."""
 from unittest import mock
 
 import numpy as np
@@ -244,9 +247,11 @@ def _int8(pool):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# (16, 64, 64, 1): GPT's serving on int8 pools (16 / 16 heads of 64,
+# tables of 64 blocks)
 @pytest.mark.parametrize("block_size,head_dim,mb,rep", [
     (8, 64, 8, 4), (16, 128, 8, 1), (32, 128, 8, 4), (16, 128, 128, 7),
-    (8, 128, 64, 4), (16, 64, 128, 2)])
+    (8, 128, 64, 4), (16, 64, 128, 2), (16, 64, 64, 1)])
 def test_ragged_paged_attention_int8(cuda, dtype, block_size, head_dim, mb,
                                      rep):
     """K2r on int8 pools (the float32 body reads int8 pages with their
@@ -1601,3 +1606,114 @@ def test_speculative_engine_on_the_card(cuda, spec):
     assert st["spec_tokens_accepted"] == st_p["spec_tokens_accepted"]
     if spec == "self_draft":
         assert st["spec_mean_accepted_len"] > 1.0
+
+
+# K2 with a bfloat16 query over float32 pools (GPT's pools stay float32
+# under a bfloat16 model): the FMA bodies with bfloat16 loads of q and
+# stores of the output, P kept float32; launches counted as *_f32pool
+
+
+def _f32pool(q, kp, vp):
+    """A case's query in bfloat16 over its pools in float32."""
+    return q.to(torch.bfloat16), kp.float(), vp.float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("tree", [None, BRANCHY])
+def test_ragged_attention_bf16_query_over_f32_pools(cuda, head_dim, rep,
+                                                    tree):
+    """K2r's new mode, linear and with the per-slot tree mask: three
+    flagged T-8 windows (one past a 1000-position context, split), a
+    128-row chunk and a trickle window unflagged, a slot of no rows; held
+    against the plain version at bfloat16's tolerance and bit for bit
+    against the float32 kernel on the widened q, rounded; counted as
+    ragged_paged_attention(_tree)_f32pool only."""
+    rng = np.random.RandomState(1300 + head_dim + rep)
+    base = [5, 300, 1000, 600, 16, 40]
+    q_lens = [8, 8, 8, 128, 8, 0]
+    flags = torch.tensor([1, 1, 1, 0, 0, 1], dtype=torch.int32,
+                         device=cuda)
+    args, starts = _ragged_case(rng, base, q_lens, 2 * rep, 2, head_dim, 16,
+                                72, torch.float32, cuda)
+    args = _f32pool(*args[:3]) + args[3:]
+    name = "ragged_paged_attention" + ("_tree" if tree else "")
+    kw = dict(tree_anc=tree, tree_slots=flags, tree_rows=8) if tree else {}
+    n0 = dict(launch_counts)
+    got = rpa.ragged_paged_attention(*args, max(q_lens), **kw)
+    assert got.dtype == torch.bfloat16
+    assert launch_counts[name + "_f32pool"] == n0[name + "_f32pool"] + 1
+    assert all(launch_counts[k] == n0[k] for k in n0
+               if k != name + "_f32pool")
+    want = rpa.plain_ragged_paged_attention(
+        *args, tree_anc=tree, tree_slots=flags if tree else None)
+    _rows_close(_live(got, q_lens, starts), _live(want, q_lens, starts),
+                "bfloat16")
+    # the float32 body with bfloat16 loads of q and stores of the output:
+    # the float32 kernel's output on the widened q, rounded, bit for bit
+    wide = rpa.ragged_paged_attention(args[0].float(), *args[1:],
+                                      max(q_lens), **kw)
+    assert torch.equal(_live(got, q_lens, starts),
+                       _live(wide, q_lens, starts).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("rep,T,tree", [(1, 1, None), (4, 1, None),
+                                        (1, 5, None), (4, 5, None),
+                                        (1, 8, BRANCHY), (4, 8, BRANCHY)])
+def test_paged_attention_bf16_query_over_f32_pools(cuda, head_dim, rep, T,
+                                                   tree):
+    """K2d (T 1) and K2v (linear, and the tree mode at T 8) in the new
+    mode: contexts of 1, BS, BS + 1 and one whose window ends at the
+    table's reach, a long table that splits the context; held against
+    the plain versions, counted as *_f32pool."""
+    mb, bs = 64, 16
+    lens = [1, bs, bs + 1, mb * bs - T + 1]
+    q, kp, vp, tables, ctx = _paged_case(1400 + head_dim + rep + T, lens, T,
+                                         rep, head_dim, bs, mb,
+                                         torch.float32, cuda)
+    q, kp, vp = _f32pool(q, kp, vp)
+    n0 = dict(launch_counts)
+    if T == 1:
+        got = pda.paged_decode_attention(q[:, 0], kp, vp, tables, ctx)
+        want = pda.plain_paged_decode_attention(q[:, 0], kp, vp, tables,
+                                                ctx)
+        name = "paged_decode_attention"
+    else:
+        got = pda.paged_verify_attention(q, kp, vp, tables, ctx,
+                                         tree_anc=tree)
+        want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
+                                                tree_anc=tree)
+        name = "paged_verify_attention" + ("_tree" if tree else "")
+    assert got.dtype == torch.bfloat16
+    assert launch_counts[name + "_f32pool"] == n0[name + "_f32pool"] + 1
+    assert all(launch_counts[k] == n0[k] for k in n0
+               if k != name + "_f32pool")
+    _rows_close(got, want, "bfloat16")
+    # the mode is the float32 body with bfloat16 loads of q and stores of
+    # the output: the float32 kernel's output on the widened q, rounded
+    wide = pda.paged_decode_attention(q[:, 0].float(), kp, vp, tables,
+                                      ctx) if T == 1 else \
+        pda.paged_verify_attention(q.float(), kp, vp, tables, ctx,
+                                   tree_anc=tree)
+    assert torch.equal(got, wide.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_bf16_query_over_f32_pools_refusals(cuda):
+    """Every other dtype mismatch still raises, and the FMA body's T x
+    group bound holds in the new mode."""
+    q, kp, vp, tables, ctx = _paged_case(5, [3, 20], 2, 4, 64, 16, 4,
+                                         torch.float32, cuda)
+    bq = q.to(torch.bfloat16)
+    for args in ((q, kp.to(torch.bfloat16), vp.to(torch.bfloat16)),
+                 (bq, kp.half(), vp.half()), (bq, kp, vp.to(torch.bfloat16)),
+                 (q.half(), kp, vp)):
+        with pytest.raises(TypeError):
+            pda.paged_verify_attention(*args, tables, ctx)
+    q9, kp9, vp9, t9, c9 = _paged_case(6, [3, 20], 9, 8, 64, 16, 4,
+                                       torch.float32, cuda)
+    with pytest.raises(ValueError, match="T \\* group"):
+        pda.paged_verify_attention(q9.to(torch.bfloat16), kp9, vp9, t9, c9)

@@ -70,6 +70,9 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/ops/kernels/flashmask.py",
                  "paddle_tpu_torch/nn/functional/common.py",
                  "paddle_tpu_torch/nn/functional/flash_attention.py",
+                 "paddle_tpu_torch/nn/functional/activation.py",
+                 "paddle_tpu_torch/distributed/fleet/mp_layers.py",
+                 "paddle_tpu_torch/models/gpt.py",
                  "chip_smoke.py"):
         assert want in names
     for cu in ("ragged_paged_attention", "paged_decode_attention",
@@ -95,7 +98,10 @@ def test_fresh_interpreter_import_pulls_in_no_jax():
             "paddle_tpu_torch.ops.kernels.paged_attention, "
             "paddle_tpu_torch.generation.speculative, "
             "paddle_tpu_torch.inference, paddle_tpu_torch.jit, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.models; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.models, "
+            "paddle_tpu_torch.models.gpt, "
+            "paddle_tpu_torch.distributed.fleet.mp_layers, "
+            "paddle_tpu_torch.nn.functional.activation; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -169,3 +175,27 @@ def test_training_entry_points_raise_without_gpu(no_gpu):
     assert step.device == torch.device("cpu")
     ids = np.zeros((1, 8), np.int64)
     assert np.isfinite(float(step(ids, ids)))
+
+
+def test_gpt_and_its_layers_raise_without_gpu(no_gpu):
+    """GPT and the layers it adds (LayerNorm, the degree-1 tensor-parallel
+    layers) default to CUDA and raise without a GPU; ``device="cpu"``
+    builds them, and the model generates there."""
+    from paddle_tpu_torch.distributed.fleet import (ColumnParallelLinear,
+                                                    RowParallelLinear,
+                                                    VocabParallelEmbedding)
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import LayerNorm
+    cfg = GPTConfig.tiny(vocab=64, hidden=64, layers=1, heads=1)
+    for build in (lambda **k: GPTForCausalLM(cfg, **k),
+                  lambda **k: LayerNorm(8, **k),
+                  lambda **k: ColumnParallelLinear(8, 8, **k),
+                  lambda **k: RowParallelLinear(8, 8, **k),
+                  lambda **k: VocabParallelEmbedding(8, 4, **k)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        assert all(p.device.type == "cpu"
+                   for p in build(device="cpu").parameters())
+    model = GPTForCausalLM(cfg, device="cpu")
+    out, _ = model.generate(np.ones((1, 3), np.int64), max_new_tokens=2)
+    assert out.device.type == "cpu" and tuple(out.shape) == (1, 2)
