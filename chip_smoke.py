@@ -54,9 +54,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (GPT's serving mode, ``*_f32pool``) at phase 18's shapes (16 / 16
    heads, D 64): K2r at a serving tick, a decode tick and a tree tick,
    K2d, K2v and K2v's tree mode at its ``generate()`` shape, each against
-   its plain version and bit for bit against the float32 kernel on the
-   widened query, timed cold; and K1 at GPT's training shape (B 8, L
-   1024, 16 / 16 heads, D 64) in both dtypes;
+   its plain version and against the float32 kernel on the widened query
+   (within one bf16 ulp, under 2 % of outputs differing), timed cold; and
+   K1 at GPT's training shape (B 8, L 1024, 16 / 16 heads, D 64) in both
+   dtypes;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches, then
@@ -177,14 +178,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     reference's): (a) the fused engine serves phase 3's traffic with
     prompts cut to 960 tokens (K3a ``ln``, K3b ``act=None`` and
     ``gelu_tanh`` twice a layer a tick, K2r's ``_f32pool`` mode a layer a
-    tick; tokens/s, TTFT, ticks, rows a tick, idle share and host scalar
-    reads over 4 profiled ticks, peak memory), its streams held against
-    the unfused engine and the engine through the plain versions by the
-    bf16 near-tie rule; (b) the same on int8 pools (K2r's Q8 body at D
-    64; pool bytes against the float32 pools'); (c) the model drafting
-    for itself at gamma 4 and the chain tree in the engine; (d)
-    ``generate()`` on 4 motif prompts of 512, 64 new: paged, n-gram and
-    the chain tree (K2d, K2v and K2v's tree mode in the new mode); (e)
+    tick; tokens/s, TTFT, ticks, rows a tick, idle share, host scalar
+    reads and K2r's share of the device time over 4 profiled ticks, in
+    which no separate split-merge kernel may run, peak memory), its
+    streams held against the unfused engine and the engine through the
+    plain versions by the bf16 near-tie rule; (b) the same on int8 pools
+    (K2r's int8 instance at D 64; pool bytes against the float32 pools');
+    (c) the model drafting for itself at gamma 4 and the chain tree in
+    the engine; (d) ``generate()`` on 4 motif prompts of 512, 64 new:
+    paged, n-gram and the chain tree (K2d, K2v and K2v's tree mode in the
+    new mode); (e)
     ``TrainStep`` + AdamW on 8 x 1024 tokens with dropout 0.1 (ms a step,
     tokens/s, MFU, idle share, peak memory, K1 at D 64 a layer a step,
     falling losses), then 2 float32 layers' loss and gradients through K1
@@ -231,6 +234,12 @@ TOL = {"bfloat16": dict(atol=3e-2, rtol=2e-2),
 ROW_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_ATOL = 1e-4
 LOGITS_ATOL = 2e-3                   # f32 kernel path vs plain path
+# the K2 kernels' bf16-q-over-f32-pool mode against the float32 kernel on
+# the widened q, rounded: the share of outputs that may differ (each by
+# one bf16 ulp at most). The hi + lo recipe is ~2^-16 relative before the
+# output's 2^-8 rounding, so well under 1 % of roundings land apart;
+# rounding K, V or P to bf16 once moves most of them.
+F32POOL_DIFFER = 0.02
 # phase 8: summed log-probabilities of 32 greedy tokens, kernel vs plain
 # path (each logit within LOGITS_ATOL moves a log-softmax by at most
 # twice that; the sum over 32 tokens of such errors, far below it)
@@ -500,9 +509,9 @@ def kv_pools(torch, g, shape, dt, int8, timing):
 def k2_mode(torch, dtype, int8, f32pool):
     """A phase-2 K2 case's types: (q's dtype, the pools' dtype, the
     counter suffix, the bound's operation type). ``f32pool``: a bfloat16
-    q over float32 pools (the FMA bodies' ``*_f32pool`` mode, GPT's
-    serving under a bfloat16 model; float32 operations on the CUDA
-    cores); ``int8``: int8 pools."""
+    q over float32 pools (the ``*_f32pool`` mode, GPT's serving under a
+    bfloat16 model; the recipe's operations are float32); ``int8``: int8
+    pools."""
     dt = getattr(torch, dtype)
     if f32pool:
         assert dtype == "bfloat16" and not int8
@@ -511,14 +520,27 @@ def k2_mode(torch, dtype, int8, f32pool):
 
 
 def held_f32pool(torch, got, wide, what, fails):
-    """The ``*_f32pool`` mode is the float32 body with bfloat16 loads of
-    q and stores of the output: its output must equal the float32
-    kernel's on the widened q, rounded, bit for bit."""
-    same = bool(torch.equal(got, wide.to(torch.bfloat16)))
+    """The ``*_f32pool`` mode (the Hopper body, K, V and P as bfloat16 hi
+    + lo halves, ~2^-16 relative) against the float32 kernel's output on
+    the widened q, rounded: every output within one bfloat16 ulp (at the
+    larger of the two magnitudes and of 2^-8 of its row's largest: an
+    output under that is a cancellation), and under F32POOL_DIFFER of them
+    differing at all; logs the share that differs."""
+    g, r = got.float(), wide.to(torch.bfloat16).float()
+    # the ulp of the larger of the two, and at least of 2^-8 of the row's
+    # largest (a cancellation: rounding is not relative to it)
+    floor = r.abs().amax(-1, keepdim=True) * 2.0 ** -8
+    _, e = torch.frexp(torch.maximum(torch.maximum(g.abs(), r.abs()), floor))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)     # 8 significant bits
+    over = int(((g - r).abs() > ulp).sum())
+    share = float((g != r).float().mean())
+    ok = over == 0 and share < F32POOL_DIFFER
     log(f"  {what}: against the float32 kernel on the widened q, rounded: "
-        f"{'bitwise equal' if same else 'FAIL: they differ'}")
-    if not same:
-        fails.append(f"{what} != the float32 kernel")
+        f"{share:.4%} of {g.numel()} outputs differ (limit "
+        f"{F32POOL_DIFFER:.0%}), {over} by more than one ulp "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append(f"{what}: off the float32 kernel")
 
 
 def launched(counts, name, n0, fails):
@@ -533,11 +555,11 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
     rows + a 128-row prefill chunk, the kernels line's) and "decode" (one
     row a slot, w_max 1); 32 / 8 heads (Llama-3-8B) unless ``heads`` /
     ``kv_heads`` say otherwise; ``int8``: on int8 pools; ``f32pool``: a
-    bfloat16 q over float32 pools, also held bit for bit against the
-    float32 kernel on the widened q. Held elementwise and row by row;
-    timed over enough sets of pools, taken in turn, to fill twice the 50
-    MB L2, so each call reads its K/V from device memory, as each layer
-    of a tick does. Returns the largest error and ``{tick: row}``."""
+    bfloat16 q over float32 pools, also held against the float32 kernel
+    on the widened q (:func:`held_f32pool`). Held elementwise and row by
+    row; timed over enough sets of pools, taken in turn, to fill twice
+    the 50 MB L2, so each call reads its K/V from device memory, as each
+    layer of a tick does. Returns the largest error and ``{tick: row}``."""
     dt, pool_dt, sfx, op_dt = k2_mode(torch, dtype, int8, f32pool)
     g = torch.Generator(device="cuda").manual_seed(11)
     shape = RAGGED[model]
@@ -611,7 +633,8 @@ def check_paged(torch, pda, dtype, timing, shape, heads=32, kv_heads=8,
     and contexts (each set has one ending on a block boundary);
     ``int8``: on int8 pools, the rows named ``<kernel>_int8``;
     ``f32pool``: a bfloat16 q over float32 pools (``<kernel>_f32pool``),
-    also held bit for bit against the float32 kernel on the widened q.
+    also held against the float32 kernel on the widened q
+    (:func:`held_f32pool`).
     Held elementwise and row by row; timed over enough sets of pools,
     taken in turn, to fill twice the 50 MB L2, so each call reads its K/V
     from device memory, as each layer of a decode step does."""
@@ -691,7 +714,8 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
     bit for bit; 32 / 8 heads unless ``heads`` / ``kv_heads`` say
     otherwise; ``int8``: on int8 pools (the rows named ``*_int8``);
     ``f32pool``: a bfloat16 q over float32 pools (``*_f32pool``), also
-    held bit for bit against the float32 kernel on the widened q. With
+    held against the float32 kernel on the widened q
+    (:func:`held_f32pool`). With
     ``timing``, the tree mode is timed cold beside linear K2v at the same
     T in this call, with the bound of the same bytes. Returns ``(errors,
     rows)``."""
@@ -773,7 +797,8 @@ def check_ragged_tree(torch, rpa, dtype, timing, heads=32, kv_heads=8,
     K2r bit for bit; 32 / 8 heads unless ``heads`` / ``kv_heads`` say
     otherwise; ``int8``: on int8 pools (the rows named ``*_int8``);
     ``f32pool``: a bfloat16 q over float32 pools (``*_f32pool``), also
-    held bit for bit against the float32 kernel on the widened q. With
+    held against the float32 kernel on the widened q
+    (:func:`held_f32pool`). With
     ``timing``, the tree mode is timed cold beside linear K2r on the same
     layout in this call, with the bound of the same bytes (the mask is a
     subset of the linear bound). Returns ``(errors, rows)``."""
@@ -1776,10 +1801,11 @@ def merge_rows(rows, dtype):
                 library_ms=sum(r["library_ms"] for r in rows))
 
 
-def profiled(torch, step, n, row_limit, cpu_rows=0):
+def profiled(torch, step, n, row_limit, cpu_rows=0, by_kernel=None):
     """torch.profiler over ``n`` calls of ``step``, after one call that
     runs while the profiler starts and is not read. Prints the device
-    time by kernel (and, with ``cpu_rows``, the host time by operator)
+    time by kernel (and, with ``cpu_rows``, the host time by operator;
+    with a dict ``by_kernel``, fills it with each kernel's device ms)
     and returns ``(wall_ms, busy_ms, scalar_reads)`` of
     the same ``n`` calls: host time from the first call to the device's
     end (profiler on), the sum of their kernels' durations (one stream,
@@ -1805,10 +1831,14 @@ def profiled(torch, step, n, row_limit, cpu_rows=0):
     if cpu_rows:        # where the host's time goes
         log(prof.key_averages().table(sort_by="self_cpu_time_total",
                                       row_limit=cpu_rows))
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith("ProfilerStep")
-                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    for e in kernels if by_kernel is not None else ():
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
     scalar_reads = sum(e.count for e in prof.key_averages()
                        if e.key == "aten::_local_scalar_dense")
     return wall_ms, busy_ms, scalar_reads
@@ -2411,18 +2441,18 @@ def serve_run(torch, kernels, engine, prompts, lens, tag, want):
     return launches, st, [done[r] for r in rids]
 
 
-def tick_window(torch, engine, prompts, n, tag):
+def tick_window(torch, engine, prompts, n, tag, by_kernel=None):
     """Where a tick's time goes: a fresh wave of ``prompts``, 4 untimed
     ticks, then torch.profiler over ``n`` ticks (device time by kernel,
     host time by operator, the idle share of their wall time, host reads
-    of device scalars a tick), then the wave drained. Returns the scalar
-    reads a tick."""
+    of device scalars a tick; ``by_kernel``: :func:`profiled`'s), then
+    the wave drained. Returns the scalar reads a tick."""
     for p in prompts:
         engine.submit(p)
     for _ in range(4):
         engine.step()
     wall_ms, busy_ms, reads = profiled(torch, engine.step, n, 15,
-                                       cpu_rows=12)
+                                       cpu_rows=12, by_kernel=by_kernel)
     engine.run()
     log(f"{tag} profile: {n} ticks, wall {wall_ms:.3f} ms (profiler on), "
         f"device busy {busy_ms:.3f} ms -> idle share "
@@ -3637,7 +3667,7 @@ def gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
     4 profiled ticks; the streams held against the unfused engine and
     the engine with its kernels routed to their plain versions by the
     near-tie rule (the logit difference of two bf16 recipes). (b) the
-    same on int8 pools (K2r's Q8 body at D 64): pool bytes against the
+    same on int8 pools (K2r's int8 instance at D 64): pool bytes against the
     float32 pools', the streams' match with (a) (logged), the streams
     held against the int8 engine routed to the plain versions. (c)
     speculating: the model drafting for itself at gamma 4 (K2r, K2d in
@@ -3699,7 +3729,20 @@ def gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
             or la["matmul_residual"] != 2 * per_tick \
             or la["ragged_paged_attention"]:
         fails.append("phase 18 (a): launches off the fused tick's count")
-    tick_window(torch, engine, prompts[:8], TICK_WINDOW, "phase 18 (a)")
+    by_kernel = {}
+    tick_window(torch, engine, prompts[:8], TICK_WINDOW, "phase 18 (a)",
+                by_kernel)
+    busy = sum(by_kernel.values())
+    k2r = sum(ms for k, ms in by_kernel.items()
+              if "paged_attention_kernel" in k)
+    merges = [k for k in by_kernel if "merge_kernel" in k]
+    log(f"phase 18 (a) profile: K2r (the Hopper body) {k2r:.3f} ms of "
+        f"{busy:.3f} ms of device time over {TICK_WINDOW} ticks = "
+        f"{k2r / max(busy, 1e-9):.4f}; separate split-merge kernels: "
+        f"{merges or 'none'}")
+    if merges or k2r <= 0:
+        fails.append("phase 18 (a): K2r not the Hopper body alone in the "
+                     "profiled ticks")
     engine.shutdown()
     del engine
     # the unfused engine is a comparison: its launches are not the path's

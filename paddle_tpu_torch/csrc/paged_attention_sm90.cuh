@@ -1,4 +1,4 @@
-// The bf16 body of the paged attention kernels for Hopper (sm_90a),
+// The bf16-query body of the paged attention kernels for Hopper (sm_90a),
 // included by ragged_paged_attention.cu (K2r) and
 // paged_decode_attention.cu (K2d, K2v):
 //
@@ -11,9 +11,10 @@
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py, _ragged_kernel
 // (call :593, with its per-slot tree mask, :339-355) and _decode_kernel
 // (calls :439, t_q 1, and :510, t_q T, with its tree mask, :255-270):
-// floating-point pools, and the `quantized` mode (int8 pools with a
-// float32 scale a position and kv head, dequantized tile by tile by
-// _dequant_tile, :184).
+// bf16 pools, float32 pools under a bf16 q (the mode of GPT's caches:
+// the dot_general promotes to float32, :329-347), and the `quantized` mode
+// (int8 pools with a float32 scale a position and kv head, dequantized
+// tile by tile by _dequant_tile, :184).
 //
 // The tree mode (tree_bits, T masks): row t < T of a tree slot keeps
 // column c iff c < ctx (the committed prefix and the root) or bit c - ctx
@@ -58,14 +59,14 @@
 //   a long context is read by many SMs at once; a slot of several tiles
 //   (a prefill chunk) is not split: its tiles x kv heads already spread
 //   it. k is the fewest stages a split for which all items fit one wave
-//   of the grid (two blocks an SM), found by every block from q_lens and
-//   ctx by bisection: the work ends after one item a block whatever the
-//   contexts, with the shortest splits that allows. Each split's
-//   (m, l, unnormalised o) goes to the caller's scratch, a record an
-//   item; the split that finishes last (an arrival counter a (slot, kv
-//   head), in the scratch, which it resets) merges them all, its own
-//   too, in split order (two calls give the same bits), a thread a
-//   (query vector, 4 columns) with four splits' loads in flight. No
+//   of the grid (Cfg::BLOCKS blocks an SM), found by every block from
+//   q_lens and ctx by bisection: the work ends after one item a block
+//   whatever the contexts, with the shortest splits that allows. Each
+//   split's (m, l, unnormalised o) goes to the caller's scratch, a
+//   record an item; the split that finishes last (an arrival counter a
+//   (slot, kv head), in the scratch, which it resets) merges them all,
+//   its own too, in split order (two calls give the same bits), a thread
+//   a (query vector, 4 columns) with four splits' loads in flight. No
 //   block waits on another; one launch a call.
 // - Schedule: persistent blocks; items are ordered slot by slot, slots
 //   by descending live rows (prefill tiles before decode splits), and
@@ -104,7 +105,7 @@
 // - Host: the pool's tensor maps are kept by address, shape and element
 //   type, the SM count and the kernel's attribute asked once a device.
 //
-// int8 pools (Q8): a position-head costs 2 x (D + 4) bytes (264 at D 128,
+// int8 pools (INT8): a position-head costs 2 x (D + 4) bytes (264 at D 128,
 // against 512 in bf16), so the bound halves. int8 values are exact in
 // bf16 and the scales factor out of both products, so the tensor cores
 // still take bf16:
@@ -124,6 +125,31 @@
 //   once, ~2^-9, was 2-9 % faster and ~3x further from the float32
 //   recipe on an H100). Ring: 3 stages at D 128, 4 at D 64; with Q and
 //   the converted tile two blocks still fit an SM.
+// float32 pools (F32: a bf16 q over GPT's float32 pools): the TPU kernel
+// computes this mode in float32 (dot_general of the bf16 q against the f32
+// K promotes to f32; p.astype(v.dtype) keeps P float32 against the f32 V;
+// only the output is rounded). A bf16 q is exact in bf16, K, V and P are
+// not, so the tensor cores take each as two bf16 halves, x = hi + lo with
+// hi = bf16(x), lo = bf16(x - hi) (~2^-16 relative):
+// - each page's K and V land by TMA as float32 rows (a FLOAT32 map, no
+//   swizzle: D x 4 bytes a row, one box a page, as int8's; a swizzled map
+//   caps a box at 32 floats, so a page would take D / 32 boxes each, and
+//   the conversion reads the rows linearly without bank conflicts anyway);
+// - the consumer warpgroup rewrites each 8-position group of K and V in
+//   place: its 8 float32 rows (8 x D x 4 bytes) become the bf16 hi atoms'
+//   8 rows, then the lo atoms' (the same bytes), swizzled as TMA puts a
+//   bf16 tile. So a group is read and written by one warp (a warp-local
+//   exchange, no block barrier), and hi and lo are wgmma operands whose
+//   8-row groups lie 8 x D x 4 bytes apart (the descriptors' SBO);
+// - S = Q K_hi^T + Q K_lo^T (two passes into one accumulator); P is split
+//   as int8's P_SPLIT splits it, and O += P_hi V_hi + P_lo V_hi + P_hi V_lo
+//   (V through the transpose bit); the dropped P_lo V_lo is ~2^-16;
+// - a stage is freed after its P V, as bf16's. Ring: 2 stages at D 64 (a
+//   stage is 32 KB: Q, 2 stages and the slot tables fill half an SM, so
+//   two blocks an SM, the bf16 instance's 64 KB ring; a third stage is
+//   704 bytes past the budget), 3 at D 128 with one block an SM (a stage
+//   is 64 KB); the persistent grid and the wrapper's split records follow
+//   Cfg::BLOCKS.
 #pragma once
 
 #include <algorithm>
@@ -145,7 +171,6 @@ using fa::NEG_INF;
 constexpr int BN = 64;            // positions of a stage
 constexpr int MQ = 64;            // query vectors of a tile
 constexpr int THREADS = 160;      // consumer warpgroup + producer warp
-constexpr int BLOCKS_PER_SM = 2;
 constexpr int MAX_SLOTS = 512;    // slots a call (the shared slot tables)
 constexpr int ATOM_BYTES = BN * 64 * 2;   // 64 positions x 64 columns
 constexpr int MAX_TREE = 32;      // tree-mode window rows (32 mask bits)
@@ -153,31 +178,46 @@ constexpr int MAX_TREE = 32;      // tree-mode window rows (32 mask bits)
 // or of P rounded to bf16 once (false)
 constexpr bool P_SPLIT = true;
 
+// the pool kinds: bf16 pages, int8 pages with float32 scales, float32
+// pages (a bf16 q over float32 pools)
+enum Pool { BF16 = 0, INT8 = 1, F32 = 2 };
+
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// D: the head dim; Q8: int8 pools
-template <int D, bool Q8>
+// D: the head dim; POOL: the pool kind
+template <int D, int POOL>
 struct Cfg {
   static constexpr int NA = D / 64;                      // column atoms
   static constexpr int Q_BYTES = NA * ATOM_BYTES;         // 64 vectors
-  static constexpr int KV8_BYTES = BN * D;        // a stage's int8 K (V)
-  // bf16: K then V atoms; int8: K then V int8 rows, then K's 64 scales
-  // and V's
+  static constexpr int ES = POOL == INT8 ? 1 : POOL == F32 ? 4 : 2;
+  static constexpr int KV_BYTES = BN * D * ES;   // a stage's K (V) rows
+  // bf16: K then V atoms; int8 / f32: K then V rows as they lie (int8:
+  // then K's 64 scales and V's)
   static constexpr int STAGE_BYTES =
-      Q8 ? 2 * KV8_BYTES + 2 * BN * 4 : 2 * NA * ATOM_BYTES;
-  static constexpr uint32_t TX_BYTES = Q8 ? 2 * KV8_BYTES : STAGE_BYTES;
+      2 * KV_BYTES + (POOL == INT8 ? 2 * BN * 4 : 0);
+  static constexpr uint32_t TX_BYTES = 2 * KV_BYTES;
   // int8: the converted bf16 K and V atoms and the stage's scales
-  static constexpr int CONV_BYTES = Q8 ? 2 * NA * ATOM_BYTES + 2 * BN * 4 : 0;
-  static constexpr int STAGES = Q8 ? (D == 128 ? 3 : 4)
-                                   : 65536 / STAGE_BYTES;   // 2 at D 128
+  static constexpr int CONV_BYTES =
+      POOL == INT8 ? 2 * NA * ATOM_BYTES + 2 * BN * 4 : 0;
+  // the operand tiles of K and V: from one 64-column atom to the next,
+  // from 8 positions to the next 8 (the descriptors' SBO), from K's tile
+  // to V's, and (f32) from a hi atom to its lo atom
+  static constexpr int ATOM_STEP = POOL == F32 ? 1024 : ATOM_BYTES;
+  static constexpr int GROUP = POOL == F32 ? 8 * D * 4 : 1024;
+  static constexpr int V_TILE = POOL == INT8 ? NA * ATOM_BYTES : KV_BYTES;
+  static constexpr int LO = NA * 1024;
+  static constexpr int BLOCKS = POOL == F32 && D == 128 ? 1 : 2;   // an SM
+  static constexpr int STAGES =
+      POOL == INT8  ? (D == 128 ? 3 : 4)
+      : POOL == F32 ? (D == 128 ? 3 : 2)
+                    : 65536 / STAGE_BYTES;   // 2 at D 128
   static constexpr size_t SMEM = 1024 + Q_BYTES + CONV_BYTES +
                                  (size_t)STAGES * STAGE_BYTES +
                                  2 * STAGES * sizeof(uint64_t) +
                                  sizeof(int) *
                                      (4 * MAX_SLOTS + 4 + 2 * MQ + MAX_TREE);
   static_assert(STAGES >= 2, "a ring of two stages at least");
-  static_assert(BLOCKS_PER_SM * (SMEM + 1024) <= 233472,
-                "two blocks an SM");
+  static_assert(BLOCKS * (SMEM + 1024) <= 233472, "BLOCKS blocks an SM");
 };
 
 struct Params {
@@ -308,14 +348,70 @@ __device__ __forceinline__ void convert_stage(const unsigned char* st,
       reinterpret_cast<const float*>(st + 2 * BN * D)[tid];
 }
 
+// x = hi + lo as two bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = fa::pack_bf16(a, b);
+  lo = fa::pack_bf16(a - __uint_as_float(hi << 16),
+                     b - __uint_as_float(hi & 0xffff0000u));
+}
+
+// float32 pools: a stage's 16 groups of 8 positions (K's 8, then V's; 8
+// float32 rows of D, as TMA put them) rewritten in place as the bf16 hi
+// atoms' 8 rows, then the lo atoms' (swizzled as TMA puts a bf16 tile).
+// Warp w takes groups w, w + 4, ..: its lanes read all of a group's
+// floats, coalesced, before any of them writes (a __syncwarp), 8 float4
+// a lane at a time (16 a lane, 64 registers, made the D-64 tree instance
+// spill).
+template <int D>
+__device__ __forceinline__ void convert_f32_stage(unsigned char* st,
+                                                  int warp, int lane) {
+  constexpr int NA = D / 64, F4 = D / 4;    // float4s of a row
+  constexpr int PER = 8 * F4 / 32;          // float4s of a group a lane
+  constexpr int ROUND = 128 / D;            // groups a round
+  constexpr int GB = 8 * D * 4;             // a group's bytes
+#pragma unroll
+  for (int r0 = 0; r0 < 4; r0 += ROUND) {
+    uint32_t hi[ROUND][PER][2], lo[ROUND][PER][2];
+#pragma unroll
+    for (int gi = 0; gi < ROUND; ++gi) {
+      const float4* src = reinterpret_cast<const float4*>(
+          st + (warp + 4 * (r0 + gi)) * GB);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float4 x = src[lane + 32 * i];
+        split_bf16(x.x, x.y, hi[gi][i][0], lo[gi][i][0]);
+        split_bf16(x.z, x.w, hi[gi][i][1], lo[gi][i][1]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int gi = 0; gi < ROUND; ++gi) {
+      unsigned char* g = st + (warp + 4 * (r0 + gi)) * GB;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        // float4 f of row r: columns 4 f .. 4 f + 3, half of 16-byte
+        // chunk (f % 16) / 2 of atom f / 16, at its chunk XOR the row
+        const int j = lane + 32 * i, r = j / F4, f = j % F4;
+        unsigned char* at = g + (f / 16) * 1024 + r * 128 +
+                            ((((f % 16) / 2) ^ r) * 16) + (f % 2) * 8;
+        *reinterpret_cast<uint2*>(at) =
+            make_uint2(hi[gi][i][0], hi[gi][i][1]);
+        *reinterpret_cast<uint2*>(at + NA * 1024) =
+            make_uint2(lo[gi][i][0], lo[gi][i][1]);
+      }
+    }
+  }
+}
+
 // TREE: the tree mode's instance (p.tree rows of a tree slot masked)
-template <int D, bool Q8, bool TREE>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+template <int D, int POOL, bool TREE>
+__global__ void __launch_bounds__(THREADS, Cfg<D, POOL>::BLOCKS)
     paged_attention_kernel(const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const Params p) {
   using namespace sm90;
-  using C = Cfg<D, Q8>;
+  using C = Cfg<D, POOL>;
   constexpr int NA = C::NA, STAGES = C::STAGES;
   static_assert(2 * BN == 128, "a consumer thread a scale");
   extern __shared__ unsigned char pa_raw[];
@@ -343,7 +439,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       // int8: + a cp.async arrival of each producer lane
-      mbar_init(full + s, Q8 ? 33 : 1);
+      mbar_init(full + s, POOL == INT8 ? 33 : 1);
       mbar_init(empty + s, 4);   // lane 0 of each consumer warp
     }
     fence_barrier_init();
@@ -431,10 +527,10 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         const int j = (w.lo + st * BN) / p.BS + lane;
         const int page = lane < per && j < live ? trow[j] : p.NB;
         unsigned char* stage = ring + slot * C::STAGE_BYTES;
-        if constexpr (Q8) {
+        if constexpr (POOL == INT8) {
           // the scales of the stage's positions lane and lane + 32, K's
           // and V's (zeros on a page past the item's last position)
-          float* sc = reinterpret_cast<float*>(stage + 2 * C::KV8_BYTES);
+          float* sc = reinterpret_cast<float*>(stage + 2 * C::KV_BYTES);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int c = lane + 32 * h;
@@ -450,10 +546,10 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         if (lane == 0) mbar_expect_tx(full + slot, C::TX_BYTES);
         __syncwarp();
         if (lane < per) {
-          if constexpr (Q8) {   // a page's D-byte rows, K's and V's
-            tma_load_4d(stage + lane * p.BS * D, &tk, full + slot, 0, w.g, 0,
-                        page);
-            tma_load_4d(stage + C::KV8_BYTES + lane * p.BS * D, &tv,
+          if constexpr (POOL != BF16) {   // a page's rows, K's and V's
+            tma_load_4d(stage + lane * p.BS * D * C::ES, &tk, full + slot, 0,
+                        w.g, 0, page);
+            tma_load_4d(stage + C::KV_BYTES + lane * p.BS * D * C::ES, &tv,
                         full + slot, 0, w.g, 0, page);
           } else {
             unsigned char* kd = stage + lane * p.BS * 128;
@@ -522,29 +618,41 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
       float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
       for (int st = 0; st < w.nst; ++st, ++it) {
         const int slot = it % STAGES;
-        const unsigned char* ks = Q8 ? conv : ring + slot * C::STAGE_BYTES;
-        const unsigned char* vs = ks + NA * ATOM_BYTES;
+        unsigned char* stage = ring + slot * C::STAGE_BYTES;
+        const unsigned char* ks = POOL == INT8 ? conv : stage;
+        const unsigned char* vs = ks + C::V_TILE;
         mbar_wait(full + slot, (it / STAGES) & 1);
-        if constexpr (Q8) {
+        if constexpr (POOL == F32) {
+          // the stage's floats into its hi / lo tiles, published to the
+          // tensor cores
+          convert_f32_stage<D>(stage, warp, lane);
+          fence_proxy_async();
+          bar_sync(1, 128);
+        }
+        if constexpr (POOL == INT8) {
           // once the last stage's products are done with the tile: the
           // stage converted into it, the stage freed, the tile published
           // to the tensor cores
           bar_sync(1, 128);
-          convert_stage<D>(ring + slot * C::STAGE_BYTES, conv, tid);
+          convert_stage<D>(stage, conv, tid);
           warp_arrive(empty + slot);
           fence_proxy_async();
           bar_sync(1, 128);
         }
         float sc[BN / 2];
         wgmma_fence();
+        // S = Q K^T; f32: Q K_hi^T + Q K_lo^T
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss(sc,
-                   desc_sw128(qs + (kk / 4) * ATOM_BYTES + (kk % 4) * 32, 0,
-                              1024),
-                   desc_sw128(ks + (kk / 4) * ATOM_BYTES + (kk % 4) * 32, 0,
-                              1024),
-                   kk > 0);
+        for (int h = 0; h < (POOL == F32 ? 2 : 1); ++h)
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss(sc,
+                     desc_sw128(qs + (kk / 4) * ATOM_BYTES + (kk % 4) * 32, 0,
+                                1024),
+                     desc_sw128(ks + h * C::LO + (kk / 4) * C::ATOM_STEP +
+                                    (kk % 4) * 32,
+                                0, C::GROUP),
+                     h > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -555,7 +663,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         float kmul[BN / 8][2];
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
-          if constexpr (Q8) {
+          if constexpr (POOL == INT8) {
             const float2 k2 =
                 *reinterpret_cast<const float2*>(csc + 8 * j + 2 * tig);
             kmul[j][0] = k2.x * p.scale_log2;
@@ -621,7 +729,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         for (int j = 0; j < D / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
-        if constexpr (Q8) {   // P' = P x V's scale of the column
+        if constexpr (POOL == INT8) {   // P' = P x V's scale of the column
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
             const float2 v2 =
@@ -635,8 +743,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         }
         uint32_t pa[BN / 16][4];   // P as bf16 A fragments
         fa::pack_a(pa, sc);
-        constexpr bool SPLIT = Q8 && P_SPLIT;
-        uint32_t pl[SPLIT ? BN / 16 : 1][4];   // int8: P' - bf16(P')
+        constexpr bool SPLIT = POOL == F32 || (POOL == INT8 && P_SPLIT);
+        uint32_t pl[SPLIT ? BN / 16 : 1][4];   // P' - bf16(P')
         if constexpr (SPLIT) {
 #pragma unroll
           for (int i = 0; i < BN / 2; ++i)
@@ -646,16 +754,20 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {
+          const unsigned char* v16 = vs + kk * 2 * C::GROUP;   // 16 rows
           wgmma_rs_tb(acc, pa[kk],
-                      desc_sw128(vs + kk * 16 * 128, ATOM_BYTES, 1024));
+                      desc_sw128(v16, C::ATOM_STEP, C::GROUP));
           if constexpr (SPLIT)
             wgmma_rs_tb(acc, pl[kk],
-                        desc_sw128(vs + kk * 16 * 128, ATOM_BYTES, 1024));
+                        desc_sw128(v16, C::ATOM_STEP, C::GROUP));
+          if constexpr (POOL == F32)   // + P_hi V_lo
+            wgmma_rs_tb(acc, pa[kk],
+                        desc_sw128(v16 + C::LO, C::ATOM_STEP, C::GROUP));
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
-        if constexpr (!Q8) warp_arrive(empty + slot);
+        if constexpr (POOL != INT8) warp_arrive(empty + slot);
       }
       float lt[2];
 #pragma unroll
@@ -765,11 +877,12 @@ inline int sm_count(int& dev) {
 // the 4-D map of a pool [NB, BS, Hkv, D] (dims D, Hkv, BS, NB), through a
 // direct-mapped cache keyed by address, shape and element type (a model
 // has a pool pair a layer, and the pools stay put from tick to tick; an
-// int8 pool may take the address a bf16 pool of its shape once had).
-// bf16: box 64 columns x 1 head x BS rows x 1 page, 128-byte swizzle;
-// int8 (Q8): box D columns (D bytes) x 1 x BS x 1, rows as they lie.
+// int8 or float32 pool may take the address another pool of its shape
+// once had). es, the bytes an element: 2 (bf16): box 64 columns x 1 head
+// x BS rows x 1 page, 128-byte swizzle; 1 (int8) or 4 (float32): box D
+// columns x 1 x BS x 1, rows as they lie.
 inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
-                            int BS, int Hkv, int D, bool q8) {
+                            int BS, int Hkv, int D, int es) {
   struct Entry {
     const void* base;
     int NB, BS, Hkv, D, es;
@@ -777,7 +890,6 @@ inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
   };
   static Entry cache[1024];
   static std::mutex lock;
-  const int es = q8 ? 1 : 2;   // bytes an element
   const size_t slot = (reinterpret_cast<uintptr_t>(pool) >> 8) % 1024;
   std::lock_guard<std::mutex> hold(lock);
   Entry& e = cache[slot];
@@ -788,13 +900,15 @@ inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
     const cuuint64_t strides[3] = {(cuuint64_t)D * es,
                                    (cuuint64_t)Hkv * D * es,
                                    (cuuint64_t)BS * Hkv * D * es};
-    const cuuint32_t box[4] = {q8 ? (cuuint32_t)D : 64u, 1, (cuuint32_t)BS,
-                               1};
+    const cuuint32_t box[4] = {es == 2 ? 64u : (cuuint32_t)D, 1,
+                               (cuuint32_t)BS, 1};
     const cudaError_t err =
-        q8 ? sm90::tmap_encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                               CU_TENSOR_MAP_SWIZZLE_NONE, pool, 4, dims,
-                               strides, box)
-           : sm90::tmap_bf16(&e.map, pool, 4, dims, strides, box);
+        es == 2 ? sm90::tmap_bf16(&e.map, pool, 4, dims, strides, box)
+                : sm90::tmap_encode(&e.map,
+                                    es == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE, pool, 4, dims,
+                                    strides, box);
     if (err != cudaSuccess) {
       e.base = nullptr;
       return err;
@@ -810,19 +924,20 @@ inline cudaError_t pool_map(CUtensorMap* map, const void* pool, int NB,
   return cudaSuccess;
 }
 
-template <int D, bool Q8, bool TREE>
+template <int D, int POOL, bool TREE>
 cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
                      cudaStream_t stream) {
-  using C = Cfg<D, Q8>;
+  using C = Cfg<D, POOL>;
   CUtensorMap tk, tv;
-  cudaError_t err = pool_map(&tk, kp, p.NB, p.BS, p.Hkv, D, Q8);
-  if (err == cudaSuccess) err = pool_map(&tv, vp, p.NB, p.BS, p.Hkv, D, Q8);
+  cudaError_t err = pool_map(&tk, kp, p.NB, p.BS, p.Hkv, D, C::ES);
+  if (err == cudaSuccess)
+    err = pool_map(&tv, vp, p.NB, p.BS, p.Hkv, D, C::ES);
   if (err != cudaSuccess) return err;
   int dev;
   const int sms = sm_count(dev);
   static unsigned long long ready = 0;   // the attribute set, a bit a device
   if (dev >= 64 || !(ready >> dev & 1)) {
-    err = cudaFuncSetAttribute(paged_attention_kernel<D, Q8, TREE>,
+    err = cudaFuncSetAttribute(paged_attention_kernel<D, POOL, TREE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
     if (err != cudaSuccess) return err;
@@ -833,24 +948,46 @@ cudaError_t launch_d(const void* kp, const void* vp, const Params& p,
   const long most =
       (long)p.S * p.Hkv *
       std::max(cdiv(p.MB * p.BS, BN), cdiv(p.w_max, p.TQ));
-  const int grid = (int)std::min<long>(most, (long)BLOCKS_PER_SM * sms);
-  paged_attention_kernel<D, Q8, TREE>
+  const int grid = (int)std::min<long>(most, (long)C::BLOCKS * sms);
+  paged_attention_kernel<D, POOL, TREE>
       <<<grid, THREADS, C::SMEM, stream>>>(tk, tv, p);
   return cudaGetLastError();
 }
 
-// the body for bf16 q / out over bf16 pools, or int8 pools (kp / vp int8
-// data, ks / vs their float32 scales [NB, BS, Hkv]; both null for bf16):
-// checks what it takes and launches (w_max rows a slot at most; part
-// holds part_items x NV x (D + 2) floats, NV = min(TQ, w_max) x rep:
-// splits are taken only while every item has a record, and a wave of the
-// grid, 2 x SMs blocks, needs no more). tree_bits (host, tree_t <= 32
-// words, or null): the tree mode, row t < tree_t of a tree slot masked by
-// tree_bits[t]; tree_t 0 means w_max (K2v: every row of a window), and
-// the tree slots are those of tree_slots[s] > 0 (device [S]; null: every
-// slot). K2v's windows (qlens null) must fit the tree.
+template <int POOL>
+cudaError_t launch_pool(const void* kp, const void* vp, const Params& p,
+                        int D, cudaStream_t stream) {
+  return p.tree ? (D == 64 ? launch_d<64, POOL, true>(kp, vp, p, stream)
+                           : launch_d<128, POOL, true>(kp, vp, p, stream))
+                : (D == 64 ? launch_d<64, POOL, false>(kp, vp, p, stream)
+                           : launch_d<128, POOL, false>(kp, vp, p, stream));
+}
+
+// the blocks an SM of the instance for pool kind `pool` at head dim D
+// (its grid is a wave of them), or 0 for a kind or D it does not take
+inline int blocks_per_sm(int pool, int D) {
+  if (D != 64 && D != 128) return 0;
+  switch (pool) {
+    case BF16: return D == 64 ? Cfg<64, BF16>::BLOCKS : Cfg<128, BF16>::BLOCKS;
+    case INT8: return D == 64 ? Cfg<64, INT8>::BLOCKS : Cfg<128, INT8>::BLOCKS;
+    case F32: return D == 64 ? Cfg<64, F32>::BLOCKS : Cfg<128, F32>::BLOCKS;
+  }
+  return 0;
+}
+
+// the body for bf16 q / out over bf16 pools, int8 pools (kp / vp int8
+// data, ks / vs their float32 scales [NB, BS, Hkv]; both null otherwise)
+// or, with f32, float32 pools: checks what it takes and launches (w_max
+// rows a slot at most; part holds part_items x NV x (D + 2) floats, NV =
+// min(TQ, w_max) x rep: splits are taken only while every item has a
+// record, and a wave of the grid, blocks_per_sm x SMs blocks, needs no
+// more). tree_bits (host, tree_t <= 32 words, or null): the tree mode,
+// row t < tree_t of a tree slot masked by tree_bits[t]; tree_t 0 means
+// w_max (K2v: every row of a window), and the tree slots are those of
+// tree_slots[s] > 0 (device [S]; null: every slot). K2v's windows (qlens
+// null) must fit the tree.
 inline cudaError_t launch(const void* q, const void* kp, const void* vp,
-                          const float* ks, const float* vs,
+                          const float* ks, const float* vs, bool f32,
                           const int* tables, const int* ctx,
                           const int* qlens, const int* starts, void* out,
                           float* part, int* counters, int S, int H, int Hkv,
@@ -867,7 +1004,8 @@ inline cudaError_t launch(const void* q, const void* kp, const void* vp,
       H / Hkv > MQ || (BS != 8 && BS != 16 && BS != 32) || MB < 1 ||
       NB < 1 || w_max < 1 || part_items < 0 ||
       (part_items > 0 && (part == nullptr || counters == nullptr)) ||
-      (D != 64 && D != 128) || (ks == nullptr) != (vs == nullptr))
+      (D != 64 && D != 128) || (ks == nullptr) != (vs == nullptr) ||
+      (f32 && ks != nullptr))
     return cudaErrorInvalidValue;
   Params p;
   p.q = (const bf16*)q;
@@ -896,15 +1034,9 @@ inline cudaError_t launch(const void* q, const void* kp, const void* vp,
   for (int t = 0; t < MAX_TREE; ++t)
     p.tree_bits[t] = t < p.tree ? tree_bits[t] : 0u;
   p.tslots = tree_bits != nullptr ? tree_slots : nullptr;
-  if (ks != nullptr)
-    return p.tree ? (D == 64 ? launch_d<64, true, true>(kp, vp, p, stream)
-                             : launch_d<128, true, true>(kp, vp, p, stream))
-                  : (D == 64 ? launch_d<64, true, false>(kp, vp, p, stream)
-                             : launch_d<128, true, false>(kp, vp, p, stream));
-  return p.tree ? (D == 64 ? launch_d<64, false, true>(kp, vp, p, stream)
-                           : launch_d<128, false, true>(kp, vp, p, stream))
-                : (D == 64 ? launch_d<64, false, false>(kp, vp, p, stream)
-                           : launch_d<128, false, false>(kp, vp, p, stream));
+  if (f32) return launch_pool<F32>(kp, vp, p, D, stream);
+  if (ks != nullptr) return launch_pool<INT8>(kp, vp, p, D, stream);
+  return launch_pool<BF16>(kp, vp, p, D, stream);
 }
 
 }  // namespace

@@ -10,11 +10,11 @@
 // (the `quantized` mode: int8 K/V pages and a float32 scale a position and
 // kv head).
 //
-// bfloat16 over bfloat16 or int8 pools runs the Hopper body of
-// paged_attention_sm90.cuh (K2r's, a window of T rows a slot: wgmma over a
-// TMA page ring, the split merge in the same launch); float32, and a
-// bfloat16 q over float32 pools (dtype code 2: GPT's pools stay float32
-// under a bfloat16 model), run the CUDA-core body below.
+// A bfloat16 q runs the Hopper body of paged_attention_sm90.cuh (K2r's, a
+// window of T rows a slot: wgmma over a TMA page ring, the split merge in
+// the same launch) over bfloat16, int8 or float32 pools (dtype code 2:
+// GPT's pools stay float32 under a bfloat16 model); a float32 q runs the
+// CUDA-core body below.
 //
 // What bounds it on the H100: bytes. Each live K/V block of a slot is
 // read once per kv head; per position a query vector does 4 * D flops,
@@ -52,18 +52,15 @@
 // writes 0. int8 pools: each 4 values are loaded with their row's scale
 // and staged as int8 -> float32 times the scale (the reference's
 // dequantization), so everything after is the float32 recipe, P unrounded
-// (the TPU kernel's float32 dequantized V). A bfloat16 q over float32
-// pools (dtype 2) is the TPU kernel's recipe on those inputs: q widened
-// to float32 as it is staged, float32 through both products, the output
-// rounded to bfloat16.
+// (the TPU kernel's float32 dequantized V).
 //
 // Shapes: q and out [S, T, H, D]; pools [NB, BS, Hkv, D]; tables
 // [S, MB], context_lens [S] int32; H = rep * Hkv, T <= 32 (a tree's 31
 // drafts and its root), float32 with T * rep <= 64; D in {64, 128}; BS in
 // {8, 16, 32}; float32 or bfloat16 (bfloat16: S <= 512, rep <= 64, a
-// window of more than 64 / rep rows in several tiles; over float32 pools
-// as float32); pools of q's dtype, float32 pools under a bfloat16 q, or
-// int8 with float32 scales
+// window of more than 64 / rep rows in several tiles, over any pools);
+// pools of q's dtype, float32 pools under a bfloat16 q, or int8 with
+// float32 scales
 // [NB, BS, Hkv] (bfloat16 q: the Hopper body's int8 mode). Scratch (float32, from the caller): float32
 // n_split * S * T * H * (D + 2), n_split <= 16; bfloat16 as K2r's.
 #include "common.cuh"
@@ -118,8 +115,8 @@ __device__ __forceinline__ void attend_group(
     int rep, int n_split, float scale, const uint32_t* anc_bits) {
   constexpr int DL = D / 32;
   constexpr int DP = D + 4;   // K/V row stride: 16-byte rows, no conflicts
-  constexpr int QVEC = 16 / sizeof(T);  // q: 16-byte loads of T
-  constexpr int VEC = 4;                // K / V: 4 elements a chunk (Kv4)
+  constexpr int VEC = 16 / sizeof(T);
+  static_assert(VEC == 4, "the float32 body: 4 elements a chunk (Kv4)");
   const int s = blockIdx.x, g = blockIdx.y, split = blockIdx.z;
   const int lens = ctx_lens[s];
   const int nblk = live_blocks(lens, TW, BS, MB);
@@ -137,8 +134,8 @@ __device__ __forceinline__ void attend_group(
   float* q_s = v_s + MAX_BS * DP;    // [nq][D]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int i = tid; i < nq * (D / QVEC); i += NW * 32) {
-    const int qv = i / (D / QVEC), dd = (i % (D / QVEC)) * QVEC;
+  for (int i = tid; i < nq * (D / VEC); i += NW * 32) {
+    const int qv = i / (D / VEC), dd = (i % (D / VEC)) * VEC;
     const size_t v = v0 + (size_t)(qv / rep) * H + qv % rep;
     load_vec<T>(q + v * D + dd, q_s + qv * D + dd);
   }
@@ -401,22 +398,16 @@ int run(bool decode, const void* q, const void* kp, const void* vp,
   float* pp = (float*)part;
   const float* ksf = (const float*)ks;
   const float* vsf = (const float*)vs;
-  if (dtype == 1)   // the ragged body, TW rows a slot
-    return (int)pa90::launch(q, kp, vp, ksf, vsf, tb, cl, nullptr, nullptr,
-                             out, pp, (int*)counters, S, H, Hkv, D, BS, MB,
-                             NB, TW, n_split, scale, st, tree_bits);
-  if ((dtype != 0 && dtype != 2) || TW * (H / Hkv) > MAX_Q || BS < 1 ||
-      BS > MAX_BS ||
+  if (dtype == 1 || dtype == 2)   // the ragged body, TW rows a slot
+    return (int)pa90::launch(q, kp, vp, ksf, vsf, dtype == 2, tb, cl,
+                             nullptr, nullptr, out, pp, (int*)counters, S, H,
+                             Hkv, D, BS, MB, NB, TW, n_split, scale, st,
+                             tree_bits);
+  if (dtype != 0 || TW * (H / Hkv) > MAX_Q || BS < 1 || BS > MAX_BS ||
       MAX_BS % BS || MB < 1 ||
       n_split < 1 || n_split > MAX_SPLITS ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 2) {   // bfloat16 q and out over float32 pools
-    if (ks != nullptr) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_d<__nv_bfloat16, float>(
-        decode, q, kp, vp, nullptr, nullptr, tb, cl, out, pp, S, TW, H, Hkv,
-        D, BS, MB, n_split, scale, st, tree_bits);
-  }
   if (ks != nullptr)
     return (int)dispatch_d<float, int8_t>(decode, q, kp, vp, ksf, vsf, tb,
                                           cl, out, pp, S, TW, H, Hkv, D, BS,
@@ -431,11 +422,10 @@ int run(bool decode, const void* q, const void* kp, const void* vp,
 // K2d: q and out [S, 1, H, D] (the decode step's [S, H, D]); dtype 0
 // float32, 1 bfloat16, 2 bfloat16 q and out over float32 pools; kp / vp
 // pools of q's dtype (ks, vs null; float32 for dtype 2) or int8 pools with
-// their float32 scales ks / vs [NB, BS, Hkv]. float32 and dtype 2: part
-// is scratch of n_split * S *
-// H * (D + 2) floats (unused and may be null when n_split == 1),
-// counters unused; bfloat16: as K2r's (ragged_paged_attention.cu) with
-// w_max = 1.
+// their float32 scales ks / vs [NB, BS, Hkv]. float32: part is scratch of
+// n_split * S * H * (D + 2) floats (unused and may be null when n_split
+// == 1), counters unused; bfloat16 and dtype 2: as K2r's
+// (ragged_paged_attention.cu) with w_max = 1.
 extern "C" int ptt_paged_decode_attention(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* tables, const void* ctx, void* out,
@@ -448,7 +438,7 @@ extern "C" int ptt_paged_decode_attention(
 
 // K2v: q and out [S, T, H, D], 1 <= T <= 32; pools as K2d's. float32:
 // part is scratch of n_split * S * T * H * (D + 2) floats (unused and may
-// be null when n_split == 1; dtype 2 too); bfloat16: as K2r's with w_max
+// be null when n_split == 1); bfloat16 and dtype 2: as K2r's with w_max
 // = T.
 extern "C" int ptt_paged_verify_attention(
     const void* q, const void* kp, const void* vp, const void* ks,

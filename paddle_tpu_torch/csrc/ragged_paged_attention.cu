@@ -14,11 +14,11 @@
 // linear bound. The mask is a subset of the linear bound, so the blocks a
 // tile reads and its splits are the linear ones.
 //
-// bfloat16 over bfloat16 or int8 pools runs the Hopper body of
-// paged_attention_sm90.cuh (wgmma over a TMA page ring, the split merge in
-// the same launch); float32, and a bfloat16 q over float32 pools (dtype
-// code 2: GPT's pools stay float32 under a bfloat16 model), run the
-// CUDA-core body below.
+// A bfloat16 q runs the Hopper body of paged_attention_sm90.cuh (wgmma
+// over a TMA page ring, the split merge in the same launch) over bfloat16,
+// int8 or float32 pools (dtype code 2: GPT's pools stay float32 under a
+// bfloat16 model; float32 pages as bf16 hi + lo halves); a float32 q runs
+// the CUDA-core body below.
 //
 // What bounds it on the H100: bytes. Each live K/V block of a slot is
 // read once per kv head, and per read block a row does 4 * D flops per
@@ -51,23 +51,17 @@
 // same online-softmax rescaling (one warp per query vector, a lane per
 // split's (m, l), so no warp walks vectors or splits one by one).
 //
-// The bfloat16-q-over-float32-pool mode is the TPU kernel's on such
-// inputs: q is read as bfloat16 and widened to float32 in shared memory,
-// the scores, the online softmax, P (float32, as v.dtype) and the P @ V
-// product against the float32 V all stay float32, and only the output is
-// rounded to bfloat16.
-//
 // Shapes: q and out [R, H, D]; pools [NB, BS, Hkv, D]; tables [S, MB],
 // context_lens / q_lens / row_starts [S] int32; H = rep * Hkv with
 // rep <= 64; D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16
 // (bfloat16: S <= 512); pools of q's dtype, float32 pools under a
-// bfloat16 q (dtype 2), or int8 with scales
+// bfloat16 q (dtype 2, the Hopper body), or int8 with scales
 // [NB, BS, Hkv] (float32 q: this body reads each 4 int8 values with their
 // scale and stages them in float32, the reference's recipe; bfloat16 q:
 // the Hopper body's int8 mode). Rows outside every slot's [row_starts,
 // row_starts + q_lens) are not written. Scratch (float32, from the
 // caller): float32 n_split * R * H * (D + 2), n_split <= 32; bfloat16
-// below; dtype 2 as float32.
+// (and dtype 2) below.
 #include "common.cuh"
 #include "paged_attention_sm90.cuh"
 
@@ -105,8 +99,8 @@ __global__ void __launch_bounds__(NW * 32)
                   const __grid_constant__ TreeBits tree) {
   constexpr int DL = D / 32;
   constexpr int DP = D + 1;
-  constexpr int QVEC = 16 / sizeof(T);  // q: 16-byte loads of T
-  constexpr int VEC = 4;                // K / V: 4 elements a chunk (Kv4)
+  constexpr int VEC = 16 / sizeof(T);
+  static_assert(VEC == 4, "the float32 body: 4 elements a chunk (Kv4)");
   const int s = blockIdx.x, g = blockIdx.y;
   const int tile = blockIdx.z / n_split, split = blockIdx.z % n_split;
   const int ql = qlens[s];
@@ -131,8 +125,8 @@ __global__ void __launch_bounds__(NW * 32)
   float* v_s = k_s + MAX_BS * DP;    // [MAX_BS][D + 1]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int i = tid; i < nq * (D / QVEC); i += NW * 32) {
-    const int qv = i / (D / QVEC), dd = (i % (D / QVEC)) * QVEC;
+  for (int i = tid; i < nq * (D / VEC); i += NW * 32) {
+    const int qv = i / (D / VEC), dd = (i % (D / VEC)) * VEC;
     load_vec<T>(q + qv_offset(row0, t0, qv, rep, g, H) * D + dd,
                 q_s + qv * D + dd);
   }
@@ -356,26 +350,19 @@ int run(const void* q, const void* kp, const void* vp, const void* ks,
   if ((ks == nullptr) != (vs == nullptr) ||
       (tree_bits != nullptr && (tree_t < 1 || tree_t > 32)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {   // dtype 2: over float32 pools
     if (R < 1 || qls == nullptr || rs == nullptr)
       return (int)cudaErrorInvalidValue;
-    return (int)pa90::launch(q, kp, vp, ksf, vsf, tb, cl, qls, rs, out, pp,
-                             (int*)counters, S, H, Hkv, D, BS, MB, NB, w_max,
-                             n_split, scale, st, tree_bits, tree_t,
-                             tree_slots);
+    return (int)pa90::launch(q, kp, vp, ksf, vsf, dtype == 2, tb, cl, qls,
+                             rs, out, pp, (int*)counters, S, H, Hkv, D, BS,
+                             MB, NB, w_max, n_split, scale, st, tree_bits,
+                             tree_t, tree_slots);
   }
-  if ((dtype != 0 && dtype != 2) || S < 1 || R < 1 || Hkv < 1 ||
-      H % Hkv != 0 ||
+  if (dtype != 0 || S < 1 || R < 1 || Hkv < 1 || H % Hkv != 0 ||
       H / Hkv > MAX_Q || BS < 1 || BS > MAX_BS || MAX_BS % BS || w_max < 1 ||
       n_split < 1 || n_split > MAX_SPLITS ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 2) {   // bfloat16 q and out over float32 pools
-    if (ks != nullptr) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_d<__nv_bfloat16, float>(
-        q, kp, vp, nullptr, nullptr, tb, cl, qls, rs, out, pp, R, S, H, Hkv,
-        D, BS, MB, w_max, n_split, scale, st, tree_bits, tree_t, tree_slots);
-  }
   if (ks != nullptr)
     return (int)dispatch_d<float, int8_t>(q, kp, vp, ksf, vsf, tb, cl, qls,
                                           rs, out, pp, R, S, H, Hkv, D, BS,
@@ -392,10 +379,10 @@ int run(const void* q, const void* kp, const void* vp, const void* ks,
 // dtype: 0 float32, 1 bfloat16, 2 bfloat16 q and out over float32 pools.
 // kp / vp: pools of q's dtype (ks, vs null; float32 for dtype 2), or int8
 // pools with their float32 scales ks / vs [NB, BS, Hkv] (dtype 0 or 1).
-// float32 and dtype 2: part is scratch of
-// n_split * R * H * (D + 2) floats (unused and may be null when n_split
-// == 1), counters unused. bfloat16: n_split is the split records part
-// holds, each NV * (D + 2) floats, NV = min(64 / rep, w_max) * rep (2 x
+// float32: part is scratch of n_split * R * H * (D + 2) floats (unused
+// and may be null when n_split == 1), counters unused. bfloat16 and dtype
+// 2: n_split is the split records part holds, each NV * (D + 2) floats,
+// NV = min(64 / rep, w_max) * rep (ptt_paged_attention_blocks_per_sm x
 // SMs records take every split the body makes; 0: none), counters S *
 // Hkv zeros, left zero.
 extern "C" int ptt_ragged_paged_attention(
@@ -427,4 +414,15 @@ extern "C" int ptt_ragged_paged_attention_tree(
   return run(q, kp, vp, ks, vs, tables, ctx, qlens, starts, out, part,
              counters, R, S, H, Hkv, D, BS, MB, NB, w_max, n_split, scale,
              dtype, stream, tree_bits, tree_t, (const int*)tree_slots);
+}
+
+// the Hopper body's blocks an SM (its grid is a wave of them) for dtype
+// code `dtype` (1 over bfloat16 pools, or int8 pools with int8 != 0; 2)
+// at head dim D; 0 where it takes no such call
+extern "C" int ptt_paged_attention_blocks_per_sm(int dtype, int int8,
+                                                 int D) {
+  if (dtype == 2) return int8 ? 0 : pa90::blocks_per_sm(pa90::F32, D);
+  if (dtype == 1)
+    return pa90::blocks_per_sm(int8 ? pa90::INT8 : pa90::BF16, D);
+  return 0;
 }

@@ -1,7 +1,8 @@
 """K2d and K2v — paged decode and speculative-verify attention: the CUDA
-kernels (``csrc/paged_decode_attention.cu``; bfloat16 runs K2r's Hopper
-body of ``csrc/paged_attention_sm90.cuh`` with a window of T rows a
-slot, its scratch kept as K2r's) and their plain PyTorch versions.
+kernels (``csrc/paged_decode_attention.cu``; a bfloat16 ``q`` runs K2r's
+Hopper body of ``csrc/paged_attention_sm90.cuh`` over any pools with a
+window of T rows a slot, its scratch kept as K2r's) and their plain
+PyTorch versions.
 
 Counterparts of ``pallas_paged_attention`` (K2d: one query token per
 slot, ``q [S, H, D]``) and ``pallas_paged_verify_attention`` (K2v: a
@@ -36,10 +37,12 @@ rounded); the kernels' launches are then counted as
 ``paged_decode_attention_int8`` / ``paged_verify_attention_int8``.
 
 A bfloat16 ``q`` over float32 pools (GPT's: the reference keeps its
-pools float32 whatever the model's dtype) runs the FMA body with the
-TPU kernel's recipe on those inputs: float32 scores, softmax and P (the
-kernel casts P to V's dtype, float32) into the product with the float32
-V, the output rounded to bfloat16; its launches are counted as
+pools float32 whatever the model's dtype) follows the TPU kernel's
+recipe on those inputs: float32 scores, softmax and P (the kernel casts
+P to V's dtype, float32) into the product with the float32 V, the output
+rounded to bfloat16; the Hopper body holds it with K, V and P split into
+bfloat16 hi + lo halves (K2r's module docstring). Its launches are
+counted as
 ``paged_decode_attention_f32pool`` / ``paged_verify_attention_f32pool``
 (``paged_verify_attention_tree_f32pool`` in the tree mode). The plain
 versions hold that recipe in this case (the products in the pool's
@@ -58,7 +61,8 @@ import torch
 from . import _build, launch_counts, no_backward
 from ..paged_cache import QuantKV, gather_dense
 from .ragged_paged_attention import (SM90_MAX_SLOTS, dtype_code,
-                                     pool_operands, sm_count, sm90_scratch,
+                                     pool_operands, sm_count,
+                                     sm90_blocks_per_sm, sm90_scratch,
                                      sm90_scratch_sizes, tree_ancestor_bits)
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
@@ -69,10 +73,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 # The shapes the kernels take. Both bodies: a window of at most MAX_T
 # tokens (a tree's 31 drafts + the root fill the 32 ancestor bits) and a
-# GQA group of at most MAX_Q query heads. float32, or a bfloat16 q over
-# float32 pools (the FMA body): one block holds a kv group's T * group <= MAX_Q query vectors. bfloat16
-# (the Hopper body): a window of more than MAX_Q // group rows takes
-# several 64-vector tiles, so it has no such product bound.
+# GQA group of at most MAX_Q query heads. float32 (the FMA body): one
+# block holds a kv group's T * group <= MAX_Q query vectors. A bfloat16 q
+# (the Hopper body, over any pools): a window of more than MAX_Q // group
+# rows takes several 64-vector tiles, so it has no such product bound.
 MAX_Q = 64
 MAX_T = 32
 # float32: the context's split over SMs
@@ -228,16 +232,15 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
         raise ValueError(f"{h} query heads over {hkv} kv heads: need a "
                          f"whole group of at most {MAX_Q}")
     code = dtype_code(q4, kd)[0]
-    if code != 1 and t * (h // hkv) > MAX_Q:
+    if code == 0 and t * (h // hkv) > MAX_Q:
         raise ValueError(f"{h // hkv} query heads a kv head at T {t}: the "
-                         "FMA body (float32, or a bfloat16 q over float32 "
-                         f"pools) takes T * group <= {MAX_Q}")
+                         f"float32 body takes T * group <= {MAX_Q}")
     if block_tables.dim() != 2 or block_tables.shape[0] != s \
             or tuple(context_lens.shape) != (s,):
         raise ValueError("block_tables must be [S, MB] and context_lens [S]")
     if q4.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
-    if code == 1 and s > SM90_MAX_SLOTS:
+    if code != 0 and s > SM90_MAX_SLOTS:
         raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
                          f"{SM90_MAX_SLOTS}")
     return kd, vd, ks, vs
@@ -274,9 +277,10 @@ def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     code, mode = dtype_code(q4, kd)
-    if code == 1:
+    if code != 0:
         n_split, floats, counters = sm90_scratch_sizes(
-            s, hkv, h // hkv, t, d, sm_count(q4.device))
+            s, hkv, h // hkv, t, d, sm_count(q4.device),
+            sm90_blocks_per_sm(code, d))
         part, cnt = sm90_scratch(q4.device, stream, floats, counters)
     else:
         n_split, cnt = _n_split(q4, block_tables, bs), None

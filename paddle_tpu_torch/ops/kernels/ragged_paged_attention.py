@@ -1,6 +1,7 @@
 """K2r — ragged paged attention: the CUDA kernel
-(``csrc/ragged_paged_attention.cu``; bfloat16 runs the Hopper body of
-``csrc/paged_attention_sm90.cuh``) and its plain PyTorch version.
+(``csrc/ragged_paged_attention.cu``; a bfloat16 ``q`` runs the Hopper
+body of ``csrc/paged_attention_sm90.cuh`` over any pools) and its plain
+PyTorch version.
 
 Counterpart of ``pallas_ragged_paged_attention`` /
 ``_xla_ragged_paged`` in ``paddle_tpu/ops/pallas/paged_attention.py``.
@@ -21,11 +22,14 @@ it reads them; its launches are then counted as
 (``_dequant_tile``): ``q`` in float32, each page int8 -> float32 times
 its scale, both products in float32 with P not rounded.
 
-A bfloat16 ``q`` over float32 pools runs the TPU kernel's recipe on
+A bfloat16 ``q`` over float32 pools follows the TPU kernel's recipe on
 those inputs: the scores ``q . k`` in float32 times the scale, the
 online softmax in float32, P kept float32 (the kernel casts it to V's
 dtype) into the product with the float32 V, and only the output rounded
-to bfloat16. Its launches are counted as
+to bfloat16. The Hopper body holds it on the tensor cores by splitting
+K, V and P into bfloat16 hi + lo halves (S = q K_hi + q K_lo, O = P_hi
+V_hi + P_lo V_hi + P_hi V_lo: ~2^-16 relative before the output's
+rounding). Its launches are counted as
 ``ragged_paged_attention_f32pool`` (``_tree_f32pool`` in the tree mode).
 The plain version holds that recipe too; the reference's XLA fallback
 (``_xla_ragged_paged``) differs from it, rounding P to ``q``'s dtype.
@@ -52,7 +56,8 @@ from . import _build, launch_counts, no_backward
 from ..paged_cache import QuantKV, kv_dequantize
 
 __all__ = ["ragged_paged_attention", "plain_ragged_paged_attention",
-           "sm90_scratch_sizes", "sm90_scratch", "sm_count",
+           "sm90_blocks_per_sm", "sm90_scratch_sizes", "sm90_scratch",
+           "sm_count",
            "pool_operands", "dtype_code", "tree_ancestor_bits"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,8 +65,9 @@ F32_POOL = 2    # the C entries' dtype code of a bfloat16 q over f32 pools
 _LIB = None
 SPLIT_POSITIONS = 256     # float32: context positions per split of a row
 MAX_SPLITS = 8
-# the bfloat16 body's (csrc/paged_attention_sm90.cuh): query vectors a
-# tile, blocks an SM, slots a call
+# the Hopper body's (csrc/paged_attention_sm90.cuh): query vectors a
+# tile, blocks an SM (its instances' Cfg::BLOCKS: one for float32 pools at
+# head_dim 128), slots a call
 SM90_TILE = 64
 SM90_BLOCKS_PER_SM = 2
 SM90_MAX_SLOTS = 512
@@ -167,15 +173,24 @@ def _pages(pool, ids):
     return pool[ids].float()
 
 
-def sm90_scratch_sizes(slots, kv_heads, rep, w_max, head_dim, sms):
-    """``(records, partial floats, counters)`` of the bfloat16 body for
+def sm90_blocks_per_sm(code, head_dim):
+    """Blocks an SM of the Hopper body's instance for dtype code ``code``
+    (1, or F32_POOL) at ``head_dim``: its grid is a wave of them. The
+    library's ``ptt_paged_attention_blocks_per_sm`` gives the compiled
+    value; a GPU test holds the two equal."""
+    return 1 if code == F32_POOL and head_dim == 128 else SM90_BLOCKS_PER_SM
+
+
+def sm90_scratch_sizes(slots, kv_heads, rep, w_max, head_dim, sms,
+                       blocks=SM90_BLOCKS_PER_SM):
+    """``(records, partial floats, counters)`` of the Hopper body for
     ``slots`` slots of at most ``w_max`` rows on a card of ``sms`` SMs:
     the body splits decode rows and windows only while every item fits
-    one wave of its grid (SM90_BLOCKS_PER_SM blocks an SM), each split
-    item's record holding (m, l, o) of a tile's ``min(SM90_TILE // rep,
-    w_max) * rep`` query vectors; one arrival counter a (slot, kv
-    head)."""
-    records = SM90_BLOCKS_PER_SM * sms
+    one wave of its grid (``blocks`` blocks an SM:
+    :func:`sm90_blocks_per_sm`), each split item's record holding (m, l,
+    o) of a tile's ``min(SM90_TILE // rep, w_max) * rep`` query vectors;
+    one arrival counter a (slot, kv head)."""
+    records = blocks * sms
     nv = min(SM90_TILE // rep, w_max) * rep
     return records, records * nv * (head_dim + 2), slots * kv_heads
 
@@ -185,7 +200,7 @@ def sm_count(device):
 
 
 def sm90_scratch(device, stream, floats, counters):
-    """The bfloat16 body's scratch of ``stream`` (a handle) on
+    """The Hopper body's scratch of ``stream`` (a handle) on
     ``device``, grown to ``floats`` partial floats and ``counters``
     arrival counters (zeros: every call leaves them zero). Calls on one
     stream run one after another, so they share it."""
@@ -263,9 +278,10 @@ def pool_operands(q, k_pool, v_pool):
 
 def dtype_code(q, kd):
     """The C entries' dtype code and the launch counter's suffix for ``q``
-    over pool data ``kd`` (:func:`pool_operands`): 0 float32, 1 bfloat16
-    (bfloat16 or int8 pools: the Hopper body), F32_POOL a bfloat16 q
-    over float32 pools (the FMA body, counted as ``*_f32pool``)."""
+    over pool data ``kd`` (:func:`pool_operands`): 0 float32 (the FMA
+    body), 1 bfloat16 over bfloat16 or int8 pools, F32_POOL a bfloat16 q
+    over float32 pools (counted as ``*_f32pool``); 1 and F32_POOL run the
+    Hopper body."""
     if q.dtype == torch.bfloat16 and kd.dtype == torch.float32:
         return F32_POOL, "_f32pool"
     return _DTYPES[q.dtype], ""
@@ -312,7 +328,7 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, q_lens,
         raise ValueError("context_lens, q_lens and row_starts must be [S]")
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
-    if dtype_code(q, kd)[0] == 1 and s > SM90_MAX_SLOTS:
+    if dtype_code(q, kd)[0] != 0 and s > SM90_MAX_SLOTS:
         raise ValueError(f"{s} slots: the bfloat16 kernel takes at most "
                          f"{SM90_MAX_SLOTS}")
     return kd, vd, ks, vs
@@ -370,9 +386,10 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code, mode = dtype_code(q, kd)
-    if code == 1:
+    if code != 0:
         n_split, floats, counters = sm90_scratch_sizes(
-            s, hkv, h // hkv, w_max, d, sm_count(q.device))
+            s, hkv, h // hkv, w_max, d, sm_count(q.device),
+            sm90_blocks_per_sm(code, d))
         part, cnt = sm90_scratch(q.device, stream, floats, counters)
     else:
         n_split, cnt = _n_split(block_tables, bs), None

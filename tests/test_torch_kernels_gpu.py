@@ -35,9 +35,12 @@ beside an unflagged 128-row chunk in one launch), a chain tree equals
 the linear kernel bit for bit, and a float32 speculative engine on the
 card streams the tokens of the same engine run through the plain
 versions. A bfloat16 query over float32 pools (GPT's serving mode) runs
-K2r, K2d and K2v's FMA bodies at head_dim 64 and 128, linear and tree,
-held against the plain versions at 2e-2 and, bit for bit, against the
-float32 kernels on the widened query with the output rounded."""
+K2r, K2d and K2v's Hopper body with float32 pages split into bfloat16
+hi + lo halves, at head_dim 64 and 128, linear and tree, at GPT's tick
+and generate() shapes: held against the plain versions at 2e-2, against
+the float32 kernels on the widened query with the output rounded (within
+one bfloat16 ulp, under 2 % of outputs differing), and to the bit
+between two calls."""
 from unittest import mock
 
 import numpy as np
@@ -1609,8 +1612,19 @@ def test_speculative_engine_on_the_card(cuda, spec):
 
 
 # K2 with a bfloat16 query over float32 pools (GPT's pools stay float32
-# under a bfloat16 model): the FMA bodies with bfloat16 loads of q and
-# stores of the output, P kept float32; launches counted as *_f32pool
+# under a bfloat16 model): the Hopper body with K, V and P as bfloat16 hi +
+# lo halves; launches counted as *_f32pool. Besides the plain version at
+# bfloat16's tolerance, each output is held against the float32 kernel on
+# the widened query, rounded: within one bfloat16 ulp, and under
+# F32POOL_DIFFER of them differing at all (the split recipe is ~2^-16
+# relative, so a rounding of the two lands apart in well under 1 % of
+# outputs; rounding K, V or P once, ~2^-9, moves most of them). An output
+# under 2^-8 of its row's largest is a cancellation: its ulp is taken at
+# that floor (the exact hi / lo recipe, emulated in float64 by
+# tools/f32pool_recipe.py, puts ~0.04 % of outputs, all under 2^-10 of
+# their row's largest, past one ulp of their own magnitude, and none past
+# it with the floor)
+F32POOL_DIFFER = 0.02
 
 
 def _f32pool(q, kp, vp):
@@ -1618,28 +1632,34 @@ def _f32pool(q, kp, vp):
     return q.to(torch.bfloat16), kp.float(), vp.float()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("head_dim", [64, 128])
-@pytest.mark.parametrize("rep", [1, 4])
-@pytest.mark.parametrize("tree", [None, BRANCHY])
-def test_ragged_attention_bf16_query_over_f32_pools(cuda, head_dim, rep,
-                                                    tree):
-    """K2r's new mode, linear and with the per-slot tree mask: three
-    flagged T-8 windows (one past a 1000-position context, split), a
-    128-row chunk and a trickle window unflagged, a slot of no rows; held
-    against the plain version at bfloat16's tolerance and bit for bit
-    against the float32 kernel on the widened q, rounded; counted as
-    ragged_paged_attention(_tree)_f32pool only."""
-    rng = np.random.RandomState(1300 + head_dim + rep)
-    base = [5, 300, 1000, 600, 16, 40]
-    q_lens = [8, 8, 8, 128, 8, 0]
-    flags = torch.tensor([1, 1, 1, 0, 0, 1], dtype=torch.int32,
-                         device=cuda)
-    args, starts = _ragged_case(rng, base, q_lens, 2 * rep, 2, head_dim, 16,
-                                72, torch.float32, cuda)
-    args = _f32pool(*args[:3]) + args[3:]
+def _within_one_ulp(got, wide, what):
+    """``got`` (bfloat16) within one bfloat16 ulp of ``wide`` (the float32
+    kernel's output on the widened query) rounded, each element at the
+    larger of the two magnitudes and of 2^-8 of its row's largest, with
+    under F32POOL_DIFFER of the elements differing; the share that
+    differs is printed."""
+    g, r = got.float(), wide.to(torch.bfloat16).float()
+    # the ulp of the larger of the two, and at least of 2^-8 of the row's
+    # largest (a cancellation: rounding is not relative to it)
+    floor = r.abs().amax(-1, keepdim=True) * 2.0 ** -8
+    _, e = torch.frexp(torch.maximum(torch.maximum(g.abs(), r.abs()), floor))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)     # 8 significant bits
+    over = int(((g - r).abs() > ulp).sum())
+    share = float((g != r).float().mean())
+    print(f"{what}: {share:.4%} of {g.numel()} outputs differ from the "
+          f"float32 kernel's, rounded; {over} by more than one ulp")
+    assert over == 0, f"{what}: {over} outputs off by more than one ulp"
+    assert share < F32POOL_DIFFER, f"{what}: {share:.4%} differ"
+
+
+def _f32pool_ragged(args, q_lens, starts, tree=None, flags=None, rows=8):
+    """K2r in the f32-pool mode on ``args`` (bfloat16 q over float32
+    pools): launched once and counted as such, held against the plain
+    version, within one ulp of the float32 kernel on the widened q, and
+    equal to the bit on a second call."""
     name = "ragged_paged_attention" + ("_tree" if tree else "")
-    kw = dict(tree_anc=tree, tree_slots=flags, tree_rows=8) if tree else {}
+    kw = dict(tree_anc=tree, tree_slots=flags, tree_rows=rows) if tree \
+        else {}
     n0 = dict(launch_counts)
     got = rpa.ragged_paged_attention(*args, max(q_lens), **kw)
     assert got.dtype == torch.bfloat16
@@ -1648,63 +1668,155 @@ def test_ragged_attention_bf16_query_over_f32_pools(cuda, head_dim, rep,
                if k != name + "_f32pool")
     want = rpa.plain_ragged_paged_attention(
         *args, tree_anc=tree, tree_slots=flags if tree else None)
-    _rows_close(_live(got, q_lens, starts), _live(want, q_lens, starts),
-                "bfloat16")
-    # the float32 body with bfloat16 loads of q and stores of the output:
-    # the float32 kernel's output on the widened q, rounded, bit for bit
+    live = lambda o: _live(o, q_lens, starts)  # noqa: E731
+    _rows_close(live(got), live(want), "bfloat16")
     wide = rpa.ragged_paged_attention(args[0].float(), *args[1:],
                                       max(q_lens), **kw)
-    assert torch.equal(_live(got, q_lens, starts),
-                       _live(wide, q_lens, starts).to(torch.bfloat16))
+    _within_one_ulp(live(got), live(wide), name)
+    again = rpa.ragged_paged_attention(*args, max(q_lens), **kw)
+    assert torch.equal(live(got), live(again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("tree", [None, BRANCHY])
+def test_ragged_attention_bf16_query_over_f32_pools(cuda, head_dim, rep,
+                                                    tree):
+    """K2r's f32-pool mode, linear and with the per-slot tree mask: three
+    flagged T-8 windows (one past a 1000-position context, split), a
+    128-row chunk and a trickle window unflagged, a slot of no rows; held
+    against the plain version at bfloat16's tolerance, within one ulp of
+    the float32 kernel on the widened q, rounded, and bit for bit across
+    two calls; counted as ragged_paged_attention(_tree)_f32pool only."""
+    rng = np.random.RandomState(1300 + head_dim + rep)
+    base = [5, 300, 1000, 600, 16, 40]
+    q_lens = [8, 8, 8, 128, 8, 0]
+    flags = torch.tensor([1, 1, 1, 0, 0, 1], dtype=torch.int32,
+                         device=cuda)
+    args, starts = _ragged_case(rng, base, q_lens, 2 * rep, 2, head_dim, 16,
+                                72, torch.float32, cuda)
+    _f32pool_ragged(_f32pool(*args[:3]) + args[3:], q_lens, starts, tree,
+                    flags)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_size", [8, 16, 32])
+@pytest.mark.parametrize("tick", ["prefill", "decode"])
+def test_ragged_attention_f32_pools_at_gpt_tick(cuda, block_size, tick):
+    """GPT's serving tick (16 / 16 heads, D 64, contexts to 960 within its
+    1024 positions): 7 decode rows + a 128-row prefill chunk, and one row
+    a slot, at block sizes 8, 16 and 32."""
+    rng = np.random.RandomState(1500 + block_size)
+    base = [959, 700, 500, 300, 64, 900, 800, 512]
+    q_lens = [1] * 7 + [128] if tick == "prefill" else [1] * 8
+    args, starts = _ragged_case(rng, base, q_lens, 16, 16, 64, block_size,
+                                1024 // block_size, torch.float32, cuda)
+    _f32pool_ragged(_f32pool(*args[:3]) + args[3:], q_lens, starts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_ragged_attention_f32_pools_split_contexts(cuda, head_dim):
+    """Two decode rows at 4000-position contexts and a 3-row window at
+    3000: few items, so every slot is split over many blocks and merged
+    by the last split in the same launch; the scratch's counters are
+    left at zero."""
+    rng = np.random.RandomState(1600 + head_dim)
+    base, q_lens = [3999, 4000, 2999], [1, 1, 3]
+    args, starts = _ragged_case(rng, base, q_lens, 16, 16, head_dim, 16,
+                                256, torch.float32, cuda)
+    _f32pool_ragged(_f32pool(*args[:3]) + args[3:], q_lens, starts)
+    stream = torch.cuda.current_stream().cuda_stream
+    _, counters = rpa._SCRATCH[(args[0].device, stream)]
+    assert int(counters.abs().sum()) == 0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("rep,T,tree", [(1, 1, None), (4, 1, None),
                                         (1, 5, None), (4, 5, None),
-                                        (1, 8, BRANCHY), (4, 8, BRANCHY)])
+                                        (1, 8, BRANCHY), (4, 8, BRANCHY),
+                                        (8, 9, None)])
 def test_paged_attention_bf16_query_over_f32_pools(cuda, head_dim, rep, T,
                                                    tree):
-    """K2d (T 1) and K2v (linear, and the tree mode at T 8) in the new
-    mode: contexts of 1, BS, BS + 1 and one whose window ends at the
-    table's reach, a long table that splits the context; held against
-    the plain versions, counted as *_f32pool."""
+    """K2d (T 1) and K2v (linear, the tree mode at T 8, and T 9 at group
+    8: two tiles a window) in the f32-pool mode: contexts of 1, BS, BS +
+    1 and one whose window ends at the table's reach, a long table that
+    splits the context; held against the plain versions, within one ulp
+    of the float32 kernels on the widened q, rounded, and bit for bit
+    across two calls; counted as *_f32pool."""
     mb, bs = 64, 16
     lens = [1, bs, bs + 1, mb * bs - T + 1]
     q, kp, vp, tables, ctx = _paged_case(1400 + head_dim + rep + T, lens, T,
                                          rep, head_dim, bs, mb,
                                          torch.float32, cuda)
     q, kp, vp = _f32pool(q, kp, vp)
-    n0 = dict(launch_counts)
     if T == 1:
-        got = pda.paged_decode_attention(q[:, 0], kp, vp, tables, ctx)
+        def kern(x):
+            return pda.paged_decode_attention(x[:, 0], kp, vp, tables, ctx)
         want = pda.plain_paged_decode_attention(q[:, 0], kp, vp, tables,
                                                 ctx)
         name = "paged_decode_attention"
     else:
-        got = pda.paged_verify_attention(q, kp, vp, tables, ctx,
-                                         tree_anc=tree)
+        def kern(x):
+            return pda.paged_verify_attention(x, kp, vp, tables, ctx,
+                                              tree_anc=tree)
         want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
                                                 tree_anc=tree)
         name = "paged_verify_attention" + ("_tree" if tree else "")
+    n0 = dict(launch_counts)
+    got = kern(q)
     assert got.dtype == torch.bfloat16
     assert launch_counts[name + "_f32pool"] == n0[name + "_f32pool"] + 1
     assert all(launch_counts[k] == n0[k] for k in n0
                if k != name + "_f32pool")
     _rows_close(got, want, "bfloat16")
-    # the mode is the float32 body with bfloat16 loads of q and stores of
-    # the output: the float32 kernel's output on the widened q, rounded
-    wide = pda.paged_decode_attention(q[:, 0].float(), kp, vp, tables,
-                                      ctx) if T == 1 else \
-        pda.paged_verify_attention(q.float(), kp, vp, tables, ctx,
-                                   tree_anc=tree)
-    assert torch.equal(got, wide.to(torch.bfloat16))
+    if T * rep <= 64:   # the float32 body's bound
+        _within_one_ulp(got, kern(q.float()), name)
+    assert torch.equal(got, kern(q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_size", [8, 16, 32])
+@pytest.mark.parametrize("T,tree", [(1, None), (5, None),
+                                    (8, (0, 0, 1, 2, 3, 4, 5))])
+def test_paged_attention_f32_pools_at_gpt_generate(cuda, block_size, T,
+                                                   tree):
+    """GPT's generate() shapes (16 / 16 heads, D 64): 4 slots of a
+    512-token prompt and 64 new tokens (contexts 513..576, tables of 37
+    blocks of 16, as many positions at BS 8 and 32), K2d, K2v at T 5 and
+    the tree mode at T 8."""
+    mb = 37 * 16 // block_size
+    lens = [513, 528, 549, 576]
+    q, kp, vp, tables, ctx = _paged_case(1700 + block_size + T, lens, T, 1,
+                                         64, block_size, mb, torch.float32,
+                                         cuda, Hkv=16)
+    q, kp, vp = _f32pool(q, kp, vp)
+    if T == 1:
+        got = pda.paged_decode_attention(q[:, 0], kp, vp, tables, ctx)
+        want = pda.plain_paged_decode_attention(q[:, 0], kp, vp, tables,
+                                                ctx)
+        wide = pda.paged_decode_attention(q[:, 0].float(), kp, vp, tables,
+                                          ctx)
+        again = pda.paged_decode_attention(q[:, 0], kp, vp, tables, ctx)
+    else:
+        got, wide, again = (pda.paged_verify_attention(
+            x, kp, vp, tables, ctx, tree_anc=tree)
+            for x in (q, q.float(), q))
+        want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
+                                                tree_anc=tree)
+    _rows_close(got, want, "bfloat16")
+    _within_one_ulp(got, wide, f"T {T} BS {block_size}")
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
 def test_bf16_query_over_f32_pools_refusals(cuda):
-    """Every other dtype mismatch still raises, and the FMA body's T x
-    group bound holds in the new mode."""
+    """Every other dtype mismatch still raises, and so do more slots than
+    the Hopper body's shared tables hold; a window of T 9 at group 8 (past
+    the float32 body's T x group bound) runs, in two tiles, and matches
+    the plain version."""
     q, kp, vp, tables, ctx = _paged_case(5, [3, 20], 2, 4, 64, 16, 4,
                                          torch.float32, cuda)
     bq = q.to(torch.bfloat16)
@@ -1715,5 +1827,33 @@ def test_bf16_query_over_f32_pools_refusals(cuda):
             pda.paged_verify_attention(*args, tables, ctx)
     q9, kp9, vp9, t9, c9 = _paged_case(6, [3, 20], 9, 8, 64, 16, 4,
                                        torch.float32, cuda)
-    with pytest.raises(ValueError, match="T \\* group"):
-        pda.paged_verify_attention(q9.to(torch.bfloat16), kp9, vp9, t9, c9)
+    q9, kp9, vp9 = _f32pool(q9, kp9, vp9)
+    _rows_close(pda.paged_verify_attention(q9, kp9, vp9, t9, c9),
+                pda.plain_paged_verify_attention(q9, kp9, vp9, t9, c9),
+                "bfloat16")
+    n = rpa.SM90_MAX_SLOTS + 1
+    many = torch.ones(n, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=f"{n} slots"):
+        pda.paged_decode_attention(
+            torch.zeros(n, 8, 64, device=cuda, dtype=torch.bfloat16), kp,
+            vp, many[:, None].contiguous(), many)
+    with pytest.raises(ValueError, match=f"{n} slots"):
+        rpa.ragged_paged_attention(
+            torch.zeros(n, 8, 64, device=cuda, dtype=torch.bfloat16), kp,
+            vp, many[:, None].contiguous(), many, many,
+            torch.arange(n, dtype=torch.int32, device=cuda), 1)
+
+
+@pytest.mark.gpu
+def test_sm90_blocks_per_sm_is_the_compiled_one(cuda):
+    """The wrapper sizes the Hopper body's split records by its blocks an
+    SM; each instance's Cfg::BLOCKS, read from the library, is the
+    wrapper's: one for float32 pools at head_dim 128, two otherwise."""
+    from paddle_tpu_torch.ops.kernels import _build
+    fn = _build.load("ragged_paged_attention") \
+        .ptt_paged_attention_blocks_per_sm
+    for code, int8 in ((1, 0), (1, 1), (rpa.F32_POOL, 0)):
+        for d in (64, 128):
+            assert fn(code, int8, d) == rpa.sm90_blocks_per_sm(code, d), \
+                (code, int8, d)
+    assert fn(rpa.F32_POOL, 1, 64) == 0 and fn(0, 0, 64) == 0

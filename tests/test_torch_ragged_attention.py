@@ -239,3 +239,31 @@ def test_sm90_scratch_sizes(slots, kv_heads, rep, w_max, d, sms, want):
     query vectors, and an arrival counter a (slot, kv head)."""
     assert rpa.sm90_scratch_sizes(slots, kv_heads, rep, w_max, d,
                                   sms) == want
+
+
+@pytest.mark.parametrize("source", ["ragged_paged_attention.cu",
+                                    "paged_decode_attention.cu"])
+def test_f32_pools_route_to_the_hopper_body(source):
+    """A bfloat16 q over float32 pools (dtype code 2) launches the Hopper
+    body's f32 instance: the C entries send it to ``pa90::launch`` with
+    ``f32`` set, and no FMA body is instantiated for a bfloat16 q."""
+    from pathlib import Path
+    import paddle_tpu_torch
+    src = (Path(paddle_tpu_torch.__file__).parent / "csrc"
+           / source).read_text()
+    assert "__nv_bfloat16, float>" not in src
+    assert "if (dtype == 1 || dtype == 2)" in src
+    assert "pa90::launch(q, kp, vp, ksf, vsf, dtype == 2," in src
+
+
+@pytest.mark.parametrize("code,d,blocks", [(1, 64, 2), (1, 128, 2),
+                                           (2, 64, 2), (2, 128, 1)])
+def test_sm90_blocks_per_sm(code, d, blocks):
+    """The Hopper body's blocks an SM per instance (its Cfg::BLOCKS): one
+    for float32 pools at head_dim 128, whose 64 KB stages leave room for
+    one block, two otherwise; the split records are a wave of them."""
+    assert rpa.F32_POOL == 2
+    assert rpa.sm90_blocks_per_sm(code, d) == blocks
+    assert rpa.sm90_scratch_sizes(4, 16, 1, 1, d, 132,
+                                  rpa.sm90_blocks_per_sm(code, d)) == \
+        (blocks * 132, blocks * 132 * (d + 2), 64)

@@ -43,7 +43,16 @@ contexts of 64 (one stage an item: a call's fixed cost), Llama-3-8B's 32
 and K2d again on int8 pools (the bf16 pools quantized), through either
 tree's entry points (a tree with ``paged_attention_sm90.cuh`` takes the
 Hopper body's scratch and counters; an older one its own split count, as
-its wrapper chose it). Versions
+its wrapper chose it); and, where every tree takes a bfloat16 q over
+float32 pools (dtype code 2, GPT's ``*_f32pool`` mode), that mode at
+GPT's shapes (16 / 16 heads, D 64, BS 16): K2r at phase 2's two GPT
+ticks and its tree tick (``RAGGED_TREE["gpt"]``, BRANCH_TREE), K2d, K2v
+(T 5) and K2v's tree mode (T 8) at phase 7's shape, each driven as its
+tree's wrapper drove it (the FMA bodies' split count and scratch where
+dtype 2 still runs them, the Hopper body's otherwise); their outputs are
+held against the first version's by ``chip_smoke.held_f32pool``'s rule
+(within one bf16 ulp, the share that differs printed) and, row by row,
+against their plain versions. Versions
 are timed in turns, first to last
 and back (A B B A), with ``chip_smoke.time_ms``; cards and neighbours
 differ between calls, so only versions timed in one run compare. Every
@@ -79,6 +88,8 @@ SWEEP_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 768)
 # 513) and in slot 0 (context 2048): rows a slot
 PAGED_CHUNKS = {"chunk 513": [0] * 7 + [128], "chunk 2048": [128] + [0] * 7}
 SWEEP_BODIES = {"sm90": 1, "mma.sync": 1 << 30}
+# --only paged, the f32-pool cases: each one's plain version's output
+PLAIN = {}
 
 
 def kernel_name(line):
@@ -90,11 +101,11 @@ def kernel_name(line):
                   r"ELb(\d)E", line)
     if k:   # row groups, prologue, rows from the pre-pass
         return f"decode_gemm<{k[1]}, {k[2]}, {'true' if k[3] == '1' else 'false'}>"
-    k = re.search(r"paged_attention_kernelILi(\d+)E((?:Lb\dE)*)", line)
-    if k:   # head_dim, then int8 pools and the tree mode where present
-        flags = ["true" if b == "1" else "false"
-                 for b in re.findall(r"Lb(\d)E", k[2])]
-        return f"paged_attention_kernel<{', '.join([k[1]] + flags)}>"
+    k = re.search(r"paged_attention_kernelILi(\d+)E((?:L[bi]\d+E)*)", line)
+    if k:   # head_dim, then the pool kind (or int8 pools), the tree mode
+        args = [("true" if v == "1" else "false") if t == "b" else v
+                for t, v in re.findall(r"L([bi])(\d+)E", k[2])]
+        return f"paged_attention_kernel<{', '.join([k[1]] + args)}>"
     k = re.search(r"moe90\d+(\w+?_kernel)(?:I(\w+?)E)?E", line)
     if k:   # Lb1 / Li128: a bool / an int template argument
         args = re.findall(r"L([bi])(\d+)E", (k[2] or "") + "E")
@@ -164,12 +175,26 @@ def bind(lib, d):
             lib["q8"] = "const void* ks" in f.read()   # int8 pools
         n = 1 if lib["sm90"] else 0   # the counters and NB arguments
         n8 = 2 if lib["q8"] else 0    # the scale pointers
-        lib["ragged_paged_attention"].ptt_ragged_paged_attention.argtypes = \
+        with open(os.path.join(d, "ragged_paged_attention.cu")) as f:
+            text = f.read()
+        # a bf16 q over f32 pools (dtype 2), and whether the FMA body runs it
+        lib["f32"] = "dtype == 2" in text
+        lib["f32_fma"] = "dispatch_d<__nv_bfloat16, float>" in text
+        r = lib["ragged_paged_attention"]
+        r.ptt_ragged_paged_attention.argtypes = \
             [ptr] * (9 + n + n8) + [i32] * (9 + n) + tail[:1] + tail[2:]
-        for fn in (lib["paged_decode_attention"].ptt_paged_decode_attention,
-                   lib["paged_decode_attention"].ptt_paged_verify_attention):
+        bits = ctypes.POINTER(ctypes.c_uint32)
+        if hasattr(r, "ptt_ragged_paged_attention_tree"):
+            r.ptt_ragged_paged_attention_tree.argtypes = \
+                r.ptt_ragged_paged_attention.argtypes + [bits, i32, ptr]
+        m = lib["paged_decode_attention"]
+        for fn in (m.ptt_paged_decode_attention,
+                   m.ptt_paged_verify_attention):
             fn.argtypes = [ptr] * (7 + n + n8) + [i32] * (8 + n) + \
                 tail[:1] + tail[2:]
+        if hasattr(m, "ptt_paged_verify_attention_tree"):
+            m.ptt_paged_verify_attention_tree.argtypes = \
+                m.ptt_paged_verify_attention.argtypes + [bits]
     if "moe_gmm" in lib:
         g = lib["moe_gmm"]
         for fn in (g.ptt_moe_gmm, g.ptt_moe_gather_gmm_swiglu,
@@ -533,6 +558,129 @@ def paged_kernels(torch, cs, libs, rnd, P, st):
             for lib in libs]
 
 
+def paged_f32_kernels(torch, cs, libs, P, st):
+    """The bf16-q-over-f32-pool mode (dtype code 2) at GPT's shapes (16 /
+    16 heads, D 64, BS 16), cold: K2r at phase 2's GPT ticks and its tree
+    tick, K2d, K2v and K2v's tree mode at phase 7's shape; per version,
+    {name: (launch, outputs)}. Each tree's entry points are driven as its
+    wrapper drove them: the FMA bodies' split count and scratch where
+    they run dtype 2, the Hopper body's scratch otherwise."""
+    H = Hkv = cs.GPT_HEADS
+    D, BS = 64, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    i32 = dict(device="cuda", dtype=torch.int32)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 17)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda")  # noqa
+    part = torch.empty(2 * sms * 64 * (D + 2), device="cuda")
+    cnt = torch.zeros(8 * Hkv, **i32)
+    scale = D ** -0.5
+
+    def pools_for(S, MB):
+        NB = 1 + S * MB
+        k, v = rnd(NB, BS, Hkv, D), rnd(NB, BS, Hkv, D)
+        copies = max(3, -(-int(100e6) // (2 * k.numel() * 4)))
+        perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+        tables = perm[:S * MB].reshape(S, MB).to(torch.int32).contiguous()
+        return [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)
+                           ], tables, NB
+
+    from paddle_tpu_torch.ops.kernels.ragged_paged_attention import \
+        tree_ancestor_bits
+
+    def tree_arg(tree):
+        bits = tree_ancestor_bits(tree)
+        return (ctypes.c_uint32 * len(bits))(*bits), len(bits)
+
+    cases = []
+    S, MB = 8, cs.RAGGED["gpt"]["MB"]
+    pools, tables, NB = pools_for(S, MB)
+    ctx = torch.tensor([b + 1 for b in cs.RAGGED["gpt"]["base"]], **i32)
+    for tick, q_lens in cs.RAGGED_TICKS.items():
+        q = rnd(sum(q_lens), H, D).bfloat16()
+        starts = torch.tensor([0] + list(np.cumsum(q_lens)[:-1]), **i32)
+        cases.append((f"K2r gpt {tick} tick f32pool", "ragged", q, pools,
+                      tables, ctx, (torch.tensor(q_lens, **i32), starts,
+                                    max(q_lens), None), NB))
+    t = cs.RAGGED_TREE["gpt"]
+    tctx = torch.tensor([b + 1 for b in t["base"]], **i32)
+    q = rnd(sum(t["q_lens"]), H, D).bfloat16()
+    starts = torch.tensor([0] + list(np.cumsum(t["q_lens"])[:-1]), **i32)
+    cases.append(("K2r gpt tree tick f32pool", "ragged", q, pools, tables,
+                  tctx, (torch.tensor(t["q_lens"], **i32), starts,
+                         max(t["q_lens"]),
+                         (*tree_arg(cs.BRANCH_TREE),
+                          torch.tensor(t["flags"], **i32))), NB))
+    from paddle_tpu_torch.ops.kernels import paged_attention as pda
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    for name, _, q, pl, tb, cx, (ql, st0, _, tree), _ in cases:
+        PLAIN[name] = rpa.plain_ragged_paged_attention(
+            q, *pl[0], tb, cx, ql, st0,
+            tree_anc=cs.BRANCH_TREE if tree else None,
+            tree_slots=tree[2] if tree else None)
+    c = cs.PAGED["generate"]
+    pools, tables, NB = pools_for(c["S"], c["MB"])
+    lens = torch.tensor(c["lens"], **i32)
+    for name, T, tree in (("K2d", 1, None), ("K2v", cs.PAGED_T, None),
+                          ("K2v tree", len(cs.BRANCH_TREE) + 1,
+                           cs.BRANCH_TREE)):
+        q = rnd(c["S"], T, H, D).bfloat16()
+        cases.append((f"{name} gpt generate f32pool", name, q, pools,
+                      tables, lens, tree and tree_arg(tree), NB))
+        PLAIN[cases[-1][0]] = pda.plain_paged_verify_attention(
+            q, *pools[0], tables, lens, tree_anc=tree)
+
+    def call(lib, kind, q, pools, tables, ctx, extra, NB):
+        out = torch.empty_like(q)
+        turn = iter(range(1 << 30))
+        S, MB = tables.shape
+        fma = lib["f32_fma"]
+        reach = MB * BS
+
+        def pool():
+            kp, vp = pools[next(turn) % len(pools)]
+            return kp, vp, None, None
+
+        if kind == "ragged":
+            ql, starts, w_max, tree = extra
+            r = lib["ragged_paged_attention"]
+            fn = r.ptt_ragged_paged_attention_tree if tree else \
+                r.ptt_ragged_paged_attention
+            R = q.shape[0]
+            n_split = min(8, -(-reach // 256)) if fma else 2 * sms
+            p_, c_ = (torch.empty(n_split * R * H * (D + 2), device="cuda"),
+                      None) if fma else (part, cnt)
+            def go():
+                # the flags' address taken here: the tensor outlives the
+                # set-up only through this closure
+                tail = (tree[0], tree[1], P(tree[2])) if tree else ()
+                kp, vp, ks, vs = pool()
+                return fn(P(q), P(kp), P(vp), ks, vs, P(tables), P(ctx),
+                          P(ql), P(starts), P(out), P(p_),
+                          c_ if c_ is None else P(c_), R, S, H, Hkv, D, BS,
+                          MB, NB, w_max, n_split, scale, 2, st, *tail)
+            return go, (out,)
+        m = lib["paged_decode_attention"]
+        fn = m.ptt_paged_verify_attention_tree if extra else \
+            m.ptt_paged_verify_attention if kind == "K2v" else \
+            m.ptt_paged_decode_attention
+        T = q.shape[1]
+        n_split = max(1, min(16, reach // 64, -(-8 * sms // (S * Hkv)))) \
+            if fma else 2 * sms
+        p_, c_ = (torch.empty(n_split * q.numel() // D * (D + 2),
+                              device="cuda"), None) if fma else (part, cnt)
+        tail = (extra[0],) if extra else ()
+
+        def go():
+            kp, vp, ks, vs = pool()
+            return fn(P(q), P(kp), P(vp), ks, vs, P(tables), P(ctx), P(out),
+                      P(p_), c_ if c_ is None else P(c_), S, T, H, Hkv, D,
+                      BS, MB, NB, n_split, scale, 2, st, *tail)
+        return go, (out,)
+
+    return [{name: call(lib, *rest) for name, *rest in cases}
+            for lib in libs]
+
+
 def sweep(torch, cs, libs, names, rnd, P, st, fast):
     """The forward modes of each library (the two bodies) at DeepSeek
     widths over SWEEP_ROWS mean rows a group, A B B A at each size."""
@@ -617,6 +765,10 @@ def main(argv):
                                               st)}[fam]()
         for run, ks in zip(runs, per):
             run.update(ks)
+        if fam == "paged" and all(lib["f32"] for lib in libs):
+            for run, ks in zip(runs, paged_f32_kernels(torch, cs, libs, P,
+                                                        st)):
+                run.update(ks)
     first = {}
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
     for i in order:
@@ -629,6 +781,15 @@ def main(argv):
             same = all(torch.equal(a, b) for a, b in zip(got, ref))
             diff = "same bits" if same else "row_rel_err %.2e" % max(
                 cs.row_rel_err(a, b) for a, b in zip(got, ref))
+            if name in PLAIN:
+                diff += ", against plain row_rel_err %.2e" % \
+                    cs.row_rel_err(got[0], PLAIN[name])
+            if not same and name.endswith("f32pool"):
+                fails = []
+                cs.held_f32pool(torch, got[0], ref[0].float(),
+                                f"[{i}] {name} vs [{order[0]}]", fails)
+                diff += "; " + ("FAIL: " if fails else "") + \
+                    "one-ulp rule against the first version"
             times.append(f"{name} {cs.time_ms(torch, fn, **fast):.4f} "
                          f"({diff})")
         print(f"[{i}] {args.dirs[i]}: " + ", ".join(times) + " ms",
