@@ -60,9 +60,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    dtypes;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
-   bfloat16 with seeded random weights, counting kernel launches, then
-   profile 4 ticks of a second wave (idle share, host scalar reads a
-   tick);
+   bfloat16 with seeded random weights, counting kernel launches (pure
+   ticks replay CUDA graphs), then profile 4 ticks of a second wave
+   (idle share, host scalar reads a tick) and 4 pure ticks of a third;
 4. serve a short float32 run at reduced depth twice — through the
    kernels and through their plain versions — and compare the first
    tick's logits and the token streams (a divergence fails unless the
@@ -192,12 +192,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     tokens/s, MFU, idle share, peak memory, K1 at D 64 a layer a step,
     falling losses), then 2 float32 layers' loss and gradients through K1
     against its plain versions; the phase's seconds;
-19. print the kernels line, the card's name and power limit, and the
+19. CUDA graphs and the async pipeline (on the models of phases 3, 9
+    and 18, while they are loaded): (a) two engines stepped in lockstep,
+    one replaying its pure ticks (every seated slot decoding or
+    verifying) from CUDA graphs, one running every tick eagerly, on 4
+    prompts of 96 tokens, 16 new: Llama-3-8B (32 layers, bf16), the same
+    on int8 pools and drafting for itself at gamma 4, DeepSeek-MoE-16B
+    and GPT on float32 pools; every tick's tokens and logits and, (c),
+    the launch counts it adds, and the pools at the end, equal to the
+    bit, and at least one replay; (b) phase 3's engine with
+    ``async_depth=1`` serves phase 3's traffic twice: streams equal to
+    phase 3's token for token, no graph captured in the second wave,
+    tokens/s, TTFT, ticks, pure ticks, pipeline flushes, host gap p50 /
+    p99 and graphs logged, and 4 profiled pure ticks (wall ms, idle
+    share) beside phase 3's;
+20. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
-16, 17 and 18) runs with every
+16, 17 and 18, both waves of phase 19 (b)) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -1848,7 +1862,9 @@ def profiled(torch, step, n, row_limit, cpu_rows=0, by_kernel=None):
 
 def plain_patches(df, rpa):
     """Route the model's kernel calls to the plain versions (phase 4's
-    reference run on the card)."""
+    reference run on the card), with the engines' CUDA graphs off: the
+    plain versions read values back, which a capture cannot."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
     def plain_attn(q, k_pool, v_pool, tables, ctx, q_lens, starts, w_max,
                    sm_scale=None, tree_anc=None, tree_slots=None,
                    tree_rows=None):
@@ -1856,7 +1872,8 @@ def plain_patches(df, rpa):
             q, k_pool, v_pool, tables, ctx, q_lens, starts,
             sm_scale=sm_scale, tree_anc=tree_anc, tree_slots=tree_slots,
             tree_rows=tree_rows)
-    return [mock.patch.object(df, "norm_matmul", df.plain_norm_matmul),
+    return [mock.patch.object(ServingEngine, "cuda_graphs", False),
+            mock.patch.object(df, "norm_matmul", df.plain_norm_matmul),
             mock.patch.object(df, "matmul_residual",
                               df.plain_matmul_residual),
             mock.patch.object(rpa, "ragged_paged_attention", plain_attn)]
@@ -2433,12 +2450,83 @@ def serve_run(torch, kernels, engine, prompts, lens, tag, want):
         f"TTFT ms mean {st['ttft_ms']['mean']:.1f} p50 "
         f"{st['ttft_ms']['p50']:.1f} max {st['ttft_ms']['max']:.1f}; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gap = st["host_gap_ms"]
+    log(f"{tag}: {st['pure_ticks']} pure ticks ({st['pipelined_ticks']} "
+        f"pipelined), {st['executables_compiled']} CUDA graphs, "
+        f"async_depth {st['async_depth']}, pipeline flushes "
+        f"{st['pipeline_flushes']}, host gap ms p50 {gap['p50']:.3f} p99 "
+        f"{gap['p99']:.3f}")
     log(f"{tag}: kernel launches {launches}")
     missing = [k for k in want if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched on the main "
                              f"path: {missing}")
     return launches, st, [done[r] for r in rids]
+
+
+def pool_tensors(pools):
+    """Every tensor of a per-layer ``[(k, v), ...]`` pool list (an int8
+    pool's data and scales)."""
+    for pair in pools:
+        for p in pair:
+            yield from ((p.data, p.scale) if hasattr(p, "scale") else (p,))
+
+
+def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
+                   max_new, tag, draft=None):
+    """Two engines of ``cfg`` over ``model`` (and ``draft``), one
+    replaying its pure ticks from CUDA graphs and one running every tick
+    eagerly (its graphs off), stepped in lockstep over ``prompts``: at
+    every tick both must commit the same tokens, add the same launch
+    counts and give the same logits to the bit, and at the end every
+    layer's pools (the null block aside) must be equal to the bit.
+    Returns the graph engine's ``stats()``; fails unless it replayed."""
+    engines = []
+    for graphs in (True, False):
+        e = ServingEngine(model, cfg, device="cuda", draft_model=draft)
+        e.cuda_graphs = graphs
+        for p in prompts:
+            e.submit(p, max_new)
+        engines.append(e)
+    ticks = 0
+    while any(e.num_active or e.num_queued for e in engines):
+        seen = []
+        for e in engines:
+            c0 = dict(kernels.launch_counts)
+            emitted = e.step()
+            torch.cuda.synchronize()
+            added = {k: v - c0[k] for k, v in kernels.launch_counts.items()
+                     if v != c0[k]}
+            lg = None if e.last_logits is None else e.last_logits.clone()
+            seen.append((emitted, added, lg))
+        (em_g, n_g, lg_g), (em_e, n_e, lg_e) = seen
+        if em_g != em_e or n_g != n_e or (lg_g is None) != (lg_e is None) \
+                or (lg_g is not None and not torch.equal(lg_g, lg_e)):
+            raise AssertionError(
+                f"{tag}: tick {ticks}: the graph engine differs from the "
+                f"eager one (tokens {em_g} vs {em_e}, launches {n_g} vs "
+                f"{n_e})")
+        ticks += 1
+    results = [e.run() for e in engines]
+    if {r: list(t) for r, t in results[0].items()} \
+            != {r: list(t) for r, t in results[1].items()}:
+        raise AssertionError(f"{tag}: streams differ")
+    for name in ("_pools", "_dpools"):
+        pg, pe = (getattr(e, name) for e in engines)
+        if pg is None:
+            continue
+        for a, b in zip(pool_tensors(pg), pool_tensors(pe)):
+            if not torch.equal(a[1:], b[1:]):
+                raise AssertionError(f"{tag}: {name} differ after the run")
+    st = engines[0].stats()
+    replays = st["pure_ticks"] - st["executables_compiled"]
+    if st["executables_compiled"] < 1 or replays < 1:
+        raise AssertionError(f"{tag}: no graph replayed ({st['pure_ticks']} "
+                             f"pure ticks, {st['executables_compiled']} "
+                             "graphs)")
+    for e in engines:
+        e.shutdown()
+    return st
 
 
 def tick_window(torch, engine, prompts, n, tag, by_kernel=None):
@@ -2459,6 +2547,112 @@ def tick_window(torch, engine, prompts, n, tag, by_kernel=None):
         f"{max(0.0, 1 - busy_ms / wall_ms):.4f}; aten::_local_scalar_dense "
         f"{reads / n:.2f} a tick")
     return reads / n
+
+
+def pure_tick_window(torch, engine, prompts, n, tag):
+    """Where a pure tick's time goes: a fresh wave of ``prompts`` stepped
+    until no prompt is queued or pending, then torch.profiler over ``n``
+    ticks that must all be pure (every seated slot decoding: a graph's
+    replay on the card), then the wave drained. Returns ``(wall ms a
+    tick, idle share)``."""
+    for p in prompts:
+        engine.submit(p)
+    while engine.num_queued or any(s is not None and s.pend_pos is not None
+                                   for s in engine._slots):
+        engine.step()
+    p0 = engine.stats()["pure_ticks"]
+    wall_ms, busy_ms, _ = profiled(torch, engine.step, n, 12, cpu_rows=8)
+    pure = engine.stats()["pure_ticks"] - p0
+    engine.run()
+    if pure < n:
+        raise AssertionError(f"{tag}: {pure} of the {n + 1} profiled ticks "
+                             "were pure")
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    log(f"{tag} pure-tick profile: {n} ticks, wall {wall_ms:.3f} ms "
+        f"({wall_ms / n:.3f} a tick, profiler on), device busy "
+        f"{busy_ms:.3f} ms -> idle share {idle:.4f}")
+    return wall_ms / n, idle
+
+
+LOCKSTEP = dict(num_slots=4, block_size=16, max_model_len=512,
+                prefill_chunk=128)
+
+
+def lockstep_run(torch, kernels, ServingEngine, ServingConfig, model, tag,
+                 draft=None, **kw):
+    """Phase 19 (a) and (c) on a loaded model: :func:`graph_lockstep` of
+    ``LOCKSTEP`` engines (``kw`` to the config) over 4 prompts of 96
+    tokens, 16 new, logged."""
+    t0 = time.monotonic()
+    rng = np.random.RandomState(SEED + 19)
+    prompts = [rng.randint(0, model.config.vocab_size, size=96)
+               for _ in range(4)]
+    st = graph_lockstep(torch, kernels, ServingEngine, model,
+                        ServingConfig(**LOCKSTEP, **kw), prompts, 16, tag,
+                        draft=draft)
+    log(f"{tag}: {st['ticks']} ticks in lockstep, {st['pure_ticks']} pure, "
+        f"{st['executables_compiled']} graphs captured, "
+        f"{st['pure_ticks'] - st['executables_compiled']} replays: tokens, "
+        f"logits and launch counts of every tick and the pools at the end "
+        f"equal to the eager engine's, bit for bit "
+        f"({time.monotonic() - t0:.1f}s)")
+    return st
+
+
+def async_phase(torch, kernels, ServingEngine, ServingConfig, model, prompts,
+                lens, streams3, pure3):
+    """Phase 19 on phase 3's model (Llama-3-8B widths, bf16): (a) pure
+    ticks of the bf16 engine, of an int8 engine and of the model drafting
+    for itself at gamma 4, each replayed from its graph and held against
+    the same ticks run eagerly (:func:`lockstep_run`; (c): the launch
+    counts each tick adds, to the count); (b) phase 3's traffic with
+    ``async_depth=1``: streams equal to phase 3's token for token, the
+    pipeline's stats, a second wave that must capture no graph and stream
+    the same, and 4 profiled pure ticks beside phase 3's ``pure3`` (wall
+    ms a tick, idle share). Returns (b)'s launches."""
+    t0 = time.monotonic()
+    for tag, kw, draft in (
+            ("bf16", {}, None),
+            ("int8 pools", dict(kv_cache_dtype="int8"), None),
+            ("self-drafted", dict(num_speculative_tokens=4,
+                                  drafter="model"), model)):
+        lockstep_run(torch, kernels, ServingEngine, ServingConfig, model,
+                     f"phase 19 (a) {tag}", draft=draft, **kw)
+    engine = ServingEngine(model, ServingConfig(
+        num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
+        max_new_tokens=32, async_depth=1), device="cuda")
+    launches, ticks0 = None, 0
+    layers = model.config.num_hidden_layers
+    for wave in (1, 2):
+        tag = f"phase 19 (b) wave {wave}"
+        got, st, streams = serve_run(torch, kernels, engine, prompts, lens,
+                                     tag, SERVING_KERNELS)
+        launches = launches or got
+        # (c) replays add their capture's counts: one K2r and two K3a /
+        # K3b launches a layer a tick, replayed or not
+        ticks, ticks0 = st["ticks"] - ticks0, st["ticks"]
+        want = {"ragged_paged_attention": layers * ticks,
+                "norm_matmul": 2 * layers * ticks,
+                "matmul_residual": 2 * layers * ticks}
+        if any(got[k] != n for k, n in want.items()):
+            raise AssertionError(f"{tag}: launches {got} over {ticks} "
+                                 f"ticks, want {want}")
+        if wave == 1:
+            graphs = st["executables_compiled"]
+        elif st["executables_compiled"] != graphs:
+            raise AssertionError(f"{tag}: {st['executables_compiled']} "
+                                 f"graphs, {graphs} after wave 1")
+        same = sum(np.array_equal(a, b) for a, b in zip(streams, streams3))
+        log(f"{tag}: {same} of {len(streams)} streams equal phase 3's")
+        if same != len(streams):
+            raise AssertionError(f"{tag}: streams differ from phase 3's")
+    wall, idle = pure_tick_window(torch, engine, prompts[:8], TICK_WINDOW,
+                                  "phase 19 (b)")
+    log(f"phase 19 (b): pure ticks {wall:.3f} ms a tick, idle {idle:.4f} "
+        f"(phase 3, synchronous: {pure3[0]:.3f} ms, idle {pure3[1]:.4f}); "
+        f"phase {time.monotonic() - t0:.1f}s")
+    engine.shutdown()
+    return launches
 
 
 def moe_serving_phase(torch, kernels, ServingEngine, ServingConfig,
@@ -2493,6 +2687,8 @@ def moe_serving_phase(torch, kernels, ServingEngine, ServingConfig,
     engine.shutdown()
     del engine
     torch.cuda.empty_cache()
+    lockstep_run(torch, kernels, ServingEngine, ServingConfig, model,
+                 "phase 19 (a) DeepSeek-MoE-16B")
     if reads > llama_reads:
         raise AssertionError(f"phase 9: {reads} scalar reads a tick, more "
                              f"than the Llama engine's {llama_reads}")
@@ -3745,6 +3941,8 @@ def gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
                      "profiled ticks")
     engine.shutdown()
     del engine
+    lockstep_run(torch, kernels, ServingEngine, ServingConfig, model,
+                 "phase 19 (a) GPT, float32 pools")
     # the unfused engine is a comparison: its launches are not the path's
     engine, _, streams_u = serve("unfused",
                                  ("ragged_paged_attention_f32pool",),
@@ -4044,8 +4242,19 @@ def main(argv=None):
         f"{st3['kv_pool_bytes']}")
     llama_reads = tick_window(torch, engine, prompts[:8], TICK_WINDOW,
                               "phase 3")
+    pure3 = pure_tick_window(torch, engine, prompts[:8], TICK_WINDOW,
+                             "phase 3")
     engine.shutdown()
-    del engine, model
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- phase 19 (a), (b): CUDA graphs and the async pipeline -------------
+    async_launches = async_phase(torch, kernels, ServingEngine,
+                                 ServingConfig, model, prompts, lens,
+                                 streams3, pure3)
+    for k in SERVING_KERNELS:
+        launches[k] += async_launches[k]
+    del model
     torch.cuda.empty_cache()
 
     # -- phase 4: kernel path vs plain path, f32, reduced depth -----------
@@ -4188,7 +4397,7 @@ def main(argv=None):
         launches[k] = launches.get(k, 0) + sum(r.get(k, 0)
                                                for r in gpt_runs.values())
 
-    # -- phase 19: report --------------------------------------------------
+    # -- phase 20: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (

@@ -46,7 +46,8 @@ the device.
 (``"fused_gmm"`` or ``"gmm"``: the path the last dispatch took),
 ``ep_shard_map_calls`` and ``padded_einsum_calls`` (paths of later
 slices, always 0). :func:`serving_stats_tap` lets the serving engine
-collect each dispatch's per-expert counts on the device during a tick.
+collect each dispatch's per-expert counts on the device during a tick,
+and :func:`serving_rows_mask` keeps a tick's parked rows out of them.
 
 :class:`ClipGradForMOEByGlobalNorm` keeps the reference's constructor;
 on one device its norm is the plain global norm.
@@ -69,7 +70,8 @@ from ..ops.kernels import moe_gmm as _gmm
 
 __all__ = ["moe_dispatch_combine", "moe_dispatch_combine_dropless",
            "moe_dispatch_combine_grouped", "moe_stats", "reset_moe_stats",
-           "serving_stats_tap", "num_routed_experts", "capacity_routed",
+           "serving_stats_tap", "serving_rows_mask", "num_routed_experts",
+           "capacity_routed",
            "ClipGradForMOEByGlobalNorm", "MOE_STATS"]
 
 MOE_STATS = {"grouped_mm_calls": 0, "grouped_mm_kernel": None,
@@ -114,6 +116,21 @@ def serving_stats_tap(sink: list):
         yield sink
     finally:
         sinks.pop()
+
+
+@contextlib.contextmanager
+def serving_rows_mask(mask):
+    """Arm a per-row validity mask (``[s]`` bool on the device) for the
+    dispatches inside the context: the counts :func:`serving_stats_tap`
+    collects then count only the rows it keeps. A pipelined serving tick
+    parks a finished slot's row, which still routes through the dispatch
+    but is no traffic; the grouping itself is unchanged."""
+    prev = getattr(_TAP, "rows_mask", None)
+    _TAP.rows_mask = mask
+    try:
+        yield
+    finally:
+        _TAP.rows_mask = prev
 
 
 def num_routed_experts(config) -> int:
@@ -284,8 +301,16 @@ def _grouped_dispatch(x, gate_logits, num_expert, top_k, gate_up, down, *,
     topk_prob, topk_idx = _top_k(probs, top_k)                # [s, k]
     flat_e = topk_idx.reshape(-1)
     order, rank, counts = _sort_pairs(flat_e, e)
-    for sink in getattr(_TAP, "sinks", ()):
-        sink.append(counts)
+    sinks = getattr(_TAP, "sinks", ())
+    if sinks:
+        tap = counts
+        mask = getattr(_TAP, "rows_mask", None)
+        if mask is not None and mask.shape[0] * top_k == flat_e.shape[0]:
+            kept = mask.to(torch.int32)[:, None].expand(-1, top_k)
+            tap = torch.zeros(e, dtype=torch.int32, device=x.device) \
+                .scatter_add_(0, flat_e, kept.reshape(-1))
+        for sink in sinks:
+            sink.append(tap)
 
     keep = None
     if capacity_factor is not None:

@@ -46,7 +46,7 @@ from ..framework.random import generator as make_generator
 from ..ops import paged_cache as _pc
 
 __all__ = ["GenerationConfig", "GenerationMixin", "load_generation",
-           "_filter_logits", "_select_token"]
+           "_filter_logits", "_select_token", "categorical"]
 
 
 @dataclass
@@ -107,14 +107,17 @@ def _filter_logits(logits, *, do_sample, temperature=1.0, top_k=0,
     logits = logits / torch.clamp(t, min=1e-6)[..., None]
     k = _per_row(top_k, logits).long()
     p = _per_row(top_p, logits)
-    if bool((k > 0).any()):
+    # each filter is the identity on rows that ask for none, so under a
+    # CUDA graph capture (which cannot read a device value back) both run
+    capturing = logits.is_cuda and torch.cuda.is_current_stream_capturing()
+    if capturing or bool((k > 0).any()):
         sorted_desc = torch.sort(logits, dim=-1, descending=True).values
         idx = torch.clamp(k - 1, 0, v_dim - 1)[..., None]
         kth = torch.gather(sorted_desc, -1,
                            idx.expand(logits.shape[:-1] + (1,)))
         logits = torch.where((k[..., None] > 0) & (logits < kth),
                              torch.full_like(logits, float("-inf")), logits)
-    if bool((p < 1.0).any()):
+    if capturing or bool((p < 1.0).any()):
         sorted2 = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sorted2, dim=-1)
         cum = torch.cumsum(probs, dim=-1)
@@ -130,6 +133,17 @@ def _filter_logits(logits, *, do_sample, temperature=1.0, top_k=0,
     return logits
 
 
+def categorical(probs, generator=None):
+    """One draw a row of ``probs [B, V]`` (int64 ``[B]``):
+    ``torch.multinomial(probs, 1, generator=generator)[:, 0]``'s own
+    one-sample path written out (the argmax of ``probs`` over Exp(1)
+    draws on ``generator``), so it draws the same tokens from the same
+    generator state, without multinomial's host-side check of the
+    probabilities, a read-back that a CUDA graph cannot capture."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
 def _select_token(logits, generator=None, *, do_sample,
                   temperature=1.0, top_k=0, top_p=1.0):
     """``(token [B] int64, logprob of token [B])`` for ``[B, V]``
@@ -139,8 +153,7 @@ def _select_token(logits, generator=None, *, do_sample,
                         temperature=temperature, top_k=top_k, top_p=top_p)
     logp = torch.log_softmax(lg, dim=-1)
     if do_sample:
-        tok = torch.multinomial(torch.softmax(lg, dim=-1), 1,
-                                generator=generator)[:, 0]
+        tok = categorical(torch.softmax(lg, dim=-1), generator)
     else:
         tok = torch.argmax(lg, dim=-1)
     return tok, torch.gather(logp, -1, tok[:, None])[:, 0]

@@ -38,7 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import _filter_logits, _paged_prefill, _select_token
+from . import _filter_logits, _paged_prefill, _select_token, categorical
 from ..distributed.moe import capacity_routed
 from ..ops import paged_cache as _pc
 from ..ops.kernels.paged_attention import spec_tree_scope, tree_ancestor_bits
@@ -200,8 +200,7 @@ def build_draft_loop(draft_step, *, gamma, do_sample, temperature=1.0,
             f = _filter_logits(logits[:, -1, :], do_sample=do_sample,
                                temperature=t_, top_k=k_, top_p=p_)
             if do_sample:
-                tok = torch.multinomial(torch.softmax(f, -1), 1,
-                                        generator=generator)[:, 0]
+                tok = categorical(torch.softmax(f, -1), generator)
             else:
                 tok = torch.argmax(f, dim=-1)
             props.append(tok)
@@ -214,11 +213,23 @@ def build_draft_loop(draft_step, *, gamma, do_sample, temperature=1.0,
     return loop
 
 
+_PARENTS = {}      # (parent tuple, device) -> its tensor
+
+
+def _parent_tensor(parents, device):
+    """``(-1,) + parents`` as an int64 tensor on ``device``, made once: a
+    fresh upload would be a copy that a CUDA graph capture refuses."""
+    key = (parents, str(device))
+    t = _PARENTS.get(key)
+    if t is None:
+        t = _PARENTS[key] = torch.tensor((-1,) + parents, device=device)
+    return t
+
+
 def _categorical(probs, generator):
     """One draw per row of ``probs [..., V]``."""
     flat = probs.reshape(-1, probs.shape[-1])
-    return torch.multinomial(flat, 1, generator=generator)[:, 0].reshape(
-        probs.shape[:-1])
+    return categorical(flat, generator).reshape(probs.shape[:-1])
 
 
 def accept_from_filtered(f, toks, dq, generator, *, gamma, do_sample):
@@ -286,7 +297,7 @@ def accept_tree_from_filtered(f, toks, parents, generator, *, do_sample):
             f"spec tree has {len(parents) + 1} nodes but the verify "
             f"window carries {t} rows")
     dev = f.device
-    par = torch.tensor((-1,) + parents, device=dev)
+    par = _parent_tensor(parents, dev)
     toks = toks.long()
     rows = torch.arange(s, device=dev)
     iota_t = torch.arange(t, device=dev)

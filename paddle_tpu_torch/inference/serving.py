@@ -10,8 +10,27 @@ commits tokens, prefill progress and retirements. Admission is FIFO
 with a worst-case block reservation (prompt + max_new_tokens), so a
 running request never waits for blocks.
 
-PyTorch runs eagerly, so the port packs exactly the live rows each tick
-(the reference pads to a static width for its one compiled executable).
+The port packs exactly the live rows each tick (the reference pads to
+a static width for its one compiled executable). On CUDA every *pure*
+tick (each seated slot decodes or verifies, no prefill rows) replays a
+CUDA graph captured at its first occurrence, one graph for each number
+of seated slots, so its packed width, kernels and operands are the
+eager tick's and a replay is bit for bit that tick; the draft model's
+loop, the forward, the sampling or acceptance, the draft heads and the
+async carry are all inside it. Ticks with prefill rows, and every tick
+on the CPU, run eagerly. ``stats()["executables_compiled"]`` counts the
+graphs captured.
+
+``ServingConfig(async_depth=1)`` arms the reference's depth-1 async
+pipeline: a pure decode tick also writes the next tick's packs (each
+slot's token, length + 1, budget - 1, and a ``done`` mask that parks a
+slot finished by EOS at the overflow position, whose K/V write goes to
+the null block) over its own inputs, and while the composition stays
+unchanged the next tick is dispatched from that carry before this one's
+tokens are committed; its tokens come back through a non-blocking copy
+into pinned memory. Any change of composition flushes the pipeline
+first, so the streams equal the synchronous engine's.
+``stats()["host_gap_ms"]`` digests the host time between dispatches.
 
 Mixture-of-Experts models (Qwen2-MoE, DeepSeek-MoE) serve when their
 routing is dropless; ``stats()`` then reports the routing of the tick's
@@ -45,11 +64,11 @@ compacted onto the linear tail by ``permute_window``. Greedy engines
 emit the target's greedy tokens; sampling engines run rejection
 sampling with each slot's own knobs on both distributions.
 
-Later slices bring the prefix cache, preemption and the host tier, the
-async tick, multi-LoRA, tensor parallelism, health monitoring, the
-cluster and the telemetry digests; a config field, argument or
-``stats()`` key asking for one of them raises ``NotImplementedError``
-naming that slice.
+Later slices bring the prefix cache, preemption and the host tier,
+multi-LoRA, tensor parallelism, health monitoring, the cluster and the
+rest of the telemetry; a config field or argument asking for one of
+them raises ``NotImplementedError`` naming that slice, and their
+``stats()`` keys are absent.
 """
 from __future__ import annotations
 
@@ -57,7 +76,7 @@ import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -67,8 +86,9 @@ from ..framework.place import resolve_device
 from ..framework.random import generator
 from ..generation import _filter_logits, _select_token
 from ..generation import speculative as _spec
+from ..monitor import LatencyDigest
 from ..ops import paged_cache as _pc
-from ..ops.kernels import launch_counts
+from ..ops.kernels import hold_scratch, launch_counts
 from ..ops.kernels.paged_attention import spec_tree_scope
 
 __all__ = ["ServingConfig", "ServingEngine"]
@@ -80,7 +100,6 @@ _LATER = {
     "chunked_prefill": (True, "bucketed (unchunked) prefill"),
     "ragged_batch": (True, "the per-width executable path"),
     "enable_preemption": (False, "preemption and the host KV tier"),
-    "async_depth": (None, "the async tick pipeline"),
     "lora_rank": (0, "multi-LoRA serving"),
     "tp_degree": (1, "tensor-parallel serving"),
     "health": (False, "the health engine"),
@@ -121,21 +140,35 @@ class ServingConfig:
     # a token tree of num_speculative_tokens nodes: node k + 1's parent
     # is spec_tree[k] (0 = the committed root); None = a linear chain
     spec_tree: Optional[tuple] = None
+    # the async tick pipeline: 1 dispatches the next pure decode tick from
+    # the in-flight tick's device carry before committing it; None / 0
+    # dispatch then block
+    async_depth: Optional[int] = None
     # -- later slices: accepted only at their off value ------------------
     enable_prefix_cache: bool = False
     chunked_prefill: bool = True
     ragged_batch: bool = True
     enable_preemption: bool = False
-    async_depth: Optional[int] = None
     lora_rank: int = 0
     tp_degree: int = 1
     health: bool = False
     role: str = "both"
 
     def __post_init__(self):
+        ad = self.async_depth
+        if ad is not None and (not isinstance(ad, int)
+                               or isinstance(ad, bool)
+                               or ad < 0 or ad > 1):
+            raise ValueError(
+                f"async_depth must be 0, 1 or None, got {ad!r}")
+        if ad and not self.ragged_batch:
+            raise NotImplementedError(
+                "async_depth requires the ragged engine (ragged_batch="
+                "True); the per-width executable path comes with a later "
+                "slice of the PyTorch port")
         for name, (off, what) in _LATER.items():
             v = getattr(self, name)
-            if v != off and not (name == "async_depth" and v == 0):
+            if v != off:
                 raise NotImplementedError(
                     f"ServingConfig({name}={v!r}) asks for {what}, which "
                     "comes with a later slice of the PyTorch port; this "
@@ -204,19 +237,95 @@ class _Slot:
         self.history = [int(t) for t in prompt]
 
 
-class _Stats(dict):
-    """``stats()``'s dict: a key that a later slice brings raises
-    ``NotImplementedError`` naming it (any other missing key: KeyError)."""
+class _Layout(NamedTuple):
+    """The static shape of one tick's packed inputs (one int64 vector on
+    the device: the per-row triple, the per-slot rows, then the verifying
+    slots and their windows) and of what its body computes; a pure tick's
+    layout keys its CUDA graph."""
+    rows: int           # packed query rows R
+    w_max: int          # rows of the widest slot
+    srows: int          # per-slot rows: base, q_lens, row_starts,
+    #                     last_rows (+ tree flags) (+ the carry's budget)
+    active: int         # verifying slots (0: no verify window this tick)
+    pure: bool          # decode / verify rows only: replayed from a graph
+    carry: bool         # writes the next tick's packs over its own
 
-    _LATER = {"spec_accept_len": "the P-squared digest of tokens a verify "
-                                 "(the telemetry digests of monitor/digest.py)"}
 
-    def __missing__(self, key):
-        if key in self._LATER:
-            raise NotImplementedError(
-                f"stats()[{key!r}] is {self._LATER[key]}, which comes with "
-                "a later slice of the PyTorch port")
-        raise KeyError(key)
+class _TickOut(NamedTuple):
+    """A tick body's device outputs: the one vector the host reads back
+    (tokens, windows, accept flags, paths, head drafts, MoE counts), the
+    logits, and what the tree's pool moves need after the read-back."""
+    flat: torch.Tensor
+    logits: torch.Tensor
+    path: Optional[torch.Tensor]        # tree: accepted node a depth
+    base: torch.Tensor                  # per-slot cache lengths (int32)
+    act: Optional[torch.Tensor]         # the verifying slots (int64)
+    moe_counts: Optional[tuple]         # (MoE layers, experts) at the
+    #                                     end of flat
+
+
+class _Upload:
+    """A device tensor that keeps its address for the engine's life (a
+    graph's operand), written from the host. On CUDA each write goes
+    through a pinned staging copy on the current stream, and the staging
+    is not rewritten before that copy has run."""
+
+    def __init__(self, shape, dtype, device):
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        self.cuda = self.dev.is_cuda
+        if self.cuda:
+            self.stage = torch.empty(shape, dtype=dtype, pin_memory=True)
+            self.event = torch.cuda.Event()
+
+    def write(self, host: np.ndarray):
+        if not self.cuda:
+            self.dev.copy_(torch.from_numpy(host))
+            return
+        self.event.synchronize()
+        self.stage.numpy()[...] = host
+        self.dev.copy_(self.stage, non_blocking=True)
+        self.event.record()
+
+
+class _TickGraph:
+    """One captured pure tick: the graph, its input vector, its outputs,
+    the host counts one replay adds (launch counts, MoE matmul calls) and
+    the per-stream scratch its kernels write."""
+    __slots__ = ("graph", "inp", "outs", "counts", "moe_kernel", "scratch")
+
+    def __init__(self, graph, inp, outs, counts, moe_kernel, scratch):
+        self.graph, self.inp, self.outs = graph, inp, outs
+        self.counts, self.moe_kernel = counts, moe_kernel
+        self.scratch = scratch
+
+
+class _Pipe:
+    """One dispatched tick not yet committed (the async pipeline's
+    in-flight record): its device outputs, the host's copy of ``flat``
+    and the event it waits on (async pure ticks), and the row layout the
+    commit needs. ``carry``: the input vector now holding the next tick's
+    packs (async pure decode ticks), from which a pipelined dispatch
+    runs."""
+    __slots__ = ("outs", "host", "event", "layout", "active", "given",
+                 "rid_of", "carry")
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw.get(k))
+
+
+def _host_counts():
+    """The host counters a tick's launches bump: each kernel's launches
+    and the MoE grouped-matmul calls."""
+    return dict(launch_counts, moe_calls=_moe.MOE_STATS["grouped_mm_calls"])
+
+
+def _add_counts(delta):
+    for k, v in delta.items():
+        if k == "moe_calls":
+            _moe.MOE_STATS["grouped_mm_calls"] += v
+        else:
+            launch_counts[k] += v
 
 
 def _seeded_heads(n_heads, hidden, vocab, device):
@@ -253,8 +362,13 @@ class ServingEngine:
     which must be the model's device (and the draft model's).
     ``draft_model`` drafts for ``drafter="model"``; ``spec_heads`` (one
     ``[hidden, vocab]`` array a tree depth) are the draft heads of
-    ``drafter="heads"``.
+    ``drafter="heads"``. ``cuda_graphs`` (True) replays pure ticks from
+    CUDA graphs on CUDA; set it False on an instance or the class to run
+    every tick eagerly (kernels patched to plain versions that read
+    values back cannot be captured).
     """
+
+    cuda_graphs = True
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
                  stream_callback: Optional[Callable] = None, device=None,
@@ -327,7 +441,8 @@ class ServingEngine:
             [float(cfg.temperature), float(cfg.top_k), float(cfg.top_p)],
             np.float32)
         self._slot_samp = np.tile(self._samp_default, (cfg.num_slots, 1))
-        self._samp_dev = None
+        self._samp_dev = _Upload(self._slot_samp.shape, torch.float32, dev)
+        self._samp_dirty = True
         self._gen = generator(cfg.seed, dev)
 
         # -- speculation -------------------------------------------------
@@ -389,7 +504,11 @@ class ServingEngine:
         self._kv_pos_bytes = self._kv_pool_bytes / float(nb * self._bs)
         self._kv_step_bytes_last = 0
         self._tables = np.zeros((cfg.num_slots, self._mb), np.int32)
-        self._tables_dev = None
+        # one device table for the engine's life (a graph's operand),
+        # written in place whenever the host's changed
+        self._tables_up = _Upload(self._tables.shape, torch.int32, dev)
+        self._tables_dev = self._tables_up.dev
+        self._tables_dirty = True
         self._slots: List[Optional[_Slot]] = [None] * cfg.num_slots
         self._reserved = 0              # blocks promised to active slots
         self._queue: deque = deque()
@@ -413,6 +532,25 @@ class ServingEngine:
         self._moe_load_max_last = 0.0
         self._n_moe_dispatches = 0
         self.last_logits = None         # [S, V] of the latest tick
+
+        # -- CUDA graphs of the pure ticks, and the async pipeline ------
+        # a sampling tick draws from self._gen, which each graph must
+        # register to draw what the eager tick would; a PyTorch without
+        # that keeps a sampling engine's ticks eager
+        self._graphs_ok = dev.type == "cuda" and (
+            not self._do_sample
+            or hasattr(torch.cuda.CUDAGraph, "register_generator_state"))
+        self._graphs: Dict[_Layout, _TickGraph] = {}
+        self._graph_pool = None         # one memory pool for all of them
+        self._cap_stream = None         # warm-ups and captures run here
+        self._async_on = bool(cfg.async_depth)
+        self._pipe: Optional[_Pipe] = None      # the in-flight tick
+        self._n_pipe_flushes = 0
+        self._n_pure = 0                # ticks of decode / verify rows only
+        self._n_pipelined = 0           # dispatched from a carry
+        self._last_dispatch_t = None
+        self._d_host_gap = LatencyDigest()
+        self._d_accept = LatencyDigest()    # tokens a verify window
 
     # -- front door ----------------------------------------------------
 
@@ -482,6 +620,7 @@ class ServingEngine:
         ``run()``, keyed by request id."""
         while self._queue or self.num_active:
             self.step()
+        self._flush_pipe()
         done, self._done = self._done, {}
         return done
 
@@ -493,8 +632,9 @@ class ServingEngine:
         return [done[r] for r in rids]
 
     def stats(self) -> dict:
+        self._flush_pipe()
         ttft = np.asarray(self._ttft_ms, np.float64)
-        out = _Stats({
+        out = {
             "active": self.num_active,
             "queued": self.num_queued,
             "free_blocks": self._alloc.free_blocks,
@@ -523,9 +663,20 @@ class ServingEngine:
                 "p50": float(np.percentile(ttft, 50)) if ttft.size else 0.0,
                 "max": float(ttft.max()) if ttft.size else 0.0,
             },
-            # always present (0 on linear and non-speculative engines)
+            # always present (0 on linear and non-speculative engines; the
+            # digest of tokens a verify window zeroed without speculation)
             "spec_tree_nodes": len(self._tree) + 1 if self._tree else 0,
-        })
+            "spec_accept_len": self._d_accept.summary(),
+            # the async pipeline's keys, present on sync engines too
+            # (their host gap includes the blocking read-back)
+            "async_depth": int(self._async_on),
+            "pipeline_flushes": self._n_pipe_flushes,
+            "host_gap_ms": self._d_host_gap.summary(),
+            "pure_ticks": self._n_pure,
+            "pipelined_ticks": self._n_pipelined,
+            # the CUDA graphs captured (0 on the CPU)
+            "executables_compiled": len(self._graphs),
+        }
         if self._gamma:
             out.update({
                 "spec_tokens_proposed": self._n_spec_proposed,
@@ -542,6 +693,7 @@ class ServingEngine:
     def shutdown(self, check_leaks: bool = True) -> bool:
         """Drop queued requests and sweep the allocator's invariants
         (every block free or owned by a live slot)."""
+        self._flush_pipe()
         self._queue.clear()
         if check_leaks:
             live = [b for s in self._slots if s is not None
@@ -555,9 +707,21 @@ class ServingEngine:
         """One engine tick: admit what fits, run ONE ragged batch over
         every decoding slot's row (its verify window when speculating)
         and this tick's prefill rows, commit tokens and retire finished
-        requests. Returns this tick's ``[(request_id, token), ...]``."""
+        requests. Returns the ``[(request_id, token), ...]`` committed in
+        this call; under ``async_depth=1`` a pure decode tick's tokens
+        come with the next call (or with the flush that ``run()``,
+        ``stats()`` and ``shutdown()`` begin with)."""
+        if self._async_on:
+            return self._step_async()
+        pipe = self._dispatch()
+        return [] if pipe is None else self._commit(pipe)
+
+    def _dispatch(self) -> Optional[_Pipe]:
+        """Dispatch half of one tick: admit, pack the tick's rows into one
+        int64 vector (:class:`_Layout`), upload it and launch the forward
+        and its sampling. Returns the in-flight tick, or None when no slot
+        has work."""
         self._admit()
-        emitted: List[tuple] = []
         cfg = self.config
         g = self._gamma
         n_slots = cfg.num_slots
@@ -566,7 +730,7 @@ class ServingEngine:
         pending = [i for i, s in enumerate(self._slots)
                    if s is not None and s.pend_pos is not None]
         if not active and not pending:
-            return emitted
+            return None
         self._ensure_blocks(active, horizon=g + 1)
 
         # -- pack the tick's work into per-slot row counts --------------
@@ -594,7 +758,7 @@ class ServingEngine:
             budget -= k
         total = int(q_lens.sum())
         if not total:
-            return emitted
+            return None
         row_slot, row_pos, row_starts, last_rows = _pc.ragged_row_meta(
             q_lens, base, total, self._overflow)
         ids = np.full(total, self._pad, np.int32)
@@ -602,56 +766,67 @@ class ServingEngine:
             s0 = int(row_starts[i])
             slot = self._slots[i]
             ids[s0:s0 + k] = slot.prompt[slot.pend_pos:slot.pend_pos + k]
-        dev = self.device
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self._tables).to(dev)
+        n_act = len(active) if g else 0     # slots verifying a window
+        carry = self._async_on and not g and not given
+        srows = [base, q_lens, row_starts, last_rows]
+        if n_act and self._tree is not None:
+            flags = np.zeros(n_slots, np.int64)
+            flags[active] = 1           # prefill rows keep the linear bound
+            srows.append(flags)
+        if carry:
+            # each slot's token budget left: the carry's done mask
+            bud = np.zeros(n_slots, np.int64)
+            for i in active:
+                bud[i] = self._slots[i].max_new - self._slots[i].n_emitted
+            srows.append(bud)
+        lay = _Layout(rows=total, w_max=int(q_lens.max()), srows=len(srows),
+                      active=n_act, pure=not given, carry=carry)
+        self._sync_uploads()
         with torch.no_grad():
             if self._draft is not None and given:
                 self._prime_draft(given, q_lens, base, ids, row_starts)
             for i in active:
                 ids[row_starts[i]] = self._slots[i].last_token
-            spec = self._draft_tick(active, base, ids, row_starts) \
-                if g and active else None
-            tok, spec = self._forward(active, q_lens, base, ids, row_slot,
-                                      row_pos, row_starts, last_rows, spec)
+            spec = self._spec_pack(active, ids, row_starts) if n_act else []
+            pack = np.concatenate([np.asarray(p, np.int64).reshape(-1) for p
+                                   in [ids, row_slot, row_pos] + srows
+                                   + spec])
+            pipe = self._run(lay, pack=pack)
+        pipe.active, pipe.given = active, given
+        # names at dispatch: a slot re-seated before the commit drops the
+        # stale token
+        pipe.rid_of = {i: self._slots[i].rid for i in active + list(given)}
         self._n_ticks += 1
         self._n_rows += total
         # packed row t of slot s attends base[s] + t + 1 positions
         self._kv_step_bytes_last = int(
             (int((q_lens * base).sum())
              + int((q_lens * (q_lens + 1) // 2).sum())) * self._kv_pos_bytes)
+        return pipe
 
-        # -- commit decode / verify rows ---------------------------------
-        if spec is None:
-            for i in active:
-                slot = self._slots[i]
-                t = int(tok[i])
-                slot.cache_len += 1
-                slot.last_token = t
-                slot.n_emitted += 1
-                slot.history.append(t)
-                self._emit(slot.rid, t)
-                emitted.append((slot.rid, t))
-                if t == self._eos or slot.n_emitted >= slot.max_new:
-                    self._retire(i)
-        else:
-            out, accept, props = spec
-            for k, i in enumerate(active):
-                self._commit_verify_window(i, out[k], accept[k], emitted)
-                if props is not None and self._slots[i] is not None:
-                    # the heads' tree for the slot's next tick
-                    self._slot_props[i] = props[k]
-        # -- commit prefill progress -------------------------------------
-        for i, k in given.items():
-            slot = self._slots[i]
-            slot.pend_pos += k
-            slot.cache_len = slot.pend_pos
-            self._n_prefill_chunks += 1
-            if slot.pend_pos >= int(slot.prompt.size):
-                # the chunk's last row is the final prompt row: its logits
-                # give the request's first token
-                self._finish_prefill(i, int(tok[i]), emitted)
-        return emitted
+    def _spec_pack(self, active, ids, row_starts) -> list:
+        """The verifying slots' part of a tick's vector: the slots, then
+        their windows ``[last token, gamma drafts]`` (host drafters: the
+        n-gram or tree drafts, also written into the window rows of
+        ``ids``), or, for the draft model, whose loop runs on the device,
+        the last tokens and the window rows its drafts go to."""
+        g = self._gamma
+        act = np.asarray(active, np.int64)
+        cur = np.asarray([self._slots[i].last_token for i in active],
+                         np.int64)
+        if self._draft is not None:
+            widx = (row_starts[act].astype(np.int64)[:, None]
+                    + np.arange(1, g + 1)[None, :]).reshape(-1)
+            return [act, cur, widx]
+        toks = np.empty((len(active), g + 1), np.int64)
+        toks[:, 0] = cur
+        for k, i in enumerate(active):
+            hist = self._slots[i].history
+            toks[k, 1:] = self._tree_draft(i) if self._tree is not None \
+                else _spec.ngram_propose(hist, g, self._ngram_max)
+            s0 = int(row_starts[i])
+            ids[s0 + 1:s0 + g + 1] = toks[k, 1:]
+        return [act, toks]
 
     def _prime_draft(self, given, q_lens, base, ids, row_starts):
         """Write the draft model's cache over the tick's prefill rows
@@ -675,87 +850,138 @@ class ServingEngine:
                          int(pq.max())),
             last_rows=pslots[2][:1], fused=self.config.fused_decode)
 
-    def _draft_tick(self, active, base, ids, row_starts):
-        """This tick's drafts for the verifying slots ``active``: their
-        windows ``[last token, gamma drafts]`` go into ``ids`` (host
-        drafters) or stay on the device (the draft model, whose scan is
-        never read back before the verify). Returns ``(toks [A, gamma +
-        1] on the device, the draft's filtered distributions [A, gamma,
-        V] or None, the window rows' drafts still to place in the packed
-        ids: (row indices, tokens) or None)``."""
-        g = self._gamma
-        dev = self.device
-        cur = np.asarray([self._slots[i].last_token for i in active],
-                         np.int64)
-        if self._draft is None:
-            toks = np.empty((len(active), g + 1), np.int64)
-            toks[:, 0] = cur
-            for k, i in enumerate(active):
-                hist = self._slots[i].history
-                toks[k, 1:] = self._tree_draft(i) if self._tree is not None \
-                    else _spec.ngram_propose(hist, g, self._ngram_max)
-                s0 = int(row_starts[i])
-                ids[s0 + 1:s0 + g + 1] = toks[k, 1:]
-            return torch.from_numpy(toks).to(dev), None, None
-        # the draft model: its gamma + 1 steps over the verifying slots
-        act = np.asarray(active, np.int64)
-        widx = (row_starts[act].astype(np.int64)[:, None]
-                + np.arange(1, g + 1)[None, :]).reshape(-1)
-        up = torch.from_numpy(np.concatenate(
-            [act, base[act], cur, widx])).to(dev)
-        n = len(active)
-        act_d, lens_d, cur_d, widx_d = (up[:n], up[n:2 * n],
-                                        up[2 * n:3 * n], up[3 * n:])
-        props, dq, self._dpools = self._dloop(
-            self._dpools, self._tables_dev[act_d], lens_d.int(), cur_d,
-            self._samp()[act_d], self._gen)
-        toks = torch.cat([cur_d[:, None], props.long()], 1)
-        return toks, dq, (widx_d, props.reshape(-1))
+    def _run(self, lay, pack=None, carry=None) -> _Pipe:
+        """Launch one tick of layout ``lay`` from the host's ``pack`` or,
+        pipelined, from the ``carry`` vector the in-flight tick wrote. On
+        CUDA a pure tick replays its layout's graph (the first one runs
+        eagerly and captures it); any other tick runs its body eagerly.
+        An async pure decode tick's read-back is enqueued here."""
+        t = time.monotonic()
+        if self._last_dispatch_t is not None:
+            self._d_host_gap.observe(1000.0 * (t - self._last_dispatch_t))
+        self._last_dispatch_t = t
+        self._n_pure += lay.pure
+        if lay.pure and self._graphs_ok and self.cuda_graphs:
+            gr = self._graphs.get(lay)
+            if gr is None:
+                inp, outs = self._capture(lay, pack)
+            else:
+                if pack is not None:
+                    gr.inp.write(pack)
+                gr.graph.replay()
+                _add_counts(gr.counts)
+                if self._moe:
+                    _moe.MOE_STATS["grouped_mm_kernel"] = gr.moe_kernel
+                inp, outs = gr.inp.dev, gr.outs
+        else:
+            inp = carry if pack is None \
+                else torch.from_numpy(pack).to(self.device)
+            outs = self._tick_body(inp, lay)
+        if self._moe and _moe.MOE_STATS["grouped_mm_kernel"] == "fused_gmm":
+            self._moe_fused = True
+        self.last_logits = outs.logits
+        pipe = _Pipe(outs=outs, layout=lay, carry=inp if lay.carry else None)
+        if lay.carry and outs.flat.is_cuda:
+            # the one read-back, without blocking; the next replay of the
+            # graph writes the same flat, after this copy
+            pipe.host = torch.empty(outs.flat.shape, dtype=outs.flat.dtype,
+                                    pin_memory=True)
+            pipe.host.copy_(outs.flat, non_blocking=True)
+            pipe.event = torch.cuda.Event()
+            pipe.event.record()
+        return pipe
 
-    def _forward(self, active, q_lens, base, ids, row_slot, row_pos,
-                 row_starts, last_rows, spec):
-        """The tick's one ragged forward over the packed rows and its
-        sampling. Without speculation: ``(tokens [S] on the host,
-        None)``. With it: ``(first tokens [S], (out [A, gamma + 1], accept
-        [A, gamma], the heads' next drafts [A, gamma] or None))`` on the
-        host, the verify windows accepted (and, with a tree, the accepted
-        paths that leave the spine moved onto the linear tail of every
-        layer's pools)."""
+    def _capture(self, lay, pack):
+        """The first tick of a pure layout on CUDA: upload its vector into
+        the graph's input (kept for the graph's life), run the tick eagerly
+        on the capture stream (the warm-up: kernels set their attributes,
+        per-stream scratch grows), then capture the same body over the
+        same input; later ticks of ``lay`` replay it. A capture records
+        launches without running them, so the host counts it bumped are
+        taken back and kept as what each replay adds. A capture that fails
+        raises. Returns the warm-up's ``(input, outputs)``."""
+        dev = self.device
+        if self._cap_stream is None:
+            self._cap_stream = torch.cuda.Stream(dev)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        cs = self._cap_stream
+        inp = _Upload(pack.shape, torch.int64, dev)
+        inp.write(pack)
+        cs.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(cs):
+            outs = self._tick_body(inp.dev, lay)
+        before = _host_counts()
+        graph = torch.cuda.CUDAGraph()
+        if self._do_sample:
+            graph.register_generator_state(self._gen)
+        scratch = []
+        # capture_begin / capture_end, not torch.cuda.graph: its entry
+        # synchronizes the card and runs the collector, ~0.1 s a capture
+        with hold_scratch(scratch), torch.cuda.stream(cs):
+            graph.capture_begin(pool=self._graph_pool)
+            static = self._tick_body(inp.dev, lay)
+            graph.capture_end()
+        after = _host_counts()
+        delta = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        _add_counts({k: -v for k, v in delta.items()})
+        torch.cuda.current_stream(dev).wait_stream(cs)
+        self._graphs[lay] = _TickGraph(
+            graph, inp, static, delta, _moe.MOE_STATS["grouped_mm_kernel"],
+            scratch)
+        return inp.dev, outs
+
+    def _tick_body(self, inp, lay) -> _TickOut:
+        """The device half of a tick, from its packed vector ``inp``: the
+        draft model's loop, the ragged forward, sampling or acceptance,
+        the heads' next drafts and, for a carry layout, the next tick's
+        packs written over ``inp``. It reads nothing back and uploads
+        nothing, so a pure tick's body is what its graph captures."""
         cfg = self.config
         g = self._gamma
         n_slots = cfg.num_slots
         dev = self.device
-        tree_on = spec is not None and self._tree is not None
-        srows = [base, q_lens, row_starts, last_rows]
-        if tree_on:
-            flags = np.zeros(n_slots, np.int64)
-            flags[active] = 1           # prefill rows keep the linear bound
-            srows.append(flags)
-        # two uploads carry the tick's layout: the per-row triple and the
-        # per-slot rows
-        rows = torch.from_numpy(np.stack([ids, row_slot, row_pos])).to(dev)
-        slots = torch.from_numpy(np.stack(srows).astype(np.int32)).to(dev)
-        if spec is not None and spec[2] is not None:
-            widx, props = spec[2]       # the draft model's, on the device
-            rows[0].index_copy_(0, widx, props.to(rows.dtype))
-        meta = (slots[1], slots[2], rows[1], rows[2], int(q_lens.max()))
+        r, a = lay.rows, lay.active
+        o = 3 * r + lay.srows * n_slots
+        rows = inp[:3 * r].view(3, r).to(torch.int32)
+        slots = inp[3 * r:o].view(lay.srows, n_slots).to(torch.int32)
+        act = toks = dq = None
+        if a:
+            act = inp[o:o + a]
+            if self._draft is None:
+                toks = inp[o + a:o + a + a * (g + 1)].view(a, g + 1)
+            else:
+                # the draft model's gamma + 1 steps over the verifying
+                # slots; its drafts go into their window rows
+                cur = inp[o + a:o + 2 * a]
+                props, dq, self._dpools = self._dloop(
+                    self._dpools, self._tables_dev[act], slots[0][act], cur,
+                    self._samp()[act], self._gen)
+                toks = torch.cat([cur[:, None], props.long()], 1)
+                rows[0].index_copy_(0, inp[o + 2 * a:o + 2 * a + a * g],
+                                    props.reshape(-1).to(rows.dtype))
+        tree_on = bool(a) and self._tree is not None
+        meta = (slots[1], slots[2], rows[1], rows[2], lay.w_max)
         take = slots[3]
-        if spec is not None:
+        if a:
             # one LM head over each slot's continuation row and window
             take = torch.cat([slots[3][:, None], slots[2][:, None]
                               + torch.arange(g + 1, device=dev,
                                              dtype=torch.int32)[None, :]],
-                             1).reshape(-1).clamp(0, int(q_lens.sum()) - 1)
+                             1).reshape(-1).clamp(0, r - 1)
         counts = []                     # each sparse layer's expert counts
         tap = _moe.serving_stats_tap(counts) if self._moe_tap_on \
             else contextlib.nullcontext()
+        # a pipelined tick's parked rows route but are no traffic
+        mask = _moe.serving_rows_mask(rows[2] < self._overflow) \
+            if lay.carry and self._moe_tap_on else contextlib.nullcontext()
         # a flagged slot's rows are its window's g + 1
         scope = spec_tree_scope(self._tree, slots[4], g + 1) if tree_on \
             else contextlib.nullcontext()
         if self._moe:
             _moe.MOE_STATS["grouped_mm_kernel"] = None
-        heads_on = spec is not None and self._heads is not None
-        with tap, scope:
+        heads_on = bool(a) and self._heads is not None
+        with tap, mask, scope:
             logits, self._pools = self.model(
                 rows[0], caches=self._pools, block_tables=self._tables_dev,
                 cache_lens=slots[0], ragged_meta=meta, last_rows=take,
@@ -763,14 +989,13 @@ class ServingEngine:
                 **({"return_hidden": True} if heads_on else {}))
         if heads_on:
             logits, hid = logits
-        self.last_logits = logits
-        if spec is None:
-            parts = [self._select(logits).long()]
+        path = None
+        if not a:
+            tok = self._select(logits).long()
+            parts = [tok]
         else:
             lg = logits.reshape(n_slots, g + 2, -1)
             first = self._select(lg[:, 0])
-            act = torch.as_tensor(active, device=dev)
-            toks, dq = spec[0], spec[1]
             samp = self._samp()[act] if self._do_sample else None
             f = _filter_logits(
                 lg[act, 1:], do_sample=self._do_sample,
@@ -796,39 +1021,186 @@ class ServingEngine:
                     n_acc).reshape(-1))
         if counts:      # one read-back for the tokens and the counts
             parts.append(torch.stack(counts).reshape(-1).long())
-        flat = torch.cat(parts).cpu().numpy()
+        if lay.carry:
+            self._write_carry(inp, rows, slots, tok, lay)
+        return _TickOut(torch.cat(parts), logits, path, slots[0], act,
+                        (len(counts), counts[0].numel()) if counts else None)
+
+    def _write_carry(self, inp, rows, slots, tok, lay):
+        """The next tick's packs over this decode tick's (the reference's
+        in-executable carry): each live slot's token at its length + 1,
+        its budget less one; a slot done by EOS or by its budget parks its
+        row at the overflow position, so a pipelined tick's K/V write for
+        it goes to the null block and its token is dropped at commit."""
+        r, n_slots = lay.rows, self.config.num_slots
+        base, q_lens, budget = (slots[0].long(), slots[1].long(),
+                                slots[-1].long())
+        live = q_lens > 0
+        done = live & ((tok == self._eos) | (budget <= 1))
+        nxt = torch.where(live, base + 1, base)
+        rs = rows[1].long()
+        park = done[rs]
+        o = 3 * r
+        inp[:r] = torch.where(park, self._pad, tok[rs])
+        inp[2 * r:o] = torch.where(park, self._overflow, nxt[rs])
+        inp[o:o + n_slots] = nxt
+        inp[o + (lay.srows - 1) * n_slots:o + lay.srows * n_slots] = \
+            torch.where(live, budget - 1, budget)
+
+    def _commit(self, pipe) -> List[tuple]:
+        """Commit half of one tick: read its vector back (an async tick's
+        pinned copy once its event fired), observe the MoE routing, move a
+        tree's accepted paths onto the linear tail, then commit the decode
+        or verify rows and the prefill progress. A slot no longer seated
+        with the request it had at dispatch (the pipeline ran a tick past
+        its retirement) drops its token."""
+        outs = pipe.outs
+        if pipe.event is not None:
+            pipe.event.synchronize()
+            flat = pipe.host.numpy()
+        else:
+            flat = outs.flat.cpu().numpy()
+        g = self._gamma
+        n_slots = self.config.num_slots
+        dev = self.device
+        emitted: List[tuple] = []
         tok = flat[:n_slots]
-        if counts:
-            self._observe_moe(flat[flat.size - len(counts) * counts[0]
-                                   .numel():].reshape(len(counts), -1))
-        if self._moe and _moe.MOE_STATS["grouped_mm_kernel"] == "fused_gmm":
-            self._moe_fused = True
-        if spec is None:
-            return tok, None
-        a = len(active)
-        o = n_slots
-        out = flat[o:o + a * (g + 1)].reshape(a, g + 1)
-        o += a * (g + 1)
-        accept = flat[o:o + a * g].reshape(a, g).astype(bool)
-        o += a * g
-        if self._tree is not None:
-            # the accepted root path onto the linear tail of every layer,
-            # its addresses worked out once; a path along the spine (node
-            # j at depth j, a chain's always) is in place already
-            path_h = flat[o:o + a * (g + 1)].reshape(a, g + 1)
+        if outs.moe_counts:
+            n = outs.moe_counts[0] * outs.moe_counts[1]
+            self._observe_moe(flat[flat.size - n:].reshape(outs.moe_counts))
+        committed = [i for i in pipe.active if self._slots[i] is not None
+                     and self._slots[i].rid == pipe.rid_of[i]]
+        a = pipe.layout.active
+        if not a:
+            for i in committed:
+                slot = self._slots[i]
+                t = int(tok[i])
+                slot.cache_len += 1
+                slot.last_token = t
+                slot.n_emitted += 1
+                slot.history.append(t)
+                self._emit(slot.rid, t)
+                emitted.append((slot.rid, t))
+                if t == self._eos or slot.n_emitted >= slot.max_new:
+                    self._retire(i)
+        else:
+            o = n_slots
+            out = flat[o:o + a * (g + 1)].reshape(a, g + 1)
             o += a * (g + 1)
-            n_keep = accept.sum(1) + 1
-            off = [k for k in range(a) if np.any(
-                path_h[k, :n_keep[k]] != np.arange(n_keep[k]))]
-            if off:
-                sel = act[torch.as_tensor(off, device=dev)]
-                moves = _pc.window_moves(
-                    self._bs, self._tables_dev[sel], slots[0][sel],
-                    path[off], torch.as_tensor(n_keep[off], device=dev))
-                for kp, vp in self._pools:
-                    _pc.move_rows(kp, vp, moves)
-        props = flat[o:o + a * g].reshape(a, g) if heads_on else None
-        return tok, (out, accept, props)
+            accept = flat[o:o + a * g].reshape(a, g).astype(bool)
+            o += a * g
+            if self._tree is not None:
+                # the accepted root path onto the linear tail of every
+                # layer, its addresses worked out once; a path along the
+                # spine (node j at depth j, a chain's always) is in place
+                path_h = flat[o:o + a * (g + 1)].reshape(a, g + 1)
+                o += a * (g + 1)
+                n_keep = accept.sum(1) + 1
+                off = [k for k in range(a) if np.any(
+                    path_h[k, :n_keep[k]] != np.arange(n_keep[k]))]
+                if off:
+                    sel = outs.act[torch.as_tensor(off, device=dev)]
+                    moves = _pc.window_moves(
+                        self._bs, self._tables_dev[sel], outs.base[sel],
+                        outs.path[off], torch.as_tensor(n_keep[off],
+                                                        device=dev))
+                    for kp, vp in self._pools:
+                        _pc.move_rows(kp, vp, moves)
+            props = flat[o:o + a * g].reshape(a, g) \
+                if self._heads is not None else None
+            for k, i in enumerate(pipe.active):
+                if i not in committed:
+                    continue
+                self._commit_verify_window(i, out[k], accept[k], emitted)
+                if props is not None and self._slots[i] is not None:
+                    # the heads' tree for the slot's next tick
+                    self._slot_props[i] = props[k]
+        # -- commit prefill progress -------------------------------------
+        for i, k in pipe.given.items():
+            slot = self._slots[i]
+            slot.pend_pos += k
+            slot.cache_len = slot.pend_pos
+            self._n_prefill_chunks += 1
+            if slot.pend_pos >= int(slot.prompt.size):
+                # the chunk's last row is the final prompt row: its logits
+                # give the request's first token
+                self._finish_prefill(i, int(tok[i]), emitted)
+        return emitted
+
+    # -- the async pipeline ----------------------------------------------
+
+    def _step_async(self) -> List[tuple]:
+        """One tick with depth-1 dispatch-ahead: while the composition
+        holds, dispatch tick N + 1 from tick N's carry and then commit N,
+        so the host's bookkeeping overlaps the device's work; otherwise
+        commit the in-flight tick first (a flush) and dispatch as the
+        synchronous engine does."""
+        prev = self._pipe
+        if prev is not None and self._pipe_ready(prev):
+            self._pipe = self._dispatch_pipelined(prev)
+            return self._commit(prev)
+        emitted = self._flush_pipe()
+        pipe = self._dispatch()
+        if pipe is None:
+            return emitted
+        if pipe.carry is not None:
+            self._pipe = pipe           # its commit lags one call
+        else:
+            emitted.extend(self._commit(pipe))
+        return emitted
+
+    def _pipe_ready(self, pipe) -> bool:
+        """May the next tick run from the in-flight tick's carry? Only
+        while the synchronous engine would dispatch the same rows: a pure
+        decode tick, every slot still seated with its request and none on
+        its last budgeted token (it retires at the in-flight commit), no
+        prompt pending, and a queue that waits only when nothing can seat
+        it at that commit: no free slot and no EOS configured. Then grow
+        the blocks the pipelined tick writes into."""
+        if pipe.carry is None:
+            return False
+        for i in pipe.active:
+            s = self._slots[i]
+            if s is None or s.rid != pipe.rid_of[i] \
+                    or s.max_new - s.n_emitted <= 1:
+                return False
+        if self._queue and (self._eos >= 0 or None in self._slots):
+            return False
+        if any(s is not None and s.pend_pos is not None
+               for s in self._slots):
+            return False
+        # the in-flight tick writes position cache_len and the pipelined
+        # one cache_len + 1, both uncommitted here. Admission reserved
+        # each request's worst-case blocks, so this growth cannot run dry
+        # (the reference flushes on a dry pool; here it never is).
+        self._ensure_blocks(pipe.active, horizon=2)
+        return True
+
+    def _dispatch_pipelined(self, prev) -> _Pipe:
+        """Dispatch the next tick from the in-flight tick's carry: no
+        packing and no token upload (a bare replay on CUDA); the block
+        table is uploaded again only when growth changed it."""
+        self._sync_uploads()
+        with torch.no_grad():
+            pipe = self._run(prev.layout, carry=prev.carry)
+        pipe.active, pipe.given, pipe.rid_of = prev.active, {}, prev.rid_of
+        self._n_pipelined += 1
+        self._n_ticks += 1
+        self._n_rows += prev.layout.rows
+        # the committed lengths lag the device by a tick: a pipelined row
+        # attends cache_len + 2 positions
+        self._kv_step_bytes_last = int(sum(
+            self._slots[i].cache_len + 2 for i in prev.active)
+            * self._kv_pos_bytes)
+        return pipe
+
+    def _flush_pipe(self) -> List[tuple]:
+        """Commit the in-flight tick now; a no-op without one."""
+        pipe, self._pipe = self._pipe, None
+        if pipe is None:
+            return []
+        self._n_pipe_flushes += 1
+        return self._commit(pipe)
 
     def _head_drafts(self, hid, path, n_acc):
         """The draft heads' tree for each verifying slot's next tick,
@@ -867,11 +1239,18 @@ class ServingEngine:
 
     def _samp(self):
         """The per-slot knobs ``[S, 3]`` (temperature, top_k, top_p) on
-        the device, uploaded again only after a slot's row changed."""
-        if self._samp_dev is None:
-            self._samp_dev = torch.from_numpy(self._slot_samp).to(
-                self.device)
-        return self._samp_dev
+        the device, one tensor written in place (:meth:`_sync_uploads`)."""
+        return self._samp_dev.dev
+
+    def _sync_uploads(self):
+        """Upload the block tables and the sampling knobs where the host
+        changed them, into the tensors a graph reads them from."""
+        if self._tables_dirty:
+            self._tables_up.write(self._tables)
+            self._tables_dirty = False
+        if self._samp_dirty:
+            self._samp_dev.write(self._slot_samp)
+            self._samp_dirty = False
 
     def _select(self, logits):
         if not self._do_sample:
@@ -945,6 +1324,7 @@ class ServingEngine:
         slot = self._slots[i]
         kept, n_acc = _spec.commit_window(
             out_row, accept_row, slot.max_new - slot.n_emitted, self._eos)
+        self._d_accept.observe(float(len(kept)))
         slot.n_emitted += len(kept)
         slot.history.extend(kept)
         for t in kept:
@@ -974,7 +1354,7 @@ class ServingEngine:
                 row[2] = req.top_p
         if not np.array_equal(self._slot_samp[i], row):
             self._slot_samp[i] = row
-            self._samp_dev = None
+            self._samp_dirty = True
 
     def _emit(self, rid, tok):
         """Single exit point for generated tokens."""
@@ -1006,7 +1386,7 @@ class ServingEngine:
             self._reserved += worst - len(blocks)
             self._tables[i, :] = 0
             self._tables[i, :len(blocks)] = blocks
-            self._tables_dev = None
+            self._tables_dirty = True
             self._results[req.request_id] = []
             self._slots[i] = _Slot(req.request_id, blocks, worst,
                                    req.max_new_tokens, req.prompt)
@@ -1023,7 +1403,7 @@ class ServingEngine:
                 (blk,) = self._alloc.alloc(1)
                 self._tables[i, len(slot.blocks)] = blk
                 slot.blocks.append(blk)
-                self._tables_dev = None
+                self._tables_dirty = True
                 self._reserved -= 1
 
     def _trim_blocks(self, i):
@@ -1036,7 +1416,7 @@ class ServingEngine:
             self._alloc.free([slot.blocks.pop()])
             self._tables[i, len(slot.blocks)] = 0
             self._reserved += 1
-            self._tables_dev = None
+            self._tables_dirty = True
 
     def _finish_prefill(self, i, tok, emitted):
         """Record and emit the first token; retire at once on EOS or
@@ -1057,7 +1437,7 @@ class ServingEngine:
         self._alloc.free(slot.blocks)
         self._reserved -= slot.worst_blocks - len(slot.blocks)
         self._tables[i, :] = 0
-        self._tables_dev = None
+        self._tables_dirty = True
         self._slots[i] = None
         self._set_slot_samp(i)
         self._submit_t.pop(slot.rid, None)

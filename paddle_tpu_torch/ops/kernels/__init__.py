@@ -15,7 +15,15 @@ carries a node whose backward raises, on both devices (as
 differentiating a ``pallas_call`` without a VJP fails in JAX). Under
 ``torch.no_grad()`` (the serving tick, ``generate()``) the check is all
 they pay.
+
+A wrapper whose kernel takes a per-stream scratch (the Hopper paged
+attention body's split records, K3's partials) keeps it in a cache that
+a larger call on the same stream replaces. :func:`hold_scratch` collects
+every scratch tensor handed to a kernel inside it, so that a CUDA graph
+captured there keeps the memory its kernels write for as long as it
+lives.
 """
+import contextlib
 import functools
 
 import torch
@@ -42,9 +50,31 @@ launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
                  "flashmask_dkv": 0}
 
 
+_HOLD = []      # the lists hold_scratch collects into
+
+
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def hold_scratch(sink: list):
+    """Within the context, every per-stream scratch tensor that a wrapper
+    hands its kernel is appended to ``sink`` (see the module docstring)."""
+    _HOLD.append(sink)
+    try:
+        yield sink
+    finally:
+        _HOLD.pop()
+
+
+def held(*tensors):
+    """Record ``tensors`` (the scratch of a launch) in every active
+    :func:`hold_scratch`; returns them as a tuple."""
+    for sink in _HOLD:
+        sink.extend(t for t in tensors if t is not None)
+    return tensors
 
 
 class _NoBackward(torch.autograd.Function):
@@ -90,4 +120,5 @@ def no_backward(name):
     return wrap
 
 
-__all__ = ["launch_counts", "reset_launch_counts", "no_backward"]
+__all__ = ["launch_counts", "reset_launch_counts", "no_backward",
+           "hold_scratch", "held"]

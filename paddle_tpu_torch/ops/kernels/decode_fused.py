@@ -31,7 +31,7 @@ import torch
 from ...incubate.nn.functional import swiglu
 from ...nn.functional.activation import gelu
 from ...nn.functional.norm import layer_norm, rms_norm
-from . import _build, launch_counts, no_backward
+from . import _build, held, launch_counts, no_backward
 
 __all__ = ["norm_matmul", "matmul_residual", "plain_norm_matmul",
            "plain_matmul_residual"]
@@ -138,7 +138,9 @@ def _scratch(device, stream, rows, widths, **need):
     s = _SCRATCH.get((device, stream))
     if s is None:
         s = _SCRATCH[(device, stream)] = _Scratch(device)
-    return s.take(rows, sum(-(-int(n) // _BN) for n in widths), **need)
+    s.take(rows, sum(-(-int(n) // _BN) for n in widths), **need)
+    held(s.ws, s.flags, s.stats, s.rows)    # a graph keeps what it captured
+    return s
 
 
 def _check_same(ref, named):

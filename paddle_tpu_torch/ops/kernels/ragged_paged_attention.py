@@ -52,7 +52,7 @@ import math
 
 import torch
 
-from . import _build, launch_counts, no_backward
+from . import _build, held, launch_counts, no_backward
 from ..paged_cache import QuantKV, kv_dequantize
 
 __all__ = ["ragged_paged_attention", "plain_ragged_paged_attention",
@@ -203,7 +203,9 @@ def sm90_scratch(device, stream, floats, counters):
     """The Hopper body's scratch of ``stream`` (a handle) on
     ``device``, grown to ``floats`` partial floats and ``counters``
     arrival counters (zeros: every call leaves them zero). Calls on one
-    stream run one after another, so they share it."""
+    stream run one after another, so they share it; a growth replaces
+    the tensors, so a CUDA graph holds what it captured
+    (:func:`~paddle_tpu_torch.ops.kernels.hold_scratch`)."""
     sc = _SCRATCH.get((device, stream))
     if sc is None or sc[0].numel() < floats or sc[1].numel() < counters:
         old = (0, 0) if sc is None else (sc[0].numel(), sc[1].numel())
@@ -212,7 +214,7 @@ def sm90_scratch(device, stream, floats, counters):
                         dtype=torch.float32),
             torch.zeros(max(counters, old[1], 1), device=device,
                         dtype=torch.int32))
-    return sc
+    return held(*sc)
 
 
 def _lib():

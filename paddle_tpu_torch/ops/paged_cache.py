@@ -93,7 +93,9 @@ def kv_quantize(x):
     even, as the reference's ``jnp.round``, so both store the same
     bytes."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) * _INV127.to(xf.device)
+    # a CPU scalar tensor: read on the host, so no copy to the device
+    # (which a CUDA graph capture would refuse)
+    scale = xf.abs().amax(dim=-1) * _INV127
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(xf / safe[..., None]), -127.0, 127.0)
     return q.to(torch.int8), scale

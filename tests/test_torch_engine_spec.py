@@ -527,9 +527,8 @@ def test_later_slices_stay_refused(models):
                                             num_speculative_tokens=2),
                         device="cpu")
     st = eng.stats()
-    with pytest.raises(NotImplementedError, match="digest"):
-        st["spec_accept_len"]
     with pytest.raises(KeyError):
         st["no_such_key"]
-    assert "spec_accept_len" not in st and st["spec_tree_nodes"] == 0
+    # the digest of tokens a verify window is ported: zeroed before any
+    assert st["spec_accept_len"]["count"] == 0 and st["spec_tree_nodes"] == 0
     eng.shutdown()

@@ -1,0 +1,161 @@
+"""The serving engine's CUDA graphs and async pipeline on the card. Every
+test here needs a CUDA device and skips itself without one (a graph has
+no CPU mode). The file imports neither ``jax`` nor ``paddle_tpu``:
+
+    python -m pytest --noconftest -q tests/test_torch_graphs_gpu.py
+
+Each tick kind (decode, linear verify, tree verify, draft heads, the
+model drafting for itself; decode and verify also sampling, whose graphs
+register the engine's generator) on bfloat16, int8 and float32 pools (GPT's,
+under a bfloat16 model), and a DeepSeek-MoE decode tick, is served by
+two engines in lockstep (``chip_smoke.graph_lockstep``): one replays its
+pure ticks from CUDA graphs, the other runs every tick eagerly; each
+tick's tokens, logits and added launch counts, and the pools at the end,
+must be equal to the bit. A second wave of the same traffic captures no
+further graph; a graph captured before a larger capture on the same
+stream grew the kernels' per-stream scratch still replays to the bit;
+and ``async_depth=1`` streams what ``async_depth=0`` does."""
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import graph_lockstep
+from paddle_tpu_torch.inference import ServingConfig, ServingEngine
+from paddle_tpu_torch.models import (DeepseekMoeConfig,
+                                     DeepseekMoeForCausalLM, GPTConfig,
+                                     GPTForCausalLM, LlamaConfig,
+                                     LlamaForCausalLM)
+from paddle_tpu_torch.ops import kernels
+
+CORE = dict(num_slots=4, block_size=16, max_model_len=256, prefill_chunk=32)
+KINDS = {"decode": {},
+         "verify": dict(num_speculative_tokens=2),
+         "tree": dict(num_speculative_tokens=3, spec_tree=(0, 0, 1)),
+         "heads": dict(num_speculative_tokens=3, spec_tree=(0, 0, 1),
+                       drafter="heads"),
+         "self_draft": dict(num_speculative_tokens=2, drafter="model"),
+         "sampling": dict(decode_strategy="sampling", temperature=0.9,
+                          top_k=20, seed=4),
+         "verify_sampling": dict(num_speculative_tokens=2,
+                                 decode_strategy="sampling", top_p=0.9,
+                                 seed=4)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _model(pool):
+    """A tiny bf16 model whose pools are ``pool``: Llama (bf16 or int8
+    pools) or GPT (float32 pools under a bf16 model)."""
+    if pool == "float32":
+        m = GPTForCausalLM(GPTConfig.tiny(vocab=512, hidden=256, heads=4),
+                           device="cuda", seed=3).to(torch.bfloat16)
+    else:
+        cfg = LlamaConfig.tiny(vocab=512, hidden=256, heads=4, kv_heads=2,
+                               ffn=512)
+        cfg.dtype = "bfloat16"
+        m = LlamaForCausalLM(cfg, device="cuda", seed=3)
+    return m.eval()
+
+
+def _prompts(vocab, lens=(40, 9, 70, 20, 33), seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, size=n) for n in lens]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_replay_equals_eager_tick(cuda, kind, pool):
+    model = _model(pool)
+    kw = dict(CORE, **KINDS[kind])
+    if pool == "int8":
+        kw["kv_cache_dtype"] = "int8"
+    st = graph_lockstep(
+        torch, kernels, ServingEngine, model, ServingConfig(**kw),
+        _prompts(model.config.vocab_size), 12, f"{kind} {pool}",
+        draft=model if kind == "self_draft" else None)
+    assert st["executables_compiled"] <= CORE["num_slots"]
+
+
+@pytest.mark.gpu
+def test_moe_replay_equals_eager_tick(cuda):
+    cfg = DeepseekMoeConfig.tiny(vocab=512, hidden=256, heads=4,
+                                 kv_heads=4)
+    cfg.dtype, cfg.dropless = "bfloat16", True
+    model = DeepseekMoeForCausalLM(cfg, device="cuda", seed=5).eval()
+    for depth in (0, 1):
+        st = graph_lockstep(
+            torch, kernels, ServingEngine, model,
+            ServingConfig(**CORE, async_depth=depth), _prompts(512), 10,
+            f"moe async {depth}")
+        assert st["moe_dispatches"] > 0
+
+
+@pytest.mark.gpu
+def test_second_wave_captures_nothing(cuda):
+    model = _model("bfloat16")
+    eng = ServingEngine(model, ServingConfig(**CORE, async_depth=1))
+    eng.serve(_prompts(512), 10)
+    n = eng.stats()["executables_compiled"]
+    pure = eng.stats()["pure_ticks"]
+    eng.serve(_prompts(512, seed=1), 10)
+    st = eng.stats()
+    assert n >= 1 and st["executables_compiled"] == n
+    assert st["pure_ticks"] > pure and st["pipelined_ticks"] > 0
+    eng.shutdown()
+
+
+@pytest.mark.gpu
+def test_scratch_outlives_a_larger_capture(cuda):
+    """One slot decodes alone (a graph for one seated slot), a second
+    joins (its warm-up grows K3's per-stream scratch on the capture
+    stream, its capture takes the larger one), then the first leaves
+    and the one-slot graph replays: it still writes the scratch it was
+    captured with, which is held by it."""
+    model = _model("bfloat16")
+    cfg = ServingConfig(**dict(CORE, num_slots=2))
+    short, long_ = _prompts(512)[1], _prompts(512)[0]
+    eng = ServingEngine(model, cfg)
+    rid0 = eng.submit(short, 6)
+    while eng.stats()["executables_compiled"] < 1:
+        eng.step()
+    g1 = next(iter(eng._graphs.values()))
+    held = [(t, t.data_ptr()) for t in g1.scratch]
+    assert held
+    joined = eng.stats()["ticks"]
+    rid1 = eng.submit(long_, 20)
+    done = eng.run()
+    assert eng.stats()["executables_compiled"] == 2
+    assert all(t.data_ptr() == p for t, p in held)
+    # the same schedule, every tick eager
+    ref = ServingEngine(model, cfg)
+    ref.cuda_graphs = False
+    r0 = ref.submit(short, 6)
+    while ref.stats()["ticks"] < joined:
+        ref.step()
+    r1 = ref.submit(long_, 20)
+    want = ref.run()
+    np.testing.assert_array_equal(done[rid0], want[r0])
+    np.testing.assert_array_equal(done[rid1], want[r1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_async_on_equals_off(cuda, kind):
+    model = _model("bfloat16")
+    outs = []
+    for depth in (0, 1):
+        eng = ServingEngine(model, ServingConfig(
+            **CORE, **KINDS[kind], async_depth=depth))
+        outs.append(eng.serve(_prompts(512), 12))
+        st = eng.stats()
+        eng.shutdown()
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    if kind == "decode":
+        assert st["pipelined_ticks"] > 0

@@ -1547,7 +1547,9 @@ def test_ragged_tree_refusals(cuda):
 
 def _plain_serving_patches():
     """Route the serving path's kernels (K2r, K2d, K2v, K3a, K3b) to their
-    plain versions."""
+    plain versions, with the engine's CUDA graphs off (the plain versions
+    read values back, which a capture cannot)."""
+    from paddle_tpu_torch.inference import ServingEngine
     def plain_attn(q, k_pool, v_pool, tables, ctx, q_lens, starts, w_max,
                    sm_scale=None, tree_anc=None, tree_slots=None,
                    tree_rows=None):
@@ -1555,7 +1557,8 @@ def _plain_serving_patches():
             q, k_pool, v_pool, tables, ctx, q_lens, starts,
             sm_scale=sm_scale, tree_anc=tree_anc, tree_slots=tree_slots,
             tree_rows=tree_rows)
-    return [mock.patch.object(rpa, "ragged_paged_attention", plain_attn),
+    return [mock.patch.object(ServingEngine, "cuda_graphs", False),
+            mock.patch.object(rpa, "ragged_paged_attention", plain_attn),
             mock.patch.object(df, "norm_matmul", df.plain_norm_matmul),
             mock.patch.object(df, "matmul_residual",
                               df.plain_matmul_residual)] + [

@@ -229,6 +229,13 @@ def test_later_slice_features_raise(field, value):
         with pytest.raises(ValueError, match="kv_cache_dtype"):
             ServingConfig(kv_cache_dtype="fp8")
         return
+    if field == "async_depth":
+        # the async pipeline is ported: the config takes depth 1, and only
+        # what the reference refuses raises
+        assert ServingConfig(**{field: value}).async_depth == value
+        with pytest.raises(ValueError, match="async_depth"):
+            ServingConfig(async_depth=2)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingConfig(**{field: value})
 

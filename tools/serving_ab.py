@@ -8,8 +8,10 @@ in turns, each in a process of its own, on one GPU:
 ``OLD_CHECKOUT`` is a parent's tree unpacked with ``git archive`` (it
 needs ``chip_smoke.py`` and ``paddle_tpu_torch``) under the ignored
 ``build/``. Each run builds its checkout's kernels, serves the traffic
-once to warm up, once measured (tokens/s, TTFT) and profiles 4 ticks of
-a second wave (device time, idle share), all through the checkout's own
+through one engine once to warm up (where a checkout with CUDA graphs
+captures them) and once measured (tokens/s, TTFT), profiles 4 ticks of
+a third wave and 4 pure ticks (every seated slot decoding) of a fourth
+(device time, idle share), all through the checkout's own
 ``chip_smoke`` functions. The order is A B B A, ``--pairs`` times (the
 host's speed drifts within a call, so only neighbouring runs compare).
 """
@@ -30,15 +32,23 @@ cfg = LlamaConfig.llama3_8b()
 cfg.dtype = "bfloat16"
 model = LlamaForCausalLM(cfg, device="cuda", seed=cs.SEED)
 lens, prompts = cs.serving_prompts(cfg.vocab_size, cs.REQUESTS, cs.SEED)
+engine = ServingEngine(model, ServingConfig(
+    num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
+    max_new_tokens=32), device="cuda")
 for tag in ("warm-up", "phase 3"):
-    engine = ServingEngine(model, ServingConfig(
-        num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
-        max_new_tokens=32), device="cuda")
     cs.serve_run(torch, kernels, engine, prompts, lens, tag,
                  cs.SERVING_KERNELS)
-    if tag == "warm-up":
-        engine.shutdown()
 cs.tick_window(torch, engine, prompts[:8], cs.TICK_WINDOW, "phase 3")
+# 4 pure ticks (every seated slot decoding) of a third wave
+for p in prompts[:8]:
+    engine.submit(p)
+while engine.num_queued or any(s is not None and s.pend_pos is not None
+                               for s in engine._slots):
+    engine.step()
+wall, busy, _ = cs.profiled(torch, engine.step, cs.TICK_WINDOW, 5)
+engine.run()
+print(f"phase 3 pure ticks: {cs.TICK_WINDOW} ticks, wall {wall:.3f} ms, "
+      f"device busy {busy:.3f} ms -> idle share {1 - busy / wall:.4f}")
 engine.shutdown()
 '''
 
