@@ -60,9 +60,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    dtypes;
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
-   bfloat16 with seeded random weights, counting kernel launches (pure
-   ticks replay CUDA graphs), then profile 4 ticks of a second wave
-   (idle share, host scalar reads a tick) and 4 pure ticks of a third;
+   bfloat16 with seeded random weights, counting kernel launches (every
+   tick replays a CUDA graph; ticks with prefill rows at the static
+   width), then profile 4 ticks of a second wave, ticks with prefill rows
+   (wall and device ms a tick, idle share, host scalar reads a tick) and
+   4 pure ticks of a third;
 4. serve a short float32 run at reduced depth twice — through the
    kernels and through their plain versions — and compare the first
    tick's logits and the token streams (a divergence fails unless the
@@ -192,20 +194,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     tokens/s, MFU, idle share, peak memory, K1 at D 64 a layer a step,
     falling losses), then 2 float32 layers' loss and gradients through K1
     against its plain versions; the phase's seconds;
-19. CUDA graphs and the async pipeline (on the models of phases 3, 9
+19. CUDA graphs and the async pipeline (on the models of phases 3, 7, 9
     and 18, while they are loaded): (a) two engines stepped in lockstep,
-    one replaying its pure ticks (every seated slot decoding or
-    verifying) from CUDA graphs, one running every tick eagerly, on 4
-    prompts of 96 tokens, 16 new: Llama-3-8B (32 layers, bf16), the same
-    on int8 pools and drafting for itself at gamma 4, DeepSeek-MoE-16B
-    and GPT on float32 pools; every tick's tokens and logits and, (c),
-    the launch counts it adds, and the pools at the end, equal to the
-    bit, and at least one replay; (b) phase 3's engine with
-    ``async_depth=1`` serves phase 3's traffic twice: streams equal to
-    phase 3's token for token, no graph captured in the second wave,
-    tokens/s, TTFT, ticks, pure ticks, pipeline flushes, host gap p50 /
-    p99 and graphs logged, and 4 profiled pure ticks (wall ms, idle
-    share) beside phase 3's;
+    one replaying every tick from CUDA graphs, one running every tick
+    eagerly at the same widths, on 4 prompts of 300 tokens (three
+    128-row chunks each) submitted 3 ticks apart, 16 new: Llama-3-8B (32
+    layers, bf16), the same on int8 pools and drafting for itself at
+    gamma 4, DeepSeek-MoE-16B and GPT on float32 pools; every tick's
+    tokens and logits and, (c), the launch counts it adds, and the pools
+    at the end, equal to the bit, and at least one replay of a pure
+    tick's graph and one of a mixed tick's (prefill rows, at the static
+    width); (b) phase 3's engine with ``async_depth=1`` serves phase 3's
+    traffic twice: streams equal to phase 3's token for token, no graph
+    captured in the second wave, tokens/s, TTFT, ticks, pure ticks,
+    pipeline flushes, host gap p50 / p99 and graphs logged, and 4
+    profiled pure ticks (wall ms, idle share) beside phase 3's; (d)
+    phase 7's paged, n-gram, self-drafted and tree ``generate()`` runs
+    (steps replayed from graphs) again with every step eager: tokens,
+    scores and launch counts equal to the bit, ms a target forward of
+    both logged;
 20. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
@@ -286,6 +293,8 @@ PAGED_T = 5                          # K2v's window: gamma 4 + 1
 GENERATE = dict(batch=4, prompt=512, motif=64, new=64, gamma=4,
                 draft_layers=2, profiled_new=16)
 PHASE8 = dict(layers=2, batch=2, prompt=256, motif=32, new=32, gamma=4)
+# phase 19 (d): the generate() runs of phase 7 held graphed against eager
+GRAPHED_GENERATE = ("paged", "ngram", "self", "tree")
 GRAD_RTOL = 1e-4      # phase 6: max |kernel - plain| / max |plain|
 LOSS_RTOL = 1e-5      # phase 6: the loss
 # phase 2's K3 cases at a prefill tick's rows: Llama-3-8B's (the kernels
@@ -628,9 +637,13 @@ def check_ragged(torch, rpa, dtype, timing, heads=32, kv_heads=8,
             plain_ms=time_ms(torch, lambda: run(
                 rpa.plain_ragged_paged_attention)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        # the wrapper zero-fills its output (pad rows stay zero): that
+        # fill alone, timed the same way
+        fill_ms = time_ms(torch, lambda: torch.zeros_like(q))
         log(f"  {name} [{dtype}] {model} {tick} tick, "
             f"{heads}/{kv_heads} heads D {D}, {R} rows: "
-            f"ms={rows[tick]['ms']:.4f} plain_ms="
+            f"ms={rows[tick]['ms']:.4f} (its output's zero fill alone "
+            f"{fill_ms:.4f}) plain_ms="
             f"{rows[tick]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
             f"{nbytes / 1e6:.2f} MB; {copies} pool copies)")
     if fails:
@@ -1862,8 +1875,10 @@ def profiled(torch, step, n, row_limit, cpu_rows=0, by_kernel=None):
 
 def plain_patches(df, rpa):
     """Route the model's kernel calls to the plain versions (phase 4's
-    reference run on the card), with the engines' CUDA graphs off: the
-    plain versions read values back, which a capture cannot."""
+    reference run on the card), with the engines' and ``generate()``'s
+    CUDA graphs off: the plain versions read values back, which a capture
+    cannot."""
+    from paddle_tpu_torch.generation import GenerationMixin
     from paddle_tpu_torch.inference.serving import ServingEngine
     def plain_attn(q, k_pool, v_pool, tables, ctx, q_lens, starts, w_max,
                    sm_scale=None, tree_anc=None, tree_slots=None,
@@ -1873,6 +1888,7 @@ def plain_patches(df, rpa):
             sm_scale=sm_scale, tree_anc=tree_anc, tree_slots=tree_slots,
             tree_rows=tree_rows)
     return [mock.patch.object(ServingEngine, "cuda_graphs", False),
+            mock.patch.object(GenerationMixin, "cuda_graphs", False),
             mock.patch.object(df, "norm_matmul", df.plain_norm_matmul),
             mock.patch.object(df, "matmul_residual",
                               df.plain_matmul_residual),
@@ -2108,13 +2124,15 @@ def logit_noise(torch, model, ids):
 
 
 def generate_once(torch, kernels, model, ids, new, kw, forwards, tag,
-                  counted, want):
+                  counted, want, scores_out=None):
     """One timed ``generate()`` with every launch count set to 0 just
     before it and read just after: checks the output, logs tokens/s, ms
-    per target forward (``forwards`` collects the model's forward calls),
-    tokens per verify and peak memory, and fails when a kernel of
-    ``want`` never launched. Returns ``(stream, launches of counted,
-    tokens emitted per row per verify)``."""
+    per target forward (``forwards`` collects the model's forward calls
+    of the dense path; a paged run counts its decode steps by K2d's
+    launches, a replayed graph calling no forward), tokens per verify and
+    peak memory, and fails when a kernel of ``want`` never launched.
+    Returns ``(stream, launches of counted, tokens emitted per row per
+    verify)``; ``scores_out`` (a list) takes the scores."""
     cfg = model.config
     b = ids.shape[0]
     torch.cuda.synchronize()
@@ -2139,7 +2157,13 @@ def generate_once(torch, kernels, model, ids, new, kw, forwards, tag,
     windows = sum(n for k, n in kernels.launch_counts.items()
                   if k.startswith("paged_verify_attention")) \
         // cfg.num_hidden_layers
-    n_fwd = 1 + windows if spec else len(forwards)
+    steps = sum(n for k, n in kernels.launch_counts.items()
+                if k.startswith("paged_decode_attention")) \
+        // cfg.num_hidden_layers
+    n_fwd = 1 + windows if spec else 1 + steps \
+        if kw.get("cache_impl") == "paged" else len(forwards)
+    if scores_out is not None:
+        scores_out.append(scores.cpu().numpy())
     per_verify = (new - 1) / max(1, windows)
     log(f"{tag}: {b} x {new} tokens in {dt:.3f}s -> "
         f"{b * new / dt:.1f} tokens/s, {n_fwd} target forwards, "
@@ -2152,6 +2176,36 @@ def generate_once(torch, kernels, model, ids, new, kw, forwards, tag,
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
     return out, launches, per_verify
+
+
+def graph_vs_eager_generate(torch, kernels, model, ids, new, runs,
+                            forwards, streams, scores, launches, fails):
+    """Phase 19 (d) at phase 7's shape: each ``runs`` entry (paged,
+    n-gram, self-drafted, tree), run by phase 7 with its steps replayed
+    from CUDA graphs (``streams``, ``scores``, ``launches``), runs again
+    with the model's ``cuda_graphs`` off, every step eager: the tokens,
+    the scores and the launch counts must be equal to the bit. Both runs'
+    ms per target forward are logged (phase 7's lines and these)."""
+    t0 = time.monotonic()
+    model.cuda_graphs = False
+    try:
+        for name, kw in runs.items():
+            sc = []
+            s_e, n_e, _ = generate_once(
+                torch, kernels, model, ids, new, kw, forwards,
+                f"phase 19 (d) {name} eager", GENERATE_KERNELS, (),
+                scores_out=sc)
+            ok = np.array_equal(s_e, streams[name]) and n_e == launches[name] \
+                and np.array_equal(sc[0].view(np.int32),
+                                   scores[name].view(np.int32))
+            log(f"phase 19 (d) {name}: steps replayed from graphs (phase 7) "
+                f"vs eager: tokens, scores and launch counts "
+                f"{'equal to the bit' if ok else 'DIFFER'}")
+            if not ok:
+                fails.append(f"phase 19 (d) {name}: graph != eager")
+    finally:
+        del model.cuda_graphs
+    log(f"phase 19 (d): {time.monotonic() - t0:.1f}s")
 
 
 def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
@@ -2189,10 +2243,14 @@ def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
             "chain": ("paged_verify_attention_tree",),
             "tree": ("paged_verify_attention_tree",)}
     streams, launches, per_verify, fails = {}, {}, {}, []
+    scores = {}
     for name, kw in runs.items():
+        sc = []
         streams[name], launches[name], per_verify[name] = generate_once(
             torch, kernels, model, ids, new, kw, forwards,
-            f"phase 7 {name}", GENERATE_KERNELS, want.get(name, ()))
+            f"phase 7 {name}", GENERATE_KERNELS, want.get(name, ()),
+            scores_out=sc)
+        scores[name] = sc[0]
         if name == "self" and not per_verify[name] > 1:
             fails.append("phase 7 self: no draft accepted")
         if name in ("chain", "tree") \
@@ -2207,6 +2265,9 @@ def generate_run(torch, kernels, model, LlamaConfig, LlamaForCausalLM):
         f"{per_verify['ngram']:.4f} {'ok' if same else 'FAIL'}")
     if not same:
         fails.append("phase 7 chain tree != linear n-gram")
+    graph_vs_eager_generate(torch, kernels, model, ids, new,
+                            {k: runs[k] for k in GRAPHED_GENERATE},
+                            forwards, streams, scores, launches, fails)
     hook.remove()
     # where a paged generate()'s time goes, and the device's idle share
     n_new = GENERATE["profiled_new"]
@@ -2318,6 +2379,7 @@ def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
     their plain versions, float32, 2 layers at full widths. Streams must
     be equal, scores within SCORE_ATOL, and the self-drafted run must
     accept drafts."""
+    from paddle_tpu_torch.generation import GenerationMixin
     cfg = LlamaConfig.llama3_8b()
     cfg.num_hidden_layers = PHASE8["layers"]
     model = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 5)
@@ -2336,6 +2398,7 @@ def generate_f32_check(torch, pda, LlamaConfig, LlamaForCausalLM):
     res, windows = {}, None
     for path in ("kernel", "plain"):
         patches = [] if path == "kernel" else [
+            mock.patch.object(GenerationMixin, "cuda_graphs", False),
             mock.patch.object(pda, "paged_decode_attention",
                               pda.plain_paged_decode_attention),
             mock.patch.object(pda, "paged_verify_attention",
@@ -2449,7 +2512,9 @@ def serve_run(torch, kernels, engine, prompts, lens, tag, want):
         f"{st['rows_total']} ({st['rows_total'] / st['ticks']:.1f} a tick); "
         f"TTFT ms mean {st['ttft_ms']['mean']:.1f} p50 "
         f"{st['ttft_ms']['p50']:.1f} max {st['ttft_ms']['max']:.1f}; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB, "
+        f"the graphs' pools included)")
     gap = st["host_gap_ms"]
     log(f"{tag}: {st['pure_ticks']} pure ticks ({st['pipelined_ticks']} "
         f"pipelined), {st['executables_compiled']} CUDA graphs, "
@@ -2473,23 +2538,30 @@ def pool_tensors(pools):
 
 
 def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
-                   max_new, tag, draft=None):
+                   max_new, tag, draft=None, stagger=3):
     """Two engines of ``cfg`` over ``model`` (and ``draft``), one
-    replaying its pure ticks from CUDA graphs and one running every tick
-    eagerly (its graphs off), stepped in lockstep over ``prompts``: at
-    every tick both must commit the same tokens, add the same launch
-    counts and give the same logits to the bit, and at the end every
-    layer's pools (the null block aside) must be equal to the bit.
-    Returns the graph engine's ``stats()``; fails unless it replayed."""
+    replaying its ticks from CUDA graphs and one running every tick
+    eagerly (its graphs off) at the same widths, stepped in lockstep over
+    ``prompts``, prompt k submitted before tick ``stagger * k`` so that
+    ticks with prefill rows recur beside decoding slots: at every tick
+    both must commit the same tokens, add the same launch counts and give
+    the same logits to the bit, and at the end every layer's pools (the
+    null block aside) must be equal to the bit. Returns the graph
+    engine's ``stats()`` with its ``mixed_graphs`` / ``mixed_replays``
+    (ticks with prefill rows, at the static width) and ``pure_graphs`` /
+    ``pure_replays``; fails unless both kinds replayed."""
     engines = []
     for graphs in (True, False):
         e = ServingEngine(model, cfg, device="cuda", draft_model=draft)
         e.cuda_graphs = graphs
-        for p in prompts:
-            e.submit(p, max_new)
         engines.append(e)
+    waiting = list(prompts)
     ticks = 0
-    while any(e.num_active or e.num_queued for e in engines):
+    while waiting or any(e.num_active or e.num_queued for e in engines):
+        while waiting and ticks >= stagger * (len(prompts) - len(waiting)):
+            p = waiting.pop(0)
+            for e in engines:
+                e.submit(p, max_new)
         seen = []
         for e in engines:
             c0 = dict(kernels.launch_counts)
@@ -2518,12 +2590,22 @@ def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
         for a, b in zip(pool_tensors(pg), pool_tensors(pe)):
             if not torch.equal(a[1:], b[1:]):
                 raise AssertionError(f"{tag}: {name} differ after the run")
-    st = engines[0].stats()
-    replays = st["pure_ticks"] - st["executables_compiled"]
-    if st["executables_compiled"] < 1 or replays < 1:
-        raise AssertionError(f"{tag}: no graph replayed ({st['pure_ticks']} "
-                             f"pure ticks, {st['executables_compiled']} "
-                             "graphs)")
+    eng = engines[0]
+    st = eng.stats()
+    pure_graphs = sum(lay.pure for lay in eng._graphs)
+    mixed_graphs = len(eng._graphs) - pure_graphs
+    st.update(pure_graphs=pure_graphs, mixed_graphs=mixed_graphs,
+              pure_replays=st["pure_ticks"] - pure_graphs,
+              mixed_replays=st["ticks"] - st["pure_ticks"] - mixed_graphs)
+    if any(lay.rows != eng._rows or lay.w_max != eng._wmax
+           for lay in eng._graphs if not lay.pure):
+        raise AssertionError(f"{tag}: a mixed tick off the static width")
+    if st["pure_replays"] < 1 or st["mixed_replays"] < 1:
+        raise AssertionError(
+            f"{tag}: no replay of both kinds ({st['pure_ticks']} pure "
+            f"ticks, {pure_graphs} pure graphs; "
+            f"{st['ticks'] - st['pure_ticks']} mixed ticks, {mixed_graphs}"
+            " mixed graphs)")
     for e in engines:
         e.shutdown()
     return st
@@ -2539,13 +2621,19 @@ def tick_window(torch, engine, prompts, n, tag, by_kernel=None):
         engine.submit(p)
     for _ in range(4):
         engine.step()
+    st0 = engine.stats()
     wall_ms, busy_ms, reads = profiled(torch, engine.step, n, 15,
                                        cpu_rows=12, by_kernel=by_kernel)
+    st1 = engine.stats()
     engine.run()
+    ticks = st1["ticks"] - st0["ticks"]
+    mixed = ticks - (st1["pure_ticks"] - st0["pure_ticks"])
     log(f"{tag} profile: {n} ticks, wall {wall_ms:.3f} ms (profiler on), "
         f"device busy {busy_ms:.3f} ms -> idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.4f}; aten::_local_scalar_dense "
-        f"{reads / n:.2f} a tick")
+        f"{reads / n:.2f} a tick; {mixed} of the {ticks} ticks run (the "
+        f"profiler's first included) with prefill rows, "
+        f"{wall_ms / n:.3f} ms a tick, device {busy_ms / n:.3f} ms a tick")
     return reads / n
 
 
@@ -2576,36 +2664,40 @@ def pure_tick_window(torch, engine, prompts, n, tag):
 
 LOCKSTEP = dict(num_slots=4, block_size=16, max_model_len=512,
                 prefill_chunk=128)
+LOCKSTEP_PROMPT = 300
 
 
 def lockstep_run(torch, kernels, ServingEngine, ServingConfig, model, tag,
                  draft=None, **kw):
     """Phase 19 (a) and (c) on a loaded model: :func:`graph_lockstep` of
-    ``LOCKSTEP`` engines (``kw`` to the config) over 4 prompts of 96
-    tokens, 16 new, logged."""
+    ``LOCKSTEP`` engines (``kw`` to the config) over 4 prompts of
+    ``LOCKSTEP_PROMPT`` tokens (three 128-row chunks each, so a mixed
+    layout recurs), 16 new, submitted 3 ticks apart, logged."""
     t0 = time.monotonic()
     rng = np.random.RandomState(SEED + 19)
-    prompts = [rng.randint(0, model.config.vocab_size, size=96)
+    prompts = [rng.randint(0, model.config.vocab_size, size=LOCKSTEP_PROMPT)
                for _ in range(4)]
     st = graph_lockstep(torch, kernels, ServingEngine, model,
                         ServingConfig(**LOCKSTEP, **kw), prompts, 16, tag,
                         draft=draft)
-    log(f"{tag}: {st['ticks']} ticks in lockstep, {st['pure_ticks']} pure, "
-        f"{st['executables_compiled']} graphs captured, "
-        f"{st['pure_ticks'] - st['executables_compiled']} replays: tokens, "
-        f"logits and launch counts of every tick and the pools at the end "
-        f"equal to the eager engine's, bit for bit "
+    log(f"{tag}: {st['ticks']} ticks in lockstep, {st['pure_ticks']} pure "
+        f"({st['pure_graphs']} graphs, {st['pure_replays']} replays), "
+        f"{st['ticks'] - st['pure_ticks']} with prefill rows at the static "
+        f"width ({st['mixed_graphs']} graphs, {st['mixed_replays']} "
+        f"replays): tokens, logits and launch counts of every tick and the "
+        f"pools at the end equal to the eager engine's, bit for bit "
         f"({time.monotonic() - t0:.1f}s)")
     return st
 
 
 def async_phase(torch, kernels, ServingEngine, ServingConfig, model, prompts,
                 lens, streams3, pure3):
-    """Phase 19 on phase 3's model (Llama-3-8B widths, bf16): (a) pure
+    """Phase 19 on phase 3's model (Llama-3-8B widths, bf16): (a) the
     ticks of the bf16 engine, of an int8 engine and of the model drafting
-    for itself at gamma 4, each replayed from its graph and held against
-    the same ticks run eagerly (:func:`lockstep_run`; (c): the launch
-    counts each tick adds, to the count); (b) phase 3's traffic with
+    for itself at gamma 4, pure and mixed, each replayed from its graph
+    and held against the same ticks run eagerly (:func:`lockstep_run`;
+    (c): the launch counts each tick adds, to the count); (b) phase 3's
+    traffic with
     ``async_depth=1``: streams equal to phase 3's token for token, the
     pipeline's stats, a second wave that must capture no graph and stream
     the same, and 4 profiled pure ticks beside phase 3's ``pure3`` (wall

@@ -3,9 +3,13 @@
 the serving engine shares with it.
 
 ``generate()`` prefills the prompt into the cache, then decodes one
-token per step in a host loop of eager PyTorch calls (the reference's
-jitted ``lax.while_loop``), stopping early when every row has emitted
-EOS (checked on the host after each step). Three cache paths, as in the
+token per step in a host loop (the reference's jitted
+``lax.while_loop``), stopping early once every row has emitted EOS (a
+flag read one step late, so the device is never waited on a step). On
+CUDA the paged decode step and the speculative verify step (with a draft
+model's loop) are captured once a run into a CUDA graph and replayed;
+the dense path's step, whose cache offset is a new host int every step,
+and every step on the CPU run eagerly. Three cache paths, as in the
 reference: the dense ``[B, S, H_kv, D]`` cache (``cached_attention``),
 the paged block pool (K2d each step), and speculative decoding over the
 pool (``generation/speculative.py``, K2v verify windows): a linear chain
@@ -44,6 +48,7 @@ import torch
 from ..distributed.moe import capacity_routed
 from ..framework.random import generator as make_generator
 from ..ops import paged_cache as _pc
+from ..ops.cuda_graphs import GraphedStep, graphs_usable
 
 __all__ = ["GenerationConfig", "GenerationMixin", "load_generation",
            "_filter_logits", "_select_token", "categorical"]
@@ -182,30 +187,85 @@ def _paged_prefill(model, ids, mb, block_size, kv_cache_dtype=None):
     return logits, tables, pools
 
 
-def _decode_loop(step, first, caches, max_new, select, eos, pad):
-    """The host loop of both cache paths, from the prefill's ``first =
+class _LateFlag:
+    """``done.all()`` read one step late: :meth:`push` after a step
+    copies it without blocking (into pinned memory on CUDA, with an
+    event), :meth:`late` reads the flag pushed before the last one, whose
+    step the device has long finished."""
+
+    def __init__(self, done):
+        self.done, self.cuda = done, done.is_cuda
+        self.host = [torch.zeros((), dtype=torch.bool, pin_memory=self.cuda)
+                     for _ in range(2)]
+        self.events = [torch.cuda.Event() for _ in range(2)] \
+            if self.cuda else None
+        self.n = 0
+
+    def push(self):
+        k = self.n % 2
+        self.host[k].copy_(self.done.all(), non_blocking=self.cuda)
+        if self.cuda:
+            self.events[k].record()
+        self.n += 1
+
+    def late(self) -> bool:
+        if self.n < 2:
+            return False
+        k = self.n % 2
+        if self.cuda:
+            self.events[k].synchronize()
+        return bool(self.host[k].item())
+
+
+def _decode_loop(step, first, caches, max_new, select, eos, pad,
+                 graphed=False, generator=None):
+    """The decode loop of both cache paths, from the prefill's ``first =
     (token [B], logprob [B])``: ``step(i, tok, caches) -> (logits,
-    caches)`` feeds the previous token at step ``i``; the loop ends early
-    once every row has emitted EOS (read on the host each step, which
-    waits for the device; without an EOS (``eos < 0``) nothing is read
-    and the host keeps enqueueing). Returns ``(out [B, max_new] int64,
-    pad-filled after EOS, scores [B])``."""
+    caches)`` feeds the previous token at step ``i``. A step's device
+    work (the forward, ``select``, the done and score updates, the token
+    written at its column) updates tensors that keep their address, so
+    with ``graphed`` (the paged path on CUDA) step 1 runs eagerly, step 2
+    captures it into a CUDA graph (``generator`` registered) and later
+    steps replay it: ``step`` must then take its position from device
+    state (the paged step's length counter), not from ``i``.
+
+    With an EOS (``eos >= 0``) the loop ends once every row has emitted
+    it, read one step late (:class:`_LateFlag`): the loop may run one
+    forward past the step on which the last row emitted EOS, a step that
+    writes pads and adds no score, so the tokens and scores are those of
+    an immediate exit (the reference's in-loop test). Without an EOS
+    nothing is read. Returns ``(out [B, max_new] int64, pad-filled after
+    EOS, scores [B])``."""
     tok, logp = first
     done = tok == eos
     out = torch.full((tok.shape[0], max_new), pad, dtype=torch.int64,
                      device=tok.device)
     out[:, 0] = torch.where(done, torch.full_like(tok, eos), tok)
-    score = logp
-    i = 1
-    while i < max_new and (eos < 0 or not bool(done.all())):
-        logits, caches = step(i, tok, caches)
-        ntok, logp = select(logits[:, -1, :])
+    tok, score = tok.clone(), logp.clone()
+    col = torch.ones((tok.shape[0], 1), dtype=torch.int64, device=tok.device)
+    state = {"i": 1, "caches": caches}
+
+    def body():
+        logits, state["caches"] = step(state["i"], tok, state["caches"])
+        ntok, lp = select(logits[:, -1, :])
         ntok = torch.where(done, torch.full_like(ntok, pad), ntok)
-        score = score + torch.where(done, torch.zeros_like(logp), logp)
-        out[:, i] = ntok
-        done = done | (ntok == eos)
-        tok = ntok
-        i += 1
+        score.add_(torch.where(done, torch.zeros_like(lp), lp))
+        out.scatter_(1, col, ntok[:, None])
+        col.add_(1)
+        done.logical_or_(ntok == eos)
+        tok.copy_(ntok)
+
+    run = GraphedStep(body, tok.device, graphed, generator)
+    flag = _LateFlag(done) if eos >= 0 else None
+    if flag is not None:
+        flag.push()
+    while state["i"] < max_new:
+        if flag is not None and flag.late():
+            break
+        run()
+        if flag is not None:
+            flag.push()
+        state["i"] += 1
     return out, score
 
 
@@ -215,7 +275,13 @@ class GenerationMixin:
     ``init_caches(batch, max_len)``, ``init_paged_caches(num_blocks,
     block_size)``, ``forward(ids, caches=..., offset=...)`` (dense) and
     ``forward(ids, caches=..., block_tables=..., cache_lens=...)``
-    (paged), each returning ``(logits, caches)``."""
+    (paged), each returning ``(logits, caches)``. ``cuda_graphs`` (True)
+    replays the paged decode and speculative steps from CUDA graphs on
+    CUDA; set it False on an instance or the class to run them eagerly
+    (kernels patched to plain versions that read values back cannot be
+    captured)."""
+
+    cuda_graphs = True
 
     def _check_lengths(self, prompt_len, max_new):
         max_pos = getattr(getattr(self, "config", None),
@@ -279,23 +345,29 @@ class GenerationMixin:
                             select, eos, pad)
 
     def _run_paged(self, ids, max_new, select, eos, pad, block_size,
-                   kv_cache_dtype=None):
+                   kv_cache_dtype=None, generator=None):
         """The paged twin of :meth:`_run_dense`: the prompt's K/V go into
         a block pool (:func:`_paged_prefill`) and each decode step writes
-        and attends through the pool (K2d)."""
+        and attends through the pool (K2d); its cache lengths are a
+        device counter the step advances, so on CUDA the step replays one
+        CUDA graph a run (:func:`_decode_loop`; ``generator``: a sampling
+        run's, registered with it)."""
         b, prompt_len = ids.shape
         logits, tables, pools = _paged_prefill(
             self, ids, _pc.blocks_for(prompt_len + max_new, block_size),
             block_size, kv_cache_dtype)
+        lens = torch.full((b,), prompt_len - 1, dtype=torch.int32,
+                          device=ids.device)
 
         def step(i, tok, pools):
-            lens = torch.full((b,), prompt_len - 1 + i, dtype=torch.int32,
-                              device=ids.device)
+            lens.add_(1)            # step i writes position prompt + i - 1
             return self(tok[:, None], caches=pools, block_tables=tables,
                         cache_lens=lens)
 
+        graphed = self.cuda_graphs and graphs_usable(ids.device,
+                                                     generator is not None)
         return _decode_loop(step, select(logits[:, -1, :]), pools, max_new,
-                            select, eos, pad)
+                            select, eos, pad, graphed, generator)
 
     @torch.no_grad()
     def generate(self, input_ids, generation_config: GenerationConfig = None,
@@ -411,6 +483,12 @@ class GenerationMixin:
                     "init_paged_caches (paged-KV decode)")
 
         gen = make_generator(seed, dev) if do_sample else None
+        if do_sample:
+            # the knobs as device scalars, made once: a step captured into
+            # a CUDA graph cannot upload them
+            temperature, top_k, top_p = (
+                torch.tensor(float(v), dtype=torch.float32, device=dev)
+                for v in (temperature, top_k, top_p))
 
         def select(logits):
             return _select_token(logits, gen, do_sample=do_sample,
@@ -470,7 +548,7 @@ class GenerationMixin:
                     torch.from_numpy(score).to(dev))
         if cache_impl == "paged":
             return self._run_paged(ids, max_new, select, eos, pad,
-                                   block_size, kv_dtype)
+                                   block_size, kv_dtype, gen)
         # power-of-two prompt bucketing: left-pad the prompt (masked,
         # per-row rope rebase), as the reference does so that every
         # length in a bucket reuses one compiled loop

@@ -41,6 +41,7 @@ import torch
 from . import _filter_logits, _paged_prefill, _select_token, categorical
 from ..distributed.moe import capacity_routed
 from ..ops import paged_cache as _pc
+from ..ops.cuda_graphs import GraphedStep, Upload, graphs_usable
 from ..ops.kernels.paged_attention import spec_tree_scope, tree_ancestor_bits
 
 __all__ = ["spec_exclusion_reason", "draft_exclusion_reason",
@@ -464,7 +465,16 @@ class SpecGenerator:
     advancing its length; the rejected tail is rolled back by not
     advancing over it. The block tables carry ``gamma`` positions of
     headroom: the last window may overhang the final token by that
-    much."""
+    much.
+
+    The device step (the draft model's loop and the verify, shapes fixed
+    for a run) reads the window's tokens (or, drafting by model, the
+    last tokens) and the lengths from tensors written through pinned
+    staging before each call, so on CUDA it runs eagerly once, is
+    captured into a CUDA graph at its second call and replayed after
+    (the model's ``cuda_graphs`` off: eagerly), so a sampling run's knobs
+    are device scalars there (``generate()`` makes them); host drafting
+    and the commit stay on the host."""
 
     def __init__(self, model, b, prompt_len, max_new, gamma, *, do_sample,
                  temperature, top_k, top_p, eos, pad, block_size,
@@ -531,11 +541,30 @@ class SpecGenerator:
         done = [int(t) == eos or self.max_new <= 1 for t in tok0]
         self.verify_steps = 0
 
+        # the step's inputs, written before each call: the lengths, and
+        # the window (host drafters) or the last tokens (draft model)
+        lens_in = Upload((b,), torch.int32, dev)
+        win_in = Upload((b,) if self._dloop is not None else (b, g + 1),
+                        torch.int64, dev)
+        state = {"pools": pools, "dpools": dpools}
+
+        def body():
+            dq = None
+            toks = win_in.dev
+            if self._dloop is not None:
+                props, dq, state["dpools"] = self._dloop(
+                    state["dpools"], tables, lens_in.dev, toks, generator)
+                toks = torch.cat([toks[:, None], props], 1)
+            out, accept, logp, state["pools"] = self._verify(
+                state["pools"], tables, lens_in.dev, toks, dq, generator)
+            return out, accept, logp
+
+        step = GraphedStep(
+            body, dev, getattr(self.model, "cuda_graphs", True)
+            and graphs_usable(dev, generator is not None), generator)
         while not all(done):
             toks = np.empty((b, g + 1), np.int64)
             toks[:, 0] = cur
-            lens_t = torch.from_numpy(lens).to(dev)
-            dq = None
             if self.spec_tree is not None:
                 for r in range(b):
                     toks[r, 1:] = self.pad if done[r] else \
@@ -549,14 +578,9 @@ class SpecGenerator:
                 for r in range(b):
                     toks[r, 1:] = ngram_propose(hist[r], g, self.ngram_max) \
                         if not done[r] else self.pad
-            else:
-                props, dq, dpools = self._dloop(
-                    dpools, tables, lens_t, torch.from_numpy(cur).to(dev),
-                    generator)
-                toks[:, 1:] = props.cpu().numpy()
-            out, accept, logp, pools = self._verify(
-                pools, tables, lens_t, torch.from_numpy(toks).to(dev), dq,
-                generator)
+            lens_in.write(lens)
+            win_in.write(cur if self._dloop is not None else toks)
+            out, accept, logp = step()
             self.verify_steps += 1
             out = out.cpu().numpy()
             accept = accept.cpu().numpy()

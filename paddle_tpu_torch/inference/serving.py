@@ -10,16 +10,21 @@ commits tokens, prefill progress and retirements. Admission is FIFO
 with a worst-case block reservation (prompt + max_new_tokens), so a
 running request never waits for blocks.
 
-The port packs exactly the live rows each tick (the reference pads to
-a static width for its one compiled executable). On CUDA every *pure*
-tick (each seated slot decodes or verifies, no prefill rows) replays a
-CUDA graph captured at its first occurrence, one graph for each number
-of seated slots, so its packed width, kernels and operands are the
-eager tick's and a replay is bit for bit that tick; the draft model's
-loop, the forward, the sampling or acceptance, the draft heads and the
-async carry are all inside it. Ticks with prefill rows, and every tick
-on the CPU, run eagerly. ``stats()["executables_compiled"]`` counts the
-graphs captured.
+Each tick with a prefill row packs to the reference's static width
+(``num_slots * (gamma + 1) + ragged_prefill_rows`` rows, a slot's
+window at most the widest prefill chunk): pad rows carry the pad token,
+slot 0 and the overflow position, so their K/V writes go to the null
+block, and the MoE telemetry does not count them. A *pure* tick (each
+seated slot decodes or verifies, no prefill row) keeps its packed live
+rows. On CUDA every tick replays a CUDA graph captured at the first
+tick of its layout: one graph for each number of seated slots of a pure
+tick, one for each number of verifying slots of a tick with prefill rows
+(a non-speculating engine has one), so a replay runs the eager tick's
+width, kernels and operands and is bit for bit that tick; the draft
+model's prime and loop, the forward, the sampling or acceptance, the
+draft heads and the async carry are all inside it. Every tick on the
+CPU runs eagerly. ``stats()["executables_compiled"]`` counts the graphs
+captured.
 
 ``ServingConfig(async_depth=1)`` arms the reference's depth-1 async
 pipeline: a pure decode tick also writes the next tick's packs (each
@@ -88,7 +93,11 @@ from ..generation import _filter_logits, _select_token
 from ..generation import speculative as _spec
 from ..monitor import LatencyDigest
 from ..ops import paged_cache as _pc
-from ..ops.kernels import hold_scratch, launch_counts
+from ..ops.cuda_graphs import Upload as _Upload
+from ..ops.cuda_graphs import capture as _capture_graph
+from ..ops.cuda_graphs import capture_stream
+from ..ops.cuda_graphs import graphs_usable
+from ..ops.kernels import launch_counts
 from ..ops.kernels.paged_attention import spec_tree_scope
 
 __all__ = ["ServingConfig", "ServingEngine"]
@@ -240,14 +249,15 @@ class _Slot:
 class _Layout(NamedTuple):
     """The static shape of one tick's packed inputs (one int64 vector on
     the device: the per-row triple, the per-slot rows, then the verifying
-    slots and their windows) and of what its body computes; a pure tick's
-    layout keys its CUDA graph."""
-    rows: int           # packed query rows R
-    w_max: int          # rows of the widest slot
+    slots and their windows) and of what its body computes; it keys the
+    tick's CUDA graph."""
+    rows: int           # packed query rows R (the static width if mixed)
+    w_max: int          # rows of the widest slot (the static bound if mixed)
     srows: int          # per-slot rows: base, q_lens, row_starts,
-    #                     last_rows (+ tree flags) (+ the carry's budget)
+    #                     last_rows (+ tree flags) (+ the draft's prime
+    #                     lengths) (+ the carry's budget)
     active: int         # verifying slots (0: no verify window this tick)
-    pure: bool          # decode / verify rows only: replayed from a graph
+    pure: bool          # decode / verify rows only, packed live
     carry: bool         # writes the next tick's packs over its own
 
 
@@ -264,39 +274,12 @@ class _TickOut(NamedTuple):
     #                                     end of flat
 
 
-class _Upload:
-    """A device tensor that keeps its address for the engine's life (a
-    graph's operand), written from the host. On CUDA each write goes
-    through a pinned staging copy on the current stream, and the staging
-    is not rewritten before that copy has run."""
-
-    def __init__(self, shape, dtype, device):
-        self.dev = torch.zeros(shape, dtype=dtype, device=device)
-        self.cuda = self.dev.is_cuda
-        if self.cuda:
-            self.stage = torch.empty(shape, dtype=dtype, pin_memory=True)
-            self.event = torch.cuda.Event()
-
-    def write(self, host: np.ndarray):
-        if not self.cuda:
-            self.dev.copy_(torch.from_numpy(host))
-            return
-        self.event.synchronize()
-        self.stage.numpy()[...] = host
-        self.dev.copy_(self.stage, non_blocking=True)
-        self.event.record()
-
-
-class _TickGraph:
-    """One captured pure tick: the graph, its input vector, its outputs,
-    the host counts one replay adds (launch counts, MoE matmul calls) and
-    the per-stream scratch its kernels write."""
-    __slots__ = ("graph", "inp", "outs", "counts", "moe_kernel", "scratch")
-
-    def __init__(self, graph, inp, outs, counts, moe_kernel, scratch):
-        self.graph, self.inp, self.outs = graph, inp, outs
-        self.counts, self.moe_kernel = counts, moe_kernel
-        self.scratch = scratch
+class _TickGraph(NamedTuple):
+    """One captured tick: the graph (with the host counts a replay
+    adds), its input vector and its outputs."""
+    step: object        # ops.cuda_graphs.StepGraph
+    inp: _Upload
+    outs: _TickOut
 
 
 class _Pipe:
@@ -312,20 +295,6 @@ class _Pipe:
     def __init__(self, **kw):
         for k in self.__slots__:
             setattr(self, k, kw.get(k))
-
-
-def _host_counts():
-    """The host counters a tick's launches bump: each kernel's launches
-    and the MoE grouped-matmul calls."""
-    return dict(launch_counts, moe_calls=_moe.MOE_STATS["grouped_mm_calls"])
-
-
-def _add_counts(delta):
-    for k, v in delta.items():
-        if k == "moe_calls":
-            _moe.MOE_STATS["grouped_mm_calls"] += v
-        else:
-            launch_counts[k] += v
 
 
 def _seeded_heads(n_heads, hidden, vocab, device):
@@ -362,10 +331,10 @@ class ServingEngine:
     which must be the model's device (and the draft model's).
     ``draft_model`` drafts for ``drafter="model"``; ``spec_heads`` (one
     ``[hidden, vocab]`` array a tree depth) are the draft heads of
-    ``drafter="heads"``. ``cuda_graphs`` (True) replays pure ticks from
-    CUDA graphs on CUDA; set it False on an instance or the class to run
-    every tick eagerly (kernels patched to plain versions that read
-    values back cannot be captured).
+    ``drafter="heads"``. ``cuda_graphs`` (True) replays every tick from
+    a CUDA graph on CUDA; set it False on an instance or the class to run
+    every tick eagerly, at the same widths (kernels patched to plain
+    versions that read values back cannot be captured).
     """
 
     cuda_graphs = True
@@ -487,8 +456,13 @@ class ServingEngine:
         self._prefill_rows = max(1, min(
             int(self._chunk if want is None else want),
             int(cfg.max_model_len)))
-        # pad rows (none today: the port packs live rows only) would park
-        # past every table's reach, where writes null-route
+        # the static width of a tick with prefill rows, the reference's:
+        # every decoding slot's window plus one tick's prefill row budget,
+        # a slot at most the widest chunk (the ragged grid's window dim)
+        self._rows = cfg.num_slots * (gamma + 1) + self._prefill_rows
+        self._wmax = max(gamma + 1, min(self._chunk, self._prefill_rows))
+        # pad rows (and a pipelined tick's finished slots) park past every
+        # table's reach: the write null-routes, the rope gather clamps
         self._overflow = self._mb * self._bs
         self._kv_dtype = _pc.resolve_kv_cache_dtype(cfg.kv_cache_dtype)
         kw = {"kv_cache_dtype": self._kv_dtype} if self._kv_dtype else {}
@@ -533,16 +507,13 @@ class ServingEngine:
         self._n_moe_dispatches = 0
         self.last_logits = None         # [S, V] of the latest tick
 
-        # -- CUDA graphs of the pure ticks, and the async pipeline ------
-        # a sampling tick draws from self._gen, which each graph must
-        # register to draw what the eager tick would; a PyTorch without
-        # that keeps a sampling engine's ticks eager
-        self._graphs_ok = dev.type == "cuda" and (
-            not self._do_sample
-            or hasattr(torch.cuda.CUDAGraph, "register_generator_state"))
+        # -- CUDA graphs of the ticks, and the async pipeline -----------
+        # a sampling tick draws from self._gen, which each graph registers
+        # to draw what the eager tick would; a PyTorch without that keeps
+        # a sampling engine's ticks eager
+        self._graphs_ok = graphs_usable(dev, self._do_sample)
         self._graphs: Dict[_Layout, _TickGraph] = {}
         self._graph_pool = None         # one memory pool for all of them
-        self._cap_stream = None         # warm-ups and captures run here
         self._async_on = bool(cfg.async_depth)
         self._pipe: Optional[_Pipe] = None      # the in-flight tick
         self._n_pipe_flushes = 0
@@ -759,38 +730,46 @@ class ServingEngine:
         total = int(q_lens.sum())
         if not total:
             return None
+        # a tick with prefill rows packs to the static width (pad rows at
+        # the overflow position); a pure tick packs its live rows
+        mixed = bool(given)
+        r = self._rows if mixed else total
         row_slot, row_pos, row_starts, last_rows = _pc.ragged_row_meta(
-            q_lens, base, total, self._overflow)
-        ids = np.full(total, self._pad, np.int32)
+            q_lens, base, r, self._overflow)
+        ids = np.full(r, self._pad, np.int32)
         for i, k in given.items():
             s0 = int(row_starts[i])
             slot = self._slots[i]
             ids[s0:s0 + k] = slot.prompt[slot.pend_pos:slot.pend_pos + k]
+        for i in active:
+            ids[row_starts[i]] = self._slots[i].last_token
         n_act = len(active) if g else 0     # slots verifying a window
-        carry = self._async_on and not g and not given
+        carry = self._async_on and not g and not mixed
         srows = [base, q_lens, row_starts, last_rows]
         if n_act and self._tree is not None:
             flags = np.zeros(n_slots, np.int64)
             flags[active] = 1           # prefill rows keep the linear bound
             srows.append(flags)
+        if mixed and self._draft is not None:
+            # the draft model's prime lengths: the prefill rows only
+            prime = np.zeros(n_slots, np.int64)
+            for i, k in given.items():
+                prime[i] = k
+            srows.append(prime)
         if carry:
             # each slot's token budget left: the carry's done mask
             bud = np.zeros(n_slots, np.int64)
             for i in active:
                 bud[i] = self._slots[i].max_new - self._slots[i].n_emitted
             srows.append(bud)
-        lay = _Layout(rows=total, w_max=int(q_lens.max()), srows=len(srows),
-                      active=n_act, pure=not given, carry=carry)
+        lay = _Layout(rows=r, w_max=self._wmax if mixed
+                      else int(q_lens.max()), srows=len(srows),
+                      active=n_act, pure=not mixed, carry=carry)
         self._sync_uploads()
+        spec = self._spec_pack(active, ids, row_starts) if n_act else []
+        pack = np.concatenate([np.asarray(p, np.int64).reshape(-1) for p
+                               in [ids, row_slot, row_pos] + srows + spec])
         with torch.no_grad():
-            if self._draft is not None and given:
-                self._prime_draft(given, q_lens, base, ids, row_starts)
-            for i in active:
-                ids[row_starts[i]] = self._slots[i].last_token
-            spec = self._spec_pack(active, ids, row_starts) if n_act else []
-            pack = np.concatenate([np.asarray(p, np.int64).reshape(-1) for p
-                                   in [ids, row_slot, row_pos] + srows
-                                   + spec])
             pipe = self._run(lay, pack=pack)
         pipe.active, pipe.given = active, given
         # names at dispatch: a slot re-seated before the commit drops the
@@ -828,50 +807,26 @@ class ServingEngine:
             ids[s0 + 1:s0 + g + 1] = toks[k, 1:]
         return [act, toks]
 
-    def _prime_draft(self, given, q_lens, base, ids, row_starts):
-        """Write the draft model's cache over the tick's prefill rows
-        (``given``: slot -> rows) by its ragged forward; the verify
-        windows' K/V come from its scan."""
-        dev = self.device
-        pq = np.zeros_like(q_lens)
-        for i, k in given.items():
-            pq[i] = k
-        p_slot, p_pos, p_starts, _ = _pc.ragged_row_meta(
-            pq, base, int(pq.sum()), self._overflow)
-        p_ids = np.concatenate([ids[int(row_starts[i]):int(row_starts[i]) + k]
-                                for i, k in given.items()])
-        prow = torch.from_numpy(np.stack([p_ids, p_slot, p_pos])).to(dev)
-        pslots = torch.from_numpy(np.stack(
-            [base, pq, p_starts]).astype(np.int32)).to(dev)
-        _, self._dpools = self._draft(
-            prow[0], caches=self._dpools, block_tables=self._tables_dev,
-            cache_lens=pslots[0],
-            ragged_meta=(pslots[1], pslots[2], prow[1], prow[2],
-                         int(pq.max())),
-            last_rows=pslots[2][:1], fused=self.config.fused_decode)
-
     def _run(self, lay, pack=None, carry=None) -> _Pipe:
         """Launch one tick of layout ``lay`` from the host's ``pack`` or,
         pipelined, from the ``carry`` vector the in-flight tick wrote. On
-        CUDA a pure tick replays its layout's graph (the first one runs
-        eagerly and captures it); any other tick runs its body eagerly.
-        An async pure decode tick's read-back is enqueued here."""
+        CUDA the tick replays its layout's graph (the layout's first tick
+        runs eagerly and captures it); on the CPU, or with ``cuda_graphs``
+        off, it runs its body eagerly. An async pure decode tick's
+        read-back is enqueued here."""
         t = time.monotonic()
         if self._last_dispatch_t is not None:
             self._d_host_gap.observe(1000.0 * (t - self._last_dispatch_t))
         self._last_dispatch_t = t
         self._n_pure += lay.pure
-        if lay.pure and self._graphs_ok and self.cuda_graphs:
+        if self._graphs_ok and self.cuda_graphs:
             gr = self._graphs.get(lay)
             if gr is None:
                 inp, outs = self._capture(lay, pack)
             else:
                 if pack is not None:
                     gr.inp.write(pack)
-                gr.graph.replay()
-                _add_counts(gr.counts)
-                if self._moe:
-                    _moe.MOE_STATS["grouped_mm_kernel"] = gr.moe_kernel
+                gr.step.replay()
                 inp, outs = gr.inp.dev, gr.outs
         else:
             inp = carry if pack is None \
@@ -892,51 +847,38 @@ class ServingEngine:
         return pipe
 
     def _capture(self, lay, pack):
-        """The first tick of a pure layout on CUDA: upload its vector into
-        the graph's input (kept for the graph's life), run the tick eagerly
-        on the capture stream (the warm-up: kernels set their attributes,
+        """The first tick of a layout on CUDA: upload its vector into the
+        graph's input (kept for the graph's life), run the tick eagerly on
+        the capture stream (the warm-up: kernels set their attributes,
         per-stream scratch grows), then capture the same body over the
-        same input; later ticks of ``lay`` replay it. A capture records
-        launches without running them, so the host counts it bumped are
-        taken back and kept as what each replay adds. A capture that fails
-        raises. Returns the warm-up's ``(input, outputs)``."""
+        same input into the engine's one memory pool
+        (:func:`~paddle_tpu_torch.ops.cuda_graphs.capture`: the host
+        counts the capture bumped become what each replay adds); later
+        ticks of ``lay`` replay it. A capture that fails raises. Returns
+        the warm-up's ``(input, outputs)``."""
         dev = self.device
-        if self._cap_stream is None:
-            self._cap_stream = torch.cuda.Stream(dev)
+        if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        cs = self._cap_stream
+        cs = capture_stream(dev)
         inp = _Upload(pack.shape, torch.int64, dev)
         inp.write(pack)
         cs.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(cs):
             outs = self._tick_body(inp.dev, lay)
-        before = _host_counts()
-        graph = torch.cuda.CUDAGraph()
-        if self._do_sample:
-            graph.register_generator_state(self._gen)
-        scratch = []
-        # capture_begin / capture_end, not torch.cuda.graph: its entry
-        # synchronizes the card and runs the collector, ~0.1 s a capture
-        with hold_scratch(scratch), torch.cuda.stream(cs):
-            graph.capture_begin(pool=self._graph_pool)
-            static = self._tick_body(inp.dev, lay)
-            graph.capture_end()
-        after = _host_counts()
-        delta = {k: after[k] - before[k] for k in after
-                 if after[k] != before[k]}
-        _add_counts({k: -v for k, v in delta.items()})
+        step, static = _capture_graph(
+            lambda: self._tick_body(inp.dev, lay), cs, self._graph_pool,
+            self._gen if self._do_sample else None)
         torch.cuda.current_stream(dev).wait_stream(cs)
-        self._graphs[lay] = _TickGraph(
-            graph, inp, static, delta, _moe.MOE_STATS["grouped_mm_kernel"],
-            scratch)
+        self._graphs[lay] = _TickGraph(step, inp, static)
         return inp.dev, outs
 
     def _tick_body(self, inp, lay) -> _TickOut:
         """The device half of a tick, from its packed vector ``inp``: the
-        draft model's loop, the ragged forward, sampling or acceptance,
-        the heads' next drafts and, for a carry layout, the next tick's
-        packs written over ``inp``. It reads nothing back and uploads
-        nothing, so a pure tick's body is what its graph captures."""
+        draft model's prime over the prefill rows and its loop, the ragged
+        forward, sampling or acceptance, the heads' next drafts and, for a
+        carry layout, the next tick's packs written over ``inp``. It reads
+        nothing back, uploads nothing and takes every shape from ``lay``,
+        so it is what the layout's graph captures."""
         cfg = self.config
         g = self._gamma
         n_slots = cfg.num_slots
@@ -945,6 +887,8 @@ class ServingEngine:
         o = 3 * r + lay.srows * n_slots
         rows = inp[:3 * r].view(3, r).to(torch.int32)
         slots = inp[3 * r:o].view(lay.srows, n_slots).to(torch.int32)
+        if not lay.pure and self._draft is not None:
+            self._prime_draft(rows, slots, lay)
         act = toks = dq = None
         if a:
             act = inp[o:o + a]
@@ -972,9 +916,11 @@ class ServingEngine:
         counts = []                     # each sparse layer's expert counts
         tap = _moe.serving_stats_tap(counts) if self._moe_tap_on \
             else contextlib.nullcontext()
-        # a pipelined tick's parked rows route but are no traffic
+        # pad rows and a pipelined tick's parked rows route but are no
+        # traffic
         mask = _moe.serving_rows_mask(rows[2] < self._overflow) \
-            if lay.carry and self._moe_tap_on else contextlib.nullcontext()
+            if self._moe_tap_on and (lay.carry or not lay.pure) \
+            else contextlib.nullcontext()
         # a flagged slot's rows are its window's g + 1
         scope = spec_tree_scope(self._tree, slots[4], g + 1) if tree_on \
             else contextlib.nullcontext()
@@ -1025,6 +971,23 @@ class ServingEngine:
             self._write_carry(inp, rows, slots, tok, lay)
         return _TickOut(torch.cat(parts), logits, path, slots[0], act,
                         (len(counts), counts[0].numel()) if counts else None)
+
+    def _prime_draft(self, rows, slots, lay):
+        """Write the draft model's cache over a tick's prefill rows by its
+        ragged forward at the tick's static width, as the reference's
+        fused draft executable does: the verify rows park at the overflow
+        position with the pad rows (their K/V come from the draft's
+        loop), so only the prime lengths (the last per-slot row) own
+        rows, each holding its prompt token."""
+        plen = slots[lay.srows - 1]
+        own = plen[rows[1].long()] > 0
+        ids = torch.where(own, rows[0], self._pad)
+        pos = torch.where(own, rows[2], self._overflow)
+        _, self._dpools = self._draft(
+            ids, caches=self._dpools, block_tables=self._tables_dev,
+            cache_lens=slots[0],
+            ragged_meta=(plen, slots[2], rows[1], pos, lay.w_max),
+            last_rows=slots[2][:1], fused=self.config.fused_decode)
 
     def _write_carry(self, inp, rows, slots, tok, lay):
         """The next tick's packs over this decode tick's (the reference's

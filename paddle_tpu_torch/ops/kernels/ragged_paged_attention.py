@@ -9,8 +9,8 @@ One packed buffer ``q [R, H, D]`` holds every live query row of a
 serving tick; slot ``s`` owns rows ``row_starts[s] .. row_starts[s] +
 q_lens[s]``, and its row ``t`` attends the first ``context_lens[s] + t``
 positions of the slot's blocks in the pool ``[NB, BS, H_kv, D]``.
-Rows that belong to no slot are left unwritten by the kernel (zero in
-the plain version): callers read live rows only.
+Rows that belong to no slot (a serving tick's pad rows) come out zero
+on both devices: the wrapper starts the kernel's output from zeros.
 
 The pools are floating tensors of ``q``'s dtype, float32 pools under a
 bfloat16 ``q`` (GPT's: the reference keeps its pools float32 whatever
@@ -382,7 +382,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     nb, bs, hkv, _ = kd.shape
     s, mb = block_tables.shape
     w_max = int(w_max)
-    out = torch.empty_like(q)
+    # the kernel writes the rows some slot owns; pad rows stay zero
+    out = torch.zeros_like(q)
     if w_max <= 0 or r == 0:
         return out
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)

@@ -1,20 +1,28 @@
-"""The serving engine's CUDA graphs and async pipeline on the card. Every
-test here needs a CUDA device and skips itself without one (a graph has
-no CPU mode). The file imports neither ``jax`` nor ``paddle_tpu``:
+"""The serving engine's and ``generate()``'s CUDA graphs, and the async
+pipeline, on the card. Every test here needs a CUDA device and skips
+itself without one (a graph has no CPU mode). The file imports neither
+``jax`` nor ``paddle_tpu``:
 
     python -m pytest --noconftest -q tests/test_torch_graphs_gpu.py
 
 Each tick kind (decode, linear verify, tree verify, draft heads, the
 model drafting for itself; decode and verify also sampling, whose graphs
 register the engine's generator) on bfloat16, int8 and float32 pools (GPT's,
-under a bfloat16 model), and a DeepSeek-MoE decode tick, is served by
-two engines in lockstep (``chip_smoke.graph_lockstep``): one replays its
-pure ticks from CUDA graphs, the other runs every tick eagerly; each
-tick's tokens, logits and added launch counts, and the pools at the end,
-must be equal to the bit. A second wave of the same traffic captures no
-further graph; a graph captured before a larger capture on the same
-stream grew the kernels' per-stream scratch still replays to the bit;
-and ``async_depth=1`` streams what ``async_depth=0`` does."""
+under a bfloat16 model), and a DeepSeek-MoE engine, is served by two
+engines in lockstep with staggered admissions
+(``chip_smoke.graph_lockstep``): one replays every tick from CUDA graphs,
+the other runs every tick eagerly at the same widths (ticks with prefill
+rows at the static width); each tick's tokens, logits and added launch
+counts, and the pools at the end, must be equal to the bit, and both a
+pure tick's graph and a mixed tick's must replay. A second wave of the
+same traffic captures no further graph; a graph captured before a larger
+capture on the same stream grew the kernels' per-stream scratch still
+replays to the bit; ``async_depth=1`` streams what ``async_depth=0``
+does. ``generate()``'s paged, n-gram, self-drafted and tree runs, greedy
+and sampling, replay their steps from graphs and equal the eager steps
+(the model's ``cuda_graphs`` off) bit for bit."""
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +33,7 @@ from paddle_tpu_torch.models import (DeepseekMoeConfig,
                                      DeepseekMoeForCausalLM, GPTConfig,
                                      GPTForCausalLM, LlamaConfig,
                                      LlamaForCausalLM)
-from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops import cuda_graphs, kernels
 
 CORE = dict(num_slots=4, block_size=16, max_model_len=256, prefill_chunk=32)
 KINDS = {"decode": {},
@@ -79,7 +87,10 @@ def test_replay_equals_eager_tick(cuda, kind, pool):
         torch, kernels, ServingEngine, model, ServingConfig(**kw),
         _prompts(model.config.vocab_size), 12, f"{kind} {pool}",
         draft=model if kind == "self_draft" else None)
-    assert st["executables_compiled"] <= CORE["num_slots"]
+    # one graph a seated count (pure), one a verifying count (mixed)
+    assert st["pure_graphs"] <= CORE["num_slots"]
+    assert st["mixed_graphs"] <= (CORE["num_slots"] if "num_speculative_"
+                                  "tokens" in KINDS[kind] else 1)
 
 
 @pytest.mark.gpu
@@ -112,25 +123,27 @@ def test_second_wave_captures_nothing(cuda):
 
 @pytest.mark.gpu
 def test_scratch_outlives_a_larger_capture(cuda):
-    """One slot decodes alone (a graph for one seated slot), a second
-    joins (its warm-up grows K3's per-stream scratch on the capture
-    stream, its capture takes the larger one), then the first leaves
-    and the one-slot graph replays: it still writes the scratch it was
-    captured with, which is held by it."""
+    """One slot decodes alone (a pure graph for one seated slot), a
+    second joins (its prefill replays the mixed graph; its warm-up of two
+    seated slots grows K3's per-stream scratch on the capture stream, its
+    capture takes the larger one), then the first leaves and the
+    one-slot graph replays: it still writes the scratch it was captured
+    with, which is held by it."""
     model = _model("bfloat16")
     cfg = ServingConfig(**dict(CORE, num_slots=2))
     short, long_ = _prompts(512)[1], _prompts(512)[0]
     eng = ServingEngine(model, cfg)
     rid0 = eng.submit(short, 6)
-    while eng.stats()["executables_compiled"] < 1:
+    while not any(lay.pure for lay in eng._graphs):
         eng.step()
-    g1 = next(iter(eng._graphs.values()))
-    held = [(t, t.data_ptr()) for t in g1.scratch]
+    g1 = next(g for lay, g in eng._graphs.items() if lay.pure)
+    held = [(t, t.data_ptr()) for t in g1.step.scratch]
     assert held
     joined = eng.stats()["ticks"]
     rid1 = eng.submit(long_, 20)
     done = eng.run()
-    assert eng.stats()["executables_compiled"] == 2
+    # the mixed graph and two pure ones
+    assert eng.stats()["executables_compiled"] == 3
     assert all(t.data_ptr() == p for t, p in held)
     # the same schedule, every tick eager
     ref = ServingEngine(model, cfg)
@@ -159,3 +172,78 @@ def test_async_on_equals_off(cuda, kind):
         np.testing.assert_array_equal(a, b)
     if kind == "decode":
         assert st["pipelined_ticks"] > 0
+
+
+GENERATE = {"paged": dict(cache_impl="paged"),
+            "ngram": dict(num_speculative_tokens=3),
+            "self_draft": dict(num_speculative_tokens=3),
+            "tree": dict(num_speculative_tokens=3, spec_tree=(0, 0, 1)),
+            "paged_sampling": dict(cache_impl="paged",
+                                   decode_strategy="sampling",
+                                   temperature=0.9, top_k=20, seed=5),
+            "ngram_sampling": dict(num_speculative_tokens=3,
+                                   decode_strategy="sampling", top_p=0.9,
+                                   seed=5)}
+
+
+def _motif_ids(vocab, b=2, n=48, seed=2):
+    """Prompts with a repeated run, so prompt lookup finds drafts."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, vocab, (b, n))
+    ids[:, 30:38] = ids[:, 4:12]
+    return ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("kind", list(GENERATE))
+def test_generate_graph_equals_eager(cuda, kind, pool):
+    """generate() with its steps replayed from CUDA graphs equals the
+    same run with every step eager: tokens, scores (bit for bit) and the
+    launch counts; the graphed run captured exactly one graph."""
+    model = _model(pool)
+    kw = dict(GENERATE[kind], max_new_tokens=14)
+    if pool == "int8":
+        kw["kv_cache_dtype"] = "int8"
+    if kind == "self_draft":
+        kw["draft_model"] = model
+    ids = _motif_ids(model.config.vocab_size)
+    got = []
+    for graphs in (True, False):
+        model.cuda_graphs = graphs
+        c0 = dict(kernels.launch_counts)
+        with mock.patch.object(cuda_graphs, "capture",
+                               wraps=cuda_graphs.capture) as cap:
+            out, scores = model.generate(ids, **kw)
+        torch.cuda.synchronize()
+        added = {k: v - c0[k] for k, v in kernels.launch_counts.items()
+                 if v != c0[k]}
+        got.append((out, scores, added, cap.call_count))
+    (o_g, s_g, n_g, c_g), (o_e, s_e, n_e, c_e) = got
+    assert (c_g, c_e) == (1, 0)
+    assert torch.equal(o_g, o_e) and torch.equal(s_g, s_e)
+    assert n_g == n_e and sum(n_g.values()) > 0
+
+
+@pytest.mark.gpu
+def test_generate_eos_graph_equals_eager(cuda):
+    """An EOS that every row emits within the run: the graphed loop (the
+    all-done flag read one step late) gives the eager loop's tokens and
+    scores, pads after the EOS, and runs at most one more step."""
+    model = _model("bfloat16")
+    ids = _motif_ids(model.config.vocab_size)
+    base, _ = model.generate(ids, max_new_tokens=12, cache_impl="paged")
+    eos = int(base[0, 3])
+    got = []
+    for graphs in (True, False):
+        model.cuda_graphs = graphs
+        c0 = kernels.launch_counts["paged_decode_attention"]
+        out, sc = model.generate(ids, max_new_tokens=12, cache_impl="paged",
+                                 eos_token_id=eos)
+        got.append((out, sc,
+                    kernels.launch_counts["paged_decode_attention"] - c0))
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+    assert got[0][2] == got[1][2]
+    first = int(torch.argmax((got[0][0][0] == eos).int()))
+    assert first <= 3 and (got[0][0][0, first + 1:] == eos).all()

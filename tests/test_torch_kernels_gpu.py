@@ -126,6 +126,40 @@ def _live(out, q_lens, starts):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8_float32",
+                                  "int8_bfloat16", "f32pool"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_ragged_paged_attention_pad_rows_are_zero(cuda, mode, head_dim):
+    """A serving tick at its static width: rows past every slot's
+    (``r > sum(q_lens)``, memory that held NaN just before) come out
+    zero in every body and pool mode (the FMA body, the Hopper body's
+    bf16, int8 and float32-pool instances), as in the plain version;
+    the live rows still match it."""
+    rng = np.random.RandomState(head_dim)
+    base, q_lens = [40, 0, 100, 7], [1, 24, 1, 5]
+    dtype = torch.float32 if mode in ("float32", "int8_float32") \
+        else torch.bfloat16
+    args, starts = _ragged_case(rng, base, q_lens, 8, 2, head_dim, 16, 16,
+                                dtype, cuda)
+    q, kp, vp = args[:3]
+    if mode.startswith("int8"):
+        kp, vp = _int8(kp.float()), _int8(vp.float())
+    elif mode == "f32pool":
+        kp, vp = kp.float(), vp.float()
+    live_r = sum(q_lens)
+    r = live_r + 19
+    qp = torch.cat([q, torch.from_numpy(rng.randn(
+        r - live_r, *q.shape[1:]).astype(np.float32)).to(cuda, dtype)])
+    torch.full((4 * qp.numel(),), float("nan"), device=cuda)   # freed: dirty
+    got = rpa.ragged_paged_attention(qp, kp, vp, *args[3:], max(q_lens))
+    want = rpa.plain_ragged_paged_attention(qp, kp, vp, *args[3:])
+    assert torch.equal(got[live_r:], torch.zeros_like(got[live_r:]))
+    assert torch.equal(want[live_r:], got[live_r:])
+    _rows_close(got[:live_r], want[:live_r], "float32"
+                if dtype == torch.float32 else "bfloat16")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rep", [1, 4, 7])
 def test_ragged_paged_attention_edges(cuda, dtype, rep):
@@ -1547,8 +1581,9 @@ def test_ragged_tree_refusals(cuda):
 
 def _plain_serving_patches():
     """Route the serving path's kernels (K2r, K2d, K2v, K3a, K3b) to their
-    plain versions, with the engine's CUDA graphs off (the plain versions
-    read values back, which a capture cannot)."""
+    plain versions, with the engine's and generate()'s CUDA graphs off
+    (the plain versions read values back, which a capture cannot)."""
+    from paddle_tpu_torch.generation import GenerationMixin
     from paddle_tpu_torch.inference import ServingEngine
     def plain_attn(q, k_pool, v_pool, tables, ctx, q_lens, starts, w_max,
                    sm_scale=None, tree_anc=None, tree_slots=None,
@@ -1558,6 +1593,7 @@ def _plain_serving_patches():
             sm_scale=sm_scale, tree_anc=tree_anc, tree_slots=tree_slots,
             tree_rows=tree_rows)
     return [mock.patch.object(ServingEngine, "cuda_graphs", False),
+            mock.patch.object(GenerationMixin, "cuda_graphs", False),
             mock.patch.object(rpa, "ragged_paged_attention", plain_attn),
             mock.patch.object(df, "norm_matmul", df.plain_norm_matmul),
             mock.patch.object(df, "matmul_residual",

@@ -14,8 +14,14 @@ a third wave and 4 pure ticks (every seated slot decoding) of a fourth
 (device time, idle share), all through the checkout's own
 ``chip_smoke`` functions. The order is A B B A, ``--pairs`` times (the
 host's speed drifts within a call, so only neighbouring runs compare).
+Each run keeps its measured streams (under the ignored
+``build/serving_ab/``), and every run after the first holds them against
+the other checkout's last by ``chip_smoke.held_streams`` (equal, or each
+first divergence logged with its top-2 margin against the bf16 near-tie
+limit of phase 7's rule).
 """
 import argparse
+import os
 import subprocess
 import sys
 
@@ -36,8 +42,19 @@ engine = ServingEngine(model, ServingConfig(
     num_slots=8, block_size=16, max_model_len=2048, prefill_chunk=128,
     max_new_tokens=32), device="cuda")
 for tag in ("warm-up", "phase 3"):
-    cs.serve_run(torch, kernels, engine, prompts, lens, tag,
-                 cs.SERVING_KERNELS)
+    _, _, streams = cs.serve_run(torch, kernels, engine, prompts, lens, tag,
+                                 cs.SERVING_KERNELS)
+import os, numpy as np
+side, out = os.environ["AB_SIDE"], os.environ["AB_OUT"]
+other = os.path.join(out, f"streams{1 - int(side)}.npy")
+if os.path.exists(other):
+    noise = cs.logit_noise(torch, model, torch.from_numpy(
+        np.stack([p[:64] for p in prompts])).cuda())
+    cs.held_streams(torch, model, "phase 3 vs the other checkout", prompts,
+                    streams, list(np.load(other, allow_pickle=True)), None,
+                    limit=noise)
+np.save(os.path.join(out, f"streams{side}.npy"),
+        np.asarray(streams, dtype=object), allow_pickle=True)
 cs.tick_window(torch, engine, prompts[:8], cs.TICK_WINDOW, "phase 3")
 # 4 pure ticks (every seated slot decoding) of a third wave
 for p in prompts[:8]:
@@ -61,19 +78,23 @@ def main(argv):
     ap.add_argument("new")
     args = ap.parse_args(argv)
     trees = [args.old, args.new]
+    keep = os.path.abspath(os.path.join("build", "serving_ab"))
+    os.makedirs(keep, exist_ok=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     for i in [0, 1, 1, 0] * args.pairs:
         r = subprocess.run([sys.executable, "-c", RUN], cwd=trees[i],
-                           capture_output=True, text=True, timeout=900)
+                           capture_output=True, text=True, timeout=900,
+                           env=dict(os.environ, AB_SIDE=str(i), AB_OUT=keep))
         out = r.stdout + r.stderr
         print(f"[{i}] {trees[i]} rc {r.returncode}", flush=True)
         if r.returncode:
             print(out[-3000:], flush=True)
             return 1
         for line in out.splitlines():
-            if line.startswith("phase 3") and "launches" not in line:
+            if line.lstrip().startswith("phase 3") \
+                    and "launches" not in line:
                 print("   ", line, flush=True)
     return 0
 
