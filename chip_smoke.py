@@ -205,7 +205,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     at the end, equal to the bit, and at least one replay of a pure
     tick's graph and one of a mixed tick's (prefill rows, at the static
     width); (b) phase 3's engine with ``async_depth=1`` serves phase 3's
-    traffic twice: streams equal to phase 3's token for token, no graph
+    traffic twice (the published blocks purged before each wave, so the
+    second prefills as the first): streams equal to phase 3's token for
+    token, no graph
     captured in the second wave, tokens/s, TTFT, ticks, pure ticks,
     pipeline flushes, host gap p50 / p99 and graphs logged, and 4
     profiled pure ticks (wall ms, idle share) beside phase 3's; (d)
@@ -213,12 +215,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     (steps replayed from graphs) again with every step eager: tokens,
     scores and launch counts equal to the bit, ms a target forward of
     both logged;
-20. print the kernels line, the card's name and power limit, and the
+20. the prefix cache, preemption with the host KV tier and the request
+    lifecycle on phase 3's model (Llama-3-8B, 32 layers, bf16, phase 3's
+    weights): (a) 8 slots, two waves of 8 requests, each one of two
+    1024-token system prompts plus a distinct 64..512-token tail (the
+    first of wave 2 exactly a system prompt: a full-prompt hit and its
+    copy-on-write), 32 new, with the cache on and off: hit rate, tokens
+    reused, copies, TTFT a wave, tokens/s, 4 profiled ticks with prefill
+    rows (wall ms, idle share), the mixed graph not captured again in
+    wave 2, streams on vs off held by the near-tie rule; (b) 4 slots, a
+    4 GiB host tier: 4 priority-0 requests of 1024 tokens and 128 new,
+    after 8 ticks 4 priority-2 ones of 256 and 32 new, resuming by swap,
+    by recompute and by the cost model, against a never-preempted run on
+    8 slots: preemptions, blocks spilled / restored, resumes by path,
+    the transfer rate, TTFT by class, one 1024-token slot's export and
+    import ms, every import's blocks equal to the bytes spilled; (c) one
+    slot and a pool of two requests' blocks: A's published blocks
+    evicted into the host tier by B and C, restored by D (A's prompt and
+    a tail), held against a cold engine; (e) ``async_depth=1`` under
+    (b)'s storm and under a cancel mid-pipeline, token for token equal
+    to the synchronous engine; (d) (a)-(c) in float32 at 2 layers through
+    the kernels and through their plain versions (phase 4's rule), the
+    published blocks unchanged by wave 2's copy;
+21. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
-16, 17 and 18, both waves of phase 19 (b)) runs with every
+16, 17 and 18, both waves of phase 19 (b), each run of phase 20 (a)-(c)
+and (e) in bf16) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -235,6 +260,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 from unittest import mock
 
 import numpy as np
@@ -2717,6 +2743,9 @@ def async_phase(torch, kernels, ServingEngine, ServingConfig, model, prompts,
     layers = model.config.num_hidden_layers
     for wave in (1, 2):
         tag = f"phase 19 (b) wave {wave}"
+        # each wave prefills cold, as phase 3's did: the first wave's
+        # published blocks forgotten
+        engine.purge_published()
         got, st, streams = serve_run(torch, kernels, engine, prompts, lens,
                                      tag, SERVING_KERNELS)
         launches = launches or got
@@ -4140,6 +4169,492 @@ def gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
     return runs
 
 
+# ---------------------------------------------------------------- phase 20
+
+# (a): two waves of PREFIX["requests"] requests, each one of two
+# system-prompt-long shared prefixes plus a distinct tail (the first of
+# wave 2 is exactly a system prompt: a full-prompt hit); (b): low-priority
+# long requests, then after PREEMPT["after"] ticks high-priority short ones,
+# on PREEMPT["slots"] slots with a host tier of PREEMPT["tier"] bytes; (c):
+# a pool of RESTORE_POOL requests' worst-case blocks on one slot
+PREFIX = dict(system=1024, tails=(64, 512), requests=8, new=32)
+PREEMPT = dict(slots=4, lo=(4, 1024, 128), hi=(4, 256, 32), after=8,
+               tier=4 << 30)
+RESTORE_POOL = 2
+CANCEL = dict(requests=4, prompt=256, new=64, at=16)
+SERVE20 = dict(block_size=16, max_model_len=2048, prefill_chunk=128)
+
+
+class FirstTokens:
+    """A stream callback keeping each request's first-token time."""
+
+    def __init__(self):
+        self.t = {}
+
+    def __call__(self, rid, tok):
+        self.t.setdefault(rid, time.monotonic())
+
+
+def run_plan(torch, kernels, engine, firsts, plan, tag, on_tick=None,
+             full=True, want=SERVING_KERNELS):
+    """Drive ``engine`` over ``plan`` (``(tick, prompt, max_new, priority)``
+    each, submitted before that tick) to the end, every launch count set to
+    0 just before and read just after; ``on_tick(engine, tick, rids)`` runs
+    before each tick. Checks the tokens (``full``: every request its whole
+    budget) and that each kernel of ``want`` launched. Returns ``(streams and TTFT ms in plan order, launches, wall
+    seconds, stats)``."""
+    order = sorted(range(len(plan)), key=lambda j: plan[j][0])
+    rids, sub = {}, {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    tick = 0
+    while order or engine.num_queued or engine.num_active:
+        while order and plan[order[0]][0] <= tick:
+            j = order.pop(0)
+            sub[j] = time.monotonic()
+            rids[j] = engine.submit(plan[j][1], plan[j][2],
+                                    priority=plan[j][3])
+        if on_tick is not None:
+            on_tick(engine, tick, rids)
+        engine.step()
+        tick += 1
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(kernels.launch_counts)
+    st = engine.stats()
+    vocab = engine.model.config.vocab_size
+    streams, ttft = [], []
+    for j in range(len(plan)):
+        toks = done.get(rids[j], np.zeros(0, np.int64))
+        if (full and len(toks) != plan[j][2]) or len(toks) and (
+                toks.min() < 0 or toks.max() >= vocab):
+            raise AssertionError(f"{tag}: request {j}: bad tokens {toks}")
+        streams.append(toks)
+        t = firsts.t.get(rids[j])
+        ttft.append(None if t is None else 1000.0 * (t - sub[j]))
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched on the main "
+                             f"path: {missing}")
+    n_tok = sum(len(x) for x in streams)
+    log(f"{tag}: {len(plan)} requests, {n_tok} tokens in {wall:.3f}s -> "
+        f"{n_tok / wall:.2f} tok/s; ticks {tick}, {st['pure_ticks']} pure "
+        f"(engine total); {st['executables_compiled']} CUDA graphs")
+    return streams, ttft, launches, wall, st
+
+
+def ms_stats(xs):
+    xs = [x for x in xs if x is not None]
+    return (f"mean {np.mean(xs):.1f} p50 {np.percentile(xs, 50):.1f}"
+            if xs else "none")
+
+
+def add_launches(total, got):
+    for k in SERVING_KERNELS:
+        total[k] = total.get(k, 0) + got[k]
+
+
+def check_imports(torch, engine, pc, bad):
+    """Wrap ``engine._import_payload``: after each import the blocks it
+    wrote must hold the payload's bytes (a swap's are the victim's bytes
+    at its preemption, an evicted block's those it was published with);
+    a mismatch lands in ``bad``. The wrapper holds the engine weakly, so
+    a dropped engine is freed at once, as without it."""
+    imp = type(engine)._import_payload
+    ref = weakref.ref(engine)
+
+    def checked(blocks, payload):
+        eng = ref()
+        imp(eng, blocks, payload)
+        back = pc.payload_to_host(pc.export_blocks(eng._pools, blocks))
+        for (bk, bv), (pk, pv) in zip(back, payload):
+            for x, y in ((bk, pk), (bv, pv)):
+                pairs = ((x.data, y.data), (x.scale, y.scale)) \
+                    if hasattr(x, "scale") else ((x, y),)
+                if not all(torch.equal(a, b) for a, b in pairs):
+                    bad.append(list(blocks))
+    engine._import_payload = checked
+
+
+def prefix_traffic(vocab, seed):
+    """Phase 20 (a)'s two waves (seeded)."""
+    rng = np.random.RandomState(seed)
+    systems = [rng.randint(0, vocab, PREFIX["system"]) for _ in range(2)]
+    waves = []
+    for w in range(2):
+        wave = []
+        for k in range(PREFIX["requests"]):
+            if w == 1 and k == 0:
+                wave.append(systems[0].copy())
+                continue
+            lo, hi = PREFIX["tails"]
+            tail = rng.randint(0, vocab, rng.randint(lo, hi + 1))
+            wave.append(np.concatenate([systems[k % 2], tail]))
+        waves.append(wave)
+    return systems, waves
+
+
+def mixed_window(torch, engine, prompts, tag):
+    """TICK_WINDOW profiled ticks with prefill rows (their wall ms and
+    idle share): ``prompts`` submitted, one tick, the window, drained."""
+    for p in prompts:
+        engine.submit(p)
+    engine.step()
+    p0 = engine.stats()["pure_ticks"]
+    wall_ms, busy_ms, _ = profiled(torch, engine.step, TICK_WINDOW, 6)
+    pure = engine.stats()["pure_ticks"] - p0
+    engine.run()
+    log(f"{tag}: {TICK_WINDOW} profiled ticks ({TICK_WINDOW + 1 - pure} "
+        f"of {TICK_WINDOW + 1} with prefill rows, the profiler's first "
+        f"included): {wall_ms / TICK_WINDOW:.3f} ms a tick, device "
+        f"{busy_ms / TICK_WINDOW:.3f} ms -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
+
+
+def prefix_phase(torch, kernels, pc, ServingEngine, ServingConfig, model,
+                 tag, limit, fails, launches, want=SERVING_KERNELS,
+                 profile=True):
+    """Phase 20 (a): the two waves on 8 slots, the cache on and off: hit
+    rate, tokens reused, copies, TTFT a wave, tokens/s; the mixed graph
+    not captured again in wave 2; the published blocks of the first system
+    prompt unchanged by wave 2 (its full-prompt hit copies the shared
+    block); streams on vs off held by the near-tie ``limit``. Returns the
+    cache-on streams."""
+    systems, waves = prefix_traffic(model.config.vocab_size, SEED + 20)
+    out = {}
+    for cache in (True, False):
+        name = f"{tag} cache {'on' if cache else 'off'}"
+        firsts = FirstTokens()
+        engine = ServingEngine(model, ServingConfig(
+            num_slots=PREFIX["requests"], **SERVE20,
+            max_new_tokens=PREFIX["new"], enable_prefix_cache=cache),
+            device="cuda", stream_callback=firsts)
+        streams, mixed = [], []
+        for w, wave in enumerate(waves):
+            snap = None
+            if cache and w == 1:
+                blocks = [engine._alloc.lookup(h) for h in pc.chain_hashes(
+                    engine._fp, systems[0], engine._bs)]
+                if None in blocks:
+                    fails.append(f"{name}: system prompt not published")
+                else:
+                    snap = [t[blocks].clone()
+                            for t in pool_tensors(engine._pools)]
+            got, ttft, n, wall, st = run_plan(
+                torch, kernels, engine, firsts,
+                [(0, p, PREFIX["new"], 0) for p in wave],
+                f"{name} wave {w + 1}", want=want)
+            add_launches(launches, n)
+            streams += got
+            mixed.append(sum(not lay.pure for lay in engine._graphs))
+            log(f"{name} wave {w + 1}: TTFT ms {ms_stats(ttft)}; "
+                f"prefix_hit_rate {st['prefix_hit_rate']:.4f} (engine "
+                f"total), prefix_tokens_reused {st['prefix_tokens_reused']},"
+                f" prefix_blocks_reused {st['prefix_blocks_reused']}, "
+                f"cow_copies {st['cow_copies']}, cached_blocks "
+                f"{st['cached_blocks']}, executables_compiled "
+                f"{st['executables_compiled']} ({mixed[-1]} mixed)")
+            if snap is not None:
+                same = all(torch.equal(a, t[blocks]) for a, t in
+                           zip(snap, pool_tensors(engine._pools)))
+                log(f"{name}: the first system prompt's {len(blocks)} "
+                    f"published blocks after wave 2: "
+                    f"{'unchanged' if same else 'CHANGED'}")
+                if not same:
+                    fails.append(f"{name}: published blocks changed")
+        if cache:
+            if not (st["cow_copies"] >= 1 and st["prefix_tokens_reused"]
+                    >= PREFIX["system"] * (PREFIX["requests"] - 1)):
+                fails.append(f"{name}: no full-prompt hit / reuse ({st})")
+            if len(mixed) == 2 and mixed[1] != mixed[0] and \
+                    engine._graphs_ok and engine.cuda_graphs:
+                fails.append(f"{name}: wave 2 captured a mixed graph")
+        if profile:
+            mixed_window(torch, engine, waves[1], f"{name} mixed ticks")
+        engine.shutdown()
+        out[cache] = streams
+        del engine
+        torch.cuda.empty_cache()
+    held_streams(torch, model, f"{tag} cache on vs off", waves[0] + waves[1],
+                 out[True], out[False], fails, limit=limit)
+    return out[True]
+
+
+def preempt_plan(vocab, seed):
+    rng = np.random.RandomState(seed)
+    plan = []
+    for (n, length, new), (tick, prio) in (
+            (PREEMPT["lo"], (0, 0)), (PREEMPT["hi"], (PREEMPT["after"], 2))):
+        plan += [(tick, rng.randint(0, vocab, length), new, prio)
+                 for _ in range(n)]
+    return plan
+
+
+def preempt_phase(torch, kernels, pc, ServingEngine, ServingConfig, model,
+                  tag, limit, fails, launches, want=SERVING_KERNELS,
+                  xfer=True):
+    """Phase 20 (b): PREEMPT's traffic never preempted (8 slots), then on
+    PREEMPT["slots"] slots resuming by swap, by recompute and by the cost
+    model: preemptions, blocks spilled / restored, resumes by path, the
+    measured transfer rate, TTFT by class; every import's blocks equal
+    the bytes spilled; streams held against the never-preempted run.
+    ``xfer``: also time one export and one import of a 1024-token slot.
+    Returns the swap run's streams."""
+    plan = preempt_plan(model.config.vocab_size, SEED + 21)
+    n_lo = PREEMPT["lo"][0]
+    res = {}
+    for run, kw in (("never", dict(num_slots=2 * PREEMPT["slots"])),
+                    ("swap", dict(preempt_resume="swap")),
+                    ("recompute", dict(preempt_resume="recompute")),
+                    ("auto", dict(preempt_resume="auto"))):
+        name = f"{tag} {run}"
+        firsts = FirstTokens()
+        engine = ServingEngine(model, ServingConfig(**dict(
+            dict(num_slots=PREEMPT["slots"], **SERVE20,
+                 host_kv_tier_bytes=PREEMPT["tier"]), **kw)), device="cuda",
+            stream_callback=firsts)
+        bad = []
+        check_imports(torch, engine, pc, bad)
+        streams, ttft, n, wall, st = run_plan(torch, kernels, engine,
+                                              firsts, plan, name, want=want)
+        add_launches(launches, n)
+        res[run] = streams
+        log(f"{name}: preemptions {st['preemptions']}, kv_blocks_spilled "
+            f"{st['kv_blocks_spilled']}, kv_blocks_restored "
+            f"{st['kv_blocks_restored']}, swap resumes "
+            f"{st['preempt_swap_resumes']}, recompute resumes "
+            f"{st['preempt_recompute_resumes']}, host_xfer_bytes_per_s_est "
+            f"{st['host_xfer_bytes_per_s_est']}, prefill_rows_per_s_est "
+            f"{st['prefill_rows_per_s_est']}, cow_copies {st['cow_copies']};"
+            f" TTFT ms priority 0 {ms_stats(ttft[:n_lo])}, priority 2 "
+            f"{ms_stats(ttft[n_lo:])}; imports checked: "
+            f"{'equal' if not bad else 'DIFFER ' + str(bad)}")
+        if bad:
+            fails.append(f"{name}: imported blocks differ from the spill")
+        if run != "never" and not st["preemptions"]:
+            fails.append(f"{name}: nothing preempted")
+        if run == "swap" and not st["preempt_swap_resumes"]:
+            fails.append(f"{name}: no swap resume")
+        if run == "recompute" and not st["preempt_recompute_resumes"]:
+            fails.append(f"{name}: no recompute resume")
+        if run != "never":
+            held_streams(torch, model, f"{name} vs never preempted",
+                         [p for _, p, _, _ in plan], streams, res["never"],
+                         fails, limit=limit)
+        if xfer and run == "swap":
+            blocks = list(range(1, 1 + PREEMPT["lo"][1] // engine._bs))
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                payload = engine._export_payload(blocks)
+                t1 = time.monotonic()
+                # the engine's own import, not the checking wrapper
+                type(engine)._import_payload(engine, blocks, payload)
+                torch.cuda.synchronize()
+                times.append((1e3 * (t1 - t0),
+                              1e3 * (time.monotonic() - t1)))
+            nb = pc.payload_nbytes(payload)
+            ex, im = (min(t[k] for t in times) for k in (0, 1))
+            log(f"{name}: one {PREEMPT['lo'][1]}-token slot ({len(blocks)}"
+                f" blocks, {nb} bytes): export to host {ex:.3f} ms "
+                f"({nb / ex / 1e6:.3f} GB/s), import {im:.3f} ms "
+                f"({nb / im / 1e6:.3f} GB/s), best of 3")
+        engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+    return res["swap"]
+
+
+def restore_phase(torch, kernels, pc, ServingEngine, ServingConfig, model,
+                  tag, limit, fails, launches, want=SERVING_KERNELS):
+    """Phase 20 (c): one slot, a pool of RESTORE_POOL requests' worst-case
+    blocks and a host tier: A, then B and C (distinct prompts) evict A's
+    published blocks into the tier, then D shares A's prompt and restores
+    them; every import's blocks equal their spilled bytes; the four
+    streams held against a cold engine's (cache off). Returns the warm
+    streams."""
+    rng = np.random.RandomState(SEED + 22)
+    vocab = model.config.vocab_size
+    n, tail, new = PREFIX["system"], PREFIX["tails"][0], PREFIX["new"]
+    a = rng.randint(0, vocab, n)
+    prompts = [a, rng.randint(0, vocab, n), rng.randint(0, vocab, n),
+               np.concatenate([a, rng.randint(0, vocab, tail)])]
+    worst = -(-(n + tail + new) // SERVE20["block_size"])
+    out = {}
+    for cache in (True, False):
+        name = f"{tag} cache {'on' if cache else 'off'}"
+        firsts = FirstTokens()
+        engine = ServingEngine(model, ServingConfig(
+            num_slots=1, **SERVE20, num_blocks=1 + RESTORE_POOL * worst,
+            host_kv_tier_bytes=PREEMPT["tier"], enable_prefix_cache=cache),
+            device="cuda", stream_callback=firsts)
+        bad = []
+        check_imports(torch, engine, pc, bad)
+        streams = []
+        for k, p in enumerate(prompts):
+            got, ttft, nl, _, st = run_plan(
+                torch, kernels, engine, firsts, [(0, p, new, 0)],
+                f"{name} request {'ABCD'[k]}", want=want)
+            add_launches(launches, nl)
+            streams += got
+            log(f"{name} request {'ABCD'[k]}: TTFT ms {ttft[0]:.1f}; "
+                f"cache_evictions {st['cache_evictions']}, "
+                f"kv_blocks_spilled {st['kv_blocks_spilled']}, "
+                f"kv_blocks_restored {st['kv_blocks_restored']}, "
+                f"host_tier_bytes {st['host_tier_bytes']}, "
+                f"prefix_tokens_reused {st['prefix_tokens_reused']}")
+        if cache and not st["kv_blocks_restored"] > 0:
+            fails.append(f"{name}: nothing restored from the host tier")
+        if bad:
+            fails.append(f"{name}: restored blocks differ from the spill")
+        out[cache] = streams
+        engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+    held_streams(torch, model, f"{tag} warm vs cold", prompts, out[True],
+                 out[False], fails, limit=limit)
+    return prompts, out[True]
+
+
+def async_lifecycle_phase(torch, kernels, ServingEngine, ServingConfig,
+                          model, swap_streams, fails, launches):
+    """Phase 20 (e): ``async_depth=1`` under (b)'s storm (resuming by
+    swap) and under a cancel mid-pipeline: streams equal to the
+    synchronous engine's token for token."""
+    plan = preempt_plan(model.config.vocab_size, SEED + 21)
+    firsts = FirstTokens()
+    engine = ServingEngine(model, ServingConfig(
+        num_slots=PREEMPT["slots"], **SERVE20,
+        host_kv_tier_bytes=PREEMPT["tier"], preempt_resume="swap",
+        async_depth=1), device="cuda", stream_callback=firsts)
+    got, _, n, _, st = run_plan(torch, kernels, engine, firsts, plan,
+                                "phase 20 (e) storm async")
+    add_launches(launches, n)
+    engine.shutdown()
+    same = sum(np.array_equal(x, y) for x, y in zip(got, swap_streams))
+    log(f"phase 20 (e) storm: {same} of {len(got)} streams equal the "
+        f"synchronous swap run's; preemptions {st['preemptions']}, "
+        f"pipelined ticks {st['pipelined_ticks']}, flushes "
+        f"{st['pipeline_flushes']}")
+    if same != len(got) or not st["preemptions"]:
+        fails.append("phase 20 (e): async storm differs from sync")
+    rng = np.random.RandomState(SEED + 23)
+    plan = [(0, rng.randint(0, model.config.vocab_size, CANCEL["prompt"]),
+             CANCEL["new"], 0) for _ in range(CANCEL["requests"])]
+
+    def cancel(engine, tick, rids):
+        if tick == CANCEL["at"]:
+            engine.cancel(rids[1])
+
+    res = {}
+    for depth in (0, 1):
+        firsts = FirstTokens()
+        engine = ServingEngine(model, ServingConfig(
+            num_slots=CANCEL["requests"], **SERVE20, async_depth=depth),
+            device="cuda", stream_callback=firsts)
+        res[depth], _, n, _, st = run_plan(
+            torch, kernels, engine, firsts, plan,
+            f"phase 20 (e) cancel async {depth}", on_tick=cancel,
+            full=False)
+        add_launches(launches, n)
+        res[depth] = (res[depth], st)
+        engine.shutdown()
+        del engine
+    (sync, st0), (asy, st1) = res[0], res[1]
+    same = sum(np.array_equal(x, y) for x, y in zip(sync, asy))
+    log(f"phase 20 (e) cancel at tick {CANCEL['at']}: {same} of "
+        f"{len(sync)} streams equal, the cancelled one "
+        f"{len(asy[1])} of {CANCEL['new']} tokens; pipelined ticks "
+        f"{st1['pipelined_ticks']}, requests_cancelled "
+        f"{st1['requests_cancelled']}")
+    if same != len(sync) or not 0 < len(asy[1]) < CANCEL["new"] \
+            or st1["requests_cancelled"] != 1 or not st1["pipelined_ticks"]:
+        fails.append("phase 20 (e): cancel mid-pipeline")
+    torch.cuda.empty_cache()
+
+
+def lifecycle_phase(torch, kernels, df, rpa, ServingEngine, ServingConfig,
+                    LlamaConfig, LlamaForCausalLM, layers):
+    """Phase 20: the prefix cache, preemption with the host KV tier and
+    the request lifecycle on phase 3's model (Llama-3-8B at ``layers``
+    layers, bf16, phase 3's seeded weights): (a)-(c) and (e), the bf16
+    streams held by the near-tie rule (the logit difference of two bf16
+    recipes), (e) token for token; then (d): (a)-(c) in float32 at
+    PHASE4_LAYERS layers through the kernels and through their plain
+    versions (phase 4's rule). Returns the launch counts of its runs."""
+    from paddle_tpu_torch.ops import paged_cache as pc
+    t_phase = time.monotonic()
+    cfg = LlamaConfig.llama3_8b()
+    cfg.dtype = "bfloat16"
+    cfg.num_hidden_layers = layers
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED)
+    ids7 = torch.from_numpy(motif_prompts(
+        GENERATE["batch"], GENERATE["prompt"], GENERATE["motif"],
+        cfg.vocab_size, SEED + 3)).to(model.device)
+    noise = logit_noise(torch, model, ids7)
+    del ids7
+    log(f"phase 20: Llama-3-8B, {layers} layers bf16 (phase 3's weights); "
+        f"bf16 logits of two recipes differ by up to {noise:.3e}: the "
+        "near-tie limit of the streams held below")
+    fails, launches = [], {}
+    prefix_phase(torch, kernels, pc, ServingEngine, ServingConfig, model,
+                 "phase 20 (a)", noise, fails, launches)
+    swap = preempt_phase(torch, kernels, pc, ServingEngine, ServingConfig,
+                         model, "phase 20 (b)", noise, fails, launches)
+    restore_phase(torch, kernels, pc, ServingEngine, ServingConfig, model,
+                  "phase 20 (c)", noise, fails, launches)
+    async_lifecycle_phase(torch, kernels, ServingEngine, ServingConfig,
+                          model, swap, fails, launches)
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 20 (a)-(c), (e): {time.monotonic() - t_phase:.1f}s")
+
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = PHASE4_LAYERS
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 1)
+    streams = {}
+    for path in ("kernels", "plain"):
+        patches = plain_patches(df, rpa) if path == "plain" else []
+        want = () if patches else SERVING_KERNELS
+        for p in patches:
+            p.start()
+        try:
+            tag = f"phase 20 (d) f32 {path}"
+            streams[path] = (
+                prefix_phase(torch, kernels, pc, ServingEngine,
+                             ServingConfig, model, f"{tag} (a)",
+                             LOGITS_ATOL, fails, {}, want, profile=False),
+                preempt_phase(torch, kernels, pc, ServingEngine,
+                              ServingConfig, model, f"{tag} (b)",
+                              LOGITS_ATOL, fails, {}, want, xfer=False),
+                restore_phase(torch, kernels, pc, ServingEngine,
+                              ServingConfig, model, f"{tag} (c)",
+                              LOGITS_ATOL, fails, {}, want))
+        finally:
+            for p in patches:
+                p.stop()
+    _, waves = prefix_traffic(cfg.vocab_size, SEED + 20)
+    held_streams(torch, model, "phase 20 (d) f32 (a) kernels vs plain",
+                 waves[0] + waves[1], streams["kernels"][0],
+                 streams["plain"][0], fails)
+    held_streams(torch, model, "phase 20 (d) f32 (b) kernels vs plain",
+                 [p for _, p, _, _ in preempt_plan(cfg.vocab_size,
+                                                   SEED + 21)],
+                 streams["kernels"][1], streams["plain"][1], fails)
+    held_streams(torch, model, "phase 20 (d) f32 (c) kernels vs plain",
+                 streams["kernels"][2][0], streams["kernels"][2][1],
+                 streams["plain"][2][1], fails)
+    del model
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 20 failed: {fails}")
+    log(f"phase 20: {time.monotonic() - t_phase:.1f}s; launches {launches}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -4332,8 +4847,11 @@ def main(argv=None):
     launches = {k: launches[k] for k in SERVING_KERNELS}
     log(f"phase 3: kv_cache_dtype {st3['kv_cache_dtype']}, pool bytes "
         f"{st3['kv_pool_bytes']}")
+    # the windows re-prefill their prompts cold, as the first wave did
+    engine.purge_published()
     llama_reads = tick_window(torch, engine, prompts[:8], TICK_WINDOW,
                               "phase 3")
+    engine.purge_published()
     pure3 = pure_tick_window(torch, engine, prompts[:8], TICK_WINDOW,
                              "phase 3")
     engine.shutdown()
@@ -4488,8 +5006,15 @@ def main(argv=None):
             + TRAINING_KERNELS:
         launches[k] = launches.get(k, 0) + sum(r.get(k, 0)
                                                for r in gpt_runs.values())
+    torch.cuda.empty_cache()
 
-    # -- phase 20: report --------------------------------------------------
+    # -- phase 20: the prefix cache, preemption, the request lifecycle ------
+    for k, n in lifecycle_phase(torch, kernels, df, rpa, ServingEngine,
+                                ServingConfig, LlamaConfig, LlamaForCausalLM,
+                                args.layers).items():
+        launches[k] += n
+
+    # -- phase 21: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (

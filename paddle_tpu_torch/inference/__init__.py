@@ -1,4 +1,4 @@
 """Serving (counterpart of ``paddle_tpu/inference``, core engine)."""
-from .serving import ServingConfig, ServingEngine
+from .serving import QueueShedError, ServingConfig, ServingEngine
 
-__all__ = ["ServingConfig", "ServingEngine"]
+__all__ = ["ServingConfig", "ServingEngine", "QueueShedError"]

@@ -6,9 +6,30 @@ decoding slot gives one row; pending prompts share the tick's prefill
 row budget, with one slot at the chunk width and the others trickling at
 one row, exactly as the reference schedules them. The model runs the
 packed rows once; each slot's continuation row is sampled; the host then
-commits tokens, prefill progress and retirements. Admission is FIFO
-with a worst-case block reservation (prompt + max_new_tokens), so a
-running request never waits for blocks.
+commits tokens, prefill progress and retirements.
+
+Admission takes the highest priority class first, FIFO within a class,
+when the pool covers the request's worst case (prompt + max_new_tokens)
+on top of every seated slot's reservation; with preemption on
+(``ServingConfig(enable_preemption=True)``, the default) it may also
+overcommit the pool down to ``admission_watermark_blocks`` of headroom.
+Under slot or block pressure a lower-priority slot is preempted: its
+full blocks are published into the prefix cache, its live blocks are
+copied into the host KV tier (:class:`~paddle_tpu_torch.ops.paged_cache.
+HostKVTier`), and it is queued again at the front of its class with its
+continuation, to resume by importing those bytes (swap) or by
+re-prefilling what the prefix cache lost (recompute), token-exact either
+way. ``submit(max_queue_wait_ms=)`` bounds a request's queue wait,
+``shed_queue_depth`` refuses arrivals at the front door
+(:class:`QueueShedError`), and ``cancel()`` ends a request anywhere in
+its life.
+
+The prefix cache (``enable_prefix_cache=True``, the default) publishes a
+retired or preempted sequence's full blocks under content hashes; a
+later prompt maps its longest published prefix into its table and
+prefills only the rest, copying a shared block before it appends into
+it. Every move of pool bytes (a copy, an import, a restore) writes the
+pools in place, so a captured tick reads what it moved.
 
 Each tick with a prefill row packs to the reference's static width
 (``num_slots * (gamma + 1) + ragged_prefill_rows`` rows, a slot's
@@ -69,16 +90,16 @@ compacted onto the linear tail by ``permute_window``. Greedy engines
 emit the target's greedy tokens; sampling engines run rejection
 sampling with each slot's own knobs on both distributions.
 
-Later slices bring the prefix cache, preemption and the host tier,
-multi-LoRA, tensor parallelism, health monitoring, the cluster and the
-rest of the telemetry; a config field or argument asking for one of
-them raises ``NotImplementedError`` naming that slice, and their
-``stats()`` keys are absent.
+Later slices bring multi-LoRA, tensor parallelism, health monitoring,
+the cluster and the rest of the telemetry; a config field or argument
+asking for one of them raises ``NotImplementedError`` naming that slice,
+and their ``stats()`` keys are absent.
 """
 from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional
@@ -100,15 +121,21 @@ from ..ops.cuda_graphs import graphs_usable
 from ..ops.kernels import launch_counts
 from ..ops.kernels.paged_attention import spec_tree_scope
 
-__all__ = ["ServingConfig", "ServingEngine"]
+__all__ = ["ServingConfig", "ServingRequest", "ServingEngine",
+           "QueueShedError"]
+
+
+class QueueShedError(RuntimeError):
+    """Raised by ``submit()`` when queue-depth shedding is armed
+    (``ServingConfig.shed_queue_depth``) and the queue already holds that
+    many requests: the request is refused at the front door, so queued
+    work keeps its latency budget under overload."""
 
 
 # later-slice fields: accepted only at their "off" value
 _LATER = {
-    "enable_prefix_cache": (False, "the prefix cache"),
     "chunked_prefill": (True, "bucketed (unchunked) prefill"),
     "ragged_batch": (True, "the per-width executable path"),
-    "enable_preemption": (False, "preemption and the host KV tier"),
     "lora_rank": (0, "multi-LoRA serving"),
     "tp_degree": (1, "tensor-parallel serving"),
     "health": (False, "the health engine"),
@@ -153,17 +180,48 @@ class ServingConfig:
     # the in-flight tick's device carry before committing it; None / 0
     # dispatch then block
     async_depth: Optional[int] = None
+    # content-addressed prefix reuse over the block pool: retired and
+    # preempted sequences publish their full blocks; False frees them
+    enable_prefix_cache: bool = True
+    # False: retirement drops each request's tokens instead of holding
+    # them for run() (a streaming deployment that drives step() itself)
+    retain_results: bool = True
+    # priorities, watermark admission and preemption with the host KV
+    # tier; False keeps FIFO admission with worst-case reservations
+    enable_preemption: bool = True
+    # overcommit headroom of admission, in blocks (None: num_slots)
+    admission_watermark_blocks: Optional[int] = None
+    # host-memory tier for preempted and evicted blocks (0: none)
+    host_kv_tier_bytes: int = 64 << 20
+    # how a preempted request resumes: "auto" (the measured cheaper of
+    # the two), "swap" (import its spilled bytes) or "recompute"
+    preempt_resume: str = "auto"
+    # submit() raises QueueShedError at this queue depth (None: never)
+    shed_queue_depth: Optional[int] = None
+    # default queue-wait budget of a request (None: unbounded)
+    max_queue_wait_ms: Optional[float] = None
     # -- later slices: accepted only at their off value ------------------
-    enable_prefix_cache: bool = False
     chunked_prefill: bool = True
     ragged_batch: bool = True
-    enable_preemption: bool = False
     lora_rank: int = 0
     tp_degree: int = 1
     health: bool = False
     role: str = "both"
 
     def __post_init__(self):
+        if self.preempt_resume not in ("auto", "swap", "recompute"):
+            raise ValueError(
+                f"preempt_resume must be auto|swap|recompute, got "
+                f"{self.preempt_resume!r}")
+        if self.host_kv_tier_bytes < 0:
+            raise ValueError(
+                f"host_kv_tier_bytes must be >= 0, got "
+                f"{self.host_kv_tier_bytes!r}")
+        if self.shed_queue_depth is not None \
+                and int(self.shed_queue_depth) < 1:
+            raise ValueError(
+                f"shed_queue_depth must be >= 1 (or None), got "
+                f"{self.shed_queue_depth!r}")
         ad = self.async_depth
         if ad is not None and (not isinstance(ad, int)
                                or isinstance(ad, bool)
@@ -225,25 +283,44 @@ class ServingRequest:
     temperature: Optional[float] = None
     top_k: Optional[int] = None
     top_p: Optional[float] = None
+    # scheduling class: higher admits first and may preempt strictly
+    # lower classes; FIFO within a class (ignored without preemption)
+    priority: int = 0
+    # queue-wait budget (ms): still queued past it, the request ends
+    # with an empty result
+    max_queue_wait_ms: Optional[float] = None
+    # a preempted request's continuation (None for a fresh one):
+    # cache_len, last_token, n_emitted, history, worst_blocks, n_blocks,
+    # nbytes and key (its host-tier entry, or None)
+    resume: Optional[dict] = None
 
 
 class _Slot:
     __slots__ = ("rid", "blocks", "worst_blocks", "cache_len",
                  "last_token", "n_emitted", "max_new", "prompt", "pend_pos",
-                 "history")
+                 "history", "priority", "admit_t", "resume")
 
-    def __init__(self, rid, blocks, worst_blocks, max_new, prompt):
+    def __init__(self, rid, blocks, worst_blocks, max_new, prompt,
+                 cache_len=0, history=None, priority=0):
         self.rid = rid
         self.blocks = blocks            # allocated block ids (ordered)
         self.worst_blocks = worst_blocks
-        self.cache_len = 0              # valid cache positions
+        self.cache_len = cache_len      # valid cache positions
         self.last_token = None
         self.n_emitted = 1              # counts the first token once out
         self.max_new = max_new
-        self.prompt = prompt            # int32 prompt
-        self.pend_pos = 0               # next prefill row; None = decoding
-        # prompt + emitted tokens: the n-gram drafter's lookup corpus
-        self.history = [int(t) for t in prompt]
+        self.prompt = prompt            # int32 prompt (a resume's context)
+        self.pend_pos = cache_len       # next prefill row; None = decoding
+        # prompt + emitted tokens: position p of the cache holds
+        # history[p] for p < cache_len; the n-gram drafter's corpus and
+        # what publishing hashes
+        self.history = [int(t) for t in prompt] if history is None \
+            else list(history)
+        self.priority = int(priority)
+        self.admit_t = time.monotonic()
+        # (last_token, n_emitted) a recompute resume restores when its
+        # re-prefill completes
+        self.resume = None
 
 
 class _Layout(NamedTuple):
@@ -288,9 +365,9 @@ class _Pipe:
     and the event it waits on (async pure ticks), and the row layout the
     commit needs. ``carry``: the input vector now holding the next tick's
     packs (async pure decode ticks), from which a pipelined dispatch
-    runs."""
+    runs. ``t0``: the dispatch time (the prefill rate's clock)."""
     __slots__ = ("outs", "host", "event", "layout", "active", "given",
-                 "rid_of", "carry")
+                 "rid_of", "carry", "t0")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -450,6 +527,43 @@ class ServingEngine:
         nb = (1 + cfg.num_slots * self._mb) if cfg.num_blocks is None \
             else int(cfg.num_blocks)
         self._alloc = _pc.BlockAllocator(nb)
+        # -- the prefix cache, preemption and the host KV tier ------------
+        self._prefix_on = bool(cfg.enable_prefix_cache)
+        # the hash chains' seed: blocks are shared within one model only
+        self._fp = _pc.model_fingerprint(model)
+        self._preempt_on = bool(cfg.enable_preemption)
+        wm = cfg.admission_watermark_blocks
+        self._watermark = int(cfg.num_slots if wm is None else wm)
+        self._resume_policy = str(cfg.preempt_resume)
+        self._shed_depth = cfg.shed_queue_depth
+        self._default_qwait = cfg.max_queue_wait_ms
+        # a spill holds a request's prompt and output blocks at most
+        self._mb_xfer = _pc.blocks_for(cfg.max_model_len, self._bs)
+        tier_bytes = int(cfg.host_kv_tier_bytes or 0)
+        self._host_tier = _pc.HostKVTier(tier_bytes) \
+            if self._preempt_on and tier_bytes > 0 else None
+        if self._host_tier is not None and self._prefix_on:
+            # evicted published blocks go to the host tier, from which a
+            # later prefix hit restores them; through a weak reference,
+            # or the allocator would hold its engine in a cycle
+            me = weakref.ref(self)
+            self._alloc.on_evict = lambda b, h: me()._spill_evicted(b, h)
+        self._n_preempt = 0             # slots preempted
+        self._n_spilled = 0             # blocks copied into the host tier
+        self._n_restored = 0            # blocks imported from it
+        self._n_swap_resumes = 0
+        self._n_recompute_resumes = 0
+        self._n_shed = 0
+        self._n_timeout = 0
+        self._n_cancelled = 0
+        # the resume cost model's rates (EMA): prefill rows a second, and
+        # host-transfer bytes a second
+        self._prefill_rows_s = 0.0
+        self._xfer_bytes_s = 0.0
+        self._n_prefix_blocks = 0       # cached blocks mapped into slots
+        self._n_prefix_tokens = 0       # prompt tokens not prefilled
+        self._n_prompt_tokens = 0       # prompt tokens admitted
+        self._n_cow = 0
         self._chunk = max(1, min(int(cfg.prefill_chunk),
                                  int(cfg.max_model_len)))
         want = cfg.ragged_prefill_rows
@@ -530,15 +644,23 @@ class ServingEngine:
                adapter_id=None) -> int:
         """Queue one request; returns its request id. ``temperature`` /
         ``top_k`` / ``top_p`` override the config for this request
-        (sampling engines only)."""
-        if priority != 0 or max_queue_wait_ms is not None:
-            raise NotImplementedError(
-                "priorities and queue-wait budgets come with the "
-                "preemptive-scheduling slice of the PyTorch port")
+        (sampling engines only). ``priority`` is its scheduling class
+        (higher admits first and may preempt strictly lower classes;
+        ignored without preemption); ``max_queue_wait_ms`` bounds its
+        queue wait (default: the config's): still queued past it, it ends
+        with an empty result. At the config's ``shed_queue_depth``
+        ``submit`` raises :class:`QueueShedError`."""
         if adapter_id is not None:
             raise NotImplementedError(
                 "adapter_id comes with the multi-LoRA slice of the "
                 "PyTorch port")
+        if self._shed_depth is not None \
+                and len(self._queue) >= int(self._shed_depth):
+            self._n_shed += 1
+            raise QueueShedError(
+                f"admission queue at shed threshold ({len(self._queue)} >= "
+                f"{int(self._shed_depth)}): request refused (load "
+                "shedding)")
         ids = np.asarray(prompt, np.int32).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -566,16 +688,114 @@ class ServingEngine:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         if top_p is not None and not 0.0 < float(top_p) <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if isinstance(priority, bool) or not isinstance(
+                priority, (int, np.integer)):
+            raise ValueError(f"priority must be an int, got {priority!r}")
+        if max_queue_wait_ms is None:
+            max_queue_wait_ms = self._default_qwait
+        if max_queue_wait_ms is not None \
+                and float(max_queue_wait_ms) <= 0.0:
+            raise ValueError(
+                f"max_queue_wait_ms must be > 0 (or None), got "
+                f"{max_queue_wait_ms}")
         rid = self._next_rid
         self._next_rid += 1
         req = ServingRequest(
             rid, ids, max_new, time.monotonic(),
             temperature=None if temperature is None else float(temperature),
             top_k=None if top_k is None else int(top_k),
-            top_p=None if top_p is None else float(top_p))
+            top_p=None if top_p is None else float(top_p),
+            priority=int(priority),
+            max_queue_wait_ms=None if max_queue_wait_ms is None
+            else float(max_queue_wait_ms))
         self._queue.append(req)
         self._submit_t[rid] = req.submit_time
         return rid
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a request anywhere in its life. Queued: removed (a
+        preempted one surfaces the tokens it already streamed). Seated:
+        retired at once, its blocks freed unpublished (a cancelled
+        stream's continuation must not seed the prefix cache), its tokens
+        so far in ``run()``'s results. Returns False when the id is
+        unknown (never submitted, finished or already cancelled)."""
+        self._flush_pipe()      # commit the in-flight tick first
+        for k, req in enumerate(self._queue):
+            if req.request_id == request_id:
+                del self._queue[k]
+                self._finish_unserved(req)
+                return True
+        for i, s in enumerate(self._slots):
+            if s is not None and s.rid == request_id:
+                self._cancel_slot(i)
+                return True
+        return False
+
+    def _finish_unserved(self, req, record_empty=False):
+        """A request leaving the queue unserved (cancel, timeout): drop
+        its spilled payload, and surface what it already streamed (a
+        preempted request's tokens; ``record_empty``: an empty result for
+        a request that never started)."""
+        rid = req.request_id
+        if req.resume is not None and self._host_tier is not None:
+            self._host_tier.pop(("victim", rid), restore=False)
+        self._submit_t.pop(rid, None)
+        self._first_t.pop(rid, None)
+        toks = self._results.pop(rid, None)
+        if self.config.retain_results and (
+                toks is not None or record_empty):
+            self._done[rid] = np.asarray(toks or [], np.int64)
+
+    def _cancel_slot(self, i):
+        """Retire slot ``i`` for ``cancel()``: no completion and no
+        publishing; its blocks are freed and its tokens so far
+        surfaced."""
+        slot = self._vacate(i)
+        self._submit_t.pop(slot.rid, None)
+        self._first_t.pop(slot.rid, None)
+        toks = self._results.pop(slot.rid, [])
+        if self.config.retain_results:
+            self._done[slot.rid] = np.asarray(toks, np.int64)
+        self._n_cancelled += 1
+
+    def queue_depth(self, priority=None):
+        """Queued plus seated requests. With ``priority`` (and preemption
+        on) lower-priority work counts 0.25: an arrival of that class can
+        preempt or pass it."""
+        if priority is None or not self._preempt_on:
+            return self.num_queued + self.num_active
+        w = 0.0
+        for r in self._queue:
+            w += 1.0 if r.priority >= priority else 0.25
+        for s in self._slots:
+            if s is not None:
+                w += 1.0 if s.priority >= priority else 0.25
+        return w
+
+    def published_overlap(self, hashes) -> int:
+        """The leading run of ``hashes`` (:func:`~paddle_tpu_torch.ops.
+        paged_cache.prompt_block_hashes`) this engine holds, in its index
+        or its host tier: the blocks of that prompt it would not prefill.
+        0 with the prefix cache off."""
+        if not self._prefix_on:
+            return 0
+        n = 0
+        for h in hashes:
+            if self._alloc.lookup(h) is None and not (
+                    self._host_tier is not None
+                    and ("pub", h) in self._host_tier):
+                break
+            n += 1
+        return n
+
+    def purge_published(self) -> int:
+        """Forget every published block, in the index and in the host
+        tier, so ``published_overlap()`` scores 0 from now on. Returns
+        the entries dropped."""
+        n = self._alloc.unpublish_all()
+        if self._host_tier is not None:
+            n += self._host_tier.purge_published()
+        return n
 
     @property
     def num_active(self) -> int:
@@ -647,6 +867,32 @@ class ServingEngine:
             "pipelined_ticks": self._n_pipelined,
             # the CUDA graphs captured (0 on the CPU)
             "executables_compiled": len(self._graphs),
+            # the prefix cache's and the scheduler's keys, present (False
+            # / 0) with either feature off
+            "prefix_cache_enabled": self._prefix_on,
+            "prefix_blocks_reused": self._n_prefix_blocks,
+            "prefix_tokens_reused": self._n_prefix_tokens,
+            "prefix_hit_rate":
+                self._n_prefix_tokens / self._n_prompt_tokens
+                if self._n_prompt_tokens else 0.0,
+            "cow_copies": self._n_cow,
+            "cache_evictions": self._alloc.evictions,
+            "cached_blocks": self._alloc.cached_blocks,
+            "preemption_enabled": self._preempt_on,
+            "preemptions": self._n_preempt,
+            "kv_blocks_spilled": self._n_spilled,
+            "kv_blocks_restored": self._n_restored,
+            "host_tier_bytes": self._host_tier.bytes_used
+            if self._host_tier is not None else 0,
+            "host_tier_capacity_bytes": self._host_tier.capacity
+            if self._host_tier is not None else 0,
+            "preempt_swap_resumes": self._n_swap_resumes,
+            "preempt_recompute_resumes": self._n_recompute_resumes,
+            "prefill_rows_per_s_est": round(self._prefill_rows_s, 3),
+            "host_xfer_bytes_per_s_est": round(self._xfer_bytes_s, 1),
+            "requests_shed": self._n_shed,
+            "requests_timed_out": self._n_timeout,
+            "requests_cancelled": self._n_cancelled,
         }
         if self._gamma:
             out.update({
@@ -663,7 +909,8 @@ class ServingEngine:
 
     def shutdown(self, check_leaks: bool = True) -> bool:
         """Drop queued requests and sweep the allocator's invariants
-        (every block free or owned by a live slot)."""
+        (every block free, cached or owned by a live slot, the hash index
+        bijective)."""
         self._flush_pipe()
         self._queue.clear()
         if check_leaks:
@@ -702,7 +949,19 @@ class ServingEngine:
                    if s is not None and s.pend_pos is not None]
         if not active and not pending:
             return None
-        self._ensure_blocks(active, horizon=g + 1)
+        if active:
+            # room for this tick's writes; growth in an overcommitted pool
+            # may preempt, so only the survivors decode
+            active = self._ensure_blocks(active, horizon=g + 1)
+        # a growth preemption may have taken a pending slot
+        pending = [i for i in pending if self._slots[i] is not None]
+        if not active and not pending:
+            return None
+        if self._preempt_on and len(pending) > 1:
+            # the prefill budget goes to the highest class first, FIFO
+            # within a class
+            pending.sort(key=lambda i: (-self._slots[i].priority,
+                                        self._slots[i].admit_t, i))
 
         # -- pack the tick's work into per-slot row counts --------------
         q_lens = np.zeros(n_slots, np.int64)
@@ -835,7 +1094,8 @@ class ServingEngine:
         if self._moe and _moe.MOE_STATS["grouped_mm_kernel"] == "fused_gmm":
             self._moe_fused = True
         self.last_logits = outs.logits
-        pipe = _Pipe(outs=outs, layout=lay, carry=inp if lay.carry else None)
+        pipe = _Pipe(outs=outs, layout=lay, carry=inp if lay.carry else None,
+                     t0=t)
         if lay.carry and outs.flat.is_cuda:
             # the one read-back, without blocking; the next replay of the
             # graph writes the same flat, after this copy
@@ -1023,6 +1283,7 @@ class ServingEngine:
             flat = pipe.host.numpy()
         else:
             flat = outs.flat.cpu().numpy()
+        t_sync = time.monotonic()
         g = self._gamma
         n_slots = self.config.num_slots
         dev = self.device
@@ -1079,6 +1340,11 @@ class ServingEngine:
                     # the heads' tree for the slot's next tick
                     self._slot_props[i] = props[k]
         # -- commit prefill progress -------------------------------------
+        if pipe.given:
+            # the resume cost model's prefill rate: the tick's rows over
+            # its dispatch-to-read-back time
+            self._note_prefill_rate(sum(pipe.given.values()),
+                                    t_sync - pipe.t0)
         for i, k in pipe.given.items():
             slot = self._slots[i]
             slot.pend_pos += k
@@ -1118,8 +1384,10 @@ class ServingEngine:
         decode tick, every slot still seated with its request and none on
         its last budgeted token (it retires at the in-flight commit), no
         prompt pending, and a queue that waits only when nothing can seat
-        it at that commit: no free slot and no EOS configured. Then grow
-        the blocks the pipelined tick writes into."""
+        it at that commit: no free slot, no EOS configured and, with
+        preemption on, no queued request above a seated slot's class.
+        Then grow the blocks the pipelined tick writes into
+        (:meth:`_pipe_grow`)."""
         if pipe.carry is None:
             return False
         for i in pipe.active:
@@ -1127,16 +1395,33 @@ class ServingEngine:
             if s is None or s.rid != pipe.rid_of[i] \
                     or s.max_new - s.n_emitted <= 1:
                 return False
-        if self._queue and (self._eos >= 0 or None in self._slots):
-            return False
+        if self._queue:
+            if self._eos >= 0 or None in self._slots:
+                return False
+            floor = min(self._slots[i].priority for i in pipe.active)
+            if self._preempt_on and any(q.priority > floor
+                                        for q in self._queue):
+                # it must reach the slot-pressure preemption now
+                return False
         if any(s is not None and s.pend_pos is not None
                for s in self._slots):
             return False
-        # the in-flight tick writes position cache_len and the pipelined
-        # one cache_len + 1, both uncommitted here. Admission reserved
-        # each request's worst-case blocks, so this growth cannot run dry
-        # (the reference flushes on a dry pool; here it never is).
-        self._ensure_blocks(pipe.active, horizon=2)
+        return self._pipe_grow(pipe)
+
+    def _pipe_grow(self, pipe) -> bool:
+        """Grow blocks for the pipelined tick: the in-flight tick writes
+        position ``cache_len`` and the pipelined one ``cache_len + 1``,
+        both uncommitted here. No preemption (a victim taken mid-pipeline
+        would spill a stale state): a dry pool, possible only when
+        admission overcommitted it, returns False, and the caller flushes
+        so the synchronous path grows with preemption."""
+        for i in pipe.active:
+            slot = self._slots[i]
+            need = _pc.blocks_for(slot.cache_len + 2, self._bs)
+            while len(slot.blocks) < need:
+                if self._alloc.free_blocks < 1:
+                    return False
+                self._append_block(i, *self._alloc.alloc(1))
         return True
 
     def _dispatch_pipelined(self, prev) -> _Pipe:
@@ -1331,50 +1616,419 @@ class ServingEngine:
             self._stream(rid, tok)
 
     def _admit(self):
-        """FIFO admission with the worst-case block reservation: the head
-        of the queue takes a free slot when the pool can cover its prompt
-        plus ``max_new_tokens`` on top of every active reservation."""
+        """Admission: expire queue-wait budgets, then seat the next
+        request (highest class first, FIFO within a class) while a slot
+        and its blocks can be had, preempting strictly lower classes for
+        them when preemption is on. A fresh request maps its longest
+        published prefix and prefills the rest; a preempted one resumes
+        (:meth:`_seat_resume`)."""
+        self._expire_queue()
         while self._queue:
+            req = self._queue[self._pick_next_idx()]
             free = [i for i, s in enumerate(self._slots) if s is None]
             if not free:
+                # slot pressure: a strictly lower class yields its slot
+                if not self._preempt_on:
+                    break
+                v = self._pick_victim(below=req.priority)
+                if v is None:
+                    break
+                self._preempt(v)
+                free = [v]
+            if not self._admission_fits(req):
                 break
-            req = self._queue[0]
+            # by identity: a preemption above put its victim at the front
+            self._queue.remove(req)
+            i = free[0]
+            if req.resume is not None:
+                self._seat_resume(i, req)
+                continue
             n_real = int(req.prompt.size)
             worst = self._worst_for(n_real, req.max_new_tokens)
-            if self._alloc.free_blocks - self._reserved < worst:
-                break
-            self._queue.popleft()
-            i = free[0]
-            blocks = self._alloc.alloc(_pc.blocks_for(n_real, self._bs))
+            blocks, cached = self._map_prefix(req.prompt, n_real)
             self._reserved += worst - len(blocks)
             self._tables[i, :] = 0
             self._tables[i, :len(blocks)] = blocks
             self._tables_dirty = True
             self._results[req.request_id] = []
             self._slots[i] = _Slot(req.request_id, blocks, worst,
-                                   req.max_new_tokens, req.prompt)
+                                   req.max_new_tokens, req.prompt,
+                                   cache_len=cached, priority=req.priority)
             self._set_slot_samp(i, req)
+            # a full-prompt hit recomputes the last prompt row into a
+            # shared block: copy it first
+            bidx = cached // self._bs
+            if self._alloc.is_shared(blocks[bidx]):
+                self._cow(i, bidx)
+
+    # -- preemptive scheduling and the host KV tier -----------------------
+
+    def _pick_next_idx(self) -> int:
+        """The queue position to admit next: the leftmost of the highest
+        class (a preempted request re-enters at the front, so it leads
+        its class); the head without preemption."""
+        if not self._preempt_on or len(self._queue) < 2:
+            return 0
+        best, bp = 0, self._queue[0].priority
+        for k in range(1, len(self._queue)):
+            p = self._queue[k].priority
+            if p > bp:
+                best, bp = k, p
+        return best
+
+    def _expire_queue(self):
+        """Requests queued past their ``max_queue_wait_ms`` end with an
+        empty result; preempted ones are exempt (they already
+        streamed)."""
+        if not any(r.max_queue_wait_ms is not None for r in self._queue):
+            return
+        now = time.monotonic()
+        kept = deque()
+        for r in self._queue:
+            w = r.max_queue_wait_ms
+            if w is not None and r.resume is None \
+                    and 1000.0 * (now - r.submit_time) > float(w):
+                self._n_timeout += 1
+                self._finish_unserved(r, record_empty=True)
+            else:
+                kept.append(r)
+        self._queue = kept
+
+    def _admission_fits(self, req) -> bool:
+        """The block policy of admission: the worst-case reservation
+        first (the whole policy without preemption); failing that, the
+        watermark: the prompt's blocks plus ``admission_watermark_blocks``
+        of headroom, preempting strictly lower classes to reach it. A
+        resume needs only its blocks back."""
+        if req.resume is not None:
+            need, target = int(req.resume["n_blocks"]), 0
+        else:
+            n_real = int(req.prompt.size)
+            worst = self._worst_for(n_real, req.max_new_tokens)
+            if self._alloc.free_blocks - self._reserved >= worst:
+                return True
+            if not self._preempt_on:
+                return False
+            need = _pc.blocks_for(n_real, self._bs)
+            target = self._watermark
+        while self._alloc.free_blocks - need < target:
+            v = self._pick_victim(below=req.priority)
+            if v is None:
+                break
+            self._preempt(v)
+        return self._alloc.free_blocks - need >= target
+
+    def _pick_victim(self, below=None, exclude=()):
+        """The slot to preempt: the lowest class, within it a slot still
+        prefilling (it streamed nothing) before a decoding one, then the
+        latest admitted. ``below``: strictly lower classes only;
+        ``exclude``: slots that may not lose."""
+        cands = [i for i, s in enumerate(self._slots)
+                 if s is not None and i not in exclude
+                 and (below is None or s.priority < below)]
+        if not cands:
+            return None
+        return min(cands, key=lambda i: (
+            self._slots[i].priority,
+            0 if self._slots[i].pend_pos is not None else 1,
+            -self._slots[i].admit_t))
+
+    def _alloc_with_preempt(self, n, exclude=(), below=None):
+        """Allocate ``n`` blocks, preempting victims while the pool is
+        short (preemption on); raises as ``alloc`` when even that cannot
+        cover them."""
+        if self._preempt_on:
+            while self._alloc.free_blocks < n:
+                v = self._pick_victim(below=below, exclude=exclude)
+                if v is None:
+                    break
+                self._preempt(v)
+        return self._alloc.alloc(n)
+
+    def _preempt(self, i):
+        """Preempt slot ``i``: return the blocks past its valid positions,
+        publish its full blocks (the recompute resume's warm start), copy
+        a decoding slot's blocks into the host tier (the swap resume's
+        payload), free the slot, and queue its request at the front of
+        its class with its continuation (a slot still on its first
+        prefill goes back fresh: it streamed nothing)."""
+        self._flush_pipe()
+        slot = self._slots[i]
+        samp_row = self._slot_samp[i].copy()
+        # a resumed slot re-prefilling its context keeps its continuation
+        pending = slot.pend_pos is not None and slot.resume is None
+        # blocks past the valid positions: not spilled, not published
+        self._trim_blocks(i, max(_pc.blocks_for(slot.cache_len, self._bs),
+                                 1))
+        self._publish(slot)
+        key = None
+        nbytes = 0
+        if slot.pend_pos is None and self._host_tier is not None \
+                and slot.blocks and len(slot.blocks) <= self._mb_xfer:
+            payload = self._export_payload(slot.blocks)
+            nbytes = _pc.payload_nbytes(payload)
+            key = ("victim", slot.rid)
+            if self._host_tier.put(key, payload, nbytes):
+                self._n_spilled += len(slot.blocks)
+            else:
+                key = None      # larger than the tier: recompute resume
+        self._vacate(i)
+        resume = None
+        if not pending:
+            if slot.resume is not None:
+                # preempted again mid-re-prefill: the first continuation
+                last_token, n_emitted = slot.resume
+            else:
+                last_token, n_emitted = slot.last_token, slot.n_emitted
+            n_ctx = len(slot.history) - 1
+            resume = {"cache_len": int(n_ctx),
+                      "last_token": int(last_token),
+                      "n_emitted": int(n_emitted),
+                      "history": list(slot.history),
+                      "worst_blocks": int(slot.worst_blocks),
+                      "n_blocks": _pc.blocks_for(n_ctx, self._bs),
+                      "nbytes": int(nbytes), "key": key}
+        knob = self._do_sample
+        req = ServingRequest(
+            slot.rid, np.asarray(slot.prompt, np.int32), slot.max_new,
+            self._submit_t.get(slot.rid, time.monotonic()),
+            temperature=float(samp_row[0]) if knob else None,
+            top_k=int(samp_row[1]) if knob else None,
+            top_p=float(samp_row[2]) if knob else None,
+            priority=int(slot.priority), resume=resume)
+        self._queue.appendleft(req)
+        self._n_preempt += 1
+
+    def _seat_resume(self, i, req):
+        """Seat a preempted request in slot ``i`` where it stopped. Swap:
+        import its spilled bytes into fresh blocks and decode at once.
+        Recompute: map its published prefix and re-prefill the rest of
+        its context; :meth:`_finish_prefill` then restores the
+        continuation instead of emitting."""
+        r = req.resume
+        rid = req.request_id
+        n_ctx = int(r["cache_len"])
+        ctx = np.asarray(r["history"][:n_ctx], np.int32)
+        payload = None
+        if self._host_tier is not None and r["key"] is not None:
+            payload = self._host_tier.get(r["key"])
+        mode = self._resume_mode(r, payload)
+        self._results.setdefault(rid, [])
+        if mode == "swap":
+            n_blocks = int(r["n_blocks"])
+            blocks = self._alloc.alloc(n_blocks)
+            self._import_payload(blocks, payload)
+            self._host_tier.pop(r["key"])
+            self._n_restored += n_blocks
+            self._n_swap_resumes += 1
+            slot = _Slot(rid, blocks, int(r["worst_blocks"]),
+                         int(req.max_new_tokens), ctx, cache_len=n_ctx,
+                         history=r["history"], priority=req.priority)
+            slot.pend_pos = None
+            slot.last_token = int(r["last_token"])
+            slot.n_emitted = int(r["n_emitted"])
+        else:
+            if self._host_tier is not None and r["key"] is not None:
+                # a payload that will never be imported
+                self._host_tier.pop(r["key"], restore=False)
+            self._n_recompute_resumes += 1
+            blocks, cached = self._map_prefix(ctx, n_ctx)
+            slot = _Slot(rid, blocks, int(r["worst_blocks"]),
+                         int(req.max_new_tokens), ctx, cache_len=cached,
+                         history=r["history"], priority=req.priority)
+            slot.resume = (int(r["last_token"]), int(r["n_emitted"]))
+        self._reserved += int(r["worst_blocks"]) - len(blocks)
+        self._tables[i, :] = 0
+        self._tables[i, :len(blocks)] = blocks
+        self._tables_dirty = True
+        self._slots[i] = slot
+        self._set_slot_samp(i, req)
+        if mode != "swap":
+            bidx = cached // self._bs
+            if self._alloc.is_shared(blocks[bidx]):
+                self._cow(i, bidx)
+
+    def _resume_mode(self, r, payload) -> str:
+        """Swap or recompute, a victim at a time: without a payload,
+        recompute; else the config's choice, or for ``"auto"`` the cheaper
+        by the measured rates (payload bytes over the transfer rate
+        against cached tokens over the prefill rate), swap while either
+        is unmeasured."""
+        if payload is None:
+            return "recompute"
+        if self._resume_policy in ("swap", "recompute"):
+            return self._resume_policy
+        if self._prefill_rows_s > 0 and self._xfer_bytes_s > 0:
+            t_swap = float(r["nbytes"]) / self._xfer_bytes_s
+            t_rec = float(r["cache_len"]) / self._prefill_rows_s
+            return "swap" if t_swap <= t_rec else "recompute"
+        return "swap"
+
+    def _export_payload(self, blocks):
+        """Copy ``blocks``' bytes out of the target model's pools into
+        host memory, timed for the transfer rate."""
+        t0 = time.monotonic()
+        host = _pc.payload_to_host(_pc.export_blocks(self._pools, blocks))
+        self._note_xfer(_pc.payload_nbytes(host), time.monotonic() - t0)
+        return host
+
+    def _import_payload(self, blocks, payload):
+        """Write a host payload into the target model's pools at
+        ``blocks``, in place, on the stream the ticks replay on. The draft
+        model's pools are not moved, as in the reference: after a swap or
+        a restore it drafts from stale K/V there, and verification keeps
+        the tokens exact."""
+        _pc.import_blocks(self._pools, blocks, payload)
+
+    def _spill_evicted(self, b, h):
+        """The allocator's eviction hook: copy an evicted published
+        block's bytes into the host tier under its hash, before the block
+        is written again, so a later prefix hit restores it."""
+        payload = self._export_payload([b])
+        if self._host_tier.put(("pub", h), payload,
+                               _pc.payload_nbytes(payload)):
+            self._n_spilled += 1
+
+    def _restore_published(self, h):
+        """A prefix hash that misses the index but hits the host tier:
+        allocate a block (never preempting for it), import the bytes and
+        publish it again. Returns the block id (one reference, the
+        caller's) or None."""
+        if self._host_tier is None:
+            return None
+        payload = self._host_tier.get(("pub", h))
+        if payload is None or self._alloc.free_blocks < 1:
+            return None
+        (b,) = self._alloc.alloc(1)
+        self._import_payload([b], payload)
+        self._host_tier.pop(("pub", h))
+        self._alloc.publish(b, h)
+        self._n_restored += 1
+        return b
+
+    def _note_xfer(self, nbytes, dt):
+        """The host-transfer rate (EMA): the swap side of the cost
+        model."""
+        if dt <= 0.0 or nbytes <= 0:
+            return
+        bps = nbytes / dt
+        self._xfer_bytes_s = bps if not self._xfer_bytes_s \
+            else 0.7 * self._xfer_bytes_s + 0.3 * bps
+
+    def _note_prefill_rate(self, rows, dt):
+        """The prefill rate (EMA, rows a second, the whole tick charged
+        to its prefill rows): the recompute side of the cost model."""
+        if dt <= 0.0 or rows <= 0:
+            return
+        rps = rows / dt
+        self._prefill_rows_s = rps if not self._prefill_rows_s \
+            else 0.7 * self._prefill_rows_s + 0.3 * rps
+
+    def _map_prefix(self, prompt, n_real):
+        """Map the longest published prefix of ``prompt`` (its leading
+        full blocks whose chain hashes hit the index, or the host tier)
+        into a block list, then allocate fresh blocks for the rest.
+        Returns ``(blocks, cached_tokens)``; on a full-prompt hit the last
+        prompt token is recomputed (its logits give the next token), so
+        ``cached_tokens`` is ``n_real - 1``."""
+        init = _pc.blocks_for(n_real, self._bs)
+        matched = []
+        if self._prefix_on:
+            for h in _pc.prompt_block_hashes(self._fp, prompt, self._bs):
+                b = self._alloc.lookup(h)
+                if b is not None:
+                    matched.append(self._alloc.ref(b))
+                    continue
+                rb = self._restore_published(h)
+                if rb is None:
+                    break
+                matched.append(rb)
+        cached = len(matched) * self._bs
+        if cached >= n_real:
+            cached = n_real - 1
+        if matched:
+            self._n_prefix_blocks += len(matched)
+            self._n_prefix_tokens += cached
+        self._n_prompt_tokens += n_real
+        fresh = self._alloc.alloc(init - len(matched)) \
+            if init > len(matched) else []
+        return matched + fresh, cached
+
+    def _cow(self, i, bidx):
+        """Copy-on-write: copy the shared block at table position
+        ``bidx`` of slot ``i`` into a fresh block, in both the target's
+        and the draft model's pools (they share block ids), swap it into
+        the table and drop the slot's reference on the original."""
+        slot = self._slots[i]
+        old = slot.blocks[bidx]
+        (new,) = self._alloc_with_preempt(1, exclude=(i,),
+                                          below=slot.priority + 1)
+        _pc.copy_blocks(self._pools, old, new)
+        if self._dpools is not None:
+            _pc.copy_blocks(self._dpools, old, new)
+        self._alloc.free([old])
+        slot.blocks[bidx] = new
+        self._tables[i, bidx] = new
+        self._tables_dirty = True
+        self._n_cow += 1
+
+    def _publish(self, slot):
+        """Publish ``slot``'s full blocks under the chain hashes of the
+        tokens its cache holds (position p holds ``history[p]`` for p <
+        ``cache_len``)."""
+        if not self._prefix_on or slot.cache_len < self._bs:
+            return
+        n_full = min(len(slot.blocks), slot.cache_len // self._bs)
+        for b, h in zip(slot.blocks[:n_full], _pc.chain_hashes(
+                self._fp, slot.history[:n_full * self._bs], self._bs)):
+            self._alloc.publish(b, h)
 
     def _ensure_blocks(self, active, horizon=1):
         """Grow any slot whose next ``horizon`` write positions (a verify
-        window's gamma + 1) cross into unallocated blocks (covered by its
-        admission reservation)."""
+        window's gamma + 1) cross into unallocated blocks. Returns the
+        slots still seated: in an overcommitted pool growth preempts the
+        lowest same-or-lower class, or, with no other victim, the growing
+        slot itself (queued again, it skips this tick)."""
+        out = []
         for i in active:
             slot = self._slots[i]
+            if slot is None:        # an earlier slot's victim
+                continue
             need = _pc.blocks_for(slot.cache_len + horizon, self._bs)
+            grown = True
             while len(slot.blocks) < need:
-                (blk,) = self._alloc.alloc(1)
-                self._tables[i, len(slot.blocks)] = blk
-                slot.blocks.append(blk)
-                self._tables_dirty = True
-                self._reserved -= 1
+                try:
+                    (blk,) = self._alloc_with_preempt(
+                        1, exclude=(i,), below=slot.priority + 1)
+                except RuntimeError:
+                    if not self._preempt_on:
+                        raise
+                    self._preempt(i)    # out of victims: itself
+                    grown = False
+                    break
+                self._append_block(i, blk)
+            if grown:
+                out.append(i)
+        # a later slot's growth may have taken an earlier survivor
+        return [i for i in out if self._slots[i] is not None]
 
-    def _trim_blocks(self, i):
-        """Return the blocks only a rejected window tail reached (back
-        under the slot's reservation); those within the next window's
-        reach stay, or the next tick would allocate them again."""
+    def _append_block(self, i, blk):
+        """Grow slot ``i`` by block ``blk`` (drawn on its reservation)."""
         slot = self._slots[i]
-        need = _pc.blocks_for(slot.cache_len + self._gamma + 1, self._bs)
+        self._tables[i, len(slot.blocks)] = blk
+        slot.blocks.append(blk)
+        self._tables_dirty = True
+        self._reserved -= 1
+
+    def _trim_blocks(self, i, need=None):
+        """Return slot ``i``'s blocks past its first ``need`` (back under
+        its reservation). Default: those only a rejected window tail
+        reached; the ones within the next window's reach stay, or the
+        next tick would allocate them again."""
+        slot = self._slots[i]
+        if need is None:
+            need = _pc.blocks_for(slot.cache_len + self._gamma + 1,
+                                  self._bs)
         while len(slot.blocks) > need:
             self._alloc.free([slot.blocks.pop()])
             self._tables[i, len(slot.blocks)] = 0
@@ -1383,10 +2037,16 @@ class ServingEngine:
 
     def _finish_prefill(self, i, tok, emitted):
         """Record and emit the first token; retire at once on EOS or
-        ``max_new_tokens == 1``."""
+        ``max_new_tokens == 1``. A recompute resume's re-prefill instead
+        restores its continuation (the client holds these tokens): the
+        token its last row sampled is dropped."""
         slot = self._slots[i]
         slot.cache_len = int(slot.prompt.size)
         slot.pend_pos = None
+        if slot.resume is not None:
+            slot.last_token, slot.n_emitted = slot.resume
+            slot.resume = None
+            return
         slot.last_token = tok
         slot.history.append(tok)
         self._emit(slot.rid, tok)
@@ -1394,7 +2054,10 @@ class ServingEngine:
         if tok == self._eos or slot.max_new <= 1:
             self._retire(i)
 
-    def _retire(self, i):
+    def _vacate(self, i):
+        """Empty slot ``i``: its blocks back to the allocator (published
+        ones park in the LRU cache), its reservation, table row, sampling
+        knobs and head drafts cleared. Returns the slot."""
         slot = self._slots[i]
         self._slot_props.pop(i, None)
         self._alloc.free(slot.blocks)
@@ -1403,8 +2066,18 @@ class ServingEngine:
         self._tables_dirty = True
         self._slots[i] = None
         self._set_slot_samp(i)
+        return slot
+
+    def _retire(self, i):
+        """Retire slot ``i``: publish its full blocks (the prefix cache),
+        free them, and hold its tokens for ``run()``
+        (``retain_results``)."""
+        slot = self._slots[i]
+        self._publish(slot)
+        self._vacate(i)
         self._submit_t.pop(slot.rid, None)
         self._first_t.pop(slot.rid, None)
-        self._done[slot.rid] = np.asarray(self._results.pop(slot.rid),
-                                          np.int64)
+        toks = self._results.pop(slot.rid)
+        if self.config.retain_results:
+            self._done[slot.rid] = np.asarray(toks, np.int64)
         self._n_completed += 1

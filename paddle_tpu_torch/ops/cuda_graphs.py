@@ -17,6 +17,8 @@ operand), written from the host through pinned staging.
 """
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
@@ -115,11 +117,20 @@ def capture(body, stream, pool=None, generator=None):
         graph.register_generator_state(generator)
     scratch = []
     # capture_begin / capture_end, not torch.cuda.graph: its entry
-    # synchronizes the card and runs the collector, ~0.1 s a capture
-    with hold_scratch(scratch), torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool)
-        out = body()
-        graph.capture_end()
+    # synchronizes the card and runs the collector, ~0.1 s a capture.
+    # The collector stays off while capturing instead: a cycle it frees
+    # then (an engine and its graphs) would destroy a graph mid-capture,
+    # which invalidates the capture
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with hold_scratch(scratch), torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            out = body()
+            graph.capture_end()
+    finally:
+        if gc_was_on:
+            gc.enable()
     after = _host_counts()
     delta = {k: after[k] - before[k] for k in after
              if after[k] != before[k]}

@@ -13,7 +13,9 @@ pipeline on equal those with it off and the reference's with it on
 admission flushes and stays token-exact, an EOS that lands while the
 next tick is in flight drops its overrun token, the pipelined dispatch
 runs (a count, and the host-gap digest), growth for the pipelined tick
-cannot run dry, a sampling engine draws the same tokens either way,
+cannot run dry in a pool sized to the reservations and flushes in an
+overcommitted one that does, a preemption storm and a cancel
+mid-pipeline stay token-exact, a sampling engine draws the same tokens either way,
 ``async_depth`` is validated as the reference validates it, the stats
 keys are present on a synchronous engine, and the port's copy of the
 P-squared digest and ``stats()["spec_accept_len"]`` equal the
@@ -51,9 +53,11 @@ GPT = dict(vocab=96, hidden=64, layers=2, heads=4)
 MOE = dict(vocab=128, hidden=64, layers=3, heads=4, kv_heads=4, moe_ffn=32,
            dense_ffn=48, experts=8, shared=2, topk=2)
 CORE = dict(num_slots=2, block_size=8, max_model_len=64, prefill_chunk=8)
-# the reference's features the port has no slice for yet, off
+# the reference's features the port has no slice for yet, off; the
+# prefix cache and preemption off in both engines of a pair
 REF_OFF = dict(enable_prefix_cache=False, enable_preemption=False,
                health=False, min_prefill_bucket=8)
+PORT_OFF = dict(enable_prefix_cache=False, enable_preemption=False)
 
 
 def _pair(jcfg_cls, jcls, tcfg_cls, tcls, shape, seed, **cfg_kw):
@@ -103,8 +107,8 @@ def _serve_ref(model, prompts, depth, max_new=8, **kw):
 
 
 def _serve(model, prompts, depth, max_new=8, **kw):
-    eng = ServingEngine(model, ServingConfig(**CORE, async_depth=depth,
-                                             **kw), device="cpu")
+    eng = ServingEngine(model, ServingConfig(
+        **dict(CORE, **PORT_OFF, **kw), async_depth=depth), device="cpu")
     out = eng.serve([p.copy() for p in prompts], max_new_tokens=max_new)
     st = eng.stats()
     assert eng.shutdown()
@@ -170,9 +174,9 @@ def test_flush_on_staggered_admission(llama):
         return [done[r] for r in rids], st
 
     on, st_on = run(lambda d: ServingEngine(port, ServingConfig(
-        **CORE, async_depth=d), device="cpu"), 1)
+        **CORE, **PORT_OFF, async_depth=d), device="cpu"), 1)
     off, _ = run(lambda d: ServingEngine(port, ServingConfig(
-        **CORE, async_depth=d), device="cpu"), 0)
+        **CORE, **PORT_OFF, async_depth=d), device="cpu"), 0)
     want, _ = run(lambda d: JaxServingEngine(ref, JaxServingConfig(
         **CORE, **REF_OFF, async_depth=d)), 1)
     _assert_equal(off, on, "staggered admission async on/off")
@@ -217,6 +221,133 @@ def test_pipelined_growth_cannot_run_dry(llama):
         assert eng.shutdown()
     _assert_equal(outs[0], outs[1], "reserved pool async on/off")
     assert st["pipelined_ticks"] >= 2 * CORE["block_size"] // 2
+
+
+def test_pipelined_growth_in_a_dry_pool_flushes(llama):
+    """An overcommitted pool (watermark admission) can run dry under the
+    pipelined tick's growth: the growth then takes no victim, the pipeline
+    flushes, and the synchronous path grows with preemption, so the
+    streams equal the synchronous engine's and the pool drains clean."""
+    _, port = llama
+    prompts = _prompts(lens=(7, 5))
+    grown = []
+    outs, stats = [], []
+    for depth in (0, 1):
+        eng = ServingEngine(port, ServingConfig(
+            **dict(CORE, num_blocks=1 + 6), async_depth=depth),
+            device="cpu")
+        if depth:
+            grow = eng._pipe_grow
+            eng._pipe_grow = lambda pipe: grown.append(grow(pipe)) \
+                or grown[-1]
+        outs.append(eng.serve([p.copy() for p in prompts], 40))
+        stats.append(eng.stats())
+        assert eng.shutdown()
+    _assert_equal(outs[0], outs[1], "dry pool async on/off")
+    assert False in grown and True in grown
+    for st in stats:
+        assert st["preemptions"] >= 1 and st["reserved_blocks"] == 0
+    assert stats[0]["preemptions"] == stats[1]["preemptions"]
+    assert stats[1]["pipelined_ticks"] > 0
+
+
+def test_prefix_hits_async_on_equals_off(llama):
+    """Prompts served twice hit the prefix cache the second time (one row
+    of a full hit recomputed after its block is copied): async on equals
+    off and the reference's async engine, with its cache counters."""
+    ref, port = llama
+    rng = np.random.RandomState(11)
+    sysp = rng.randint(1, 128, (16,))
+    prompts = [sysp, np.concatenate([sysp, rng.randint(1, 128, (5,))])]
+
+    def run(eng):
+        out = eng.serve([p.copy() for p in prompts], 8)
+        out += eng.serve([p.copy() for p in prompts], 8)
+        st = eng.stats()
+        eng.shutdown()
+        return out, st
+
+    on, st_on = run(ServingEngine(port, ServingConfig(**CORE, async_depth=1),
+                                  device="cpu"))
+    off, _ = run(ServingEngine(port, ServingConfig(**CORE, async_depth=0),
+                               device="cpu"))
+    want, st_want = run(JaxServingEngine(ref, JaxServingConfig(
+        **CORE, health=False, min_prefill_bucket=8, async_depth=1)))
+    _assert_equal(off, on, "prefix hits async on/off")
+    _assert_equal(want, on, "prefix hits port vs reference")
+    keys = ("prefix_tokens_reused", "prefix_blocks_reused", "cow_copies")
+    assert {k: st_on[k] for k in keys} == {k: st_want[k] for k in keys}
+    assert st_on["cow_copies"] >= 1 and st_on["pipelined_ticks"] > 0
+
+
+def _storm(make):
+    """The reference's preemption workload on a two-slot engine: one long
+    low-priority request, then two high-priority arrivals."""
+    eng = make()
+    rng = np.random.RandomState(3)
+    lo = rng.randint(1, 128, (20,))
+    h1, h2 = rng.randint(1, 128, (9,)), rng.randint(1, 128, (7,))
+    rids = [eng.submit(lo.copy(), 12, priority=0)]
+    for _ in range(4):
+        eng.step()
+    rids.append(eng.submit(h1.copy(), 12, priority=2))
+    rids.append(eng.submit(h2.copy(), 12, priority=2))
+    done = eng.run()
+    st = eng.stats()
+    eng.shutdown()
+    return [done[r] for r in rids], st
+
+
+def test_flush_on_preemption_storm(llama):
+    """A preemption flushes the pipeline first: async on equals off and
+    the reference's async engine, with its preemption counters."""
+    ref, port = llama
+    cfg = dict(CORE, max_model_len=96)
+    on, st_on = _storm(lambda: ServingEngine(port, ServingConfig(
+        **cfg, async_depth=1), device="cpu"))
+    off, st_off = _storm(lambda: ServingEngine(port, ServingConfig(
+        **cfg, async_depth=0), device="cpu"))
+    want, st_want = _storm(lambda: JaxServingEngine(ref, JaxServingConfig(
+        **cfg, health=False, min_prefill_bucket=8, async_depth=1)))
+    _assert_equal(off, on, "preemption storm async on/off")
+    _assert_equal(want, on, "preemption storm port vs reference")
+    keys = ("preemptions", "kv_blocks_spilled", "kv_blocks_restored",
+            "preempt_swap_resumes", "preempt_recompute_resumes")
+    assert {k: st_on[k] for k in keys} == {k: st_off[k] for k in keys}
+    assert st_on["preemptions"] >= 1 and st_on["pipeline_flushes"] >= 1
+    assert st_on["pipelined_ticks"] > 0
+
+
+def test_cancel_mid_pipeline(llama):
+    """``cancel()`` commits the in-flight tick before it retires the slot:
+    the cancelled request's partial stream and the survivor's stream
+    equal the synchronous engine's and the reference's."""
+    ref, port = llama
+
+    def run(make):
+        eng = make()
+        p0, p1 = _prompts(lens=(9, 7))
+        r0 = eng.submit(p0.copy(), 12)
+        r1 = eng.submit(p1.copy(), 12)
+        for _ in range(4):
+            eng.step()
+        assert eng.cancel(r0)
+        done = eng.run()
+        st = eng.stats()
+        eng.shutdown()
+        assert done[r0].size < 12
+        return [done[r0], done[r1]], st
+
+    on, st_on = run(lambda: ServingEngine(port, ServingConfig(
+        **CORE, async_depth=1), device="cpu"))
+    off, _ = run(lambda: ServingEngine(port, ServingConfig(
+        **CORE, async_depth=0), device="cpu"))
+    want, _ = run(lambda: JaxServingEngine(ref, JaxServingConfig(
+        **CORE, health=False, min_prefill_bucket=8, async_depth=1)))
+    _assert_equal(off, on, "cancel partial + survivor async on/off")
+    _assert_equal(want, on, "cancel port vs reference")
+    assert st_on["pipeline_flushes"] >= 1
+    assert st_on["requests_cancelled"] == 1
 
 
 @pytest.mark.parametrize("kw", [{}, dict(num_speculative_tokens=2)])

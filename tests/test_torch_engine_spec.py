@@ -260,9 +260,10 @@ def _serve_jax(model, prompts, max_new, draft=None, heads=None, **kw):
 
 def _serve_port(model, prompts, max_new, draft=None, heads=None,
                 stream=None, **kw):
-    eng = ServingEngine(model, ServingConfig(**dict(CORE, **kw)),
-                        device="cpu", draft_model=draft, spec_heads=heads,
-                        stream_callback=stream)
+    eng = ServingEngine(model, ServingConfig(
+        **dict(CORE, **kw), enable_prefix_cache=False,
+        enable_preemption=False), device="cpu", draft_model=draft,
+        spec_heads=heads, stream_callback=stream)
     out = eng.serve(prompts, max_new_tokens=max_new)
     st = eng.stats()
     assert st["reserved_blocks"] == 0 and st["active"] == 0

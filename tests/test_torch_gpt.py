@@ -455,8 +455,9 @@ def _serve_jax(model, prompts, new, draft=None, **kw):
 
 
 def _serve_port(model, prompts, new, draft=None, **kw):
-    eng = ServingEngine(model, ServingConfig(**dict(CORE, **kw)),
-                        device="cpu", draft_model=draft)
+    eng = ServingEngine(model, ServingConfig(
+        **dict(CORE, **kw), enable_prefix_cache=False,
+        enable_preemption=False), device="cpu", draft_model=draft)
     out = eng.serve(prompts, max_new_tokens=new)
     st = eng.stats()
     assert eng.shutdown()

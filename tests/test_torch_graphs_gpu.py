@@ -18,9 +18,12 @@ pure tick's graph and a mixed tick's must replay. A second wave of the
 same traffic captures no further graph; a graph captured before a larger
 capture on the same stream grew the kernels' per-stream scratch still
 replays to the bit; ``async_depth=1`` streams what ``async_depth=0``
-does. ``generate()``'s paged, n-gram, self-drafted and tree runs, greedy
-and sampling, replay their steps from graphs and equal the eager steps
-(the model's ``cuda_graphs`` off) bit for bit."""
+does. Ticks replayed after a prefix hit's copy-on-write and a swap
+resume's import read the blocks those wrote in place, and prefix-hit
+ticks replay graphs already captured. ``generate()``'s paged, n-gram,
+self-drafted and tree runs, greedy and sampling, replay their steps from
+graphs and equal the eager steps (the model's ``cuda_graphs`` off) bit
+for bit."""
 from unittest import mock
 
 import numpy as np
@@ -172,6 +175,128 @@ def test_async_on_equals_off(cuda, kind):
         np.testing.assert_array_equal(a, b)
     if kind == "decode":
         assert st["pipelined_ticks"] > 0
+
+
+def _waves_lockstep(model, cfg, waves):
+    """Two engines of ``cfg``, one replaying its ticks from CUDA graphs
+    and one running them eagerly, stepped in lockstep over ``waves`` (a
+    wave starts when both engines drained the last one; each entry is
+    ``(tick, prompt, max_new, priority)``, the tick counted from the
+    wave's start): every tick both must commit the same tokens and give
+    the same logits to the bit. Returns the graph engine, its graph count
+    after each wave and its pools' storage pointers from before the
+    first tick."""
+    engines = []
+    for graphs in (True, False):
+        e = ServingEngine(model, cfg)
+        e.cuda_graphs = graphs
+        engines.append(e)
+    ptrs = [t.data_ptr() for t in _pool_tensors(engines[0]._pools)]
+    counts = []
+    for wave in waves:
+        todo = sorted(wave, key=lambda w: w[0])
+        tick = 0
+        while todo or any(e.num_active or e.num_queued for e in engines):
+            while todo and todo[0][0] <= tick:
+                _, p, new, prio = todo.pop(0)
+                for e in engines:
+                    e.submit(p, new, priority=prio)
+            seen = []
+            for e in engines:
+                emitted = e.step()
+                torch.cuda.synchronize()
+                lg = None if e.last_logits is None else e.last_logits.clone()
+                seen.append((emitted, lg))
+            (em_g, lg_g), (em_e, lg_e) = seen
+            assert em_g == em_e, f"tick {tick}: {em_g} vs {em_e}"
+            assert lg_g is None or torch.equal(lg_g, lg_e), f"tick {tick}"
+            tick += 1
+        counts.append(engines[0].stats()["executables_compiled"])
+    results = [e.run() for e in engines]
+    assert {r: list(t) for r, t in results[0].items()} == \
+        {r: list(t) for r, t in results[1].items()}
+    for a, b in zip(_pool_tensors(engines[0]._pools),
+                    _pool_tensors(engines[1]._pools)):
+        assert torch.equal(a[1:], b[1:])
+    return engines[0], counts, ptrs
+
+
+def _pool_tensors(pools):
+    for pair in pools:
+        for p in pair:
+            yield from ((p.data, p.scale) if hasattr(p, "scale") else (p,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+def test_replays_read_the_blocks_a_copy_and_a_swap_wrote(cuda, pool):
+    """A full-prompt prefix hit copies its shared block (COW), then two
+    high-priority arrivals preempt it and it resumes by importing its
+    blocks from the host tier (swap): both write the pools in place, so
+    the ticks replayed from graphs afterwards read those blocks, and
+    every tick equals the eager engine's; the pools keep their
+    storage."""
+    model = _model(pool)
+    kw = dict(CORE, num_slots=2, preempt_resume="swap")
+    if pool == "int8":
+        kw["kv_cache_dtype"] = "int8"
+    p = _prompts(model.config.vocab_size, lens=(64, 20, 30), seed=2)
+    eng, _, ptrs = _waves_lockstep(
+        model, ServingConfig(**kw),
+        [[(0, p[0], 8, 0)],
+         [(0, p[0], 40, 0), (6, p[1], 10, 2), (6, p[2], 10, 2)]])
+    st = eng.stats()
+    assert st["cow_copies"] >= 1 and st["prefix_tokens_reused"] >= 63
+    assert st["preemptions"] >= 1 and st["preempt_swap_resumes"] >= 1
+    assert st["kv_blocks_restored"] >= 1
+    assert [t.data_ptr() for t in _pool_tensors(eng._pools)] == ptrs
+    eng.shutdown()
+
+
+@pytest.mark.gpu
+def test_prefix_hit_ticks_replay_captured_graphs(cuda):
+    """The same two prompts served again hit the prefix cache (one row
+    of each prefilled, its block copied): those ticks replay the graphs
+    the first wave captured, so the graph count does not grow, and every
+    tick equals the eager engine's."""
+    model = _model("bfloat16")
+    p = _prompts(model.config.vocab_size, lens=(48, 48), seed=3)
+    wave = [(0, p[0], 10, 0), (0, p[1], 10, 0)]
+    eng, counts, _ = _waves_lockstep(
+        model, ServingConfig(**dict(CORE, num_slots=2)), [wave, wave])
+    st = eng.stats()
+    assert counts[0] >= 2 and counts[1] == counts[0]
+    assert st["cow_copies"] == 2 and st["prefix_tokens_reused"] == 94
+    eng.shutdown()
+
+
+@pytest.mark.gpu
+def test_capture_survives_a_collected_engine(cuda):
+    """A dropped engine held in a reference cycle is freed by the cyclic
+    collector, destroying its graphs, whenever the collector runs. It
+    does not run inside a capture (a graph destroyed mid-capture
+    invalidates it): with the collector run at nearly every allocation,
+    a new engine still captures and replays."""
+    import gc
+    model = _model("bfloat16")
+    prompts = _prompts(512, lens=(40, 9))
+    old = ServingEngine(model, ServingConfig(**CORE))
+    old.serve(prompts, 6)
+    assert old.stats()["executables_compiled"] >= 2
+    old.cycle = old                     # only the collector frees it
+    del old
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng = ServingEngine(model, ServingConfig(**CORE))
+        got = eng.serve(prompts, 6)
+    finally:
+        gc.set_threshold(*threshold)
+    assert eng.stats()["executables_compiled"] >= 2
+    ref = ServingEngine(model, ServingConfig(**CORE))
+    ref.cuda_graphs = False
+    for a, b in zip(got, ref.serve(prompts, 6)):
+        np.testing.assert_array_equal(a, b)
 
 
 GENERATE = {"paged": dict(cache_impl="paged"),

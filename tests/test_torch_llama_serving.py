@@ -138,7 +138,9 @@ def _serve_jax(model, prompts, max_new, **kw):
 
 
 def _serve_port(model, prompts, max_new, **kw):
-    eng = ServingEngine(model, ServingConfig(**CORE, **kw), device="cpu")
+    eng = ServingEngine(model, ServingConfig(
+        **CORE, **kw, enable_prefix_cache=False, enable_preemption=False),
+        device="cpu")
     out = eng.serve(prompts, max_new_tokens=max_new)
     st = eng.stats()
     eng.shutdown()
@@ -201,8 +203,11 @@ def test_submit_validation(port_model):
         eng.submit([1] * 90, max_new_tokens=10)
     with pytest.raises(ValueError, match="sampling"):
         eng.submit([1, 2], 4, temperature=0.5)
-    with pytest.raises(NotImplementedError, match="preemptive"):
-        eng.submit([1, 2], 4, priority=1)
+    # priorities and queue-wait budgets are ported: the engine takes them,
+    # and only what the reference refuses raises
+    assert eng.submit([1, 2], 4, priority=1, max_queue_wait_ms=50.0) == 0
+    with pytest.raises(ValueError, match="priority"):
+        eng.submit([1, 2], 4, priority="high")
     with pytest.raises(NotImplementedError, match="LoRA"):
         eng.submit([1, 2], 4, adapter_id=3)
     eng.shutdown()
@@ -228,6 +233,14 @@ def test_later_slice_features_raise(field, value):
         assert ServingConfig(**{field: value}).kv_cache_dtype == value
         with pytest.raises(ValueError, match="kv_cache_dtype"):
             ServingConfig(kv_cache_dtype="fp8")
+        return
+    if field in ("enable_prefix_cache", "enable_preemption"):
+        # the prefix cache and preemption are ported and on by default, as
+        # in the reference; only what the reference refuses raises
+        assert getattr(ServingConfig(), field) is True
+        assert getattr(ServingConfig(**{field: False}), field) is False
+        with pytest.raises(ValueError, match="preempt_resume"):
+            ServingConfig(**{field: value}, preempt_resume="maybe")
         return
     if field == "async_depth":
         # the async pipeline is ported: the config takes depth 1, and only

@@ -151,7 +151,9 @@ def test_engine_greedy_streams_match_reference(pair):
         health=False, async_depth=0))
     want = jeng.serve(prompts, max_new_tokens=NEW)
     jeng.shutdown()
-    eng = ServingEngine(port, ServingConfig(**CORE), device="cpu")
+    eng = ServingEngine(port, ServingConfig(
+        **CORE, enable_prefix_cache=False, enable_preemption=False),
+        device="cpu")
     got = eng.serve(prompts, max_new_tokens=NEW)
     st = eng.stats()
     assert eng.shutdown()

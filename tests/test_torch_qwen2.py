@@ -92,8 +92,9 @@ def test_fused_engine_streams_match_reference(pair):
         health=False, async_depth=0))
     want = eng.serve(prompts, max_new_tokens=6)
     eng.shutdown()
-    eng = ServingEngine(port, ServingConfig(**CORE, fused_decode=True),
-                        device="cpu")
+    eng = ServingEngine(port, ServingConfig(
+        **CORE, fused_decode=True, enable_prefix_cache=False,
+        enable_preemption=False), device="cpu")
     got = eng.serve(prompts, max_new_tokens=6)
     eng.shutdown()
     assert len(got) == len(want)

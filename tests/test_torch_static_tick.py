@@ -47,6 +47,8 @@ MOE = dict(vocab=128, hidden=64, layers=3, heads=4, kv_heads=4, moe_ffn=32,
 CORE = dict(num_slots=2, block_size=8, max_model_len=64, prefill_chunk=8)
 REF_OFF = dict(enable_prefix_cache=False, enable_preemption=False,
                health=False, min_prefill_bucket=8, async_depth=0)
+# the prefix cache and preemption off in the port's engine of a pair too
+PORT_OFF = dict(enable_prefix_cache=False, enable_preemption=False)
 
 
 def _pair(jcfg_cls, jcls, tcfg_cls, tcls, shape, seed, **cfg_kw):
@@ -115,7 +117,8 @@ def test_static_width_equals_reference(llama, case):
     ref, port = llama
     kw = dict(CORE, **STATIC[case])
     want = JaxServingEngine(ref, JaxServingConfig(**kw, **REF_OFF))
-    got = ServingEngine(port, ServingConfig(**kw), device="cpu")
+    got = ServingEngine(port, ServingConfig(**kw, **PORT_OFF),
+                        device="cpu")
     assert (got._rows, got._wmax, got._overflow) == \
         (want._rows, want._wmax, want._overflow)
 
@@ -184,7 +187,7 @@ def test_staggered_streams_match_reference(request, case):
         ref, JaxServingConfig(**CORE, **REF_OFF, **kw),
         draft_model=ref if self_draft else None), prompts, new)
     got = _staggered(ServingEngine(
-        port, ServingConfig(**CORE, **kw), device="cpu",
+        port, ServingConfig(**CORE, **PORT_OFF, **kw), device="cpu",
         draft_model=port if self_draft else None), prompts, new)
     for i, (x, y) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(x, y, err_msg=f"{case} request {i}")
@@ -198,7 +201,8 @@ def test_moe_telemetry_of_padded_ticks_matches_reference(moe):
     ref, port = moe
     p0, p1 = _prompts(lens=(5, 11))
     engines = [JaxServingEngine(ref, JaxServingConfig(**CORE, **REF_OFF)),
-               ServingEngine(port, ServingConfig(**CORE), device="cpu")]
+               ServingEngine(port, ServingConfig(**CORE, **PORT_OFF),
+                             device="cpu")]
     for e in engines:
         e.submit(p0.copy(), 4)
         e.submit(p1.copy(), 4)
