@@ -57,7 +57,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    its plain version and against the float32 kernel on the widened query
    (within one bf16 ulp, under 2 % of outputs differing), timed cold; and
    K1 at GPT's training shape (B 8, L 1024, 16 / 16 heads, D 64) in both
-   dtypes;
+   dtypes; and K4's float32 gather and scatter modes as the LoRA delta
+   calls them (``lora_gmm``, ``lora_scatter_gmm``) at a 136-row tick of
+   d 4096 over 9 adapter groups at rank 16, to 4096 and 1024 columns,
+   and at the edges (every row in the null group, a group of one row,
+   rank 4 in stacks padded to 8), against their plain versions and the
+   reference's einsum, a row's delta the same alone as in the batch,
+   timed cold beside the reference's fallback (a per-row gather of the
+   stacks and an einsum);
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches (every
@@ -237,13 +244,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     to the synchronous engine; (d) (a)-(c) in float32 at 2 layers through
     the kernels and through their plain versions (phase 4's rule), the
     published blocks unchanged by wave 2's copy;
-21. print the kernels line, the card's name and power limit, and the
+21. batched multi-LoRA serving (run after phase 19, on phase 3's model):
+    (b) bf16, 32 layers, adapters 1-4 on ``attn`` targets at rank 16
+    (``LORA_SCALE``) over two resident rows: phase 3's traffic under
+    adapters (1, 2, base) then (3, 4, base), each wave on the LoRA engine
+    and on a LoRA-off one in turns (A B B A): tokens/s, TTFT, ms a tick,
+    graphs equal in number (churn captures none), swaps, the base riders'
+    streams by the near-tie rule; adapter 3 reloaded while resident and
+    wave 2 again (replays only: its streams move, the others stay to the
+    bit); one prompt under adapters 1-4 and none (five continuations);
+    graphed ticks equal to eager ones bit for bit across a reload mid-run;
+    (a) float32 at Llama-3-8B widths, 2 layers: ``attn`` and ``all``
+    targets at rank 16, rank 4, ``lora_quant``, a batch of five requests
+    (adapters 1, 2, 3, base riders) equal to each request served alone,
+    and the kernels against K4's plain versions (phase 4's rule under each
+    stream's adapter); (c) GPT at ``GPTConfig()``'s widths, 2 layers,
+    float32, ``qkv_proj`` / ``out_proj`` adapters, batched equal to solo;
+22. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
 16, 17 and 18, both waves of phase 19 (b), each run of phase 20 (a)-(c)
-and (e) in bf16) runs with every
+and (e) in bf16, each LoRA run and batch of phase 21) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -450,6 +473,29 @@ FLASHMASK_TAIL = dict(B=1, L=4000, H=8, Hkv=4, D=64, Hm=4)
 FLASHMASK_ROW = dict(B=1, L=16384, H=32, Hkv=8, D=128, docs=8)
 SDPA_MASKED = dict(B=2, L=256, H=8, Hkv=2, D=64, p=0.1)
 FLASHMASK_KERNELS = ("flashmask_fwd", "flashmask_dq", "flashmask_dkv")
+# multi-LoRA (phases 2 and 21): the delta's K4 calls, counted apart from
+# MoE's; phase 2 holds them at a 136-row tick of Llama-3-8B's width over
+# max_adapters + 1 = 9 groups at rank 16, to q's / o's 4096 and k's / v's
+# 1024 columns (the kernels line's: 4096), rows over five groups with the
+# null one
+LORA_KERNELS = ("lora_gmm", "lora_scatter_gmm")
+LORA_TICK = dict(rows=136, d=4096, groups=9, rank=16, outs=(4096, 1024),
+                 used=(0, 1, 3, 5, 8))
+# phase 21: the adapters' weights are drawn N(0, LORA_SCALE): at d 4096 and
+# rank 16 a delta's entries have a standard deviation of about 4096 ** 0.5
+# * 16 ** 0.5 * LORA_SCALE ** 2 on unit-norm rows (0.64 here), half the
+# base projection's (4096 ** 0.5 * 0.02 = 1.28), enough for distinct
+# adapters to decode distinct continuations
+LORA_SCALE = 0.05
+LORA_RANK = 16
+LORA_ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
+LORA_ALL = LORA_ATTN + ("gate_proj", "up_proj", "down_proj")
+# (a) and (c): float32 at PHASE4_LAYERS layers, a mixed batch of five
+# requests (adapters 1, 2, 3 and base riders) and each request alone
+LORA_F32 = dict(num_slots=4, block_size=16, max_model_len=512,
+                prefill_chunk=128, max_new_tokens=8)
+LORA_F32_LENS = (40, 150, 70, 200, 90)
+LORA_F32_AIDS = (1, 2, None, 3, None)
 
 
 def log(*a):
@@ -1540,6 +1586,157 @@ def check_moe(torch, mg, dtype, timing):
     return errs, rows
 
 
+def lora_routing(kind, rows, groups, used, seed):
+    """Each packed row's stack row (int64, numpy): ``tick`` spreads the
+    rows over the ``used`` groups (the null one among them), ``null``
+    puts every row in the null group, ``single`` all but one row in the
+    null group and one row alone in the last group."""
+    rng = np.random.RandomState(seed)
+    if kind == "null":
+        return np.zeros(rows, np.int64)
+    if kind == "single":
+        ra = np.zeros(rows, np.int64)
+        ra[rows // 2] = groups - 1
+        return ra
+    return rng.choice(np.asarray(used, np.int64), rows)
+
+
+def lora_stacks(torch, g, groups, d, rank, out, copies=1):
+    """``copies`` pairs of stacks ``A [groups, d, padded]``, ``B [groups,
+    padded, out]`` float32 as the adapter pool holds them: row 0 (the
+    null adapter) and the padded rank's columns of A / rows of B zero,
+    the rest N(0, 0.05)."""
+    from paddle_tpu_torch.ops.lora import padded_rank
+    rp = padded_rank(rank)
+    pairs = []
+    for _ in range(copies):
+        A = torch.zeros(groups, d, rp, device="cuda")
+        B = torch.zeros(groups, rp, out, device="cuda")
+        A[1:, :, :rank] = 0.05 * torch.randn(groups - 1, d, rank,
+                                             generator=g, device="cuda")
+        B[1:, :rank] = 0.05 * torch.randn(groups - 1, rank, out,
+                                          generator=g, device="cuda")
+        pairs.append((A, B))
+    return pairs
+
+
+def check_lora(torch, mg, lora):
+    """K4's float32 gather and scatter modes as the LoRA delta calls them
+    (``ops/lora.ragged_delta``), against their plain versions elementwise
+    and row by row, at LORA_TICK's shapes (136 packed rows of d 4096, 9
+    groups, rank 16, outs 4096 and 1024, rows over five groups with the
+    null one) and at its edges (every row in the null group: an exact-
+    zero delta; a group of one row; rank 4 padded to 8); the whole delta
+    also against the reference's stacked-gather einsum at the unpadded
+    rank. At out 4096 (q, o) and 1024 (k, v) each mode is timed cold
+    (enough copies of the stacks, taken in turn, to fill twice the 50 MB
+    L2) with CUDA events beside its bound, its plain version and the
+    composite (the reference's fallback: a per-row gather of the stacks
+    and an einsum, in eager PyTorch); no one PyTorch call computes
+    either. Returns ``(errs, rows)``, ``rows`` at out 4096 by kernel
+    name."""
+    t = LORA_TICK
+    R, d, G = t["rows"], t["d"], t["groups"]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fails, rows_out = [], {}
+    errs = dict.fromkeys(LORA_KERNELS, 0.0)
+    cases = [("tick", t["rank"], out) for out in t["outs"]] + [
+        ("null", t["rank"], t["outs"][0]), ("single", t["rank"], t["outs"][0]),
+        ("tick", 4, t["outs"][0])]
+    for i, (kind, rank, out) in enumerate(cases):
+        ra = torch.from_numpy(lora_routing(kind, R, G, t["used"],
+                                           21 + i)).cuda()
+        timing = kind == "tick" and rank == t["rank"]
+        rp = lora.padded_rank(rank)
+        copies = max(3, -(-int(100e6) // (4 * G * rp * (d + out)))) \
+            if timing else 1
+        stacks = lora_stacks(torch, g, G, d, rank, out, copies)
+        A, B = stacks[0]
+        x = torch.randn(R, d, generator=g, device="cuda")
+        order, sizes = lora.sort_rows(ra, G)
+        want_order = np.argsort(ra.cpu().numpy(), kind="stable")
+        if not (np.array_equal(order.cpu().numpy(), want_order)
+                and np.array_equal(sizes.cpu().numpy(), np.bincount(
+                    ra.cpu().numpy(), minlength=G))):
+            fails.append(f"lora sort {kind}")
+        label = (f"{kind}: {R} rows, d {d}, rank {rank} (stacks at {rp}), "
+                 f"out {out}, {G} groups")
+        n0 = dict(mg.launch_counts)
+        ax = mg.gather_gmm(x, order, A, sizes, count="lora_gmm")
+        ax_ref = mg.plain_gather_gmm(x, order, A, sizes)
+        y = mg.scatter_gmm(ax_ref, B, sizes, order, count="lora_scatter_gmm")
+        y_ref = mg.plain_scatter_gmm(ax_ref, B, sizes, order)
+        delta = lora.ragged_delta(x, ra, A, B)
+        ein = lora.plain_ragged_delta(x, ra, A[:, :, :rank], B[:, :rank])
+        torch.cuda.synchronize()
+        for name, n in (("lora_gmm", 2), ("lora_scatter_gmm", 2),
+                        ("moe_gmm", 0), ("moe_scatter_gmm", 0)):
+            if mg.launch_counts[name] != n0[name] + n:
+                fails.append(f"lora {kind}: {name} launched "
+                             f"{mg.launch_counts[name] - n0[name]} times")
+        errs["lora_gmm"] = max(errs["lora_gmm"], held_attention(
+            torch, ax, ax_ref, "float32", f"lora_gmm {label}", fails))
+        errs["lora_scatter_gmm"] = max(errs["lora_scatter_gmm"],
+                                       held_attention(
+            torch, y, y_ref, "float32", f"lora_scatter_gmm {label}", fails))
+        held_attention(torch, delta, ein, "float32",
+                       f"lora delta vs the reference's einsum {label}", fails)
+        if kind == "null" and delta.any():
+            fails.append("lora null group: a nonzero delta")
+        # a row's delta is its own: the rows of one adapter alone give it
+        # to the bit (batched == solo)
+        sub = (ra == ra[R // 2]).nonzero()[:, 0]
+        alone = lora.ragged_delta(x[sub].contiguous(), ra[sub], A, B)
+        if not torch.equal(alone, delta[sub]):
+            fails.append(f"lora {kind}: a row's delta depends on the batch")
+        if not timing:
+            continue
+        touched = int((sizes > 0).sum())
+        turn = iter(range(1 << 30))
+
+        def pick():
+            return stacks[next(turn) % len(stacks)]
+
+        idx = ra.long()
+        # (bytes, flops, kernel, plain, composite)
+        work = {"lora_gmm": (
+                    4 * (R * d + touched * d * rp + R * rp) + 4 * (R + G),
+                    2 * R * d * rp,
+                    lambda: mg.gather_gmm(x, order, pick()[0], sizes,
+                                          count="lora_gmm"),
+                    lambda: mg.plain_gather_gmm(x, order, pick()[0], sizes),
+                    lambda: torch.einsum("rd,rdk->rk", x, pick()[0][idx])),
+                "lora_scatter_gmm": (
+                    4 * (R * rp + touched * rp * out + R * out) + 4 * (R + G),
+                    2 * R * rp * out,
+                    lambda: mg.scatter_gmm(ax_ref, pick()[1], sizes, order,
+                                           count="lora_scatter_gmm"),
+                    lambda: mg.plain_scatter_gmm(ax_ref, pick()[1], sizes,
+                                                 order),
+                    lambda: torch.einsum("rk,rko->ro", ax_ref,
+                                         pick()[1][idx]))}
+        for name, (nbytes, flops, kern, plain, comp) in work.items():
+            b_ms, b_by = bound(nbytes, flops, "float32")
+            row = dict(ms=time_ms(torch, kern), plain_ms=time_ms(
+                torch, plain, reps=3, rounds=3, warmup=1), bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+            comp_ms = time_ms(torch, comp)
+            log(f"  {name} [float32] {label} ({touched} groups touched, "
+                f"{copies} stack copies): ms={row['ms']:.4f} plain_ms="
+                f"{row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+                f"{nbytes / 1e6:.2f} MB) composite library_ms="
+                f"{comp_ms:.4f} (the reference's fallback); share of bound "
+                f"{b_ms / row['ms']:.3f}")
+            if out == t["outs"][0]:
+                rows_out[name] = row
+        del stacks
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"LoRA K4 modes disagree with their plain "
+                             f"versions: {fails}")
+    return errs, rows_out
+
+
 def library_call(torch, fn, *args):
     """``fn`` when it runs on ``args`` here, else None and the reason (a
     PyTorch without the call, or a layout it refuses)."""
@@ -1933,12 +2130,14 @@ def top2_margin(torch, model, ids):
 
 
 def held_streams(torch, model, what, prompts, a, b, fails,
-                 limit=LOGITS_ATOL):
+                 limit=LOGITS_ATOL, margin=None):
     """Token streams ``a`` and ``b`` (one per prompt) must be equal; a
     divergence is tolerated only where the top-2 logit margin of the
     common context (the prompt and the agreed tokens) is at most
     ``limit``, a near tie that rounding may break either way. Logs the
-    margin either way; with ``fails`` None it only logs."""
+    margin either way; with ``fails`` None it only logs. ``margin(i,
+    ids)``: the margin of stream ``i``'s context (default: the model's
+    dense forward, :func:`top2_margin`)."""
     diverged = False
     for i, (x, y) in enumerate(zip(a, b)):
         x, y = np.asarray(x), np.asarray(y)
@@ -1946,13 +2145,14 @@ def held_streams(torch, model, what, prompts, a, b, fails,
             continue
         diverged = True
         j = int(np.argmax(x[:len(y)] != y[:len(x)]))
-        margin = top2_margin(torch, model, np.concatenate(
-            [np.asarray(prompts[i]).reshape(-1), x[:j]]))
-        ok = margin <= limit
+        ids = np.concatenate([np.asarray(prompts[i]).reshape(-1), x[:j]])
+        gap = top2_margin(torch, model, ids) if margin is None \
+            else margin(i, ids)
+        ok = gap <= limit
         verdict = "a near tie" if ok else (
             "FAIL" if fails is not None else "over the limit")
         log(f"  {what}: stream {i} diverges at token {j} ({x[j]} vs "
-            f"{y[j]}); top-2 logit margin {margin:.3e} (limit "
+            f"{y[j]}); top-2 logit margin {gap:.3e} (limit "
             f"{limit:.3e}) {verdict}")
         if not ok and fails is not None:
             fails.append(f"{what} stream {i}")
@@ -2504,15 +2704,18 @@ def serving_prompts(vocab, n, seed):
     return lens, [rng.randint(0, vocab, size=k) for k in lens]
 
 
-def serve_run(torch, kernels, engine, prompts, lens, tag, want):
-    """Submit every prompt at once and run the engine dry, with every
+def serve_run(torch, kernels, engine, prompts, lens, tag, want,
+              adapter_ids=None):
+    """Submit every prompt at once (under ``adapter_ids``' LoRA adapters,
+    one a prompt, where given) and run the engine dry, with every
     launch count set to 0 just before and read just after. Checks the
     tokens, logs tokens/s, TTFT, ticks, rows a tick and peak memory, and
     fails when a kernel of ``want`` never launched. Returns ``(launches,
-    stats, streams in submission order)``."""
+    stats, streams in submission order)``; the stats gain ``wall_s``."""
     cfg = engine.model.config
     max_new = engine.config.max_new_tokens
-    rids = [engine.submit(p) for p in prompts]
+    rids = [engine.submit(p, adapter_id=a) for p, a in zip(
+        prompts, adapter_ids or [None] * len(prompts))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2521,7 +2724,7 @@ def serve_run(torch, kernels, engine, prompts, lens, tag, want):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = dict(kernels.launch_counts)
-    st = engine.stats()
+    st = dict(engine.stats(), wall_s=wall)
     if sorted(done) != sorted(rids):
         raise AssertionError(f"{tag}: {len(done)} of {len(rids)} requests "
                              "done")
@@ -2564,7 +2767,8 @@ def pool_tensors(pools):
 
 
 def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
-                   max_new, tag, draft=None, stagger=3):
+                   max_new, tag, draft=None, stagger=3, adapters=None,
+                   on_tick=None):
     """Two engines of ``cfg`` over ``model`` (and ``draft``), one
     replaying its ticks from CUDA graphs and one running every tick
     eagerly (its graphs off) at the same widths, stepped in lockstep over
@@ -2572,7 +2776,10 @@ def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
     ticks with prefill rows recur beside decoding slots: at every tick
     both must commit the same tokens, add the same launch counts and give
     the same logits to the bit, and at the end every layer's pools (the
-    null block aside) must be equal to the bit. Returns the graph
+    null block aside) must be equal to the bit. ``adapters``: ``(weights
+    by adapter id, an adapter id or None a prompt)`` for a LoRA ``cfg``;
+    ``on_tick(engine, tick)`` runs on each engine before its tick.
+    Returns the graph
     engine's ``stats()`` with its ``mixed_graphs`` / ``mixed_replays``
     (ticks with prefill rows, at the static width) and ``pure_graphs`` /
     ``pure_replays``; fails unless both kinds replayed."""
@@ -2580,16 +2787,21 @@ def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
     for graphs in (True, False):
         e = ServingEngine(model, cfg, device="cuda", draft_model=draft)
         e.cuda_graphs = graphs
+        for aid, w in (adapters[0] if adapters else {}).items():
+            e.load_adapter(aid, w)
         engines.append(e)
-    waiting = list(prompts)
+    aids = adapters[1] if adapters else [None] * len(prompts)
+    waiting = list(zip(prompts, aids))
     ticks = 0
     while waiting or any(e.num_active or e.num_queued for e in engines):
         while waiting and ticks >= stagger * (len(prompts) - len(waiting)):
-            p = waiting.pop(0)
+            p, aid = waiting.pop(0)
             for e in engines:
-                e.submit(p, max_new)
+                e.submit(p, max_new, adapter_id=aid)
         seen = []
         for e in engines:
+            if on_tick is not None:
+                on_tick(e, ticks)
             c0 = dict(kernels.launch_counts)
             emitted = e.step()
             torch.cuda.synchronize()
@@ -4655,6 +4867,346 @@ def lifecycle_phase(torch, kernels, df, rpa, ServingEngine, ServingConfig,
     return launches
 
 
+# --------------------------------------------------------------- phase 21
+
+def lora_weights(model, names, aid, rank=LORA_RANK, scale=LORA_SCALE):
+    """Adapter ``aid``'s leaf-name weights (every layer's module of each
+    name), ``A [d_in, rank]`` and ``B [rank, d_out]`` drawn N(0, scale)
+    from a generator seeded by ``aid``, at ``model``'s widths."""
+    from paddle_tpu_torch.ops.lora import ATTN_TARGETS, MLP_TARGETS
+    widths = {q.rsplit(".", 1)[-1]: tuple(m.weight.shape)
+              for q, m in model.named_modules()
+              if q.rsplit(".", 1)[-1] in ATTN_TARGETS + MLP_TARGETS}
+    rng = np.random.RandomState(SEED + 2100 + aid)
+    return {n: (rng.normal(0, scale, (widths[n][0], rank)).astype(
+                    np.float32),
+                rng.normal(0, scale, (rank, widths[n][1])).astype(
+                    np.float32)) for n in names}
+
+
+def lora_margin(torch, lora, engine):
+    """``margin(i, ids)`` for :func:`held_streams` over an engine's LoRA
+    streams: the top-2 logit margin of the dense forward over ``ids``
+    under the adapter of stream ``i`` (``engine.stream_adapters[i]``),
+    the forward run inside a scope whose rows all take that adapter's
+    stack row."""
+    def margin(i, ids):
+        pool, aid = engine._lora, engine.stream_adapters[i]
+        row = 0 if aid is None else pool.acquire(aid)
+        try:
+            x = torch.as_tensor(np.asarray(ids, np.int64),
+                                device=engine.model.device)[None]
+            ra = torch.full((x.shape[1],), row, device=x.device)
+            with torch.no_grad(), lora.serving_lora_scope(
+                    pool.operand(), ra, pool.scaling):
+                logits = engine.model(x)[0, -1].float()
+        finally:
+            if aid is not None:
+                pool.release(aid)
+        top = torch.topk(logits, 2).values
+        return float(top[0] - top[1])
+    return margin
+
+
+def lora_batch(torch, kernels, engine, prompts, aids, tag, want):
+    """Serve ``prompts`` at once under ``aids`` on ``engine``, every launch
+    count set to 0 just before and read just after; fails when a kernel
+    of ``want`` never launched. Returns ``(streams, launches)``."""
+    rids = [engine.submit(p, adapter_id=a) for p, a in zip(prompts, aids)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    done = engine.run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched on the main "
+                             f"path: {missing}")
+    return [done[r] for r in rids], launches
+
+
+def lora_f32_case(torch, kernels, lora, mg, ServingEngine, ServingConfig,
+                  model, prompts, tag, names, fails, want, plain=False,
+                  **kw):
+    """One float32 case of phase 21 (a) / (c): an engine of LORA_F32 (``kw``
+    on top) with adapters 1-3 of ``names`` serves the LORA_F32_AIDS batch,
+    then each request alone on the same engine; batched and solo streams
+    must be equal token for token (a row's delta is its own, bit for bit).
+    ``plain``: the batch again on an engine with K4 patched to its plain
+    versions (graphs off), held to the kernels' streams by phase 4's rule
+    under each stream's adapter. Returns the batch's launches."""
+    t0 = time.monotonic()
+    rank = kw.pop("lora_rank", LORA_RANK)
+    cfg = ServingConfig(**LORA_F32, lora_rank=rank, max_adapters=4, **kw)
+
+    def engine():
+        eng = ServingEngine(model, cfg, device="cuda")
+        for aid in (1, 2, 3):
+            eng.load_adapter(aid, lora_weights(model, names, aid, rank))
+        eng.stream_adapters = LORA_F32_AIDS
+        return eng
+
+    eng = engine()
+    batch, launches = lora_batch(torch, kernels, eng, prompts,
+                                 LORA_F32_AIDS, tag, want)
+    solo = [lora_batch(torch, kernels, eng, [p], [a], f"{tag} solo", ())[0][0]
+            for p, a in zip(prompts, LORA_F32_AIDS)]
+    same = [np.array_equal(a, b) for a, b in zip(batch, solo)]
+    st = eng.stats()
+    log(f"{tag}: rank {rank} (stacks at {lora.padded_rank(rank)}), "
+        f"{len(prompts)} requests under {LORA_F32_AIDS}: batched == solo "
+        f"for {sum(same)} of {len(same)} streams; "
+        f"{st['executables_compiled']} CUDA graphs; lora launches "
+        f"{ {k: launches[k] for k in LORA_KERNELS} }")
+    if not all(same):
+        fails.append(f"{tag}: batched != solo")
+    if plain:
+        patches = [mock.patch.object(ServingEngine, "cuda_graphs", False),
+                   mock.patch.object(mg, "gather_gmm",
+                                     lambda *a, count=None, **k:
+                                     mg.plain_gather_gmm(*a, **k)),
+                   mock.patch.object(mg, "scatter_gmm",
+                                     lambda *a, count=None, **k:
+                                     mg.plain_scatter_gmm(*a, **k))]
+        for p in patches:
+            p.start()
+        try:
+            peng = engine()
+            plain_streams, pl = lora_batch(torch, kernels, peng, prompts,
+                                           LORA_F32_AIDS, f"{tag} plain", ())
+            peng.shutdown()
+        finally:
+            for p in patches:
+                p.stop()
+        if any(pl[k] for k in LORA_KERNELS):
+            fails.append(f"{tag} plain: K4 launched")
+        held_streams(torch, model, f"{tag} K4 kernels vs plain", prompts,
+                     batch, plain_streams, fails,
+                     margin=lora_margin(torch, lora, eng))
+    eng.shutdown()
+    log(f"{tag}: {time.monotonic() - t0:.1f}s")
+    return launches
+
+
+def lora_bf16_phase(torch, kernels, lora, ServingEngine, ServingConfig,
+                    model, prompts, lens, fails):
+    """Phase 21 (b) on phase 3's model (Llama-3-8B, bf16, its seeded
+    weights): adapters 1-4 (``attn`` targets, rank 16) over a resident
+    window of two. Phase 3's traffic twice on a LoRA engine and on a
+    LoRA-off one, in turns (A B B A): wave 1 under adapters (1, 2, base)
+    in turn, wave 2 under (3, 4, base), so wave 2 swaps both rows
+    (each wave seats as the LoRA-off engine does: no request waits for a
+    row). Logs tokens/s, TTFT and ms a tick of each run; the LoRA engine's
+    graphs must equal the LoRA-off engine's in number after each wave
+    (churn captures none), its base riders' streams the LoRA-off
+    engine's by the near-tie rule. Then a hot reload of resident
+    adapter 3 changes its next request's tokens, replayed from the
+    graphs captured; distinct adapters decode distinct continuations of
+    one prompt; and the ticks of a LoRA engine replayed from graphs
+    equal the eager ticks bit for bit (:func:`graph_lockstep`), across a
+    hot reload mid-run. Returns the LoRA runs' launches."""
+    t0 = time.monotonic()
+    ids7 = torch.from_numpy(motif_prompts(
+        GENERATE["batch"], GENERATE["prompt"], GENERATE["motif"],
+        model.config.vocab_size, SEED + 3)).to(model.device)
+    noise = logit_noise(torch, model, ids7)
+    del ids7
+    base_kw = dict(num_slots=8, block_size=16, max_model_len=2048,
+                   prefill_chunk=128, max_new_tokens=32)
+    lkw = dict(lora_rank=LORA_RANK, max_adapters=2)
+    weights = {aid: lora_weights(model, LORA_ATTN, aid) for aid in range(1, 5)}
+    engines = {"lora": ServingEngine(model, ServingConfig(**base_kw, **lkw),
+                                     device="cuda"),
+               "base": ServingEngine(model, ServingConfig(**base_kw),
+                                     device="cuda")}
+    for aid, w in weights.items():
+        engines["lora"].load_adapter(aid, w)
+    waves = {1: [(1, 2, None)[k % 3] for k in range(len(prompts))],
+             2: [(3, 4, None)[k % 3] for k in range(len(prompts))]}
+    want = SERVING_KERNELS + LORA_KERNELS
+    runs, launches, last = {}, {}, {}
+    for name, wave in (("base", 1), ("lora", 1), ("lora", 2), ("base", 2)):
+        eng = engines[name]
+        eng.purge_published()       # every run prefills cold
+        tag = f"phase 21 (b) {name} wave {wave}"
+        got, st, streams = serve_run(
+            torch, kernels, eng, prompts, lens, tag,
+            want if name == "lora" else SERVING_KERNELS,
+            adapter_ids=waves[wave] if name == "lora" else None)
+        # this run's ticks and mean TTFT (the stats count the engine's life)
+        prev = last.get(name, dict(ticks=0, ttft_ms=dict(count=0, mean=0.0)))
+        n_ttft = st["ttft_ms"]["count"] - prev["ttft_ms"]["count"]
+        st["run_ticks"] = st["ticks"] - prev["ticks"]
+        st["run_ttft_ms"] = (st["ttft_ms"]["mean"] * st["ttft_ms"]["count"]
+                             - prev["ttft_ms"]["mean"]
+                             * prev["ttft_ms"]["count"]) / max(n_ttft, 1)
+        last[name] = st
+        runs[name, wave] = (st, streams)
+        if name == "lora":
+            for k in want:
+                launches[k] = launches.get(k, 0) + got[k]
+        log(f"{tag}: {st['run_ticks']} ticks, "
+            f"{1e3 * st['wall_s'] / st['run_ticks']:.3f} ms a tick, TTFT "
+            f"mean {st['run_ttft_ms']:.1f} ms; lora_adapter_swaps "
+            f"{st['lora_adapter_swaps']}, resident "
+            f"{st['lora_adapters_resident']}, host tier "
+            f"{st['lora_host_tier_bytes']} B")
+    for wave in (1, 2):
+        (sb, base), (sl, lo) = runs["base", wave], runs["lora", wave]
+        n_tok = sum(map(len, lo))
+        log(f"phase 21 (b) wave {wave} ({card_line()}): LoRA "
+            f"{n_tok / sl['wall_s']:.2f} against LoRA-off "
+            f"{sum(map(len, base)) / sb['wall_s']:.2f} tok/s; TTFT mean "
+            f"{sl['run_ttft_ms']:.1f} against {sb['run_ttft_ms']:.1f} ms; "
+            f"{1e3 * sl['wall_s'] / sl['run_ticks']:.3f} against "
+            f"{1e3 * sb['wall_s'] / sb['run_ticks']:.3f} ms a tick; graphs "
+            f"{sl['executables_compiled']} against "
+            f"{sb['executables_compiled']}")
+        if sl["executables_compiled"] != sb["executables_compiled"]:
+            fails.append(f"phase 21 (b) wave {wave}: LoRA engine "
+                         f"{sl['executables_compiled']} graphs, LoRA-off "
+                         f"{sb['executables_compiled']}")
+        riders = [k for k, a in enumerate(waves[wave]) if a is None]
+        held_streams(torch, model, f"phase 21 (b) wave {wave} base riders "
+                     "vs LoRA-off", [prompts[k] for k in riders],
+                     [lo[k] for k in riders], [base[k] for k in riders],
+                     fails, limit=noise)
+    st2 = runs["lora", 2][0]
+    if st2["lora_adapter_swaps"] < 2:
+        fails.append(f"phase 21 (b): {st2['lora_adapter_swaps']} swaps")
+    eng = engines["lora"]
+    n_graphs = st2["executables_compiled"]
+    # a hot reload of resident adapter 3, then wave 2 again: every tick
+    # replays a graph wave 2 captured; adapter 3's streams move, the
+    # others stay to the bit (a row's work is its own)
+    if not eng.adapter_resident(3):
+        fails.append("phase 21 (b): adapter 3 not resident after wave 2")
+    eng.load_adapter(3, lora_weights(model, LORA_ATTN, 33))
+    eng.purge_published()
+    got, st, again = serve_run(torch, kernels, eng, prompts, lens,
+                               "phase 21 (b) lora wave 2 after a reload",
+                               want, adapter_ids=waves[2])
+    for k in want:
+        launches[k] += got[k]
+    before = runs["lora", 2][1]
+    moved = [not np.array_equal(a, b) for a, b in zip(again, before)]
+    three = [m for m, a in zip(moved, waves[2]) if a == 3]
+    others = [m for m, a in zip(moved, waves[2]) if a != 3]
+    log(f"phase 21 (b): adapter 3 hot-reloaded while resident: "
+        f"{sum(three)} of its {len(three)} streams moved, {sum(others)} of "
+        f"the {len(others)} others; graphs {st['executables_compiled']} "
+        f"(before {n_graphs})")
+    if not all(three) or any(others) \
+            or st["executables_compiled"] != n_graphs:
+        fails.append("phase 21 (b): hot reload")
+    # where a LoRA tick's time goes: wave 2's first 8 requests, 4 ticks
+    # in, TICK_WINDOW profiled ticks (K4's float32 bodies by name)
+    eng.purge_published()
+    for p, a in zip(prompts[:8], waves[2]):
+        eng.submit(p, adapter_id=a)
+    for _ in range(4):
+        eng.step()
+    by_kernel = {}
+    wall_ms, busy_ms, _ = profiled(torch, eng.step, TICK_WINDOW, 8,
+                                   by_kernel=by_kernel)
+    eng.run()
+    k4_ms = sum(v for k, v in by_kernel.items() if "moe_gmm" in k)
+    log(f"phase 21 (b) profile ({card_line()}): {TICK_WINDOW} LoRA ticks, "
+        f"{wall_ms / TICK_WINDOW:.3f} ms a tick, device "
+        f"{busy_ms / TICK_WINDOW:.3f} ms (K4's float32 bodies "
+        f"{k4_ms / TICK_WINDOW:.3f} ms) -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
+    # one prompt under each adapter and none, at once
+    one = [eng.submit(prompts[1], adapter_id=a) for a in (1, 2, 3, 4, None)]
+    done = eng.run()
+    outs = [tuple(done[r].tolist()) for r in one]
+    log(f"phase 21 (b): one prompt under adapters 1-4 and none: "
+        f"{len(set(outs))} distinct continuations of 5 (delta scale "
+        f"N(0, {LORA_SCALE}) at rank {LORA_RANK})")
+    if len(set(outs)) != 5:
+        fails.append("phase 21 (b): adapters decode the same continuation")
+    for e in engines.values():
+        e.shutdown()
+    del engines, eng
+    torch.cuda.empty_cache()
+    # graphed == eager, a hot reload of adapter 1 mid-run included
+    rng = np.random.RandomState(SEED + 21)
+    lprompts = [rng.randint(0, model.config.vocab_size, size=LOCKSTEP_PROMPT)
+                for _ in range(4)]
+
+    def reload(e, tick):
+        if tick == 9:
+            e.load_adapter(1, weights[2])
+    st = graph_lockstep(torch, kernels, ServingEngine, model,
+                        ServingConfig(**LOCKSTEP, **lkw), lprompts, 16,
+                        "phase 21 (b) lockstep",
+                        adapters=(weights, (1, None, 2, 1)), on_tick=reload)
+    log(f"phase 21 (b) lockstep: {st['ticks']} ticks, {st['pure_replays']} "
+        f"pure and {st['mixed_replays']} mixed replays, adapter 1 reloaded "
+        f"at tick 9: tokens, logits, launch counts and pools equal to the "
+        f"eager engine's, bit for bit; phase (b) "
+        f"{time.monotonic() - t0:.1f}s")
+    return launches
+
+
+def lora_phase(torch, kernels, mg, ServingEngine, ServingConfig, LlamaConfig,
+               LlamaForCausalLM, GPTConfig, GPTForCausalLM, model, prompts,
+               lens):
+    """Phase 21, batched multi-LoRA serving: (b) on phase 3's loaded
+    ``model`` (:func:`lora_bf16_phase`); (a) float32 at Llama-3-8B widths
+    cut to PHASE4_LAYERS layers: ``attn`` and ``all`` targets at rank 16,
+    rank 4 (stacks at 8), the kernels against K4's plain versions, and
+    ``lora_quant``, each batched == solo (:func:`lora_f32_case`); (c) GPT
+    (``GPTConfig()``'s widths at PHASE4_LAYERS layers, float32) with
+    ``qkv_proj`` / ``out_proj`` adapters, batched == solo. Returns the
+    launch counts of the LoRA paths' runs."""
+    from paddle_tpu_torch.ops import lora
+    t_phase = time.monotonic()
+    fails = []
+    launches = lora_bf16_phase(torch, kernels, lora, ServingEngine,
+                               ServingConfig, model, prompts, lens, fails)
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = PHASE4_LAYERS
+    f32 = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 1)
+    rng = np.random.RandomState(SEED + 2101)
+    fprompts = [rng.randint(0, cfg.vocab_size, size=n) for n in LORA_F32_LENS]
+    no_k3b = ("ragged_paged_attention", "norm_matmul")
+    for tag, names, plain, want, kw in (
+            ("attn", LORA_ATTN, True, SERVING_KERNELS, {}),
+            ("all", LORA_ALL, False, no_k3b, dict(lora_targets="all")),
+            ("rank 4", LORA_ATTN, False, SERVING_KERNELS, dict(lora_rank=4)),
+            ("quant", LORA_ATTN, False, SERVING_KERNELS,
+             dict(lora_quant=True))):
+        got = lora_f32_case(torch, kernels, lora, mg, ServingEngine,
+                            ServingConfig, f32, fprompts,
+                            f"phase 21 (a) f32 {tag}", names, fails,
+                            want + LORA_KERNELS, plain=plain, **kw)
+        for k in LORA_KERNELS:
+            launches[k] += got[k]
+    del f32
+    torch.cuda.empty_cache()
+    gcfg = GPTConfig()
+    gcfg.num_hidden_layers = PHASE4_LAYERS
+    gpt = GPTForCausalLM(gcfg, device="cuda", seed=SEED + 18).eval()
+    rng = np.random.RandomState(SEED + 2102)
+    gprompts = [rng.randint(0, gcfg.vocab_size, size=n)
+                for n in LORA_F32_LENS]
+    got = lora_f32_case(torch, kernels, lora, mg, ServingEngine,
+                        ServingConfig, gpt, gprompts, "phase 21 (c) GPT f32",
+                        ("qkv_proj", "out_proj"), fails,
+                        ("ragged_paged_attention", "norm_matmul",
+                         "matmul_residual") + LORA_KERNELS)
+    for k in LORA_KERNELS:
+        launches[k] += got[k]
+    del gpt
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 21 failed: {fails}")
+    log(f"phase 21: {time.monotonic() - t_phase:.1f}s; LoRA launches "
+        f"{launches}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -4690,6 +5242,7 @@ def main(argv=None):
         from paddle_tpu_torch.ops.kernels import flashmask as fm
         from paddle_tpu_torch.ops.kernels import moe_gmm as mg
         from paddle_tpu_torch.ops.kernels import paged_attention as pda
+        from paddle_tpu_torch.ops import lora
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.ops.kernels import \
             ragged_paged_attention as rpa
@@ -4812,6 +5365,10 @@ def main(argv=None):
     for dtype in ("float32", "bfloat16"):
         check_flash(torch, F, fa, dtype, dtype == "bfloat16", shape=GPT_ATTN)
     torch.cuda.empty_cache()
+    # K4's float32 modes as the LoRA delta drives them (phase 21)
+    e10, r10 = check_lora(torch, mg, lora)
+    for name, r in r10.items():
+        table[name] = dict(r, max_abs_err=e10[name])
     decode_width_times(torch, df)
     for name, r in table.items():
         log(f"  {name} [bfloat16]: ms={r['ms']:.4f} "
@@ -4864,6 +5421,16 @@ def main(argv=None):
                                  streams3, pure3)
     for k in SERVING_KERNELS:
         launches[k] += async_launches[k]
+
+    # -- phase 21: multi-LoRA serving --------------------------------------
+    lora_launches = lora_phase(torch, kernels, mg, ServingEngine,
+                               ServingConfig, LlamaConfig, LlamaForCausalLM,
+                               GPTConfig, GPTForCausalLM, model, prompts,
+                               lens)
+    for k in SERVING_KERNELS:
+        launches[k] += lora_launches[k]
+    for k in LORA_KERNELS:
+        launches[k] = lora_launches[k]
     del model
     torch.cuda.empty_cache()
 
@@ -5014,7 +5581,7 @@ def main(argv=None):
                                 args.layers).items():
         launches[k] += n
 
-    # -- phase 21: report --------------------------------------------------
+    # -- phase 22: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (
@@ -5093,7 +5660,11 @@ def main(argv=None):
             "flashmask_dq": ("paddle_tpu_torch/csrc/flashmask_bwd.cu",
                              f"{fm_src}:253"),
             "flashmask_dkv": ("paddle_tpu_torch/csrc/flashmask_bwd.cu",
-                              f"{fm_src}:294")}
+                              f"{fm_src}:294"),
+            "lora_gmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
+                         "paddle_tpu/ops/pallas/moe_gmm.py:320"),
+            "lora_scatter_gmm": ("paddle_tpu_torch/csrc/moe_gmm.cu",
+                                 "paddle_tpu/ops/pallas/moe_gmm.py:320")}
     out = []
     for name, (src, rep) in srcs.items():
         r = table[name]

@@ -70,7 +70,13 @@
 //
 // float32 runs the FMA tile of tile_gemm.cuh for every mode (two passes
 // for swiglu) and a 64 x 64 FMA tile for tgmm, on the CUDA cores, so the
-// float32 gradient check keeps full float32 products.
+// float32 gradient check keeps full float32 products. The multi-LoRA
+// delta (ops/lora.py) runs the float32 gather mode at N = the adapter
+// rank padded to 8 and the scatter mode at K = that rank: each block
+// sums its rows' products over K in one order whatever the chunking, so
+// a row's delta does not depend on the rows batched with it. At N 16 the
+// gather mode is far off its bound (one block a group, 48 of 64 columns
+// idle, unprefetched gathered loads; PERF.md).
 //
 // Shapes: x [s, K] (gathered) or [m, K]; src_rows / dst_rows [m] int32;
 // rhs [e, K, N] row-major ([e, N, K] transposed); group_sizes [e] int32,

@@ -90,8 +90,20 @@ compacted onto the linear tail by ``permute_window``. Greedy engines
 emit the target's greedy tokens; sampling engines run rejection
 sampling with each slot's own knobs on both distributions.
 
-Later slices bring multi-LoRA, tensor parallelism, health monitoring,
-the cluster and the rest of the telemetry; a config field or argument
+Batched multi-LoRA serving (``ServingConfig(lora_rank=r)``): adapters
+registered by :meth:`ServingEngine.load_adapter` are pinned into a
+device-resident LRU window of ``max_adapters`` stack rows while a
+request (``submit(adapter_id=)``) is seated; each slot's stack row rides
+the tick's packed vector, and every packed row adds its slot's low-rank
+delta to the target projections through K4's float32 gather and scatter
+modes (:mod:`paddle_tpu_torch.ops.lora`). The stacks are written in
+place, so adapter churn recaptures no graph. A request under an adapter
+keys its prompt blocks in the prefix cache by a seed that also names the
+adapter and its weights' generation (the reference keys them by the
+model alone and so reuses one adapter's K/V under another).
+
+Later slices bring tensor parallelism, health monitoring, the cluster and
+the rest of the telemetry; a config field or argument
 asking for one of them raises ``NotImplementedError`` naming that slice,
 and their ``stats()`` keys are absent.
 """
@@ -113,6 +125,7 @@ from ..framework.random import generator
 from ..generation import _filter_logits, _select_token
 from ..generation import speculative as _spec
 from ..monitor import LatencyDigest
+from ..ops import lora as _lora
 from ..ops import paged_cache as _pc
 from ..ops.cuda_graphs import Upload as _Upload
 from ..ops.cuda_graphs import capture as _capture_graph
@@ -136,7 +149,6 @@ class QueueShedError(RuntimeError):
 _LATER = {
     "chunked_prefill": (True, "bucketed (unchunked) prefill"),
     "ragged_batch": (True, "the per-width executable path"),
-    "lora_rank": (0, "multi-LoRA serving"),
     "tp_degree": (1, "tensor-parallel serving"),
     "health": (False, "the health engine"),
     "role": ("both", "disaggregated cluster serving"),
@@ -200,10 +212,20 @@ class ServingConfig:
     shed_queue_depth: Optional[int] = None
     # default queue-wait budget of a request (None: unbounded)
     max_queue_wait_ms: Optional[float] = None
+    # batched multi-LoRA serving: lora_rank > 0 arms the adapter pool
+    # (load_adapter, submit(adapter_id=)); max_adapters rows of it stay
+    # on the device (besides the null adapter), the rest in host memory
+    lora_rank: int = 0
+    max_adapters: int = 8
+    # the delta's scale is lora_alpha / lora_rank (None: 1)
+    lora_alpha: Optional[float] = None
+    # "attn": the attention projections; "all": the MLP's too
+    lora_targets: str = "attn"
+    # int8 resident stacks (an absmax scale a matrix)
+    lora_quant: bool = False
     # -- later slices: accepted only at their off value ------------------
     chunked_prefill: bool = True
     ragged_batch: bool = True
-    lora_rank: int = 0
     tp_degree: int = 1
     health: bool = False
     role: str = "both"
@@ -228,6 +250,24 @@ class ServingConfig:
                                or ad < 0 or ad > 1):
             raise ValueError(
                 f"async_depth must be 0, 1 or None, got {ad!r}")
+        lr = self.lora_rank
+        if not isinstance(lr, int) or isinstance(lr, bool) or lr < 0:
+            raise ValueError(
+                f"lora_rank must be an int >= 0, got {lr!r}")
+        if lr > 0:
+            if int(self.max_adapters) < 1:
+                raise ValueError(
+                    f"max_adapters must be >= 1, got "
+                    f"{self.max_adapters!r}")
+            if self.lora_targets not in ("attn", "all"):
+                raise ValueError(
+                    f"lora_targets must be 'attn' or 'all', got "
+                    f"{self.lora_targets!r}")
+            if self.lora_alpha is not None \
+                    and float(self.lora_alpha) <= 0.0:
+                raise ValueError(
+                    f"lora_alpha must be > 0 (or None), got "
+                    f"{self.lora_alpha!r}")
         if ad and not self.ragged_batch:
             raise NotImplementedError(
                 "async_depth requires the ragged engine (ragged_batch="
@@ -293,15 +333,20 @@ class ServingRequest:
     # cache_len, last_token, n_emitted, history, worst_blocks, n_blocks,
     # nbytes and key (its host-tier entry, or None)
     resume: Optional[dict] = None
+    # the LoRA adapter it decodes under (None: the base model), pinned
+    # while it is seated and carried across a preemption
+    adapter_id: Optional[int] = None
 
 
 class _Slot:
     __slots__ = ("rid", "blocks", "worst_blocks", "cache_len",
                  "last_token", "n_emitted", "max_new", "prompt", "pend_pos",
-                 "history", "priority", "admit_t", "resume")
+                 "history", "priority", "admit_t", "resume", "adapter_id",
+                 "seed")
 
     def __init__(self, rid, blocks, worst_blocks, max_new, prompt,
-                 cache_len=0, history=None, priority=0):
+                 cache_len=0, history=None, priority=0, adapter_id=None,
+                 seed=None):
         self.rid = rid
         self.blocks = blocks            # allocated block ids (ordered)
         self.worst_blocks = worst_blocks
@@ -321,6 +366,8 @@ class _Slot:
         # (last_token, n_emitted) a recompute resume restores when its
         # re-prefill completes
         self.resume = None
+        self.adapter_id = adapter_id
+        self.seed = seed                # its prefix hashes' seed
 
 
 class _Layout(NamedTuple):
@@ -331,8 +378,9 @@ class _Layout(NamedTuple):
     rows: int           # packed query rows R (the static width if mixed)
     w_max: int          # rows of the widest slot (the static bound if mixed)
     srows: int          # per-slot rows: base, q_lens, row_starts,
-    #                     last_rows (+ tree flags) (+ the draft's prime
-    #                     lengths) (+ the carry's budget)
+    #                     last_rows (+ tree flags) (+ LoRA stack rows)
+    #                     (+ the draft's prime lengths) (+ the carry's
+    #                     budget)
     active: int         # verifying slots (0: no verify window this tick)
     pure: bool          # decode / verify rows only, packed live
     carry: bool         # writes the next tick's packs over its own
@@ -522,6 +570,23 @@ class ServingEngine:
         self._n_spec_verifies = 0       # slot verify windows
         self._n_spec_emitted = 0
 
+        # -- multi-LoRA ----------------------------------------------------
+        # each slot's resident stack row (0: the null adapter), one more
+        # per-slot row of the tick's vector
+        self._slot_adapter = np.zeros(cfg.num_slots, np.int64)
+        self._lora = None
+        if cfg.lora_rank > 0:
+            specs = _lora.tag_modules(model, str(cfg.lora_targets))
+            if not specs:
+                raise NotImplementedError(
+                    "no LoRA-taggable projection layers found on this "
+                    "model (expected q/k/v/o | qkv/out projections "
+                    "named per Llama/GPT idiom)")
+            self._lora = _lora.AdapterPool(
+                specs, int(cfg.lora_rank), alpha=cfg.lora_alpha,
+                max_resident=int(cfg.max_adapters),
+                quant=bool(cfg.lora_quant), device=dev)
+
         self._bs = int(cfg.block_size)
         self._mb = _pc.blocks_for(cfg.max_model_len + gamma, self._bs)
         nb = (1 + cfg.num_slots * self._mb) if cfg.num_blocks is None \
@@ -639,6 +704,27 @@ class ServingEngine:
 
     # -- front door ----------------------------------------------------
 
+    def load_adapter(self, adapter_id, weights) -> int:
+        """Register (or hot-reload) LoRA adapter ``adapter_id`` from a
+        ``{module_name: (A, B)}`` dict: names qualified
+        (``llama.layers.0.self_attn.q_proj``) or leaf (``q_proj``, every
+        layer's), ``A [d_in, lora_rank]``, ``B [lora_rank, d_out]``. The
+        weights stay in host memory and load onto the device when a
+        request first needs them. Re-registering a resident adapter
+        rewrites its stack rows in place, after the ticks already queued:
+        requests seated under it read the new weights from the next tick
+        on. Returns the id."""
+        if self._lora is None:
+            raise ValueError(
+                "load_adapter requires a LoRA-serving engine "
+                "(ServingConfig(lora_rank=...))")
+        return self._lora.register(adapter_id, weights)
+
+    def adapter_resident(self, adapter_id) -> bool:
+        """True while the adapter holds a device stack row: a request
+        under it seats without loading it."""
+        return self._lora is not None and self._lora.resident(adapter_id)
+
     def submit(self, prompt, max_new_tokens=None, temperature=None,
                top_k=None, top_p=None, priority=0, max_queue_wait_ms=None,
                adapter_id=None) -> int:
@@ -648,12 +734,10 @@ class ServingEngine:
         (higher admits first and may preempt strictly lower classes;
         ignored without preemption); ``max_queue_wait_ms`` bounds its
         queue wait (default: the config's): still queued past it, it ends
-        with an empty result. At the config's ``shed_queue_depth``
-        ``submit`` raises :class:`QueueShedError`."""
-        if adapter_id is not None:
-            raise NotImplementedError(
-                "adapter_id comes with the multi-LoRA slice of the "
-                "PyTorch port")
+        with an empty result. ``adapter_id`` decodes the request under a
+        LoRA adapter registered by :meth:`load_adapter` (None: the base
+        model). At the config's ``shed_queue_depth`` ``submit`` raises
+        :class:`QueueShedError`."""
         if self._shed_depth is not None \
                 and len(self._queue) >= int(self._shed_depth):
             self._n_shed += 1
@@ -698,6 +782,17 @@ class ServingEngine:
             raise ValueError(
                 f"max_queue_wait_ms must be > 0 (or None), got "
                 f"{max_queue_wait_ms}")
+        if adapter_id is not None:
+            if self._lora is None:
+                raise ValueError(
+                    "adapter_id requires a LoRA-serving engine "
+                    "(ServingConfig(lora_rank=...)); this engine serves "
+                    "the base model only")
+            adapter_id = int(adapter_id)
+            if not self._lora.known(adapter_id):
+                raise ValueError(
+                    f"unknown adapter_id {adapter_id}: register it with "
+                    "load_adapter() before submitting against it")
         rid = self._next_rid
         self._next_rid += 1
         req = ServingRequest(
@@ -707,7 +802,7 @@ class ServingEngine:
             top_p=None if top_p is None else float(top_p),
             priority=int(priority),
             max_queue_wait_ms=None if max_queue_wait_ms is None
-            else float(max_queue_wait_ms))
+            else float(max_queue_wait_ms), adapter_id=adapter_id)
         self._queue.append(req)
         self._submit_t[rid] = req.submit_time
         return rid
@@ -893,6 +988,14 @@ class ServingEngine:
             "requests_shed": self._n_shed,
             "requests_timed_out": self._n_timeout,
             "requests_cancelled": self._n_cancelled,
+            # the multi-LoRA keys, present (False / 0) without it
+            "lora_enabled": self._lora is not None,
+            "lora_adapters_resident": self._lora.n_resident
+            if self._lora is not None else 0,
+            "lora_adapter_swaps": self._lora.swaps
+            if self._lora is not None else 0,
+            "lora_host_tier_bytes": self._lora.host_tier_bytes
+            if self._lora is not None else 0,
         }
         if self._gamma:
             out.update({
@@ -1009,6 +1112,8 @@ class ServingEngine:
             flags = np.zeros(n_slots, np.int64)
             flags[active] = 1           # prefill rows keep the linear bound
             srows.append(flags)
+        if self._lora is not None:
+            srows.append(self._slot_adapter)
         if mixed and self._draft is not None:
             # the draft model's prime lengths: the prefill rows only
             prime = np.zeros(n_slots, np.int64)
@@ -1187,7 +1292,12 @@ class ServingEngine:
         if self._moe:
             _moe.MOE_STATS["grouped_mm_kernel"] = None
         heads_on = bool(a) and self._heads is not None
-        with tap, mask, scope:
+        # each packed row takes its slot's adapter row (pad rows slot 0's)
+        lora = contextlib.nullcontext() if self._lora is None else \
+            _lora.serving_lora_scope(
+                self._lora.operand(), slots[4 + tree_on][rows[1].long()],
+                self._lora.scaling)
+        with tap, mask, scope, lora:
             logits, self._pools = self.model(
                 rows[0], caches=self._pools, block_tables=self._tables_dev,
                 cache_lens=slots[0], ragged_meta=meta, last_rows=take,
@@ -1254,7 +1364,9 @@ class ServingEngine:
         in-executable carry): each live slot's token at its length + 1,
         its budget less one; a slot done by EOS or by its budget parks its
         row at the overflow position, so a pipelined tick's K/V write for
-        it goes to the null block and its token is dropped at commit."""
+        it goes to the null block and its token is dropped at commit. The
+        other per-slot rows (a LoRA engine's stack rows among them) carry
+        over unchanged."""
         r, n_slots = lay.rows, self.config.num_slots
         base, q_lens, budget = (slots[0].long(), slots[1].long(),
                                 slots[-1].long())
@@ -1621,7 +1733,9 @@ class ServingEngine:
         and its blocks can be had, preempting strictly lower classes for
         them when preemption is on. A fresh request maps its longest
         published prefix and prefills the rest; a preempted one resumes
-        (:meth:`_seat_resume`)."""
+        (:meth:`_seat_resume`). A request under a LoRA adapter pins its
+        stack row first, and waits queued while every row is pinned by
+        other adapters."""
         self._expire_queue()
         while self._queue:
             req = self._queue[self._pick_next_idx()]
@@ -1637,15 +1751,22 @@ class ServingEngine:
                 free = [v]
             if not self._admission_fits(req):
                 break
+            lrow = 0
+            if self._lora is not None and req.adapter_id is not None:
+                lrow = self._lora.acquire(req.adapter_id)
+                if lrow is None:
+                    break
             # by identity: a preemption above put its victim at the front
             self._queue.remove(req)
             i = free[0]
+            self._slot_adapter[i] = lrow
+            seed = self._prefix_seed(req.adapter_id)
             if req.resume is not None:
-                self._seat_resume(i, req)
+                self._seat_resume(i, req, seed)
                 continue
             n_real = int(req.prompt.size)
             worst = self._worst_for(n_real, req.max_new_tokens)
-            blocks, cached = self._map_prefix(req.prompt, n_real)
+            blocks, cached = self._map_prefix(req.prompt, n_real, seed)
             self._reserved += worst - len(blocks)
             self._tables[i, :] = 0
             self._tables[i, :len(blocks)] = blocks
@@ -1653,7 +1774,8 @@ class ServingEngine:
             self._results[req.request_id] = []
             self._slots[i] = _Slot(req.request_id, blocks, worst,
                                    req.max_new_tokens, req.prompt,
-                                   cache_len=cached, priority=req.priority)
+                                   cache_len=cached, priority=req.priority,
+                                   adapter_id=req.adapter_id, seed=seed)
             self._set_slot_samp(i, req)
             # a full-prompt hit recomputes the last prompt row into a
             # shared block: copy it first
@@ -1795,16 +1917,17 @@ class ServingEngine:
             temperature=float(samp_row[0]) if knob else None,
             top_k=int(samp_row[1]) if knob else None,
             top_p=float(samp_row[2]) if knob else None,
-            priority=int(slot.priority), resume=resume)
+            priority=int(slot.priority), resume=resume,
+            adapter_id=slot.adapter_id)
         self._queue.appendleft(req)
         self._n_preempt += 1
 
-    def _seat_resume(self, i, req):
+    def _seat_resume(self, i, req, seed):
         """Seat a preempted request in slot ``i`` where it stopped. Swap:
         import its spilled bytes into fresh blocks and decode at once.
-        Recompute: map its published prefix and re-prefill the rest of
-        its context; :meth:`_finish_prefill` then restores the
-        continuation instead of emitting."""
+        Recompute: map its published prefix (under the prefix ``seed``)
+        and re-prefill the rest of its context; :meth:`_finish_prefill`
+        then restores the continuation instead of emitting."""
         r = req.resume
         rid = req.request_id
         n_ctx = int(r["cache_len"])
@@ -1823,7 +1946,8 @@ class ServingEngine:
             self._n_swap_resumes += 1
             slot = _Slot(rid, blocks, int(r["worst_blocks"]),
                          int(req.max_new_tokens), ctx, cache_len=n_ctx,
-                         history=r["history"], priority=req.priority)
+                         history=r["history"], priority=req.priority,
+                         adapter_id=req.adapter_id, seed=seed)
             slot.pend_pos = None
             slot.last_token = int(r["last_token"])
             slot.n_emitted = int(r["n_emitted"])
@@ -1832,10 +1956,11 @@ class ServingEngine:
                 # a payload that will never be imported
                 self._host_tier.pop(r["key"], restore=False)
             self._n_recompute_resumes += 1
-            blocks, cached = self._map_prefix(ctx, n_ctx)
+            blocks, cached = self._map_prefix(ctx, n_ctx, seed)
             slot = _Slot(rid, blocks, int(r["worst_blocks"]),
                          int(req.max_new_tokens), ctx, cache_len=cached,
-                         history=r["history"], priority=req.priority)
+                         history=r["history"], priority=req.priority,
+                         adapter_id=req.adapter_id, seed=seed)
             slot.resume = (int(r["last_token"]), int(r["n_emitted"]))
         self._reserved += int(r["worst_blocks"]) - len(blocks)
         self._tables[i, :] = 0
@@ -1924,17 +2049,31 @@ class ServingEngine:
         self._prefill_rows_s = rps if not self._prefill_rows_s \
             else 0.7 * self._prefill_rows_s + 0.3 * rps
 
-    def _map_prefix(self, prompt, n_real):
+    def _prefix_seed(self, adapter_id):
+        """The prefix cache's hash seed of a request: the model's
+        fingerprint for a base request, as the reference's; under a LoRA
+        adapter one that also names the adapter and the generation of its
+        weights (:func:`~paddle_tpu_torch.ops.lora.prefix_seed`), so no
+        block is reused across adapters or across a hot reload. The
+        reference seeds every request by the model alone (a fault: its
+        adapters' K/V differ)."""
+        if adapter_id is None:
+            return self._fp
+        return _lora.prefix_seed(self._fp, adapter_id,
+                                 self._lora.generation(adapter_id))
+
+    def _map_prefix(self, prompt, n_real, seed):
         """Map the longest published prefix of ``prompt`` (its leading
-        full blocks whose chain hashes hit the index, or the host tier)
-        into a block list, then allocate fresh blocks for the rest.
+        full blocks whose chain hashes from ``seed`` hit the index, or the
+        host tier) into a block list, then allocate fresh blocks for the
+        rest.
         Returns ``(blocks, cached_tokens)``; on a full-prompt hit the last
         prompt token is recomputed (its logits give the next token), so
         ``cached_tokens`` is ``n_real - 1``."""
         init = _pc.blocks_for(n_real, self._bs)
         matched = []
         if self._prefix_on:
-            for h in _pc.prompt_block_hashes(self._fp, prompt, self._bs):
+            for h in _pc.prompt_block_hashes(seed, prompt, self._bs):
                 b = self._alloc.lookup(h)
                 if b is not None:
                     matched.append(self._alloc.ref(b))
@@ -1975,12 +2114,12 @@ class ServingEngine:
     def _publish(self, slot):
         """Publish ``slot``'s full blocks under the chain hashes of the
         tokens its cache holds (position p holds ``history[p]`` for p <
-        ``cache_len``)."""
+        ``cache_len``), from the seed it was admitted with."""
         if not self._prefix_on or slot.cache_len < self._bs:
             return
         n_full = min(len(slot.blocks), slot.cache_len // self._bs)
         for b, h in zip(slot.blocks[:n_full], _pc.chain_hashes(
-                self._fp, slot.history[:n_full * self._bs], self._bs)):
+                slot.seed, slot.history[:n_full * self._bs], self._bs)):
             self._alloc.publish(b, h)
 
     def _ensure_blocks(self, active, horizon=1):
@@ -2055,11 +2194,16 @@ class ServingEngine:
             self._retire(i)
 
     def _vacate(self, i):
-        """Empty slot ``i``: its blocks back to the allocator (published
-        ones park in the LRU cache), its reservation, table row, sampling
-        knobs and head drafts cleared. Returns the slot."""
+        """Empty slot ``i`` (retire, cancel, preemption): its blocks back
+        to the allocator (published ones park in the LRU cache), its
+        reservation, table row, sampling knobs and head drafts cleared,
+        its LoRA adapter unpinned (it stays resident, an eviction
+        candidate). Returns the slot."""
         slot = self._slots[i]
         self._slot_props.pop(i, None)
+        self._slot_adapter[i] = 0
+        if slot.adapter_id is not None:
+            self._lora.release(slot.adapter_id)
         self._alloc.free(slot.blocks)
         self._reserved -= slot.worst_blocks - len(slot.blocks)
         self._tables[i, :] = 0

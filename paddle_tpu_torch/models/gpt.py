@@ -61,6 +61,7 @@ from ..framework.random import generator as make_generator
 from ..generation import GenerationMixin
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn.functional import gelu
+from ..ops import lora as _lora
 from ..ops import paged_attention as _pa
 from ..ops import paged_cache as _pc
 from ..ops.flash_attention import flash_attention_core
@@ -191,21 +192,36 @@ class GPTDecoderLayer(nn.Module):
         the q/k/v projection (K3a ``kind="ln"``, its bias in the
         epilogue), the output projection + residual (K3b), LayerNorm into
         the first MLP linear (K3a) and tanh-gelu into the second + residual
-        (K3b ``act="gelu_tanh"``); attention through K2r."""
+        (K3b ``act="gelu_tanh"``); attention through K2r. Under multi-LoRA
+        serving it composes per module, as Llama's layer does: an armed
+        qkv_proj or linear1 adds its delta off the LayerNorm recomputed,
+        an armed out_proj or linear2 runs the module call and the
+        residual instead of K3b (eval dropout is inert)."""
         attn = self.attn
         (qkv,) = _df.norm_matmul(x, self.ln_1.weight, self.ln_1.bias,
                                  [attn.qkv_proj.weight],
                                  [attn.qkv_proj.bias],
                                  eps=self.ln_1._epsilon, kind="ln")
+        if _lora.armed(attn.qkv_proj):
+            qkv = _lora.apply(attn.qkv_proj, self.ln_1(x), qkv)
         ctx, cache = attn.attend(qkv, kv_cache, None, block_tables,
                                  cache_lens, ragged_meta)
-        x2 = _df.matmul_residual([ctx], attn.out_proj.weight,
-                                 attn.out_proj.bias, x)
+        if _lora.armed(attn.out_proj):
+            x2 = x + attn.out_proj(ctx)
+        else:
+            x2 = _df.matmul_residual([ctx], attn.out_proj.weight,
+                                     attn.out_proj.bias, x)
         (g,) = _df.norm_matmul(x2, self.ln_2.weight, self.ln_2.bias,
                                [self.linear1.weight], [self.linear1.bias],
                                eps=self.ln_2._epsilon, kind="ln")
-        out = _df.matmul_residual([g], self.linear2.weight,
-                                  self.linear2.bias, x2, act="gelu_tanh")
+        if _lora.armed(self.linear1):
+            g = _lora.apply(self.linear1, self.ln_2(x2), g)
+        if _lora.armed(self.linear2):
+            out = x2 + self.linear2(gelu(g, approximate=True))
+        else:
+            out = _df.matmul_residual([g], self.linear2.weight,
+                                      self.linear2.bias, x2,
+                                      act="gelu_tanh")
         return out, cache
 
     def forward(self, x, kv_cache=None, offset=None, block_tables=None,

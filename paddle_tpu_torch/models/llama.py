@@ -48,6 +48,7 @@ from ..generation import GenerationMixin
 from ..incubate.nn.functional import (apply_rope, rope_rotate, rope_tables,
                                       swiglu)
 from ..nn import Embedding, Linear, RMSNorm
+from ..ops import lora as _lora
 from ..ops import paged_attention as _pa
 from ..ops import paged_cache as _pc
 from ..ops.flash_attention import flash_attention_core
@@ -298,25 +299,46 @@ class LlamaDecoderLayer(nn.Module):
                              block_tables, cache_lens, ragged_meta):
         """The fused decode tick of the reference's
         ``_forward_decode_fused``: four fusion boundaries per layer, each
-        projection's bias (Qwen2's q/k/v) in its kernel's epilogue."""
+        projection's bias (Qwen2's q/k/v) in its kernel's epilogue. Under
+        multi-LoRA serving the layer composes per module, as the
+        reference's: an armed q/k/v or gate/up projection keeps its fused
+        prologue and adds its delta off the norm recomputed (the module
+        path's input); an armed o_proj or down_proj runs the module call
+        and the residual instead of K3b."""
         attn, mlp = self.self_attn, self.mlp
         q, k, v = _df.norm_matmul(
             h, self.input_layernorm.weight, None,
             [attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight],
             [attn.q_proj.bias, attn.k_proj.bias, attn.v_proj.bias],
             eps=self.input_layernorm._epsilon, kind="rms")
+        if _lora.armed(attn.q_proj) or _lora.armed(attn.k_proj) \
+                or _lora.armed(attn.v_proj):
+            hn = self.input_layernorm(h)
+            q = _lora.apply(attn.q_proj, hn, q)
+            k = _lora.apply(attn.k_proj, hn, k)
+            v = _lora.apply(attn.v_proj, hn, v)
         ctx, cache = attn.attend_ragged(q, k, v, rope_cos, rope_sin,
                                         kv_cache, block_tables, cache_lens,
                                         ragged_meta)
-        h = _df.matmul_residual([ctx], attn.o_proj.weight, attn.o_proj.bias,
-                                h)
+        if _lora.armed(attn.o_proj):
+            h = h + attn.o_proj(ctx)
+        else:
+            h = _df.matmul_residual([ctx], attn.o_proj.weight,
+                                    attn.o_proj.bias, h)
         g, u = _df.norm_matmul(
             h, self.post_attention_layernorm.weight, None,
             [mlp.gate_proj.weight, mlp.up_proj.weight],
             [mlp.gate_proj.bias, mlp.up_proj.bias],
             eps=self.post_attention_layernorm._epsilon, kind="rms")
-        out = _df.matmul_residual([g, u], mlp.down_proj.weight,
-                                  mlp.down_proj.bias, h, act="swiglu")
+        if _lora.armed(mlp.gate_proj) or _lora.armed(mlp.up_proj):
+            hn2 = self.post_attention_layernorm(h)
+            g = _lora.apply(mlp.gate_proj, hn2, g)
+            u = _lora.apply(mlp.up_proj, hn2, u)
+        if _lora.armed(mlp.down_proj):
+            out = h + mlp.down_proj(swiglu(g, u))
+        else:
+            out = _df.matmul_residual([g, u], mlp.down_proj.weight,
+                                      mlp.down_proj.bias, h, act="swiglu")
         return out, cache
 
     def make_mlp(self, config, layer_idx, device, dtype):

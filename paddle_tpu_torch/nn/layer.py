@@ -6,13 +6,17 @@ packages without transposes. Parameters are allocated uninitialised (a
 norm's: ones, and zeros for LayerNorm's bias) on the given device
 (default: cuda; ``device="cpu"`` asks for the CPU) and are trainable;
 the model that owns them initialises them from an explicit
-generator."""
+generator. ``Linear.forward`` ends in the multi-LoRA hook
+(:func:`paddle_tpu_torch.ops.lora.apply`, the reference's call at the end
+of its ``mp_layers`` forwards), a no-op unless the module is tagged and a
+serving tick's scope is active."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ..framework.place import resolve_device
+from ..ops import lora as _lora
 from .functional import dropout, layer_norm, rms_norm
 
 __all__ = ["Linear", "Embedding", "RMSNorm", "LayerNorm", "Dropout"]
@@ -34,7 +38,9 @@ class Linear(nn.Module):
 
     def forward(self, x):
         y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        if self.bias is not None:
+            y = y + self.bias
+        return _lora.apply(self, x, y)
 
 
 class Embedding(nn.Module):

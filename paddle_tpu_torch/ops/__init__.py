@@ -1,3 +1,4 @@
-from . import flash_attention, kernels, paged_attention, paged_cache
+from . import flash_attention, kernels, lora, paged_attention, paged_cache
 
-__all__ = ["flash_attention", "kernels", "paged_attention", "paged_cache"]
+__all__ = ["flash_attention", "kernels", "lora", "paged_attention",
+           "paged_cache"]

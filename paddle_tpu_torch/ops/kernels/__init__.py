@@ -47,7 +47,7 @@ launch_counts = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
                  "moe_gather_gmm_swiglu": 0, "moe_scatter_gmm": 0,
                  "moe_gmm": 0, "moe_gmm_t": 0, "moe_scatter_gmm_t": 0,
                  "moe_tgmm": 0, "flashmask_fwd": 0, "flashmask_dq": 0,
-                 "flashmask_dkv": 0}
+                 "flashmask_dkv": 0, "lora_gmm": 0, "lora_scatter_gmm": 0}
 
 
 _HOLD = []      # the lists hold_scratch collects into

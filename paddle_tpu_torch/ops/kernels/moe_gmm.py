@@ -189,10 +189,10 @@ def _check_sizes(k, n, e, tensors):
 
 
 def _launch(mode, x, src_rows, rhs, group_sizes, dst_rows, out_dtype,
-            transpose_rhs=False):
+            transpose_rhs=False, count=None):
     """Check what the kernel takes, launch ``mode`` ("gmm", "swiglu" or
     "scatter", plain or with ``rhs [e, N, K]`` transposed) and bump its
-    launch count."""
+    launch count (``count``, or the mode's own)."""
     _check_args([("x", x), ("rhs", rhs), ("group_sizes", group_sizes),
                  ("src_rows", src_rows), ("dst_rows", dst_rows)], x)
     if out_dtype not in (None, x.dtype):
@@ -241,24 +241,25 @@ def _launch(mode, x, src_rows, rhs, group_sizes, dst_rows, out_dtype,
     if rc != 0:
         raise RuntimeError(f"moe_gmm kernel ({mode}, transpose_rhs="
                            f"{transpose_rhs}) launch failed (cudaError {rc})")
-    launch_counts[_COUNTER[mode, bool(transpose_rhs)]] += 1
+    launch_counts[count or _COUNTER[mode, bool(transpose_rhs)]] += 1
     return out
 
 
 @no_backward("moe_gmm (K4 gather / K5 gmm)")
 def gather_gmm(x, src_rows, rhs, group_sizes, *, tiling=None,
-               transpose_rhs=False, out_dtype=None):
+               transpose_rhs=False, out_dtype=None, count=None):
     """Grouped matmul with the gather on read: ``out[r] = x[src_rows[r]]
     @ rhs[group(r)]``; ``src_rows=None`` takes ``x`` as the sorted rows
     (K5's gmm). ``x [s, K]``, ``src_rows [m]`` int32, ``rhs [e, K, N]``
     (``[e, N, K]`` with ``transpose_rhs``), ``group_sizes [e]`` int32 ->
-    ``[m, N]``. Counted as ``moe_gmm`` (``moe_gmm_t`` transposed)."""
+    ``[m, N]``. Counted as ``moe_gmm`` (``moe_gmm_t`` transposed), or as
+    ``count`` (the LoRA delta's ``lora_gmm``)."""
     if x.device.type == "cpu":
         return plain_gather_gmm(x, src_rows, rhs, group_sizes,
                                 out_dtype=out_dtype,
                                 transpose_rhs=transpose_rhs)
     return _launch("gmm", x, src_rows, rhs, group_sizes, None, out_dtype,
-                   transpose_rhs)
+                   transpose_rhs, count)
 
 
 @no_backward("moe_gather_gmm_swiglu (K4)")
@@ -276,18 +277,19 @@ def gather_gmm_swiglu(x, src_rows, gate_up, group_sizes, *, tiling=None,
 
 @no_backward("moe_scatter_gmm (K4)")
 def scatter_gmm(x, rhs, group_sizes, dst_rows, *, tiling=None,
-                transpose_rhs=False, out_dtype=None):
+                transpose_rhs=False, out_dtype=None, count=None):
     """Second expert matmul with the combine's unsort as its store:
     ``out[dst_rows[r]] = x[r] @ rhs[group(r)]``, ``x [m, K]`` -> ``[m,
     N]``; ``transpose_rhs`` takes ``rhs [e, N, K]`` (the backward's
     d(x) of the first matmul). Counted as ``moe_scatter_gmm``
-    (``moe_scatter_gmm_t`` transposed)."""
+    (``moe_scatter_gmm_t`` transposed), or as ``count`` (the LoRA
+    delta's ``lora_scatter_gmm``)."""
     if x.device.type == "cpu":
         return plain_scatter_gmm(x, rhs, group_sizes, dst_rows,
                                  out_dtype=out_dtype,
                                  transpose_rhs=transpose_rhs)
     return _launch("scatter", x, None, rhs, group_sizes, dst_rows,
-                   out_dtype, transpose_rhs)
+                   out_dtype, transpose_rhs, count)
 
 
 @no_backward("moe_tgmm (K5 tgmm)")

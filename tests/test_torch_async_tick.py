@@ -97,22 +97,39 @@ def _prompts(vocab=128, lens=(9, 5, 12), seed=0):
     return [rng.randint(1, vocab, (n,)).astype(np.int64) for n in lens]
 
 
-def _serve_ref(model, prompts, depth, max_new=8, **kw):
-    eng = JaxServingEngine(model, JaxServingConfig(
-        **CORE, **REF_OFF, async_depth=depth, **kw))
-    out = eng.serve([p.copy() for p in prompts], max_new_tokens=max_new)
+def _lora_weights():
+    """The reference's ``test_parity_lora`` adapter: q_proj and o_proj
+    (square on the kv_heads=2 tiny), N(0, 0.3) at rank 4."""
+    rng = np.random.RandomState(101)
+    return {n: (rng.normal(0, 0.3, (64, 4)).astype(np.float32),
+                rng.normal(0, 0.3, (4, 64)).astype(np.float32))
+            for n in ("q_proj", "o_proj")}
+
+
+def _serve_on(eng, prompts, max_new):
+    """Serve ``prompts``; a LoRA engine loads adapter 1 and serves them
+    under adapters (1, None, 1), as the reference's ``test_parity_lora``."""
+    aids = [None] * len(prompts)
+    if eng.stats()["lora_enabled"]:
+        eng.load_adapter(1, _lora_weights())
+        aids = [(1, None, 1)[k % 3] for k in range(len(prompts))]
+    rids = [eng.submit(p.copy(), max_new, adapter_id=a)
+            for p, a in zip(prompts, aids)]
+    done = eng.run()
     st = eng.stats()
-    eng.shutdown()
-    return out, st
+    assert eng.shutdown()
+    return [done[r] for r in rids], st
+
+
+def _serve_ref(model, prompts, depth, max_new=8, **kw):
+    return _serve_on(JaxServingEngine(model, JaxServingConfig(
+        **CORE, **REF_OFF, async_depth=depth, **kw)), prompts, max_new)
 
 
 def _serve(model, prompts, depth, max_new=8, **kw):
-    eng = ServingEngine(model, ServingConfig(
-        **dict(CORE, **PORT_OFF, **kw), async_depth=depth), device="cpu")
-    out = eng.serve([p.copy() for p in prompts], max_new_tokens=max_new)
-    st = eng.stats()
-    assert eng.shutdown()
-    return out, st
+    return _serve_on(ServingEngine(model, ServingConfig(
+        **dict(CORE, **PORT_OFF, **kw), async_depth=depth), device="cpu"),
+        prompts, max_new)
 
 
 def _assert_equal(a, b, tag):
@@ -128,7 +145,9 @@ CASES = {"llama": ("llama", {}),
          "llama_tree": ("llama", dict(num_speculative_tokens=2,
                                       spec_tree=(0, 1))),
          "gpt": ("gpt", {}),
-         "deepseek_moe": ("moe", {})}
+         "deepseek_moe": ("moe", {}),
+         # the per-slot adapter row rides the carry unchanged
+         "llama_lora": ("llama", dict(lora_rank=4, max_adapters=2))}
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -23,7 +23,10 @@ resume's import read the blocks those wrote in place, and prefix-hit
 ticks replay graphs already captured. ``generate()``'s paged, n-gram,
 self-drafted and tree runs, greedy and sampling, replay their steps from
 graphs and equal the eager steps (the model's ``cuda_graphs`` off) bit
-for bit."""
+for bit. A LoRA engine's replays equal its eager ticks across a hot
+reload mid-run, adapter churn through two resident rows captures no graph
+(as many as a LoRA-off engine on the same traffic), and a reload between
+two runs is read by the second run's replays."""
 from unittest import mock
 
 import numpy as np
@@ -372,3 +375,105 @@ def test_generate_eos_graph_equals_eager(cuda):
     assert got[0][2] == got[1][2]
     first = int(torch.argmax((got[0][0][0] == eos).int()))
     assert first <= 3 and (got[0][0][0, first + 1:] == eos).all()
+
+
+LORA_ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
+LORA_ALL = LORA_ATTN + ("gate_proj", "up_proj", "down_proj")
+
+
+def _lora_weights(model, aid, names=LORA_ATTN, rank=4):
+    """Adapter ``aid``'s leaf-name weights at ``model``'s widths, N(0,
+    0.3), for the target modules ``names``."""
+    widths = {q.rsplit(".", 1)[-1]: tuple(m.weight.shape)
+              for q, m in model.named_modules()
+              if q.rsplit(".", 1)[-1] in names}
+    rng = np.random.RandomState(100 + aid)
+    return {n: (rng.normal(0, 0.3, (d, rank)).astype(np.float32),
+                rng.normal(0, 0.3, (rank, o)).astype(np.float32))
+            for n, (d, o) in widths.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("targets", ["attn", "all"])
+def test_lora_replay_equals_eager_tick(cuda, targets):
+    """A LoRA engine's ticks (adapters 1 and 2 and base riders, rank 4 in
+    stacks of 8) replayed from graphs equal the eager ticks bit for bit,
+    across a hot reload of adapter 1 mid-run: the replays read the rows
+    the reload wrote in place."""
+    model = _model("bfloat16")
+    names = LORA_ATTN if targets == "attn" else LORA_ALL
+    weights = {aid: _lora_weights(model, aid, names) for aid in (1, 2)}
+
+    def reload(e, tick):
+        if tick == 7:
+            e.load_adapter(1, weights[2])
+    st = graph_lockstep(
+        torch, kernels, ServingEngine, model,
+        ServingConfig(**CORE, lora_rank=4, max_adapters=2,
+                      lora_targets=targets),
+        _prompts(model.config.vocab_size), 12, f"lora {targets}",
+        adapters=(weights, (1, None, 2, 1, 2)), on_tick=reload)
+    assert st["lora_adapters_resident"] == 2
+    assert st["kernel_launches"]["lora_gmm"] > 0
+
+
+@pytest.mark.gpu
+def test_lora_churn_captures_no_graph(cuda):
+    """Four adapters through two resident rows: a second wave of the same
+    prompts under adapters 3 and 4 swaps both rows and captures no graph;
+    a LoRA-off engine on the same traffic captures as many."""
+    model = _model("bfloat16")
+    prompts = _prompts(model.config.vocab_size)
+    eng = ServingEngine(model, ServingConfig(**CORE, lora_rank=4,
+                                             max_adapters=2))
+    base = ServingEngine(model, ServingConfig(**CORE))
+    for aid in (1, 2, 3, 4):
+        eng.load_adapter(aid, _lora_weights(model, aid))
+    graphs = []
+    for wave in ((1, 2, None), (3, 4, None)):
+        for e in (eng, base):
+            e.purge_published()
+            for k, p in enumerate(prompts):
+                e.submit(p, 10, adapter_id=wave[k % 3] if e is eng
+                         else None)
+            e.run()
+        graphs.append((eng.stats()["executables_compiled"],
+                       base.stats()["executables_compiled"]))
+    assert graphs[0][0] >= 1 and graphs[0] == graphs[1] \
+        and graphs[0][0] == graphs[0][1]
+    assert eng.stats()["lora_adapter_swaps"] >= 2
+    eng.shutdown()
+    base.shutdown()
+
+
+@pytest.mark.gpu
+def test_lora_hot_reload_is_read_by_the_replays(cuda):
+    """A resident adapter reloaded between two runs of one request: the
+    second run replays the graphs the first captured, its tokens differ
+    from the first's and equal an eager engine's under the new weights."""
+    model = _model("bfloat16")
+    (p,) = _prompts(model.config.vocab_size, lens=(40,))
+    new = _lora_weights(model, 9)
+
+    def engine(graphs):
+        e = ServingEngine(model, ServingConfig(**CORE, lora_rank=4))
+        e.cuda_graphs = graphs
+        e.load_adapter(1, _lora_weights(model, 1))
+        return e
+
+    eng = engine(True)
+    rid = eng.submit(p, 12, adapter_id=1)
+    first = eng.run()[rid]
+    n = eng.stats()["executables_compiled"]
+    assert eng.adapter_resident(1)
+    eng.load_adapter(1, new)
+    rid = eng.submit(p, 12, adapter_id=1)
+    second = eng.run()[rid]
+    assert eng.stats()["executables_compiled"] == n
+    eager = engine(False)
+    eager.load_adapter(1, new)
+    rid = eager.submit(p, 12, adapter_id=1)
+    np.testing.assert_array_equal(second, eager.run()[rid])
+    assert not np.array_equal(first, second)
+    eng.shutdown()
+    eager.shutdown()

@@ -40,13 +40,20 @@ hi + lo halves, at head_dim 64 and 128, linear and tree, at GPT's tick
 and generate() shapes: held against the plain versions at 2e-2, against
 the float32 kernels on the widened query with the output rounded (within
 one bfloat16 ulp, under 2 % of outputs differing), and to the bit
-between two calls."""
+between two calls. K4's float32 gather and scatter modes as the LoRA
+delta calls them (a tick's rows of Llama-3-8B's width over 9 adapter
+groups at rank 16; every row in the null group, a group of one row, rank
+4 in stacks padded to 8) are held against their plain versions and the
+reference's einsum, count as the LoRA launches, give an exact-zero null
+delta and the same delta to the bit for a row with or without the
+others, and raise where K4 cannot take the shapes."""
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import lora
 from paddle_tpu_torch.ops import paged_cache as tpc
 from paddle_tpu_torch.ops.kernels import decode_fused as df
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -1896,3 +1903,85 @@ def test_sm90_blocks_per_sm_is_the_compiled_one(cuda):
             assert fn(code, int8, d) == rpa.sm90_blocks_per_sm(code, d), \
                 (code, int8, d)
     assert fn(rpa.F32_POOL, 1, 64) == 0 and fn(0, 0, 64) == 0
+
+
+# the LoRA delta's K4 calls (float32, ops/lora.py): a tick's packed rows at
+# Llama-3-8B's width over max_adapters + 1 = 9 groups, rank 16, to q's 4096
+# and k's 1024 columns; edges: every row in the null group, a group of one
+# row, rank 4 in stacks padded to 8
+_LORA_USED = (0, 1, 3, 5, 8)
+
+
+def _lora_case(kind, rows, d, rank, out, dev, groups=9, seed=0):
+    """Packed rows, each row's stack row, and stacks as the adapter pool
+    holds them (row 0 and the padded rank zero)."""
+    rng = np.random.RandomState(seed)
+    if kind == "null":
+        ra = np.zeros(rows, np.int64)
+    elif kind == "single":
+        ra = rng.choice([0, 2], rows)
+        ra[rows // 2] = groups - 1
+    else:
+        ra = rng.choice(_LORA_USED, rows)
+    rp = lora.padded_rank(rank)
+    A = np.zeros((groups, d, rp), np.float32)
+    B = np.zeros((groups, rp, out), np.float32)
+    A[1:, :, :rank] = 0.05 * rng.randn(groups - 1, d, rank)
+    B[1:, :rank] = 0.05 * rng.randn(groups - 1, rank, out)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(rng.randn(rows, d).astype(np.float32)), t(ra), t(A), t(B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rows,d,rank,out", [
+    ("tick", 136, 4096, 16, 4096), ("tick", 136, 4096, 16, 1024),
+    ("tick", 8, 4096, 16, 4096), ("null", 136, 4096, 16, 4096),
+    ("single", 136, 4096, 16, 1024), ("tick", 136, 4096, 4, 4096),
+    ("tick", 40, 64, 4, 96)])
+def test_lora_delta_k4_modes(cuda, kind, rows, d, rank, out):
+    """The sort (stable order and group sizes, as numpy's), K4's gather and
+    scatter modes against their plain versions, the whole delta against
+    the reference's einsum at the unpadded rank, counted as the LoRA
+    launches (MoE's untouched); the null group's delta is exactly zero,
+    and a row's delta is the same to the bit with or without the other
+    rows (batched == solo)."""
+    x, ra, A, B = _lora_case(kind, rows, d, rank, out, cuda)
+    G = A.shape[0]
+    order, sizes = lora.sort_rows(ra, G)
+    np.testing.assert_array_equal(
+        order.cpu().numpy(), np.argsort(ra.cpu().numpy(), kind="stable"))
+    np.testing.assert_array_equal(sizes.cpu().numpy(), np.bincount(
+        ra.cpu().numpy(), minlength=G))
+    n0 = dict(launch_counts)
+    ax = mg.gather_gmm(x, order, A, sizes, count="lora_gmm")
+    ax_ref = mg.plain_gather_gmm(x, order, A, sizes)
+    _rows_close(ax, ax_ref, "float32")
+    y = mg.scatter_gmm(ax_ref, B, sizes, order, count="lora_scatter_gmm")
+    _rows_close(y, mg.plain_scatter_gmm(ax_ref, B, sizes, order), "float32")
+    delta = lora.ragged_delta(x, ra, A, B)
+    _rows_close(delta, lora.plain_ragged_delta(x, ra, A[:, :, :rank],
+                                               B[:, :rank]), "float32")
+    assert launch_counts["lora_gmm"] == n0["lora_gmm"] + 2
+    assert launch_counts["lora_scatter_gmm"] == n0["lora_scatter_gmm"] + 2
+    for name in ("moe_gmm", "moe_scatter_gmm"):
+        assert launch_counts[name] == n0[name]
+    null = (ra == 0).nonzero()[:, 0]
+    assert not delta[null].any()
+    for g in ra.unique():
+        sub = (ra == g).nonzero()[:, 0]
+        alone = lora.ragged_delta(x[sub].contiguous(), ra[sub], A, B)
+        assert torch.equal(alone, delta[sub]), int(g)
+    assert torch.equal(lora.ragged_delta(x, ra, A, B), delta)
+
+
+@pytest.mark.gpu
+def test_lora_delta_raises_where_k4_cannot_take_it(cuda):
+    """An unpadded rank off a multiple of 8 and a width off one raise on
+    the card; nothing falls back to the plain versions."""
+    x, ra, A, B = _lora_case("tick", 16, 64, 4, 96, cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        lora.ragged_delta(x, ra, A[:, :, :4].contiguous(),
+                          B[:, :4].contiguous())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        lora.ragged_delta(x[:, :60].contiguous(), ra,
+                          A[:, :60].contiguous(), B)

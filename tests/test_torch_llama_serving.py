@@ -208,7 +208,9 @@ def test_submit_validation(port_model):
     assert eng.submit([1, 2], 4, priority=1, max_queue_wait_ms=50.0) == 0
     with pytest.raises(ValueError, match="priority"):
         eng.submit([1, 2], 4, priority="high")
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    # multi-LoRA is ported: an engine without it refuses an adapter as
+    # the reference's does, naming lora_rank
+    with pytest.raises(ValueError, match="lora_rank"):
         eng.submit([1, 2], 4, adapter_id=3)
     eng.shutdown()
 
@@ -241,6 +243,13 @@ def test_later_slice_features_raise(field, value):
         assert getattr(ServingConfig(**{field: False}), field) is False
         with pytest.raises(ValueError, match="preempt_resume"):
             ServingConfig(**{field: value}, preempt_resume="maybe")
+        return
+    if field == "lora_rank":
+        # multi-LoRA is ported: the config takes a rank, and only what the
+        # reference refuses raises
+        assert ServingConfig(**{field: value}).lora_rank == value
+        with pytest.raises(ValueError, match="lora_rank"):
+            ServingConfig(lora_rank=-1)
         return
     if field == "async_depth":
         # the async pipeline is ported: the config takes depth 1, and only

@@ -520,7 +520,8 @@ def test_submit_validation_and_stats_keys(llama):
         eng.submit(np.arange(1, 9), 4, priority="high")
     with pytest.raises(ValueError, match="max_queue_wait_ms"):
         eng.submit(np.arange(1, 9), 4, max_queue_wait_ms=0)
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    # an engine without multi-LoRA refuses an adapter, naming lora_rank
+    with pytest.raises(ValueError, match="lora_rank"):
         eng.submit(np.arange(1, 9), 4, adapter_id=1)
     jst = _engine(ref, jax=True).stats()
     st = eng.stats()
