@@ -61,10 +61,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    calls them (``lora_gmm``, ``lora_scatter_gmm``) at a 136-row tick of
    d 4096 over 9 adapter groups at rank 16, to 4096 and 1024 columns,
    and at the edges (every row in the null group, a group of one row,
-   rank 4 in stacks padded to 8), against their plain versions and the
-   reference's einsum, a row's delta the same alone as in the batch,
-   timed cold beside the reference's fallback (a per-row gather of the
-   stacks and an einsum);
+   rank 4 in stacks padded to 8, the pure tick's 8 rows, 3 groups, a
+   128-row chunk in one group, rank 64 and rank 72 on either side of the
+   float32 bodies' bound; the body each call takes is logged), against
+   their plain versions and the reference's einsum, a row's delta the
+   same alone as in the batch, timed cold beside the reference's
+   fallback (a per-row gather of the stacks and an einsum);
 3. serve 10 requests (prompts of 64..1024 tokens, 32 new tokens each,
    greedy) through ``ServingEngine`` on a Llama-3-8B-width model in
    bfloat16 with seeded random weights, counting kernel launches (every
@@ -252,8 +254,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     graphs equal in number (churn captures none), swaps, the base riders'
     streams by the near-tie rule; adapter 3 reloaded while resident and
     wave 2 again (replays only: its streams move, the others stay to the
-    bit); one prompt under adapters 1-4 and none (five continuations);
-    graphed ticks equal to eager ones bit for bit across a reload mid-run;
+    bit); 4 profiled ticks of the LoRA engine and of the LoRA-off one
+    (K4's float32 bodies by name, and the LoRA tick's device ms beyond
+    the LoRA-off tick's by kernel); one prompt under adapters 1-4 and
+    none (five continuations); graphed ticks equal to eager ones bit for
+    bit across a reload mid-run;
     (a) float32 at Llama-3-8B widths, 2 layers: ``attn`` and ``all``
     targets at rank 16, rank 4, ``lora_quant``, a batch of five requests
     (adapters 1, 2, 3, base riders) equal to each request served alone,
@@ -1590,13 +1595,19 @@ def lora_routing(kind, rows, groups, used, seed):
     """Each packed row's stack row (int64, numpy): ``tick`` spreads the
     rows over the ``used`` groups (the null one among them), ``null``
     puts every row in the null group, ``single`` all but one row in the
-    null group and one row alone in the last group."""
+    null group and one row alone in the last group, ``chunk`` the last
+    128 rows (a prefill chunk) in the last group and the others over the
+    rest of ``used``."""
     rng = np.random.RandomState(seed)
     if kind == "null":
         return np.zeros(rows, np.int64)
     if kind == "single":
         ra = np.zeros(rows, np.int64)
         ra[rows // 2] = groups - 1
+        return ra
+    if kind == "chunk":
+        ra = rng.choice(np.asarray(used[:-1], np.int64), rows)
+        ra[rows - 128:] = groups - 1
         return ra
     return rng.choice(np.asarray(used, np.int64), rows)
 
@@ -1626,27 +1637,36 @@ def check_lora(torch, mg, lora):
     and row by row, at LORA_TICK's shapes (136 packed rows of d 4096, 9
     groups, rank 16, outs 4096 and 1024, rows over five groups with the
     null one) and at its edges (every row in the null group: an exact-
-    zero delta; a group of one row; rank 4 padded to 8); the whole delta
-    also against the reference's stacked-gather einsum at the unpadded
-    rank. At out 4096 (q, o) and 1024 (k, v) each mode is timed cold
-    (enough copies of the stacks, taken in turn, to fill twice the 50 MB
-    L2) with CUDA events beside its bound, its plain version and the
-    composite (the reference's fallback: a per-row gather of the stacks
-    and an einsum, in eager PyTorch); no one PyTorch call computes
-    either. Returns ``(errs, rows)``, ``rows`` at out 4096 by kernel
-    name."""
+    zero delta; a group of one row; rank 4 padded to 8; the pure tick's 8
+    rows; phase 21's 3 groups; a 128-row prefill chunk in one group; rank
+    64, the split-K and wide-scatter bodies' bound, and rank 72 past it,
+    which takes ``moe_gmm_fma``; each case logs the bodies it took); the
+    whole delta also against the reference's stacked-gather einsum at the
+    unpadded rank. At the tick (outs 4096 and 1024), the pure tick and 3
+    groups, each mode is timed cold (enough copies of the stacks, taken
+    in turn, to fill twice the 50 MB L2) with CUDA events beside its
+    bound, its plain version and the composite (the reference's
+    fallback: a per-row gather of the stacks and an einsum, in eager
+    PyTorch); no one PyTorch call computes either. Returns ``(errs,
+    rows)``, ``rows`` at the tick's out 4096 by kernel name."""
     t = LORA_TICK
-    R, d, G = t["rows"], t["d"], t["groups"]
+    R0, d, G0 = t["rows"], t["d"], t["groups"]
     g = torch.Generator(device="cuda").manual_seed(21)
     fails, rows_out = [], {}
     errs = dict.fromkeys(LORA_KERNELS, 0.0)
-    cases = [("tick", t["rank"], out) for out in t["outs"]] + [
-        ("null", t["rank"], t["outs"][0]), ("single", t["rank"], t["outs"][0]),
-        ("tick", 4, t["outs"][0])]
-    for i, (kind, rank, out) in enumerate(cases):
-        ra = torch.from_numpy(lora_routing(kind, R, G, t["used"],
-                                           21 + i)).cuda()
-        timing = kind == "tick" and rank == t["rank"]
+    # (kind, rank, out, rows, groups, timed)
+    cases = [("tick", t["rank"], out, R0, G0, True) for out in t["outs"]] + [
+        ("null", t["rank"], t["outs"][0], R0, G0, False),
+        ("single", t["rank"], t["outs"][0], R0, G0, False),
+        ("tick", 4, t["outs"][0], R0, G0, False),
+        ("tick", t["rank"], t["outs"][0], 8, G0, True),
+        ("tick", t["rank"], t["outs"][0], R0, 3, True),
+        ("chunk", t["rank"], t["outs"][0], R0, G0, False),
+        ("tick", 64, t["outs"][1], R0, G0, False),
+        ("tick", 72, t["outs"][1], R0, G0, False)]
+    for i, (kind, rank, out, R, G, timing) in enumerate(cases):
+        used = t["used"] if G == G0 else tuple(range(G))
+        ra = torch.from_numpy(lora_routing(kind, R, G, used, 21 + i)).cuda()
         rp = lora.padded_rank(rank)
         copies = max(3, -(-int(100e6) // (4 * G * rp * (d + out)))) \
             if timing else 1
@@ -1661,6 +1681,9 @@ def check_lora(torch, mg, lora):
             fails.append(f"lora sort {kind}")
         label = (f"{kind}: {R} rows, d {d}, rank {rank} (stacks at {rp}), "
                  f"out {out}, {G} groups")
+        log(f"  lora {label}: bodies lora_gmm "
+            f"{mg.f32_body('gmm', R, d, rp, G)}, lora_scatter_gmm "
+            f"{mg.f32_body('scatter', R, rp, out, G)}")
         n0 = dict(mg.launch_counts)
         ax = mg.gather_gmm(x, order, A, sizes, count="lora_gmm")
         ax_ref = mg.plain_gather_gmm(x, order, A, sizes)
@@ -1726,8 +1749,9 @@ def check_lora(torch, mg, lora):
                 f"{row['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}: "
                 f"{nbytes / 1e6:.2f} MB) composite library_ms="
                 f"{comp_ms:.4f} (the reference's fallback); share of bound "
-                f"{b_ms / row['ms']:.3f}")
-            if out == t["outs"][0]:
+                f"{b_ms / row['ms']:.3f}; {comp_ms / row['ms']:.2f}x "
+                f"faster than the composite")
+            if i == 0:
                 rows_out[name] = row
         del stacks
     torch.cuda.empty_cache()
@@ -5001,7 +5025,9 @@ def lora_bf16_phase(torch, kernels, lora, ServingEngine, ServingConfig,
     (churn captures none), its base riders' streams the LoRA-off
     engine's by the near-tie rule. Then a hot reload of resident
     adapter 3 changes its next request's tokens, replayed from the
-    graphs captured; distinct adapters decode distinct continuations of
+    graphs captured; a profile of TICK_WINDOW ticks on both engines
+    (K4's float32 bodies by name, then what else the LoRA tick spends,
+    by kernel); distinct adapters decode distinct continuations of
     one prompt; and the ticks of a LoRA engine replayed from graphs
     equal the eager ticks bit for bit (:func:`graph_lockstep`), across a
     hot reload mid-run. Returns the LoRA runs' launches."""
@@ -5100,22 +5126,41 @@ def lora_bf16_phase(torch, kernels, lora, ServingEngine, ServingConfig,
             or st["executables_compiled"] != n_graphs:
         fails.append("phase 21 (b): hot reload")
     # where a LoRA tick's time goes: wave 2's first 8 requests, 4 ticks
-    # in, TICK_WINDOW profiled ticks (K4's float32 bodies by name)
-    eng.purge_published()
-    for p, a in zip(prompts[:8], waves[2]):
-        eng.submit(p, adapter_id=a)
-    for _ in range(4):
-        eng.step()
-    by_kernel = {}
-    wall_ms, busy_ms, _ = profiled(torch, eng.step, TICK_WINDOW, 8,
-                                   by_kernel=by_kernel)
-    eng.run()
-    k4_ms = sum(v for k, v in by_kernel.items() if "moe_gmm" in k)
+    # in, TICK_WINDOW profiled ticks on the LoRA engine and on the LoRA-off
+    # one (the same composition); K4's float32 bodies by name, then what
+    # else the LoRA tick spends beyond the LoRA-off tick, by kernel
+    prof = {}
+    for name, adapters in (("lora", waves[2]), ("base", [None] * 8)):
+        e = engines[name]
+        e.purge_published()
+        for p, a in zip(prompts[:8], adapters):
+            e.submit(p, adapter_id=a)
+        for _ in range(4):
+            e.step()
+        by_kernel = {}
+        wall_ms, busy_ms, _ = profiled(torch, e.step, TICK_WINDOW, 8,
+                                       by_kernel=by_kernel)
+        e.run()
+        prof[name] = (wall_ms, busy_ms, by_kernel)
+    wall_ms, busy_ms, by_kernel = prof["lora"]
+    k4 = {body: sum(v for k, v in by_kernel.items()
+                    if "moe_gmm" in k and body in k) / TICK_WINDOW
+          for body in ("split_k", "wide_scatter", "fma")}
     log(f"phase 21 (b) profile ({card_line()}): {TICK_WINDOW} LoRA ticks, "
         f"{wall_ms / TICK_WINDOW:.3f} ms a tick, device "
         f"{busy_ms / TICK_WINDOW:.3f} ms (K4's float32 bodies "
-        f"{k4_ms / TICK_WINDOW:.3f} ms) -> idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}")
+        f"{sum(k4.values()):.3f} ms: moe_gmm_split_k {k4['split_k']:.3f}, "
+        f"moe_gmm_wide_scatter {k4['wide_scatter']:.3f}, moe_gmm_fma "
+        f"{k4['fma']:.3f}) -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}; LoRA-off "
+        f"{prof['base'][0] / TICK_WINDOW:.3f} ms a tick, device "
+        f"{prof['base'][1] / TICK_WINDOW:.3f} ms")
+    base_k = prof["base"][2]
+    extra = sorted(((v - base_k.get(k, 0.0)) / TICK_WINDOW, k)
+                   for k, v in by_kernel.items())[::-1]
+    log("phase 21 (b): device ms a tick beyond the LoRA-off tick, by "
+        "kernel: " + "; ".join(f"{ms:.3f} {k[:96]}"
+                               for ms, k in extra[:10] if ms > 0.001))
     # one prompt under each adapter and none, at once
     one = [eng.submit(prompts[1], adapter_id=a) for a in (1, 2, 3, 4, None)]
     done = eng.run()
@@ -5371,7 +5416,8 @@ def main(argv=None):
         table[name] = dict(r, max_abs_err=e10[name])
     decode_width_times(torch, df)
     for name, r in table.items():
-        log(f"  {name} [bfloat16]: ms={r['ms']:.4f} "
+        dt = "float32" if name in LORA_KERNELS else "bfloat16"
+        log(f"  {name} [{dt}]: ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={r['library_ms']}")
     log(f"  bound rates: {HBM_BYTES_PER_S / 1e12} TB/s, bf16 "

@@ -68,15 +68,26 @@
 // the last group's end are written as zeros by the last expert's
 // blocks.
 //
-// float32 runs the FMA tile of tile_gemm.cuh for every mode (two passes
-// for swiglu) and a 64 x 64 FMA tile for tgmm, on the CUDA cores, so the
-// float32 gradient check keeps full float32 products. The multi-LoRA
-// delta (ops/lora.py) runs the float32 gather mode at N = the adapter
-// rank padded to 8 and the scatter mode at K = that rank: each block
-// sums its rows' products over K in one order whatever the chunking, so
-// a row's delta does not depend on the rows batched with it. At N 16 the
-// gather mode is far off its bound (one block a group, 48 of 64 columns
-// idle, unprefetched gathered loads; PERF.md).
+// float32 takes one of three bodies on the CUDA cores, all with full
+// float32 products (the float32 gradient and LoRA checks keep them), by a
+// shape rule on the mode, K and N alone (f32_body; ptt_moe_gmm_f32_body
+// reports it):
+// - the gather or plain gmm at N <= 64 (the multi-LoRA delta's A side,
+//   ops/lora.py, N the adapter rank padded to 8): moe_gmm_split_k of
+//   moe_gmm_lora.cuh, K split in 8 slices over a thread-block cluster,
+//   the slices' partials summed in rank order through distributed shared
+//   memory;
+// - the scatter gmm at K <= 64 (the delta's B side, K that rank):
+//   moe_gmm_wide_scatter of moe_gmm_lora.cuh, one block a (16-row tile,
+//   512 columns);
+// - everything else (swiglu, the transposed modes, wider ranks, the MoE
+//   widths): moe_gmm_fma, the FMA tile of tile_gemm.cuh (two passes for
+//   swiglu), and a 64 x 64 FMA tile for tgmm.
+// Each sums a row's products in an order fixed by K and N, whatever
+// the chunking or the rows beside it, so a row's LoRA delta does not
+// depend on the rows batched with it, and two launches agree to the bit.
+// The rule never reads m or the group sizes, so a row alone and in a
+// batch take the same body.
 //
 // Shapes: x [s, K] (gathered) or [m, K]; src_rows / dst_rows [m] int32;
 // rhs [e, K, N] row-major ([e, N, K] transposed); group_sizes [e] int32,
@@ -86,6 +97,7 @@
 // K and N multiples of 8 (N / 2 for swiglu), 16-byte aligned pointers;
 // 1 <= e <= MAX_EXPERTS; any m >= 1.
 #include "mma_gemm.cuh"
+#include "moe_gmm_lora.cuh"
 #include "moe_gmm_sm90.cuh"
 #include "tile_gemm.cuh"
 
@@ -466,6 +478,18 @@ cudaError_t launch_fma(const GroupArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// the float32 bodies, as ptt_moe_gmm_f32_body reports them
+enum F32Body { F32_FMA = 0, F32_SPLIT_K = 1, F32_WIDE_SCATTER = 2 };
+
+// the float32 body of a call: a shape rule on the mode (swiglu, the
+// transposed modes, the scatter, the gather or plain gmm) and K, N alone
+int f32_body(bool swiglu, bool trans, bool scatter, int K, int N) {
+  if (swiglu || trans) return F32_FMA;
+  if (!scatter && N <= moe_lora::SPLIT_K_MAX_N) return F32_SPLIT_K;
+  if (scatter && K <= moe_lora::WIDE_MAX_K) return F32_WIDE_SCATTER;
+  return F32_FMA;
+}
+
 template <bool SWIGLU, bool TRANS>
 int run(const GroupArgs& a, int dtype, void* stream) {
   if (a.m < 1 || a.K < 1 || a.N < 1 || a.e < 1 || a.e > MAX_EXPERTS ||
@@ -475,6 +499,14 @@ int run(const GroupArgs& a, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int bm = chunk_rows(a.m, a.e);
   if (dtype == 0) {
+    const moe_lora::Args la{static_cast<const float*>(a.x), a.src,
+                            static_cast<const float*>(a.w), a.gs, a.dst,
+                            static_cast<float*>(a.out), a.m, a.K, a.N, a.e};
+    switch (f32_body(SWIGLU, TRANS, a.dst != nullptr, a.K, a.nout)) {
+      case F32_SPLIT_K: return (int)moe_lora::launch_split_k(la, st);
+      case F32_WIDE_SCATTER: return (int)moe_lora::launch_wide_scatter(la, st);
+      default: break;
+    }
     if (bm == 16) return (int)launch_fma<16, SWIGLU, TRANS>(a, st);
     if (bm == 32) return (int)launch_fma<32, SWIGLU, TRANS>(a, st);
     return (int)launch_fma<64, SWIGLU, TRANS>(a, st);
@@ -498,6 +530,16 @@ int run(const GroupArgs& a, int dtype, void* stream) {
 // the mean rows a group from which the bf16 forward modes run the Hopper
 // body
 extern "C" int ptt_moe_gmm_sm90_min_rows() { return SM90_MIN_ROWS; }
+
+// the float32 body a call takes (0 moe_gmm_fma, 1 moe_gmm_split_k, 2
+// moe_gmm_wide_scatter) for mode 0 (ptt_moe_gmm, sorted or gathered rows),
+// 1 (ptt_moe_gather_gmm_swiglu, N = 2f), 2 (ptt_moe_scatter_gmm) or 3
+// (ptt_moe_gmm_t); m and e do not enter the rule
+extern "C" int ptt_moe_gmm_f32_body(int /*m*/, int K, int N, int /*e*/,
+                                    int mode) {
+  if (mode < 0 || mode > 3) return -1;
+  return f32_body(mode == 1, mode == 3, mode == 2, K, N);
+}
 
 // K5's forward gmm (src_rows null) or the plain gather gmm: x [m or s, K],
 // rhs [e, K, N], out [m, N]

@@ -29,12 +29,20 @@ tiles). In bfloat16 the forward modes run one of two CUDA bodies by the
 mean rows a group, ``ceil(m / e)``: the ``mma.sync`` body below
 :data:`SM90_MIN_ROWS` (serving widths, bytes-bound) and the persistent
 wgmma + TMA body of ``csrc/moe_gmm_sm90.cuh`` from it on (training
-widths, operations-bound), where the backward's modes always run. CPU
-tensors take the plain versions; CUDA tensors launch the
-kernel or raise. None of these has a backward of its own: called with
-gradients enabled on an input that requires them, the output carries a
-node whose backward raises (the MoE dispatch differentiates them through
-its own autograd Functions).
+widths, operations-bound), where the backward's modes always run. In
+float32 a shape rule on the mode, K and N picks one of three CUDA-core
+bodies (:func:`f32_body`): the gather or plain gmm at ``N <=``
+:data:`F32_SPLIT_K_MAX_N` runs ``moe_gmm_split_k`` (K in 8 slices over a
+thread-block cluster: the LoRA delta's A side), the scatter at ``K <=``
+:data:`F32_WIDE_MAX_K` runs ``moe_gmm_wide_scatter`` (a 16-row tile by
+512 columns a block: its B side), everything else the FMA tile body
+``moe_gmm_fma``; each sums a row's products in an order that K and N
+fix, so a row's output does not depend on the rows launched with it
+(``csrc/moe_gmm_lora.cuh``). CPU tensors take the plain versions; CUDA
+tensors launch the kernel or raise. None of these has a backward of its
+own: called with gradients enabled on an input that requires them, the
+output carries a node whose backward raises (the MoE dispatch
+differentiates them through its own autograd Functions).
 """
 from __future__ import annotations
 
@@ -47,13 +55,20 @@ from . import _build, launch_counts, no_backward
 __all__ = ["gather_gmm", "gather_gmm_swiglu", "scatter_gmm", "tgmm",
            "plain_gather_gmm", "plain_gather_gmm_swiglu",
            "plain_scatter_gmm", "plain_tgmm", "MAX_EXPERTS",
-           "SM90_MIN_ROWS"]
+           "SM90_MIN_ROWS", "F32_SPLIT_K_MAX_N", "F32_WIDE_MAX_K",
+           "f32_body"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_EXPERTS = 1024        # the kernel's MAX_EXPERTS
 # the kernel's SM90_MIN_ROWS: mean rows a group from which the bf16
 # forward modes run the Hopper body (ptt_moe_gmm_sm90_min_rows)
 SM90_MIN_ROWS = 24
+# the float32 bodies' bounds (moe_gmm_lora.cuh's SPLIT_K_MAX_N, WIDE_MAX_K)
+F32_SPLIT_K_MAX_N = 64
+F32_WIDE_MAX_K = 64
+# ptt_moe_gmm_f32_body's codes and modes
+F32_BODIES = ("fma", "split_k", "wide_scatter")
+F32_MODES = ("gmm", "swiglu", "scatter", "transposed")
 _LIB = None
 
 
@@ -137,12 +152,23 @@ def _lib():
         lib.ptt_moe_tgmm.argtypes = [ctypes.c_void_p] * 4 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.ptt_moe_gmm_sm90_min_rows.argtypes = []
+        lib.ptt_moe_gmm_f32_body.argtypes = [ctypes.c_int] * 5
         for fn in (lib.ptt_moe_gmm, lib.ptt_moe_gather_gmm_swiglu,
                    lib.ptt_moe_scatter_gmm, lib.ptt_moe_gmm_t,
-                   lib.ptt_moe_tgmm, lib.ptt_moe_gmm_sm90_min_rows):
+                   lib.ptt_moe_tgmm, lib.ptt_moe_gmm_sm90_min_rows,
+                   lib.ptt_moe_gmm_f32_body):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def f32_body(mode, m, k, n, e):
+    """The CUDA body a float32 call of ``mode`` (one of :data:`F32_MODES`)
+    at ``m`` rows, reduction ``k``, output width ``n`` (swiglu: ``2f``)
+    and ``e`` groups takes, as the library reports it: one of
+    :data:`F32_BODIES`. Builds the library; needs no device."""
+    code = _lib().ptt_moe_gmm_f32_body(m, k, n, e, F32_MODES.index(mode))
+    return F32_BODIES[code]
 
 
 _COUNTER = {("gmm", False): "moe_gmm", ("swiglu", False):

@@ -43,10 +43,15 @@ one bfloat16 ulp, under 2 % of outputs differing), and to the bit
 between two calls. K4's float32 gather and scatter modes as the LoRA
 delta calls them (a tick's rows of Llama-3-8B's width over 9 adapter
 groups at rank 16; every row in the null group, a group of one row, rank
-4 in stacks padded to 8) are held against their plain versions and the
-reference's einsum, count as the LoRA launches, give an exact-zero null
-delta and the same delta to the bit for a row with or without the
-others, and raise where K4 cannot take the shapes."""
+4 in stacks padded to 8, a 128-row chunk in one group, 3 groups, ranks
+64 and 72 on either side of the split-K and wide-scatter bodies' bound,
+the widths of Qwen2-7B, DeepSeek-MoE and GPT, a short last K slice) are
+held against their plain versions and the reference's einsum, count as
+the LoRA launches, give an exact-zero null delta and the same delta to
+the bit for a row with or without the others, and raise where K4 cannot
+take the shapes; the library's float32 body rule is pinned on both
+sides of each bound, and two calls and a CUDA graph's replay agree to
+the bit."""
 from unittest import mock
 
 import numpy as np
@@ -1908,21 +1913,31 @@ def test_sm90_blocks_per_sm_is_the_compiled_one(cuda):
 # the LoRA delta's K4 calls (float32, ops/lora.py): a tick's packed rows at
 # Llama-3-8B's width over max_adapters + 1 = 9 groups, rank 16, to q's 4096
 # and k's 1024 columns; edges: every row in the null group, a group of one
-# row, rank 4 in stacks padded to 8
+# row, rank 4 in stacks padded to 8; the bodies' edges: one group holding
+# a 128-row prefill chunk, 3 groups (max_adapters 2), rank 64 (the split-K
+# and wide-scatter bodies' bound), rank 72 (past it: moe_gmm_fma), and the
+# widths of Qwen2-7B (3584), DeepSeek-MoE (2048) and GPT (1024), and a
+# depth of 200 whose last K slice is short (8 slices of 28: 196 + 4)
 _LORA_USED = (0, 1, 3, 5, 8)
 
 
 def _lora_case(kind, rows, d, rank, out, dev, groups=9, seed=0):
     """Packed rows, each row's stack row, and stacks as the adapter pool
-    holds them (row 0 and the padded rank zero)."""
+    holds them (row 0 and the padded rank zero). ``chunk``: a 128-row
+    prefill chunk under the last adapter, the other rows over the
+    rest."""
     rng = np.random.RandomState(seed)
+    used = _LORA_USED if groups == 9 else tuple(range(groups))
     if kind == "null":
         ra = np.zeros(rows, np.int64)
     elif kind == "single":
         ra = rng.choice([0, 2], rows)
         ra[rows // 2] = groups - 1
+    elif kind == "chunk":
+        ra = rng.choice(used[:-1], rows)
+        ra[rows - 128:] = groups - 1
     else:
-        ra = rng.choice(_LORA_USED, rows)
+        ra = rng.choice(used, rows)
     rp = lora.padded_rank(rank)
     A = np.zeros((groups, d, rp), np.float32)
     B = np.zeros((groups, rp, out), np.float32)
@@ -1933,19 +1948,23 @@ def _lora_case(kind, rows, d, rank, out, dev, groups=9, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind,rows,d,rank,out", [
-    ("tick", 136, 4096, 16, 4096), ("tick", 136, 4096, 16, 1024),
-    ("tick", 8, 4096, 16, 4096), ("null", 136, 4096, 16, 4096),
-    ("single", 136, 4096, 16, 1024), ("tick", 136, 4096, 4, 4096),
-    ("tick", 40, 64, 4, 96)])
-def test_lora_delta_k4_modes(cuda, kind, rows, d, rank, out):
+@pytest.mark.parametrize("kind,rows,d,rank,out,groups", [
+    ("tick", 136, 4096, 16, 4096, 9), ("tick", 136, 4096, 16, 1024, 9),
+    ("tick", 8, 4096, 16, 4096, 9), ("null", 136, 4096, 16, 4096, 9),
+    ("single", 136, 4096, 16, 1024, 9), ("tick", 136, 4096, 4, 4096, 9),
+    ("tick", 40, 64, 4, 96, 9), ("chunk", 136, 4096, 16, 4096, 9),
+    ("tick", 136, 4096, 16, 4096, 3), ("tick", 136, 4096, 64, 1024, 9),
+    ("tick", 136, 4096, 72, 1024, 9), ("tick", 136, 3584, 16, 512, 9),
+    ("tick", 136, 2048, 16, 2048, 9), ("tick", 136, 1024, 16, 3072, 9),
+    ("tick", 40, 200, 8, 96, 9)])
+def test_lora_delta_k4_modes(cuda, kind, rows, d, rank, out, groups):
     """The sort (stable order and group sizes, as numpy's), K4's gather and
     scatter modes against their plain versions, the whole delta against
     the reference's einsum at the unpadded rank, counted as the LoRA
     launches (MoE's untouched); the null group's delta is exactly zero,
     and a row's delta is the same to the bit with or without the other
     rows (batched == solo)."""
-    x, ra, A, B = _lora_case(kind, rows, d, rank, out, cuda)
+    x, ra, A, B = _lora_case(kind, rows, d, rank, out, cuda, groups)
     G = A.shape[0]
     order, sizes = lora.sort_rows(ra, G)
     np.testing.assert_array_equal(
@@ -1972,6 +1991,62 @@ def test_lora_delta_k4_modes(cuda, kind, rows, d, rank, out):
         alone = lora.ragged_delta(x[sub].contiguous(), ra[sub], A, B)
         assert torch.equal(alone, delta[sub]), int(g)
     assert torch.equal(lora.ragged_delta(x, ra, A, B), delta)
+
+
+@pytest.mark.gpu
+def test_moe_gmm_f32_body_rule(cuda):
+    """The float32 body a call takes, as the library reports it, on both
+    sides of each bound: the gather or plain gmm takes the split-K body up
+    to N 64, the scatter the wide-scatter body up to K 64, and swiglu,
+    the transposed modes and everything past the bounds moe_gmm_fma;
+    the rows and group count never change it."""
+    body = mg.f32_body
+    top_n, top_k = mg.F32_SPLIT_K_MAX_N, mg.F32_WIDE_MAX_K
+    assert (top_n, top_k) == (64, 64)
+    for m, e in ((1, 1), (8, 9), (136, 3), (4096, 1024)):
+        assert body("gmm", m, 4096, 8, e) == "split_k"
+        assert body("gmm", m, 4096, top_n, e) == "split_k"
+        assert body("gmm", m, 4096, top_n + 8, e) == "fma"
+        assert body("gmm", m, 8, top_n + 8, e) == "fma"
+        assert body("scatter", m, 8, 4096, e) == "wide_scatter"
+        assert body("scatter", m, top_k, 14336, e) == "wide_scatter"
+        assert body("scatter", m, top_k + 8, 4096, e) == "fma"
+        assert body("scatter", m, 4096, 16, e) == "fma"
+        assert body("swiglu", m, 64, 16, e) == "fma"
+        assert body("transposed", m, 16, 16, e) == "fma"
+
+
+@pytest.mark.gpu
+def test_lora_k4_modes_repeat_and_replay_to_the_bit(cuda):
+    """Both float32 LoRA modes give the same bits on two eager calls and
+    on a CUDA graph's replay of a captured call, its inputs rewritten in
+    place between capture and replay."""
+    x, ra, A, B = _lora_case("tick", 136, 4096, 16, 4096, cuda, seed=3)
+    order, sizes = lora.sort_rows(ra, A.shape[0])
+
+    def delta():
+        ax = mg.gather_gmm(x, order, A, sizes, count="lora_gmm")
+        return ax, mg.scatter_gmm(ax, B, sizes, order,
+                                  count="lora_scatter_gmm")
+
+    first = delta()
+    assert all(torch.equal(a, b) for a, b in zip(first, delta()))
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        delta()                     # warm-up on the side stream
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = delta()
+    x2, _, A2, B2 = _lora_case("tick", 136, 4096, 16, 4096, cuda, seed=4)
+    for dst, src in ((x, x2), (A, A2), (B, B2)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = delta()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+    assert not torch.equal(captured[1], first[1])
 
 
 @pytest.mark.gpu

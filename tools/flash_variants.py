@@ -10,6 +10,7 @@ Run from the root of a checkout:
     python3 tools/flash_variants.py --only moe OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --only k3 OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --only paged OLD/csrc paddle_tpu_torch/csrc
+    python3 tools/flash_variants.py --only lora OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --sweep paddle_tpu_torch/csrc
 
 Each directory's ``flash_attention_fwd``, ``flash_attention_bwd``,
@@ -59,6 +60,16 @@ differ between calls, so only versions timed in one run compare. Every
 version's outputs are held against the first's: equal to the bit, or
 their largest row-relative difference.
 
+``--only lora``: K4's float32 modes as the multi-LoRA delta calls them
+(``ops/lora.ragged_delta``), the gather gmm into the rank (``lora_gmm``,
+d 4096 to rank 16) and the scatter gmm out of it (``lora_scatter_gmm``,
+rank 16 to 4096 columns), at ``LORA_CASES``: the 136-row tick over 9
+groups and over 3 (phase 21's ``max_adapters=2``) and a pure tick's 8
+rows, cold (the stacks copied past the 50 MB L2 and taken in turn).
+Each version is held to the plain versions at 1e-4 row-relative (the
+run fails otherwise); bits are not compared across versions, whose sum
+orders differ.
+
 ``--sweep DIR`` builds one ``csrc`` directory twice, with the bf16
 forward modes' threshold ``PTT_MOE_SM90_MIN_ROWS`` at 1 (the Hopper body
 at every size) and past any size (the ``mma.sync`` body), and times the
@@ -79,7 +90,8 @@ FAMILIES = {"flash": ("flash_attention_fwd", "flash_attention_bwd",
                       "flashmask_fwd", "flashmask_bwd"),
             "moe": ("moe_gmm",),
             "k3": ("norm_matmul", "matmul_residual"),
-            "paged": ("ragged_paged_attention", "paged_decode_attention")}
+            "paged": ("ragged_paged_attention", "paged_decode_attention"),
+            "lora": ("moe_gmm",)}
 K3_ROWS = (8, 136, 512)
 K3_WIDTHS = {"llama": (4096, 1024, 14336),    # d, k / v width, ffn
              "qwen2": (3584, 512, 18944)}
@@ -88,6 +100,9 @@ SWEEP_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 768)
 # 513) and in slot 0 (context 2048): rows a slot
 PAGED_CHUNKS = {"chunk 513": [0] * 7 + [128], "chunk 2048": [128] + [0] * 7}
 SWEEP_BODIES = {"sm90": 1, "mma.sync": 1 << 30}
+# --only lora: (rows, groups) of each case
+LORA_CASES = {"tick e9": (136, 9), "tick e3": (136, 3), "pure e9": (8, 9)}
+LORA_RTOL = 1e-4
 # --only paged, the f32-pool cases: each one's plain version's output
 PLAIN = {}
 
@@ -106,6 +121,9 @@ def kernel_name(line):
         args = [("true" if v == "1" else "false") if t == "b" else v
                 for t, v in re.findall(r"L([bi])(\d+)E", k[2])]
         return f"paged_attention_kernel<{', '.join([k[1]] + args)}>"
+    k = re.search(r"moe_lora\d+(moe_gmm_[a-z_]+?)(?:ILi(\d+)E)?E", line)
+    if k:   # the float32 LoRA bodies (split_k: its chunk depth)
+        return k[1] + (f"<{k[2]}>" if k[2] else "")
     k = re.search(r"moe90\d+(\w+?_kernel)(?:I(\w+?)E)?E", line)
     if k:   # Lb1 / Li128: a bool / an int template argument
         args = re.findall(r"L([bi])(\d+)E", (k[2] or "") + "E")
@@ -355,6 +373,59 @@ def moe_kernels(torch, cs, libs, rnd, P, st):
                 (wgu,))})
         out.update(tick(lib))
         return out
+
+    return [kernels(lib) for lib in libs]
+
+
+def lora_kernels(torch, cs, libs, P, st):
+    """K4's float32 LoRA modes at LORA_CASES, as ``chip_smoke.check_lora``
+    times them: per version, {name: (launch, outputs)}; each case's plain
+    outputs go to PLAIN. The stacks' copies are clones of one draw, so a
+    call reads cold bytes and gives the same values whichever it takes."""
+    from paddle_tpu_torch.ops import lora
+    from paddle_tpu_torch.ops.kernels import moe_gmm as mg
+    t = cs.LORA_TICK
+    d, rank, out = t["d"], t["rank"], t["outs"][0]
+    rp = lora.padded_rank(rank)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 22)
+    cases = {}
+    for tag, (R, G) in LORA_CASES.items():
+        used = t["used"] if G == t["groups"] else tuple(range(G))
+        ra = torch.from_numpy(cs.lora_routing("tick", R, G, used,
+                                              22)).cuda()
+        A, B = cs.lora_stacks(torch, g, G, d, rank, out)[0]
+        copies = max(3, -(-int(100e6) // (4 * G * rp * (d + out))))
+        stacks = [(A, B)] + [(A.clone(), B.clone())
+                             for _ in range(copies - 1)]
+        x = torch.randn(R, d, generator=g, device="cuda")
+        order, sizes = lora.sort_rows(ra, G)
+        ax = mg.plain_gather_gmm(x, order, A, sizes)
+        PLAIN[f"lora_gmm {tag}"] = ax
+        PLAIN[f"lora_scatter_gmm {tag}"] = mg.plain_scatter_gmm(
+            ax, B, sizes, order)
+        cases[tag] = dict(R=R, G=G, x=x, order=order, sizes=sizes, ax=ax,
+                          stacks=stacks, turn=[0])
+
+    def pick(c):
+        c["turn"][0] += 1
+        return c["stacks"][c["turn"][0] % len(c["stacks"])]
+
+    def kernels(lib):
+        gl = lib["moe_gmm"]
+        res = {}
+        for tag, c in cases.items():
+            R, G = c["R"], c["G"]
+            ya = torch.empty(R, rp, device="cuda")
+            yb = torch.empty(R, out, device="cuda")
+            res[f"lora_gmm {tag}"] = (
+                lambda c=c, ya=ya, R=R, G=G: gl.ptt_moe_gmm(
+                    P(c["x"]), P(c["order"]), P(pick(c)[0]), P(c["sizes"]),
+                    P(ya), R, d, rp, G, 0, st), (ya,))
+            res[f"lora_scatter_gmm {tag}"] = (
+                lambda c=c, yb=yb, R=R, G=G: gl.ptt_moe_scatter_gmm(
+                    P(c["ax"]), P(pick(c)[1]), P(c["sizes"]), P(c["order"]),
+                    P(yb), R, rp, out, G, 0, st), (yb,))
+        return res
 
     return [kernels(lib) for lib in libs]
 
@@ -762,14 +833,15 @@ def main(argv):
                "moe": lambda: moe_kernels(torch, cs, libs, rnd, P, st),
                "k3": lambda: k3_kernels(torch, cs, libs, rnd, P, st),
                "paged": lambda: paged_kernels(torch, cs, libs, rnd, P,
-                                              st)}[fam]()
+                                              st),
+               "lora": lambda: lora_kernels(torch, cs, libs, P, st)}[fam]()
         for run, ks in zip(runs, per):
             run.update(ks)
         if fam == "paged" and all(lib["f32"] for lib in libs):
             for run, ks in zip(runs, paged_f32_kernels(torch, cs, libs, P,
                                                         st)):
                 run.update(ks)
-    first = {}
+    first, failed = {}, []
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
     for i in order:
         times = []
@@ -782,8 +854,11 @@ def main(argv):
             diff = "same bits" if same else "row_rel_err %.2e" % max(
                 cs.row_rel_err(a, b) for a, b in zip(got, ref))
             if name in PLAIN:
-                diff += ", against plain row_rel_err %.2e" % \
-                    cs.row_rel_err(got[0], PLAIN[name])
+                err = cs.row_rel_err(got[0], PLAIN[name])
+                diff += ", against plain row_rel_err %.2e" % err
+                if name.startswith("lora") and not err <= LORA_RTOL:
+                    failed.append(f"[{i}] {name}")
+                    diff += " FAIL"
             if not same and name.endswith("f32pool"):
                 fails = []
                 cs.held_f32pool(torch, got[0], ref[0].float(),
@@ -795,6 +870,10 @@ def main(argv):
         print(f"[{i}] {args.dirs[i]}: " + ", ".join(times) + " ms",
               flush=True)
     print(cs.card_line(), flush=True)
+    if failed:
+        print(f"flash_variants: off the plain versions: {failed}",
+              file=sys.stderr)
+        return 1
     return 0
 
 
