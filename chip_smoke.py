@@ -9,7 +9,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    float32 — the serving kernels at the serving path's shapes
    (Llama-3-8B widths; K3a / K3b also at Qwen2-7B's with q/k/v biases
    and at GPT's defaults with LayerNorm + beta + bias and tanh-gelu +
-   bias, each case also row by row), the ragged kernel at two ticks of 8
+   bias, each case also row by row, Llama's and GPT's also at a pure
+   decode tick's 8 rows and generate()'s 4, each case's bf16 body
+   logged), the ragged kernel at two ticks of 8
    slots with contexts up to 2048 (7 decode rows + a 128-row prefill
    chunk, and one row a slot), the paged decode / verify kernels at
    phase 7's (4 slots, 32 / 8 heads, D 128, tables of 37 blocks,
@@ -191,7 +193,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     ``gelu_tanh`` twice a layer a tick, K2r's ``_f32pool`` mode a layer a
     tick; tokens/s, TTFT, ticks, rows a tick, idle share, host scalar
     reads and K2r's share of the device time over 4 profiled ticks, in
-    which no separate split-merge kernel may run, peak memory), its
+    which no separate split-merge kernel may run, K3's device ms a tick
+    by kernel over those mixed ticks and over 4 profiled pure ticks,
+    peak memory), its
     streams held against the unfused engine and the engine through the
     plain versions by the bf16 near-tie rule; (b) the same on int8 pools
     (K2r's int8 instance at D 64; pool bytes against the float32 pools');
@@ -354,8 +358,10 @@ LOSS_RTOL = 1e-5      # phase 6: the loss
 # phase 2's K3 cases at a prefill tick's rows: Llama-3-8B's (the kernels
 # line's rows, as in earlier runs), Qwen2-7B's (q/k/v biases) and GPT's
 # defaults (LayerNorm + beta + bias, tanh-gelu + bias;
-# paddle_tpu/models/gpt.py:29-32)
+# paddle_tpu/models/gpt.py:29-32); Llama's and GPT's also at a pure
+# decode tick's 8 rows (one a slot) and generate()'s 4
 K3_ROWS = 136
+K3_DECODE_ROWS = (8, 4)
 K3A_CASES = {   # label: d, widths, kind, beta, biases
     "llama qkv": (4096, (4096, 1024, 1024), "rms", False, (False,) * 3),
     "llama gate/up": (4096, (14336, 14336), "rms", False, (False,) * 2),
@@ -993,56 +999,76 @@ def k3_inputs(torch, dt, seed, *shapes, scale=1.0):
             for s in shapes]
 
 
+def k3_rows(label):
+    """The rows phase 2 holds a K3 case at: the prefill tick's, and for
+    Llama's and GPT's cases the decode ticks' too; each case's label
+    names its rows but at K3_ROWS (the kernels line's)."""
+    more = K3_DECODE_ROWS if label.split()[0] in ("llama", "gpt") else ()
+    return [(K3_ROWS, label)] + [(r, f"{label} R={r}") for r in more]
+
+
+def log_body(df, name, tag, r, k, widths):
+    """The bf16 body a K3 case took, as the library reports it."""
+    body, cfg = df._c_body(r, k, widths)
+    how = (f" ({cfg[0]}-column tiles, clusters of {cfg[1]}, {cfg[2]} "
+           f"blocks)") if cfg else ""
+    log(f"  {name} {tag}: body {body}{how}")
+
+
 def check_norm_matmul(torch, df, dtype, timing):
-    """K3a at R=136 in every case of K3A_CASES: held elementwise and row
-    by row against its plain version; in bf16 timed beside its bound and
-    the library yardstick (``F.rms_norm`` or ``F.layer_norm``, then
-    ``matmul`` / ``addmm`` a projection). Returns ``(max error, {label:
-    timing row})``."""
+    """K3a in every case of K3A_CASES at the rows of :func:`k3_rows`:
+    held elementwise and row by row against its plain version; in bf16
+    the body logged and timed beside its bound and the library yardstick
+    (``F.rms_norm`` or ``F.layer_norm``, then ``matmul`` / ``addmm`` a
+    projection). Returns ``(max error, {label: timing row})``."""
     import torch.nn.functional as F
     dt = getattr(torch, dtype)
-    R, errs, rows, fails = K3_ROWS, [], {}, []
-    for i, (label, (d, widths, kind, has_beta, has_bias)) in enumerate(
+    errs, rows, fails = [], {}, []
+    for i, (case, (d, widths, kind, has_beta, has_bias)) in enumerate(
             K3A_CASES.items()):
-        x, gamma, beta = k3_inputs(torch, dt, 12 + i, (R, d), (d,), (d,))
-        gamma = 1 + 0.1 * gamma
-        beta = 0.1 * beta if has_beta else None
         ws = k3_inputs(torch, dt, 40 + i, *[(d, n) for n in widths],
                        scale=0.02)
         bs = [b if hb else None for b, hb in zip(
             k3_inputs(torch, dt, 60 + i, *[(n,) for n in widths],
                       scale=0.1), has_bias)]
         kw = dict(eps=1e-5 if kind == "ln" else 1e-6, kind=kind)
-        got = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
-        ref = df.plain_norm_matmul(x, gamma, beta, ws, bs, **kw)
-        torch.cuda.synchronize()
-        errs.append(max(held_attention(torch, a, b, dtype,
-                                  f"norm_matmul {label} {d}->{widths}",
-                                  fails)
-                        for a, b in zip(got, ref)))
-        if not timing:
-            continue
-        es = x.element_size()
-        nbytes = es * (x.numel() + d * (2 if has_beta else 1)
-                       + sum(w.numel() for w in ws) + R * sum(widths)
-                       + sum(b.numel() for b in bs if b is not None))
-        flops = 2 * R * d * sum(widths) + (6 if kind == "ln" else 4) * R * d
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        for R, label in k3_rows(case):
+            seed = 12 + i + (R if R != K3_ROWS else 0)
+            x, gamma, beta = k3_inputs(torch, dt, seed, (R, d), (d,), (d,))
+            gamma = 1 + 0.1 * gamma
+            beta = 0.1 * beta if has_beta else None
+            got = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
+            ref = df.plain_norm_matmul(x, gamma, beta, ws, bs, **kw)
+            torch.cuda.synchronize()
+            errs.append(max(held_attention(
+                torch, a, b, dtype, f"norm_matmul {label} {d}->{widths}",
+                fails) for a, b in zip(got, ref)))
+            if not timing:
+                continue
+            log_body(df, "norm_matmul", label, R, d, widths)
+            es = x.element_size()
+            nbytes = es * (x.numel() + d * (2 if has_beta else 1)
+                           + sum(w.numel() for w in ws) + R * sum(widths)
+                           + sum(b.numel() for b in bs if b is not None))
+            flops = 2 * R * d * sum(widths) \
+                + (6 if kind == "ln" else 4) * R * d
+            b_ms, b_by = bound(nbytes, flops, dtype)
 
-        def library():
-            y = F.rms_norm(x, (d,), gamma, kw["eps"]) if kind == "rms" \
-                else F.layer_norm(x, (d,), gamma, beta, kw["eps"])
-            return [torch.addmm(b, y, w) if b is not None else y @ w
-                    for w, b in zip(ws, bs)]
+            def library():
+                y = F.rms_norm(x, (d,), gamma, kw["eps"]) if kind == "rms" \
+                    else F.layer_norm(x, (d,), gamma, beta, kw["eps"])
+                return [torch.addmm(b, y, w) if b is not None else y @ w
+                        for w, b in zip(ws, bs)]
 
-        rows[label] = dict(
-            ms=time_ms(torch, lambda: df.norm_matmul(x, gamma, beta, ws, bs,
-                                                     **kw)),
-            plain_ms=time_ms(torch, lambda: df.plain_norm_matmul(
-                x, gamma, beta, ws, bs, **kw)),
-            library_ms=time_ms(torch, library), bound_ms=b_ms,
-            bound_by=b_by, nbytes=nbytes, flops=flops)
-        del ws, got, ref
+            rows[label] = dict(
+                ms=time_ms(torch, lambda: df.norm_matmul(
+                    x, gamma, beta, ws, bs, **kw)),
+                plain_ms=time_ms(torch, lambda: df.plain_norm_matmul(
+                    x, gamma, beta, ws, bs, **kw)),
+                library_ms=time_ms(torch, library), bound_ms=b_ms,
+                bound_by=b_by, nbytes=nbytes, flops=flops)
+            del got, ref
+        del ws
         torch.cuda.empty_cache()
     if fails:
         raise AssertionError(f"K3a disagrees with its plain version: "
@@ -1051,45 +1077,49 @@ def check_norm_matmul(torch, df, dtype, timing):
 
 
 def check_matmul_residual(torch, df, dtype, timing):
-    """K3b at R=136 in every case of K3B_CASES, held and timed as K3a
-    (yardstick: the activation, then ``addmm`` onto the residual, plus
-    the bias)."""
+    """K3b in every case of K3B_CASES at the rows of :func:`k3_rows`,
+    held, logged and timed as K3a (yardstick: the activation, then
+    ``addmm`` onto the residual, plus the bias)."""
     import torch.nn.functional as F
     dt = getattr(torch, dtype)
-    R, errs, rows, fails = K3_ROWS, [], {}, []
-    for i, (label, (k, n, act, has_bias)) in enumerate(K3B_CASES.items()):
-        gate, up, res, b = k3_inputs(torch, dt, 13 + i, (R, k), (R, k),
-                                     (R, n), (n,))
-        xs = [gate, up] if act == "swiglu" else [gate]
+    errs, rows, fails = [], {}, []
+    for i, (case, (k, n, act, has_bias)) in enumerate(K3B_CASES.items()):
         (w,) = k3_inputs(torch, dt, 80 + i, (k, n), scale=0.02)
-        b = 0.1 * b if has_bias else None
-        got = df.matmul_residual(xs, w, b, res, act=act)
-        ref = df.plain_matmul_residual(xs, w, b, res, act=act)
-        torch.cuda.synchronize()
-        errs.append(held_attention(torch, got, ref, dtype,
-                              f"matmul_residual {label} act={act} "
-                              f"{k}->{n}", fails))
-        if not timing:
-            continue
-        es = res.element_size()
-        nbytes = es * (sum(x.numel() for x in xs) + w.numel() + 2 * R * n
-                       + (n if has_bias else 0))
-        flops = 2 * R * k * n + (4 * R * k if act else 0)
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        for R, label in k3_rows(case):
+            seed = 13 + i + (R if R != K3_ROWS else 0)
+            gate, up, res, b = k3_inputs(torch, dt, seed, (R, k), (R, k),
+                                         (R, n), (n,))
+            xs = [gate, up] if act == "swiglu" else [gate]
+            b = 0.1 * b if has_bias else None
+            got = df.matmul_residual(xs, w, b, res, act=act)
+            ref = df.plain_matmul_residual(xs, w, b, res, act=act)
+            torch.cuda.synchronize()
+            errs.append(held_attention(torch, got, ref, dtype,
+                                       f"matmul_residual {label} act={act} "
+                                       f"{k}->{n}", fails))
+            if not timing:
+                continue
+            log_body(df, "matmul_residual", label, R, k, [n])
+            es = res.element_size()
+            nbytes = es * (sum(x.numel() for x in xs) + w.numel()
+                           + 2 * R * n + (n if has_bias else 0))
+            flops = 2 * R * k * n + (4 * R * k if act else 0)
+            b_ms, b_by = bound(nbytes, flops, dtype)
 
-        def library():
-            xin = F.silu(xs[0]) * xs[1] if act == "swiglu" else \
-                F.gelu(xs[0], approximate="tanh") if act else xs[0]
-            return torch.addmm(res if b is None else res + b, xin, w)
+            def library():
+                xin = F.silu(xs[0]) * xs[1] if act == "swiglu" else \
+                    F.gelu(xs[0], approximate="tanh") if act else xs[0]
+                return torch.addmm(res if b is None else res + b, xin, w)
 
-        rows[label] = dict(
-            ms=time_ms(torch, lambda: df.matmul_residual(
-                xs, w, b, res, act=act)),
-            plain_ms=time_ms(torch, lambda: df.plain_matmul_residual(
-                xs, w, b, res, act=act)),
-            library_ms=time_ms(torch, library), bound_ms=b_ms,
-            bound_by=b_by, nbytes=nbytes, flops=flops)
-        del w, got, ref
+            rows[label] = dict(
+                ms=time_ms(torch, lambda: df.matmul_residual(
+                    xs, w, b, res, act=act)),
+                plain_ms=time_ms(torch, lambda: df.plain_matmul_residual(
+                    xs, w, b, res, act=act)),
+                library_ms=time_ms(torch, library), bound_ms=b_ms,
+                bound_by=b_by, nbytes=nbytes, flops=flops)
+            del got, ref
+        del w
         torch.cuda.empty_cache()
     if fails:
         raise AssertionError(f"K3b disagrees with its plain version: "
@@ -2035,35 +2065,6 @@ def forward_at_training_shape(torch, mg, dtype, label, x, src, xs, h, order,
             + (f" (torch._grouped_mm: {why})" if why else ""))
 
 
-def decode_width_times(torch, df):
-    """The GEMM kernels at a decode-only tick's width (R = 8 rows, one
-    per slot), where the weight bytes bound them; printed, not held."""
-    g = torch.Generator(device="cuda").manual_seed(14)
-    bf = torch.bfloat16
-    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(bf)  # noqa
-    x, res = rnd(8, 4096), rnd(8, 4096)
-    gamma = rnd(4096)
-    kw = dict(eps=1e-6, kind="rms")
-    cases = [("norm_matmul qkv",
-              lambda ws: df.norm_matmul(x, gamma, None, ws, [None] * 3, **kw),
-              [rnd(4096, n) for n in (4096, 1024, 1024)]),
-             ("norm_matmul gate/up",
-              lambda ws: df.norm_matmul(x, gamma, None, ws, [None] * 2, **kw),
-              [rnd(4096, 14336) for _ in range(2)]),
-             ("matmul_residual o_proj",
-              lambda ws: df.matmul_residual([x], ws[0], None, res),
-              [rnd(4096, 4096)]),
-             ("matmul_residual down",
-              lambda ws: df.matmul_residual([rnd(8, 14336), rnd(8, 14336)],
-                                            ws[0], None, res, act="swiglu"),
-              [rnd(14336, 4096)])]
-    for name, fn, ws in cases:
-        wbytes = 2 * sum(w.numel() for w in ws)
-        ms = time_ms(torch, lambda: fn(ws))
-        log(f"  {name} at R=8: ms={ms:.4f} weight-bytes bound_ms="
-            f"{wbytes / HBM_BYTES_PER_S * 1e3:.4f}")
-
-
 def merge_rows(rows, dtype):
     """One decoder layer runs both shapes: sum their times and bounds."""
     nbytes = sum(r["nbytes"] for r in rows)
@@ -2899,19 +2900,20 @@ def tick_window(torch, engine, prompts, n, tag, by_kernel=None):
     return reads / n
 
 
-def pure_tick_window(torch, engine, prompts, n, tag):
+def pure_tick_window(torch, engine, prompts, n, tag, by_kernel=None):
     """Where a pure tick's time goes: a fresh wave of ``prompts`` stepped
     until no prompt is queued or pending, then torch.profiler over ``n``
     ticks that must all be pure (every seated slot decoding: a graph's
-    replay on the card), then the wave drained. Returns ``(wall ms a
-    tick, idle share)``."""
+    replay on the card; ``by_kernel``: :func:`profiled`'s), then the wave
+    drained. Returns ``(wall ms a tick, idle share)``."""
     for p in prompts:
         engine.submit(p)
     while engine.num_queued or any(s is not None and s.pend_pos is not None
                                    for s in engine._slots):
         engine.step()
     p0 = engine.stats()["pure_ticks"]
-    wall_ms, busy_ms, _ = profiled(torch, engine.step, n, 12, cpu_rows=8)
+    wall_ms, busy_ms, _ = profiled(torch, engine.step, n, 12, cpu_rows=8,
+                                   by_kernel=by_kernel)
     pure = engine.stats()["pure_ticks"] - p0
     engine.run()
     if pure < n:
@@ -4208,6 +4210,30 @@ def gpt_train(torch, kernels, fa, GPTConfig, GPTForCausalLM, AdamW,
     return launches
 
 
+# K3's kernels by name in a profile (namespace ptt::dg90): the split and
+# stream-K bodies and their pre-passes (K3a's norm on the split body or
+# statistics on the stream-K body, K3b's activation)
+K3_PROFILE_KERNELS = ("decode_gemm_split", "decode_gemm", "normalize",
+                      "row_stats", "activate")
+
+
+def k3_by_kernel(by_kernel, n, tag):
+    """Log K3's device ms a tick, by kernel, in a profile of ``n`` ticks
+    (``by_kernel``: :func:`profiled`'s), and its share of the device
+    time."""
+    busy = sum(by_kernel.values())
+    k3 = {}
+    for name, ms in by_kernel.items():
+        kind = next((k for k in K3_PROFILE_KERNELS if k in name), None)
+        if kind and "dg90" in name:
+            k3[kind] = k3.get(kind, 0.0) + ms
+    total = sum(k3.values())
+    log(f"{tag}: device {busy / n:.3f} ms a tick, K3 {total / n:.3f} ms a "
+        f"tick ({total / max(busy, 1e-9):.4f} of it): "
+        + ", ".join(f"{k} {ms / n:.4f}" for k, ms in sorted(k3.items())))
+    return k3
+
+
 def gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
               ServingConfig, GPTConfig, GPTForCausalLM, AdamW, TrainStep):
     """Phase 18: GPT at GPTConfig()'s widths, all 24 layers, seeded
@@ -4296,6 +4322,11 @@ def gpt_phase(torch, kernels, df, rpa, pda, fa, ServingEngine,
     if merges or k2r <= 0:
         fails.append("phase 18 (a): K2r not the Hopper body alone in the "
                      "profiled ticks")
+    k3_by_kernel(by_kernel, TICK_WINDOW, "phase 18 (a) mixed ticks")
+    pure = {}
+    pure_tick_window(torch, engine, prompts[:8], TICK_WINDOW, "phase 18 (a)",
+                     pure)
+    k3_by_kernel(pure, TICK_WINDOW, "phase 18 (a) pure ticks")
     engine.shutdown()
     del engine
     lockstep_run(torch, kernels, ServingEngine, ServingConfig, model,
@@ -5414,7 +5445,6 @@ def main(argv=None):
     e10, r10 = check_lora(torch, mg, lora)
     for name, r in r10.items():
         table[name] = dict(r, max_abs_err=e10[name])
-    decode_width_times(torch, df)
     for name, r in table.items():
         dt = "float32" if name in LORA_KERNELS else "bfloat16"
         log(f"  {name} [{dt}]: ms={r['ms']:.4f} "

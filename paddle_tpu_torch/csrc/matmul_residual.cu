@@ -10,8 +10,11 @@
 // dominates the bytes, so the least time is the weight bytes over
 // 3.35 TB/s; at prefill widths the multiply-adds take over.
 //
-// bfloat16 runs the Hopper body of decode_gemm_sm90.cuh (persistent,
-// stream-K over the weight tiles, wgmma, TMA); swiglu and gelu_tanh first
+// bfloat16 runs one of two Hopper bodies (wgmma, TMA), chosen by the
+// shape alone as K3a's (dg90::body_of): the split body of
+// decode_gemm_small_sm90.cuh over small weights and at most 192 rows
+// (GPT's out_proj and fc2), the stream-K body of decode_gemm_sm90.cuh
+// otherwise; swiglu and gelu_tanh first
 // run a pre-pass that activates each element once into a scratch of
 // R x K rows (L2-resident at tick widths: 3.9 MB at R = 136, K = 14336),
 // which the main kernel, launched behind it, reads: applied per column
@@ -29,7 +32,7 @@
 // float32 takes any sizes.
 #include <algorithm>
 
-#include "decode_gemm_sm90.cuh"
+#include "decode_gemm_small_sm90.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -92,7 +95,8 @@ cudaError_t launch_fma(const ActLoad& load, const void* w, const void* bias,
 // act: 0 = none (x0 only), 1 = swiglu (silu(x0) * x1), 2 = gelu_tanh;
 // bfloat16 scratch (none for float32): rows act_cap bf16 (swiglu and
 // gelu_tanh: R x K, the activated rows), ws ws_cap floats, flags
-// flag_cap int32 zeros (decode_gemm_sm90.cuh's plan)
+// flag_cap int32 zeros (decode_gemm_sm90.cuh's plan; the split body reads
+// neither ws nor flags)
 extern "C" int ptt_matmul_residual(const void* x0, const void* x1,
                                    const void* w, const void* bias,
                                    const void* res, void* out, void* rows,
@@ -124,15 +128,22 @@ extern "C" int ptt_matmul_residual(const void* x0, const void* x1,
   p.ws = (float4*)ws;
   p.flags = (int*)flags;
   const void* wp[3] = {w, w, w};
+  const void* xa = act ? rows : x0;
+  const bool split = dg90::body_of(R, K, p.N, 1) == dg90::BODY_SPLIT_K;
   dg90::Plan pl;
-  cudaError_t err = dg90::plan(act ? rows : x0, wp, p, (size_t)ws_cap,
-                               (size_t)flag_cap, pl);
+  dg90::SplitPlan sp;
+  cudaError_t err = split ? dg90::plan_split(xa, wp, p, sp)
+                          : dg90::plan(xa, wp, p, (size_t)ws_cap,
+                                       (size_t)flag_cap, pl);
   if (err != cudaSuccess) return (int)err;
-  if (act == 0) return (int)dg90::launch<dg90::A_NONE, false>(pl, p, st);
+  if (act == 0)
+    return (int)(split ? dg90::launch_split<false>(sp, p, st)
+                       : dg90::launch<dg90::A_NONE, false>(pl, p, st));
   const int blocks = (int)std::min<size_t>((n / 8 + 255) / 256, 4096);
   dg90::activate<<<blocks, 256, 0, st>>>((const bf16*)x0, (const bf16*)x1,
                                          (bf16*)rows, n, act == 1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)dg90::launch<dg90::A_NONE, true>(pl, p, st);
+  return (int)(split ? dg90::launch_split<true>(sp, p, st)
+                     : dg90::launch<dg90::A_NONE, true>(pl, p, st));
 }

@@ -11,9 +11,15 @@
 // the weight bytes over 3.35 TB/s; at prefill widths the multiply-adds
 // take over.
 //
-// bfloat16 runs the Hopper body of decode_gemm_sm90.cuh (persistent,
-// stream-K over the weight tiles, wgmma with A from registers after the
-// norm, TMA), behind a statistics pre-pass. float32 runs the FMA tile of
+// bfloat16 runs one of two Hopper bodies (wgmma, TMA) chosen by the
+// shape alone (dg90::body_of, reported by ptt_decode_gemm_body): over
+// small weights and at most 192 rows (GPT's widths) the split body of
+// decode_gemm_small_sm90.cuh (a column tile a thread-block cluster, K
+// split over its blocks and summed over distributed shared memory),
+// behind a pre-pass that writes the normalised rows into the workspace;
+// otherwise the stream-K body of decode_gemm_sm90.cuh (persistent,
+// stream-K over the weight tiles, the norm applied to A in registers),
+// behind a statistics pre-pass. float32 runs the FMA tile of
 // tile_gemm.cuh: the grid is (row tiles, column tiles of the
 // concatenated column space of all weights), a first phase computes each
 // row's statistics into shared memory, and the product loop stages the
@@ -24,7 +30,7 @@
 // Paddle's [in, out] layout), b_i [n_i], o_i [R, n_i]; float32 or
 // bfloat16 throughout; 1 <= nw <= 3. bfloat16 needs d and every n_i a
 // multiple of 8 and 16-byte aligned pointers; float32 takes any sizes.
-#include "decode_gemm_sm90.cuh"
+#include "decode_gemm_small_sm90.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -155,7 +161,8 @@ cudaError_t launch_fma(const void* x, const void* gamma, const void* beta,
 // kind: 0 = rms, 1 = ln (beta optional); w / b / o: nw weights [d, n_i],
 // biases [n_i] or null, outputs [R, n_i]. bfloat16 scratch (none for
 // float32): stats float2 [R], ws ws_cap floats, flags flag_cap int32
-// zeros (decode_gemm_sm90.cuh's plan).
+// zeros (decode_gemm_sm90.cuh's plan; the split body takes R x d bf16
+// of ws for the normalised rows, and neither stats nor flags).
 extern "C" int ptt_norm_matmul(const void* x, const void* gamma,
                                const void* beta, const void* w0,
                                const void* w1, const void* w2, const void* b0,
@@ -203,8 +210,24 @@ extern "C" int ptt_norm_matmul(const void* x, const void* gamma,
   p.stats = (const float2*)stats;
   p.ws = (float4*)ws;
   p.flags = (int*)flags;
+  if (dg90::body_of(R, d, n, nw) == dg90::BODY_SPLIT_K) {
+    // the normalised rows [R, d] in the workspace, behind them the GEMM
+    if ((size_t)ws_cap * sizeof(float) < (size_t)R * d * sizeof(bf16))
+      return (int)cudaErrorInvalidValue;
+    dg90::SplitPlan sp;
+    cudaError_t err = dg90::plan_split(ws, w, p, sp);
+    if (err != cudaSuccess) return (int)err;
+    dg90::normalize<<<dg90::cdiv(R, dg90::NORM_ROWS), dg90::NORM_ROWS * 32,
+                      0, st>>>(
+        (const bf16*)x, (const bf16*)gamma, p.beta, (bf16*)ws, R, d, eps,
+        kind);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)dg90::launch_split<true>(sp, p, st);
+  }
   dg90::Plan pl;
-  cudaError_t err = dg90::plan(x, w, p, (size_t)ws_cap, (size_t)flag_cap, pl);
+  cudaError_t err =
+      dg90::plan(x, w, p, (size_t)ws_cap, (size_t)flag_cap, pl);
   if (err != cudaSuccess) return (int)err;
   dg90::row_stats<<<dg90::cdiv(R, 4), 128, 0, st>>>(
       (const bf16*)x, (float2*)stats, R, d, eps, kind);
@@ -212,4 +235,20 @@ extern "C" int ptt_norm_matmul(const void* x, const void* gamma,
   if (err != cudaSuccess) return (int)err;
   return (int)(kind == 0 ? dg90::launch<dg90::A_RMS, false>(pl, p, st)
                          : dg90::launch<dg90::A_LN, false>(pl, p, st));
+}
+
+// The bf16 body a call of R rows over K = d and widths n0..n2 (nw of
+// them) takes, K3a's or K3b's (nw 1): 0 the stream-K body, 1 the split
+// body; for the split body, cfg gets its column tile, its blocks a
+// cluster and its blocks. A function of the shape alone; needs no device.
+extern "C" int ptt_decode_gemm_body(int R, int K, int n0, int n1, int n2,
+                                    int nw, int* cfg) {
+  if (nw < 1 || nw > 3 || R < 1 || K < 1) return -1;
+  const int n[3] = {n0, nw > 1 ? n1 : 0, nw > 2 ? n2 : 0};
+  const int body = dg90::body_of(R, K, n, nw);
+  const dg90::Split s = dg90::split_of(K, n, nw);
+  cfg[0] = body == dg90::BODY_SPLIT_K ? dg90::SPLIT_BN : 0;
+  cfg[1] = body == dg90::BODY_SPLIT_K ? s.split : 0;
+  cfg[2] = body == dg90::BODY_SPLIT_K ? s.split * s.tiles : 0;
+  return body;
 }

@@ -1,7 +1,10 @@
 """K3a / K3b — the fused decode-tick kernels (``csrc/norm_matmul.cu``,
-``csrc/matmul_residual.cu``, both on the Hopper body of
-``csrc/decode_gemm_sm90.cuh`` in bfloat16) and their plain PyTorch
-versions.
+``csrc/matmul_residual.cu``) and their plain PyTorch versions. In
+bfloat16 both run one of two Hopper bodies, chosen by the shape alone
+(:func:`body`): the split body of ``csrc/decode_gemm_small_sm90.cuh``
+(a column tile a thread-block cluster, K split over its blocks) for at
+most 192 rows over small weights (GPT's widths), the stream-K body of
+``csrc/decode_gemm_sm90.cuh`` otherwise (Llama-3-8B's and Qwen2-7B's).
 
 Counterpart of ``paddle_tpu/ops/pallas/decode_fused.py``:
 
@@ -34,7 +37,7 @@ from ...nn.functional.norm import layer_norm, rms_norm
 from . import _build, held, launch_counts, no_backward
 
 __all__ = ["norm_matmul", "matmul_residual", "plain_norm_matmul",
-           "plain_matmul_residual"]
+           "plain_matmul_residual", "body", "split_config", "BODIES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"rms": 0, "ln": 1}
@@ -46,6 +49,57 @@ _ACTS = {None: 0, "swiglu": 1, "gelu_tanh": 2}
 _BN, _MAX_MG = 128, 3
 _LIBS = {}
 _SCRATCH = {}
+# the bodies of a bfloat16 call, by the code ptt_decode_gemm_body returns,
+# and the rule's bounds (csrc/decode_gemm_small_sm90.cuh: body_of,
+# split_of): the split body takes one row block over at most
+# SPLIT_MAX_WEIGHTS weight elements in SPLIT_BN-column tiles; its
+# clusters hold at most SPLIT_MAX blocks, SPLIT_BLOCKS blocks a call at
+# most where the split is above 1
+BODIES = ("stream_k", "split_k")
+SPLIT_MAX_ROWS = _MAX_MG * 64
+SPLIT_MAX_WEIGHTS = 1 << 23
+SPLIT_BN, SPLIT_MAX, SPLIT_BLOCKS = 128, 8, 96
+_BK = 64
+
+
+def split_config(k, widths):
+    """``(column tile, blocks a cluster, blocks)`` of the split body for
+    a reduction ``k`` over ``widths``: the largest split (at most
+    SPLIT_MAX) that gives every block a 64-deep slice and keeps the
+    blocks within SPLIT_BLOCKS. The mirror of ``split_of`` in
+    ``csrc/decode_gemm_small_sm90.cuh``."""
+    tiles = sum(-(-int(n) // SPLIT_BN) for n in widths)
+    nk = -(-int(k) // _BK)
+    split = max([1] + [s for s in range(2, SPLIT_MAX + 1)
+                       if tiles * s <= SPLIT_BLOCKS
+                       and -(-nk // -(-nk // s)) == s])
+    return SPLIT_BN, split, tiles * split
+
+
+def body(r, k, widths):
+    """The bfloat16 body a K3a call of ``r`` rows over ``k = d`` into
+    ``widths`` (K3b: ``[n]``) takes, one of :data:`BODIES`: ``"split_k"``
+    for one row block (``r <= 192``) over at most SPLIT_MAX_WEIGHTS
+    weight elements, ``"stream_k"`` otherwise. A function of the shape
+    alone, the mirror of ``body_of`` in
+    ``csrc/decode_gemm_small_sm90.cuh`` (:func:`_c_body` asks the
+    library); needs neither the library nor a device."""
+    weights = sum(int(k) * int(n) for n in widths)
+    return BODIES[int(r) <= SPLIT_MAX_ROWS
+                  and weights <= SPLIT_MAX_WEIGHTS]
+
+
+def _c_body(r, k, widths):
+    """``(body, split_config)`` as the built library reports them
+    (``ptt_decode_gemm_body``; the split config None for the stream-K
+    body)."""
+    ns = list(widths) + [0] * (3 - len(widths))
+    cfg = (ctypes.c_int * 3)()
+    code = _lib("norm_matmul").ptt_decode_gemm_body(r, k, *ns, len(widths),
+                                                    cfg)
+    if code < 0:
+        raise ValueError(f"no body for {r} rows, k {k}, widths {widths}")
+    return BODIES[code], (tuple(cfg) if code else None)
 
 
 def plain_norm_matmul(x, gamma, beta, ws, bs, *, eps, kind):
@@ -91,6 +145,8 @@ def _lib(name):
             fn = lib.ptt_norm_matmul
             fn.argtypes = [ptr] * 15 + [i64] * 2 + [i32] * 7 \
                 + [ctypes.c_float, i32, ptr]
+            lib.ptt_decode_gemm_body.argtypes = [i32] * 6 + [ptr]
+            lib.ptt_decode_gemm_body.restype = ctypes.c_int
         else:
             fn = lib.ptt_matmul_residual
             fn.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 5 + [ptr]
@@ -100,11 +156,12 @@ def _lib(name):
 
 
 class _Scratch:
-    """The bfloat16 body's scratch for one stream of one device: the
-    stream-K partials (one slot a block, one block an SM at most), the
-    segments' flags (zeros; each call leaves them zero), K3a's row
-    statistics and K3b's activated rows. Calls on one stream run one
-    after another, so they share it."""
+    """The bfloat16 bodies' scratch for one stream of one device: the
+    workspace (the stream-K partials, one slot a block, one block an SM
+    at most; the split body's normalised K3a rows), the segments' flags
+    (zeros; each call leaves them zero), K3a's row statistics and K3b's
+    activated rows. Calls on one stream run one after another, so they
+    share it."""
 
     def __init__(self, device):
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -115,11 +172,15 @@ class _Scratch:
         self.stats = torch.empty(0, dtype=torch.float32, **mk)
         self.rows = torch.empty(0, dtype=torch.bfloat16, **mk)
 
-    def take(self, rows, col_tiles, stats=0, act=0):
+    def take(self, rows, col_tiles, stats=0, act=0, ws=0):
         """Grow the flags to ``rows`` rows over ``col_tiles`` column
-        tiles, the statistics to ``stats`` floats and the activated rows
-        to ``act`` elements."""
+        tiles, the statistics to ``stats`` floats, the activated rows to
+        ``act`` elements and the workspace to ``ws`` floats (K3a's
+        normalised rows on the split body)."""
         n = col_tiles * -(-rows // (_MAX_MG * 64)) * _MAX_MG
+        if self.ws.numel() < ws:
+            self.ws = torch.empty(ws, device=self.ws.device,
+                                  dtype=torch.float32)
         if self.flags.numel() < n:
             self.flags = torch.zeros(n, device=self.ws.device,
                                      dtype=torch.int32)
@@ -221,7 +282,8 @@ def norm_matmul(x, gamma, beta, ws, bs, *, eps, kind):
     sc, stream = None, torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16:
         _check_bf16([d] + widths, [x2, gamma, beta, *ws, *bs])
-        sc = _scratch(x.device, stream, r, widths, stats=2 * r)
+        sc = _scratch(x.device, stream, r, widths, stats=2 * r,
+                      ws=-(-r * d // 2))
     rc = _lib("norm_matmul").ptt_norm_matmul(
         x2.data_ptr(), gamma.data_ptr(), _ptr(beta), *ptr, *bptr, *optr,
         *_scratch_args(sc, "stats"), r, d, *ns, len(ws), _KINDS[kind],

@@ -2,7 +2,8 @@
 matmul_residual), held against the JAX package's Pallas kernels run in
 interpret mode in every mode (rms and ln with beta, per-projection
 biases, None, swiglu and gelu_tanh), plus the port's own fused ==
-unfused pin for Llama and for Qwen2's biased q/k/v.
+unfused pin for Llama and for Qwen2's biased q/k/v, and the bf16 body
+rule (``df.body``, ``df.split_config``) on each model's four calls.
 
 Tolerances: 1e-5 absolute in float32 against the interpreted kernels
 (the same float32 products summed in another order); the fused decoder
@@ -159,6 +160,52 @@ def test_unsupported_inputs_raise():
         df.norm_matmul(x, x[0], x[0], [w], [None], eps=1e-6, kind="rms")
     with pytest.raises(ValueError, match="biases"):
         df.norm_matmul(x, x[0], None, [w, w], [None], eps=1e-6, kind="rms")
+
+
+# each model's four K3 calls a decoder layer, (K, widths): K3a into
+# q/k/v, K3a into gate/up (GPT: fc1), K3b from o_proj, K3b into down (GPT:
+# fc2)
+K3_CALLS = {
+    "gpt": ((1024, [3072]), (1024, [4096]), (1024, [1024]), (4096, [1024])),
+    "llama3_8b": ((4096, [4096, 1024, 1024]), (4096, [14336, 14336]),
+                  (4096, [4096]), (14336, [4096])),
+    "qwen2_7b": ((3584, [3584, 512, 512]), (3584, [18944, 18944]),
+                 (3584, [3584]), (18944, [3584]))}
+
+
+@pytest.mark.parametrize("model", list(K3_CALLS))
+def test_body_rule_names_each_models_calls(model):
+    """The bf16 body rule, by shape alone: GPT's four calls take the split
+    body at generate()'s 4 rows, the pure tick's 8 and the prefill tick's
+    136 (128-column tiles: q/k/v over clusters of 4, fc1 of 3, out_proj
+    and fc2 of 8; 64-96 blocks), the
+    stream-K body past 192 rows; Llama-3-8B's and Qwen2-7B's take the
+    stream-K body at every row count."""
+    gpt = [(128, 4, 96), (128, 3, 96), (128, 8, 64), (128, 8, 64)]
+    for i, (k, widths) in enumerate(K3_CALLS[model]):
+        for r in (1, 4, 8, 136, 192):
+            assert df.body(r, k, widths) == (
+                "split_k" if model == "gpt" else "stream_k")
+        assert df.body(193, k, widths) == "stream_k"
+        if model == "gpt":
+            assert df.split_config(k, widths) == gpt[i]
+
+
+def test_split_gives_every_cluster_block_a_slice():
+    """The split body's split over depths and widths: every block of a
+    cluster gets at least one 64-deep slice, a cluster holds at most 8
+    blocks, and a split above 1 keeps the call within 96 blocks."""
+    for k in (8, 64, 72, 320, 1000, 1024, 1384, 4040, 4096, 14336):
+        for widths in ([8], [64], [200], [1024], [3072], [64, 128],
+                       [256, 64, 96], [33000]):
+            bn, split, blocks = df.split_config(k, widths)
+            nk = -(-k // 64)
+            per = -(-nk // split)
+            assert bn == 128 and 1 <= split <= df.SPLIT_MAX
+            assert -(-nk // per) == split, (k, widths)
+            tiles = sum(-(-n // bn) for n in widths)
+            assert blocks == tiles * split
+            assert split == 1 or blocks <= df.SPLIT_BLOCKS
 
 
 def _tick(model, seed):

@@ -51,7 +51,13 @@ the LoRA launches, give an exact-zero null delta and the same delta to
 the bit for a row with or without the others, and raise where K4 cannot
 take the shapes; the library's float32 body rule is pinned on both
 sides of each bound, and two calls and a CUDA graph's replay agree to
-the bit."""
+the bit. K3a / K3b run two bfloat16 bodies chosen by the shape alone:
+every mode at GPT's four widths at 1, 4, 8, 136 rows (the split body)
+and 300 (the stream-K body), a K whose last cluster block gets fewer and
+shorter slices, GPT's four calls replayed from a CUDA graph, and
+Llama-3-8B's and Qwen2-7B's four calls on the stream-K body at 1, 8 and
+136 rows are held against the plain versions at 2e-2 and to the bit
+between two calls; the Python body rule is pinned to the library's."""
 from unittest import mock
 
 import numpy as np
@@ -550,10 +556,15 @@ def test_matmul_residual_modes(cuda, dtype, rows, act, with_bias):
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows", [5, 70, 300])
 def test_split_k_paths(cuda, rows):
-    """Few column tiles over a long K: the bfloat16 body cuts each
-    segment of 32 slices into pieces of MIN_PER = 4 slices on as many
-    blocks, and the first piece sums the others' float32 partials in
-    order of K (every mode's epilogue after it)."""
+    """Few column tiles over a long K, both bfloat16 bodies' split of K:
+    at 5 and 70 rows the split body gives each 128-column tile a
+    cluster of 8 blocks of 4 slices, summed over distributed shared memory in
+    rank order; at 300 rows the stream-K body cuts each segment of 32
+    slices into pieces of MIN_PER = 4 slices on as many blocks, and the
+    first piece sums the others' float32 partials in order of K (every
+    mode's epilogue after either)."""
+    assert df.body(rows, 2048, [64, 128]) == (
+        "split_k" if rows <= 192 else "stream_k")
     bf = torch.bfloat16
     x, gamma, beta, res = _k3_inputs(7 + rows, bf, cuda, (rows, 2048),
                                      (2048,), (2048,), (rows, 64))
@@ -576,6 +587,227 @@ def test_split_k_paths(cuda, rows):
         _rows_close(got, df.plain_matmul_residual(xs, w, bias, res,
                                                   act=act), "bfloat16")
         assert torch.equal(got, df.matmul_residual(xs, w, bias, res,
+                                                   act=act))
+
+
+# GPT's four K3 calls (paddle_tpu_torch/models/gpt.py: LayerNorm + beta
+# into q/k/v and into the first MLP linear, each with its bias; the output
+# projection and tanh-gelu into the second MLP linear, each + bias +
+# residual) at generate()'s 4 rows, the decode tick's 1 and 8, the
+# prefill tick's 136 (the split body) and 300 (two row blocks: the
+# stream-K body); every mode of both kernels at those widths.
+GPT_K3_ROWS = [1, 4, 8, 136, 300]
+GPT_K3A_WIDTHS = {"qkv": (1024, 3072), "fc1": (1024, 4096)}
+GPT_K3B_WIDTHS = {"out_proj": (1024, 1024), "fc2": (4096, 1024)}
+
+
+def _gpt_k3a(seed, rows, d, n, mode, dev):
+    kind, has_beta, _, _ = NORM_MODES[mode]
+    x, gamma, beta, w, b = _k3_inputs(seed, torch.bfloat16, dev, (rows, d),
+                                      (d,), (d,), (d, n), (n,))
+    has_bias = mode in ("rms_bias", "ln_beta_bias")
+    return (x + 0.5, 1 + 0.1 * gamma, 0.1 * beta if has_beta else None,
+            [0.03 * w], [b if has_bias else None],
+            dict(eps=1e-5, kind=kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", GPT_K3_ROWS)
+@pytest.mark.parametrize("case", list(GPT_K3A_WIDTHS))
+@pytest.mark.parametrize("mode", list(NORM_MODES))
+def test_norm_matmul_at_gpt_widths(cuda, rows, case, mode):
+    """K3a at GPT's widths: row by row against the plain version, two
+    calls to the bit, one launch a call, on the body the shape rule
+    names."""
+    d, n = GPT_K3A_WIDTHS[case]
+    assert df.body(rows, d, [n]) == ("split_k" if rows <= 192
+                                     else "stream_k")
+    x, gamma, beta, ws, bs, kw = _gpt_k3a(rows + 20, rows, d, n, mode, cuda)
+    n0 = launch_counts["norm_matmul"]
+    (got,) = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
+    (again,) = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
+    assert launch_counts["norm_matmul"] == n0 + 2
+    _rows_close(got, df.plain_norm_matmul(x, gamma, beta, ws, bs, **kw)[0],
+                "bfloat16")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", GPT_K3_ROWS)
+@pytest.mark.parametrize("case", list(GPT_K3B_WIDTHS))
+@pytest.mark.parametrize("act", [None, "swiglu", "gelu_tanh"])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_matmul_residual_at_gpt_widths(cuda, rows, case, act, with_bias):
+    """K3b at GPT's widths, held as K3a's."""
+    k, n = GPT_K3B_WIDTHS[case]
+    assert df.body(rows, k, [n]) == ("split_k" if rows <= 192
+                                     else "stream_k")
+    gate, up, res, w, b = _k3_inputs(rows + 30, torch.bfloat16, cuda,
+                                     (rows, k), (rows, k), (rows, n),
+                                     (k, n), (n,))
+    xs = [gate, up] if act == "swiglu" else [gate]
+    w, b = 0.03 * w, b if with_bias else None
+    n0 = launch_counts["matmul_residual"]
+    got = df.matmul_residual(xs, w, b, res, act=act)
+    again = df.matmul_residual(xs, w, b, res, act=act)
+    assert launch_counts["matmul_residual"] == n0 + 2
+    _rows_close(got, df.plain_matmul_residual(xs, w, b, res, act=act),
+                "bfloat16")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [3, 136])
+@pytest.mark.parametrize("k", [1384, 1000, 4040])
+def test_split_body_short_last_slice(cuda, rows, k):
+    """The split body where K's slices do not fill the cluster evenly: at
+    K 1384 (22 slices, the last 40 deep) each of a tile's 8 blocks takes
+    3 slices and the last block 1, at K 1000 (16 slices) 2 each, the last
+    short, at K 4040 (64 slices, the last 8 deep) 8 each, and K3a's norm
+    pre-pass reads a row past 2048 in passes; K3a (ln + beta, two
+    projections, biases) and K3b (gelu + bias) against their plain
+    versions, to the bit on a second call."""
+    assert df.split_config(k, [1024]) == (128, 8, 64)
+    assert df.body(rows, k, [1024, 512]) == "split_k"
+    x, gamma, beta, res = _k3_inputs(k + rows, torch.bfloat16, cuda,
+                                     (rows, k), (k,), (k,), (rows, 1024))
+    ws = [0.03 * w for w in _k3_inputs(k + 1, torch.bfloat16, cuda,
+                                       (k, 1024), (k, 512))]
+    bs = _k3_inputs(k + 2, torch.bfloat16, cuda, (1024,), (512,))
+    kw = dict(eps=1e-5, kind="ln")
+    got = df.norm_matmul(x, gamma, beta, ws, bs, **kw)
+    for a, b, c in zip(got, df.plain_norm_matmul(x, gamma, beta, ws, bs,
+                                                 **kw),
+                       df.norm_matmul(x, gamma, beta, ws, bs, **kw)):
+        _rows_close(a, b, "bfloat16")
+        assert torch.equal(a, c)
+    w = 0.03 * _k3_inputs(k + 3, torch.bfloat16, cuda, (k, 1024))[0]
+    got = df.matmul_residual([x], w, bs[0], res, act="gelu_tanh")
+    _rows_close(got, df.plain_matmul_residual([x], w, bs[0], res,
+                                              act="gelu_tanh"), "bfloat16")
+    assert torch.equal(got, df.matmul_residual([x], w, bs[0], res,
+                                               act="gelu_tanh"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 136])
+def test_gpt_k3_graph_replay_equals_eager(cuda, rows):
+    """GPT's four K3 calls captured in a CUDA graph: the replay, its
+    inputs rewritten in place after the capture, equals the eager calls
+    on the new inputs to the bit."""
+    bf = torch.bfloat16
+    x, res, g = _k3_inputs(rows, bf, cuda, (rows, 1024), (rows, 1024),
+                           (rows, 4096))
+    params = _k3_inputs(rows + 1, bf, cuda, (1024,), (1024,), (1024, 3072),
+                        (3072,), (1024, 4096), (4096,), (1024, 1024),
+                        (1024,), (4096, 1024), (1024,))
+    gamma, beta, wq, bq, w1, b1, wo, bo, w2, b2 = params
+    kw = dict(eps=1e-5, kind="ln")
+
+    def layer():
+        (qkv,) = df.norm_matmul(x, gamma, beta, [wq], [bq], **kw)
+        (h,) = df.norm_matmul(res, gamma, beta, [w1], [b1], **kw)
+        return (qkv, h, df.matmul_residual([x], wo, bo, res),
+                df.matmul_residual([g], w2, b2, res, act="gelu_tanh"))
+
+    first = layer()
+    assert all(torch.equal(a, b) for a, b in zip(first, layer()))
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        layer()                     # warm-up on the side stream
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = layer()
+    for dst, src in zip((x, res, g), _k3_inputs(rows + 2, bf, cuda,
+                                                (rows, 1024), (rows, 1024),
+                                                (rows, 4096))):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = layer()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+    assert not torch.equal(captured[0], first[0])
+
+
+# each model's four K3 calls a decoder layer: (K3a q/k/v, K3a gate/up or
+# fc1, K3b o_proj, K3b down or fc2) as (K, widths)
+K3_MODEL_CALLS = {
+    "gpt": ((1024, [3072]), (1024, [4096]), (1024, [1024]), (4096, [1024])),
+    "llama3_8b": ((4096, [4096, 1024, 1024]), (4096, [14336, 14336]),
+                  (4096, [4096]), (14336, [4096])),
+    "qwen2_7b": ((3584, [3584, 512, 512]), (3584, [18944, 18944]),
+                 (3584, [3584]), (18944, [3584]))}
+
+
+@pytest.mark.gpu
+def test_decode_gemm_body_rule(cuda):
+    """The Python rule (``df.body``, ``df.split_config``) equals the
+    library's (``ptt_decode_gemm_body``) over rows, depths and widths on
+    both sides of each bound; GPT's four calls take the split body at
+    generate()'s 4 rows, the decode tick's 8 and the prefill tick's 136
+    (128-column tiles: q/k/v over clusters of 4, fc1 of 3, out_proj and
+    fc2 of 8), Llama-3-8B's and
+    Qwen2-7B's the stream-K body at every width."""
+    top = df.SPLIT_MAX_WEIGHTS
+    shapes = [(k, w) for calls in K3_MODEL_CALLS.values() for k, w in calls]
+    shapes += [(320, [256, 64, 96]), (320, [200]), (2048, [64, 128]),
+               (1384, [1024, 512]), (8, [8]), (64, [top // 64]),
+               (64, [top // 64 + 8]), (1024, [top // 1024 - 8, 8]),
+               (1024, [top // 1024, 8]), (72, [8, 8, 8]),
+               (65536, [64]), (256, [33000])]
+    for r in (1, 4, 8, 64, 65, 136, 192, 193, 300):
+        for k, w in shapes:
+            want = df.body(r, k, w)
+            assert df._c_body(r, k, w) == (
+                want, df.split_config(k, w) if want == "split_k" else None)
+    split = {"gpt": ((128, 4, 96), (128, 3, 96), (128, 8, 64),
+                     (128, 8, 64))}
+    for model, calls in K3_MODEL_CALLS.items():
+        for r in (4, 8, 136):
+            for i, (k, w) in enumerate(calls):
+                body, cfg = df._c_body(r, k, w)
+                assert body == ("split_k" if model == "gpt"
+                                else "stream_k"), (model, r, k, w)
+                if model == "gpt":
+                    assert cfg == split["gpt"][i]
+        assert {df.body(300, k, w) for k, w in calls} == {"stream_k"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 136])
+@pytest.mark.parametrize("model", ["llama3_8b", "qwen2_7b"])
+def test_stream_k_body_at_llama_and_qwen2_widths(cuda, rows, model):
+    """The stream-K body at the rows the split body now takes at small
+    widths: Llama-3-8B's and Qwen2-7B's four calls (rms, no biases;
+    swiglu into down) against their plain versions, to the bit on a
+    second call."""
+    bf = torch.bfloat16
+    (kq, wq), (kg, wg), (ko, wo), (kd, wd) = K3_MODEL_CALLS[model]
+    x, gamma, res, gate, up = _k3_inputs(rows + 40, bf, cuda, (rows, kq),
+                                         (kq,), (rows, kq), (rows, kd),
+                                         (rows, kd))
+    gamma = 1 + 0.1 * gamma
+    kw = dict(eps=1e-6, kind="rms")
+    for widths in (wq, wg):
+        ws = [0.02 * w for w in _k3_inputs(rows + 41, bf, cuda,
+                                           *[(kq, n) for n in widths])]
+        assert df.body(rows, kq, widths) == "stream_k"
+        got = df.norm_matmul(x, gamma, None, ws, [None] * len(ws), **kw)
+        for a, b, c in zip(got, df.plain_norm_matmul(
+                x, gamma, None, ws, [None] * len(ws), **kw),
+                df.norm_matmul(x, gamma, None, ws, [None] * len(ws), **kw)):
+            _rows_close(a, b, "bfloat16")
+            assert torch.equal(a, c)
+        del ws
+    for k, xs, act in ((ko, [x], None), (kd, [gate, up], "swiglu")):
+        w = 0.02 * _k3_inputs(rows + 42, bf, cuda, (k, kq))[0]
+        assert df.body(rows, k, [kq]) == "stream_k"
+        got = df.matmul_residual(xs, w, None, res, act=act)
+        _rows_close(got, df.plain_matmul_residual(xs, w, None, res,
+                                                  act=act), "bfloat16")
+        assert torch.equal(got, df.matmul_residual(xs, w, None, res,
                                                    act=act))
 
 

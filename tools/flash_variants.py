@@ -12,6 +12,7 @@ Run from the root of a checkout:
     python3 tools/flash_variants.py --only paged OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --only lora OLD/csrc paddle_tpu_torch/csrc
     python3 tools/flash_variants.py --sweep paddle_tpu_torch/csrc
+    python3 tools/flash_variants.py --only k3 --sweep paddle_tpu_torch/csrc
 
 Each directory's ``flash_attention_fwd``, ``flash_attention_bwd``,
 ``flashmask_fwd``, ``flashmask_bwd`` and ``moe_gmm`` sources (``--only
@@ -32,8 +33,18 @@ projections (``norm_matmul`` K3a into q/k/v and into gate/up,
 ``matmul_residual`` K3b from the O-projection and from swiglu into the
 down-projection) at Llama-3-8B and Qwen2-7B widths and R = 8, 136 and
 512 rows, through either entry point: a tree with
-``decode_gemm_sm90.cuh`` has the Hopper body's, an older one the
-``mma.sync`` body's (K splits chosen as its wrapper chose them). ``--only
+``decode_gemm_sm90.cuh`` has the Hopper entry points, an older one the
+``mma.sync`` body's (K splits chosen as its wrapper chose them); where
+every tree has the Hopper entry points, also GPT's four calls
+(``GPTConfig()``: ``ln`` + beta + bias into q/k/v 1024 -> 3072 and fc1
+1024 -> 4096, ``act=None`` + bias from out_proj 1024 -> 1024,
+``gelu_tanh`` + bias into fc2 4096 -> 1024) at 4, 8 and 136 rows; each
+K3 output is held against its plain version at ``K3_RTOL`` row-relative
+(the run fails otherwise). ``--only k3 --sweep DIR`` builds one tree
+once per ``K3_SWEEP`` entry (the shape rule as it stands, the stream-K
+body everywhere, the split body wherever it takes the rows, the split
+body aiming at 64 or 128 blocks, or in 64-column tiles) and times every
+K3 case on each, in turns: the measurement behind the rule. ``--only
 paged``: the paged attention kernels, cold (their pools copied past the
 50 MB L2 and taken in turn, as ``chip_smoke.py``'s phase 2 times them):
 K2r at both of phase 2's ticks (``RAGGED_TICKS``: 7 decode rows + a
@@ -95,6 +106,18 @@ FAMILIES = {"flash": ("flash_attention_fwd", "flash_attention_bwd",
 K3_ROWS = (8, 136, 512)
 K3_WIDTHS = {"llama": (4096, 1024, 14336),    # d, k / v width, ffn
              "qwen2": (3584, 512, 18944)}
+K3_GPT = (1024, 4096)                          # GPTConfig(): d, ffn
+K3_GPT_ROWS = (4, 8, 136)
+K3_RTOL = 2e-2      # a K3 output against its plain version, row-relative
+# --only k3 --sweep: the shape rule's bounds a build of one tree moves
+# (csrc/decode_gemm_small_sm90.cuh) to time both bodies on every case, and
+# the split body's other block targets and tile width
+K3_SWEEP = {"rule": [],
+            "stream_k": ["-DPTT_DG_SPLIT_MAX_WEIGHTS=0"],
+            "split_k": ["-DPTT_DG_SPLIT_MAX_WEIGHTS=1000000000000"],
+            "split_k 64 blocks": ["-DPTT_DG_SPLIT_BLOCKS=64"],
+            "split_k 128 blocks": ["-DPTT_DG_SPLIT_BLOCKS=128"],
+            "split_k bn64": ["-DPTT_DG_SPLIT_BN=64"]}
 SWEEP_ROWS = (8, 16, 24, 32, 48, 64, 128, 256, 768)
 # --only paged: the prefill chunk of phase 2's tick alone (slot 7, context
 # 513) and in slot 0 (context 2048): rows a slot
@@ -112,6 +135,10 @@ def kernel_name(line):
     k = re.search(r"(\w+_tma_kernel)ILi(\d+)ENS0_\d+(\w+?)EE", line)
     if k:
         return f"{k[1]}<{k[2]}, {k[3]}>"
+    k = re.search(r"decode_gemm_splitILi(\d)ELi(\d+)ELi(\d)ELb(\d)E", line)
+    if k:   # row groups, tile width, prologue, rows from the pre-pass
+        return (f"decode_gemm_split<{k[1]}, {k[2]}, {k[3]}, "
+                f"{'true' if k[4] == '1' else 'false'}>")
     k = re.search(r"dg90\d+(?:_GLOBAL__N_1\d+)?decode_gemmILi(\d)ELi(\d)"
                   r"ELb(\d)E", line)
     if k:   # row groups, prologue, rows from the pre-pass
@@ -444,15 +471,21 @@ def mma_splits(torch, rows, k, widths):
 
 
 def k3_kernels(torch, cs, libs, rnd, P, st):
-    """K3a and K3b at K3_WIDTHS and K3_ROWS, bf16, rms without biases
-    (what both bodies take): per version, {name: (launch, outputs)}."""
+    """K3a and K3b, bf16: rms without biases (what every body takes) at
+    K3_WIDTHS and K3_ROWS, and, where every tree has the Hopper entry
+    points, GPT's four calls (``ln`` + beta + bias into q/k/v and fc1,
+    ``act=None`` + bias from out_proj, ``gelu_tanh`` + bias into fc2) at
+    K3_GPT_ROWS; each case's plain version kept in PLAIN. Per version,
+    {name: (launch, outputs)}."""
+    from paddle_tpu_torch.ops.kernels import decode_fused as df
     f32 = dict(device="cuda", dtype=torch.float32)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ws = torch.empty(sms * 4 * 32 * 128 * 4, **f32)   # any body's partials
     flags = torch.zeros(1 << 16, device="cuda", dtype=torch.int32)
-    rows = torch.empty(max(K3_ROWS) * max(w[2] for w in K3_WIDTHS.values()),
-                       device="cuda", dtype=torch.bfloat16)   # any scratch
-    cases = []
+    rows = torch.empty(max(K3_ROWS + K3_GPT_ROWS) * max(
+        [w[2] for w in K3_WIDTHS.values()] + [K3_GPT[1]]),
+        device="cuda", dtype=torch.bfloat16)   # any scratch
+    cases = []   # name, kind, a, b, weights, act, K, beta, biases
     for model, (d, kv, ffn) in K3_WIDTHS.items():
         gamma = 1 + 0.1 * rnd(d)
         qkv = [0.02 * rnd(d, n) for n in (d, kv, kv)]
@@ -462,43 +495,77 @@ def k3_kernels(torch, cs, libs, rnd, P, st):
             x, res, g, u = rnd(r, d), rnd(r, d), rnd(r, ffn), rnd(r, ffn)
             for tag, w3 in (("qkv", qkv), ("gate/up", gu)):
                 cases.append((f"K3a {tag} {model} R={r}", "nm", x, gamma,
-                              w3, None, d))
+                              w3, None, d, None, None))
             cases.append((f"K3b o {model} R={r}", "mr", [x], res, [wo],
-                          None, d))
+                          None, d, None, None))
             cases.append((f"K3b down {model} R={r}", "mr", [g, u], res,
-                          [wd], "swiglu", ffn))
+                          [wd], "swiglu", ffn, None, None))
+    if all(lib["sm90"] for lib in libs):
+        d, ffn = K3_GPT
+        gamma, beta = 1 + 0.1 * rnd(d), 0.1 * rnd(d)
+        wq, w1 = 0.02 * rnd(d, 3 * d), 0.02 * rnd(d, ffn)
+        wo, w2 = 0.02 * rnd(d, d), 0.02 * rnd(ffn, d)
+        bq, b1, bo, b2 = (0.1 * rnd(n) for n in (3 * d, ffn, d, d))
+        for r in K3_GPT_ROWS:
+            x, res, g = rnd(r, d), rnd(r, d), rnd(r, ffn)
+            cases += [(f"K3a qkv gpt R={r}", "nm", x, gamma, [wq], None, d,
+                       beta, [bq]),
+                      (f"K3a fc1 gpt R={r}", "nm", x, gamma, [w1], None, d,
+                       beta, [b1]),
+                      (f"K3b out_proj gpt R={r}", "mr", [x], res, [wo], None,
+                       d, None, [bo]),
+                      (f"K3b fc2 gpt R={r}", "mr", [g], res, [w2],
+                       "gelu_tanh", ffn, None, [b2])]
+    for name, kind, a, b, w, fn_act, k, beta, bias in cases:
+        if kind == "nm":
+            eps = 1e-5 if beta is not None else 1e-6
+            PLAIN[name] = df.plain_norm_matmul(
+                a, b, beta, w, bias or [None] * len(w), eps=eps,
+                kind="ln" if beta is not None else "rms")[0]
+        else:
+            PLAIN[name] = df.plain_matmul_residual(
+                a, w[0], bias[0] if bias else None, b, act=fn_act)
+    acts = {None: 0, "swiglu": 1, "gelu_tanh": 2}
 
-    def call(lib, kind, a, b, w, fn_act, k):
+    def ptrs(ts):   # three pointers, None past the tensors
+        return [P(t) for t in ts] + [None] * (3 - len(ts))
+
+    # every address is taken as the launch runs: a tensor referenced only
+    # by an address taken here would be freed when this function returns
+    # and its memory handed to the next allocation
+    def call(lib, kind, a, b, w, fn_act, k, beta, bias):
         r = a.shape[0] if kind == "nm" else b.shape[0]
         widths = [t.shape[1] for t in w]
         outs = [torch.empty(r, n, device="cuda", dtype=torch.bfloat16)
                 for n in widths]
-        pw = [P(t) for t in w] + [None] * (3 - len(w))
-        po = [P(t) for t in outs] + [None] * (3 - len(w))
+        bias = bias or []
         ns = widths + [0] * (3 - len(w))
-        if lib["sm90"]:   # the scratch's addresses taken as the launch runs
+        ln = beta is not None
+        if lib["sm90"]:
             if kind == "nm":
                 return (lambda: lib["norm_matmul"].ptt_norm_matmul(
-                    P(a), P(b), None, *pw, None, None, None, *po, P(rows),
-                    P(ws), P(flags), ws.numel(), flags.numel(), r, k, *ns,
-                    len(w), 0, 1e-6, 1, st)), outs
+                    P(a), P(b), P(beta) if ln else None, *ptrs(w),
+                    *ptrs(bias), *ptrs(outs), P(rows), P(ws), P(flags),
+                    ws.numel(), flags.numel(), r, k, *ns, len(w), int(ln),
+                    1e-5 if ln else 1e-6, 1, st)), outs
             return (lambda: lib["matmul_residual"].ptt_matmul_residual(
-                P(a[0]), P(a[-1]) if fn_act else None, P(w[0]), None, P(b),
-                P(outs[0]), P(rows), P(ws), P(flags), rows.numel(), ws.numel(),
-                flags.numel(), r, k, ns[0], 1 if fn_act else 0, 1, st)), outs
+                P(a[0]), P(a[-1]) if fn_act == "swiglu" else None, P(w[0]),
+                ptrs(bias)[0], P(b), P(outs[0]), P(rows), P(ws), P(flags),
+                rows.numel(), ws.numel(), flags.numel(), r, k, ns[0],
+                acts[fn_act], 1, st)), outs
         n_split = mma_splits(torch, r, k, widths)
         part = torch.empty(n_split * r * sum(widths), **f32)
         if kind == "nm":
             return (lambda: lib["norm_matmul"].ptt_norm_matmul(
-                P(a), P(b), *pw, *po, P(rows), P(part), r, k, *ns, len(w),
-                n_split, 1e-6, 1, st)), outs
+                P(a), P(b), *ptrs(w), *ptrs(outs), P(rows), P(part), r, k,
+                *ns, len(w), n_split, 1e-6, 1, st)), outs
         return (lambda: lib["matmul_residual"].ptt_matmul_residual(
             P(a[0]), P(a[-1]) if fn_act else None, P(w[0]), None, P(b),
             P(outs[0]), P(part), r, k, ns[0], 1 if fn_act else 0, n_split, 1,
             st)), outs
 
-    return [{name: call(lib, kind, a, b, w, fn_act, k)
-             for name, kind, a, b, w, fn_act, k in cases} for lib in libs]
+    return [{name: call(lib, *rest) for name, *rest in cases}
+            for lib in libs]
 
 
 def paged_kernels(torch, cs, libs, rnd, P, st):
@@ -802,11 +869,17 @@ def main(argv):
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flashmask as fm
 
-    families = ["moe"] if args.sweep else \
+    k3_sweep = args.sweep and args.only == "k3"
+    families = ["k3"] if k3_sweep else ["moe"] if args.sweep else \
         [args.only] if args.only else sorted(FAMILIES)
     print(cs.card_line(), flush=True)
     dirs, flags = args.dirs, None
-    if args.sweep:
+    if k3_sweep:
+        dirs = dirs * len(K3_SWEEP)
+        flags = list(K3_SWEEP.values())
+        args.dirs = [f"{args.dirs[0]} ({v})" for v in K3_SWEEP]
+        args.sweep = False
+    elif args.sweep:
         dirs = dirs * len(SWEEP_BODIES)
         flags = [[f"-DPTT_MOE_SM90_MIN_ROWS={v}"]
                  for v in SWEEP_BODIES.values()]
@@ -856,7 +929,9 @@ def main(argv):
             if name in PLAIN:
                 err = cs.row_rel_err(got[0], PLAIN[name])
                 diff += ", against plain row_rel_err %.2e" % err
-                if name.startswith("lora") and not err <= LORA_RTOL:
+                limit = LORA_RTOL if name.startswith("lora") else \
+                    K3_RTOL if name.startswith("K3") else None
+                if limit is not None and not err <= limit:
                     failed.append(f"[{i}] {name}")
                     diff += " FAIL"
             if not same and name.endswith("f32pool"):
