@@ -269,13 +269,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     and the kernels against K4's plain versions (phase 4's rule under each
     stream's adapter); (c) GPT at ``GPTConfig()``'s widths, 2 layers,
     float32, ``qkv_proj`` / ``out_proj`` adapters, batched equal to solo;
-22. print the kernels line, the card's name and power limit, and the
+22. the monitor modules on the graphed tick (run after phase 21, on phase
+    3's model and traffic): (a) telemetry on (tracing and health, the
+    defaults) against off (``health=False``, ``PADDLE_TPU_TRACE=0``) in
+    turns A B B A, a fresh engine a run: streams equal bit for bit, graphs
+    equal in number, each run's tokens/s, TTFT, ms a pure tick (16 timed)
+    and host gap; (b) ``stats()['roofline']`` of every captured layout
+    (counted FLOPs and bytes over the measured tick: step_mfu,
+    step_hbm_bw_util; a pure layout's bytes within 2x of the weights') and
+    ``kernel_census()`` (graph nodes by type, kernel nodes and their
+    symbols, the hand-written kernels a replay launches: K3a / K3b twice a
+    layer, K2r once), and the registry's ``serving_*`` samples; (c)
+    ``dump_trace`` (the documented tids) and ``profile(4)`` (a
+    torch.profiler trace under ``build/phase22`` in which K3's and K2r's
+    kernels appear by name); (d) a float32 2-layer engine at Llama-3-8B
+    widths with an LM-head column at inf fires ``nonfinite_logits`` and
+    captures no graph more than a clean one;
+23. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
 16, 17 and 18, both waves of phase 19 (b), each run of phase 20 (a)-(c)
-and (e) in bf16, each LoRA run and batch of phase 21) runs with every
+and (e) in bf16, each LoRA run and batch of phase 21, each run of phase
+22 (a)) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -5282,6 +5299,273 @@ def lora_phase(torch, kernels, mg, ServingEngine, ServingConfig, LlamaConfig,
         f"{launches}")
     return launches
 
+# ---------------------------------------------------------------- phase 22
+
+PHASE3 = dict(num_slots=8, block_size=16, max_model_len=2048,
+              prefill_chunk=128, max_new_tokens=32)
+TELEMETRY_PURE_TICKS = 16            # timed pure ticks a run
+TELEMETRY_PROFILE_TICKS = 4
+K3_SYMBOL = "decode_gemm"            # K3a / K3b bodies' kernel names
+K2_SYMBOL = "paged_attention"        # K2r's
+
+
+def telemetry_run(torch, kernels, ServingEngine, ServingConfig, model,
+                  prompts, lens, tag, on):
+    """One run of phase 22 (a): a fresh engine of phase 3's config with
+    the telemetry on (the defaults: tracing and health) or off
+    (``health=False`` and ``PADDLE_TPU_TRACE=0``) serves phase 3's wave
+    (:func:`serve_run`), then a cold wave of 8 prompts is stepped past
+    its prefills and TELEMETRY_PURE_TICKS pure ticks are timed on the
+    host's clock. Returns ``(engine, launches, stats, streams, ms a pure
+    tick)``; the engine stays up for (b) and (c)."""
+    env = {} if on else {"PADDLE_TPU_TRACE": "0"}
+    with mock.patch.dict(os.environ, env):
+        engine = ServingEngine(model, ServingConfig(**PHASE3, health=on),
+                               device="cuda")
+    launches, st, streams = serve_run(torch, kernels, engine, prompts, lens,
+                                      tag, SERVING_KERNELS)
+    engine.purge_published()
+    for p in prompts[:8]:
+        engine.submit(p)
+    while engine.num_queued or any(s is not None and s.pend_pos is not None
+                                   for s in engine._slots):
+        engine.step()
+    p0 = engine.stats()["pure_ticks"]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(TELEMETRY_PURE_TICKS):
+        engine.step()
+    torch.cuda.synchronize()
+    pure_ms = 1e3 * (time.monotonic() - t0) / TELEMETRY_PURE_TICKS
+    if engine.stats()["pure_ticks"] - p0 < TELEMETRY_PURE_TICKS:
+        raise AssertionError(f"{tag}: the timed ticks were not all pure")
+    engine.run()
+    return engine, launches, st, streams, pure_ms
+
+
+def telemetry_numbers(torch, engine, n_params, fails):
+    """Phase 22 (b): the roofline of each captured layout (its counted
+    FLOPs and bytes over its measured tick time), the kernel census of
+    each (graph nodes by type, kernel nodes, the hand-written kernels'
+    launches a replay adds, K3a / K3b / K2r among them and among the
+    graph's kernel symbols), and the registry's ``serving_*`` samples.
+    A pure layout's counted bytes must lie within 2x of the weights'
+    (a miscounted cost otherwise)."""
+    from paddle_tpu_torch import monitor
+    layers = engine.model.config.num_hidden_layers
+    st = engine.stats()
+    roof = st["roofline"]
+    log(f"phase 22 (b) roofline: peaks {roof['peak_flops_per_s'] / 1e12} "
+        f"TFLOP/s, {roof['peak_hbm_bytes_per_s'] / 1e12} TB/s (spec "
+        f"sheet), ridge {roof['ridge_flops_per_byte']} FLOP/B, cpu_proxy "
+        f"{roof['cpu_proxy']}; card {card_line()}")
+    weights = 2 * n_params
+    for name, r in sorted(roof["per_executable"].items()):
+        log(f"  {name}: {r['flops'] / 1e9:.3f} GFLOP, "
+            f"{r['bytes_accessed'] / 1e9:.4f} GB, intensity "
+            f"{r['arithmetic_intensity']} ({r['bound']}), ticks "
+            f"{r['ticks']}, tick {r['step_time_ms']} ms -> step_mfu "
+            f"{r['mfu']}, step_hbm_bw_util {r['hbm_bw_util']}")
+        if "-pure-" in name and not \
+                0.5 * weights <= r["bytes_accessed"] <= 2 * weights:
+            fails.append(f"{name}: counted {r['bytes_accessed']:.4g} bytes "
+                         f"against {weights:.4g} of weights")
+        if "-pure-" in name and r["ticks"] and not 0 < r["mfu"] < 1:
+            fails.append(f"{name}: step_mfu {r['mfu']}")
+    census = engine.kernel_census()
+    want = {"norm_matmul": 2 * layers, "matmul_residual": 2 * layers,
+            "ragged_paged_attention": layers}
+    for name, c in sorted(census.items()):
+        syms = c.get("kernel_names", {})
+        k3 = sum(n for k, n in syms.items() if K3_SYMBOL in k)
+        k2 = sum(n for k, n in syms.items() if K2_SYMBOL in k)
+        top = sorted(syms.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  census {name}: graph nodes {c['graph_nodes']}, kernel "
+            f"nodes {c['kernel_nodes']}, launch proxy {c['launch_proxy']}; "
+            f"hand-written kernels a replay {c['kernels']}; kernel nodes "
+            f"named {K3_SYMBOL}* {k3}, {K2_SYMBOL}* {k2}; top symbols "
+            f"{[(k[:60], n) for k, n in top]}")
+        got = {k: c["kernels"].get(k, 0) for k in want}
+        if got != want:
+            fails.append(f"census {name}: {got}, want {want}")
+        if syms and not (k3 >= 4 * layers and k2 >= layers):
+            fails.append(f"census {name}: kernel symbols {K3_SYMBOL} {k3}, "
+                         f"{K2_SYMBOL} {k2}")
+        if c["kernel_nodes"] != c["graph_nodes"].get("kernel"):
+            fails.append(f"census {name}: kernel nodes disagree")
+    rows = [r for r in monitor.get_registry().collect()
+            if r["name"].startswith("serving_")
+            and r["kind"] in ("counter", "histogram")]
+    log("  registry (process-wide, every engine so far): " + "; ".join(
+        f"{r['name']}{r['labels'] or ''}="
+        f"{r['value']['count'] if r['kind'] == 'histogram' else r['value']}"
+        for r in rows))
+    return roof, census
+
+
+def telemetry_files(torch, engine, prompts, fails):
+    """Phase 22 (c): ``dump_trace`` writes a Chrome trace whose tids are
+    the documented ones (0 the ticks, 1 + i slot i, the last the queue);
+    ``profile(TELEMETRY_PROFILE_TICKS)`` over a cold wave's pure ticks
+    writes a torch.profiler trace in which K3's and K2r's kernels appear
+    by name, replayed from the graphs."""
+    out = os.path.join(HERE, "build", "phase22")
+    n_slots = engine.config.num_slots
+    path = engine.dump_trace(os.path.join(out, "serve_trace.json"))
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    tids = {e["tid"] for e in evs if e["ph"] != "M"}
+    names = {e["tid"]: e["args"]["name"] for e in evs
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    want = {0: "engine", n_slots + 1: "queue",
+            **{1 + i: f"slot {i}" for i in range(n_slots)}}
+    if names != want or not tids <= set(want):
+        fails.append(f"trace tids {sorted(tids)}, names {names}")
+    kinds = {}
+    for e in evs:
+        if e["ph"] == "M":
+            continue
+        key = e["name"]
+        if key.startswith("req"):       # one span a request: by kind
+            key = "req queued" if key.endswith(" queued") else "req"
+        kinds[key] = kinds.get(key, 0) + 1
+    log(f"phase 22 (c) trace: {path}, {os.path.getsize(path)} bytes, "
+        f"{len(evs)} events, tids {sorted(tids)}; events by name "
+        f"{dict(sorted(kinds.items()))}")
+    engine.purge_published()
+    for p in prompts[:8]:
+        engine.submit(p)
+    while engine.num_queued or any(s is not None and s.pend_pos is not None
+                                   for s in engine._slots):
+        engine.step()
+    c0 = engine.stats()["profile_captures"]
+    engine.profile(TELEMETRY_PROFILE_TICKS, os.path.join(out, "profile"))
+    for _ in range(TELEMETRY_PROFILE_TICKS):
+        engine.step()
+    engine.run()
+    st = engine.stats()
+    prof = engine._prof.last_file
+    if st["profile_captures"] != c0 + 1 or not prof \
+            or not os.path.exists(prof):
+        fails.append(f"profile: captures {st['profile_captures']}, file "
+                     f"{prof}")
+        return
+    with open(prof) as f:
+        pdoc = json.load(f)
+    kern = {}
+    for e in pdoc.get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            kern[e["name"]] = kern.get(e["name"], 0) + 1
+    k3 = sum(n for k, n in kern.items() if K3_SYMBOL in k)
+    k2 = sum(n for k, n in kern.items() if K2_SYMBOL in k)
+    layers = engine.model.config.num_hidden_layers
+    log(f"phase 22 (c) profile: {prof}, {os.path.getsize(prof)} bytes, "
+        f"{sum(kern.values())} kernel events over "
+        f"{TELEMETRY_PROFILE_TICKS} ticks; {K3_SYMBOL}* {k3}, "
+        f"{K2_SYMBOL}* {k2}")
+    # the window's edges may clip a kernel or two: ask for all but one
+    # tick's worth
+    if k3 < 4 * layers * (TELEMETRY_PROFILE_TICKS - 1) \
+            or k2 < layers * (TELEMETRY_PROFILE_TICKS - 1):
+        fails.append(f"profile: K3 kernels {k3}, K2r kernels {k2}")
+
+
+def telemetry_probe(torch, ServingEngine, ServingConfig, LlamaConfig,
+                    LlamaForCausalLM, fails):
+    """Phase 22 (d): a float32 engine at Llama-3-8B widths cut to
+    PHASE4_LAYERS layers serves a wave clean, then with one LM-head
+    column set to inf: the probe inside the captured ticks fires
+    ``nonfinite_logits`` and counts ticks, and the poisoned engine
+    captures as many graphs as the clean one."""
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = PHASE4_LAYERS
+    model = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 1)
+    rng = np.random.RandomState(SEED + 2200)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (40, 150, 70)]
+    kw = dict(num_slots=4, block_size=16, max_model_len=512,
+              prefill_chunk=128, max_new_tokens=8)
+    res = []
+    for poisoned in (False, True):
+        if poisoned:
+            with torch.no_grad():
+                model.lm_head.weight[:, 7] = float("inf")
+        engine = ServingEngine(model, ServingConfig(**kw), device="cuda")
+        engine.serve(prompts, 8)
+        st = engine.stats()
+        res.append((st["nonfinite_logits_ticks"], st["ticks"],
+                    st["executables_compiled"],
+                    engine.health()["alerts_firing"]))
+        engine.shutdown(check_leaks=not poisoned)
+        del engine
+    log(f"phase 22 (d) probe, f32 {PHASE4_LAYERS} layers at Llama-3-8B "
+        f"widths: clean (non-finite ticks, ticks, graphs, alerts) {res[0]}"
+        f"; LM-head column 7 at inf {res[1]}")
+    (n0, _, g0, a0), (n1, t1, g1, a1) = res
+    if n0 or a0 or not n1 or "nonfinite_logits" not in a1 or g1 != g0:
+        fails.append(f"probe: clean {res[0]}, poisoned {res[1]}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def telemetry_phase(torch, kernels, ServingEngine, ServingConfig,
+                    LlamaConfig, LlamaForCausalLM, model, prompts, lens):
+    """Phase 22, the monitor modules on the graphed tick (phase 3's model
+    and traffic): (a) telemetry on against off, in turns A B B A, equal
+    streams bit for bit and equal graphs in number, each run's tokens/s,
+    TTFT, ms a pure tick and host gap; (b) the roofline and kernel census
+    of the last telemetry-on run (:func:`telemetry_numbers`); (c) the
+    trace and profile files (:func:`telemetry_files`); (d) the non-finite
+    probe (:func:`telemetry_probe`). Returns the serving kernels'
+    launches of (a)'s runs."""
+    t_phase = time.monotonic()
+    fails = []
+    n_params = sum(p.numel() for p in model.parameters())
+    launches = {k: 0 for k in SERVING_KERNELS}
+    runs, want, keep = [], None, None
+    for k, on in enumerate((True, False, False, True)):
+        tag = f"phase 22 (a) run {k + 1} telemetry {'on' if on else 'off'}"
+        engine, got, st, streams, pure_ms = telemetry_run(
+            torch, kernels, ServingEngine, ServingConfig, model, prompts,
+            lens, tag, on)
+        for name in SERVING_KERNELS:
+            launches[name] += got[name]
+        gap = st["host_gap_ms"]
+        runs.append(dict(on=on, tok_s=32 * len(prompts) / st["wall_s"],
+                         ttft=st["ttft_ms"]["mean"], pure_ms=pure_ms,
+                         gap_p50=gap["p50"], gap_mean=gap["mean"],
+                         graphs=st["executables_compiled"]))
+        log(f"{tag}: {runs[-1]}")
+        if want is None:
+            want = streams
+        elif any(not np.array_equal(a, b) for a, b in zip(want, streams)):
+            fails.append(f"{tag}: streams differ from run 1's")
+        if k == 3:
+            keep = engine
+        else:
+            engine.shutdown()
+            del engine
+            torch.cuda.empty_cache()
+    if len({r["graphs"] for r in runs}) != 1:
+        fails.append(f"graph counts differ: {[r['graphs'] for r in runs]}")
+    on = [r for r in runs if r["on"]]
+    off = [r for r in runs if not r["on"]]
+    for key in ("tok_s", "ttft", "pure_ms", "gap_p50"):
+        log(f"phase 22 (a) {key}: on {[round(r[key], 3) for r in on]} "
+            f"off {[round(r[key], 3) for r in off]} (A B B A; card "
+            f"{card_line()})")
+    telemetry_numbers(torch, keep, n_params, fails)
+    telemetry_files(torch, keep, prompts, fails)
+    keep.shutdown()
+    del keep
+    torch.cuda.empty_cache()
+    telemetry_probe(torch, ServingEngine, ServingConfig, LlamaConfig,
+                    LlamaForCausalLM, fails)
+    if fails:
+        raise AssertionError(f"phase 22 failed: {fails}")
+    log(f"phase 22: {time.monotonic() - t_phase:.1f}s; launches {launches}")
+    return launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5507,6 +5791,12 @@ def main(argv=None):
         launches[k] += lora_launches[k]
     for k in LORA_KERNELS:
         launches[k] = lora_launches[k]
+
+    # -- phase 22: the monitor modules on the graphed tick -----------------
+    for k, n in telemetry_phase(torch, kernels, ServingEngine, ServingConfig,
+                                LlamaConfig, LlamaForCausalLM, model,
+                                prompts, lens).items():
+        launches[k] += n
     del model
     torch.cuda.empty_cache()
 
@@ -5657,7 +5947,7 @@ def main(argv=None):
                                 args.layers).items():
         launches[k] += n
 
-    # -- phase 22: report --------------------------------------------------
+    # -- phase 23: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (

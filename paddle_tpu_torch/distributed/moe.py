@@ -41,13 +41,15 @@ forward or in a backward, so an eager step of many MoE layers never
 waits on routing: the kernels find their rows from ``group_sizes`` on
 the device.
 
-``MOE_STATS`` is a plain dict with the reference's keys:
-``grouped_mm_calls`` (grouped matmuls run), ``grouped_mm_kernel``
-(``"fused_gmm"`` or ``"gmm"``: the path the last dispatch took),
-``ep_shard_map_calls`` and ``padded_einsum_calls`` (paths of later
-slices, always 0). :func:`serving_stats_tap` lets the serving engine
-collect each dispatch's per-expert counts on the device during a tick,
-and :func:`serving_rows_mask` keeps a tick's parked rows out of them.
+``MOE_STATS`` is a dict-shaped view with the reference's keys, served by
+the metrics registry as the reference's (``moe_path_calls{path=...}``
+gauge, ``moe_grouped_mm_kernel`` info): ``grouped_mm_calls`` (grouped
+matmuls run), ``grouped_mm_kernel`` (``"fused_gmm"`` or ``"gmm"``: the
+path the last dispatch took), ``ep_shard_map_calls`` and
+``padded_einsum_calls`` (paths of later slices, always 0).
+:func:`serving_stats_tap` lets the serving engine collect each
+dispatch's per-expert counts on the device during a tick, and
+:func:`serving_rows_mask` keeps a tick's parked rows out of them.
 
 :class:`ClipGradForMOEByGlobalNorm` keeps the reference's constructor;
 on one device its norm is the plain global norm.
@@ -61,10 +63,12 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+from collections.abc import MutableMapping
 
 import torch
 import torch.nn.functional as F
 
+from .. import monitor as _monitor
 from ..nn.clip import ClipGradByGlobalNorm as _ClipGradByGlobalNorm
 from ..ops.kernels import moe_gmm as _gmm
 
@@ -74,8 +78,53 @@ __all__ = ["moe_dispatch_combine", "moe_dispatch_combine_dropless",
            "capacity_routed",
            "ClipGradForMOEByGlobalNorm", "MOE_STATS"]
 
-MOE_STATS = {"grouped_mm_calls": 0, "grouped_mm_kernel": None,
-             "ep_shard_map_calls": 0, "padded_einsum_calls": 0}
+_moe_path_calls = _monitor.gauge(
+    "moe_path_calls",
+    "MoE dispatch path selections recorded at trace time",
+    labels=("path",))
+_moe_kernel_info = _monitor.info(
+    "moe_grouped_mm_kernel",
+    "last grouped-matmul kernel a compilation selected")
+
+
+class _MoeStats(MutableMapping):
+    """Dict-shaped view over the registry-backed MoE path counters (the
+    reference's ``_MoeStats``)."""
+
+    _COUNTER_KEYS = ("grouped_mm_calls", "ep_shard_map_calls",
+                     "padded_einsum_calls")
+    _KEYS = ("grouped_mm_calls", "grouped_mm_kernel",
+             "ep_shard_map_calls", "padded_einsum_calls")
+
+    def __getitem__(self, k):
+        if k == "grouped_mm_kernel":
+            return _moe_kernel_info.get()
+        if k in self._COUNTER_KEYS:
+            return int(_moe_path_calls.labels(path=k).value())
+        raise KeyError(k)
+
+    def __setitem__(self, k, v):
+        if k == "grouped_mm_kernel":
+            _moe_kernel_info.set(v)
+        elif k in self._COUNTER_KEYS:
+            _moe_path_calls.labels(path=k).set(int(v))
+        else:
+            raise KeyError(k)
+
+    def __delitem__(self, k):
+        raise TypeError("MOE_STATS keys are fixed")
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __len__(self):
+        return len(self._KEYS)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+MOE_STATS = _MoeStats()
 _TAP = threading.local()    # .sinks: lists collecting each dispatch's counts
 
 

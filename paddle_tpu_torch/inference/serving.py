@@ -102,14 +102,35 @@ keys its prompt blocks in the prefix cache by a seed that also names the
 adapter and its weights' generation (the reference keys them by the
 model alone and so reuses one adapter's K/V under another).
 
-Later slices bring tensor parallelism, health monitoring, the cluster and
-the rest of the telemetry; a config field or argument
-asking for one of them raises ``NotImplementedError`` naming that slice,
-and their ``stats()`` keys are absent.
+Telemetry, as the reference's (:mod:`paddle_tpu_torch.monitor`): every
+``serving_*`` metric of the reference engine is registered in the port's
+registry under its name, labels and buckets (the cluster's and tensor
+parallelism's stay at zero); the TTFT, inter-token, queue-wait and
+end-to-end digests; one span tracer an engine (``tracer``,
+``dump_trace``; tid 0 the ticks, tid ``1 + i`` slot ``i``, the last tid
+the queue); the health engine (``health()``, ``watchdog_stuck()``; a
+graph capture is the reference's compile); a non-finite probe on the
+logits each tick samples from, riding the tick's one read-back vector;
+and the per-layout roofline (``stats()['roofline']``): each layout's
+FLOPs and bytes, counted once from its eager warm-up
+(:class:`~paddle_tpu_torch.monitor.accounting.CostRecorder`), over its
+measured dispatch-to-read-back time. ``kernel_census()`` joins those
+counts with the node census of each captured graph, and ``profile(n)``
+arms a ``torch.profiler`` window over the next ``n`` ticks. All of it is
+host code outside the captured ticks: ``PADDLE_TPU_TRACE=0`` and
+``PADDLE_TPU_HEALTH=0`` (or ``health=False``) change no token and no
+graph.
+
+Later slices bring tensor parallelism, the cluster and the per-width
+engine; a config field or argument asking for one of them raises
+``NotImplementedError`` naming that slice; their ``stats()`` keys are
+present at their off values.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import time
 import weakref
 from collections import deque
@@ -124,7 +145,11 @@ from ..framework.place import resolve_device
 from ..framework.random import generator
 from ..generation import _filter_logits, _select_token
 from ..generation import speculative as _spec
+from .. import monitor
 from ..monitor import LatencyDigest
+from ..monitor import accounting as _acct
+from ..monitor import health as _health
+from ..monitor import tracing as _tracing
 from ..ops import lora as _lora
 from ..ops import paged_cache as _pc
 from ..ops.cuda_graphs import Upload as _Upload
@@ -150,9 +175,9 @@ _LATER = {
     "chunked_prefill": (True, "bucketed (unchunked) prefill"),
     "ragged_batch": (True, "the per-width executable path"),
     "tp_degree": (1, "tensor-parallel serving"),
-    "health": (False, "the health engine"),
     "role": ("both", "disaggregated cluster serving"),
 }
+_ENGINE_IDS = itertools.count()
 
 
 @dataclass
@@ -223,11 +248,33 @@ class ServingConfig:
     lora_targets: str = "attn"
     # int8 resident stacks (an absmax scale a matrix)
     lora_quant: bool = False
+    # the health engine (monitor/health.py): SLO burn rates, anomaly
+    # detectors, the stuck-tick watchdog and incident capture, host code
+    # only; False (or PADDLE_TPU_HEALTH=0, which beats True) builds none
+    health: bool = True
+    # a request misses its SLO when its TTFT exceeds health_slo_ttft_ms
+    # or any inter-token gap health_slo_itl_ms
+    health_slo_ttft_ms: float = 2000.0
+    health_slo_itl_ms: float = 500.0
+    # SLO target (error budget 1 - target) and the fast / slow burn
+    # windows: the fast alert pages only when both windows burn faster
+    # than health_burn_threshold x budget over at least
+    # health_burn_min_requests retirements
+    health_slo_target: float = 0.99
+    health_burn_fast_s: float = 5.0
+    health_burn_slow_s: float = 60.0
+    health_burn_threshold: float = 2.0
+    health_burn_min_requests: int = 8
+    # the watchdog's deadline: max(floor, mult x the tick's time EMA)
+    health_watchdog_mult: float = 50.0
+    health_watchdog_floor_s: float = 5.0
+    # arm a profile of this many ticks when an alert fires (0: off;
+    # lands only with PADDLE_TPU_PROFILE_DIR)
+    health_profile_ticks: int = 0
     # -- later slices: accepted only at their off value ------------------
     chunked_prefill: bool = True
     ragged_batch: bool = True
     tp_degree: int = 1
-    health: bool = False
     role: str = "both"
 
     def __post_init__(self):
@@ -244,6 +291,22 @@ class ServingConfig:
             raise ValueError(
                 f"shed_queue_depth must be >= 1 (or None), got "
                 f"{self.shed_queue_depth!r}")
+        if not 0.0 < self.health_slo_target < 1.0:
+            raise ValueError(
+                f"health_slo_target must be in (0, 1), got "
+                f"{self.health_slo_target!r}")
+        if not 0.0 < self.health_burn_fast_s < self.health_burn_slow_s:
+            raise ValueError(
+                f"need 0 < health_burn_fast_s < health_burn_slow_s, got "
+                f"{self.health_burn_fast_s!r}, {self.health_burn_slow_s!r}")
+        if self.health_watchdog_floor_s <= 0:
+            raise ValueError(
+                f"health_watchdog_floor_s must be > 0, got "
+                f"{self.health_watchdog_floor_s!r}")
+        if self.health_watchdog_mult < 1.0:
+            raise ValueError(
+                f"health_watchdog_mult must be >= 1, got "
+                f"{self.health_watchdog_mult!r}")
         ad = self.async_depth
         if ad is not None and (not isinstance(ad, int)
                                or isinstance(ad, bool)
@@ -385,11 +448,21 @@ class _Layout(NamedTuple):
     pure: bool          # decode / verify rows only, packed live
     carry: bool         # writes the next tick's packs over its own
 
+    def name(self, gamma) -> str:
+        """The layout's name in telemetry (the reference's executable
+        name, ``decode`` or ``verify``, then the layout):
+        ``kind-pure|mixed-r<rows>-w<w_max>-a<active>[-carry]``."""
+        return (f"{'verify' if gamma else 'decode'}-"
+                f"{'pure' if self.pure else 'mixed'}-r{self.rows}-"
+                f"w{self.w_max}-a{self.active}"
+                + ("-carry" if self.carry else ""))
+
 
 class _TickOut(NamedTuple):
     """A tick body's device outputs: the one vector the host reads back
-    (tokens, windows, accept flags, paths, head drafts, MoE counts), the
-    logits, and what the tree's pool moves need after the read-back."""
+    (tokens, windows, accept flags, paths, head drafts, MoE counts, and
+    last the non-finite probe), the logits, and what the tree's pool
+    moves need after the read-back."""
     flat: torch.Tensor
     logits: torch.Tensor
     path: Optional[torch.Tensor]        # tree: accepted node a depth
@@ -413,9 +486,14 @@ class _Pipe:
     and the event it waits on (async pure ticks), and the row layout the
     commit needs. ``carry``: the input vector now holding the next tick's
     packs (async pure decode ticks), from which a pipelined dispatch
-    runs. ``t0``: the dispatch time (the prefill rate's clock)."""
+    runs. ``t0``: the launch time (the prefill rate's and the roofline's
+    clock); ``t_tick``: the tick's start (its span's); ``q_lens``,
+    ``n_pending`` and ``pend_pos0``: what the tick's spans report;
+    ``timed``: False for a layout's first tick (its capture, or its
+    counted eager run), which the roofline leaves out."""
     __slots__ = ("outs", "host", "event", "layout", "active", "given",
-                 "rid_of", "carry", "t0")
+                 "rid_of", "carry", "t0", "t_tick", "q_lens", "n_pending",
+                 "pend_pos0", "timed")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -671,8 +749,6 @@ class ServingEngine:
         self._eos = -1 if cfg.eos_token_id is None else int(cfg.eos_token_id)
         self._pad = int(cfg.pad_token_id)
         self._submit_t: Dict[int, float] = {}
-        self._first_t: Dict[int, float] = {}
-        self._ttft_ms: List[float] = []
         self._n_ticks = 0
         self._n_rows = 0
         self._n_tokens = 0
@@ -692,6 +768,7 @@ class ServingEngine:
         # a sampling engine's ticks eager
         self._graphs_ok = graphs_usable(dev, self._do_sample)
         self._graphs: Dict[_Layout, _TickGraph] = {}
+        self._lay_names: Dict[_Layout, str] = {}    # layouts counted
         self._graph_pool = None         # one memory pool for all of them
         self._async_on = bool(cfg.async_depth)
         self._pipe: Optional[_Pipe] = None      # the in-flight tick
@@ -701,6 +778,275 @@ class ServingEngine:
         self._last_dispatch_t = None
         self._d_host_gap = LatencyDigest()
         self._d_accept = LatencyDigest()    # tokens a verify window
+        self._init_telemetry(cfg, gamma)
+
+    def _init_telemetry(self, cfg, gamma):
+        """The reference engine's metrics (same names, labels and
+        buckets, registered whatever the features on, so every export
+        carries every key), the SLO digests, the tracer, the roofline's
+        state and the health monitor."""
+        self._m_occupancy = monitor.gauge(
+            "serving_slot_occupancy", "active serving slots")
+        self._m_util = monitor.histogram(
+            "serving_batch_utilization",
+            "active slots / num_slots per decode step",
+            buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+        self._m_queue_wait = monitor.histogram(
+            "serving_queue_wait_ms",
+            "submit -> queue-exit wait, labeled by outcome (admitted |"
+            " cancelled | rejected | shutdown) — EVERY exit path "
+            "observes, so the distribution can't survivor-bias toward "
+            "admitted requests",
+            labels=("outcome",))
+        self._m_tokens = monitor.counter(
+            "serving_tokens_total", "tokens generated (all requests)")
+        self._m_steps = monitor.counter(
+            "serving_decode_steps", "batched decode steps executed")
+        self._m_decode_compiles = monitor.counter(
+            "serving_decode_compiles",
+            "tick CUDA graphs captured (one a tick layout; 0 on the CPU)")
+        monitor.counter(
+            "serving_prefill_compiles",
+            "prefill compilations per prompt bucket (none: prefill rows "
+            "ride the tick)", labels=("bucket",))
+        self._m_completed = monitor.counter(
+            "serving_requests_completed", "requests fully served")
+        self._m_prefix_blocks = monitor.counter(
+            "serving_prefix_blocks_reused",
+            "cached KV blocks mapped into admitted slots")
+        self._m_prefix_tokens = monitor.counter(
+            "serving_prefix_tokens_reused",
+            "prompt tokens served from the prefix cache (not "
+            "re-prefilled)")
+        self._m_cow = monitor.counter(
+            "serving_cow_copies",
+            "copy-on-write block duplications (shared block appended "
+            "into)")
+        self._m_evict = monitor.counter(
+            "serving_cache_evictions",
+            "cached blocks evicted under memory pressure (LRU)")
+        self._m_hit_rate = monitor.gauge(
+            "serving_prefix_hit_rate",
+            "cumulative reused / admitted prompt tokens")
+        monitor.counter(
+            "serving_kv_blocks_transferred",
+            "KV blocks streamed between engine pools (disaggregated "
+            "prefill -> decode handoffs; counted at import, data + "
+            "scales travel together on int8 pools)")
+        self._m_preempt = monitor.counter(
+            "serving_preemptions",
+            "victim slots preempted (blocks published + spilled, slot "
+            "freed, request re-enqueued at the front of its priority "
+            "class)")
+        self._m_spill = monitor.counter(
+            "serving_kv_blocks_spilled",
+            "KV blocks spilled to the host-DRAM tier (preempted "
+            "victims' live blocks + LRU-evicted published blocks; "
+            "int8 data + scales travel together)")
+        self._m_restore = monitor.counter(
+            "serving_kv_blocks_restored",
+            "KV blocks restored from the host-DRAM tier (swap resumes "
+            "+ prefix hits on spilled published blocks)")
+        self._m_host_bytes = monitor.gauge(
+            "serving_host_tier_bytes",
+            "bytes resident in the host-DRAM KV tier (spilled block "
+            "payloads awaiting restore or LRU eviction)")
+        self._m_lora_resident = monitor.gauge(
+            "serving_lora_adapters_resident",
+            "LoRA adapters resident in the device stacks (excludes "
+            "the always-present null adapter)")
+        self._m_lora_swaps = monitor.counter(
+            "serving_lora_adapter_swaps",
+            "adapter loads that evicted an unpinned resident adapter "
+            "to make room (LRU churn against the max_adapters budget)")
+        self._m_lora_host = monitor.gauge(
+            "serving_lora_host_tier_bytes",
+            "bytes of registered adapters NOT currently resident on "
+            "device (host-DRAM registry tier awaiting an LRU swap-in)")
+        self._lora_swaps_seen = 0
+        monitor.info(
+            "serving_tp_degree",
+            "tensor-parallel degree of the most recent engine").set(1)
+        monitor.counter(
+            "serving_tp_collective_bytes",
+            "cross-shard collective payload executed per engine step "
+            "(per-shard bytes; 0 until tensor-parallel serving)")
+        pool_bytes = self._kv_pool_bytes
+        if self._dpools is not None:
+            pool_bytes += _pc.pool_bytes(self._dpools)
+        self._pool_bytes_per_shard = pool_bytes
+        monitor.gauge(
+            "serving_tp_pool_bytes_per_shard",
+            "KV block-pool bytes each shard holds (kv_head slice)").set(
+            pool_bytes)
+        monitor.info(
+            "serving_kv_cache_dtype",
+            "KV block-pool storage dtype of the most recent engine "
+            "(int8 = quantized pool + absmax scales)").set(
+            self._kv_dtype_name)
+        monitor.gauge(
+            "serving_kv_pool_bytes",
+            "total KV block-pool bytes (all layers + scale pools, "
+            "target and draft models, every shard)").set(pool_bytes)
+        self._m_kv_step = monitor.gauge(
+            "serving_kv_bytes_per_step",
+            "analytic target-pool KV bytes the last engine tick's "
+            "attention streamed from HBM (attended positions x bytes "
+            "per cached position; int8 pools count data + scales)")
+        self._m_kernels = monitor.gauge(
+            "serving_kernels_per_tick",
+            "kernel nodes of the last captured tick graph (the kernels "
+            "one replay launches)")
+        # -- the per-tick roofline: each layout's counted work (static
+        # half) over its measured launch -> read-back time (EMA)
+        self._kcensus: Dict[str, dict] = {}     # layout name -> census
+        self._exec_cost: Dict[str, dict] = {}   # layout name -> cost
+        self._step_time: Dict[str, float] = {}
+        self._step_ticks: Dict[str, int] = {}
+        self._last_exec = None          # the last committed tick's layout
+        self._n_decode_compiles = 0     # tick graphs captured
+        self._peak_flops = _acct.device_peak_flops(self.device)
+        self._peak_hbm_bw = _acct.device_peak_hbm_bw(self.device)
+        self._ridge = self._peak_flops / self._peak_hbm_bw
+        self._cpu_proxy = self.device.type != "cuda"
+        self._m_mfu = monitor.gauge(
+            "serving_step_mfu",
+            "per-tick model FLOPs utilization of the last tick's layout "
+            "(counted FLOPs / measured launch->read-back time / the "
+            "card's peak FLOPs; nominal peaks on the CPU — cpu_proxy)")
+        self._m_bw_util = monitor.gauge(
+            "serving_hbm_bw_util",
+            "per-tick device-memory bandwidth utilization of the last "
+            "tick's layout (counted bytes / measured launch->read-back "
+            "time / the card's peak bytes/s; nominal peaks on the CPU "
+            "— cpu_proxy)")
+        self._prof = _tracing.ProfilerWindow()
+        self._m_moe_load = monitor.histogram(
+            "serving_moe_expert_load",
+            "per-expert share of routed (token, slot) pairs per "
+            "dispatch (0 = expert idle this step)",
+            buckets=(0.001, 0.01, 0.05, 0.1, 0.2, 0.4, 0.6, 0.8, 1.0))
+        self._m_moe_entropy = monitor.gauge(
+            "serving_moe_routing_entropy",
+            "decode-time routing entropy, normalized to [0, 1] by "
+            "log(num_experts) (1 = perfectly balanced routing)")
+        # -- the tracer: tid 0 the ticks, 1 + i slot i, the last the queue
+        self._engine_id = next(_ENGINE_IDS)
+        self._tid_queue = cfg.num_slots + 1
+        self._trace = None
+        if _tracing.tracing_enabled():
+            tr = _tracing.Tracer(f"ServingEngine[{self._engine_id}]")
+            tr.set_thread(0, "engine")
+            for i in range(cfg.num_slots):
+                tr.set_thread(1 + i, f"slot {i}")
+            tr.set_thread(self._tid_queue, "queue")
+            self._trace = tr
+        # -- the SLO digests (always on, whatever the trace switch)
+        self._d_ttft = LatencyDigest()
+        self._d_itl = LatencyDigest()
+        self._d_queue = LatencyDigest()
+        self._d_e2e = LatencyDigest()
+        self._last_emit: Dict[int, float] = {}
+        self._m_host_gap = monitor.gauge(
+            "serving_host_gap_ms",
+            "host time between consecutive tick dispatches (P2 "
+            "digest; under async_depth=1 commit bookkeeping overlaps "
+            "device execution, so the gap shrinks toward pure "
+            "pack+launch time)", labels=("q",))
+        self._m_accept = monitor.gauge(
+            "serving_spec_accept_len",
+            "accepted-length quantiles per slot verify window (P2 "
+            "digest; tokens emitted = accepted drafts + bonus — tree "
+            "and linear speculation both observe; empty on "
+            "non-speculative engines)", labels=("q",))
+        self._m_lat = {
+            "ttft": monitor.gauge(
+                "serving_ttft_ms",
+                "time-to-first-token quantiles (P2 digest; submit -> "
+                "first streamed token)", labels=("q",)),
+            "itl": monitor.gauge(
+                "serving_itl_ms",
+                "inter-token latency quantiles (P2 digest; gap "
+                "between consecutive streamed tokens of one request)",
+                labels=("q",)),
+            "queue_wait": monitor.gauge(
+                "serving_queue_wait_quantile_ms",
+                "queue-wait quantiles (P2 digest; terminal "
+                "cancelled/rejected/shutdown outcomes included)",
+                labels=("q",)),
+            "e2e": monitor.gauge(
+                "serving_e2e_ms",
+                "submit -> retirement latency quantiles (P2 digest)",
+                labels=("q",)),
+        }
+        self._n_evictions_seen = 0
+        if gamma:
+            self._m_spec_len = monitor.histogram(
+                "serving_spec_accepted_len",
+                "tokens emitted per slot verify window "
+                "(accepted drafts + the correction/bonus token)",
+                buckets=(1, 2, 3, 4, 5, 6, 7, 8, 9))
+            self._m_spec_proposed = monitor.counter(
+                "spec_tokens_proposed", "draft tokens proposed")
+            self._m_spec_accepted = monitor.counter(
+                "spec_tokens_accepted", "draft tokens accepted")
+            self._m_spec_rate = monitor.gauge(
+                "serving_spec_acceptance_rate",
+                "accepted / proposed draft tokens (cumulative)")
+        # -- the health engine: the gauges always, the monitor only when
+        # on (PADDLE_TPU_HEALTH=0 beats the config)
+        self._health_on = bool(cfg.health) \
+            and os.environ.get("PADDLE_TPU_HEALTH", "1") != "0"
+        self._m_health = monitor.gauge(
+            "serving_health_score",
+            "engine health in [0,1]: 1 - severity penalties of firing "
+            "alerts (page 0.5, warn 0.15)")
+        self._m_burn = monitor.gauge(
+            "serving_slo_burn_rate",
+            "fast-window SLO burn rate (violation fraction / error "
+            "budget; 1.0 = budget consumed exactly on schedule)")
+        self._m_alerts = monitor.gauge(
+            "serving_alerts_firing", "number of currently-firing alerts")
+        self._m_health.set(1.0)
+        self._nonfinite_ticks = 0
+        self._nf_last = False
+        self._slo_ok: Dict[int, bool] = {}
+        self._h_slo_ttft = float(cfg.health_slo_ttft_ms)
+        self._h_slo_itl = float(cfg.health_slo_itl_ms)
+        self._health = None
+        if self._health_on:
+            # the callbacks reach the engine through a weak reference: a
+            # bound method would hold it in a cycle with its pools
+            me = weakref.ref(self)
+            profile_cb = None
+            if int(cfg.health_profile_ticks) > 0:
+                n_prof = int(cfg.health_profile_ticks)
+
+                def profile_cb(n=n_prof):
+                    try:
+                        me().profile(n)
+                    except Exception:
+                        pass
+            self._health = _health.HealthMonitor(
+                slo_target=cfg.health_slo_target,
+                burn_fast_s=cfg.health_burn_fast_s,
+                burn_slow_s=cfg.health_burn_slow_s,
+                burn_threshold=cfg.health_burn_threshold,
+                burn_min_requests=cfg.health_burn_min_requests,
+                watchdog_mult=cfg.health_watchdog_mult,
+                watchdog_floor_s=cfg.health_watchdog_floor_s,
+                # an incident's snapshot leaves the pipeline as it is
+                stats_cb=lambda: me()._stats(),
+                trace_cb=lambda: me()._health_trace(),
+                profile_cb=profile_cb,
+                incident=_health.IncidentCapture())
+
+    def _health_trace(self):
+        """Chrome-trace dict for incident bundles (None w/o a tracer)."""
+        if self._trace is None:
+            return None
+        return {"traceEvents": list(self._trace.chrome_events()),
+                "displayTimeUnit": "ms"}
 
     # -- front door ----------------------------------------------------
 
@@ -718,7 +1064,9 @@ class ServingEngine:
             raise ValueError(
                 "load_adapter requires a LoRA-serving engine "
                 "(ServingConfig(lora_rank=...))")
-        return self._lora.register(adapter_id, weights)
+        aid = self._lora.register(adapter_id, weights)
+        self._sync_lora_metrics()
+        return aid
 
     def adapter_resident(self, adapter_id) -> bool:
         """True while the adapter holds a device stack row: a request
@@ -737,14 +1085,57 @@ class ServingEngine:
         with an empty result. ``adapter_id`` decodes the request under a
         LoRA adapter registered by :meth:`load_adapter` (None: the base
         model). At the config's ``shed_queue_depth`` ``submit`` raises
-        :class:`QueueShedError`."""
+        :class:`QueueShedError` (a ``shed`` queue-wait observation); a
+        request refused by validation lands a ``rejected`` one."""
+        t0 = time.monotonic()
         if self._shed_depth is not None \
                 and len(self._queue) >= int(self._shed_depth):
             self._n_shed += 1
+            self._m_queue_wait.labels(outcome="shed").observe(0.0)
+            self._d_queue.observe(0.0)
+            if self._trace is not None:
+                self._trace.instant("shed", tid=self._tid_queue,
+                                    args={"queued": len(self._queue)})
             raise QueueShedError(
                 f"admission queue at shed threshold ({len(self._queue)} >= "
                 f"{int(self._shed_depth)}): request refused (load "
                 "shedding)")
+        try:
+            ids, max_new, max_queue_wait_ms, adapter_id = \
+                self._validate_request(prompt, max_new_tokens, temperature,
+                                       top_k, top_p, priority,
+                                       max_queue_wait_ms, adapter_id)
+        except ValueError:
+            wait = 1000.0 * (time.monotonic() - t0)
+            self._m_queue_wait.labels(outcome="rejected").observe(wait)
+            self._d_queue.observe(wait)
+            if self._trace is not None:
+                self._trace.instant("rejected", tid=self._tid_queue)
+            raise
+        rid = self._next_rid
+        self._next_rid += 1
+        req = ServingRequest(
+            rid, ids, max_new, time.monotonic(),
+            temperature=None if temperature is None else float(temperature),
+            top_k=None if top_k is None else int(top_k),
+            top_p=None if top_p is None else float(top_p),
+            priority=int(priority),
+            max_queue_wait_ms=None if max_queue_wait_ms is None
+            else float(max_queue_wait_ms), adapter_id=adapter_id)
+        self._queue.append(req)
+        self._submit_t[rid] = req.submit_time
+        if self._trace is not None:
+            self._trace.instant(
+                "submit", tid=self._tid_queue,
+                args={"rid": rid, "prompt_tokens": int(ids.size),
+                      "max_new": max_new, "priority": int(priority)})
+        return rid
+
+    def _validate_request(self, prompt, max_new_tokens, temperature, top_k,
+                          top_p, priority, max_queue_wait_ms, adapter_id):
+        """``submit``'s checks; returns the prompt ids, the token budget,
+        the queue-wait budget and the adapter id, or raises
+        ``ValueError``."""
         ids = np.asarray(prompt, np.int32).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -793,19 +1184,7 @@ class ServingEngine:
                 raise ValueError(
                     f"unknown adapter_id {adapter_id}: register it with "
                     "load_adapter() before submitting against it")
-        rid = self._next_rid
-        self._next_rid += 1
-        req = ServingRequest(
-            rid, ids, max_new, time.monotonic(),
-            temperature=None if temperature is None else float(temperature),
-            top_k=None if top_k is None else int(top_k),
-            top_p=None if top_p is None else float(top_p),
-            priority=int(priority),
-            max_queue_wait_ms=None if max_queue_wait_ms is None
-            else float(max_queue_wait_ms), adapter_id=adapter_id)
-        self._queue.append(req)
-        self._submit_t[rid] = req.submit_time
-        return rid
+        return ids, max_new, max_queue_wait_ms, adapter_id
 
     def cancel(self, request_id: int) -> bool:
         """Cancel a request anywhere in its life. Queued: removed (a
@@ -818,6 +1197,7 @@ class ServingEngine:
         for k, req in enumerate(self._queue):
             if req.request_id == request_id:
                 del self._queue[k]
+                self._queue_exit(req, "cancelled")
                 self._finish_unserved(req)
                 return True
         for i, s in enumerate(self._slots):
@@ -829,13 +1209,19 @@ class ServingEngine:
     def _finish_unserved(self, req, record_empty=False):
         """A request leaving the queue unserved (cancel, timeout): drop
         its spilled payload, and surface what it already streamed (a
-        preempted request's tokens; ``record_empty``: an empty result for
-        a request that never started)."""
+        preempted request's tokens, whose end the e2e digest observes;
+        ``record_empty``: an empty result for a request that never
+        started)."""
         rid = req.request_id
-        if req.resume is not None and self._host_tier is not None:
-            self._host_tier.pop(("victim", rid), restore=False)
-        self._submit_t.pop(rid, None)
-        self._first_t.pop(rid, None)
+        if req.resume is not None:
+            if self._host_tier is not None:
+                self._host_tier.pop(("victim", rid), restore=False)
+                self._m_host_bytes.set(self._host_tier.bytes_used)
+            self._submit_t.pop(rid, None)
+            self._d_e2e.observe(
+                1000.0 * (time.monotonic() - req.submit_time))
+        self._slo_ok.pop(rid, None)
+        self._last_emit.pop(rid, None)
         toks = self._results.pop(rid, None)
         if self.config.retain_results and (
                 toks is not None or record_empty):
@@ -845,13 +1231,45 @@ class ServingEngine:
         """Retire slot ``i`` for ``cancel()``: no completion and no
         publishing; its blocks are freed and its tokens so far
         surfaced."""
-        slot = self._vacate(i)
-        self._submit_t.pop(slot.rid, None)
-        self._first_t.pop(slot.rid, None)
+        slot = self._slots[i]
+        now = time.monotonic()
+        t0 = self._submit_t.pop(slot.rid, None)
+        if t0 is not None:
+            self._d_e2e.observe(1000.0 * (now - t0))
+        self._slo_ok.pop(slot.rid, None)    # cancels don't burn budget
+        self._last_emit.pop(slot.rid, None)
+        if self._trace is not None:
+            self._trace.emit(
+                f"req{slot.rid}", tid=1 + i, t0=slot.admit_t, t1=now,
+                args={"tokens": slot.n_emitted,
+                      "cache_len": slot.cache_len, "cancelled": True})
+            self._trace.instant("cancelled", tid=1 + i,
+                                args={"rid": slot.rid})
+        self._vacate(i)
         toks = self._results.pop(slot.rid, [])
         if self.config.retain_results:
             self._done[slot.rid] = np.asarray(toks, np.int64)
         self._n_cancelled += 1
+        self._m_occupancy.set(self.num_active)
+
+    def _queue_exit(self, req, outcome: str) -> float:
+        """The queue-wait observation of every way a request leaves the
+        queue (admitted, resumed, cancelled, timeout, shutdown; submit
+        observes rejected and shed itself), so neither the histogram nor
+        the digest favours the admitted."""
+        now = time.monotonic()
+        wait = 1000.0 * (now - req.submit_time)
+        self._m_queue_wait.labels(outcome=outcome).observe(wait)
+        self._d_queue.observe(wait)
+        if outcome not in ("admitted", "resumed"):
+            # it will never emit or retire (a resumed one keeps its
+            # submit time for the e2e digest)
+            self._submit_t.pop(req.request_id, None)
+        if self._trace is not None:
+            self._trace.emit(
+                f"req{req.request_id} queued", tid=self._tid_queue,
+                t0=req.submit_time, t1=now, args={"outcome": outcome})
+        return wait
 
     def queue_depth(self, priority=None):
         """Queued plus seated requests. With ``priority`` (and preemption
@@ -918,21 +1336,57 @@ class ServingEngine:
         return [done[r] for r in rids]
 
     def stats(self) -> dict:
+        """Scheduler and telemetry snapshot: every key of the reference
+        engine's ``stats()`` (its features this port has not brought up
+        at their off values) and the port's own (``ticks``,
+        ``kernel_launches``, the async pipeline's). Commits the in-flight
+        tick first."""
         self._flush_pipe()
-        ttft = np.asarray(self._ttft_ms, np.float64)
+        return self._stats()
+
+    def _stats(self) -> dict:
+        self._sync_cache_metrics()
+        census = self._kcensus.get(self._last_exec, {})
         out = {
             "active": self.num_active,
             "queued": self.num_queued,
             "free_blocks": self._alloc.free_blocks,
             "reserved_blocks": self._reserved,
+            "decode_steps": self._n_ticks,
+            # tick graphs captured (the reference's one compile of its
+            # tick executable); nothing else is compiled
+            "decode_compiles": self._n_decode_compiles,
+            "prefill_compiles": 0,
             "ticks": self._n_ticks,
             "rows_total": self._n_rows,
             "tokens_total": self._n_tokens,
             "requests_completed": self._n_completed,
             "prefill_chunks": self._n_prefill_chunks,
             "fused_decode": bool(self.config.fused_decode),
+            "fused_decode_mode": "kernel" if self.config.fused_decode
+            else "off",
             "device": str(self.device),
             "kernel_launches": dict(launch_counts),
+            # the port has no fallback off its kernels
+            "kernel_fallbacks": 0,
+            # the last tick's layout: its graph's kernel nodes (0 on the
+            # CPU, which captures none) and its counted launches
+            "kernels_per_tick": census.get("kernel_nodes", 0),
+            "kernel_launch_proxy_per_tick": census.get("launch_proxy", 0),
+            "ragged_batch": True,
+            "chunked_prefill": True,
+            # the cluster's and tensor parallelism's keys, at their off
+            # values until those slices
+            "role": "both",
+            "prefills_exported": 0,
+            "kv_blocks_exported": 0,
+            "kv_blocks_imported": 0,
+            "sessions_migrated_out": 0,
+            "sessions_migrated_in": 0,
+            "tp_degree": 1,
+            "tp_collective_bytes_per_step": 0,
+            "tp_collective_bytes_total": 0,
+            "tp_pool_bytes_per_shard": self._pool_bytes_per_shard,
             # MoE keys are always present (False / 0 for dense models)
             "moe": self._moe,
             "moe_fused_gmm": self._moe_fused,
@@ -943,12 +1397,32 @@ class ServingEngine:
             "kv_cache_dtype": self._kv_dtype_name,
             "kv_pool_bytes": self._kv_pool_bytes,
             "kv_bytes_per_step": self._kv_step_bytes_last,
-            "ttft_ms": {
-                "count": int(ttft.size),
-                "mean": float(ttft.mean()) if ttft.size else 0.0,
-                "p50": float(np.percentile(ttft, 50)) if ttft.size else 0.0,
-                "max": float(ttft.max()) if ttft.size else 0.0,
-            },
+            # tracing, profiling, the roofline and the SLO digests (each
+            # *_ms a P2 summary {count, mean, min, max, p50, p95, p99})
+            "engine_id": self._engine_id,
+            "tracing": self._trace is not None,
+            "trace_events": len(self._trace)
+            if self._trace is not None else 0,
+            "trace_events_dropped": self._trace.dropped
+            if self._trace is not None else 0,
+            "profile_captures": self._prof.captures,
+            "profile_ticks_remaining": self._prof.pending,
+            "roofline": self._roofline(),
+            "ttft_ms": self._d_ttft.summary(),
+            "itl_ms": self._d_itl.summary(),
+            "queue_wait_ms": self._d_queue.summary(),
+            "e2e_ms": self._d_e2e.summary(),
+            # the health keys (1.0 / zeros with the health engine off)
+            "health_score": self._health.score()
+            if self._health is not None else 1.0,
+            "alerts_firing": len(self._health.firing())
+            if self._health is not None else 0,
+            "alerts_fired_total": self._health.fired_total
+            if self._health is not None else 0,
+            "incidents_captured": self._health._incident.captured
+            if self._health is not None
+            and self._health._incident is not None else 0,
+            "nonfinite_logits_ticks": self._nonfinite_ticks,
             # always present (0 on linear and non-speculative engines; the
             # digest of tokens a verify window zeroed without speculation)
             "spec_tree_nodes": len(self._tree) + 1 if self._tree else 0,
@@ -1013,14 +1487,80 @@ class ServingEngine:
     def shutdown(self, check_leaks: bool = True) -> bool:
         """Drop queued requests and sweep the allocator's invariants
         (every block free, cached or owned by a live slot, the hash index
-        bijective)."""
+        bijective). Requests still queued leave with a ``shutdown``
+        queue-wait observation."""
         self._flush_pipe()
-        self._queue.clear()
+        while self._queue:
+            self._queue_exit(self._queue.popleft(), "shutdown")
+        self._sync_cache_metrics()
         if check_leaks:
             live = [b for s in self._slots if s is not None
                     for b in s.blocks]
             self._alloc.check_leaks(live)
         return True
+
+    # -- telemetry -----------------------------------------------------
+
+    def health(self) -> Optional[dict]:
+        """Health snapshot: score, firing alerts, burn rates, per-alert
+        state and the recent transition journal. None with the health
+        engine off (``health=False`` or ``PADDLE_TPU_HEALTH=0``)."""
+        if self._health is None:
+            return None
+        return self._health.snapshot()
+
+    def watchdog_stuck(self) -> bool:
+        """The stuck-tick watchdog's probe: True when the last tick that
+        captured no graph outran ``max(floor, mult x`` its layout's time
+        EMA``)``. False with the health engine off."""
+        if self._health is None:
+            return False
+        return self._health.watchdog_check(
+            self._step_time.get(self._last_exec, 0.0))
+
+    @property
+    def tracer(self):
+        """This engine's span tracer, or None when tracing is disabled
+        (``PADDLE_TPU_TRACE=0``)."""
+        return self._trace
+
+    def dump_trace(self, path: str):
+        """Write this engine's request-lifecycle trace as Chrome
+        trace-event JSON (load it at https://ui.perfetto.dev or
+        chrome://tracing). Returns the path written, or None when
+        tracing is disabled."""
+        if self._trace is None:
+            return None
+        return self._trace.dump_chrome_trace(path)
+
+    def kernel_census(self) -> dict:
+        """``{layout name: census}`` of every tick layout run so far
+        (:func:`~paddle_tpu_torch.monitor.accounting.kernel_census`): on
+        CUDA the node census of its captured graph (``graph_nodes`` by
+        type, ``kernel_nodes``, ``kernel_names``) beside the launches
+        counted in its warm-up (``launch_proxy``, ``launch_by_op``; the
+        hand-written kernels by counter name in ``kernels``, each also
+        what one replay adds to ``launch_counts``). Raises for a graphed
+        engine whose PyTorch cannot keep a captured graph to read
+        (``CUDAGraph(keep_graph=True)``) rather than report a count it
+        did not read."""
+        for lay, gr in self._graphs.items():
+            if gr.step.census is None:
+                raise RuntimeError(
+                    f"no node census of layout {lay.name(self._gamma)}: "
+                    "this PyTorch cannot "
+                    "keep a captured CUDA graph (CUDAGraph(keep_graph=True))"
+                    " to read its nodes")
+        return {k: dict(v) for k, v in self._kcensus.items()}
+
+    def profile(self, n_ticks: int, path: Optional[str] = None):
+        """Arm a ``torch.profiler`` capture around the next ``n_ticks``
+        ticks (:class:`~paddle_tpu_torch.monitor.tracing.ProfilerWindow`:
+        one Chrome trace under ``path``, default
+        ``$PADDLE_TPU_PROFILE_DIR``; on CUDA the kernels the graphs
+        replay appear by name). Returns the capture dir, or None under
+        ``PADDLE_TPU_TRACE=0``; raises while a window is armed."""
+        return self._prof.arm(n_ticks, path)
 
     # -- one tick ------------------------------------------------------
 
@@ -1031,17 +1571,61 @@ class ServingEngine:
         requests. Returns the ``[(request_id, token), ...]`` committed in
         this call; under ``async_depth=1`` a pure decode tick's tokens
         come with the next call (or with the flush that ``run()``,
-        ``stats()`` and ``shutdown()`` begin with)."""
+        ``stats()`` and ``shutdown()`` begin with). An armed profiling
+        window brackets the tick; the health engine takes its signals
+        after it."""
+        prof = self._prof
+        if self._health is None:
+            if not prof.pending:
+                return self._step_once()
+            with prof.tick():
+                return self._step_once()
+        t0 = time.monotonic()
+        c0 = self._n_decode_compiles
+        if not prof.pending:
+            out = self._step_once()
+        else:
+            with prof.tick():
+                out = self._step_once()
+        self._health_tick(t0, time.monotonic(), c0)
+        return out
+
+    def _step_once(self) -> List[tuple]:
         if self._async_on:
             return self._step_async()
         pipe = self._dispatch()
         return [] if pipe is None else self._commit(pipe)
+
+    def _health_tick(self, t0, t1, c0):
+        """Feed one tick's signals to the health monitor (host only): a
+        tick that captured a graph is the reference's compiling tick."""
+        h = self._health
+        nf = self._nf_last
+        self._nf_last = False
+        if nf:
+            self._nonfinite_ticks += 1
+        h.on_tick(
+            tick_s=t1 - t0,
+            queued=len(self._queue),
+            step_ema_s=self._step_time.get(self._last_exec, 0.0),
+            fallbacks=0,
+            compiles=self._n_decode_compiles,
+            spec_emitted=self._n_spec_emitted,
+            spec_verifies=self._n_spec_verifies,
+            preemptions=self._n_preempt,
+            completed=self._n_completed,
+            nonfinite=nf,
+            compiled=self._n_decode_compiles > c0)
+        self._m_health.set(h.score())
+        self._m_burn.set(h._last_burn.get("fast", 0.0))
+        self._m_alerts.set(float(len(h.firing())))
 
     def _dispatch(self) -> Optional[_Pipe]:
         """Dispatch half of one tick: admit, pack the tick's rows into one
         int64 vector (:class:`_Layout`), upload it and launch the forward
         and its sampling. Returns the in-flight tick, or None when no slot
         has work."""
+        t_tick = time.monotonic()
         self._admit()
         cfg = self.config
         g = self._gamma
@@ -1139,12 +1723,18 @@ class ServingEngine:
         # names at dispatch: a slot re-seated before the commit drops the
         # stale token
         pipe.rid_of = {i: self._slots[i].rid for i in active + list(given)}
+        pipe.t_tick, pipe.q_lens, pipe.n_pending = t_tick, q_lens, \
+            len(pending)
+        if self._trace is not None:
+            pipe.pend_pos0 = {i: int(self._slots[i].pend_pos)
+                              for i in given}
         self._n_ticks += 1
         self._n_rows += total
+        self._m_steps.inc()
+        self._m_util.observe(len(active) / n_slots)
         # packed row t of slot s attends base[s] + t + 1 positions
-        self._kv_step_bytes_last = int(
-            (int((q_lens * base).sum())
-             + int((q_lens * (q_lens + 1) // 2).sum())) * self._kv_pos_bytes)
+        self._note_kv_read(int((q_lens * base).sum())
+                           + int((q_lens * (q_lens + 1) // 2).sum()))
         return pipe
 
     def _spec_pack(self, active, ids, row_starts) -> list:
@@ -1183,10 +1773,12 @@ class ServingEngine:
             self._d_host_gap.observe(1000.0 * (t - self._last_dispatch_t))
         self._last_dispatch_t = t
         self._n_pure += lay.pure
+        timed = True
         if self._graphs_ok and self.cuda_graphs:
             gr = self._graphs.get(lay)
             if gr is None:
                 inp, outs = self._capture(lay, pack)
+                timed = False
             else:
                 if pack is not None:
                     gr.inp.write(pack)
@@ -1195,12 +1787,19 @@ class ServingEngine:
         else:
             inp = carry if pack is None \
                 else torch.from_numpy(pack).to(self.device)
-            outs = self._tick_body(inp, lay)
+            if lay in self._lay_names:
+                outs = self._tick_body(inp, lay)
+            else:
+                # a layout's first eager tick: count its work
+                with _acct.CostRecorder() as rec:
+                    outs = self._tick_body(inp, lay)
+                self._note_census(lay, rec.result(), None)
+                timed = False
         if self._moe and _moe.MOE_STATS["grouped_mm_kernel"] == "fused_gmm":
             self._moe_fused = True
         self.last_logits = outs.logits
         pipe = _Pipe(outs=outs, layout=lay, carry=inp if lay.carry else None,
-                     t0=t)
+                     t0=t, timed=timed)
         if lay.carry and outs.flat.is_cuda:
             # the one read-back, without blocking; the next replay of the
             # graph writes the same flat, after this copy
@@ -1228,14 +1827,28 @@ class ServingEngine:
         inp = _Upload(pack.shape, torch.int64, dev)
         inp.write(pack)
         cs.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(cs):
+        with torch.cuda.stream(cs), _acct.CostRecorder() as rec:
             outs = self._tick_body(inp.dev, lay)
         step, static = _capture_graph(
             lambda: self._tick_body(inp.dev, lay), cs, self._graph_pool,
             self._gen if self._do_sample else None)
         torch.cuda.current_stream(dev).wait_stream(cs)
         self._graphs[lay] = _TickGraph(step, inp, static)
+        self._n_decode_compiles += 1
+        self._m_decode_compiles.inc()
+        # the warm-up's data-dependent counts are read back here, once a
+        # layout, outside any graph
+        self._note_census(lay, rec.result(), step.census)
         return inp.dev, outs
+
+    def _note_census(self, lay, record, graph):
+        """A layout's kernel census and cost, from its warm-up's record
+        and (on CUDA) its captured graph's nodes."""
+        name = self._lay_names[lay] = lay.name(self._gamma)
+        self._kcensus[name] = _acct.kernel_census(record, graph)
+        self._exec_cost[name] = _acct.executable_cost(record)
+        if graph is not None:
+            self._m_kernels.set(graph["kernel_nodes"])
 
     def _tick_body(self, inp, lay) -> _TickOut:
         """The device half of a tick, from its packed vector ``inp``: the
@@ -1337,6 +1950,13 @@ class ServingEngine:
                     n_acc).reshape(-1))
         if counts:      # one read-back for the tokens and the counts
             parts.append(torch.stack(counts).reshape(-1).long())
+        # the health probe, last: any non-finite value in the logits the
+        # tick samples from (a carry layout's live slots only: a parked
+        # slot's row is a pad row)
+        bad = ~torch.isfinite(logits)
+        if lay.carry:
+            bad = bad & (slots[1] > 0)[:, None]
+        parts.append(bad.any().long().reshape(1))
         if lay.carry:
             self._write_carry(inp, rows, slots, tok, lay)
         return _TickOut(torch.cat(parts), logits, path, slots[0], act,
@@ -1384,11 +2004,12 @@ class ServingEngine:
 
     def _commit(self, pipe) -> List[tuple]:
         """Commit half of one tick: read its vector back (an async tick's
-        pinned copy once its event fired), observe the MoE routing, move a
-        tree's accepted paths onto the linear tail, then commit the decode
-        or verify rows and the prefill progress. A slot no longer seated
-        with the request it had at dispatch (the pipeline ran a tick past
-        its retirement) drops its token."""
+        pinned copy once its event fired), observe the MoE routing and
+        the health probe, move a tree's accepted paths onto the linear
+        tail, then commit the decode or verify rows and the prefill
+        progress, and record the tick's time and spans. A slot no longer
+        seated with the request it had at dispatch (the pipeline ran a
+        tick past its retirement) drops its token."""
         outs = pipe.outs
         if pipe.event is not None:
             pipe.event.synchronize()
@@ -1401,12 +2022,17 @@ class ServingEngine:
         dev = self.device
         emitted: List[tuple] = []
         tok = flat[:n_slots]
+        if self._health is not None:    # the probe rides every tick
+            self._nf_last = bool(flat[-1])
         if outs.moe_counts:
             n = outs.moe_counts[0] * outs.moe_counts[1]
-            self._observe_moe(flat[flat.size - n:].reshape(outs.moe_counts))
+            self._observe_moe(
+                flat[flat.size - 1 - n:flat.size - 1].reshape(
+                    outs.moe_counts))
         committed = [i for i in pipe.active if self._slots[i] is not None
                      and self._slots[i].rid == pipe.rid_of[i]]
         a = pipe.layout.active
+        acc_lens = {}
         if not a:
             for i in committed:
                 slot = self._slots[i]
@@ -1447,10 +2073,19 @@ class ServingEngine:
             for k, i in enumerate(pipe.active):
                 if i not in committed:
                     continue
-                self._commit_verify_window(i, out[k], accept[k], emitted)
+                acc_lens[i] = self._commit_verify_window(
+                    i, out[k], accept[k], emitted)
                 if props is not None and self._slots[i] is not None:
                     # the heads' tree for the slot's next tick
                     self._slot_props[i] = props[k]
+            if self._n_spec_proposed:
+                self._m_spec_rate.set(
+                    self._n_spec_accepted / self._n_spec_proposed)
+        # -- the tick's time (the roofline's measured half) ---------------
+        name = self._lay_names[pipe.layout]
+        self._last_exec = name
+        if pipe.timed:
+            self._note_step_time(name, t_sync - pipe.t0)
         # -- commit prefill progress -------------------------------------
         if pipe.given:
             # the resume cost model's prefill rate: the tick's rows over
@@ -1466,7 +2101,90 @@ class ServingEngine:
                 # the chunk's last row is the final prompt row: its logits
                 # give the request's first token
                 self._finish_prefill(i, int(tok[i]), emitted)
+        tr = self._trace
+        if tr is not None:
+            # under async_depth=1 the spans run from dispatch to this
+            # commit; a dropped (stale-slot) row emits none
+            q_lens = pipe.q_lens
+            kind = "verify tick" if g else "decode tick"
+            for i in committed:
+                args_i = {"rid": pipe.rid_of[i], "rows": int(q_lens[i])}
+                if g:
+                    args_i["accepted_len"] = acc_lens[i]
+                tr.emit(kind, tid=1 + i, t0=pipe.t0, t1=t_sync,
+                        args=args_i)
+            for i, k in pipe.given.items():
+                tr.emit("prefill chunk", tid=1 + i, t0=pipe.t0, t1=t_sync,
+                        args={"rid": pipe.rid_of[i], "rows": int(k),
+                              "pos": pipe.pend_pos0[i]})
+            n_act = len(pipe.active)
+            tr.emit("tick", tid=0, t0=pipe.t_tick, args={
+                "exec": name, "path": "ragged", "queued": len(self._queue),
+                "kernel_fallbacks": 0, "rows": int(q_lens.sum()),
+                "active": n_act, "pending": pipe.n_pending,
+                "occupancy": round((n_act + pipe.n_pending) / n_slots,
+                                   3)})
         return emitted
+
+    def _note_step_time(self, name, dt):
+        """The roofline's measured half: one launch -> read-back time of
+        layout ``name`` into its EMA; refreshes ``serving_step_mfu`` and
+        ``serving_hbm_bw_util``."""
+        if dt <= 0.0:
+            return
+        ema = self._step_time.get(name)
+        self._step_time[name] = dt if ema is None else 0.7 * ema + 0.3 * dt
+        self._step_ticks[name] = self._step_ticks.get(name, 0) + 1
+        cost = self._exec_cost.get(name)
+        if cost:
+            if cost.get("flops"):
+                self._m_mfu.set(cost["flops"] / dt / self._peak_flops)
+            if cost.get("bytes_accessed"):
+                self._m_bw_util.set(cost["bytes_accessed"] / dt
+                                    / self._peak_hbm_bw)
+
+    def _roofline(self) -> dict:
+        """``stats()['roofline']``: each layout's counted FLOPs and bytes
+        (one run, from its warm-up) over its measured tick time (EMA,
+        launch to read-back, capture ticks left out) as MFU and
+        device-memory bandwidth utilization, each classified against the
+        card's ridge point (peak FLOPs over peak bytes/s); ``step_*`` are
+        the last tick's layout's. On the CPU the peaks are nominal
+        (``cpu_proxy``): read the numbers as structure."""
+        per = {}
+        for name, cost in self._exec_cost.items():
+            f = float(cost.get("flops", 0.0) or 0.0)
+            b = float(cost.get("bytes_accessed", 0.0) or 0.0)
+            ai = (f / b) if b else 0.0
+            dt = self._step_time.get(name)
+            per[name] = {
+                "flops": f, "bytes_accessed": b,
+                "arithmetic_intensity": round(ai, 4),
+                "bound": "compute" if ai >= self._ridge else "bandwidth",
+                "ticks": self._step_ticks.get(name, 0),
+                "step_time_ms": round(1000.0 * dt, 4)
+                if dt is not None else None,
+                "mfu": round(f / dt / self._peak_flops, 6)
+                if dt and f else 0.0,
+                "hbm_bw_util": round(b / dt / self._peak_hbm_bw, 6)
+                if dt and b else 0.0,
+            }
+        t = per.get(self._last_exec, {})
+        # a verify tick emits accepted + 1 tokens a window: the divisor
+        # from per-tick to per-token cost
+        acc = (self._n_spec_emitted / self._n_spec_verifies
+               if self._n_spec_verifies else 0.0)
+        return {"cpu_proxy": self._cpu_proxy,
+                "tick_executable": self._last_exec,
+                "step_mfu": t.get("mfu", 0.0),
+                "step_hbm_bw_util": t.get("hbm_bw_util", 0.0),
+                "verify_tokens_credited_per_tick": round(acc, 4),
+                "verify_node_budget": (self._gamma + 1)
+                if self._gamma else 1,
+                "peak_flops_per_s": self._peak_flops,
+                "peak_hbm_bytes_per_s": self._peak_hbm_bw,
+                "ridge_flops_per_byte": round(self._ridge, 4),
+                "per_executable": per}
 
     # -- the async pipeline ----------------------------------------------
 
@@ -1499,7 +2217,11 @@ class ServingEngine:
         it at that commit: no free slot, no EOS configured and, with
         preemption on, no queued request above a seated slot's class.
         Then grow the blocks the pipelined tick writes into
-        (:meth:`_pipe_grow`)."""
+        (:meth:`_pipe_grow`). Stricter than the reference's rule, which
+        also pipelines over a slot on its last token (parked by the
+        carry): its ticks run at the static width, while a pure tick here
+        packs its live rows, so the parked row would change the tick's
+        shapes, and its bf16 bits, against the synchronous engine's."""
         if pipe.carry is None:
             return False
         for i in pipe.active:
@@ -1540,18 +2262,28 @@ class ServingEngine:
         """Dispatch the next tick from the in-flight tick's carry: no
         packing and no token upload (a bare replay on CUDA); the block
         table is uploaded again only when growth changed it."""
+        t_tick = time.monotonic()
         self._sync_uploads()
         with torch.no_grad():
             pipe = self._run(prev.layout, carry=prev.carry)
+        n_slots = self.config.num_slots
         pipe.active, pipe.given, pipe.rid_of = prev.active, {}, prev.rid_of
+        pipe.t_tick, pipe.n_pending = t_tick, 0
+        if self._trace is not None:
+            pipe.q_lens = np.zeros(n_slots, np.int64)
+            pipe.q_lens[prev.active] = 1
         self._n_pipelined += 1
         self._n_ticks += 1
         self._n_rows += prev.layout.rows
+        self._m_steps.inc()
+        self._m_util.observe(len(prev.active) / n_slots)
         # the committed lengths lag the device by a tick: a pipelined row
         # attends cache_len + 2 positions
-        self._kv_step_bytes_last = int(sum(
-            self._slots[i].cache_len + 2 for i in prev.active)
-            * self._kv_pos_bytes)
+        self._note_kv_read(sum(self._slots[i].cache_len + 2
+                               for i in prev.active))
+        if self._trace is not None:
+            self._trace.instant("pipelined dispatch", tid=0,
+                                args={"active": len(prev.active)})
         return pipe
 
     def _flush_pipe(self) -> List[tuple]:
@@ -1589,9 +2321,46 @@ class ServingEngine:
             load = c / max(c.sum(), 1.0)
             nz = load[load > 0]
             ent = float(-(nz * np.log(nz)).sum())
+            self._m_moe_load.observe_many(load)
             self._moe_ent_last = ent / float(np.log(max(load.size, 2)))
+            self._m_moe_entropy.set(self._moe_ent_last)
             self._moe_load_max_last = float(load.max())
             self._n_moe_dispatches += 1
+
+    def _note_kv_read(self, positions):
+        """The tick's KV bytes: attended positions x bytes a position."""
+        b = int(positions * self._kv_pos_bytes)
+        self._kv_step_bytes_last = b
+        self._m_kv_step.set(b)
+
+    def _sync_cache_metrics(self):
+        """Mirror the allocator's evictions into the registry, and the
+        digests into their quantile gauges."""
+        d = self._alloc.evictions - self._n_evictions_seen
+        if d:
+            self._m_evict.inc(d)
+            self._n_evictions_seen = self._alloc.evictions
+        for key, dig in (("ttft", self._d_ttft), ("itl", self._d_itl),
+                         ("queue_wait", self._d_queue),
+                         ("e2e", self._d_e2e)):
+            g = self._m_lat[key]
+            for q, v in dig.quantiles().items():
+                g.labels(q=q).set(round(v, 3))
+        for q, v in self._d_accept.quantiles().items():
+            self._m_accept.labels(q=q).set(round(v, 3))
+        for q, v in self._d_host_gap.quantiles().items():
+            self._m_host_gap.labels(q=q).set(round(v, 3))
+
+    def _sync_lora_metrics(self):
+        pool = self._lora
+        if pool is None:
+            return
+        self._m_lora_resident.set(pool.n_resident)
+        self._m_lora_host.set(pool.host_tier_bytes)
+        d = pool.swaps - self._lora_swaps_seen
+        if d > 0:
+            self._m_lora_swaps.inc(d)
+            self._lora_swaps_seen = pool.swaps
 
     def _worst_for(self, n_real, max_new) -> int:
         return _pc.blocks_for(int(n_real) + int(max_new) + self._gamma,
@@ -1679,12 +2448,12 @@ class ServingEngine:
         at an EOS and at ``max_new_tokens``), count the drafts used,
         retire the slot when it is done, else advance its length over the
         accepted prefix (the rejected tail rolls back by not advancing)
-        and trim the blocks past the next window's reach."""
+        and trim the blocks past the next window's reach. Returns the
+        tokens emitted (the verify span's ``accepted_len``)."""
         g = self._gamma
         slot = self._slots[i]
         kept, n_acc = _spec.commit_window(
             out_row, accept_row, slot.max_new - slot.n_emitted, self._eos)
-        self._d_accept.observe(float(len(kept)))
         slot.n_emitted += len(kept)
         slot.history.extend(kept)
         for t in kept:
@@ -1692,16 +2461,22 @@ class ServingEngine:
             emitted.append((slot.rid, t))
         # the drafts actually used: an EOS or the token budget can cut
         # the emission below n_acc + 1
+        n_used = min(n_acc, len(kept))
         self._n_spec_proposed += g
-        self._n_spec_accepted += min(n_acc, len(kept))
+        self._n_spec_accepted += n_used
         self._n_spec_verifies += 1
         self._n_spec_emitted += len(kept)
+        self._d_accept.observe(float(len(kept)))
+        self._m_spec_len.observe(len(kept))
+        self._m_spec_proposed.inc(g)
+        self._m_spec_accepted.inc(n_used)
         if kept[-1] == self._eos or slot.n_emitted >= slot.max_new:
             self._retire(i)
         else:
             slot.cache_len += n_acc + 1
             slot.last_token = kept[-1]
             self._trim_blocks(i)
+        return len(kept)
 
     def _set_slot_samp(self, i, req=None):
         row = self._samp_default.copy()
@@ -1717,12 +2492,26 @@ class ServingEngine:
             self._samp_dirty = True
 
     def _emit(self, rid, tok):
-        """Single exit point for generated tokens."""
-        if rid not in self._first_t:
-            now = time.monotonic()
-            self._first_t[rid] = now
-            self._ttft_ms.append(1000.0 * (now - self._submit_t[rid]))
+        """Single exit point for generated tokens: the token counters and
+        the TTFT / inter-token digests (and the SLO verdicts of the
+        health engine) agree with what clients receive."""
+        now = time.monotonic()
+        prev = self._last_emit.get(rid)
+        if prev is None:                # the request's first token
+            t0 = self._submit_t.get(rid)
+            if t0 is not None:
+                ttft_ms = 1000.0 * (now - t0)
+                self._d_ttft.observe(ttft_ms)
+                if self._health is not None:
+                    self._slo_ok[rid] = ttft_ms <= self._h_slo_ttft
+        else:
+            itl_ms = 1000.0 * (now - prev)
+            self._d_itl.observe(itl_ms)
+            if self._health is not None and itl_ms > self._h_slo_itl:
+                self._slo_ok[rid] = False
+        self._last_emit[rid] = now
         self._results[rid].append(tok)
+        self._m_tokens.inc()
         self._n_tokens += 1
         if self._stream is not None:
             self._stream(rid, tok)
@@ -1737,6 +2526,7 @@ class ServingEngine:
         stack row first, and waits queued while every row is pinned by
         other adapters."""
         self._expire_queue()
+        seated = False
         while self._queue:
             req = self._queue[self._pick_next_idx()]
             free = [i for i, s in enumerate(self._slots) if s is None]
@@ -1756,8 +2546,10 @@ class ServingEngine:
                 lrow = self._lora.acquire(req.adapter_id)
                 if lrow is None:
                     break
+                self._sync_lora_metrics()
             # by identity: a preemption above put its victim at the front
             self._queue.remove(req)
+            seated = True
             i = free[0]
             self._slot_adapter[i] = lrow
             seed = self._prefix_seed(req.adapter_id)
@@ -1767,6 +2559,8 @@ class ServingEngine:
             n_real = int(req.prompt.size)
             worst = self._worst_for(n_real, req.max_new_tokens)
             blocks, cached = self._map_prefix(req.prompt, n_real, seed)
+            # observed before the prefill: the queue wait, not the work
+            self._queue_exit(req, "admitted")
             self._reserved += worst - len(blocks)
             self._tables[i, :] = 0
             self._tables[i, :len(blocks)] = blocks
@@ -1777,11 +2571,20 @@ class ServingEngine:
                                    cache_len=cached, priority=req.priority,
                                    adapter_id=req.adapter_id, seed=seed)
             self._set_slot_samp(i, req)
+            self._m_occupancy.set(self.num_active)
+            if self._trace is not None:
+                self._trace.instant(
+                    "admit", tid=1 + i,
+                    args={"rid": req.request_id, "prefix_hit": cached > 0,
+                          "cached_tokens": int(cached),
+                          "prompt_tokens": n_real})
             # a full-prompt hit recomputes the last prompt row into a
             # shared block: copy it first
             bidx = cached // self._bs
             if self._alloc.is_shared(blocks[bidx]):
                 self._cow(i, bidx)
+        if seated:
+            self._sync_cache_metrics()
 
     # -- preemptive scheduling and the host KV tier -----------------------
 
@@ -1811,6 +2614,7 @@ class ServingEngine:
             if w is not None and r.resume is None \
                     and 1000.0 * (now - r.submit_time) > float(w):
                 self._n_timeout += 1
+                self._queue_exit(r, "timeout")
                 self._finish_unserved(r, record_empty=True)
             else:
                 kept.append(r)
@@ -1892,9 +2696,13 @@ class ServingEngine:
             key = ("victim", slot.rid)
             if self._host_tier.put(key, payload, nbytes):
                 self._n_spilled += len(slot.blocks)
+                self._m_spill.inc(len(slot.blocks))
             else:
                 key = None      # larger than the tier: recompute resume
+            self._m_host_bytes.set(self._host_tier.bytes_used)
+        n_spilled_blocks = len(slot.blocks) if key is not None else 0
         self._vacate(i)
+        self._m_occupancy.set(self.num_active)
         resume = None
         if not pending:
             if slot.resume is not None:
@@ -1921,6 +2729,13 @@ class ServingEngine:
             adapter_id=slot.adapter_id)
         self._queue.appendleft(req)
         self._n_preempt += 1
+        self._m_preempt.inc()
+        if self._trace is not None:
+            self._trace.instant(
+                "preempt", tid=1 + i,
+                args={"rid": slot.rid, "priority": int(slot.priority),
+                      "cache_len": int(slot.cache_len),
+                      "blocks_spilled": n_spilled_blocks})
 
     def _seat_resume(self, i, req, seed):
         """Seat a preempted request in slot ``i`` where it stopped. Swap:
@@ -1936,6 +2751,7 @@ class ServingEngine:
         if self._host_tier is not None and r["key"] is not None:
             payload = self._host_tier.get(r["key"])
         mode = self._resume_mode(r, payload)
+        self._queue_exit(req, "resumed")
         self._results.setdefault(rid, [])
         if mode == "swap":
             n_blocks = int(r["n_blocks"])
@@ -1943,6 +2759,8 @@ class ServingEngine:
             self._import_payload(blocks, payload)
             self._host_tier.pop(r["key"])
             self._n_restored += n_blocks
+            self._m_restore.inc(n_blocks)
+            self._m_host_bytes.set(self._host_tier.bytes_used)
             self._n_swap_resumes += 1
             slot = _Slot(rid, blocks, int(r["worst_blocks"]),
                          int(req.max_new_tokens), ctx, cache_len=n_ctx,
@@ -1955,6 +2773,7 @@ class ServingEngine:
             if self._host_tier is not None and r["key"] is not None:
                 # a payload that will never be imported
                 self._host_tier.pop(r["key"], restore=False)
+                self._m_host_bytes.set(self._host_tier.bytes_used)
             self._n_recompute_resumes += 1
             blocks, cached = self._map_prefix(ctx, n_ctx, seed)
             slot = _Slot(rid, blocks, int(r["worst_blocks"]),
@@ -1968,6 +2787,11 @@ class ServingEngine:
         self._tables_dirty = True
         self._slots[i] = slot
         self._set_slot_samp(i, req)
+        self._m_occupancy.set(self.num_active)
+        if self._trace is not None:
+            self._trace.instant(
+                "resume", tid=1 + i,
+                args={"rid": rid, "mode": mode, "cache_len": n_ctx})
         if mode != "swap":
             bidx = cached // self._bs
             if self._alloc.is_shared(blocks[bidx]):
@@ -2013,6 +2837,8 @@ class ServingEngine:
         if self._host_tier.put(("pub", h), payload,
                                _pc.payload_nbytes(payload)):
             self._n_spilled += 1
+            self._m_spill.inc()
+        self._m_host_bytes.set(self._host_tier.bytes_used)
 
     def _restore_published(self, h):
         """A prefix hash that misses the index but hits the host tier:
@@ -2029,6 +2855,8 @@ class ServingEngine:
         self._host_tier.pop(("pub", h))
         self._alloc.publish(b, h)
         self._n_restored += 1
+        self._m_restore.inc()
+        self._m_host_bytes.set(self._host_tier.bytes_used)
         return b
 
     def _note_xfer(self, nbytes, dt):
@@ -2088,7 +2916,12 @@ class ServingEngine:
         if matched:
             self._n_prefix_blocks += len(matched)
             self._n_prefix_tokens += cached
+            self._m_prefix_blocks.inc(len(matched))
+            self._m_prefix_tokens.inc(cached)
         self._n_prompt_tokens += n_real
+        if self._prefix_on:
+            self._m_hit_rate.set(
+                self._n_prefix_tokens / self._n_prompt_tokens)
         fresh = self._alloc.alloc(init - len(matched)) \
             if init > len(matched) else []
         return matched + fresh, cached
@@ -2110,6 +2943,7 @@ class ServingEngine:
         self._tables[i, bidx] = new
         self._tables_dirty = True
         self._n_cow += 1
+        self._m_cow.inc()
 
     def _publish(self, slot):
         """Publish ``slot``'s full blocks under the chain hashes of the
@@ -2185,6 +3019,9 @@ class ServingEngine:
         if slot.resume is not None:
             slot.last_token, slot.n_emitted = slot.resume
             slot.resume = None
+            if self._trace is not None:
+                self._trace.instant("resumed", tid=1 + i,
+                                    args={"rid": slot.rid})
             return
         slot.last_token = tok
         slot.history.append(tok)
@@ -2204,6 +3041,7 @@ class ServingEngine:
         self._slot_adapter[i] = 0
         if slot.adapter_id is not None:
             self._lora.release(slot.adapter_id)
+            self._sync_lora_metrics()
         self._alloc.free(slot.blocks)
         self._reserved -= slot.worst_blocks - len(slot.blocks)
         self._tables[i, :] = 0
@@ -2213,15 +3051,36 @@ class ServingEngine:
         return slot
 
     def _retire(self, i):
-        """Retire slot ``i``: publish its full blocks (the prefix cache),
-        free them, and hold its tokens for ``run()``
+        """Retire slot ``i``: observe its end (the e2e digest, its SLO
+        verdict, its request span), publish its full blocks (the prefix
+        cache), free them, and hold its tokens for ``run()``
         (``retain_results``)."""
         slot = self._slots[i]
+        now = time.monotonic()
+        t0 = self._submit_t.pop(slot.rid, None)
+        if t0 is not None:
+            self._d_e2e.observe(1000.0 * (now - t0))
+        if self._health is not None:
+            # a request retired before its first token has no verdict:
+            # it met its SLO
+            self._health.on_request(self._slo_ok.pop(slot.rid, True))
+        else:
+            self._slo_ok.pop(slot.rid, None)
+        self._last_emit.pop(slot.rid, None)
+        if self._trace is not None:
+            # the request's residency on the slot, admission to
+            # retirement: its tick spans nest inside
+            self._trace.emit(
+                f"req{slot.rid}", tid=1 + i, t0=slot.admit_t, t1=now,
+                args={"tokens": slot.n_emitted,
+                      "cache_len": slot.cache_len})
+            self._trace.instant("retired", tid=1 + i,
+                                args={"rid": slot.rid})
         self._publish(slot)
         self._vacate(i)
-        self._submit_t.pop(slot.rid, None)
-        self._first_t.pop(slot.rid, None)
         toks = self._results.pop(slot.rid)
         if self.config.retain_results:
             self._done[slot.rid] = np.asarray(toks, np.int64)
+        self._m_completed.inc()
         self._n_completed += 1
+        self._m_occupancy.set(self.num_active)

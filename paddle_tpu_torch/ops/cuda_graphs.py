@@ -12,11 +12,19 @@ write is held by the graph (:func:`~paddle_tpu_torch.ops.kernels.
 hold_scratch`). A sampling step registers its generator, so a replay
 draws what the eager step draws. A capture that fails raises.
 
+Each capture also takes the census of the graph it recorded
+(:func:`graph_census`: its nodes by type, its kernel nodes, the kernels'
+names), read through libcuda between the end of the capture and the
+graph's instantiation, while PyTorch still holds the ``cudaGraph_t``
+(``CUDAGraph(keep_graph=True)``). A PyTorch without that leaves the
+census out (``StepGraph.census`` None).
+
 :class:`Upload` is a device tensor that keeps its address (a graph's
 operand), written from the host through pinned staging.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 
 import numpy as np
@@ -26,9 +34,15 @@ from ..distributed import moe as _moe
 from .kernels import hold_scratch, launch_counts
 
 __all__ = ["Upload", "StepGraph", "GraphedStep", "capture",
-           "capture_stream", "graphs_usable"]
+           "capture_stream", "graphs_usable", "graph_census"]
 
 _STREAMS = {}       # device -> the stream warm-ups and captures run on
+_LIBCUDA = None
+# CUgraphNodeType, in libcuda's order
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+               "wait_event", "event_record", "ext_semas_signal",
+               "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+               "conditional")
 
 
 def _host_counts():
@@ -90,15 +104,73 @@ class Upload:
         self.event.record()
 
 
+def _libcuda():
+    global _LIBCUDA
+    if _LIBCUDA is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        for name in ("cuGraphGetNodes", "cuGraphNodeGetType",
+                     "cuGraphKernelNodeGetParams", "cuFuncGetName"):
+            if hasattr(lib, name):
+                getattr(lib, name).restype = ctypes.c_int
+        _LIBCUDA = lib
+    return _LIBCUDA
+
+
+def _ok(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} failed (CUresult {rc})")
+
+
+def graph_census(graph) -> dict:
+    """The nodes of a captured, not yet instantiated ``graph``
+    (``CUDAGraph(keep_graph=True)``), read through libcuda:
+    ``{"graph_nodes": {type: n}, "kernel_nodes": n, "kernel_names":
+    {symbol: n}}``; ``kernel_names`` is left out where libcuda does
+    not name functions (``cuFuncGetName``, CUDA 12.3)."""
+    lib = _libcuda()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _ok(lib.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _ok(lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    named = hasattr(lib, "cuFuncGetName")
+    by_type, names = {}, {}
+    params = (ctypes.c_byte * 256)()     # CUDA_KERNEL_NODE_PARAMS: func first
+    for node in nodes[:n.value]:
+        t = ctypes.c_int()
+        _ok(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)),
+            "cuGraphNodeGetType")
+        kind = _NODE_TYPES[t.value] if t.value < len(_NODE_TYPES) \
+            else f"type{t.value}"
+        by_type[kind] = by_type.get(kind, 0) + 1
+        if kind != "kernel" or not named:
+            continue
+        _ok(lib.cuGraphKernelNodeGetParams(ctypes.c_void_p(node), params),
+            "cuGraphKernelNodeGetParams")
+        func = ctypes.c_void_p.from_buffer(params).value
+        sym = ctypes.c_char_p()
+        _ok(lib.cuFuncGetName(ctypes.byref(sym), ctypes.c_void_p(func)),
+            "cuFuncGetName")
+        key = sym.value.decode(errors="replace")
+        names[key] = names.get(key, 0) + 1
+    out = {"graph_nodes": dict(sorted(by_type.items())),
+           "kernel_nodes": by_type.get("kernel", 0)}
+    if named:
+        out["kernel_names"] = dict(sorted(names.items()))
+    return out
+
+
 class StepGraph:
     """One captured step: the graph, the host counts one replay adds,
-    the MoE matmul path the capture took and the per-stream scratch its
-    kernels write (kept alive with it)."""
-    __slots__ = ("graph", "counts", "moe_kernel", "scratch")
+    the MoE matmul path the capture took, the per-stream scratch its
+    kernels write (kept alive with it) and its node census (None where
+    PyTorch cannot keep the graph to read it)."""
+    __slots__ = ("graph", "counts", "moe_kernel", "scratch", "census")
 
-    def __init__(self, graph, counts, moe_kernel, scratch):
+    def __init__(self, graph, counts, moe_kernel, scratch, census=None):
         self.graph, self.counts = graph, counts
         self.moe_kernel, self.scratch = moe_kernel, scratch
+        self.census = census
 
     def replay(self):
         self.graph.replay()
@@ -112,7 +184,12 @@ def capture(body, stream, pool=None, generator=None):
     ``generator`` when given. Returns ``(StepGraph, body's outputs)``:
     the outputs are the graph's, rewritten by every replay."""
     before = _host_counts()
-    graph = torch.cuda.CUDAGraph()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        kept = True
+    except TypeError:               # a PyTorch without keep_graph
+        graph = torch.cuda.CUDAGraph()
+        kept = False
     if generator is not None:
         graph.register_generator_state(generator)
     scratch = []
@@ -131,12 +208,16 @@ def capture(body, stream, pool=None, generator=None):
     finally:
         if gc_was_on:
             gc.enable()
+    census = None
+    if kept:
+        census = graph_census(graph)
+        graph.instantiate()
     after = _host_counts()
     delta = {k: after[k] - before[k] for k in after
              if after[k] != before[k]}
     _add_counts({k: -v for k, v in delta.items()})
     return StepGraph(graph, delta, _moe.MOE_STATS["grouped_mm_kernel"],
-                     scratch), out
+                     scratch, census), out
 
 
 class GraphedStep:

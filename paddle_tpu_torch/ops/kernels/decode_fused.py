@@ -34,6 +34,7 @@ import torch
 from ...incubate.nn.functional import swiglu
 from ...nn.functional.activation import gelu
 from ...nn.functional.norm import layer_norm, rms_norm
+from ...monitor.accounting import declares
 from . import _build, held, launch_counts, no_backward
 
 __all__ = ["norm_matmul", "matmul_residual", "plain_norm_matmul",
@@ -240,7 +241,36 @@ def _vector(name, t, n):
         raise ValueError(f"{name} {tuple(t.shape)}, want ({n},)")
 
 
+def _norm_matmul_work(x, gamma, beta, ws, bs, *, eps, kind):
+    """One K3a call's bound: the rows, gamma (and beta), the weights,
+    the biases and the outputs moved once; the projections' and the
+    norm's operations."""
+    d = x.shape[-1]
+    r = x.numel() // d
+    n = sum(int(w.shape[1]) for w in ws)
+    nbytes = x.element_size() * (
+        x.numel() + d * (1 if beta is None else 2)
+        + sum(w.numel() for w in ws) + r * n
+        + sum(b.numel() for b in bs if b is not None))
+    return ("norm_matmul", 2 * r * d * n + (6 if kind == "ln" else 4) * r * d,
+            nbytes)
+
+
+def _matmul_residual_work(xs, w, b, residual, *, act=None):
+    """One K3b call's bound: the inputs, the weight, the residual read
+    and the output written, the bias; the projection's and the
+    activation's operations."""
+    k, n = int(w.shape[0]), int(w.shape[1])
+    r = residual.numel() // n
+    nbytes = residual.element_size() * (
+        sum(x.numel() for x in xs) + w.numel() + 2 * r * n
+        + (0 if b is None else n))
+    return ("matmul_residual", 2 * r * k * n + (4 * r * k if act else 0),
+            nbytes)
+
+
 @no_backward("norm_matmul (K3a)")
+@declares(_norm_matmul_work)
 def norm_matmul(x, gamma, beta, ws, bs, *, eps, kind):
     """Fused norm -> 1..3 projections. ``x`` ``[..., d]``, ``gamma`` and
     ``beta`` (``kind="ln"`` only; None for none) ``[d]``, ``ws`` a list of
@@ -309,6 +339,7 @@ def _scratch_args(sc, first):
 
 
 @no_backward("matmul_residual (K3b)")
+@declares(_matmul_residual_work)
 def matmul_residual(xs, w, b, residual, *, act=None):
     """Fused ``residual + act(xs) @ w (+ b)``; ``xs`` holds one input
     ``[..., K]`` (act None or ``"gelu_tanh"``) or two (act ``"swiglu"``:

@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from ...monitor.accounting import declares
 from . import _build, launch_counts
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_fwd",
@@ -232,6 +233,44 @@ def _device_ok(q):
     return q.device.type == "cuda"
 
 
+def _pairs(q, k, causal):
+    """(query row, key column) pairs a pass visits, over every query
+    head: a causal row i sees the columns up to i + Lk - Lq."""
+    b, lq, h, _ = q.shape
+    lk = k.shape[1]
+    if not causal:
+        return b * h * lq * lk
+    off = lk - lq
+    return b * h * sum(max(0, min(lk, i + off + 1)) for i in range(lq)) \
+        if off else b * h * lq * (lq + 1) // 2
+
+
+def _flash_bytes(q, k, stats, writes):
+    """q, k and v read, ``stats`` float32 row statistics (lse, delta),
+    ``writes`` q-sized (or, for dk / dv, k-sized) outputs."""
+    es = q.element_size()
+    b, lq, h, _ = q.shape
+    return es * (q.numel() + 2 * k.numel()) + 4 * b * h * lq * stats \
+        + writes
+
+
+def _fwd_work(q, k, v, scale, causal):
+    return ("flash_attention_fwd", 4 * q.shape[-1] * _pairs(q, k, causal),
+            _flash_bytes(q, k, 1, q.numel() * q.element_size()))
+
+
+def _dq_work(q, k, v, do, lse, delta, scale, causal):
+    return ("flash_attention_dq", 6 * q.shape[-1] * _pairs(q, k, causal),
+            _flash_bytes(q, k, 2, 2 * q.numel() * q.element_size()))
+
+
+def _dkv_work(q, k, v, do, lse, delta, scale, causal):
+    es = q.element_size()
+    return ("flash_attention_dkv", 8 * q.shape[-1] * _pairs(q, k, causal),
+            _flash_bytes(q, k, 2, es * (q.numel() + 2 * k.numel())))
+
+
+@declares(_fwd_work)
 def flash_attention_fwd(q, k, v, scale, causal):
     """K1f: ``(o [B, Lq, H, D], lse [B, H, Lq] float32)``."""
     if not _device_ok(q):
@@ -249,6 +288,7 @@ def flash_attention_fwd(q, k, v, scale, causal):
     return o, lse
 
 
+@declares(_dq_work)
 def flash_attention_dq(q, k, v, do, lse, delta, scale, causal):
     """K1dq: ``dq [B, Lq, H, D]`` in q's dtype."""
     if not _device_ok(q):
@@ -267,6 +307,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale, causal):
     return dq
 
 
+@declares(_dkv_work)
 def flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
     """K1dkv: ``(dk, dv)``, each ``[B, Lk, Hkv, D]`` in k's dtype, the
     sum over every query head of the kv group."""

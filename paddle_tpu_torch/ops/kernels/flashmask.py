@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from ...monitor.accounting import declares
 from . import _build, launch_counts
 from .flash_attention import (_DTYPES, _check, _device_ok, _plain_dkv,
                               _plain_dq, _plain_fwd, _raise_rc, _stream)
@@ -177,6 +178,50 @@ def _check_bounds(q, k, start, end, tiles=None):
     return hm
 
 
+def _visible(q, start, end, causal):
+    """The (query row, key column) pairs the mask leaves visible, over
+    every query head (a device scalar): column j is seen by the rows
+    from j (causal) or 0, less the hidden rows [start_j, end_j)."""
+    b, lq, h, _ = q.shape
+    s, e = start.long(), end.long().clamp(max=lq)
+    j = torch.arange(start.shape[1], device=start.device)
+    lo = j if causal else torch.zeros_like(j)
+    hidden = (e - torch.maximum(s, lo)).clamp(min=0)
+    seen = (lq - lo).clamp(min=0) - hidden
+    return seen.sum() * (h // (start.shape[0] // b))
+
+
+def _mask_bytes(q, k, start, end, stats, writes):
+    es = q.element_size()
+    b, lq, h, _ = q.shape
+    return es * (q.numel() + 2 * k.numel()) + 4 * b * h * lq * stats \
+        + 4 * (start.numel() + end.numel()) + writes
+
+
+def _fm_fwd_work(q, k, v, start, end, scale, causal):
+    return ("flashmask_fwd",
+            4 * q.shape[-1] * _visible(q, start, end, causal),
+            _mask_bytes(q, k, start, end, 1, q.numel() * q.element_size()))
+
+
+def _fm_dq_work(q, k, v, do, lse, delta, start, end, scale, causal, *,
+                tiles):
+    return ("flashmask_dq",
+            6 * q.shape[-1] * _visible(q, start, end, causal),
+            _mask_bytes(q, k, start, end, 2,
+                        2 * q.numel() * q.element_size()))
+
+
+def _fm_dkv_work(q, k, v, do, lse, delta, start, end, scale, causal, *,
+                 tiles):
+    es = q.element_size()
+    return ("flashmask_dkv",
+            8 * q.shape[-1] * _visible(q, start, end, causal),
+            _mask_bytes(q, k, start, end, 2,
+                        es * (q.numel() + 2 * k.numel())))
+
+
+@declares(_fm_fwd_work)
 def flashmask_fwd(q, k, v, start, end, scale, causal):
     """K6f: ``(o [B, Lq, H, D], lse [B, H, Lq] float32, tiles)``, where
     ``tiles`` is the bounds' tile summary that K6dq and K6dkv take."""
@@ -200,6 +245,7 @@ def flashmask_fwd(q, k, v, start, end, scale, causal):
     return o, lse, tiles
 
 
+@declares(_fm_dq_work)
 def flashmask_dq(q, k, v, do, lse, delta, start, end, scale, causal, *,
                  tiles):
     """K6dq: ``dq [B, Lq, H, D]`` in q's dtype; ``tiles`` is the summary
@@ -222,6 +268,7 @@ def flashmask_dq(q, k, v, do, lse, delta, start, end, scale, causal, *,
     return dq
 
 
+@declares(_fm_dkv_work)
 def flashmask_dkv(q, k, v, do, lse, delta, start, end, scale, causal, *,
                   tiles):
     """K6dkv: ``(dk, dv)``, each ``[B, Lk, Hkv, D]`` in k's dtype, the

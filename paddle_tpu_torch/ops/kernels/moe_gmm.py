@@ -50,6 +50,7 @@ import ctypes
 
 import torch
 
+from ...monitor.accounting import declares
 from . import _build, launch_counts, no_backward
 
 __all__ = ["gather_gmm", "gather_gmm_swiglu", "scatter_gmm", "tgmm",
@@ -271,7 +272,52 @@ def _launch(mode, x, src_rows, rhs, group_sizes, dst_rows, out_dtype,
     return out
 
 
+def _gmm_bytes(x, m, k, n, group_sizes, rows):
+    """A grouped matmul's bytes: the weights of each group with rows
+    (counted on the device), the m rows in and out, the row indices and
+    group sizes."""
+    touched = (group_sizes > 0).sum()
+    return x.element_size() * (touched * k * n + m * k + m * n) \
+        + 4 * ((m if rows else 0) + group_sizes.shape[0])
+
+
+def _gather_work(x, src_rows, rhs, group_sizes, *, tiling=None,
+                 transpose_rhs=False, out_dtype=None, count=None):
+    m = x.shape[0] if src_rows is None else src_rows.shape[0]
+    k = x.shape[1]
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    name = count or _COUNTER["gmm", bool(transpose_rhs)]
+    return name, 2 * m * k * n, _gmm_bytes(x, m, k, n, group_sizes,
+                                           src_rows is not None)
+
+
+def _swiglu_work(x, src_rows, gate_up, group_sizes, *, tiling=None,
+                 out_dtype=None):
+    m = x.shape[0] if src_rows is None else src_rows.shape[0]
+    k, n2 = x.shape[1], gate_up.shape[2]
+    nbytes = x.element_size() * (
+        (group_sizes > 0).sum() * k * n2 + m * k + m * n2 // 2) \
+        + 4 * ((0 if src_rows is None else m) + group_sizes.shape[0])
+    return "moe_gather_gmm_swiglu", 2 * m * k * n2, nbytes
+
+
+def _scatter_work(x, rhs, group_sizes, dst_rows, *, tiling=None,
+                  transpose_rhs=False, out_dtype=None, count=None):
+    m, k = x.shape
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    name = count or _COUNTER["scatter", bool(transpose_rhs)]
+    return name, 2 * m * k * n, _gmm_bytes(x, m, k, n, group_sizes, True)
+
+
+def _tgmm_work(lhs, dy, group_sizes, num_groups):
+    (m, k), n = lhs.shape, dy.shape[1]
+    nbytes = lhs.element_size() * (m * k + m * n + int(num_groups) * k * n) \
+        + 4 * int(num_groups)
+    return "moe_tgmm", 2 * m * k * n, nbytes
+
+
 @no_backward("moe_gmm (K4 gather / K5 gmm)")
+@declares(_gather_work)
 def gather_gmm(x, src_rows, rhs, group_sizes, *, tiling=None,
                transpose_rhs=False, out_dtype=None, count=None):
     """Grouped matmul with the gather on read: ``out[r] = x[src_rows[r]]
@@ -289,6 +335,7 @@ def gather_gmm(x, src_rows, rhs, group_sizes, *, tiling=None,
 
 
 @no_backward("moe_gather_gmm_swiglu (K4)")
+@declares(_swiglu_work)
 def gather_gmm_swiglu(x, src_rows, gate_up, group_sizes, *, tiling=None,
                       out_dtype=None):
     """First expert matmul with the gather on read and swiglu in the
@@ -302,6 +349,7 @@ def gather_gmm_swiglu(x, src_rows, gate_up, group_sizes, *, tiling=None,
 
 
 @no_backward("moe_scatter_gmm (K4)")
+@declares(_scatter_work)
 def scatter_gmm(x, rhs, group_sizes, dst_rows, *, tiling=None,
                 transpose_rhs=False, out_dtype=None, count=None):
     """Second expert matmul with the combine's unsort as its store:
@@ -319,6 +367,7 @@ def scatter_gmm(x, rhs, group_sizes, dst_rows, *, tiling=None,
 
 
 @no_backward("moe_tgmm (K5 tgmm)")
+@declares(_tgmm_work)
 def tgmm(lhs, dy, group_sizes, num_groups):
     """The weight gradient of the grouped matmul: ``out[g] = lhs[rows of
     g].T @ dy[rows of g]`` over sorted rows, ``lhs [m, K]``, ``dy [m,

@@ -58,9 +58,11 @@ import threading
 
 import torch
 
+from ...monitor.accounting import declares
 from . import _build, launch_counts, no_backward
 from ..paged_cache import QuantKV, gather_dense
 from .ragged_paged_attention import (SM90_MAX_SLOTS, dtype_code,
+                                     pool_bytes_per_pos,
                                      pool_operands, sm_count,
                                      sm90_blocks_per_sm, sm90_scratch,
                                      sm90_scratch_sizes, tree_ancestor_bits)
@@ -299,7 +301,44 @@ def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
     return out
 
 
+def _paged_work(counter, q4, k_pool, v_pool, block_tables, context_lens,
+                tree_anc=None):
+    """One K2d / K2v call's bound over a window of T rows a slot, from
+    this call's lengths: K and V over each slot's ``context + T - 1``
+    positions (at most the table's reach), q read and the output
+    written, tables and lengths; 4 x D operations a visible pair a query
+    head."""
+    kd, _, ks, _ = pool_operands(q4, k_pool, v_pool)
+    s, t, h, d = q4.shape
+    nb, bs, hkv, _ = kd.shape
+    n = context_lens.long()
+    kv_pos = (n + t - 1).clamp(max=block_tables.shape[1] * bs).sum()
+    vis = (t * n + t * (t - 1) // 2).sum()
+    mode = dtype_code(q4, kd)[1]
+    name = counter + ("_tree" if tree_anc is not None else "") \
+        + ("_int8" if ks is not None else mode)
+    nbytes = 2 * kv_pos * hkv * pool_bytes_per_pos(q4, k_pool, v_pool) \
+        + 2 * q4.numel() * q4.element_size() \
+        + 4 * (block_tables.numel() + s + (t if tree_anc is not None
+                                           else 0))
+    return name, 4 * vis * h * d, nbytes
+
+
+def _decode_work(q, k_pool, v_pool, block_tables, context_lens,
+                 sm_scale=None):
+    return _paged_work("paged_decode_attention", q[:, None], k_pool,
+                       v_pool, block_tables, context_lens)
+
+
+def _verify_work(q, k_pool, v_pool, block_tables, context_lens,
+                 sm_scale=None, tree_anc=_AMBIENT):
+    return _paged_work("paged_verify_attention", q, k_pool, v_pool,
+                       block_tables, context_lens,
+                       window_tree(tree_anc, q.shape[1]))
+
+
 @no_backward("paged_decode_attention (K2d)")
+@declares(_decode_work)
 def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                            sm_scale=None):
     """K2d: ``q [S, H, D]`` -> ``[S, H, D]``. CPU tensors take the plain
@@ -317,6 +356,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
 
 
 @no_backward("paged_verify_attention (K2v)")
+@declares(_verify_work)
 def paged_verify_attention(q, k_pool, v_pool, block_tables, context_lens,
                            sm_scale=None, tree_anc=_AMBIENT):
     """K2v: ``q [S, T, H, D]`` -> ``[S, T, H, D]``. ``tree_anc`` (a

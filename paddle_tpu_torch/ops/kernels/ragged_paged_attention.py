@@ -52,6 +52,7 @@ import math
 
 import torch
 
+from ...monitor.accounting import declares
 from . import _build, held, launch_counts, no_backward
 from ..paged_cache import QuantKV, kv_dequantize
 
@@ -343,7 +344,40 @@ def _n_split(block_tables, block_size):
     return max(1, min(MAX_SPLITS, -(-reach // SPLIT_POSITIONS)))
 
 
+def pool_bytes_per_pos(q, k_pool, v_pool):
+    """Bytes one cached position of one kv head costs in a pool: its K
+    (or V) row, and its scale on int8 pools."""
+    kd, _, ks, _ = pool_operands(q, k_pool, v_pool)
+    return kd.shape[-1] * kd.element_size() + (0 if ks is None else 4)
+
+
+def _ragged_work(q, k_pool, v_pool, block_tables, context_lens, q_lens,
+                 row_starts, w_max, sm_scale=None, tree_anc=None,
+                 tree_slots=None, tree_rows=None):
+    """One K2r call's bound, counted from this call's lengths (device
+    scalars): each slot's K and V over its ``context + rows`` positions,
+    q read and the output written, the tables and per-slot rows; 4 x D
+    operations a visible (row, position) pair a query head (the linear
+    bound: a tree's rows see no more)."""
+    kd, _, ks, _ = pool_operands(q, k_pool, v_pool)
+    r, h, d = q.shape
+    hkv = kd.shape[2]
+    ql = q_lens.long()
+    cl = context_lens.long()
+    kv_pos = ((cl + ql) * (ql > 0)).sum()
+    vis = (ql * cl + ql * (ql + 1) // 2).sum()
+    code, mode = dtype_code(q, kd)
+    name = "ragged_paged_attention" + ("_tree" if tree_anc is not None
+                                       else "") \
+        + ("_int8" if ks is not None else mode)
+    nbytes = 2 * kv_pos * hkv * pool_bytes_per_pos(q, k_pool, v_pool) \
+        + 2 * q.numel() * q.element_size() \
+        + 4 * (block_tables.numel() + 3 * block_tables.shape[0])
+    return name, 4 * vis * h * d, nbytes
+
+
 @no_backward("ragged_paged_attention (K2r)")
+@declares(_ragged_work)
 def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                            q_lens, row_starts, w_max, sm_scale=None,
                            tree_anc=None, tree_slots=None, tree_rows=None):

@@ -26,7 +26,11 @@ graphs and equal the eager steps (the model's ``cuda_graphs`` off) bit
 for bit. A LoRA engine's replays equal its eager ticks across a hot
 reload mid-run, adapter churn through two resident rows captures no graph
 (as many as a LoRA-off engine on the same traffic), and a reload between
-two runs is read by the second run's replays."""
+two runs is read by the second run's replays. The telemetry: the
+non-finite probe fires inside captured ticks and adds no graph,
+``kernel_census()`` counts each captured graph's nodes and names the
+hand-written kernels, and tracing and health on or off stream the same
+tokens under ``async_depth=1``."""
 from unittest import mock
 
 import numpy as np
@@ -477,3 +481,109 @@ def test_lora_hot_reload_is_read_by_the_replays(cuda):
     assert not np.array_equal(first, second)
     eng.shutdown()
     eager.shutdown()
+
+
+def _f32_model():
+    cfg = LlamaConfig.tiny(vocab=512, hidden=256, heads=4, kv_heads=2,
+                           ffn=512)
+    return LlamaForCausalLM(cfg, device="cuda", seed=3).eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 1])
+def test_nonfinite_probe_fires_inside_captured_ticks(cuda, depth):
+    """An LM-head column set to inf poisons every tick's logits: the
+    probe inside the captured ticks flags them, the page alert fires,
+    and the engine captures the graphs a clean one does, no more."""
+    model = _f32_model()
+    prompts = _prompts(512, lens=(30, 9))
+
+    def serve():
+        eng = ServingEngine(model, ServingConfig(**CORE, async_depth=depth))
+        eng.serve(prompts, 8)
+        return eng, eng.stats()
+
+    clean, st0 = serve()
+    assert st0["nonfinite_logits_ticks"] == 0
+    assert clean.health()["alerts_firing"] == []
+    with torch.no_grad():
+        model.lm_head.weight[:, 7] = float("inf")
+    eng, st = serve()
+    assert st["nonfinite_logits_ticks"] > 0
+    assert "nonfinite_logits" in eng.health()["alerts_firing"]
+    assert st["executables_compiled"] == st0["executables_compiled"] >= 2
+    clean.shutdown()
+    eng.shutdown(check_leaks=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "float32"])
+def test_kernel_census_counts_graph_nodes_and_names_the_kernels(cuda,
+                                                                 pool):
+    """Every captured layout's census: its graph's kernel nodes (each
+    one of the node types), the hand-written kernels' launches a replay
+    adds (as its capture recorded them), K3a / K3b / K2r among them and
+    among the kernel nodes by symbol; and the layout's counted work in
+    the roofline, with a measured time once it replayed."""
+    model = _model(pool)
+    layers = model.config.num_hidden_layers
+    eng = ServingEngine(model, ServingConfig(**CORE))
+    eng.serve(_prompts(model.config.vocab_size), 10)
+    census = eng.kernel_census()
+    st = eng.stats()
+    assert len(census) == st["executables_compiled"] >= 2
+    steps = {lay.name(0): gr.step for lay, gr in eng._graphs.items()}
+    rpa = "ragged_paged_attention" + ("_f32pool" if pool == "float32"
+                                      else "")
+    for name, c in census.items():
+        assert c["kernel_nodes"] == c["graph_nodes"]["kernel"] > 0
+        assert sum(c["graph_nodes"].values()) >= c["kernel_nodes"]
+        assert c["kernels"] == {k: v for k, v in steps[name].counts.items()
+                                if k != "moe_calls"}
+        assert c["kernels"]["norm_matmul"] == 2 * layers
+        assert c["kernels"]["matmul_residual"] == 2 * layers
+        assert c["kernels"][rpa] == layers
+        assert c["launch_proxy"] >= sum(c["kernels"].values())
+        names = " ".join(c.get("kernel_names", {}))
+        if "kernel_names" in c:
+            assert sum(c["kernel_names"].values()) == c["kernel_nodes"]
+            assert "decode_gemm" in names and "paged_attention" in names
+    roof = st["roofline"]
+    assert roof["cpu_proxy"] is False
+    assert set(roof["per_executable"]) == set(census)
+    for row in roof["per_executable"].values():
+        assert row["flops"] > 0 and row["bytes_accessed"] > 0
+    assert any(r["ticks"] > 0 and r["mfu"] > 0 and r["hbm_bw_util"] > 0
+               for r in roof["per_executable"].values())
+    assert st["kernels_per_tick"] > 0
+    eng.shutdown()
+
+
+@pytest.mark.gpu
+def test_telemetry_on_and_off_stream_equal_under_async(cuda, monkeypatch):
+    """Tracing and health on (the defaults) against both off, under
+    ``async_depth=1``: the same streams bit for bit and the same graphs
+    in number; the tracer saw the pipelined dispatches."""
+    model = _model("bfloat16")
+    prompts = _prompts(512)
+
+    def serve(on):
+        if not on:
+            monkeypatch.setenv("PADDLE_TPU_TRACE", "0")
+        eng = ServingEngine(model, ServingConfig(**CORE, async_depth=1,
+                                                 health=on))
+        monkeypatch.delenv("PADDLE_TPU_TRACE", raising=False)
+        out = eng.serve(prompts, 12)
+        st = eng.stats()
+        names = {e["name"] for e in eng.tracer.events()} if on else set()
+        eng.shutdown()
+        return out, st, names
+
+    a, st_on, names = serve(True)
+    b, st_off, _ = serve(False)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert st_on["executables_compiled"] == st_off["executables_compiled"]
+    assert st_on["tracing"] and not st_off["tracing"]
+    assert st_off["trace_events"] == 0 and st_on["pipelined_ticks"] > 0
+    assert "pipelined dispatch" in names and "decode tick" in names

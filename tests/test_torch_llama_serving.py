@@ -258,6 +258,30 @@ def test_later_slice_features_raise(field, value):
         with pytest.raises(ValueError, match="async_depth"):
             ServingConfig(async_depth=2)
         return
+    if field == "health":
+        # the health engine is ported and on by default, as in the
+        # reference; its ten fields take the reference's defaults, and
+        # the values the reference refuses raise its messages
+        cfg = ServingConfig()
+        assert cfg.health is True
+        assert ServingConfig(health=False).health is False
+        assert (cfg.health_slo_ttft_ms, cfg.health_slo_itl_ms,
+                cfg.health_slo_target, cfg.health_burn_fast_s,
+                cfg.health_burn_slow_s, cfg.health_burn_threshold,
+                cfg.health_burn_min_requests, cfg.health_watchdog_mult,
+                cfg.health_watchdog_floor_s, cfg.health_profile_ticks) == (
+            2000.0, 500.0, 0.99, 5.0, 60.0, 2.0, 8, 50.0, 5.0, 0)
+        for kw, msg in ((dict(health_slo_target=1.5), "health_slo_target"),
+                        (dict(health_slo_target=0.0), "health_slo_target"),
+                        (dict(health_burn_fast_s=60.0,
+                              health_burn_slow_s=5.0), "health_burn_fast_s"),
+                        (dict(health_watchdog_floor_s=0.0),
+                         "health_watchdog_floor_s"),
+                        (dict(health_watchdog_mult=0.5),
+                         "health_watchdog_mult")):
+            with pytest.raises(ValueError, match=msg):
+                ServingConfig(**kw)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingConfig(**{field: value})
 

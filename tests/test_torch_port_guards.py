@@ -73,6 +73,11 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/nn/functional/activation.py",
                  "paddle_tpu_torch/distributed/fleet/mp_layers.py",
                  "paddle_tpu_torch/models/gpt.py",
+                 "paddle_tpu_torch/monitor/registry.py",
+                 "paddle_tpu_torch/monitor/tracing.py",
+                 "paddle_tpu_torch/monitor/health.py",
+                 "paddle_tpu_torch/monitor/accounting.py",
+                 "paddle_tpu_torch/monitor/digest.py",
                  "chip_smoke.py"):
         assert want in names
     for cu in ("ragged_paged_attention", "paged_decode_attention",
@@ -101,7 +106,11 @@ def test_fresh_interpreter_import_pulls_in_no_jax():
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.models, "
             "paddle_tpu_torch.models.gpt, "
             "paddle_tpu_torch.distributed.fleet.mp_layers, "
-            "paddle_tpu_torch.nn.functional.activation; "
+            "paddle_tpu_torch.nn.functional.activation, "
+            "paddle_tpu_torch.monitor.registry, "
+            "paddle_tpu_torch.monitor.tracing, "
+            "paddle_tpu_torch.monitor.health, "
+            "paddle_tpu_torch.monitor.accounting; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
