@@ -285,14 +285,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     kernels appear by name); (d) a float32 2-layer engine at Llama-3-8B
     widths with an LM-head column at inf fires ``nonfinite_logits`` and
     captures no graph more than a clean one;
-23. print the kernels line, the card's name and power limit, and the
+23. the per-width engine (``ragged_batch=False``, run after phase 22, on
+    phase 3's model and traffic): synchronous chunk steps, interleaved
+    chunks (``max_prefill_chunks_per_step=1``), bucketed prefill
+    (``chunked_prefill=False``) and n-gram speculation at gamma 4, each
+    replaying its steps from CUDA graphs (K3a / K3b around K2d, K2v at
+    T = 128 for the chunks and at gamma + 1 for the verify must launch)
+    and again through the plain versions (graphs off), the streams held
+    by the near-tie rule against each other and against the ragged
+    engine of phase 3's config, served before and after them; each run's
+    tokens/s, TTFT, ms a decode tick and graphs captured, with the card
+    (phase 2 holds K2v's chunk window at 1 slot x 128 rows, contexts 5,
+    16 and 1029, on bfloat16, int8 and float32 pools and a bfloat16 q
+    over float32 pools at GPT's 16 / 16 heads of 64, timed beside K2r on
+    the same rows);
+24. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
 16, 17 and 18, both waves of phase 19 (b), each run of phase 20 (a)-(c)
 and (e) in bf16, each LoRA run and batch of phase 21, each run of phase
-22 (a)) runs with every
+22 (a), each kernel run of phase 23) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -365,6 +379,17 @@ RAGGED = {"llama": dict(D=128, MB=128, ticks=RAGGED_TICKS,
 PAGED = {"generate": dict(S=4, MB=37, lens=[513, 528, 549, 576]),
          "long": dict(S=8, MB=130, lens=None)}
 PAGED_T = 5                          # K2v's window: gamma 4 + 1
+# phase 2's K2v chunk window: the per-width engine's chunk step (one slot,
+# T = prefill_chunk rows at pend_pos + t), at contexts that start mid
+# block, on a block boundary and deep in the table; timed at the last,
+# beside K2r on the same 128 rows of one slot
+CHUNK = dict(T=128, MB=80, lens=[5, 16, 1029])
+# phase 23: the per-width engine on phase 3's model and traffic
+PER_WIDTH = {"sync": dict(ragged_batch=False),
+             "interleaved": dict(ragged_batch=False,
+                                 max_prefill_chunks_per_step=1),
+             "bucketed": dict(ragged_batch=False, chunked_prefill=False),
+             "ngram": dict(ragged_batch=False, num_speculative_tokens=4)}
 GENERATE = dict(batch=4, prompt=512, motif=64, new=64, gamma=4,
                 draft_layers=2, profiled_new=16)
 PHASE8 = dict(layers=2, batch=2, prompt=256, motif=32, new=32, gamma=4)
@@ -376,9 +401,16 @@ LOSS_RTOL = 1e-5      # phase 6: the loss
 # line's rows, as in earlier runs), Qwen2-7B's (q/k/v biases) and GPT's
 # defaults (LayerNorm + beta + bias, tanh-gelu + bias;
 # paddle_tpu/models/gpt.py:29-32); Llama's and GPT's also at a pure
-# decode tick's 8 rows (one a slot) and generate()'s 4
+# decode tick's 8 rows (one a slot) and generate()'s 4, and Llama's at
+# phase 23's per-width steps: the n-gram verify step's 8 slots x
+# (gamma 4 + 1) = 40 rows and the chunk step's prefill_chunk = 128
 K3_ROWS = 136
 K3_DECODE_ROWS = (8, 4)
+PW_BASE = dict(num_slots=8, block_size=16, max_model_len=2048,
+               prefill_chunk=128, max_new_tokens=32)
+K3_PER_WIDTH_ROWS = (
+    PW_BASE["num_slots"] * (PER_WIDTH["ngram"]["num_speculative_tokens"]
+                            + 1), PW_BASE["prefill_chunk"])
 K3A_CASES = {   # label: d, widths, kind, beta, biases
     "llama qkv": (4096, (4096, 1024, 1024), "rms", False, (False,) * 3),
     "llama gate/up": (4096, (14336, 14336), "rms", False, (False,) * 2),
@@ -914,6 +946,89 @@ def check_paged_tree(torch, pda, dtype, timing, heads=32, kv_heads=8,
     return errs, rows
 
 
+def check_chunk_window(torch, pda, rpa, dtype, timing, heads=32,
+                       kv_heads=8, int8=False, head_dim=128, f32pool=False):
+    """K2v's chunk window: the per-width engine's chunk step, one slot of
+    CHUNK["T"] rows at each of CHUNK's contexts (BS 16, tables of
+    CHUNK["MB"] blocks; 32 / 8 heads unless ``heads`` / ``kv_heads`` say
+    otherwise, ``head_dim``), held against the plain version elementwise
+    and row by row; ``int8`` / ``f32pool`` as :func:`check_paged`'s. With
+    ``timing``, timed cold at the last context beside K2r on the same 128
+    rows of one slot (a ragged tick's prefill chunk), with the bound of
+    the bytes both must move. Returns ``(error, row)``; the row is None
+    without ``timing``."""
+    dt, pool_dt, sfx, op_dt = k2_mode(torch, dtype, int8, f32pool)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    H, Hkv, D, BS = heads, kv_heads, head_dim, 16
+    T, MB = CHUNK["T"], CHUNK["MB"]
+    NB = 1 + MB
+    pools, pos_bytes = kv_pools(torch, g, (NB, BS, Hkv, D), pool_dt, int8,
+                                timing)
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    tables = perm[:MB].reshape(1, MB).to(torch.int32).contiguous()
+    name = "paged_verify_attention" + sfx
+    q = torch.randn(1, T, H, D, generator=g, device="cuda").to(dt)
+    kp, vp = pools[0]
+    fails, errs = [], []
+    for n in CHUNK["lens"]:
+        ctx = torch.tensor([n], dtype=torch.int32, device="cuda")
+        n0 = pda.launch_counts[name]
+        got = pda.paged_verify_attention(q, kp, vp, tables, ctx)
+        launched(pda.launch_counts, name, n0, fails)
+        ref = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx)
+        torch.cuda.synchronize()
+        what = (f"{name} chunk window T {T}, context {n}, {H}/{Hkv} heads "
+                f"D {D}")
+        errs.append(held_attention(torch, got, ref, dtype, what, fails))
+        if f32pool:
+            held_f32pool(torch, got, pda.paged_verify_attention(
+                q.float(), kp, vp, tables, ctx), what, fails)
+    if fails:
+        raise AssertionError(f"[{dtype}] chunk window: {fails}")
+    if not timing:
+        return max(errs), None
+    n = CHUNK["lens"][-1]
+    ctx = torch.tensor([n], dtype=torch.int32, device="cuda")
+    es = q.element_size()
+    kv_pos = min(n + T - 1, MB * BS)
+    nbytes = 2 * kv_pos * Hkv * pos_bytes + 2 * q.numel() * es \
+        + 4 * (tables.numel() + 1)
+    vis = sum(n + t for t in range(T))
+    b_ms, b_by = bound(nbytes, 4 * vis * H * D, op_dt)
+    turn = iter(range(1 << 30))
+
+    def run(f, *extra):
+        kp_i, vp_i = pools[next(turn) % len(pools)]
+        return f(q, kp_i, vp_i, tables, ctx, *extra)
+
+    row = dict(ms=time_ms(torch, lambda: run(pda.paged_verify_attention)),
+               plain_ms=time_ms(torch, lambda: run(
+                   pda.plain_paged_verify_attention)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # K2r over the same rows: one slot of T rows at the same context
+    q2 = q.reshape(T, H, D)
+    ql = torch.tensor([T], dtype=torch.int32, device="cuda")
+    rs = torch.zeros(1, dtype=torch.int32, device="cuda")
+    k2r = rpa.ragged_paged_attention(q2, kp, vp, tables, ctx, ql, rs, T)
+    same = float((k2r.float() - pda.paged_verify_attention(
+        q, kp, vp, tables, ctx)[0].float()).abs().max())
+
+    def run_r():
+        kp_i, vp_i = pools[next(turn) % len(pools)]
+        return rpa.ragged_paged_attention(q2, kp_i, vp_i, tables, ctx, ql,
+                                          rs, T)
+
+    k2r_ms = time_ms(torch, run_r)
+    log(f"  {name} [{dtype}] chunk window: 1 slot, T {T}, context {n}, "
+        f"{H}/{Hkv} heads D {D}: ms={row['ms']:.4f} (K2r on the same "
+        f"{T} rows: {k2r_ms:.4f}; ratio {row['ms'] / k2r_ms:.3f}; "
+        f"max |K2v - K2r| {same:.3e}) plain_ms={row['plain_ms']:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.2f} MB; "
+        f"{len(pools)} pool copies)")
+    row["k2r_ms"] = k2r_ms
+    return max(errs), row
+
+
 def check_ragged_tree(torch, rpa, dtype, timing, heads=32, kv_heads=8,
                       int8=False, model="llama", f32pool=False):
     """K2r's tree mode at a speculating engine's tick of ``model``'s
@@ -1017,10 +1132,14 @@ def k3_inputs(torch, dt, seed, *shapes, scale=1.0):
 
 
 def k3_rows(label):
-    """The rows phase 2 holds a K3 case at: the prefill tick's, and for
-    Llama's and GPT's cases the decode ticks' too; each case's label
-    names its rows but at K3_ROWS (the kernels line's)."""
-    more = K3_DECODE_ROWS if label.split()[0] in ("llama", "gpt") else ()
+    """The rows phase 2 holds a K3 case at: the prefill tick's, for
+    Llama's and GPT's cases the decode ticks' too, and for Llama's the
+    per-width verify and chunk steps'; each case's label names its rows
+    but at K3_ROWS (the kernels line's)."""
+    model = label.split()[0]
+    more = K3_DECODE_ROWS if model in ("llama", "gpt") else ()
+    if model == "llama":
+        more += K3_PER_WIDTH_ROWS
     return [(K3_ROWS, label)] + [(r, f"{label} R={r}") for r in more]
 
 
@@ -2774,7 +2893,9 @@ def serve_run(torch, kernels, engine, prompts, lens, tag, want,
         if len(toks) != max_new or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{tag}: request {rid}: bad tokens {toks}")
-    if not torch.isfinite(engine.last_logits).all():
+    # (a per-width verify step keeps no logits: its tokens are checked)
+    if engine.last_logits is not None \
+            and not torch.isfinite(engine.last_logits).all():
         raise AssertionError(f"{tag}: non-finite logits in the last tick")
     n_tok = sum(len(t) for t in done.values())
     log(f"{tag}: {len(prompts)} requests, prompt tokens {int(sum(lens))} "
@@ -2808,23 +2929,19 @@ def pool_tensors(pools):
             yield from ((p.data, p.scale) if hasattr(p, "scale") else (p,))
 
 
-def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
-                   max_new, tag, draft=None, stagger=3, adapters=None,
-                   on_tick=None):
-    """Two engines of ``cfg`` over ``model`` (and ``draft``), one
-    replaying its ticks from CUDA graphs and one running every tick
-    eagerly (its graphs off) at the same widths, stepped in lockstep over
-    ``prompts``, prompt k submitted before tick ``stagger * k`` so that
-    ticks with prefill rows recur beside decoding slots: at every tick
-    both must commit the same tokens, add the same launch counts and give
-    the same logits to the bit, and at the end every layer's pools (the
-    null block aside) must be equal to the bit. ``adapters``: ``(weights
-    by adapter id, an adapter id or None a prompt)`` for a LoRA ``cfg``;
-    ``on_tick(engine, tick)`` runs on each engine before its tick.
-    Returns the graph
-    engine's ``stats()`` with its ``mixed_graphs`` / ``mixed_replays``
-    (ticks with prefill rows, at the static width) and ``pure_graphs`` /
-    ``pure_replays``; fails unless both kinds replayed."""
+def lockstep(torch, kernels, ServingEngine, model, cfg, prompts, max_new,
+             tag, draft=None, stagger=3, adapters=None, on_tick=None):
+    """The core of :func:`graph_lockstep` and :func:`per_width_lockstep`:
+    two engines of ``cfg`` over ``model`` (and ``draft``), one replaying
+    its steps from CUDA graphs and one running them eagerly (its graphs
+    off), stepped in lockstep over ``prompts``, prompt k submitted before
+    tick ``stagger * k``: at every tick both must commit the same tokens,
+    add the same launch counts and give the same logits to the bit, and
+    at the end every layer's pools (the null block aside) must be equal
+    to the bit. ``adapters``: ``(weights by adapter id, an adapter id or
+    None a prompt)`` for a LoRA ``cfg``; ``on_tick(engine, tick)`` runs on
+    each engine before its tick. Returns the two engines, the graph one
+    first."""
     engines = []
     for graphs in (True, False):
         e = ServingEngine(model, cfg, device="cuda", draft_model=draft)
@@ -2870,6 +2987,19 @@ def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
         for a, b in zip(pool_tensors(pg), pool_tensors(pe)):
             if not torch.equal(a[1:], b[1:]):
                 raise AssertionError(f"{tag}: {name} differ after the run")
+    return engines
+
+
+def graph_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
+                   max_new, tag, draft=None, stagger=3, adapters=None,
+                   on_tick=None):
+    """:func:`lockstep` on the ragged engine, at the same widths in both
+    engines, the prompts staggered so that ticks with prefill rows recur
+    beside decoding slots. Returns the graph engine's ``stats()`` with its ``mixed_graphs`` / ``mixed_replays``
+    (ticks with prefill rows, at the static width) and ``pure_graphs`` /
+    ``pure_replays``; fails unless both kinds replayed."""
+    engines = lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
+                       max_new, tag, draft, stagger, adapters, on_tick)
     eng = engines[0]
     st = eng.stats()
     pure_graphs = sum(lay.pure for lay in eng._graphs)
@@ -2941,6 +3071,29 @@ def pure_tick_window(torch, engine, prompts, n, tag, by_kernel=None):
         f"({wall_ms / n:.3f} a tick, profiler on), device busy "
         f"{busy_ms:.3f} ms -> idle share {idle:.4f}")
     return wall_ms / n, idle
+
+
+def per_width_lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
+                       max_new, tag, draft=None, stagger=3):
+    """:func:`lockstep` on the per-width engine (``cfg`` with
+    ``ragged_batch=False``), whose graph engine replays every step from
+    its CUDA graph (decode or verify, the draft loop, the chunk steps and
+    their draft twins, the buckets). Returns the graph engine's
+    ``stats()`` with ``graphs``, the names of its captured steps; fails
+    unless it replayed a step past its capture."""
+    engines = lockstep(torch, kernels, ServingEngine, model, cfg, prompts,
+                       max_new, tag, draft, stagger)
+    eng = engines[0]
+    st = dict(eng.stats(), graphs=sorted(
+        n for n, step in eng._pw.items() if step.graph is not None))
+    steps = st["decode_steps"] + st["prefill_chunks"]
+    if st["executables_compiled"] != len(st["graphs"]) \
+            or steps <= len(st["graphs"]):
+        raise AssertionError(f"{tag}: {st['graphs']} captured over {steps} "
+                             "steps: nothing replayed")
+    for e in engines:
+        e.shutdown()
+    return st
 
 
 LOCKSTEP = dict(num_slots=4, block_size=16, max_model_len=512,
@@ -5567,6 +5720,126 @@ def telemetry_phase(torch, kernels, ServingEngine, ServingConfig,
     return launches
 
 
+# --------------------------------------------------------------- phase 23
+
+PW_KERNELS = {"sync": ("paged_decode_attention", "paged_verify_attention",
+                       "norm_matmul", "matmul_residual"),
+              "interleaved": ("paged_decode_attention",
+                              "paged_verify_attention", "norm_matmul",
+                              "matmul_residual"),
+              "bucketed": ("paged_decode_attention", "norm_matmul",
+                           "matmul_residual"),
+              "ngram": ("paged_verify_attention", "norm_matmul",
+                        "matmul_residual")}
+
+
+def tick_ms(st):
+    """The engine's ms a decode tick: the launch-to-read-back EMA of its
+    decode or verify step (per-width), or of the pure tick layout that
+    ran most (ragged)."""
+    per = st["roofline"]["per_executable"]
+    if not st["ragged_batch"]:
+        r = per.get("verify" if "spec_tokens_proposed" in st else "decode")
+    else:
+        pure = [v for k, v in per.items() if "-pure-" in k]
+        r = max(pure, key=lambda v: v["ticks"]) if pure else None
+    return None if r is None else r["step_time_ms"]
+
+
+def per_width_phase(torch, kernels, df, rpa, pda, mg, ServingEngine,
+                    ServingConfig, model, prompts, lens, card):
+    """Phase 23: the per-width engine (``ragged_batch=False``) on phase
+    3's model (Llama-3-8B, 32 layers, bf16, phase 3's seeded weights) and
+    traffic, in PER_WIDTH's four configurations (synchronous chunks,
+    interleaved chunks, bucketed prefill, n-gram speculation at gamma
+    4), each served through the kernels (steps replayed from CUDA graphs;
+    K3a / K3b around K2d / K2v must launch, K2v also at T =
+    prefill_chunk) and through their plain versions (graphs off), the
+    streams held by the near-tie rule (the logit difference of two bf16
+    recipes) against each other and against the ragged engine (phase 3's
+    config), which serves the same traffic before and after them in this
+    call. Logs each run's tokens/s, TTFT, ms a decode tick and graphs
+    captured with the card. Returns ``(launches by run, the chunk steps'
+    K2v launches)``."""
+    t_phase = time.monotonic()
+    ids7 = torch.from_numpy(motif_prompts(
+        GENERATE["batch"], GENERATE["prompt"], GENERATE["motif"],
+        model.config.vocab_size, SEED + 3)).to(model.device)
+    noise = logit_noise(torch, model, ids7)
+    del ids7
+    base = PW_BASE
+    fails, runs, streams, chunk_k2v = [], {}, {}, 0
+
+    def report(tag, st, out, graphs, ttft):
+        ms = tick_ms(st)
+        n_tok = sum(len(t) for t in out)
+        log(f"{tag}: {n_tok / st['wall_s']:.2f} tok/s, TTFT ms {ttft}, "
+            f"ms a decode tick {'n/a' if ms is None else f'{ms:.3f}'}, "
+            f"{graphs}; decode steps {st['decode_steps']}, prefill "
+            f"chunks {st['prefill_chunks']}, prefill compiles "
+            f"{st['prefill_compiles']}; card {card}")
+
+    def serve(name, kw, plain=False):
+        """A first wave (its steps captured), and through the kernels a
+        warm second wave of the same traffic on the same engine (the
+        published prefixes purged: it prefills as the first did, from
+        the graphs already captured); returns the first wave's launches
+        and streams."""
+        tag = f"phase 23 {name}{' plain' if plain else ''}"
+        eng = ServingEngine(model, ServingConfig(**base, **kw),
+                            device="cuda")
+        want = () if plain else PW_KERNELS.get(name, SERVING_KERNELS)
+        patches = plain_moe_patches(df, rpa, mg, pda) if plain else []
+        launches, st, out = patched(patches, lambda: serve_run(
+            torch, kernels, eng, prompts, lens, tag, want))
+        n, t1 = st["executables_compiled"], st["ttft_ms"]
+        report(tag, st, out, f"{n} steps built, eager (no graph)" if plain
+               else f"{n} graphs captured",
+               f"mean {t1['mean']:.1f} p50 {t1['p50']:.1f}")
+        if not plain:
+            eng.purge_published()
+            _, st2, out2 = serve_run(torch, kernels, eng, prompts, lens,
+                                     f"{tag} warm", want)
+            new = st2["executables_compiled"] - n
+            # the digest holds both waves: the warm wave's mean is the
+            # difference of the sums
+            t2 = st2["ttft_ms"]
+            warm = (t2["mean"] * t2["count"] - t1["mean"] * t1["count"]) \
+                / max(1, t2["count"] - t1["count"])
+            report(f"{tag} warm", st2, out2,
+                   f"{new} graphs captured (replays only)",
+                   f"mean {warm:.1f}")
+            if new:
+                fails.append(f"{tag}: the warm wave captured {new} graphs")
+            held_streams(torch, model, f"{tag} warm vs first wave",
+                         prompts, out2, out, fails, limit=noise)
+        eng.shutdown()
+        del eng
+        torch.cuda.empty_cache()
+        return launches, out
+
+    runs["ragged"], streams["ragged"] = serve("ragged", {})
+    for name, kw in PER_WIDTH.items():
+        runs[name], streams[name] = serve(name, kw)
+        if "num_speculative_tokens" not in kw:
+            chunk_k2v += runs[name]["paged_verify_attention"]
+        held_streams(torch, model, f"phase 23 {name} vs ragged", prompts,
+                     streams[name], streams["ragged"], fails, limit=noise)
+    runs["ragged again"], streams["ragged again"] = serve("ragged", {})
+    held_streams(torch, model, "phase 23 ragged vs ragged again", prompts,
+                 streams["ragged"], streams["ragged again"], fails,
+                 limit=noise)
+    for name, kw in PER_WIDTH.items():
+        _, plain = serve(name, kw, plain=True)
+        held_streams(torch, model, f"phase 23 {name} kernels vs plain",
+                     prompts, streams[name], plain, fails, limit=noise)
+    if fails:
+        raise AssertionError(f"phase 23 failed: {fails}")
+    log(f"phase 23: {time.monotonic() - t_phase:.1f}s (near-tie limit "
+        f"{noise:.3e}); the chunk steps' K2v launches {chunk_k2v}")
+    return {k: v for k, v in runs.items() if k in PER_WIDTH}, chunk_k2v
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -5659,6 +5932,10 @@ def main(argv=None):
                          int8=True)
             check_paged(torch, pda, dtype, timing, "generate", heads,
                         kv_heads, int8=True)
+        # K2v's chunk window (the per-width engine's chunk step): fp and
+        # int8 pools, timed in bf16 beside K2r on the same rows
+        ecw, rcw = check_chunk_window(torch, pda, rpa, dtype, timing)
+        check_chunk_window(torch, pda, rpa, dtype, timing, int8=True)
         # GPT's serving on int8 pools (phase 18 (b)): K2r at its tick, 16 /
         # 16 heads of 64
         check_ragged(torch, rpa, dtype, timing, GPT_HEADS, GPT_HEADS,
@@ -5687,6 +5964,8 @@ def main(argv=None):
             for name, r in r4.items():
                 table[name] = dict(r, max_abs_err=e4[name])
             table["ragged_paged_attention"] = dict(r1, max_abs_err=e1)
+            table["paged_verify_attention_chunk"] = dict(rcw,
+                                                         max_abs_err=ecw)
             table["ragged_paged_attention_int8"] = dict(r1q["prefill"],
                                                         max_abs_err=e1q)
             for name, r in list(r5.items()) + list(r5q.items()) \
@@ -5721,6 +6000,7 @@ def main(argv=None):
                              **gpt)):
         for name, r in rows.items():
             table[name] = dict(r, max_abs_err=errs[name])
+    check_chunk_window(torch, pda, rpa, "bfloat16", True, head_dim=64, **gpt)
     torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
         check_flash(torch, F, fa, dtype, dtype == "bfloat16", shape=GPT_ATTN)
@@ -5797,6 +6077,11 @@ def main(argv=None):
                                 LlamaConfig, LlamaForCausalLM, model,
                                 prompts, lens).items():
         launches[k] += n
+
+    # -- phase 23: the per-width engine --------------------------------------
+    pw_runs, chunk_k2v = per_width_phase(
+        torch, kernels, df, rpa, pda, mg, ServingEngine, ServingConfig,
+        model, prompts, lens, card)
     del model
     torch.cuda.empty_cache()
 
@@ -5947,7 +6232,14 @@ def main(argv=None):
                                 args.layers).items():
         launches[k] += n
 
-    # -- phase 23: report --------------------------------------------------
+    # the per-width runs (phase 23) on the kernels they launched; the chunk
+    # steps' K2v launches under their own row too
+    for k in ("paged_decode_attention", "paged_verify_attention",
+              "norm_matmul", "matmul_residual"):
+        launches[k] += sum(r[k] for r in pw_runs.values())
+    launches["paged_verify_attention_chunk"] = chunk_k2v
+
+    # -- phase 24: report --------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (
@@ -5957,6 +6249,9 @@ def main(argv=None):
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:439"),
             "paged_verify_attention": (
+                "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+                "paddle_tpu/ops/pallas/paged_attention.py:510"),
+            "paged_verify_attention_chunk": (
                 "paddle_tpu_torch/csrc/paged_decode_attention.cu",
                 "paddle_tpu/ops/pallas/paged_attention.py:510"),
             "ragged_paged_attention_int8": (

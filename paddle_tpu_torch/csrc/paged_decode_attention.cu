@@ -23,19 +23,23 @@
 //
 // float32 design: two kernels, decode_kernel (K2d, the window of one token
 // fixed at compile time) and verify_kernel (K2v), over one body; each has
-// its own C entry point. One thread block per (slot, kv head, split of the
-// slot's context). The block takes every query vector of its kv group -- the
-// T window tokens x the rep query heads, <= 64, staged in shared memory from
-// the [S, T, H, D] layout as it lies -- so each K/V block is read once per
-// group, as the TPU grid does. Decode has only S x Hkv such groups (64 at 8
+// its own C entry point. One thread block per (slot, kv head, window tile,
+// split of the slot's context). A tile is TR = 64 / rep consecutive window
+// tokens (the whole window when it fits: a verify window; a prefill chunk
+// of the per-width engine takes several); the block takes every query
+// vector of its kv group in its tile -- its tokens x the rep query heads,
+// <= 64, staged in shared memory from the [S, T, H, D] layout as it lies
+// -- so each K/V block is read once per (group, tile), as the TPU grid
+// reads it once per group. Decode has only S x Hkv such groups (64 at 8
 // slots of Llama-3-8B, on 132 SMs), so the context is cut into n_split
 // ranges of blocks (the caller picks n_split to put about 8 blocks on each
 // SM); each split writes its unnormalised (m, l, acc) to scratch and a
 // second kernel merges the splits with the online-softmax rescale (one warp
 // per query vector, a lane per split). Within a split the block walks blocks
-// j while j * BS < lens + T - 1 (later blocks are never read), 32 / BS
-// blocks a step. A step stages its 32 columns of K and V in shared memory,
-// each thread issuing all of its 16-byte loads before storing any; rows are
+// j while j * BS < lens + t1 - 1 (t1 the end of its tile of the window;
+// later blocks are never read), 32 / BS blocks a step. A step stages its
+// 32 columns of K and V in shared memory, each thread issuing all of its
+// 16-byte loads before storing any; rows are
 // padded by four floats, so lane c reads K row c in 16-byte pieces without
 // bank conflicts. Each warp owns every fourth query vector and keeps its m,
 // l and a D/32 slice of acc (dims lane * D/32 ..) in float32 registers: lane
@@ -55,14 +59,16 @@
 // (the TPU kernel's float32 dequantized V).
 //
 // Shapes: q and out [S, T, H, D]; pools [NB, BS, Hkv, D]; tables
-// [S, MB], context_lens [S] int32; H = rep * Hkv, T <= 32 (a tree's 31
-// drafts and its root), float32 with T * rep <= 64; D in {64, 128}; BS in
-// {8, 16, 32}; float32 or bfloat16 (bfloat16: S <= 512, rep <= 64, a
-// window of more than 64 / rep rows in several tiles, over any pools);
+// [S, MB], context_lens [S] int32; H = rep * Hkv, rep <= 64, T <=
+// MAX_WINDOW = 1024 (the tree mode: T <= 32, a tree's 31 drafts and its
+// root); D in {64, 128}; BS in {8, 16, 32}; float32 or bfloat16 (bfloat16:
+// S <= 512, a window of more than 64 / rep rows in several wgmma tiles,
+// over any pools; a slot of several tiles is not split);
 // pools of q's dtype, float32 pools under a bfloat16 q, or int8 with
 // float32 scales
 // [NB, BS, Hkv] (bfloat16 q: the Hopper body's int8 mode). Scratch (float32, from the caller): float32
-// n_split * S * T * H * (D + 2), n_split <= 16; bfloat16 as K2r's.
+// n_split * S * T * H * (D + 2), n_split <= 16 (a split covers each tile
+// of the window); bfloat16 as K2r's.
 #include "common.cuh"
 #include "paged_attention_sm90.cuh"
 
@@ -74,6 +80,7 @@ constexpr int NW = 4;         // warps per block
 constexpr int MAX_Q = 64;     // query vectors per block
 constexpr int QW = MAX_Q / NW;
 constexpr int MAX_T = 32;     // the 32 bits of a tree row's mask
+constexpr int MAX_WINDOW = 1024;   // the wrapper's MAX_WINDOW
 constexpr int MAX_BS = 32;    // columns staged a step: 32 / BS blocks
 // the wrapper's MAX_SPLITS (ops/kernels/paged_attention.py); the merge
 // gives each split one lane, so it could take up to 32
@@ -103,8 +110,8 @@ __device__ __forceinline__ int live_blocks(int lens, int TW, int BS,
   return min((lens + TW - 1 + BS - 1) / BS, MB);
 }
 
-// the body of both kernels: one (slot, kv head, split) block over a
-// window of TW tokens
+// the body of both kernels: one (slot, kv head, tile, split) block over
+// the tile's tokens of a window of TW (grid z: tile * n_split + split)
 template <typename T, typename KV, int D>
 __device__ __forceinline__ void attend_group(
     const T* __restrict__ q, const KV* __restrict__ kp,
@@ -117,16 +124,18 @@ __device__ __forceinline__ void attend_group(
   constexpr int DP = D + 4;   // K/V row stride: 16-byte rows, no conflicts
   constexpr int VEC = 16 / sizeof(T);
   static_assert(VEC == 4, "the float32 body: 4 elements a chunk (Kv4)");
-  const int s = blockIdx.x, g = blockIdx.y, split = blockIdx.z;
+  const int s = blockIdx.x, g = blockIdx.y;
+  const int split = blockIdx.z % n_split, tile = blockIdx.z / n_split;
+  const int t0 = tile * (MAX_Q / rep), nr = min(MAX_Q / rep, TW - t0);
   const int lens = ctx_lens[s];
-  const int nblk = live_blocks(lens, TW, BS, MB);
+  const int nblk = live_blocks(lens, t0 + nr, BS, MB);
   const int per = (nblk + n_split - 1) / n_split;
   const int j0 = split * per, j1 = min(j0 + per, nblk);
   if (j0 >= j1 && split > 0) return;
-  const int nq = TW * rep;
+  const int nq = nr * rep;
   const int* trow = tables + (size_t)s * MB;
-  // query vector qv is window token qv / rep, head g * rep + qv % rep
-  const size_t v0 = (size_t)s * TW * H + (size_t)g * rep;
+  // query vector qv is window token t0 + qv / rep, head g * rep + qv % rep
+  const size_t v0 = ((size_t)s * TW + t0) * H + (size_t)g * rep;
 
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                 // [MAX_BS][D + 4]
@@ -196,9 +205,9 @@ __device__ __forceinline__ void attend_group(
       const int qv = warp + qi * NW;
       if (qv < nq) {  // uniform across the warp
         // the row's ancestor mask (no tree: all ones, the linear bound)
-        const uint32_t anc = anc_bits ? anc_bits[qv / rep] : ~0u;
+        const uint32_t anc = anc_bits ? anc_bits[t0 + qv / rep] : ~0u;
         const int rel = col - lens;
-        const bool live = lane < ncols && col < lens + qv / rep &&
+        const bool live = lane < ncols && col < lens + t0 + qv / rep &&
                           (rel < 0 || (anc >> (rel & 31)) & 1u);
         float sc = MASKED;
         if (live) {
@@ -294,7 +303,8 @@ __global__ void __launch_bounds__(NW * 32)
 }
 
 // merge the splits of each query vector: one warp per vector, lane sp
-// reading split sp's (m, l); block z covers vectors z * NW .. + NW - 1
+// reading split sp's (m, l) (the splits of its window tile); block z
+// covers vectors z * NW .. + NW - 1
 template <typename T, int D>
 __global__ void __launch_bounds__(NW * 32)
     merge_kernel(const int* __restrict__ ctx_lens,
@@ -305,7 +315,9 @@ __global__ void __launch_bounds__(NW * 32)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qv = blockIdx.z * NW + warp;
   if (qv >= TW * rep) return;  // uniform across the warp
-  const int nblk = live_blocks(ctx_lens[s], TW, BS, MB);
+  const int tr = MAX_Q / rep;  // the attend block's tile: its last token
+  const int t1 = min(TW, (qv / rep / tr + 1) * tr);
+  const int nblk = live_blocks(ctx_lens[s], t1, BS, MB);
   const int per = (nblk + n_split - 1) / n_split;
   const int used = per > 0 ? (nblk + per - 1) / per : 1;  // splits that ran
   const size_t SH = (size_t)S * TW * H;
@@ -342,7 +354,8 @@ cudaError_t launch(bool decode, const void* q, const void* kp,
                    float scale, cudaStream_t stream,
                    const uint32_t* tree_bits) {
   const int rep = H / Hkv;
-  const int nq = TW * rep;
+  const int tiles = (TW + MAX_Q / rep - 1) / (MAX_Q / rep);
+  const int nq = min(TW, MAX_Q / rep) * rep;   // vectors a block
   TreeBits tree = {};
   for (int t = 0; tree_bits != nullptr && t < TW; ++t)
     tree.bits[t] = tree_bits[t];
@@ -354,13 +367,13 @@ cudaError_t launch(bool decode, const void* q, const void* kp,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
   if (err != cudaSuccess) return err;
   const size_t smem = sizeof(float) * (2 * MAX_BS * (D + 4) + nq * D);
-  kernel<<<dim3(S, Hkv, n_split), NW * 32, smem, stream>>>(
+  kernel<<<dim3(S, Hkv, n_split * tiles), NW * 32, smem, stream>>>(
       (const T*)q, (const KV*)kp, (const KV*)vp, ks, vs, tables, ctx,
       (T*)out, part, S, TW, H, Hkv, BS, MB, rep, n_split, scale, tree);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   merge_kernel<T, D>
-      <<<dim3(S, Hkv, (nq + NW - 1) / NW), NW * 32, 0, stream>>>(
+      <<<dim3(S, Hkv, (TW * rep + NW - 1) / NW), NW * 32, 0, stream>>>(
       ctx, part, (T*)out, S, TW, H, BS, MB, rep, n_split);
   return cudaGetLastError();
 }
@@ -388,8 +401,10 @@ int run(bool decode, const void* q, const void* kp, const void* vp,
         void* out, void* part, void* counters, int S, int TW, int H, int Hkv,
         int D, int BS, int MB, int NB, int n_split, float scale, int dtype,
         void* stream, const uint32_t* tree_bits) {
-  if (S < 1 || TW < 1 || TW > MAX_T || (decode && TW != 1) || Hkv < 1 ||
-      H % Hkv != 0 || (decode && tree_bits != nullptr) ||
+  if (S < 1 || TW < 1 || TW > MAX_WINDOW ||
+      (tree_bits != nullptr && TW > MAX_T) || (decode && TW != 1) ||
+      Hkv < 1 || H % Hkv != 0 || H / Hkv > MAX_Q ||
+      (decode && tree_bits != nullptr) ||
       (ks == nullptr) != (vs == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -403,7 +418,7 @@ int run(bool decode, const void* q, const void* kp, const void* vp,
                              nullptr, nullptr, out, pp, (int*)counters, S, H,
                              Hkv, D, BS, MB, NB, TW, n_split, scale, st,
                              tree_bits);
-  if (dtype != 0 || TW * (H / Hkv) > MAX_Q || BS < 1 || BS > MAX_BS ||
+  if (dtype != 0 || BS < 1 || BS > MAX_BS ||
       MAX_BS % BS || MB < 1 ||
       n_split < 1 || n_split > MAX_SPLITS ||
       (n_split > 1 && part == nullptr))
@@ -436,7 +451,7 @@ extern "C" int ptt_paged_decode_attention(
              nullptr);
 }
 
-// K2v: q and out [S, T, H, D], 1 <= T <= 32; pools as K2d's. float32:
+// K2v: q and out [S, T, H, D], 1 <= T <= 1024; pools as K2d's. float32:
 // part is scratch of n_split * S * T * H * (D + 2) floats (unused and may
 // be null when n_split == 1); bfloat16 and dtype 2: as K2r's with w_max
 // = T.
@@ -450,10 +465,10 @@ extern "C" int ptt_paged_verify_attention(
              nullptr);
 }
 
-// K2v's tree mode: as ptt_paged_verify_attention, every slot's window row t
-// masked by tree_bits[t] (host memory, T words: row t's ancestors, bit
-// j - 1 for window node j; tree_ancestor_bits of ops/kernels/
-// paged_attention.py).
+// K2v's tree mode (T <= 32): as ptt_paged_verify_attention, every slot's
+// window row t masked by tree_bits[t] (host memory, T words: row t's
+// ancestors, bit j - 1 for window node j; tree_ancestor_bits of
+// ops/kernels/paged_attention.py).
 extern "C" int ptt_paged_verify_attention_tree(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* tables, const void* ctx, void* out,

@@ -367,19 +367,27 @@ def accept_tree_from_filtered(f, toks, parents, generator, *, do_sample):
 
 
 def build_verify_step(model_step, *, gamma, do_sample, temperature=1.0,
-                      top_k=0, top_p=1.0):
+                      top_k=0, top_p=1.0, slot_params=False):
     """The fixed-gamma verify step: ``verify(pools, tables, lens, toks,
     dq=None, generator=None) -> (out, accept, logp, pools)`` runs ONE
     target forward over the window ``toks [S, gamma + 1]`` (K/V written
     at ``lens + t``, attended through K2v), filters the logits and
     accepts with :func:`accept_from_filtered`. ``model_step(ids, pools,
-    tables, lens) -> (logits, pools)``."""
+    tables, lens) -> (logits, pools)``. ``slot_params`` (the serving
+    engine's per-slot knobs): ``verify(pools, tables, lens, toks, samp,
+    dq=None, generator=None)`` with ``samp [S, 3]`` = (temperature,
+    top_k, top_p) a slot; the keyword knobs are then ignored."""
 
-    def verify(pools, tables, lens, toks, dq=None, generator=None):
+    def verify(pools, tables, lens, toks, *rest):
+        if slot_params:
+            samp, rest = rest[0], rest[1:]
+            t_, k_, p_ = samp[:, 0], samp[:, 1], samp[:, 2]
+        else:
+            t_, k_, p_ = temperature, top_k, top_p
+        dq, generator = (tuple(rest) + (None, None))[:2]
         logits, pools = model_step(toks, pools, tables, lens)
-        f = _filter_logits(logits, do_sample=do_sample,
-                           temperature=temperature, top_k=top_k,
-                           top_p=top_p)
+        f = _filter_logits(logits, do_sample=do_sample, temperature=t_,
+                           top_k=k_, top_p=p_)
         out, accept, picked = accept_from_filtered(
             f, toks, dq, generator, gamma=gamma, do_sample=do_sample)
         return out, accept, picked, pools

@@ -121,10 +121,29 @@ host code outside the captured ticks: ``PADDLE_TPU_TRACE=0`` and
 ``PADDLE_TPU_HEALTH=0`` (or ``health=False``) change no token and no
 graph.
 
-Later slices bring tensor parallelism, the cluster and the per-width
-engine; a config field or argument asking for one of them raises
-``NotImplementedError`` naming that slice; their ``stats()`` keys are
-present at their off values.
+The reference's per-width engine (``ServingConfig(ragged_batch=
+False)``): each tick runs ONE fixed-width step over every slot, the
+decode step (each decoding slot's token at its length; K2d) or, when
+speculating, the n-gram drafts or the draft model's loop and the
+fixed-gamma verify step (K2v at ``T = gamma + 1``); idle and pending
+slots ride it as null rows. Prompts prefill by ``[1, prefill_chunk]``
+chunk steps (K2v at ``T = prefill_chunk``), whole at admission or, with
+``max_prefill_chunks_per_step > 0``, that many a tick between the decode
+steps (a pending slot's table row stays null until its prefill ends).
+``chunked_prefill=False`` (on either engine) prefills a prompt at
+admission by one dense cached forward at its power-of-two bucket
+(``min_prefill_bucket``), scattered into its blocks, and turns the
+prefix cache and preemption off, as the reference does. Each of these
+steps runs its layers fused (K3a / K3b around K2d / K2v, inside
+:func:`~paddle_tpu_torch.ops.kernels.decode_fused.paged_fused_scope`)
+and is captured once as a CUDA graph on the card (its first call on the
+CPU is counted instead), as the reference compiles each once:
+``decode_compiles``, ``prefill_compiles`` (by bucket label) and
+``executables_compiled`` count them.
+
+Later slices bring tensor parallelism and the cluster; a config field
+or argument asking for one of them raises ``NotImplementedError`` naming
+that slice; their ``stats()`` keys are present at their off values.
 """
 from __future__ import annotations
 
@@ -143,7 +162,7 @@ import torch
 from ..distributed import moe as _moe
 from ..framework.place import resolve_device
 from ..framework.random import generator
-from ..generation import _filter_logits, _select_token
+from ..generation import _filter_logits, _prompt_bucket, _select_token
 from ..generation import speculative as _spec
 from .. import monitor
 from ..monitor import LatencyDigest
@@ -156,7 +175,9 @@ from ..ops.cuda_graphs import Upload as _Upload
 from ..ops.cuda_graphs import capture as _capture_graph
 from ..ops.cuda_graphs import capture_stream
 from ..ops.cuda_graphs import graphs_usable
+from ..ops.kernels import decode_fused as _df
 from ..ops.kernels import launch_counts
+from ..ops.kernels import paged_attention as _pa_k
 from ..ops.kernels.paged_attention import spec_tree_scope
 
 __all__ = ["ServingConfig", "ServingRequest", "ServingEngine",
@@ -172,8 +193,6 @@ class QueueShedError(RuntimeError):
 
 # later-slice fields: accepted only at their "off" value
 _LATER = {
-    "chunked_prefill": (True, "bucketed (unchunked) prefill"),
-    "ragged_batch": (True, "the per-width executable path"),
     "tp_degree": (1, "tensor-parallel serving"),
     "role": ("both", "disaggregated cluster serving"),
 }
@@ -194,8 +213,26 @@ class ServingConfig:
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
+    # smallest prompt bucket of the bucketed prefill (chunked_prefill
+    # False)
+    min_prefill_bucket: int = 16
     prefill_chunk: int = 128            # widest prefill rows of one slot
     ragged_prefill_rows: Optional[int] = None   # per-tick prefill budget
+    # chunked prefill: a prompt advances prefill_chunk rows a step (the
+    # ragged tick's rows, or the per-width chunk step, K2v at T = C);
+    # False prefills a whole prompt at admission by one dense forward at
+    # its power-of-two bucket (and turns the prefix cache and preemption
+    # off, as the reference does)
+    chunked_prefill: bool = True
+    # the per-width engine (ragged_batch False) with chunked prefill:
+    # > 0 leaves prompts pending at admission and advances at most this
+    # many chunk steps a tick, across the pending slots, before the decode
+    # step; 0 prefills each prompt whole at admission
+    max_prefill_chunks_per_step: int = 0
+    # False: the reference's per-width engine: a fixed-width decode step
+    # over every slot (K2d), a fixed-gamma verify step (K2v), prefill by
+    # chunk steps or buckets; True: one ragged tick packs every row
+    ragged_batch: bool = True
     fused_decode: bool = True           # fused norm/projection kernels
     # MoE routing telemetry (stats()'s moe_routing_entropy /
     # moe_expert_load_max): each sparse layer's expert counts, read back
@@ -272,8 +309,6 @@ class ServingConfig:
     # lands only with PADDLE_TPU_PROFILE_DIR)
     health_profile_ticks: int = 0
     # -- later slices: accepted only at their off value ------------------
-    chunked_prefill: bool = True
-    ragged_batch: bool = True
     tp_degree: int = 1
     role: str = "both"
 
@@ -334,8 +369,7 @@ class ServingConfig:
         if ad and not self.ragged_batch:
             raise NotImplementedError(
                 "async_depth requires the ragged engine (ragged_batch="
-                "True); the per-width executable path comes with a later "
-                "slice of the PyTorch port")
+                "True); to disable the pipeline itself set async_depth=0")
         for name, (off, what) in _LATER.items():
             v = getattr(self, name)
             if v != off:
@@ -480,6 +514,17 @@ class _TickGraph(NamedTuple):
     outs: _TickOut
 
 
+class _PwStep:
+    """One step of the per-width engine (or of the bucketed prefill), by
+    the reference's executable name: on CUDA its graph (captured at its
+    first call, after that call ran eagerly) and the graph's outputs, a
+    body's ``(flat, logits, MoE counts' shape)``."""
+    __slots__ = ("graph", "outs")
+
+    def __init__(self):
+        self.graph = self.outs = None
+
+
 class _Pipe:
     """One dispatched tick not yet committed (the async pipeline's
     in-flight record): its device outputs, the host's copy of ``flat``
@@ -604,6 +649,21 @@ class ServingEngine:
                 + (f" + speculative window ({gamma})" if gamma else "")
                 + f" exceeds the model's max_position_embeddings "
                 f"({max_pos})")
+        # the per-width engine and the bucketed prefill; a tree verify
+        # rides only the ragged tick, as in the reference
+        self._ragged = bool(cfg.ragged_batch)
+        self._chunked = bool(cfg.chunked_prefill)
+        if cfg.spec_tree is not None and not self._ragged:
+            raise NotImplementedError(
+                "spec_tree requires the ragged engine (ragged_batch=True); "
+                "to disable tree speculation itself leave spec_tree None")
+        if cfg.lora_rank > 0 and not (self._ragged and self._chunked):
+            raise NotImplementedError(
+                "multi-LoRA serving requires the ragged engine with chunked "
+                "prefill (ragged_batch=True and chunked_prefill on) — "
+                "prompt rows must ride the ragged tick so adapter deltas "
+                "reach the prefill KV; to disable LoRA itself set "
+                "lora_rank=0")
         self.model = model.eval()
         self.config = cfg
         self.device = dev
@@ -643,6 +703,17 @@ class ServingEngine:
                     cache_lens=lens),
                 gamma=gamma, do_sample=self._do_sample,
                 want_probs=self._do_sample, slot_params=True)
+        # the per-width engine's verify step: one target forward over
+        # every slot's window, filtered by the per-slot knobs (a closure
+        # over the model, not the engine: no reference cycle)
+        self._pw_verify = None
+        if gamma and not self._ragged:
+            fused = bool(cfg.fused_decode)
+            self._pw_verify = _spec.build_verify_step(
+                lambda ids, pools, tables, lens: model(
+                    ids, caches=pools, block_tables=tables,
+                    cache_lens=lens, fused=fused),
+                gamma=gamma, do_sample=self._do_sample, slot_params=True)
         self._n_spec_proposed = 0
         self._n_spec_accepted = 0
         self._n_spec_verifies = 0       # slot verify windows
@@ -671,10 +742,13 @@ class ServingEngine:
             else int(cfg.num_blocks)
         self._alloc = _pc.BlockAllocator(nb)
         # -- the prefix cache, preemption and the host KV tier ------------
-        self._prefix_on = bool(cfg.enable_prefix_cache)
+        # both need the chunked prefill, as in the reference: a bucketed
+        # prefill rewrites the whole prompt, and a recompute resume is a
+        # chunked re-prefill
+        self._prefix_on = self._chunked and bool(cfg.enable_prefix_cache)
         # the hash chains' seed: blocks are shared within one model only
         self._fp = _pc.model_fingerprint(model)
-        self._preempt_on = bool(cfg.enable_preemption)
+        self._preempt_on = self._chunked and bool(cfg.enable_preemption)
         wm = cfg.admission_watermark_blocks
         self._watermark = int(cfg.num_slots if wm is None else wm)
         self._resume_policy = str(cfg.preempt_resume)
@@ -709,15 +783,30 @@ class ServingEngine:
         self._n_cow = 0
         self._chunk = max(1, min(int(cfg.prefill_chunk),
                                  int(cfg.max_model_len)))
-        want = cfg.ragged_prefill_rows
-        self._prefill_rows = max(1, min(
-            int(self._chunk if want is None else want),
-            int(cfg.max_model_len)))
+        self._chunk_budget = int(cfg.max_prefill_chunks_per_step)
+        if not self._ragged and self._chunked \
+                and self._chunk > _pa_k.MAX_WINDOW:
+            # the chunk step is K2v at T = prefill_chunk
+            raise ValueError(
+                f"prefill_chunk {self._chunk} exceeds the verify kernel's "
+                f"window of {_pa_k.MAX_WINDOW} rows (the per-width chunk "
+                "step)")
+        if self._chunked:
+            want = cfg.ragged_prefill_rows
+            self._prefill_rows = max(1, min(
+                int(self._chunk if want is None else want),
+                int(cfg.max_model_len)))
+        else:
+            self._prefill_rows = 0      # the buckets prefill at admission
         # the static width of a tick with prefill rows, the reference's:
         # every decoding slot's window plus one tick's prefill row budget,
         # a slot at most the widest chunk (the ragged grid's window dim)
         self._rows = cfg.num_slots * (gamma + 1) + self._prefill_rows
-        self._wmax = max(gamma + 1, min(self._chunk, self._prefill_rows))
+        self._wmax = max(gamma + 1, min(self._chunk, self._prefill_rows)
+                         if self._chunked else 1)
+        # the per-width chunk steps' attended positions, folded into the
+        # next tick's KV-read gauge
+        self._kv_read_pend = 0
         # pad rows (and a pipelined tick's finished slots) park past every
         # table's reach: the write null-routes, the rope gather clamps
         self._overflow = self._mb * self._bs
@@ -768,6 +857,14 @@ class ServingEngine:
         # a sampling engine's ticks eager
         self._graphs_ok = graphs_usable(dev, self._do_sample)
         self._graphs: Dict[_Layout, _TickGraph] = {}
+        # the per-width engine's steps (and the bucketed prefill's), by
+        # the reference's executable names
+        self._pw: Dict[str, _PwStep] = {}
+        self._pw_inputs: Dict[str, _Upload] = {}
+        self._pw_dq = None              # the draft loop's distributions
+        self._row_up = _Upload((1, self._mb), torch.int32, dev)
+        self._n_exec_compiled = 0       # every graph / step built
+        self._n_prefill_compiles = 0
         self._lay_names: Dict[_Layout, str] = {}    # layouts counted
         self._graph_pool = None         # one memory pool for all of them
         self._async_on = bool(cfg.async_depth)
@@ -804,11 +901,14 @@ class ServingEngine:
             "serving_decode_steps", "batched decode steps executed")
         self._m_decode_compiles = monitor.counter(
             "serving_decode_compiles",
-            "tick CUDA graphs captured (one a tick layout; 0 on the CPU)")
-        monitor.counter(
+            "tick CUDA graphs captured (one a ragged tick layout, none on "
+            "the CPU; the per-width engine's decode or verify step, counted "
+            "at its first run on the CPU)")
+        self._m_prefill_compiles = monitor.counter(
             "serving_prefill_compiles",
-            "prefill compilations per prompt bucket (none: prefill rows "
-            "ride the tick)", labels=("bucket",))
+            "prefill steps built per prompt bucket (the per-width chunk "
+            "step, its draft twin, the bucketed prefill's buckets; each a "
+            "CUDA graph on the card)", labels=("bucket",))
         self._m_completed = monitor.counter(
             "serving_requests_completed", "requests fully served")
         self._m_prefix_blocks = monitor.counter(
@@ -1354,9 +1454,9 @@ class ServingEngine:
             "reserved_blocks": self._reserved,
             "decode_steps": self._n_ticks,
             # tick graphs captured (the reference's one compile of its
-            # tick executable); nothing else is compiled
+            # tick executable), or the per-width decode / verify step's
             "decode_compiles": self._n_decode_compiles,
-            "prefill_compiles": 0,
+            "prefill_compiles": self._n_prefill_compiles,
             "ticks": self._n_ticks,
             "rows_total": self._n_rows,
             "tokens_total": self._n_tokens,
@@ -1373,8 +1473,8 @@ class ServingEngine:
             # CPU, which captures none) and its counted launches
             "kernels_per_tick": census.get("kernel_nodes", 0),
             "kernel_launch_proxy_per_tick": census.get("launch_proxy", 0),
-            "ragged_batch": True,
-            "chunked_prefill": True,
+            "ragged_batch": self._ragged,
+            "chunked_prefill": self._chunked,
             # the cluster's and tensor parallelism's keys, at their off
             # values until those slices
             "role": "both",
@@ -1434,8 +1534,10 @@ class ServingEngine:
             "host_gap_ms": self._d_host_gap.summary(),
             "pure_ticks": self._n_pure,
             "pipelined_ticks": self._n_pipelined,
-            # the CUDA graphs captured (0 on the CPU)
-            "executables_compiled": len(self._graphs),
+            # every step built: each tick layout's CUDA graph (none on the
+            # CPU), and each per-width or bucketed prefill step (its graph,
+            # or on the CPU its first counted run)
+            "executables_compiled": self._n_exec_compiled,
             # the prefix cache's and the scheduler's keys, present (False
             # / 0) with either feature off
             "prefix_cache_enabled": self._prefix_on,
@@ -1544,10 +1646,14 @@ class ServingEngine:
         engine whose PyTorch cannot keep a captured graph to read
         (``CUDAGraph(keep_graph=True)``) rather than report a count it
         did not read."""
-        for lay, gr in self._graphs.items():
-            if gr.step.census is None:
+        steps = [(lay.name(self._gamma), gr.step)
+                 for lay, gr in self._graphs.items()]
+        steps += [(name, st.graph) for name, st in self._pw.items()
+                  if st.graph is not None]
+        for name, step in steps:
+            if step.census is None:
                 raise RuntimeError(
-                    f"no node census of layout {lay.name(self._gamma)}: "
+                    f"no node census of layout {name}: "
                     "this PyTorch cannot "
                     "keep a captured CUDA graph (CUDAGraph(keep_graph=True))"
                     " to read its nodes")
@@ -1581,7 +1687,7 @@ class ServingEngine:
             with prof.tick():
                 return self._step_once()
         t0 = time.monotonic()
-        c0 = self._n_decode_compiles
+        c0 = self._n_exec_compiled
         if not prof.pending:
             out = self._step_once()
         else:
@@ -1591,10 +1697,15 @@ class ServingEngine:
         return out
 
     def _step_once(self) -> List[tuple]:
+        if not self._ragged:
+            return self._step_per_width()
         if self._async_on:
             return self._step_async()
-        pipe = self._dispatch()
-        return [] if pipe is None else self._commit(pipe)
+        emitted: List[tuple] = []
+        pipe = self._dispatch(emitted)
+        if pipe is not None:
+            emitted.extend(self._commit(pipe))
+        return emitted
 
     def _health_tick(self, t0, t1, c0):
         """Feed one tick's signals to the health monitor (host only): a
@@ -1609,24 +1720,25 @@ class ServingEngine:
             queued=len(self._queue),
             step_ema_s=self._step_time.get(self._last_exec, 0.0),
             fallbacks=0,
-            compiles=self._n_decode_compiles,
+            compiles=self._n_exec_compiled,
             spec_emitted=self._n_spec_emitted,
             spec_verifies=self._n_spec_verifies,
             preemptions=self._n_preempt,
             completed=self._n_completed,
             nonfinite=nf,
-            compiled=self._n_decode_compiles > c0)
+            compiled=self._n_exec_compiled > c0)
         self._m_health.set(h.score())
         self._m_burn.set(h._last_burn.get("fast", 0.0))
         self._m_alerts.set(float(len(h.firing())))
 
-    def _dispatch(self) -> Optional[_Pipe]:
-        """Dispatch half of one tick: admit, pack the tick's rows into one
+    def _dispatch(self, emitted) -> Optional[_Pipe]:
+        """Dispatch half of one tick: admit (a bucketed prefill emits its
+        first tokens into ``emitted`` here), pack the tick's rows into one
         int64 vector (:class:`_Layout`), upload it and launch the forward
         and its sampling. Returns the in-flight tick, or None when no slot
         has work."""
         t_tick = time.monotonic()
-        self._admit()
+        self._admit(emitted)
         cfg = self.config
         g = self._gamma
         n_slots = cfg.num_slots
@@ -1791,9 +1903,9 @@ class ServingEngine:
                 outs = self._tick_body(inp, lay)
             else:
                 # a layout's first eager tick: count its work
-                with _acct.CostRecorder() as rec:
-                    outs = self._tick_body(inp, lay)
-                self._note_census(lay, rec.result(), None)
+                self._lay_names[lay] = lay.name(self._gamma)
+                _, _, outs = self._build(self._lay_names[lay],
+                                         lambda: self._tick_body(inp, lay))
                 timed = False
         if self._moe and _moe.MOE_STATS["grouped_mm_kernel"] == "fused_gmm":
             self._moe_fused = True
@@ -1812,39 +1924,54 @@ class ServingEngine:
 
     def _capture(self, lay, pack):
         """The first tick of a layout on CUDA: upload its vector into the
-        graph's input (kept for the graph's life), run the tick eagerly on
-        the capture stream (the warm-up: kernels set their attributes,
-        per-stream scratch grows), then capture the same body over the
-        same input into the engine's one memory pool
+        graph's input (kept for the graph's life) and build the tick over
+        it (:meth:`_build`); later ticks of ``lay`` replay the graph.
+        Returns the warm-up's ``(input, outputs)``."""
+        inp = _Upload(pack.shape, torch.int64, self.device)
+        inp.write(pack)
+        self._lay_names[lay] = lay.name(self._gamma)
+        step, static, outs = self._build(
+            self._lay_names[lay], lambda: self._tick_body(inp.dev, lay))
+        self._graphs[lay] = _TickGraph(step, inp, static)
+        self._n_decode_compiles += 1
+        self._n_exec_compiled += 1
+        self._m_decode_compiles.inc()
+        return inp.dev, outs
+
+    def _build(self, name, body):
+        """Build step ``name`` (a tick layout or a per-width step) from
+        ``body()``. On CUDA with graphs on, ``body`` runs eagerly on the
+        capture stream (the warm-up: kernels set their attributes,
+        per-stream scratch grows), counted by
+        :class:`~paddle_tpu_torch.monitor.accounting.CostRecorder`, then
+        the same body is captured into the engine's one memory pool
         (:func:`~paddle_tpu_torch.ops.cuda_graphs.capture`: the host
-        counts the capture bumped become what each replay adds); later
-        ticks of ``lay`` replay it. A capture that fails raises. Returns
-        the warm-up's ``(input, outputs)``."""
+        counts the capture bumped become what each replay adds); a
+        capture that fails raises. Otherwise the counted eager run is all.
+        The warm-up's data-dependent counts are read back here, once a
+        step, outside any graph, into its census. Returns ``(graph or
+        None, the graph's outputs or None, the warm-up's outputs)``."""
+        if not (self._graphs_ok and self.cuda_graphs):
+            with _acct.CostRecorder() as rec:
+                outs = body()
+            self._note_census(name, rec.result(), None)
+            return None, None, outs
         dev = self.device
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         cs = capture_stream(dev)
-        inp = _Upload(pack.shape, torch.int64, dev)
-        inp.write(pack)
         cs.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(cs), _acct.CostRecorder() as rec:
-            outs = self._tick_body(inp.dev, lay)
-        step, static = _capture_graph(
-            lambda: self._tick_body(inp.dev, lay), cs, self._graph_pool,
-            self._gen if self._do_sample else None)
+            outs = body()
+        step, static = _capture_graph(body, cs, self._graph_pool,
+                                      self._gen if self._do_sample else None)
         torch.cuda.current_stream(dev).wait_stream(cs)
-        self._graphs[lay] = _TickGraph(step, inp, static)
-        self._n_decode_compiles += 1
-        self._m_decode_compiles.inc()
-        # the warm-up's data-dependent counts are read back here, once a
-        # layout, outside any graph
-        self._note_census(lay, rec.result(), step.census)
-        return inp.dev, outs
+        self._note_census(name, rec.result(), step.census)
+        return step, static, outs
 
-    def _note_census(self, lay, record, graph):
-        """A layout's kernel census and cost, from its warm-up's record
-        and (on CUDA) its captured graph's nodes."""
-        name = self._lay_names[lay] = lay.name(self._gamma)
+    def _note_census(self, name, record, graph):
+        """A layout's or a per-width step's kernel census and cost, from
+        its warm-up's record and (on CUDA) its captured graph's nodes."""
         self._kcensus[name] = _acct.kernel_census(record, graph)
         self._exec_cost[name] = _acct.executable_cost(record)
         if graph is not None:
@@ -2035,16 +2162,7 @@ class ServingEngine:
         acc_lens = {}
         if not a:
             for i in committed:
-                slot = self._slots[i]
-                t = int(tok[i])
-                slot.cache_len += 1
-                slot.last_token = t
-                slot.n_emitted += 1
-                slot.history.append(t)
-                self._emit(slot.rid, t)
-                emitted.append((slot.rid, t))
-                if t == self._eos or slot.n_emitted >= slot.max_new:
-                    self._retire(i)
+                self._commit_token(i, int(tok[i]), emitted)
         else:
             o = n_slots
             out = flat[o:o + a * (g + 1)].reshape(a, g + 1)
@@ -2128,7 +2246,8 @@ class ServingEngine:
 
     def _note_step_time(self, name, dt):
         """The roofline's measured half: one launch -> read-back time of
-        layout ``name`` into its EMA; refreshes ``serving_step_mfu`` and
+        layout ``name`` (a per-width chunk's: host time, see
+        :meth:`_roofline`) into its EMA; refreshes ``serving_step_mfu`` and
         ``serving_hbm_bw_util``."""
         if dt <= 0.0:
             return
@@ -2136,7 +2255,9 @@ class ServingEngine:
         self._step_time[name] = dt if ema is None else 0.7 * ema + 0.3 * dt
         self._step_ticks[name] = self._step_ticks.get(name, 0) + 1
         cost = self._exec_cost.get(name)
-        if cost:
+        # the gauges follow the tick (the per-width engine's decode or
+        # verify step, not its chunks)
+        if cost and (self._ragged or name in ("decode", "verify")):
             if cost.get("flops"):
                 self._m_mfu.set(cost["flops"] / dt / self._peak_flops)
             if cost.get("bytes_accessed"):
@@ -2149,8 +2270,11 @@ class ServingEngine:
         launch to read-back, capture ticks left out) as MFU and
         device-memory bandwidth utilization, each classified against the
         card's ridge point (peak FLOPs over peak bytes/s); ``step_*`` are
-        the last tick's layout's. On the CPU the peaks are nominal
-        (``cpu_proxy``): read the numbers as structure."""
+        the last tick's layout's. The per-width ``chunk`` entry is host
+        time instead: a chunk step reads back only on a prompt's last
+        chunk, so its time is launch to launch return, or to that
+        read-back. On the CPU the peaks are nominal (``cpu_proxy``): read
+        the numbers as structure."""
         per = {}
         for name, cost in self._exec_cost.items():
             f = float(cost.get("flops", 0.0) or 0.0)
@@ -2199,7 +2323,7 @@ class ServingEngine:
             self._pipe = self._dispatch_pipelined(prev)
             return self._commit(prev)
         emitted = self._flush_pipe()
-        pipe = self._dispatch()
+        pipe = self._dispatch(emitted)
         if pipe is None:
             return emitted
         if pipe.carry is not None:
@@ -2293,6 +2417,388 @@ class ServingEngine:
             return []
         self._n_pipe_flushes += 1
         return self._commit(pipe)
+
+    # -- the per-width engine ---------------------------------------------
+
+    def _step_per_width(self) -> List[tuple]:
+        """One tick of the per-width engine (``ragged_batch=False``), the
+        reference's: admit (prefilling at once unless interleaved),
+        advance the interleaved prefills' chunk budget, then ONE
+        fixed-width step over every slot: the decode step (each decoding
+        slot's token at its length; K2d), or with speculation the draft
+        (n-gram on the host, or the draft model's loop) and the fixed-gamma
+        verify step (K2v at T = gamma + 1); commit tokens and retire.
+        Idle and pending slots ride the step as null rows (length 0, the
+        pad token, a null table row)."""
+        t_tick = time.monotonic()
+        emitted: List[tuple] = []
+        self._admit(emitted)
+        self._advance_prefills(emitted)
+        active = [i for i, s in enumerate(self._slots)
+                  if s is not None and s.pend_pos is None]
+        if not active:
+            if self._kv_read_pend:      # a prefill-only tick: the chunk
+                self._note_kv_read(0)   # reads are its traffic
+            return emitted
+        g = self._gamma
+        # room for the step's writes: positions cache_len .. + gamma
+        active = self._ensure_blocks(active, horizon=g + 1)
+        if not active:                  # every slot preempted for blocks
+            return emitted
+        n = self.config.num_slots
+        lens = np.zeros(n, np.int64)
+        toks = np.full((n, g + 1), self._pad, np.int64)
+        for i in active:
+            lens[i] = self._slots[i].cache_len
+            toks[i, 0] = self._slots[i].last_token
+        if g and self._draft is None:
+            for i in active:
+                toks[i, 1:] = _spec.ngram_propose(
+                    self._slots[i].history, g, self._ngram_max)
+        name = "verify" if g else "decode"
+        t_l0 = time.monotonic()
+        with torch.no_grad():
+            inp = self._pw_input("window", np.concatenate(
+                [lens, toks.reshape(-1)]))
+            built = False
+            if self._draft is not None:
+                # its drafts go into the window's rows of the shared input
+                built = self._pw_call("draft", self._pw_draft_body,
+                                      inp)[1]
+            (flat, logits, moe), b = self._pw_call(
+                name, self._pw_verify_body if g else self._pw_decode_body,
+                inp, kind="decode")
+            built = built or b
+            host = flat.cpu().numpy()
+        t_sync = time.monotonic()
+        if logits is not None:
+            self.last_logits = logits
+        self._pw_observe_moe(host, moe)
+        self._m_steps.inc()
+        self._n_ticks += 1
+        self._n_rows += len(active) * (g + 1)
+        self._last_exec = name
+        if not built:
+            self._note_step_time(name, t_sync - t_l0)
+        self._m_util.observe(len(active) / n)
+        # window row t attends lens + t + 1 positions
+        self._note_kv_read((g + 1) * int(lens.sum())
+                           + len(active) * (g + 1) * (g + 2) // 2)
+        tr = self._trace
+        rid_of = {i: self._slots[i].rid for i in active}
+        acc_lens = {}
+        if not g:
+            for i in active:
+                self._commit_token(i, int(host[i]), emitted)
+        else:
+            out = host[:n * (g + 1)].reshape(n, g + 1)
+            accept = host[n * (g + 1):n * (2 * g + 1)].reshape(
+                n, g).astype(bool)
+            for i in active:
+                acc_lens[i] = self._commit_verify_window(
+                    i, out[i], accept[i], emitted)
+            if self._n_spec_proposed:
+                self._m_spec_rate.set(
+                    self._n_spec_accepted / self._n_spec_proposed)
+        if tr is not None:
+            for i in active:
+                args = {"rid": rid_of[i], "rows": g + 1}
+                if g:
+                    args["accepted_len"] = acc_lens[i]
+                tr.emit(f"{name} tick", tid=1 + i, t0=t_l0, t1=t_sync,
+                        args=args)
+            tr.emit("tick", tid=0, t0=t_tick, args={
+                "exec": name, "path": "legacy", "queued": len(self._queue),
+                "kernel_fallbacks": 0, "active": len(active),
+                "occupancy": round(len(active) / n, 3)})
+        return emitted
+
+    def _advance_prefill(self, i, budget=None) -> Optional[int]:
+        """Run up to ``budget`` chunk steps (None: to the end) of slot
+        ``i``'s pending prompt through the per-width chunk step: ``[1, C]``
+        rows at positions ``pend_pos + t`` (the paged path's K2v at ``T =
+        prefill_chunk``, each row attending the cached positions and its
+        chunk's causal prefix; a short last chunk's pad rows write past
+        the prompt and are never read), the draft model's chunk step over
+        the same rows. Returns the first token when the prefill completes
+        (the last real row's), else None."""
+        slot = self._slots[i]
+        c = self._chunk
+        n_real = int(slot.prompt.size)
+        # the slot's blocks: its global row may be null while it is pending
+        row = np.zeros((1, self._mb), np.int32)
+        row[0, :len(slot.blocks)] = slot.blocks
+        self._row_up.write(row)
+        while budget is None or budget > 0:
+            p0 = slot.pend_pos
+            part = slot.prompt[p0:p0 + c]
+            k = int(part.size)
+            # chunk row t attends p0 + t + 1 positions
+            self._kv_read_pend += k * p0 + k * (k + 1) // 2
+            pack = np.full(c + 3, self._pad, np.int64)
+            pack[:k] = part
+            pack[c:] = (p0, k - 1, i)
+            t_c0 = time.monotonic()
+            with torch.no_grad():
+                inp = self._pw_input("chunk", pack)
+                (flat, _, moe), built = self._pw_call(
+                    "chunk", self._pw_chunk_body, inp, kind="prefill",
+                    label=f"chunk{c}")
+                if self._draft is not None:
+                    _, b = self._pw_call(
+                        "draft_chunk", self._pw_draft_chunk_body, inp,
+                        kind="prefill", label=f"draft-chunk{c}")
+                    built = built or b
+            done = p0 + k >= n_real
+            host = flat.cpu().numpy() if done or moe else None
+            self._pw_observe_moe(host, moe)
+            if not built:
+                # host time: launch to launch return, or to the read-back
+                # on a prompt's last chunk (and under the MoE telemetry)
+                self._note_step_time("chunk", time.monotonic() - t_c0)
+            if self._trace is not None:
+                self._trace.emit(f"prefill chunk[{p0 // c}]", tid=1 + i,
+                                 t0=t_c0, args={"rid": slot.rid,
+                                                "pos": int(p0), "rows": k})
+            self._n_prefill_chunks += 1
+            self._n_rows += k
+            slot.pend_pos = p0 + k
+            slot.cache_len = slot.pend_pos
+            if budget is not None:
+                budget -= 1
+            if done:
+                slot.pend_pos = None
+                return int(host[0])
+        return None
+
+    def _advance_prefills(self, emitted):
+        """The interleaved prefill (``max_prefill_chunks_per_step > 0``):
+        spend the tick's chunk budget across the pending slots, lowest
+        slot index first, finishing the prefills whose last chunk lands."""
+        if self._chunk_budget <= 0:
+            return
+        budget = self._chunk_budget
+        for i, s in enumerate(self._slots):
+            if budget <= 0:
+                break
+            if s is None or s.pend_pos is None:
+                continue
+            n0 = self._n_prefill_chunks
+            tok = self._advance_prefill(i, budget)
+            budget -= self._n_prefill_chunks - n0
+            if tok is not None:
+                self._finish_prefill(i, tok, emitted)
+
+    def _bucket(self, n) -> int:
+        return _prompt_bucket(n, self.config.min_prefill_bucket)
+
+    def _prefill_bucketed(self, i, req, n_real) -> int:
+        """The bucketed prefill (``chunked_prefill=False``): one dense
+        cached forward over the right-padded prompt at its power-of-two
+        bucket (eager ``cached_attention``, as the reference's is XLA's),
+        its K/V scattered into slot ``i``'s blocks (``write_prefill``,
+        the tail past the prompt to the null block), the first token
+        taken at the prompt's last row; the draft model's twin primes its
+        pools. One step a bucket. Returns the first token."""
+        bucket = self._bucket(n_real)
+        pack = np.full(bucket + 2, self._pad, np.int64)
+        pack[:n_real] = req.prompt
+        pack[bucket:] = (n_real, i)
+        self._row_up.write(self._tables[i:i + 1])
+        t_p0 = time.monotonic()
+        with torch.no_grad():
+            inp = self._pw_input(f"bucket{bucket}", pack)
+            (flat, _, moe), _ = self._pw_call(
+                f"prefill{bucket}",
+                lambda x: self._pw_prefill_body(x, bucket, False), inp,
+                kind="prefill", label=str(bucket))
+            if self._draft is not None:
+                self._pw_call(
+                    f"draft_prefill{bucket}",
+                    lambda x: self._pw_prefill_body(x, bucket, True), inp,
+                    kind="prefill", label=f"draft-{bucket}")
+            host = flat.cpu().numpy()
+        self._pw_observe_moe(host, moe)
+        if self._trace is not None:
+            self._trace.emit(f"prefill bucket{bucket}", tid=1 + i, t0=t_p0,
+                             args={"rid": req.request_id, "rows": n_real})
+        return int(host[0])
+
+    def _pw_input(self, key, pack) -> torch.Tensor:
+        """Write ``pack`` into the per-width input ``key`` (one int64
+        device vector a shape of steps, kept for the engine's life: the
+        steps' graphs read it) and return it."""
+        up = self._pw_inputs.get(key)
+        if up is None:
+            up = self._pw_inputs[key] = _Upload(pack.shape, torch.int64,
+                                                self.device)
+        up.write(np.ascontiguousarray(pack, np.int64))
+        return up.dev
+
+    def _pw_call(self, name, body, inp, kind=None, label=None):
+        """Run per-width step ``name`` (``body(inp)``). Its first call
+        builds it (:meth:`_build`), as the reference compiles its
+        executable; the build counts in ``executables_compiled`` and, by
+        ``kind``, in ``decode_compiles`` or in ``prefill_compiles`` under
+        ``label``. Later calls replay the graph (or run the body). Returns
+        ``(the body's outputs, built)``."""
+        self._sync_uploads()
+        st = self._pw.get(name)
+        if st is not None:
+            if st.graph is None:
+                return body(inp), False
+            st.graph.replay()
+            return st.outs, False
+        st = self._pw[name] = _PwStep()
+        st.graph, st.outs, outs = self._build(name, lambda: body(inp))
+        self._n_exec_compiled += 1
+        if kind == "decode":
+            self._n_decode_compiles += 1
+            self._m_decode_compiles.inc()
+        elif kind == "prefill":
+            self._n_prefill_compiles += 1
+            self._m_prefill_compiles.labels(bucket=label).inc()
+        return outs, True
+
+    def _pw_scope(self, counts=None, live=None):
+        """The per-width steps' context: the fused decode layer on the
+        paged path (``fused_decode``; :func:`~paddle_tpu_torch.ops.
+        kernels.decode_fused.paged_fused_scope`), and for the target
+        model with the MoE telemetry on (``counts`` given) the routing tap
+        into ``counts`` over the ``live`` rows."""
+        stack = contextlib.ExitStack()
+        if self.config.fused_decode:
+            stack.enter_context(_df.paged_fused_scope())
+        if self._moe_tap_on and counts is not None:
+            stack.enter_context(_moe.serving_stats_tap(counts))
+            stack.enter_context(_moe.serving_rows_mask(live))
+        if self._moe:
+            _moe.MOE_STATS["grouped_mm_kernel"] = None
+        return stack
+
+    def _pw_out(self, parts, counts, logits=None):
+        """A step's outputs: the one vector the host reads back (its
+        tokens, then each sparse layer's expert counts), the logits kept
+        as ``last_logits``, and the counts' shape."""
+        if self._moe and _moe.MOE_STATS["grouped_mm_kernel"] == "fused_gmm":
+            self._moe_fused = True
+        if counts:
+            parts = parts + [torch.stack(counts).reshape(-1).long()]
+        return (torch.cat(parts), logits,
+                (len(counts), counts[0].numel()) if counts else None)
+
+    def _pw_observe_moe(self, host, moe):
+        if moe and host is not None:
+            k = moe[0] * moe[1]
+            self._observe_moe(host[host.size - k:].reshape(moe))
+
+    def _pw_select(self, logits, si):
+        """The token of one slot's row ``logits [1, V]`` by slot ``si``'s
+        sampling knobs (an index tensor: a graph's operand)."""
+        if not self._do_sample:
+            return _select_token(logits, do_sample=False)[0]
+        samp = self._samp().index_select(0, si.reshape(1))
+        return _select_token(logits, self._gen, do_sample=True,
+                             temperature=samp[:, 0], top_k=samp[:, 1],
+                             top_p=samp[:, 2])[0]
+
+    def _pw_decode_body(self, inp):
+        """The fixed-width decode step: every slot's token at its length
+        (idle and pending slots at length 0 in their null rows)."""
+        n = self.config.num_slots
+        lens = inp[:n].to(torch.int32)
+        counts = []
+        with self._pw_scope(counts, lens > 0):
+            logits, self._pools = self.model(
+                inp[n:2 * n].view(n, 1), caches=self._pools,
+                block_tables=self._tables_dev, cache_lens=lens,
+                fused=self.config.fused_decode)
+        lg = logits[:, -1]
+        return self._pw_out([self._select(lg).long()], counts, lg)
+
+    def _pw_verify_body(self, inp):
+        """The fixed-gamma verify step over every slot's window (the
+        port's ``build_verify_step`` with the per-slot knobs)."""
+        n, g = self.config.num_slots, self._gamma
+        lens = inp[:n].to(torch.int32)
+        toks = inp[n:n + n * (g + 1)].view(n, g + 1)
+        dq = self._pw_dq if self._draft is not None and self._do_sample \
+            else None
+        counts = []
+        with self._pw_scope(counts, (lens > 0).repeat_interleave(g + 1)):
+            out, accept, _, self._pools = self._pw_verify(
+                self._pools, self._tables_dev, lens, toks, self._samp(),
+                dq, self._gen)
+        return self._pw_out([out.reshape(-1).long(),
+                             accept.reshape(-1).long()], counts)
+
+    def _pw_draft_body(self, inp):
+        """The draft model's gamma + 1 decode steps over every slot (K2d),
+        its drafts written into the window rows of the shared input and
+        its distributions into a buffer the verify step reads."""
+        n, g = self.config.num_slots, self._gamma
+        lens = inp[:n].to(torch.int32)
+        win = inp[n:n + n * (g + 1)].view(n, g + 1)
+        with self._pw_scope():
+            props, dq, self._dpools = self._dloop(
+                self._dpools, self._tables_dev, lens, win[:, 0],
+                self._samp(), self._gen)
+        win[:, 1:] = props.long()
+        if dq is not None:
+            if self._pw_dq is None:     # the warm-up's; held for the graph
+                self._pw_dq = torch.empty_like(dq)
+            self._pw_dq.copy_(dq)
+
+    def _pw_chunk_body(self, inp):
+        """The chunk step: ``[1, C]`` prompt rows at ``pos + t`` through
+        the slot's table row, the token of the last real row."""
+        c = self._chunk
+        pos = inp[c:c + 1].to(torch.int32)
+        last = inp[c + 1:c + 2]
+        counts = []
+        live = torch.arange(c, device=inp.device) <= last
+        with self._pw_scope(counts, live):
+            logits, self._pools = self.model(
+                inp[:c].view(1, c), caches=self._pools,
+                block_tables=self._row_up.dev, cache_lens=pos,
+                fused=self.config.fused_decode)
+        tok = self._pw_select(logits[0].index_select(0, last), inp[c + 2])
+        return self._pw_out([tok.long()], counts)
+
+    def _pw_draft_chunk_body(self, inp):
+        """The draft model's twin of the chunk step (its K/V only)."""
+        c = self._chunk
+        with self._pw_scope():
+            _, self._dpools = self._draft(
+                inp[:c].view(1, c), caches=self._dpools,
+                block_tables=self._row_up.dev,
+                cache_lens=inp[c:c + 1].to(torch.int32),
+                fused=self.config.fused_decode)
+
+    def _pw_prefill_body(self, inp, bucket, draft):
+        """The bucketed prefill at ``bucket`` rows: the dense cached
+        forward into fresh dense caches, ``write_prefill`` into the slot's
+        blocks (rows past ``n_real`` to the null block), and for the
+        target the token of row ``n_real - 1``."""
+        model = self._draft if draft else self.model
+        n_real = inp[bucket:bucket + 1]
+        dense = model.init_caches(1, bucket)
+        counts = []
+        live = torch.arange(bucket, device=inp.device) < n_real
+        with contextlib.ExitStack() if draft else \
+                self._pw_scope(counts, live):
+            logits, dense = model(inp[:bucket].view(1, bucket),
+                                  caches=dense, offset=0,
+                                  fused=self.config.fused_decode)
+        pools = self._dpools if draft else self._pools
+        for (kp, vp), (dk, dv) in zip(pools, dense):
+            _pc.write_prefill(kp, vp, self._row_up.dev, dk, dv,
+                              n_real=n_real)
+        if draft:
+            return None
+        tok = self._pw_select(logits[0].index_select(0, n_real - 1),
+                              inp[bucket + 1])
+        return self._pw_out([tok.long()], counts)
 
     def _head_drafts(self, hid, path, n_acc):
         """The draft heads' tree for each verifying slot's next tick,
@@ -2443,6 +2949,19 @@ class ServingEngine:
         return np.asarray(_spec.tree_fill_from_chains(self._tree, chains),
                           np.int64)
 
+    def _commit_token(self, i, t, emitted):
+        """Commit decoding slot ``i``'s token ``t``: advance its length,
+        emit, and retire it on EOS or at its token budget."""
+        slot = self._slots[i]
+        slot.cache_len += 1
+        slot.last_token = t
+        slot.n_emitted += 1
+        slot.history.append(t)
+        self._emit(slot.rid, t)
+        emitted.append((slot.rid, t))
+        if t == self._eos or slot.n_emitted >= slot.max_new:
+            self._retire(i)
+
     def _commit_verify_window(self, i, out_row, accept_row, emitted):
         """Commit slot ``i``'s verified window: emit the kept prefix (cut
         at an EOS and at ``max_new_tokens``), count the drafts used,
@@ -2516,12 +3035,16 @@ class ServingEngine:
         if self._stream is not None:
             self._stream(rid, tok)
 
-    def _admit(self):
+    def _admit(self, emitted):
         """Admission: expire queue-wait budgets, then seat the next
         request (highest class first, FIFO within a class) while a slot
         and its blocks can be had, preempting strictly lower classes for
         them when preemption is on. A fresh request maps its longest
-        published prefix and prefills the rest; a preempted one resumes
+        published prefix and prefills the rest: in the ragged tick's rows,
+        by the per-width chunk steps (at once, or interleaved between
+        decode steps: :meth:`_advance_prefills`), or whole by its bucket
+        (chunked prefill off); a prefill completed here emits its first
+        token into ``emitted``. A preempted request resumes
         (:meth:`_seat_resume`). A request under a LoRA adapter pins its
         stack row first, and waits queued while every row is pinned by
         other adapters."""
@@ -2554,7 +3077,7 @@ class ServingEngine:
             self._slot_adapter[i] = lrow
             seed = self._prefix_seed(req.adapter_id)
             if req.resume is not None:
-                self._seat_resume(i, req, seed)
+                self._seat_resume(i, req, seed, emitted)
                 continue
             n_real = int(req.prompt.size)
             worst = self._worst_for(n_real, req.max_new_tokens)
@@ -2562,9 +3085,7 @@ class ServingEngine:
             # observed before the prefill: the queue wait, not the work
             self._queue_exit(req, "admitted")
             self._reserved += worst - len(blocks)
-            self._tables[i, :] = 0
-            self._tables[i, :len(blocks)] = blocks
-            self._tables_dirty = True
+            self._seat_row(i, blocks)
             self._results[req.request_id] = []
             self._slots[i] = _Slot(req.request_id, blocks, worst,
                                    req.max_new_tokens, req.prompt,
@@ -2578,13 +3099,31 @@ class ServingEngine:
                     args={"rid": req.request_id, "prefix_hit": cached > 0,
                           "cached_tokens": int(cached),
                           "prompt_tokens": n_real})
+            if not self._chunked:
+                self._finish_prefill(
+                    i, self._prefill_bucketed(i, req, n_real), emitted)
+                continue
             # a full-prompt hit recomputes the last prompt row into a
             # shared block: copy it first
             bidx = cached // self._bs
             if self._alloc.is_shared(blocks[bidx]):
                 self._cow(i, bidx)
+            if not self._ragged and self._chunk_budget <= 0:
+                self._finish_prefill(i, self._advance_prefill(i), emitted)
         if seated:
             self._sync_cache_metrics()
+
+    def _seat_row(self, i, blocks):
+        """Slot ``i``'s table row at seating: its blocks, except on the
+        per-width engine's interleaved prefill, which keeps the row null
+        until the prefill completes (:meth:`_finish_prefill`), so the
+        decode steps that run meanwhile write and read slot ``i`` in the
+        null block, as an idle slot's; the chunk steps take the slot's
+        blocks directly."""
+        self._tables[i, :] = 0
+        if self._ragged or not (self._chunked and self._chunk_budget > 0):
+            self._tables[i, :len(blocks)] = blocks
+        self._tables_dirty = True
 
     # -- preemptive scheduling and the host KV tier -----------------------
 
@@ -2737,12 +3276,14 @@ class ServingEngine:
                       "cache_len": int(slot.cache_len),
                       "blocks_spilled": n_spilled_blocks})
 
-    def _seat_resume(self, i, req, seed):
+    def _seat_resume(self, i, req, seed, emitted):
         """Seat a preempted request in slot ``i`` where it stopped. Swap:
         import its spilled bytes into fresh blocks and decode at once.
         Recompute: map its published prefix (under the prefix ``seed``)
-        and re-prefill the rest of its context; :meth:`_finish_prefill`
-        then restores the continuation instead of emitting."""
+        and re-prefill the rest of its context (the per-width engine's
+        chunk steps run at once unless interleaved);
+        :meth:`_finish_prefill` then restores the continuation instead of
+        emitting."""
         r = req.resume
         rid = req.request_id
         n_ctx = int(r["cache_len"])
@@ -2782,9 +3323,12 @@ class ServingEngine:
                          adapter_id=req.adapter_id, seed=seed)
             slot.resume = (int(r["last_token"]), int(r["n_emitted"]))
         self._reserved += int(r["worst_blocks"]) - len(blocks)
-        self._tables[i, :] = 0
-        self._tables[i, :len(blocks)] = blocks
-        self._tables_dirty = True
+        if mode == "swap":
+            self._tables[i, :] = 0
+            self._tables[i, :len(blocks)] = blocks
+            self._tables_dirty = True
+        else:
+            self._seat_row(i, blocks)
         self._slots[i] = slot
         self._set_slot_samp(i, req)
         self._m_occupancy.set(self.num_active)
@@ -2796,6 +3340,8 @@ class ServingEngine:
             bidx = cached // self._bs
             if self._alloc.is_shared(blocks[bidx]):
                 self._cow(i, bidx)
+            if not self._ragged and self._chunk_budget <= 0:
+                self._finish_prefill(i, self._advance_prefill(i), emitted)
 
     def _resume_mode(self, r, payload) -> str:
         """Swap or recompute, a victim at a time: without a payload,
@@ -2940,8 +3486,9 @@ class ServingEngine:
             _pc.copy_blocks(self._dpools, old, new)
         self._alloc.free([old])
         slot.blocks[bidx] = new
-        self._tables[i, bidx] = new
-        self._tables_dirty = True
+        if self._tables[i, bidx] == old:    # a pending row may be null
+            self._tables[i, bidx] = new
+            self._tables_dirty = True
         self._n_cow += 1
         self._m_cow.inc()
 
@@ -3016,6 +3563,9 @@ class ServingEngine:
         slot = self._slots[i]
         slot.cache_len = int(slot.prompt.size)
         slot.pend_pos = None
+        if self._tables[i, 0] == 0:     # interleaved: publish the row now
+            self._tables[i, :len(slot.blocks)] = slot.blocks
+            self._tables_dirty = True
         if slot.resume is not None:
             slot.last_token, slot.n_emitted = slot.resume
             slot.resume = None

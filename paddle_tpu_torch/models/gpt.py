@@ -192,7 +192,9 @@ class GPTDecoderLayer(nn.Module):
         the q/k/v projection (K3a ``kind="ln"``, its bias in the
         epilogue), the output projection + residual (K3b), LayerNorm into
         the first MLP linear (K3a) and tanh-gelu into the second + residual
-        (K3b ``act="gelu_tanh"``); attention through K2r. Under multi-LoRA
+        (K3b ``act="gelu_tanh"``); attention through K2r (ragged rows) or
+        K2d / K2v (paged windows, inside the engine's
+        ``paged_fused_scope``). Under multi-LoRA
         serving it composes per module, as Llama's layer does: an armed
         qkv_proj or linear1 adds its delta off the LayerNorm recomputed,
         an armed out_proj or linear2 runs the module call and the
@@ -227,7 +229,9 @@ class GPTDecoderLayer(nn.Module):
     def forward(self, x, kv_cache=None, offset=None, block_tables=None,
                 cache_lens=None, ragged_meta=None, fused=True):
         """Dense (``kv_cache`` None): ``h``; cached: ``(h, cache)``."""
-        if kv_cache is not None and ragged_meta is not None and fused \
+        if kv_cache is not None and fused and (
+                ragged_meta is not None or (block_tables is not None
+                                            and _df.paged_fused_armed())) \
                 and self._fused_decode_eligible():
             return self.forward_decode_fused(x, kv_cache, block_tables,
                                              cache_lens, ragged_meta)
@@ -273,7 +277,11 @@ class GPTModel(nn.Module):
                                self.config.max_position_embeddings - 1)
         l = ids.shape[-1]
         if cache_lens is not None:
-            return cache_lens.long()[:, None] + torch.arange(l, device=dev)
+            # clipped to the last learned position: a short final prefill
+            # chunk's pad rows may run past it (their output is never read)
+            return torch.clamp(
+                cache_lens.long()[:, None] + torch.arange(l, device=dev), 0,
+                self.config.max_position_embeddings - 1)
         return torch.arange(l, device=dev) + (0 if offset is None
                                               else int(offset))
 

@@ -299,7 +299,10 @@ class LlamaDecoderLayer(nn.Module):
                              block_tables, cache_lens, ragged_meta):
         """The fused decode tick of the reference's
         ``_forward_decode_fused``: four fusion boundaries per layer, each
-        projection's bias (Qwen2's q/k/v) in its kernel's epilogue. Under
+        projection's bias (Qwen2's q/k/v) in its kernel's epilogue, around
+        the ragged attention (``ragged_meta``: K2r over the packed rows
+        ``h [R, hidden]``) or the paged one (``h [S, T, hidden]``: K2d at
+        T = 1, K2v at T > 1). Under
         multi-LoRA serving the layer composes per module, as the
         reference's: an armed q/k/v or gate/up projection keeps its fused
         prologue and adds its delta off the norm recomputed (the module
@@ -317,9 +320,14 @@ class LlamaDecoderLayer(nn.Module):
             q = _lora.apply(attn.q_proj, hn, q)
             k = _lora.apply(attn.k_proj, hn, k)
             v = _lora.apply(attn.v_proj, hn, v)
-        ctx, cache = attn.attend_ragged(q, k, v, rope_cos, rope_sin,
-                                        kv_cache, block_tables, cache_lens,
-                                        ragged_meta)
+        if ragged_meta is not None:
+            ctx, cache = attn.attend_ragged(q, k, v, rope_cos, rope_sin,
+                                            kv_cache, block_tables,
+                                            cache_lens, ragged_meta)
+        else:
+            ctx, cache = attn.attend_paged(q, k, v, rope_cos, rope_sin,
+                                           kv_cache, block_tables,
+                                           cache_lens)
         if _lora.armed(attn.o_proj):
             h = h + attn.o_proj(ctx)
         else:
@@ -361,7 +369,9 @@ class LlamaDecoderLayer(nn.Module):
             h = h + self.self_attn(self.input_layernorm(h), rope_cos,
                                    rope_sin)
             return self._mlp_residual(h)
-        if fused and self.fused_decode and ragged_meta is not None:
+        if fused and self.fused_decode and (
+                ragged_meta is not None or (block_tables is not None
+                                            and _df.paged_fused_armed())):
             return self.forward_decode_fused(h, rope_cos, rope_sin,
                                              kv_cache, block_tables,
                                              cache_lens, ragged_meta)

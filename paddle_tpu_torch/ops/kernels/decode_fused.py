@@ -20,6 +20,12 @@ Counterpart of ``paddle_tpu/ops/pallas/decode_fused.py``:
   ``[R, K]`` rows that the projection reads (kept out of the product's
   column tiles, which would each redo it).
 
+The models run these kernels on every ragged serving tick; on the paged
+path (``[S, T]`` rows at ``cache_lens + t``, no ragged metadata) only
+inside :func:`paged_fused_scope`, which the per-width serving engine
+arms around its steps, as the reference arms its fused scope around its
+executables' traces: ``generate()``'s paged steps stay unfused.
+
 The plain versions are op for op the reference's ``_xla_norm_matmul`` /
 ``_xla_matmul_residual`` (the unfused module path), so a CPU model with
 fusion on is bitwise the same model with fusion off. CPU tensors take
@@ -27,7 +33,9 @@ the plain version; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -38,7 +46,8 @@ from ...monitor.accounting import declares
 from . import _build, held, launch_counts, no_backward
 
 __all__ = ["norm_matmul", "matmul_residual", "plain_norm_matmul",
-           "plain_matmul_residual", "body", "split_config", "BODIES"]
+           "plain_matmul_residual", "body", "split_config", "BODIES",
+           "paged_fused_scope", "paged_fused_armed"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"rms": 0, "ln": 1}
@@ -61,6 +70,28 @@ SPLIT_MAX_ROWS = _MAX_MG * 64
 SPLIT_MAX_WEIGHTS = 1 << 23
 SPLIT_BN, SPLIT_MAX, SPLIT_BLOCKS = 128, 8, 96
 _BK = 64
+
+
+_PAGED = threading.local()        # a scope a thread
+
+
+@contextlib.contextmanager
+def paged_fused_scope():
+    """Arm the fused decode layer for the paged model calls inside the
+    scope (the per-width serving engine's steps: K3a / K3b around K2d /
+    K2v). Thread-local: one engine's steps never arm another thread's
+    calls."""
+    prev = getattr(_PAGED, "on", False)
+    _PAGED.on = True
+    try:
+        yield
+    finally:
+        _PAGED.on = prev
+
+
+def paged_fused_armed() -> bool:
+    """Whether a :func:`paged_fused_scope` is armed on this thread."""
+    return getattr(_PAGED, "on", False)
 
 
 def split_config(k, widths):

@@ -73,14 +73,17 @@ __all__ = ["paged_decode_attention", "paged_verify_attention",
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
-# The shapes the kernels take. Both bodies: a window of at most MAX_T
-# tokens (a tree's 31 drafts + the root fill the 32 ancestor bits) and a
-# GQA group of at most MAX_Q query heads. float32 (the FMA body): one
-# block holds a kv group's T * group <= MAX_Q query vectors. A bfloat16 q
-# (the Hopper body, over any pools): a window of more than MAX_Q // group
-# rows takes several 64-vector tiles, so it has no such product bound.
+# The shapes the kernels take. Both bodies: a linear window of at most
+# MAX_WINDOW tokens (a speculative window, or the per-width engine's
+# prefill chunk of prefill_chunk rows), a tree window of at most MAX_T
+# (a tree's 31 drafts + the root fill the 32 ancestor bits), and a GQA
+# group of at most MAX_Q query heads. A window of more than MAX_Q // group
+# rows takes several tiles of at most MAX_Q query vectors: 64-vector
+# wgmma tiles of the Hopper body (a bfloat16 q, over any pools), one
+# block a tile of the FMA body (float32 q).
 MAX_Q = 64
 MAX_T = 32
+MAX_WINDOW = 1024
 # float32: the context's split over SMs
 SPLIT_POSITIONS = 64      # fewest context positions worth a split
 MAX_SPLITS = 16           # the kernel's MAX_SPLITS; it refuses more
@@ -199,9 +202,10 @@ def _lib():
     return _LIB
 
 
-def _check(q4, k_pool, v_pool, block_tables, context_lens):
-    """Raise on what the kernels do not take; ``q4`` is ``[S, T, H, D]``.
-    Returns the pool operands (:func:`pool_operands`)."""
+def _check(q4, k_pool, v_pool, block_tables, context_lens, tree=False):
+    """Raise on what the kernels do not take; ``q4`` is ``[S, T, H, D]``
+    (``tree``: a token-tree window). Returns the pool operands
+    (:func:`pool_operands`)."""
     dev = q4.device
     for name, t in (("q", q4), ("block_tables", block_tables),
                     ("context_lens", context_lens)):
@@ -227,16 +231,14 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
                          "or 128")
     if bs not in (8, 16, 32):
         raise ValueError(f"block_size {bs}: the kernel takes 8, 16 or 32")
-    if not 1 <= t <= MAX_T:
-        raise ValueError(f"window of {t} tokens: the kernel takes 1.."
-                         f"{MAX_T}")
+    bound = MAX_T if tree else MAX_WINDOW
+    if not 1 <= t <= bound:
+        raise ValueError(f"{'tree ' if tree else ''}window of {t} tokens: "
+                         f"the kernel takes 1..{bound}")
     if h % hkv or h // hkv > MAX_Q:
         raise ValueError(f"{h} query heads over {hkv} kv heads: need a "
                          f"whole group of at most {MAX_Q}")
     code = dtype_code(q4, kd)[0]
-    if code == 0 and t * (h // hkv) > MAX_Q:
-        raise ValueError(f"{h // hkv} query heads a kv head at T {t}: the "
-                         f"float32 body takes T * group <= {MAX_Q}")
     if block_tables.dim() != 2 or block_tables.shape[0] != s \
             or tuple(context_lens.shape) != (s,):
         raise ValueError("block_tables must be [S, MB] and context_lens [S]")
@@ -248,14 +250,16 @@ def _check(q4, k_pool, v_pool, block_tables, context_lens):
     return kd, vd, ks, vs
 
 
-def _n_split(q4, block_tables, block_size):
-    """float32: context splits per (slot, kv head): about BLOCKS_PER_SM
-    blocks on each of the card's SMs (a block waits on its loads most of
-    the time, so many in flight hide that), each split at least
-    SPLIT_POSITIONS of the table's reach, at most MAX_SPLITS."""
-    s, hkv = q4.shape[0], q4.shape[2]
+def _n_split(q4, hkv, block_tables, block_size):
+    """float32: context splits per (slot, kv head, window tile of MAX_Q //
+    group rows): about BLOCKS_PER_SM blocks on each of the card's SMs (a
+    block waits on its loads most of the time, so many in flight hide
+    that), each split at least SPLIT_POSITIONS of the table's reach, at
+    most MAX_SPLITS."""
+    s, t, h = q4.shape[0], q4.shape[1], q4.shape[2]
+    tiles = -(-t // (MAX_Q // (h // hkv)))
     reach = block_tables.shape[1] * block_size
-    want = -(-BLOCKS_PER_SM * sm_count(q4.device) // max(1, s * hkv))
+    want = -(-BLOCKS_PER_SM * sm_count(q4.device) // max(1, s * hkv * tiles))
     return max(1, min(MAX_SPLITS, reach // SPLIT_POSITIONS, want))
 
 
@@ -269,7 +273,8 @@ def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
         bits = tree_ancestor_bits(tree_anc)
         entry, counter = entry + "_tree", counter + "_tree"
         tree = ((ctypes.c_uint32 * len(bits))(*bits),)
-    kd, vd, ks, vs = _check(q4, k_pool, v_pool, block_tables, context_lens)
+    kd, vd, ks, vs = _check(q4, k_pool, v_pool, block_tables, context_lens,
+                            tree=tree_anc is not None)
     s, t, h, d = q4.shape
     nb, bs, hkv, _ = kd.shape
     mb = block_tables.shape[1]
@@ -285,7 +290,7 @@ def _launch(entry, counter, q4, k_pool, v_pool, block_tables,
             sm90_blocks_per_sm(code, d))
         part, cnt = sm90_scratch(q4.device, stream, floats, counters)
     else:
-        n_split, cnt = _n_split(q4, block_tables, bs), None
+        n_split, cnt = _n_split(q4, hkv, block_tables, bs), None
         part = torch.empty(n_split * q4.numel() // d * (d + 2),
                            device=q4.device, dtype=torch.float32) \
             if n_split > 1 else None
@@ -359,11 +364,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
 @declares(_verify_work)
 def paged_verify_attention(q, k_pool, v_pool, block_tables, context_lens,
                            sm_scale=None, tree_anc=_AMBIENT):
-    """K2v: ``q [S, T, H, D]`` -> ``[S, T, H, D]``. ``tree_anc`` (a
-    parent tuple) masks every slot's window by ancestor path; by default
-    it is read from the ambient :func:`spec_tree_scope`, and a tree whose
-    length + 1 is not T leaves the linear bound. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    """K2v: ``q [S, T, H, D]`` -> ``[S, T, H, D]``, a linear window of
+    at most :data:`MAX_WINDOW` rows (a verify window, or the per-width
+    engine's prefill chunk). ``tree_anc`` (a parent tuple) masks every
+    slot's window by ancestor path (at most :data:`MAX_T` rows); by
+    default it is read from the ambient :func:`spec_tree_scope`, and a
+    tree whose length + 1 is not T leaves the linear bound. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
     if q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}: want [S, T, H, D]")
     tree_anc = window_tree(tree_anc, q.shape[1])

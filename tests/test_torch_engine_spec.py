@@ -520,10 +520,16 @@ def test_engine_refusals_match_reference(models):
 
 def test_later_slices_stay_refused(models):
     port = models[2]
-    for kw in (dict(ragged_batch=False), dict(tp_degree=2),
-               dict(role="decode")):
+    for kw in (dict(tp_degree=2), dict(role="decode")):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServingConfig(**CORE, num_speculative_tokens=2, **kw)
+    # the per-width speculative engine is ported: it builds and serves
+    # (held against the reference in tests/test_torch_per_width.py)
+    pw = ServingEngine(port, ServingConfig(**CORE, num_speculative_tokens=2,
+                                           ragged_batch=False),
+                       device="cpu")
+    assert pw.stats()["ragged_batch"] is False
+    pw.shutdown()
     eng = ServingEngine(port, ServingConfig(**CORE,
                                             num_speculative_tokens=2),
                         device="cpu")

@@ -30,14 +30,19 @@ two runs is read by the second run's replays. The telemetry: the
 non-finite probe fires inside captured ticks and adds no graph,
 ``kernel_census()`` counts each captured graph's nodes and names the
 hand-written kernels, and tracing and health on or off stream the same
-tokens under ``async_depth=1``."""
+tokens under ``async_depth=1``. The per-width engine
+(``ragged_batch=False``; ``chip_smoke.per_width_lockstep``) replays each
+of its steps (decode, verify, the chunk step and its draft twin, the
+draft loop, the bucketed prefill's buckets) equal to its eager run on
+the three pools, and its replays read the blocks a copy-on-write and a
+swap resume wrote."""
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import graph_lockstep
+from chip_smoke import graph_lockstep, lockstep, per_width_lockstep
 from paddle_tpu_torch.inference import ServingConfig, ServingEngine
 from paddle_tpu_torch.models import (DeepseekMoeConfig,
                                      DeepseekMoeForCausalLM, GPTConfig,
@@ -587,3 +592,119 @@ def test_telemetry_on_and_off_stream_equal_under_async(cuda, monkeypatch):
     assert st_on["tracing"] and not st_off["tracing"]
     assert st_off["trace_events"] == 0 and st_on["pipelined_ticks"] > 0
     assert "pipelined dispatch" in names and "decode tick" in names
+
+
+PER_WIDTH = {"decode": (dict(ragged_batch=False), ("decode", "chunk")),
+             "interleaved": (dict(ragged_batch=False,
+                                  max_prefill_chunks_per_step=1),
+                             ("decode", "chunk")),
+             "bucketed": (dict(ragged_batch=False, chunked_prefill=False,
+                               min_prefill_bucket=16), ("decode",)),
+             "verify": (dict(ragged_batch=False, num_speculative_tokens=2),
+                        ("verify", "chunk")),
+             "self_draft": (dict(ragged_batch=False,
+                                 num_speculative_tokens=2, drafter="model"),
+                            ("draft", "verify", "chunk", "draft_chunk")),
+             "sampling": (dict(ragged_batch=False,
+                               decode_strategy="sampling", temperature=0.9,
+                               top_k=20, seed=4), ("decode", "chunk"))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("kind", list(PER_WIDTH))
+def test_per_width_replay_equals_eager(cuda, kind, pool):
+    """Each per-width step replayed from its graph equals its eager run
+    (tokens, launches, decode logits, pools), over bf16, int8 and float32
+    pools; every step the engine ran was captured once."""
+    model = _model(pool)
+    kw, steps = PER_WIDTH[kind]
+    kw = dict(CORE, **kw)
+    if pool == "int8":
+        kw["kv_cache_dtype"] = "int8"
+    st = per_width_lockstep(
+        torch, kernels, ServingEngine, model, ServingConfig(**kw),
+        _prompts(model.config.vocab_size), 12, f"per-width {kind} {pool}",
+        draft=model if kind == "self_draft" else None)
+    assert set(steps) <= set(st["graphs"]), st["graphs"]
+    if kind == "bucketed":
+        assert any(g.startswith("prefill") for g in st["graphs"])
+        assert st["prefill_compiles"] == sum(
+            g.startswith("prefill") for g in st["graphs"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+def test_ragged_bucketed_replay_equals_eager(cuda, pool):
+    """The ragged engine with chunked_prefill=False: each prompt bucket's
+    prefill step, captured into the pool the tick layouts share, and the
+    pure ticks replay equal to the eager engine's (tokens, launches,
+    logits, pools), prompts admitted between replayed ticks."""
+    model = _model(pool)
+    kw = dict(CORE, chunked_prefill=False, min_prefill_bucket=16)
+    if pool == "int8":
+        kw["kv_cache_dtype"] = "int8"
+    eng, eager = lockstep(
+        torch, kernels, ServingEngine, model, ServingConfig(**kw),
+        _prompts(model.config.vocab_size), 12, f"ragged bucketed {pool}")
+    st = eng.stats()
+    buckets = {n for n, s in eng._pw.items() if s.graph is not None}
+    assert buckets == {"prefill16", "prefill32", "prefill64",
+                       "prefill128"}, buckets
+    assert st["prefill_compiles"] == len(buckets)
+    assert eng._graphs and all(lay.pure for lay in eng._graphs)
+    assert st["pure_ticks"] > len(eng._graphs)
+    assert st["prefix_cache_enabled"] is False
+    for e in (eng, eager):
+        e.shutdown()
+
+
+@pytest.mark.gpu
+def test_per_width_launches_k3_around_k2(cuda):
+    """The per-width decode step launches K3a / K3b twice a layer around
+    K2d, the verify step around K2v at gamma + 1, the chunk step around
+    K2v at T = prefill_chunk; generate()'s paged steps launch no K3."""
+    model = _model("bfloat16")
+    n_layers = model.config.num_hidden_layers
+    for kw, k2 in ((dict(), "paged_decode_attention"),
+                   (dict(num_speculative_tokens=2),
+                    "paged_verify_attention")):
+        eng = ServingEngine(model, ServingConfig(**CORE, ragged_batch=False,
+                                                 **kw))
+        eng.submit(_prompts(512, lens=(20,))[0], 6)
+        eng.step()                      # admission: the chunk steps
+        kernels.reset_launch_counts()
+        eng.step()
+        got = {k: v for k, v in kernels.launch_counts.items() if v}
+        assert got == {"norm_matmul": 2 * n_layers,
+                       "matmul_residual": 2 * n_layers, k2: n_layers}, got
+        eng.shutdown()
+    ids = torch.from_numpy(_prompts(512, lens=(20,))[0][None]).cuda()
+    kernels.reset_launch_counts()
+    model.generate(ids, max_new_tokens=4, cache_impl="paged")
+    assert kernels.launch_counts["norm_matmul"] == 0
+    assert kernels.launch_counts["paged_decode_attention"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+def test_per_width_replays_read_copied_and_swapped_blocks(cuda, pool):
+    """The per-width engine's twin of
+    test_replays_read_the_blocks_a_copy_and_a_swap_wrote: a full-prompt
+    prefix hit copies its shared block, a preemption resumes by swap, and
+    the decode steps replayed afterwards equal the eager engine's to the
+    bit; the pools keep their storage."""
+    model = _model(pool)
+    kw = dict(CORE, num_slots=2, preempt_resume="swap", ragged_batch=False)
+    if pool == "int8":
+        kw["kv_cache_dtype"] = "int8"
+    p = _prompts(model.config.vocab_size, lens=(64, 20, 30), seed=2)
+    eng, _, ptrs = _waves_lockstep(
+        model, ServingConfig(**kw),
+        [[(0, p[0], 8, 0)],
+         [(0, p[0], 40, 0), (6, p[1], 10, 2), (6, p[2], 10, 2)]])
+    st = eng.stats()
+    assert st["cow_copies"] >= 1 and st["prefix_tokens_reused"] >= 63
+    assert st["preemptions"] >= 1 and st["preempt_swap_resumes"] >= 1
+    assert [t.data_ptr() for t in _pool_tensors(eng._pools)] == ptrs
+    eng.shutdown()

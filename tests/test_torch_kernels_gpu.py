@@ -945,9 +945,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(qa, qa, qa, 0.1, True)
 
-    # K2d / K2v: head_dim, block size, window length (32 at most), group
-    # width (64 at most; float32: T x group too), dtypes, int32 metadata
-    # and contiguity
+    # K2d / K2v: head_dim, block size, a linear window's length
+    # (MAX_WINDOW at most), group width (64 at most), dtypes, int32
+    # metadata and contiguity
     def paged(T=1, rep=4, D=128, BS=16, dt=torch.float32, pool_dt=None,
               lens_dt=torch.int32):
         q = torch.zeros(2, T, 2 * rep, D, device=cuda, dtype=dt)
@@ -958,9 +958,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     for kw, exc, match in (
             (dict(D=96), ValueError, "head_dim"),
             (dict(BS=12), ValueError, "block_size"),
-            (dict(T=33, rep=1), ValueError, "window"),
+            (dict(T=pda.MAX_WINDOW + 1, rep=1), ValueError, "window"),
             (dict(T=1, rep=65), ValueError, "whole group"),
-            (dict(T=9, rep=8), ValueError, "T \\* group"),
             (dict(dt=torch.float16), TypeError, "float32 or"),
             (dict(pool_dt=torch.bfloat16), TypeError, "share"),
             (dict(lens_dt=torch.int64), TypeError, "int32")):
@@ -1656,8 +1655,6 @@ def test_chain_tree_equals_linear_verify_bitwise(cuda, dtype, pool, rep, T):
     equals linear K2v's bit for bit, in both bodies and on int8 pools,
     over a split context too."""
     chain = tuple(range(T - 1))
-    if dtype == "float32" and T * rep > pda.MAX_Q:
-        pytest.skip("past the float32 body's T * group bound")
     q, kp, vp, tables, ctx = _tree_case(800 + rep + T, chain, rep, 16, 64,
                                         dtype, pool, cuda)
     lin = pda.paged_verify_attention(q, kp, vp, tables, ctx, tree_anc=None)
@@ -1672,9 +1669,8 @@ def test_chain_tree_equals_linear_verify_bitwise(cuda, dtype, pool, rep, T):
                                        ("float32", 2)])
 @pytest.mark.parametrize("pool", ["fp", "int8"])
 def test_paged_verify_tree_of_31_drafts(cuda, dtype, rep, pool):
-    """The largest tree (31 drafts, T 32: every ancestor bit): the Hopper
-    body takes it at any group, in several 64-vector tiles; the float32
-    body while T * group <= 64."""
+    """The largest tree (31 drafts, T 32: every ancestor bit): both
+    bodies take it at any group, in several tiles of 64 query vectors."""
     q, kp, vp, tables, ctx = _tree_case(900 + rep, TREE32, rep, 16, 8,
                                         dtype, pool, cuda)
     got = pda.paged_verify_attention(q, kp, vp, tables, ctx,
@@ -1686,20 +1682,77 @@ def test_paged_verify_tree_of_31_drafts(cuda, dtype, rep, pool):
 
 @pytest.mark.gpu
 def test_paged_verify_tree_refusals(cuda):
-    """What the derived limits refuse: the float32 body past T * group
-    64 (a 31-draft tree at group 4), a tree past 31 drafts, and a window
-    past 32 rows."""
+    """What the derived limits refuse: a tree past 31 drafts (the 32
+    ancestor bits) in either body, and a linear window past MAX_WINDOW
+    rows; a 31-draft tree at group 4 in the float32 body (two tiles) and
+    a linear window of 33 rows run and match the plain versions."""
     q, kp, vp, tables, ctx = _tree_case(5, TREE32, 4, 16, 8, "float32", "fp",
                                         cuda)
-    with pytest.raises(ValueError, match="T \\* group"):
-        pda.paged_verify_attention(q, kp, vp, tables, ctx, tree_anc=TREE32)
-    q33 = torch.cat([q, q[:, :1]], 1).bfloat16()
-    with pytest.raises(ValueError, match="31 draft nodes"):
-        pda.paged_verify_attention(q33, kp.bfloat16(), vp.bfloat16(), tables,
-                                   ctx, tree_anc=TREE32 + (0,))
-    with pytest.raises(ValueError, match="window of 33"):
-        pda.paged_verify_attention(q33, kp.bfloat16(), vp.bfloat16(), tables,
-                                   ctx, tree_anc=None)
+    _rows_close(pda.paged_verify_attention(q, kp, vp, tables, ctx,
+                                           tree_anc=TREE32),
+                pda.plain_paged_verify_attention(q, kp, vp, tables, ctx,
+                                                 tree_anc=TREE32), "float32")
+    q33 = torch.cat([q, q[:, :1]], 1)
+    for dt in (torch.float32, torch.bfloat16):
+        args = (q33.to(dt), kp.to(dt), vp.to(dt), tables, ctx)
+        with pytest.raises(ValueError, match="31 draft nodes"):
+            pda.paged_verify_attention(*args, tree_anc=TREE32 + (0,))
+        _rows_close(pda.paged_verify_attention(*args, tree_anc=None),
+                    pda.plain_paged_verify_attention(*args),
+                    "float32" if dt == torch.float32 else "bfloat16")
+    big = torch.zeros(1, pda.MAX_WINDOW + 1, 8, 128, device=cuda,
+                      dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"window of {pda.MAX_WINDOW + 1}"):
+        pda.paged_verify_attention(big, kp.bfloat16(), vp.bfloat16(),
+                                   tables[:1], ctx[:1])
+
+
+# K2v's chunk window: the per-width engine's chunk step, T = prefill_chunk
+# rows of one slot (and two slots, as a window of more than one tile is
+# never split)
+CHUNK_MODES = {   # q dtype, pool kind, heads, kv heads, head dim
+    "bf16": ("bfloat16", "fp", 32, 8, 128),
+    "int8": ("bfloat16", "int8", 32, 8, 128),
+    "f32": ("float32", "fp", 32, 8, 128),
+    "f32_int8": ("float32", "int8", 32, 8, 128),
+    "gpt_f32pool": ("bfloat16", "f32pool", 16, 16, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(CHUNK_MODES))
+@pytest.mark.parametrize("T", [1, 8, 33, 64, 128, 256, 512,
+                               pda.MAX_WINDOW])
+def test_paged_verify_chunk_window(cuda, mode, T):
+    """K2v's linear window at T up to MAX_WINDOW rows against the plain
+    version: contexts starting mid block, on a block boundary and deep in
+    the table, over bfloat16, int8 and float32 pools, a float32 q (the
+    FMA body's tiles of 64 / group rows, its context splits merged a tile
+    at a time) and GPT's bfloat16 q over float32 pools at D 64; counted
+    as the linear K2v of its pool, and the same bits on a second call.
+    The tables reach at least 1024 positions and past the deepest
+    window's end."""
+    dtype, pool, h, hkv, d = CHUNK_MODES[mode]
+    lens = [5, 16, 700]
+    q, kp, vp, tables, ctx = _paged_case(
+        1000 + T + len(mode), lens, T, h // hkv, d, 16,
+        max(64, -(-(lens[-1] + T) // 16)), torch.float32, cuda, Hkv=hkv)
+    q = q.to(getattr(torch, dtype))
+    if pool == "int8":
+        kp, vp = _int8(kp), _int8(vp)
+    elif pool == "fp":
+        kp, vp = kp.to(q.dtype), vp.to(q.dtype)
+    name = "paged_verify_attention" + {"int8": "_int8", "fp": "",
+                                       "f32pool": "_f32pool"}[pool]
+    n0 = dict(launch_counts)
+    got = pda.paged_verify_attention(q, kp, vp, tables, ctx)
+    assert launch_counts[name] == n0[name] + 1
+    want = pda.plain_paged_verify_attention(q, kp, vp, tables, ctx)
+    _rows_close(got, want, dtype)
+    assert torch.equal(got, pda.paged_verify_attention(q, kp, vp, tables,
+                                                       ctx))
+    if pool == "f32pool":
+        _within_one_ulp(got, pda.paged_verify_attention(
+            q.float(), kp, vp, tables, ctx), f"chunk window T {T}")
 
 
 # K2r's per-slot tree mode: tree windows beside an unflagged 128-row chunk

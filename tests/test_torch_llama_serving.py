@@ -282,6 +282,18 @@ def test_later_slice_features_raise(field, value):
             with pytest.raises(ValueError, match=msg):
                 ServingConfig(**kw)
         return
+    if field == "ragged_batch":
+        # the per-width engine is ported: the config takes it with the
+        # reference's defaults, and only what the reference refuses with
+        # it raises (the async pipeline here; a tree and LoRA at the
+        # engine)
+        cfg = ServingConfig(**{field: value})
+        assert cfg.ragged_batch is False and cfg.chunked_prefill is True
+        assert (cfg.min_prefill_bucket,
+                cfg.max_prefill_chunks_per_step) == (16, 0)
+        with pytest.raises(NotImplementedError, match="async"):
+            ServingConfig(**{field: value}, async_depth=1)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingConfig(**{field: value})
 
