@@ -299,14 +299,42 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     16 and 1029, on bfloat16, int8 and float32 pools and a bfloat16 q
     over float32 pools at GPT's 16 / 16 heads of 64, timed beside K2r on
     the same rows);
-24. print the kernels line, the card's name and power limit, and the
+24. beam search on phase 3's model (run after phase 23): greedy and
+    one-beam ``beam_search`` give the same tokens; ``beam_search`` with
+    4 beams and ``group_beam_search`` with 4 beams in 2 groups at
+    diversity 0.5, 2 prompts x 512 tokens, 64 new, on the dense cache
+    (ms a beam step, tokens/s); each beam score against the summed
+    log-probabilities of a dense forward over its sequence over the
+    length penalty (BEAM_SCORE_RTOL; a group beam's score, which carries
+    the diversity penalty, at most that); an ``export_generation`` ->
+    ``load_generation`` round trip of a 2-layer cut at full widths gives
+    ``generate()``'s tokens;
+25. activation recompute at Llama-3-8B widths, 2 x 4096 tokens, bf16:
+    4 layers' loss and every gradient with ``recompute=True`` against
+    ``recompute=False`` (bitwise, else GRAD_RTOL), K1f launching twice a
+    layer; ms/step, MFU and peak memory of ``TrainStep`` + AdamW with
+    recompute off, on and at interval 2; then the most layers the card's
+    memory holds under recompute, reckoned from the 4-layer peak; one
+    DeepSeek-MoE-16B-width layer pair's loss and gradients with recompute
+    against without (K4's forward modes launching twice);
+26. the optimizers on GPT at ``GPTConfig()``'s widths (phase 18's
+    model, bf16, 8 x 1024 tokens): three ``TrainStep`` steps of each of
+    the twelve optimizers on one batch, the loss finite and the last
+    under the first (Adagrad's second step rises: its first steps are
+    lr-sized in every coordinate); AdamW's
+    ``state_dict`` -> ``set_state_dict`` round trip continuing the
+    trajectory bit for bit; ``step_report``'s counted FLOPs a token
+    against bench.py's analytic 6N + 12 L s h (within OPT_FLOPS_FACTOR)
+    and ``analytic_mfu``;
+27. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
 16, 17 and 18, both waves of phase 19 (b), each run of phase 20 (a)-(c)
 and (e) in bf16, each LoRA run and batch of phase 21, each run of phase
-22 (a), each kernel run of phase 23) runs with every
+22 (a), each kernel run of phase 23, each run of phases 24, 25 and 26)
+runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -318,6 +346,7 @@ prints no result. ``--layers`` cuts phase 3's depth (widths stay full);
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -480,8 +509,10 @@ F32POOL_KERNELS = ("ragged_paged_attention_f32pool",
 # 128256] heads at 4.2 GB
 SPEC_RUNS = {
     "ngram": (dict(num_speculative_tokens=4), ("ragged_paged_attention",)),
+    # the draft loop runs the fused layer: K3a / K3b around its K2d steps
     "self": (dict(num_speculative_tokens=4, drafter="model"),
-             ("ragged_paged_attention", "paged_decode_attention")),
+             ("ragged_paged_attention", "paged_decode_attention",
+              "norm_matmul", "matmul_residual")),
     "chain": (dict(num_speculative_tokens=4, spec_tree=CHAIN_TREE),
               ("ragged_paged_attention_tree",)),
     "tree": (dict(num_speculative_tokens=7, spec_tree=BRANCH_TREE),
@@ -490,6 +521,21 @@ SPEC_RUNS = {
                    drafter="heads"), ("ragged_paged_attention_tree",))}
 SPEC_KERNELS = ("ragged_paged_attention_tree",
                 "ragged_paged_attention_tree_int8")
+# phase 24: beam search on phase 3's model
+BEAM = dict(batch=2, prompt=512, new=64, beams=4, groups=2, diversity=0.5,
+            length_penalty=1.0, export_layers=2)
+BEAM_SCORE_RTOL = 1e-2   # bf16: cached decode vs one dense forward
+# phase 25: recompute at Llama-3-8B widths (phase 5's batch) and a
+# DeepSeek-MoE-16B-width layer pair (phase 12's config)
+RECOMPUTE = dict(layers=4, batch=2, seq=4096, warm=1, timed=3, moe_layers=2,
+                 mem_share=0.88)
+# phase 26: the optimizers on GPT at GPTConfig()'s widths, each's rate
+OPTIMIZERS = {"SGD": 0.3, "Momentum": 0.1, "Adagrad": 0.01, "Adam": 1e-4,
+              "AdamW": 1e-4, "Adamax": 1e-4, "RMSProp": 1e-4,
+              "Adadelta": 1.0, "Lamb": 1e-3, "NAdam": 1e-4, "RAdam": 1e-4,
+              "LBFGS": 0.3}
+OPT_BATCH = dict(batch=8, seq=1024, steps=3, timed=3)
+OPT_FLOPS_FACTOR = (0.7, 1.3)    # counted / analytic FLOPs a token
 # phase 16, f32: the first layer's scales in two paths' pools (absmax /
 # 127 of rows that agree within float32 rounding), relative
 INT8_SCALE_RTOL = 1e-4
@@ -4181,6 +4227,13 @@ def spec_serving_phase(torch, kernels, df, rpa, pda, ServingEngine,
                         "phase 17 self")
             if not stats[name]["spec_mean_accepted_len"] > 1.0:
                 fails.append("phase 17 self: no draft accepted")
+            # the draft loop's K2d steps each sit between a K3a and a K3b
+            # pair; the target's ticks add more K3 and no K2d
+            r = runs[name]
+            if not r["norm_matmul"] >= 2 * r["paged_decode_attention"]:
+                fails.append("phase 17 self: the draft loop ran unfused "
+                             f"({r['norm_matmul']} norm_matmul for "
+                             f"{r['paged_decode_attention']} K2d)")
         if "spec_tree" in kw:
             # a tick with no verifying slot (prefill rows only) runs
             # linear K2r: no row of it is a tree row
@@ -4193,6 +4246,32 @@ def spec_serving_phase(torch, kernels, df, rpa, pda, ServingEngine,
         engine.shutdown()
         del engine
         torch.cuda.empty_cache()
+    # the self-drafted engine with its draft loop unfused, as it ran
+    # before the draft loop took the fused layer: the accepted length of
+    # each
+    with mock.patch.object(ServingEngine, "_draft_scope",
+                           lambda self: contextlib.nullcontext()):
+        engine = ServingEngine(model, ServingConfig(
+            **base, **SPEC_RUNS["self"][0]), device="cuda",
+            draft_model=model)
+        unfused, st_u, streams_u = spec_serve_run(
+            torch, kernels, engine, prompts, lens,
+            "phase 17 self (draft loop unfused)",
+            ("ragged_paged_attention", "paged_decode_attention"))
+        engine.shutdown()
+        del engine
+    log(f"  phase 17 self: spec_mean_accepted_len "
+        f"{stats['self']['spec_mean_accepted_len']:.4f} with the draft loop "
+        f"on K3a / K3b ({runs['self']['norm_matmul']} norm_matmul, "
+        f"{runs['self']['paged_decode_attention']} K2d), "
+        f"{st_u['spec_mean_accepted_len']:.4f} with it unfused "
+        f"({unfused['norm_matmul']} norm_matmul, "
+        f"{unfused['paged_decode_attention']} K2d); streams "
+        f"{sum(np.array_equal(a, b) for a, b in zip(streams['self'], streams_u))}"
+        f" of {len(streams_u)} equal; card {card_line()}")
+    held_streams(torch, model, "phase 17 self unfused vs phase 3", prompts,
+                 streams_u, streams3, fails, limit=noise)
+    torch.cuda.empty_cache()
     same = all(np.array_equal(a, b) for a, b in
                zip(streams["chain"], streams["ngram"]))
     per = [stats[n]["spec_mean_accepted_len"] for n in ("chain", "ngram")]
@@ -5840,6 +5919,439 @@ def per_width_phase(torch, kernels, df, rpa, pda, mg, ServingEngine,
     return {k: v for k, v in runs.items() if k in PER_WIDTH}, chunk_k2v
 
 
+# --------------------------------------------------------------- phase 24
+
+def beam_phase(torch, kernels, model, LlamaConfig, LlamaForCausalLM, card):
+    """Phase 24 on phase 3's model (Llama-3-8B widths, bf16): greedy
+    dense ``generate()`` and one-beam ``beam_search`` give the same tokens;
+    ``beam_search`` (BEAM["beams"] beams) and ``group_beam_search``
+    (BEAM["groups"] groups, diversity BEAM["diversity"]) on BEAM["batch"]
+    prompts x BEAM["prompt"] tokens, BEAM["new"] new, timed (ms a beam
+    step, tokens/s); every beam score against the summed log-probabilities
+    of one dense forward over its sequence, over the length penalty
+    (BEAM_SCORE_RTOL), a group beam's at most that (its score carries the
+    diversity penalty); then an ``export_generation`` ->
+    ``load_generation`` round trip of a BEAM["export_layers"]-layer cut at
+    full widths. The dense path launches no hand-written kernel (its
+    cached attention is the reference's plain recipe)."""
+    import shutil
+    b, new, alpha = BEAM["batch"], BEAM["new"], BEAM["length_penalty"]
+    cfg = model.config
+    ids = torch.from_numpy(motif_prompts(b, BEAM["prompt"], 64,
+                                         cfg.vocab_size, SEED + 24)).cuda()
+    runs, fails = {}, []
+    for name, kw in (
+            ("greedy", {}),
+            ("beam1", dict(decode_strategy="beam_search", num_beams=1)),
+            ("beam", dict(decode_strategy="beam_search",
+                          num_beams=BEAM["beams"], length_penalty=alpha)),
+            ("group", dict(decode_strategy="group_beam_search",
+                           num_beams=BEAM["beams"],
+                           num_beam_groups=BEAM["groups"],
+                           diversity_rate=BEAM["diversity"],
+                           length_penalty=alpha))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out, score = model.generate(ids, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        runs[name] = (out, score)
+        rows = b * kw.get("num_beams", 1)
+        log(f"phase 24 {name}: {b} prompts x {BEAM['prompt']} tokens, "
+            f"{new} new, {rows} decode rows: {dt:.3f}s -> "
+            f"{1e3 * dt / new:.3f} ms a step (prefill included), "
+            f"{b * new / dt:.2f} tokens/s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {sum(kernels.launch_counts.values())}; card {card}")
+        if not bool(torch.isfinite(score).all()) or tuple(out.shape) != (
+                b, new) or int(out.min()) < 0 \
+                or int(out.max()) >= cfg.vocab_size:
+            fails.append(f"phase 24 {name}: bad output")
+    if not torch.equal(runs["beam1"][0], runs["greedy"][0]):
+        fails.append("phase 24: one-beam search != greedy search")
+    # each hypothesis again, by one dense forward over prompt + tokens
+    lp = float(new) ** alpha
+    for name in ("beam", "group"):
+        out, score = runs[name]
+        with torch.no_grad():
+            logits = model(torch.cat([ids, out], 1))
+        logp = torch.log_softmax(logits[:, BEAM["prompt"] - 1:-1].float(),
+                                 -1)
+        want = torch.gather(logp, -1, out[..., None])[..., 0].sum(1) / lp
+        err = ((score - want).abs() / want.abs()).tolist()
+        log(f"phase 24 {name}: scores {[round(x, 4) for x in score.tolist()]}"
+            f", dense forward over the length penalty "
+            f"{[round(x, 4) for x in want.tolist()]}, relative "
+            f"{[f'{e:.2e}' for e in err]} (rtol {BEAM_SCORE_RTOL})")
+        if name == "beam" and not max(err) <= BEAM_SCORE_RTOL:
+            fails.append(f"phase 24 {name}: scores off the dense forward")
+        if name == "group" and not bool(
+                (score <= want + BEAM_SCORE_RTOL * want.abs()).all()):
+            fails.append("phase 24 group: a score above its log-probability")
+    # the exported artifact of a cut at full widths
+    cut = LlamaConfig.llama3_8b()
+    cut.dtype = "bfloat16"
+    cut.num_hidden_layers = BEAM["export_layers"]
+    small = LlamaForCausalLM(cut, device="cuda", seed=SEED + 24).eval()
+    from paddle_tpu_torch.generation import (GenerationConfig,
+                                             load_generation)
+    gcfg = GenerationConfig(decode_strategy="beam_search",
+                            num_beams=BEAM["beams"], length_penalty=alpha,
+                            max_new_tokens=new)
+    where = os.path.join(HERE, "build", "phase24")
+    os.makedirs(where, exist_ok=True)
+    t0 = time.monotonic()
+    path = small.export_generation(os.path.join(where, "beam"), b,
+                                   BEAM["prompt"], new, gcfg)
+    t1 = time.monotonic()
+    gen = load_generation(path)
+    t2 = time.monotonic()
+    got = gen(ids.cpu().numpy())
+    want, _ = small.generate(ids, generation_config=gcfg,
+                             pad_prompt_to_bucket=False)
+    size = sum(os.path.getsize(os.path.join(where, f))
+               for f in os.listdir(where))
+    log(f"phase 24 export: {cut.num_hidden_layers} layers, {size / 2**30:.2f}"
+        f" GiB written in {t1 - t0:.1f}s, loaded in {t2 - t1:.1f}s; tokens "
+        f"{'equal' if np.array_equal(got, want.cpu().numpy()) else 'DIFFER'}"
+        f" to generate()'s")
+    if not np.array_equal(got, want.cpu().numpy()):
+        fails.append("phase 24: the loaded artifact's tokens differ")
+    del gen, small
+    shutil.rmtree(where, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 24 failed: {fails}")
+
+
+# --------------------------------------------------------------- phase 25
+
+def grads_of(torch, model, ids, labels):
+    """``(loss, {name: gradient})`` of one ``loss.backward()``."""
+    model.zero_grad(set_to_none=True)
+    loss = model(ids, labels=labels)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def held_recompute(torch, kernels, model, ids, labels, tag, fails):
+    """The loss and every gradient of ``model`` with ``recompute`` on
+    against off: bitwise where the kernels are deterministic, else within
+    GRAD_RTOL of each tensor's largest value. Returns each run's launch
+    counts."""
+    out, peaks = {}, {}
+    for on in (False, True):
+        model.config.recompute = on
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out[on] = grads_of(torch, model, ids, labels) + (
+            dict(kernels.launch_counts),)
+        # the forward and backward's own peak, the weights not counted
+        peaks[on] = torch.cuda.max_memory_allocated() - base
+    model.config.recompute = False
+    (l0, g0, k0), (l1, g1, k1) = out[False], out[True]
+    bitwise = l0 == l1 and all(torch.equal(g0[n], g1[n]) for n in g0)
+    worst = max(g0, key=lambda n: float((g0[n].float() - g1[n].float())
+                                        .abs().max()) / max(float(
+                                            g0[n].float().abs().max()),
+                                            1e-30))
+    rel = float((g0[worst].float() - g1[worst].float()).abs().max()) \
+        / max(float(g0[worst].float().abs().max()), 1e-30)
+    log(f"{tag}: loss {l0:.6f} off / {l1:.6f} on; gradients "
+        f"{'bitwise equal' if bitwise else 'differ'} (worst {worst}: "
+        f"{rel:.2e} of its largest, tol {GRAD_RTOL}); forward + backward "
+        f"peak above the weights {peaks[False] / 2**30:.2f} GiB off, "
+        f"{peaks[True] / 2**30:.2f} GiB on; launches off "
+        f"{ {k: v for k, v in k0.items() if v} } on "
+        f"{ {k: v for k, v in k1.items() if v} }")
+    if not (bitwise or (abs(l0 - l1) <= LOSS_RTOL * abs(l0)
+                        and rel <= GRAD_RTOL)):
+        fails.append(f"{tag}: recomputed gradients differ")
+    return k0, k1
+
+
+def recompute_train(torch, kernels, model, opt, pool, tag, card):
+    """RECOMPUTE["warm"] + RECOMPUTE["timed"] ``TrainStep`` steps; logs
+    ms/step, tokens/s, MFU (6N + 12 L s h) and peak memory. Returns
+    ``(ms a step, peak bytes, launch counts)``; the step and its
+    optimizer state go with it."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch import monitor
+    cfg = model.config
+    step = TrainStep(model, lambda out, a, k: out, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses = [float(step(*pool[i % len(pool)]))
+              for i in range(RECOMPUTE["warm"])]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = [step(*pool[i % len(pool)]) for i in range(RECOMPUTE["timed"])]
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    losses += [float(x) for x in timed]
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.launch_counts)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = RECOMPUTE["batch"] * RECOMPUTE["seq"]
+    f_tok = 6 * n_params + 12 * cfg.num_hidden_layers * RECOMPUTE["seq"] \
+        * cfg.hidden_size
+    ms = 1e3 * dt / RECOMPUTE["timed"]
+    tok_s = tokens / (ms / 1e3)
+    counted = monitor.step_report(step.telemetry_name)["flops"]
+    log(f"{tag}: {cfg.num_hidden_layers} layers, {n_params / 1e9:.3f}B "
+        f"params, recompute {cfg.recompute} interval "
+        f"{cfg.recompute_interval}: {ms:.3f} ms/step, {tok_s:.1f} tokens/s, "
+        f"MFU {tok_s * f_tok / PEAK_FLOPS['bfloat16']:.4f} (6N + 12 L s h), "
+        f"counted {counted / tokens / 1e9:.3f} GFLOP/token (analytic "
+        f"{f_tok / 1e9:.3f}); peak memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 5) for x in losses]}; card {card}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    return ms, peak, launches
+
+
+def recompute_phase(torch, kernels, LlamaConfig, LlamaForCausalLM,
+                    DeepseekMoeForCausalLM, deepseek_moe_16b, AdamW, card):
+    """Phase 25: activation recompute at Llama-3-8B widths on phase 5's
+    batch (RECOMPUTE): 4 layers' loss and gradients on against off; then
+    ``TrainStep`` + AdamW(multi_precision) with recompute off, on and at
+    interval 2 (ms/step, MFU, peak memory; K1f launching once a layer a
+    step more for each recomputed layer); then the most layers that fit
+    under recompute, reckoned from the 4-layer run's peak and 12 bytes a
+    parameter of a layer; then a DeepSeek-MoE-16B-width layer pair's
+    loss and gradients on against off (K4's forward modes twice).
+    Returns the launch counts of every run, summed."""
+    import gc
+    total, fails = {}, []
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    bsz, seq = RECOMPUTE["batch"], RECOMPUTE["seq"]
+    rng = np.random.RandomState(SEED + 25)
+    pool = []
+    for _ in range(2):
+        a = rng.randint(0, 128256, (bsz, seq)).astype(np.int64)
+        pool.append(tuple(torch.from_numpy(x).cuda()
+                          for x in (a, np.roll(a, -1, axis=1))))
+
+    def llama(layers, **kw):
+        cfg = LlamaConfig.llama3_8b()
+        cfg.dtype = "bfloat16"
+        cfg.num_hidden_layers = layers
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        m = LlamaForCausalLM(cfg, device="cuda", seed=SEED + 25)
+        return m.train()
+
+    n4 = RECOMPUTE["layers"]
+    model = llama(n4)
+    k0, k1 = held_recompute(torch, kernels, model, *pool[0],
+                            f"phase 25 Llama-3-8B widths, {n4} layers", fails)
+    add(k0)
+    add(k1)
+    if k1["flash_attention_fwd"] != 2 * n4 or k1["flash_attention_dq"] != n4:
+        fails.append(f"phase 25: K1 launched {k1} under recompute, want the "
+                     f"forward {2 * n4} times, dq {n4}")
+    runs = {}
+    for name, kw in (("off", dict(recompute=False)),
+                     ("on", dict(recompute=True)),
+                     ("interval2", dict(recompute=True,
+                                        recompute_interval=2))):
+        for k, v in kw.items():
+            setattr(model.config, k, v)
+        opt = AdamW(1e-4, parameters=model.parameters(),
+                    multi_precision=True)
+        runs[name] = recompute_train(torch, kernels, model, opt, pool,
+                                     f"phase 25 {name}", card)
+        add(runs[name][2])
+        steps = RECOMPUTE["warm"] + RECOMPUTE["timed"]
+        n_rec = 0 if not model.config.recompute else \
+            len(range(0, n4, model.config.recompute_interval))
+        want = steps * (n4 + n_rec)
+        if runs[name][2]["flash_attention_fwd"] != want:
+            fails.append(f"phase 25 {name}: K1f launched "
+                         f"{runs[name][2]['flash_attention_fwd']}, want "
+                         f"{want}")
+        del opt
+        torch.cuda.empty_cache()
+    model.config.recompute, model.config.recompute_interval = False, 1
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the most layers: the 4-layer peak plus 12 bytes a parameter of each
+    # further layer (bf16 weight and gradient, float32 moments; TrainStep
+    # keeps no master copy) and its saved input, within mem_share of the card
+    c = LlamaConfig.llama3_8b()
+    h = c.hidden_size
+    per_layer = h * (2 * h + 2 * c.num_key_value_heads * c.head_dim) \
+        + 3 * h * c.intermediate_size + 2 * h
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    per_bytes = 12 * per_layer + bsz * seq * 4096 * 2
+    peak_on = runs["on"][1]
+    most = n4 + int((RECOMPUTE["mem_share"] * total_mem - peak_on)
+                    // per_bytes)
+    log(f"phase 25: a layer {per_layer / 1e6:.1f}M params, "
+        f"{per_bytes / 2**30:.2f} GiB with its state; 4-layer peak "
+        f"{peak_on / 2**30:.2f} GiB under recompute -> {most} layers within "
+        f"{RECOMPUTE['mem_share']} of {total_mem / 2**30:.1f} GiB")
+    model = llama(most, recompute=True)
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    ms_most, peak_most, k_most = recompute_train(
+        torch, kernels, model, opt, pool, f"phase 25 most ({most} layers)",
+        card)
+    add(k_most)
+    log(f"phase 25: recompute off / on / interval 2 at {n4} layers: "
+        f"{runs['off'][0]:.3f} / {runs['on'][0]:.3f} / "
+        f"{runs['interval2'][0]:.3f} ms/step, peak "
+        f"{runs['off'][1] / 2**30:.2f} / {runs['on'][1] / 2**30:.2f} / "
+        f"{runs['interval2'][1] / 2**30:.2f} GiB; {most} layers under "
+        f"recompute {ms_most:.3f} ms/step, peak {peak_most / 2**30:.2f} GiB;"
+        f" card {card}")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a DeepSeek-MoE-16B-width layer pair: a dense layer, a sparse one
+    cfg = deepseek_moe_16b(num_hidden_layers=RECOMPUTE["moe_layers"],
+                           dropless=True)
+    moe_model = DeepseekMoeForCausalLM(cfg, device="cuda",
+                                       seed=SEED + 25).train()
+    ids = torch.randint(0, cfg.vocab_size, (bsz, seq), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(25))
+    k0, k1 = held_recompute(torch, kernels, moe_model, ids,
+                            torch.roll(ids, -1, 1),
+                            "phase 25 DeepSeek-MoE-16B widths, "
+                            f"{RECOMPUTE['moe_layers']} layers", fails)
+    add(k0)
+    add(k1)
+    for k in MOE_KERNELS:
+        if k1[k] != 2 * k0[k] or not k0[k]:
+            fails.append(f"phase 25 MoE: {k} launched {k1[k]} under "
+                         f"recompute against {k0[k]} without")
+    del moe_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 25 failed: {fails}")
+    return total
+
+
+# --------------------------------------------------------------- phase 26
+
+def optimizer_phase(torch, kernels, GPTConfig, GPTForCausalLM, card):
+    """Phase 26: GPT at ``GPTConfig()``'s widths (24 layers, bf16, phase
+    18's model) trains OPT_BATCH["steps"] ``TrainStep`` steps on one
+    batch with each optimizer of OPTIMIZERS, from the same weights and
+    dropout draws: the loss finite and the last under the first;
+    AdamW's ``state_dict`` -> ``set_state_dict`` round trip into a fresh
+    optimizer after two steps continues the trajectory bit for bit; the
+    first step's ``step_report`` FLOPs a token against bench.py's
+    6N + 12 L s h (OPT_FLOPS_FACTOR) and ``analytic_mfu`` of timed AdamW
+    steps. Returns the launch counts of every run, summed."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import monitor, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    cfg = GPTConfig()
+    bsz, seq = OPT_BATCH["batch"], OPT_BATCH["seq"]
+    model = GPTForCausalLM(cfg, device="cuda", seed=SEED + 26).to(
+        torch.bfloat16).train()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(SEED + 26)
+    a = rng.randint(0, cfg.vocab_size, (bsz, seq)).astype(np.int64)
+    batch = tuple(torch.from_numpy(x).cuda()
+                  for x in (a, np.roll(a, -1, axis=1)))
+    total, fails = {}, []
+
+    def run(name, lr, steps, resume_at=None):
+        # the same weights and the same dropout draws (hidden dropout 0.1
+        # is live in train()) for every run
+        model.load_state_dict(init)
+        paddle_tpu_torch.seed(SEED + 26)
+        opt = getattr(optimizer, name)(lr, parameters=model.parameters())
+        step = TrainStep(model, lambda out, a_, k: out, opt)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        losses = []
+        for i in range(steps):
+            if i == resume_at:
+                saved = opt.state_dict()
+                opt = getattr(optimizer, name)(
+                    lr, parameters=model.parameters())
+                opt.set_state_dict(saved)
+                step = TrainStep(model, lambda out, a_, k: out, opt)
+            losses.append(float(step(*batch)))
+        for k, v in kernels.launch_counts.items():
+            total[k] = total.get(k, 0) + v
+        return losses, step
+
+    t0 = time.monotonic()
+    for name, lr in OPTIMIZERS.items():
+        losses, _ = run(name, lr, OPT_BATCH["steps"])
+        log(f"phase 26 {name} (lr {lr}): losses "
+            f"{[round(x, 5) for x in losses]}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fails.append(f"phase 26 {name}: losses {losses}")
+    log(f"phase 26: {len(OPTIMIZERS)} optimizers x {OPT_BATCH['steps']} "
+        f"steps in {time.monotonic() - t0:.1f}s; card {card}")
+    whole, _ = run("AdamW", OPTIMIZERS["AdamW"], OPT_BATCH["steps"])
+    after = {k: v.clone() for k, v in model.state_dict().items()}
+    resumed, _ = run("AdamW", OPTIMIZERS["AdamW"], OPT_BATCH["steps"],
+                     resume_at=2)
+    same = whole == resumed and all(
+        torch.equal(v, after[k]) for k, v in model.state_dict().items())
+    log(f"phase 26: AdamW state_dict round trip after 2 steps: losses "
+        f"{resumed} against {whole}, parameters "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        fails.append("phase 26: the state_dict round trip left the "
+                     "trajectory")
+    # the step's counted work against the analytic count, and its MFU
+    model.load_state_dict(init)
+    paddle_tpu_torch.seed(SEED + 26)
+    opt = optimizer.AdamW(OPTIMIZERS["AdamW"], parameters=model.parameters())
+    step = TrainStep(model, lambda out, a_, k: out, opt)
+    kernels.reset_launch_counts()
+    step(*batch)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(OPT_BATCH["timed"]):
+        step(*batch)
+    torch.cuda.synchronize()
+    dt = (time.monotonic() - t0) / OPT_BATCH["timed"]
+    for k, v in kernels.launch_counts.items():
+        total[k] = total.get(k, 0) + v
+    rep = monitor.step_report(step.telemetry_name)
+    tokens = bsz * seq
+    f_tok = 6 * n_params + 12 * cfg.num_hidden_layers * seq \
+        * cfg.hidden_size
+    ratio = rep["flops"] / tokens / f_tok
+    mfu = monitor.analytic_mfu(step.telemetry_name, dt)
+    log(f"phase 26: step_report {step.telemetry_name}: "
+        f"{rep['flops'] / 1e12:.4f} TFLOP counted, "
+        f"{rep['flops'] / tokens / 1e9:.4f} GFLOP/token against bench.py's "
+        f"6N + 12 L s h = {f_tok / 1e9:.4f} (ratio {ratio:.4f}, bounds "
+        f"{OPT_FLOPS_FACTOR}); bytes {rep['bytes_accessed'] / 1e9:.2f} GB; "
+        f"peak {rep['memory'].get('peak_hbm_bytes', 0) / 2**30:.2f} GiB; "
+        f"{1e3 * dt:.3f} ms/step -> analytic_mfu {mfu:.4f}; card {card}")
+    if not OPT_FLOPS_FACTOR[0] <= ratio <= OPT_FLOPS_FACTOR[1]:
+        fails.append(f"phase 26: counted FLOPs {ratio:.3f} x the analytic")
+    del model, step, opt
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 26 failed: {fails}")
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6082,6 +6594,9 @@ def main(argv=None):
     pw_runs, chunk_k2v = per_width_phase(
         torch, kernels, df, rpa, pda, mg, ServingEngine, ServingConfig,
         model, prompts, lens, card)
+
+    # -- phase 24: beam and group-beam search, the exported artifact -------
+    beam_phase(torch, kernels, model, LlamaConfig, LlamaForCausalLM, card)
     del model
     torch.cuda.empty_cache()
 
@@ -6239,7 +6754,23 @@ def main(argv=None):
         launches[k] += sum(r[k] for r in pw_runs.values())
     launches["paged_verify_attention_chunk"] = chunk_k2v
 
-    # -- phase 24: report --------------------------------------------------
+    # -- phase 25: activation recompute, dense and MoE ---------------------
+    for k, n in recompute_phase(torch, kernels, LlamaConfig,
+                                LlamaForCausalLM, DeepseekMoeForCausalLM,
+                                deepseek_moe_16b, AdamW, card).items():
+        if k in TRAINING_KERNELS + MOE_KERNELS + ("moe_gmm",) \
+                + MOE_BWD_KERNELS:
+            launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+
+    # -- phase 26: the optimizers and TrainStep's telemetry on GPT ---------
+    for k, n in optimizer_phase(torch, kernels, GPTConfig, GPTForCausalLM,
+                                card).items():
+        if k in TRAINING_KERNELS:
+            launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+
+    # -- report -------------------------------------------------------------
     fa_src = "paddle_tpu/ops/pallas/flash_attention_kernel.py"
     fm_src = "paddle_tpu/ops/pallas/flashmask_kernel.py"
     srcs = {"ragged_paged_attention": (

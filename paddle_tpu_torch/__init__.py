@@ -3,8 +3,10 @@
 It serves causal LMs (Llama, Qwen2, the MoE families and GPT) through
 the ragged serving tick, generates with ``model.generate()`` (dense
 cache, paged cache, speculative decoding with an n-gram drafter, a
-draft model or a token tree) and trains them through ``jit.TrainStep``
-(or ``loss.backward()`` + ``opt.step()``) with AdamW on an NVIDIA
+draft model or a token tree; beam and group-beam search; an exported
+generation artifact) and trains them through ``jit.TrainStep``
+(or ``loss.backward()`` + ``opt.step()``) with Paddle's optimizers
+and schedulers, and activation recompute, on an NVIDIA
 Hopper GPU: hand-written CUDA kernels for ragged, decode
 and verify paged attention, RMSNorm -> projections, projection ->
 residual, and flash attention's forward, dq and dk/dv passes (sources in
@@ -13,14 +15,14 @@ for the rest. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, where every kernel's plain PyTorch version runs
 instead. The package imports neither ``jax`` nor ``paddle_tpu``.
 """
-from . import (framework, generation, inference, jit, models, nn, ops,
-               optimizer)
+from . import (distributed, framework, generation, inference, jit, models,
+               nn, ops, optimizer, regularizer)
 from .convert import load_jax_params, params_from_jax
 from .framework import generator, resolve_device, seed
 
 __version__ = "0.1.0"
 
-__all__ = ["framework", "generation", "inference", "jit", "models", "nn",
-           "ops", "optimizer",
+__all__ = ["distributed", "framework", "generation", "inference", "jit",
+           "models", "nn", "ops", "optimizer", "regularizer",
            "load_jax_params", "params_from_jax", "generator",
            "resolve_device", "seed"]

@@ -31,15 +31,20 @@ tokens on the same device, but not the reference's JAX draws.
 under speculation) in int8 with a float32 scale a position and kv head;
 it selects the paged cache, and refuses an explicit dense one.
 
-Not in this slice (each raises ``NotImplementedError``): beam and
-group-beam search, and ``export_generation`` / ``load_generation``. The
-reference's env switches are not carried over; the port follows their
-defaults.
+Beam and group-beam search (``decode_strategy="beam_search"`` /
+``"group_beam_search"``) run on the dense cache (``generation/beam.py``),
+with the reference's refusals: no left-padded prompts, no sampling knobs,
+no paged cache, no speculation. ``export_generation`` writes a
+deployable artifact with the decoding configuration baked in, and
+:func:`load_generation` runs it. The reference's env switches are not
+carried over; the port follows their defaults.
 """
 from __future__ import annotations
 
 import inspect
-from dataclasses import dataclass
+import json
+import os
+from dataclasses import asdict, dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -50,14 +55,15 @@ from ..framework.random import generator as make_generator
 from ..ops import paged_cache as _pc
 from ..ops.cuda_graphs import GraphedStep, graphs_usable
 
-__all__ = ["GenerationConfig", "GenerationMixin", "load_generation",
-           "_filter_logits", "_select_token", "categorical"]
+__all__ = ["GenerationConfig", "GenerationMixin", "LoadedGeneration",
+           "load_generation", "_filter_logits", "_select_token",
+           "categorical"]
 
 
 @dataclass
 class GenerationConfig:
     max_new_tokens: int = 20
-    # greedy_search | sampling (beam_search | group_beam_search: later)
+    # greedy_search | sampling | beam_search | group_beam_search
     decode_strategy: str = "greedy_search"
     temperature: float = 1.0
     top_k: int = 0
@@ -162,11 +168,6 @@ def _select_token(logits, generator=None, *, do_sample,
     else:
         tok = torch.argmax(lg, dim=-1)
     return tok, torch.gather(logp, -1, tok[:, None])[:, 0]
-
-
-def _later(what):
-    return NotImplementedError(
-        f"{what} comes with a later slice of the PyTorch port")
 
 
 def _paged_prefill(model, ids, mb, block_size, kv_cache_dtype=None):
@@ -390,8 +391,10 @@ class GenerationMixin:
             raise TypeError(
                 f"generate() got unsupported options {sorted(kwargs)}; "
                 "supported: max_new_tokens/max_length, decode_strategy "
-                "(greedy_search|sampling), temperature, top_k, top_p, "
-                "num_beams, eos_token_id, pad_token_id, seed, cache_impl "
+                "(greedy_search|sampling|beam_search|group_beam_search), "
+                "temperature, top_k, top_p, num_beams, num_beam_groups, "
+                "diversity_rate, length_penalty, early_stopping, "
+                "eos_token_id, pad_token_id, seed, cache_impl "
                 "(dense|paged), pad_prompt_to_bucket, "
                 "num_speculative_tokens, draft_model, spec_ngram_max, "
                 "spec_tree, kv_cache_dtype")
@@ -401,13 +404,19 @@ class GenerationMixin:
         max_new = int(max_new_tokens or cfg.max_new_tokens)
         strategy = decode_strategy or cfg.decode_strategy
         do_sample = self._resolve_strategy(strategy)
-        if strategy in ("beam_search", "group_beam_search"):
-            raise _later(f"decode_strategy {strategy!r} (beam search)")
         temperature = cfg.temperature if temperature is None \
             else float(temperature)
         top_k = cfg.top_k if top_k is None else int(top_k)
         top_p = cfg.top_p if top_p is None else float(top_p)
         num_beams = cfg.num_beams if num_beams is None else int(num_beams)
+        num_beam_groups = cfg.num_beam_groups if num_beam_groups is None \
+            else int(num_beam_groups)
+        diversity_rate = cfg.diversity_rate if diversity_rate is None \
+            else float(diversity_rate)
+        length_penalty = cfg.length_penalty if length_penalty is None \
+            else float(length_penalty)
+        early_stopping = cfg.early_stopping if early_stopping is None \
+            else bool(early_stopping)
         eos = eos_token_id if eos_token_id is not None else cfg.eos_token_id
         pad = pad_token_id if pad_token_id is not None else cfg.pad_token_id
         eos = -1 if eos is None else int(eos)   # -1 never matches
@@ -444,8 +453,13 @@ class GenerationMixin:
         b, prompt_len = ids.shape
         self._check_lengths(prompt_len, max_new)
 
+        is_beam = strategy in ("beam_search", "group_beam_search")
         mask_np = None
         if attention_mask is not None:
+            if is_beam:
+                raise NotImplementedError(
+                    "beam search with left-padded prompts "
+                    "(attention_mask) — pad to equal length instead")
             if not self._takes_pad_mask():
                 raise NotImplementedError(
                     f"{type(self).__name__} does not support left-padded "
@@ -465,12 +479,25 @@ class GenerationMixin:
                 raise ValueError(
                     "attention_mask must be LEFT-padded (each row: 0s "
                     "then 1s, last column 1)")
-        if num_beams > 1:
+        if is_beam and (temperature != 1.0 or top_k or top_p != 1.0):
+            raise ValueError(
+                f"{strategy} is deterministic; temperature/top_k/top_p "
+                "do not apply (use decode_strategy='sampling')")
+        if strategy == "beam_search" and (num_beam_groups > 1
+                                          or diversity_rate):
+            raise ValueError(
+                "num_beam_groups/diversity_rate require "
+                "decode_strategy='group_beam_search'")
+        if not is_beam and num_beams > 1:
             raise ValueError(
                 f"num_beams={num_beams} requires decode_strategy="
                 "'beam_search' or 'group_beam_search' "
                 f"(got {strategy!r})")
         if cache_impl == "paged":
+            if is_beam:
+                raise NotImplementedError(
+                    "cache_impl='paged' does not support beam search — "
+                    "use the dense cache")
             if attention_mask is not None:
                 raise NotImplementedError(
                     "cache_impl='paged' with left-padded prompts "
@@ -517,6 +544,9 @@ class GenerationMixin:
         if gamma:
             from .speculative import (SpecGenerator, draft_exclusion_reason,
                                       spec_exclusion_reason)
+            if is_beam:
+                raise NotImplementedError(
+                    "speculative decoding does not support beam search")
             if attention_mask is not None:
                 raise NotImplementedError(
                     "speculative decoding with left-padded prompts "
@@ -549,6 +579,13 @@ class GenerationMixin:
         if cache_impl == "paged":
             return self._run_paged(ids, max_new, select, eos, pad,
                                    block_size, kv_dtype, gen)
+        if is_beam:
+            return self._run_beam(
+                ids, max_new, num_beams=num_beams,
+                num_beam_groups=num_beam_groups
+                if strategy == "group_beam_search" else 1,
+                diversity_rate=diversity_rate, length_penalty=length_penalty,
+                early_stopping=early_stopping, eos=eos, pad=pad)
         # power-of-two prompt bucketing: left-pad the prompt (masked,
         # per-row rope rebase), as the reference does so that every
         # length in a bucket reuses one compiled loop
@@ -566,9 +603,105 @@ class GenerationMixin:
             torch.from_numpy(mask_np.astype(np.int64)).to(dev)
         return self._run_dense(ids, mask, max_new, select, eos, pad)
 
-    def export_generation(self, *args, **kwargs):
-        raise _later("export_generation (the AOT-exported decode loop)")
+    def _run_beam(self, ids, max_new, **kw):
+        """Beam or group-beam search over the dense cache
+        (:func:`~paddle_tpu_torch.generation.beam.beam_search`)."""
+        from .beam import beam_search
+        prompt_len = ids.shape[1]
+        return beam_search(
+            lambda tok, caches, off: self(tok, caches=caches, offset=off),
+            lambda bb: self.init_caches(bb, prompt_len + max_new), ids,
+            max_new, **kw)
+
+    def export_generation(self, path, batch_size, prompt_len,
+                          max_new_tokens, generation_config=None):
+        """Write a deployable generation artifact for ``[batch_size,
+        prompt_len]`` prompts and ``max_new_tokens`` new tokens, with
+        ``generation_config``'s decoding (greedy, sampling, beam or
+        group-beam) baked in: ``path.json`` (the reference's keys
+        ``batch``, ``prompt_len``, ``max_new_tokens``, ``n_params``,
+        ``seed_dtype``, plus the model's class, its config and the
+        generation config) and ``path.params.npz`` (every weight by its
+        ``state_dict`` name; bfloat16 stored as its uint16 bits). No
+        compiled program is stored: the port's kernels are launched
+        through ctypes, not traced, so :func:`load_generation` rebuilds
+        the model and runs the same loop ``generate()`` runs. Returns
+        ``path``."""
+        cfg = generation_config or GenerationConfig()
+        self._resolve_strategy(cfg.decode_strategy)
+        b, prompt, max_new = int(batch_size), int(prompt_len), \
+            int(max_new_tokens)
+        self._check_lengths(prompt, max_new)
+        state = {k: v.detach().cpu() for k, v in self.state_dict().items()}
+        arrays, dtypes = {}, {}
+        for k, v in state.items():
+            dtypes[k] = str(v.dtype).replace("torch.", "")
+            arrays[k] = (v.view(torch.uint16) if v.dtype == torch.bfloat16
+                         else v).numpy()
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
+                    exist_ok=True)
+        np.savez(path + ".params.npz", **arrays)
+        model_cfg = self.config
+        with open(path + ".json", "w") as f:
+            json.dump({"batch": b, "prompt_len": prompt,
+                       "max_new_tokens": max_new, "n_params": len(arrays),
+                       "seed_dtype": "int64",
+                       "model_class": type(self).__name__,
+                       "config_class": type(model_cfg).__name__,
+                       "config": asdict(model_cfg),
+                       "generation_config": asdict(cfg),
+                       "dtypes": dtypes}, f)
+        return path
 
 
-def load_generation(path):
-    raise _later("load_generation (the AOT-exported decode loop)")
+class LoadedGeneration:
+    """A generation artifact written by ``export_generation``:
+    ``gen(input_ids [batch, prompt_len], seed=0)`` returns the generated
+    ids ``[batch, max_new_tokens]`` as numpy. It holds no compiled
+    program (the port's kernels are launched, not traced): it rebuilds
+    the model on ``device`` (default cuda) from the stored config and
+    weights, and runs the dense or beam loop ``generate()`` runs with the
+    baked configuration, on prompts of the artifact's fixed shape (a
+    different shape raises, as the reference's fixed-shape executable
+    does)."""
+
+    def __init__(self, path, device=None):
+        from .. import models
+        with open(path + ".json") as f:
+            self.meta = json.load(f)
+        data = np.load(path + ".params.npz", allow_pickle=False)
+        cls = getattr(models, self.meta["model_class"])
+        cfg = getattr(models, self.meta["config_class"])(
+            **self.meta["config"])
+        self.model = cls(cfg, device=device).eval()
+        state = {}
+        for k, dt in self.meta["dtypes"].items():
+            t = torch.from_numpy(data[k])
+            state[k] = t.view(torch.bfloat16) if dt == "bfloat16" else t
+        self.model.load_state_dict(state)
+        # the reference's artifact runs the dense loop on the prompt as
+        # given: no bucket padding, no paged cache, no speculation
+        self.generation_config = replace(
+            GenerationConfig(**self.meta["generation_config"]),
+            cache_impl="dense", kv_cache_dtype=None,
+            pad_prompt_to_bucket=False, num_speculative_tokens=0)
+
+    def __call__(self, input_ids, seed=0):
+        ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
+                         else input_ids).astype(np.int64)
+        want = (self.meta["batch"], self.meta["prompt_len"])
+        if ids.shape != want:
+            raise ValueError(
+                f"input_ids shape {ids.shape}; this artifact was exported "
+                f"for {want}")
+        cfg = self.generation_config
+        out, _ = self.model.generate(
+            ids, generation_config=cfg,
+            max_new_tokens=self.meta["max_new_tokens"], seed=int(seed))
+        return out.cpu().numpy()
+
+
+def load_generation(path, device=None) -> LoadedGeneration:
+    """Load an artifact written by ``export_generation`` (see
+    :class:`LoadedGeneration`); ``device`` defaults to cuda."""
+    return LoadedGeneration(path, device)

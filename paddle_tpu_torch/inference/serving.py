@@ -2003,9 +2003,10 @@ class ServingEngine:
                 # the draft model's gamma + 1 steps over the verifying
                 # slots; its drafts go into their window rows
                 cur = inp[o + a:o + 2 * a]
-                props, dq, self._dpools = self._dloop(
-                    self._dpools, self._tables_dev[act], slots[0][act], cur,
-                    self._samp()[act], self._gen)
+                with self._draft_scope():
+                    props, dq, self._dpools = self._dloop(
+                        self._dpools, self._tables_dev[act], slots[0][act],
+                        cur, self._samp()[act], self._gen)
                 toks = torch.cat([cur[:, None], props.long()], 1)
                 rows[0].index_copy_(0, inp[o + 2 * a:o + 2 * a + a * g],
                                     props.reshape(-1).to(rows.dtype))
@@ -2088,6 +2089,14 @@ class ServingEngine:
             self._write_carry(inp, rows, slots, tok, lay)
         return _TickOut(torch.cat(parts), logits, path, slots[0], act,
                         (len(counts), counts[0].numel()) if counts else None)
+
+    def _draft_scope(self):
+        """The draft loop's context in the ragged tick: the fused decode
+        layer on its paged steps (``fused_decode``), as the reference
+        traces its ragged draft step inside its fused scope. The tick body
+        enters it, so it is armed while the tick's graph is captured."""
+        return _df.paged_fused_scope() if self.config.fused_decode \
+            else contextlib.nullcontext()
 
     def _prime_draft(self, rows, slots, lay):
         """Write the draft model's cache over a tick's prefill rows by its

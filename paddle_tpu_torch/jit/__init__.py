@@ -11,15 +11,43 @@ stored parameter, with no float32 master copy** (the reference's
 compiled step calls the rule on the bf16 parameter directly; only the
 moments are float32), and bumps the optimizer's step count. Batches
 given as numpy arrays or tensors move to the layer's device.
+
+Telemetry, as the reference's step keeps it (each step has a
+``telemetry_name``, ``train_step:<layer class>:<n>``):
+
+- the first call runs under
+  :class:`~paddle_tpu_torch.monitor.accounting.CostRecorder`, so its
+  report (``monitor.step_report(step.telemetry_name)``: the counted
+  FLOPs and bytes, the hand-written kernels' declared work included and
+  a recomputed segment counted twice, as XLA's remat is; on CUDA the
+  first step's peak device memory, the allocator's peak statistic reset
+  as the first call starts; an empty collective census) is filed by
+  ``monitor.record_compiled_step``, and ``train_step_compiles`` counts
+  it. The accounting is wrapped, never the step: a fault in the step
+  itself propagates;
+- ``train_step_calls`` counts every call, and ``sample_device_memory``
+  reads the allocator's watermarks at each step boundary;
+- ``train_step_fallback_recompiles`` counts the first call whose input
+  signature (each tensor's shape and dtype) differs from the first
+  call's. The port compiles nothing, so nothing is missed: it counts
+  what the reference's executable would miss, once, as the reference
+  drops to its caching path after one miss.
 """
 from __future__ import annotations
+
+import itertools
+import warnings
 
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..framework.place import resolve_device
+from ..monitor import accounting as _acct
 
 __all__ = ["TrainStep"]
+
+_TRAIN_STEP_SEQ = itertools.count(1)
 
 
 def _to_device(x, dev):
@@ -28,6 +56,11 @@ def _to_device(x, dev):
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     return x
+
+
+def _signature(args, kwargs):
+    return tuple((tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+                 else type(v) for v in list(args) + sorted(kwargs.items()))
 
 
 class TrainStep:
@@ -43,10 +76,17 @@ class TrainStep:
         self.trainable = [p for p in layer.parameters()
                           if p.requires_grad
                           and (not opt_ids or id(p) in opt_ids)]
+        self.telemetry_name = (f"train_step:{type(layer).__name__}:"
+                               f"{next(_TRAIN_STEP_SEQ)}")
+        self._step_idx = 0
+        self._sig = None
+        self._missed = False
 
-    def __call__(self, *args, **kwargs):
-        args = tuple(_to_device(a, self.device) for a in args)
-        kwargs = {k: _to_device(v, self.device) for k, v in kwargs.items()}
+    def _counter(self, name, help_):
+        return _monitor.counter(name, help_, labels=("step",)) \
+            .labels(step=self.telemetry_name)
+
+    def _step(self, args, kwargs):
         out = self.layer(*args, **kwargs)
         loss = self.loss_fn(out, args, kwargs)
         grads = torch.autograd.grad(loss, self.trainable, allow_unused=True)
@@ -60,9 +100,44 @@ class TrainStep:
                     list(zip(self.trainable, grads)))]
             for p, g in zip(self.trainable, grads):
                 g = opt._apply_decay(p, g)
-                p_new, s_new = opt._update_rule(p.detach(), g,
-                                                opt._state_for(p), lr)
+                state = opt._state_for(p)
+                opt._current_param = p
+                p_new, s_new = opt._update_rule(p.detach(), g, state, lr)
                 p.copy_(p_new)
                 opt._write_state_dict(p, s_new)
+            opt._current_param = None
         opt._step_count += 1
         return loss.detach()
+
+    def __call__(self, *args, **kwargs):
+        args = tuple(_to_device(a, self.device) for a in args)
+        kwargs = {k: _to_device(v, self.device) for k, v in kwargs.items()}
+        sig = _signature(args, kwargs)
+        cuda = self.device.type == "cuda"
+        if self._sig is None:
+            self._sig = sig
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.device)
+            with _acct.CostRecorder() as rec:
+                loss = self._step(args, kwargs)
+            self._counter("train_step_compiles",
+                          "TrainStep first-call accountings").inc()
+            mem = {"peak_hbm_bytes": int(torch.cuda.max_memory_allocated(
+                self.device))} if cuda else {}
+            try:
+                _monitor.record_compiled_step(self.telemetry_name,
+                                              rec.result(), mem)
+            except Exception as e:  # accounting must never sink the step
+                warnings.warn(f"{self.telemetry_name}: step accounting "
+                              f"failed: {e!r}")
+        else:
+            if sig != self._sig and not self._missed:
+                self._missed = True
+                self._counter("train_step_fallback_recompiles",
+                              "signature misses off the first call's").inc()
+            loss = self._step(args, kwargs)
+        self._counter("train_step_calls", "TrainStep invocations").inc()
+        _monitor.sample_device_memory(step=self._step_idx,
+                                      device=self.device)
+        self._step_idx += 1
+        return loss

@@ -55,6 +55,7 @@ class DeepseekMoeConfig(_MoeConfigMixin):
     expert_axis: str = "dp"                 # one shard on one device
     dropless: bool = False                  # no capacity, no dropped pairs
     moe_fused_gmm: bool = True              # False: the sorted K5 path
+    recompute: bool = False                 # every layer recomputed
     dtype: str = "float32"
 
     @staticmethod

@@ -31,8 +31,10 @@ differentiable. With ``caches`` it runs one of three decode paths:
 
 The serving engine and ``generate()`` call it under ``torch.no_grad()``;
 ``generate()`` runs the unfused module path, as the reference does.
-Recompute and attention masks on the dense training path belong to later
-slices.
+With ``config.recompute`` a training forward recomputes every
+``recompute_interval``-th decoder layer in the backward
+(:func:`paddle_tpu_torch.distributed.recompute.recompute`). Attention
+masks on the dense training path belong to a later slice.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..distributed.recompute import recompute
 from ..framework.place import resolve_device
 from ..framework.random import generator as make_generator
 from ..generation import GenerationMixin
@@ -75,6 +78,10 @@ class LlamaConfig:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
     dtype: str = "float32"
+    # activation recompute in training: layer i is recomputed in the
+    # backward when i % recompute_interval == 0 (1: every layer)
+    recompute: bool = False
+    recompute_interval: int = 1
 
     @staticmethod
     def llama3_8b():
@@ -423,8 +430,14 @@ class LlamaModel(nn.Module):
             l = h.shape[1]
             cos, sin = self._rope_cos[:l], self._rope_sin[:l]
             aux_total = None
-            for layer in self.layers:
-                h, aux = layer(h, cos, sin)
+            # the MoE configs carry no interval: every layer recomputes
+            every = max(getattr(self.config, "recompute_interval", 1), 1)
+            for i, layer in enumerate(self.layers):
+                if getattr(self.config, "recompute", False) \
+                        and self.training and i % every == 0:
+                    h, aux = recompute(layer, h, cos, sin)
+                else:
+                    h, aux = layer(h, cos, sin)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
             return self.norm(h), aux_total

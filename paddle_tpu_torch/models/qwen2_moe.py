@@ -77,6 +77,7 @@ class Qwen2MoeConfig(_MoeConfigMixin):
     expert_axis: str = "dp"                 # one shard on one device
     dropless: bool = False                  # no capacity, no dropped pairs
     moe_fused_gmm: bool = True              # False: the sorted K5 path
+    recompute: bool = False                 # every layer recomputed
     dtype: str = "float32"
 
     @staticmethod

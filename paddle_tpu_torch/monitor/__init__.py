@@ -11,7 +11,8 @@ environment switches):
 2. **Step accounting** (``accounting.py``): the FLOPs, bytes and
    launches of one run of a step, counted from its eager run
    (:class:`CostRecorder`), joined with the node census of its captured
-   CUDA graph; the card's spec-sheet peaks.
+   CUDA graph; the card's spec-sheet peaks; the training step's report
+   (``record_compiled_step``, ``step_report(s)``, ``analytic_mfu``).
 3. **Serving telemetry**: the P² latency digests (``digest.py``), the
    span tracer and on-demand ``torch.profiler`` windows
    (``tracing.py``, ``PADDLE_TPU_TRACE``, ``PADDLE_TPU_PROFILE_DIR``)
@@ -35,9 +36,11 @@ import sys
 from .registry import (Counter, Gauge, Histogram, Info, Registry,
                        get_registry, metrics_dir, metrics_enabled,
                        prometheus_path)
-from .accounting import (CostRecorder, declares, device_peak_flops,
-                         device_peak_hbm_bw, executable_cost,
-                         kernel_census, sample_device_memory)
+from .accounting import (CostRecorder, analytic_mfu, declares,
+                         device_peak_flops, device_peak_hbm_bw,
+                         executable_cost, kernel_census,
+                         record_compiled_step, sample_device_memory,
+                         step_report, step_reports)
 from .digest import LatencyDigest, P2Quantile
 from .tracing import (ProfilerWindow, Tracer, dump_chrome_trace,
                       live_tracers, next_flow_id, tracing_enabled)
@@ -55,6 +58,7 @@ __all__ = [
     "ProfilerWindow", "next_flow_id", "live_tracers", "dump_chrome_trace",
     "CostRecorder", "declares", "kernel_census", "executable_cost",
     "sample_device_memory", "device_peak_flops", "device_peak_hbm_bw",
+    "record_compiled_step", "step_report", "step_reports", "analytic_mfu",
     "ALERT_SEVERITY", "BurnRateMonitor", "CollapseDetector",
     "EwmaSpikeDetector", "HealthMonitor", "IncidentCapture",
     "RatioDetector", "StormDetector", "TrendDetector",

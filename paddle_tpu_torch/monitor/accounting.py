@@ -28,9 +28,15 @@ naming the card), and nominal 1 TFLOP/s and 100 GB/s on the CPU, which
 the engine flags ``cpu_proxy``. :func:`sample_device_memory` reads the
 caching allocator's watermarks into gauges.
 
-Still to come with later slices: ``collective_census`` (tensor-parallel
-serving) and ``record_compiled_step`` / ``step_report(s)`` /
-``analytic_mfu`` (the training step's telemetry).
+:func:`record_compiled_step` files a training step's report (its
+:class:`CostRecorder` record, its peak memory and its collective census,
+empty on one device) under the step's name, with the reference's gauges;
+:func:`step_report` / :func:`step_reports` serve it and
+:func:`analytic_mfu` divides its FLOPs by a measured step time and the
+card's peak.
+
+Still to come with a later slice: ``collective_census`` (tensor-parallel
+serving and training over several ranks).
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ from .registry import get_registry
 
 __all__ = ["CostRecorder", "declares", "kernel_census", "executable_cost",
            "device_peak_flops", "device_peak_hbm_bw",
-           "sample_device_memory", "PEAKS"]
+           "sample_device_memory", "record_compiled_step", "step_report",
+           "step_reports", "analytic_mfu", "PEAKS"]
 
 # spec-sheet peaks (dense bf16 FLOP/s, HBM bytes/s) by device name: the
 # roofline's ceilings. NVIDIA H100 80GB HBM3 is the SXM5 board at 700 W
@@ -55,6 +62,7 @@ PEAKS: Dict[str, tuple] = {
 _CPU_PEAKS = (1e12, 1e11)       # nominal: keeps the ratios defined
 
 _ACTIVE = []                    # the recorders watching a step
+_STEP_REPORTS: Dict[str, dict] = {}
 
 
 def _peaks(device=None):
@@ -298,3 +306,60 @@ def sample_device_memory(step: Optional[int] = None, device=None) -> dict:
             reg.gauge(gname, "device allocator watermark",
                       labels=("device",)).labels(device=idx).set(int(v))
     return stats
+
+
+# -- the training step's report ---------------------------------------------
+
+def record_compiled_step(name: str, record: Optional[dict] = None,
+                         memory: Optional[dict] = None) -> dict:
+    """File the report of training step ``name`` (the counterpart of the
+    reference's, which reads a compiled executable): ``{"step", "flops",
+    "bytes_accessed", "memory", "collective_census"}`` from ``record`` (a
+    :class:`CostRecorder` result of the step's first run) and ``memory``
+    (``{"peak_hbm_bytes": ...}`` on CUDA, {} on the CPU). Sets the
+    ``step_flops``, ``step_bytes_accessed``, ``step_peak_hbm_bytes``,
+    ``step_collective_ops`` gauges and the ``step_report`` info, and
+    returns the report :func:`step_report` serves. The collective census
+    is empty: the port's steps run on one device."""
+    reg = get_registry()
+    report: dict = {"step": name}
+    report.update(executable_cost(record))
+    report["memory"] = dict(memory or {})
+    for key, gname, help_ in (
+            ("flops", "step_flops", "counted FLOPs of the step"),
+            ("bytes_accessed", "step_bytes_accessed",
+             "counted bytes accessed per step")):
+        if key in report:
+            reg.gauge(gname, help_, labels=("step",)).labels(step=name) \
+                .set(report[key])
+    if "peak_hbm_bytes" in report["memory"]:
+        reg.gauge("step_peak_hbm_bytes", "peak device memory of the step",
+                  labels=("step",)).labels(step=name) \
+            .set(report["memory"]["peak_hbm_bytes"])
+    report["collective_census"] = []
+    reg.gauge("step_collective_ops",
+              "total collective-op count in the step",
+              labels=("step",)).labels(step=name).set(0)
+    reg.info("step_report", "full per-step accounting report",
+             labels=("step",)).labels(step=name).set(report)
+    _STEP_REPORTS[name] = report
+    return report
+
+
+def step_report(name: str) -> Optional[dict]:
+    return _STEP_REPORTS.get(name)
+
+
+def step_reports() -> Dict[str, dict]:
+    return dict(_STEP_REPORTS)
+
+
+def analytic_mfu(name: str, step_time_s: float,
+                 peak_flops: Optional[float] = None) -> Optional[float]:
+    """Counted FLOPs a step of ``name`` over ``step_time_s`` over the
+    card's peak (:func:`device_peak_flops` unless given); None when the
+    step has no recorded FLOPs."""
+    flops = (_STEP_REPORTS.get(name) or {}).get("flops")
+    if not flops or step_time_s <= 0:
+        return None
+    return float(flops) / step_time_s / (peak_flops or device_peak_flops())

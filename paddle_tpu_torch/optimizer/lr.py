@@ -1,13 +1,22 @@
-"""Learning-rate schedulers of Llama pretraining (counterpart of
-``paddle_tpu/optimizer/lr.py``): ``LinearWarmup`` into
-``CosineAnnealingDecay``. Plain Python on the host; an optimizer reads
-the current value with ``get_lr()`` and the caller steps the scheduler,
-as in Paddle."""
+"""Learning-rate schedulers (counterpart of
+``paddle_tpu/optimizer/lr.py``, Paddle's ``optimizer/lr.py``). Plain
+Python on the host: an optimizer reads the current value with
+``get_lr()`` and the caller steps the scheduler, as in Paddle.
+``state_dict()`` keeps a scheduler's numeric, string and list attributes
+(and ``LinearWarmup``'s inner scheduler's); ``set_state_dict`` restores
+them. ``ReduceOnPlateau.step(metrics)`` takes a float or a 0-d tensor,
+read back once on the host."""
 from __future__ import annotations
 
 import math
 
-__all__ = ["LRScheduler", "LinearWarmup", "CosineAnnealingDecay"]
+__all__ = [
+    "LRScheduler", "NoamDecay", "ExponentialDecay", "NaturalExpDecay",
+    "InverseTimeDecay", "PolynomialDecay", "LinearWarmup", "PiecewiseDecay",
+    "CosineAnnealingDecay", "StepDecay", "MultiStepDecay", "LambdaDecay",
+    "ReduceOnPlateau", "MultiplicativeDecay", "OneCycleLR",
+    "CyclicLR", "CosineAnnealingWarmRestarts", "LinearLR",
+]
 
 
 class LRScheduler:
@@ -33,11 +42,79 @@ class LRScheduler:
     def get_lr(self):
         raise NotImplementedError
 
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, list))}
+
+    def set_state_dict(self, state_dict):
+        self.__dict__.update(state_dict)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (self.base_lr * self.d_model ** -0.5
+                * min(step ** -0.5, step * self.warmup_steps ** -1.5))
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / self.decay_steps) if step > 0 else 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return ((self.base_lr - self.end_lr)
+                * (1 - step / decay_steps) ** self.power + self.end_lr)
+
 
 class LinearWarmup(LRScheduler):
-    """Linear ramp from ``start_lr`` to ``end_lr`` over ``warmup_steps``,
-    then ``learning_rate`` (a float, or a scheduler stepped from 0)."""
-
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
                  last_epoch=-1, verbose=False):
         self.lr_sched = learning_rate if isinstance(learning_rate,
@@ -45,8 +122,9 @@ class LinearWarmup(LRScheduler):
         self.warmup_steps = warmup_steps
         self.start_lr = start_lr
         self.end_lr = end_lr
-        base = end_lr if self.lr_sched is not None else learning_rate
-        super().__init__(float(base), last_epoch, verbose)
+        base = learning_rate if not self.lr_sched else end_lr
+        super().__init__(float(base) if not isinstance(base, LRScheduler)
+                         else end_lr, last_epoch, verbose)
 
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:
@@ -56,6 +134,31 @@ class LinearWarmup(LRScheduler):
             self.lr_sched.step(self.last_epoch - self.warmup_steps)
             return self.lr_sched()
         return self.base_lr
+
+    def state_dict(self):
+        d = super().state_dict()
+        if self.lr_sched is not None:
+            d["LinearWarmup_LR"] = self.lr_sched.state_dict()
+        return d
+
+    def set_state_dict(self, state_dict):
+        sub = state_dict.pop("LinearWarmup_LR", None)
+        super().set_state_dict(state_dict)
+        if sub and self.lr_sched is not None:
+            self.lr_sched.set_state_dict(sub)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
 
 
 class CosineAnnealingDecay(LRScheduler):
@@ -69,3 +172,192 @@ class CosineAnnealingDecay(LRScheduler):
         return (self.eta_min + (self.base_lr - self.eta_min)
                 * (1 + math.cos(math.pi * self.last_epoch / self.T_max))
                 / 2)
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch
+                                             // self.step_size)
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if m <= self.last_epoch)
+        return self.base_lr * self.gamma ** n
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.best = None
+        self.num_bad = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        current = float(metrics)        # a device scalar: one read-back
+        self.last_epoch += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        if self.best is None or self._is_better(current):
+            self.best = current
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > 1e-12:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad = 0
+
+    def _is_better(self, current):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return current < self.best * (1 - self.threshold)
+            return current < self.best - self.threshold
+        if self.threshold_mode == "rel":
+            return current > self.best * (1 + self.threshold)
+        return current > self.best + self.threshold
+
+    def __call__(self):
+        return self.last_lr
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps,
+                 divide_factor=25.0, end_learning_rate=0.0001,
+                 phase_pct=0.3, anneal_strategy="cos",
+                 three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        up = int(self.phase_pct * self.total_steps)
+        step = min(self.last_epoch, self.total_steps)
+        if step <= up and up > 0:
+            pct = step / up
+            return self._anneal(self.initial_lr, self.max_lr, pct)
+        down = self.total_steps - up
+        pct = (step - up) / max(down, 1)
+        return self._anneal(self.max_lr, self.end_lr, pct)
+
+    def _anneal(self, a, b, pct):
+        if self.anneal == "cos":
+            return b + (a - b) * (1 + math.cos(math.pi * pct)) / 2
+        return a + (b - a) * pct
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate,
+                 step_size_up=2000, step_size_down=None, mode="triangular",
+                 exp_gamma=1.0, scale_fn=None, scale_mode="cycle",
+                 last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.up = step_size_up
+        self.down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        cycle_len = self.up + self.down
+        cycle = self.last_epoch // cycle_len
+        pos = self.last_epoch % cycle_len
+        if pos < self.up:
+            pct = pos / self.up
+        else:
+            pct = 1 - (pos - self.up) / self.down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            amp = amp / (2 ** cycle)
+        elif self.mode == "exp_range":
+            amp = amp * self.exp_gamma ** self.last_epoch
+        return self.base_lr + amp
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0,
+                 last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return (self.eta_min + (self.base_lr - self.eta_min)
+                * (1 + math.cos(math.pi * t / t_i)) / 2)
+
+
+class LinearLR(LRScheduler):
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        pct = min(self.last_epoch / self.total_steps, 1.0)
+        factor = self.start_factor + (self.end_factor
+                                      - self.start_factor) * pct
+        return self.base_lr * factor

@@ -34,7 +34,8 @@ from paddle_tpu.ops import paged_cache as jpc
 from paddle_tpu.ops.pallas import paged_attention as jpa
 from paddle_tpu_torch.convert import load_jax_params, pool_from_jax
 from paddle_tpu_torch.inference import ServingConfig, ServingEngine
-from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaDecoderLayer,
+                                           LlamaForCausalLM)
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import paged_cache as tpc
 from paddle_tpu_torch.ops.kernels import launch_counts
@@ -303,7 +304,7 @@ RUNS = {
 
 
 @pytest.mark.parametrize("run", list(RUNS))
-def test_engine_greedy_streams_match_reference(models, run):
+def test_engine_greedy_streams_match_reference(models, run, monkeypatch):
     ref, ref_draft, port, port_draft = models
     kw = RUNS[run]
     jd = {"draft": ref_draft, "self_draft": ref}.get(run)
@@ -311,14 +312,54 @@ def test_engine_greedy_streams_match_reference(models, run):
     prompts = _prompts()
     new = 30 if run in ("branching", "tree_int8") else 10
     want = _serve_jax(ref, prompts, new, draft=jd, **kw)
+    calls = _spy_fused(monkeypatch)
     got = _serve_port(port, prompts, new, draft=pd, **kw)
     _assert_same_run(want, got)
+    assert calls["ragged"] > 0
+    if pd is not None:
+        # the draft loop runs the fused layer on its paged steps, as the
+        # reference traces its ragged draft step in its fused scope:
+        # gamma + 1 steps a verifying tick, each through every draft layer
+        per = (kw["num_speculative_tokens"] + 1) \
+            * pd.config.num_hidden_layers
+        assert calls["paged"] > 0 and calls["paged"] % per == 0, calls
+    else:
+        assert calls["paged"] == 0
     if run == "branching":
         assert got[1]["spec_tokens_accepted"] > 10
     if run == "self_draft":
         # the target drafting for itself: every draft is its own greedy
         # token, so windows are accepted whole (up to max_new)
         assert got[1]["spec_mean_accepted_len"] > 2.0
+
+
+def _spy_fused(monkeypatch):
+    """Count ``forward_decode_fused`` calls on the ragged tick and on the
+    paged path (the draft loop's steps)."""
+    calls = {"paged": 0, "ragged": 0}
+    fused = LlamaDecoderLayer.forward_decode_fused
+
+    def spy(self, h, cos, sin, kv_cache, block_tables, cache_lens,
+            ragged_meta):
+        calls["ragged" if ragged_meta is not None else "paged"] += 1
+        return fused(self, h, cos, sin, kv_cache, block_tables, cache_lens,
+                     ragged_meta)
+
+    monkeypatch.setattr(LlamaDecoderLayer, "forward_decode_fused", spy)
+    return calls
+
+
+def test_ragged_draft_loop_stays_unfused_with_fused_decode_off(
+        models, monkeypatch):
+    """``fused_decode=False`` keeps the draft loop (and the tick) on the
+    module path; with it on, ``test_engine_greedy_streams_match_reference
+    [draft|self_draft]`` sees every draft step fused."""
+    port = models[2]
+    calls = _spy_fused(monkeypatch)
+    _serve_port(port, _prompts((5, 11, 3)), 6, draft=port,
+                num_speculative_tokens=3, drafter="model",
+                fused_decode=False)
+    assert calls == {"paged": 0, "ragged": 0}
 
 
 def test_chain_tree_engine_equals_linear_engine(models):

@@ -9,9 +9,10 @@ cache, the paged cache, n-gram speculation at gamma 2 and 4, a draft
 model, a prompt that bucketing left-pads and a caller's left-padded
 mask; the port's dense, paged and speculative greedy streams must agree
 with each other, as the reference pins for its own. The option guards
-raise as the reference's do, and each option of a later slice raises
-``NotImplementedError`` (the options ported since, int8 pools and tree
-speculation, run instead). Sampling cannot be compared across packages
+raise as the reference's do; the options of later slices run since they
+were ported (int8 pools, tree speculation, beam and group-beam search
+against the reference's tokens, the exported artifact round-tripping to
+``generate()``'s tokens). Sampling cannot be compared across packages
 (the RNG streams differ): the port's rejection sampling is held to the
 filtered target distribution by a chi-square test instead.
 """
@@ -253,16 +254,31 @@ def test_later_slice_options_raise(target, kw):
             target[1].generate(np.ones((1, 4), np.int64), max_new_tokens=2,
                                cache_impl="dense", **kw)
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # beam and group-beam search are ported: the reference's tokens and
+    # scores on the dense cache, and only the paged cache is refused
+    ids = _prompt(8)
+    want, want_sc = _ref(target[0], ids, max_new_tokens=4, **kw)
+    got, got_sc = _port(target[1], ids, max_new_tokens=4, **kw)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got_sc, want_sc, rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="paged"):
         target[1].generate(np.ones((1, 4), np.int64), max_new_tokens=2,
-                           **kw)
+                           cache_impl="paged", **kw)
 
 
-def test_export_and_load_generation_raise(target):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        target[1].export_generation("x", 1, 4, 2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_generation("x")
+def test_export_and_load_generation_raise(target, tmp_path):
+    # export / load are ported: the artifact round-trips to generate()'s
+    # tokens; a missing artifact and a prompt of another shape raise
+    ids = _prompt(8)
+    path = target[1].export_generation(str(tmp_path / "g"), 2, 8, 4)
+    gen = load_generation(path, device="cpu")
+    want, _ = target[1].generate(torch.from_numpy(ids), max_new_tokens=4,
+                                 pad_prompt_to_bucket=False)
+    np.testing.assert_array_equal(gen(ids), want.numpy())
+    with pytest.raises(ValueError, match="exported"):
+        gen(ids[:1])
+    with pytest.raises(FileNotFoundError):
+        load_generation(str(tmp_path / "missing"))
 
 
 def test_generation_config_and_bucket():

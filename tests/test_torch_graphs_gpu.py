@@ -687,6 +687,31 @@ def test_per_width_launches_k3_around_k2(cuda):
 
 
 @pytest.mark.gpu
+def test_ragged_draft_loop_launches_k3_around_k2d(cuda):
+    """The ragged engine's draft loop runs the fused layer: a pure
+    verifying tick of a self-drafted engine launches the target's K3a /
+    K3b pairs and, for each of the draft loop's gamma + 1 K2d steps, one
+    more pair a layer (replayed from the tick's graph)."""
+    model = _model("bfloat16")
+    n_layers = model.config.num_hidden_layers
+    g = 2
+    eng = ServingEngine(model, ServingConfig(
+        **CORE, num_speculative_tokens=g, drafter="model"),
+        draft_model=model)
+    eng.submit(_prompts(512, lens=(20,))[0], 12)
+    eng.step()                          # admission: prefill and the prime
+    for _ in range(2):                  # the first pure tick is captured,
+        kernels.reset_launch_counts()   # the second replays
+        eng.step()
+        got = {k: v for k, v in kernels.launch_counts.items() if v}
+        assert got == {"norm_matmul": 2 * n_layers * (g + 2),
+                       "matmul_residual": 2 * n_layers * (g + 2),
+                       "paged_decode_attention": n_layers * (g + 1),
+                       "ragged_paged_attention": n_layers}, got
+    eng.shutdown()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
 def test_per_width_replays_read_copied_and_swapped_blocks(cuda, pool):
     """The per-width engine's twin of

@@ -2345,3 +2345,81 @@ def test_lora_delta_raises_where_k4_cannot_take_it(cuda):
     with pytest.raises(ValueError, match="multiples of 8"):
         lora.ragged_delta(x[:, :60].contiguous(), ra,
                           A[:, :60].contiguous(), B)
+
+
+def _tiny_llama(layers=2, seed=3, dtype="bfloat16"):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(vocab=512, hidden=256, layers=layers, heads=4,
+                           kv_heads=2, ffn=512)
+    cfg.dtype = dtype
+    return LlamaForCausalLM(cfg, device="cuda", seed=seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interval", [1, 2])
+def test_recompute_replays_k1_and_keeps_the_gradients(cuda, interval):
+    """With ``config.recompute`` the backward replays K1f for each
+    recomputed layer, and the loss and every gradient equal the run
+    without recompute bit for bit (the kernels are deterministic)."""
+    model = _tiny_llama(layers=3).train()
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, 512, (2, 256))).to(cuda)
+    labels = torch.roll(ids, -1, 1)
+    runs = []
+    for on in (False, True):
+        model.config.recompute = on
+        model.config.recompute_interval = interval
+        model.zero_grad(set_to_none=True)
+        for k in launch_counts:
+            launch_counts[k] = 0
+        loss = model(ids, labels=labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), {n: p.grad.clone()
+                                     for n, p in model.named_parameters()},
+                     dict(launch_counts)))
+    (l0, g0, k0), (l1, g1, k1) = runs
+    replayed = len(range(0, 3, interval))
+    assert k0["flash_attention_fwd"] == 3
+    assert k1["flash_attention_fwd"] == 3 + replayed
+    assert k1["flash_attention_dq"] == k1["flash_attention_dkv"] == 3
+    assert torch.equal(l0, l1)
+    for name, g in g0.items():
+        assert torch.equal(g, g1[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strategy", ["beam_search", "group_beam_search"])
+def test_beam_on_the_card_matches_its_cpu_run(cuda, strategy, dtype):
+    """Beam search on a tiny model on the card against its CPU run (the
+    dense cache path: the reference's plain recipe on either device). In
+    float32 the tokens are the CPU run's and the scores within 1e-4. In
+    bf16 the two devices round the products apart, so a near tie among
+    the 2K candidates may pick another hypothesis: each card hypothesis,
+    scored again by the CPU model (one dense forward, summed
+    log-probabilities over the length penalty), must be as good as the
+    CPU run's own within 2e-2, and the card's score that rescoring's."""
+    model = _tiny_llama(dtype=dtype).eval()
+    kw = dict(decode_strategy=strategy, num_beams=4, max_new_tokens=8,
+              length_penalty=1.0)
+    if strategy == "group_beam_search":
+        kw.update(num_beam_groups=2, diversity_rate=0.5)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(0, 512, (2, 16)))
+    got, score = model.generate(ids.to(cuda), **kw)
+    cpu = model.to("cpu")
+    want, want_score = cpu.generate(ids, **kw)
+    if dtype == "float32":
+        assert torch.equal(got.cpu(), want)
+        torch.testing.assert_close(score.cpu(), want_score, rtol=1e-4,
+                                   atol=1e-4)
+        return
+    with torch.no_grad():
+        logits = cpu(torch.cat([ids, got.cpu()], 1))
+    logp = torch.log_softmax(logits[:, 15:-1].float(), -1)
+    rescored = torch.gather(logp, -1, got.cpu()[..., None])[..., 0].sum(1) \
+        / 8.0
+    torch.testing.assert_close(score.cpu(), rescored, rtol=2e-2, atol=2e-2)
+    if strategy == "beam_search":       # group scores carry the penalty
+        assert bool((rescored >= want_score - 2e-2 * want_score.abs()
+                     - 2e-2).all()), (rescored, want_score)

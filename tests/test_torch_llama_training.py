@@ -6,7 +6,9 @@ model through ``load_jax_params``; then, in float32:
 
 - the dense loss and every parameter's gradient against the reference's
   ``loss.backward()`` (loss rtol 1e-6; gradients atol 2e-6, the same
-  sums in another order);
+  sums in another order), with ``config.recompute`` at
+  ``recompute_interval`` 1 and 2 too (one reference backward for all
+  three, a module fixture);
 - five ``TrainStep`` steps of AdamW (weight decay 0.01): the loss
   trajectory (rtol 1e-5) and the final parameters against the
   reference's compiled ``TrainStep``: all but 1e-4 of each tensor's
@@ -89,17 +91,40 @@ def _assert_params_close(port, ref):
                                                             .sum()))
 
 
-def test_dense_loss_and_every_gradient_match_reference():
-    ref, port = _pair()
+@pytest.fixture(scope="module")
+def dense_reference():
+    """The reference's dense loss and every gradient on one batch (rows
+    of ``ignore_index`` included), with its weights and its logits: one
+    reference backward shared by the tests that hold the port to it."""
+    ref, _ = _pair()
     ids, labels = _batches(1)[0]
     labels[0, :3] = -100                        # ignore_index rows count 0
     loss_r = ref(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
     loss_r.backward()
+    return dict(
+        ids=ids, labels=labels, loss=float(loss_r.numpy()),
+        grads={n: p.grad.numpy() for n, p in ref.named_parameters()},
+        weights={k: np.asarray(v) for k, v in ref.state_dict().items()},
+        logits=ref(paddle.to_tensor(ids)).numpy())
+
+
+def _port_from(weights, **config):
+    cfg = LlamaConfig.tiny(**TINY)
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    port = LlamaForCausalLM(cfg, device="cpu")
+    load_jax_params(port, weights)
+    return port
+
+
+def test_dense_loss_and_every_gradient_match_reference(dense_reference):
+    r = dense_reference
+    ids, labels = r["ids"], r["labels"]
+    port = _port_from(r["weights"])
     loss_p = port(torch.from_numpy(ids), labels=torch.from_numpy(labels))
     loss_p.backward()
-    np.testing.assert_allclose(float(loss_p.detach()), float(loss_r.numpy()),
-                               rtol=1e-6)
-    grads_r = {n: p.grad.numpy() for n, p in ref.named_parameters()}
+    np.testing.assert_allclose(float(loss_p.detach()), r["loss"], rtol=1e-6)
+    grads_r = r["grads"]
     n_checked = 0
     for name, p in port.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), grads_r[name], atol=2e-6,
@@ -109,8 +134,36 @@ def test_dense_loss_and_every_gradient_match_reference():
     # logits without labels: the dense forward itself
     with torch.no_grad():
         logits = port(torch.from_numpy(ids))
-    want = ref(paddle.to_tensor(ids)).numpy()
-    np.testing.assert_allclose(logits.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(logits.numpy(), r["logits"], atol=1e-5)
+
+
+@pytest.mark.parametrize("interval", [1, 2])
+def test_recompute_loss_and_every_gradient_match_reference(dense_reference,
+                                                           interval):
+    """``config.recompute`` at ``recompute_interval`` 1 and 2 (every and
+    every other decoder layer recomputed in the backward): the
+    reference's loss and every gradient at the dense test's tolerances
+    (the reference's own recompute replays the same function, so its
+    numbers are these), and the port's plain run's bit for bit."""
+    r = dense_reference
+    ids, labels = (torch.from_numpy(a) for a in (r["ids"], r["labels"]))
+    port = _port_from(r["weights"], recompute=True,
+                      recompute_interval=interval)
+    runs = []
+    for on in (True, False):
+        port.config.recompute = on
+        port.zero_grad(set_to_none=True)
+        loss = port(ids, labels=labels)
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad.clone()
+                                     for n, p in port.named_parameters()}))
+    (loss, grads), (loss0, grads0) = runs
+    np.testing.assert_allclose(float(loss), r["loss"], rtol=1e-6)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), r["grads"][name], atol=2e-6,
+                                   rtol=0, err_msg=name)
+        assert torch.equal(g, grads0[name]), name
+    assert torch.equal(loss, loss0)
 
 
 def test_criterion_matches_reference_recipe():

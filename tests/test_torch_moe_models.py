@@ -316,6 +316,35 @@ def test_loss_and_every_gradient_match_reference(family, fused):
     assert experts and all(named[n].grad.abs().sum() > 0 for n in experts)
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_recompute_loss_and_every_gradient_match_reference(family):
+    """``config.recompute`` (every layer, the router's aux loss carried out
+    through the checkpoint): the reference's loss and gradients within
+    1e-5 of each tensor's largest value, the port's own plain run's bit
+    for bit, and the host counters (``MOE_STATS``) of one forward."""
+    loss_ref, grads_ref = _reference_grads(family)
+    _, port = _train_pair(family)
+    ids, labels = (torch.from_numpy(a) for a in _train_batches(1, seed=5)[0])
+    runs = []
+    for on in (True, False):
+        port.config.recompute = on
+        port.zero_grad(set_to_none=True)
+        moe.reset_moe_stats()
+        loss = port(ids, labels=labels)
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad.clone()
+                                     for n, p in port.named_parameters()},
+                     moe.moe_stats()))
+    (loss, grads, stats), (loss0, grads0, stats0) = runs
+    np.testing.assert_allclose(float(loss), loss_ref, rtol=1e-5)
+    for name, want in grads_ref.items():
+        scale = max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(grads[name].numpy(), want,
+                                   atol=1e-5 * scale, rtol=0, err_msg=name)
+        assert torch.equal(grads[name], grads0[name]), name
+    assert torch.equal(loss, loss0) and stats == stats0
+
+
 ADAM = dict(weight_decay=0.01, epsilon=1e-6)
 
 

@@ -124,9 +124,10 @@ def test_module_api_and_env_switches(tmp_path, monkeypatch):
     assert "# TYPE api_gauge gauge" in open(monitor.prometheus_dump()).read()
     # the port's registry is its own: nothing leaks into the reference's
     assert jmonitor.get_registry().get("api_events") is None
+    # the training step's report is ported; the collective census comes
+    # with distribution
     assert set(jmonitor.__all__) - set(monitor.__all__) == {
-        "record_compiled_step", "collective_census", "step_report",
-        "step_reports", "analytic_mfu"}
+        "collective_census"}
 
 
 def test_moe_stats_served_by_registry():
