@@ -326,15 +326,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     trajectory bit for bit; ``step_report``'s counted FLOPs a token
     against bench.py's analytic 6N + 12 L s h (within OPT_FLOPS_FACTOR)
     and ``analytic_mfu``;
-27. print the kernels line, the card's name and power limit, and the
+27. BERT-base MLM + NSP pretraining (``BertForPretraining(BertConfig())``,
+    float32 parameters, nothing cut) on B 32 x L 512 seeded batches with
+    15 % MLM masking and no attention mask, so each layer's attention is
+    K1 non-causal at D 64: under ``amp.auto_cast`` O1 (bf16) with a
+    ``GradScaler`` and the example's AdamW recipe (2 untimed, 5 timed, 2
+    profiled steps), then under ``amp.decorate`` O2 (bf16 parameters,
+    float32 master weights); ms a step, tokens/s, MFU, peak memory, every
+    loss; K1f / K1dq / K1dkv 12 launches a step (phase 2 holds K1's
+    non-causal mode at these shapes, at L 128, and with fewer query rows
+    than keys);
+28. BERT-base SST-2-shaped classification at B 32 x L 128, sentences of
+    8-66 tokens padded: inference with the bool padding mask (the plain
+    biased attention, 0 K1 launches) against the same batch unmasked (K1
+    at L 128), sentences/s each; 20 O1 fine-tune steps whose last loss is
+    under the first; a 2-layer f32 BERT-base-width model's loss and every
+    gradient through the kernels against their plain versions;
+29. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
 11, the three runs of phase 12, phase 14, phase 15, each run of phases
 16, 17 and 18, both waves of phase 19 (b), each run of phase 20 (a)-(c)
 and (e) in bf16, each LoRA run and batch of phase 21, each run of phase
-22 (a), each kernel run of phase 23, each run of phases 24, 25 and 26)
-runs with every
+22 (a), each kernel run of phase 23, each run of phases 24, 25, 26 and
+27, and phase 28's inference and fine-tune runs) runs with every
 launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run. Any
@@ -536,6 +552,20 @@ OPTIMIZERS = {"SGD": 0.3, "Momentum": 0.1, "Adagrad": 0.01, "Adam": 1e-4,
               "LBFGS": 0.3}
 OPT_BATCH = dict(batch=8, seq=1024, steps=3, timed=3)
 OPT_FLOPS_FACTOR = (0.7, 1.3)    # counted / analytic FLOPs a token
+# phase 2: K1 at BERT-base's attention (non-causal, 12 / 12 heads of 64):
+# pretraining's 512 rows and the fine-tune's 128; then queries shorter
+# than the keys, as cached decoding (one row) and cross-attention read
+BERT_ATTN = {"pretrain": dict(B=32, L=512, H=12, Hkv=12, D=64),
+             "finetune": dict(B=32, L=128, H=12, Hkv=12, D=64)}
+BERT_CROSS = ((1, 37), (1, 200), (7, 200))          # (Lq, Lk)
+# phase 27: BERT-base MLM + NSP pretraining, the example's recipe
+BERT_PRETRAIN = dict(batch=32, seq=512, warm=2, timed=5, profiled=2,
+                     pool=4, mlm=0.15, lr=1e-4, warmup=2)
+BERT_MASK_ID, BERT_CLS_ID, BERT_SEP_ID = 103, 101, 102
+# phase 28: SST-2-shaped fine-tune and inference, and the f32 parity check
+BERT_SST2 = dict(batch=32, seq=128, lens=(8, 66), infer=10, steps=20,
+                 lr=5e-5, warmup=2, pool=4)
+BERT_GRAD = dict(layers=2, batch=4, seq=512)
 # phase 16, f32: the first layer's scales in two paths' pools (absmax /
 # 127 of rows that agree within float32 rounding), relative
 INT8_SCALE_RTOL = 1e-4
@@ -1309,24 +1339,26 @@ def check_matmul_residual(torch, df, dtype, timing):
     return max(errs), rows
 
 
-def check_flash(torch, F, fa, dtype, timing, shape=ATTN):
+def check_flash(torch, F, fa, dtype, timing, shape=ATTN, causal=True):
     """K1f, K1dq and K1dkv at the training run's attention shape (or
-    ``shape``: phase 18's GPT at D 64), causal: each against its plain
-    version on the same inputs (dq and dk/dv take the plain forward's lse
-    and delta). Timing rows in bfloat16; the library yardstick is
+    ``shape``: phase 18's GPT at D 64, BERT's at D 64 with ``causal``
+    False), causal or not: each against its plain version on the same
+    inputs (dq and dk/dv take the plain forward's lse and delta). Timing
+    rows in bfloat16; the library yardstick is
     ``scaled_dot_product_attention`` (forward for K1f; its forward +
     backward is printed beside fwd + dq + dkv)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(15)
     B, L, H, Hkv, D = (shape[k] for k in ("B", "L", "H", "Hkv", "D"))
-    log(f"  K1 at B {B}, L {L}, {H}/{Hkv} heads, D {D} [{dtype}]")
+    log(f"  K1 at B {B}, L {L}, {H}/{Hkv} heads, D {D}, "
+        f"{'causal' if causal else 'non-causal'} [{dtype}]")
     rnd = lambda *sh: torch.randn(*sh, generator=g, device="cuda").to(dt)  # noqa
     q, k, v, do = rnd(B, L, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D), \
         rnd(B, L, H, D)
     scale = D ** -0.5
     fails = []
-    o, lse = fa.flash_attention_fwd(q, k, v, scale, True)
-    o_p, lse_p = fa.plain_flash_attention_fwd(q, k, v, scale, True)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+    o_p, lse_p = fa.plain_flash_attention_fwd(q, k, v, scale, causal)
     torch.cuda.synchronize()
     errs = {"flash_attention_fwd": max(
         held_attention(torch, o, o_p, dtype, "flash_attention_fwd o",
@@ -1335,7 +1367,7 @@ def check_flash(torch, F, fa, dtype, timing, shape=ATTN):
                        fails))}
     del o, lse
     delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, do, lse_p, delta, scale, True)
+    args = (q, k, v, do, lse_p, delta, scale, causal)
     errs["flash_attention_dq"] = held_attention(
         torch, fa.flash_attention_dq(*args), fa.plain_flash_attention_dq(
             *args), dtype, "flash_attention_dq", fails)
@@ -1350,7 +1382,7 @@ def check_flash(torch, F, fa, dtype, timing, shape=ATTN):
     if not timing:
         return errs, None
     # what this run's data needs: causal rows see L (L + 1) / 2 columns
-    pairs = B * H * L * (L + 1) // 2
+    pairs = B * H * (L * (L + 1) // 2 if causal else L * L)
     es = q.element_size()
     qkv = es * (q.numel() + 2 * k.numel())
     rows = 4 * B * H * L                 # one float32 statistic per row
@@ -1359,7 +1391,7 @@ def check_flash(torch, F, fa, dtype, timing, shape=ATTN):
     do_t = do.transpose(1, 2).contiguous()
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
     def sdpa_fwd_bwd():
@@ -1368,8 +1400,8 @@ def check_flash(torch, F, fa, dtype, timing, shape=ATTN):
     cases = {
         "flash_attention_fwd": (
             qkv + es * q.numel() + rows, 4 * D * pairs,
-            lambda: fa.flash_attention_fwd(q, k, v, scale, True),
-            lambda: fa.plain_flash_attention_fwd(q, k, v, scale, True),
+            lambda: fa.flash_attention_fwd(q, k, v, scale, causal),
+            lambda: fa.plain_flash_attention_fwd(q, k, v, scale, causal),
             sdpa),
         "flash_attention_dq": (
             qkv + 2 * es * q.numel() + 2 * rows, 6 * D * pairs,
@@ -6352,6 +6384,380 @@ def optimizer_phase(torch, kernels, GPTConfig, GPTForCausalLM, card):
     return total
 
 
+# --------------------------------------------------------------- phase 2
+
+def check_flash_cross(torch, fa, dtype):
+    """K1f, K1dq and K1dkv, non-causal, with fewer query rows than keys
+    (BERT_CROSS: one row against a cache of 37 and of 200 keys, as
+    ``MultiHeadAttention``'s cached decoding reads them, and 7 rows of
+    cross-attention), 12 / 12 heads of 64, each against its plain
+    version."""
+    g = torch.Generator(device="cuda").manual_seed(27)
+    dt = getattr(torch, dtype)
+    fails = []
+    for lq, lk in BERT_CROSS:
+        rnd = lambda *sh: torch.randn(*sh, generator=g,  # noqa: E731
+                                      device="cuda").to(dt)
+        q, do = rnd(2, lq, 12, 64), rnd(2, lq, 12, 64)
+        k, v = rnd(2, lk, 12, 64), rnd(2, lk, 12, 64)
+        tag = f"K1 Lq {lq} Lk {lk}"
+        o, lse = fa.flash_attention_fwd(q, k, v, 0.125, False)
+        o_p, lse_p = fa.plain_flash_attention_fwd(q, k, v, 0.125, False)
+        held_attention(torch, o, o_p, dtype, f"{tag} fwd o", fails)
+        held_attention(torch, lse, lse_p, dtype, f"{tag} fwd lse", fails)
+        delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, do, lse_p, delta, 0.125, False)
+        held_attention(torch, fa.flash_attention_dq(*args),
+                       fa.plain_flash_attention_dq(*args), dtype,
+                       f"{tag} dq", fails)
+        for n, a, b in zip(("dk", "dv"), fa.flash_attention_dkv(*args),
+                           fa.plain_flash_attention_dkv(*args)):
+            held_attention(torch, a, b, dtype, f"{tag} dkv {n}", fails)
+    if fails:
+        raise AssertionError(f"[{dtype}] K1 with Lq < Lk disagrees with its "
+                             f"plain version: {fails}")
+
+
+# ---------------------------------------------------------- phases 27, 28
+
+def bert_optimizer(model, lr_peak, warmup, total):
+    """The example's recipe (``examples/bert_pretrain_finetune.py``):
+    AdamW, weight decay 0.01 off biases and norms by
+    ``apply_decay_param_fun`` (a parameter's Paddle name is its
+    structured name here), ``LambdaDecay`` warmup then linear decay, and
+    ``ClipGradByGlobalNorm(1.0)``."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    for n, p in model.named_parameters():
+        p.param_name = n
+    decay = {n for n, _ in model.named_parameters()
+             if not any(k in n for k in ("bias", "norm"))}
+    sched = lr.LambdaDecay(
+        learning_rate=lr_peak,
+        lr_lambda=lambda s: min((s + 1) / max(warmup, 1), max(
+            0.0, (total - s) / max(total - warmup, 1))))
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                weight_decay=0.01, apply_decay_param_fun=lambda n: n in decay,
+                grad_clip=ClipGradByGlobalNorm(1.0), epsilon=1e-8)
+    return opt, sched
+
+
+def bert_mlm_batches(torch, cfg, seed):
+    """BERT_PRETRAIN["pool"] batches of B x L ids from a seeded pool of
+    tokens (4 .. vocab): each position masked with probability 0.15 (its
+    label the token, -100 elsewhere; 80 % [MASK], 10 % a random token, 10
+    % kept), token types 0 then 1 at the middle, random NSP labels."""
+    P = BERT_PRETRAIN
+    rng = np.random.RandomState(seed)
+    bsz, seq = P["batch"], P["seq"]
+    out = []
+    for _ in range(P["pool"]):
+        ids = rng.randint(4, cfg.vocab_size, (bsz, seq))
+        masked = rng.rand(bsz, seq) < P["mlm"]
+        labels = np.where(masked, ids, -100)
+        roll = rng.rand(bsz, seq)
+        ids = np.where(masked & (roll < 0.8), BERT_MASK_ID, ids)
+        ids = np.where(masked & (roll >= 0.8) & (roll < 0.9),
+                       rng.randint(4, cfg.vocab_size, (bsz, seq)), ids)
+        types = (np.arange(seq)[None, :] >= seq // 2).repeat(bsz, 0)
+        nsp = rng.randint(0, 2, bsz)
+        out.append(tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                         for a in (ids, types, labels, nsp)))
+    return out
+
+
+def bert_flops_per_token(n_params, cfg, seq):
+    """bench.py:141's training FLOPs a token: 6 N + 12 layers L hidden."""
+    return 6 * n_params + 12 * cfg.num_hidden_layers * seq * cfg.hidden_size
+
+
+def bert_pretrain_phase(torch, kernels, card):
+    """Phase 27: BERT-base MLM + NSP pretraining (``BertForPretraining(
+    BertConfig())``: vocab 30522, 12 layers, hidden 768, 12 heads of 64,
+    ffn 3072; float32 parameters; nothing cut) on BERT_PRETRAIN's B 32 x L
+    512 batches with no attention mask, so every layer's attention is K1
+    non-causal at D 64: first under ``amp.auto_cast(level="O1",
+    dtype="bfloat16")`` with a ``GradScaler`` and the example's optimizer
+    (2 untimed steps, 5 timed, 2 profiled), then from the same seed under
+    ``amp.decorate(level="O2")`` (bf16 parameters, float32 master
+    weights; 2 untimed, 5 timed). Prints ms a step, tokens/s, MFU by
+    bench.py's formula, peak memory and every loss (finite). K1f, K1dq
+    and K1dkv must launch 12 times a step. Returns the launch counts."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    P = BERT_PRETRAIN
+    cfg = BertConfig()
+    pool = bert_mlm_batches(torch, cfg, SEED + 27)
+    tokens = P["batch"] * P["seq"]
+    total, fails, ms = {}, [], {}
+    for level in ("O1", "O2"):
+        paddle_tpu_torch.seed(SEED + 27)
+        t0 = time.monotonic()
+        model = BertForPretraining(cfg, device="cuda", seed=SEED + 27)
+        model.train()
+        n_params = sum(p.numel() for p in model.parameters())
+        steps = P["warm"] + P["timed"] + (P["profiled"] + 1) * (
+            level == "O1")
+        opt, sched = bert_optimizer(model, P["lr"], P["warmup"], steps)
+        if level == "O2":
+            model, opt = amp.decorate(model, opt, level="O2",
+                                      dtype="bfloat16")
+        scaler = amp.GradScaler()
+        it = 0
+
+        def one_step():
+            nonlocal it
+            ids, types, labels, nsp = pool[it % len(pool)]
+            it += 1
+            with amp.auto_cast(level=level, dtype="bfloat16"):
+                loss = model(ids, token_type_ids=types, labels=labels,
+                             next_sentence_label=nsp)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad(set_to_zero=False)
+            sched.step()
+            return loss
+
+        torch.cuda.synchronize()
+        log(f"phase 27 {level}: BERT-base, {cfg.num_hidden_layers} layers, "
+            f"{n_params / 1e6:.2f}M params "
+            f"{'float32' if level == 'O1' else 'bfloat16 (+ f32 masters)'}, "
+            f"batch {P['batch']} x {P['seq']}, init "
+            f"{time.monotonic() - t0:.1f}s")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses = [float(one_step().detach()) for _ in range(P["warm"])]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        timed = [one_step().detach() for _ in range(P["timed"])]
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        losses += [float(x) for x in timed]
+        if level == "O1":
+            wall_ms, busy_ms, reads = profiled(torch, one_step,
+                                               P["profiled"], 15)
+            log(f"phase 27 O1 profile: {P['profiled']} steps, wall "
+                f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms -> idle "
+                f"share {max(0.0, 1 - busy_ms / wall_ms):.4f}; scalar reads "
+                f"{reads}")
+        torch.cuda.synchronize()
+        launches = {k: kernels.launch_counts[k] for k in TRAINING_KERNELS}
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        tok_s = tokens * P["timed"] / dt
+        ms[level] = 1e3 * dt / P["timed"]
+        f_tok = bert_flops_per_token(n_params, cfg, P["seq"])
+        log(f"phase 27 {level}: {P['timed']} timed steps -> "
+            f"{ms[level]:.3f} ms/step, {tok_s:.1f} tokens/s, MFU "
+            f"{tok_s * f_tok / PEAK_FLOPS['bfloat16']:.4f} (6N + 12 L s h = "
+            f"{f_tok / 1e9:.4f} GFLOP/token over "
+            f"{PEAK_FLOPS['bfloat16'] / 1e12:.1f} TFLOP/s); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
+            f"scale {scaler.get_init_loss_scaling()}; master weights "
+            f"{len(opt._master_weights)}; card {card}")
+        log(f"phase 27 {level}: losses {[round(x, 5) for x in losses]}; "
+            f"launches {launches} over {it} steps")
+        if not all(np.isfinite(losses)):
+            fails.append(f"phase 27 {level}: losses {losses}")
+        want = cfg.num_hidden_layers * it
+        wrong = {k: n for k, n in launches.items() if n != want}
+        if wrong:
+            fails.append(f"phase 27 {level}: K1 launched {wrong}, want "
+                         f"{want} each (layers x steps)")
+        if level == "O2" and not (
+                all(p.dtype == torch.bfloat16 for p in model.parameters())
+                and len(opt._master_weights) == len(
+                    list(model.parameters()))):
+            fails.append("phase 27 O2: parameters not bf16 with f32 masters")
+        del model, opt, scaler
+        torch.cuda.empty_cache()
+    log(f"phase 27: ms/step O1 {ms['O1']:.3f}, O2 {ms['O2']:.3f}; "
+        f"card {card}")
+    if fails:
+        raise AssertionError(f"phase 27 failed: {fails}")
+    return total
+
+
+def sst2_batches(torch, cfg, seed):
+    """BERT_SST2["pool"] batches of B x 128 padded sentences, lengths a
+    seeded draw of 8 .. 66 tokens ([CLS] ... [SEP], then 0s), a
+    learnable label (the token after [CLS] is 4 + label, as the
+    example's synthetic GLUE), and each batch's bool keep mask [B, 1, 1,
+    L]."""
+    S = BERT_SST2
+    rng = np.random.RandomState(seed)
+    bsz, seq = S["batch"], S["seq"]
+    out = []
+    for _ in range(S["pool"]):
+        lens = rng.randint(S["lens"][0], S["lens"][1] + 1, bsz)
+        ids = rng.randint(6, cfg.vocab_size, (bsz, seq))
+        labels = rng.randint(0, 2, bsz)
+        ids[:, 0] = BERT_CLS_ID
+        ids[:, 1] = 4 + labels
+        pos = np.arange(seq)[None, :]
+        ids = np.where(pos == lens[:, None] - 1, BERT_SEP_ID, ids)
+        ids = np.where(pos >= lens[:, None], 0, ids)
+        keep = (pos < lens[:, None])[:, None, None, :]
+        out.append(dict(ids=torch.from_numpy(ids).cuda(),
+                        labels=torch.from_numpy(labels).cuda(),
+                        keep=torch.from_numpy(keep).cuda(), lens=lens))
+    return out
+
+
+def bert_sst2_phase(torch, kernels, fa, card):
+    """Phase 28: BERT-base SST-2-shaped classification
+    (``BertForSequenceClassification(BertConfig(), num_classes=2)``,
+    float32, nothing cut) at B 32 x L 128, sentences of 8-66 tokens
+    padded. Inference in ``eval()``: the padded batch with its bool keep
+    mask (the plain biased attention, as the reference's XLA path; K1
+    must not launch) and the same batch with no mask (K1 non-causal at L
+    128), sentences/s of each; a fine-tune of 20 O1 steps (GradScaler,
+    the example's optimizer) on the learnable task, unmasked as the
+    example's, whose last loss must be under its first; then one float32
+    forward + backward of a 2-layer BERT-base-width pretraining model at
+    BERT_GRAD's B 4 x L 512 through the kernels and through their plain
+    versions, the loss and every gradient within phase 6's tolerances (a
+    k bias's, zero but for rounding, on its layer's q bias's scale).
+    Returns the launch counts of the inference and fine-tune runs."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertForSequenceClassification)
+    S = BERT_SST2
+    cfg = BertConfig()
+    pool = sst2_batches(torch, cfg, SEED + 28)
+    paddle_tpu_torch.seed(SEED + 28)
+    model = BertForSequenceClassification(cfg, num_classes=2, device="cuda",
+                                          seed=SEED + 28)
+    total, fails = {}, []
+
+    def add(counts):
+        for k in TRAINING_KERNELS:
+            total[k] = total.get(k, 0) + counts[k]
+
+    # (a) inference, masked against unmasked
+    model.eval()
+    b = pool[0]
+    rates = {}
+    with torch.no_grad():
+        for name, mask in (("masked", b["keep"]), ("unmasked", None)):
+            run = lambda: model(b["ids"], attention_mask=mask)  # noqa
+            logits = run()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            for _ in range(S["infer"]):
+                logits = run()
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            counts = dict(kernels.launch_counts)
+            add(counts)
+            rates[name] = S["batch"] * S["infer"] / dt
+            k1 = counts["flash_attention_fwd"]
+            log(f"phase 28 inference {name}: {S['infer']} forwards of "
+                f"{S['batch']} x {S['seq']} -> {rates[name]:.1f} "
+                f"sentences/s ({1e3 * dt / S['infer']:.3f} ms a batch); "
+                f"K1f launches {k1}; logits finite "
+                f"{bool(torch.isfinite(logits).all())}; card {card}")
+            want = 0 if mask is not None else \
+                cfg.num_hidden_layers * S["infer"]
+            if k1 != want or not torch.isfinite(logits).all() \
+                    or tuple(logits.shape) != (S["batch"], 2):
+                fails.append(f"phase 28 {name}: K1f {k1} (want {want}) or "
+                             "bad logits")
+    log(f"phase 28: unmasked / masked sentences/s "
+        f"{rates['unmasked'] / rates['masked']:.3f}")
+    # (b) the fine-tune, O1
+    model.train()
+    opt, sched = bert_optimizer(model, S["lr"], S["warmup"], S["steps"])
+    scaler = amp.GradScaler()
+    kernels.reset_launch_counts()
+    losses = []
+    t0 = time.monotonic()
+    for i in range(S["steps"]):
+        bb = pool[i % len(pool)]
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(bb["ids"], labels=bb["labels"])
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad(set_to_zero=False)
+        sched.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    losses = [float(x) for x in losses]
+    counts = dict(kernels.launch_counts)
+    add(counts)
+    log(f"phase 28 fine-tune: {S['steps']} O1 steps of {S['batch']} x "
+        f"{S['seq']} in {dt:.3f}s ({1e3 * dt / S['steps']:.3f} ms/step); "
+        f"losses {[round(x, 4) for x in losses]}; launches "
+        f"{ {k: counts[k] for k in TRAINING_KERNELS} }; card {card}")
+    want = cfg.num_hidden_layers * S["steps"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fails.append(f"phase 28 fine-tune: losses {losses}")
+    if any(counts[k] != want for k in TRAINING_KERNELS):
+        fails.append(f"phase 28 fine-tune: K1 launches {counts}, want "
+                     f"{want} each")
+    del model, opt, scaler
+    torch.cuda.empty_cache()
+    # (c) float32 kernels against their plain versions
+    G = BERT_GRAD
+    small = BertConfig(num_hidden_layers=G["layers"], hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    model = BertForPretraining(small, device="cuda", seed=SEED + 29)
+    rng = np.random.RandomState(SEED + 29)
+    ids = rng.randint(4, small.vocab_size, (G["batch"], G["seq"]))
+    labels = np.where(rng.rand(*ids.shape) < 0.15, ids, -100)
+    ids_t, labels_t = (torch.from_numpy(a.astype(np.int64)).cuda()
+                       for a in (ids, labels))
+    nsp = torch.tensor(rng.randint(0, 2, G["batch"])).cuda()
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model(ids_t, labels=labels_t, next_sentence_label=nsp)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    patches = [mock.patch.object(fa, name, getattr(fa, "plain_" + name))
+               for name in TRAINING_KERNELS]
+    for p in patches:
+        p.start()
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        for p in patches:
+            p.stop()
+    lerr = abs(loss_k - loss_p) / abs(loss_p)
+    # a k bias's gradient is zero in exact arithmetic (softmax ignores a
+    # shift shared by a row): both sides hold rounding noise, measured
+    # against the scale of the same layer's q bias gradient
+    scale = {n: grads_p[n.replace("k_proj.bias", "q_proj.bias")]
+             for n in grads_p}
+    gerr = {n: float((grads_k[n] - grads_p[n]).abs().max()
+                     / scale[n].abs().max().clamp(min=1e-30))
+            for n in grads_p}
+    worst = max(gerr, key=gerr.get)
+    log(f"phase 28 f32: {G['layers']} BERT-base-width layers, {G['batch']} "
+        f"x {G['seq']} tokens, unmasked: loss kernel {loss_k:.6f} plain "
+        f"{loss_p:.6f} (rel {lerr:.2e}, tol {LOSS_RTOL}); {len(gerr)} "
+        f"gradients, worst {worst} rel {gerr[worst]:.2e} (tol {GRAD_RTOL})")
+    if not lerr <= LOSS_RTOL:
+        fails.append(f"phase 28 f32: loss rel {lerr}")
+    bad = {n: e for n, e in gerr.items() if not e <= GRAD_RTOL}
+    if bad:
+        fails.append(f"phase 28 f32: gradients {bad}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 28 failed: {fails}")
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6516,6 +6922,15 @@ def main(argv=None):
     torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
         check_flash(torch, F, fa, dtype, dtype == "bfloat16", shape=GPT_ATTN)
+    torch.cuda.empty_cache()
+    # K1 non-causal at BERT-base's shapes (phases 27-28): L 512 in both
+    # dtypes, L 128 in bf16, timed in bf16; then queries shorter than keys
+    for dtype in ("float32", "bfloat16"):
+        check_flash(torch, F, fa, dtype, dtype == "bfloat16",
+                    shape=BERT_ATTN["pretrain"], causal=False)
+        check_flash_cross(torch, fa, dtype)
+    check_flash(torch, F, fa, "bfloat16", True, shape=BERT_ATTN["finetune"],
+                causal=False)
     torch.cuda.empty_cache()
     # K4's float32 modes as the LoRA delta drives them (phase 21)
     e10, r10 = check_lora(torch, mg, lora)
@@ -6768,6 +7183,13 @@ def main(argv=None):
                                 card).items():
         if k in TRAINING_KERNELS:
             launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+
+    # -- phases 27-28: BERT-base pretraining, SST-2 fine-tune and inference --
+    for k, n in bert_pretrain_phase(torch, kernels, card).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in bert_sst2_phase(torch, kernels, fa, card).items():
+        launches[k] = launches.get(k, 0) + n
     torch.cuda.empty_cache()
 
     # -- report -------------------------------------------------------------

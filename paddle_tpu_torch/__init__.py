@@ -6,7 +6,10 @@ cache, paged cache, speculative decoding with an n-gram drafter, a
 draft model or a token tree; beam and group-beam search; an exported
 generation artifact) and trains them through ``jit.TrainStep``
 (or ``loss.backward()`` + ``opt.step()``) with Paddle's optimizers
-and schedulers, and activation recompute, on an NVIDIA
+and schedulers, and activation recompute; it pretrains and fine-tunes
+BERT on Paddle's ``nn`` layers (``nn.Layer``, the containers,
+initializers, activations, losses and the transformer stack) under
+``amp`` O1 / O2 with a ``GradScaler``; on an NVIDIA
 Hopper GPU: hand-written CUDA kernels for ragged, decode
 and verify paged attention, RMSNorm -> projections, projection ->
 residual, and flash attention's forward, dq and dk/dv passes (sources in
@@ -15,14 +18,14 @@ for the rest. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, where every kernel's plain PyTorch version runs
 instead. The package imports neither ``jax`` nor ``paddle_tpu``.
 """
-from . import (distributed, framework, generation, inference, jit, models,
-               nn, ops, optimizer, regularizer)
+from . import (amp, distributed, framework, generation, inference, jit,
+               models, nn, ops, optimizer, regularizer)
 from .convert import load_jax_params, params_from_jax
 from .framework import generator, resolve_device, seed
 
 __version__ = "0.1.0"
 
-__all__ = ["distributed", "framework", "generation", "inference", "jit",
+__all__ = ["amp", "distributed", "framework", "generation", "inference", "jit",
            "models", "nn", "ops", "optimizer", "regularizer",
            "load_jax_params", "params_from_jax", "generator",
            "resolve_device", "seed"]

@@ -9,8 +9,9 @@ False), ``RowParallelLinear`` (``x @ W``, then ``+ b``; a bias unless
 ``gather_output`` / ``input_is_parallel`` describe where the shards
 would meet and change nothing at degree 1. Any ``mp_group`` raises
 ``NotImplementedError``: sharded layers come with the distributed slice
-(ROADMAP Queue 1 item 11). Parameters are allocated uninitialised
-(biases zero); the model that owns them draws them from its generator.
+(ROADMAP Queue 1 item 11). Parameters start as ``nn.Linear``'s and
+``nn.Embedding``'s (Xavier-normal and N(0, 1) weights, zero biases); a
+model that owns them draws its own weights.
 """
 from __future__ import annotations
 
@@ -40,12 +41,10 @@ class ColumnParallelLinear(Linear):
                  gather_output=True, mp_group=None, device=None,
                  dtype=torch.float32):
         _one_rank(mp_group, "ColumnParallelLinear")
-        super().__init__(in_features, out_features, device=device,
-                         dtype=dtype, bias=has_bias is not False)
+        super().__init__(in_features, out_features,
+                         bias_attr=None if has_bias is not False else False,
+                         device=device, dtype=dtype)
         self.gather_output = gather_output
-        if self.bias is not None:
-            with torch.no_grad():
-                self.bias.zero_()
 
 
 class RowParallelLinear(Linear):
@@ -57,12 +56,10 @@ class RowParallelLinear(Linear):
                  input_is_parallel=False, mp_group=None, device=None,
                  dtype=torch.float32):
         _one_rank(mp_group, "RowParallelLinear")
-        super().__init__(in_features, out_features, device=device,
-                         dtype=dtype, bias=bool(has_bias))
+        super().__init__(in_features, out_features,
+                         bias_attr=None if has_bias else False,
+                         device=device, dtype=dtype)
         self.input_is_parallel = input_is_parallel
-        if self.bias is not None:
-            with torch.no_grad():
-                self.bias.zero_()
 
 
 class VocabParallelEmbedding(Embedding):

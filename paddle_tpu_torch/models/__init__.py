@@ -1,3 +1,5 @@
+from .bert import (BertConfig, BertForPretraining,
+                   BertForSequenceClassification, BertModel)
 from .deepseek_moe import (DeepseekMoeConfig, DeepseekMoeForCausalLM,
                            deepseek_moe_16b)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
@@ -11,4 +13,6 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "Qwen2Config", "Qwen2Model",
            "Qwen2ForCausalLM", "Qwen2PretrainingCriterion", "Qwen2MoeConfig",
            "Qwen2MoeForCausalLM", "DeepseekMoeConfig",
            "DeepseekMoeForCausalLM", "deepseek_moe_16b", "GPTConfig",
-           "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion"]
+           "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "BertConfig", "BertModel", "BertForSequenceClassification",
+           "BertForPretraining"]

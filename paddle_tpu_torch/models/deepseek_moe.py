@@ -85,7 +85,8 @@ class DeepseekMoeBlock(nn.Module):
         self.config = config
         mk = dict(device=device, dtype=dtype)
         d = config.hidden_size
-        self.gate = Linear(d, config.n_routed_experts, **mk)
+        self.gate = Linear(d, config.n_routed_experts, bias_attr=False,
+                           **mk)
         self.experts = StackedExpertsMLP(
             config.n_routed_experts, d, config.moe_intermediate_size, **mk)
         self.shared_experts = LlamaMLP(

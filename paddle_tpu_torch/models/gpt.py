@@ -61,6 +61,7 @@ from ..framework.random import generator as make_generator
 from ..generation import GenerationMixin
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn.functional import gelu
+from ..nn.initializer import owner_initializes
 from ..ops import lora as _lora
 from ..ops import paged_attention as _pa
 from ..ops import paged_cache as _pc
@@ -339,7 +340,8 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
-        self.gpt = GPTModel(config, dev)
+        with owner_initializes():     # _init_weights draws the weights
+            self.gpt = GPTModel(config, dev)
         self.criterion = GPTPretrainingCriterion()
         self._init_weights(generator if generator is not None
                            else make_generator(seed, dev))

@@ -51,6 +51,7 @@ from ..generation import GenerationMixin
 from ..incubate.nn.functional import (apply_rope, rope_rotate, rope_tables,
                                       swiglu)
 from ..nn import Embedding, Linear, RMSNorm
+from ..nn.initializer import owner_initializes
 from ..ops import lora as _lora
 from ..ops import paged_attention as _pa
 from ..ops import paged_cache as _pc
@@ -163,8 +164,9 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.hidden_size // config.num_attention_heads
         h, hd = config.hidden_size, self.head_dim
-        mk = dict(device=device, dtype=dtype)
-        qkv = dict(mk, bias=bool(getattr(config, "qkv_bias", False)))
+        mk = dict(device=device, dtype=dtype, bias_attr=False)
+        qkv = dict(mk, bias_attr=None if getattr(config, "qkv_bias", False)
+                   else False)
         self.q_proj = Linear(h, self.num_heads * hd, **qkv)
         self.k_proj = Linear(h, self.num_kv_heads * hd, **qkv)
         self.v_proj = Linear(h, self.num_kv_heads * hd, **qkv)
@@ -274,7 +276,7 @@ class LlamaMLP(nn.Module):
 
     def __init__(self, config: LlamaConfig, device, dtype, ffn=None):
         super().__init__()
-        mk = dict(device=device, dtype=dtype)
+        mk = dict(device=device, dtype=dtype, bias_attr=False)
         h = config.hidden_size
         f = config.intermediate_size if ffn is None else ffn
         self.gate_proj = Linear(h, f, **mk)
@@ -526,9 +528,13 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.config = config
         dev = resolve_device(device)
         dtype = config.torch_dtype
-        setattr(self, self.base_prefix, self.model_cls(config, dev, dtype))
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, device=dev, dtype=dtype)
+        # the layers leave their random weights to _init_weights
+        with owner_initializes():
+            setattr(self, self.base_prefix,
+                    self.model_cls(config, dev, dtype))
+            self.lm_head = None if config.tie_word_embeddings else Linear(
+                config.hidden_size, config.vocab_size, bias_attr=False,
+                device=dev, dtype=dtype)
         self.criterion = LlamaPretrainingCriterion(config)
         self._init_weights(generator if generator is not None
                            else make_generator(seed, dev))

@@ -136,12 +136,12 @@ class Qwen2MoeSparseBlock(nn.Module):
         self.config = config
         mk = dict(device=device, dtype=dtype)
         d = config.hidden_size
-        self.gate = Linear(d, config.num_experts, **mk)
+        self.gate = Linear(d, config.num_experts, bias_attr=False, **mk)
         self.experts = StackedExpertsMLP(
             config.num_experts, d, config.moe_intermediate_size, **mk)
         self.shared_expert = LlamaMLP(
             config, device, dtype, ffn=config.shared_expert_intermediate_size)
-        self.shared_expert_gate = Linear(d, 1, **mk)
+        self.shared_expert_gate = Linear(d, 1, bias_attr=False, **mk)
 
     def forward(self, x):
         """``(out, aux)`` for ``x [..., d]``."""

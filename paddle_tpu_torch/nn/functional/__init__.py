@@ -1,8 +1,17 @@
+"""``paddle.nn.functional`` of the port (counterpart of
+``paddle_tpu/nn/functional/``): activations, losses, norms, the common
+functionals and the attention entry points."""
 from . import flash_attention
-from .activation import gelu
-from .common import dropout
+from .activation import *  # noqa: F401,F403
+from .activation import __all__ as _activation
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _common
 from .flash_attention import flashmask_attention, scaled_dot_product_attention
-from .norm import layer_norm, rms_norm
+from .loss import *  # noqa: F401,F403
+from .loss import __all__ as _loss
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm
 
-__all__ = ["dropout", "flash_attention", "flashmask_attention", "gelu",
-           "layer_norm", "rms_norm", "scaled_dot_product_attention"]
+__all__ = (["flash_attention", "flashmask_attention",
+            "scaled_dot_product_attention"]
+           + _activation + _common + _loss + _norm)

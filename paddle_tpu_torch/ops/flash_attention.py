@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from .. import amp as _amp
 from .kernels.flash_attention import flash_attention as _flash
 from .kernels.flashmask import flashmask_attention_core
 
@@ -94,9 +95,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, name=None):
     """Attention with an optional ``attn_mask`` (bool: True keeps; float:
     added to the logits) and dropout ``dropout_p`` on the output while
-    ``training``."""
+    ``training``: the reference's op ``flash_attention``, white under AMP
+    O1 (q, k and v in the low dtype; the mask's bias in the query's dtype
+    as given)."""
     from ..nn.functional.common import dropout
     bias = mask_to_bias(attn_mask, query.dtype)
+    query, key, value = _amp.cast_inputs("flash_attention", query, key,
+                                         value)
     out = flash_attention_core(query, key, value, bias=bias,
                                is_causal=is_causal)
     if dropout_p > 0.0 and training:

@@ -35,7 +35,7 @@ tokens under ``async_depth=1``. The per-width engine
 of its steps (decode, verify, the chunk step and its draft twin, the
 draft loop, the bucketed prefill's buckets) equal to its eager run on
 the three pools, and its replays read the blocks a copy-on-write and a
-swap resume wrote."""
+swap resume wrote. AMP's ``GradScaler`` refuses to run inside a capture."""
 from unittest import mock
 
 import numpy as np
@@ -733,3 +733,22 @@ def test_per_width_replays_read_copied_and_swapped_blocks(cuda, pool):
     assert st["preemptions"] >= 1 and st["preempt_swap_resumes"] >= 1
     assert [t.data_ptr() for t in _pool_tensors(eng._pools)] == ptrs
     eng.shutdown()
+
+
+@pytest.mark.gpu
+def test_grad_scaler_refuses_a_graph_capture(cuda):
+    """``GradScaler`` reads its found-inf flag back, which no captured
+    graph may do: inside a capture it raises."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import SGD
+    p = torch.nn.Parameter(torch.ones(4, device="cuda"))
+    p.grad = torch.ones(4, device="cuda")
+    scaler = amp.GradScaler()
+    opt = SGD(0.1, parameters=[p])
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with pytest.raises(RuntimeError, match="CUDA graph capture"):
+            with torch.cuda.graph(graph, stream=stream):
+                scaler.unscale_(opt)

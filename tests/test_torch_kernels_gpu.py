@@ -57,7 +57,10 @@ and 300 (the stream-K body), a K whose last cluster block gets fewer and
 shorter slices, GPT's four calls replayed from a CUDA graph, and
 Llama-3-8B's and Qwen2-7B's four calls on the stream-K body at 1, 8 and
 136 rows are held against the plain versions at 2e-2 and to the bit
-between two calls; the Python body rule is pinned to the library's."""
+between two calls; the Python body rule is pinned to the library's. K1's
+non-causal mode is held at BERT-base's shapes (L 512 and 128, one query
+row against 37 and 200 keys), a tiny BERT under AMP O1 on the card against
+its CPU run, and ``GradScaler`` skips a step with an inf gradient."""
 from unittest import mock
 
 import numpy as np
@@ -890,6 +893,107 @@ def test_flash_attention_backward_is_deterministic(cuda, dtype):
     first, again = fa.flash_attention_dkv(*args), fa.flash_attention_dkv(
         *args)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,lq,lk", [(32, 512, 512), (32, 128, 128),
+                                     (2, 1, 37), (2, 1, 200)])
+def test_flash_attention_at_bert_shapes(cuda, dtype, b, lq, lk):
+    """K1 non-causal at BERT-base's attention (12 / 12 heads of 64):
+    pretraining's L 512, the fine-tune's L 128 (one 128-row q tile a
+    head), and one query row against a cache of 37 and of 200 keys, as
+    ``MultiHeadAttention``'s cached decoding reads them; each pass
+    against its plain version."""
+    q, k, v, do = _attn_case(b + lq + lk, b, lq, lk, 12, 12, 64,
+                             getattr(torch, dtype), cuda)
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125, False)
+    o_p, lse_p = fa.plain_flash_attention_fwd(q, k, v, 0.125, False)
+    _rows_close(o, o_p, dtype)
+    torch.testing.assert_close(lse, lse_p, **TOL[dtype])
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse_p, delta, 0.125, False)
+    _rows_close(fa.flash_attention_dq(*args),
+                fa.plain_flash_attention_dq(*args), dtype)
+    for a, b_ in zip(fa.flash_attention_dkv(*args),
+                     fa.plain_flash_attention_dkv(*args)):
+        _rows_close(a, b_, dtype)
+
+
+def _tiny_bert(dev):
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+    cfg = BertConfig.tiny(vocab=96, hidden=128, layers=2, heads=2)
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    return BertForSequenceClassification(cfg, device=dev, seed=3)
+
+
+@pytest.mark.gpu
+def test_tiny_bert_o1_on_the_card_matches_its_cpu_run(cuda):
+    """A tiny BERT (2 layers, 2 heads of 64) under ``auto_cast`` O1 in
+    bfloat16: unmasked on the card (K1 in bf16, 2 forwards) against the
+    same weights on the CPU (the plain K1), logits within 5e-2 and the
+    loss within 2e-2 relative (bf16 products summed in other orders);
+    logits in bfloat16 (the classifier is a white ``linear``), every
+    gradient finite and float32."""
+    from paddle_tpu_torch import amp
+    cpu = _tiny_bert("cpu")
+    gpu = _tiny_bert(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.RandomState(4).randint(0, 96, (4, 64)))
+    labels = torch.tensor([0, 1, 1, 0])
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        n0 = dict(launch_counts)
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            logits = model(ids.to(dev))
+            loss = model(ids.to(dev), labels=labels.to(dev))
+        loss.backward()
+        launched = launch_counts["flash_attention_fwd"] - n0[
+            "flash_attention_fwd"]
+        assert launched == (4 if dev == cuda else 0)
+        assert logits.dtype == torch.bfloat16      # linear is white
+        assert all(p.grad.dtype == torch.float32
+                   and torch.isfinite(p.grad).all()
+                   for p in model.parameters())
+        out.append((logits.detach().cpu(), float(loss.detach())))
+    torch.testing.assert_close(out[1][0], out[0][0], atol=5e-2, rtol=5e-2)
+    assert abs(out[1][1] - out[0][1]) <= 2e-2 * abs(out[0][1])
+
+
+@pytest.mark.gpu
+def test_grad_scaler_skips_a_step_with_an_inf_gradient(cuda):
+    """``GradScaler`` on the card: a gradient holding an inf skips the
+    step and halves the scale; a finite one steps by the unscaled
+    gradient, in float32 and in bfloat16 (whose check is not fused)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import SGD
+    p = torch.nn.Parameter(torch.ones(4, device=cuda))
+    opt = SGD(0.5, parameters=[p])
+    scaler = amp.GradScaler(init_loss_scaling=8.0)
+    p.grad = torch.tensor([1.0, float("inf"), 1.0, 1.0], device=cuda)
+    scaler.step(opt)
+    scaler.update()
+    assert torch.equal(p.detach(), torch.ones(4, device=cuda))
+    assert scaler.get_init_loss_scaling() == 4.0
+    p.grad = None
+    scaler.scale((p * torch.arange(4.0, device=cuda)).sum()).backward()
+    scaler.step(opt)
+    scaler.update()
+    torch.testing.assert_close(p.detach(), 1 - 0.5 * torch.arange(
+        4.0, device=cuda))
+    q = torch.nn.Parameter(torch.ones(4, device=cuda, dtype=torch.bfloat16))
+    opt = SGD(0.5, parameters=[q])
+    q.grad = torch.tensor([1.0, 1.0, float("nan"), 1.0], device=cuda,
+                          dtype=torch.bfloat16)
+    scaler.step(opt)
+    scaler.update()
+    assert torch.equal(q.detach(), torch.ones_like(q))
+    assert scaler.get_init_loss_scaling() == 2.0
+    q.grad = torch.full((4,), 2.0, device=cuda, dtype=torch.bfloat16)
+    scaler.step(opt)
+    scaler.update()
+    assert torch.equal(q.detach(), torch.full_like(q, 0.5))
 
 
 @pytest.mark.gpu

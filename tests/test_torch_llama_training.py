@@ -289,7 +289,7 @@ def _bf16_linear_pair(rng):
     ref = paddle.nn.Linear(8, 12, bias_attr=False)
     ref.to(dtype="bfloat16")
     ref.weight._data = jnp.asarray(w0, jnp.bfloat16)
-    port = Linear(8, 12, device="cpu", dtype=BF)
+    port = Linear(8, 12, bias_attr=False, device="cpu", dtype=BF)
     with torch.no_grad():
         port.weight.copy_(torch.from_numpy(w0).to(BF))
     return ref, port

@@ -52,8 +52,8 @@ class _Mlp(torch.nn.Module):
         super().__init__()
         # the reference's layer lists its parameters l2 first: the same
         # order gives the same state_dict indices
-        self.l2 = Linear(8, 3, device="cpu", bias=True)
-        self.l1 = Linear(4, 8, device="cpu", bias=True)
+        self.l2 = Linear(8, 3, device="cpu")
+        self.l1 = Linear(4, 8, device="cpu")
         for p, n in zip(self.parameters(), ("w2", "b2", "w1", "b1")):
             with torch.no_grad():
                 p.copy_(torch.from_numpy(weights[n]))

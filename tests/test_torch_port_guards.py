@@ -73,6 +73,12 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/nn/functional/activation.py",
                  "paddle_tpu_torch/distributed/fleet/mp_layers.py",
                  "paddle_tpu_torch/models/gpt.py",
+                 "paddle_tpu_torch/models/bert.py",
+                 "paddle_tpu_torch/amp/__init__.py",
+                 "paddle_tpu_torch/nn/layer/layers.py",
+                 "paddle_tpu_torch/nn/layer/transformer.py",
+                 "paddle_tpu_torch/nn/initializer.py",
+                 "paddle_tpu_torch/distributed/shard_utils.py",
                  "paddle_tpu_torch/monitor/registry.py",
                  "paddle_tpu_torch/monitor/tracing.py",
                  "paddle_tpu_torch/monitor/health.py",

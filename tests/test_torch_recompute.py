@@ -28,9 +28,9 @@ class _Segment(torch.nn.Module):
 
     def __init__(self, gen):
         super().__init__()
-        self.a = Linear(16, 32, device="cpu", bias=True)
+        self.a = Linear(16, 32, device="cpu")
         self.drop = Dropout(0.3)
-        self.b = Linear(32, 16, device="cpu")
+        self.b = Linear(32, 16, bias_attr=False, device="cpu")
         self.drop2 = Dropout(0.5, generator=gen)
         with torch.no_grad():
             for p in self.parameters():
@@ -69,7 +69,7 @@ def test_dropout_segment_recomputes_bitwise(wrap):
 
 
 def test_recompute_takes_the_reference_keywords():
-    lin = Linear(8, 8, device="cpu")
+    lin = Linear(8, 8, bias_attr=False, device="cpu")
     x = torch.randn(2, 8, requires_grad=True)
     y = recompute(lin, x, preserve_rng_state=False, use_reentrant=True)
     y.sum().backward()
