@@ -342,7 +342,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     at L 128), sentences/s each; 20 O1 fine-tune steps whose last loss is
     under the first; a 2-layer f32 BERT-base-width model's loss and every
     gradient through the kernels against their plain versions;
-29. print the kernels line, the card's name and power limit, and the
+29. BASELINE config 1, the canonical drive through ``paddle.Model``:
+    ``seed(42)``, LeNet, Adam(1e-3), cross-entropy and ``Accuracy``,
+    ``fit`` over 2048 MNIST images (the seeded synthetic set) at batch
+    128 for 3 epochs, ``evaluate`` on 512 (acc > 0.9), ``predict``
+    (512 x 10); images/s of each;
+30. BASELINE config 2, ResNet-50 at ImageNet width
+    (``resnet50(num_classes=1000)``, 224 x 224 x 3, NCHW, 64 images a
+    step, PaddleClas ResNet50.yaml's per-card batch; Momentum(0.1, 0.9,
+    L2Decay(1e-4))): ``TrainStep`` under AMP O1 (bf16) on one fixed
+    batch, 2 warm, 5 timed and 2 profiled steps: ms a step, images/s,
+    MFU (the step's counted FLOPs, and 3 x the forward's conv and linear
+    FLOPs, over 989.4 TFLOP/s), peak memory, idle share, the top device
+    operations; the last of its 11 losses under the first; then
+    ``Model.fit`` over 8 batches of 64 Flowers images through the
+    ``DataLoader`` and ``Model.predict`` at 64 a batch, images/s each;
+31. the card held against the CPU: one float32 ``TrainStep`` (TF32 off)
+    of ResNet-50 at 4 x 3 x 64 x 64 and of LeNet at 8 x 1 x 28 x 28 from
+    the same weights and batch, on each and in float64 on the CPU; the
+    loss, the gradients of the stem conv, the head and a batch norm's
+    weight and the running statistics: the card's float32 error against
+    float64 within ``VISION_CARD_CPU`` of the CPU's. The vision phases
+    launch no hand-written kernel (their counts are printed, all 0);
+32. print the kernels line, the card's name and power limit, and the
     result line ``{"ok": true, "device": {...}}`` last.
 
 Each path (phases 3, 5, each run of phases 7 and 9, both runs of phase
@@ -566,6 +588,24 @@ BERT_MASK_ID, BERT_CLS_ID, BERT_SEP_ID = 103, 101, 102
 BERT_SST2 = dict(batch=32, seq=128, lens=(8, 66), infer=10, steps=20,
                  lr=5e-5, warmup=2, pool=4)
 BERT_GRAD = dict(layers=2, batch=4, seq=512)
+# phase 29: the canonical LeNet drive (the verify skill's flow)
+LENET = dict(seed=42, train=2048, test=512, batch=128, epochs=3, acc=0.9)
+# phase 30: ResNet-50 at ImageNet width, PaddleClas ResNet50.yaml's
+# per-card batch and optimizer; fit / predict over Flowers' 224 x 224
+RESNET50 = dict(batch=64, size=224, classes=1000, warm=2, timed=5,
+                profiled=2, lr=0.1, momentum=0.9, decay=1e-4,
+                fit_batches=8)
+# phase 31: (model, batch shape, classes) held card against CPU in
+# float32, each anchored on a float64 run of the same step on the CPU: a
+# tensor's error (max |x - x64| over max |x64|) on the card may be at
+# most `factor` times the CPU's float32 error plus `floor`. A direct
+# card-vs-CPU bound cannot hold ResNet-50: its stem conv's and first
+# batch norm's gradients differ from float64 by ~2e-2 in float32 on the
+# CPU itself (cancellation back through 53 batch norms, the last at 2 x
+# 2 positions); the readings are in PERF.md (PR 28)
+VISION_CASES = (("resnet50", (4, 3, 64, 64), 1000),
+                ("lenet", (8, 1, 28, 28), 10))
+VISION_CARD_CPU = dict(factor=4.0, floor=1e-5)
 # phase 16, f32: the first layer's scales in two paths' pools (absmax /
 # 127 of rows that agree within float32 rounding), relative
 INT8_SCALE_RTOL = 1e-4
@@ -6758,6 +6798,307 @@ def bert_sst2_phase(torch, kernels, fa, card):
     return total
 
 
+# ---------------------------------------------------------- phases 29-31
+
+def vision_launches(kernels, tag):
+    """The hand-written kernels' launch counts of a vision run: all 0
+    (convolutions, pools and batch norms are PyTorch's)."""
+    got = {k: n for k, n in kernels.launch_counts.items() if n}
+    log(f"{tag}: hand-written kernel launches {got or 'none (all 0)'}")
+    return got
+
+
+def fit_timer(torch):
+    """A ``Callback`` taking the host clock at each training batch's end
+    (each ``train_batch`` reads its loss back, so the device is done)
+    and the losses."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Timer(Callback):
+        def __init__(self):
+            super().__init__()
+            self.times, self.losses = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.times.append(time.monotonic())
+            self.losses.append(float(np.ravel(logs["loss"])[0]))
+    return Timer()
+
+
+def lenet_phase(torch, kernels, card):
+    """Phase 29: the canonical drive (``.claude/skills/verify``'s flow)
+    on the port, on the card. Fails unless acc > LENET['acc'], every loss
+    is finite and ``predict`` gives (test, 10) finite outputs."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import Subset
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    L, fails = LENET, []
+    paddle.seed(L["seed"])
+    train = Subset(MNIST(mode="train"), range(L["train"]))
+    test = Subset(MNIST(mode="test"), range(L["test"]))
+    model = paddle.Model(LeNet())
+    model.prepare(paddle.optimizer.Adam(1e-3, parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    timer = fit_timer(torch)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    model.fit(train, batch_size=L["batch"], epochs=L["epochs"], verbose=0,
+              callbacks=[timer])
+    fit_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    logs = model.evaluate(test, batch_size=L["batch"], verbose=0)
+    eval_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    pred = model.predict(test, batch_size=L["batch"], stack_outputs=True)[0]
+    pred_s = time.monotonic() - t0
+    vision_launches(kernels, "phase 29")
+    steady = (timer.times[-1] - timer.times[0]) / (len(timer.times) - 1)
+    log(f"phase 29: LeNet on {next(model.parameters()).device}: fit "
+        f"{len(timer.losses)} steps of {L['batch']} in {fit_s:.2f}s "
+        f"(first step included; {1e3 * steady:.3f} ms a step after it, "
+        f"{L['batch'] / steady:.1f} images/s), losses "
+        f"{timer.losses[0]:.4f} -> {timer.losses[-1]:.4f}; evaluate "
+        f"{logs} in {eval_s:.2f}s ({L['test'] / eval_s:.1f} images/s); "
+        f"predict {pred.shape} in {pred_s:.2f}s "
+        f"({L['test'] / pred_s:.1f} images/s); card {card}")
+    if not np.all(np.isfinite(timer.losses)):
+        fails.append(f"losses {timer.losses}")
+    if not logs["acc"] > L["acc"]:
+        fails.append(f"acc {logs['acc']} <= {L['acc']}")
+    if pred.shape != (L["test"], 10) or not np.all(np.isfinite(pred)):
+        fails.append(f"predict {pred.shape}")
+    if fails:
+        raise AssertionError(f"phase 29 failed: {fails}")
+
+
+def conv_linear_flops(torch, model, x):
+    """2 x the multiply-adds of every conv and linear layer in one forward
+    of ``x`` (eval, no grad): the analytic forward FLOPs."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+    total, hooks = [0], []
+
+    def count(m, inp, out):
+        if isinstance(m, Conv2D):
+            k = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+            total[0] += 2 * out.numel() * k
+        else:
+            total[0] += 2 * out.numel() * m.weight.shape[0]
+    for m in model.modules():
+        if isinstance(m, (Conv2D, Linear)):
+            hooks.append(m.register_forward_hook(count))
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(x)
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def resnet50_phase(torch, kernels, card):
+    """Phase 30: ResNet-50 at ImageNet width (module docstring). Fails on
+    a non-finite loss, a last fixed-batch loss not under the first, or a
+    hand-written kernel launch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, monitor
+    from paddle_tpu_torch.io import Subset
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision.datasets import Flowers
+    from paddle_tpu_torch.vision.models import resnet50
+    R, fails = RESNET50, []
+    paddle.seed(SEED + 30)
+    t0 = time.monotonic()
+    model = resnet50(num_classes=R["classes"])
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = Momentum(R["lr"], momentum=R["momentum"],
+                   parameters=model.parameters(),
+                   weight_decay=L2Decay(R["decay"]))
+    ce = paddle.nn.CrossEntropyLoss()
+    step = TrainStep(model, lambda out, a, k: ce(out, k["_labels"][0]), opt)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    x = torch.randn(R["batch"], 3, R["size"], R["size"], device="cuda",
+                    generator=g)
+    y = torch.randint(0, R["classes"], (R["batch"],), device="cuda",
+                      generator=g)
+    fwd_flops = conv_linear_flops(torch, model, x)
+    log(f"phase 30: ResNet-50, {n_params / 1e6:.3f}M params, batch "
+        f"{R['batch']} x 3 x {R['size']} x {R['size']}, forward "
+        f"{fwd_flops / R['batch'] / 1e9:.4f} GFLOP an image (2 x conv + "
+        f"linear multiply-adds), init {time.monotonic() - t0:.1f}s")
+
+    def one_step():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return step(x, _labels=(y,))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses = [float(one_step()) for _ in range(R["warm"])]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = [one_step() for _ in range(R["timed"])]
+    torch.cuda.synchronize()
+    dt = (time.monotonic() - t0) / R["timed"]
+    losses += [float(v) for v in timed]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall_ms, busy_ms, reads = profiled(torch, one_step, R["profiled"], 15)
+    losses.append(float(one_step()))
+    rep = monitor.step_report(step.telemetry_name)
+    img_s = R["batch"] / dt
+    log(f"phase 30: TrainStep O1 bf16: {1e3 * dt:.3f} ms a step, "
+        f"{img_s:.1f} images/s, MFU {rep['flops'] / dt / PEAK_FLOPS['bfloat16']:.4f} "
+        f"(counted {rep['flops'] / 1e12:.4f} TFLOP a step) / "
+        f"{3 * fwd_flops / dt / PEAK_FLOPS['bfloat16']:.4f} (3 x forward "
+        f"= {3 * fwd_flops / 1e12:.4f} TFLOP) over "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.1f} TFLOP/s; peak memory "
+        f"{peak:.2f} GiB; profile of {R['profiled']} steps: wall "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms -> idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}, scalar reads {reads}; "
+        f"losses {[round(v, 4) for v in losses]}; card {card}")
+    if not np.all(np.isfinite(losses)):
+        fails.append(f"TrainStep losses {losses}")
+    if not losses[-1] < losses[0]:
+        fails.append(f"fixed-batch loss {losses[-1]} not under {losses[0]}")
+    launched = vision_launches(kernels, "phase 30 TrainStep")
+
+    # Model.fit / predict over Flowers through the DataLoader
+    t0 = time.monotonic()
+    n = R["batch"] * R["fit_batches"]
+    flowers = Subset(Flowers(mode="train"), range(n))
+    log(f"phase 30: Flowers('train') {len(flowers.dataset)} synthetic "
+        f"224 x 224 images made in {time.monotonic() - t0:.1f}s")
+    hl = paddle.Model(model)
+    hl.prepare(opt, ce)
+    timer = fit_timer(torch)
+    kernels.reset_launch_counts()
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        t0 = time.monotonic()
+        hl.fit(flowers, batch_size=R["batch"], epochs=1, verbose=0,
+               callbacks=[timer])
+        fit_s = time.monotonic() - t0
+        steady = (timer.times[-1] - timer.times[0]) / (len(timer.times) - 1)
+        hl.predict_batch(flowers[0][0][None])
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        pred = hl.predict(flowers, batch_size=R["batch"],
+                          stack_outputs=True)[0]
+        pred_s = time.monotonic() - t0
+    launched.update(vision_launches(kernels, "phase 30 fit / predict"))
+    log(f"phase 30: Model.fit O1 over {R['fit_batches']} Flowers batches of "
+        f"{R['batch']}: {fit_s:.2f}s with its first step; after it "
+        f"{1e3 * steady:.3f} ms a batch, {R['batch'] / steady:.1f} images/s "
+        f"against the bare TrainStep's {img_s:.1f} (the DataLoader's "
+        f"host share and the per-batch loss read-back); losses "
+        f"{[round(v, 4) for v in timer.losses]}; Model.predict O1 "
+        f"{pred.shape} in {pred_s:.2f}s, {n / pred_s:.1f} images/s; card "
+        f"{card}")
+    if not np.all(np.isfinite(timer.losses)) or \
+            not np.all(np.isfinite(pred)) or pred.shape != (n, R["classes"]):
+        fails.append(f"fit / predict: losses {timer.losses}, predict "
+                     f"{pred.shape}")
+    if launched:
+        fails.append(f"hand-written kernels launched: {launched}")
+    del model, step, opt, hl, x
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"phase 30 failed: {fails}")
+
+
+def vision_card_vs_cpu(torch, name, shape, classes, seed=0):
+    """One ``TrainStep`` (SGD, lr 0.01) of ``name`` ("resnet50",
+    "resnet18" or "lenet") from the same weights and batch: float32 on
+    the card and on the CPU, float64 on the CPU. Returns, for the loss,
+    the gradients of the stem conv, the head and the first batch norm's
+    weight (LeNet: its last linear's bias) and the running statistics
+    (all buffers together), ``(card, cpu, card_vs_cpu)``: the card's and
+    the CPU's float32 error against float64 and the card against the
+    CPU, each max |a - b| over max |b|. TF32 is off for the call."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.vision import models
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape).astype(np.float32)
+    y = rng.randint(0, classes, size=shape[0]).astype(np.int64)
+    make = {"lenet": lambda d: models.LeNet(device=d),
+            "resnet18": lambda d: models.resnet18(num_classes=classes,
+                                                  device=d),
+            "resnet50": lambda d: models.resnet50(num_classes=classes,
+                                                  device=d)}[name]
+    watch = (("features.0.weight", "fc.2.weight", "fc.2.bias")
+             if name == "lenet" else ("conv1.weight", "fc.weight",
+                                      "bn1.weight"))
+    out = {}
+    try:
+        cpu = make("cpu")
+        card, f64 = make("cuda"), make("cpu").double()
+        card.load_state_dict(cpu.state_dict())
+        f64.load_state_dict(cpu.state_dict())
+        for dev, model in (("cpu", cpu), ("cuda", card), ("f64", f64)):
+            grads, params = {}, dict(model.named_parameters())
+            for w in watch:
+                params[w].register_hook(
+                    lambda g, w=w: grads.__setitem__(w, g.detach().cpu()))
+            ce = CrossEntropyLoss()
+            step = TrainStep(model, lambda o, a, k: ce(o, k["_labels"][0]),
+                             SGD(0.01, parameters=model.parameters()))
+            xd = x.astype(np.float64) if dev == "f64" else x
+            loss = step(xd, _labels=(y,)).cpu()
+            bufs = [b.detach().cpu().reshape(-1)
+                    for _, b in model.named_buffers()]
+            out[dev] = dict(grads, loss=loss, stats=torch.cat(bufs)
+                            if bufs else torch.zeros(1))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+    def rel(a, b):
+        b = b.double()
+        return float((a.double() - b).abs().max()) / (
+            float(b.abs().max()) or 1.0)
+    return {k: (rel(out["cuda"][k], ref), rel(out["cpu"][k], ref),
+                rel(out["cuda"][k], out["cpu"][k]))
+            for k, ref in out["f64"].items()}
+
+
+def vision_held(r):
+    """The tensors of a ``vision_card_vs_cpu`` reading whose card error
+    is past VISION_CARD_CPU's bound."""
+    T = VISION_CARD_CPU
+    return {k: v for k, v in r.items()
+            if v[0] > T["factor"] * v[1] + T["floor"]}
+
+
+def vision_parity_phase(torch, kernels):
+    """Phase 31: ``vision_card_vs_cpu`` at VISION_CASES; fails past
+    VISION_CARD_CPU or on a hand-written kernel launch."""
+    fails = []
+    kernels.reset_launch_counts()
+    for name, shape, classes in VISION_CASES:
+        t0 = time.monotonic()
+        r = vision_card_vs_cpu(torch, name, shape, classes, SEED + 31)
+        log(f"phase 31 {name} {shape}, float32 error against float64 "
+            f"(card, cpu, card against cpu): "
+            + ", ".join(f"{k} {a:.3e} / {b:.3e} / {c:.3e}"
+                        for k, (a, b, c) in r.items())
+            + f" ({time.monotonic() - t0:.1f}s; bound: card <= "
+            f"{VISION_CARD_CPU['factor']} x cpu + {VISION_CARD_CPU['floor']})")
+        if vision_held(r):
+            fails.append(f"{name}: {vision_held(r)}")
+    if vision_launches(kernels, "phase 31"):
+        fails.append("hand-written kernels launched")
+    if fails:
+        raise AssertionError(f"phase 31 failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -7190,6 +7531,12 @@ def main(argv=None):
         launches[k] = launches.get(k, 0) + n
     for k, n in bert_sst2_phase(torch, kernels, fa, card).items():
         launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+
+    # -- phases 29-31: LeNet (config 1), ResNet-50 (config 2), card vs CPU --
+    lenet_phase(torch, kernels, card)
+    resnet50_phase(torch, kernels, card)
+    vision_parity_phase(torch, kernels)
     torch.cuda.empty_cache()
 
     # -- report -------------------------------------------------------------

@@ -36,15 +36,25 @@ def params_from_jax(named_numpy: dict, device=None, dtype=None) -> dict:
 
 
 def load_jax_params(model, named_numpy: dict) -> dict:
-    """Load reference weights into a port model in place; every name
-    must match and every shape agree. Returns the converted dict."""
-    own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(named_numpy))
+    """Load reference weights into a port model in place: every parameter
+    must be given; a persistent buffer (a batch norm's ``_mean`` /
+    ``_variance``) is carried when given, as the reference's
+    ``state_dict()`` holds it; no other name may be given, and every
+    shape must agree. Returns the converted dict."""
+    params = dict(model.named_parameters())
+    own = dict(params)
+    own.update((k, v) for k, v in model.state_dict(keep_vars=True).items()
+               if k in named_numpy and k not in params)
+    missing = sorted(set(params) - set(named_numpy))
     extra = sorted(set(named_numpy) - set(own))
     if missing or extra:
         raise KeyError(f"state_dict mismatch: missing {missing}, "
                        f"unexpected {extra}")
-    sd = params_from_jax(named_numpy, device=model.device)
+    if not own:
+        return {}
+    device = getattr(model, "device", None) or next(
+        iter(own.values())).device
+    sd = params_from_jax(named_numpy, device=device)
     with torch.no_grad():
         for name, p in own.items():
             t = sd[name]

@@ -5,10 +5,13 @@ sampling each take a ``torch.Generator`` made here, so two runs from one
 seed give the same numbers on the same device. Dropout draws from the
 default stream of its tensor's device (:func:`default_generator`, the
 counterpart of the reference's ``next_key``) unless the caller passes a
-generator of its own.
+generator of its own. Like the reference's ``seed()``, :func:`seed` also
+seeds numpy's global generator, which the data pipeline's samplers and
+the synthetic datasets draw from in both packages (``io``, ``vision``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .place import resolve_device
@@ -21,11 +24,12 @@ _STREAMS = {}   # torch.device -> its default torch.Generator
 
 def seed(value: int) -> int:
     """Set the default seed for generators made without an explicit one
-    (and PyTorch's global seed, for code outside the port), and restart
-    every device's default stream from it."""
+    (and PyTorch's and numpy's global seeds, as the reference seeds
+    numpy's), and restart every device's default stream from it."""
     global _SEED
     _SEED = int(value)
     torch.manual_seed(_SEED)
+    np.random.seed(_SEED % (2 ** 32))
     _STREAMS.clear()
     return _SEED
 

@@ -10,7 +10,13 @@ respect to the trainable set, applies the optimizer's ``grad_clip`` and
 stored parameter, with no float32 master copy** (the reference's
 compiled step calls the rule on the bf16 parameter directly; only the
 moments are float32), and bumps the optimizer's step count. Batches
-given as numpy arrays or tensors move to the layer's device.
+given as numpy arrays or tensors (or tuples of them) move to the
+layer's device. A keyword ``_labels`` is the reference's channel for
+``hapi.Model``'s labels: it is kept from the layer and handed to
+``loss_fn`` in its ``kwargs``. The first call draws one number from
+numpy's global generator, as the reference's does for its step's
+dropout key, so a seeded ``Model.fit`` shuffles its later epochs as the
+reference's does.
 
 Telemetry, as the reference's step keeps it (each step has a
 ``telemetry_name``, ``train_step:<layer class>:<n>``):
@@ -55,6 +61,8 @@ def _to_device(x, dev):
         return torch.from_numpy(x).to(dev)
     if isinstance(x, torch.Tensor):
         return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, dev) for v in x)
     return x
 
 
@@ -87,8 +95,10 @@ class TrainStep:
             .labels(step=self.telemetry_name)
 
     def _step(self, args, kwargs):
+        kwargs = dict(kwargs)
+        labels = kwargs.pop("_labels", ())
         out = self.layer(*args, **kwargs)
-        loss = self.loss_fn(out, args, kwargs)
+        loss = self.loss_fn(out, args, {"_labels": labels, **kwargs})
         grads = torch.autograd.grad(loss, self.trainable, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.trainable, grads)]
@@ -116,6 +126,7 @@ class TrainStep:
         cuda = self.device.type == "cuda"
         if self._sig is None:
             self._sig = sig
+            np.random.randint(0, 2 ** 31 - 1)
             if cuda:
                 torch.cuda.reset_peak_memory_stats(self.device)
             with _acct.CostRecorder() as rec:

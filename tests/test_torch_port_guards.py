@@ -84,6 +84,18 @@ def test_port_sources_exist():
                  "paddle_tpu_torch/monitor/health.py",
                  "paddle_tpu_torch/monitor/accounting.py",
                  "paddle_tpu_torch/monitor/digest.py",
+                 "paddle_tpu_torch/nn/functional/conv_pool.py",
+                 "paddle_tpu_torch/nn/layer/conv.py",
+                 "paddle_tpu_torch/nn/layer/pooling.py",
+                 "paddle_tpu_torch/framework/io.py",
+                 "paddle_tpu_torch/static/__init__.py",
+                 "paddle_tpu_torch/io/__init__.py",
+                 "paddle_tpu_torch/metric/__init__.py",
+                 "paddle_tpu_torch/vision/datasets.py",
+                 "paddle_tpu_torch/vision/transforms.py",
+                 "paddle_tpu_torch/vision/models.py",
+                 "paddle_tpu_torch/hapi/callbacks.py",
+                 "paddle_tpu_torch/hapi/model.py",
                  "chip_smoke.py"):
         assert want in names
     for cu in ("ragged_paged_attention", "paged_decode_attention",
@@ -116,7 +128,10 @@ def test_fresh_interpreter_import_pulls_in_no_jax():
             "paddle_tpu_torch.monitor.registry, "
             "paddle_tpu_torch.monitor.tracing, "
             "paddle_tpu_torch.monitor.health, "
-            "paddle_tpu_torch.monitor.accounting; "
+            "paddle_tpu_torch.monitor.accounting, "
+            "paddle_tpu_torch.hapi, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.metric, paddle_tpu_torch.vision, "
+            "paddle_tpu_torch.static, paddle_tpu_torch.framework.io; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
